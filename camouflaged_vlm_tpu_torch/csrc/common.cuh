@@ -1,0 +1,64 @@
+// Shared device helpers for the hand-written Hopper kernels.
+//
+// Every kernel takes bfloat16 activations and weights, accumulates in fp32
+// on the tensor cores through WMMA 16x16x16 fragments (mma.sync underneath),
+// and rounds to bfloat16 exactly where the JAX package's kernels round.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+
+namespace cvlm {
+
+using bf16 = __nv_bfloat16;
+namespace wmma = nvcuda::wmma;
+
+// Activation codes shared with the Python wrappers (ops/_cuda.py).
+enum Act { ACT_NONE = 0, ACT_GELU = 1, ACT_GELU_TANH = 2, ACT_QUICK_GELU = 3 };
+
+__device__ __forceinline__ float apply_act(float v, int act) {
+  switch (act) {
+    case ACT_GELU:  // jax.nn.gelu(approximate=False)
+      return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+    case ACT_GELU_TANH: {  // jax.nn.gelu(approximate=True)
+      const float u = 0.79788456080286536f * (v + 0.044715f * v * v * v);
+      return 0.5f * v * (1.0f + tanhf(u));
+    }
+    case ACT_QUICK_GELU:  // x * sigmoid(1.702 x)
+      return v / (1.0f + expf(-1.702f * v));
+    default:
+      return v;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Two-pass LayerNorm statistics of one row, computed by a whole warp:
+// mean, then the mean of squared deviations (the JAX formulation).
+__device__ __forceinline__ void row_stats(const bf16* __restrict__ row, int K,
+                                          float eps, float& mu, float& rstd) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+  for (int k = lane; k < K; k += 32) s += __bfloat162float(row[k]);
+  mu = warp_sum(s) / (float)K;
+  float v = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float d = __bfloat162float(row[k]) - mu;
+    v += d * d;
+  }
+  rstd = 1.0f / sqrtf(warp_sum(v) / (float)K + eps);
+}
+
+}  // namespace cvlm

@@ -1,0 +1,170 @@
+"""Build, load and launch the hand-written Hopper kernels (`csrc/*.cu`).
+
+The sources are compiled at first use with `nvcc` for `sm_90a` into one
+shared library with a plain C interface under `<repo>/build/kernels/`
+(named by a hash of the sources, so an edit rebuilds) and bound with
+`ctypes`. Nothing here runs at import: the CPU tests import every module,
+and a CPU-only machine need not have `nvcc`.
+
+Each kernel is a `CudaKernel`: calling it launches the C entry point on
+PyTorch's current stream, raises if the launch returned a CUDA error, and
+adds one to its `launches` count — the count a run reads to show that its
+main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# activation codes of csrc/common.cuh
+ACTIVATIONS = {None: 0, "gelu": 1, "gelu_tanh": 2, "quick_gelu": 3}
+
+_lib: Optional[ctypes.CDLL] = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into build/kernels/libcvlm_<hash>.so (once per
+    source hash) and return its path. Raises with nvcc's output on failure."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cu*")):
+        digest.update(f.name.encode() + f.read_bytes())
+    lib_path = BUILD_DIR / f"libcvlm_{digest.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    build_info.update(
+        seconds=time.perf_counter() - t0, command=" ".join(cmd), log=proc.stderr
+    )
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.cvlm_error_string.argtypes = [ctypes.c_int]
+        lib.cvlm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class CudaKernel:
+    """One C entry point of the kernel library, with its launch count."""
+
+    def __init__(self, name: str, symbol: str, argtypes):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [P]  # the stream comes last
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(library(), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        stream = torch.cuda.current_stream().cuda_stream
+        err = self._fn(*args, stream)
+        if err != 0:
+            msg = library().cvlm_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+# One entry per wrapper (and TPU kernel replaced); the first two are the two
+# instantiations of csrc/ln_linear.cu, without and with the LN prologue.
+_LN_LINEAR_ARGS = [P, P, P, P, P, P, I, I, I, F, I, I]
+LINEAR_ACT = CudaKernel("linear_act", "cvlm_ln_linear", _LN_LINEAR_ARGS)
+LN_LINEAR = CudaKernel("ln_linear_act_bt", "cvlm_ln_linear", _LN_LINEAR_ARGS)
+LN_MLP_RESIDUAL = CudaKernel(
+    "ln_mlp_residual_bt", "cvlm_ln_mlp_residual", [P, P, P, P, P, P, P, P, I, I, I, F, I]
+)
+PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, I, I])
+QKV_PACKED_PLAIN = CudaKernel(
+    "flash_qkv_packed_plain", "cvlm_qkv_packed_plain", [P, P, I, I, I, I, F]
+)
+KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS, QKV_PACKED_PLAIN)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}
+
+
+# --------------------------------------------------------------- dispatch
+
+
+def use_kernel(name: str, *tensors: Optional[torch.Tensor]) -> bool:
+    """False when every tensor lies on the CPU (the caller runs the plain
+    version); True when all lie on one CUDA device and the kernel can take
+    them (bf16, contiguous, 32-byte aligned, no autograd). Raises on
+    anything else — a CUDA tensor never falls back to the plain version."""
+    ts = [t for t in tensors if t is not None]
+    devices = {t.device for t in ts}
+    if all(d.type == "cpu" for d in devices):
+        return False
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name}: tensors on mixed or unsupported devices {devices}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is inference-only (no backward yet); "
+            "run under torch.no_grad()"
+        )
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: CUDA kernel needs contiguous tensors")
+        if t.data_ptr() % 32 != 0:
+            raise ValueError(f"{name}: CUDA kernel needs 32-byte aligned tensors")
+    return True
+
+
+def check_dtype(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: CUDA kernel takes {dtype}, got {t.dtype}")
