@@ -32,7 +32,12 @@ from camouflaged_vlm_tpu.data.transforms import (
 )
 from camouflaged_vlm_tpu.utils.image import bilinear_resize_f32
 
-from ..factory import build_full_cascade, build_tiny_cascade, make_bank_inputs
+from ..factory import (
+    attach_rel_cache,
+    build_full_cascade,
+    build_tiny_cascade,
+    make_bank_inputs,
+)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -79,6 +84,7 @@ class DemoSession:
         if args.cascade_ckpt:
             sd = torch.load(args.cascade_ckpt, map_location=device, weights_only=True)
             self.model.load_state_dict(sd.get("model", sd), strict=True)
+        attach_rel_cache(self.model)  # after the weights are final
         bank = make_bank_inputs(cfg, self.classnames, seed=args.seed, device=device)
         self.text_features = self.model.encode_class_text_features(
             bank["prefix"], bank["suffix"], bank["eot_indices"], bank["bank_features"]

@@ -1,0 +1,288 @@
+// attn_rows: per head, o = softmax((q*scale) . k^T + bias) . v over sequences
+// short enough that a block holds whole score rows in shared memory, read
+// straight from the packed qkv projection and written d-major. One template,
+// three bias modes:
+//
+//   ROWS_PLAIN    no bias                      (CLIP vision, qkv_packed_plain.cu)
+//   ROWS_WINDOWS  decomposed rel-pos bias      (SAM interior windows)
+//   ROWS_EDGE     the same per edge window, plus dummy-key mask and the
+//                 virtual pad key              (SAM edge windows)
+//
+// Layouts: qkv (BB, S, 3*H*d), last axis [q heads | k heads | v heads];
+// out (BB, H*d, S). BB is the batch of windows (B*nwin for the windows,
+// B*n_edge for the edges). Grid (ceil(S/32), heads, BB), 128 threads.
+//
+// One block owns 32 queries of one head and holds their whole score rows
+// (32 x Spad fp32, Spad = S rounded up to 64) in shared memory, so the
+// softmax is the exact max-subtracted one of the JAX `ref` formulations:
+// q*scale rounded to bf16 (the scale itself rounded to bf16 first), scores
+// and bias summed in fp32, probabilities normalised in fp32 and rounded to
+// bf16 before P.V, fp32 accumulation, one rounding of the output. Keys past
+// S are zero-filled and excluded from the softmax.
+//
+// The rel-pos bias is built by indexing, not by the TPU kernels' product
+// with a 0/1 scatter matrix: each key k has two rel lanes (lo, hi) and
+// bias[q, k] = rel[q, lo] + rel[q, hi], the same fp32 sum of the same two
+// bf16 values the scatter product gives. Each warp reads a query's 32 rel
+// lanes once (one lane each) and gathers them with shuffles.
+//   windows: lo = k / win, hi = win + k % win (k on the win x win grid);
+//   edge:    lo, hi = the first and last nonzero lanes of the window's
+//            column of `sel` (n, 32, R) -- the rows kh and win + kw of the
+//            group's own (nr, nc) grid; a dummy column has none and gets
+//            the -1e30 of `kmask` (n, R) instead.
+// The edge's virtual key has logit rel[q, LPAD_LANE]; it joins the row max
+// and the row sum, and adds (pp / l) * vb[h] to the fp32 output.
+//
+// What bounds it on the H100: the score rows' round trip through shared
+// memory and the per-tile synchronisation, not the tensor cores (WMMA
+// 16x16x16, no wgmma, no TMA). A flash-style version is later work.
+#pragma once
+
+#include "common.cuh"
+
+namespace cvlm {
+
+enum RowsMode { ROWS_PLAIN = 0, ROWS_WINDOWS = 1, ROWS_EDGE = 2 };
+
+constexpr int AR_BQ = 32, AR_KT = 64, AR_THREADS = 128;
+constexpr int REL_LANES = 32, LPAD_LANE = 28;
+
+struct RowsBias {
+  const bf16* rel;     // windows (S, BB, H*32); edge (BB, S, H*32)
+  const bf16* sel;     // edge: (n, 32, S) 0/1 scatter
+  const bf16* vb;      // edge: (H, d) pad-token value (v slice of the qkv bias)
+  const float* kmask;  // edge: (n, S) 0 real key / -1e30 dummy
+  int win;             // windows: window side (S == win * win)
+  int n;               // edge: windows per image (BB == B * n)
+};
+
+// Copies `rows` rows of DH bf16 values (row stride lds) into shared memory
+// (pitch ldd) with 16-byte loads; rows at or past `valid` are zero-filled.
+template <int DH>
+__device__ __forceinline__ void load_rows(bf16* dst, int ldd, const bf16* src, size_t lds,
+                                          int rows, int valid) {
+  constexpr int CH = DH / 8;
+  for (int e = threadIdx.x; e < rows * CH; e += blockDim.x) {
+    const int r = e / CH, c = (e % CH) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) v = *reinterpret_cast<const uint4*>(src + (size_t)r * lds + c);
+    *reinterpret_cast<uint4*>(dst + r * ldd + c) = v;
+  }
+}
+
+__host__ __device__ constexpr int rows_spad(int S) { return (S + AR_KT - 1) / AR_KT * AR_KT; }
+
+template <int DH, int MODE>
+__host__ __device__ constexpr size_t rows_smem(int S) {
+  return sizeof(float) * AR_BQ * ((rows_spad(S) > DH ? rows_spad(S) : DH) + 4) +
+         (MODE == ROWS_PLAIN ? 0 : sizeof(float) * (2 * rows_spad(S) + AR_BQ)) +
+         sizeof(bf16) * AR_BQ * (rows_spad(S) + 8) + sizeof(bf16) * (AR_BQ + AR_KT) * (DH + 8);
+}
+
+template <int DH, int MODE>
+__global__ void __launch_bounds__(AR_THREADS) attn_rows_kernel(
+    const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, int heads, float scale,
+    RowsBias rb) {
+  constexpr int LDH = DH + 8;
+  constexpr int NW = AR_THREADS / 32;
+  const int Spad = rows_spad(S);
+  const int LDS = Spad + 4, LDP = Spad + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  // scores (BQ x LDS), later reused for the O tile (BQ x DH+4)
+  float* Ss = reinterpret_cast<float*>(smem);
+  float* kadd = Ss + AR_BQ * ((Spad > DH ? Spad : DH) + 4);  // Spad: kmask per key
+  int* kcode = reinterpret_cast<int*>(kadd + Spad);          // Spad: lo | hi << 8, or -1
+  float* padw = reinterpret_cast<float*>(kcode + Spad);      // BQ: pp / l per row
+  bf16* Ps = reinterpret_cast<bf16*>(MODE == ROWS_PLAIN ? kadd : padw + AR_BQ);  // BQ x LDP
+  bf16* Qs = Ps + AR_BQ * LDP;                                // BQ x LDH
+  bf16* KV = Qs + AR_BQ * LDH;                                // KT x LDH
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * AR_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int C3 = 3 * heads * DH;
+  const bf16* base = qkv + (size_t)b * S * C3;
+  const float sc = __bfloat162float(__float2bfloat16(scale));  // scale in bf16
+
+  for (int e = tid; e < AR_BQ * DH; e += AR_THREADS) {
+    const int r = e / DH, c = e % DH, q = q0 + r;
+    float v = 0.f;
+    if (q < S) v = __bfloat162float(base[(size_t)q * C3 + h * DH + c]) * sc;
+    Qs[r * LDH + c] = __float2bfloat16(v);
+  }
+  if (MODE == ROWS_WINDOWS) {
+    for (int k = tid; k < S; k += AR_THREADS) {
+      kcode[k] = (k / rb.win) | ((rb.win + k % rb.win) << 8);
+      kadd[k] = 0.f;
+    }
+  } else if (MODE == ROWS_EDGE) {
+    const int wi = b % rb.n;
+    const bf16* sel = rb.sel + (size_t)wi * REL_LANES * S;
+    for (int k = tid; k < S; k += AR_THREADS) {
+      int lo = -1, hi = -1;
+      for (int j = 0; j < REL_LANES; ++j)
+        if (__bfloat162float(sel[(size_t)j * S + k]) != 0.f) {
+          if (lo < 0) lo = j;
+          hi = j;
+        }
+      kcode[k] = lo < 0 ? -1 : (lo | (hi << 8));
+      kadd[k] = rb.kmask[(size_t)wi * S + k];
+    }
+  }
+
+  // scores: 2 x 4 fragments per key tile, two per warp
+  const int si = warp & 1, sj = (warp >> 1) * 2;
+  for (int kt = 0; kt < Spad; kt += AR_KT) {
+    __syncthreads();
+    load_rows<DH>(KV, LDH, base + (size_t)kt * C3 + (heads + h) * DH, C3, AR_KT, S - kt);
+    __syncthreads();
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sfr[2];
+    wmma::fill_fragment(sfr[0], 0.0f);
+    wmma::fill_fragment(sfr[1], 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, Qs + 16 * si * LDH + kk, LDH);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
+        wmma::load_matrix_sync(bk, KV + 16 * (sj + j) * LDH + kk, LDH);
+        wmma::mma_sync(sfr[j], a, bk, sfr[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Ss + 16 * si * LDS + kt + 16 * (sj + j), sfr[j], LDS,
+                              wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  // bias, then the exact softmax over the S real keys, one warp per row
+  for (int r = warp; r < AR_BQ; r += NW) {
+    float* row = Ss + r * LDS;
+    const int q = q0 + r;
+    float rv = 0.f;  // this lane's rel value of query q
+    if (MODE == ROWS_WINDOWS && q < S)
+      rv = __bfloat162float(
+          rb.rel[((size_t)q * gridDim.z + b) * heads * REL_LANES + h * REL_LANES + lane]);
+    if (MODE == ROWS_EDGE && q < S)
+      rv = __bfloat162float(
+          rb.rel[(((size_t)b * S + q) * heads + h) * REL_LANES + lane]);
+    float mx = -INFINITY;
+    for (int kb = 0; kb < S; kb += 32) {  // warp-uniform trip count: shuffles inside
+      const int k = kb + lane;
+      float bias = 0.f, km = 0.f;
+      if (MODE != ROWS_PLAIN) {
+        const int code = k < S ? kcode[k] : -1;
+        const float lo = __shfl_sync(0xffffffffu, rv, code & 31);
+        const float hi = __shfl_sync(0xffffffffu, rv, (code >> 8) & 31);
+        if (code >= 0) bias = lo + hi;
+        if (k < S) km = kadd[k];
+      }
+      if (k < S) {
+        float s = row[k];
+        if (MODE != ROWS_PLAIN) s = s + bias + km;
+        row[k] = s;
+        mx = fmaxf(mx, s);
+      }
+    }
+    mx = warp_max(mx);
+    float lp = 0.f;
+    if (MODE == ROWS_EDGE) {
+      lp = __shfl_sync(0xffffffffu, rv, LPAD_LANE);
+      mx = fmaxf(mx, lp);
+    }
+    float sum = 0.f;
+    for (int k = lane; k < S; k += 32) {
+      const float e = expf(row[k] - mx);
+      row[k] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    if (MODE == ROWS_EDGE) {
+      const float pp = expf(lp - mx);
+      sum += pp;
+      if (lane == 0) padw[r] = pp / sum;
+    }
+    for (int k = lane; k < Spad; k += 32)
+      Ps[r * LDP + k] = __float2bfloat16(k < S ? row[k] / sum : 0.f);
+  }
+
+  // O = P . V: (BQ/16) x (DH/16) fragments spread over the warps
+  constexpr int NOF = (AR_BQ / 16) * (DH / 16);
+  constexpr int PER_WARP = (NOF + NW - 1) / NW;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[PER_WARP];
+#pragma unroll
+  for (int f = 0; f < PER_WARP; ++f) wmma::fill_fragment(of[f], 0.0f);
+  for (int kt = 0; kt < Spad; kt += AR_KT) {
+    __syncthreads();
+    load_rows<DH>(KV, LDH, base + (size_t)kt * C3 + (2 * heads + h) * DH, C3, AR_KT, S - kt);
+    __syncthreads();
+#pragma unroll
+    for (int f = 0; f < PER_WARP; ++f) {
+      const int idx = warp + NW * f;
+      if (idx < NOF) {
+        const int i = idx % (AR_BQ / 16), j = idx / (AR_BQ / 16);
+#pragma unroll
+        for (int kk = 0; kk < AR_KT; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
+          wmma::load_matrix_sync(a, Ps + 16 * i * LDP + kt + kk, LDP);
+          wmma::load_matrix_sync(bv, KV + kk * LDH + 16 * j, LDH);
+          wmma::mma_sync(of[f], a, bv, of[f]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // stage O in the (now free) score buffer, then write d-major
+  constexpr int LDO = DH + 4;
+  float* Os = Ss;
+#pragma unroll
+  for (int f = 0; f < PER_WARP; ++f) {
+    const int idx = warp + NW * f;
+    if (idx < NOF) {
+      const int i = idx % (AR_BQ / 16), j = idx / (AR_BQ / 16);
+      wmma::store_matrix_sync(Os + 16 * i * LDO + 16 * j, of[f], LDO, wmma::mem_row_major);
+    }
+  }
+  __syncthreads();
+  bf16* ob = out + ((size_t)b * heads + h) * DH * S;
+  for (int e = tid; e < AR_BQ * DH; e += AR_THREADS) {
+    const int c = e / AR_BQ, r = e % AR_BQ, q = q0 + r;
+    if (q < S) {
+      float o = Os[r * LDO + c];
+      if (MODE == ROWS_EDGE) o += padw[r] * __bfloat162float(rb.vb[h * DH + c]);
+      ob[(size_t)c * S + q] = __float2bfloat16(o);
+    }
+  }
+}
+
+template <int DH, int MODE>
+int launch_attn_rows(const void* qkv, void* out, int BB, int S, int heads, float scale,
+                     const RowsBias& rb, cudaStream_t s) {
+  const size_t smem = rows_smem<DH, MODE>(S);
+  cudaError_t err = cudaFuncSetAttribute(attn_rows_kernel<DH, MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + AR_BQ - 1) / AR_BQ, heads, BB);
+  attn_rows_kernel<DH, MODE><<<grid, AR_THREADS, smem, s>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), S, heads, scale, rb);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int dispatch_attn_rows(const void* qkv, void* out, int BB, int S, int heads, int d,
+                       float scale, const RowsBias& rb, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch_attn_rows<16, MODE>(qkv, out, BB, S, heads, scale, rb, s);
+    case 32: return launch_attn_rows<32, MODE>(qkv, out, BB, S, heads, scale, rb, s);
+    case 64: return launch_attn_rows<64, MODE>(qkv, out, BB, S, heads, scale, rb, s);
+    case 80: return launch_attn_rows<80, MODE>(qkv, out, BB, S, heads, scale, rb, s);
+    case 128: return launch_attn_rows<128, MODE>(qkv, out, BB, S, heads, scale, rb, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace cvlm

@@ -1,8 +1,12 @@
-// ln_linear: out = act(LN?(x) . W^T + b), optional LayerNorm prologue.
+// ln_linear: out = act(LN?(x) [* mask] . W^T + b), optional LayerNorm
+// prologue with an optional row mask.
 //
-// Replaces two TPU kernels of camouflaged_vlm_tpu/ops/linear.py:
-//   linear_pallas    (_linear_kernel)            -- no LN: SAM patch embed
-//   ln_linear_act_bt (_ln_linear_act_bt_kernel)  -- LN:    CLIP ln_1 + qkv
+// Replaces three TPU kernels of camouflaged_vlm_tpu/ops/linear.py:
+//   linear_pallas     (_linear_kernel)             -- no LN: SAM patch embed
+//   ln_linear_act_bt  (_ln_linear_act_bt_kernel)   -- LN:    CLIP ln_1 + qkv,
+//                                                     SAM windowed LN1 + qkv
+//   ln_mask_linear_bt (_ln_mask_linear_bt_kernel)  -- LN and row mask: SAM
+//                      global LN1 + qkv, x (B, 4096, 1280), W (3840, 1280)
 //
 // Shapes on the main path (bf16): patch embed x (B*4096, 768) . W (1280, 768);
 // CLIP qkv x (B*581, 1024) . W (3072, 1024). These products do ~2 FLOP per
@@ -14,7 +18,10 @@
 // LN prologue: each block computes the fp32 mean/rstd of its 64 rows (two
 // passes over the row, the JAX formulation), then normalises x while staging
 // the A tile and rounds it to bf16 before the product -- the rounding point
-// of the TPU kernel (`xn.astype(o_ref.dtype)`, linear.py:137). Bias and the
+// of the TPU kernel (`xn.astype(o_ref.dtype)`, linear.py:137). The row mask
+// of ln_mask_linear_bt (row m of window-batch b' = m / S reads
+// mask[(b' % nwin) * S + m % S]) multiplies the fp32 LN output before that
+// rounding, as the TPU kernel does (linear.py:220). Bias and the
 // activation are applied in fp32 on the accumulator, then rounded once.
 // Ragged M, N and K are masked by zero-filling the staged tiles.
 #include "common.cuh"
@@ -26,16 +33,16 @@ constexpr int LL_LDA = LL_BK + 8;   // bf16 tile row pitch (multiple of 8)
 constexpr int LL_LDC = LL_BN + 4;   // fp32 epilogue pitch (multiple of 4)
 constexpr int LL_THREADS = 128;     // 4 warps, each a 32x32 quarter
 
-template <bool LN>
+template <bool LN, bool MASK>
 __global__ void __launch_bounds__(LL_THREADS) ln_linear_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
-    const float* __restrict__ beta, const bf16* __restrict__ w,
-    const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int K, int N,
-    float eps, int act) {
+    const float* __restrict__ beta, const bf16* __restrict__ mask,
+    const bf16* __restrict__ w, const bf16* __restrict__ bias, bf16* __restrict__ out,
+    int M, int K, int N, int S, int nwin, float eps, int act) {
   __shared__ __align__(128) bf16 As[LL_BM * LL_LDA];
   __shared__ __align__(128) bf16 Bs[LL_BN * LL_LDA];
   __shared__ __align__(128) float Cs[LL_BM * LL_LDC];
-  __shared__ float s_mu[LL_BM], s_rstd[LL_BM];
+  __shared__ float s_mu[LL_BM], s_rstd[LL_BM], s_mask[LL_BM];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.y * LL_BM, n0 = blockIdx.x * LL_BN;
@@ -47,6 +54,10 @@ __global__ void __launch_bounds__(LL_THREADS) ln_linear_kernel(
       if (lane == 0) {
         s_mu[r] = mu;
         s_rstd[r] = rstd;
+        if (MASK) {
+          const int m = m0 + r;
+          s_mask[r] = m < M ? __bfloat162float(mask[((m / S) % nwin) * S + m % S]) : 0.f;
+        }
       }
     }
     __syncthreads();
@@ -67,7 +78,9 @@ __global__ void __launch_bounds__(LL_THREADS) ln_linear_kernel(
         v = x[(size_t)m * K + k];
         if (LN) {
           const float xn = (__bfloat162float(v) - s_mu[r]) * s_rstd[r];
-          v = __float2bfloat16(xn * gamma[k] + beta[k]);
+          float y = xn * gamma[k] + beta[k];
+          if (MASK) y *= s_mask[r];
+          v = __float2bfloat16(y);
         }
       }
       As[r * LL_LDA + c] = v;
@@ -130,11 +143,28 @@ extern "C" int cvlm_ln_linear(const void* x, const void* gamma, const void* beta
   const auto* biasp = static_cast<const bf16*>(bias);
   auto* op = static_cast<bf16*>(out);
   if (has_ln)
-    ln_linear_kernel<true><<<grid, LL_THREADS, 0, s>>>(xp, gp, bp, wp, biasp, op, M,
-                                                       K, N, eps, act);
+    ln_linear_kernel<true, false><<<grid, LL_THREADS, 0, s>>>(
+        xp, gp, bp, nullptr, wp, biasp, op, M, K, N, 1, 1, eps, act);
   else
-    ln_linear_kernel<false><<<grid, LL_THREADS, 0, s>>>(xp, gp, bp, wp, biasp, op,
-                                                        M, K, N, eps, act);
+    ln_linear_kernel<false, false><<<grid, LL_THREADS, 0, s>>>(
+        xp, gp, bp, nullptr, wp, biasp, op, M, K, N, 1, 1, eps, act);
+  return (int)cudaGetLastError();
+}
+
+// x (B', S, K) with B' = B * nwin, mask (nwin, S, 1), w (N, K), bias (N,),
+// out (B', S, N): bf16; gamma/beta (K,) fp32. No activation. Returns
+// cudaGetLastError().
+extern "C" int cvlm_ln_mask_linear(const void* x, const void* gamma, const void* beta,
+                                   const void* mask, const void* w, const void* bias,
+                                   void* out, int M, int K, int N, int S, int nwin,
+                                   float eps, void* stream) {
+  using namespace cvlm;
+  const dim3 grid((N + LL_BN - 1) / LL_BN, (M + LL_BM - 1) / LL_BM);
+  ln_linear_kernel<true, true><<<grid, LL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const bf16*>(mask),
+      static_cast<const bf16*>(w), static_cast<const bf16*>(bias), static_cast<bf16*>(out),
+      M, K, N, S, nwin, eps, ACT_NONE);
   return (int)cudaGetLastError();
 }
 

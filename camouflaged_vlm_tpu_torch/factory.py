@@ -18,6 +18,7 @@ from torch import nn
 from .models import CascadeConfig, OVCOSCascade
 from .models.clip import build_class_prompt_bank
 from .models.position_embedding import PositionEmbeddingRandom
+from .models.sam_encoder import precompute_rel_tables
 from .ops.norms import LayerNormFP32
 
 
@@ -66,6 +67,18 @@ def build_cascade(
     init_random_(model, gen)
     cast_weights_(model, cfg.encoder.dtype)
     return model.eval().requires_grad_(False)
+
+
+def attach_rel_cache(model: OVCOSCascade) -> OVCOSCascade:
+    """Build the SAM encoder's parameter-derived rel tables once, for
+    inference (counterpart of the JAX `attach_rel_cache`). Call it after
+    the weights are final: a cache built before a state-dict load would be
+    stale, and the encoder raises if it finds one. Without a cache the
+    'flash' path builds the tables in every forward."""
+    enc = model.image_encoder
+    for i, tables in precompute_rel_tables(enc).items():
+        enc.blocks[i].attn.set_rel_cache(tables)
+    return model
 
 
 def build_full_cascade(dtype=torch.bfloat16, device="cuda", seed: int = 0

@@ -45,9 +45,9 @@ class CascadeConfig:
 
     @classmethod
     def full(cls, dtype=torch.float32) -> "CascadeConfig":
-        """SAM ViT-H + Alpha-CLIP ViT-L/14@336, SAM on reference attention."""
+        """SAM ViT-H (on 'flash', the fused kernels) + Alpha-CLIP ViT-L/14@336."""
         return cls(
-            encoder=SamEncoderConfig.vit_h(dtype=dtype, attn_impl="reference"),
+            encoder=SamEncoderConfig.vit_h(dtype=dtype, attn_impl="flash"),
             decoder=MaskDecoderConfig(
                 transformer=TwoWayTransformerConfig(dtype=dtype), dtype=dtype
             ),
@@ -56,7 +56,8 @@ class CascadeConfig:
 
     @classmethod
     def tiny(cls, dtype=torch.float32) -> "CascadeConfig":
-        """Small config for tests, SAM on reference attention."""
+        """Small config for tests, SAM on reference attention (its 4 heads do
+        not take the 'flash' path, which needs num_heads % 8 == 0)."""
         enc = SamEncoderConfig.tiny(dtype=dtype, attn_impl="reference")
         dec_dim = 32
         return cls(

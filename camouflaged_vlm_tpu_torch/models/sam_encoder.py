@@ -1,14 +1,26 @@
 """SAM image encoder (ViTDet-style ViT-H) with the EVP prompt generator.
 
-Counterpart of `camouflaged_vlm_tpu/models/sam_encoder.py`, reference-mode
-attention only: SAM's 32 blocks run LN, the qkv projection, dense
-decomposed rel-pos attention and a plain MLP in PyTorch, windowed blocks in
-the padded window-major carry (pad tokens re-zeroed after every LN1). The
-patch embeds go through the `linear_act` kernel. The 'flash' attention path
-and its kernels are still to be ported (ROADMAP.md, Queue 2).
+Counterpart of `camouflaged_vlm_tpu/models/sam_encoder.py`, inference
+only, with two attention implementations:
 
-Layouts are the JAX package's: NHWC images and grids, (B', S, C)
-sequences. Parameter names are the reference's state-dict keys.
+  'flash'      the JAX package's default and production path. Windowed
+               blocks run in the compact (pad-free) carry
+               (`ops/compact_window.py`): LN1+qkv (`ln_linear_act_bt`), the
+               interior-window and edge-window attention kernels, the
+               out-projection with the residual (`proj_rows`) and
+               LN2+MLP+residual (`ln_mlp_residual_bt`). Global blocks run
+               LN1+mask+qkv (`ln_mask_linear_bt`), the global attention
+               kernel, `proj_rows` and `ln_mlp_residual_bt`. The rel-pos
+               bias is never materialised: its rank-2 factors are built
+               with einsums and the kernels add them by indexing. Needs
+               num_heads % 8 == 0 and a window of at most 14.
+  'reference'  dense decomposed rel-pos attention and a plain MLP in
+               PyTorch, windowed blocks in the padded window carry (pad
+               tokens re-zeroed after every LN1): the parity anchor.
+
+The patch embeds go through the `linear_act` kernel. Layouts are the JAX
+package's: NHWC images and grids, (B', S, C) sequences. Parameter names are
+the reference's state-dict keys.
 """
 
 from __future__ import annotations
@@ -20,11 +32,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.compact_window import (
+    REL_LANES,
+    CompactGeometry,
+    compact_partition,
+    compact_unpartition,
+    edge_consts,
+    edge_rel_lpad,
+)
 from ..ops.fft_prompt import fft_highpass
+from ..ops.flash_attention import (
+    flash_qkv_packed_edge,
+    flash_qkv_packed_global,
+    flash_qkv_packed_windows_s,
+    make_rel_scatter,
+    make_rel_scatter32,
+)
 from ..ops.layers import conv_nhwc, dense
-from ..ops.linear import linear_act
+from ..ops.linear import (
+    linear_act,
+    ln_linear_act_bt,
+    ln_mask_linear_bt,
+    ln_mlp_residual_bt,
+    proj_rows,
+)
 from ..ops.norms import LayerNormFP32
-from ..ops.rel_pos import attention_with_decomposed_rel_pos
+from ..ops.rel_pos import attention_with_decomposed_rel_pos, get_rel_pos_table
 from ..ops.window import window_partition_seq, window_unpartition_seq, window_valid_mask
 
 
@@ -44,9 +77,8 @@ class SamEncoderConfig:
     prompt_scale_factor: int = 32
     freq_rate: float = 0.25
     dtype: torch.dtype = torch.float32
-    # 'reference' (dense rel-pos attention in PyTorch) is the only
-    # implementation of the port so far; 'flash' is the JAX package's
-    # default and raises until its kernels land.
+    # 'flash' (the fused kernels, compact window carry) or 'reference'
+    # (dense rel-pos attention in PyTorch); see the module docstring
     attn_impl: str = "flash"
     gelu_approximate: bool = True
 
@@ -73,18 +105,89 @@ class SamEncoderConfig:
         return cls(**defaults)
 
 
-def check_attn_impl(attn_impl: str) -> None:
-    if attn_impl == "flash":
+def fused_attention_enabled(attn_impl: str, use_rel_pos: bool, num_heads: int) -> bool:
+    """The fused attention data path (the 'flash' kernels), as in the JAX
+    package: it needs the rel-pos bias and head groups of 8."""
+    return attn_impl == "flash" and use_rel_pos and num_heads % 8 == 0
+
+
+def check_attn_impl(cfg: "SamEncoderConfig") -> None:
+    """Raise on every configuration whose JAX path runs a TPU kernel the
+    port does not have yet (ROADMAP.md, Queue 2)."""
+    if cfg.attn_impl == "reference":
+        return
+    if cfg.attn_impl != "flash":
         raise NotImplementedError(
-            "SamEncoderConfig.attn_impl='flash' is not ported yet: its kernels "
-            "(ln_mask_linear_bt, flash_qkv_packed_windows_s, flash_qkv_packed_edge, "
-            "flash_qkv_packed_global) come with ROADMAP.md Queue 2, 'To port, "
-            "in order' item 1 (SAM 'flash'). Use attn_impl='reference'."
+            f"attn_impl={cfg.attn_impl!r}: the port implements 'flash' and 'reference'; "
+            "the aug_* ablations (TPU site #20, flash_attention_fullk) are not ported"
         )
-    if attn_impl != "reference":
+    if not fused_attention_enabled(cfg.attn_impl, cfg.use_rel_pos, cfg.num_heads):
         raise NotImplementedError(
-            f"attn_impl={attn_impl!r}: the port implements only 'reference'"
+            f"attn_impl='flash' with num_heads={cfg.num_heads} (use_rel_pos="
+            f"{cfg.use_rel_pos}): the JAX package runs its unfused path there, TPU site "
+            "#10 flash_attention_relpos, not ported yet (ROADMAP.md Queue 2). The fused "
+            "path needs num_heads % 8 == 0 and the rel-pos bias; else use "
+            "attn_impl='reference'"
         )
+    if cfg.window_size > 0 and not CompactGeometry(cfg.grid, cfg.grid, cfg.window_size).supported():
+        raise NotImplementedError(
+            f"attn_impl='flash' with window_size={cfg.window_size} > 14: the JAX package "
+            "runs the padded window carry there, TPU site #12 flash_qkv_packed_windows, "
+            "not ported yet (ROADMAP.md Queue 2); use attn_impl='reference'"
+        )
+
+
+def make_rcomb(H, W, rel_pos_h, rel_pos_w, dt, lanes=REL_LANES):
+    """Combined per-(qh, qw) rel table (H, W, hd, lanes) in `dt`: lane j < H
+    holds Rh[qh, j], lanes H..H+W-1 hold Rw[qw, j-H], the rest zero. One
+    einsum of the unscaled queries with it gives the kernels' packed
+    [rel_h | rel_w | 0] rel factors."""
+    if H + W > lanes:
+        raise ValueError(f"make_rcomb: H+W={H + W} exceeds {lanes} lanes")
+    Rh = get_rel_pos_table(H, H, rel_pos_h).to(dt)  # (qh, kh, hd)
+    Rw = get_rel_pos_table(W, W, rel_pos_w).to(dt)  # (qw, kw, hd)
+    hd = Rh.shape[-1]
+    parts = [Rh.transpose(1, 2)[:, None].expand(H, W, hd, H),
+             Rw.transpose(1, 2)[None].expand(H, W, hd, W)]
+    if lanes > H + W:
+        parts.append(Rh.new_zeros(H, W, hd, lanes - H - W))
+    return torch.cat(parts, dim=-1)
+
+
+def rel_smajor_windows(qkv_flat, rel_pos_h, rel_pos_w, win, heads, hd, rcomb=None):
+    """Position-major packed rel of the windowed blocks. qkv_flat (BW, S,
+    3*heads*hd), UNSCALED q in the leading lanes -> (rel_s (S, BW,
+    heads*32), sel32 (32, S)). One einsum per head against the (S, hd, 32)
+    combined table: the JAX package's no-cache formulation; `rcomb` is the
+    cached table (`precompute_rel_tables`)."""
+    S = win * win
+    if rcomb is None:
+        rcomb = make_rcomb(win, win, rel_pos_h, rel_pos_w, qkv_flat.dtype)
+    rc = rcomb.to(qkv_flat.dtype).reshape(S, hd, REL_LANES)
+    q = qkv_flat[:, :, : heads * hd].reshape(-1, S, heads, hd)
+    rel_s = torch.einsum("wshr,src->swhc", q, rc).reshape(S, -1, heads * REL_LANES)
+    return rel_s.contiguous(), make_rel_scatter32(win, qkv_flat.dtype, qkv_flat.device)
+
+
+def global_rel_tables(H, W, rel_pos_h, rel_pos_w, dt):
+    """(Rh (H, H, hd), Rw (W, W, hd)) in `dt`: the global blocks' rel tables."""
+    return (get_rel_pos_table(H, H, rel_pos_h).to(dt),
+            get_rel_pos_table(W, W, rel_pos_w).to(dt))
+
+
+def rel_smajor_global(q_heads, rel_pos_h, rel_pos_w, H, W, tables=None):
+    """Position-major packed rel of the global blocks. q_heads (B, H, W,
+    heads, hd) UNSCALED -> (rel_s (H*W, B, heads, H+W), sel (H+W, H*W)) with
+    bias[q, k] = (rel_s[q] @ sel)[k]. Two einsums against Rh and Rw (cached
+    as `tables`), the same products as the JAX package's combined-table
+    einsum without its (H, W, hd, H+W) table."""
+    B, _, _, heads, _ = q_heads.shape
+    dt = q_heads.dtype
+    Rh, Rw = tables if tables is not None else global_rel_tables(H, W, rel_pos_h, rel_pos_w, dt)
+    rel_h = torch.einsum("bhwnc,hkc->hwbnk", q_heads, Rh.to(dt))
+    rel_w = torch.einsum("bhwnc,wkc->hwbnk", q_heads, Rw.to(dt))
+    rel_s = torch.cat([rel_h, rel_w], dim=-1).reshape(H * W, B, heads, H + W)
+    return rel_s, make_rel_scatter(H, W, dt, q_heads.device)
 
 
 class PatchEmbedMatmul(nn.Module):
@@ -117,13 +220,15 @@ class PatchEmbedMatmul(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head attention with the decomposed rel-pos bias, on (B', S, C)
-    sequences with S == H*W of `input_size`."""
+    sequences with S == H*W of `input_size` (one window for the windowed
+    blocks, the grid for the global ones). `forward` is the reference path;
+    `forward_compact` and `forward_global` are the 'flash' path."""
 
     def __init__(self, dim: int, num_heads: int, use_rel_pos: bool,
-                 input_size: Tuple[int, int], dtype: torch.dtype):
+                 input_size: Tuple[int, int], dtype: torch.dtype, windowed: bool = False):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
-        self.input_size, self.dtype = input_size, dtype
+        self.input_size, self.dtype, self.windowed = input_size, dtype, windowed
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.use_rel_pos = use_rel_pos
@@ -131,6 +236,38 @@ class Attention(nn.Module):
             hd = dim // num_heads
             self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd))
             self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, hd))
+        # (tables, versions of rel_pos_h/w when built); see attach_rel_cache
+        self.rel_cache = None
+
+    def build_rel_tables(self):
+        """The 'flash' path's param-derived rel tables in the compute type:
+        Rcomb (win, win, hd, 32) for a windowed block, (Rh, Rw) for a global
+        one."""
+        H, W = self.input_size
+        if self.windowed:
+            return make_rcomb(H, W, self.rel_pos_h, self.rel_pos_w, self.dtype)
+        return global_rel_tables(H, W, self.rel_pos_h, self.rel_pos_w, self.dtype)
+
+    def set_rel_cache(self, tables) -> None:
+        self.rel_cache = (tables, (self.rel_pos_h._version, self.rel_pos_w._version))
+
+    def rel_tables(self):
+        """The cached tables if attached, else built in the forward (as the
+        JAX package does without its 'relcache' collection)."""
+        if self.rel_cache is None:
+            return self.build_rel_tables()
+        tables, versions = self.rel_cache
+        if versions != (self.rel_pos_h._version, self.rel_pos_w._version):
+            raise RuntimeError(
+                "stale rel cache: the rel-pos parameters changed after attach_rel_cache "
+                "(e.g. a state-dict load); call factory.attach_rel_cache again"
+            )
+        return tables
+
+    def _weights(self):
+        dt = self.dtype
+        return (self.qkv.weight.to(dt), self.qkv.bias.to(dt),
+                self.proj.weight.to(dt), self.proj.bias.to(dt))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, _ = x.shape
@@ -145,6 +282,62 @@ class Attention(nn.Module):
         )
         out = out.transpose(1, 2).reshape(B, N, self.dim)
         return dense(out, self.proj, self.dtype)
+
+    def forward_global(self, x: torch.Tensor, norm1: LayerNormFP32) -> torch.Tensor:
+        """'flash' global block: x (B, H*W, C) is the block's raw input;
+        returns x + proj(attention(LN1(x))). LN1 rides the qkv kernel's
+        prologue (all-ones row mask), the residual the projection's epilogue."""
+        B, N, C = x.shape
+        H, W = self.input_size
+        heads = self.num_heads
+        hd = C // heads
+        wq, bq, wp, bp = self._weights()
+        qkv = ln_mask_linear_bt(x, norm1.weight, norm1.bias, x.new_ones(1, N, 1), wq, bq,
+                                eps=norm1.eps)
+        rel_s, sel = rel_smajor_global(qkv[:, :, :C].reshape(B, H, W, heads, hd),
+                                       self.rel_pos_h, self.rel_pos_w, H, W,
+                                       tables=self.rel_tables())
+        out = flash_qkv_packed_global(qkv, rel_s, sel, hd ** -0.5, heads, hd, H, W)
+        y = proj_rows(out.reshape(B, 1, C, N), wp, bp, x.reshape(B, 1, N, C))
+        return y.reshape(B, N, C)
+
+    def forward_compact(self, xf: torch.Tensor, xe: Optional[torch.Tensor],
+                        norm1: LayerNormFP32, geom: CompactGeometry):
+        """'flash' windowed block on the compact carry: x_full (B*n_full,
+        win^2, C) through the interior-window kernel, x_edge (B, E, C)
+        through the edge kernel with its virtual pad key. Both are raw block
+        inputs; returns (x_full + attn, x_edge + attn)."""
+        win, C, heads = geom.win, self.dim, self.num_heads
+        hd = C // heads
+        scale = hd ** -0.5
+        S, nf = win * win, geom.n_full
+        B = xf.shape[0] // nf
+        wq, bq, wp, bp = self._weights()
+        rcomb = self.rel_tables()
+
+        qkv_f = ln_linear_act_bt(xf, norm1.weight, norm1.bias, wq, bq, eps=norm1.eps,
+                                 activation=None)  # (B*nf, S, 3C)
+        rel_s, sel32 = rel_smajor_windows(qkv_f, self.rel_pos_h, self.rel_pos_w, win,
+                                          heads, hd, rcomb=rcomb)
+        out_f = flash_qkv_packed_windows_s(qkv_f, rel_s, sel32, scale, heads, hd)
+        yf = proj_rows(out_f.reshape(B, nf, C, S), wp, bp, xf.reshape(B, nf, S, C))
+        yf = yf.reshape(B * nf, S, C)
+        if xe is None:
+            return yf, None
+
+        n, R = geom.n_edge, geom.R_u
+        qkv_e = ln_linear_act_bt(xe, norm1.weight, norm1.bias, wq, bq, eps=norm1.eps,
+                                 activation=None)  # (B, E, 3C)
+        k_bias = self.qkv.bias[C : 2 * C].reshape(heads, hd)
+        rel_e = edge_rel_lpad(qkv_e[:, :, :C].reshape(B, geom.E, heads, hd), rcomb, k_bias,
+                              scale, geom)  # (B, E, heads, 32), Lpad in lane 28
+        sel_e, kmask_e = edge_consts(geom, qkv_e.dtype, xe.device)
+        vb = bq[2 * C :].reshape(heads, hd)  # the pad tokens' value
+        out_e = flash_qkv_packed_edge(qkv_e.reshape(B, n, R, 3 * C),
+                                      rel_e.reshape(B, n, R, heads * REL_LANES),
+                                      sel_e, vb, kmask_e, scale, heads, hd)
+        ye = proj_rows(out_e, wp, bp, xe.reshape(B, n, R, C))
+        return yf, ye.reshape(B, geom.E, C)
 
 
 class MLPBlock(nn.Module):
@@ -161,21 +354,42 @@ class MLPBlock(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm ViT block on (B', S, C). Windowed blocks run in the window
-    carry (B' = B * nWin, S = window^2) and get `mask`, which re-zeroes the
-    pad tokens after LN1 (the reference zero-pads after LN1, so a pad key or
-    value equals the qkv bias)."""
+    """Pre-norm ViT block on (B', S, C).
 
-    def __init__(self, cfg: SamEncoderConfig, attn_size: Tuple[int, int]):
+    'reference': windowed blocks run in the padded window carry (B' = B *
+    nWin, S = window^2) and get `mask`, which re-zeroes the pad tokens after
+    LN1 (the reference zero-pads after LN1, so a pad key or value equals the
+    qkv bias). 'flash': windowed blocks take the compact carry (x_full,
+    x_edge) with its `geom`; global blocks take (B, H*W, C); LN1 and LN2 ride
+    the kernels' prologues and both residuals their epilogues."""
+
+    def __init__(self, cfg: SamEncoderConfig, attn_size: Tuple[int, int], windowed: bool):
         super().__init__()
         self.norm1 = LayerNormFP32(cfg.embed_dim, eps=1e-6)
         self.attn = Attention(cfg.embed_dim, cfg.num_heads, cfg.use_rel_pos,
-                              attn_size, cfg.dtype)
+                              attn_size, cfg.dtype, windowed)
         self.norm2 = LayerNormFP32(cfg.embed_dim, eps=1e-6)
         self.mlp = MLPBlock(cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio),
                             cfg.dtype, cfg.gelu_approximate)
+        self.fused = fused_attention_enabled(cfg.attn_impl, cfg.use_rel_pos, cfg.num_heads)
+        self.act = "gelu_tanh" if cfg.gelu_approximate else "gelu"
+        self.dtype = cfg.dtype
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _fused_mlp(self, x: torch.Tensor) -> torch.Tensor:
+        """x + MLP(LN2(x)) as one kernel."""
+        dt, m = self.dtype, self.mlp
+        return ln_mlp_residual_bt(
+            x, self.norm2.weight, self.norm2.bias, m.lin1.weight.to(dt), m.lin1.bias.to(dt),
+            m.lin2.weight.to(dt), m.lin2.bias.to(dt), eps=self.norm2.eps, activation=self.act,
+        )
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None,
+                geom: Optional[CompactGeometry] = None):
+        if geom is not None:  # 'flash' windowed block, compact carry
+            xf, xe = self.attn.forward_compact(x[0], x[1], self.norm1, geom)
+            return self._fused_mlp(xf), (self._fused_mlp(xe) if xe is not None else None)
+        if self.fused:  # 'flash' global block
+            return self._fused_mlp(self.attn.forward_global(x, self.norm1))
         shortcut = x
         x = self.norm1(x)
         if mask is not None:  # (nwin, S, 1), broadcast over B' = B * nwin
@@ -229,14 +443,15 @@ class ImageEncoderViT(nn.Module):
 
     def __init__(self, cfg: SamEncoderConfig):
         super().__init__()
-        check_attn_impl(cfg.attn_impl)
+        check_attn_impl(cfg)
         self.cfg = cfg
+        self.fused = fused_attention_enabled(cfg.attn_impl, cfg.use_rel_pos, cfg.num_heads)
         g, win = cfg.grid, cfg.window_size
         self.patch_embed = PatchEmbedMatmul(cfg.in_chans, cfg.embed_dim,
                                             cfg.patch_size, cfg.dtype)
         self.pos_embed = nn.Parameter(torch.zeros(1, g, g, cfg.embed_dim))
         self.blocks = nn.ModuleList(
-            Block(cfg, (win, win) if self._windowed(i) else (g, g))
+            Block(cfg, (win, win) if self._windowed(i) else (g, g), self._windowed(i))
             for i in range(cfg.depth)
         )
         self.neck = nn.ModuleList([
@@ -252,32 +467,54 @@ class ImageEncoderViT(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         cfg = self.cfg
+        pg = self.prompt_generator
         inp = x
         x = self.patch_embed(x)  # (B, h, w, D)
-        prompt_features = self.prompt_generator.init_features(inp, x)
+        prompt_features = pg.init_features(inp, x)
         x = x + self.pos_embed.to(cfg.dtype)
 
         B, H, W, D = x.shape
         win = cfg.window_size
+        geom = None
         if any(self._windowed(i) for i in range(cfg.depth)):
-            valid = window_valid_mask(H, W, win, device=x.device)
-            pf_w, _ = window_partition_seq(prompt_features, win)
+            if self.fused:
+                # compact carry: prompt features partitioned once, edge
+                # dummy rows carried and dropped at unpartition
+                geom = CompactGeometry(H, W, win)
+                if not geom.supported():
+                    raise NotImplementedError(f"compact window layout unsupported: {geom}")
+                pf_f, pf_e = compact_partition(prompt_features, geom)
+            else:
+                valid = window_valid_mask(H, W, win, device=x.device)
+                pf_w, _ = window_partition_seq(prompt_features, win)
 
         interm = []
-        x_w = None  # window-carry activations (None <=> x holds the grid)
+        x_w = None  # padded window carry (reference)
+        xc = None   # compact carry (x_full, x_edge) ('flash')
         for i, blk in enumerate(self.blocks):
-            if self._windowed(i):
+            if self._windowed(i) and geom is not None:
+                if xc is None:
+                    xc = compact_partition(x, geom)
+                xf = xc[0] + pg.block_prompt(pf_f, i)
+                xe = xc[1] + pg.block_prompt(pf_e, i) if xc[1] is not None else None
+                xc = blk((xf, xe), geom=geom)
+            elif self._windowed(i):
                 if x_w is None:
                     x_w, pad_hw = window_partition_seq(x, win)
-                x_w = x_w + self.prompt_generator.block_prompt(pf_w, i)
+                x_w = x_w + pg.block_prompt(pf_w, i)
                 x_w = blk(x_w, valid)
             else:
+                if xc is not None:
+                    x = compact_unpartition(xc[0], xc[1], geom)
+                    xc = None
                 if x_w is not None:
                     x = window_unpartition_seq(x_w, win, pad_hw, (H, W))
                     x_w = None
-                x = x + self.prompt_generator.block_prompt(prompt_features, i)
+                x = x + pg.block_prompt(prompt_features, i)
                 x = blk(x.reshape(B, H * W, D)).reshape(B, H, W, D)
                 interm.append(x)
+        if xc is not None:
+            x = compact_unpartition(xc[0], xc[1], geom)
         if x_w is not None:
             x = window_unpartition_seq(x_w, win, pad_hw, (H, W))
 
@@ -285,3 +522,14 @@ class ImageEncoderViT(nn.Module):
         y = self.neck[1](y)
         y = conv_nhwc(y, self.neck[2], cfg.dtype)
         return self.neck[3](y), interm
+
+
+@torch.no_grad()
+def precompute_rel_tables(encoder: ImageEncoderViT) -> dict:
+    """{block index: its 'flash' rel tables} for every block with rel-pos
+    parameters: Rcomb (win, win, hd, 32) per windowed block (~1 MB at ViT-H
+    in bf16), (Rh, Rw) per global block. Counterpart of the JAX
+    `precompute_rel_tables`, which caches the TPU einsum's block-diagonal
+    kron(I_8, Rcomb) tables instead (~5.2 GB at ViT-H in bf16)."""
+    return {i: blk.attn.build_rel_tables() for i, blk in enumerate(encoder.blocks)
+            if blk.attn.use_rel_pos}

@@ -1,9 +1,9 @@
 """Build, load and launch the hand-written Hopper kernels (`csrc/*.cu`).
 
-The sources are compiled at first use with `nvcc` for `sm_90a` into one
-shared library with a plain C interface under `<repo>/build/kernels/`
-(named by a hash of the sources, so an edit rebuilds) and bound with
-`ctypes`. Nothing here runs at import: the CPU tests import every module,
+The sources are compiled at first use with `nvcc` for `sm_90a` (one
+process per source, in parallel) and linked into one shared library with a
+plain C interface under `<repo>/build/kernels/` (named by a hash of the
+sources, so an edit rebuilds), bound with `ctypes`. Nothing here runs at import: the CPU tests import every module,
 and a CPU-only machine need not have `nvcc`.
 
 Each kernel is a `CudaKernel`: calling it launches the C entry point on
@@ -27,10 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
 
 # activation codes of csrc/common.cuh
 ACTIVATIONS = {None: 0, "gelu": 1, "gelu_tanh": 2, "quick_gelu": 3}
@@ -51,28 +49,45 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into build/kernels/libcvlm_<hash>.so (once per
-    source hash) and return its path. Raises with nvcc's output on failure."""
+    source hash) and return its path: one nvcc per source, all started
+    together, then one link. Raises with nvcc's output on failure."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cu*")):
         digest.update(f.name.encode() + f.read_bytes())
-    lib_path = BUILD_DIR / f"libcvlm_{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    lib_path = BUILD_DIR / f"libcvlm_{tag}.so"
     if lib_path.exists():
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    obj_dir = BUILD_DIR / f"obj_{tag}_{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sources:
+        obj, log = obj_dir / f"{src.stem}.o", obj_dir / f"{src.stem}.log"
+        cmd = [nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
+        with open(log, "w") as f:
+            jobs.append((cmd, obj, log,
+                         subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+    logs, failed = [], []
+    for cmd, obj, log, proc in jobs:
+        rc = proc.wait()
+        logs.append(" ".join(cmd) + "\n" + log.read_text())
+        if rc != 0:
+            failed.append(f"nvcc failed ({rc}):\n{logs[-1]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    link = [nvcc, "-shared", *ARCH, "-o", str(tmp), *(str(j[1]) for j in jobs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib_path)
-    build_info.update(
-        seconds=time.perf_counter() - t0, command=" ".join(cmd), log=proc.stderr
-    )
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    build_info.update(seconds=time.perf_counter() - t0,
+                      command=" ".join(link), log="\n".join(logs))
     return lib_path
 
 
@@ -113,11 +128,14 @@ class CudaKernel:
         self.launches += 1
 
 
-# One entry per wrapper (and TPU kernel replaced); the first two are the two
-# instantiations of csrc/ln_linear.cu, without and with the LN prologue.
+# One entry per wrapper (and TPU kernel replaced); the first three are the
+# instantiations of csrc/ln_linear.cu: no LN, LN, LN with a row mask.
 _LN_LINEAR_ARGS = [P, P, P, P, P, P, I, I, I, F, I, I]
 LINEAR_ACT = CudaKernel("linear_act", "cvlm_ln_linear", _LN_LINEAR_ARGS)
 LN_LINEAR = CudaKernel("ln_linear_act_bt", "cvlm_ln_linear", _LN_LINEAR_ARGS)
+LN_MASK_LINEAR = CudaKernel(
+    "ln_mask_linear_bt", "cvlm_ln_mask_linear", [P, P, P, P, P, P, P, I, I, I, I, I, F]
+)
 LN_MLP_RESIDUAL = CudaKernel(
     "ln_mlp_residual_bt", "cvlm_ln_mlp_residual", [P, P, P, P, P, P, P, P, I, I, I, F, I]
 )
@@ -125,7 +143,17 @@ PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, I, I
 QKV_PACKED_PLAIN = CudaKernel(
     "flash_qkv_packed_plain", "cvlm_qkv_packed_plain", [P, P, I, I, I, I, F]
 )
-KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS, QKV_PACKED_PLAIN)
+QKV_WINDOWS = CudaKernel(
+    "flash_qkv_packed_windows_s", "cvlm_qkv_packed_windows", [P, P, P, I, I, I, I, F]
+)
+QKV_EDGE = CudaKernel(
+    "flash_qkv_packed_edge", "cvlm_qkv_packed_edge", [P, P, P, P, P, P, I, I, I, I, I, F]
+)
+QKV_GLOBAL = CudaKernel(
+    "flash_qkv_packed_global", "cvlm_qkv_packed_global", [P, P, P, I, I, I, I, I, I, F]
+)
+KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MASK_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS,
+           QKV_PACKED_PLAIN, QKV_WINDOWS, QKV_EDGE, QKV_GLOBAL)
 
 
 def reset_launches() -> None:

@@ -113,6 +113,46 @@ def ln_linear_act_bt(
     return out
 
 
+# ------------------------------------------------------ ln_mask_linear_bt
+
+
+def ln_mask_linear_bt_ref(x, gamma, beta, mask, w, b, eps=1e-6):
+    Bp, S, _ = x.shape
+    nwin = mask.shape[0]
+    m = mask.float()[None].expand(Bp // nwin, nwin, S, 1).reshape(Bp, S, 1)
+    xn = (_ln_fp32(x, gamma, beta, eps) * m).to(x.dtype)
+    return (_matmul_f32(xn, w) + b.float()).to(x.dtype)
+
+
+def ln_mask_linear_bt(
+    x: torch.Tensor,      # (B', S, K), B' = B * nwin
+    gamma: torch.Tensor,  # (K,)
+    beta: torch.Tensor,   # (K,)
+    mask: torch.Tensor,   # (nwin, S, 1) row mask in x's type; row b' reads mask[b' % nwin]
+    w: torch.Tensor,      # (N, K)
+    b: torch.Tensor,      # (N,)
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """(LN(x) * mask) . w^T + b: LN1, the pad-row re-zeroing and the qkv
+    projection in one kernel. Counterpart of `ln_mask_linear_bt` (TPU
+    kernel #3)."""
+    if not _cuda.use_kernel("ln_mask_linear_bt", x, gamma, beta, mask, w, b):
+        return ln_mask_linear_bt_ref(x, gamma, beta, mask, w, b, eps)
+    _cuda.check_dtype("ln_mask_linear_bt", torch.bfloat16, x, mask, w, b)
+    _cuda.check_dtype("ln_mask_linear_bt", torch.float32, gamma, beta)
+    Bp, S, K = x.shape
+    N, nwin = w.shape[0], mask.shape[0]
+    if (w.shape != (N, K) or b.shape != (N,) or gamma.shape != (K,) or beta.shape != (K,)
+            or mask.shape != (nwin, S, 1) or Bp % nwin):
+        raise ValueError(f"ln_mask_linear_bt: shapes x {x.shape} mask {mask.shape} w {w.shape}")
+    out = torch.empty((Bp, S, N), dtype=x.dtype, device=x.device)
+    _cuda.LN_MASK_LINEAR(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mask.data_ptr(), w.data_ptr(),
+        b.data_ptr(), out.data_ptr(), Bp * S, K, N, S, nwin, float(eps),
+    )
+    return out
+
+
 # ----------------------------------------------------- ln_mlp_residual_bt
 
 

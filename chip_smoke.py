@@ -13,13 +13,20 @@ never prints its last line):
               of CUDA-event timings after a warm-up)
   4. small    a small cascade in bf16 on the card against the same weights
               in fp32 on the CPU (the plain versions, which the CPU tests tie
-              to the JAX package)
-  5. slice    the full-width cascade (SAM ViT-H at 1024 px with reference
-              attention, the edge decoder, MaPLe Alpha-CLIP ViT-L/14@336, the
-              61 OVCamo test classes) in bf16 from seeded random weights,
+              to the JAX package); its SAM runs 'flash' with 8 heads on a
+              grid with edge and corner windows
+  5. vit_h    a depth-cut SAM ViT-H encoder at full width (1024 px, 1280
+              wide, 16 heads x 80, window 14; one windowed and one global
+              block) in bf16 on the card, 'flash' against 'reference' on the
+              same weights
+  6. slice    the full-width cascade (SAM ViT-H at 1024 px on 'flash' with
+              the rel cache, the edge decoder, MaPLe Alpha-CLIP ViT-L/14@336,
+              the 61 OVCamo test classes) in bf16 from seeded random weights,
               driven through the demo CLI's session: text features encoded
               once, three requests at batch 1, one at batch 2. Outputs are
               checked, and every kernel's launch count must match the path.
+              Then the cascade call's stage times (CUDA events) at batch 1
+              and 2.
 
 Before its last line it prints one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -46,6 +53,14 @@ KERNEL_REL_BOUND = 1e-2
 # digits per op through 4 SAM blocks, the decoder and 3+3 CLIP layers.
 SMALL_PROB_ABS_BOUND = 2e-2      # mask probabilities, max abs difference
 SMALL_LOGIT_REL_BOUND = 5e-2     # class logits, max|d| / max|ref|
+# Depth-2 ViT-H encoder, 'flash' vs 'reference', both bf16 on the card:
+# mean|d| / mean|ref| of the neck output and the global block's output. The
+# two paths round at different points (the reference rounds q, k, v, the
+# qkv output and the attention output in other places, and keeps the
+# padded windows) through two blocks and the neck; the JAX package's own
+# on-chip check of the same comparison used 1.5e-2
+# (scripts/verify_kernels_tpu.py:250-267).
+VITH_MEAN_REL_BOUND = 1.5e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -123,20 +138,61 @@ def phase_build():
             log(f"[build] ptxas: {line.strip()}")
 
 
+def _check_kernel(name, kfn, pfn, args, timed=True):
+    """Kernel against its plain version on the same inputs: shape, type,
+    finite, within KERNEL_REL_BOUND; times (kernel, plain) in ms."""
+    import torch
+
+    got = kfn(*args)
+    torch.cuda.synchronize()
+    want = pfn(*args)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    e = errors(got, want)
+    del got, want
+    k_ms = time_ms(lambda: kfn(*args)) if timed else float("nan")
+    p_ms = time_ms(lambda: pfn(*args)) if timed else float("nan")
+    log(f"[kernel] {name:40s} max_abs {e['max_abs_err']:.3e} max_rel {e['max_rel']:.3e} "
+        f"mean_rel {e['mean_rel']:.3e} (bound {KERNEL_REL_BOUND}) kernel {k_ms:.4f} ms "
+        f"plain {p_ms:.4f} ms")
+    check(e["max_rel"] < KERNEL_REL_BOUND and e["mean_rel"] < KERNEL_REL_BOUND,
+          f"{name} disagrees with its plain version: {e}")
+    return dict(max_abs_err=e["max_abs_err"], ms=k_ms, plain_ms=p_ms)
+
+
 def phase_kernels():
-    """Each kernel vs its plain version at full-width bf16 shapes (batch 2)."""
+    """Each kernel vs its plain version at full-width bf16 shapes (batch 2):
+    the CLIP tower's shapes and SAM ViT-H's."""
     import torch
     from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
     from camouflaged_vlm_tpu_torch.ops import linear as lin
+    from camouflaged_vlm_tpu_torch.ops.compact_window import (
+        LPAD_LANE, NEG, CompactGeometry, edge_consts,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
+    dev = torch.device("cuda")
 
     def rn(*shape, std=1.0, dtype=bf):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
 
     B, S, W = 2, 581, 1024
     ln_g, ln_b = 1 + rn(W, std=0.1, dtype=torch.float32), rn(W, std=0.1, dtype=torch.float32)
+    # SAM ViT-H: 1280 wide, 16 heads x 80, 64x64 grid, window 14
+    D, HD, NH, G, WIN = 1280, 80, 16, 64, 14
+    geom = CompactGeometry(G, G, WIN)
+    nf, ne, R = geom.n_full, geom.n_edge, geom.R_u
+    sg, sb = 1 + rn(D, std=0.1, dtype=torch.float32), rn(D, std=0.1, dtype=torch.float32)
+    w_qkv, b_qkv = rn(3 * D, D, std=0.02), rn(3 * D, std=0.02)
+    edge_rel = rn(B, ne, R, NH, 32)
+    off = 0
+    for grp in geom.edge_groups:  # dummy rows' pad-key logit, as the encoder clamps it
+        edge_rel[:, off : off + grp.n, grp.rows :, :, LPAD_LANE] = NEG
+        off += grp.n
+    sel_e, kmask_e = edge_consts(geom, bf, dev)
+    sam_scale = HD ** -0.5
     cases = [
         # (name, source, replaces, kernel fn, plain fn, args)
         ("linear_act", "camouflaged_vlm_tpu_torch/csrc/ln_linear.cu",
@@ -148,6 +204,12 @@ def phase_kernels():
          lambda *a: lin.ln_linear_act_bt(*a, eps=1e-5, activation=None),
          lambda *a: lin.ln_linear_act_bt_ref(*a, eps=1e-5, activation=None),
          (rn(B, S, W), ln_g, ln_b, rn(3 * W, W, std=0.02), rn(3 * W, std=0.02))),
+        ("ln_mask_linear_bt", "camouflaged_vlm_tpu_torch/csrc/ln_linear.cu",
+         "camouflaged_vlm_tpu/ops/linear.py:228",
+         lambda *a: lin.ln_mask_linear_bt(*a, eps=1e-6),
+         lambda *a: lin.ln_mask_linear_bt_ref(*a, eps=1e-6),
+         (rn(B, G * G, D), sg, sb, torch.ones(1, G * G, 1, dtype=bf, device=dev), w_qkv,
+          b_qkv)),
         ("ln_mlp_residual_bt", "camouflaged_vlm_tpu_torch/csrc/ln_mlp_residual.cu",
          "camouflaged_vlm_tpu/ops/linear.py:416",
          lambda *a: lin.ln_mlp_residual_bt(*a, eps=1e-5, activation="quick_gelu"),
@@ -163,6 +225,47 @@ def phase_kernels():
          lambda q: fa.flash_qkv_packed_plain(q, 64 ** -0.5, 16, 64),
          lambda q: fa.flash_qkv_packed_plain_ref(q, 64 ** -0.5, 16, 64),
          (rn(B, S, 3 * W),)),
+        ("flash_qkv_packed_windows_s", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_windows.cu",
+         "camouflaged_vlm_tpu/ops/flash_attention.py:519",
+         lambda *a: fa.flash_qkv_packed_windows_s(*a, sam_scale, NH, HD),
+         lambda *a: fa.flash_qkv_packed_windows_s_ref(*a, sam_scale, NH, HD),
+         (rn(B * nf, WIN * WIN, 3 * D), rn(WIN * WIN, B * nf, NH * 32),
+          fa.make_rel_scatter32(WIN, bf, dev))),
+        ("flash_qkv_packed_edge", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_windows.cu",
+         "camouflaged_vlm_tpu/ops/flash_attention.py:755",
+         lambda *a: fa.flash_qkv_packed_edge(*a, sam_scale, NH, HD),
+         lambda *a: fa.flash_qkv_packed_edge_ref(*a, sam_scale, NH, HD),
+         (rn(B, ne, R, 3 * D), edge_rel.reshape(B, ne, R, NH * 32), sel_e,
+          rn(NH, HD, std=0.5), kmask_e)),
+        ("flash_qkv_packed_global", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_global.cu",
+         "camouflaged_vlm_tpu/ops/flash_attention.py:1083",
+         lambda *a: fa.flash_qkv_packed_global(*a, sam_scale, NH, HD, G, G),
+         lambda *a: fa.flash_qkv_packed_global_ref(*a, sam_scale, NH, HD),
+         (rn(B, G * G, 3 * D), rn(G * G, B, NH, 2 * G), fa.make_rel_scatter(G, G, bf, dev))),
+    ]
+    # the same kernels at SAM's shapes where the JSON line holds the CLIP one
+    sam_cases = [
+        ("ln_linear_act_bt (SAM windows 32x196x1280 -> 3840)",
+         lambda *a: lin.ln_linear_act_bt(*a, eps=1e-6, activation=None),
+         lambda *a: lin.ln_linear_act_bt_ref(*a, eps=1e-6, activation=None),
+         (rn(B * nf, WIN * WIN, D), sg, sb, w_qkv, b_qkv)),
+        ("ln_mlp_residual_bt (SAM windows 32x196x1280, H 5120)",
+         lambda *a: lin.ln_mlp_residual_bt(*a, eps=1e-6, activation="gelu_tanh"),
+         lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=1e-6, activation="gelu_tanh"),
+         (rn(B * nf, WIN * WIN, D), sg, sb, rn(4 * D, D, std=0.02), rn(4 * D, std=0.02),
+          rn(D, 4 * D, std=0.02), rn(D, std=0.02))),
+        ("ln_mlp_residual_bt (SAM global 2x4096x1280, H 5120)",
+         lambda *a: lin.ln_mlp_residual_bt(*a, eps=1e-6, activation="gelu_tanh"),
+         lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=1e-6, activation="gelu_tanh"),
+         (rn(B, G * G, D), sg, sb, rn(4 * D, D, std=0.02), rn(4 * D, std=0.02),
+          rn(D, 4 * D, std=0.02), rn(D, std=0.02))),
+        ("proj_rows (SAM windows 2x16x1280x196, residual)",
+         lin.proj_rows, lin.proj_rows_ref,
+         (rn(B, nf, D, WIN * WIN), rn(D, D, std=0.02), rn(D, std=0.02),
+          rn(B, nf, WIN * WIN, D))),
+        ("proj_rows (SAM global 2x1x1280x4096, residual)",
+         lin.proj_rows, lin.proj_rows_ref,
+         (rn(B, 1, D, G * G), rn(D, D, std=0.02), rn(D, std=0.02), rn(B, 1, G * G, D))),
     ]
     # the text tower's MLP shape is on the path too (checked, not timed)
     text_mlp = (rn(61, 77, 768), 1 + rn(768, std=0.1, dtype=torch.float32),
@@ -171,41 +274,33 @@ def phase_kernels():
     results = {}
     with torch.no_grad():
         for name, source, replaces, kfn, pfn, args in cases:
-            got = kfn(*args)
-            torch.cuda.synchronize()
-            want = pfn(*args)
-            check(got.shape == want.shape and got.dtype == want.dtype,
-                  f"{name}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}")
-            check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-            e = errors(got, want)
-            k_ms, p_ms = time_ms(lambda: kfn(*args)), time_ms(lambda: pfn(*args))
-            log(f"[kernel] {name:24s} shape {tuple(got.shape)} max_abs {e['max_abs_err']:.3e} "
-                f"max_rel {e['max_rel']:.3e} mean_rel {e['mean_rel']:.3e} "
-                f"(bound {KERNEL_REL_BOUND}) kernel {k_ms:.4f} ms plain {p_ms:.4f} ms")
-            check(e["max_rel"] < KERNEL_REL_BOUND and e["mean_rel"] < KERNEL_REL_BOUND,
-                  f"{name} disagrees with its plain version: {e}")
             results[name] = dict(source=source, replaces=replaces,
-                                 max_abs_err=e["max_abs_err"], ms=k_ms, plain_ms=p_ms)
-        got = lin.ln_mlp_residual_bt(*text_mlp, eps=1e-5, activation="quick_gelu")
-        want = lin.ln_mlp_residual_bt_ref(*text_mlp, eps=1e-5, activation="quick_gelu")
-        e = errors(got, want)
-        log(f"[kernel] ln_mlp_residual_bt (text 61x77x768) max_abs {e['max_abs_err']:.3e} "
-            f"max_rel {e['max_rel']:.3e} mean_rel {e['mean_rel']:.3e}")
-        check(e["max_rel"] < KERNEL_REL_BOUND and e["mean_rel"] < KERNEL_REL_BOUND,
-              f"ln_mlp_residual_bt (text shape) disagrees: {e}")
+                                 **_check_kernel(name, kfn, pfn, args))
+        for name, kfn, pfn, args in sam_cases:
+            _check_kernel(name, kfn, pfn, args)
+        _check_kernel("ln_mlp_residual_bt (text 61x77x768)",
+                      lambda *a: lin.ln_mlp_residual_bt(*a, eps=1e-5, activation="quick_gelu"),
+                      lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=1e-5,
+                                                            activation="quick_gelu"),
+                      text_mlp, timed=False)
     return results
 
 
 def _small_config(dtype):
     import dataclasses
 
-    from camouflaged_vlm_tpu_torch.models import CascadeConfig
+    from camouflaged_vlm_tpu_torch.models import CascadeConfig, SamEncoderConfig
     from camouflaged_vlm_tpu_torch.models.clip import AlphaClipConfig
 
-    # widths the kernels take: CLIP 128 wide (8 heads x 16), text 128 (4 x 32)
+    # widths the kernels take: CLIP 128 wide (8 heads x 16), text 128 (4 x 32);
+    # SAM on 'flash', 128 wide (8 heads x 16), grid 10 with window 4: right,
+    # bottom and corner edge windows (R_u 8)
     clip = AlphaClipConfig.tiny(dtype=dtype, vision_width=128, vision_heads=8,
                                 transformer_width=128)
-    return dataclasses.replace(CascadeConfig.tiny(dtype=dtype), clip=clip)
+    enc = SamEncoderConfig.tiny(dtype=dtype, attn_impl="flash", img_size=160, embed_dim=128,
+                                num_heads=8, window_size=4, prompt_scale_factor=16)
+    return dataclasses.replace(CascadeConfig.tiny(dtype=dtype), inp_size=enc.img_size,
+                               encoder=enc, clip=clip)
 
 
 def phase_small():
@@ -234,11 +329,61 @@ def phase_small():
     p, y, l = p.float().cpu(), y.cpu(), l.float().cpu()
     dp = (p - p_ref).abs().max().item()
     dl = ((l - l_ref).abs().max() / l_ref.abs().max()).item()
-    log(f"[small] bf16 card vs fp32 CPU: probs max_abs {dp:.3e} (bound {SMALL_PROB_ABS_BOUND}), "
+    log(f"[small] SAM '{gpu_cfg.encoder.attn_impl}' {gpu_cfg.encoder.num_heads} heads, grid "
+        f"{gpu_cfg.encoder.grid}, window {gpu_cfg.encoder.window_size}; bf16 card vs fp32 CPU: "
+        f"probs max_abs {dp:.3e} (bound {SMALL_PROB_ABS_BOUND}), "
         f"logits max_rel {dl:.3e} (bound {SMALL_LOGIT_REL_BOUND}), "
         f"pred {y.tolist()} vs {y_ref.tolist()}")
     check(dp < SMALL_PROB_ABS_BOUND, f"small cascade probabilities differ by {dp}")
     check(dl < SMALL_LOGIT_REL_BOUND, f"small cascade logits differ by {dl}")
+
+
+def phase_vit_h():
+    """Depth-cut ViT-H encoder at full width, 'flash' vs 'reference' on the
+    same bf16 weights: catches layout faults the small config cannot (R_u
+    112, three edge groups, d 80, hw 128)."""
+    import torch
+    from camouflaged_vlm_tpu_torch.factory import cast_weights_, init_random_
+    from camouflaged_vlm_tpu_torch.models import ImageEncoderViT, SamEncoderConfig
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    kw = dict(dtype=torch.bfloat16, depth=2, global_attn_indexes=(1,))
+    encs = {}
+    for impl in ("flash", "reference"):
+        with torch.device("meta"):
+            enc = ImageEncoderViT(SamEncoderConfig.vit_h(attn_impl=impl, **kw))
+        enc = enc.to_empty(device="cuda")
+        init_random_(enc, torch.Generator(device="cuda").manual_seed(11))
+        with torch.no_grad():  # rel-pos tables large enough for the bias to matter
+            for blk in enc.blocks:
+                blk.attn.rel_pos_h.mul_(25.0)
+                blk.attn.rel_pos_w.mul_(25.0)
+        cast_weights_(enc, torch.bfloat16)
+        encs[impl] = enc.eval().requires_grad_(False)
+    encs["flash"].load_state_dict(encs["reference"].state_dict(), strict=True)
+    x = torch.from_numpy(
+        np.random.default_rng(11).standard_normal((1, 1024, 1024, 3)).astype(np.float32)
+    ).cuda()
+    with torch.no_grad():
+        _cuda.reset_launches()
+        got, got_i = encs["flash"](x)
+        counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+        want, want_i = encs["reference"](x)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(got_i[0]).all()),
+          "vit_h: non-finite flash output")
+    e, ei = errors(got, want), errors(got_i[0], want_i[0])
+    log(f"[vit_h] depth 2 (1 windowed + 1 global), 1024 px, bf16, flash vs reference: neck "
+        f"mean_rel {e['mean_rel']:.3e} max_rel {e['max_rel']:.3e}; global block mean_rel "
+        f"{ei['mean_rel']:.3e} max_rel {ei['max_rel']:.3e} (bound mean_rel "
+        f"{VITH_MEAN_REL_BOUND}); flash launches {counts}")
+    check(e["mean_rel"] < VITH_MEAN_REL_BOUND and ei["mean_rel"] < VITH_MEAN_REL_BOUND,
+          f"vit_h: flash disagrees with reference: {e} {ei}")
+    for name in ("flash_qkv_packed_windows_s", "flash_qkv_packed_edge",
+                 "flash_qkv_packed_global", "ln_mask_linear_bt"):
+        check(counts.get(name, 0) > 0, f"vit_h: flash encoder did not launch {name}")
+    del encs
+    torch.cuda.empty_cache()
 
 
 def _synthetic_images(n, seed=0):
@@ -305,17 +450,69 @@ def phase_slice():
 
     calls = len(requests)  # cascade calls; each runs the CLIP tower twice
     layers = cfg.clip.vision_layers
+    enc = cfg.encoder
+    check(enc.attn_impl == "flash", f"slice: SAM runs {enc.attn_impl!r}, not 'flash'")
+    check(all(b.attn.rel_cache is not None for b in session.model.image_encoder.blocks),
+          "slice: the demo session did not attach the rel cache")
+    n_glob = len(enc.global_attn_indexes)
+    n_win = enc.depth - n_glob  # windowed blocks: interior + edge windows each (grid 64, win 14)
     expected = {
         "linear_act": 2 * calls,  # SAM patch embed + EVP handcrafted embed
-        "ln_linear_act_bt": 2 * layers * calls,
+        "ln_linear_act_bt": (2 * n_win + 2 * layers) * calls,
+        "ln_mask_linear_bt": n_glob * calls,
+        "flash_qkv_packed_windows_s": n_win * calls,
+        "flash_qkv_packed_edge": n_win * calls,
+        "flash_qkv_packed_global": n_glob * calls,
         "flash_qkv_packed_plain": 2 * layers * calls,
-        "proj_rows": 2 * layers * calls,
-        # text tower once (12 layers) + the vision MLPs
-        "ln_mlp_residual_bt": cfg.clip.transformer_layers + 2 * layers * calls,
+        "proj_rows": (2 * n_win + n_glob + 2 * layers) * calls,
+        # text tower once (12 layers) + SAM's and the vision towers' MLPs
+        "ln_mlp_residual_bt": cfg.clip.transformer_layers
+        + (2 * n_win + n_glob + 2 * layers) * calls,
     }
     log(f"[slice] kernel launches {counts} expected {expected}")
     check(counts == expected, f"launch counts {counts} != expected {expected}")
+    stage_times(session, images)
     return counts
+
+
+def stage_times(session, images, iters=5):
+    """The cascade call (`infer_cascade_with_text`) cut into its stages,
+    CUDA events between them, median of `iters` calls at batch 1 and 2."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops.resize import resize_bilinear
+
+    m, cfg, tf = session.model, session.cfg, session.text_features
+    names = ["SAM encoder (flash)", "CLIP pass 1", "decoder + upsample",
+             "sigmoid + alpha resize", "CLIP pass 2"]
+    for bs in (1, 2):
+        inp, cimg, cmask = session.preprocess(images[:bs])
+        rows = []
+        with torch.no_grad():
+            for it in range(iters + 1):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ev[0].record()
+                feats, _ = m.image_encoder(inp)
+                ev[1].record()
+                ifeat, tfeat, _, _ = m.clip_model.classify(cimg, cmask, tf)
+                ev[2].record()
+                masks = m._decode(feats, m._sparse_embeddings(ifeat, tfeat))
+                ev[3].record()
+                alpha = resize_bilinear(torch.sigmoid(masks.float()), cfg.clip_size,
+                                        cfg.clip_size)
+                ev[4].record()
+                m.clip_model.classify(cimg, alpha, tf)
+                ev[5].record()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1000
+                if it:  # the first call warms up
+                    rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))]
+                                + [wall])
+        med = np.median(np.array(rows), axis=0)
+        parts = "; ".join(f"{n} {t:.2f}" for n, t in zip(names, med))
+        log(f"[stages] batch {bs} (median of {iters}, ms): {parts}; sum {med[:-1].sum():.2f}; "
+            f"wall of the call {med[-1]:.2f}")
 
 
 def main() -> None:
@@ -323,6 +520,7 @@ def main() -> None:
     phase_build()
     results = phase_kernels()
     phase_small()
+    phase_vit_h()
     counts = phase_slice()
     import torch
 

@@ -11,7 +11,12 @@ from PIL import Image  # noqa: E402
 
 from camouflaged_vlm_tpu_torch.cli import demo  # noqa: E402
 from camouflaged_vlm_tpu_torch.factory import build_cascade  # noqa: E402
-from camouflaged_vlm_tpu_torch.models import CascadeConfig, ImageEncoderViT, SamEncoderConfig  # noqa: E402
+from camouflaged_vlm_tpu_torch.models import (  # noqa: E402
+    CascadeConfig,
+    ImageEncoderViT,
+    OVCOSCascade,
+    SamEncoderConfig,
+)
 from camouflaged_vlm_tpu_torch.ops import flash_attention, linear  # noqa: E402
 
 
@@ -31,15 +36,25 @@ def no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("impl", ["flash", "aug_flash", "aug_xla"])
 def test_unported_attn_impl_raises(impl):
-    with pytest.raises(NotImplementedError, match="reference"):
+    """'flash' at 4 heads would take the JAX package's unfused path (TPU
+    site #10, not ported); the aug_* ablations are not ported at all."""
+    match = "site #10" if impl == "flash" else "reference"
+    with pytest.raises(NotImplementedError, match=match):
         ImageEncoderViT(SamEncoderConfig.tiny(attn_impl=impl))
 
 
 def test_flash_names_its_roadmap_item():
     assert SamEncoderConfig().attn_impl == "flash"  # the JAX package's default
+    assert CascadeConfig.full().encoder.attn_impl == "flash"
+    assert CascadeConfig.tiny().encoder.attn_impl == "reference"  # 4 heads
+    with torch.device("meta"):  # the ViT-H cascade on 'flash' builds
+        OVCOSCascade(CascadeConfig.full())
+    ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", embed_dim=64, num_heads=8))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_cascade(CascadeConfig(), "meta")
-    assert CascadeConfig.full().encoder.attn_impl == "reference"
+        ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", num_heads=4))
+    with pytest.raises(NotImplementedError, match="site #12"):  # window > 14
+        ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", embed_dim=64, num_heads=8,
+                                              img_size=320, window_size=16))
 
 
 def test_demo_cuda_without_gpu_raises(image_path, tmp_path, no_cuda):
@@ -66,6 +81,14 @@ def test_kernel_wrappers_refuse_non_cpu_tensors():
                                           m(8, 16), m(8)),
         lambda: linear.proj_rows(m(1, 1, 8, 4), m(6, 8), m(6)),
         lambda: flash_attention.flash_qkv_packed_plain(m(1, 4, 48), 0.25, 2, 8),
+        lambda: linear.ln_mask_linear_bt(m(2, 4, 8), m(8), m(8), m(1, 4, 1), m(6, 8), m(6)),
+        lambda: flash_attention.flash_qkv_packed_windows_s(m(2, 4, 48), m(4, 2, 64),
+                                                           m(32, 4), 0.25, 2, 8),
+        lambda: flash_attention.flash_qkv_packed_edge(m(1, 2, 4, 48), m(1, 2, 4, 64),
+                                                      m(2, 32, 4), m(2, 8), m(2, 1, 4),
+                                                      0.25, 2, 8),
+        lambda: flash_attention.flash_qkv_packed_global(m(1, 4, 48), m(4, 1, 2, 4), m(4, 4),
+                                                        0.25, 2, 8, 2, 2),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported devices"):

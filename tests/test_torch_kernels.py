@@ -13,11 +13,18 @@ round the same values at the same points and differ in fp32 summation
 order, which can flip a bf16 rounding by one ulp (3.9e-3); 1e-2 is ~2.5 ulp.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from camouflaged_vlm_tpu_torch.ops import _cuda, flash_attention, linear  # noqa: E402
+from camouflaged_vlm_tpu_torch.ops.compact_window import (  # noqa: E402
+    LPAD_LANE,
+    NEG,
+    CompactGeometry,
+    edge_consts,
+)
 
 pytestmark = pytest.mark.gpu
 BOUND = 1e-2
@@ -88,6 +95,64 @@ def test_flash_qkv_packed_plain_kernel(gen, B, S, heads, d):
     qkv = rn(gen, B, S, 3 * heads * d)
     got = flash_attention.flash_qkv_packed_plain(qkv, d ** -0.5, heads, d)
     assert_close(got, flash_attention.flash_qkv_packed_plain_ref(qkv, d ** -0.5, heads, d))
+
+
+@pytest.mark.parametrize("Bp,S,K,N,nwin", [(4, 37, 128, 384, 2), (1, 100, 64, 72, 1),
+                                          (2, 196, 1280, 3840, 1)])
+def test_ln_mask_linear_bt_kernel(gen, Bp, S, K, N, nwin):
+    mask = (torch.rand(nwin, S, 1, generator=gen, device="cuda") > 0.3).to(torch.bfloat16)
+    args = (rn(gen, Bp, S, K) + 0.5, 1 + rn(gen, K, std=0.1, dtype=torch.float32),
+            rn(gen, K, std=0.1, dtype=torch.float32), mask, rn(gen, N, K, std=0.05),
+            rn(gen, N, std=0.1))
+    before = _cuda.LN_MASK_LINEAR.launches
+    got = linear.ln_mask_linear_bt(*args, eps=1e-6)
+    assert _cuda.LN_MASK_LINEAR.launches == before + 1
+    assert_close(got, linear.ln_mask_linear_bt_ref(*args, eps=1e-6))
+
+
+@pytest.mark.parametrize("BW,win,heads,d", [(3, 14, 2, 80), (5, 4, 8, 16), (2, 7, 1, 64),
+                                            (2, 5, 2, 32)])
+def test_flash_qkv_packed_windows_s_kernel(gen, BW, win, heads, d):
+    S = win * win
+    qkv = rn(gen, BW, S, 3 * heads * d)
+    rel_s = rn(gen, S, BW, heads * 32)
+    sel32 = flash_attention.make_rel_scatter32(win, torch.bfloat16, torch.device("cuda"))
+    args = (qkv, rel_s, sel32, d ** -0.5, heads, d)
+    got = flash_attention.flash_qkv_packed_windows_s(*args)
+    assert_close(got, flash_attention.flash_qkv_packed_windows_s_ref(*args))
+
+
+@pytest.mark.parametrize("H,W,win,heads,d", [(64, 64, 14, 2, 80), (10, 10, 4, 8, 16),
+                                             (5, 5, 2, 1, 32), (9, 12, 5, 2, 64)])
+def test_flash_qkv_packed_edge_kernel(gen, H, W, win, heads, d):
+    """Right, bottom and corner windows (the corner ragged, with dummy rows
+    whose pad-key logit is -1e30, as the encoder gives them)."""
+    geom = CompactGeometry(H, W, win)
+    B, n, R = 2, geom.n_edge, geom.R_u
+    qkv = rn(gen, B, n, R, 3 * heads * d)
+    rel = rn(gen, B, n, R, heads, 32)
+    for g_start, g in zip(np.cumsum([0] + [g.n for g in geom.edge_groups]), geom.edge_groups):
+        rel[:, g_start : g_start + g.n, g.rows :, :, LPAD_LANE] = NEG
+    rel = rel.reshape(B, n, R, heads * 32)
+    sel, kmask = edge_consts(geom, torch.bfloat16, torch.device("cuda"))
+    vb = rn(gen, heads, d, std=0.5)
+    args = (qkv, rel, sel, vb, kmask, d ** -0.5, heads, d)
+    got = flash_attention.flash_qkv_packed_edge(*args)
+    assert_close(got, flash_attention.flash_qkv_packed_edge_ref(*args))
+
+
+@pytest.mark.parametrize("B,H,W,heads,d", [(2, 8, 8, 2, 80), (1, 10, 10, 8, 16),
+                                           (1, 6, 10, 2, 64), (1, 64, 64, 1, 80)])
+def test_flash_qkv_packed_global_kernel(gen, B, H, W, heads, d):
+    N = H * W
+    qkv = rn(gen, B, N, 3 * heads * d)
+    rel = rn(gen, N, B, heads, H + W)
+    sel = flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda"))
+    args = (qkv, rel, sel, d ** -0.5, heads, d, H, W)
+    before = _cuda.QKV_GLOBAL.launches
+    got = flash_attention.flash_qkv_packed_global(*args)
+    assert _cuda.QKV_GLOBAL.launches == before + 1
+    assert_close(got, flash_attention.flash_qkv_packed_global_ref(*args[:6]))
 
 
 def test_kernels_refuse_what_they_do_not_take(gen):

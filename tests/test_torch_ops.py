@@ -75,6 +75,18 @@ def test_linear_act_matches_linear_pallas(rng, activation):
     close(linear.linear_act(T(x), T(w.T.copy()), T(b), activation), want)
 
 
+@pytest.mark.parametrize("nwin", [1, 3])
+def test_ln_mask_linear_bt_matches_jax(rng, nwin):
+    x = rnd(rng, 2 * nwin, 9, 32) + 0.5
+    g, be = 1 + rnd(rng, 32, scale=0.1), rnd(rng, 32, scale=0.1)
+    mask = (rng.random((nwin, 9, 1)) > 0.3).astype(np.float32)
+    w, b = rnd(rng, 32, 40, scale=0.2), rnd(rng, 40)
+    want = j_lin.ln_mask_linear_bt(J(x), J(g[None]), J(be[None]), J(mask), J(w), J(b[None]),
+                                   eps=1e-6)
+    close(linear.ln_mask_linear_bt(T(x), T(g), T(be), T(mask), T(w.T.copy()), T(b), eps=1e-6),
+          want)
+
+
 @pytest.mark.parametrize("activation", ACTS)
 @pytest.mark.parametrize("eps", [1e-5, 1e-6])
 def test_ln_linear_act_bt_matches_jax(rng, activation, eps):
