@@ -56,7 +56,8 @@ def build_cascade(
     cfg: CascadeConfig, device, seed: int = 0
 ) -> OVCOSCascade:
     """The cascade on `device` with seeded random weights, weights of rank
-    >= 2 in cfg's compute type, set up for inference."""
+    >= 2 in cfg's compute type, no parameter requiring grad (training sets
+    its trainable ones, `train.trainable_parameters`)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is available")
@@ -70,8 +71,9 @@ def build_cascade(
 
 
 def attach_rel_cache(model: OVCOSCascade) -> OVCOSCascade:
-    """Build the SAM encoder's parameter-derived rel tables once, for
-    inference (counterpart of the JAX `attach_rel_cache`). Call it after
+    """Build the SAM encoder's parameter-derived rel tables once
+    (counterpart of the JAX `attach_rel_cache`); training attaches them too,
+    since the rel-pos parameters are frozen. Call it after
     the weights are final: a cache built before a state-dict load would be
     stale, and the encoder raises if it finds one. Without a cache the
     'flash' path builds the tables in every forward."""

@@ -1,7 +1,6 @@
 """The OVCOS cascade: prompt-tuned SAM + Alpha-CLIP classification.
 
-Counterpart of `camouflaged_vlm_tpu/models/cascade.py`, inference entry
-points only:
+Counterpart of `camouflaged_vlm_tpu/models/cascade.py`:
 
   stage 1: SAM ViT-H encoder -> CLIP pass with all-ones alpha -> CLIP image
     and text features projected to two 256-d sparse prompts -> edge mask
@@ -10,7 +9,11 @@ points only:
     class logits against the class-split text features.
 
 The text features are image-independent: `encode_class_text_features` runs
-once per class split and `infer_cascade_with_text` per batch.
+once per class split and `infer_cascade_with_text` per batch. Training
+runs stage 1 only (`forward_with_text`, or `forward`/`stage1` through the
+prompt bank) and returns the mask logits and the edge probabilities at
+the input resolution. The CLIP tower is frozen: it runs under no grad and
+builds no graph.
 """
 
 from __future__ import annotations
@@ -105,14 +108,57 @@ class OVCOSCascade(nn.Module):
         return torch.cat([v, t], dim=1)
 
     def _decode(self, features, sparse):
+        """-> (mask logits, edge probabilities), both (B, H, W, 1) at the
+        input resolution, and the IoU prediction (B, 1)."""
         cfg = self.cfg
         B, g = features.shape[0], cfg.embedding_size
         dense_emb = self.no_mask_embed.weight[0].to(features.dtype).expand(
             B, g, g, cfg.prompt_embed_dim
         )
-        masks, _, _ = self.mask_decoder(features, self.pe_layer(g), sparse, dense_emb)
-        # (B, 1, H/4, W/4) logits -> NHWC -> input resolution
-        return resize_bilinear(masks.permute(0, 2, 3, 1), cfg.inp_size, cfg.inp_size)
+        masks, edges, iou = self.mask_decoder(features, self.pe_layer(g), sparse, dense_emb)
+        # (B, 1, H/4, W/4) -> NHWC -> input resolution
+        up = lambda a: resize_bilinear(a.permute(0, 2, 3, 1), cfg.inp_size, cfg.inp_size)  # noqa: E731
+        return up(masks), up(edges), iou
+
+    # ----- training entry points (stage 1)
+
+    def stage1(self, inp, clip_image, clip_mask, prefix, suffix, eot_indices, bank_features):
+        """Segmentation pass through the prompt bank. inp (B, 1024, 1024, 3),
+        clip_* (B, 336, 336, C) -> (mask logits (B, H, W, 1), edge
+        probabilities (B, H, W, 1), iou (B, 1), clip pred ids (B,), clip
+        logits (B, N))."""
+        features, _ = self.image_encoder(inp)
+        with torch.no_grad():  # the frozen CLIP tower
+            text_features = self.clip_model.encode_class_text_features(
+                prefix, suffix, eot_indices, bank_features
+            )
+            image_feat, text_feat, pred, score = self.clip_model.classify(
+                clip_image, clip_mask, text_features
+            )
+        masks, edges, iou = self._decode(features, self._sparse_embeddings(image_feat, text_feat))
+        return masks, edges, iou, pred, score
+
+    def forward(self, inp, clip_image, clip_mask, prefix, suffix, eot_indices, bank_features):
+        """Training forward through the prompt bank: (mask logits, edge
+        probabilities) at the input resolution."""
+        masks, edges, _, _, _ = self.stage1(
+            inp, clip_image, clip_mask, prefix, suffix, eot_indices, bank_features
+        )
+        return masks, edges
+
+    def forward_with_text(self, inp, clip_image, clip_mask, text_features):
+        """Training forward with the class-text features encoded once per run
+        (exact: the text tower and prompt learner are frozen) -> (mask
+        logits, edge probabilities) at the input resolution."""
+        features, _ = self.image_encoder(inp)
+        with torch.no_grad():  # the frozen CLIP tower
+            image_feat, text_feat, _, _ = self.clip_model.classify(
+                clip_image, clip_mask, text_features
+            )
+        masks, edges, _ = self._decode(features, self._sparse_embeddings(image_feat, text_feat))
+        return masks, edges
+
+    # ----- inference entry points
 
     @torch.no_grad()
     def encode_class_text_features(self, prefix, suffix, eot_indices, bank_features):
@@ -131,7 +177,7 @@ class OVCOSCascade(nn.Module):
         image_feat, text_feat, _, _ = self.clip_model.classify(
             clip_image, clip_mask, text_features
         )
-        masks = self._decode(features, self._sparse_embeddings(image_feat, text_feat))
+        masks, _, _ = self._decode(features, self._sparse_embeddings(image_feat, text_feat))
         probs = torch.sigmoid(masks.float())
         alpha = resize_bilinear(probs, cfg.clip_size, cfg.clip_size)
         _, _, pred, score = self.clip_model.classify(clip_image, alpha, text_features)

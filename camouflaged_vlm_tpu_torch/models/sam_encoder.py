@@ -1,7 +1,7 @@
 """SAM image encoder (ViTDet-style ViT-H) with the EVP prompt generator.
 
-Counterpart of `camouflaged_vlm_tpu/models/sam_encoder.py`, inference
-only, with two attention implementations:
+Counterpart of `camouflaged_vlm_tpu/models/sam_encoder.py`, with two
+attention implementations:
 
   'flash'      the JAX package's default and production path. Windowed
                blocks run in the compact (pad-free) carry

@@ -152,8 +152,19 @@ QKV_EDGE = CudaKernel(
 QKV_GLOBAL = CudaKernel(
     "flash_qkv_packed_global", "cvlm_qkv_packed_global", [P, P, P, I, I, I, I, I, I, F]
 )
+# The hand-written backward kernels (training): the fused MLP's (#6), and one
+# attention backward (csrc/attn_bwd.cu) for the windows (#14) and the
+# global blocks (#18), each with its own count.
+LN_MLP_RESIDUAL_BWD = CudaKernel(
+    "ln_mlp_residual_bt_bwd", "cvlm_ln_mlp_residual_bwd",
+    [P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I],
+)
+_ATTN_BWD_ARGS = [P, P, P, P, P, P, I, I, I, I, I, I, I, F]
+QKV_WINDOWS_BWD = CudaKernel("flash_qkv_packed_windows_s_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
+QKV_GLOBAL_BWD = CudaKernel("flash_qkv_packed_global_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
 KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MASK_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS,
-           QKV_PACKED_PLAIN, QKV_WINDOWS, QKV_EDGE, QKV_GLOBAL)
+           QKV_PACKED_PLAIN, QKV_WINDOWS, QKV_EDGE, QKV_GLOBAL,
+           LN_MLP_RESIDUAL_BWD, QKV_WINDOWS_BWD, QKV_GLOBAL_BWD)
 
 
 def reset_launches() -> None:
@@ -171,19 +182,16 @@ def launch_counts() -> dict:
 def use_kernel(name: str, *tensors: Optional[torch.Tensor]) -> bool:
     """False when every tensor lies on the CPU (the caller runs the plain
     version); True when all lie on one CUDA device and the kernel can take
-    them (bf16, contiguous, 32-byte aligned, no autograd). Raises on
-    anything else — a CUDA tensor never falls back to the plain version."""
+    them (contiguous, 32-byte aligned). Raises on anything else — a CUDA
+    tensor never falls back to the plain version. Gradients go through the
+    wrappers' autograd Functions (`ops/autograd.py`), whose forward calls
+    the kernel under no grad."""
     ts = [t for t in tensors if t is not None]
     devices = {t.device for t in ts}
     if all(d.type == "cpu" for d in devices):
         return False
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name}: tensors on mixed or unsupported devices {devices}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel is inference-only (no backward yet); "
-            "run under torch.no_grad()"
-        )
     for t in ts:
         if not t.is_contiguous():
             raise ValueError(f"{name}: CUDA kernel needs contiguous tensors")

@@ -17,6 +17,11 @@ formulation: q*scale rounded to the working type, the bias rel @ sel added
 to the fp32 scores, max-subtracted fp32 softmax, probabilities rounded to
 the working type before P.V, fp32 accumulation, one final rounding. For CUDA
 tensors each launches its kernel (`csrc/`) or raises.
+
+Gradients: the windows (#14) and global (#18) attention have hand-written
+backward kernels (`csrc/attn_bwd.cu`) and plain backwards (`*_bwd_ref`)
+for the CPU; the plain and edge attention take the VJP of their plain
+version (`ops/autograd.py`), as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import math
 import numpy as np
 import torch
 
-from . import _cuda
+from . import _cuda, autograd
 from .compact_window import LPAD_LANE, REL_LANES
 from .layers import scaled
 
@@ -106,8 +111,11 @@ def flash_qkv_packed_plain(
     d: int,
 ) -> torch.Tensor:
     """softmax((q*scale) . k^T) . v per head, no bias -> d-major (B, heads*d, S)."""
-    if not _cuda.use_kernel("flash_qkv_packed_plain", qkv):
-        return flash_qkv_packed_plain_ref(qkv, scale, heads, d)
+    return autograd.run("flash_qkv_packed_plain", _plain_cuda, flash_qkv_packed_plain_ref,
+                        (qkv,), (scale, heads, d))
+
+
+def _plain_cuda(qkv, scale, heads, d):
     _cuda.check_dtype("flash_qkv_packed_plain", torch.bfloat16, qkv)
     B, S, C3 = qkv.shape
     if C3 != 3 * heads * d:
@@ -139,10 +147,24 @@ def flash_qkv_packed_windows_s(
 ) -> torch.Tensor:
     """Windowed attention with the decomposed rel-pos bias -> d-major
     (BW, heads*d, Nw). The kernel builds the bias by indexing
-    (rel[q, k // win] + rel[q, win + k % win]) and does not read sel32."""
+    (rel[q, k // win] + rel[q, win + k % win]) and does not read sel32.
+    Backward: `flash_qkv_packed_windows_s_bwd` (TPU kernel #14)."""
+    return _with_attn_bwd("flash_qkv_packed_windows_s", _windows_cuda,
+                          flash_qkv_packed_windows_s_ref, flash_qkv_packed_windows_s_bwd,
+                          (qkv, rel_s, sel32), (scale, heads, d))
+
+
+def _windows_cuda(qkv, rel_s, sel32, scale, heads, d):
     name = "flash_qkv_packed_windows_s"
-    if not _cuda.use_kernel(name, qkv, rel_s, sel32):
-        return flash_qkv_packed_windows_s_ref(qkv, rel_s, sel32, scale, heads, d)
+    win = _check_windows(name, qkv, rel_s, sel32, heads, d)
+    BW, Nw, _ = qkv.shape
+    out = torch.empty((BW, heads * d, Nw), dtype=qkv.dtype, device=qkv.device)
+    _cuda.QKV_WINDOWS(qkv.data_ptr(), rel_s.data_ptr(), out.data_ptr(), BW, win, heads, d,
+                      float(scale))
+    return out
+
+
+def _check_windows(name, qkv, rel_s, sel32, heads, d) -> int:
     _cuda.check_dtype(name, torch.bfloat16, qkv, rel_s)
     BW, Nw, C3 = qkv.shape
     win = math.isqrt(Nw)
@@ -150,10 +172,105 @@ def flash_qkv_packed_windows_s(
             or rel_s.shape != (Nw, BW, heads * REL_LANES) or sel32.shape != (REL_LANES, Nw)):
         raise ValueError(f"{name}: qkv {qkv.shape} rel_s {rel_s.shape} sel32 {sel32.shape}")
     _check_head_dim(name, Nw, d, bias=True)
-    out = torch.empty((BW, heads * d, Nw), dtype=qkv.dtype, device=qkv.device)
-    _cuda.QKV_WINDOWS(qkv.data_ptr(), rel_s.data_ptr(), out.data_ptr(), BW, win, heads, d,
-                      float(scale))
-    return out
+    return win
+
+
+def attention_bwd_ref(q, k, v, relh, sel, g, scale):
+    """The plain attention backward, the formulas of the JAX backward
+    kernels (`_qkv_packed_windows_s_bwd_kernel`, `_qkv_packed_global_bwd_kernel`).
+    q, k, v (..., N, d) with q UNSCALED; relh (..., N, L); sel (L, N);
+    g (..., N, d) the output's gradient. P is the forward's probabilities
+    (q*scale rounded to the working type, fp32 softmax of the biased
+    scores); dP = g.v^T, t = sum_k dP*P, dS = P*(dP - t) rounded to the
+    working type; dv = P^T.g (P rounded), dq = scale*dS.k, dk = scale*dS^T.q,
+    drel = dS.sel^T (per-row sums of dS over the keys of each rel lane).
+    All in fp32 -> (dq, dk, dv, drel)."""
+    dt = q.dtype
+    f = lambda a: a.float()  # noqa: E731
+    s = torch.matmul(f(scaled(q, scale)), f(k).transpose(-1, -2))
+    P = torch.softmax(s + torch.matmul(f(relh), f(sel)), dim=-1)
+    dP = torch.matmul(f(g), f(v).transpose(-1, -2))
+    t = (dP * P).sum(-1, keepdim=True)
+    dS = f((P * (dP - t)).to(dt))
+    dv = torch.matmul(f(P.to(dt)).transpose(-1, -2), f(g))
+    dq = torch.matmul(dS, f(k)) * scale
+    dk = torch.matmul(dS.transpose(-1, -2), f(q)) * scale
+    return dq, dk, dv, torch.matmul(dS, f(sel).transpose(-1, -2))
+
+
+def _unsplit(dq, dk, dv, dtype):
+    """(..., heads, N, d) x3 -> packed rows (..., N, 3*heads*d)."""
+    rows = lambda a: a.transpose(-3, -2).reshape(a.shape[:-3] + (a.shape[-2], -1))  # noqa: E731
+    return torch.cat([rows(dq), rows(dk), rows(dv)], dim=-1).to(dtype)
+
+
+def _heads_rows(qkv, heads, d):
+    r = qkv.reshape(qkv.shape[:-1] + (3, heads, d))
+    return (r[..., i, :, :].transpose(-3, -2) for i in range(3))  # unscaled q, k, v
+
+
+def flash_qkv_packed_windows_s_bwd_ref(qkv, rel_s, sel32, g, scale, heads, d):
+    """(dqkv like qkv, drel like rel_s) at upstream g (BW, heads*d, Nw)."""
+    BW, Nw, _ = qkv.shape
+    q, k, v = _heads_rows(qkv, heads, d)
+    relh = rel_s.reshape(Nw, BW, heads, REL_LANES).permute(1, 2, 0, 3)
+    gr = g.reshape(BW, heads, d, Nw).transpose(-1, -2)
+    dq, dk, dv, drel = attention_bwd_ref(q, k, v, relh, sel32, gr, scale)
+    drel = drel.permute(2, 0, 1, 3).reshape(Nw, BW, heads * REL_LANES)
+    return _unsplit(dq, dk, dv, qkv.dtype), drel.to(rel_s.dtype)
+
+
+def _attn_bwd_launch(kernel, qkv, rel, g, BB, N, H, W, L, heads, d, scale):
+    dqkv, drel = torch.empty_like(qkv), torch.empty_like(rel)
+    # row statistics (max, sum, t) of the query pass, read by the key pass
+    stats = torch.empty((3, BB * heads * N), dtype=torch.float32, device=qkv.device)
+    kernel(qkv.data_ptr(), rel.data_ptr(), g.data_ptr(), dqkv.data_ptr(), drel.data_ptr(),
+           stats.data_ptr(), BB, N, H, W, L, heads, d, float(scale))
+    return dqkv, drel
+
+
+def flash_qkv_packed_windows_s_bwd(qkv, rel_s, sel32, g, scale, heads, d):
+    """Backward of `flash_qkv_packed_windows_s`: the kernel for CUDA tensors
+    (TPU kernel #14), the plain backward for CPU tensors. dqkv is written in
+    qkv's packed rows, drel in rel_s's position-major layout."""
+    name = "flash_qkv_packed_windows_s_bwd"
+    if not _cuda.use_kernel(name, qkv, rel_s, sel32, g):
+        return flash_qkv_packed_windows_s_bwd_ref(qkv, rel_s, sel32, g, scale, heads, d)
+    win = _check_windows(name, qkv, rel_s, sel32, heads, d)
+    BW, Nw, _ = qkv.shape
+    _cuda.check_dtype(name, torch.bfloat16, g)
+    if g.shape != (BW, heads * d, Nw):
+        raise ValueError(f"{name}: gradient {g.shape}, expected {(BW, heads * d, Nw)}")
+    return _attn_bwd_launch(_cuda.QKV_WINDOWS_BWD, qkv, rel_s, g, BW, Nw, win, win, REL_LANES,
+                            heads, d, scale)
+
+
+class AttnWithBwd(torch.autograd.Function):
+    """An attention kernel with its hand-written backward `bwd(qkv, rel,
+    sel, g, *static) -> (dqkv, drel)`; sel gets no gradient. Keeps only its
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, qkv, rel, sel, *static):
+        ctx.save_for_backward(qkv, rel, sel)
+        ctx.bwd, ctx.static = bwd, static
+        return fwd(qkv, rel, sel, *static)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, rel, sel = ctx.saved_tensors
+        # the kernels read g in its d-major rows: a non-contiguous gradient is copied here
+        dqkv, drel = ctx.bwd(qkv, rel, sel, g.contiguous(), *ctx.static)
+        needs = ctx.needs_input_grad
+        return (None, None, dqkv if needs[2] else None, drel if needs[3] else None, None,
+                *([None] * len(ctx.static)))
+
+
+def _with_attn_bwd(name, launch, plain, bwd, tensors, static):
+    fwd = autograd.forward_fn(name, launch, plain, tensors)
+    if autograd.wants_grad(*tensors):
+        return AttnWithBwd.apply(fwd, bwd, *tensors, *static)
+    return fwd(*tensors, *static)
 
 
 # ---------------------------------------------------------------- edge (#15)
@@ -188,9 +305,12 @@ def flash_qkv_packed_edge(
 ) -> torch.Tensor:
     """Edge-window attention on the compact layout: softmax over [real keys |
     one virtual pad key] -> d-major (B, n, heads*d, R)."""
+    return autograd.run("flash_qkv_packed_edge", _edge_cuda, flash_qkv_packed_edge_ref,
+                        (qkv, rel, sel, vb, kmask), (scale, heads, d))
+
+
+def _edge_cuda(qkv, rel, sel, vb, kmask, scale, heads, d):
     name = "flash_qkv_packed_edge"
-    if not _cuda.use_kernel(name, qkv, rel, sel, vb, kmask):
-        return flash_qkv_packed_edge_ref(qkv, rel, sel, vb, kmask, scale, heads, d)
     _cuda.check_dtype(name, torch.bfloat16, qkv, rel, sel, vb)
     _cuda.check_dtype(name, torch.float32, kmask)
     B, n, R, C3 = qkv.shape
@@ -228,10 +348,18 @@ def flash_qkv_packed_global(
     """Global attention with the separable bias rel_h[q, k // W] +
     rel_w[q, k % W] -> d-major (B, heads*d, N). The kernel streams keys in
     two passes (row statistics, then normalised P.V), so N is not bounded
-    by shared memory."""
-    name = "flash_qkv_packed_global"
-    if not _cuda.use_kernel(name, qkv, rel, sel):
-        return flash_qkv_packed_global_ref(qkv, rel, sel, scale, heads, d)
+    by shared memory. Backward: `flash_qkv_packed_global_bwd` (TPU kernel
+    #18)."""
+    return _with_attn_bwd("flash_qkv_packed_global", _global_cuda,
+                          _global_plain, flash_qkv_packed_global_bwd,
+                          (qkv, rel, sel), (scale, heads, d, H, W))
+
+
+def _global_plain(qkv, rel, sel, scale, heads, d, H, W):
+    return flash_qkv_packed_global_ref(qkv, rel, sel, scale, heads, d)
+
+
+def _check_global(name, qkv, rel, sel, heads, d, H, W):
     _cuda.check_dtype(name, torch.bfloat16, qkv, rel)
     B, N, C3 = qkv.shape
     if (C3 != 3 * heads * d or H * W != N or rel.shape != (N, B, heads, H + W)
@@ -239,7 +367,43 @@ def flash_qkv_packed_global(
         raise ValueError(f"{name}: qkv {qkv.shape} rel {rel.shape} H={H} W={W}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"{name}: CUDA kernel takes d in {_HEAD_DIMS}, got {d}")
+
+
+def _global_cuda(qkv, rel, sel, scale, heads, d, H, W):
+    _check_global("flash_qkv_packed_global", qkv, rel, sel, heads, d, H, W)
+    B, N, _ = qkv.shape
     out = torch.empty((B, heads * d, N), dtype=qkv.dtype, device=qkv.device)
     _cuda.QKV_GLOBAL(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B, N, H, W, heads, d,
                      float(scale))
     return out
+
+
+def flash_qkv_packed_global_bwd_ref(qkv, rel, sel, g, scale, heads, d):
+    """(dqkv like qkv, drel like rel) at upstream g (B, heads*d, N)."""
+    B, N, _ = qkv.shape
+    q, k, v = _heads_rows(qkv, heads, d)
+    gr = g.reshape(B, heads, d, N).transpose(-1, -2)
+    dq, dk, dv, drel = attention_bwd_ref(q, k, v, rel.permute(1, 2, 0, 3), sel, gr, scale)
+    return _unsplit(dq, dk, dv, qkv.dtype), drel.permute(2, 0, 1, 3).to(rel.dtype)
+
+
+# the key pass keeps the rel rows of 64 queries in fp32 shared memory
+GLOBAL_BWD_MAX_LANES = 128
+
+
+def flash_qkv_packed_global_bwd(qkv, rel, sel, g, scale, heads, d, H, W):
+    """Backward of `flash_qkv_packed_global`: the kernel for CUDA tensors
+    (TPU kernel #18), the plain backward for CPU tensors. dqkv is written in
+    qkv's packed rows, drel in rel's position-major layout."""
+    name = "flash_qkv_packed_global_bwd"
+    if not _cuda.use_kernel(name, qkv, rel, sel, g):
+        return flash_qkv_packed_global_bwd_ref(qkv, rel, sel, g, scale, heads, d)
+    _check_global(name, qkv, rel, sel, heads, d, H, W)
+    B, N, _ = qkv.shape
+    _cuda.check_dtype(name, torch.bfloat16, g)
+    if g.shape != (B, heads * d, N):
+        raise ValueError(f"{name}: gradient {g.shape}, expected {(B, heads * d, N)}")
+    if H + W > GLOBAL_BWD_MAX_LANES:
+        raise ValueError(f"{name}: CUDA kernel takes H+W <= {GLOBAL_BWD_MAX_LANES}, got {H + W}")
+    return _attn_bwd_launch(_cuda.QKV_GLOBAL_BWD, qkv, rel, g, B, N, H, W, H + W, heads, d,
+                            scale)

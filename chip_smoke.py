@@ -27,6 +27,21 @@ never prints its last line):
               checked, and every kernel's launch count must match the path.
               Then the cascade call's stage times (CUDA events) at batch 1
               and 2.
+  7. grads    each hand-written backward kernel (the fused MLP's, the
+              windowed and the global attention's) against its plain
+              backward at the training path's full-width bf16 shapes, per
+              output, with times; and the plain-VJP Functions of the
+              LN+qkv, LN+mask+qkv, out-projection and edge-attention
+              kernels against autograd of their plain versions
+  8. train_small  one train step of the small cascade, bf16 on the card
+              against fp32 on the CPU on the same weights and batch (loss
+              and every trainable gradient), then the loss over 4 steps
+  9. train_slice  the full-width cascade trained through the train CLI
+              (`cli/train.main`, --device cuda, bf16, batch 2, one epoch of a
+              synthetic OVCamo-layout dataset: 3 steps) with exact launch
+              counts of every forward and backward kernel, frozen weights
+              bit-identical, step times and peak memory; then one step cut
+              into forward, backward and optimizer (CUDA events)
 
 Before its last line it prints one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
@@ -36,6 +51,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import time
 
@@ -61,6 +77,21 @@ SMALL_LOGIT_REL_BOUND = 5e-2     # class logits, max|d| / max|ref|
 # on-chip check of the same comparison used 1.5e-2
 # (scripts/verify_kernels_tpu.py:250-267).
 VITH_MEAN_REL_BOUND = 1.5e-2
+# Plain-VJP Functions against autograd of the plain version: the same
+# plain backward on the same inputs, so equal up to fp32 summation order.
+VJP_REL_BOUND = 1e-5
+# Small cascade train step, bf16 on the card vs fp32 on the CPU: per
+# trainable leaf |g_card - g_cpu| / max(|g_cpu|, FLOOR * max_leaf |g_cpu|)
+# (L2 norms). bf16 keeps ~2.6 decimal digits per rounding; the backward
+# chains ~20 rounded ops per path, so a typical leaf drifts by ~2e-2; 0.1
+# leaves 5x. The floor: some leaves have an exact gradient of zero (the
+# attention key biases: softmax is invariant to a bias added to every key),
+# so their fp32 gradient is rounding noise and bf16's noise is larger; they
+# are held to 1e-2 of the largest leaf's norm instead. Leaves whose CPU
+# gradient is exactly zero (the IoU head, off the loss) must be zero on the card.
+TRAIN_SMALL_GRAD_REL_BOUND = 0.1
+TRAIN_SMALL_GRAD_FLOOR = 1e-2
+TRAIN_SMALL_LOSS_REL_BOUND = 1e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -468,6 +499,10 @@ def phase_slice():
         # text tower once (12 layers) + SAM's and the vision towers' MLPs
         "ln_mlp_residual_bt": cfg.clip.transformer_layers
         + (2 * n_win + n_glob + 2 * layers) * calls,
+        # inference launches no backward kernel
+        "ln_mlp_residual_bt_bwd": 0,
+        "flash_qkv_packed_windows_s_bwd": 0,
+        "flash_qkv_packed_global_bwd": 0,
     }
     log(f"[slice] kernel launches {counts} expected {expected}")
     check(counts == expected, f"launch counts {counts} != expected {expected}")
@@ -497,7 +532,7 @@ def stage_times(session, images, iters=5):
                 ev[1].record()
                 ifeat, tfeat, _, _ = m.clip_model.classify(cimg, cmask, tf)
                 ev[2].record()
-                masks = m._decode(feats, m._sparse_embeddings(ifeat, tfeat))
+                masks, _, _ = m._decode(feats, m._sparse_embeddings(ifeat, tfeat))
                 ev[3].record()
                 alpha = resize_bilinear(torch.sigmoid(masks.float()), cfg.clip_size,
                                         cfg.clip_size)
@@ -515,6 +550,322 @@ def stage_times(session, images, iters=5):
             f"wall of the call {med[-1]:.2f}")
 
 
+def _check_grads(name, kfn, pfn, args, out_names):
+    """A backward kernel against its plain backward on the same inputs:
+    per output shape, type, finite, max_rel and mean_rel within
+    KERNEL_REL_BOUND; times (kernel, plain) in ms."""
+    import torch
+
+    got = kfn(*args)
+    torch.cuda.synchronize()
+    want = pfn(*args)
+    errs = {}
+    for o, g, w in zip(out_names, got, want):
+        if w is None:
+            continue
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{name} {o}: {g.shape}/{g.dtype} vs plain {w.shape}/{w.dtype}")
+        check(bool(torch.isfinite(g).all()), f"{name} {o}: non-finite")
+        errs[o] = errors(g, w)
+    del got, want
+    k_ms, p_ms = time_ms(lambda: kfn(*args)), time_ms(lambda: pfn(*args))
+    parts = "; ".join(f"{o} max_rel {e['max_rel']:.3e} mean_rel {e['mean_rel']:.3e}"
+                      for o, e in errs.items())
+    log(f"[grads] {name}: {parts} (bound {KERNEL_REL_BOUND}); kernel {k_ms:.4f} ms "
+        f"plain {p_ms:.4f} ms")
+    for o, e in errs.items():
+        check(e["max_rel"] < KERNEL_REL_BOUND and e["mean_rel"] < KERNEL_REL_BOUND,
+              f"{name} {o} disagrees with the plain backward: {e}")
+    return dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), ms=k_ms,
+                plain_ms=p_ms)
+
+
+def phase_grads():
+    """The backward kernels against their plain backwards at the training
+    path's full-width bf16 shapes (batch 2), and the plain-VJP Functions."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+    from camouflaged_vlm_tpu_torch.ops.compact_window import (
+        LPAD_LANE, NEG, CompactGeometry, edge_consts,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    bf, dev = torch.bfloat16, torch.device("cuda")
+
+    def rn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+    B, D, HD, NH, G, WIN = 2, 1280, 80, 16, 64, 14
+    geom = CompactGeometry(G, G, WIN)
+    nf, ne, R = geom.n_full, geom.n_edge, geom.R_u
+    sg, sb = 1 + rn(D, std=0.1, dtype=torch.float32), rn(D, std=0.1, dtype=torch.float32)
+    w1, b1 = rn(4 * D, D, std=0.02), rn(4 * D, std=0.02)
+    w2, b2 = rn(D, 4 * D, std=0.02), rn(D, std=0.02)
+    scale = HD ** -0.5
+    mlp = lambda w: (lambda *a: lin.ln_mlp_residual_bt_bwd(*a, eps=1e-6, activation="gelu_tanh",  # noqa: E731
+                                                           weights=w))
+    mlp_ref = lambda w: (lambda *a: lin.ln_mlp_residual_bt_bwd_ref(  # noqa: E731
+        *a, eps=1e-6, activation="gelu_tanh", weights=w))
+    mlp_outs = ["dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"]
+    results = {}
+    for label, rows, weights in (("SAM windows 32x196x1280", (B * nf, WIN * WIN), False),
+                                 ("SAM edge 2x1008x1280", (B, geom.E), False),
+                                 ("SAM global 2x4096x1280", (B, G * G), False),
+                                 ("SAM windows 32x196x1280, weight grads", (B * nf, WIN * WIN),
+                                  True)):
+        args = (rn(*rows, D), sg, sb, w1, b1, w2, b2, rn(*rows, D, std=0.05))
+        r = _check_grads(f"ln_mlp_residual_bt_bwd ({label}, H 5120)", mlp(weights),
+                         mlp_ref(weights), args, mlp_outs)
+        if label.startswith("SAM global"):
+            results["ln_mlp_residual_bt_bwd"] = dict(
+                source="camouflaged_vlm_tpu_torch/csrc/ln_mlp_residual_bwd.cu",
+                replaces="camouflaged_vlm_tpu/ops/linear.py:564", **r)
+    S = WIN * WIN
+    args = (rn(B * nf, S, 3 * D), rn(S, B * nf, NH * 32), fa.make_rel_scatter32(WIN, bf, dev),
+            rn(B * nf, D, S, std=0.05), scale, NH, HD)
+    results["flash_qkv_packed_windows_s_bwd"] = dict(
+        source="camouflaged_vlm_tpu_torch/csrc/attn_bwd.cu",
+        replaces="camouflaged_vlm_tpu/ops/flash_attention.py:617",
+        **_check_grads("flash_qkv_packed_windows_s_bwd (qkv 32x196x3840)",
+                       fa.flash_qkv_packed_windows_s_bwd, fa.flash_qkv_packed_windows_s_bwd_ref,
+                       args, ["dqkv", "drel"]))
+    N = G * G
+    args = (rn(B, N, 3 * D), rn(N, B, NH, 2 * G), fa.make_rel_scatter(G, G, bf, dev),
+            rn(B, D, N, std=0.05), scale, NH, HD, G, G)
+    results["flash_qkv_packed_global_bwd"] = dict(
+        source="camouflaged_vlm_tpu_torch/csrc/attn_bwd.cu",
+        replaces="camouflaged_vlm_tpu/ops/flash_attention.py:1173",
+        **_check_grads("flash_qkv_packed_global_bwd (qkv 2x4096x3840)",
+                       fa.flash_qkv_packed_global_bwd,
+                       lambda *a: fa.flash_qkv_packed_global_bwd_ref(*a[:7]), args,
+                       ["dqkv", "drel"]))
+
+    # plain-VJP Functions: kernel forward, gradient of the plain version
+    edge_rel = rn(B, ne, R, NH, 32)
+    off = 0
+    for grp in geom.edge_groups:
+        edge_rel[:, off : off + grp.n, grp.rows :, :, LPAD_LANE] = NEG
+        off += grp.n
+    sel_e, kmask_e = edge_consts(geom, bf, dev)
+    w_qkv, b_qkv = rn(3 * D, D, std=0.02), rn(3 * D, std=0.02)
+    vjp_cases = [
+        ("ln_linear_act_bt", lambda *a: lin.ln_linear_act_bt(*a, eps=1e-6, activation=None),
+         lambda *a: lin.ln_linear_act_bt_ref(*a, eps=1e-6, activation=None),
+         (rn(B * nf, S, D), sg, sb, w_qkv, b_qkv), (0,)),
+        ("ln_mask_linear_bt", lambda *a: lin.ln_mask_linear_bt(*a, eps=1e-6),
+         lambda *a: lin.ln_mask_linear_bt_ref(*a, eps=1e-6),
+         (rn(B, N, D), sg, sb, torch.ones(1, N, 1, dtype=bf, device=dev), w_qkv, b_qkv), (0,)),
+        ("proj_rows", lin.proj_rows, lin.proj_rows_ref,
+         (rn(B, nf, D, S), rn(D, D, std=0.02), rn(D, std=0.02), rn(B, nf, S, D)), (0, 3)),
+        ("flash_qkv_packed_edge", lambda *a: fa.flash_qkv_packed_edge(*a, scale, NH, HD),
+         lambda *a: fa.flash_qkv_packed_edge_ref(*a, scale, NH, HD),
+         (rn(B, ne, R, 3 * D), edge_rel.reshape(B, ne, R, NH * 32), sel_e, rn(NH, HD, std=0.5),
+          kmask_e), (0, 1)),
+    ]
+    for name, fn, ref, args, wrt in vjp_cases:
+        leaves = [a.detach().clone().requires_grad_(i in wrt) for i, a in enumerate(args)]
+        out = fn(*leaves)
+        gy = rn(*out.shape, std=0.05)
+        got = torch.autograd.grad(out, [leaves[i] for i in wrt], gy)
+        want = torch.autograd.grad(ref(*leaves), [leaves[i] for i in wrt], gy)
+        es = [errors(a, b) for a, b in zip(got, want)]
+        log(f"[grads] {name} plain-VJP Function vs autograd of the plain version: "
+            + "; ".join(f"max_rel {e['max_rel']:.3e}" for e in es) + f" (bound {VJP_REL_BOUND})")
+        check(all(e["max_rel"] < VJP_REL_BOUND for e in es), f"{name} VJP differs: {es}")
+    return results
+
+
+def _small_batch(cfg, B=2, seed=7):
+    rng = np.random.default_rng(seed)
+    S, C = cfg.inp_size, cfg.clip_size
+    yy, xx = np.mgrid[:S, :S]
+    gt = np.stack([((yy - S * (0.35 + 0.1 * i)) ** 2 + (xx - S / 2) ** 2 < (S / 4) ** 2)
+                   for i in range(B)])
+    return {
+        "inp": rng.standard_normal((B, S, S, 3)).astype(np.float32),
+        "clip_image": rng.standard_normal((B, C, C, 3)).astype(np.float32),
+        "clip_mask": np.full((B, C, C, 1), 1.923, np.float32),
+        "gt": gt[..., None].astype(np.float32),
+    }
+
+
+def phase_train_small():
+    """One train step of the small 'flash' cascade, bf16 on the card vs fp32
+    on the CPU, same weights and batch; then the loss over 4 steps."""
+    import torch
+    from camouflaged_vlm_tpu_torch import train
+    from camouflaged_vlm_tpu_torch.factory import build_cascade, make_bank_inputs
+
+    cpu_cfg, gpu_cfg = _small_config(torch.float32), _small_config(torch.bfloat16)
+    ref = build_cascade(cpu_cfg, "cpu", seed=5)
+    model = build_cascade(gpu_cfg, "cuda", seed=5)
+    model.load_state_dict(ref.state_dict(), strict=True)
+    batch = _small_batch(cpu_cfg)
+    names = ["cat", "owl", "bat", "moth", "slug"]
+    out = []
+    for m, cfg, dev in ((ref, cpu_cfg, "cpu"), (model, gpu_cfg, "cuda")):
+        params = train.trainable_parameters(m)
+        bank = make_bank_inputs(cfg, names, seed=5, device=dev)
+        tf = m.encode_class_text_features(bank["prefix"], bank["suffix"], bank["eot_indices"],
+                                          bank["bank_features"])
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        masks, edges = m.forward_with_text(tb["inp"], tb["clip_image"], tb["clip_mask"], tf)
+        loss, _ = train.segmentation_loss(masks, edges, tb["gt"])
+        loss.backward()
+        grads = {n: (p.grad.float().cpu() if p.grad is not None else torch.zeros(p.shape))
+                 for n, p in m.named_parameters() if p.requires_grad}
+        out.append((loss.item(), grads, params, tf, tb))
+    (l_ref, g_ref, _, _, _), (l_gpu, g_gpu, params, tf, tb) = out
+    dl = abs(l_gpu - l_ref) / abs(l_ref)
+    rels = {}
+    floor = TRAIN_SMALL_GRAD_FLOOR * max(float(w.norm()) for w in g_ref.values())
+    for n, w in g_ref.items():
+        nw = float(w.norm())
+        d = float((g_gpu[n] - w).norm())
+        if nw == 0.0:
+            check(d == 0.0, f"train_small: {n} has a gradient on the card only")
+            continue
+        rels[n] = d / max(nw, floor)
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[train_small] SAM 'flash' {gpu_cfg.encoder.num_heads} heads, grid "
+        f"{gpu_cfg.encoder.grid}, window {gpu_cfg.encoder.window_size}; bf16 card vs fp32 CPU: "
+        f"loss {l_gpu:.6f} vs {l_ref:.6f} (rel {dl:.3e}, bound {TRAIN_SMALL_LOSS_REL_BOUND}); "
+        f"{len(rels)} trainable gradients, |d|/|g| median {np.median(list(rels.values())):.3e}, "
+        f"worst {[(n, round(v, 4)) for n, v in worst]} (bound {TRAIN_SMALL_GRAD_REL_BOUND}, "
+        f"floor {TRAIN_SMALL_GRAD_FLOOR} of the largest leaf norm {floor / TRAIN_SMALL_GRAD_FLOOR:.3e})")
+    check(dl < TRAIN_SMALL_LOSS_REL_BOUND, f"train_small: loss differs by {dl}")
+    check(max(rels.values()) < TRAIN_SMALL_GRAD_REL_BOUND, f"train_small: gradients {worst}")
+
+    opt = train.make_optimizer(params)
+    step = train.make_train_step(model, opt, train.cosine_epoch_schedule(2e-4, 20, 1))
+    losses = [float(step({**tb, "text_features": tf}, i)["loss"]) for i in range(4)]
+    log(f"[train_small] loss over 4 steps on a fixed batch: {[round(v, 5) for v in losses]}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"train_small: loss {losses}")
+    del ref, model, opt
+    torch.cuda.empty_cache()
+
+
+def phase_train_slice():
+    """The full-width cascade trained through the train CLI: one epoch of 6
+    synthetic images at batch 2 (3 steps)."""
+    import torch
+    from camouflaged_vlm_tpu_torch.cli.demo import TEST_CLASS_NAMES  # the 61 test classes
+    from camouflaged_vlm_tpu_torch.cli import train as train_cli
+    from camouflaged_vlm_tpu_torch.data.synthetic import write_synthetic_ovcamo
+    from camouflaged_vlm_tpu_torch.factory import build_full_cascade
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+    from camouflaged_vlm_tpu_torch.train.optim import is_trainable
+
+    # the dataset and the 2 GB checkpoint stay out of OUT_DIR, which is kept
+    # small enough to copy off the machine, and are removed at the end; the
+    # train log is kept
+    work = os.path.join("build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    info = write_synthetic_ovcamo(os.path.join(work, "ovcamo_synthetic"), n_train=6,
+                                  n_test=2, seed=0, train_classes=("cat", "owl", "frog"),
+                                  test_classes=tuple(TEST_CLASS_NAMES))
+    save_dir = os.path.join(work, "save")
+    before, _ = build_full_cascade(torch.bfloat16, "cuda", seed=0)
+    start = {k: v.clone() for k, v in before.state_dict().items()}
+    del before
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    run = train_cli.main(["--dataset-info", info, "--save-dir", save_dir, "--device", "cuda",
+                          "--dtype", "bfloat16", "--epochs", "1", "--batch-size", "2",
+                          "--epoch-val", "2", "--seed", "0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model, steps = run["model"], run["step"]
+    cfg = model.cfg
+    check(steps == 3, f"train_slice: {steps} steps, expected 3")
+    metrics = run["epochs"][0]
+    check(all(np.isfinite(v) for v in metrics.values()), f"train_slice: loss {metrics}")
+    check(os.path.exists(os.path.join(save_dir, "ckpt_last.pt")), "train_slice: no ckpt_last")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    shutil.copy(os.path.join(save_dir, "log.txt"), os.path.join(OUT_DIR, "train_log.txt"))
+    shutil.rmtree(work)
+    after = model.state_dict()
+    frozen_moved = [k for k, v in start.items() if not is_trainable(k)
+                    and not torch.equal(v, after[k])]
+    trainable_keys = [k for k in start if is_trainable(k)]
+    moved = [k for k in trainable_keys if not torch.equal(start[k], after[k])]
+    pg = [k for k in trainable_keys if k.startswith("image_encoder.prompt_generator.")]
+    log(f"[train_slice] {steps} steps, losses {metrics}; trainable tensors moved "
+        f"{len(moved)}/{len(trainable_keys)} (prompt generator {len(set(pg) & set(moved))}/"
+        f"{len(pg)}); frozen tensors changed {len(frozen_moved)}/{len(start) - len(trainable_keys)}")
+    check(not frozen_moved, f"train_slice: frozen weights changed: {frozen_moved[:5]}")
+    check(set(pg) <= set(moved), "train_slice: the prompt generator did not move")
+    check(len(moved) >= 0.9 * len(trainable_keys), "train_slice: trainable weights did not move")
+
+    enc, layers = cfg.encoder, cfg.clip.vision_layers
+    n_glob = len(enc.global_attn_indexes)
+    n_win = enc.depth - n_glob
+    expected = {  # per step: one SAM encoder and one CLIP pass forward, SAM's backward
+        "linear_act": 2 * steps,
+        "ln_linear_act_bt": (2 * n_win + layers) * steps,
+        "ln_mask_linear_bt": n_glob * steps,
+        "flash_qkv_packed_windows_s": n_win * steps,
+        "flash_qkv_packed_edge": n_win * steps,
+        "flash_qkv_packed_global": n_glob * steps,
+        "flash_qkv_packed_plain": layers * steps,
+        "proj_rows": (2 * n_win + n_glob + layers) * steps,
+        # + the text tower once
+        "ln_mlp_residual_bt": cfg.clip.transformer_layers + (2 * n_win + n_glob + layers) * steps,
+        "ln_mlp_residual_bt_bwd": (2 * n_win + n_glob) * steps,
+        "flash_qkv_packed_windows_s_bwd": n_win * steps,
+        "flash_qkv_packed_global_bwd": n_glob * steps,
+    }
+    log(f"[train_slice] kernel launches {counts} expected {expected}")
+    check(counts == expected, f"train launch counts {counts} != expected {expected}")
+    st = run["step_seconds"]
+    log(f"[train_slice] step wall times (s) {[round(x, 4) for x in st]}; median after the "
+        f"first {np.median(st[1:]) * 1000:.1f} ms; CLI wall {wall:.1f} s; peak device memory "
+        f"{peak:.2f} GiB (torch.cuda.max_memory_allocated)")
+    train_times(run)
+    return counts
+
+
+def train_times(run, iters=3):
+    """One train step at batch 2 cut into forward+loss, backward and the
+    AdamW update (CUDA events), median of `iters` after a warm-up."""
+    import torch
+    from camouflaged_vlm_tpu_torch.cli.demo import TEST_CLASS_NAMES  # the 61 test classes
+    from camouflaged_vlm_tpu_torch import train
+    from camouflaged_vlm_tpu_torch.factory import make_bank_inputs
+
+    model, opt = run["model"], run["optimizer"]
+    cfg = model.cfg
+    batch = {k: torch.from_numpy(v).cuda() for k, v in _small_batch(cfg).items()}
+    bank = make_bank_inputs(cfg, TEST_CLASS_NAMES, device="cuda")
+    tf = model.encode_class_text_features(bank["prefix"], bank["suffix"], bank["eot_indices"],
+                                          bank["bank_features"])
+    rows = []
+    for it in range(iters + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        masks, edges = model.forward_with_text(batch["inp"], batch["clip_image"],
+                                               batch["clip_mask"], tf)
+        loss, _ = train.segmentation_loss(masks, edges, batch["gt"])
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if it:  # the first step warms up
+            rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    med = np.median(np.array(rows), axis=0)
+    log(f"[train_times] batch 2 (median of {iters}, ms): forward + loss {med[0]:.2f}; "
+        f"backward {med[1]:.2f}; optimizer {med[2]:.2f}; sum {med.sum():.2f}")
+
+
 def main() -> None:
     name, _ = phase_device()
     phase_build()
@@ -522,13 +873,16 @@ def main() -> None:
     phase_small()
     phase_vit_h()
     counts = phase_slice()
+    grads = phase_grads()
+    phase_train_small()
+    train_counts = phase_train_slice()
     import torch
 
     kernels = [
         {"name": k, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
-         "launches": counts[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "launches": c[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"]}
-        for k, r in results.items()
+        for res, c in ((results, counts), (grads, train_counts)) for k, r in res.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

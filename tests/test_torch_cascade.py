@@ -138,17 +138,28 @@ def test_bank_inputs_match_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing the whole port (and running it) loads neither jax nor flax.
-    A subprocess, because this test process has jax imported already."""
+    """Importing the whole port (the train CLI included), running it and
+    one tiny train step load neither jax, flax nor optax. A subprocess,
+    because this test process has jax imported already."""
     code = (
         "import sys, pkgutil, importlib, torch\n"
         "import camouflaged_vlm_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "from camouflaged_vlm_tpu_torch.factory import build_tiny_cascade, make_bank_inputs\n"
+        "from camouflaged_vlm_tpu_torch import train\n"
         "m, cfg = build_tiny_cascade()\n"
         "b = make_bank_inputs(cfg, ['cat', 'owl'])\n"
         "m.encode_class_text_features(b['prefix'], b['suffix'], b['eot_indices'], b['bank_features'])\n"
+        "opt = train.make_optimizer(train.trainable_parameters(m))\n"
+        "step = train.make_train_step(m, opt, train.cosine_epoch_schedule())\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "S, C = cfg.inp_size, cfg.clip_size\n"
+        "batch = dict(inp=torch.randn(2, S, S, 3, generator=g),\n"
+        "             gt=(torch.rand(2, S, S, 1, generator=g) > 0.5).float(),\n"
+        "             clip_image=torch.randn(2, C, C, 3, generator=g),\n"
+        "             clip_mask=torch.ones(2, C, C, 1), **b)\n"
+        "assert torch.isfinite(step(batch, 0)['loss'])\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"

@@ -169,6 +169,101 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         linear.linear_act(x[0].t(), rn(gen, 8, 5), rn(gen, 8))
     with pytest.raises(ValueError, match="unsupported devices"):  # mixed devices
         linear.linear_act(x[0], rn(gen, 8, 128).cpu(), rn(gen, 8))
+    # a weight that needs its gradient goes through the plain-VJP Function:
+    # the kernel forward, the plain version's gradient
     wg = rn(gen, 8, 128).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="inference-only"):
-        linear.linear_act(x[0], wg, rn(gen, 8))
+    b8 = rn(gen, 8)
+    before = _cuda.LINEAR_ACT.launches
+    y = linear.linear_act(x[0], wg, b8)
+    assert _cuda.LINEAR_ACT.launches == before + 1 and y.requires_grad
+    gy = rn(gen, *y.shape)
+    (got,) = torch.autograd.grad(y, wg, gy)
+    (want,) = torch.autograd.grad(linear.linear_act_ref(x[0], wg, b8), wg, gy)
+    assert_close(got, want)
+    with pytest.raises(ValueError, match="K = 128"):  # the backward kernel refuses it too
+        linear.ln_mlp_residual_bt_bwd(x[..., :96].contiguous(), g32[:96], b32[:96],
+                                      w1[:, :96].contiguous(), b1, w2[:96].contiguous(),
+                                      b2[:96], x[..., :96].contiguous())
+
+
+# ------------------------------------------------ the backward kernels
+
+
+def _grad_close(got, want):
+    for gt, wt in zip(got, want):
+        if wt is None:
+            assert gt is None
+        else:
+            assert_close(gt, wt)
+
+
+@pytest.mark.parametrize("weights", [False, True])
+@pytest.mark.parametrize("activation", ["gelu_tanh", "gelu", "quick_gelu"])
+@pytest.mark.parametrize("B,S,K,H", [(2, 37, 128, 512), (3, 7, 768, 256), (1, 21, 1280, 640)])
+def test_ln_mlp_residual_bt_bwd_kernel(gen, weights, activation, B, S, K, H):
+    args = (rn(gen, B, S, K), 1 + rn(gen, K, std=0.1, dtype=torch.float32),
+            rn(gen, K, std=0.1, dtype=torch.float32), rn(gen, H, K, std=0.05),
+            rn(gen, H, std=0.1), rn(gen, K, H, std=0.05), rn(gen, K, std=0.1), rn(gen, B, S, K))
+    before = _cuda.LN_MLP_RESIDUAL_BWD.launches
+    got = linear.ln_mlp_residual_bt_bwd(*args, eps=1e-6, activation=activation, weights=weights)
+    assert _cuda.LN_MLP_RESIDUAL_BWD.launches == before + 1
+    want = linear.ln_mlp_residual_bt_bwd_ref(*args, eps=1e-6, activation=activation,
+                                             weights=weights)
+    _grad_close(got, want)
+
+
+@pytest.mark.parametrize("BW,win,heads,d", [(3, 14, 2, 80), (5, 4, 8, 16), (2, 7, 1, 64),
+                                            (2, 5, 2, 32)])
+def test_flash_qkv_packed_windows_s_bwd_kernel(gen, BW, win, heads, d):
+    S = win * win
+    qkv = rn(gen, BW, S, 3 * heads * d)
+    rel_s = rn(gen, S, BW, heads * 32)
+    sel32 = flash_attention.make_rel_scatter32(win, torch.bfloat16, torch.device("cuda"))
+    g = rn(gen, BW, heads * d, S)
+    args = (qkv, rel_s, sel32, g, d ** -0.5, heads, d)
+    before = _cuda.QKV_WINDOWS_BWD.launches
+    got = flash_attention.flash_qkv_packed_windows_s_bwd(*args)
+    assert _cuda.QKV_WINDOWS_BWD.launches == before + 1
+    _grad_close(got, flash_attention.flash_qkv_packed_windows_s_bwd_ref(*args))
+
+
+@pytest.mark.parametrize("B,H,W,heads,d", [(2, 8, 8, 2, 80), (1, 10, 10, 8, 16),
+                                           (1, 6, 10, 2, 64), (1, 9, 7, 1, 128)])
+def test_flash_qkv_packed_global_bwd_kernel(gen, B, H, W, heads, d):
+    N = H * W
+    qkv = rn(gen, B, N, 3 * heads * d)
+    rel = rn(gen, N, B, heads, H + W)
+    sel = flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda"))
+    g = rn(gen, B, heads * d, N)
+    args = (qkv, rel, sel, g, d ** -0.5, heads, d, H, W)
+    before = _cuda.QKV_GLOBAL_BWD.launches
+    got = flash_attention.flash_qkv_packed_global_bwd(*args)
+    assert _cuda.QKV_GLOBAL_BWD.launches == before + 1
+    _grad_close(got, flash_attention.flash_qkv_packed_global_bwd_ref(*args[:7]))
+
+
+def test_attention_functions_launch_the_backward_kernels(gen):
+    """A gradient through the wrappers runs the backward kernel once and
+    equals the plain backward's."""
+    heads, d, win, H, W = 2, 32, 5, 6, 10
+    cases = [
+        (flash_attention.flash_qkv_packed_windows_s,
+         flash_attention.flash_qkv_packed_windows_s_bwd_ref, _cuda.QKV_WINDOWS_BWD,
+         (rn(gen, 3, win * win, 3 * heads * d), rn(gen, win * win, 3, heads * 32),
+          flash_attention.make_rel_scatter32(win, torch.bfloat16, torch.device("cuda"))),
+         (d ** -0.5, heads, d), ()),
+        (flash_attention.flash_qkv_packed_global,
+         flash_attention.flash_qkv_packed_global_bwd_ref, _cuda.QKV_GLOBAL_BWD,
+         (rn(gen, 1, H * W, 3 * heads * d), rn(gen, H * W, 1, heads, H + W),
+          flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda"))),
+         (d ** -0.5, heads, d), (H, W)),
+    ]
+    for fn, bwd_ref, kernel, (qkv, rel, sel), static, hw in cases:
+        qkv.requires_grad_(True)
+        rel.requires_grad_(True)
+        before = kernel.launches
+        out = fn(qkv, rel, sel, *static, *hw)
+        g = rn(gen, *out.shape)
+        got = torch.autograd.grad(out, (qkv, rel), g)
+        assert kernel.launches == before + 1
+        _grad_close(got, bwd_ref(qkv.detach(), rel.detach(), sel, g, *static))

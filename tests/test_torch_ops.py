@@ -19,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from camouflaged_vlm_tpu.models.clip.model import build_causal_mask as j_causal  # noqa: E402
@@ -244,3 +245,115 @@ def test_class_prompt_bank_matches_jax(rng):
     got = build_class_prompt_bank(names, emb, n_ctx=4)
     for field in ("tokenized", "prefix", "suffix", "eot_indices"):
         np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+# ------------------------------------------- plain backwards and pooling
+#
+# Each plain backward against `jax.vjp` of the JAX function (on the CPU, XLA
+# autodiff of its `ref`) and against torch autograd of the port's plain
+# forward, fp32, at RTOL: the same formulas in both, only summation orders
+# differ.
+
+
+def _vjp(fn, primals, cot):
+    _, pull = jax.vjp(fn, *map(J, primals))
+    return pull(J(cot))
+
+
+@pytest.mark.parametrize("activation", ["gelu_tanh", "gelu", "quick_gelu"])
+def test_ln_mlp_residual_bt_bwd_ref_matches_jax_vjp(rng, activation):
+    x = rnd(rng, 3, 11, 32, scale=2.0)
+    g, be = 1 + rnd(rng, 32, scale=0.1), rnd(rng, 32, scale=0.1)
+    w1, b1 = rnd(rng, 32, 128, scale=0.2), rnd(rng, 128, scale=0.1)
+    w2, b2 = rnd(rng, 128, 32, scale=0.1), rnd(rng, 32, scale=0.1)
+    gy = rnd(rng, 3, 11, 32)
+    want = _vjp(lambda *a: j_lin.ln_mlp_residual_bt(*a, eps=1e-5, activation=activation),
+                (x, g[None], be[None], w1, b1[None], w2, b2[None]), gy)
+    targs = [T(a) for a in (x, g, be, w1.T.copy(), b1, w2.T.copy(), b2)]
+    got = linear.ln_mlp_residual_bt_bwd_ref(*targs, T(gy), eps=1e-5, activation=activation)
+    # JAX layouts: gamma/beta/biases (1, n), w1 (K, H), w2 (H, K)
+    to_jax = [lambda a: a, lambda a: a[None], lambda a: a[None], lambda a: a.T,
+              lambda a: a[None], lambda a: a.T, lambda a: a[None]]
+    for f, gt, wt in zip(to_jax, got, want):
+        close(f(gt.numpy()), wt)
+    leaves = [t.requires_grad_(True) for t in targs]
+    auto = torch.autograd.grad(
+        linear.ln_mlp_residual_bt_ref(*leaves, eps=1e-5, activation=activation), leaves, T(gy))
+    for gt, at in zip(got, auto):
+        close(gt, at.numpy())
+
+
+@pytest.mark.parametrize("win", [4, 5])
+def test_flash_qkv_packed_windows_s_bwd_ref_matches_jax_vjp(rng, win):
+    heads, d, BW = 8, 8, 3
+    S = win * win
+    qkv, rel_s = rnd(rng, BW, S, 3 * heads * d), rnd(rng, S, BW, heads * 32)
+    sel32 = flash_attention.make_rel_scatter32(win)
+    gy = rnd(rng, BW, heads * d, S)
+    scale = d ** -0.5
+    want = _vjp(lambda q, r: j_fa.flash_qkv_packed_windows_s(q, r, J(sel32.numpy()), scale,
+                                                              heads, d), (qkv, rel_s), gy)
+    got = flash_attention.flash_qkv_packed_windows_s_bwd_ref(T(qkv), T(rel_s), sel32, T(gy),
+                                                             scale, heads, d)
+    for gt, wt in zip(got, want):
+        close(gt, wt)
+    leaves = [T(qkv).requires_grad_(True), T(rel_s).requires_grad_(True)]
+    auto = torch.autograd.grad(
+        flash_attention.flash_qkv_packed_windows_s_ref(*leaves, sel32, scale, heads, d),
+        leaves, T(gy))
+    for gt, at in zip(got, auto):
+        close(gt, at.numpy())
+
+
+@pytest.mark.parametrize("H,W", [(8, 8), (10, 10)])
+def test_flash_qkv_packed_global_bwd_ref_matches_jax_vjp(rng, H, W):
+    heads, d, B = 8, 8, 2
+    N = H * W
+    qkv, rel = rnd(rng, B, N, 3 * heads * d), rnd(rng, N, B, heads, H + W)
+    sel = flash_attention.make_rel_scatter(H, W)
+    gy = rnd(rng, B, heads * d, N)
+    scale = d ** -0.5
+    want = _vjp(lambda q, r: j_fa.flash_qkv_packed_global(q, r, J(sel.numpy()), scale, heads,
+                                                           d, H, W), (qkv, rel), gy)
+    got = flash_attention.flash_qkv_packed_global_bwd_ref(T(qkv), T(rel), sel, T(gy), scale,
+                                                          heads, d)
+    for gt, wt in zip(got, want):
+        close(gt, wt)
+    leaves = [T(qkv).requires_grad_(True), T(rel).requires_grad_(True)]
+    auto = torch.autograd.grad(
+        flash_attention.flash_qkv_packed_global_ref(*leaves, sel, scale, heads, d), leaves,
+        T(gy))
+    for gt, at in zip(got, auto):
+        close(gt, at.numpy())
+
+
+@pytest.mark.parametrize("activation", ["gelu_tanh", "gelu", "quick_gelu"])
+def test_ln_mlp_residual_bt_function_grads(rng, activation):
+    """The wrapper's Function (plain forward, plain backward on the CPU)
+    against autograd of the plain forward, frozen weights and all trainable."""
+    x = rnd(rng, 2, 7, 32, scale=2.0)
+    args = [T(a) for a in (x, 1 + rnd(rng, 32, scale=0.1), rnd(rng, 32, scale=0.1),
+                           rnd(rng, 128, 32, scale=0.2), rnd(rng, 128, scale=0.1),
+                           rnd(rng, 32, 128, scale=0.1), rnd(rng, 32, scale=0.1))]
+    gy = T(rnd(rng, 2, 7, 32))
+    for trainable in (False, True):
+        leaves = [a.clone().requires_grad_(i == 0 or trainable) for i, a in enumerate(args)]
+        out = linear.ln_mlp_residual_bt(*leaves, eps=1e-6, activation=activation)
+        want = linear.ln_mlp_residual_bt_ref(*leaves, eps=1e-6, activation=activation)
+        close(out, want.detach().numpy())
+        wrt = [t for t in leaves if t.requires_grad]
+        for gt, wt in zip(torch.autograd.grad(out, wrt, gy), torch.autograd.grad(want, wrt, gy)):
+            close(gt, wt.numpy())
+
+
+@pytest.mark.parametrize("kernel", [3, 5])
+def test_morphological_edge_matches_jax(rng, kernel):
+    from camouflaged_vlm_tpu.ops import pooling as j_pool
+
+    from camouflaged_vlm_tpu_torch.ops import pooling
+
+    mask = (rng.random((2, 13, 17, 1)) > 0.6).astype(np.float32)
+    np.testing.assert_array_equal(pooling.morphological_edge(T(mask), kernel).numpy(),
+                                  np.asarray(j_pool.morphological_edge(J(mask), kernel)))
+    x = rnd(rng, 2, 9, 11, 3)
+    close(pooling.max_pool_2d(T(x), kernel), j_pool.max_pool_2d(J(x), kernel), 1e-6)
