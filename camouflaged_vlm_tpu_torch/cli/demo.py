@@ -24,22 +24,17 @@ import numpy as np
 import torch
 from PIL import Image
 
-from camouflaged_vlm_tpu.data.ovcamo import TEST_CLASS_NAMES
-from camouflaged_vlm_tpu.data.transforms import (
-    clip_image_transform,
-    clip_ones_alpha,
-    sam_image_transform,
-)
-from camouflaged_vlm_tpu.utils.image import bilinear_resize_f32
-
+from ..config import DTYPES
+from ..data.ovcamo import TEST_CLASS_NAMES
+from ..data.transforms import clip_image_transform, clip_ones_alpha, sam_image_transform
 from ..factory import (
     attach_rel_cache,
     build_full_cascade,
     build_tiny_cascade,
     make_bank_inputs,
 )
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+from ..utils.image import bilinear_resize_f32
+from .common import device_or_raise, load_cascade_ckpt
 
 
 def overlay_mask(image: np.ndarray, mask01: np.ndarray, alpha: float = 0.5) -> np.ndarray:
@@ -72,9 +67,7 @@ class DemoSession:
     """The model, its class split and the split's encoded text features."""
 
     def __init__(self, args: argparse.Namespace):
-        device = torch.device(args.device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("--device cuda: no CUDA device is available")
+        device = device_or_raise(args.device)
         build = build_tiny_cascade if args.tiny else build_full_cascade
         self.model, cfg = build(DTYPES[args.dtype], device, args.seed)
         self.classnames: List[str] = (
@@ -82,8 +75,7 @@ class DemoSession:
         )
         self.cfg, self.device = cfg, device
         if args.cascade_ckpt:
-            sd = torch.load(args.cascade_ckpt, map_location=device, weights_only=True)
-            self.model.load_state_dict(sd.get("model", sd), strict=True)
+            load_cascade_ckpt(self.model, args.cascade_ckpt, device)
         attach_rel_cache(self.model)  # after the weights are final
         bank = make_bank_inputs(cfg, self.classnames, seed=args.seed, device=device)
         self.text_features = self.model.encode_class_text_features(

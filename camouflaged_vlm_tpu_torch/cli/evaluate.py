@@ -1,0 +1,232 @@
+"""Full OVCamo split evaluation on the GPU.
+
+Counterpart of `camouflaged_vlm_tpu/cli/evaluate.py` (the reference's
+`test_ovcos_maskdecoder_edge.py`). Per image:
+
+  * the stage-1 mask -> class-agnostic COD metrics (sm/em/wfm/mae) at the
+    model's input size (1024 px);
+  * stage-2 classification (alpha = the resized sigmoid mask) -> top-1,
+    top-5 and macro-F1;
+  * class-aware OVCOS metrics at the ORIGINAL mask size (zeroed on a class
+    mismatch);
+  * optionally the predicted masks as images.
+
+Usage:
+  python -m camouflaged_vlm_tpu_torch.cli.evaluate --dataset-info dataset_info.yaml \
+      --config configs/ovcos-sam-vit-h-maskdecoder-edge.yaml --output-dir ./eval_out
+
+`--config` takes a native or a reference-format yaml; the port ships SAM
+ViT-B's (`camouflaged_vlm_tpu_torch/configs/ovcos-sam-vit-b-maskdecoder-edge.yaml`).
+Without `--cascade-ckpt` the weights are random (seeded by `--seed`).
+`--device cuda` (the default) on a host without a card raises. Not ported
+(ROADMAP.md, Queue 1): `--data-parallel/--n-model` (item 11) and
+`--sam-ckpt/--clip-ckpt/--maple-ckpt/--text-bank` (their converters, item 12).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import yaml
+from PIL import Image
+
+from ..config import DTYPES
+from ..data.loader import iter_eval_batches
+from ..data.ovcamo import OVCamoIndex
+from ..data.transforms import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    ONES_ALPHA_VALUE,
+    OPENAI_CLIP_MEAN,
+    OPENAI_CLIP_STD,
+)
+from ..factory import attach_rel_cache, build_cascade, make_bank_inputs
+from ..metrics import ClassificationEvaluator, CODMetrics, OVCOSMetricer
+from ..utils.image import bilinear_resize_f32
+from .common import Logger, cascade_config, device_or_raise, load_cascade_ckpt
+
+# batches dispatched before the oldest is drained
+IN_FLIGHT = 3
+
+
+def score_image(cod: CODMetrics, metricer: OVCOSMetricer, prob: np.ndarray, s,
+                pre_cls: str, save_img_path: Optional[str] = None) -> None:
+    """One image's host metric work: the COD metrics of `prob` (the model's
+    1024 px probability map) against the sample's target, then the
+    class-aware OVCOS metrics at the original mask size."""
+    cod.step(prob, s.gt[:, :, 0])
+    gt = np.asarray(Image.open(s.mask_path).convert("L"))
+    h, w = gt.shape
+    # the reference's order: resize the float probability (cv2
+    # INTER_LINEAR semantics), then truncate to uint8
+    pred_full = (bilinear_resize_f32(prob, h, w) * 255).astype(np.uint8)
+    metricer.step(pre=pred_full, gt=gt, pre_cls=pre_cls, gt_cls=s.label_name,
+                  gt_path=s.mask_path)
+    if save_img_path:
+        Image.fromarray(pred_full).save(
+            os.path.join(save_img_path, f"[{pre_cls}]{os.path.basename(s.mask_path)}"))
+
+
+@torch.no_grad()
+def evaluate(model, cfg, bank, index: OVCamoIndex, batch_size: int = 4,
+             save_img_path: Optional[str] = None, num_workers: int = 8,
+             oracle_cls: bool = False, mask_dtype: str = "float16") -> dict:
+    """Run the full OVCOS evaluation of `model` (on its device) over
+    `index`; `bank` is the split's class bank (`factory.make_bank_inputs`).
+    `oracle_cls=True` scores the class-aware metrics with the ground-truth
+    class (segmentation quality alone). Returns the JAX package's results
+    dict: the OVCOS metrics, ori_sm/em/wfm/mae, accuracy/error_rate/top5/
+    macro_f1, images and images_per_sec (metric drain included)."""
+    device = next(model.parameters()).device
+    classnames = index.classes
+    # the weights are fixed for the whole run: the rel tables once, from the
+    # current weights (so a validation inside training caches its own)
+    attach_rel_cache(model)
+    # the class-split text features, once
+    text_features = model.encode_class_text_features(
+        bank["prefix"], bank["suffix"], bank["eot_indices"], bank["bank_features"])
+    consts = {k: torch.from_numpy(v).to(device) for k, v in (
+        ("mean", IMAGENET_MEAN), ("std", IMAGENET_STD),
+        ("cmean", OPENAI_CLIP_MEAN), ("cstd", OPENAI_CLIP_STD))}
+    out_dt = torch.float16 if mask_dtype == "float16" else torch.float32
+
+    def run(inp_u8: np.ndarray, cimg_u8: np.ndarray):
+        # uint8 to the device (a quarter of the fp32 bytes), then /255 and the
+        # normalisation there, in the host transforms' fp32 op order
+        inp = torch.from_numpy(inp_u8).to(device, non_blocking=True).float()
+        cimg = torch.from_numpy(cimg_u8).to(device, non_blocking=True).float()
+        inp = (inp / 255.0 - consts["mean"]) / consts["std"]
+        cimg = (cimg / 255.0 - consts["cmean"]) / consts["cstd"]
+        cmask = torch.full((inp.shape[0], cfg.clip_size, cfg.clip_size, 1),
+                           ONES_ALPHA_VALUE, device=device)
+        probs, pred, score = model.infer_cascade_with_text(inp, cimg, cmask, text_features)
+        # fp16 by default halves the device->host mask bytes; its ~3e-4
+        # resolution is finer than the 256-bin threshold metrics
+        return probs.to(out_dt), pred, score
+
+    cod = CODMetrics()
+    metricer = OVCOSMetricer(class_names=classnames, num_workers=num_workers)
+    clf = ClassificationEvaluator(class_names=classnames)
+    if save_img_path:
+        os.makedirs(save_img_path, exist_ok=True)
+
+    # one call before the clock: the kernels' build and load, allocator warm-up
+    warm = run(np.zeros((batch_size, cfg.inp_size, cfg.inp_size, 3), np.uint8),
+               np.zeros((batch_size, cfg.clip_size, cfg.clip_size, 3), np.uint8))
+    [t.cpu() for t in warm]
+
+    n_done = 0
+    t0 = time.time()
+    # every per-image host metric runs in this pool; each queued job pins a
+    # full-size probability map, so the queue is bounded
+    metric_pool = ThreadPoolExecutor(max_workers=max(num_workers, 1))
+    metric_futures: deque = deque()
+    max_metric_queue = 4 * max(num_workers, 1)
+
+    def consume(outs, batch):
+        nonlocal n_done
+        probs = outs[0].float().cpu().numpy()[:, :, :, 0]
+        pred = outs[1].cpu().numpy()
+        clf.process(outs[2].float().cpu().numpy(), np.asarray([s.label_id for s in batch]))
+        for i, s in enumerate(batch):
+            pre_cls = s.label_name if oracle_cls else classnames[int(pred[i])]
+            metric_futures.append(metric_pool.submit(score_image, cod, metricer, probs[i], s,
+                                                     pre_cls, save_img_path))
+            if len(metric_futures) > max_metric_queue:
+                metric_futures.popleft().result()
+        n_done += len(batch)
+
+    # pipelined: up to IN_FLIGHT batches are queued on the device before the
+    # oldest is drained, so its copy back and metric fan-out overlap the
+    # device's work on the next ones
+    pending: deque = deque()
+    for batch in iter_eval_batches(index, batch_size, cfg.inp_size, cfg.clip_size,
+                                   num_workers, raw_uint8=True):
+        inp = np.stack([s.inp for s in batch])
+        cimg = np.stack([s.clip_image for s in batch])
+        pending.append((run(inp, cimg), batch))
+        if len(pending) > IN_FLIGHT - 1:
+            consume(*pending.popleft())
+    while pending:
+        consume(*pending.popleft())
+    while metric_futures:
+        metric_futures.popleft().result()  # surfaces worker exceptions
+    metric_pool.shutdown(wait=True)
+
+    ovcos = metricer.show()
+    ori_sm, ori_em, ori_wfm, ori_mae = cod.results()
+    elapsed = time.time() - t0  # includes the metric drain
+    cls_res = clf.evaluate()
+    return {
+        **ovcos,
+        "ori_sm": round(ori_sm, 4),
+        "ori_em": round(ori_em, 4),
+        "ori_wfm": round(ori_wfm, 4),
+        "ori_mae": round(ori_mae, 4),
+        **{k: round(v, 2) for k, v in cls_res.items()},
+        "images": n_done,
+        "images_per_sec": round(n_done / elapsed, 3),
+    }
+
+
+def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--dataset-info", required=True, help="OVCamo dataset_info yaml")
+    p.add_argument("--config", default=None,
+                   help="model config yaml (native or the reference's format)")
+    p.add_argument("--split", default="test")
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--output-dir", default="./eval_results")
+    p.add_argument("--save-images", action="store_true")
+    p.add_argument("--cascade-ckpt", default=None,
+                   help="reference-layout cascade state dict (.pth), loaded strict")
+    p.add_argument("--dtype", default=None, choices=sorted(DTYPES),
+                   help="compute type; default the config's (bfloat16 without --config)")
+    p.add_argument("--mask-dtype", default="float16", choices=["float16", "float32"],
+                   help="device->host probability type (float16 halves the bytes)")
+    p.add_argument("--tiny", action="store_true", help="tiny config (smoke runs)")
+    p.add_argument("--oracle-cls", action="store_true",
+                   help="score the class-aware metrics with the ground-truth class")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv: Sequence[str] = None) -> dict:
+    """Evaluate and write <output-dir>/results.json; return the results."""
+    args = parse_args(argv)
+    device = device_or_raise(args.device)
+    cfg = cascade_config(args.config, args.tiny, args.dtype)
+    os.makedirs(args.output_dir, exist_ok=True)
+    log = Logger(args.output_dir)
+
+    with open(args.dataset_info) as f:
+        dataset_info = yaml.safe_load(f)
+    index = OVCamoIndex.from_dataset_info(dataset_info, args.split)
+    log(f"[eval] {len(index)} samples, {len(index.classes)} classes ({args.split}); SAM "
+        f"{cfg.encoder.embed_dim} wide x {cfg.encoder.depth} blocks, "
+        f"{cfg.encoder.num_heads} heads, attn_impl={cfg.encoder.attn_impl!r}")
+    model = build_cascade(cfg, device, args.seed)
+    if args.cascade_ckpt:
+        load_cascade_ckpt(model, args.cascade_ckpt, device)
+    bank = make_bank_inputs(cfg, index.classes, seed=args.seed, device=device)
+    save_path = os.path.join(args.output_dir, "result_image") if args.save_images else None
+    results = evaluate(model, cfg, bank, index, batch_size=args.batch_size,
+                       save_img_path=save_path, oracle_cls=args.oracle_cls,
+                       mask_dtype=args.mask_dtype)
+    log(json.dumps(results, indent=2))
+    with open(os.path.join(args.output_dir, "results.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    return results
+
+
+if __name__ == "__main__":
+    main()

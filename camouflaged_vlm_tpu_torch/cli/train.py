@@ -9,7 +9,8 @@ exactly.
 
 Usage:
   python -m camouflaged_vlm_tpu_torch.cli.train --dataset-info dataset_info.yaml \
-      --save-dir ./save/ovcos --epochs 20 --batch-size 4 --epoch-val 21
+      --save-dir ./save/ovcos --epochs 20 --batch-size 4 --epoch-val 21 \
+      [--config configs/ovcos-sam-vit-h-maskdecoder-edge.yaml]
 
 As in the JAX package, the training forward is conditioned on the TEST
 split's class-text features (the reference passes `self.training` into
@@ -18,10 +19,13 @@ the text tower is frozen, so those features are encoded once per run.
 Without checkpoints the weights are random (seeded by `--seed`). `--device
 cuda` on a machine without a GPU raises.
 
-Not ported yet (ROADMAP.md, Queue 1): validation (it needs
-`cli/evaluate.py`, item 8: the CLI refuses `--epoch-val <= --epochs`
-rather than skip it), data/tensor parallelism, remat, the optimizer-fusion
-flag, `--config` yaml and the checkpoint-loading flags.
+`--config` takes a model yaml (native or the reference's format), as the
+JAX CLI does; its train section is not read (the flags set the recipe).
+
+Not ported yet (ROADMAP.md, Queue 1): validation inside the run (the CLI
+refuses `--epoch-val <= --epochs` rather than skip it; `cli/evaluate.py`
+evaluates a saved checkpoint), data/tensor parallelism, remat, the
+optimizer-fusion flag and the checkpoint-loading flags.
 """
 
 from __future__ import annotations
@@ -36,10 +40,10 @@ import numpy as np
 import torch
 import yaml
 
-from camouflaged_vlm_tpu.data.loader import iter_train_batches
-from camouflaged_vlm_tpu.data.ovcamo import OVCamoIndex
-
-from ..factory import attach_rel_cache, build_full_cascade, build_tiny_cascade, make_bank_inputs
+from ..config import DTYPES
+from ..data.loader import iter_train_batches
+from ..data.ovcamo import OVCamoIndex
+from ..factory import attach_rel_cache, build_cascade, make_bank_inputs
 from ..io.checkpoint import restore_checkpoint, save_checkpoint
 from ..train import (
     SCANNED_BATCH_KEYS,
@@ -48,8 +52,7 @@ from ..train import (
     make_train_step,
     trainable_parameters,
 )
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+from .common import Logger, cascade_config, device_or_raise
 
 
 def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
@@ -64,13 +67,16 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
                    "reference inherits)")
     p.add_argument("--eta-min", type=float, default=1e-7)
     p.add_argument("--epoch-val", type=int, default=2,
-                   help="validate every N epochs; validation is not ported yet, so it "
-                   "must exceed --epochs")
+                   help="validate every N epochs; validation inside the run is not wired "
+                   "yet, so it must exceed --epochs")
     p.add_argument("--loss", default="iou", choices=["bce", "bbce", "iou"])
     p.add_argument("--accum-steps", type=int, default=1,
                    help="split each batch into this many microbatches, one update")
-    p.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
+    p.add_argument("--dtype", default=None, choices=sorted(DTYPES),
+                   help="compute type; default the config's (bfloat16 without --config)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--config", default=None,
+                   help="model config yaml (native or the reference's format)")
     p.add_argument("--tiny", action="store_true", help="tiny config (smoke test)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--resume", action="store_true",
@@ -81,24 +87,13 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.epoch_val <= args.epochs:
         p.error(f"--epoch-val {args.epoch_val} <= --epochs {args.epochs} asks for "
-                "validation, which needs cli/evaluate.py (ROADMAP.md Queue 1, item 8: not "
-                "ported yet); pass --epoch-val greater than --epochs")
+                "validation, which is not wired into the run yet (ROADMAP.md Queue 1, item "
+                "10); pass --epoch-val greater than --epochs and run cli/evaluate.py on the "
+                "checkpoint")
     if args.accum_steps < 1 or args.batch_size % args.accum_steps:
         p.error(f"--batch-size {args.batch_size} must be a multiple of --accum-steps "
                 f"{args.accum_steps} >= 1")
     return args
-
-
-class Logger:
-    """Lines to stdout and to <save-dir>/log.txt."""
-
-    def __init__(self, save_dir: str):
-        self.path = os.path.join(save_dir, "log.txt")
-
-    def __call__(self, msg: str) -> None:
-        print(msg, flush=True)
-        with open(self.path, "a") as f:
-            f.write(msg + "\n")
 
 
 def to_device_batch(batch: dict, device, accum: int) -> dict:
@@ -115,9 +110,8 @@ def main(argv: Sequence[str] = None) -> dict:
     """Train; return {"model", "optimizer", "step", "epochs": [per-epoch
     mean metrics], "step_seconds": [wall seconds of every step]}."""
     args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available")
+    device = device_or_raise(args.device)
+    cfg = cascade_config(args.config, args.tiny, args.dtype)
     os.makedirs(args.save_dir, exist_ok=True)
     log = Logger(args.save_dir)
 
@@ -127,8 +121,7 @@ def main(argv: Sequence[str] = None) -> dict:
     val_index = OVCamoIndex.from_dataset_info(dataset_info, "test")
     log(f"[train] {len(train_index)} samples / {len(train_index.classes)} classes")
 
-    build = build_tiny_cascade if args.tiny else build_full_cascade
-    model, cfg = build(DTYPES[args.dtype], device, args.seed)
+    model = build_cascade(cfg, device, args.seed)
     params = trainable_parameters(model)
     steps_per_epoch = max(1, len(train_index) // args.batch_size)
     schedule = cosine_epoch_schedule(args.lr, args.epochs, steps_per_epoch, args.eta_min)

@@ -64,8 +64,9 @@ def _sam_encoder_map(cfg: CascadeConfig) -> List[KeyMapEntry]:
         m += _ln(f"{bt}.norm1", f"{bf}/norm1") + _ln(f"{bt}.norm2", f"{bf}/norm2")
         m += _linear(f"{bt}.attn.qkv", f"{bf}/attn/qkv")
         m += _linear(f"{bt}.attn.proj", f"{bf}/attn/proj")
-        m.append((f"{bt}.attn.rel_pos_h", f"{bf}/attn/rel_pos_h", "direct"))
-        m.append((f"{bt}.attn.rel_pos_w", f"{bf}/attn/rel_pos_w", "direct"))
+        if cfg.encoder.use_rel_pos:
+            m.append((f"{bt}.attn.rel_pos_h", f"{bf}/attn/rel_pos_h", "direct"))
+            m.append((f"{bt}.attn.rel_pos_w", f"{bf}/attn/rel_pos_w", "direct"))
         m += _linear(f"{bt}.mlp.lin1", f"{bf}/mlp/lin1")
         m += _linear(f"{bt}.mlp.lin2", f"{bf}/mlp/lin2")
     m += _conv(f"{t}.neck.0", f"{f}/neck_conv1", bias=False)

@@ -59,9 +59,9 @@ class CascadeConfig:
 
     @classmethod
     def tiny(cls, dtype=torch.float32) -> "CascadeConfig":
-        """Small config for tests, SAM on reference attention (its 4 heads do
-        not take the 'flash' path, which needs num_heads % 8 == 0)."""
-        enc = SamEncoderConfig.tiny(dtype=dtype, attn_impl="reference")
+        """Small config for tests, the JAX package's: SAM on 'flash' with 4
+        heads, hence its unfused path (TPU kernel #10 for every block)."""
+        enc = SamEncoderConfig.tiny(dtype=dtype, attn_impl="flash")
         dec_dim = 32
         return cls(
             inp_size=enc.img_size,

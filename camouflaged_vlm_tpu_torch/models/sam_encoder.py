@@ -1,10 +1,11 @@
-"""SAM image encoder (ViTDet-style ViT-H) with the EVP prompt generator.
+"""SAM image encoder (ViTDet-style ViT) with the EVP prompt generator.
 
-Counterpart of `camouflaged_vlm_tpu/models/sam_encoder.py`, with two
+Counterpart of `camouflaged_vlm_tpu/models/sam_encoder.py`, with its four
 attention implementations:
 
-  'flash'      the JAX package's default and production path. Windowed
-               blocks run in the compact (pad-free) carry
+  'flash'      the JAX package's default and production path. With
+               num_heads % 8 == 0 and the rel-pos bias it is fused:
+               windowed blocks run in the compact (pad-free) carry
                (`ops/compact_window.py`): LN1+qkv (`ln_linear_act_bt`), the
                interior-window and edge-window attention kernels, the
                out-projection with the residual (`proj_rows`) and
@@ -12,8 +13,18 @@ attention implementations:
                LN1+mask+qkv (`ln_mask_linear_bt`), the global attention
                kernel, `proj_rows` and `ln_mlp_residual_bt`. The rel-pos
                bias is never materialised: its rank-2 factors are built
-               with einsums and the kernels add them by indexing. Needs
-               num_heads % 8 == 0 and a window of at most 14.
+               with einsums and the kernels add them by indexing. The fused
+               windows need a window of at most 14 (TPU site #12 is not
+               ported). Otherwise (SAM ViT-B's 12 heads, the 4-head tiny
+               config) it is unfused: plain LN, qkv and MLP, windowed blocks
+               in the padded window carry, and every block's attention is
+               `flash_attention_relpos` (TPU kernel #10) over split q, k, v
+               with the rel factors [rel_h | rel_w] of the unscaled q.
+  'aug_flash'  the bias as augmented features (`ops/aug_attention.py`):
+               blocks of >= 1024 tokens through `flash_attention_fullk`
+               (TPU kernel #20), the others through plain `attention_xla`
+               (XLA code in the JAX package, which makes the same choice).
+  'aug_xla'    augmented features, `attention_xla` everywhere.
   'reference'  dense decomposed rel-pos attention and a plain MLP in
                PyTorch, windowed blocks in the padded window carry (pad
                tokens re-zeroed after every LN1): the parity anchor.
@@ -40,15 +51,18 @@ from ..ops.compact_window import (
     edge_consts,
     edge_rel_lpad,
 )
+from ..ops.aug_attention import attention_xla, augment_qk
 from ..ops.fft_prompt import fft_highpass
 from ..ops.flash_attention import (
+    flash_attention_fullk,
+    flash_attention_relpos,
     flash_qkv_packed_edge,
     flash_qkv_packed_global,
     flash_qkv_packed_windows_s,
     make_rel_scatter,
     make_rel_scatter32,
 )
-from ..ops.layers import conv_nhwc, dense
+from ..ops.layers import conv_nhwc, dense, scaled
 from ..ops.linear import (
     linear_act,
     ln_linear_act_bt,
@@ -77,8 +91,7 @@ class SamEncoderConfig:
     prompt_scale_factor: int = 32
     freq_rate: float = 0.25
     dtype: torch.dtype = torch.float32
-    # 'flash' (the fused kernels, compact window carry) or 'reference'
-    # (dense rel-pos attention in PyTorch); see the module docstring
+    # 'flash' | 'aug_flash' | 'aug_xla' | 'reference'; see the module docstring
     attn_impl: str = "flash"
     gelu_approximate: bool = True
 
@@ -111,24 +124,21 @@ def fused_attention_enabled(attn_impl: str, use_rel_pos: bool, num_heads: int) -
     return attn_impl == "flash" and use_rel_pos and num_heads % 8 == 0
 
 
+ATTN_IMPLS = ("flash", "aug_flash", "aug_xla", "reference")
+# augment_qk's zero padding of d + H + W on the 'aug_*' paths: the multiple
+# of 16 the kernels' MMA depth needs (the JAX package pads to 128 lanes);
+# zero lanes change no score
+AUG_PAD = 16
+
+
 def check_attn_impl(cfg: "SamEncoderConfig") -> None:
-    """Raise on every configuration whose JAX path runs a TPU kernel the
-    port does not have yet (ROADMAP.md, Queue 2)."""
-    if cfg.attn_impl == "reference":
-        return
-    if cfg.attn_impl != "flash":
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r}: the port implements 'flash' and 'reference'; "
-            "the aug_* ablations (TPU site #20, flash_attention_fullk) are not ported"
-        )
+    """Raise on an unknown implementation and on every configuration whose
+    JAX path runs a TPU kernel the port does not have yet (ROADMAP.md,
+    Queue 2)."""
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl={cfg.attn_impl!r}: expected one of {ATTN_IMPLS}")
     if not fused_attention_enabled(cfg.attn_impl, cfg.use_rel_pos, cfg.num_heads):
-        raise NotImplementedError(
-            f"attn_impl='flash' with num_heads={cfg.num_heads} (use_rel_pos="
-            f"{cfg.use_rel_pos}): the JAX package runs its unfused path there, TPU site "
-            "#10 flash_attention_relpos, not ported yet (ROADMAP.md Queue 2). The fused "
-            "path needs num_heads % 8 == 0 and the rel-pos bias; else use "
-            "attn_impl='reference'"
-        )
+        return  # unfused 'flash', the aug_* paths and 'reference' take any window
     if cfg.window_size > 0 and not CompactGeometry(cfg.grid, cfg.grid, cfg.window_size).supported():
         raise NotImplementedError(
             f"attn_impl='flash' with window_size={cfg.window_size} > 14: the JAX package "
@@ -170,9 +180,22 @@ def rel_smajor_windows(qkv_flat, rel_pos_h, rel_pos_w, win, heads, hd, rcomb=Non
 
 
 def global_rel_tables(H, W, rel_pos_h, rel_pos_w, dt):
-    """(Rh (H, H, hd), Rw (W, W, hd)) in `dt`: the global blocks' rel tables."""
+    """(Rh (H, H, hd), Rw (W, W, hd)) in `dt`: the rel tables of the fused
+    global blocks and of every unfused 'flash' block."""
     return (get_rel_pos_table(H, H, rel_pos_h).to(dt),
             get_rel_pos_table(W, W, rel_pos_w).to(dt))
+
+
+def rel_and_scatter(q_heads, rel_pos_h, rel_pos_w, H, W, tables=None):
+    """The rel factors of the unfused 'flash' path. q_heads (..., H, W, heads,
+    hd) UNSCALED -> (rel (..., H, W, heads, H+W) = [rel_h | rel_w] per query,
+    sel (H+W, H*W)) with bias[q, k] = (rel @ sel)[q, k]; `tables` is the
+    cached (Rh, Rw)."""
+    dt = q_heads.dtype
+    Rh, Rw = tables if tables is not None else global_rel_tables(H, W, rel_pos_h, rel_pos_w, dt)
+    rel_h = torch.einsum("...hwnc,hkc->...hwnk", q_heads, Rh.to(dt))
+    rel_w = torch.einsum("...hwnc,wkc->...hwnk", q_heads, Rw.to(dt))
+    return torch.cat([rel_h, rel_w], dim=-1), make_rel_scatter(H, W, dt, q_heads.device)
 
 
 def rel_smajor_global(q_heads, rel_pos_h, rel_pos_w, H, W, tables=None):
@@ -221,14 +244,18 @@ class PatchEmbedMatmul(nn.Module):
 class Attention(nn.Module):
     """Multi-head attention with the decomposed rel-pos bias, on (B', S, C)
     sequences with S == H*W of `input_size` (one window for the windowed
-    blocks, the grid for the global ones). `forward` is the reference path;
-    `forward_compact` and `forward_global` are the 'flash' path."""
+    blocks, the grid for the global ones). `forward` is every unfused path
+    ('reference', unfused 'flash', 'aug_*'); `forward_compact` and
+    `forward_global` are the fused 'flash' path."""
 
     def __init__(self, dim: int, num_heads: int, use_rel_pos: bool,
-                 input_size: Tuple[int, int], dtype: torch.dtype, windowed: bool = False):
+                 input_size: Tuple[int, int], dtype: torch.dtype, windowed: bool,
+                 attn_impl: str):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.input_size, self.dtype, self.windowed = input_size, dtype, windowed
+        self.attn_impl = attn_impl
+        self.fused = fused_attention_enabled(attn_impl, use_rel_pos, num_heads)
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.use_rel_pos = use_rel_pos
@@ -239,12 +266,18 @@ class Attention(nn.Module):
         # (tables, versions of rel_pos_h/w when built); see attach_rel_cache
         self.rel_cache = None
 
+    @property
+    def uses_rel_tables(self) -> bool:
+        """The 'flash' paths read param-derived rel tables; the others build
+        their bias from the rel-pos parameters in the forward."""
+        return self.attn_impl == "flash" and self.use_rel_pos
+
     def build_rel_tables(self):
         """The 'flash' path's param-derived rel tables in the compute type:
-        Rcomb (win, win, hd, 32) for a windowed block, (Rh, Rw) for a global
-        one."""
+        Rcomb (win, win, hd, 32) for a fused windowed block, (Rh, Rw) for a
+        fused global block and for every unfused one."""
         H, W = self.input_size
-        if self.windowed:
+        if self.windowed and self.fused:
             return make_rcomb(H, W, self.rel_pos_h, self.rel_pos_w, self.dtype)
         return global_rel_tables(H, W, self.rel_pos_h, self.rel_pos_w, self.dtype)
 
@@ -270,16 +303,39 @@ class Attention(nn.Module):
                 self.proj.weight.to(dt), self.proj.bias.to(dt))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The unfused paths on LN1's output x (B, N, C), the JAX package's
+        branches (`Attention.__call__` past its fused block): 'reference';
+        'flash' with rel-pos (the rel factors of the unscaled q, then #10 on
+        the scaled q); otherwise the augmented features, through #20 at
+        'aug_flash' or 'flash' for N >= 1024 and `attention_xla` else."""
         B, N, _ = x.shape
-        hd = self.dim // self.num_heads
-        qkv = dense(x, self.qkv, self.dtype).reshape(B, N, 3, self.num_heads, hd)
+        H, W = self.input_size
+        heads = self.num_heads
+        hd = self.dim // heads
+        scale = hd ** -0.5
+        qkv = dense(x, self.qkv, self.dtype).reshape(B, N, 3, heads, hd)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, heads, N, hd)
-        out = attention_with_decomposed_rel_pos(
-            q, k, v,
-            self.rel_pos_h if self.use_rel_pos else None,
-            self.rel_pos_w if self.use_rel_pos else None,
-            self.input_size, hd ** -0.5,
-        )
+        rel_pos_h = self.rel_pos_h if self.use_rel_pos else None
+        rel_pos_w = self.rel_pos_w if self.use_rel_pos else None
+        # (B, heads, N, c) -> the kernels' (B*heads, N, c) problems
+        flat = lambda t: t.reshape(B * heads, N, t.shape[-1]).contiguous()  # noqa: E731
+        if self.attn_impl == "reference":
+            out = attention_with_decomposed_rel_pos(q, k, v, rel_pos_h, rel_pos_w, (H, W),
+                                                    scale)
+        elif self.attn_impl == "flash" and self.use_rel_pos:
+            rel, sel = rel_and_scatter(q.transpose(1, 2).reshape(B, H, W, heads, hd),
+                                       rel_pos_h, rel_pos_w, H, W, tables=self.rel_tables())
+            rel = rel.reshape(B, N, heads, H + W).transpose(1, 2)  # (B, heads, N, H+W)
+            out = flash_attention_relpos(flat(scaled(q, scale)), flat(k), flat(v), flat(rel),
+                                         sel, H, W).reshape(B, heads, N, hd)
+        else:
+            q_aug, k_aug = augment_qk(q, k, rel_pos_h, rel_pos_w, (H, W), scale,
+                                      pad_to=AUG_PAD)
+            if self.attn_impl in ("aug_flash", "flash") and N >= 1024:
+                out = flash_attention_fullk(flat(q_aug), flat(k_aug), flat(v))
+                out = out.reshape(B, heads, N, hd)
+            else:
+                out = attention_xla(q_aug, k_aug, v)
         out = out.transpose(1, 2).reshape(B, N, self.dim)
         return dense(out, self.proj, self.dtype)
 
@@ -356,10 +412,10 @@ class MLPBlock(nn.Module):
 class Block(nn.Module):
     """Pre-norm ViT block on (B', S, C).
 
-    'reference': windowed blocks run in the padded window carry (B' = B *
+    Unfused paths: windowed blocks run in the padded window carry (B' = B *
     nWin, S = window^2) and get `mask`, which re-zeroes the pad tokens after
     LN1 (the reference zero-pads after LN1, so a pad key or value equals the
-    qkv bias). 'flash': windowed blocks take the compact carry (x_full,
+    qkv bias). Fused 'flash': windowed blocks take the compact carry (x_full,
     x_edge) with its `geom`; global blocks take (B, H*W, C); LN1 and LN2 ride
     the kernels' prologues and both residuals their epilogues."""
 
@@ -367,11 +423,10 @@ class Block(nn.Module):
         super().__init__()
         self.norm1 = LayerNormFP32(cfg.embed_dim, eps=1e-6)
         self.attn = Attention(cfg.embed_dim, cfg.num_heads, cfg.use_rel_pos,
-                              attn_size, cfg.dtype, windowed)
+                              attn_size, cfg.dtype, windowed, cfg.attn_impl)
         self.norm2 = LayerNormFP32(cfg.embed_dim, eps=1e-6)
         self.mlp = MLPBlock(cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio),
                             cfg.dtype, cfg.gelu_approximate)
-        self.fused = fused_attention_enabled(cfg.attn_impl, cfg.use_rel_pos, cfg.num_heads)
         self.act = "gelu_tanh" if cfg.gelu_approximate else "gelu"
         self.dtype = cfg.dtype
 
@@ -388,7 +443,7 @@ class Block(nn.Module):
         if geom is not None:  # 'flash' windowed block, compact carry
             xf, xe = self.attn.forward_compact(x[0], x[1], self.norm1, geom)
             return self._fused_mlp(xf), (self._fused_mlp(xe) if xe is not None else None)
-        if self.fused:  # 'flash' global block
+        if self.attn.fused:  # 'flash' global block
             return self._fused_mlp(self.attn.forward_global(x, self.norm1))
         shortcut = x
         x = self.norm1(x)
@@ -526,10 +581,12 @@ class ImageEncoderViT(nn.Module):
 
 @torch.no_grad()
 def precompute_rel_tables(encoder: ImageEncoderViT) -> dict:
-    """{block index: its 'flash' rel tables} for every block with rel-pos
-    parameters: Rcomb (win, win, hd, 32) per windowed block (~1 MB at ViT-H
-    in bf16), (Rh, Rw) per global block. Counterpart of the JAX
-    `precompute_rel_tables`, which caches the TPU einsum's block-diagonal
-    kron(I_8, Rcomb) tables instead (~5.2 GB at ViT-H in bf16)."""
+    """{block index: its 'flash' rel tables} for every block that reads them
+    (`Attention.uses_rel_tables`): Rcomb (win, win, hd, 32) per fused
+    windowed block (~1 MB at ViT-H in bf16), (Rh, Rw) per fused global block
+    and per unfused 'flash' block. The other paths build their bias in the
+    forward and get no cache. Counterpart of the JAX `precompute_rel_tables`,
+    which caches the TPU einsum's block-diagonal kron(I_8, Rcomb) tables
+    instead (~5.2 GB at ViT-H in bf16)."""
     return {i: blk.attn.build_rel_tables() for i, blk in enumerate(encoder.blocks)
-            if blk.attn.use_rel_pos}
+            if blk.attn.uses_rel_tables}

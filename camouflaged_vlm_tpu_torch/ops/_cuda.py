@@ -162,9 +162,14 @@ LN_MLP_RESIDUAL_BWD = CudaKernel(
 _ATTN_BWD_ARGS = [P, P, P, P, P, P, I, I, I, I, I, I, I, F]
 QKV_WINDOWS_BWD = CudaKernel("flash_qkv_packed_windows_s_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
 QKV_GLOBAL_BWD = CudaKernel("flash_qkv_packed_global_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
+# Attention over split q, k, v (csrc/attn_split.cuh): SAM's unfused 'flash'
+# path (#10, rel-pos bias) and the 'aug_flash' global blocks (#20).
+ATTN_RELPOS = CudaKernel("flash_attention_relpos", "cvlm_attn_relpos",
+                         [P, P, P, P, P, I, I, I, I, I, I])
+ATTN_FULLK = CudaKernel("flash_attention_fullk", "cvlm_attn_fullk", [P, P, P, P, I, I, I, I])
 KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MASK_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS,
            QKV_PACKED_PLAIN, QKV_WINDOWS, QKV_EDGE, QKV_GLOBAL,
-           LN_MLP_RESIDUAL_BWD, QKV_WINDOWS_BWD, QKV_GLOBAL_BWD)
+           LN_MLP_RESIDUAL_BWD, QKV_WINDOWS_BWD, QKV_GLOBAL_BWD, ATTN_RELPOS, ATTN_FULLK)
 
 
 def reset_launches() -> None:

@@ -1,4 +1,4 @@
-"""Packed-qkv attention: the Hopper kernels and their plain versions.
+"""SAM and CLIP attention: the Hopper kernels and their plain versions.
 
 Counterparts of `camouflaged_vlm_tpu/ops/flash_attention.py`:
 
@@ -6,10 +6,13 @@ Counterparts of `camouflaged_vlm_tpu/ops/flash_attention.py`:
   flash_qkv_packed_windows_s  (#13)  SAM interior windows, rel-pos bias
   flash_qkv_packed_edge       (#15)  SAM edge windows, plus the virtual pad key
   flash_qkv_packed_global     (#17)  SAM global blocks, separable rel-pos bias
+  flash_attention_relpos      (#10)  SAM's unfused 'flash' blocks: split q, k, v
+  flash_attention_fullk       (#20)  SAM's 'aug_flash' global blocks
 
-Each reads q, k and v as slices of the raw packed qkv projection ([q heads |
-k heads | v heads] on the last axis) and writes the d-major (..., heads*d, S)
-layout `proj_rows` reads. The layouts at these functions are the JAX
+The packed kernels read q, k and v as slices of the raw packed qkv
+projection ([q heads | k heads | v heads] on the last axis) and write the
+d-major (..., heads*d, S) layout `proj_rows` reads; #10 and #20 take split,
+pre-scaled q and k and write (BB, N, dv) rows. The layouts at these functions are the JAX
 package's (position-major rel for the windows and the global blocks, rel
 lane 28 carrying the edge windows' pad-key logit), so the tests compare like
 with like. For CPU tensors each runs its plain version, the JAX `ref`
@@ -20,8 +23,8 @@ tensors each launches its kernel (`csrc/`) or raises.
 
 Gradients: the windows (#14) and global (#18) attention have hand-written
 backward kernels (`csrc/attn_bwd.cu`) and plain backwards (`*_bwd_ref`)
-for the CPU; the plain and edge attention take the VJP of their plain
-version (`ops/autograd.py`), as the JAX package's do.
+for the CPU; the plain, edge, #10 and #20 attention take the VJP of their
+plain version (`ops/autograd.py`), as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -407,3 +410,81 @@ def flash_qkv_packed_global_bwd(qkv, rel, sel, g, scale, heads, d, H, W):
         raise ValueError(f"{name}: CUDA kernel takes H+W <= {GLOBAL_BWD_MAX_LANES}, got {H + W}")
     return _attn_bwd_launch(_cuda.QKV_GLOBAL_BWD, qkv, rel, g, B, N, H, W, H + W, heads, d,
                             scale)
+
+
+# -------------------------------------------------- split q, k, v (#10, #20)
+
+_SPLIT_DV = (64, 80)
+
+
+def _check_split(name, q, k, v, extra=()):
+    _cuda.check_dtype(name, torch.bfloat16, q, k, v, *extra)
+    BB, N, d = q.shape
+    dv = v.shape[-1]
+    if k.shape != q.shape or v.shape != (BB, N, dv):
+        raise ValueError(f"{name}: q {q.shape} k {k.shape} v {v.shape}")
+    if d % 16 or d > 256 or dv not in _SPLIT_DV or BB > 65535:
+        raise ValueError(f"{name}: CUDA kernel takes d a multiple of 16 up to 256, dv in "
+                         f"{_SPLIT_DV} and at most 65535 problems (got d={d}, dv={dv}, "
+                         f"BB={BB})")
+    return BB, N, d, dv
+
+
+def flash_attention_relpos(
+    q: torch.Tensor,    # (BB, N, d) pre-scaled
+    k: torch.Tensor,    # (BB, N, d)
+    v: torch.Tensor,    # (BB, N, dv)
+    rel: torch.Tensor,  # (BB, N, H+W) [rel_h | rel_w] per query
+    sel: torch.Tensor,  # (H+W, N) make_rel_scatter(H, W); read by the plain version only
+    H: int,
+    W: int,
+) -> torch.Tensor:
+    """softmax(q k^T + rel @ sel) v -> (BB, N, dv): SAM's unfused 'flash'
+    attention (TPU kernel #10). The kernel (`csrc/attn_relpos.cu`) adds the
+    bias by indexing, rel[q, k // W] + rel[q, H + k % W]. Gradients: the VJP
+    of the plain version, as the JAX package's `pallas_with_xla_vjp`."""
+    return autograd.run("flash_attention_relpos", _relpos_cuda, _relpos_plain,
+                        (q, k, v, rel, sel), (H, W))
+
+
+def _relpos_plain(q, k, v, rel, sel, H, W):
+    return xla_attention_relpos(q, k, v, rel, sel)
+
+
+def _relpos_cuda(q, k, v, rel, sel, H, W):
+    name = "flash_attention_relpos"
+    BB, N, d, dv = _check_split(name, q, k, v, (rel,))
+    if H * W != N or rel.shape != (BB, N, H + W) or sel.shape != (H + W, N):
+        raise ValueError(f"{name}: q {q.shape} rel {rel.shape} sel {sel.shape} H={H} W={W}")
+    out = torch.empty((BB, N, dv), dtype=v.dtype, device=v.device)
+    _cuda.ATTN_RELPOS(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(),
+                      BB, N, H, W, d, dv)
+    return out
+
+
+def flash_attention_fullk_ref(q_aug, k_aug, v):
+    """The JAX `ref`: fp32 scores and softmax, probabilities rounded to v's
+    type before P.V, fp32 accumulation, one rounding."""
+    s = torch.matmul(q_aug.float(), k_aug.float().transpose(-1, -2))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(p.float(), v.float()).to(v.dtype)
+
+
+def flash_attention_fullk(
+    q_aug: torch.Tensor,  # (BB, N, d_qk) pre-scaled, bias-augmented (ops/aug_attention.py)
+    k_aug: torch.Tensor,  # (BB, N, d_qk)
+    v: torch.Tensor,      # (BB, N, dv)
+) -> torch.Tensor:
+    """softmax(q_aug k_aug^T) v -> (BB, N, dv): the 'aug_flash' global blocks
+    (TPU kernel #20, `csrc/attn_fullk.cu`). Gradients: the VJP of the plain
+    version."""
+    return autograd.run("flash_attention_fullk", _fullk_cuda, flash_attention_fullk_ref,
+                        (q_aug, k_aug, v))
+
+
+def _fullk_cuda(q_aug, k_aug, v):
+    BB, N, d, dv = _check_split("flash_attention_fullk", q_aug, k_aug, v)
+    out = torch.empty((BB, N, dv), dtype=v.dtype, device=v.device)
+    _cuda.ATTN_FULLK(q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(), out.data_ptr(), BB, N,
+                     d, dv)
+    return out

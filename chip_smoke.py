@@ -10,7 +10,9 @@ never prints its last line):
   2. build    nvcc builds the port's kernels (csrc/*.cu) for sm_90a
   3. kernels  each kernel against its plain PyTorch version at the main
               path's full-width bf16 shapes, with errors and times (median
-              of CUDA-event timings after a warm-up)
+              of CUDA-event timings after a warm-up); then the bounds of the
+              TPU kernels not ported yet at the shapes of the configurations
+              that would reach them
   4. small    a small cascade in bf16 on the card against the same weights
               in fp32 on the CPU (the plain versions, which the CPU tests tie
               to the JAX package); its SAM runs 'flash' with 8 heads on a
@@ -42,15 +44,34 @@ never prints its last line):
               counts of every forward and backward kernel, frozen weights
               bit-identical, step times and peak memory; then one step cut
               into forward, backward and optimizer (CUDA events)
+ 10. unfused  as vit_h, depth 2 at full width, for SAM ViT-B on 'flash' (12
+              heads: the unfused path, TPU kernel #10 in both blocks) and
+              SAM ViT-H on 'aug_flash' (#20 in the global block), each
+              against 'reference' on the same bf16 weights
+ 11. eval_slice  the evaluate CLI (`cli/evaluate.main`, --device cuda, bf16,
+              batch 2) over a synthetic OVCamo-layout test split of 5 images
+              (the last batch short), for the repo's ViT-H yaml, the port's
+              ViT-B yaml and the ViT-H yaml on 'aug_flash': finite results,
+              exact launch counts, images/s and peak memory per config (a
+              smoke figure: 5 images have no steady state; the rate is
+              `cli/eval_throughput.py`'s over 300); then
+              each configuration's cascade call cut into stages at batch 2,
+              and the CLI's host metric work per image
 
-Before its last line it prints one JSON object {"kernels": [...]}; the last
-line is {"ok": true, "device": {...}}. Longer logs go to chiprun_out/chip_smoke/.
+Every kernel line carries its bound (the larger of its FLOP over the bf16
+tensor-core peak and its bytes over the HBM rate, at this run's shapes) and
+the time of one PyTorch library call computing the same function where
+there is one. Before its last line the script prints one JSON object
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Longer
+logs go to chiprun_out/chip_smoke/.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -93,6 +114,17 @@ TRAIN_SMALL_GRAD_REL_BOUND = 0.1
 TRAIN_SMALL_GRAD_FLOOR = 1e-2
 TRAIN_SMALL_LOSS_REL_BOUND = 1e-2
 
+# The H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W): the
+# bf16 tensor-core rate and the HBM3 rate. A kernel's bound is the larger of
+# its FLOP (the products the function needs) over the first and its bytes
+# (each input it reads once, each output written once) over the second.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES_PER_S = 3.35e12
+# the repo's configurations the eval slice runs
+VIT_H_YAML = os.path.join("configs", "ovcos-sam-vit-h-maskdecoder-edge.yaml")
+VIT_B_YAML = os.path.join("camouflaged_vlm_tpu_torch", "configs",
+                          "ovcos-sam-vit-b-maskdecoder-edge.yaml")
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -131,6 +163,18 @@ def errors(got, want):
     }
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(flops: float, n_bytes: int) -> dict:
+    """The least time the card could take: FLOP over the bf16 peak or bytes
+    over the HBM rate, whichever is larger, and which one it is."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, n_bytes / PEAK_HBM_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def phase_device():
     import torch
 
@@ -164,14 +208,20 @@ def phase_build():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as f:
         f.write(_cuda.build_info.get("command", "") + "\n" + info)
-    for line in info.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", info)]
+    spills = [ln.strip() for ln in info.splitlines()
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    log(f"[build] ptxas: {len(regs)} kernel instantiations, {min(regs, default=0)}-"
+        f"{max(regs, default=0)} registers per thread, {len(spills)} with spills "
+        f"{spills[:4]} (full log: {OUT_DIR}/nvcc.log)")
 
 
-def _check_kernel(name, kfn, pfn, args, timed=True):
+def _check_kernel(name, kfn, pfn, args, timed=True, flops=None, reads=None, library=None):
     """Kernel against its plain version on the same inputs: shape, type,
-    finite, within KERNEL_REL_BOUND; times (kernel, plain) in ms."""
+    finite, within KERNEL_REL_BOUND; times (kernel, plain, and `library`, a
+    zero-argument PyTorch call computing the same function, or None) in ms;
+    the bound from `flops` and the bytes of the tensors the kernel reads
+    (`reads`, default every tensor argument) plus its output."""
     import torch
 
     got = kfn(*args)
@@ -181,15 +231,22 @@ def _check_kernel(name, kfn, pfn, args, timed=True):
           f"{name}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}")
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
     e = errors(got, want)
+    tensors = [a for a in (args if reads is None else reads) if isinstance(a, torch.Tensor)]
+    b = bound(flops, nbytes(*tensors, got)) if flops is not None else {}
     del got, want
     k_ms = time_ms(lambda: kfn(*args)) if timed else float("nan")
     p_ms = time_ms(lambda: pfn(*args)) if timed else float("nan")
+    lib_ms = time_ms(library) if (timed and library is not None) else None
+    extra = ""
+    if b:
+        extra = (f" library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'} bound "
+                 f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     log(f"[kernel] {name:40s} max_abs {e['max_abs_err']:.3e} max_rel {e['max_rel']:.3e} "
         f"mean_rel {e['mean_rel']:.3e} (bound {KERNEL_REL_BOUND}) kernel {k_ms:.4f} ms "
-        f"plain {p_ms:.4f} ms")
+        f"plain {p_ms:.4f} ms{extra}")
     check(e["max_rel"] < KERNEL_REL_BOUND and e["mean_rel"] < KERNEL_REL_BOUND,
           f"{name} disagrees with its plain version: {e}")
-    return dict(max_abs_err=e["max_abs_err"], ms=k_ms, plain_ms=p_ms)
+    return dict(max_abs_err=e["max_abs_err"], ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, **b)
 
 
 def phase_kernels():
@@ -224,79 +281,114 @@ def phase_kernels():
         off += grp.n
     sel_e, kmask_e = edge_consts(geom, bf, dev)
     sam_scale = HD ** -0.5
+    F = torch.nn.functional
+
+    def heads_view(qkv, heads, d):
+        """The packed qkv rows as q, k, v (..., heads, S, d) views."""
+        r = qkv.reshape(qkv.shape[:-1] + (3, heads, d))
+        return [r[..., i, :, :].transpose(-3, -2) for i in range(3)]
+
+    def sdpa_packed(qkv, heads, d, scale, bias=None):
+        """The library call for the packed attention kernels: SDPA on views
+        of the packed rows, with a materialised bias (built apart)."""
+        q, k, v = heads_view(qkv, heads, d)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
+
+    # (name, source, replaces, kernel fn, plain fn, args, FLOP, tensors read, library call)
+    x_pe, w_pe, b_pe = rn(B * 4096, 768), rn(1280, 768, std=0.02), rn(1280, std=0.02)
+    qkv_clip = rn(B, S, 3 * W)
+    qkv_win = rn(B * nf, WIN * WIN, 3 * D)
+    rel_win = rn(WIN * WIN, B * nf, NH * 32)
+    sel32 = fa.make_rel_scatter32(WIN, bf, dev)
+    qkv_glob = rn(B, G * G, 3 * D)
+    rel_glob = rn(G * G, B, NH, 2 * G)
+    sel_glob = fa.make_rel_scatter(G, G, bf, dev)
+    # the library's bias for the windows and the global blocks: rel @ sel, materialised
+    bias_win = torch.matmul(rel_win.reshape(WIN * WIN, B * nf, NH, 32).permute(1, 2, 0, 3),
+                            sel32)
+    bias_glob = torch.matmul(rel_glob.permute(1, 2, 0, 3), sel_glob)
     cases = [
-        # (name, source, replaces, kernel fn, plain fn, args)
         ("linear_act", "camouflaged_vlm_tpu_torch/csrc/ln_linear.cu",
          "camouflaged_vlm_tpu/ops/linear.py:61",
-         lin.linear_act, lin.linear_act_ref,
-         (rn(B * 4096, 768), rn(1280, 768, std=0.02), rn(1280, std=0.02))),
+         lin.linear_act, lin.linear_act_ref, (x_pe, w_pe, b_pe),
+         2.0 * B * 4096 * 768 * 1280, None, lambda: F.linear(x_pe, w_pe, b_pe)),
         ("ln_linear_act_bt", "camouflaged_vlm_tpu_torch/csrc/ln_linear.cu",
          "camouflaged_vlm_tpu/ops/linear.py:143",
          lambda *a: lin.ln_linear_act_bt(*a, eps=1e-5, activation=None),
          lambda *a: lin.ln_linear_act_bt_ref(*a, eps=1e-5, activation=None),
-         (rn(B, S, W), ln_g, ln_b, rn(3 * W, W, std=0.02), rn(3 * W, std=0.02))),
+         (rn(B, S, W), ln_g, ln_b, rn(3 * W, W, std=0.02), rn(3 * W, std=0.02)),
+         2.0 * B * S * W * 3 * W, None, None),
         ("ln_mask_linear_bt", "camouflaged_vlm_tpu_torch/csrc/ln_linear.cu",
          "camouflaged_vlm_tpu/ops/linear.py:228",
          lambda *a: lin.ln_mask_linear_bt(*a, eps=1e-6),
          lambda *a: lin.ln_mask_linear_bt_ref(*a, eps=1e-6),
          (rn(B, G * G, D), sg, sb, torch.ones(1, G * G, 1, dtype=bf, device=dev), w_qkv,
-          b_qkv)),
+          b_qkv),
+         2.0 * B * G * G * D * 3 * D, None, None),
         ("ln_mlp_residual_bt", "camouflaged_vlm_tpu_torch/csrc/ln_mlp_residual.cu",
          "camouflaged_vlm_tpu/ops/linear.py:416",
          lambda *a: lin.ln_mlp_residual_bt(*a, eps=1e-5, activation="quick_gelu"),
          lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=1e-5, activation="quick_gelu"),
          (rn(B, S, W), ln_g, ln_b, rn(4 * W, W, std=0.02), rn(4 * W, std=0.02),
-          rn(W, 4 * W, std=0.02), rn(W, std=0.02))),
+          rn(W, 4 * W, std=0.02), rn(W, std=0.02)),
+         4.0 * B * S * W * 4 * W, None, None),
         ("proj_rows", "camouflaged_vlm_tpu_torch/csrc/proj_rows.cu",
          "camouflaged_vlm_tpu/ops/linear.py:665",
          lin.proj_rows, lin.proj_rows_ref,
-         (rn(B, 1, W, S), rn(W, W, std=0.02), rn(W, std=0.02), rn(B, 1, S, W))),
+         (rn(B, 1, W, S), rn(W, W, std=0.02), rn(W, std=0.02), rn(B, 1, S, W)),
+         2.0 * B * S * W * W, None, None),
         ("flash_qkv_packed_plain", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_plain.cu",
          "camouflaged_vlm_tpu/ops/flash_attention.py:875",
          lambda q: fa.flash_qkv_packed_plain(q, 64 ** -0.5, 16, 64),
          lambda q: fa.flash_qkv_packed_plain_ref(q, 64 ** -0.5, 16, 64),
-         (rn(B, S, 3 * W),)),
+         (qkv_clip,), 4.0 * B * 16 * S * S * 64, None,
+         sdpa_packed(qkv_clip, 16, 64, 64 ** -0.5)),
         ("flash_qkv_packed_windows_s", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_windows.cu",
          "camouflaged_vlm_tpu/ops/flash_attention.py:519",
          lambda *a: fa.flash_qkv_packed_windows_s(*a, sam_scale, NH, HD),
          lambda *a: fa.flash_qkv_packed_windows_s_ref(*a, sam_scale, NH, HD),
-         (rn(B * nf, WIN * WIN, 3 * D), rn(WIN * WIN, B * nf, NH * 32),
-          fa.make_rel_scatter32(WIN, bf, dev))),
+         (qkv_win, rel_win, sel32), 4.0 * B * nf * NH * (WIN * WIN) ** 2 * HD,
+         (qkv_win, rel_win), sdpa_packed(qkv_win, NH, HD, sam_scale, bias_win)),
         ("flash_qkv_packed_edge", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_windows.cu",
          "camouflaged_vlm_tpu/ops/flash_attention.py:755",
          lambda *a: fa.flash_qkv_packed_edge(*a, sam_scale, NH, HD),
          lambda *a: fa.flash_qkv_packed_edge_ref(*a, sam_scale, NH, HD),
          (rn(B, ne, R, 3 * D), edge_rel.reshape(B, ne, R, NH * 32), sel_e,
-          rn(NH, HD, std=0.5), kmask_e)),
+          rn(NH, HD, std=0.5), kmask_e),
+         4.0 * B * ne * NH * R * R * HD, None, None),
         ("flash_qkv_packed_global", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_global.cu",
          "camouflaged_vlm_tpu/ops/flash_attention.py:1083",
          lambda *a: fa.flash_qkv_packed_global(*a, sam_scale, NH, HD, G, G),
          lambda *a: fa.flash_qkv_packed_global_ref(*a, sam_scale, NH, HD),
-         (rn(B, G * G, 3 * D), rn(G * G, B, NH, 2 * G), fa.make_rel_scatter(G, G, bf, dev))),
+         (qkv_glob, rel_glob, sel_glob), 4.0 * B * NH * (G * G) ** 2 * HD,
+         (qkv_glob, rel_glob), sdpa_packed(qkv_glob, NH, HD, sam_scale, bias_glob)),
     ]
     # the same kernels at SAM's shapes where the JSON line holds the CLIP one
+    # (the LN-fused and residual-fused functions have no single library call)
+    Mw, Mg = B * nf * WIN * WIN, B * G * G  # SAM rows: interior windows, global
     sam_cases = [
         ("ln_linear_act_bt (SAM windows 32x196x1280 -> 3840)",
          lambda *a: lin.ln_linear_act_bt(*a, eps=1e-6, activation=None),
          lambda *a: lin.ln_linear_act_bt_ref(*a, eps=1e-6, activation=None),
-         (rn(B * nf, WIN * WIN, D), sg, sb, w_qkv, b_qkv)),
+         (rn(B * nf, WIN * WIN, D), sg, sb, w_qkv, b_qkv), 2.0 * Mw * D * 3 * D),
         ("ln_mlp_residual_bt (SAM windows 32x196x1280, H 5120)",
          lambda *a: lin.ln_mlp_residual_bt(*a, eps=1e-6, activation="gelu_tanh"),
          lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=1e-6, activation="gelu_tanh"),
          (rn(B * nf, WIN * WIN, D), sg, sb, rn(4 * D, D, std=0.02), rn(4 * D, std=0.02),
-          rn(D, 4 * D, std=0.02), rn(D, std=0.02))),
+          rn(D, 4 * D, std=0.02), rn(D, std=0.02)), 4.0 * Mw * D * 4 * D),
         ("ln_mlp_residual_bt (SAM global 2x4096x1280, H 5120)",
          lambda *a: lin.ln_mlp_residual_bt(*a, eps=1e-6, activation="gelu_tanh"),
          lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=1e-6, activation="gelu_tanh"),
          (rn(B, G * G, D), sg, sb, rn(4 * D, D, std=0.02), rn(4 * D, std=0.02),
-          rn(D, 4 * D, std=0.02), rn(D, std=0.02))),
+          rn(D, 4 * D, std=0.02), rn(D, std=0.02)), 4.0 * Mg * D * 4 * D),
         ("proj_rows (SAM windows 2x16x1280x196, residual)",
          lin.proj_rows, lin.proj_rows_ref,
          (rn(B, nf, D, WIN * WIN), rn(D, D, std=0.02), rn(D, std=0.02),
-          rn(B, nf, WIN * WIN, D))),
+          rn(B, nf, WIN * WIN, D)), 2.0 * Mw * D * D),
         ("proj_rows (SAM global 2x1x1280x4096, residual)",
          lin.proj_rows, lin.proj_rows_ref,
-         (rn(B, 1, D, G * G), rn(D, D, std=0.02), rn(D, std=0.02), rn(B, 1, G * G, D))),
+         (rn(B, 1, D, G * G), rn(D, D, std=0.02), rn(D, std=0.02), rn(B, 1, G * G, D)),
+         2.0 * Mg * D * D),
     ]
     # the text tower's MLP shape is on the path too (checked, not timed)
     text_mlp = (rn(61, 77, 768), 1 + rn(768, std=0.1, dtype=torch.float32),
@@ -304,17 +396,106 @@ def phase_kernels():
                 rn(3072, std=0.02), rn(768, 3072, std=0.02), rn(768, std=0.02))
     results = {}
     with torch.no_grad():
-        for name, source, replaces, kfn, pfn, args in cases:
+        for name, source, replaces, kfn, pfn, args, flops, reads, library in cases:
             results[name] = dict(source=source, replaces=replaces,
-                                 **_check_kernel(name, kfn, pfn, args))
-        for name, kfn, pfn, args in sam_cases:
-            _check_kernel(name, kfn, pfn, args)
+                                 **_check_kernel(name, kfn, pfn, args, flops=flops,
+                                                 reads=reads, library=library))
+        for name, kfn, pfn, args, flops in sam_cases:
+            _check_kernel(name, kfn, pfn, args, flops=flops)
         _check_kernel("ln_mlp_residual_bt (text 61x77x768)",
                       lambda *a: lin.ln_mlp_residual_bt(*a, eps=1e-5, activation="quick_gelu"),
                       lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=1e-5,
                                                             activation="quick_gelu"),
                       text_mlp, timed=False)
+        results.update(split_attention_kernels(rn))
+        unported_sites(rn)
     return results
+
+
+def unported_sites(rn):
+    """The TPU kernels not ported yet, at the full-width shapes of the
+    configurations that would reach them (worked out from the JAX package's
+    code; batch 2, SAM ViT-H width, 16 heads x 80): their bound, and the
+    time of SDPA with the bias materialised where one call computes the
+    function. #12: fused 'flash' with window 16 (grid 64: 16 windows of 256
+    tokens, H+W = 32); #11: window 17 (grid padded to 68: 16 windows of 289
+    tokens, H+W = 34 > 32), rel per head; #8 / #9: the out-projection of
+    #11's head-leading output with / without the residual; #19: the global
+    blocks (the function of #17, whose row holds the library time)."""
+    import torch
+
+    F = torch.nn.functional
+    B, D, NH, HD = 2, 1280, 16, 80
+    for site, name, nwin, n, hw in (("#12", "flash_qkv_packed_windows", 16, 256, 32),
+                                    ("#11", "flash_qkv_relpos_windows", 16, 289, 34)):
+        BB = B * nwin
+        q, k, v = rn(BB, NH, n, HD), rn(BB, NH, n, HD), rn(BB, NH, n, HD)
+        bias = rn(BB, NH, n, n)
+        rel_bytes = 2 * BB * n * NH * hw
+        b = bound(4.0 * BB * NH * n * n * HD, nbytes(q, k, v, q) + rel_bytes)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                             scale=HD ** -0.5))
+        log(f"[unported] {site} {name} ({BB} windows x {n} tokens, {NH} heads x {HD}, H+W "
+            f"{hw}): bound {b['bound_ms']:.4f} ms ({b['bound_by']}); library (SDPA, bias "
+            f"materialised) {lib:.4f} ms")
+        del q, k, v, bias
+    rows = B * 16 * 289
+    x_bytes = 2 * rows * D
+    for site, name, res in (("#8", "proj_from_heads_res", True), ("#9", "proj_from_heads", False)):
+        b = bound(2.0 * rows * D * D, x_bytes + 2 * D * D + 2 * D + x_bytes * (2 if res else 1))
+        log(f"[unported] {site} {name} (x {B}x{NH}x16x289x{HD} -> {B}x16x289x{D}"
+            f"{', residual' if res else ''}): bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+            "library none (no single call takes the head-leading input with the bias)")
+    N = 64 * 64
+    b = bound(4.0 * B * NH * N * N * HD, 2 * (B * N * 3 * D + N * B * NH * 128 + B * N * D))
+    log(f"[unported] #19 flash_qkv_relpos_global (qkv {B}x{N}x{3 * D}, rel {N}x{B}x{NH}x128): "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); library as #17's row (the same "
+        "function at the same shape)")
+
+
+def split_attention_kernels(rn):
+    """TPU kernels #10 and #20 at their paths' full-width shapes, batch 2:
+    #10 at SAM ViT-B's windowed blocks (25 padded 14 x 14 windows x 12 heads
+    per image, d 64) and global blocks (12 heads x 4096 tokens); #20 at SAM
+    ViT-H's 'aug_flash' global blocks (16 heads x 4096, q_aug/k_aug 80 + 64 +
+    64 = 208 wide, v 80). Library calls: SDPA with the bias rel @ sel
+    materialised (built apart and timed apart) for #10; SDPA at scale 1 on
+    the augmented features, the same function, for #20."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    B, bf, dev = 2, torch.bfloat16, torch.device("cuda")
+    out = {}
+    for label, BB, H, dh in (("ViT-B windows", B * 25 * 12, 14, 64),
+                             ("ViT-B global", B * 12, 64, 64)):
+        N = H * H
+        q, k, v = rn(BB, N, dh, std=dh ** -0.5), rn(BB, N, dh), rn(BB, N, dh)
+        rel, sel = rn(BB, N, 2 * H), fa.make_rel_scatter(H, H, bf, dev)
+        bias = torch.matmul(rel, sel)
+        bias_ms = time_ms(lambda: torch.matmul(rel, sel))
+        r = _check_kernel(
+            f"flash_attention_relpos ({label} {BB}x{N}x{dh})",
+            lambda *a: fa.flash_attention_relpos(*a, H, H), fa.xla_attention_relpos,
+            (q, k, v, rel, sel), flops=4.0 * BB * N * N * dh, reads=(q, k, v, rel),
+            library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0))
+        log(f"[kernel] flash_attention_relpos ({label}): the library's bias build "
+            f"(rel @ sel, {tuple(bias.shape)}) {bias_ms:.4f} ms, not in library_ms")
+        del bias
+        if label == "ViT-B global":  # the JSON line holds the global blocks' shape
+            out["flash_attention_relpos"] = dict(
+                source="camouflaged_vlm_tpu_torch/csrc/attn_relpos.cu",
+                replaces="camouflaged_vlm_tpu/ops/flash_attention.py:134", **r)
+    BB, N, dqk, dv = B * 16, 4096, 208, 80
+    q, k, v = rn(BB, N, dqk, std=dqk ** -0.5), rn(BB, N, dqk), rn(BB, N, dv)
+    out["flash_attention_fullk"] = dict(
+        source="camouflaged_vlm_tpu_torch/csrc/attn_fullk.cu",
+        replaces="camouflaged_vlm_tpu/ops/flash_attention.py:1352",
+        **_check_kernel(f"flash_attention_fullk (ViT-H aug_flash global {BB}x{N}x{dqk}/{dv})",
+                        fa.flash_attention_fullk, fa.flash_attention_fullk_ref, (q, k, v),
+                        flops=2.0 * BB * N * N * (dqk + dv),
+                        library=lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)))
+    return out
 
 
 def _small_config(dtype):
@@ -503,24 +684,27 @@ def phase_slice():
         "ln_mlp_residual_bt_bwd": 0,
         "flash_qkv_packed_windows_s_bwd": 0,
         "flash_qkv_packed_global_bwd": 0,
+        # SAM ViT-H on 'flash' is fused: no split-q/k/v attention
+        "flash_attention_relpos": 0,
+        "flash_attention_fullk": 0,
     }
     log(f"[slice] kernel launches {counts} expected {expected}")
     check(counts == expected, f"launch counts {counts} != expected {expected}")
-    stage_times(session, images)
+    stage_times(session.model, session.cfg, session.text_features,
+                {bs: session.preprocess(images[:bs]) for bs in (1, 2)})
     return counts
 
 
-def stage_times(session, images, iters=5):
+def stage_times(m, cfg, tf, batches, label="", iters=5):
     """The cascade call (`infer_cascade_with_text`) cut into its stages,
-    CUDA events between them, median of `iters` calls at batch 1 and 2."""
+    CUDA events between them, median of `iters` calls for each batch size of
+    `batches` ({size: (inp, clip image, clip mask)})."""
     import torch
     from camouflaged_vlm_tpu_torch.ops.resize import resize_bilinear
 
-    m, cfg, tf = session.model, session.cfg, session.text_features
-    names = ["SAM encoder (flash)", "CLIP pass 1", "decoder + upsample",
+    names = [f"SAM encoder ({cfg.encoder.attn_impl})", "CLIP pass 1", "decoder + upsample",
              "sigmoid + alpha resize", "CLIP pass 2"]
-    for bs in (1, 2):
-        inp, cimg, cmask = session.preprocess(images[:bs])
+    for bs, (inp, cimg, cmask) in batches.items():
         rows = []
         with torch.no_grad():
             for it in range(iters + 1):
@@ -546,14 +730,18 @@ def stage_times(session, images, iters=5):
                                 + [wall])
         med = np.median(np.array(rows), axis=0)
         parts = "; ".join(f"{n} {t:.2f}" for n, t in zip(names, med))
-        log(f"[stages] batch {bs} (median of {iters}, ms): {parts}; sum {med[:-1].sum():.2f}; "
-            f"wall of the call {med[-1]:.2f}")
+        log(f"[stages]{label} batch {bs} (median of {iters}, ms): {parts}; sum "
+            f"{med[:-1].sum():.2f}; wall of the call {med[-1]:.2f}")
 
 
-def _check_grads(name, kfn, pfn, args, out_names):
+def _check_grads(name, kfn, pfn, args, out_names, flops, reads):
     """A backward kernel against its plain backward on the same inputs:
     per output shape, type, finite, max_rel and mean_rel within
-    KERNEL_REL_BOUND; times (kernel, plain) in ms."""
+    KERNEL_REL_BOUND; times (kernel, plain) in ms; the bound from `flops`
+    and the bytes of `reads` and of the outputs. No single PyTorch call
+    computes these backwards (the fused MLP's dx; the attention's drel, a
+    reduction of the bias gradient over the keys of each rel lane), so
+    there is no library time."""
     import torch
 
     got = kfn(*args)
@@ -567,17 +755,18 @@ def _check_grads(name, kfn, pfn, args, out_names):
               f"{name} {o}: {g.shape}/{g.dtype} vs plain {w.shape}/{w.dtype}")
         check(bool(torch.isfinite(g).all()), f"{name} {o}: non-finite")
         errs[o] = errors(g, w)
+    b = bound(flops, nbytes(*reads, *got))
     del got, want
     k_ms, p_ms = time_ms(lambda: kfn(*args)), time_ms(lambda: pfn(*args))
     parts = "; ".join(f"{o} max_rel {e['max_rel']:.3e} mean_rel {e['mean_rel']:.3e}"
                       for o, e in errs.items())
     log(f"[grads] {name}: {parts} (bound {KERNEL_REL_BOUND}); kernel {k_ms:.4f} ms "
-        f"plain {p_ms:.4f} ms")
+        f"plain {p_ms:.4f} ms library none bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     for o, e in errs.items():
         check(e["max_rel"] < KERNEL_REL_BOUND and e["mean_rel"] < KERNEL_REL_BOUND,
               f"{name} {o} disagrees with the plain backward: {e}")
     return dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), ms=k_ms,
-                plain_ms=p_ms)
+                plain_ms=p_ms, library_ms=None, **b)
 
 
 def phase_grads():
@@ -615,13 +804,18 @@ def phase_grads():
                                  ("SAM windows 32x196x1280, weight grads", (B * nf, WIN * WIN),
                                   True)):
         args = (rn(*rows, D), sg, sb, w1, b1, w2, b2, rn(*rows, D, std=0.05))
+        M = rows[0] * rows[1]
+        # dx needs the hidden again (x . W1^T), dh = g . W2 and dx = dpre . W1;
+        # with the weight gradients two more products
         r = _check_grads(f"ln_mlp_residual_bt_bwd ({label}, H 5120)", mlp(weights),
-                         mlp_ref(weights), args, mlp_outs)
+                         mlp_ref(weights), args, mlp_outs,
+                         flops=2.0 * M * D * 4 * D * (5 if weights else 3), reads=args)
         if label.startswith("SAM global"):
             results["ln_mlp_residual_bt_bwd"] = dict(
                 source="camouflaged_vlm_tpu_torch/csrc/ln_mlp_residual_bwd.cu",
                 replaces="camouflaged_vlm_tpu/ops/linear.py:564", **r)
     S = WIN * WIN
+    # per head: the scores again, dP = g . v^T, dv, dq and dk: five N^2 d products
     args = (rn(B * nf, S, 3 * D), rn(S, B * nf, NH * 32), fa.make_rel_scatter32(WIN, bf, dev),
             rn(B * nf, D, S, std=0.05), scale, NH, HD)
     results["flash_qkv_packed_windows_s_bwd"] = dict(
@@ -629,7 +823,8 @@ def phase_grads():
         replaces="camouflaged_vlm_tpu/ops/flash_attention.py:617",
         **_check_grads("flash_qkv_packed_windows_s_bwd (qkv 32x196x3840)",
                        fa.flash_qkv_packed_windows_s_bwd, fa.flash_qkv_packed_windows_s_bwd_ref,
-                       args, ["dqkv", "drel"]))
+                       args, ["dqkv", "drel"], flops=10.0 * B * nf * NH * S * S * HD,
+                       reads=(args[0], args[1], args[3])))
     N = G * G
     args = (rn(B, N, 3 * D), rn(N, B, NH, 2 * G), fa.make_rel_scatter(G, G, bf, dev),
             rn(B, D, N, std=0.05), scale, NH, HD, G, G)
@@ -639,7 +834,8 @@ def phase_grads():
         **_check_grads("flash_qkv_packed_global_bwd (qkv 2x4096x3840)",
                        fa.flash_qkv_packed_global_bwd,
                        lambda *a: fa.flash_qkv_packed_global_bwd_ref(*a[:7]), args,
-                       ["dqkv", "drel"]))
+                       ["dqkv", "drel"], flops=10.0 * B * NH * N * N * HD,
+                       reads=(args[0], args[1], args[3])))
 
     # plain-VJP Functions: kernel forward, gradient of the plain version
     edge_rel = rn(B, ne, R, NH, 32)
@@ -662,6 +858,14 @@ def phase_grads():
          lambda *a: fa.flash_qkv_packed_edge_ref(*a, scale, NH, HD),
          (rn(B, ne, R, 3 * D), edge_rel.reshape(B, ne, R, NH * 32), sel_e, rn(NH, HD, std=0.5),
           kmask_e), (0, 1)),
+        # #10 at SAM ViT-B's global blocks and #20 at ViT-H's 'aug_flash' ones,
+        # batch 2: no backward kernel (nor in JAX), the plain version's VJP
+        ("flash_attention_relpos", lambda *a: fa.flash_attention_relpos(*a, 64, 64),
+         fa.xla_attention_relpos,
+         (rn(24, N, 64, std=0.125), rn(24, N, 64), rn(24, N, 64), rn(24, N, 128),
+          fa.make_rel_scatter(64, 64, bf, dev)), (0, 1, 2, 3)),
+        ("flash_attention_fullk", fa.flash_attention_fullk, fa.flash_attention_fullk_ref,
+         (rn(32, N, 208, std=0.07), rn(32, N, 208), rn(32, N, 80)), (0, 1, 2)),
     ]
     for name, fn, ref, args, wrt in vjp_cases:
         leaves = [a.detach().clone().requires_grad_(i in wrt) for i, a in enumerate(args)]
@@ -750,7 +954,7 @@ def phase_train_slice():
     """The full-width cascade trained through the train CLI: one epoch of 6
     synthetic images at batch 2 (3 steps)."""
     import torch
-    from camouflaged_vlm_tpu_torch.cli.demo import TEST_CLASS_NAMES  # the 61 test classes
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES  # the 61 test classes
     from camouflaged_vlm_tpu_torch.cli import train as train_cli
     from camouflaged_vlm_tpu_torch.data.synthetic import write_synthetic_ovcamo
     from camouflaged_vlm_tpu_torch.factory import build_full_cascade
@@ -819,6 +1023,8 @@ def phase_train_slice():
         "ln_mlp_residual_bt_bwd": (2 * n_win + n_glob) * steps,
         "flash_qkv_packed_windows_s_bwd": n_win * steps,
         "flash_qkv_packed_global_bwd": n_glob * steps,
+        "flash_attention_relpos": 0,
+        "flash_attention_fullk": 0,
     }
     log(f"[train_slice] kernel launches {counts} expected {expected}")
     check(counts == expected, f"train launch counts {counts} != expected {expected}")
@@ -834,7 +1040,7 @@ def train_times(run, iters=3):
     """One train step at batch 2 cut into forward+loss, backward and the
     AdamW update (CUDA events), median of `iters` after a warm-up."""
     import torch
-    from camouflaged_vlm_tpu_torch.cli.demo import TEST_CLASS_NAMES  # the 61 test classes
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES  # the 61 test classes
     from camouflaged_vlm_tpu_torch import train
     from camouflaged_vlm_tpu_torch.factory import make_bank_inputs
 
@@ -866,8 +1072,205 @@ def train_times(run, iters=3):
         f"backward {med[1]:.2f}; optimizer {med[2]:.2f}; sum {med.sum():.2f}")
 
 
+def phase_unfused():
+    """Depth-cut encoders at full width on the unfused paths, each against
+    'reference' on the same bf16 weights: SAM ViT-B on 'flash' (12 heads x
+    64: #10 in its windowed and its global block) and SAM ViT-H on
+    'aug_flash' (#20 in the global block, plain attention_xla in the
+    windowed one)."""
+    import torch
+    from camouflaged_vlm_tpu_torch.config import cascade_config_from_yaml
+    from camouflaged_vlm_tpu_torch.factory import cast_weights_, init_random_
+    from camouflaged_vlm_tpu_torch.models import ImageEncoderViT
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    vit_b = cascade_config_from_yaml(VIT_B_YAML)[0].encoder
+    vit_h = cascade_config_from_yaml(VIT_H_YAML)[0].encoder
+    x = torch.from_numpy(
+        np.random.default_rng(12).standard_normal((1, 1024, 1024, 3)).astype(np.float32)
+    ).cuda()
+    for label, base, impl, kernel in (("ViT-B", vit_b, "flash", "flash_attention_relpos"),
+                                      ("ViT-H", vit_h, "aug_flash", "flash_attention_fullk")):
+        kw = dict(dtype=torch.bfloat16, depth=2, global_attn_indexes=(1,))
+        encs = {}
+        for name in (impl, "reference"):
+            with torch.device("meta"):
+                enc = ImageEncoderViT(dataclasses.replace(base, attn_impl=name, **kw))
+            enc = enc.to_empty(device="cuda")
+            init_random_(enc, torch.Generator(device="cuda").manual_seed(13))
+            with torch.no_grad():  # rel-pos tables large enough for the bias to matter
+                for blk in enc.blocks:
+                    blk.attn.rel_pos_h.mul_(25.0)
+                    blk.attn.rel_pos_w.mul_(25.0)
+            cast_weights_(enc, torch.bfloat16)
+            encs[name] = enc.eval().requires_grad_(False)
+        encs[impl].load_state_dict(encs["reference"].state_dict(), strict=True)
+        with torch.no_grad():
+            _cuda.reset_launches()
+            got, got_i = encs[impl](x)
+            counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+            want, want_i = encs["reference"](x)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(got_i[0]).all()),
+              f"unfused: non-finite {label} {impl} output")
+        e, ei = errors(got, want), errors(got_i[0], want_i[0])
+        log(f"[unfused] SAM {label} depth 2 (1 windowed + 1 global), 1024 px, bf16, {impl!r} vs "
+            f"'reference': neck mean_rel {e['mean_rel']:.3e} max_rel {e['max_rel']:.3e}; global "
+            f"block mean_rel {ei['mean_rel']:.3e} max_rel {ei['max_rel']:.3e} (bound mean_rel "
+            f"{VITH_MEAN_REL_BOUND}); launches {counts}")
+        check(e["mean_rel"] < VITH_MEAN_REL_BOUND and ei["mean_rel"] < VITH_MEAN_REL_BOUND,
+              f"unfused: {label} {impl} disagrees with reference: {e} {ei}")
+        want_n = 2 if kernel == "flash_attention_relpos" else 1
+        check(counts.get(kernel, 0) == want_n, f"unfused: {label} launched {kernel} "
+              f"{counts.get(kernel, 0)} times, expected {want_n}")
+        check(counts.get("flash_qkv_packed_global", 0) == 0, f"unfused: {label} ran fused")
+        del encs, got, want, got_i, want_i
+        torch.cuda.empty_cache()
+
+
+def eval_expected(cfg, calls):
+    """Launch counts of `calls` cascade calls of the evaluate CLI, whose text
+    tower runs once, by the configuration's SAM path."""
+    enc, layers = cfg.encoder, cfg.clip.vision_layers
+    n_glob = len(enc.global_attn_indexes)
+    n_win = enc.depth - n_glob
+    fused = enc.attn_impl == "flash" and enc.num_heads % 8 == 0
+    sam = {  # per call: the fused SAM kernels, or the split-q/k/v attention
+        "ln_linear_act_bt": 2 * n_win if fused else 0,
+        "ln_mask_linear_bt": n_glob if fused else 0,
+        "flash_qkv_packed_windows_s": n_win if fused else 0,
+        "flash_qkv_packed_edge": n_win if fused else 0,
+        "flash_qkv_packed_global": n_glob if fused else 0,
+        "proj_rows": 2 * n_win + n_glob if fused else 0,
+        "ln_mlp_residual_bt": 2 * n_win + n_glob if fused else 0,
+        "flash_attention_relpos": enc.depth if enc.attn_impl == "flash" and not fused else 0,
+        "flash_attention_fullk": n_glob if enc.attn_impl == "aug_flash" else 0,
+    }
+    clip = {"ln_linear_act_bt": 2 * layers, "flash_qkv_packed_plain": 2 * layers,
+            "proj_rows": 2 * layers, "ln_mlp_residual_bt": 2 * layers}
+    out = {k: 0 for k in ("ln_mlp_residual_bt_bwd", "flash_qkv_packed_windows_s_bwd",
+                          "flash_qkv_packed_global_bwd")}
+    out["linear_act"] = 2 * calls  # SAM patch embed + EVP handcrafted embed
+    for k in set(sam) | set(clip):
+        out[k] = (sam.get(k, 0) + clip.get(k, 0)) * calls
+    out["ln_mlp_residual_bt"] += cfg.clip.transformer_layers  # the text tower, once
+    return out
+
+
+def phase_eval_slice():
+    """The evaluate CLI at full width on three configurations: 5 synthetic
+    test images of mixed sizes (the 61 test classes), batch 2, bf16."""
+    import torch
+    from camouflaged_vlm_tpu_torch.cli import evaluate
+    from camouflaged_vlm_tpu_torch.cli.eval_throughput import config_args
+    from camouflaged_vlm_tpu_torch.config import cascade_config_from_yaml
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.data.synthetic import write_synthetic_ovcamo
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    work = os.path.join("build", "chip_smoke_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    info = write_synthetic_ovcamo(os.path.join(work, "ovcamo_synthetic"), n_train=0, n_test=5,
+                                  seed=1, test_classes=tuple(TEST_CLASS_NAMES))
+    n_images, batch = 5, 2
+    calls = 1 + -(-n_images // batch)  # the warm-up call and 3 batches
+    runs = {}
+    for label in ("vit_h_flash", "vit_b_flash", "vit_h_aug_flash"):
+        path = config_args(label, work)[1]  # 'aug_flash' as a yaml under work
+        cfg = cascade_config_from_yaml(path)[0]
+        out_dir = os.path.join(OUT_DIR, f"eval_{label}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = evaluate.main(["--dataset-info", info, "--config", path, "--device", "cuda",
+                             "--dtype", "bfloat16", "--batch-size", str(batch),
+                             "--output-dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(res["images"] == n_images, f"eval_slice {label}: {res['images']} images")
+        check(all(np.isfinite(v) for v in res.values()), f"eval_slice {label}: {res}")
+        check(os.path.exists(os.path.join(out_dir, "results.json")), "no results.json")
+        expected = eval_expected(cfg, calls)
+        log(f"[eval_slice] {label}: SAM {cfg.encoder.embed_dim} wide x {cfg.encoder.depth}, "
+            f"{cfg.encoder.num_heads} heads, {cfg.encoder.attn_impl!r}; images_per_sec "
+            f"{res['images_per_sec']} (3 batches + metric drain: a smoke figure with no steady "
+            f"state; cli/eval_throughput.py measures the rate); CLI wall "
+            f"{wall:.1f} s (build, text encode, warm-up included); peak device memory "
+            f"{peak:.2f} GiB (torch.cuda.max_memory_allocated); sm {res['sm']} ori_sm "
+            f"{res['ori_sm']} accuracy {res['accuracy']}")
+        log(f"[eval_slice] {label} kernel launches {counts} expected {expected}")
+        check(counts == expected, f"eval_slice {label}: launch counts {counts} != {expected}")
+        runs[label] = dict(counts=counts, images_per_sec=res["images_per_sec"], peak_gib=peak)
+        config_stage_times(cfg, label)
+    shutil.rmtree(work)
+    host_metric_cost()
+    return runs
+
+
+def host_metric_cost(iters=5):
+    """The evaluate CLI's per-image host work, one thread, median of
+    `iters`: the class-agnostic COD metrics at the 1024 px model size, and
+    the resize to an original 720 x 540 mask plus the class-aware OVCOS
+    metrics (the CLI runs both in its metric pool, beside the device)."""
+    from camouflaged_vlm_tpu_torch.metrics import CODMetrics, OVCOSMetricer
+    from camouflaged_vlm_tpu_torch.utils.image import bilinear_resize_f32
+
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[:1024, :1024]
+    gt = (((yy - 480) ** 2 + (xx - 530) ** 2) < 250 ** 2).astype(np.float32)
+    prob = np.clip(0.8 * gt + 0.2 * rng.random((1024, 1024)), 0, 1).astype(np.float32)
+    gt_orig = (bilinear_resize_f32(gt, 720, 540) > 0.5).astype(np.uint8) * 255
+
+    def cod():
+        CODMetrics().step(prob, gt)
+
+    def ovcos():
+        pred = (bilinear_resize_f32(prob, 720, 540) * 255).astype(np.uint8)
+        OVCOSMetricer(["cat"], num_workers=0).step(pred, gt_orig, "cat", "cat")
+
+    times = {}
+    for name, fn in (("COD metrics at 1024 px", cod), ("resize + OVCOS metrics at 720x540", ovcos)):
+        fn()
+        ts = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        times[name] = float(np.median(ts))
+    log(f"[eval_slice] host metric work per image, one thread on the card's host "
+        f"({os.cpu_count()} CPUs), median of {iters} (ms): "
+        + "; ".join(f"{k} {v:.1f}" for k, v in times.items())
+        + f"; sum {sum(times.values()):.1f}")
+
+
+def config_stage_times(cfg, label):
+    """`stage_times` of a configuration's cascade at batch 2 (seeded random
+    weights, rel cache attached, the 61 classes' text features)."""
+    import torch
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.data.transforms import (
+        clip_image_transform, clip_ones_alpha, sam_image_transform,
+    )
+    from camouflaged_vlm_tpu_torch.factory import attach_rel_cache, build_cascade, make_bank_inputs
+
+    model = attach_rel_cache(build_cascade(cfg, "cuda", 0))
+    bank = make_bank_inputs(cfg, TEST_CLASS_NAMES, device="cuda")
+    tf = model.encode_class_text_features(bank["prefix"], bank["suffix"], bank["eot_indices"],
+                                          bank["bank_features"])
+    images = _synthetic_images(2)
+    batch = tuple(torch.from_numpy(np.stack(a)).cuda() for a in (
+        [sam_image_transform(im, cfg.inp_size) for im in images],
+        [clip_image_transform(im, cfg.clip_size) for im in images],
+        [clip_ones_alpha(cfg.clip_size) for _ in images]))
+    stage_times(model, cfg, tf, {2: batch}, label=f" {label}")
+    del model
+
+
 def main() -> None:
-    name, _ = phase_device()
+    name, smi = phase_device()
     phase_build()
     results = phase_kernels()
     phase_small()
@@ -876,14 +1279,26 @@ def main() -> None:
     grads = phase_grads()
     phase_train_small()
     train_counts = phase_train_slice()
+    phase_unfused()
+    evals = phase_eval_slice()
     import torch
 
+    # launches: each kernel's count in the run of its own main path (the
+    # split-q/k/v kernels' from their eval-slice configuration)
+    launches = {**counts, **{k: train_counts[k] for k in grads},
+                "flash_attention_relpos": evals["vit_b_flash"]["counts"]["flash_attention_relpos"],
+                "flash_attention_fullk": evals["vit_h_aug_flash"]["counts"]["flash_attention_fullk"]}
     kernels = [
         {"name": k, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
-         "launches": c[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
-        for res, c in ((results, counts), (grads, train_counts)) for k, r in res.items()
+         "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"]}
+        for res in (results, grads) for k, r in res.items()
     ]
+    check(len(kernels) == 14 and all(e["launches"] > 0 for e in kernels),
+          f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
+    log("[device] name and power limit (nvidia-smi) of the card all numbers above ran on:")
+    log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -36,25 +36,33 @@ def no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("impl", ["flash", "aug_flash", "aug_xla"])
 def test_unported_attn_impl_raises(impl):
-    """'flash' at 4 heads would take the JAX package's unfused path (TPU
-    site #10, not ported); the aug_* ablations are not ported at all."""
-    match = "site #10" if impl == "flash" else "reference"
-    with pytest.raises(NotImplementedError, match=match):
-        ImageEncoderViT(SamEncoderConfig.tiny(attn_impl=impl))
+    """The paths that raised before TPU kernels #10 and #20 were ported
+    ('flash' at 4 heads takes the JAX package's unfused path, the aug_*
+    paths the augmented features) now build and run; an unknown
+    implementation raises."""
+    enc = ImageEncoderViT(SamEncoderConfig.tiny(attn_impl=impl))
+    with torch.no_grad():
+        y, interm = enc(torch.randn(1, 64, 64, 3))
+    assert y.shape == (1, 4, 4, 32) and bool(torch.isfinite(y).all()) and len(interm) == 2
+    assert not enc.fused
+    with pytest.raises(ValueError, match="attn_impl"):
+        ImageEncoderViT(SamEncoderConfig.tiny(attn_impl=impl + "_typo"))
 
 
 def test_flash_names_its_roadmap_item():
     assert SamEncoderConfig().attn_impl == "flash"  # the JAX package's default
     assert CascadeConfig.full().encoder.attn_impl == "flash"
-    assert CascadeConfig.tiny().encoder.attn_impl == "reference"  # 4 heads
+    assert CascadeConfig.tiny().encoder.attn_impl == "flash"  # 4 heads: unfused, as in JAX
     with torch.device("meta"):  # the ViT-H cascade on 'flash' builds
         OVCOSCascade(CascadeConfig.full())
-    ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", embed_dim=64, num_heads=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", num_heads=4))
-    with pytest.raises(NotImplementedError, match="site #12"):  # window > 14
+    assert ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", embed_dim=64,
+                                                 num_heads=8)).fused
+    assert not ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", num_heads=4)).fused
+    with pytest.raises(NotImplementedError, match="site #12"):  # fused, window > 14
         ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", embed_dim=64, num_heads=8,
                                               img_size=320, window_size=16))
+    # unfused 'flash' takes a window > 14 in the padded carry (#10, no #12)
+    ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", img_size=320, window_size=16))
 
 
 def test_demo_cuda_without_gpu_raises(image_path, tmp_path, no_cuda):
@@ -89,6 +97,9 @@ def test_kernel_wrappers_refuse_non_cpu_tensors():
                                                       0.25, 2, 8),
         lambda: flash_attention.flash_qkv_packed_global(m(1, 4, 48), m(4, 1, 2, 4), m(4, 4),
                                                         0.25, 2, 8, 2, 2),
+        lambda: flash_attention.flash_attention_relpos(m(2, 4, 16), m(2, 4, 16), m(2, 4, 16),
+                                                       m(2, 4, 4), m(4, 4), 2, 2),
+        lambda: flash_attention.flash_attention_fullk(m(2, 4, 16), m(2, 4, 16), m(2, 4, 16)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported devices"):

@@ -267,3 +267,58 @@ def test_attention_functions_launch_the_backward_kernels(gen):
         got = torch.autograd.grad(out, (qkv, rel), g)
         assert kernel.launches == before + 1
         _grad_close(got, bwd_ref(qkv.detach(), rel.detach(), sel, g, *static))
+
+
+# ------------------------------------- split q, k, v attention (#10, #20)
+
+
+@pytest.mark.parametrize("BB,H,W,d", [(3, 14, 14, 64), (2, 64, 64, 64), (5, 5, 6, 64),
+                                      (2, 10, 10, 80), (1, 9, 7, 80)])
+def test_flash_attention_relpos_kernel(gen, BB, H, W, d):
+    """Windowed (196) and global (4096) token counts at SAM ViT-B's d 64,
+    ViT-H's d 80, ragged ones, odd problem counts; q pre-scaled as the
+    encoder gives it."""
+    N = H * W
+    q = rn(gen, BB, N, d, std=d ** -0.5)
+    args = (q, rn(gen, BB, N, d), rn(gen, BB, N, d), rn(gen, BB, N, H + W),
+            flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda")))
+    before = _cuda.ATTN_RELPOS.launches
+    got = flash_attention.flash_attention_relpos(*args, H, W)
+    assert _cuda.ATTN_RELPOS.launches == before + 1
+    assert_close(got, flash_attention.xla_attention_relpos(*args))
+
+
+@pytest.mark.parametrize("BB,N,dqk,dv", [(2, 4096, 208, 80), (3, 100, 48, 64),
+                                         (1, 1024, 192, 64), (2, 77, 256, 80)])
+def test_flash_attention_fullk_kernel(gen, BB, N, dqk, dv):
+    args = (rn(gen, BB, N, dqk, std=dqk ** -0.5), rn(gen, BB, N, dqk), rn(gen, BB, N, dv))
+    before = _cuda.ATTN_FULLK.launches
+    got = flash_attention.flash_attention_fullk(*args)
+    assert _cuda.ATTN_FULLK.launches == before + 1
+    assert_close(got, flash_attention.flash_attention_fullk_ref(*args))
+
+
+def test_split_attention_gradients_are_the_plain_vjp(gen):
+    """#10 and #20 have no backward kernel (nor had the TPU kernels): a
+    gradient through them launches the forward kernel once and is the
+    autograd gradient of the plain version."""
+    H, W, d = 6, 10, 64
+    N = H * W
+    sel = flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda"))
+    cases = [
+        (lambda *a: flash_attention.flash_attention_relpos(*a, sel, H, W),
+         lambda *a: flash_attention.xla_attention_relpos(*a, sel), _cuda.ATTN_RELPOS,
+         (rn(gen, 3, N, d, std=0.2), rn(gen, 3, N, d), rn(gen, 3, N, d), rn(gen, 3, N, H + W))),
+        (flash_attention.flash_attention_fullk, flash_attention.flash_attention_fullk_ref,
+         _cuda.ATTN_FULLK, (rn(gen, 2, N, 48, std=0.2), rn(gen, 2, N, 48), rn(gen, 2, N, 80))),
+    ]
+    for fn, ref, kernel, args in cases:
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        before = kernel.launches
+        out = fn(*leaves)
+        assert kernel.launches == before + 1
+        g = rn(gen, *out.shape)
+        got = torch.autograd.grad(out, leaves, g)
+        want = torch.autograd.grad(ref(*leaves), leaves, g)
+        for a, b in zip(got, want):  # the same plain backward: fp32 summation order only
+            assert ((a.float() - b.float()).abs().max() / b.float().abs().max()).item() < 1e-5
