@@ -24,6 +24,6 @@
 // cudaGetLastError().
 extern "C" int cvlm_attn_fullk(const void* q, const void* k, const void* v, void* out, int BB,
                                int N, int d, int dv, void* stream) {
-  return cvlm::dispatch_split<false>(q, k, v, nullptr, out, BB, N, 1, 1, d, dv,
-                                     static_cast<cudaStream_t>(stream));
+  return cvlm::dispatch_split<false>(cvlm::split_layout(q, k, v, nullptr, out, N, 1, 1, d, dv),
+                                     BB, dv, static_cast<cudaStream_t>(stream));
 }

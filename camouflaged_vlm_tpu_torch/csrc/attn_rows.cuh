@@ -4,13 +4,18 @@
 // three bias modes:
 //
 //   ROWS_PLAIN    no bias                      (CLIP vision, qkv_packed_plain.cu)
-//   ROWS_WINDOWS  decomposed rel-pos bias      (SAM interior windows)
+//   ROWS_WINDOWS  decomposed rel-pos bias      (SAM windows: the compact
+//                 carry's interior windows, the padded carry's windows and
+//                 the global blocks with H + W <= 32)
 //   ROWS_EDGE     the same per edge window, plus dummy-key mask and the
 //                 virtual pad key              (SAM edge windows)
 //
 // Layouts: qkv (BB, S, 3*H*d), last axis [q heads | k heads | v heads];
 // out (BB, H*d, S). BB is the batch of windows (B*nwin for the windows,
-// B*n_edge for the edges). Grid (ceil(S/32), heads, BB), 128 threads.
+// B*n_edge for the edges). The rel lanes of query q of window b start at
+// rel + q * rel_sq + b * rel_sb: position-major (S, BB, H*32) for the
+// compact carry's windows, window-major (BB, S, H*32) for the padded
+// carry's and the edges'. Grid (ceil(S/32), heads, BB), 128 threads.
 //
 // One block owns 32 queries of one head and holds their whole score rows
 // (32 x Spad fp32, Spad = S rounded up to 64) in shared memory, so the
@@ -48,12 +53,13 @@ constexpr int AR_BQ = 32, AR_KT = 64, AR_THREADS = 128;
 constexpr int REL_LANES = 32, LPAD_LANE = 28;
 
 struct RowsBias {
-  const bf16* rel;     // windows (S, BB, H*32); edge (BB, S, H*32)
-  const bf16* sel;     // edge: (n, 32, S) 0/1 scatter
-  const bf16* vb;      // edge: (H, d) pad-token value (v slice of the qkv bias)
-  const float* kmask;  // edge: (n, S) 0 real key / -1e30 dummy
-  int win;             // windows: window side (S == win * win)
-  int n;               // edge: windows per image (BB == B * n)
+  const bf16* rel;        // 32 lanes per head and query
+  size_t rel_sq, rel_sb;  // rel strides (elements) per query and per window
+  const bf16* sel;        // edge: (n, 32, S) 0/1 scatter
+  const bf16* vb;         // edge: (H, d) pad-token value (v slice of the qkv bias)
+  const float* kmask;     // edge: (n, S) 0 real key / -1e30 dummy
+  int win;                // windows: window side (S == win * win)
+  int n;                  // edge: windows per image (BB == B * n)
 };
 
 // Copies `rows` rows of DH bf16 values (row stride lds) into shared memory
@@ -161,12 +167,9 @@ __global__ void __launch_bounds__(AR_THREADS) attn_rows_kernel(
     float* row = Ss + r * LDS;
     const int q = q0 + r;
     float rv = 0.f;  // this lane's rel value of query q
-    if (MODE == ROWS_WINDOWS && q < S)
+    if (MODE != ROWS_PLAIN && q < S)
       rv = __bfloat162float(
-          rb.rel[((size_t)q * gridDim.z + b) * heads * REL_LANES + h * REL_LANES + lane]);
-    if (MODE == ROWS_EDGE && q < S)
-      rv = __bfloat162float(
-          rb.rel[(((size_t)b * S + q) * heads + h) * REL_LANES + lane]);
+          rb.rel[(size_t)q * rb.rel_sq + (size_t)b * rb.rel_sb + h * REL_LANES + lane]);
     float mx = -INFINITY;
     for (int kb = 0; kb < S; kb += 32) {  // warp-uniform trip count: shuffles inside
       const int k = kb + lane;

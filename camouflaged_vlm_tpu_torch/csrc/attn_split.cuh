@@ -1,15 +1,24 @@
-// attn_split: o = softmax(q . k^T [+ rel_h[q, k / W] + rel_w[q, H + k % W]]) . v
-// over separate q, k, v tensors (one attention problem per leading index),
-// q arriving pre-scaled. Shared by two sources:
+// attn_split: o = softmax(q . k^T [+ rel_h[q, k / W] + rel_w[q, H + k % W]]) . v,
+// one attention problem per (b, w, h), each of N queries and N keys. Shared
+// by three sources:
 //
-//   attn_relpos.cu  BIAS = true:  flash_attention_relpos (TPU kernel #10)
-//   attn_fullk.cu   BIAS = false: flash_attention_fullk  (TPU kernel #20)
+//   attn_relpos.cu  BIAS = true:  flash_attention_relpos (TPU kernel #10),
+//                   split pre-scaled q, k, v
+//   attn_fullk.cu   BIAS = false: flash_attention_fullk  (TPU kernel #20),
+//                   split pre-scaled q, k, v
+//   qkv_relpos.cu   BIAS = true:  flash_qkv_relpos_windows (#11) and
+//                   flash_qkv_relpos_global (#19), q, k, v read in place from
+//                   the packed qkv projection, q scaled here
 //
-// Layouts (bf16): q, k (BB, N, dqk); v (BB, N, DV); rel (BB, N, H+W)
-// [rel_h | rel_w] per query; out (BB, N, DV). dqk is a run-time multiple of
-// 16 up to 256 (the depth of the score product; #20's augmented features
-// are 208 wide at ViT-H); DV is a template parameter (the P.V accumulator
-// fragments live in registers).
+// Layouts: every operand is given by its base and its strides (elements)
+// per b, per w, per h and per row (SplitArgs); the row of a problem is dqk
+// (q, k), DV (v), H+W (rel) or DV (out) contiguous values. dqk is a run-time
+// multiple of 16 up to 256 (the depth of the score product; #20's augmented
+// features are 208 wide at ViT-H); DV is a template parameter (the P.V
+// accumulator fragments live in registers). q is multiplied by the scale
+// rounded to bf16 and rounded to bf16 at its tile load, as the JAX kernels
+// scale it in the input type (flash_attention.py:191, :1245); the split
+// callers pass 1, which leaves their pre-scaled q as it is.
 //
 // A query tile of 64 rows (4 warps x 16 rows) walks the keys in tiles of
 // 64, twice, as qkv_packed_global.cu does:
@@ -18,14 +27,16 @@
 //   pass 2: the scores again, p = exp(s - m) / l normalised in fp32 and
 //           rounded to bf16, O += P . V with fp32 accumulation.
 // This keeps the rounding points of the JAX kernels (`_relpos_kernel`,
-// `_kernel` of flash_attention.py): fp32 scores, the bias added as the fp32
-// sum of the two bf16 rel values (the rel @ sel product with one nonzero
-// term per lane group, here an indexed gather), max-subtracted softmax
-// normalised in fp32 before the bf16 rounding, one rounding of the output.
-// An online-softmax single pass would round exp(s - m_running) before the
-// division and move that rounding point. Keys and queries past N are masked
-// (zero-filled tiles, -inf scores, unwritten rows), so any N works: the 196
-// tokens of a 14 x 14 window and the 4096 of a 64 x 64 grid alike.
+// `_qkv_relpos_windows_kernel`, `_qkv_relpos_global_kernel`, `_kernel` of
+// flash_attention.py): fp32 scores, the bias added as the fp32 sum of the
+// two bf16 rel values (the rel @ sel product with one nonzero term per lane
+// group, here an indexed gather), max-subtracted softmax normalised in fp32
+// before the bf16 rounding, one rounding of the output. An online-softmax
+// single pass would round exp(s - m_running) before the division and move
+// that rounding point. Keys and queries past N are masked (zero-filled
+// tiles, -inf scores, unwritten rows), so any N works: the 196 tokens of a
+// 14 x 14 window, the 289 of a 17 x 17 one and the 4096 of a 64 x 64 grid
+// alike.
 //
 // What bounds it on the H100: the tensor cores' work is 2 N^2 dqk (scores,
 // twice) + 2 N^2 DV (P.V) per problem, through WMMA 16x16x16 with K and V
@@ -63,11 +74,24 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ldd, const bf16* src, s
   }
 }
 
+// One operand's strides (elements): per b, per w, per h, per row.
+struct SplitStrides {
+  size_t b, w, h, r;
+};
+
+// The problems (b, w, h), h fastest: blockIdx.y = (b * nwin + w) * heads + h.
+struct SplitArgs {
+  const bf16 *q, *k, *v, *rel;
+  bf16* out;
+  SplitStrides qk, vs, rs, os;  // q and k, v, rel, out
+  int heads, nwin, N, H, W, dqk;
+  float scale;  // q * bf16(scale), rounded to bf16, at the tile load
+};
+
 template <int DV, bool BIAS>
-__global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ rel, bf16* __restrict__ out, int N, int H, int W, int dqk) {
+__global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const SplitArgs a) {
   constexpr int LDV = DV + 8, LDS = AS_KT + 4, LDP = AS_KT + 8, LDO = DV + 4;
+  const int N = a.N, H = a.H, W = a.W, dqk = a.dqk;
   const int LDQ = dqk + 8;
   const int hw = BIAS ? H + W : 0, LDR = hw + 1;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -82,15 +106,28 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(
   float* row_l = row_m + AS_BQ;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * AS_BQ, b = blockIdx.y;
-  const bf16* kb = k + (size_t)b * N * dqk;
-  const bf16* vb = v + (size_t)b * N * DV;
+  const int q0 = blockIdx.x * AS_BQ, p = blockIdx.y;
+  const int h = p % a.heads, w = (p / a.heads) % a.nwin, b = p / a.heads / a.nwin;
+  auto at = [&](const SplitStrides& st) {
+    return (size_t)b * st.b + (size_t)w * st.w + (size_t)h * st.h;
+  };
+  const bf16* kb = a.k + at(a.qk);
+  const bf16* vb = a.v + at(a.vs);
 
-  load_tile(Qs, LDQ, q + ((size_t)b * N + q0) * dqk, dqk, AS_BQ, N - q0, dqk);
+  load_tile(Qs, LDQ, a.q + at(a.qk) + (size_t)q0 * a.qk.r, a.qk.r, AS_BQ, N - q0, dqk);
+  if (a.scale != 1.f) {
+    __syncthreads();
+    const float sc = __bfloat162float(__float2bfloat16(a.scale));
+    for (int e = tid; e < AS_BQ * dqk; e += AS_THREADS) {
+      bf16& x = Qs[(e / dqk) * LDQ + e % dqk];
+      x = __float2bfloat16(__bfloat162float(x) * sc);
+    }
+  }
   if (BIAS) {
+    const bf16* rb = a.rel + at(a.rs);
     for (int e = tid; e < AS_BQ * hw; e += AS_THREADS) {
       const int r = e / hw, j = e % hw, qi = q0 + r;
-      Rs[r * LDR + j] = qi < N ? __bfloat162float(rel[((size_t)b * N + qi) * hw + j]) : 0.f;
+      Rs[r * LDR + j] = qi < N ? __bfloat162float(rb[(size_t)qi * a.rs.r + j]) : 0.f;
     }
   }
   for (int r = tid; r < AS_BQ; r += AS_THREADS) {
@@ -106,13 +143,13 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(
 #pragma unroll
     for (int j = 0; j < AS_KT / 16; ++j) wmma::fill_fragment(sfr[j], 0.0f);
     for (int kk = 0; kk < dqk; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Qw + kk, LDQ);
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
+      wmma::load_matrix_sync(af, Qw + kk, LDQ);
 #pragma unroll
       for (int j = 0; j < AS_KT / 16; ++j) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
         wmma::load_matrix_sync(bk, Ks + 16 * j * LDQ + kk, LDQ);
-        wmma::mma_sync(sfr[j], a, bk, sfr[j]);
+        wmma::mma_sync(sfr[j], af, bk, sfr[j]);
       }
     }
 #pragma unroll
@@ -135,7 +172,7 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(
   // pass 1: row max and row sum
   for (int kt = 0; kt < N; kt += AS_KT) {
     __syncthreads();
-    load_tile(Ks, LDQ, kb + (size_t)kt * dqk, dqk, AS_KT, N - kt, dqk);
+    load_tile(Ks, LDQ, kb + (size_t)kt * a.qk.r, a.qk.r, AS_KT, N - kt, dqk);
     __syncthreads();
     scores();
     for (int rr = 0; rr < 16; ++rr) {
@@ -159,8 +196,8 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(
   bf16* Pw = Ps + warp * 16 * LDP;
   for (int kt = 0; kt < N; kt += AS_KT) {
     __syncthreads();
-    load_tile(Ks, LDQ, kb + (size_t)kt * dqk, dqk, AS_KT, N - kt, dqk);
-    load_tile(Vs, LDV, vb + (size_t)kt * DV, DV, AS_KT, N - kt, DV);
+    load_tile(Ks, LDQ, kb + (size_t)kt * a.qk.r, a.qk.r, AS_KT, N - kt, dqk);
+    load_tile(Vs, LDV, vb + (size_t)kt * a.vs.r, a.vs.r, AS_KT, N - kt, DV);
     __syncthreads();
     scores();
     for (int rr = 0; rr < 16; ++rr) {
@@ -173,13 +210,13 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(
     __syncwarp();
 #pragma unroll
     for (int kk = 0; kk < AS_KT; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Pw + kk, LDP);
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
+      wmma::load_matrix_sync(af, Pw + kk, LDP);
 #pragma unroll
       for (int j = 0; j < DV / 16; ++j) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
         wmma::load_matrix_sync(bv, Vs + kk * LDV + 16 * j, LDV);
-        wmma::mma_sync(of[j], a, bv, of[j]);
+        wmma::mma_sync(of[j], af, bv, of[j]);
       }
     }
   }
@@ -191,38 +228,60 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(
   for (int j = 0; j < DV / 16; ++j)
     wmma::store_matrix_sync(Os + warp * 16 * LDO + 16 * j, of[j], LDO, wmma::mem_row_major);
   __syncthreads();
-  bf16* ob = out + ((size_t)b * N + q0) * DV;
+  bf16* ob = a.out + at(a.os) + (size_t)q0 * a.os.r;
   for (int e = tid; e < AS_BQ * DV; e += AS_THREADS) {
     const int r = e / DV, c = e % DV;
-    if (q0 + r < N) ob[(size_t)r * DV + c] = __float2bfloat16(Os[r * LDO + c]);
+    if (q0 + r < N) ob[(size_t)r * a.os.r + c] = __float2bfloat16(Os[r * LDO + c]);
   }
 }
 
 template <int DV, bool BIAS>
-int launch_split(const void* q, const void* k, const void* v, const void* rel, void* out,
-                 int BB, int N, int H, int W, int dqk, cudaStream_t s) {
-  if (dqk <= 0 || dqk % 16 != 0 || dqk > 256 || BB <= 0 || BB > 65535 || N <= 0)
+int launch_split(const SplitArgs& a, int problems, cudaStream_t s) {
+  if (a.dqk <= 0 || a.dqk % 16 != 0 || a.dqk > 256 || problems <= 0 || problems > 65535 ||
+      a.N <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = split_smem(dqk, DV, BIAS ? H + W : 0);
+  const size_t smem = split_smem(a.dqk, DV, BIAS ? a.H + a.W : 0);
   cudaError_t err = cudaFuncSetAttribute(attn_split_kernel<DV, BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + AS_BQ - 1) / AS_BQ, BB);
-  attn_split_kernel<DV, BIAS><<<grid, AS_THREADS, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(rel), static_cast<bf16*>(out), N, H, W, dqk);
+  const dim3 grid((a.N + AS_BQ - 1) / AS_BQ, problems);
+  attn_split_kernel<DV, BIAS><<<grid, AS_THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
+// `problems` = B * nwin * heads; dv in {64, 80} (SAM ViT-B, ViT-H).
 template <bool BIAS>
-int dispatch_split(const void* q, const void* k, const void* v, const void* rel, void* out,
-                   int BB, int N, int H, int W, int dqk, int dv, cudaStream_t s) {
+int dispatch_split(const SplitArgs& a, int problems, int dv, cudaStream_t s) {
   switch (dv) {
-    case 64: return launch_split<64, BIAS>(q, k, v, rel, out, BB, N, H, W, dqk, s);
-    case 80: return launch_split<80, BIAS>(q, k, v, rel, out, BB, N, H, W, dqk, s);
+    case 64: return launch_split<64, BIAS>(a, problems, s);
+    case 80: return launch_split<80, BIAS>(a, problems, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Split operands, one problem per leading index: q, k (BB, N, dqk), v and out
+// (BB, N, dv), rel (BB, N, H+W); q pre-scaled.
+inline SplitArgs split_layout(const void* q, const void* k, const void* v, const void* rel,
+                              void* out, int N, int H, int W, int dqk, int dv) {
+  SplitArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.rel = static_cast<const bf16*>(rel);
+  a.out = static_cast<bf16*>(out);
+  a.qk = {(size_t)N * dqk, 0, 0, (size_t)dqk};
+  a.vs = {(size_t)N * dv, 0, 0, (size_t)dv};
+  a.rs = {(size_t)N * (H + W), 0, 0, (size_t)(H + W)};
+  a.os = a.vs;
+  a.heads = 1;
+  a.nwin = 1;
+  a.N = N;
+  a.H = H;
+  a.W = W;
+  a.dqk = dqk;
+  a.scale = 1.f;
+  return a;
 }
 
 }  // namespace cvlm

@@ -1,18 +1,31 @@
 // proj_rows: out[g, s, :] = x[g, :, s]^T . W^T + b (+ res[g, s, :]).
+// proj_from_heads: out[b, t, s, :] = sum_h x[b, h, t, s, :] . W[:, h*d:(h+1)*d]^T
+// + b (+ res[b, t, s, :]).
 //
-// Replaces proj_rows of camouflaged_vlm_tpu/ops/linear.py (_proj_rows_kernel
-// and _proj_rows_res_kernel): the attention out-projection that reads the
-// attention kernel's d-major (heads*d, S) output and writes row-major rows,
-// with the block's residual added in the epilogue.
+// Replaces three TPU kernels of camouflaged_vlm_tpu/ops/linear.py:
+//   proj_rows (_proj_rows_kernel and _proj_rows_res_kernel, #7): the
+//     attention out-projection that reads the packed attention kernels'
+//     d-major (heads*d, S) output and writes row-major rows, with the block's
+//     residual added in the epilogue;
+//   proj_from_heads_res (_proj_res_kernel, #8) and proj_from_heads
+//     (_proj_kernel, #9): the same product over the head-leading (B, heads,
+//     T, S, d) output of flash_qkv_relpos_windows (qkv_relpos.cu), with and
+//     without the residual; the head -> feature relayout never reaches
+//     device memory.
 //
 // Shapes on the main path (bf16): CLIP vision x (B, 1, 1024, 581) d-major,
-// W (1024, 1024), res (B, 1, 581, 1024). A small product (1.2 GFLOP per
-// image); on the H100 it is bound by tile staging and the ragged 581-row
-// edge rather than by the tensor cores. The d-major A tile is staged into
-// shared memory as it lies (s contiguous, so the loads coalesce) and fed to
-// WMMA as a column-major matrix_a; W is staged row-per-output-column. The
-// residual and bias are added to the fp32 accumulator and rounded once, as
-// the TPU kernel does (linear.py:653).
+// W (1024, 1024), res (B, 1, 581, 1024); SAM ViT-H with window 17 x (B, 16,
+// 16, 289, 80) head-leading, W (1280, 1280), res (B, 16, 289, 1280). Small
+// products (1.2 GFLOP per image for CLIP, 15 for SAM's 9248 rows at batch 2);
+// on the H100 they are bound by tile staging and the ragged row edge rather
+// than by the tensor cores. One GEMM body, two A-tile loaders: the d-major
+// tile is staged as it lies (s contiguous, so the loads coalesce), the
+// head-leading one gathers row (b, t, s) and k = h*d + j from x[b, h, t, s, j]
+// (j contiguous, 8 values per 16-byte load); both land k-major in shared
+// memory and feed WMMA as a
+// column-major matrix_a; W is staged row-per-output-column. The residual and
+// bias are added to the fp32 accumulator and rounded once, as the TPU
+// kernels do (linear.py:653, :748).
 #include "common.cuh"
 
 namespace cvlm {
@@ -22,17 +35,24 @@ constexpr int PR_LDA = PR_BM + 8;   // A staged k-major: As[k][s]
 constexpr int PR_LDB = PR_BK + 8;   // B staged n-major: Bs[n][k]
 constexpr int PR_LDC = PR_BN + 4;
 
-__global__ void __launch_bounds__(PR_THREADS) proj_rows_kernel(
+// HEADS = false: x (G, K, S) d-major, group g. HEADS = true: x (B, K/d, T, S,
+// d) head-leading, group g = b * T + t.
+template <bool HEADS>
+__global__ void __launch_bounds__(PR_THREADS) proj_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w,
     const bf16* __restrict__ bias, const bf16* __restrict__ res,
-    bf16* __restrict__ out, int S, int K, int N) {
+    bf16* __restrict__ out, int S, int K, int N, int T, int d) {
   __shared__ __align__(128) bf16 As[PR_BK * PR_LDA];
   __shared__ __align__(128) bf16 Bs[PR_BN * PR_LDB];
   __shared__ __align__(128) float Cs[PR_BM * PR_LDC];
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int s0 = blockIdx.y * PR_BM, n0 = blockIdx.x * PR_BN, g = blockIdx.z;
-  const bf16* xg = x + (size_t)g * K * S;
+  // the group's element (k, s): d-major at k * S + s; head-leading at
+  // (k / d) * T*S*d + s * d + k % d from the group's (b, h = 0, t) block
+  const bf16* xg = HEADS ? x + ((size_t)(g / T) * (K / d) * T + g % T) * S * d
+                         : x + (size_t)g * K * S;
+  const size_t head_stride = (size_t)T * S * d;
 
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
@@ -42,10 +62,25 @@ __global__ void __launch_bounds__(PR_THREADS) proj_rows_kernel(
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   for (int k0 = 0; k0 < K; k0 += PR_BK) {
-    for (int e = tid; e < PR_BK * PR_BM; e += PR_THREADS) {
-      const int kr = e / PR_BM, c = e % PR_BM, k = k0 + kr, s = s0 + c;
-      As[kr * PR_LDA + c] =
-          (k < K && s < S) ? xg[(size_t)k * S + s] : __float2bfloat16(0.f);
+    if (HEADS) {
+      // 8 consecutive k of one row lie in one head (d % 8 == 0): one 16-byte
+      // load, neighbouring threads on neighbouring k
+      for (int e = tid; e < PR_BM * (PR_BK / 8); e += PR_THREADS) {
+        const int c = e / (PR_BK / 8), kr = (e % (PR_BK / 8)) * 8, k = k0 + kr, s = s0 + c;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (k < K && s < S)
+          v = *reinterpret_cast<const uint4*>(xg + (size_t)(k / d) * head_stride +
+                                              (size_t)s * d + k % d);
+        const bf16* vv = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) As[(kr + i) * PR_LDA + c] = vv[i];
+      }
+    } else {
+      // neighbouring threads on neighbouring s
+      for (int e = tid; e < PR_BK * PR_BM; e += PR_THREADS) {
+        const int kr = e / PR_BM, c = e % PR_BM, k = k0 + kr, s = s0 + c;
+        As[kr * PR_LDA + c] = (k < K && s < S) ? xg[(size_t)k * S + s] : __float2bfloat16(0.f);
+      }
     }
     for (int e = tid; e < PR_BN * PR_BK; e += PR_THREADS) {
       const int r = e / PR_BK, c = e % PR_BK, n = n0 + r, k = k0 + c;
@@ -90,6 +125,17 @@ __global__ void __launch_bounds__(PR_THREADS) proj_rows_kernel(
   }
 }
 
+template <bool HEADS>
+int launch_proj(const void* x, const void* w, const void* bias, const void* res, void* out,
+                int G, int S, int K, int N, int T, int d, cudaStream_t stream) {
+  const dim3 grid((N + PR_BN - 1) / PR_BN, (S + PR_BM - 1) / PR_BM, G);
+  proj_kernel<HEADS><<<grid, PR_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
+      static_cast<bf16*>(out), S, K, N, T, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace cvlm
 
 // x (G, K, S) d-major, w (N, K) [nn.Linear layout], bias (N,), res (G, S, N)
@@ -97,11 +143,17 @@ __global__ void __launch_bounds__(PR_THREADS) proj_rows_kernel(
 extern "C" int cvlm_proj_rows(const void* x, const void* w, const void* bias,
                               const void* res, void* out, int G, int S, int K, int N,
                               void* stream) {
-  using namespace cvlm;
-  const dim3 grid((N + PR_BN - 1) / PR_BN, (S + PR_BM - 1) / PR_BM, G);
-  proj_rows_kernel<<<grid, PR_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
-      static_cast<bf16*>(out), S, K, N);
-  return (int)cudaGetLastError();
+  return cvlm::launch_proj<false>(x, w, bias, res, out, G, S, K, N, 1, 1,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// x (B, heads, T, S, d) head-leading, d % 8 == 0, w (N, heads*d) [nn.Linear
+// layout], bias (N,), res (B, T, S, N) or NULL, out (B, T, S, N): bf16.
+// Returns cudaGetLastError().
+extern "C" int cvlm_proj_from_heads(const void* x, const void* w, const void* bias,
+                                    const void* res, void* out, int B, int heads, int T,
+                                    int S, int d, int N, void* stream) {
+  if (d % 8 != 0) return (int)cudaErrorInvalidValue;
+  return cvlm::launch_proj<true>(x, w, bias, res, out, B * T, S, heads * d, N, T, d,
+                                 static_cast<cudaStream_t>(stream));
 }

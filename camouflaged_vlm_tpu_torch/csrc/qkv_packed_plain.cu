@@ -27,7 +27,7 @@
 extern "C" int cvlm_qkv_packed_plain(const void* qkv, void* out, int B, int S,
                                      int heads, int d, float scale, void* stream) {
   using namespace cvlm;
-  const RowsBias none{nullptr, nullptr, nullptr, nullptr, 0, 1};
+  const RowsBias none{nullptr, 0, 0, nullptr, nullptr, nullptr, 0, 1};
   return dispatch_attn_rows<ROWS_PLAIN>(qkv, out, B, S, heads, d, scale, none,
                                         static_cast<cudaStream_t>(stream));
 }

@@ -4,20 +4,26 @@ Counterpart of `camouflaged_vlm_tpu/models/sam_encoder.py`, with its four
 attention implementations:
 
   'flash'      the JAX package's default and production path. With
-               num_heads % 8 == 0 and the rel-pos bias it is fused:
-               windowed blocks run in the compact (pad-free) carry
-               (`ops/compact_window.py`): LN1+qkv (`ln_linear_act_bt`), the
-               interior-window and edge-window attention kernels, the
-               out-projection with the residual (`proj_rows`) and
-               LN2+MLP+residual (`ln_mlp_residual_bt`). Global blocks run
-               LN1+mask+qkv (`ln_mask_linear_bt`), the global attention
-               kernel, `proj_rows` and `ln_mlp_residual_bt`. The rel-pos
-               bias is never materialised: its rank-2 factors are built
-               with einsums and the kernels add them by indexing. The fused
-               windows need a window of at most 14 (TPU site #12 is not
-               ported). Otherwise (SAM ViT-B's 12 heads, the 4-head tiny
-               config) it is unfused: plain LN, qkv and MLP, windowed blocks
-               in the padded window carry, and every block's attention is
+               num_heads % 8 == 0 and the rel-pos bias it is fused. With a
+               window of at most 14, windowed blocks run in the compact
+               (pad-free) carry (`ops/compact_window.py`): LN1+qkv
+               (`ln_linear_act_bt`), the interior-window and edge-window
+               attention kernels, the out-projection with the residual
+               (`proj_rows`) and LN2+MLP+residual (`ln_mlp_residual_bt`).
+               Every other fused block (the padded window carry of a larger
+               window, and the global blocks) runs LN1+mask+qkv
+               (`ln_mask_linear_bt`), then JAX's branches
+               (`Attention.fused_route`): padded windows or a global block
+               of <= 512 tokens with H+W <= 32 take the padded windows
+               kernel (#12) and `proj_rows`, with H+W > 32 the head-leading
+               kernel (#11) and `proj_from_heads_res` (#8); larger global
+               blocks the global kernel (#17) and `proj_rows`; then
+               `ln_mlp_residual_bt`. The rel-pos bias is never
+               materialised: its rank-2 factors are built with einsums and
+               the kernels add them by indexing. Otherwise (SAM ViT-B's
+               12 heads, the 4-head tiny config) it is unfused: plain LN,
+               qkv and MLP, windowed blocks in the padded window carry,
+               and every block's attention is
                `flash_attention_relpos` (TPU kernel #10) over split q, k, v
                with the rel factors [rel_h | rel_w] of the unscaled q.
   'aug_flash'  the bias as augmented features (`ops/aug_attention.py`):
@@ -58,7 +64,9 @@ from ..ops.flash_attention import (
     flash_attention_relpos,
     flash_qkv_packed_edge,
     flash_qkv_packed_global,
+    flash_qkv_packed_windows,
     flash_qkv_packed_windows_s,
+    flash_qkv_relpos_windows,
     make_rel_scatter,
     make_rel_scatter32,
 )
@@ -68,6 +76,7 @@ from ..ops.linear import (
     ln_linear_act_bt,
     ln_mask_linear_bt,
     ln_mlp_residual_bt,
+    proj_from_heads_res,
     proj_rows,
 )
 from ..ops.norms import LayerNormFP32
@@ -132,19 +141,10 @@ AUG_PAD = 16
 
 
 def check_attn_impl(cfg: "SamEncoderConfig") -> None:
-    """Raise on an unknown implementation and on every configuration whose
-    JAX path runs a TPU kernel the port does not have yet (ROADMAP.md,
-    Queue 2)."""
+    """Raise on an unknown implementation. Every implementation takes any
+    window and grid the JAX package takes."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={cfg.attn_impl!r}: expected one of {ATTN_IMPLS}")
-    if not fused_attention_enabled(cfg.attn_impl, cfg.use_rel_pos, cfg.num_heads):
-        return  # unfused 'flash', the aug_* paths and 'reference' take any window
-    if cfg.window_size > 0 and not CompactGeometry(cfg.grid, cfg.grid, cfg.window_size).supported():
-        raise NotImplementedError(
-            f"attn_impl='flash' with window_size={cfg.window_size} > 14: the JAX package "
-            "runs the padded window carry there, TPU site #12 flash_qkv_packed_windows, "
-            "not ported yet (ROADMAP.md Queue 2); use attn_impl='reference'"
-        )
 
 
 def make_rcomb(H, W, rel_pos_h, rel_pos_w, dt, lanes=REL_LANES):
@@ -179,9 +179,23 @@ def rel_smajor_windows(qkv_flat, rel_pos_h, rel_pos_w, win, heads, hd, rcomb=Non
     return rel_s.contiguous(), make_rel_scatter32(win, qkv_flat.dtype, qkv_flat.device)
 
 
+def rel_packed32(q_heads, rel_pos_h, rel_pos_w, H, W, rcomb=None):
+    """Window-major packed rel of the fused padded windows and the global
+    blocks of <= 512 tokens with H+W <= 32 (#12). q_heads (..., H, W, heads,
+    hd) UNSCALED -> (rel (..., H, W, heads, 32) = [rel_h | rel_w | 0] per
+    head, sel32 (32, H*W)). One einsum against the combined (H, W, hd, 32)
+    table, `rcomb` when cached."""
+    dt = q_heads.dtype
+    if rcomb is None:
+        rcomb = make_rcomb(H, W, rel_pos_h, rel_pos_w, dt)
+    rel = torch.einsum("...hwnc,hwcj->...hwnj", q_heads, rcomb.to(dt))
+    sel = make_rel_scatter(H, W, dt, q_heads.device)
+    return rel.contiguous(), torch.cat([sel, sel.new_zeros(REL_LANES - H - W, H * W)])
+
+
 def global_rel_tables(H, W, rel_pos_h, rel_pos_w, dt):
     """(Rh (H, H, hd), Rw (W, W, hd)) in `dt`: the rel tables of the fused
-    global blocks and of every unfused 'flash' block."""
+    blocks that take #11 or #17 and of every unfused 'flash' block."""
     return (get_rel_pos_table(H, H, rel_pos_h).to(dt),
             get_rel_pos_table(W, W, rel_pos_w).to(dt))
 
@@ -245,16 +259,18 @@ class Attention(nn.Module):
     """Multi-head attention with the decomposed rel-pos bias, on (B', S, C)
     sequences with S == H*W of `input_size` (one window for the windowed
     blocks, the grid for the global ones). `forward` is every unfused path
-    ('reference', unfused 'flash', 'aug_*'); `forward_compact` and
-    `forward_global` are the fused 'flash' path."""
+    ('reference', unfused 'flash', 'aug_*'); `forward_compact` (the compact
+    carry) and `forward_fused` (the padded carry's windows, B' = B *
+    `num_windows`, and the global blocks) are the fused 'flash' path."""
 
     def __init__(self, dim: int, num_heads: int, use_rel_pos: bool,
-                 input_size: Tuple[int, int], dtype: torch.dtype, windowed: bool,
-                 attn_impl: str):
+                 input_size: Tuple[int, int], dtype: torch.dtype, attn_impl: str,
+                 num_windows: int = 1, compact: bool = False):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
-        self.input_size, self.dtype, self.windowed = input_size, dtype, windowed
+        self.input_size, self.dtype = input_size, dtype
         self.attn_impl = attn_impl
+        self.num_windows, self.compact = num_windows, compact
         self.fused = fused_attention_enabled(attn_impl, use_rel_pos, num_heads)
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
@@ -272,12 +288,28 @@ class Attention(nn.Module):
         their bias from the rel-pos parameters in the forward."""
         return self.attn_impl == "flash" and self.use_rel_pos
 
+    @property
+    def fused_route(self) -> Optional[str]:
+        """The fused 'flash' block's attention, by the JAX package's
+        conditions (`Attention.__call__`): 'compact' (#13 and #15 on the
+        compact carry); 'packed' (#12: padded windows, or a global block of
+        <= 512 tokens, with H+W <= 32); 'relpos' (#11 and #8: the same with
+        H+W > 32); 'global' (#17). None off the fused path."""
+        if not self.fused:
+            return None
+        if self.compact:
+            return "compact"
+        H, W = self.input_size
+        if self.num_windows > 1 or H * W <= 512:
+            return "packed" if H + W <= REL_LANES else "relpos"
+        return "global"
+
     def build_rel_tables(self):
         """The 'flash' path's param-derived rel tables in the compute type:
-        Rcomb (win, win, hd, 32) for a fused windowed block, (Rh, Rw) for a
-        fused global block and for every unfused one."""
+        Rcomb (H, W, hd, 32) for a fused block on the 'compact' or 'packed'
+        route, (Rh, Rw) for the other fused blocks and every unfused one."""
         H, W = self.input_size
-        if self.windowed and self.fused:
+        if self.fused_route in ("compact", "packed"):
             return make_rcomb(H, W, self.rel_pos_h, self.rel_pos_w, self.dtype)
         return global_rel_tables(H, W, self.rel_pos_h, self.rel_pos_w, self.dtype)
 
@@ -339,23 +371,44 @@ class Attention(nn.Module):
         out = out.transpose(1, 2).reshape(B, N, self.dim)
         return dense(out, self.proj, self.dtype)
 
-    def forward_global(self, x: torch.Tensor, norm1: LayerNormFP32) -> torch.Tensor:
-        """'flash' global block: x (B, H*W, C) is the block's raw input;
-        returns x + proj(attention(LN1(x))). LN1 rides the qkv kernel's
-        prologue (all-ones row mask), the residual the projection's epilogue."""
-        B, N, C = x.shape
+    def forward_fused(self, x: torch.Tensor, norm1: LayerNormFP32,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """'flash' block off the compact carry: x (B * nwin, H*W, C) is the
+        block's raw input, the padded window carry with its valid `mask`
+        (nwin, H*W, 1) or a global block (nwin 1, no mask); returns
+        x + proj(attention(LN1(x) * mask)) by `fused_route`. LN1 and the mask
+        ride the qkv kernel's prologue, the residual the projection's
+        epilogue."""
+        Bp, N, C = x.shape
         H, W = self.input_size
-        heads = self.num_heads
+        heads, nwin = self.num_heads, self.num_windows
         hd = C // heads
+        scale = hd ** -0.5
+        B = Bp // nwin
         wq, bq, wp, bp = self._weights()
-        qkv = ln_mask_linear_bt(x, norm1.weight, norm1.bias, x.new_ones(1, N, 1), wq, bq,
-                                eps=norm1.eps)
-        rel_s, sel = rel_smajor_global(qkv[:, :, :C].reshape(B, H, W, heads, hd),
-                                       self.rel_pos_h, self.rel_pos_w, H, W,
-                                       tables=self.rel_tables())
-        out = flash_qkv_packed_global(qkv, rel_s, sel, hd ** -0.5, heads, hd, H, W)
-        y = proj_rows(out.reshape(B, 1, C, N), wp, bp, x.reshape(B, 1, N, C))
-        return y.reshape(B, N, C)
+        m = mask.to(x.dtype) if mask is not None else x.new_ones(1, N, 1)
+        qkv = ln_mask_linear_bt(x, norm1.weight, norm1.bias, m, wq, bq, eps=norm1.eps)
+        qh = qkv[:, :, :C].reshape(Bp, H, W, heads, hd)  # unscaled q
+        tables, res = self.rel_tables(), x.reshape(B, nwin, N, C)
+        route = self.fused_route
+        if route == "packed":
+            rel, sel32 = rel_packed32(qh, self.rel_pos_h, self.rel_pos_w, H, W, rcomb=tables)
+            out = flash_qkv_packed_windows(qkv.reshape(B, nwin, N, 3 * C),
+                                           rel.reshape(B, nwin, N, heads * REL_LANES), sel32,
+                                           scale, heads, hd)  # (B, nwin, C, N)
+            y = proj_rows(out, wp, bp, res)
+        elif route == "relpos":
+            rel, sel = rel_and_scatter(qh, self.rel_pos_h, self.rel_pos_w, H, W, tables=tables)
+            out = flash_qkv_relpos_windows(qkv.reshape(B, nwin, N, 3 * heads, hd),
+                                           rel.reshape(B, nwin, N, heads, H + W), sel, scale,
+                                           H, W)  # (B, heads, nwin, N, hd)
+            y = proj_from_heads_res(out, wp, bp, res)
+        else:
+            rel_s, sel = rel_smajor_global(qh, self.rel_pos_h, self.rel_pos_w, H, W,
+                                           tables=tables)
+            out = flash_qkv_packed_global(qkv, rel_s, sel, scale, heads, hd, H, W)
+            y = proj_rows(out.reshape(B, 1, C, N), wp, bp, res)
+        return y.reshape(Bp, N, C)
 
     def forward_compact(self, xf: torch.Tensor, xe: Optional[torch.Tensor],
                         norm1: LayerNormFP32, geom: CompactGeometry):
@@ -412,18 +465,20 @@ class MLPBlock(nn.Module):
 class Block(nn.Module):
     """Pre-norm ViT block on (B', S, C).
 
-    Unfused paths: windowed blocks run in the padded window carry (B' = B *
-    nWin, S = window^2) and get `mask`, which re-zeroes the pad tokens after
-    LN1 (the reference zero-pads after LN1, so a pad key or value equals the
-    qkv bias). Fused 'flash': windowed blocks take the compact carry (x_full,
-    x_edge) with its `geom`; global blocks take (B, H*W, C); LN1 and LN2 ride
-    the kernels' prologues and both residuals their epilogues."""
+    Windowed blocks off the compact carry run in the padded window carry
+    (B' = B * nWin, S = window^2) and get `mask`, which re-zeroes the pad
+    tokens after LN1 (the reference zero-pads after LN1, so a pad key or
+    value equals the qkv bias). Fused 'flash': windowed blocks with a window
+    of at most 14 take the compact carry (x_full, x_edge) with its `geom`;
+    global blocks take (B, H*W, C); LN1 (and the mask) and LN2 ride the
+    kernels' prologues and both residuals their epilogues."""
 
-    def __init__(self, cfg: SamEncoderConfig, attn_size: Tuple[int, int], windowed: bool):
+    def __init__(self, cfg: SamEncoderConfig, attn_size: Tuple[int, int],
+                 num_windows: int = 1, compact: bool = False):
         super().__init__()
         self.norm1 = LayerNormFP32(cfg.embed_dim, eps=1e-6)
         self.attn = Attention(cfg.embed_dim, cfg.num_heads, cfg.use_rel_pos,
-                              attn_size, cfg.dtype, windowed, cfg.attn_impl)
+                              attn_size, cfg.dtype, cfg.attn_impl, num_windows, compact)
         self.norm2 = LayerNormFP32(cfg.embed_dim, eps=1e-6)
         self.mlp = MLPBlock(cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio),
                             cfg.dtype, cfg.gelu_approximate)
@@ -443,8 +498,8 @@ class Block(nn.Module):
         if geom is not None:  # 'flash' windowed block, compact carry
             xf, xe = self.attn.forward_compact(x[0], x[1], self.norm1, geom)
             return self._fused_mlp(xf), (self._fused_mlp(xe) if xe is not None else None)
-        if self.attn.fused:  # 'flash' global block
-            return self._fused_mlp(self.attn.forward_global(x, self.norm1))
+        if self.attn.fused:  # 'flash' padded windows or global block
+            return self._fused_mlp(self.attn.forward_fused(x, self.norm1, mask))
         shortcut = x
         x = self.norm1(x)
         if mask is not None:  # (nwin, S, 1), broadcast over B' = B * nwin
@@ -502,11 +557,17 @@ class ImageEncoderViT(nn.Module):
         self.cfg = cfg
         self.fused = fused_attention_enabled(cfg.attn_impl, cfg.use_rel_pos, cfg.num_heads)
         g, win = cfg.grid, cfg.window_size
+        # fused windowed blocks take the compact carry where its layout holds
+        # the window (<= 14), else the padded carry of nwin windows per image
+        self.compact = (self.fused and win > 0
+                        and CompactGeometry(g, g, win).supported())
+        nwin = (-(-g // win)) ** 2 if win > 0 else 1
         self.patch_embed = PatchEmbedMatmul(cfg.in_chans, cfg.embed_dim,
                                             cfg.patch_size, cfg.dtype)
         self.pos_embed = nn.Parameter(torch.zeros(1, g, g, cfg.embed_dim))
         self.blocks = nn.ModuleList(
-            Block(cfg, (win, win) if self._windowed(i) else (g, g), self._windowed(i))
+            Block(cfg, (win, win), nwin, self.compact) if self._windowed(i)
+            else Block(cfg, (g, g))
             for i in range(cfg.depth)
         )
         self.neck = nn.ModuleList([
@@ -532,19 +593,17 @@ class ImageEncoderViT(nn.Module):
         win = cfg.window_size
         geom = None
         if any(self._windowed(i) for i in range(cfg.depth)):
-            if self.fused:
+            if self.compact:
                 # compact carry: prompt features partitioned once, edge
                 # dummy rows carried and dropped at unpartition
                 geom = CompactGeometry(H, W, win)
-                if not geom.supported():
-                    raise NotImplementedError(f"compact window layout unsupported: {geom}")
                 pf_f, pf_e = compact_partition(prompt_features, geom)
             else:
                 valid = window_valid_mask(H, W, win, device=x.device)
                 pf_w, _ = window_partition_seq(prompt_features, win)
 
         interm = []
-        x_w = None  # padded window carry (reference)
+        x_w = None  # padded window carry
         xc = None   # compact carry (x_full, x_edge) ('flash')
         for i, blk in enumerate(self.blocks):
             if self._windowed(i) and geom is not None:
@@ -582,11 +641,13 @@ class ImageEncoderViT(nn.Module):
 @torch.no_grad()
 def precompute_rel_tables(encoder: ImageEncoderViT) -> dict:
     """{block index: its 'flash' rel tables} for every block that reads them
-    (`Attention.uses_rel_tables`): Rcomb (win, win, hd, 32) per fused
-    windowed block (~1 MB at ViT-H in bf16), (Rh, Rw) per fused global block
-    and per unfused 'flash' block. The other paths build their bias in the
-    forward and get no cache. Counterpart of the JAX `precompute_rel_tables`,
-    which caches the TPU einsum's block-diagonal kron(I_8, Rcomb) tables
-    instead (~5.2 GB at ViT-H in bf16)."""
+    (`Attention.uses_rel_tables`): Rcomb (H, W, hd, 32) per fused block on
+    the 'compact' or 'packed' route (~1 MB at ViT-H in bf16), (Rh, Rw) per
+    other fused block and per unfused 'flash' block. The other paths build
+    their bias in the forward and get no cache. Counterpart of the JAX
+    `precompute_rel_tables`, which caches the TPU einsum's block-diagonal
+    kron(I_8, Rcomb) tables instead (~5.2 GB at ViT-H in bf16) and fails on
+    a window of 17 or more (its `make_rcomb` asserts H+W <= 32); the port
+    caches every geometry it runs."""
     return {i: blk.attn.build_rel_tables() for i, blk in enumerate(encoder.blocks)
             if blk.attn.uses_rel_tables}

@@ -143,9 +143,13 @@ PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, I, I
 QKV_PACKED_PLAIN = CudaKernel(
     "flash_qkv_packed_plain", "cvlm_qkv_packed_plain", [P, P, I, I, I, I, F]
 )
-QKV_WINDOWS = CudaKernel(
-    "flash_qkv_packed_windows_s", "cvlm_qkv_packed_windows", [P, P, P, I, I, I, I, F]
-)
+# the windows' attention of the compact carry (#13, rel position-major) and
+# of the padded carry (#12, rel window-major): one entry point
+_QKV_WINDOWS_ARGS = [P, P, P, I, I, I, I, F, I]
+QKV_WINDOWS = CudaKernel("flash_qkv_packed_windows_s", "cvlm_qkv_packed_windows",
+                         _QKV_WINDOWS_ARGS)
+QKV_WINDOWS_PADDED = CudaKernel("flash_qkv_packed_windows", "cvlm_qkv_packed_windows",
+                                _QKV_WINDOWS_ARGS)
 QKV_EDGE = CudaKernel(
     "flash_qkv_packed_edge", "cvlm_qkv_packed_edge", [P, P, P, P, P, P, I, I, I, I, I, F]
 )
@@ -167,9 +171,22 @@ QKV_GLOBAL_BWD = CudaKernel("flash_qkv_packed_global_bwd", "cvlm_attn_bwd", _ATT
 ATTN_RELPOS = CudaKernel("flash_attention_relpos", "cvlm_attn_relpos",
                          [P, P, P, P, P, I, I, I, I, I, I])
 ATTN_FULLK = CudaKernel("flash_attention_fullk", "cvlm_attn_fullk", [P, P, P, P, I, I, I, I])
+# The same two-pass kernel read in place from the packed qkv, written
+# head-leading (csrc/qkv_relpos.cu): fused 'flash' windows with H+W > 32
+# (#11) and its one-window form (#19); and the out-projection of that
+# head-leading output (csrc/proj_rows.cu) with (#8) and without (#9) the
+# residual. Each has its own count.
+_QKV_RELPOS_ARGS = [P, P, P, I, I, I, I, I, I, F]
+QKV_RELPOS_WINDOWS = CudaKernel("flash_qkv_relpos_windows", "cvlm_qkv_relpos",
+                                _QKV_RELPOS_ARGS)
+QKV_RELPOS_GLOBAL = CudaKernel("flash_qkv_relpos_global", "cvlm_qkv_relpos", _QKV_RELPOS_ARGS)
+_PROJ_HEADS_ARGS = [P, P, P, P, P, I, I, I, I, I, I]
+PROJ_HEADS_RES = CudaKernel("proj_from_heads_res", "cvlm_proj_from_heads", _PROJ_HEADS_ARGS)
+PROJ_HEADS = CudaKernel("proj_from_heads", "cvlm_proj_from_heads", _PROJ_HEADS_ARGS)
 KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MASK_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS,
            QKV_PACKED_PLAIN, QKV_WINDOWS, QKV_EDGE, QKV_GLOBAL,
-           LN_MLP_RESIDUAL_BWD, QKV_WINDOWS_BWD, QKV_GLOBAL_BWD, ATTN_RELPOS, ATTN_FULLK)
+           LN_MLP_RESIDUAL_BWD, QKV_WINDOWS_BWD, QKV_GLOBAL_BWD, ATTN_RELPOS, ATTN_FULLK,
+           QKV_WINDOWS_PADDED, QKV_RELPOS_WINDOWS, QKV_RELPOS_GLOBAL, PROJ_HEADS_RES, PROJ_HEADS)
 
 
 def reset_launches() -> None:

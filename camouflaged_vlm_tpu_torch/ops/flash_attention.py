@@ -5,16 +5,24 @@ Counterparts of `camouflaged_vlm_tpu/ops/flash_attention.py`:
   flash_qkv_packed_plain      (TPU kernel #16)  CLIP vision attention
   flash_qkv_packed_windows_s  (#13)  SAM interior windows, rel-pos bias
   flash_qkv_packed_edge       (#15)  SAM edge windows, plus the virtual pad key
+  flash_qkv_packed_windows    (#12)  SAM padded windows (and global blocks of
+                                     <= 256 tokens), rel window-major
   flash_qkv_packed_global     (#17)  SAM global blocks, separable rel-pos bias
+  flash_qkv_relpos_windows    (#11)  SAM padded windows with H+W > 32 (and
+                                     global blocks of <= 512 tokens)
+  flash_qkv_relpos_global     (#19)  #11 over one window (no caller, as in JAX)
   flash_attention_relpos      (#10)  SAM's unfused 'flash' blocks: split q, k, v
   flash_attention_fullk       (#20)  SAM's 'aug_flash' global blocks
 
 The packed kernels read q, k and v as slices of the raw packed qkv
 projection ([q heads | k heads | v heads] on the last axis) and write the
-d-major (..., heads*d, S) layout `proj_rows` reads; #10 and #20 take split,
-pre-scaled q and k and write (BB, N, dv) rows. The layouts at these functions are the JAX
-package's (position-major rel for the windows and the global blocks, rel
-lane 28 carrying the edge windows' pad-key logit), so the tests compare like
+d-major (..., heads*d, S) layout `proj_rows` reads, except #11 and #19,
+which write the head-leading (B, heads, nwin, N, d) layout
+`proj_from_heads_res` reads; #10 and #20 take split, pre-scaled q and k and
+write (BB, N, dv) rows. The layouts at these functions are the JAX
+package's (position-major rel for the compact windows and the global
+blocks, window-major for the padded windows, rel lane 28 carrying the edge
+windows' pad-key logit), so the tests compare like
 with like. For CPU tensors each runs its plain version, the JAX `ref`
 formulation: q*scale rounded to the working type, the bias rel @ sel added
 to the fp32 scores, max-subtracted fp32 softmax, probabilities rounded to
@@ -23,8 +31,9 @@ tensors each launches its kernel (`csrc/`) or raises.
 
 Gradients: the windows (#14) and global (#18) attention have hand-written
 backward kernels (`csrc/attn_bwd.cu`) and plain backwards (`*_bwd_ref`)
-for the CPU; the plain, edge, #10 and #20 attention take the VJP of their
-plain version (`ops/autograd.py`), as the JAX package's do.
+for the CPU; the plain, edge, #10, #11, #12, #19 and #20 attention take
+the VJP of their plain version (`ops/autograd.py`), as the JAX package's
+do.
 """
 
 from __future__ import annotations
@@ -163,19 +172,62 @@ def _windows_cuda(qkv, rel_s, sel32, scale, heads, d):
     BW, Nw, _ = qkv.shape
     out = torch.empty((BW, heads * d, Nw), dtype=qkv.dtype, device=qkv.device)
     _cuda.QKV_WINDOWS(qkv.data_ptr(), rel_s.data_ptr(), out.data_ptr(), BW, win, heads, d,
-                      float(scale))
+                      float(scale), 0)
     return out
 
 
-def _check_windows(name, qkv, rel_s, sel32, heads, d) -> int:
-    _cuda.check_dtype(name, torch.bfloat16, qkv, rel_s)
-    BW, Nw, C3 = qkv.shape
+def _check_windows(name, qkv, rel, sel32, heads, d, window_major=False) -> int:
+    """qkv (..., Nw, 3*heads*d); rel (..., Nw, heads*32) window-major, else
+    (Nw, BW, heads*32) position-major with BW the product of qkv's leading
+    dims. Returns the window side."""
+    _cuda.check_dtype(name, torch.bfloat16, qkv, rel)
+    *lead, Nw, C3 = qkv.shape
     win = math.isqrt(Nw)
+    lanes = heads * REL_LANES
+    want = (*lead, Nw, lanes) if window_major else (Nw, math.prod(lead), lanes)
     if (C3 != 3 * heads * d or win * win != Nw or 2 * win > REL_LANES
-            or rel_s.shape != (Nw, BW, heads * REL_LANES) or sel32.shape != (REL_LANES, Nw)):
-        raise ValueError(f"{name}: qkv {qkv.shape} rel_s {rel_s.shape} sel32 {sel32.shape}")
+            or rel.shape != want or sel32.shape != (REL_LANES, Nw)):
+        raise ValueError(f"{name}: qkv {qkv.shape} rel {rel.shape} sel32 {sel32.shape}")
     _check_head_dim(name, Nw, d, bias=True)
     return win
+
+
+# ------------------------------------------------------ padded windows (#12)
+
+
+def flash_qkv_packed_windows_ref(qkv, rel, sel32, scale, heads, d):
+    B, nwin, Nw, _ = qkv.shape
+    q, k, v = _split_heads(qkv, scale, heads, d)  # (B, nwin, heads, Nw, d)
+    relh = rel.reshape(B, nwin, Nw, heads, REL_LANES).transpose(2, 3)
+    o = xla_attention_relpos(q, k, v, relh, sel32)
+    return o.transpose(-1, -2).reshape(B, nwin, heads * d, Nw)
+
+
+def flash_qkv_packed_windows(
+    qkv: torch.Tensor,    # (B, nwin, Nw, 3*heads*d), Nw = win*win
+    rel: torch.Tensor,    # (B, nwin, Nw, heads*32) window-major [rel_h | rel_w | 0]
+    sel32: torch.Tensor,  # (32, Nw) make_rel_scatter(win, win) + zero rows
+    scale: float,
+    heads: int,
+    d: int,
+) -> torch.Tensor:
+    """#13's function with the rel window-major: the fused 'flash' padded
+    window carry (windows of 15 or 16) and the global blocks of at most 256
+    tokens -> d-major (B, nwin, heads*d, Nw). Pad tokens are ordinary keys.
+    The kernel (`csrc/qkv_packed_windows.cu`) builds the bias by indexing
+    and does not read sel32. Gradients: the VJP of the plain version."""
+    return autograd.run("flash_qkv_packed_windows", _padded_windows_cuda,
+                        flash_qkv_packed_windows_ref, (qkv, rel, sel32), (scale, heads, d))
+
+
+def _padded_windows_cuda(qkv, rel, sel32, scale, heads, d):
+    win = _check_windows("flash_qkv_packed_windows", qkv, rel, sel32, heads, d,
+                         window_major=True)
+    B, nwin, Nw, _ = qkv.shape
+    out = torch.empty((B, nwin, heads * d, Nw), dtype=qkv.dtype, device=qkv.device)
+    _cuda.QKV_WINDOWS_PADDED(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B * nwin, win,
+                             heads, d, float(scale), 1)
+    return out
 
 
 def attention_bwd_ref(q, k, v, relh, sel, g, scale):
@@ -488,3 +540,87 @@ def _fullk_cuda(q_aug, k_aug, v):
     _cuda.ATTN_FULLK(q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(), out.data_ptr(), BB, N,
                      d, dv)
     return out
+
+
+# ------------------------------------ packed qkv, head-leading out (#11, #19)
+
+
+def flash_qkv_relpos_windows_ref(qkv, rel, sel, scale):
+    heads = qkv.shape[-2] // 3
+    q, k, v = (qkv[..., i * heads : (i + 1) * heads, :].movedim(-2, 1) for i in range(3))
+    return xla_attention_relpos(scaled(q, scale), k, v, rel.movedim(-2, 1), sel)
+
+
+def flash_qkv_relpos_windows(
+    qkv: torch.Tensor,  # (B, nwin, Nw, 3*heads, d): a view of the packed qkv rows
+    rel: torch.Tensor,  # (B, nwin, Nw, heads, H+W) [rel_h | rel_w] per query
+    sel: torch.Tensor,  # (H+W, Nw) make_rel_scatter(H, W); read by the plain version only
+    scale: float,
+    H: int,
+    W: int,
+) -> torch.Tensor:
+    """Windowed attention with the decomposed rel-pos bias for H+W beyond
+    the 32 packed lanes: the fused 'flash' padded carry at a window of 17 or
+    more, and the global blocks of at most 512 tokens with H+W > 32 ->
+    head-leading (B, heads, nwin, Nw, d), what `proj_from_heads_res` reads.
+    The kernel (`csrc/qkv_relpos.cu`) reads q, k and v in place and adds
+    the bias by indexing. Gradients: the VJP of the plain version."""
+    return autograd.run("flash_qkv_relpos_windows", _relpos_windows_cuda,
+                        _relpos_windows_plain, (qkv, rel, sel), (scale, H, W))
+
+
+def _relpos_windows_plain(qkv, rel, sel, scale, H, W):
+    return flash_qkv_relpos_windows_ref(qkv, rel, sel, scale)
+
+
+def _relpos_packed_launch(kernel, qkv, rel, sel, scale, H, W):
+    """qkv (B, nwin, N, 3*heads, d), rel (B, nwin, N, heads, H+W) ->
+    (B, heads, nwin, N, d) through `cvlm_qkv_relpos`."""
+    _cuda.check_dtype(kernel.name, torch.bfloat16, qkv, rel)
+    B, nwin, N, h3, d = qkv.shape
+    heads = h3 // 3
+    if (h3 != 3 * heads or H * W != N or rel.shape != (B, nwin, N, heads, H + W)
+            or sel.shape != (H + W, N)):
+        raise ValueError(f"{kernel.name}: qkv {qkv.shape} rel {rel.shape} H={H} W={W}")
+    if d not in _SPLIT_DV or B * nwin * heads > 65535:
+        raise ValueError(f"{kernel.name}: CUDA kernel takes d in {_SPLIT_DV} and at most "
+                         f"65535 (batch, window, head) problems (got d={d}, "
+                         f"{B * nwin * heads})")
+    out = torch.empty((B, heads, nwin, N, d), dtype=qkv.dtype, device=qkv.device)
+    kernel(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B, nwin, H, W, heads, d,
+           float(scale))
+    return out
+
+
+def _relpos_windows_cuda(qkv, rel, sel, scale, H, W):
+    return _relpos_packed_launch(_cuda.QKV_RELPOS_WINDOWS, qkv, rel, sel, scale, H, W)
+
+
+def flash_qkv_relpos_global_ref(qkv, rel, sel, scale):
+    return flash_qkv_relpos_windows_ref(qkv[:, None], rel[:, None], sel, scale)[:, :, 0]
+
+
+def flash_qkv_relpos_global(
+    qkv: torch.Tensor,  # (B, N, 3*heads, d): a view of the packed qkv rows
+    rel: torch.Tensor,  # (B, N, heads, H+W)
+    sel: torch.Tensor,  # (H+W, N) make_rel_scatter(H, W); read by the plain version only
+    scale: float,
+    H: int,
+    W: int,
+) -> torch.Tensor:
+    """`flash_qkv_relpos_windows` over one window of N = H*W tokens ->
+    (B, heads, N, d). The JAX package calls it from no path (an ablation
+    kernel); so does the port. The kernel is #11's, with its own launch
+    count. Gradients: the VJP of the plain version."""
+    return autograd.run("flash_qkv_relpos_global", _relpos_global_cuda, _relpos_global_plain,
+                        (qkv, rel, sel), (scale, H, W))
+
+
+def _relpos_global_plain(qkv, rel, sel, scale, H, W):
+    return flash_qkv_relpos_global_ref(qkv, rel, sel, scale)
+
+
+def _relpos_global_cuda(qkv, rel, sel, scale, H, W):
+    out = _relpos_packed_launch(_cuda.QKV_RELPOS_GLOBAL, qkv[:, None], rel[:, None], sel,
+                                scale, H, W)
+    return out[:, :, 0]

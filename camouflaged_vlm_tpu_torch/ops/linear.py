@@ -4,7 +4,8 @@ Counterparts of `camouflaged_vlm_tpu/ops/linear.py`. Each public function
 runs its CUDA kernel (`csrc/`) for CUDA tensors and its plain PyTorch
 version for CPU tensors; on CUDA it launches the kernel or raises, never
 falls back. When a gradient is wanted, `linear_act`, `ln_linear_act_bt`,
-`ln_mask_linear_bt` and `proj_rows` take the VJP of their plain version
+`ln_mask_linear_bt`, `proj_rows` and `proj_from_heads(_res)` take the VJP of
+their plain version
 (`ops/autograd.py`), as their JAX counterparts take `pallas_with_xla_vjp`;
 `ln_mlp_residual_bt` has a hand-written backward, a kernel on the card
 (`csrc/ln_mlp_residual_bwd.cu`) and `ln_mlp_residual_bt_bwd_ref` on the
@@ -14,7 +15,8 @@ fp32 accumulation, bias and activation in fp32 on the accumulator, one
 rounding at the end.
 
 Layouts: activations as in the JAX package ((M, K) rows, (B, S, K)
-sequences, the d-major (B, T, K, S) attention output); weights in the
+sequences, the d-major (B, T, K, S) and head-leading (B, heads, T, S, d)
+attention outputs); weights in the
 `nn.Linear` layout (out, in), biases (out,), LN scale/shift (K,) fp32.
 """
 
@@ -376,3 +378,56 @@ def _proj_rows_cuda(x, w, b, res):
         B * T, S, K, N,
     )
     return out
+
+
+# ---------------------------------------------------------- proj_from_heads
+
+
+def proj_from_heads_ref(x, w, b, res=None):
+    B, heads, T, S, d = x.shape
+    rows = x.permute(0, 2, 3, 1, 4).reshape(B, T, S, heads * d)  # k = h*d + j
+    return proj_rows_ref(rows.transpose(-1, -2), w, b, res)
+
+
+def proj_from_heads_res(
+    x: torch.Tensor,    # (B, heads, T, S, d) — head-leading attention output
+    w: torch.Tensor,    # (N, heads*d)
+    b: torch.Tensor,    # (N,)
+    res: torch.Tensor,  # (B, T, S, N) — the block's residual
+) -> torch.Tensor:
+    """out[b, t, s, :] = sum_h x[b, h, t, s, :] . w[:, h*d:(h+1)*d]^T + b + res
+    -> (B, T, S, N). Counterpart of `proj_from_heads_res` (TPU kernel #8)."""
+    return autograd.run("proj_from_heads_res", _proj_heads_res_cuda, proj_from_heads_ref,
+                        (x, w, b, res))
+
+
+def proj_from_heads(
+    x: torch.Tensor,  # (B, heads, T, S, d)
+    w: torch.Tensor,  # (N, heads*d)
+    b: torch.Tensor,  # (N,)
+) -> torch.Tensor:
+    """`proj_from_heads_res` without the residual. Counterpart of
+    `proj_from_heads` (TPU kernel #9), which no path of either package
+    calls; the kernel is #8's, with its own launch count."""
+    return autograd.run("proj_from_heads", _proj_heads_cuda, proj_from_heads_ref, (x, w, b))
+
+
+def _proj_heads_launch(kernel, x, w, b, res):
+    _cuda.check_dtype(kernel.name, torch.bfloat16, x, w, b, *([res] if res is not None else []))
+    B, heads, T, S, d = x.shape
+    N = w.shape[0]
+    if (w.shape != (N, heads * d) or b.shape != (N,) or d % 8
+            or (res is not None and res.shape != (B, T, S, N))):
+        raise ValueError(f"{kernel.name}: shapes x {x.shape} w {w.shape} (d a multiple of 8)")
+    out = torch.empty((B, T, S, N), dtype=x.dtype, device=x.device)
+    kernel(x.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr() if res is not None else None,
+           out.data_ptr(), B, heads, T, S, d, N)
+    return out
+
+
+def _proj_heads_res_cuda(x, w, b, res):
+    return _proj_heads_launch(_cuda.PROJ_HEADS_RES, x, w, b, res)
+
+
+def _proj_heads_cuda(x, w, b):
+    return _proj_heads_launch(_cuda.PROJ_HEADS, x, w, b, None)

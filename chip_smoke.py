@@ -10,17 +10,21 @@ never prints its last line):
   2. build    nvcc builds the port's kernels (csrc/*.cu) for sm_90a
   3. kernels  each kernel against its plain PyTorch version at the main
               path's full-width bf16 shapes, with errors and times (median
-              of CUDA-event timings after a warm-up); then the bounds of the
-              TPU kernels not ported yet at the shapes of the configurations
-              that would reach them
+              of CUDA-event timings after a warm-up), the padded carry's
+              kernels (#12, #11, #8) at ViT-H's windows 16 and 17, and the
+              two that no path reaches (#9, #19) at the shapes they would take
   4. small    a small cascade in bf16 on the card against the same weights
               in fp32 on the CPU (the plain versions, which the CPU tests tie
               to the JAX package); its SAM runs 'flash' with 8 heads on a
-              grid with edge and corner windows
+              grid with edge and corner windows, its global blocks on #12
   5. vit_h    a depth-cut SAM ViT-H encoder at full width (1024 px, 1280
               wide, 16 heads x 80, window 14; one windowed and one global
               block) in bf16 on the card, 'flash' against 'reference' on the
               same weights
+  5b. padded  as vit_h for fused 'flash' off the compact carry: global blocks
+              of <= 512 tokens (256 px: #12; 320 px: #11 + #8) and the padded
+              window carry at 1024 px (windows 15, 16: #12; 17: #11 + #8),
+              with exact launch counts
   6. slice    the full-width cascade (SAM ViT-H at 1024 px on 'flash' with
               the rel cache, the edge decoder, MaPLe Alpha-CLIP ViT-L/14@336,
               the 61 OVCamo test classes) in bf16 from seeded random weights,
@@ -51,7 +55,9 @@ never prints its last line):
  11. eval_slice  the evaluate CLI (`cli/evaluate.main`, --device cuda, bf16,
               batch 2) over a synthetic OVCamo-layout test split of 5 images
               (the last batch short), for the repo's ViT-H yaml, the port's
-              ViT-B yaml and the ViT-H yaml on 'aug_flash': finite results,
+              ViT-B yaml, the ViT-H yaml on 'aug_flash' and at windows 16 and
+              17 (fused 'flash' on the padded carry: #12; #11 + #8), all at
+              full width and depth: finite results,
               exact launch counts, images/s and peak memory per config (a
               smoke figure: 5 images have no steady state; the rate is
               `cli/eval_throughput.py`'s over 300); then
@@ -62,7 +68,10 @@ Every kernel line carries its bound (the larger of its FLOP over the bf16
 tensor-core peak and its bytes over the HBM rate, at this run's shapes) and
 the time of one PyTorch library call computing the same function where
 there is one. Before its last line the script prints one JSON object
-{"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Longer
+{"kernels": [...]} of 19 kernels (one per wrapper; `ln_mlp_residual_bt`
+serves TPU kernels #4 and #5), each with its launches on its path, or, for
+#9 and #19, which no path reaches, in their check with a "path" field
+saying so; the last line is {"ok": true, "device": {...}}. Longer
 logs go to chiprun_out/chip_smoke/.
 """
 
@@ -408,49 +417,95 @@ def phase_kernels():
                                                             activation="quick_gelu"),
                       text_mlp, timed=False)
         results.update(split_attention_kernels(rn))
-        unported_sites(rn)
+        results.update(padded_sites(rn))
     return results
 
 
-def unported_sites(rn):
-    """The TPU kernels not ported yet, at the full-width shapes of the
-    configurations that would reach them (worked out from the JAX package's
-    code; batch 2, SAM ViT-H width, 16 heads x 80): their bound, and the
-    time of SDPA with the bias materialised where one call computes the
-    function. #12: fused 'flash' with window 16 (grid 64: 16 windows of 256
-    tokens, H+W = 32); #11: window 17 (grid padded to 68: 16 windows of 289
-    tokens, H+W = 34 > 32), rel per head; #8 / #9: the out-projection of
-    #11's head-leading output with / without the residual; #19: the global
-    blocks (the function of #17, whose row holds the library time)."""
+# the two kernels no path of either package reaches (the JAX package's own
+# tests call them): their launches are those of their check here
+NO_PATH = {"proj_from_heads": "none: PallasHeadProj is never called without the residual",
+           "flash_qkv_relpos_global": "none: ablation kernel, no caller"}
+
+
+def padded_sites(rn):
+    """TPU kernels #12, #11, #8, #9 and #19 at the full-width shapes of the
+    paths that reach them (batch 2, SAM ViT-H width, 16 heads x 80): #12 at
+    fused 'flash' with window 16 (grid 64: 16 windows of 256 tokens, H+W =
+    32); #11 at window 17 (grid padded to 68: 16 windows of 289 tokens, H+W =
+    34 > 32); #8 / #9 the out-projection of #11's head-leading output with /
+    without the residual; #19 over the 4096-token grid. Library calls: SDPA
+    on views of the packed rows with the bias materialised (built apart)
+    for the attention; none for #8 / #9 (no single call takes the
+    head-leading input with the bias)."""
     import torch
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
 
     F = torch.nn.functional
+    bf, dev = torch.bfloat16, torch.device("cuda")
     B, D, NH, HD = 2, 1280, 16, 80
-    for site, name, nwin, n, hw in (("#12", "flash_qkv_packed_windows", 16, 256, 32),
-                                    ("#11", "flash_qkv_relpos_windows", 16, 289, 34)):
-        BB = B * nwin
-        q, k, v = rn(BB, NH, n, HD), rn(BB, NH, n, HD), rn(BB, NH, n, HD)
-        bias = rn(BB, NH, n, n)
-        rel_bytes = 2 * BB * n * NH * hw
-        b = bound(4.0 * BB * NH * n * n * HD, nbytes(q, k, v, q) + rel_bytes)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-                                                             scale=HD ** -0.5))
-        log(f"[unported] {site} {name} ({BB} windows x {n} tokens, {NH} heads x {HD}, H+W "
-            f"{hw}): bound {b['bound_ms']:.4f} ms ({b['bound_by']}); library (SDPA, bias "
-            f"materialised) {lib:.4f} ms")
-        del q, k, v, bias
-    rows = B * 16 * 289
-    x_bytes = 2 * rows * D
-    for site, name, res in (("#8", "proj_from_heads_res", True), ("#9", "proj_from_heads", False)):
-        b = bound(2.0 * rows * D * D, x_bytes + 2 * D * D + 2 * D + x_bytes * (2 if res else 1))
-        log(f"[unported] {site} {name} (x {B}x{NH}x16x289x{HD} -> {B}x16x289x{D}"
-            f"{', residual' if res else ''}): bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
-            "library none (no single call takes the head-leading input with the bias)")
-    N = 64 * 64
-    b = bound(4.0 * B * NH * N * N * HD, 2 * (B * N * 3 * D + N * B * NH * 128 + B * N * D))
-    log(f"[unported] #19 flash_qkv_relpos_global (qkv {B}x{N}x{3 * D}, rel {N}x{B}x{NH}x128): "
-        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); library as #17's row (the same "
-        "function at the same shape)")
+    scale = HD ** -0.5
+    src = "camouflaged_vlm_tpu_torch/csrc/"
+    out = {}
+    for p in (_cuda.PROJ_HEADS, _cuda.QKV_RELPOS_GLOBAL):
+        p.launches = 0
+
+    def sdpa(q, k, v, bias):
+        q, k, v, bias = (t.flatten(0, -4) for t in (q, k, v, bias))  # 4D, copied here
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
+
+    # #12: qkv (2, 16, 256, 3840), rel window-major (2, 16, 256, 512)
+    nwin, win = 16, 16
+    Nw = win * win
+    qkv, rel = rn(B, nwin, Nw, 3 * D), rn(B, nwin, Nw, NH * 32)
+    sel32 = fa.make_rel_scatter32(win, bf, dev)
+    r = qkv.reshape(B, nwin, Nw, 3, NH, HD)
+    q, k, v = (r[:, :, :, i].transpose(2, 3) for i in range(3))  # (B, nwin, NH, Nw, HD)
+    bias = torch.matmul(rel.reshape(B, nwin, Nw, NH, 32).transpose(2, 3), sel32)
+    out["flash_qkv_packed_windows"] = dict(
+        source=src + "qkv_packed_windows.cu",
+        replaces="camouflaged_vlm_tpu/ops/flash_attention.py:337",
+        **_check_kernel("flash_qkv_packed_windows (ViT-H window 16, 2x16x256x3840)",
+                        lambda *a: fa.flash_qkv_packed_windows(*a, scale, NH, HD),
+                        lambda *a: fa.flash_qkv_packed_windows_ref(*a, scale, NH, HD),
+                        (qkv, rel, sel32), flops=4.0 * B * nwin * NH * Nw * Nw * HD,
+                        reads=(qkv, rel), library=sdpa(q, k, v, bias)))
+    del qkv, rel, q, k, v, bias, r
+    # #11 and #19: the 5D / 4D views of the packed qkv, rel per head
+    for name, site, shape, H in (
+            ("flash_qkv_relpos_windows", ":213", (B, 16), 17),
+            ("flash_qkv_relpos_global", ":1262", (B,), 64)):
+        N = H * H
+        qkv, rel = rn(*shape, N, 3 * NH, HD), rn(*shape, N, NH, 2 * H)
+        sel = fa.make_rel_scatter(H, H, bf, dev)
+        q, k, v = (qkv[..., i * NH : (i + 1) * NH, :].movedim(-2, 1) for i in range(3))
+        bias = torch.matmul(rel.movedim(-2, 1), sel)
+        wrapper, plain = getattr(fa, name), getattr(fa, name + "_ref")
+        label = (f"{name} (ViT-H window 17, 2x16x289x48x80)" if len(shape) == 2
+                 else f"{name} (ViT-H grid 64, 2x4096x48x80)")
+        out[name] = dict(
+            source=src + "qkv_relpos.cu", replaces="camouflaged_vlm_tpu/ops/flash_attention.py"
+            + site,
+            **_check_kernel(label, lambda *a, w=wrapper, H=H: w(*a, scale, H, H),
+                            lambda *a, p=plain: p(*a, scale), (qkv, rel, sel),
+                            flops=4.0 * qkv.shape[:-3].numel() * NH * N * N * HD,
+                            reads=(qkv, rel), library=sdpa(q, k, v, bias)))
+        del qkv, rel, q, k, v, bias
+    # #8 / #9: x (2, 16, 16, 289, 80) head-leading -> (2, 16, 289, 1280)
+    x, w, b = rn(B, NH, 16, 289, HD), rn(D, D, std=0.02), rn(D, std=0.02)
+    res = rn(B, 16, 289, D)
+    for name, site, args in (("proj_from_heads_res", ":756", (x, w, b, res)),
+                             ("proj_from_heads", ":810", (x, w, b))):
+        out[name] = dict(
+            source=src + "proj_rows.cu", replaces="camouflaged_vlm_tpu/ops/linear.py" + site,
+            **_check_kernel(f"{name} (ViT-H window 17, 2x16x16x289x80 -> 1280)",
+                            getattr(lin, name), lin.proj_from_heads_ref, args,
+                            flops=2.0 * B * 16 * 289 * D * D))
+    for name, path in NO_PATH.items():
+        kernel = _cuda.PROJ_HEADS if name == "proj_from_heads" else _cuda.QKV_RELPOS_GLOBAL
+        out[name].update(launches=kernel.launches, path=path)
+    return out
 
 
 def split_attention_kernels(rn):
@@ -515,9 +570,32 @@ def _small_config(dtype):
                                encoder=enc, clip=clip)
 
 
+SAM_ATTENTION = ("ln_mask_linear_bt", "flash_qkv_packed_windows_s", "flash_qkv_packed_edge",
+                 "flash_qkv_packed_windows", "flash_qkv_relpos_windows", "proj_from_heads_res",
+                 "flash_qkv_packed_global")
+
+
+def check_sam_attention(counts, enc, label, backward=False):
+    """The SAM attention kernels (and their backward kernels) of one
+    encoder pass launched exactly as the configuration's path says; the
+    small cascade's global blocks (grid 10: 100 tokens, H+W 20) take #12,
+    whose gradient is its plain version's VJP, so #17 and #18 stay idle."""
+    want = sam_expected(enc)
+    expected = {k: want.get(k, 0) for k in SAM_ATTENTION}
+    names = list(SAM_ATTENTION)
+    if backward:
+        for k in ("flash_qkv_packed_windows_s", "flash_qkv_packed_global"):
+            expected[k + "_bwd"] = want.get(k, 0)
+            names.append(k + "_bwd")
+    got = {k: counts[k] for k in names}
+    log(f"[{label}] SAM attention launches {got} expected {expected}")
+    check(got == expected, f"{label}: SAM attention launches {got} != {expected}")
+
+
 def phase_small():
     import torch
     from camouflaged_vlm_tpu_torch.factory import build_cascade, make_bank_inputs
+    from camouflaged_vlm_tpu_torch.ops import _cuda
 
     cpu_cfg, gpu_cfg = _small_config(torch.float32), _small_config(torch.bfloat16)
     ref = build_cascade(cpu_cfg, "cpu", seed=5)
@@ -532,11 +610,13 @@ def phase_small():
     ]
     names = ["cat", "owl", "bat", "moth", "slug"]
     outs = []
+    _cuda.reset_launches()  # the CPU pass launches nothing
     for m, cfg, dev in ((ref, cpu_cfg, "cpu"), (model, gpu_cfg, "cuda")):
         bank = make_bank_inputs(cfg, names, seed=5, device=dev)
         outs.append(m.infer_cascade(*(torch.from_numpy(a).to(dev) for a in inputs),
                                     bank["prefix"], bank["suffix"], bank["eot_indices"],
                                     bank["bank_features"]))
+    check_sam_attention(_cuda.launch_counts(), gpu_cfg.encoder, "small")
     (p_ref, y_ref, l_ref), (p, y, l) = outs
     p, y, l = p.float().cpu(), y.cpu(), l.float().cpu()
     dp = (p - p_ref).abs().max().item()
@@ -555,36 +635,10 @@ def phase_vit_h():
     same bf16 weights: catches layout faults the small config cannot (R_u
     112, three edge groups, d 80, hw 128)."""
     import torch
-    from camouflaged_vlm_tpu_torch.factory import cast_weights_, init_random_
-    from camouflaged_vlm_tpu_torch.models import ImageEncoderViT, SamEncoderConfig
-    from camouflaged_vlm_tpu_torch.ops import _cuda
+    from camouflaged_vlm_tpu_torch.models import SamEncoderConfig
 
-    kw = dict(dtype=torch.bfloat16, depth=2, global_attn_indexes=(1,))
-    encs = {}
-    for impl in ("flash", "reference"):
-        with torch.device("meta"):
-            enc = ImageEncoderViT(SamEncoderConfig.vit_h(attn_impl=impl, **kw))
-        enc = enc.to_empty(device="cuda")
-        init_random_(enc, torch.Generator(device="cuda").manual_seed(11))
-        with torch.no_grad():  # rel-pos tables large enough for the bias to matter
-            for blk in enc.blocks:
-                blk.attn.rel_pos_h.mul_(25.0)
-                blk.attn.rel_pos_w.mul_(25.0)
-        cast_weights_(enc, torch.bfloat16)
-        encs[impl] = enc.eval().requires_grad_(False)
-    encs["flash"].load_state_dict(encs["reference"].state_dict(), strict=True)
-    x = torch.from_numpy(
-        np.random.default_rng(11).standard_normal((1, 1024, 1024, 3)).astype(np.float32)
-    ).cuda()
-    with torch.no_grad():
-        _cuda.reset_launches()
-        got, got_i = encs["flash"](x)
-        counts = {k: v for k, v in _cuda.launch_counts().items() if v}
-        want, want_i = encs["reference"](x)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(got_i[0]).all()),
-          "vit_h: non-finite flash output")
-    e, ei = errors(got, want), errors(got_i[0], want_i[0])
+    cfg = SamEncoderConfig.vit_h(dtype=torch.bfloat16, depth=2, global_attn_indexes=(1,))
+    e, ei, counts = _vs_reference(cfg, "flash", 11, _image(11, 1024))
     log(f"[vit_h] depth 2 (1 windowed + 1 global), 1024 px, bf16, flash vs reference: neck "
         f"mean_rel {e['mean_rel']:.3e} max_rel {e['max_rel']:.3e}; global block mean_rel "
         f"{ei['mean_rel']:.3e} max_rel {ei['max_rel']:.3e} (bound mean_rel "
@@ -594,8 +648,75 @@ def phase_vit_h():
     for name in ("flash_qkv_packed_windows_s", "flash_qkv_packed_edge",
                  "flash_qkv_packed_global", "ln_mask_linear_bt"):
         check(counts.get(name, 0) > 0, f"vit_h: flash encoder did not launch {name}")
-    del encs
+
+
+def _image(seed, size):
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (1, size, size, 3)).astype(np.float32)).cuda()
+
+
+def _vs_reference(cfg, impl, seed, x):
+    """The SAM encoder `cfg` on `impl` and on 'reference', the same seeded
+    bf16 weights (rel-pos tables x25, large enough for the bias to matter),
+    on x: (errors of the neck output, errors of the global block's output,
+    the kernel launches of the `impl` pass)."""
+    import torch
+    from camouflaged_vlm_tpu_torch.factory import cast_weights_, init_random_
+    from camouflaged_vlm_tpu_torch.models import ImageEncoderViT
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    encs = {}
+    for name in (impl, "reference"):
+        with torch.device("meta"):
+            enc = ImageEncoderViT(dataclasses.replace(cfg, attn_impl=name))
+        enc = enc.to_empty(device="cuda")
+        init_random_(enc, torch.Generator(device="cuda").manual_seed(seed))
+        with torch.no_grad():
+            for blk in enc.blocks:
+                blk.attn.rel_pos_h.mul_(25.0)
+                blk.attn.rel_pos_w.mul_(25.0)
+        cast_weights_(enc, torch.bfloat16)
+        encs[name] = enc.eval().requires_grad_(False)
+    encs[impl].load_state_dict(encs["reference"].state_dict(), strict=True)
+    with torch.no_grad():
+        _cuda.reset_launches()
+        got, got_i = encs[impl](x)
+        counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+        want, want_i = encs["reference"](x)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(got_i[0]).all()),
+          f"{impl}: non-finite output")
+    e, ei = errors(got, want), errors(got_i[0], want_i[0])
+    del encs, got, want, got_i, want_i
     torch.cuda.empty_cache()
+    return e, ei, counts
+
+
+def phase_padded():
+    """Depth-2 full-width ViT-H encoders on fused 'flash' off the compact
+    carry, each against 'reference' on the same bf16 weights: the global
+    blocks of <= 512 tokens (256 px: grid 16, #12; 320 px: grid 20, H+W 40,
+    #11 + #8) and the padded window carry at 1024 px (window 15: 25 padded
+    windows of 225 tokens, #12 with the valid mask; window 16: #12; window
+    17: #11 + #8). The launches of each pass are exact (`sam_expected`)."""
+    import torch
+    from camouflaged_vlm_tpu_torch.models import SamEncoderConfig
+
+    for img, win in ((256, 14), (320, 14), (1024, 15), (1024, 16), (1024, 17)):
+        cfg = SamEncoderConfig.vit_h(dtype=torch.bfloat16, depth=2, global_attn_indexes=(1,),
+                                     img_size=img, window_size=win)
+        e, ei, counts = _vs_reference(cfg, "flash", 14, _image(14, img))
+        expected = {k: n for k, n in sam_expected(cfg).items() if n}
+        log(f"[padded] ViT-H depth 2 (1 windowed + 1 global), {img} px, window {win}, bf16, "
+            f"flash vs reference: neck mean_rel {e['mean_rel']:.3e} max_rel {e['max_rel']:.3e}; "
+            f"global block mean_rel {ei['mean_rel']:.3e} max_rel {ei['max_rel']:.3e} (bound "
+            f"mean_rel {VITH_MEAN_REL_BOUND}); launches {counts}")
+        check(e["mean_rel"] < VITH_MEAN_REL_BOUND and ei["mean_rel"] < VITH_MEAN_REL_BOUND,
+              f"padded: {img} px window {win} disagrees with reference: {e} {ei}")
+        check(counts == expected, f"padded: {img} px window {win}: launches {counts} != "
+              f"{expected}")
 
 
 def _synthetic_images(n, seed=0):
@@ -661,33 +782,13 @@ def phase_slice():
     log(f"[slice] peak device memory {peak:.2f} GiB (torch.cuda.max_memory_allocated)")
 
     calls = len(requests)  # cascade calls; each runs the CLIP tower twice
-    layers = cfg.clip.vision_layers
     enc = cfg.encoder
     check(enc.attn_impl == "flash", f"slice: SAM runs {enc.attn_impl!r}, not 'flash'")
     check(all(b.attn.rel_cache is not None for b in session.model.image_encoder.blocks),
           "slice: the demo session did not attach the rel cache")
-    n_glob = len(enc.global_attn_indexes)
-    n_win = enc.depth - n_glob  # windowed blocks: interior + edge windows each (grid 64, win 14)
-    expected = {
-        "linear_act": 2 * calls,  # SAM patch embed + EVP handcrafted embed
-        "ln_linear_act_bt": (2 * n_win + 2 * layers) * calls,
-        "ln_mask_linear_bt": n_glob * calls,
-        "flash_qkv_packed_windows_s": n_win * calls,
-        "flash_qkv_packed_edge": n_win * calls,
-        "flash_qkv_packed_global": n_glob * calls,
-        "flash_qkv_packed_plain": 2 * layers * calls,
-        "proj_rows": (2 * n_win + n_glob + 2 * layers) * calls,
-        # text tower once (12 layers) + SAM's and the vision towers' MLPs
-        "ln_mlp_residual_bt": cfg.clip.transformer_layers
-        + (2 * n_win + n_glob + 2 * layers) * calls,
-        # inference launches no backward kernel
-        "ln_mlp_residual_bt_bwd": 0,
-        "flash_qkv_packed_windows_s_bwd": 0,
-        "flash_qkv_packed_global_bwd": 0,
-        # SAM ViT-H on 'flash' is fused: no split-q/k/v attention
-        "flash_attention_relpos": 0,
-        "flash_attention_fullk": 0,
-    }
+    # window 14 on grid 64: the compact carry, interior + edge windows in each
+    # windowed block; the text tower once; no backward kernel
+    expected = expected_launches(cfg, calls)
     log(f"[slice] kernel launches {counts} expected {expected}")
     check(counts == expected, f"launch counts {counts} != expected {expected}")
     stage_times(session.model, session.cfg, session.text_features,
@@ -900,6 +1001,7 @@ def phase_train_small():
     import torch
     from camouflaged_vlm_tpu_torch import train
     from camouflaged_vlm_tpu_torch.factory import build_cascade, make_bank_inputs
+    from camouflaged_vlm_tpu_torch.ops import _cuda
 
     cpu_cfg, gpu_cfg = _small_config(torch.float32), _small_config(torch.bfloat16)
     ref = build_cascade(cpu_cfg, "cpu", seed=5)
@@ -908,6 +1010,7 @@ def phase_train_small():
     batch = _small_batch(cpu_cfg)
     names = ["cat", "owl", "bat", "moth", "slug"]
     out = []
+    _cuda.reset_launches()  # the CPU pass launches nothing
     for m, cfg, dev in ((ref, cpu_cfg, "cpu"), (model, gpu_cfg, "cuda")):
         params = train.trainable_parameters(m)
         bank = make_bank_inputs(cfg, names, seed=5, device=dev)
@@ -920,6 +1023,7 @@ def phase_train_small():
         grads = {n: (p.grad.float().cpu() if p.grad is not None else torch.zeros(p.shape))
                  for n, p in m.named_parameters() if p.requires_grad}
         out.append((loss.item(), grads, params, tf, tb))
+    check_sam_attention(_cuda.launch_counts(), gpu_cfg.encoder, "train_small", backward=True)
     (l_ref, g_ref, _, _, _), (l_gpu, g_gpu, params, tf, tb) = out
     dl = abs(l_gpu - l_ref) / abs(l_ref)
     rels = {}
@@ -1006,26 +1110,8 @@ def phase_train_slice():
     check(set(pg) <= set(moved), "train_slice: the prompt generator did not move")
     check(len(moved) >= 0.9 * len(trainable_keys), "train_slice: trainable weights did not move")
 
-    enc, layers = cfg.encoder, cfg.clip.vision_layers
-    n_glob = len(enc.global_attn_indexes)
-    n_win = enc.depth - n_glob
-    expected = {  # per step: one SAM encoder and one CLIP pass forward, SAM's backward
-        "linear_act": 2 * steps,
-        "ln_linear_act_bt": (2 * n_win + layers) * steps,
-        "ln_mask_linear_bt": n_glob * steps,
-        "flash_qkv_packed_windows_s": n_win * steps,
-        "flash_qkv_packed_edge": n_win * steps,
-        "flash_qkv_packed_global": n_glob * steps,
-        "flash_qkv_packed_plain": layers * steps,
-        "proj_rows": (2 * n_win + n_glob + layers) * steps,
-        # + the text tower once
-        "ln_mlp_residual_bt": cfg.clip.transformer_layers + (2 * n_win + n_glob + layers) * steps,
-        "ln_mlp_residual_bt_bwd": (2 * n_win + n_glob) * steps,
-        "flash_qkv_packed_windows_s_bwd": n_win * steps,
-        "flash_qkv_packed_global_bwd": n_glob * steps,
-        "flash_attention_relpos": 0,
-        "flash_attention_fullk": 0,
-    }
+    # per step: one SAM encoder and one CLIP pass forward, SAM's backward
+    expected = expected_launches(cfg, steps, clip_passes=1, backward=True)
     log(f"[train_slice] kernel launches {counts} expected {expected}")
     check(counts == expected, f"train launch counts {counts} != expected {expected}")
     st = run["step_seconds"]
@@ -1080,40 +1166,14 @@ def phase_unfused():
     windowed one)."""
     import torch
     from camouflaged_vlm_tpu_torch.config import cascade_config_from_yaml
-    from camouflaged_vlm_tpu_torch.factory import cast_weights_, init_random_
-    from camouflaged_vlm_tpu_torch.models import ImageEncoderViT
-    from camouflaged_vlm_tpu_torch.ops import _cuda
 
     vit_b = cascade_config_from_yaml(VIT_B_YAML)[0].encoder
     vit_h = cascade_config_from_yaml(VIT_H_YAML)[0].encoder
-    x = torch.from_numpy(
-        np.random.default_rng(12).standard_normal((1, 1024, 1024, 3)).astype(np.float32)
-    ).cuda()
+    x = _image(12, 1024)
     for label, base, impl, kernel in (("ViT-B", vit_b, "flash", "flash_attention_relpos"),
                                       ("ViT-H", vit_h, "aug_flash", "flash_attention_fullk")):
-        kw = dict(dtype=torch.bfloat16, depth=2, global_attn_indexes=(1,))
-        encs = {}
-        for name in (impl, "reference"):
-            with torch.device("meta"):
-                enc = ImageEncoderViT(dataclasses.replace(base, attn_impl=name, **kw))
-            enc = enc.to_empty(device="cuda")
-            init_random_(enc, torch.Generator(device="cuda").manual_seed(13))
-            with torch.no_grad():  # rel-pos tables large enough for the bias to matter
-                for blk in enc.blocks:
-                    blk.attn.rel_pos_h.mul_(25.0)
-                    blk.attn.rel_pos_w.mul_(25.0)
-            cast_weights_(enc, torch.bfloat16)
-            encs[name] = enc.eval().requires_grad_(False)
-        encs[impl].load_state_dict(encs["reference"].state_dict(), strict=True)
-        with torch.no_grad():
-            _cuda.reset_launches()
-            got, got_i = encs[impl](x)
-            counts = {k: v for k, v in _cuda.launch_counts().items() if v}
-            want, want_i = encs["reference"](x)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(got_i[0]).all()),
-              f"unfused: non-finite {label} {impl} output")
-        e, ei = errors(got, want), errors(got_i[0], want_i[0])
+        cfg = dataclasses.replace(base, dtype=torch.bfloat16, depth=2, global_attn_indexes=(1,))
+        e, ei, counts = _vs_reference(cfg, impl, 13, x)
         log(f"[unfused] SAM {label} depth 2 (1 windowed + 1 global), 1024 px, bf16, {impl!r} vs "
             f"'reference': neck mean_rel {e['mean_rel']:.3e} max_rel {e['max_rel']:.3e}; global "
             f"block mean_rel {ei['mean_rel']:.3e} max_rel {ei['max_rel']:.3e} (bound mean_rel "
@@ -1124,42 +1184,87 @@ def phase_unfused():
         check(counts.get(kernel, 0) == want_n, f"unfused: {label} launched {kernel} "
               f"{counts.get(kernel, 0)} times, expected {want_n}")
         check(counts.get("flash_qkv_packed_global", 0) == 0, f"unfused: {label} ran fused")
-        del encs, got, want, got_i, want_i
-        torch.cuda.empty_cache()
 
 
-def eval_expected(cfg, calls):
-    """Launch counts of `calls` cascade calls of the evaluate CLI, whose text
-    tower runs once, by the configuration's SAM path."""
-    enc, layers = cfg.encoder, cfg.clip.vision_layers
+def fused_route(nwin, H, W):
+    """The JAX package's branch for a fused 'flash' block off the compact
+    carry (`Attention.__call__`, sam_encoder.py:591-628): #12 + proj_rows,
+    #11 + #8, or #17 + proj_rows."""
+    if nwin > 1 or H * W <= 512:
+        return ("flash_qkv_packed_windows", "proj_rows") if H + W <= 32 else (
+            "flash_qkv_relpos_windows", "proj_from_heads_res")
+    return ("flash_qkv_packed_global", "proj_rows")
+
+
+def sam_expected(enc):
+    """Kernel launches of one SAM encoder call, by its configuration's path,
+    worked out from the JAX package's branches (not from the port's own
+    routing): the fused blocks on the compact carry (window <= 14) or off
+    it, the unfused ones on #10, the 'aug_flash' global ones on #20."""
+    from camouflaged_vlm_tpu_torch.ops.compact_window import CompactGeometry
+
     n_glob = len(enc.global_attn_indexes)
     n_win = enc.depth - n_glob
-    fused = enc.attn_impl == "flash" and enc.num_heads % 8 == 0
-    sam = {  # per call: the fused SAM kernels, or the split-q/k/v attention
-        "ln_linear_act_bt": 2 * n_win if fused else 0,
-        "ln_mask_linear_bt": n_glob if fused else 0,
-        "flash_qkv_packed_windows_s": n_win if fused else 0,
-        "flash_qkv_packed_edge": n_win if fused else 0,
-        "flash_qkv_packed_global": n_glob if fused else 0,
-        "proj_rows": 2 * n_win + n_glob if fused else 0,
-        "ln_mlp_residual_bt": 2 * n_win + n_glob if fused else 0,
-        "flash_attention_relpos": enc.depth if enc.attn_impl == "flash" and not fused else 0,
-        "flash_attention_fullk": n_glob if enc.attn_impl == "aug_flash" else 0,
-    }
-    clip = {"ln_linear_act_bt": 2 * layers, "flash_qkv_packed_plain": 2 * layers,
-            "proj_rows": 2 * layers, "ln_mlp_residual_bt": 2 * layers}
-    out = {k: 0 for k in ("ln_mlp_residual_bt_bwd", "flash_qkv_packed_windows_s_bwd",
-                          "flash_qkv_packed_global_bwd")}
-    out["linear_act"] = 2 * calls  # SAM patch embed + EVP handcrafted embed
-    for k in set(sam) | set(clip):
-        out[k] = (sam.get(k, 0) + clip.get(k, 0)) * calls
-    out["ln_mlp_residual_bt"] += cfg.clip.transformer_layers  # the text tower, once
+    out = {"linear_act": 2}  # patch embed + EVP handcrafted embed
+    add = lambda k, n=1: out.__setitem__(k, out.get(k, 0) + n)  # noqa: E731
+    if not (enc.attn_impl == "flash" and enc.use_rel_pos and enc.num_heads % 8 == 0):
+        add("flash_attention_relpos", enc.depth if enc.attn_impl == "flash" else 0)
+        add("flash_attention_fullk", n_glob if enc.attn_impl == "aug_flash" else 0)
+        return out
+    g, win = enc.grid, enc.window_size
+    geom = CompactGeometry(g, g, win)
+    for windowed in [True] * n_win + [False] * n_glob:
+        if windowed and geom.supported():  # interior windows, then the edge ones
+            parts = 2 if geom.has_edge else 1
+            for k in ("ln_linear_act_bt", "proj_rows", "ln_mlp_residual_bt"):
+                add(k, parts)
+            add("flash_qkv_packed_windows_s")
+            add("flash_qkv_packed_edge", parts - 1)
+            continue
+        nwin, side = ((-(-g // win)) ** 2, win) if windowed else (1, g)
+        for k in ("ln_mask_linear_bt", *fused_route(nwin, side, side), "ln_mlp_residual_bt"):
+            add(k)
     return out
 
 
+def expected_launches(cfg, calls, clip_passes=2, backward=False):
+    """Launch counts of `calls` cascade calls (text tower once, `clip_passes`
+    CLIP vision passes per call), with SAM's backward kernels when
+    `backward` (one per fused MLP, windows and global attention)."""
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    out = {k.name: 0 for k in _cuda.KERNELS}
+    sam = sam_expected(cfg.encoder)
+    for k, n in sam.items():
+        out[k] += n * calls
+    for k in ("ln_linear_act_bt", "flash_qkv_packed_plain", "proj_rows", "ln_mlp_residual_bt"):
+        out[k] += clip_passes * cfg.clip.vision_layers * calls
+    out["ln_mlp_residual_bt"] += cfg.clip.transformer_layers
+    if backward:
+        for fwd in ("ln_mlp_residual_bt", "flash_qkv_packed_windows_s", "flash_qkv_packed_global"):
+            out[fwd + "_bwd"] = sam.get(fwd, 0) * calls
+    return out
+
+
+def window_yaml(win, work):
+    """The repo's ViT-H yaml with only `window_size` changed, under `work`:
+    fused 'flash' off the compact carry (window 16: #12; window 17: #11 and
+    #8). Not a published configuration, so not shipped."""
+    import yaml
+
+    raw = yaml.safe_load(open(VIT_H_YAML))
+    raw["model"]["encoder"]["window_size"] = win
+    path = os.path.join(work, f"vit_h_flash_win{win}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
 def phase_eval_slice():
-    """The evaluate CLI at full width on three configurations: 5 synthetic
-    test images of mixed sizes (the 61 test classes), batch 2, bf16."""
+    """The evaluate CLI at full width on five configurations: 5 synthetic
+    test images of mixed sizes (the 61 test classes), batch 2, bf16. The
+    repo's ViT-H yaml, the port's ViT-B yaml, ViT-H on 'aug_flash', and
+    ViT-H at windows 16 and 17 (the padded carry)."""
     import torch
     from camouflaged_vlm_tpu_torch.cli import evaluate
     from camouflaged_vlm_tpu_torch.cli.eval_throughput import config_args
@@ -1175,8 +1280,12 @@ def phase_eval_slice():
     n_images, batch = 5, 2
     calls = 1 + -(-n_images // batch)  # the warm-up call and 3 batches
     runs = {}
-    for label in ("vit_h_flash", "vit_b_flash", "vit_h_aug_flash"):
-        path = config_args(label, work)[1]  # 'aug_flash' as a yaml under work
+    for label in ("vit_h_flash", "vit_b_flash", "vit_h_aug_flash", "vit_h_flash_win16",
+                  "vit_h_flash_win17"):
+        if label.startswith("vit_h_flash_win"):  # the ViT-H yaml at another window
+            path = window_yaml(int(label[-2:]), work)
+        else:
+            path = config_args(label, work)[1]  # 'aug_flash' as a yaml under work
         cfg = cascade_config_from_yaml(path)[0]
         out_dir = os.path.join(OUT_DIR, f"eval_{label}")
         torch.cuda.empty_cache()
@@ -1193,9 +1302,10 @@ def phase_eval_slice():
         check(res["images"] == n_images, f"eval_slice {label}: {res['images']} images")
         check(all(np.isfinite(v) for v in res.values()), f"eval_slice {label}: {res}")
         check(os.path.exists(os.path.join(out_dir, "results.json")), "no results.json")
-        expected = eval_expected(cfg, calls)
+        expected = expected_launches(cfg, calls)
         log(f"[eval_slice] {label}: SAM {cfg.encoder.embed_dim} wide x {cfg.encoder.depth}, "
-            f"{cfg.encoder.num_heads} heads, {cfg.encoder.attn_impl!r}; images_per_sec "
+            f"{cfg.encoder.num_heads} heads, {cfg.encoder.attn_impl!r}, window "
+            f"{cfg.encoder.window_size}; images_per_sec "
             f"{res['images_per_sec']} (3 batches + metric drain: a smoke figure with no steady "
             f"state; cli/eval_throughput.py measures the rate); CLI wall "
             f"{wall:.1f} s (build, text encode, warm-up included); peak device memory "
@@ -1275,6 +1385,7 @@ def main() -> None:
     results = phase_kernels()
     phase_small()
     phase_vit_h()
+    phase_padded()
     counts = phase_slice()
     grads = phase_grads()
     phase_train_small()
@@ -1284,18 +1395,26 @@ def main() -> None:
     import torch
 
     # launches: each kernel's count in the run of its own main path (the
-    # split-q/k/v kernels' from their eval-slice configuration)
+    # split-q/k/v and padded-carry kernels' from their eval-slice
+    # configuration); the two kernels no path reaches carry their check's
+    # count and say so (`NO_PATH`)
+    ev = {label: r["counts"] for label, r in evals.items()}
     launches = {**counts, **{k: train_counts[k] for k in grads},
-                "flash_attention_relpos": evals["vit_b_flash"]["counts"]["flash_attention_relpos"],
-                "flash_attention_fullk": evals["vit_h_aug_flash"]["counts"]["flash_attention_fullk"]}
+                "flash_attention_relpos": ev["vit_b_flash"]["flash_attention_relpos"],
+                "flash_attention_fullk": ev["vit_h_aug_flash"]["flash_attention_fullk"],
+                "flash_qkv_packed_windows": ev["vit_h_flash_win16"]["flash_qkv_packed_windows"],
+                "flash_qkv_relpos_windows": ev["vit_h_flash_win17"]["flash_qkv_relpos_windows"],
+                "proj_from_heads_res": ev["vit_h_flash_win17"]["proj_from_heads_res"]}
     kernels = [
         {"name": k, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
-         "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "launches": r["launches"] if k in NO_PATH else launches[k],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         **({"path": r["path"]} if k in NO_PATH else {})}
         for res in (results, grads) for k, r in res.items()
     ]
-    check(len(kernels) == 14 and all(e["launches"] > 0 for e in kernels),
+    check(len(kernels) == 19 and all(e["launches"] > 0 for e in kernels)
+          and all(launches[e["name"]] == 0 for e in kernels if e["name"] in NO_PATH),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     log("[device] name and power limit (nvidia-smi) of the card all numbers above ran on:")
     log(smi)

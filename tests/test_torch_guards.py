@@ -58,9 +58,17 @@ def test_flash_names_its_roadmap_item():
     assert ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", embed_dim=64,
                                                  num_heads=8)).fused
     assert not ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", num_heads=4)).fused
-    with pytest.raises(NotImplementedError, match="site #12"):  # fused, window > 14
-        ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", embed_dim=64, num_heads=8,
-                                              img_size=320, window_size=16))
+    # fused 'flash' with a window > 14: the padded carry, as in the JAX package
+    # (#12 at H+W <= 32, #11 beyond); nothing raises for a geometry JAX runs
+    for win, route in ((16, "packed"), (17, "relpos")):
+        enc = ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", embed_dim=64,
+                                                    num_heads=8, img_size=320, window_size=win))
+        assert enc.fused and not enc.compact
+        assert enc.blocks[0].attn.fused_route == route
+        assert enc.blocks[0].attn.num_windows == 4  # grid 20 padded to 2 x 2 windows
+        with torch.no_grad():
+            y, interm = enc(torch.randn(1, 320, 320, 3))
+        assert y.shape == (1, 20, 20, 32) and bool(torch.isfinite(y).all())
     # unfused 'flash' takes a window > 14 in the padded carry (#10, no #12)
     ImageEncoderViT(SamEncoderConfig.tiny(attn_impl="flash", img_size=320, window_size=16))
 
@@ -100,6 +108,14 @@ def test_kernel_wrappers_refuse_non_cpu_tensors():
         lambda: flash_attention.flash_attention_relpos(m(2, 4, 16), m(2, 4, 16), m(2, 4, 16),
                                                        m(2, 4, 4), m(4, 4), 2, 2),
         lambda: flash_attention.flash_attention_fullk(m(2, 4, 16), m(2, 4, 16), m(2, 4, 16)),
+        lambda: flash_attention.flash_qkv_packed_windows(m(1, 2, 4, 48), m(1, 2, 4, 64),
+                                                         m(32, 4), 0.25, 2, 8),
+        lambda: flash_attention.flash_qkv_relpos_windows(m(1, 2, 4, 6, 8), m(1, 2, 4, 2, 4),
+                                                         m(4, 4), 0.25, 2, 2),
+        lambda: flash_attention.flash_qkv_relpos_global(m(1, 4, 6, 8), m(1, 4, 2, 4), m(4, 4),
+                                                        0.25, 2, 2),
+        lambda: linear.proj_from_heads_res(m(1, 2, 1, 4, 8), m(6, 16), m(6), m(1, 1, 4, 6)),
+        lambda: linear.proj_from_heads(m(1, 2, 1, 4, 8), m(6, 16), m(6)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported devices"):

@@ -322,3 +322,96 @@ def test_split_attention_gradients_are_the_plain_vjp(gen):
         want = torch.autograd.grad(ref(*leaves), leaves, g)
         for a, b in zip(got, want):  # the same plain backward: fp32 summation order only
             assert ((a.float() - b.float()).abs().max() / b.float().abs().max()).item() < 1e-5
+
+
+# ----------- the padded carry and the head-leading attention (#12, #11, #19, #8, #9)
+
+
+@pytest.mark.parametrize("B,nwin,win,heads,d", [(2, 16, 16, 2, 80), (1, 25, 15, 2, 80),
+                                                (2, 3, 4, 8, 16), (1, 1, 16, 1, 64)])
+def test_flash_qkv_packed_windows_kernel(gen, B, nwin, win, heads, d):
+    """#12: window-major rel; windows of 16 (ViT-H), 15 (225 keys: ragged
+    tiles), 4, and one window of a 16 x 16 global block."""
+    Nw = win * win
+    sel32 = flash_attention.make_rel_scatter32(win, torch.bfloat16, torch.device("cuda"))
+    args = (rn(gen, B, nwin, Nw, 3 * heads * d), rn(gen, B, nwin, Nw, heads * 32), sel32,
+            d ** -0.5, heads, d)
+    before = _cuda.QKV_WINDOWS_PADDED.launches
+    got = flash_attention.flash_qkv_packed_windows(*args)
+    assert _cuda.QKV_WINDOWS_PADDED.launches == before + 1
+    assert_close(got, flash_attention.flash_qkv_packed_windows_ref(*args))
+
+
+@pytest.mark.parametrize("B,nwin,H,W,heads,d", [(2, 4, 17, 17, 2, 80), (1, 3, 5, 6, 3, 64),
+                                                (1, 1, 20, 20, 2, 80)])
+def test_flash_qkv_relpos_windows_kernel(gen, B, nwin, H, W, heads, d):
+    """#11: windows of 17 (289 keys, H+W 34), a ragged non-square one, and a
+    20 x 20 global block (400 tokens, H+W 40)."""
+    N = H * W
+    qkv, rel = rn(gen, B, nwin, N, 3 * heads, d), rn(gen, B, nwin, N, heads, H + W)
+    sel = flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda"))
+    before = _cuda.QKV_RELPOS_WINDOWS.launches
+    got = flash_attention.flash_qkv_relpos_windows(qkv, rel, sel, d ** -0.5, H, W)
+    assert _cuda.QKV_RELPOS_WINDOWS.launches == before + 1
+    assert_close(got, flash_attention.flash_qkv_relpos_windows_ref(qkv, rel, sel, d ** -0.5))
+
+
+@pytest.mark.parametrize("B,H,W,heads,d", [(2, 64, 64, 1, 80), (1, 6, 10, 3, 64)])
+def test_flash_qkv_relpos_global_kernel(gen, B, H, W, heads, d):
+    N = H * W
+    qkv, rel = rn(gen, B, N, 3 * heads, d), rn(gen, B, N, heads, H + W)
+    sel = flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda"))
+    before = _cuda.QKV_RELPOS_GLOBAL.launches
+    got = flash_attention.flash_qkv_relpos_global(qkv, rel, sel, d ** -0.5, H, W)
+    assert _cuda.QKV_RELPOS_GLOBAL.launches == before + 1
+    assert_close(got, flash_attention.flash_qkv_relpos_global_ref(qkv, rel, sel, d ** -0.5))
+
+
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("B,heads,T,S,d,N", [(2, 4, 3, 37, 80, 96), (1, 2, 5, 70, 64, 130)])
+def test_proj_from_heads_kernel(gen, with_res, B, heads, T, S, d, N):
+    """#8 (with the residual) and #9 (without), each with its own count."""
+    x, w, b = rn(gen, B, heads, T, S, d), rn(gen, N, heads * d, std=0.05), rn(gen, N, std=0.1)
+    kernel = _cuda.PROJ_HEADS_RES if with_res else _cuda.PROJ_HEADS
+    before = kernel.launches
+    if with_res:
+        res = rn(gen, B, T, S, N)
+        got = linear.proj_from_heads_res(x, w, b, res)
+    else:
+        res = None
+        got = linear.proj_from_heads(x, w, b)
+    assert kernel.launches == before + 1
+    assert_close(got, linear.proj_from_heads_ref(x, w, b, res))
+
+
+def test_padded_carry_gradients_are_the_plain_vjp(gen):
+    """#12, #11 and #8 have no backward kernel (nor had the TPU kernels): a
+    gradient launches the forward kernel once and is autograd's gradient of
+    the plain version."""
+    heads, d, win, H = 2, 64, 4, 17
+    dev = torch.device("cuda")
+    sel32 = flash_attention.make_rel_scatter32(win, torch.bfloat16, dev)
+    sel = flash_attention.make_rel_scatter(H, H, torch.bfloat16, dev)
+    cases = [
+        (lambda q, r: flash_attention.flash_qkv_packed_windows(q, r, sel32, 0.125, heads, d),
+         lambda q, r: flash_attention.flash_qkv_packed_windows_ref(q, r, sel32, 0.125, heads, d),
+         _cuda.QKV_WINDOWS_PADDED,
+         (rn(gen, 2, 3, win * win, 3 * heads * d), rn(gen, 2, 3, win * win, heads * 32))),
+        (lambda q, r: flash_attention.flash_qkv_relpos_windows(q, r, sel, 0.125, H, H),
+         lambda q, r: flash_attention.flash_qkv_relpos_windows_ref(q, r, sel, 0.125),
+         _cuda.QKV_RELPOS_WINDOWS,
+         (rn(gen, 1, 2, H * H, 3 * heads, d), rn(gen, 1, 2, H * H, heads, 2 * H))),
+        (linear.proj_from_heads_res, linear.proj_from_heads_ref, _cuda.PROJ_HEADS_RES,
+         (rn(gen, 1, heads, 2, 37, d), rn(gen, 96, heads * d, std=0.05), rn(gen, 96),
+          rn(gen, 1, 2, 37, 96))),
+    ]
+    for fn, ref, kernel, args in cases:
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        before = kernel.launches
+        out = fn(*leaves)
+        assert kernel.launches == before + 1
+        g = rn(gen, *out.shape)
+        got = torch.autograd.grad(out, leaves, g)
+        want = torch.autograd.grad(ref(*leaves), leaves, g)
+        for a, b in zip(got, want):  # the same plain backward: fp32 summation order only
+            assert ((a.float() - b.float()).abs().max() / b.float().abs().max()).item() < 1e-5

@@ -11,11 +11,10 @@ num_heads % 8 == 0) and a grid with right, bottom and corner edge windows
 
 Tolerances, relative to the output's largest magnitude: data movement is
 bit-equal; ops 1e-5 (fp32 on both sides, differing only in summation order);
-modules and the slice 1e-4 (the same through several blocks). The JAX
-package routes a global block of at most 512 tokens through its padded
-windows kernel (site #12); the port always takes the global kernel (#17),
-which computes the same function, so the tiny encoders agree to fp32
-summation order.
+modules and the slice 1e-4 (the same through several blocks). Both
+packages route the global blocks of these grids (at most 512 tokens, H+W
+<= 32) through the padded windows kernel (site #12);
+`tests/test_torch_padded_flash.py` covers that branch and the padded carry.
 """
 
 import dataclasses
