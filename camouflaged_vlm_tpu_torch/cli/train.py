@@ -5,11 +5,14 @@ Counterpart of `camouflaged_vlm_tpu/cli/train.py` (the reference's
 1e-7, training only the EVP prompt generator, the mask decoder, the
 CLIP->prompt projections and no_mask_embed; a checkpoint of weights,
 optimizer state and step after every epoch, so `--resume` continues
-exactly.
+exactly. Every `--epoch-val` epochs the model as it stands is evaluated on
+the test split (`cli/evaluate.evaluate`, batch max(1, batch_size // 2)); the
+lowest validation MAE so far is saved as `ckpt_best.pt`, and `best_mae`
+is kept in `ckpt_meta.json` across `--resume`.
 
 Usage:
   python -m camouflaged_vlm_tpu_torch.cli.train --dataset-info dataset_info.yaml \
-      --save-dir ./save/ovcos --epochs 20 --batch-size 4 --epoch-val 21 \
+      --save-dir ./save/ovcos --epochs 20 --batch-size 4 --epoch-val 2 \
       [--config configs/ovcos-sam-vit-h-maskdecoder-edge.yaml]
 
 As in the JAX package, the training forward is conditioned on the TEST
@@ -20,12 +23,13 @@ Without checkpoints the weights are random (seeded by `--seed`). `--device
 cuda` on a machine without a GPU raises.
 
 `--config` takes a model yaml (native or the reference's format), as the
-JAX CLI does; its train section is not read (the flags set the recipe).
+JAX CLI does, and its train section sets the recipe: `epochs`,
+`batch_size`, `lr`, `eta_min`, `epoch_val` and `loss` (a reference-format
+yaml's `epoch_max`, `lr_min`, ...) replace the flags where present.
 
-Not ported yet (ROADMAP.md, Queue 1): validation inside the run (the CLI
-refuses `--epoch-val <= --epochs` rather than skip it; `cli/evaluate.py`
-evaluates a saved checkpoint), data/tensor parallelism, remat, the
-optimizer-fusion flag and the checkpoint-loading flags.
+Not ported yet (ROADMAP.md, Queue 1): data/tensor parallelism (validation
+runs on the one device), remat, the optimizer-fusion flag and the
+checkpoint-loading flags.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import numpy as np
 import torch
 import yaml
 
-from ..config import DTYPES
+from ..config import DTYPES, cascade_config_from_yaml
 from ..data.loader import iter_train_batches
 from ..data.ovcamo import OVCamoIndex
 from ..factory import attach_rel_cache, build_cascade, make_bank_inputs
@@ -53,6 +57,10 @@ from ..train import (
     trainable_parameters,
 )
 from .common import Logger, cascade_config, device_or_raise
+from .evaluate import evaluate
+
+# the train-section keys of a yaml that replace the flags (JAX's CLI)
+RECIPE_KEYS = ("epochs", "batch_size", "lr", "eta_min", "epoch_val", "loss")
 
 
 def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
@@ -67,8 +75,7 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
                    "reference inherits)")
     p.add_argument("--eta-min", type=float, default=1e-7)
     p.add_argument("--epoch-val", type=int, default=2,
-                   help="validate every N epochs; validation inside the run is not wired "
-                   "yet, so it must exceed --epochs")
+                   help="validate on the test split every N epochs")
     p.add_argument("--loss", default="iou", choices=["bce", "bbce", "iou"])
     p.add_argument("--accum-steps", type=int, default=1,
                    help="split each batch into this many microbatches, one update")
@@ -83,13 +90,16 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
                    help="continue from <save-dir>/ckpt_last.pt: weights, optimizer state "
                    "and step")
     p.add_argument("--stop-after-epoch", type=int, default=None,
-                   help="exit after this epoch's checkpoint (for resume tests)")
+                   help="exit after this epoch's checkpoint and validation (for resume "
+                   "tests)")
     args = p.parse_args(argv)
-    if args.epoch_val <= args.epochs:
-        p.error(f"--epoch-val {args.epoch_val} <= --epochs {args.epochs} asks for "
-                "validation, which is not wired into the run yet (ROADMAP.md Queue 1, item "
-                "10); pass --epoch-val greater than --epochs and run cli/evaluate.py on the "
-                "checkpoint")
+    if args.config:  # the yaml's recipe replaces the flags, as in the JAX CLI
+        _, train_hp = cascade_config_from_yaml(args.config)
+        for key in RECIPE_KEYS:
+            if key in train_hp:
+                setattr(args, key, train_hp[key])
+    if args.epoch_val < 1:
+        p.error(f"epoch_val must be >= 1, got {args.epoch_val}")
     if args.accum_steps < 1 or args.batch_size % args.accum_steps:
         p.error(f"--batch-size {args.batch_size} must be a multiple of --accum-steps "
                 f"{args.accum_steps} >= 1")
@@ -108,7 +118,9 @@ def to_device_batch(batch: dict, device, accum: int) -> dict:
 
 def main(argv: Sequence[str] = None) -> dict:
     """Train; return {"model", "optimizer", "step", "epochs": [per-epoch
-    mean metrics], "step_seconds": [wall seconds of every step]}."""
+    mean metrics], "step_seconds": [wall seconds of every step],
+    "validations": [{"epoch", **evaluate() results} per validation],
+    "best_mae", "text_features": the test split's, which condition training}."""
     args = parse_args(argv)
     device = device_or_raise(args.device)
     cfg = cascade_config(args.config, args.tiny, args.dtype)
@@ -127,17 +139,22 @@ def main(argv: Sequence[str] = None) -> dict:
     schedule = cosine_epoch_schedule(args.lr, args.epochs, steps_per_epoch, args.eta_min)
     optimizer = make_optimizer(params, args.lr, args.weight_decay)
 
-    step, start_epoch = 0, 1
+    step, start_epoch, best_mae = 0, 1, float("inf")
     ckpt_last = os.path.join(args.save_dir, "ckpt_last.pt")
+    ckpt_best = os.path.join(args.save_dir, "ckpt_best.pt")
     meta_path = os.path.join(args.save_dir, "ckpt_meta.json")
     if args.resume:
         if not os.path.exists(ckpt_last):
             raise FileNotFoundError(f"--resume: no checkpoint at {ckpt_last}")
         step = restore_checkpoint(ckpt_last, model, optimizer)
-        # the epoch follows from the restored step, the checkpoint's own record
+        # the epoch follows from the restored step, the checkpoint's own
+        # record; the meta file only carries best_mae
         start_epoch = step // steps_per_epoch + 1
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                best_mae = float(json.load(f).get("best_mae", float("inf")))
         log(f"[resume] restored step {step} from {ckpt_last}; continuing at epoch "
-            f"{start_epoch}")
+            f"{start_epoch} (best mae {best_mae})")
     # after the weights are final (the rel-pos parameters are frozen)
     attach_rel_cache(model)
 
@@ -148,7 +165,7 @@ def main(argv: Sequence[str] = None) -> dict:
         bank["prefix"], bank["suffix"], bank["eot_indices"], bank["bank_features"])
     train_step = make_train_step(model, optimizer, schedule, args.loss, args.accum_steps)
 
-    epochs, step_seconds = [], []
+    epochs, step_seconds, validations = [], [], []
     for epoch in range(start_epoch, args.epochs + 1):
         t_epoch = time.perf_counter()
         # a per-epoch seed, so a resumed run replays the epochs it skips
@@ -169,14 +186,30 @@ def main(argv: Sequence[str] = None) -> dict:
             + f" ({time.perf_counter() - t_epoch:.1f}s)")
         save_checkpoint(ckpt_last, model, optimizer, step)
         with open(meta_path, "w") as f:
-            json.dump({"epoch": epoch, "step": step}, f)
+            json.dump({"epoch": epoch, "step": step, "best_mae": best_mae}, f)
+        if epoch % args.epoch_val == 0:
+            # the model as it stands (evaluate() runs under no grad and leaves
+            # the module's mode alone: the cascade has no train-mode layers)
+            results = evaluate(model, cfg, bank, val_index,
+                               batch_size=max(1, args.batch_size // 2))
+            validations.append({"epoch": epoch, **results})
+            log(f"[val epoch {epoch}] {json.dumps(results)}")
+            if results.get("mae", 1.0) < best_mae:
+                best_mae = results["mae"]
+                save_checkpoint(ckpt_best, model, optimizer, step)
+                with open(meta_path, "w") as f:
+                    json.dump({"epoch": epoch, "step": step, "best_mae": best_mae}, f)
+                log(f"[val epoch {epoch}] new best mae {best_mae}")
+        # after the epoch's validation, so that a resumed run validates as an
+        # uninterrupted one does
         if args.stop_after_epoch == epoch:
             log(f"[stop-after-epoch] exiting after epoch {epoch}")
             break
     else:
         log("training done")
     return {"model": model, "optimizer": optimizer, "step": step, "epochs": epochs,
-            "step_seconds": step_seconds}
+            "step_seconds": step_seconds, "validations": validations,
+            "best_mae": best_mae, "text_features": text_features}
 
 
 if __name__ == "__main__":

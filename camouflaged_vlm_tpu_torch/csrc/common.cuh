@@ -1,8 +1,9 @@
 // Shared device helpers for the hand-written Hopper kernels.
 //
 // Every kernel takes bfloat16 activations and weights, accumulates in fp32
-// on the tensor cores through WMMA 16x16x16 fragments (mma.sync underneath),
-// and rounds to bfloat16 exactly where the JAX package's kernels round.
+// on the tensor cores (WMMA 16x16x16 fragments, mma.sync underneath; the
+// TMA + wgmma kernels through gemm_sm90.cuh), and rounds to bfloat16 exactly
+// where the JAX package's kernels round.
 #pragma once
 
 #include <cuda_bf16.h>

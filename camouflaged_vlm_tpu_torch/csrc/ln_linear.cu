@@ -1,15 +1,15 @@
-// ln_linear: out = act(LN?(x) [* mask] . W^T + b), optional LayerNorm
-// prologue with an optional row mask.
+// ln_linear: out = act(LN(x) [* mask] . W^T + b), a LayerNorm prologue
+// with an optional row mask.
 //
-// Replaces three TPU kernels of camouflaged_vlm_tpu/ops/linear.py:
-//   linear_pallas     (_linear_kernel)             -- no LN: SAM patch embed
+// Replaces two TPU kernels of camouflaged_vlm_tpu/ops/linear.py (the plain
+// product, linear_pallas, is linear.cu's TMA + wgmma GEMM):
 //   ln_linear_act_bt  (_ln_linear_act_bt_kernel)   -- LN:    CLIP ln_1 + qkv,
 //                                                     SAM windowed LN1 + qkv
 //   ln_mask_linear_bt (_ln_mask_linear_bt_kernel)  -- LN and row mask: SAM
 //                      global LN1 + qkv, x (B, 4096, 1280), W (3840, 1280)
 //
-// Shapes on the main path (bf16): patch embed x (B*4096, 768) . W (1280, 768);
-// CLIP qkv x (B*581, 1024) . W (3072, 1024). These products do ~2 FLOP per
+// Shapes on the main path (bf16): CLIP qkv x (B*581, 1024) . W (3072, 1024),
+// SAM qkv x (B*4144, 1280) . W (3840, 1280). These products do ~2 FLOP per
 // weight byte per row tile, so the bound on the H100 is the tensor-core rate
 // (989 TFLOP/s dense bf16) once the tiles are reused; this first version
 // stages 64x32 tiles of x and W through shared memory and runs WMMA
@@ -33,7 +33,7 @@ constexpr int LL_LDA = LL_BK + 8;   // bf16 tile row pitch (multiple of 8)
 constexpr int LL_LDC = LL_BN + 4;   // fp32 epilogue pitch (multiple of 4)
 constexpr int LL_THREADS = 128;     // 4 warps, each a 32x32 quarter
 
-template <bool LN, bool MASK>
+template <bool MASK>
 __global__ void __launch_bounds__(LL_THREADS) ln_linear_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const bf16* __restrict__ mask,
@@ -47,21 +47,19 @@ __global__ void __launch_bounds__(LL_THREADS) ln_linear_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.y * LL_BM, n0 = blockIdx.x * LL_BN;
 
-  if (LN) {
-    for (int r = warp; r < LL_BM; r += LL_THREADS / 32) {
-      float mu = 0.f, rstd = 0.f;
-      if (m0 + r < M) row_stats(x + (size_t)(m0 + r) * K, K, eps, mu, rstd);
-      if (lane == 0) {
-        s_mu[r] = mu;
-        s_rstd[r] = rstd;
-        if (MASK) {
-          const int m = m0 + r;
-          s_mask[r] = m < M ? __bfloat162float(mask[((m / S) % nwin) * S + m % S]) : 0.f;
-        }
+  for (int r = warp; r < LL_BM; r += LL_THREADS / 32) {
+    float mu = 0.f, rstd = 0.f;
+    if (m0 + r < M) row_stats(x + (size_t)(m0 + r) * K, K, eps, mu, rstd);
+    if (lane == 0) {
+      s_mu[r] = mu;
+      s_rstd[r] = rstd;
+      if (MASK) {
+        const int m = m0 + r;
+        s_mask[r] = m < M ? __bfloat162float(mask[((m / S) % nwin) * S + m % S]) : 0.f;
       }
     }
-    __syncthreads();
   }
+  __syncthreads();
 
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
@@ -75,13 +73,10 @@ __global__ void __launch_bounds__(LL_THREADS) ln_linear_kernel(
       const int r = e / LL_BK, c = e % LL_BK, m = m0 + r, k = k0 + c;
       bf16 v = __float2bfloat16(0.f);
       if (m < M && k < K) {
-        v = x[(size_t)m * K + k];
-        if (LN) {
-          const float xn = (__bfloat162float(v) - s_mu[r]) * s_rstd[r];
-          float y = xn * gamma[k] + beta[k];
-          if (MASK) y *= s_mask[r];
-          v = __float2bfloat16(y);
-        }
+        const float xn = (__bfloat162float(x[(size_t)m * K + k]) - s_mu[r]) * s_rstd[r];
+        float y = xn * gamma[k] + beta[k];
+        if (MASK) y *= s_mask[r];
+        v = __float2bfloat16(y);
       }
       As[r * LL_LDA + c] = v;
     }
@@ -128,11 +123,10 @@ __global__ void __launch_bounds__(LL_THREADS) ln_linear_kernel(
 }  // namespace cvlm
 
 // x (M, K), w (N, K) [nn.Linear layout], bias (N,), out (M, N): bf16.
-// gamma/beta (K,) fp32, read only when has_ln. Returns cudaGetLastError().
+// gamma/beta (K,) fp32. Returns cudaGetLastError().
 extern "C" int cvlm_ln_linear(const void* x, const void* gamma, const void* beta,
                               const void* w, const void* bias, void* out, int M,
-                              int K, int N, float eps, int act, int has_ln,
-                              void* stream) {
+                              int K, int N, float eps, int act, void* stream) {
   using namespace cvlm;
   const dim3 grid((N + LL_BN - 1) / LL_BN, (M + LL_BM - 1) / LL_BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -142,12 +136,8 @@ extern "C" int cvlm_ln_linear(const void* x, const void* gamma, const void* beta
   const auto* wp = static_cast<const bf16*>(w);
   const auto* biasp = static_cast<const bf16*>(bias);
   auto* op = static_cast<bf16*>(out);
-  if (has_ln)
-    ln_linear_kernel<true, false><<<grid, LL_THREADS, 0, s>>>(
-        xp, gp, bp, nullptr, wp, biasp, op, M, K, N, 1, 1, eps, act);
-  else
-    ln_linear_kernel<false, false><<<grid, LL_THREADS, 0, s>>>(
-        xp, gp, bp, nullptr, wp, biasp, op, M, K, N, 1, 1, eps, act);
+  ln_linear_kernel<false><<<grid, LL_THREADS, 0, s>>>(
+      xp, gp, bp, nullptr, wp, biasp, op, M, K, N, 1, 1, eps, act);
   return (int)cudaGetLastError();
 }
 
@@ -160,7 +150,7 @@ extern "C" int cvlm_ln_mask_linear(const void* x, const void* gamma, const void*
                                    float eps, void* stream) {
   using namespace cvlm;
   const dim3 grid((N + LL_BN - 1) / LL_BN, (M + LL_BM - 1) / LL_BM);
-  ln_linear_kernel<true, true><<<grid, LL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  ln_linear_kernel<true><<<grid, LL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<const bf16*>(mask),
       static_cast<const bf16*>(w), static_cast<const bf16*>(bias), static_cast<bf16*>(out),

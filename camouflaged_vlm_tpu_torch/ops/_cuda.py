@@ -128,11 +128,11 @@ class CudaKernel:
         self.launches += 1
 
 
-# One entry per wrapper (and TPU kernel replaced); the first three are the
-# instantiations of csrc/ln_linear.cu: no LN, LN, LN with a row mask.
-_LN_LINEAR_ARGS = [P, P, P, P, P, P, I, I, I, F, I, I]
-LINEAR_ACT = CudaKernel("linear_act", "cvlm_ln_linear", _LN_LINEAR_ARGS)
-LN_LINEAR = CudaKernel("ln_linear_act_bt", "cvlm_ln_linear", _LN_LINEAR_ARGS)
+# One entry per wrapper (and TPU kernel replaced). The plain product is the
+# TMA + wgmma GEMM of csrc/linear.cu; the next two are the instantiations of
+# csrc/ln_linear.cu: LN, and LN with a row mask.
+LINEAR_ACT = CudaKernel("linear_act", "cvlm_linear", [P, P, P, P, I, I, I, I])
+LN_LINEAR = CudaKernel("ln_linear_act_bt", "cvlm_ln_linear", [P, P, P, P, P, P, I, I, I, F, I])
 LN_MASK_LINEAR = CudaKernel(
     "ln_mask_linear_bt", "cvlm_ln_mask_linear", [P, P, P, P, P, P, P, I, I, I, I, I, F]
 )

@@ -402,8 +402,10 @@ def flash_qkv_packed_global(
 ) -> torch.Tensor:
     """Global attention with the separable bias rel_h[q, k // W] +
     rel_w[q, k % W] -> d-major (B, heads*d, N). The kernel streams keys in
-    two passes (row statistics, then normalised P.V), so N is not bounded
-    by shared memory. Backward: `flash_qkv_packed_global_bwd` (TPU kernel
+    one pass (online softmax); it holds 128 queries' rel rows in shared
+    memory, so it refuses H + W > 587 at d = 80 (square images of 4704 px
+    and up).
+    Backward: `flash_qkv_packed_global_bwd` (TPU kernel
     #18)."""
     return _with_attn_bwd("flash_qkv_packed_global", _global_cuda,
                           _global_plain, flash_qkv_packed_global_bwd,

@@ -81,11 +81,11 @@ def _linear_act_cuda(x, w, b, activation):
     N = w.shape[0]
     if w.shape != (N, K) or b.shape != (N,):
         raise ValueError(f"linear_act: shapes x {x.shape} w {w.shape} b {b.shape}")
+    if K % 8:  # TMA row strides are multiples of 16 bytes
+        raise ValueError(f"linear_act: CUDA kernel takes K % 8 == 0, got K = {K}")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    _cuda.LINEAR_ACT(
-        x.data_ptr(), None, None, w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        M, K, N, 0.0, _cuda.ACTIVATIONS[activation], 0,
-    )
+    _cuda.LINEAR_ACT(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
+                     _cuda.ACTIVATIONS[activation])
     return out
 
 
@@ -122,7 +122,7 @@ def _ln_linear_act_bt_cuda(x, gamma, beta, w, b, eps, activation):
     out = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
     _cuda.LN_LINEAR(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), B * S, K, N, float(eps), _cuda.ACTIVATIONS[activation], 1,
+        out.data_ptr(), B * S, K, N, float(eps), _cuda.ACTIVATIONS[activation],
     )
     return out
 

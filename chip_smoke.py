@@ -9,8 +9,11 @@ never prints its last line):
   1. device   the card's name and power limit (nvidia-smi); no CUDA -> error
   2. build    nvcc builds the port's kernels (csrc/*.cu) for sm_90a
   3. kernels  each kernel against its plain PyTorch version at the main
-              path's full-width bf16 shapes, with errors and times (median
-              of CUDA-event timings after a warm-up), the padded carry's
+              path's full-width bf16 shapes, with errors and device times
+              (median of CUDA-event timings of calls launched on an idle
+              card, after a warm-up; beside it the kernel's and the library
+              call's time queued: 20 calls behind a device-side wait), the
+              general bias path of #17 at ViT-H's token count, the padded carry's
               kernels (#12, #11, #8) at ViT-H's windows 16 and 17, and the
               two that no path reaches (#9, #19) at the shapes they would take
   4. small    a small cascade in bf16 on the card against the same weights
@@ -48,6 +51,9 @@ never prints its last line):
               counts of every forward and backward kernel, frozen weights
               bit-identical, step times and peak memory; then one step cut
               into forward, backward and optimizer (CUDA events)
+  9b. train_val  the train CLI validating on the card: one bf16 step on 2
+              images, then --epoch-val 1's evaluate() of the test split;
+              finite MAE, ckpt_best.pt and best_mae, exact launch counts
  10. unfused  as vit_h, depth 2 at full width, for SAM ViT-B on 'flash' (12
               heads: the unfused path, TPU kernel #10 in both blocks) and
               SAM ViT-H on 'aug_flash' (#20 in the global block), each
@@ -71,8 +77,10 @@ there is one. Before its last line the script prints one JSON object
 {"kernels": [...]} of 19 kernels (one per wrapper; `ln_mlp_residual_bt`
 serves TPU kernels #4 and #5), each with its launches on its path, or, for
 #9 and #19, which no path reaches, in their check with a "path" field
-saying so; the last line is {"ok": true, "device": {...}}. Longer
-logs go to chiprun_out/chip_smoke/.
+saying so, and its times on both clocks (`ms`, `plain_ms`, `library_ms` on an
+idle card; `queued_ms`, `library_queued_ms` queued); the last line is
+{"ok": true, "device": {...}}. Longer
+logs, and every line above (smoke.log), go to OUT_DIR.
 """
 
 from __future__ import annotations
@@ -93,7 +101,11 @@ OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 # mean|d|/mean|ref|) in bf16. Both versions round the same values at the same
 # points (LN output, hidden, q*scale, probabilities, output) and differ only
 # in fp32 summation order, which can flip a bf16 rounding by one ulp
-# (2^-8 = 3.9e-3 relative); 1e-2 allows ~2.5 ulp.
+# (2^-8 = 3.9e-3 relative); 1e-2 allows ~2.5 ulp. One exception: the
+# one-pass global attention (#17, csrc/qkv_packed_global.cu) rounds the
+# probabilities unnormalised, exp(s - running max), and divides the output
+# by the row sum at the end, where the plain version normalises before the
+# rounding; that moves each probability's rounding by at most one ulp too.
 KERNEL_REL_BOUND = 1e-2
 # Small cascade, bf16 on the card vs fp32 on the CPU: bf16 keeps ~3 decimal
 # digits per op through 4 SAM blocks, the decoder and 3+3 CLIP layers.
@@ -140,16 +152,47 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+LOG_FILE = os.path.join(OUT_DIR, "smoke.log")
+
+
 def log(msg: str) -> None:
+    """A line to stdout and to LOG_FILE (a caller that keeps only the end of
+    a long run's output still finds every line there)."""
     print(msg, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(LOG_FILE, "a") as f:
+        f.write(msg + "\n")
 
 
-def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median of per-call CUDA-event times (ms) after a warm-up."""
+# device cycles the stream waits before a queued timing run (~50 ms), so that
+# the host can enqueue every call before the first one runs
+QUEUE_SLEEP_CYCLES = 100_000_000
+
+
+def time_ms(fn, warmup: int = 3, iters: int = 20, queued: bool = False) -> float:
+    """A call's device time (ms) after a warm-up. Not queued (the default,
+    the kernels line's `ms`, `plain_ms` and `library_ms`): the median of
+    per-call CUDA-event times, each call launched on an idle card, which
+    includes the launch when the host is slower than the kernel. Queued:
+    `iters` calls enqueued back to back behind a device-side wait, between
+    two CUDA events, divided by `iters`, so that the host's cost of a launch
+    (the Python wrapper, ctypes, the TMA descriptors) stays off the clock, as
+    it does inside a model whose host runs ahead of the card."""
     import torch
 
     for _ in range(warmup):
         fn()
+    if queued:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
@@ -223,6 +266,15 @@ def phase_build():
     log(f"[build] ptxas: {len(regs)} kernel instantiations, {min(regs, default=0)}-"
         f"{max(regs, default=0)} registers per thread, {len(spills)} with spills "
         f"{spills[:4]} (full log: {OUT_DIR}/nvcc.log)")
+    # the TMA + wgmma kernels: registers and spills per instantiation (their
+    # shared memory is dynamic, sized at launch)
+    lines = info.splitlines()
+    for i, ln in enumerate(lines):
+        m = re.search(r"Compiling entry function '(_ZN4cvlm(13linear_kernel|17qkv_global_kernel)"
+                      r"\S*)'", ln)
+        if m:
+            usage = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
+            log(f"[build] {m.group(1)}: {'; '.join(usage)}")
 
 
 def _check_kernel(name, kfn, pfn, args, timed=True, flops=None, reads=None, library=None):
@@ -243,19 +295,24 @@ def _check_kernel(name, kfn, pfn, args, timed=True, flops=None, reads=None, libr
     tensors = [a for a in (args if reads is None else reads) if isinstance(a, torch.Tensor)]
     b = bound(flops, nbytes(*tensors, got)) if flops is not None else {}
     del got, want
-    k_ms = time_ms(lambda: kfn(*args)) if timed else float("nan")
-    p_ms = time_ms(lambda: pfn(*args)) if timed else float("nan")
+    nan = float("nan")
+    k_ms = time_ms(lambda: kfn(*args)) if timed else nan
+    k_q = time_ms(lambda: kfn(*args), queued=True) if timed else nan
+    p_ms = time_ms(lambda: pfn(*args)) if timed else nan
     lib_ms = time_ms(library) if (timed and library is not None) else None
+    lib_q = time_ms(library, queued=True) if (timed and library is not None) else None
     extra = ""
     if b:
-        extra = (f" library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'} bound "
+        extra = (f" library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+                 f"{'' if lib_q is None else f' (queued {lib_q:.4f} ms)'} bound "
                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     log(f"[kernel] {name:40s} max_abs {e['max_abs_err']:.3e} max_rel {e['max_rel']:.3e} "
         f"mean_rel {e['mean_rel']:.3e} (bound {KERNEL_REL_BOUND}) kernel {k_ms:.4f} ms "
-        f"plain {p_ms:.4f} ms{extra}")
+        f"(queued {k_q:.4f} ms) plain {p_ms:.4f} ms{extra}")
     check(e["max_rel"] < KERNEL_REL_BOUND and e["mean_rel"] < KERNEL_REL_BOUND,
           f"{name} disagrees with its plain version: {e}")
-    return dict(max_abs_err=e["max_abs_err"], ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, **b)
+    return dict(max_abs_err=e["max_abs_err"], ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                queued_ms=k_q, library_queued_ms=lib_q, **b)
 
 
 def phase_kernels():
@@ -317,7 +374,7 @@ def phase_kernels():
                             sel32)
     bias_glob = torch.matmul(rel_glob.permute(1, 2, 0, 3), sel_glob)
     cases = [
-        ("linear_act", "camouflaged_vlm_tpu_torch/csrc/ln_linear.cu",
+        ("linear_act", "camouflaged_vlm_tpu_torch/csrc/linear.cu",
          "camouflaged_vlm_tpu/ops/linear.py:61",
          lin.linear_act, lin.linear_act_ref, (x_pe, w_pe, b_pe),
          2.0 * B * 4096 * 768 * 1280, None, lambda: F.linear(x_pe, w_pe, b_pe)),
@@ -399,6 +456,16 @@ def phase_kernels():
          (rn(B, 1, D, G * G), rn(D, D, std=0.02), rn(D, std=0.02), rn(B, 1, G * G, D)),
          2.0 * Mg * D * D),
     ]
+    # #17's general bias path (k / W, k % W per score) at ViT-H's token count,
+    # heads and d: a 32 x 128 grid, which the W == 64 register path does not
+    # take; its time against the 64 x 64 line above is what that path saves
+    rel_gen = rn(G * G, B, NH, 32 + 128)
+    sam_cases.append((
+        "flash_qkv_packed_global (general bias path, grid 32x128, 2x4096x3840)",
+        lambda *a: fa.flash_qkv_packed_global(*a, sam_scale, NH, HD, 32, 128),
+        lambda *a: fa.flash_qkv_packed_global_ref(*a, sam_scale, NH, HD),
+        (qkv_glob, rel_gen, fa.make_rel_scatter(32, 128, bf, dev)),
+        4.0 * B * NH * (G * G) ** 2 * HD))
     # the text tower's MLP shape is on the path too (checked, not timed)
     text_mlp = (rn(61, 77, 768), 1 + rn(768, std=0.1, dtype=torch.float32),
                 rn(768, std=0.1, dtype=torch.float32), rn(3072, 768, std=0.02),
@@ -859,15 +926,17 @@ def _check_grads(name, kfn, pfn, args, out_names, flops, reads):
     b = bound(flops, nbytes(*reads, *got))
     del got, want
     k_ms, p_ms = time_ms(lambda: kfn(*args)), time_ms(lambda: pfn(*args))
+    k_q = time_ms(lambda: kfn(*args), queued=True)
     parts = "; ".join(f"{o} max_rel {e['max_rel']:.3e} mean_rel {e['mean_rel']:.3e}"
                       for o, e in errs.items())
     log(f"[grads] {name}: {parts} (bound {KERNEL_REL_BOUND}); kernel {k_ms:.4f} ms "
-        f"plain {p_ms:.4f} ms library none bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        f"(queued {k_q:.4f} ms) plain {p_ms:.4f} ms library none bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']})")
     for o, e in errs.items():
         check(e["max_rel"] < KERNEL_REL_BOUND and e["mean_rel"] < KERNEL_REL_BOUND,
               f"{name} {o} disagrees with the plain backward: {e}")
     return dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), ms=k_ms,
-                plain_ms=p_ms, library_ms=None, **b)
+                plain_ms=p_ms, library_ms=None, queued_ms=k_q, library_queued_ms=None, **b)
 
 
 def phase_grads():
@@ -1120,6 +1189,58 @@ def phase_train_slice():
         f"{peak:.2f} GiB (torch.cuda.max_memory_allocated)")
     train_times(run)
     return counts
+
+
+def phase_train_val():
+    """The train CLI's validation on the card: one epoch of 2 synthetic
+    images at batch 2 (one step) with --epoch-val 1, so evaluate() runs on
+    the model that has just taken a bf16 step (the 2-image test split at
+    batch 1); its [val epoch 1] result, ckpt_best.pt and best_mae. Launches
+    counted apart from train_slice's."""
+    import torch
+    from camouflaged_vlm_tpu_torch.cli import train as train_cli
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.data.synthetic import write_synthetic_ovcamo
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    work = os.path.join("build", "chip_smoke_train_val")
+    shutil.rmtree(work, ignore_errors=True)
+    info = write_synthetic_ovcamo(os.path.join(work, "ovcamo_synthetic"), n_train=2,
+                                  n_test=2, seed=0, train_classes=("owl", "frog"),
+                                  test_classes=tuple(TEST_CLASS_NAMES))
+    save_dir = os.path.join(work, "save")
+    torch.cuda.empty_cache()
+    _cuda.reset_launches()
+    run = train_cli.main(["--dataset-info", info, "--save-dir", save_dir, "--device", "cuda",
+                          "--dtype", "bfloat16", "--epochs", "1", "--batch-size", "2",
+                          "--epoch-val", "1", "--seed", "0"])
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    cfg = run["model"].cfg
+    vals = run["validations"]
+    check(run["step"] == 1 and [v["epoch"] for v in vals] == [1],
+          f"train_val: {run['step']} steps, validations {vals}")
+    mae = vals[0]["mae"]
+    check(np.isfinite(mae) and all(np.isfinite(v) for v in vals[0].values()),
+          f"train_val: {vals[0]}")
+    check(vals[0]["images"] == 2, f"train_val: {vals[0]['images']} images validated")
+    with open(os.path.join(save_dir, "ckpt_meta.json")) as f:
+        meta = json.load(f)
+    logtext = open(os.path.join(save_dir, "log.txt")).read()
+    check(os.path.exists(os.path.join(save_dir, "ckpt_best.pt")), "train_val: no ckpt_best.pt")
+    check(meta.get("best_mae") == mae == run["best_mae"], f"train_val: meta {meta}, mae {mae}")
+    check("[val epoch 1]" in logtext, "train_val: no [val epoch 1] line in the train log")
+    # one train step (text tower once, one CLIP pass, SAM backward), then
+    # evaluate(): the text tower again, a warm-up call and 2 calls at batch 1
+    expected = expected_launches(cfg, 1, clip_passes=1, backward=True)
+    for k, n in expected_launches(cfg, 3).items():
+        expected[k] += n
+    log(f"[train_val] 1 step, [val epoch 1] mae {mae} sm {vals[0]['sm']}; ckpt_best.pt and "
+        f"best_mae {meta['best_mae']} written; kernel launches {counts} expected {expected}")
+    check(counts == expected, f"train_val launch counts {counts} != expected {expected}")
+    shutil.rmtree(work)
+    del run
+    torch.cuda.empty_cache()
 
 
 def train_times(run, iters=3):
@@ -1380,6 +1501,8 @@ def config_stage_times(cfg, label):
 
 
 def main() -> None:
+    if os.path.exists(LOG_FILE):
+        os.remove(LOG_FILE)
     name, smi = phase_device()
     phase_build()
     results = phase_kernels()
@@ -1390,6 +1513,7 @@ def main() -> None:
     grads = phase_grads()
     phase_train_small()
     train_counts = phase_train_slice()
+    phase_train_val()
     phase_unfused()
     evals = phase_eval_slice()
     import torch
@@ -1410,6 +1534,7 @@ def main() -> None:
          "launches": r["launches"] if k in NO_PATH else launches[k],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "queued_ms": r["queued_ms"], "library_queued_ms": r["library_queued_ms"],
          **({"path": r["path"]} if k in NO_PATH else {})}
         for res in (results, grads) for k, r in res.items()
     ]

@@ -328,8 +328,9 @@ def test_evaluate_matches_jax(synthetic):
 
 def test_evaluate_cli_on_cpu_writes_results(synthetic, tmp_path, capsys):
     """The CLI with `--config` (a native tiny yaml) on the CPU; the train CLI
-    trains from the same yaml. `--device cuda` without a card raises before
-    any output."""
+    trains from the same yaml, whose train section sets its recipe (one
+    epoch at batch 2, validated after it). `--device cuda` without a card
+    raises before any output."""
     raw = yaml.safe_load(open(VIT_B_YAML))
     m = raw["model"]
     m.update(inp_size=64, clip_size=28, dtype="float32")
@@ -339,6 +340,7 @@ def test_evaluate_cli_on_cpu_writes_results(synthetic, tmp_path, capsys):
     m["clip"] = dict(image_resolution=28, vision_patch_size=14, vision_width=32,
                      vision_layers=3, vision_heads=4, embed_dim=16, transformer_width=24,
                      transformer_heads=4, transformer_layers=3, n_ctx=2, prompt_depth=2)
+    raw["train"] = {"epochs": 1, "batch_size": 2, "epoch_val": 1}
     path = tmp_path / "tiny.yaml"
     path.write_text(yaml.safe_dump(raw))
     out = tmp_path / "eval"
@@ -353,9 +355,10 @@ def test_evaluate_cli_on_cpu_writes_results(synthetic, tmp_path, capsys):
     from camouflaged_vlm_tpu_torch.cli import train as train_cli
 
     run = train_cli.main(["--dataset-info", synthetic, "--config", str(path), "--device", "cpu",
-                          "--epochs", "1", "--batch-size", "2", "--epoch-val", "2",
+                          "--epochs", "5", "--batch-size", "4", "--epoch-val", "3",
                           "--save-dir", str(tmp_path / "train")])
     assert run["step"] == 2 and run["model"].cfg.encoder.num_heads == 12
+    assert [v["epoch"] for v in run["validations"]] == [1]
     assert all(np.isfinite(v) for v in run["epochs"][0].values())
     moved = [n for n, p in run["model"].named_parameters() if p.requires_grad]
     assert moved

@@ -52,8 +52,11 @@ def assert_close(got, want):
 
 
 @pytest.mark.parametrize("activation", ACTS)
-@pytest.mark.parametrize("M,K,N", [(100, 768, 40), (67, 96, 130)])
+@pytest.mark.parametrize("M,K,N", [(100, 768, 40), (67, 96, 130), (8192, 768, 1280),
+                                   (130, 200, 264)])
 def test_linear_act_kernel(gen, activation, M, K, N):
+    """Ragged M and N, K not a multiple of the 64-deep tile (96, 200), and
+    the patch embed's shape at batch 2."""
     args = (rn(gen, M, K), rn(gen, N, K, std=0.05), rn(gen, N, std=0.1))
     before = _cuda.LINEAR_ACT.launches
     got = linear.linear_act(*args, activation=activation)
@@ -142,8 +145,15 @@ def test_flash_qkv_packed_edge_kernel(gen, H, W, win, heads, d):
 
 
 @pytest.mark.parametrize("B,H,W,heads,d", [(2, 8, 8, 2, 80), (1, 10, 10, 8, 16),
-                                           (1, 6, 10, 2, 64), (1, 64, 64, 1, 80)])
+                                           (1, 6, 10, 2, 64), (1, 64, 64, 1, 80),
+                                           (2, 64, 64, 2, 80), (1, 7, 9, 2, 32),
+                                           (1, 5, 20, 1, 80), (1, 8, 64, 2, 16),
+                                           (1, 9, 64, 1, 128), (1, 16, 16, 2, 128),
+                                           (1, 2, 128, 1, 64)])
 def test_flash_qkv_packed_global_kernel(gen, B, H, W, heads, d):
+    """ViT-H's 64 x 64 grid (W equal to the 64-key tile: the bias in
+    registers) at d = 80, 16 and 128; W not a multiple of the tile and
+    ragged N (63, 100 keys); W a multiple of the tile but not equal (128)."""
     N = H * W
     qkv = rn(gen, B, N, 3 * heads * d)
     rel = rn(gen, N, B, heads, H + W)
@@ -167,8 +177,18 @@ def test_kernels_refuse_what_they_do_not_take(gen):
                                   w1[:, :96].contiguous(), b1, w2[:96].contiguous(), b2[:96])
     with pytest.raises(ValueError, match="contiguous"):
         linear.linear_act(x[0].t(), rn(gen, 8, 5), rn(gen, 8))
+    with pytest.raises(ValueError, match="K % 8"):  # TMA strides: 16-byte multiples
+        linear.linear_act(rn(gen, 4, 100), rn(gen, 8, 100), rn(gen, 8))
     with pytest.raises(ValueError, match="unsupported devices"):  # mixed devices
         linear.linear_act(x[0], rn(gen, 8, 128).cpu(), rn(gen, 8))
+    # the global attention holds 128 queries' rel rows in shared memory:
+    # H + W = 397 is beyond it at d = 128
+    H, W = 1, 396
+    sel = flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="cvlm_qkv_packed_global"):
+        flash_attention.flash_qkv_packed_global(rn(gen, 1, H * W, 3 * 128),
+                                                rn(gen, H * W, 1, 1, H + W), sel,
+                                                128 ** -0.5, 1, 128, H, W)
     # a weight that needs its gradient goes through the plain-VJP Function:
     # the kernel forward, the plain version's gradient
     wg = rn(gen, 8, 128).requires_grad_(True)

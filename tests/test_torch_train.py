@@ -9,7 +9,8 @@ holds the hand-written backward formulas (the fused MLP, the windowed and
 the global attention) inside the whole step against JAX's
 `value_and_grad`. Then the port's own equalities (the prompt-bank path
 against the hoisted text features, accumulation against the full batch)
-and the train CLI (one epoch, resume, its refusals).
+and the train CLI (one epoch, resume, the yaml's recipe against JAX's CLI,
+validation inside the run, the test-split text conditioning, its refusals).
 
 Tolerances: losses and pooling 1e-6 (fp32 both sides, a few reductions);
 AdamW 1e-6 relative (elementwise, the same formulas); the slice's loss
@@ -330,15 +331,21 @@ def _cli(info, save_dir, *extra):
                      str(save_dir), *extra])
 
 
-def test_train_cli_epoch_then_resume_equals_uninterrupted(synthetic_dataset, tmp_path):
-    full = _cli(synthetic_dataset, tmp_path / "full")
+@pytest.mark.parametrize("epoch_val", ["3", "1"])
+def test_train_cli_epoch_then_resume_equals_uninterrupted(synthetic_dataset, tmp_path,
+                                                          epoch_val):
+    """With --epoch-val 1 the stop epoch is a validation epoch: the cut run
+    validates it before it exits, the resumed run the next one, as the
+    uninterrupted run does both."""
+    full = _cli(synthetic_dataset, tmp_path / "full", "--epoch-val", epoch_val)
     assert full["step"] == 6 and len(full["epochs"]) == 2
     assert all(np.isfinite(v) for e in full["epochs"] for v in e.values())
-    first = _cli(synthetic_dataset, tmp_path / "cut", "--stop-after-epoch", "1")
+    first = _cli(synthetic_dataset, tmp_path / "cut", "--stop-after-epoch", "1",
+                 "--epoch-val", epoch_val)
     assert first["step"] == 3 and (tmp_path / "cut" / "ckpt_last.pt").exists()
     frozen = {k: v.clone() for k, v in first["model"].state_dict().items()
               if not train.optim.is_trainable(k)}
-    resumed = _cli(synthetic_dataset, tmp_path / "cut", "--resume")
+    resumed = _cli(synthetic_dataset, tmp_path / "cut", "--resume", "--epoch-val", epoch_val)
     assert resumed["step"] == 6 and len(resumed["epochs"]) == 1
     a, b = full["model"].state_dict(), resumed["model"].state_dict()
     for k in a:
@@ -346,14 +353,25 @@ def test_train_cli_epoch_then_resume_equals_uninterrupted(synthetic_dataset, tmp
     for k, v in frozen.items():  # frozen weights never move
         assert torch.equal(b[k], v), k
     assert "training done" in (tmp_path / "cut" / "log.txt").read_text()
+    vals = first["validations"] + resumed["validations"]
+    assert [v["epoch"] for v in vals] == [v["epoch"] for v in full["validations"]]
+    for got, want in zip(vals, full["validations"]):
+        assert got["mae"] == pytest.approx(want["mae"], abs=1e-6)
+    assert resumed["best_mae"] == pytest.approx(full["best_mae"], abs=1e-6)
+    assert (tmp_path / "cut" / "ckpt_best.pt").exists() == (epoch_val == "1")
 
 
 def test_train_cli_refuses_validation_and_missing_card(synthetic_dataset, tmp_path):
+    """Validation inside the run is accepted now (--epoch-val <= --epochs);
+    what the CLI still refuses: an epoch_val below 1, a batch that the
+    accumulation does not divide, and --device cuda without a card."""
     from camouflaged_vlm_tpu_torch.cli import train as cli
 
+    args = cli.parse_args(["--dataset-info", synthetic_dataset, "--epochs", "2",
+                           "--epoch-val", "2"])
+    assert (args.epochs, args.epoch_val) == (2, 2)
     with pytest.raises(SystemExit):
-        cli.parse_args(["--dataset-info", synthetic_dataset, "--epochs", "2",
-                        "--epoch-val", "2"])
+        cli.parse_args(["--dataset-info", synthetic_dataset, "--epoch-val", "0"])
     with pytest.raises(SystemExit):
         cli.parse_args(["--dataset-info", synthetic_dataset, "--epochs", "2",
                         "--epoch-val", "3", "--batch-size", "3", "--accum-steps", "2"])
@@ -363,10 +381,142 @@ def test_train_cli_refuses_validation_and_missing_card(synthetic_dataset, tmp_pa
                       "--epochs", "1", "--epoch-val", "2", "--save-dir", str(tmp_path)])
 
 
-def test_epoch_val_refusal_names_the_missing_module(synthetic_dataset, capsys):
+def test_epoch_val_refusal_names_the_missing_module(synthetic_dataset, tmp_path):
+    """Validation inside the run is `cli/evaluate.py`'s evaluate() on the
+    model as it stands: every --epoch-val epochs a [val epoch N] line, the
+    lowest MAE saved as ckpt_best.pt and best_mae in ckpt_meta.json, which a
+    --resume reads back; the numbers equal evaluate() on the same weights."""
+    import json
+
+    from camouflaged_vlm_tpu_torch.cli.evaluate import evaluate
+    from camouflaged_vlm_tpu_torch.data.ovcamo import OVCamoIndex
+
+    save = tmp_path / "val"
+    run = _cli(synthetic_dataset, save, "--epoch-val", "1")
+    assert [v["epoch"] for v in run["validations"]] == [1, 2]
+    maes = [v["mae"] for v in run["validations"]]
+    assert run["best_mae"] == min(maes) and np.isfinite(run["best_mae"])
+    assert (save / "ckpt_best.pt").exists()
+    meta = json.loads((save / "ckpt_meta.json").read_text())
+    assert meta["best_mae"] == run["best_mae"] and meta["epoch"] == 2
+    logtext = (save / "log.txt").read_text()
+    assert "[val epoch 1]" in logtext and "[val epoch 2]" in logtext
+    # the last validation ran on the final weights, at batch max(1, 2 // 2)
+    import yaml
+
+    with open(synthetic_dataset) as f:
+        index = OVCamoIndex.from_dataset_info(yaml.safe_load(f), "test")
+    bank = make_bank_inputs(run["model"].cfg, index.classes, seed=0)
+    want = evaluate(run["model"], run["model"].cfg, bank, index, batch_size=1)
+    got = run["validations"][-1]
+    for k, v in want.items():
+        if k != "images_per_sec":
+            assert got[k] == pytest.approx(v, abs=1e-4), k
+    # a resume keeps best_mae (epoch 3 runs no validation)
+    resumed = _cli(synthetic_dataset, save, "--resume", "--epochs", "3", "--epoch-val", "5")
+    assert resumed["step"] == 9 and resumed["validations"] == []
+    assert resumed["best_mae"] == run["best_mae"]
+    assert json.loads((save / "ckpt_meta.json").read_text())["best_mae"] == run["best_mae"]
+    assert f"(best mae {run['best_mae']})" in (save / "log.txt").read_text()
+
+
+RECIPE = {"epochs": 3, "batch_size": 6, "lr": 1e-3, "eta_min": 1e-6, "epoch_val": 1,
+          "loss": "bce"}
+
+
+def _jax_cli_recipe(argv, monkeypatch, tmp_path):
+    """The recipe JAX's train CLI resolves (flags, then the yaml's train
+    section over them, camouflaged_vlm_tpu/cli/train.py:180-183): its main()
+    runs up to the model assembly, which is stopped there."""
+    import argparse
+    import sys
+
+    from camouflaged_vlm_tpu.cli import train as jcli
+
+    seen = {}
+    parse = argparse.ArgumentParser.parse_args
+
+    def keep(self, *a, **k):
+        seen["args"] = parse(self, *a, **k)
+        return seen["args"]
+
+    class Stop(Exception):
+        pass
+
+    def stop(*a, **k):
+        raise Stop
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", keep)
+    monkeypatch.setattr(jcli, "assemble_cascade", stop)
+    monkeypatch.setattr(sys, "argv", ["train", *argv, "--save-dir", str(tmp_path / "jax")])
+    with pytest.raises(Stop):
+        jcli.main()
+    return {k: getattr(seen["args"], k) for k in RECIPE}
+
+
+@pytest.mark.parametrize("fmt", ["native", "reference"])
+def test_train_cli_reads_the_yaml_recipe_as_jax(synthetic_dataset, tmp_path, monkeypatch, fmt):
+    """With --config, the yaml's train section (a reference-format yaml's
+    epoch_max, lr_min, optimizer lr, batch size, epoch_val and loss) replaces
+    the flags exactly as in JAX's CLI; the result differs from the flags'
+    defaults, and the accumulation check runs on the resolved batch."""
+    import yaml
+
     from camouflaged_vlm_tpu_torch.cli import train as cli
 
-    with pytest.raises(SystemExit):
-        cli.parse_args(["--dataset-info", synthetic_dataset, "--epochs", "1",
-                        "--epoch-val", "1"])
-    assert "cli/evaluate.py" in capsys.readouterr().err
+    path = tmp_path / f"{fmt}.yaml"
+    if fmt == "native":
+        with open("configs/ovcos-sam-vit-h-maskdecoder-edge.yaml") as f:
+            raw = yaml.safe_load(f)
+        raw["train"] = dict(RECIPE)
+    else:
+        raw = {"model": {"name": "sam", "args": {"inp_size": 1024, "loss": "bce",
+                                                  "encoder_mode": {"name": "sam"}}},
+               "epoch_max": 3, "epoch_val": 1, "lr_min": 1e-6,
+               "optimizer": {"name": "adamw", "args": {"lr": 1e-3}},
+               "train_dataset": {"batch_size": 6}}
+    path.write_text(yaml.safe_dump(raw))
+    argv = ["--dataset-info", synthetic_dataset, "--config", str(path)]
+    args = cli.parse_args(argv)
+    got = {k: getattr(args, k) for k in RECIPE}
+    assert got == RECIPE
+    assert got == _jax_cli_recipe(argv, monkeypatch, tmp_path)
+    defaults = cli.parse_args(["--dataset-info", synthetic_dataset])
+    assert all(getattr(defaults, k) != v for k, v in RECIPE.items())
+    with pytest.raises(SystemExit):  # batch 6 from the yaml, 4 microbatches
+        cli.parse_args(argv + ["--accum-steps", "4"])
+
+
+def test_train_cli_text_features_are_jax_val_bank_features(synthetic_dataset, tmp_path,
+                                                           monkeypatch):
+    """The reference's quirk: the training forward is conditioned on the
+    TEST split's class-text features. The port's CLI encodes them from the
+    test classes' bank; JAX's CLI from `val_bank` (cli/train.py:278-309).
+    On the same random weights (JAX's tiny cascade, seed 0, loaded into the
+    port's model) the two are equal."""
+    import yaml
+
+    from camouflaged_vlm_tpu.cli.common import assemble_cascade
+    from camouflaged_vlm_tpu.data.ovcamo import OVCamoIndex as JIndex
+    from camouflaged_vlm_tpu_torch.cli import train as cli
+
+    with open(synthetic_dataset) as f:
+        info = yaml.safe_load(f)
+    train_index, val_index = JIndex.from_dataset_info(info, "train"), \
+        JIndex.from_dataset_info(info, "test")
+    jmodel, _, params, _, make_bank = assemble_cascade(
+        train_index.classes, dtype=jnp.float32, tiny=True, seed=0, return_bank_builder=True)
+    val_bank = make_bank(val_index.classes)
+    jtf = jmodel.apply(params, val_bank["prefix"], val_bank["suffix"],
+                       val_bank["eot_indices"], val_bank["bank_features"],
+                       method=jmodel.encode_class_text_features)
+
+    def build_with_jax_weights(cfg, device, seed):
+        model = build_cascade(cfg, device, seed)
+        load_jax_params(model, jax.tree.map(np.asarray, params), cfg)
+        return model
+
+    monkeypatch.setattr(cli, "build_cascade", build_with_jax_weights)
+    run = _cli(synthetic_dataset, tmp_path / "tf", "--epochs", "1")
+    assert set(val_index.classes) != set(train_index.classes)
+    close(run["text_features"], np.asarray(jtf), 1e-5)
