@@ -1,21 +1,21 @@
 // attn_rows: per head, o = softmax((q*scale) . k^T + bias) . v over sequences
 // short enough that a block holds whole score rows in shared memory, read
 // straight from the packed qkv projection and written d-major. One template,
-// three bias modes:
+// two bias modes:
 //
-//   ROWS_PLAIN    no bias                      (CLIP vision, qkv_packed_plain.cu)
-//   ROWS_WINDOWS  decomposed rel-pos bias      (SAM windows: the compact
-//                 carry's interior windows, the padded carry's windows and
-//                 the global blocks with H + W <= 32)
+//   ROWS_WINDOWS  decomposed rel-pos bias      (SAM: the padded carry's
+//                 windows and the global blocks with H + W <= 32, #12)
 //   ROWS_EDGE     the same per edge window, plus dummy-key mask and the
-//                 virtual pad key              (SAM edge windows)
+//                 virtual pad key              (SAM edge windows, #15)
+//
+// (CLIP's attention, #16, and the compact carry's interior windows, #13,
+// left this kernel for the TMA + wgmma kernels of attn_sm90.cuh.)
 //
 // Layouts: qkv (BB, S, 3*H*d), last axis [q heads | k heads | v heads];
 // out (BB, H*d, S). BB is the batch of windows (B*nwin for the windows,
 // B*n_edge for the edges). The rel lanes of query q of window b start at
-// rel + q * rel_sq + b * rel_sb: position-major (S, BB, H*32) for the
-// compact carry's windows, window-major (BB, S, H*32) for the padded
-// carry's and the edges'. Grid (ceil(S/32), heads, BB), 128 threads.
+// rel + q * rel_sq + b * rel_sb: window-major (BB, S, H*32) for both.
+// Grid (ceil(S/32), heads, BB), 128 threads.
 //
 // One block owns 32 queries of one head and holds their whole score rows
 // (32 x Spad fp32, Spad = S rounded up to 64) in shared memory, so the
@@ -40,14 +40,17 @@
 //
 // What bounds it on the H100: the score rows' round trip through shared
 // memory and the per-tile synchronisation, not the tensor cores (WMMA
-// 16x16x16, no wgmma, no TMA). A flash-style version is later work.
+// 16x16x16, no wgmma, no TMA), and k and v read again by every block of 32
+// queries. qkv_packed_windows_s.cu is the design that replaces it: k and v
+// loaded once per window by TMA, the bias on the tensor cores, whole score
+// rows in wgmma's registers (PERF.md).
 #pragma once
 
 #include "common.cuh"
 
 namespace cvlm {
 
-enum RowsMode { ROWS_PLAIN = 0, ROWS_WINDOWS = 1, ROWS_EDGE = 2 };
+enum RowsMode { ROWS_WINDOWS = 1, ROWS_EDGE = 2 };
 
 constexpr int AR_BQ = 32, AR_KT = 64, AR_THREADS = 128;
 constexpr int REL_LANES = 32, LPAD_LANE = 28;
@@ -78,10 +81,10 @@ __device__ __forceinline__ void load_rows(bf16* dst, int ldd, const bf16* src, s
 
 __host__ __device__ constexpr int rows_spad(int S) { return (S + AR_KT - 1) / AR_KT * AR_KT; }
 
-template <int DH, int MODE>
+template <int DH>
 __host__ __device__ constexpr size_t rows_smem(int S) {
   return sizeof(float) * AR_BQ * ((rows_spad(S) > DH ? rows_spad(S) : DH) + 4) +
-         (MODE == ROWS_PLAIN ? 0 : sizeof(float) * (2 * rows_spad(S) + AR_BQ)) +
+         sizeof(float) * (2 * rows_spad(S) + AR_BQ) +
          sizeof(bf16) * AR_BQ * (rows_spad(S) + 8) + sizeof(bf16) * (AR_BQ + AR_KT) * (DH + 8);
 }
 
@@ -99,7 +102,7 @@ __global__ void __launch_bounds__(AR_THREADS) attn_rows_kernel(
   float* kadd = Ss + AR_BQ * ((Spad > DH ? Spad : DH) + 4);  // Spad: kmask per key
   int* kcode = reinterpret_cast<int*>(kadd + Spad);          // Spad: lo | hi << 8, or -1
   float* padw = reinterpret_cast<float*>(kcode + Spad);      // BQ: pp / l per row
-  bf16* Ps = reinterpret_cast<bf16*>(MODE == ROWS_PLAIN ? kadd : padw + AR_BQ);  // BQ x LDP
+  bf16* Ps = reinterpret_cast<bf16*>(padw + AR_BQ);          // BQ x LDP
   bf16* Qs = Ps + AR_BQ * LDP;                                // BQ x LDH
   bf16* KV = Qs + AR_BQ * LDH;                                // KT x LDH
 
@@ -167,23 +170,20 @@ __global__ void __launch_bounds__(AR_THREADS) attn_rows_kernel(
     float* row = Ss + r * LDS;
     const int q = q0 + r;
     float rv = 0.f;  // this lane's rel value of query q
-    if (MODE != ROWS_PLAIN && q < S)
+    if (q < S)
       rv = __bfloat162float(
           rb.rel[(size_t)q * rb.rel_sq + (size_t)b * rb.rel_sb + h * REL_LANES + lane]);
     float mx = -INFINITY;
     for (int kb = 0; kb < S; kb += 32) {  // warp-uniform trip count: shuffles inside
       const int k = kb + lane;
       float bias = 0.f, km = 0.f;
-      if (MODE != ROWS_PLAIN) {
-        const int code = k < S ? kcode[k] : -1;
-        const float lo = __shfl_sync(0xffffffffu, rv, code & 31);
-        const float hi = __shfl_sync(0xffffffffu, rv, (code >> 8) & 31);
-        if (code >= 0) bias = lo + hi;
-        if (k < S) km = kadd[k];
-      }
+      const int code = k < S ? kcode[k] : -1;
+      const float lo = __shfl_sync(0xffffffffu, rv, code & 31);
+      const float hi = __shfl_sync(0xffffffffu, rv, (code >> 8) & 31);
+      if (code >= 0) bias = lo + hi;
+      if (k < S) km = kadd[k];
       if (k < S) {
-        float s = row[k];
-        if (MODE != ROWS_PLAIN) s = s + bias + km;
+        const float s = row[k] + bias + km;
         row[k] = s;
         mx = fmaxf(mx, s);
       }
@@ -264,7 +264,7 @@ __global__ void __launch_bounds__(AR_THREADS) attn_rows_kernel(
 template <int DH, int MODE>
 int launch_attn_rows(const void* qkv, void* out, int BB, int S, int heads, float scale,
                      const RowsBias& rb, cudaStream_t s) {
-  const size_t smem = rows_smem<DH, MODE>(S);
+  const size_t smem = rows_smem<DH>(S);
   cudaError_t err = cudaFuncSetAttribute(attn_rows_kernel<DH, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);

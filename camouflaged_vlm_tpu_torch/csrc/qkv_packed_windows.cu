@@ -1,12 +1,9 @@
-// qkv_packed_windows / qkv_packed_edge: SAM's windowed attention, per window
-// and head
+// qkv_packed_windows / qkv_packed_edge: SAM's windowed attention on the
+// padded carry and the compact carry's edge windows, per window and head
 //   o = softmax((q*scale) . k^T + rel_h[q, kh] + rel_w[q, kw]) . v,
 // read straight from the packed qkv projection, written d-major.
 //
-// Replaces three TPU kernels of camouflaged_vlm_tpu/ops/flash_attention.py:
-//   flash_qkv_packed_windows_s (_qkv_packed_windows_s_kernel) -- the compact
-//     carry's interior windows: qkv (B*16, 196, 3840), rel_s (196, B*16,
-//     16*32) position-major, out (B*16, 1280, 196) at ViT-H;
+// Replaces two TPU kernels of camouflaged_vlm_tpu/ops/flash_attention.py:
 //   flash_qkv_packed_windows (_qkv_packed_windows_kernel) -- the padded
 //     window carry (windows of 15 or 16, which the compact layout cannot
 //     take) and the global blocks of at most 512 tokens with H + W <= 32:
@@ -19,33 +16,31 @@
 //     with 48 dummy rows): qkv (B, 9, 112, 3840), rel (B, 9, 112, 16*32)
 //     with the virtual pad key's logit in lane 28, vb (16, 80), kmask
 //     (9, 1, 112), out (B, 9, 1280, 112).
-// All are attn_rows.cuh's whole-score-row kernel (its header says how the
-// bias is built by indexing and where it rounds); the first two differ only
-// in the rel layout (strides). The windows take each key's (kh, kw) from the
-// window side; the edges take them from their window's column of `sel`, so a
-// key's kh/kw follow its group's (nr, nc) grid, and add the 0 / -1e30 of
-// `kmask`, as the JAX `ref` does (flash_attention.py:781-807). The virtual
-// pad key joins the row max and the row sum and adds (pp / l) * vb in fp32.
+// Both are attn_rows.cuh's whole-score-row kernel (its header says how the
+// bias is built by indexing and where it rounds). The windows take each
+// key's (kh, kw) from the window side; the edges take them from their
+// window's column of `sel`, so a key's kh/kw follow its group's (nr, nc)
+// grid, and add the 0 / -1e30 of `kmask`, as the JAX `ref` does
+// (flash_attention.py:781-807). The virtual pad key joins the row max and
+// the row sum and adds (pp / l) * vb in fp32. (The compact carry's interior
+// windows, #13, are qkv_packed_windows_s.cu.)
 //
-// What bounds it on the H100: 196-256 (112) keys per row make short WMMA
+// What bounds it on the H100: 256 (112) keys per row make short WMMA
 // pipelines; the block's time goes to the shared-memory score round trip and
 // the softmax, ~0.2 GFLOP per window-batch of one image (see PERF.md). 256
 // keys take ~68 KB of shared memory per block, three blocks per SM.
 #include "attn_rows.cuh"
 
-// qkv (BW, win*win, 3*heads*d), out (BW, heads*d, win*win): bf16. rel:
-// position-major (win*win, BW, heads*32) when window_major == 0, window-major
-// (BW, win*win, heads*32) otherwise; 2 * win <= 32. Returns
+// qkv (BW, win*win, 3*heads*d), rel (BW, win*win, heads*32) window-major,
+// out (BW, heads*d, win*win): bf16; 2 * win <= 32. Returns
 // cudaGetLastError().
 extern "C" int cvlm_qkv_packed_windows(const void* qkv, const void* rel, void* out, int BW,
-                                       int win, int heads, int d, float scale,
-                                       int window_major, void* stream) {
+                                       int win, int heads, int d, float scale, void* stream) {
   using namespace cvlm;
   const int S = win * win;
   const size_t lanes = (size_t)heads * REL_LANES;
-  const size_t sq = window_major ? lanes : (size_t)BW * lanes;
-  const size_t sb = window_major ? (size_t)S * lanes : lanes;
-  const RowsBias rb{static_cast<const bf16*>(rel), sq, sb, nullptr, nullptr, nullptr, win, 1};
+  const RowsBias rb{static_cast<const bf16*>(rel), lanes, (size_t)S * lanes, nullptr, nullptr,
+                    nullptr, win, 1};
   return dispatch_attn_rows<ROWS_WINDOWS>(qkv, out, BW, S, heads, d, scale, rb,
                                           static_cast<cudaStream_t>(stream));
 }

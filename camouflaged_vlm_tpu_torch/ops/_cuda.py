@@ -143,10 +143,11 @@ PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, I, I
 QKV_PACKED_PLAIN = CudaKernel(
     "flash_qkv_packed_plain", "cvlm_qkv_packed_plain", [P, P, I, I, I, I, F]
 )
-# the windows' attention of the compact carry (#13, rel position-major) and
-# of the padded carry (#12, rel window-major): one entry point
-_QKV_WINDOWS_ARGS = [P, P, P, I, I, I, I, F, I]
-QKV_WINDOWS = CudaKernel("flash_qkv_packed_windows_s", "cvlm_qkv_packed_windows",
+# the windows' attention: the compact carry's (#13, rel position-major,
+# csrc/qkv_packed_windows_s.cu) and the padded carry's (#12, rel
+# window-major, csrc/qkv_packed_windows.cu)
+_QKV_WINDOWS_ARGS = [P, P, P, I, I, I, I, F]
+QKV_WINDOWS = CudaKernel("flash_qkv_packed_windows_s", "cvlm_qkv_packed_windows_s",
                          _QKV_WINDOWS_ARGS)
 QKV_WINDOWS_PADDED = CudaKernel("flash_qkv_packed_windows", "cvlm_qkv_packed_windows",
                                 _QKV_WINDOWS_ARGS)

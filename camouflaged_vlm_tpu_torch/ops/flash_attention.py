@@ -48,25 +48,16 @@ from . import _cuda, autograd
 from .compact_window import LPAD_LANE, REL_LANES
 from .layers import scaled
 
-# Shared memory of one block of the whole-score-row kernels (csrc/attn_rows.cuh):
-# 32 query rows of fp32 scores and bf16 probabilities over the padded key
-# length, plus q and k/v tiles (and per-key bias codes for the rel-pos modes).
-_SMEM_LIMIT = 232448
 _HEAD_DIMS = (16, 32, 64, 80, 128)
 
 
-def _rows_smem(S: int, d: int, bias: bool = False) -> int:
-    s_pad = -(-S // 64) * 64
-    extra = 4 * (2 * s_pad + 32) if bias else 0
-    return 4 * 32 * (max(s_pad, d) + 4) + extra + 2 * 32 * (s_pad + 8) + 2 * 96 * (d + 8)
-
-
-def _check_head_dim(name: str, S: int, d: int, bias: bool) -> None:
-    if d not in _HEAD_DIMS or _rows_smem(S, d, bias) > _SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: CUDA kernel takes d in {_HEAD_DIMS} and S up to ~1000 "
-            f"(got S={S}, d={d})"
-        )
+def _check_d(name: str, d: int) -> None:
+    """The head dims the attention kernels are built for. Nothing else is
+    bounded here: the windows and edges have at most 256 keys, the
+    streaming kernels (#16, #17) take any length, and #17's C entry point
+    refuses the H + W its shared memory cannot hold."""
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: CUDA kernel takes d in {_HEAD_DIMS}, got {d}")
 
 
 def _split_heads(qkv: torch.Tensor, scale: float, heads: int, d: int):
@@ -132,7 +123,7 @@ def _plain_cuda(qkv, scale, heads, d):
     B, S, C3 = qkv.shape
     if C3 != 3 * heads * d:
         raise ValueError(f"flash_qkv_packed_plain: qkv {qkv.shape} vs heads={heads} d={d}")
-    _check_head_dim("flash_qkv_packed_plain", S, d, bias=False)
+    _check_d("flash_qkv_packed_plain", d)
     out = torch.empty((B, heads * d, S), dtype=qkv.dtype, device=qkv.device)
     _cuda.QKV_PACKED_PLAIN(qkv.data_ptr(), out.data_ptr(), B, S, heads, d, float(scale))
     return out
@@ -158,9 +149,11 @@ def flash_qkv_packed_windows_s(
     d: int,
 ) -> torch.Tensor:
     """Windowed attention with the decomposed rel-pos bias -> d-major
-    (BW, heads*d, Nw). The kernel builds the bias by indexing
-    (rel[q, k // win] + rel[q, win + k % win]) and does not read sel32.
-    Backward: `flash_qkv_packed_windows_s_bwd` (TPU kernel #14)."""
+    (BW, heads*d, Nw). The kernel (`csrc/qkv_packed_windows_s.cu`) adds the
+    bias rel[q, k // win] + rel[q, win + k % win] on the tensor cores, as the
+    product of [q*scale | rel] with [k | the key's two-hot lane code], and
+    does not read sel32. Backward: `flash_qkv_packed_windows_s_bwd` (TPU
+    kernel #14)."""
     return _with_attn_bwd("flash_qkv_packed_windows_s", _windows_cuda,
                           flash_qkv_packed_windows_s_ref, flash_qkv_packed_windows_s_bwd,
                           (qkv, rel_s, sel32), (scale, heads, d))
@@ -172,7 +165,7 @@ def _windows_cuda(qkv, rel_s, sel32, scale, heads, d):
     BW, Nw, _ = qkv.shape
     out = torch.empty((BW, heads * d, Nw), dtype=qkv.dtype, device=qkv.device)
     _cuda.QKV_WINDOWS(qkv.data_ptr(), rel_s.data_ptr(), out.data_ptr(), BW, win, heads, d,
-                      float(scale), 0)
+                      float(scale))
     return out
 
 
@@ -188,7 +181,7 @@ def _check_windows(name, qkv, rel, sel32, heads, d, window_major=False) -> int:
     if (C3 != 3 * heads * d or win * win != Nw or 2 * win > REL_LANES
             or rel.shape != want or sel32.shape != (REL_LANES, Nw)):
         raise ValueError(f"{name}: qkv {qkv.shape} rel {rel.shape} sel32 {sel32.shape}")
-    _check_head_dim(name, Nw, d, bias=True)
+    _check_d(name, d)
     return win
 
 
@@ -226,7 +219,7 @@ def _padded_windows_cuda(qkv, rel, sel32, scale, heads, d):
     B, nwin, Nw, _ = qkv.shape
     out = torch.empty((B, nwin, heads * d, Nw), dtype=qkv.dtype, device=qkv.device)
     _cuda.QKV_WINDOWS_PADDED(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B * nwin, win,
-                             heads, d, float(scale), 1)
+                             heads, d, float(scale))
     return out
 
 
@@ -373,7 +366,7 @@ def _edge_cuda(qkv, rel, sel, vb, kmask, scale, heads, d):
             or sel.shape != (n, REL_LANES, R) or vb.shape != (heads, d)
             or kmask.shape != (n, 1, R)):
         raise ValueError(f"{name}: qkv {qkv.shape} rel {rel.shape} sel {sel.shape}")
-    _check_head_dim(name, R, d, bias=True)
+    _check_d(name, d)
     out = torch.empty((B, n, heads * d, R), dtype=qkv.dtype, device=qkv.device)
     _cuda.QKV_EDGE(qkv.data_ptr(), rel.data_ptr(), sel.data_ptr(), vb.data_ptr(),
                    kmask.data_ptr(), out.data_ptr(), B, n, R, heads, d, float(scale))
@@ -422,8 +415,7 @@ def _check_global(name, qkv, rel, sel, heads, d, H, W):
     if (C3 != 3 * heads * d or H * W != N or rel.shape != (N, B, heads, H + W)
             or sel.shape != (H + W, N)):
         raise ValueError(f"{name}: qkv {qkv.shape} rel {rel.shape} H={H} W={W}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name}: CUDA kernel takes d in {_HEAD_DIMS}, got {d}")
+    _check_d(name, d)
 
 
 def _global_cuda(qkv, rel, sel, scale, heads, d, H, W):

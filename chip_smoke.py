@@ -78,8 +78,9 @@ there is one. Before its last line the script prints one JSON object
 serves TPU kernels #4 and #5), each with its launches on its path, or, for
 #9 and #19, which no path reaches, in their check with a "path" field
 saying so, and its times on both clocks (`ms`, `plain_ms`, `library_ms` on an
-idle card; `queued_ms`, `library_queued_ms` queued); the last line is
-{"ok": true, "device": {...}}. Longer
+idle card; `queued_ms`, `library_queued_ms` queued) and the host's cost of
+one launch (`host_us`: the forward kernels' enqueue time behind a
+device-side wait); the last line is {"ok": true, "device": {...}}. Longer
 logs, and every line above (smoke.log), go to OUT_DIR.
 """
 
@@ -101,11 +102,13 @@ OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 # mean|d|/mean|ref|) in bf16. Both versions round the same values at the same
 # points (LN output, hidden, q*scale, probabilities, output) and differ only
 # in fp32 summation order, which can flip a bf16 rounding by one ulp
-# (2^-8 = 3.9e-3 relative); 1e-2 allows ~2.5 ulp. One exception: the
-# one-pass global attention (#17, csrc/qkv_packed_global.cu) rounds the
-# probabilities unnormalised, exp(s - running max), and divides the output
-# by the row sum at the end, where the plain version normalises before the
-# rounding; that moves each probability's rounding by at most one ulp too.
+# (2^-8 = 3.9e-3 relative); 1e-2 allows ~2.5 ulp. Two exceptions: the
+# one-pass streaming attention kernels (the global attention #17,
+# csrc/qkv_packed_global.cu, and CLIP's attention #16, csrc/attn_sm90.cuh)
+# round the probabilities unnormalised, exp(s - running max), and divide the
+# output by the row sum at the end, where the plain version normalises
+# before the rounding; that moves each probability's rounding by at most
+# one ulp too.
 KERNEL_REL_BOUND = 1e-2
 # Small cascade, bf16 on the card vs fp32 on the CPU: bf16 keeps ~3 decimal
 # digits per op through 4 SAM blocks, the decoder and 3+3 CLIP layers.
@@ -205,6 +208,23 @@ def time_ms(fn, warmup: int = 3, iters: int = 20, queued: bool = False) -> float
     return float(np.median(times))
 
 
+def host_us(fn, iters: int = 20) -> float:
+    """The host's microseconds per call (the wrapper, ctypes, the TMA
+    descriptors and the launch), enqueued behind a device-side wait so that
+    the card never holds the host back."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / iters
+
+
 def errors(got, want):
     d = (got.float() - want.float()).abs()
     ref = want.float().abs()
@@ -267,14 +287,29 @@ def phase_build():
         f"{max(regs, default=0)} registers per thread, {len(spills)} with spills "
         f"{spills[:4]} (full log: {OUT_DIR}/nvcc.log)")
     # the TMA + wgmma kernels: registers and spills per instantiation (their
-    # shared memory is dynamic, sized at launch)
+    # shared memory is dynamic, sized at launch: below)
     lines = info.splitlines()
     for i, ln in enumerate(lines):
-        m = re.search(r"Compiling entry function '(_ZN4cvlm(13linear_kernel|17qkv_global_kernel)"
-                      r"\S*)'", ln)
+        m = re.search(r"Compiling entry function '(_ZN4cvlm(13linear_kernel|17qkv_global_kernel"
+                      r"|18attn_stream_kernel|20qkv_windows_s_kernel)\S*)'", ln)
         if m:
             usage = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
             log(f"[build] {m.group(1)}: {'; '.join(usage)}")
+    # dynamic shared memory of the attention kernels at the main path's shapes
+    # (csrc/attn_sm90.cuh stream_smem, csrc/qkv_packed_global.cu global_smem,
+    # csrc/qkv_packed_windows_s.cu windows_s_smem): 128 B of alignment, bf16
+    # buffers (q, the k/v ring, rel rows), the mbarriers
+    def stream(d, nwg, qrows, stages, lanes):
+        return 128 + 2 * (nwg * qrows * d + 2 * stages * 64 * d + nwg * 64 * lanes) + 8 * (
+            1 + 2 * stages)
+
+    def windows(d, np_):
+        return 128 + 2 * (2 * 64 * (d + 32) + np_ * (d + 32) + np_ * d) + 8 * 5
+
+    log(f"[build] dynamic shared memory per block: #16 attn_stream_kernel<64, 3, 10> "
+        f"{stream(64, 3, 72, 10, 0)} B; #17 qkv_global_kernel<80> at H + W = 128 "
+        f"{stream(80, 2, 64, 3, 128)} B; #13 qkv_windows_s_kernel<80, 208> (win 14) "
+        f"{windows(80, 208)} B, <128, 256> (win 16) {windows(128, 256)} B")
 
 
 def _check_kernel(name, kfn, pfn, args, timed=True, flops=None, reads=None, library=None):
@@ -298,6 +333,7 @@ def _check_kernel(name, kfn, pfn, args, timed=True, flops=None, reads=None, libr
     nan = float("nan")
     k_ms = time_ms(lambda: kfn(*args)) if timed else nan
     k_q = time_ms(lambda: kfn(*args), queued=True) if timed else nan
+    k_host = host_us(lambda: kfn(*args)) if timed else nan
     p_ms = time_ms(lambda: pfn(*args)) if timed else nan
     lib_ms = time_ms(library) if (timed and library is not None) else None
     lib_q = time_ms(library, queued=True) if (timed and library is not None) else None
@@ -308,11 +344,11 @@ def _check_kernel(name, kfn, pfn, args, timed=True, flops=None, reads=None, libr
                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     log(f"[kernel] {name:40s} max_abs {e['max_abs_err']:.3e} max_rel {e['max_rel']:.3e} "
         f"mean_rel {e['mean_rel']:.3e} (bound {KERNEL_REL_BOUND}) kernel {k_ms:.4f} ms "
-        f"(queued {k_q:.4f} ms) plain {p_ms:.4f} ms{extra}")
+        f"(queued {k_q:.4f} ms, host {k_host:.1f} us a launch) plain {p_ms:.4f} ms{extra}")
     check(e["max_rel"] < KERNEL_REL_BOUND and e["mean_rel"] < KERNEL_REL_BOUND,
           f"{name} disagrees with its plain version: {e}")
     return dict(max_abs_err=e["max_abs_err"], ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                queued_ms=k_q, library_queued_ms=lib_q, **b)
+                queued_ms=k_q, library_queued_ms=lib_q, host_us=k_host, **b)
 
 
 def phase_kernels():
@@ -409,7 +445,7 @@ def phase_kernels():
          lambda q: fa.flash_qkv_packed_plain_ref(q, 64 ** -0.5, 16, 64),
          (qkv_clip,), 4.0 * B * 16 * S * S * 64, None,
          sdpa_packed(qkv_clip, 16, 64, 64 ** -0.5)),
-        ("flash_qkv_packed_windows_s", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_windows.cu",
+        ("flash_qkv_packed_windows_s", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_windows_s.cu",
          "camouflaged_vlm_tpu/ops/flash_attention.py:519",
          lambda *a: fa.flash_qkv_packed_windows_s(*a, sam_scale, NH, HD),
          lambda *a: fa.flash_qkv_packed_windows_s_ref(*a, sam_scale, NH, HD),
@@ -1535,6 +1571,7 @@ def main() -> None:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "queued_ms": r["queued_ms"], "library_queued_ms": r["library_queued_ms"],
+         "host_us": r.get("host_us"),
          **({"path": r["path"]} if k in NO_PATH else {})}
         for res in (results, grads) for k, r in res.items()
     ]

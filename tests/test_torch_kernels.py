@@ -93,10 +93,17 @@ def test_proj_rows_kernel(gen, with_res, B, T, K, S, N):
 
 
 @pytest.mark.parametrize("B,S,heads,d", [(2, 37, 8, 16), (1, 581, 2, 64), (2, 7, 4, 32),
-                                         (1, 100, 2, 80), (1, 65, 1, 128)])
+                                         (1, 100, 2, 80), (1, 65, 1, 128), (2, 581, 16, 64),
+                                         (1, 1200, 2, 64), (3, 64, 2, 16), (1, 1200, 1, 80),
+                                         (2, 129, 2, 128)])
 def test_flash_qkv_packed_plain_kernel(gen, B, S, heads, d):
+    """CLIP's full shape (2, 581, 16 heads, d 64); sequences shorter than
+    a 64-key tile (7), exactly one (64), ragged (37, 65, 129) and long
+    (1200, more keys than the ring has stages); d 16 to 128."""
     qkv = rn(gen, B, S, 3 * heads * d)
+    before = _cuda.QKV_PACKED_PLAIN.launches
     got = flash_attention.flash_qkv_packed_plain(qkv, d ** -0.5, heads, d)
+    assert _cuda.QKV_PACKED_PLAIN.launches == before + 1
     assert_close(got, flash_attention.flash_qkv_packed_plain_ref(qkv, d ** -0.5, heads, d))
 
 
@@ -114,14 +121,21 @@ def test_ln_mask_linear_bt_kernel(gen, Bp, S, K, N, nwin):
 
 
 @pytest.mark.parametrize("BW,win,heads,d", [(3, 14, 2, 80), (5, 4, 8, 16), (2, 7, 1, 64),
-                                            (2, 5, 2, 32)])
+                                            (2, 5, 2, 32), (32, 14, 16, 80), (2, 16, 2, 128),
+                                            (3, 16, 1, 80), (2, 8, 2, 80), (2, 9, 2, 128),
+                                            (1, 11, 3, 16)])
 def test_flash_qkv_packed_windows_s_kernel(gen, BW, win, heads, d):
+    """ViT-H's shape (32 windows of 14, 16 heads, d 80); win 16, the 256-key
+    edge (and its register peak at d 128); the key paddings 64 (win 4, 5,
+    7, and 8 exactly), 208 (win 9, 11, 14) and 256."""
     S = win * win
     qkv = rn(gen, BW, S, 3 * heads * d)
     rel_s = rn(gen, S, BW, heads * 32)
     sel32 = flash_attention.make_rel_scatter32(win, torch.bfloat16, torch.device("cuda"))
     args = (qkv, rel_s, sel32, d ** -0.5, heads, d)
+    before = _cuda.QKV_WINDOWS.launches
     got = flash_attention.flash_qkv_packed_windows_s(*args)
+    assert _cuda.QKV_WINDOWS.launches == before + 1
     assert_close(got, flash_attention.flash_qkv_packed_windows_s_ref(*args))
 
 
@@ -181,6 +195,8 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         linear.linear_act(rn(gen, 4, 100), rn(gen, 8, 100), rn(gen, 8))
     with pytest.raises(ValueError, match="unsupported devices"):  # mixed devices
         linear.linear_act(x[0], rn(gen, 8, 128).cpu(), rn(gen, 8))
+    with pytest.raises(ValueError, match="takes d in"):  # no attention kernel for d = 48
+        flash_attention.flash_qkv_packed_plain(rn(gen, 1, 5, 3 * 48), 0.1, 1, 48)
     # the global attention holds 128 queries' rel rows in shared memory:
     # H + W = 397 is beyond it at d = 128
     H, W = 1, 396
