@@ -1,0 +1,226 @@
+"""Time the GEMM and attention kernels of one checkout on the card.
+
+  python camouflaged_vlm_tpu_torch/cli/kernel_timing.py [--root DIR] [--label NAME]
+
+Imports `camouflaged_vlm_tpu_torch` from the checkout at --root (default:
+this one), builds its kernels there, and times each case of `cases()`
+through the checkout's public wrapper at the main path's bf16 shapes,
+batch 2: #1 `linear_act` at the patch embed's shape; #2, #3 and #4/#5 at
+every shape of `chip_smoke.ln_gemm_shapes`; #16, #13 and #17 at CLIP's,
+SAM's windows' and SAM's global blocks'. Each case prints one JSON line:
+the error against the plain version; the idle-card median and the queued
+time (`chip_smoke.time_ms`); the host's microseconds a call
+(`chip_smoke.host_us`) through the wrapper and through its `CudaKernel`
+alone, replaying the arguments the wrapper passed; one PyTorch call beside
+it (SDPA for attention, `library_ms`; for the GEMMs the same products
+through F.linear alone, `gemm_library_ms`, another function). On a checkout
+with the GEMM template (`ops/linear.py gemm_tile_n`) also the queued time
+at each tile width (the replay with the width changed) and of the template
+passes alone through `linear_act`. A last line sums launches x host us
+over a batch-2 cascade call's launches at the timed shapes. The first
+line gives the card's name and power limit and the registers, spills and
+shared memory ptxas gave each kernel. Two checkouts compare on one card
+in one call when their runs alternate (parent, change, change, parent).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _smoke():
+    """This checkout's chip_smoke.py, for its timing helpers and shapes."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers, spills and static shared memory of each kernel
+    instantiation in an nvcc -Xptxas -v log."""
+    out, lines = {}, log.splitlines()
+    for i, ln in enumerate(lines):
+        m = re.search(r"Compiling entry function '(_ZN4cvlm\S*)'", ln)
+        if m:
+            out[m.group(1)] = "; ".join(x.strip() for x in lines[i + 1:i + 4]
+                                        if "Used" in x or "spill" in x)
+    return out
+
+
+@dataclass
+class Case:
+    name: str            # the wrapper's kernel name (its CudaKernel's)
+    site: str
+    shape: list
+    call: Callable       # the wrapper on its inputs
+    plain: Callable      # its plain version on the same inputs
+    kernel: str          # the CudaKernel's attribute in ops/_cuda.py
+    library: Callable    # one PyTorch call beside it
+    library_key: str     # "library" (same function) or "gemm_library" (its products alone)
+    per_call: int        # launches in a batch-2 cascade call at this shape
+    widths: Dict[str, int] = field(default_factory=dict)  # GEMM pass -> tile-width argument
+    passes: Dict[str, Callable] = field(default_factory=dict)  # template passes alone
+
+
+def entry_replay(kernel, call):
+    """Run `call` once, keeping the arguments it passed to `kernel`'s C entry
+    point; return (its output, replay), where replay(widths) is a
+    zero-argument launch of those arguments through the CudaKernel object
+    (its stream, error check and count), with the tile widths of `widths`
+    ({argument position: width}) swapped in. The replays write into that
+    output, held by the caller, and into the wrapper's scratch, which has
+    gone back to PyTorch's caching allocator on this stream: whatever reuses
+    it later on the stream runs behind them."""
+    call()  # binds kernel._fn
+    fn, seen = kernel._fn, []
+    kernel._fn = lambda *a: seen.append(a) or fn(*a)
+    try:
+        out = call()
+    finally:
+        kernel._fn = fn
+    args = seen[-1][:-1]  # the stream is the CudaKernel's own
+
+    def replay(widths: Optional[dict] = None):
+        a = list(args)
+        for pos, bn in (widths or {}).items():
+            a[pos] = bn
+        return lambda: kernel(*a)
+
+    return out, replay
+
+
+def cases(smoke, rn, template: bool):
+    """The timed cases (`Case`) on seeded random inputs."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    F = torch.nn.functional
+    sites = smoke.per_call_sites()
+    x, w, b = rn(8192, 768), rn(1280, 768, std=0.02), rn(1280, std=0.02)
+    out = [Case("linear_act", "patch embed", [8192, 768, 1280], lambda: lin.linear_act(x, w, b),
+                lambda: lin.linear_act_ref(x, w, b), "LINEAR_ACT", lambda: F.linear(x, w, b),
+                "library", 1, {"gemm": -1})]
+    kernels = {"ln_linear_act_bt": "LN_LINEAR", "ln_mask_linear_bt": "LN_MASK_LINEAR",
+               "ln_mlp_residual_bt": "LN_MLP_RESIDUAL"}
+    for kernel, site, _, lead, K, N, eps, act in smoke.ln_gemm_shapes(batches=(2,)):
+        kfn, pfn, a, _, gemm = smoke.ln_gemm_case(rn, kernel, lead, K, N, eps, act)
+        c = Case(kernel, site, [*lead, K, N], lambda kfn=kfn, a=a: kfn(*a),
+                 lambda pfn=pfn, a=a: pfn(*a), kernels[kernel], gemm, "gemm_library",
+                 sites.get(site, 0))
+        if template:  # the passes on rows that stand in for the LN pass's output
+            rows = a[0].reshape(-1, K)
+            if kernel == "ln_mlp_residual_bt":
+                w1, b1, w2, b2 = a[3:7]
+                h = lin.linear_act(rows, w1, b1, act)
+                c.widths = {"fc1": -2, "fc2": -1}
+                c.passes = {"fc1": lambda rows=rows, w1=w1, b1=b1, act=act:
+                            lin.linear_act(rows, w1, b1, act),
+                            "fc2": lambda h=h, w2=w2, b2=b2: lin.linear_act(h, w2, b2)}
+            else:
+                c.widths = {"gemm": -1}
+                c.passes = {"gemm": lambda rows=rows, w=a[-2], b=a[-1]: lin.linear_act(rows, w, b)}
+        out.append(c)
+
+    def sdpa(qkv, heads, d, scale, bias=None):
+        r = qkv.reshape(qkv.shape[:-1] + (3, heads, d))
+        q, k, v = (r[..., i, :, :].transpose(-3, -2) for i in range(3))
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
+
+    B, NH, HD, WIN, G = 2, 16, 80, 14, 64
+    sam, dev, bf = HD ** -0.5, torch.device("cuda"), torch.bfloat16
+    qkv_clip = rn(B, 581, 3 * 1024)
+    qkv_win, rel_win = rn(32, WIN * WIN, 3 * 1280), rn(WIN * WIN, 32, NH * 32)
+    sel32 = fa.make_rel_scatter32(WIN, bf, dev)
+    qkv_glob, rel_glob = rn(B, G * G, 3 * 1280), rn(G * G, B, NH, 2 * G)
+    sel_glob = fa.make_rel_scatter(G, G, bf, dev)
+    bias_win = torch.matmul(rel_win.reshape(WIN * WIN, 32, NH, 32).permute(1, 2, 0, 3), sel32)
+    bias_glob = torch.matmul(rel_glob.permute(1, 2, 0, 3), sel_glob)
+    out += [
+        Case("flash_qkv_packed_plain", "CLIP", [B, 581, 3072],
+             lambda: fa.flash_qkv_packed_plain(qkv_clip, 0.125, 16, 64),
+             lambda: fa.flash_qkv_packed_plain_ref(qkv_clip, 0.125, 16, 64),
+             "QKV_PACKED_PLAIN", sdpa(qkv_clip, 16, 64, 0.125), "library", sites["CLIP"]),
+        Case("flash_qkv_packed_windows_s", "windows", [32, 196, 3840],
+             lambda: fa.flash_qkv_packed_windows_s(qkv_win, rel_win, sel32, sam, NH, HD),
+             lambda: fa.flash_qkv_packed_windows_s_ref(qkv_win, rel_win, sel32, sam, NH, HD),
+             "QKV_WINDOWS", sdpa(qkv_win, NH, HD, sam, bias_win), "library", sites["windows"]),
+        Case("flash_qkv_packed_global", "global", [B, 4096, 3840],
+             lambda: fa.flash_qkv_packed_global(qkv_glob, rel_glob, sel_glob, sam, NH, HD, G, G),
+             lambda: fa.flash_qkv_packed_global_ref(qkv_glob, rel_glob, sel_glob, sam, NH, HD),
+             "QKV_GLOBAL", sdpa(qkv_glob, NH, HD, sam, bias_glob), "library", sites["global"]),
+    ]
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=HERE, help="checkout whose package to time")
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    smoke = _smoke()
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_timing: no CUDA device")
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    label = args.label or root
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    t0 = time.perf_counter()
+    _cuda.library()
+    build_s = time.perf_counter() - t0
+    usage = ptxas_usage(_cuda.build_info.get("log", ""))
+    print(json.dumps({"label": label, "card": smi, "build_s": build_s, "ptxas": usage}),
+          flush=True)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+    widths = sorted(getattr(lin, "GEMM_TILE_COST", {}))  # a checkout before the template: none
+    host_ms = {}
+    with torch.no_grad():
+        for c in cases(smoke, rn, bool(widths)):
+            got, replay = entry_replay(getattr(_cuda, c.kernel), c.call)
+            torch.cuda.synchronize()
+            lib = c.library_key
+            rec = dict(label=label, name=c.name, site=c.site, shape=c.shape,
+                       **smoke.errors(got, c.plain()),
+                       ms=smoke.time_ms(c.call), queued_ms=smoke.time_ms(c.call, queued=True),
+                       host_us=smoke.host_us(c.call), host_us_entry=smoke.host_us(replay()),
+                       **{f"{lib}_ms": smoke.time_ms(c.library),
+                          f"{lib}_queued_ms": smoke.time_ms(c.library, queued=True)})
+            if widths and c.widths:
+                rec["queued_ms_tile_n"] = {
+                    f"{p} {bn}": smoke.time_ms(replay({pos: bn}), queued=True)
+                    for p, pos in c.widths.items() for bn in widths}
+                rec["passes_queued_ms"] = {p: smoke.time_ms(fn, queued=True)
+                                           for p, fn in c.passes.items()}
+            host_ms[c.name] = host_ms.get(c.name, 0.0) + c.per_call * rec["host_us"] / 1e3
+            del got
+            print(json.dumps(rec), flush=True)
+    print(json.dumps({"label": label, "host_ms_per_cascade_call": host_ms,
+                      "sum": sum(host_ms.values())}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 // gemm_sm90: the Hopper building blocks of the TMA + wgmma kernels
-// (linear.cu, qkv_packed_global.cu, and the attention kernels on
-// attn_sm90.cuh), written as raw PTX so that a source that includes this
-// header compiles in seconds.
+// (linear.cu, ln_linear.cu, ln_mlp_residual.cu, qkv_packed_global.cu, and
+// the attention kernels on attn_sm90.cuh), written as raw PTX so that a
+// source that includes this header compiles in seconds, and the persistent
+// GEMM those kernels share (gemm_tma_kernel, at the end).
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count,
 //     and a parity wait (a barrier's phase p "has completed" once it flips;
@@ -32,6 +33,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+
+#include "common.cuh"
 
 namespace cvlm {
 
@@ -404,5 +409,285 @@ struct Wgmma<256> {
         : "l"(da), "l"(db), "r"(scale_d));
   }
 };
+
+// -------------------------------------------------- the persistent GEMM
+//
+// out (M, N) = epilogue(A (M, K) . W (N, K)^T), bf16 in and out, fp32
+// accumulation: the mainloop of linear.cu (PR 6) made a template, shared by
+// the plain product (#1), the LN-prologue products (#2, #3: A is the LN row
+// pass's bf16 output) and the two products of the fused MLP (#4/#5):
+//   * BM x BN output tiles, BM = 128, BN = 128 or 256 (the wrapper picks
+//     per problem, ops/linear.py gemm_tile_n), walked by one persistent block
+//     per SM (tile = blockIdx.x + i * gridDim.x, N fastest: a round of
+//     tiles covers whole row panels, so A's rows are read from device
+//     memory about once and W stays in L2); 288 threads: two consumer
+//     warpgroups of 64 rows each and one producer warp;
+//   * the producer keeps a ring of STAGES k-steps in flight across tiles
+//     (the next tile's loads overlap this tile's epilogue): per stage one
+//     TMA load of the A tile (128 x 64) and one of the W tile (BN x 64),
+//     K-major with the 128-byte swizzle, on a "full" mbarrier per stage;
+//     the consumers free a stage on its "empty" mbarrier;
+//   * each consumer warpgroup issues 4 wgmma m64nBNk16 per stage (BN/2 fp32
+//     accumulators a thread) and keeps one stage's products in flight while
+//     it waits for the next stage;
+//   * epilogue, chosen at compile time, in fp32 on the registers and
+//     rounded once: EPI_BIAS_ACT act(acc + b) (#1, #2, #3, fc1);
+//     EPI_BIAS_RESIDUAL acc + b + res, res (M, N) bf16 read at the
+//     accumulator fragment's own rows and columns (fc2: res is the block's
+//     input x). Then bf16 through shared memory and 16-byte stores per row
+//     (scalar ones at a ragged N or an N that is not a multiple of 8).
+// Ragged M, N and K: TMA fills the out-of-bounds part of a box with zeros.
+// TMA row strides are multiples of 16 bytes: K % 8 == 0.
+enum GemmEpilogue { EPI_BIAS_ACT = 0, EPI_BIAS_RESIDUAL = 1 };
+
+// the activation over a whole accumulator fragment: one branch, then a
+// straight unrolled loop (apply_act's switch folds on a constant code)
+template <int R>
+__device__ __forceinline__ void act_inplace(float (&v)[R], int act) {
+  switch (act) {
+    case ACT_GELU:
+#pragma unroll
+      for (int i = 0; i < R; ++i) v[i] = apply_act(v[i], ACT_GELU);
+      break;
+    case ACT_GELU_TANH:
+#pragma unroll
+      for (int i = 0; i < R; ++i) v[i] = apply_act(v[i], ACT_GELU_TANH);
+      break;
+    case ACT_QUICK_GELU:
+#pragma unroll
+      for (int i = 0; i < R; ++i) v[i] = apply_act(v[i], ACT_QUICK_GELU);
+      break;
+    default:
+      break;
+  }
+}
+
+template <int BN>
+struct GemmTile {
+  static constexpr int BM = 128, BK = 64, THREADS = 288;
+  // ring depth: 144-128 KB of tiles, beside the (BM, LDC) epilogue tile
+  static constexpr int STAGES = BN >= 256 ? 3 : 4;
+  static constexpr int LDC = BN + 8;  // bf16 epilogue pitch (16-byte aligned rows)
+  static constexpr int STAGE_ELEMS = (BM + BN) * BK;
+  static constexpr size_t SMEM = 1024 +  // slack for the swizzled tiles' 1024-byte alignment
+                                 sizeof(__nv_bfloat16) * (STAGES * STAGE_ELEMS + BM * LDC) +
+                                 sizeof(uint64_t) * 2 * STAGES;
+};
+
+template <int BN, int EPI>
+__global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
+    const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+    const bf16* __restrict__ bias, const bf16* __restrict__ res, bf16* __restrict__ out, int M,
+    int N, int K, int act) {
+  using T = GemmTile<BN>;
+  constexpr int BM = T::BM, BK = T::BK, STAGES = T::STAGES, LDC = T::LDC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sA = reinterpret_cast<bf16*>(smem);  // [stage][128 rows][64], swizzled
+  bf16* sB = sA + STAGES * BM * BK;          // [stage][BN rows][64], swizzled
+  bf16* sC = sB + STAGES * BN * BK;          // [128][LDC]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sC + BM * LDC);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int k_tiles = (K + BK - 1) / BK;
+  const int n_blocks = (N + BN - 1) / BN;
+  const int n_tiles = n_blocks * ((M + BM - 1) / BM);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warp: one thread issues every load
+    if (tid == 256) {
+      int it = 0;  // k steps over all of this block's tiles: the ring's position
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_blocks) * BM, n0 = (tile % n_blocks) * BN;
+        for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], T::STAGE_ELEMS * sizeof(bf16));
+          tma_load_2d(sA + s * BM * BK, &amap, &full[s], kt * BK, m0);
+          tma_load_2d(sB + s * BN * BK, &wmap, &full[s], kt * BK, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  bf16* sCw = sC + wg * 64 * LDC;
+  const bool vec = (N % 8) == 0;
+  float acc[BN / 2];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m0 = (tile / n_blocks) * BM, n0 = (tile % n_blocks) * BN;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const bf16* a = sA + s * BM * BK + wg * 64 * BK;
+      const bf16* b = sB + s * BN * BK;
+      wgmma_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<BN>::ss(acc, wgmma_desc(a + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B),
+                      wgmma_desc(b + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B), 1);
+      wgmma_commit();
+      fence_regs(acc);
+      // the previous stage's products are done: give its buffers back
+      wgmma_wait<1>();
+      if (kt > 0 && tid % 128 == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (tid % 128 == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+    // epilogue in fp32 on the accumulator fragment (d[4j + r]: row
+    // 16 * warp + lane / 4 + 8 * (r / 2), column 8j + 2 * (lane % 4) + r % 2),
+    // one rounding, then through shared memory
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int gc = n0 + 8 * j + 2 * (lane % 4);
+      const float b0 = gc < N ? __bfloat162float(bias[gc]) : 0.f;
+      const float b1 = gc + 1 < N ? __bfloat162float(bias[gc + 1]) : 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        acc[4 * j + 2 * hf] += b0;
+        acc[4 * j + 2 * hf + 1] += b1;
+        if (EPI == EPI_BIAS_RESIDUAL) {  // N % 8 == 0: gc even, the pair 4-byte aligned
+          const int gr = m0 + wg * 64 + warp * 16 + lane / 4 + 8 * hf;
+          if (gr < M && gc < N) {
+            const float2 r = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)gr * N + gc));
+            acc[4 * j + 2 * hf] += r.x;
+            acc[4 * j + 2 * hf + 1] += r.y;
+          }
+        }
+      }
+    }
+    if (EPI == EPI_BIAS_ACT) act_inplace(acc, act);
+    named_barrier(1 + wg, 128);  // the previous tile's stores have read sCw
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = warp * 16 + lane / 4 + 8 * hf, col = 8 * j + 2 * (lane % 4);
+        *reinterpret_cast<uint32_t*>(sCw + row * LDC + col) =
+            pack_bf16(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+      }
+    }
+    named_barrier(1 + wg, 128);
+    for (int e = tid % 128; e < 64 * (BN / 8); e += 128) {
+      const int row = e / (BN / 8), ch = e % (BN / 8);
+      const int gr = m0 + wg * 64 + row, gc = n0 + ch * 8;
+      if (gr >= M || gc >= N) continue;
+      const bf16* src = sCw + row * LDC + ch * 8;
+      bf16* dst = out + (size_t)gr * N + gc;
+      if (vec && gc + 8 <= N) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int i = 0; i < 8 && gc + i < N; ++i) dst[i] = src[i];
+      }
+    }
+  }
+}
+
+// The host's launch setup, cached: a TMA map of a row-major (rows, cols)
+// bf16 matrix with (box_rows, 64) boxes and the 128-byte swizzle is a pure
+// function of those arguments, so it is encoded once per distinct key (the
+// weights' maps at every call, the scratch buffers' whenever the allocator
+// hands back the same block), in a small direct-mapped table.
+inline int gemm_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  struct Entry {
+    const void* base;
+    int rows, cols, box_rows;
+    CUtensorMap map;
+  };
+  constexpr int SLOTS = 256;
+  static Entry table[SLOTS] = {};
+  static std::mutex mu;
+  const uintptr_t key = reinterpret_cast<uintptr_t>(base);
+  Entry& e = table[((key >> 8) ^ (key >> 20) ^ ((uintptr_t)rows * 0x9E37u) ^
+                    ((uintptr_t)cols << 3) ^ (uintptr_t)box_rows) % SLOTS];
+  std::lock_guard<std::mutex> lock(mu);
+  if (e.base != base || e.rows != rows || e.cols != cols || e.box_rows != box_rows) {
+    const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+    const cuuint64_t stride[1] = {(cuuint64_t)cols * sizeof(bf16)};
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const int err = encode_bf16_map(&e.map, base, 2, dims, stride, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err) {
+      e.base = nullptr;
+      return err;
+    }
+    e.base = base;
+    e.rows = rows;
+    e.cols = cols;
+    e.box_rows = box_rows;
+  }
+  *map = e.map;
+  return 0;
+}
+
+// the device's SM count, and this kernel instance's shared-memory opt-in,
+// once per device (devices 0..63)
+template <int BN, int EPI>
+inline int gemm_setup(int* n_sm) {
+  static int sms[64] = {};
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    e = cudaFuncSetAttribute(gemm_tma_kernel<BN, EPI>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)GemmTile<BN>::SMEM);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    opted[dev] = true;
+  }
+  *n_sm = sms[dev];
+  return 0;
+}
+
+template <int BN, int EPI>
+inline int launch_gemm_tiles(const void* a, const void* w, const void* bias, const void* res,
+                             void* out, int M, int N, int K, int act, cudaStream_t stream) {
+  using T = GemmTile<BN>;
+  CUtensorMap amap, wmap;
+  int err = gemm_map(&amap, a, M, K, T::BM);
+  if (!err) err = gemm_map(&wmap, w, N, K, BN);
+  int n_sm = 0;
+  if (!err) err = gemm_setup<BN, EPI>(&n_sm);
+  if (err) return err;
+  const int n_tiles = ((N + BN - 1) / BN) * ((M + T::BM - 1) / T::BM);
+  const int grid = n_tiles < n_sm ? n_tiles : n_sm;
+  gemm_tma_kernel<BN, EPI><<<grid, T::THREADS, T::SMEM, stream>>>(
+      amap, wmap, static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
+      static_cast<bf16*>(out), M, N, K, act);
+  return (int)cudaGetLastError();
+}
+
+// a (M, K), w (N, K), bias (N,), res and out (M, N): bf16, bases 16-byte
+// aligned; K % 8 == 0 (and N % 8 == 0 with the residual); bn, the tile
+// width, 128 or 256. Queues one launch on `stream`; returns a cudaError_t
+// code.
+template <int EPI>
+inline int launch_gemm(const void* a, const void* w, const void* bias, const void* res,
+                       void* out, int M, int N, int K, int act, int bn, cudaStream_t stream) {
+  if (M < 1 || N < 1 || K < 8 || K % 8 != 0 || (EPI == EPI_BIAS_RESIDUAL && N % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (bn == 256) return launch_gemm_tiles<256, EPI>(a, w, bias, res, out, M, N, K, act, stream);
+  if (bn == 128) return launch_gemm_tiles<128, EPI>(a, w, bias, res, out, M, N, K, act, stream);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace cvlm

@@ -1,161 +1,147 @@
 // ln_linear: out = act(LN(x) [* mask] . W^T + b), a LayerNorm prologue
-// with an optional row mask.
+// with an optional row mask; and the LN row pass that the fused MLP
+// (ln_mlp_residual.cu) shares.
 //
 // Replaces two TPU kernels of camouflaged_vlm_tpu/ops/linear.py (the plain
-// product, linear_pallas, is linear.cu's TMA + wgmma GEMM):
+// product, linear_pallas, is linear.cu):
 //   ln_linear_act_bt  (_ln_linear_act_bt_kernel)   -- LN:    CLIP ln_1 + qkv,
 //                                                     SAM windowed LN1 + qkv
 //   ln_mask_linear_bt (_ln_mask_linear_bt_kernel)  -- LN and row mask: SAM
 //                      global LN1 + qkv, x (B, 4096, 1280), W (3840, 1280)
 //
 // Shapes on the main path (bf16): CLIP qkv x (B*581, 1024) . W (3072, 1024),
-// SAM qkv x (B*4144, 1280) . W (3840, 1280). These products do ~2 FLOP per
-// weight byte per row tile, so the bound on the H100 is the tensor-core rate
-// (989 TFLOP/s dense bf16) once the tiles are reused; this first version
-// stages 64x32 tiles of x and W through shared memory and runs WMMA
-// 16x16x16 products with fp32 accumulation, no cp.async pipelining, no TMA.
+// SAM qkv x (B*16*196, 1280) (interior windows) and (B*1008, 1280) (edge
+// windows) . W (3840, 1280), SAM global x (B*4096, 1280). What bounds them on
+// the H100 is the tensor-core rate (989 TFLOP/s dense bf16): at SAM's
+// windows, batch 2, 61.7 GFLOP in 0.062 ms against 16 + 48 MB of operands
+// and output, 0.019 ms at 3.35 TB/s.
 //
-// LN prologue: each block computes the fp32 mean/rstd of its 64 rows (two
-// passes over the row, the JAX formulation), then normalises x while staging
-// the A tile and rounds it to bf16 before the product -- the rounding point
-// of the TPU kernel (`xn.astype(o_ref.dtype)`, linear.py:137). The row mask
-// of ln_mask_linear_bt (row m of window-batch b' = m / S reads
-// mask[(b' % nwin) * S + m % S]) multiplies the fp32 LN output before that
-// rounding, as the TPU kernel does (linear.py:220). Bias and the
-// activation are applied in fp32 on the accumulator, then rounded once.
-// Ragged M, N and K are masked by zero-filling the staged tiles.
+// Design: two launches on the caller's stream.
+//   1. ln_rows_kernel, one warp per row: fp32 mean, then the mean of squared
+//      deviations (two passes over the row, the JAX formulation), then
+//      (x - mu) * rstd * gamma + beta, times the row mask for
+//      ln_mask_linear_bt (row m of window-batch b' = m / S reads
+//      mask[(b' % nwin) * S + m % S], linear.py:220), rounded to bf16 into a
+//      scratch buffer the wrapper allocates: the TPU kernel's rounding point
+//      (`xn.astype(o_ref.dtype)`, linear.py:137 and :222), so the product reads what
+//      the TPU kernel's dot read. 16-byte loads and stores; its 2 x 16 MB at
+//      SAM's windows, batch 2, take ~0.01 ms at the HBM rate.
+//   2. the persistent TMA + wgmma GEMM of gemm_sm90.cuh on the bf16 rows,
+//      bias and activation in fp32 on the accumulator, rounded once.
+// LN is not folded into the weights algebraically: that would move the bf16
+// rounding point. K % 8 == 0 (TMA row strides are 16-byte multiples).
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace cvlm {
 
-constexpr int LL_BM = 64, LL_BN = 64, LL_BK = 32;
-constexpr int LL_LDA = LL_BK + 8;   // bf16 tile row pitch (multiple of 8)
-constexpr int LL_LDC = LL_BN + 4;   // fp32 epilogue pitch (multiple of 4)
-constexpr int LL_THREADS = 128;     // 4 warps, each a 32x32 quarter
+constexpr int LN_ROWS_THREADS = 256;  // 8 warps: 8 rows a block
+
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
 
 template <bool MASK>
-__global__ void __launch_bounds__(LL_THREADS) ln_linear_kernel(
+__global__ void __launch_bounds__(LN_ROWS_THREADS) ln_rows_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
-    const float* __restrict__ beta, const bf16* __restrict__ mask,
-    const bf16* __restrict__ w, const bf16* __restrict__ bias, bf16* __restrict__ out,
-    int M, int K, int N, int S, int nwin, float eps, int act) {
-  __shared__ __align__(128) bf16 As[LL_BM * LL_LDA];
-  __shared__ __align__(128) bf16 Bs[LL_BN * LL_LDA];
-  __shared__ __align__(128) float Cs[LL_BM * LL_LDC];
-  __shared__ float s_mu[LL_BM], s_rstd[LL_BM], s_mask[LL_BM];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * LL_BM, n0 = blockIdx.x * LL_BN;
-
-  for (int r = warp; r < LL_BM; r += LL_THREADS / 32) {
-    float mu = 0.f, rstd = 0.f;
-    if (m0 + r < M) row_stats(x + (size_t)(m0 + r) * K, K, eps, mu, rstd);
-    if (lane == 0) {
-      s_mu[r] = mu;
-      s_rstd[r] = rstd;
+    const float* __restrict__ beta, const bf16* __restrict__ mask, bf16* __restrict__ xn,
+    int M, int K, int S, int nwin, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int m = blockIdx.x * (LN_ROWS_THREADS / 32) + threadIdx.x / 32;
+  if (m >= M) return;
+  const uint4* row = reinterpret_cast<const uint4*>(x + (size_t)m * K);
+  const int nv = K / 8;  // 16-byte chunks of the row
+  float f[8], s = 0.f;
+  for (int c = lane; c < nv; c += 32) {
+    unpack8(row[c], f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s += f[i];
+  }
+  const float mu = warp_sum(s) / (float)K;
+  float v = 0.f;
+  for (int c = lane; c < nv; c += 32) {
+    unpack8(row[c], f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v += (f[i] - mu) * (f[i] - mu);
+  }
+  const float rstd = 1.0f / sqrtf(warp_sum(v) / (float)K + eps);
+  const float mk = MASK ? __bfloat162float(mask[((m / S) % nwin) * S + m % S]) : 1.f;
+  uint4* dst = reinterpret_cast<uint4*>(xn + (size_t)m * K);
+  const float4* g4 = reinterpret_cast<const float4*>(gamma);
+  const float4* b4 = reinterpret_cast<const float4*>(beta);
+  for (int c = lane; c < nv; c += 32) {
+    unpack8(row[c], f);
+    const float4 ga = g4[2 * c], gb = g4[2 * c + 1], ba = b4[2 * c], bb = b4[2 * c + 1];
+    const float g[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+    const float b[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float y0 = (f[2 * i] - mu) * rstd * g[2 * i] + b[2 * i];
+      float y1 = (f[2 * i + 1] - mu) * rstd * g[2 * i + 1] + b[2 * i + 1];
       if (MASK) {
-        const int m = m0 + r;
-        s_mask[r] = m < M ? __bfloat162float(mask[((m / S) % nwin) * S + m % S]) : 0.f;
+        y0 *= mk;
+        y1 *= mk;
       }
+      o[i] = pack_bf16(y0, y1);
     }
+    dst[c] = make_uint4(o[0], o[1], o[2], o[3]);
   }
-  __syncthreads();
+}
 
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += LL_BK) {
-    for (int e = tid; e < LL_BM * LL_BK; e += LL_THREADS) {
-      const int r = e / LL_BK, c = e % LL_BK, m = m0 + r, k = k0 + c;
-      bf16 v = __float2bfloat16(0.f);
-      if (m < M && k < K) {
-        const float xn = (__bfloat162float(x[(size_t)m * K + k]) - s_mu[r]) * s_rstd[r];
-        float y = xn * gamma[k] + beta[k];
-        if (MASK) y *= s_mask[r];
-        v = __float2bfloat16(y);
-      }
-      As[r * LL_LDA + c] = v;
-    }
-    for (int e = tid; e < LL_BN * LL_BK; e += LL_THREADS) {
-      const int r = e / LL_BK, c = e % LL_BK, n = n0 + r, k = k0 + c;
-      Bs[r * LL_LDA + c] =
-          (n < N && k < K) ? w[(size_t)n * K + k] : __float2bfloat16(0.f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < LL_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * LL_LDA + kk, LL_LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + (wn + 16 * j) * LL_LDA + kk, LL_LDA);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * LL_LDC + wn + 16 * j, acc[i][j],
-                              LL_LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < LL_BM * LL_BN; e += LL_THREADS) {
-    const int r = e / LL_BN, c = e % LL_BN, m = m0 + r, n = n0 + c;
-    if (m < M && n < N) {
-      const float v = Cs[r * LL_LDC + c] + __bfloat162float(bias[n]);
-      out[(size_t)m * N + n] = __float2bfloat16(apply_act(v, act));
-    }
-  }
+// The LN row pass: xn (M, K) bf16 = LN(x) [* mask], as above. mask may be
+// null (no mask). Returns cudaGetLastError().
+int launch_ln_rows(const void* x, const void* gamma, const void* beta, const void* mask,
+                   void* xn, int M, int K, int S, int nwin, float eps, cudaStream_t stream) {
+  if (M < 1 || K < 8 || K % 8 != 0) return (int)cudaErrorInvalidValue;
+  const int grid = (M + LN_ROWS_THREADS / 32 - 1) / (LN_ROWS_THREADS / 32);
+  const auto* xp = static_cast<const bf16*>(x);
+  const auto* gp = static_cast<const float*>(gamma);
+  const auto* bp = static_cast<const float*>(beta);
+  auto* op = static_cast<bf16*>(xn);
+  if (mask != nullptr)
+    ln_rows_kernel<true><<<grid, LN_ROWS_THREADS, 0, stream>>>(
+        xp, gp, bp, static_cast<const bf16*>(mask), op, M, K, S, nwin, eps);
+  else
+    ln_rows_kernel<false><<<grid, LN_ROWS_THREADS, 0, stream>>>(xp, gp, bp, nullptr, op, M, K,
+                                                                1, 1, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace cvlm
 
-// x (M, K), w (N, K) [nn.Linear layout], bias (N,), out (M, N): bf16.
-// gamma/beta (K,) fp32. Returns cudaGetLastError().
+// x (M, K), w (N, K) [nn.Linear layout], bias (N,), out (M, N), xn (M, K)
+// scratch: bf16; gamma/beta (K,) fp32; K % 8 == 0; bn the GEMM's tile width
+// (128 or 256). Queues the LN row pass and the GEMM; returns a cudaError_t code.
 extern "C" int cvlm_ln_linear(const void* x, const void* gamma, const void* beta,
-                              const void* w, const void* bias, void* out, int M,
-                              int K, int N, float eps, int act, void* stream) {
+                              const void* w, const void* bias, void* out, void* xn, int M,
+                              int K, int N, float eps, int act, int bn, void* stream) {
   using namespace cvlm;
-  const dim3 grid((N + LL_BN - 1) / LL_BN, (M + LL_BM - 1) / LL_BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const bf16*>(x);
-  const auto* gp = static_cast<const float*>(gamma);
-  const auto* bp = static_cast<const float*>(beta);
-  const auto* wp = static_cast<const bf16*>(w);
-  const auto* biasp = static_cast<const bf16*>(bias);
-  auto* op = static_cast<bf16*>(out);
-  ln_linear_kernel<false><<<grid, LL_THREADS, 0, s>>>(
-      xp, gp, bp, nullptr, wp, biasp, op, M, K, N, 1, 1, eps, act);
-  return (int)cudaGetLastError();
+  int err = launch_ln_rows(x, gamma, beta, nullptr, xn, M, K, 1, 1, eps, s);
+  if (err) return err;
+  return launch_gemm<EPI_BIAS_ACT>(xn, w, bias, nullptr, out, M, N, K, act, bn, s);
 }
 
 // x (B', S, K) with B' = B * nwin, mask (nwin, S, 1), w (N, K), bias (N,),
-// out (B', S, N): bf16; gamma/beta (K,) fp32. No activation. Returns
-// cudaGetLastError().
+// out (B', S, N), xn (B' * S, K) scratch: bf16; gamma/beta (K,) fp32. No
+// activation. Returns a cudaError_t code.
 extern "C" int cvlm_ln_mask_linear(const void* x, const void* gamma, const void* beta,
                                    const void* mask, const void* w, const void* bias,
-                                   void* out, int M, int K, int N, int S, int nwin,
-                                   float eps, void* stream) {
+                                   void* out, void* xn, int M, int K, int N, int S, int nwin,
+                                   float eps, int bn, void* stream) {
   using namespace cvlm;
-  const dim3 grid((N + LL_BN - 1) / LL_BN, (M + LL_BM - 1) / LL_BM);
-  ln_linear_kernel<true><<<grid, LL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const bf16*>(mask),
-      static_cast<const bf16*>(w), static_cast<const bf16*>(bias), static_cast<bf16*>(out),
-      M, K, N, S, nwin, eps, ACT_NONE);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mask == nullptr || S < 1 || nwin < 1) return (int)cudaErrorInvalidValue;
+  int err = launch_ln_rows(x, gamma, beta, mask, xn, M, K, S, nwin, eps, s);
+  if (err) return err;
+  return launch_gemm<EPI_BIAS_ACT>(xn, w, bias, nullptr, out, M, N, K, ACT_NONE, bn, s);
 }
 
 extern "C" const char* cvlm_error_string(int err) {

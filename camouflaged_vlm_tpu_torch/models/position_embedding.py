@@ -7,6 +7,7 @@ from checkpoints under `pe_layer.positional_encoding_gaussian_matrix`.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -14,10 +15,17 @@ import torch
 from torch import nn
 
 
+@functools.lru_cache(maxsize=8)
+def _coords(size: int, device: torch.device) -> torch.Tensor:
+    """The grid's cell centres on `device`, copied there once (a copy from
+    pageable host memory at every call would make the host wait for the
+    card)."""
+    return torch.from_numpy((np.arange(size, dtype=np.float32) + 0.5) / size).to(device)
+
+
 def random_position_embedding(gaussian_matrix: torch.Tensor, size: int) -> torch.Tensor:
     """gaussian_matrix (2, C/2) -> (size, size, C) fp32 PE grid."""
-    coords = torch.from_numpy((np.arange(size, dtype=np.float32) + 0.5) / size)
-    coords = coords.to(gaussian_matrix.device)
+    coords = _coords(size, gaussian_matrix.device)
     y = coords[:, None].expand(size, size)
     x = coords[None, :].expand(size, size)
     grid = torch.stack([x, y], dim=-1)  # (H, W, 2), order (x, y)

@@ -57,7 +57,10 @@ def build() -> Path:
         digest.update(f.name.encode() + f.read_bytes())
     tag = digest.hexdigest()[:16]
     lib_path = BUILD_DIR / f"libcvlm_{tag}.so"
+    log_path = lib_path.with_suffix(".log")  # nvcc's output, ptxas -v included
     if lib_path.exists():
+        if "log" not in build_info and log_path.exists():
+            build_info.update(seconds=0.0, command="(built earlier)", log=log_path.read_text())
         return lib_path
     obj_dir = BUILD_DIR / f"obj_{tag}_{os.getpid()}"
     obj_dir.mkdir(parents=True, exist_ok=True)
@@ -84,6 +87,7 @@ def build() -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    log_path.write_text("\n".join(logs))
     os.replace(tmp, lib_path)
     shutil.rmtree(obj_dir, ignore_errors=True)
     build_info.update(seconds=time.perf_counter() - t0,
@@ -128,16 +132,20 @@ class CudaKernel:
         self.launches += 1
 
 
-# One entry per wrapper (and TPU kernel replaced). The plain product is the
-# TMA + wgmma GEMM of csrc/linear.cu; the next two are the instantiations of
-# csrc/ln_linear.cu: LN, and LN with a row mask.
-LINEAR_ACT = CudaKernel("linear_act", "cvlm_linear", [P, P, P, P, I, I, I, I])
-LN_LINEAR = CudaKernel("ln_linear_act_bt", "cvlm_ln_linear", [P, P, P, P, P, P, I, I, I, F, I])
+# One entry per wrapper (and TPU kernel replaced). The first four run on the
+# persistent TMA + wgmma GEMM of csrc/gemm_sm90.cuh: the plain product
+# (csrc/linear.cu); the LN row pass then the GEMM (csrc/ln_linear.cu: LN, and
+# LN with a row mask); the LN row pass, fc1 and fc2 with the residual
+# (csrc/ln_mlp_residual.cu). Each entry queues all its passes and counts once.
+LINEAR_ACT = CudaKernel("linear_act", "cvlm_linear", [P, P, P, P, I, I, I, I, I])
+LN_LINEAR = CudaKernel("ln_linear_act_bt", "cvlm_ln_linear",
+                       [P, P, P, P, P, P, P, I, I, I, F, I, I])
 LN_MASK_LINEAR = CudaKernel(
-    "ln_mask_linear_bt", "cvlm_ln_mask_linear", [P, P, P, P, P, P, P, I, I, I, I, I, F]
+    "ln_mask_linear_bt", "cvlm_ln_mask_linear", [P, P, P, P, P, P, P, P, I, I, I, I, I, F, I]
 )
 LN_MLP_RESIDUAL = CudaKernel(
-    "ln_mlp_residual_bt", "cvlm_ln_mlp_residual", [P, P, P, P, P, P, P, P, I, I, I, F, I]
+    "ln_mlp_residual_bt", "cvlm_ln_mlp_residual",
+    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I],
 )
 PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, I, I])
 QKV_PACKED_PLAIN = CudaKernel(
@@ -221,6 +229,17 @@ def use_kernel(name: str, *tensors: Optional[torch.Tensor]) -> bool:
         if t.data_ptr() % 32 != 0:
             raise ValueError(f"{name}: CUDA kernel needs 32-byte aligned tensors")
     return True
+
+
+_sm_counts: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's number of streaming multiprocessors (cached per device)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def check_dtype(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:

@@ -33,13 +33,21 @@ def _lowpass_circulant(N: int, line: int):
     return A.real.astype(np.float32), A.imag.astype(np.float32)
 
 
+@lru_cache(maxsize=8)
+def _lowpass_circulant_on(N: int, line: int, device: torch.device):
+    """`_lowpass_circulant` on `device`, copied there once (a copy from
+    pageable host memory at every call would make the host wait for the
+    card)."""
+    return tuple(torch.from_numpy(a).to(device) for a in _lowpass_circulant(N, line))
+
+
 def fft_highpass(x: torch.Tensor, rate: float) -> torch.Tensor:
     """x: (B, H, W, C) -> same shape, |real(ifft(highpass(fft(x))))|."""
     x32 = x.float()
     H, W = x.shape[1], x.shape[2]
     line = _line(H, W, rate)
-    Ar, Ai = (torch.from_numpy(a).to(x.device) for a in _lowpass_circulant(H, line))
-    Br, Bi = (torch.from_numpy(a).to(x.device) for a in _lowpass_circulant(W, line))
+    Ar, Ai = _lowpass_circulant_on(H, line, x.device)
+    Br, Bi = _lowpass_circulant_on(W, line, x.device)
     t_r = torch.einsum("hk,bkwc->bhwc", Ar, x32)
     t_i = torch.einsum("hk,bkwc->bhwc", Ai, x32)
     low = torch.einsum("bhwc,lw->bhlc", t_r, Br) - torch.einsum("bhwc,lw->bhlc", t_i, Bi)

@@ -12,7 +12,15 @@ their plain version
 CPU. The plain versions transcribe the JAX `ref` formulations: LN
 statistics in fp32, LN output cast to the working type before the product,
 fp32 accumulation, bias and activation in fp32 on the accumulator, one
-rounding at the end.
+rounding at the end. Those of the LN-fused functions are written as the
+card's stages: the LN row pass (`ln_rows_ref`), then the GEMM with its
+epilogue (`linear_act_ref`; `linear_residual_ref` for the MLP's fc2).
+
+`linear_act`, `ln_linear_act_bt`, `ln_mask_linear_bt` and
+`ln_mlp_residual_bt` run on one persistent TMA + wgmma GEMM
+(`csrc/gemm_sm90.cuh`) with 128 x `gemm_tile_n` tiles; the LN-fused ones
+first write the bf16 LN rows to a scratch buffer (and the MLP its bf16
+hidden), allocated here.
 
 Layouts: activations as in the JAX package ((M, K) rows, (B, S, K)
 sequences, the d-major (B, T, K, S) and head-leading (B, heads, T, S, d)
@@ -22,6 +30,7 @@ attention outputs); weights in the
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -56,6 +65,57 @@ def _matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), w.float().t())
 
 
+# ------------------------------------------------------ the GEMM's geometry
+
+GEMM_BM = 128  # rows of a tile (csrc/gemm_sm90.cuh GemmTile::BM)
+# A round of 256-wide tiles' time relative to two rounds of 128-wide ones
+# (csrc/gemm_sm90.cuh GemmTile), without and with an activation in the
+# epilogue: 256-wide tiles pay where they cut rounds, but not with an
+# activation. With these costs the pick is the faster width at every
+# main-path shape at batch 2 in the forced-width times of
+# `cli/kernel_timing.py` on the H100 (PERF.md, PR 8).
+GEMM_TILE_COST = {128: 1.0, 256: 0.85}
+GEMM_TILE_COST_ACT = {128: 1.0, 256: 1.0}
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_tile_n(M: int, N: int, n_sm: int, act: bool = False) -> int:
+    """The GEMM's tile width (128 or 256): the one whose rounds of tiles
+    over the card's `n_sm` SMs (one persistent block each) take the least
+    time, a round costing its tile width times GEMM_TILE_COST (or
+    GEMM_TILE_COST_ACT with an activation), so that the last round is not
+    mostly empty; 128 on a tie."""
+    table = GEMM_TILE_COST_ACT if act else GEMM_TILE_COST
+
+    def cost(bn: int) -> float:
+        tiles = -(-M // GEMM_BM) * -(-N // bn)
+        return -(-tiles // n_sm) * bn * table[bn]
+
+    return min((128, 256), key=cost)
+
+
+# hidden elements of the fused MLP's scratch per row panel (64 MB of bf16)
+MLP_SCRATCH_ELEMS = 32 * 2 ** 20
+
+
+def mlp_panel_rows(M: int, H: int) -> int:
+    """Rows per panel of the fused MLP on the card: all M while the bf16
+    hidden (M, H) fits MLP_SCRATCH_ELEMS, else M split into panels of equal
+    size, rounded up to the GEMM's 128-row tiles, each of which fits (the
+    largest multiple of 128 rows that fits caps them; at least 128 rows)."""
+    if M * H <= MLP_SCRATCH_ELEMS:
+        return M
+    cap = max(GEMM_BM, MLP_SCRATCH_ELEMS // H // GEMM_BM * GEMM_BM)
+    rows = -(-M // -(-M // cap))
+    return min(M, -(-rows // GEMM_BM) * GEMM_BM)
+
+
+def _check_tma_k(name: str, *widths: int) -> None:
+    for k in widths:
+        if k % 8:  # TMA row strides are multiples of 16 bytes
+            raise ValueError(f"{name}: CUDA kernel takes K % 8 == 0, got K = {k}")
+
+
 # ------------------------------------------------------------ linear_act
 
 
@@ -81,21 +141,41 @@ def _linear_act_cuda(x, w, b, activation):
     N = w.shape[0]
     if w.shape != (N, K) or b.shape != (N,):
         raise ValueError(f"linear_act: shapes x {x.shape} w {w.shape} b {b.shape}")
-    if K % 8:  # TMA row strides are multiples of 16 bytes
-        raise ValueError(f"linear_act: CUDA kernel takes K % 8 == 0, got K = {K}")
+    _check_tma_k("linear_act", K)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     _cuda.LINEAR_ACT(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
-                     _cuda.ACTIVATIONS[activation])
+                     _cuda.ACTIVATIONS[activation],
+                     gemm_tile_n(M, N, _cuda.sm_count(x.device), activation is not None))
     return out
+
+
+def linear_residual_ref(x, w, b, res):
+    """x . w^T + b + res, fp32 on the accumulator, one rounding: the fused
+    MLP's fc2 stage."""
+    return (_matmul_f32(x, w) + b.float() + res.float()).to(x.dtype)
+
+
+# ----------------------------------------------------------------- ln_rows
+
+
+def ln_rows_ref(x, gamma, beta, eps, mask=None):
+    """The LN row pass of #2, #3 and #4/#5: LN(x) in fp32 (two-pass
+    statistics), times the row mask if given ((nwin, S, 1) for x (B', S, K);
+    row b' reads mask[b' % nwin]), rounded to x's type: the TPU kernels'
+    first rounding point."""
+    y = _ln_fp32(x, gamma, beta, eps)
+    if mask is not None:
+        Bp, S, _ = x.shape
+        nwin = mask.shape[0]
+        y = y * mask.float()[None].expand(Bp // nwin, nwin, S, 1).reshape(Bp, S, 1)
+    return y.to(x.dtype)
 
 
 # ------------------------------------------------------- ln_linear_act_bt
 
 
 def ln_linear_act_bt_ref(x, gamma, beta, w, b, eps=1e-5, activation="quick_gelu"):
-    xn = _ln_fp32(x, gamma, beta, eps).to(x.dtype)
-    acc = _matmul_f32(xn, w) + b.float()
-    return apply_act(acc, activation).to(x.dtype)
+    return linear_act_ref(ln_rows_ref(x, gamma, beta, eps), w, b, activation)
 
 
 def ln_linear_act_bt(
@@ -119,10 +199,14 @@ def _ln_linear_act_bt_cuda(x, gamma, beta, w, b, eps, activation):
     N = w.shape[0]
     if w.shape != (N, K) or b.shape != (N,) or gamma.shape != (K,) or beta.shape != (K,):
         raise ValueError(f"ln_linear_act_bt: shapes x {x.shape} w {w.shape}")
+    _check_tma_k("ln_linear_act_bt", K)
+    M = B * S
     out = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
+    xn = torch.empty((M, K), dtype=x.dtype, device=x.device)  # the LN rows' scratch
     _cuda.LN_LINEAR(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), B * S, K, N, float(eps), _cuda.ACTIVATIONS[activation],
+        out.data_ptr(), xn.data_ptr(), M, K, N, float(eps), _cuda.ACTIVATIONS[activation],
+        gemm_tile_n(M, N, _cuda.sm_count(x.device), activation is not None),
     )
     return out
 
@@ -131,11 +215,7 @@ def _ln_linear_act_bt_cuda(x, gamma, beta, w, b, eps, activation):
 
 
 def ln_mask_linear_bt_ref(x, gamma, beta, mask, w, b, eps=1e-6):
-    Bp, S, _ = x.shape
-    nwin = mask.shape[0]
-    m = mask.float()[None].expand(Bp // nwin, nwin, S, 1).reshape(Bp, S, 1)
-    xn = (_ln_fp32(x, gamma, beta, eps) * m).to(x.dtype)
-    return (_matmul_f32(xn, w) + b.float()).to(x.dtype)
+    return linear_act_ref(ln_rows_ref(x, gamma, beta, eps, mask), w, b)
 
 
 def ln_mask_linear_bt(
@@ -162,10 +242,14 @@ def _ln_mask_linear_bt_cuda(x, gamma, beta, mask, w, b, eps):
     if (w.shape != (N, K) or b.shape != (N,) or gamma.shape != (K,) or beta.shape != (K,)
             or mask.shape != (nwin, S, 1) or Bp % nwin):
         raise ValueError(f"ln_mask_linear_bt: shapes x {x.shape} mask {mask.shape} w {w.shape}")
+    _check_tma_k("ln_mask_linear_bt", K)
+    M = Bp * S
     out = torch.empty((Bp, S, N), dtype=x.dtype, device=x.device)
+    xn = torch.empty((M, K), dtype=x.dtype, device=x.device)  # the LN rows' scratch
     _cuda.LN_MASK_LINEAR(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mask.data_ptr(), w.data_ptr(),
-        b.data_ptr(), out.data_ptr(), Bp * S, K, N, S, nwin, float(eps),
+        b.data_ptr(), out.data_ptr(), xn.data_ptr(), M, K, N, S, nwin, float(eps),
+        gemm_tile_n(M, N, _cuda.sm_count(x.device)),
     )
     return out
 
@@ -175,10 +259,11 @@ def _ln_mask_linear_bt_cuda(x, gamma, beta, mask, w, b, eps):
 
 def ln_mlp_residual_bt_ref(x, gamma, beta, w1, b1, w2, b2, eps=1e-6,
                              activation="gelu_tanh"):
-    xn = _ln_fp32(x, gamma, beta, eps).to(x.dtype)
-    h = apply_act(_matmul_f32(xn, w1) + b1.float(), activation)
-    acc = _matmul_f32(h.to(x.dtype), w2)
-    return (acc + b2.float() + x.float()).to(x.dtype)
+    """The card's three stages: the LN row pass, fc1 with bias and
+    activation (h rounded to x's type, the TPU kernel's second rounding
+    point), fc2 with bias and the residual x in fp32, rounded once."""
+    h = linear_act_ref(ln_rows_ref(x, gamma, beta, eps), w1, b1, activation)
+    return linear_residual_ref(h, w2, b2, x)
 
 
 def act_and_grad(pre: torch.Tensor, activation: Optional[str]):
@@ -242,20 +327,26 @@ def _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2):
     if (w1.shape != (H, K) or w2.shape != (K, H) or b1.shape != (H,)
             or b2.shape != (K,) or gamma.shape != (K,) or beta.shape != (K,)):
         raise ValueError(f"{name}: shapes x {x.shape} w1 {w1.shape} w2 {w2.shape}")
-    if K % 128 or not 1 <= K // 128 <= 10 or H % 128:
-        raise ValueError(
-            f"{name}: CUDA kernel needs K = 128*n (n <= 10) and H % 128 == 0, got K={K} H={H}"
-        )
     return K, H
 
 
 def _ln_mlp_residual_bt_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation):
-    K, H = _check_mlp_shapes("ln_mlp_residual_bt", x, gamma, beta, w1, b1, w2, b2)
+    name = "ln_mlp_residual_bt"
+    K, H = _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2)
+    _check_tma_k(name, K, H)
+    M = x.numel() // K
+    rows = mlp_panel_rows(M, H)
+    n_sm = _cuda.sm_count(x.device)
+    # one scratch for the LN rows (rows, K) and the hidden (rows, H): each
+    # 16-byte aligned, as TMA needs (K % 8 == 0)
     out = torch.empty_like(x)
+    scratch = torch.empty(rows * (K + H), dtype=x.dtype, device=x.device)
+    xn = scratch.data_ptr()
     _cuda.LN_MLP_RESIDUAL(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), x.numel() // K, K, H, float(eps),
-        _cuda.ACTIVATIONS[activation],
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), xn, xn + 2 * rows * K, M, K, H,
+        rows, float(eps), _cuda.ACTIVATIONS[activation],
+        gemm_tile_n(rows, H, n_sm, activation is not None), gemm_tile_n(rows, K, n_sm),
     )
     return out
 
@@ -275,6 +366,10 @@ def ln_mlp_residual_bt_bwd(x, gamma, beta, w1, b1, w2, b2, g, eps=1e-6,
         return ln_mlp_residual_bt_bwd_ref(x, gamma, beta, w1, b1, w2, b2, g, eps, activation,
                                           weights)
     K, H = _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2)
+    if K % 128 or not 1 <= K // 128 <= 10 or H % 128:
+        raise ValueError(
+            f"{name}: CUDA kernel needs K = 128*n (n <= 10) and H % 128 == 0, got K={K} H={H}"
+        )
     _cuda.check_dtype(name, torch.bfloat16, g)
     if g.shape != x.shape:
         raise ValueError(f"{name}: gradient {g.shape} vs x {x.shape}")
@@ -332,10 +427,12 @@ def ln_mlp_residual_bt(
     eps: float = 1e-6,
     activation: str = "gelu_tanh",
 ) -> torch.Tensor:
-    """x + act(LN(x) . w1^T + b1) . w2^T + b2 as one kernel; the hidden never
-    reaches device memory. Counterpart of `ln_mlp_residual_bt` (TPU kernels
-    #4 and #5; `hidden_grid` is a TPU tiling knob and has no counterpart),
-    with the backward of #6 when a gradient is wanted."""
+    """x + act(LN(x) . w1^T + b1) . w2^T + b2: on the card the LN row pass,
+    fc1 and fc2 with the residual, one entry point, the bf16 hidden in a
+    scratch of at most MLP_SCRATCH_ELEMS (row panels beyond). Counterpart of
+    `ln_mlp_residual_bt` (TPU kernels #4 and #5; `hidden_grid` is a TPU
+    tiling knob and has no counterpart), with the backward of #6 when a
+    gradient is wanted."""
     tensors = (x, gamma, beta, w1, b1, w2, b2)
     fwd = autograd.forward_fn("ln_mlp_residual_bt", _ln_mlp_residual_bt_cuda,
                               ln_mlp_residual_bt_ref, tensors)

@@ -33,11 +33,18 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
+@lru_cache(maxsize=64)
+def _interp_matrix_on(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """`_interp_matrix` on `device`, copied there once: a copy from pageable
+    host memory at every call would make the host wait for the card."""
+    return torch.from_numpy(_interp_matrix(in_size, out_size)).to(device)
+
+
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Resize (B, H, W, C) spatially; computed in fp32, returned in x.dtype."""
     _, H, W, _ = x.shape
-    mh = torch.from_numpy(_interp_matrix(H, out_h)).to(x.device)
-    mw = torch.from_numpy(_interp_matrix(W, out_w)).to(x.device)
+    mh = _interp_matrix_on(H, out_h, x.device)
+    mw = _interp_matrix_on(W, out_w, x.device)
     y = torch.einsum("oh,bhwc->bowc", mh, x.float())
     y = torch.einsum("ow,bhwc->bhoc", mw, y)
     return y.to(x.dtype)

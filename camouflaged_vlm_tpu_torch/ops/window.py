@@ -9,6 +9,7 @@ each LN1.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -57,8 +58,12 @@ def window_unpartition_seq(
     )
 
 
+@functools.lru_cache(maxsize=16)
 def window_valid_mask(H: int, W: int, window: int, device=None) -> torch.Tensor:
-    """(nWin, window*window, 1) fp32 0/1 mask of the tokens inside (H, W)."""
+    """(nWin, window*window, 1) fp32 0/1 mask of the tokens inside (H, W),
+    built once per shape and device (a copy from pageable host memory at
+    every call would make the host wait for the card); callers must not
+    write to it."""
     Hp = -(-H // window) * window
     Wp = -(-W // window) * window
     m = ((np.arange(Hp)[:, None] < H) & (np.arange(Wp)[None, :] < W)).astype(np.float32)

@@ -12,7 +12,11 @@ never prints its last line):
               path's full-width bf16 shapes, with errors and device times
               (median of CUDA-event timings of calls launched on an idle
               card, after a warm-up; beside it the kernel's and the library
-              call's time queued: 20 calls behind a device-side wait), the
+              call's time queued: 20 calls behind a device-side wait); the
+              LN-fused GEMMs (#2, #3, #4/#5) at every shape of the main path
+              at batch 2 and 1, each beside the same products through
+              F.linear alone (gemm_library_ms), and their launches x time
+              per cascade call ([per_call], with #7's); the
               general bias path of #17 at ViT-H's token count, the padded carry's
               kernels (#12, #11, #8) at ViT-H's windows 16 and 17, and the
               two that no path reaches (#9, #19) at the shapes they would take
@@ -34,8 +38,8 @@ never prints its last line):
               driven through the demo CLI's session: text features encoded
               once, three requests at batch 1, one at batch 2. Outputs are
               checked, and every kernel's launch count must match the path.
-              Then the cascade call's stage times (CUDA events) at batch 1
-              and 2.
+              Then the cascade call's stage times (CUDA events) and the
+              calls' own device memory peak at batch 1, 2 and 4.
   7. grads    each hand-written backward kernel (the fused MLP's, the
               windowed and the global attention's) against its plain
               backward at the training path's full-width bf16 shapes, per
@@ -67,7 +71,7 @@ never prints its last line):
               exact launch counts, images/s and peak memory per config (a
               smoke figure: 5 images have no steady state; the rate is
               `cli/eval_throughput.py`'s over 300); then
-              each configuration's cascade call cut into stages at batch 2,
+              each configuration's cascade call cut into stages at batch 1 and 2,
               and the CLI's host metric work per image
 
 Every kernel line carries its bound (the larger of its FLOP over the bf16
@@ -80,8 +84,9 @@ serves TPU kernels #4 and #5), each with its launches on its path, or, for
 saying so, and its times on both clocks (`ms`, `plain_ms`, `library_ms` on an
 idle card; `queued_ms`, `library_queued_ms` queued) and the host's cost of
 one launch (`host_us`: the forward kernels' enqueue time behind a
-device-side wait); the last line is {"ok": true, "device": {...}}. Longer
-logs, and every line above (smoke.log), go to OUT_DIR.
+device-side wait), and for #2, #3 and #4/#5 `gemm_library_ms`, their
+products alone through F.linear; the last line is {"ok": true, "device":
+{...}}. Longer logs, and every line above (smoke.log), go to OUT_DIR.
 """
 
 from __future__ import annotations
@@ -286,15 +291,22 @@ def phase_build():
     log(f"[build] ptxas: {len(regs)} kernel instantiations, {min(regs, default=0)}-"
         f"{max(regs, default=0)} registers per thread, {len(spills)} with spills "
         f"{spills[:4]} (full log: {OUT_DIR}/nvcc.log)")
-    # the TMA + wgmma kernels: registers and spills per instantiation (their
-    # shared memory is dynamic, sized at launch: below)
-    lines = info.splitlines()
+    # the TMA + wgmma kernels and the LN row pass: registers and spills per
+    # instantiation, once each (the GEMM template is instantiated in the
+    # sources that use it); their shared memory is dynamic, sized at launch:
+    # below
+    lines, seen = info.splitlines(), set()
     for i, ln in enumerate(lines):
-        m = re.search(r"Compiling entry function '(_ZN4cvlm(13linear_kernel|17qkv_global_kernel"
-                      r"|18attn_stream_kernel|20qkv_windows_s_kernel)\S*)'", ln)
-        if m:
+        m = re.search(r"Compiling entry function '(_ZN4cvlm(15gemm_tma_kernel|14ln_rows_kernel"
+                      r"|17qkv_global_kernel|18attn_stream_kernel|20qkv_windows_s_kernel)\S*)'",
+                      ln)
+        if m and m.group(1) not in seen:
+            seen.add(m.group(1))
             usage = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
             log(f"[build] {m.group(1)}: {'; '.join(usage)}")
+    for bn in (256, 128):
+        log(f"[build] dynamic shared memory per block: gemm_tma_kernel<{bn}, *> "
+            f"{gemm_smem(bn)} B ({gemm_stages(bn)} stages of 128 x 64 + {bn} x 64)")
     # dynamic shared memory of the attention kernels at the main path's shapes
     # (csrc/attn_sm90.cuh stream_smem, csrc/qkv_packed_global.cu global_smem,
     # csrc/qkv_packed_windows_s.cu windows_s_smem): 128 B of alignment, bf16
@@ -312,12 +324,30 @@ def phase_build():
         f"{windows(80, 208)} B, <128, 256> (win 16) {windows(128, 256)} B")
 
 
-def _check_kernel(name, kfn, pfn, args, timed=True, flops=None, reads=None, library=None):
+def gemm_stages(bn):
+    """The ring depth of csrc/gemm_sm90.cuh's GemmTile<bn>."""
+    return 3 if bn >= 256 else 4
+
+
+def gemm_smem(bn):
+    """GemmTile<bn>::SMEM: 1024 B of alignment slack, the ring of 128 x 64
+    and bn x 64 bf16 tiles, the 128 x (bn + 8) bf16 epilogue tile, two
+    mbarriers a stage."""
+    st = gemm_stages(bn)
+    return 1024 + 2 * (st * (128 + bn) * 64 + 128 * (bn + 8)) + 16 * st
+
+
+def _check_kernel(name, kfn, pfn, args, flops=None, reads=None, library=None,
+                  gemm_library=None):
     """Kernel against its plain version on the same inputs: shape, type,
     finite, within KERNEL_REL_BOUND; times (kernel, plain, and `library`, a
     zero-argument PyTorch call computing the same function, or None) in ms;
     the bound from `flops` and the bytes of the tensors the kernel reads
-    (`reads`, default every tensor argument) plus its output."""
+    (`reads`, default every tensor argument) plus its output. For the
+    LN-fused GEMMs, `gemm_library` is a yardstick of their products alone:
+    the same products through F.linear, without LN, mask, activation or
+    residual (`gemm_library_ms`, not `library_ms`: it computes another
+    function, and the port never calls it)."""
     import torch
 
     got = kfn(*args)
@@ -330,25 +360,31 @@ def _check_kernel(name, kfn, pfn, args, timed=True, flops=None, reads=None, libr
     tensors = [a for a in (args if reads is None else reads) if isinstance(a, torch.Tensor)]
     b = bound(flops, nbytes(*tensors, got)) if flops is not None else {}
     del got, want
-    nan = float("nan")
-    k_ms = time_ms(lambda: kfn(*args)) if timed else nan
-    k_q = time_ms(lambda: kfn(*args), queued=True) if timed else nan
-    k_host = host_us(lambda: kfn(*args)) if timed else nan
-    p_ms = time_ms(lambda: pfn(*args)) if timed else nan
-    lib_ms = time_ms(library) if (timed and library is not None) else None
-    lib_q = time_ms(library, queued=True) if (timed and library is not None) else None
+    k_ms = time_ms(lambda: kfn(*args))
+    k_q = time_ms(lambda: kfn(*args), queued=True)
+    k_host = host_us(lambda: kfn(*args))
+    p_ms = time_ms(lambda: pfn(*args))
+    lib_ms = time_ms(library) if library is not None else None
+    lib_q = time_ms(library, queued=True) if library is not None else None
+    gemm = {}
+    if gemm_library is not None:
+        gemm = dict(gemm_library_ms=time_ms(gemm_library),
+                    gemm_library_queued_ms=time_ms(gemm_library, queued=True))
     extra = ""
     if b:
         extra = (f" library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
                  f"{'' if lib_q is None else f' (queued {lib_q:.4f} ms)'} bound "
                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    if gemm:
+        extra += (f" gemm_library (F.linear products alone) {gemm['gemm_library_ms']:.4f} ms "
+                  f"(queued {gemm['gemm_library_queued_ms']:.4f} ms)")
     log(f"[kernel] {name:40s} max_abs {e['max_abs_err']:.3e} max_rel {e['max_rel']:.3e} "
         f"mean_rel {e['mean_rel']:.3e} (bound {KERNEL_REL_BOUND}) kernel {k_ms:.4f} ms "
         f"(queued {k_q:.4f} ms, host {k_host:.1f} us a launch) plain {p_ms:.4f} ms{extra}")
     check(e["max_rel"] < KERNEL_REL_BOUND and e["mean_rel"] < KERNEL_REL_BOUND,
           f"{name} disagrees with its plain version: {e}")
     return dict(max_abs_err=e["max_abs_err"], ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                queued_ms=k_q, library_queued_ms=lib_q, host_us=k_host, **b)
+                queued_ms=k_q, library_queued_ms=lib_q, host_us=k_host, **b, **gemm)
 
 
 def phase_kernels():
@@ -369,13 +405,10 @@ def phase_kernels():
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
 
     B, S, W = 2, 581, 1024
-    ln_g, ln_b = 1 + rn(W, std=0.1, dtype=torch.float32), rn(W, std=0.1, dtype=torch.float32)
     # SAM ViT-H: 1280 wide, 16 heads x 80, 64x64 grid, window 14
     D, HD, NH, G, WIN = 1280, 80, 16, 64, 14
     geom = CompactGeometry(G, G, WIN)
     nf, ne, R = geom.n_full, geom.n_edge, geom.R_u
-    sg, sb = 1 + rn(D, std=0.1, dtype=torch.float32), rn(D, std=0.1, dtype=torch.float32)
-    w_qkv, b_qkv = rn(3 * D, D, std=0.02), rn(3 * D, std=0.02)
     edge_rel = rn(B, ne, R, NH, 32)
     off = 0
     for grp in geom.edge_groups:  # dummy rows' pad-key logit, as the encoder clamps it
@@ -414,26 +447,6 @@ def phase_kernels():
          "camouflaged_vlm_tpu/ops/linear.py:61",
          lin.linear_act, lin.linear_act_ref, (x_pe, w_pe, b_pe),
          2.0 * B * 4096 * 768 * 1280, None, lambda: F.linear(x_pe, w_pe, b_pe)),
-        ("ln_linear_act_bt", "camouflaged_vlm_tpu_torch/csrc/ln_linear.cu",
-         "camouflaged_vlm_tpu/ops/linear.py:143",
-         lambda *a: lin.ln_linear_act_bt(*a, eps=1e-5, activation=None),
-         lambda *a: lin.ln_linear_act_bt_ref(*a, eps=1e-5, activation=None),
-         (rn(B, S, W), ln_g, ln_b, rn(3 * W, W, std=0.02), rn(3 * W, std=0.02)),
-         2.0 * B * S * W * 3 * W, None, None),
-        ("ln_mask_linear_bt", "camouflaged_vlm_tpu_torch/csrc/ln_linear.cu",
-         "camouflaged_vlm_tpu/ops/linear.py:228",
-         lambda *a: lin.ln_mask_linear_bt(*a, eps=1e-6),
-         lambda *a: lin.ln_mask_linear_bt_ref(*a, eps=1e-6),
-         (rn(B, G * G, D), sg, sb, torch.ones(1, G * G, 1, dtype=bf, device=dev), w_qkv,
-          b_qkv),
-         2.0 * B * G * G * D * 3 * D, None, None),
-        ("ln_mlp_residual_bt", "camouflaged_vlm_tpu_torch/csrc/ln_mlp_residual.cu",
-         "camouflaged_vlm_tpu/ops/linear.py:416",
-         lambda *a: lin.ln_mlp_residual_bt(*a, eps=1e-5, activation="quick_gelu"),
-         lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=1e-5, activation="quick_gelu"),
-         (rn(B, S, W), ln_g, ln_b, rn(4 * W, W, std=0.02), rn(4 * W, std=0.02),
-          rn(W, 4 * W, std=0.02), rn(W, std=0.02)),
-         4.0 * B * S * W * 4 * W, None, None),
         ("proj_rows", "camouflaged_vlm_tpu_torch/csrc/proj_rows.cu",
          "camouflaged_vlm_tpu/ops/linear.py:665",
          lin.proj_rows, lin.proj_rows_ref,
@@ -465,28 +478,18 @@ def phase_kernels():
          (qkv_glob, rel_glob, sel_glob), 4.0 * B * NH * (G * G) ** 2 * HD,
          (qkv_glob, rel_glob), sdpa_packed(qkv_glob, NH, HD, sam_scale, bias_glob)),
     ]
-    # the same kernels at SAM's shapes where the JSON line holds the CLIP one
-    # (the LN-fused and residual-fused functions have no single library call)
+    # proj_rows at SAM's shapes where the JSON line holds the CLIP one (the
+    # residual-fused function has no single library call)
     Mw, Mg = B * nf * WIN * WIN, B * G * G  # SAM rows: interior windows, global
     sam_cases = [
-        ("ln_linear_act_bt (SAM windows 32x196x1280 -> 3840)",
-         lambda *a: lin.ln_linear_act_bt(*a, eps=1e-6, activation=None),
-         lambda *a: lin.ln_linear_act_bt_ref(*a, eps=1e-6, activation=None),
-         (rn(B * nf, WIN * WIN, D), sg, sb, w_qkv, b_qkv), 2.0 * Mw * D * 3 * D),
-        ("ln_mlp_residual_bt (SAM windows 32x196x1280, H 5120)",
-         lambda *a: lin.ln_mlp_residual_bt(*a, eps=1e-6, activation="gelu_tanh"),
-         lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=1e-6, activation="gelu_tanh"),
-         (rn(B * nf, WIN * WIN, D), sg, sb, rn(4 * D, D, std=0.02), rn(4 * D, std=0.02),
-          rn(D, 4 * D, std=0.02), rn(D, std=0.02)), 4.0 * Mw * D * 4 * D),
-        ("ln_mlp_residual_bt (SAM global 2x4096x1280, H 5120)",
-         lambda *a: lin.ln_mlp_residual_bt(*a, eps=1e-6, activation="gelu_tanh"),
-         lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=1e-6, activation="gelu_tanh"),
-         (rn(B, G * G, D), sg, sb, rn(4 * D, D, std=0.02), rn(4 * D, std=0.02),
-          rn(D, 4 * D, std=0.02), rn(D, std=0.02)), 4.0 * Mg * D * 4 * D),
         ("proj_rows (SAM windows 2x16x1280x196, residual)",
          lin.proj_rows, lin.proj_rows_ref,
          (rn(B, nf, D, WIN * WIN), rn(D, D, std=0.02), rn(D, std=0.02),
           rn(B, nf, WIN * WIN, D)), 2.0 * Mw * D * D),
+        ("proj_rows (SAM edge 2x9x1280x112, residual)",
+         lin.proj_rows, lin.proj_rows_ref,
+         (rn(B, ne, D, R), rn(D, D, std=0.02), rn(D, std=0.02), rn(B, ne, R, D)),
+         2.0 * B * ne * R * D * D),
         ("proj_rows (SAM global 2x1x1280x4096, residual)",
          lin.proj_rows, lin.proj_rows_ref,
          (rn(B, 1, D, G * G), rn(D, D, std=0.02), rn(D, std=0.02), rn(B, 1, G * G, D)),
@@ -502,26 +505,140 @@ def phase_kernels():
         lambda *a: fa.flash_qkv_packed_global_ref(*a, sam_scale, NH, HD),
         (qkv_glob, rel_gen, fa.make_rel_scatter(32, 128, bf, dev)),
         4.0 * B * NH * (G * G) ** 2 * HD))
-    # the text tower's MLP shape is on the path too (checked, not timed)
-    text_mlp = (rn(61, 77, 768), 1 + rn(768, std=0.1, dtype=torch.float32),
-                rn(768, std=0.1, dtype=torch.float32), rn(3072, 768, std=0.02),
-                rn(3072, std=0.02), rn(768, 3072, std=0.02), rn(768, std=0.02))
-    results = {}
+    results, per_shape = {}, {}
     with torch.no_grad():
         for name, source, replaces, kfn, pfn, args, flops, reads, library in cases:
             results[name] = dict(source=source, replaces=replaces,
                                  **_check_kernel(name, kfn, pfn, args, flops=flops,
                                                  reads=reads, library=library))
-        for name, kfn, pfn, args, flops in sam_cases:
-            _check_kernel(name, kfn, pfn, args, flops=flops)
-        _check_kernel("ln_mlp_residual_bt (text 61x77x768)",
-                      lambda *a: lin.ln_mlp_residual_bt(*a, eps=1e-5, activation="quick_gelu"),
-                      lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=1e-5,
-                                                            activation="quick_gelu"),
-                      text_mlp, timed=False)
+        per_shape[("proj_rows", "CLIP", 2)] = results["proj_rows"]
+        for (name, kfn, pfn, args, flops), site in zip(sam_cases, ("windows", "edge", "global")):
+            per_shape[("proj_rows", site, 2)] = _check_kernel(name, kfn, pfn, args, flops=flops)
+        results.update(ln_gemm_kernels(rn, per_shape))
+        per_call_table(per_shape)
         results.update(split_attention_kernels(rn))
         results.update(padded_sites(rn))
     return results
+
+
+# the LN-fused GEMMs' sources and the TPU kernels they replace
+LN_GEMMS = {
+    "ln_linear_act_bt": ("camouflaged_vlm_tpu_torch/csrc/ln_linear.cu",
+                         "camouflaged_vlm_tpu/ops/linear.py:143"),
+    "ln_mask_linear_bt": ("camouflaged_vlm_tpu_torch/csrc/ln_linear.cu",
+                          "camouflaged_vlm_tpu/ops/linear.py:228"),
+    "ln_mlp_residual_bt": ("camouflaged_vlm_tpu_torch/csrc/ln_mlp_residual.cu",
+                           "camouflaged_vlm_tpu/ops/linear.py:416"),
+}
+
+
+def ln_gemm_shapes(batches=(2, 1)):
+    """Every shape the LN-fused GEMMs (#2, #3, #4/#5) take on the main path
+    (the reference config: CLIP-L vision 1024 wide, H 4096, quick_gelu, LN
+    eps 1e-5; the text tower 61 classes x 77 tokens, 768 wide, H 3072, once a
+    session; SAM ViT-H 1280 wide, H 5120, gelu_tanh, eps 1e-6, window 14 on
+    the 64 x 64 grid: 16 interior windows of 196 tokens and 1008 edge rows an
+    image, 4096 tokens in a global block), at batch 2 and 1: (kernel, site,
+    batch, leading dims, K, N or H, eps, activation)."""
+    from camouflaged_vlm_tpu_torch.ops.compact_window import CompactGeometry
+
+    geom = CompactGeometry(64, 64, 14)
+    out = []
+    for b in batches:
+        out += [
+            ("ln_linear_act_bt", "CLIP", b, (b, 581), 1024, 3072, 1e-5, None),
+            ("ln_linear_act_bt", "windows", b, (b * geom.n_full, 196), 1280, 3840, 1e-6, None),
+            ("ln_linear_act_bt", "edge", b, (b, geom.E), 1280, 3840, 1e-6, None),
+            ("ln_mask_linear_bt", "global", b, (b, 4096), 1280, 3840, 1e-6, None),
+            ("ln_mlp_residual_bt", "CLIP", b, (b, 581), 1024, 4096, 1e-5, "quick_gelu"),
+            ("ln_mlp_residual_bt", "windows", b, (b * geom.n_full, 196), 1280, 5120, 1e-6,
+             "gelu_tanh"),
+            ("ln_mlp_residual_bt", "edge", b, (b, geom.E), 1280, 5120, 1e-6, "gelu_tanh"),
+            ("ln_mlp_residual_bt", "global", b, (b, 4096), 1280, 5120, 1e-6, "gelu_tanh"),
+        ]
+    out.append(("ln_mlp_residual_bt", "text", 61, (61, 77), 768, 3072, 1e-5, "quick_gelu"))
+    return out
+
+
+def ln_gemm_case(rn, kernel, lead, K, N, eps, act):
+    """(kernel fn, plain fn, args, FLOP, gemm-only F.linear call) of one
+    LN-fused GEMM at one shape, seeded random bf16 inputs (fp32 LN scale and
+    shift, an all-ones row mask for #3 as the compact carry gives it)."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    F = torch.nn.functional
+    M = int(np.prod(lead))
+    x = rn(*lead, K)
+    g, b = 1 + rn(K, std=0.1, dtype=torch.float32), rn(K, std=0.1, dtype=torch.float32)
+    w, bias = rn(N, K, std=0.02), rn(N, std=0.02)
+    if kernel == "ln_mlp_residual_bt":
+        w2, b2 = rn(K, N, std=0.02), rn(K, std=0.02)
+        return (lambda *a: lin.ln_mlp_residual_bt(*a, eps=eps, activation=act),
+                lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=eps, activation=act),
+                (x, g, b, w, bias, w2, b2), 4.0 * M * K * N,
+                lambda: F.linear(F.linear(x, w, bias), w2, b2))
+    if kernel == "ln_mask_linear_bt":
+        mask = torch.ones(1, lead[-1], 1, dtype=x.dtype, device=x.device)
+        return (lambda *a: lin.ln_mask_linear_bt(*a, eps=eps),
+                lambda *a: lin.ln_mask_linear_bt_ref(*a, eps=eps),
+                (x, g, b, mask, w, bias), 2.0 * M * K * N, lambda: F.linear(x, w, bias))
+    return (lambda *a: lin.ln_linear_act_bt(*a, eps=eps, activation=act),
+            lambda *a: lin.ln_linear_act_bt_ref(*a, eps=eps, activation=act),
+            (x, g, b, w, bias), 2.0 * M * K * N, lambda: F.linear(x, w, bias))
+
+
+def ln_gemm_kernels(rn, per_shape):
+    """#2, #3 and #4/#5 against their plain versions at every main-path
+    shape (`ln_gemm_shapes`), each timed with its bound and the gemm-only
+    yardstick; the kernels line holds CLIP's shape at batch 2 for #2 and
+    #4/#5 and the global blocks' for #3, as in the earlier slices."""
+    out = {}
+    for kernel, site, b, lead, K, N, eps, act in ln_gemm_shapes():
+        kfn, pfn, args, flops, gemm = ln_gemm_case(rn, kernel, lead, K, N, eps, act)
+        rows = "x".join(map(str, lead))
+        label = (f"{kernel} ({site} {rows}x{K}, H {N})" if kernel == "ln_mlp_residual_bt"
+                 else f"{kernel} ({site} {rows}x{K} -> {N})")
+        r = _check_kernel(label, kfn, pfn, args, flops=flops, gemm_library=gemm)
+        per_shape[(kernel, site, b)] = r
+        if kernel not in out and b == 2:
+            source, replaces = LN_GEMMS[kernel]
+            out[kernel] = dict(source=source, replaces=replaces, **r)
+        del args
+    return out
+
+
+def per_call_sites():
+    """A cascade call's launches of a per-layer kernel at each site of the
+    reference config: SAM's windowed blocks each run the interior and the
+    edge pass, its global blocks the global one, and each CLIP vision pass
+    (two a call) its layers."""
+    import torch
+    from camouflaged_vlm_tpu_torch.models import CascadeConfig
+
+    cfg = CascadeConfig.full(dtype=torch.bfloat16)
+    n_glob = len(cfg.encoder.global_attn_indexes)
+    n_win = cfg.encoder.depth - n_glob
+    return {"CLIP": 2 * cfg.clip.vision_layers, "windows": n_win, "edge": n_win,
+            "global": n_glob}
+
+
+def per_call_table(per_shape):
+    """Launches x time per cascade call of the reference config (#2, #3,
+    #4/#5 at batch 2 and 1, #7 at batch 2), summed over the shapes a call
+    runs (`per_call_sites`), on both clocks, beside the summed bound."""
+    per_call = per_call_sites()
+    for kernel, batches in (("ln_linear_act_bt", (2, 1)), ("ln_mask_linear_bt", (2, 1)),
+                            ("ln_mlp_residual_bt", (2, 1)), ("proj_rows", (2,))):
+        for b in batches:
+            rows = [(site, n, per_shape[(kernel, site, b)]) for site, n in per_call.items()
+                    if (kernel, site, b) in per_shape]
+            tot = {k: sum(n * r[k] for _, n, r in rows) for k in ("ms", "queued_ms", "bound_ms")}
+            parts = " + ".join(f"{n} x {site} {r['ms']:.4f} (queued {r['queued_ms']:.4f})"
+                               for site, n, r in rows)
+            log(f"[per_call] {kernel} batch {b}: {sum(n for _, n, _ in rows)} launches a "
+                f"cascade call: {parts} = {tot['ms']:.3f} ms (queued {tot['queued_ms']:.3f} "
+                f"ms), bound {tot['bound_ms']:.3f} ms")
 
 
 # the two kernels no path of either package reaches (the JAX package's own
@@ -895,47 +1012,111 @@ def phase_slice():
     log(f"[slice] kernel launches {counts} expected {expected}")
     check(counts == expected, f"launch counts {counts} != expected {expected}")
     stage_times(session.model, session.cfg, session.text_features,
-                {bs: session.preprocess(images[:bs]) for bs in (1, 2)})
+                {bs: session.preprocess(images[:bs]) for bs in (1, 2, 4)}, trace=(1, 2))
     return counts
 
 
-def stage_times(m, cfg, tf, batches, label="", iters=5):
+def stage_times(m, cfg, tf, batches, label="", iters=5, trace=()):
     """The cascade call (`infer_cascade_with_text`) cut into its stages,
-    CUDA events between them, median of `iters` calls for each batch size of
-    `batches` ({size: (inp, clip image, clip mask)})."""
+    CUDA events between them, median of `iters` calls on an idle card, for
+    each batch size of `batches` ({size: (inp, clip image, clip mask)});
+    beside the call's wall, the host CPU time of the process over the call
+    (`time.process_time`: the wall minus it is time the host thread did not
+    run, descheduled or waiting for the card). Also the device memory peak
+    of those calls (the weights included, the build's fp32 staging not: the
+    peak is reset before them), and for the batch sizes in `trace` a
+    torch.profiler trace of one call (`trace_call`)."""
     import torch
     from camouflaged_vlm_tpu_torch.ops.resize import resize_bilinear
 
     names = [f"SAM encoder ({cfg.encoder.attn_impl})", "CLIP pass 1", "decoder + upsample",
              "sigmoid + alpha resize", "CLIP pass 2"]
-    for bs, (inp, cimg, cmask) in batches.items():
+
+    def call(inp, cimg, cmask):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        feats, _ = m.image_encoder(inp)
+        ev[1].record()
+        ifeat, tfeat, _, _ = m.clip_model.classify(cimg, cmask, tf)
+        ev[2].record()
+        masks, _, _ = m._decode(feats, m._sparse_embeddings(ifeat, tfeat))
+        ev[3].record()
+        alpha = resize_bilinear(torch.sigmoid(masks.float()), cfg.clip_size, cfg.clip_size)
+        ev[4].record()
+        m.clip_model.classify(cimg, alpha, tf)
+        ev[5].record()
+        return ev
+
+    for bs, inputs in batches.items():
         rows = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with torch.no_grad():
             for it in range(iters + 1):
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                ev[0].record()
-                feats, _ = m.image_encoder(inp)
-                ev[1].record()
-                ifeat, tfeat, _, _ = m.clip_model.classify(cimg, cmask, tf)
-                ev[2].record()
-                masks, _, _ = m._decode(feats, m._sparse_embeddings(ifeat, tfeat))
-                ev[3].record()
-                alpha = resize_bilinear(torch.sigmoid(masks.float()), cfg.clip_size,
-                                        cfg.clip_size)
-                ev[4].record()
-                m.clip_model.classify(cimg, alpha, tf)
-                ev[5].record()
+                t0, c0 = time.perf_counter(), time.process_time()
+                ev = call(*inputs)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1000
+                cpu = (time.process_time() - c0) * 1000
                 if it:  # the first call warms up
                     rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))]
-                                + [wall])
+                                + [wall, cpu])
         med = np.median(np.array(rows), axis=0)
         parts = "; ".join(f"{n} {t:.2f}" for n, t in zip(names, med))
         log(f"[stages]{label} batch {bs} (median of {iters}, ms): {parts}; sum "
-            f"{med[:-1].sum():.2f}; wall of the call {med[-1]:.2f}")
+            f"{med[:-2].sum():.2f}; wall of the call {med[-2]:.2f}; host CPU time of the call "
+            f"{med[-1]:.2f}; peak device memory of the calls "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        if bs in trace:
+            with torch.no_grad():
+                trace_call(lambda: call(*inputs), f"{label} batch {bs}", med[-2])
+
+
+# runtime calls and ops that can make the host wait for the card
+SYNC_EVENTS = ("cudaMemcpy", "Synchronize", "aten::_local_scalar_dense")
+
+
+def trace_call(fn, label, wall_ms):
+    """One call of `fn` under torch.profiler (CPU and CUDA): the card's busy
+    time (the union of its kernels' and copies' intervals), and against
+    `wall_ms`, the call's wall without the profiler, its idle share; the
+    device events' count; the runtime calls and ops that can wait for the
+    card (`SYNC_EVENTS`); the host ops by self CPU time, the top ones logged
+    and 25 written to chiprun_out/chip_smoke/trace<label>.txt."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000
+    dev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in dev:  # the union of the device intervals, us
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy /= 1e3
+    avg = prof.key_averages()
+    name = "trace" + re.sub(r"\W+", "_", label) + ".txt"
+    with open(os.path.join(OUT_DIR, name), "w") as f:
+        f.write(avg.table(sort_by="self_cpu_time_total", row_limit=25))
+    top = sorted((e for e in avg if e.self_cpu_time_total > 0),
+                 key=lambda e: -e.self_cpu_time_total)[:6]
+    tops = "; ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.2f} ms x {e.count}" for e in top)
+    syncs = "; ".join(f"{e.key} x {e.count}" for e in avg
+                      if any(s in e.key for s in SYNC_EVENTS)) or "none"
+    dev_s = (f"device busy {busy:.2f} ms in {len(dev)} device events, idle share "
+             f"{1 - busy / wall_ms:.3f} of the call's {wall_ms:.2f}-ms wall" if dev
+             else "device busy not measured (the trace holds no device events)")
+    log(f"[trace]{label}: {dev_s}; wall {wall:.2f} ms under the profiler; host ops' self "
+        f"CPU {sum(e.self_cpu_time_total for e in avg) / 1e3:.2f} ms, the most: {tops}; "
+        f"calls that can wait for the card: {syncs} ({OUT_DIR}/{name})")
 
 
 def _check_grads(name, kfn, pfn, args, out_names, flops, reads):
@@ -1514,8 +1695,8 @@ def host_metric_cost(iters=5):
 
 
 def config_stage_times(cfg, label):
-    """`stage_times` of a configuration's cascade at batch 2 (seeded random
-    weights, rel cache attached, the 61 classes' text features)."""
+    """`stage_times` of a configuration's cascade at batch 1 and 2 (seeded
+    random weights, rel cache attached, the 61 classes' text features)."""
     import torch
     from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
     from camouflaged_vlm_tpu_torch.data.transforms import (
@@ -1528,11 +1709,14 @@ def config_stage_times(cfg, label):
     tf = model.encode_class_text_features(bank["prefix"], bank["suffix"], bank["eot_indices"],
                                           bank["bank_features"])
     images = _synthetic_images(2)
-    batch = tuple(torch.from_numpy(np.stack(a)).cuda() for a in (
-        [sam_image_transform(im, cfg.inp_size) for im in images],
-        [clip_image_transform(im, cfg.clip_size) for im in images],
-        [clip_ones_alpha(cfg.clip_size) for _ in images]))
-    stage_times(model, cfg, tf, {2: batch}, label=f" {label}")
+
+    def batch(n):
+        return tuple(torch.from_numpy(np.stack(a)).cuda() for a in (
+            [sam_image_transform(im, cfg.inp_size) for im in images[:n]],
+            [clip_image_transform(im, cfg.clip_size) for im in images[:n]],
+            [clip_ones_alpha(cfg.clip_size) for _ in images[:n]]))
+
+    stage_times(model, cfg, tf, {1: batch(1), 2: batch(2)}, label=f" {label}")
     del model
 
 
@@ -1572,6 +1756,7 @@ def main() -> None:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "queued_ms": r["queued_ms"], "library_queued_ms": r["library_queued_ms"],
          "host_us": r.get("host_us"),
+         **({"gemm_library_ms": r["gemm_library_ms"]} if "gemm_library_ms" in r else {}),
          **({"path": r["path"]} if k in NO_PATH else {})}
         for res in (results, grads) for k, r in res.items()
     ]

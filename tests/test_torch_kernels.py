@@ -38,6 +38,14 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+@pytest.fixture(params=[128, 256])
+def tile_n(request, monkeypatch):
+    """Each tile width of the persistent GEMM (csrc/gemm_sm90.cuh) at every
+    shape, whatever `linear.gemm_tile_n` would pick there."""
+    monkeypatch.setattr(linear, "gemm_tile_n", lambda *_: request.param)
+    return request.param
+
+
 def rn(gen, *shape, std=1.0, dtype=torch.bfloat16):
     return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
 
@@ -54,9 +62,9 @@ def assert_close(got, want):
 @pytest.mark.parametrize("activation", ACTS)
 @pytest.mark.parametrize("M,K,N", [(100, 768, 40), (67, 96, 130), (8192, 768, 1280),
                                    (130, 200, 264)])
-def test_linear_act_kernel(gen, activation, M, K, N):
+def test_linear_act_kernel(gen, tile_n, activation, M, K, N):
     """Ragged M and N, K not a multiple of the 64-deep tile (96, 200), and
-    the patch embed's shape at batch 2."""
+    the patch embed's shape at batch 2; each tile width."""
     args = (rn(gen, M, K), rn(gen, N, K, std=0.05), rn(gen, N, std=0.1))
     before = _cuda.LINEAR_ACT.launches
     got = linear.linear_act(*args, activation=activation)
@@ -65,23 +73,53 @@ def test_linear_act_kernel(gen, activation, M, K, N):
 
 
 @pytest.mark.parametrize("activation", ACTS)
-@pytest.mark.parametrize("B,S,K,N", [(2, 37, 128, 384), (1, 581, 64, 72)])
-def test_ln_linear_act_bt_kernel(gen, activation, B, S, K, N):
+@pytest.mark.parametrize("B,S,K,N", [(2, 37, 128, 384), (1, 581, 64, 72), (2, 581, 1024, 3072),
+                                     (1, 581, 1024, 3072), (2, 1008, 1280, 3840),
+                                     (3, 7, 768, 2304), (2, 37, 200, 130), (1, 5, 8, 24)])
+def test_ln_linear_act_bt_kernel(gen, tile_n, activation, B, S, K, N):
+    """CLIP's qkv at batch 2 and 1, SAM's edge windows (2 x 1008 rows), K =
+    768, K not a multiple of the 64-deep tile (200, 8) with a ragged N;
+    each tile width."""
     args = (rn(gen, B, S, K) + 0.5, 1 + rn(gen, K, std=0.1, dtype=torch.float32),
             rn(gen, K, std=0.1, dtype=torch.float32), rn(gen, N, K, std=0.05),
             rn(gen, N, std=0.1))
+    before = _cuda.LN_LINEAR.launches
     got = linear.ln_linear_act_bt(*args, eps=1e-5, activation=activation)
+    assert _cuda.LN_LINEAR.launches == before + 1
     assert_close(got, linear.ln_linear_act_bt_ref(*args, eps=1e-5, activation=activation))
 
 
 @pytest.mark.parametrize("activation", ["gelu_tanh", "gelu", "quick_gelu"])
-@pytest.mark.parametrize("B,S,K,H", [(2, 37, 128, 512), (3, 7, 768, 256), (1, 21, 1280, 640)])
-def test_ln_mlp_residual_bt_kernel(gen, activation, B, S, K, H):
+@pytest.mark.parametrize("B,S,K,H", [(2, 37, 128, 512), (3, 7, 768, 256), (1, 21, 1280, 640),
+                                     (2, 581, 1024, 4096), (2, 1008, 1280, 5120),
+                                     (61, 77, 768, 3072), (2, 37, 200, 264), (1, 3, 96, 136)])
+def test_ln_mlp_residual_bt_kernel(gen, tile_n, activation, B, S, K, H):
+    """CLIP's MLP (fc2: N 1024 from K 4096), SAM's edge windows (2 x 1008
+    rows, H 5120), the text tower's (61 x 77, K 768), ragged M, K and H not
+    multiples of the tile (200 / 264, 96 / 136); each tile width."""
     args = (rn(gen, B, S, K), 1 + rn(gen, K, std=0.1, dtype=torch.float32),
             rn(gen, K, std=0.1, dtype=torch.float32), rn(gen, H, K, std=0.05),
             rn(gen, H, std=0.1), rn(gen, K, H, std=0.05), rn(gen, K, std=0.1))
+    before = _cuda.LN_MLP_RESIDUAL.launches
     got = linear.ln_mlp_residual_bt(*args, eps=1e-6, activation=activation)
+    assert _cuda.LN_MLP_RESIDUAL.launches == before + 1
     assert_close(got, linear.ln_mlp_residual_bt_ref(*args, eps=1e-6, activation=activation))
+
+
+@pytest.mark.parametrize("scratch", [128 * 512, 300 * 512])
+def test_ln_mlp_residual_bt_kernel_row_panels(gen, monkeypatch, scratch):
+    """A hidden larger than the scratch: the entry point walks M in row
+    panels (here 128 or 256 rows of 700; the last one ragged), one count."""
+    monkeypatch.setattr(linear, "MLP_SCRATCH_ELEMS", scratch)
+    B, S, K, H = 2, 350, 128, 512
+    assert linear.mlp_panel_rows(B * S, H) < B * S
+    args = (rn(gen, B, S, K), 1 + rn(gen, K, std=0.1, dtype=torch.float32),
+            rn(gen, K, std=0.1, dtype=torch.float32), rn(gen, H, K, std=0.05),
+            rn(gen, H, std=0.1), rn(gen, K, H, std=0.05), rn(gen, K, std=0.1))
+    before = _cuda.LN_MLP_RESIDUAL.launches
+    got = linear.ln_mlp_residual_bt(*args, eps=1e-6, activation="gelu_tanh")
+    assert _cuda.LN_MLP_RESIDUAL.launches == before + 1
+    assert_close(got, linear.ln_mlp_residual_bt_ref(*args, eps=1e-6, activation="gelu_tanh"))
 
 
 @pytest.mark.parametrize("with_res", [False, True])
@@ -108,8 +146,12 @@ def test_flash_qkv_packed_plain_kernel(gen, B, S, heads, d):
 
 
 @pytest.mark.parametrize("Bp,S,K,N,nwin", [(4, 37, 128, 384, 2), (1, 100, 64, 72, 1),
-                                          (2, 196, 1280, 3840, 1)])
-def test_ln_mask_linear_bt_kernel(gen, Bp, S, K, N, nwin):
+                                          (2, 196, 1280, 3840, 1), (32, 196, 1280, 3840, 16),
+                                          (6, 50, 200, 96, 3)])
+def test_ln_mask_linear_bt_kernel(gen, tile_n, Bp, S, K, N, nwin):
+    """SAM's width, one window and 16 (the padded carry's layout: row b'
+    reads mask[b' % nwin]), K not a multiple of the 64-deep tile (200);
+    each tile width."""
     mask = (torch.rand(nwin, S, 1, generator=gen, device="cuda") > 0.3).to(torch.bfloat16)
     args = (rn(gen, Bp, S, K) + 0.5, 1 + rn(gen, K, std=0.1, dtype=torch.float32),
             rn(gen, K, std=0.1, dtype=torch.float32), mask, rn(gen, N, K, std=0.05),
@@ -186,9 +228,23 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     w2, b2 = rn(gen, 128, 256), rn(gen, 128)
     with pytest.raises(TypeError, match="bfloat16"):  # fp32 activations
         linear.ln_mlp_residual_bt(x.float(), g32, b32, w1, b1, w2, b2)
-    with pytest.raises(ValueError, match="K = 128"):  # width the kernel has no tile for
-        linear.ln_mlp_residual_bt(x[..., :96].contiguous(), g32[:96], b32[:96],
-                                  w1[:, :96].contiguous(), b1, w2[:96].contiguous(), b2[:96])
+    # K % 8 != 0: TMA row strides are multiples of 16 bytes
+    xr = rn(gen, 1, 5, 100)
+    g100, b100 = torch.ones(100, device="cuda"), torch.zeros(100, device="cuda")
+    with pytest.raises(ValueError, match="K % 8"):
+        linear.ln_mlp_residual_bt(xr, g100, b100, rn(gen, 256, 100), b1, rn(gen, 100, 256),
+                                  rn(gen, 100))
+    with pytest.raises(ValueError, match="K % 8"):  # the hidden's rows too
+        linear.ln_mlp_residual_bt(x, g32, b32, rn(gen, 100, 128), rn(gen, 100),
+                                  rn(gen, 128, 100), b2)
+    with pytest.raises(ValueError, match="K % 8"):
+        linear.ln_linear_act_bt(xr, g100, b100, rn(gen, 8, 100), rn(gen, 8))
+    with pytest.raises(ValueError, match="K % 8"):
+        linear.ln_mask_linear_bt(xr, g100, b100, torch.ones(1, 5, 1, dtype=torch.bfloat16,
+                                                            device="cuda"),
+                                 rn(gen, 8, 100), rn(gen, 8))
+    with pytest.raises(TypeError, match="float32"):  # LN scale and shift are fp32
+        linear.ln_linear_act_bt(x, g32.to(torch.bfloat16), b32, rn(gen, 8, 128), rn(gen, 8))
     with pytest.raises(ValueError, match="contiguous"):
         linear.linear_act(x[0].t(), rn(gen, 8, 5), rn(gen, 8))
     with pytest.raises(ValueError, match="K % 8"):  # TMA strides: 16-byte multiples

@@ -119,6 +119,112 @@ def test_ln_mlp_residual_bt_matches_jax(rng, activation, hidden_grid):
     close(got, want)
 
 
+# The card runs #2, #3 and #4/#5 as stages (ops/linear.py): the LN row pass
+# (`ln_rows_ref`, with or without the row mask), then the GEMM with its
+# epilogue (`linear_act_ref`; the MLP's fc2 `linear_residual_ref`, on the
+# hidden rounded to the working type). Composed, the stages must be the JAX
+# function: in fp32 at RTOL, and in bf16 within BF16_MAX_REL / BF16_MEAN_REL.
+# In bf16 both sides round the same values at the same points and differ only
+# in fp32 summation order, which flips a rounding by one bf16 ulp (2^-8 =
+# 3.9e-3 of that element) for a few elements (measured: at most 0.04% of
+# them, mean relative error < 3e-9); moving a rounding point (the LN output or
+# the hidden kept in fp32) gives a mean relative error of 4.5e-4 to 1.9e-3 on
+# these inputs, so BF16_MEAN_REL = 1e-4 shows the rounding points are the TPU
+# kernels'. BF16_MAX_REL = 1e-2 (~2.5 ulp) is the card's gate.
+BF16_MAX_REL, BF16_MEAN_REL = 1e-2, 1e-4
+STAGE_DTYPES = ["float32", "bfloat16"]
+
+
+def stages_close(got, want, dtype):
+    if dtype == "float32":
+        close(got, want)
+        return
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    d = np.abs(got - want)
+    assert d.max() / np.abs(want).max() < BF16_MAX_REL
+    assert d.mean() / np.abs(want).mean() < BF16_MEAN_REL
+
+
+def _in(dtype):
+    """numpy -> (torch, jax) converters in the working type."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    return (lambda a: T(np.ascontiguousarray(a)).to(tdt)), (lambda a: jnp.asarray(a, jdt))
+
+
+@pytest.mark.parametrize("dtype", STAGE_DTYPES)
+@pytest.mark.parametrize("activation", [None, "quick_gelu"])
+def test_ln_linear_stages_match_jax(rng, dtype, activation):
+    x = rnd(rng, 2, 37, 64, scale=3.0) + 1.0
+    g, be = 1 + rnd(rng, 64, scale=0.1), rnd(rng, 64, scale=0.1)
+    w, b = rnd(rng, 64, 96, scale=0.125), rnd(rng, 96)
+    tt, jj = _in(dtype)
+    want = j_lin.ln_linear_act_bt(jj(x), J(g[None]), J(be[None]), jj(w), jj(b[None]), eps=1e-5,
+                                  activation=activation)
+    xn = linear.ln_rows_ref(tt(x), T(g), T(be), 1e-5)
+    assert xn.dtype == getattr(torch, dtype)  # the LN rows are rounded to the working type
+    stages_close(linear.linear_act_ref(xn, tt(w.T), tt(b), activation), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", STAGE_DTYPES)
+@pytest.mark.parametrize("nwin", [1, 3])
+def test_ln_mask_linear_stages_match_jax(rng, dtype, nwin):
+    x = rnd(rng, 2 * nwin, 25, 64) + 0.5
+    g, be = 1 + rnd(rng, 64, scale=0.1), rnd(rng, 64, scale=0.1)
+    mask = (rng.random((nwin, 25, 1)) > 0.3).astype(np.float32)
+    w, b = rnd(rng, 64, 80, scale=0.125), rnd(rng, 80)
+    tt, jj = _in(dtype)
+    want = j_lin.ln_mask_linear_bt(jj(x), J(g[None]), J(be[None]), jj(mask), jj(w), jj(b[None]),
+                                   eps=1e-6)
+    xn = linear.ln_rows_ref(tt(x), T(g), T(be), 1e-6, tt(mask))
+    for i in range(2 * nwin):  # masked rows are exact zeros before the product
+        assert not xn[i][torch.from_numpy(mask[i % nwin, :, 0] == 0)].any()
+    stages_close(linear.linear_act_ref(xn, tt(w.T), tt(b)), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", STAGE_DTYPES)
+@pytest.mark.parametrize("activation", ["gelu_tanh", "quick_gelu"])
+def test_ln_mlp_residual_stages_match_jax(rng, dtype, activation):
+    x = rnd(rng, 3, 17, 64, scale=2.0)
+    g, be = 1 + rnd(rng, 64, scale=0.1), rnd(rng, 64, scale=0.1)
+    w1, b1 = rnd(rng, 64, 256, scale=0.125), rnd(rng, 256, scale=0.1)
+    w2, b2 = rnd(rng, 256, 64, scale=0.0625), rnd(rng, 64, scale=0.1)
+    tt, jj = _in(dtype)
+    want = j_lin.ln_mlp_residual_bt(jj(x), J(g[None]), J(be[None]), jj(w1), jj(b1[None]), jj(w2),
+                                    jj(b2[None]), eps=1e-5, activation=activation)
+    xt = tt(x)
+    h = linear.linear_act_ref(linear.ln_rows_ref(xt, T(g), T(be), 1e-5), tt(w1.T), tt(b1),
+                              activation)  # fc1: the hidden, rounded to the working type
+    assert h.dtype == xt.dtype and h.shape == (3, 17, 256)
+    stages_close(linear.linear_residual_ref(h, tt(w2.T), tt(b2), xt), want, dtype)
+
+
+@pytest.mark.parametrize("M,N,act,want", [
+    (8192, 1280, True, 128),   # patch embed, batch 2: 5 rounds of 128-wide tiles, 3 of 256
+    (6272, 3840, False, 256),  # SAM windows qkv: 12 rounds against 6
+    (1162, 3072, False, 256),  # CLIP qkv: 240 tiles in 2 rounds, 120 in one
+    (1162, 1024, False, 128),  # CLIP fc2: 80 tiles in one round either way
+    (1162, 4096, True, 128),   # CLIP fc1: 3 rounds against 2, but the activation
+    (6272, 5120, True, 128),   # SAM windows fc1: 15 rounds against 8
+    (8192, 5120, True, 128),   # SAM global fc1: 20 rounds against 10, a tie
+    (2016, 1280, False, 256),  # SAM edge fc2: 160 tiles in 2 rounds, 80 in one
+    (581, 1024, False, 128),   # CLIP fc2 at batch 1: 40 tiles in one round, 20 in one
+])
+def test_gemm_tile_n_fills_the_last_round(M, N, act, want):
+    assert linear.gemm_tile_n(M, N, 132, act) == want
+
+
+@pytest.mark.parametrize("M,H", [(6272, 5120), (8192, 5120), (16384, 5120), (1162, 4096),
+                                 (37, 512), (13100, 5120)])
+def test_mlp_panel_rows_bound_the_scratch(M, H):
+    rows = linear.mlp_panel_rows(M, H)
+    panels = -(-M // rows)
+    assert rows == M or rows % linear.GEMM_BM == 0
+    assert rows * H <= linear.MLP_SCRATCH_ELEMS  # (13100, 5120): not 2 x 6656 rows
+    # panels of nearly equal size: the last is not a sliver
+    assert M - (panels - 1) * rows > rows // 2 or panels == 1
+
+
 @pytest.mark.parametrize("with_res", [False, True])
 def test_proj_rows_matches_jax(rng, with_res):
     x, w, b = rnd(rng, 2, 3, 32, 19), rnd(rng, 32, 24, scale=0.2), rnd(rng, 24)
