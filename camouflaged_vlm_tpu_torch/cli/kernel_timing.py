@@ -6,17 +6,22 @@ Imports `camouflaged_vlm_tpu_torch` from the checkout at --root (default:
 this one), builds its kernels there, and times each case of `cases()`
 through the checkout's public wrapper at the main path's bf16 shapes,
 batch 2: #1 `linear_act` at the patch embed's shape; #2, #3 and #4/#5 at
-every shape of `chip_smoke.ln_gemm_shapes`; #16, #13 and #17 at CLIP's,
-SAM's windows' and SAM's global blocks'. Each case prints one JSON line:
+every shape of `chip_smoke.ln_gemm_shapes`; #7 `proj_rows` at every shape
+of `chip_smoke.proj_rows_shapes` (x d-major, in the padded layout on a
+checkout that has it, `ops/linear.py dmajor_empty`, else contiguous); #16,
+#13, #15 and #17 at CLIP's, SAM's windows', edge windows' and global
+blocks'. Each case prints one JSON line:
 the error against the plain version; the idle-card median and the queued
 time (`chip_smoke.time_ms`); the host's microseconds a call
 (`chip_smoke.host_us`) through the wrapper and through its `CudaKernel`
 alone, replaying the arguments the wrapper passed; one PyTorch call beside
-it (SDPA for attention, `library_ms`; for the GEMMs the same products
-through F.linear alone, `gemm_library_ms`, another function). On a checkout
+it (SDPA for attention, #15's with the pad key as one more key,
+`library_ms`; for the GEMMs the same products alone through F.linear or,
+for #7, torch.matmul, `gemm_library_ms`, another function). On a checkout
 with the GEMM template (`ops/linear.py gemm_tile_n`) also the queued time
-at each tile width (the replay with the width changed) and of the template
-passes alone through `linear_act`. A last line sums launches x host us
+at each tile width (the replay with the width changed; #7's on a checkout
+where it runs on the template) and of the template passes alone through
+`linear_act`. A last line sums launches x host us
 over a batch-2 cascade call's launches at the timed shapes. The first
 line gives the card's name and power limit and the registers, spills and
 shared memory ptxas gave each kernel. Two checkouts compare on one card
@@ -107,6 +112,9 @@ def cases(smoke, rn, template: bool):
     import torch
     from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
     from camouflaged_vlm_tpu_torch.ops import linear as lin
+    from camouflaged_vlm_tpu_torch.ops.compact_window import (
+        LPAD_LANE, NEG, CompactGeometry, edge_consts,
+    )
 
     F = torch.nn.functional
     sites = smoke.per_call_sites()
@@ -163,6 +171,30 @@ def cases(smoke, rn, template: bool):
              lambda: fa.flash_qkv_packed_global_ref(qkv_glob, rel_glob, sel_glob, sam, NH, HD),
              "QKV_GLOBAL", sdpa(qkv_glob, NH, HD, sam, bias_glob), "library", sites["global"]),
     ]
+    # #15 and #7 last: the cases above allocate and draw their inputs in the
+    # same order as on a checkout that times neither (an A/B's parent), and a
+    # kernel's time moves with where its inputs lie
+    geom = CompactGeometry(G, G, WIN)
+    ne, R = geom.n_edge, geom.R_u
+    edge_rel = rn(B, ne, R, NH, 32)
+    off = 0
+    for grp in geom.edge_groups:  # dummy rows' pad-key logit, as the encoder clamps it
+        edge_rel[:, off : off + grp.n, grp.rows :, :, LPAD_LANE] = NEG
+        off += grp.n
+    sel_e, kmask_e = edge_consts(geom, bf, dev)
+    edge = (rn(B, ne, R, 3 * 1280), edge_rel.reshape(B, ne, R, NH * 32), sel_e,
+            rn(NH, HD, std=0.5), kmask_e)
+    out.append(Case("flash_qkv_packed_edge", "edge", [B, ne, R, 3840],
+                    lambda: fa.flash_qkv_packed_edge(*edge, sam, NH, HD),
+                    lambda: fa.flash_qkv_packed_edge_ref(*edge, sam, NH, HD),
+                    "QKV_EDGE", smoke.sdpa_edge(*edge, NH, HD, sam), "library", sites["edge"]))
+    padded = hasattr(lin, "dmajor_empty")  # #7 on the template, its x padded
+    for site, shape, N in smoke.proj_rows_shapes(B=2):
+        pa, _, gemm = smoke.proj_rows_case(rn, shape, N, padded)
+        out.append(Case("proj_rows", site, [*shape, N], lambda pa=pa: lin.proj_rows(*pa),
+                        lambda pa=pa: lin.proj_rows_ref(*pa),
+                        "PROJ_ROWS", gemm, "gemm_library", sites.get(site, 0),
+                        {"gemm": -1} if template and padded else {}))
     return out
 
 

@@ -1,21 +1,17 @@
-// attn_rows: per head, o = softmax((q*scale) . k^T + bias) . v over sequences
-// short enough that a block holds whole score rows in shared memory, read
-// straight from the packed qkv projection and written d-major. One template,
-// two bias modes:
-//
-//   ROWS_WINDOWS  decomposed rel-pos bias      (SAM: the padded carry's
-//                 windows and the global blocks with H + W <= 32, #12)
-//   ROWS_EDGE     the same per edge window, plus dummy-key mask and the
-//                 virtual pad key              (SAM edge windows, #15)
-//
-// (CLIP's attention, #16, and the compact carry's interior windows, #13,
-// left this kernel for the TMA + wgmma kernels of attn_sm90.cuh.)
+// attn_rows: per head, o = softmax((q*scale) . k^T + bias) . v over windows
+// short enough that a block holds whole score rows in shared memory, with
+// SAM's decomposed rel-pos bias, read straight from the packed qkv
+// projection and written d-major: the padded carry's windows and the global
+// blocks with H + W <= 32 (#12, qkv_packed_windows.cu); its row loader
+// load_rows is also attn_bwd.cu's. (CLIP's attention, #16, and the compact
+// carry's interior and edge windows, #13 and #15, left this kernel for the
+// TMA + wgmma kernels of attn_sm90.cuh.)
 //
 // Layouts: qkv (BB, S, 3*H*d), last axis [q heads | k heads | v heads];
-// out (BB, H*d, S). BB is the batch of windows (B*nwin for the windows,
-// B*n_edge for the edges). The rel lanes of query q of window b start at
-// rel + q * rel_sq + b * rel_sb: window-major (BB, S, H*32) for both.
-// Grid (ceil(S/32), heads, BB), 128 threads.
+// out (BB, H*d, S) with row stride ldo. BB is the batch of windows
+// (B*nwin). The rel lanes of query q of window b start at rel + (b * S + q)
+// * H*32: window-major (BB, S, H*32). Grid (ceil(S/32), heads, BB), 128
+// threads.
 //
 // One block owns 32 queries of one head and holds their whole score rows
 // (32 x Spad fp32, Spad = S rounded up to 64) in shared memory, so the
@@ -25,45 +21,27 @@
 // bf16 before P.V, fp32 accumulation, one rounding of the output. Keys past
 // S are zero-filled and excluded from the softmax.
 //
-// The rel-pos bias is built by indexing, not by the TPU kernels' product
-// with a 0/1 scatter matrix: each key k has two rel lanes (lo, hi) and
-// bias[q, k] = rel[q, lo] + rel[q, hi], the same fp32 sum of the same two
-// bf16 values the scatter product gives. Each warp reads a query's 32 rel
-// lanes once (one lane each) and gathers them with shuffles.
-//   windows: lo = k / win, hi = win + k % win (k on the win x win grid);
-//   edge:    lo, hi = the first and last nonzero lanes of the window's
-//            column of `sel` (n, 32, R) -- the rows kh and win + kw of the
-//            group's own (nr, nc) grid; a dummy column has none and gets
-//            the -1e30 of `kmask` (n, R) instead.
-// The edge's virtual key has logit rel[q, LPAD_LANE]; it joins the row max
-// and the row sum, and adds (pp / l) * vb[h] to the fp32 output.
+// The rel-pos bias is built by indexing, not by the TPU kernel's product
+// with a 0/1 scatter matrix: key k has the rel lanes lo = k / win and hi =
+// win + k % win (k on the win x win grid) and bias[q, k] = rel[q, lo] +
+// rel[q, hi], the same fp32 sum of the same two bf16 values the scatter
+// product gives. Each warp reads a query's 32 rel lanes once (one lane
+// each) and gathers them with shuffles.
 //
 // What bounds it on the H100: the score rows' round trip through shared
 // memory and the per-tile synchronisation, not the tensor cores (WMMA
 // 16x16x16, no wgmma, no TMA), and k and v read again by every block of 32
-// queries. qkv_packed_windows_s.cu is the design that replaces it: k and v
-// loaded once per window by TMA, the bias on the tensor cores, whole score
-// rows in wgmma's registers (PERF.md).
+// queries. qkv_packed_windows_s.cu is the design that would replace it: k
+// and v loaded once per window by TMA, the bias on the tensor cores, whole
+// score rows in wgmma's registers (PERF.md).
 #pragma once
 
 #include "common.cuh"
 
 namespace cvlm {
 
-enum RowsMode { ROWS_WINDOWS = 1, ROWS_EDGE = 2 };
-
 constexpr int AR_BQ = 32, AR_KT = 64, AR_THREADS = 128;
-constexpr int REL_LANES = 32, LPAD_LANE = 28;
-
-struct RowsBias {
-  const bf16* rel;        // 32 lanes per head and query
-  size_t rel_sq, rel_sb;  // rel strides (elements) per query and per window
-  const bf16* sel;        // edge: (n, 32, S) 0/1 scatter
-  const bf16* vb;         // edge: (H, d) pad-token value (v slice of the qkv bias)
-  const float* kmask;     // edge: (n, S) 0 real key / -1e30 dummy
-  int win;                // windows: window side (S == win * win)
-  int n;                  // edge: windows per image (BB == B * n)
-};
+constexpr int REL_LANES = 32;
 
 // Copies `rows` rows of DH bf16 values (row stride lds) into shared memory
 // (pitch ldd) with 16-byte loads; rows at or past `valid` are zero-filled.
@@ -84,14 +62,14 @@ __host__ __device__ constexpr int rows_spad(int S) { return (S + AR_KT - 1) / AR
 template <int DH>
 __host__ __device__ constexpr size_t rows_smem(int S) {
   return sizeof(float) * AR_BQ * ((rows_spad(S) > DH ? rows_spad(S) : DH) + 4) +
-         sizeof(float) * (2 * rows_spad(S) + AR_BQ) +
+         sizeof(float) * rows_spad(S) +
          sizeof(bf16) * AR_BQ * (rows_spad(S) + 8) + sizeof(bf16) * (AR_BQ + AR_KT) * (DH + 8);
 }
 
-template <int DH, int MODE>
+template <int DH>
 __global__ void __launch_bounds__(AR_THREADS) attn_rows_kernel(
-    const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, int heads, float scale,
-    RowsBias rb) {
+    const bf16* __restrict__ qkv, const bf16* __restrict__ rel, bf16* __restrict__ out, int S,
+    int ldo, int win, int heads, float scale) {
   constexpr int LDH = DH + 8;
   constexpr int NW = AR_THREADS / 32;
   const int Spad = rows_spad(S);
@@ -99,10 +77,8 @@ __global__ void __launch_bounds__(AR_THREADS) attn_rows_kernel(
   extern __shared__ __align__(128) unsigned char smem[];
   // scores (BQ x LDS), later reused for the O tile (BQ x DH+4)
   float* Ss = reinterpret_cast<float*>(smem);
-  float* kadd = Ss + AR_BQ * ((Spad > DH ? Spad : DH) + 4);  // Spad: kmask per key
-  int* kcode = reinterpret_cast<int*>(kadd + Spad);          // Spad: lo | hi << 8, or -1
-  float* padw = reinterpret_cast<float*>(kcode + Spad);      // BQ: pp / l per row
-  bf16* Ps = reinterpret_cast<bf16*>(padw + AR_BQ);          // BQ x LDP
+  int* kcode = reinterpret_cast<int*>(Ss + AR_BQ * ((Spad > DH ? Spad : DH) + 4));  // lo | hi << 8
+  bf16* Ps = reinterpret_cast<bf16*>(kcode + Spad);          // BQ x LDP
   bf16* Qs = Ps + AR_BQ * LDP;                                // BQ x LDH
   bf16* KV = Qs + AR_BQ * LDH;                                // KT x LDH
 
@@ -118,25 +94,7 @@ __global__ void __launch_bounds__(AR_THREADS) attn_rows_kernel(
     if (q < S) v = __bfloat162float(base[(size_t)q * C3 + h * DH + c]) * sc;
     Qs[r * LDH + c] = __float2bfloat16(v);
   }
-  if (MODE == ROWS_WINDOWS) {
-    for (int k = tid; k < S; k += AR_THREADS) {
-      kcode[k] = (k / rb.win) | ((rb.win + k % rb.win) << 8);
-      kadd[k] = 0.f;
-    }
-  } else if (MODE == ROWS_EDGE) {
-    const int wi = b % rb.n;
-    const bf16* sel = rb.sel + (size_t)wi * REL_LANES * S;
-    for (int k = tid; k < S; k += AR_THREADS) {
-      int lo = -1, hi = -1;
-      for (int j = 0; j < REL_LANES; ++j)
-        if (__bfloat162float(sel[(size_t)j * S + k]) != 0.f) {
-          if (lo < 0) lo = j;
-          hi = j;
-        }
-      kcode[k] = lo < 0 ? -1 : (lo | (hi << 8));
-      kadd[k] = rb.kmask[(size_t)wi * S + k];
-    }
-  }
+  for (int k = tid; k < S; k += AR_THREADS) kcode[k] = (k / win) | ((win + k % win) << 8);
 
   // scores: 2 x 4 fragments per key tile, two per warp
   const int si = warp & 1, sj = (warp >> 1) * 2;
@@ -171,29 +129,20 @@ __global__ void __launch_bounds__(AR_THREADS) attn_rows_kernel(
     const int q = q0 + r;
     float rv = 0.f;  // this lane's rel value of query q
     if (q < S)
-      rv = __bfloat162float(
-          rb.rel[(size_t)q * rb.rel_sq + (size_t)b * rb.rel_sb + h * REL_LANES + lane]);
+      rv = __bfloat162float(rel[((size_t)b * S + q) * heads * REL_LANES + h * REL_LANES + lane]);
     float mx = -INFINITY;
     for (int kb = 0; kb < S; kb += 32) {  // warp-uniform trip count: shuffles inside
       const int k = kb + lane;
-      float bias = 0.f, km = 0.f;
-      const int code = k < S ? kcode[k] : -1;
+      const int code = k < S ? kcode[k] : 0;
       const float lo = __shfl_sync(0xffffffffu, rv, code & 31);
       const float hi = __shfl_sync(0xffffffffu, rv, (code >> 8) & 31);
-      if (code >= 0) bias = lo + hi;
-      if (k < S) km = kadd[k];
       if (k < S) {
-        const float s = row[k] + bias + km;
+        const float s = row[k] + (lo + hi);
         row[k] = s;
         mx = fmaxf(mx, s);
       }
     }
     mx = warp_max(mx);
-    float lp = 0.f;
-    if (MODE == ROWS_EDGE) {
-      lp = __shfl_sync(0xffffffffu, rv, LPAD_LANE);
-      mx = fmaxf(mx, lp);
-    }
     float sum = 0.f;
     for (int k = lane; k < S; k += 32) {
       const float e = expf(row[k] - mx);
@@ -201,11 +150,6 @@ __global__ void __launch_bounds__(AR_THREADS) attn_rows_kernel(
       sum += e;
     }
     sum = warp_sum(sum);
-    if (MODE == ROWS_EDGE) {
-      const float pp = expf(lp - mx);
-      sum += pp;
-      if (lane == 0) padw[r] = pp / sum;
-    }
     for (int k = lane; k < Spad; k += 32)
       Ps[r * LDP + k] = __float2bfloat16(k < S ? row[k] / sum : 0.f);
   }
@@ -250,40 +194,36 @@ __global__ void __launch_bounds__(AR_THREADS) attn_rows_kernel(
     }
   }
   __syncthreads();
-  bf16* ob = out + ((size_t)b * heads + h) * DH * S;
+  bf16* ob = out + ((size_t)b * heads + h) * DH * ldo;
   for (int e = tid; e < AR_BQ * DH; e += AR_THREADS) {
     const int c = e / AR_BQ, r = e % AR_BQ, q = q0 + r;
-    if (q < S) {
-      float o = Os[r * LDO + c];
-      if (MODE == ROWS_EDGE) o += padw[r] * __bfloat162float(rb.vb[h * DH + c]);
-      ob[(size_t)c * S + q] = __float2bfloat16(o);
-    }
+    if (q < S) ob[(size_t)c * ldo + q] = __float2bfloat16(Os[r * LDO + c]);
   }
 }
 
-template <int DH, int MODE>
-int launch_attn_rows(const void* qkv, void* out, int BB, int S, int heads, float scale,
-                     const RowsBias& rb, cudaStream_t s) {
+template <int DH>
+int launch_attn_rows(const void* qkv, const void* rel, void* out, int BB, int S, int ldo,
+                     int win, int heads, float scale, cudaStream_t s) {
   const size_t smem = rows_smem<DH>(S);
-  cudaError_t err = cudaFuncSetAttribute(attn_rows_kernel<DH, MODE>,
+  cudaError_t err = cudaFuncSetAttribute(attn_rows_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + AR_BQ - 1) / AR_BQ, heads, BB);
-  attn_rows_kernel<DH, MODE><<<grid, AR_THREADS, smem, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), S, heads, scale, rb);
+  attn_rows_kernel<DH><<<grid, AR_THREADS, smem, s>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel), static_cast<bf16*>(out), S,
+      ldo, win, heads, scale);
   return (int)cudaGetLastError();
 }
 
-template <int MODE>
-int dispatch_attn_rows(const void* qkv, void* out, int BB, int S, int heads, int d,
-                       float scale, const RowsBias& rb, cudaStream_t s) {
+inline int dispatch_attn_rows(const void* qkv, const void* rel, void* out, int BB, int S,
+                              int ldo, int win, int heads, int d, float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return launch_attn_rows<16, MODE>(qkv, out, BB, S, heads, scale, rb, s);
-    case 32: return launch_attn_rows<32, MODE>(qkv, out, BB, S, heads, scale, rb, s);
-    case 64: return launch_attn_rows<64, MODE>(qkv, out, BB, S, heads, scale, rb, s);
-    case 80: return launch_attn_rows<80, MODE>(qkv, out, BB, S, heads, scale, rb, s);
-    case 128: return launch_attn_rows<128, MODE>(qkv, out, BB, S, heads, scale, rb, s);
+    case 16: return launch_attn_rows<16>(qkv, rel, out, BB, S, ldo, win, heads, scale, s);
+    case 32: return launch_attn_rows<32>(qkv, rel, out, BB, S, ldo, win, heads, scale, s);
+    case 64: return launch_attn_rows<64>(qkv, rel, out, BB, S, ldo, win, heads, scale, s);
+    case 80: return launch_attn_rows<80>(qkv, rel, out, BB, S, ldo, win, heads, scale, s);
+    case 128: return launch_attn_rows<128>(qkv, rel, out, BB, S, ldo, win, heads, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

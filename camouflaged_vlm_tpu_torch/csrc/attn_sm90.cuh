@@ -3,10 +3,11 @@
 // streaming kernel of CLIP's attention.
 //
 // Users: qkv_packed_plain.cu (#16, CLIP) is attn_stream_kernel;
-// qkv_packed_windows_s.cu (#13, SAM's compact windows) is a whole-window
-// kernel on the same blocks. #17 keeps its own copy of the streaming loop
-// with its rel-pos bias: moved onto this header it measured 0.4-0.9%
-// slower on the H100 in every parent-against-change run (PERF.md).
+// qkv_packed_windows_s.cu is a whole-window kernel on the same blocks, for
+// the compact carry's interior windows (#13) and its edge windows (#15).
+// #17 keeps its own copy of the streaming loop with its rel-pos bias: moved
+// onto this header it measured 0.4-0.9% slower on the H100 in every
+// parent-against-change run (PERF.md).
 //
 // The blocks:
 //   * encode_packed_rows: one 4-D tensor map over the packed qkv projection
@@ -26,8 +27,10 @@
 //   * quad_max / quad_sum: a row's statistic over a wgmma accumulator, whose
 //     row lives on the 4 threads of a quad.
 //   * store_o_dmajor: the epilogue, O rounded to bf16, transposed through
-//     shared memory and written d-major ((.., heads d, N), what proj_rows
-//     reads), 16 bytes a store where the rows allow (below).
+//     shared memory and written d-major ((.., heads d, N) with a row stride
+//     ldo, what proj_rows reads: the wrappers round it up to a multiple of
+//     8 elements for proj_rows' TMA loads), 16 bytes a store where the rows
+//     allow (below).
 //
 // attn_stream_kernel<DH, NWG, STAGES>: FlashAttention-3's one pass over the
 // keys without a bias, one block per (NWG x 64 queries, head, image):
@@ -44,7 +47,8 @@
 //     as its register A operand for O += P V (m64 n=d k16), so S and P never
 //     touch shared memory; the tile's buffers go back to the producer;
 //   * epilogue: O / l through store_o_dmajor, in the warpgroup's q buffer,
-//     which has 8 spare rows for the shifted rows of a ragged N.
+//     which has 8 spare rows for rows shifted to their destination's
+//     alignment.
 // Rounding: the one pass moves one rounding point against the JAX `ref`: P
 // is rounded to bf16 unnormalised, exp(s - m_running), and O is divided by
 // the fp32 row sum at the end, where the plain version normalises before
@@ -132,25 +136,25 @@ __device__ __forceinline__ float quad_sum(float v) {
 // One warpgroup's O (64 x DH in the wgmma accumulator fragment: o[4j + e] is
 // row r_lo, o[4j + 2 + e] row r_hi, column 8j + c0 + e) times the row factors
 // f_lo / f_hi, rounded to bf16, transposed into buf ([DH][LDB] bf16) and
-// written to ob[c * N + q0 + r] for the rows q0 + r < N. `bar` is the
+// written to ob[c * ldo + q0 + r] for the rows q0 + r < N. `bar` is the
 // warpgroup's named barrier; the first one waits out every read of buf.
-// LDB = 64: rows as they are, 16-byte stores when N % 8 == 0, 8-byte ones
-// when N % 4 == 0 (the windows' 196), else element by element.
-// LDB = 72, for rows that start anywhere (CLIP's N = 581): each row is
-// shifted in buf by its destination's misalignment, so that every
-// 16-byte-aligned chunk of the destination row is one aligned 16-byte read
-// of buf; the ragged ends go element by element. (At the windows' 196 the
-// 8-byte stores measured faster on the H100.)
+// LDB = 64: rows as they are, 16-byte stores when ldo % 8 == 0, 8-byte ones
+// when ldo % 4 == 0, else element by element.
+// LDB = 72, for rows that start anywhere: each row is shifted in buf by its
+// destination's misalignment, so that every 16-byte-aligned chunk of the
+// destination row is one aligned 16-byte read of buf; the ragged ends go
+// element by element.
 template <int DH, int LDB>
 __device__ __forceinline__ void store_o_dmajor(const float (&o)[DH / 2], float f_lo, float f_hi,
-                                               bf16* buf, bf16* ob, int N, int q0, int ltid,
-                                               int bar) {
+                                               bf16* buf, bf16* ob, int N, int ldo, int q0,
+                                               int ltid, int bar) {
   static_assert(LDB == 64 || LDB == 72, "buf rows: 64, or 72 with room to shift");
   const int lane = ltid % 32;
   const int r_lo = (ltid / 32) * 16 + lane / 4, r_hi = r_lo + 8, c0 = 2 * (lane % 4);
   // the misalignment (elements past a 16-byte boundary) of row c's first output
   auto shift = [&](int c) {
-    return LDB == 64 ? 0 : (int)((reinterpret_cast<uintptr_t>(ob + (size_t)c * N + q0) / 2) & 7);
+    return LDB == 64 ? 0
+                     : (int)((reinterpret_cast<uintptr_t>(ob + (size_t)c * ldo + q0) / 2) & 7);
   };
   named_barrier(bar, 128);
 #pragma unroll
@@ -163,12 +167,12 @@ __device__ __forceinline__ void store_o_dmajor(const float (&o)[DH / 2], float f
     }
   named_barrier(bar, 128);
   if constexpr (LDB == 64) {
-    const bool vec8 = (N % 8) == 0, vec4 = (N % 4) == 0;
+    const bool vec8 = (ldo % 8) == 0, vec4 = (ldo % 4) == 0;
     for (int e = ltid; e < DH * 8; e += 128) {
       const int c = e / 8, q = q0 + 8 * (e % 8);
       if (q >= N) continue;
       const bf16* src = buf + c * 64 + 8 * (e % 8);
-      bf16* dst = ob + (size_t)c * N + q;
+      bf16* dst = ob + (size_t)c * ldo + q;
       if (vec8 && q + 8 <= N) {
         *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
       } else if (vec4 && q + 8 <= N) {
@@ -184,7 +188,7 @@ __device__ __forceinline__ void store_o_dmajor(const float (&o)[DH / 2], float f
       const int c = e / 9, k = e - c * 9, sh = shift(c);
       // buf chunk k holds the row's queries [8k - sh, 8k + 8 - sh)
       const int lo = max(8 * k - sh, 0), hi = min(8 * k + 8 - sh, nq);
-      bf16* row = ob + (size_t)c * N + q0;
+      bf16* row = ob + (size_t)c * ldo + q0;
       const bf16* src = buf + c * 72 + sh;
       if (hi - lo == 8) {
         *reinterpret_cast<uint4*>(row + lo) = *reinterpret_cast<const uint4*>(src + lo);
@@ -205,11 +209,12 @@ __host__ __device__ constexpr size_t stream_smem() {
          sizeof(uint64_t) * (1 + 2 * STAGES);
 }
 
-// qkv through `map` (encode_packed_rows, 64 rows); out (B, heads DH, N).
-// Grid (ceil(N / (64 NWG)), heads, B), NWG * 128 + 32 threads.
+// qkv through `map` (encode_packed_rows, 64 rows); out (B, heads DH, N)
+// with row stride ldo. Grid (ceil(N / (64 NWG)), heads, B), NWG * 128 + 32
+// threads.
 template <int DH, int NWG, int STAGES>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1) attn_stream_kernel(
-    const __grid_constant__ CUtensorMap map, bf16* __restrict__ out, int N, int heads,
+    const __grid_constant__ CUtensorMap map, bf16* __restrict__ out, int N, int ldo, int heads,
     float scale) {
   constexpr int TILE = ST_KT * DH;     // elements of one 64-row tile
   constexpr int QB = ST_QROWS * DH;    // elements of a warpgroup's q buffer
@@ -347,13 +352,13 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) attn_stream_kernel(
 
   // epilogue: O / l, transposed in this warpgroup's q buffer
   store_o_dmajor<DH, ST_QROWS>(o, 1.f / quad_sum(l_lo), 1.f / quad_sum(l_hi), sQw,
-                               out + ((size_t)b * heads + h) * DH * N, N, q0 + 64 * wg, ltid,
-                               1 + wg);
+                               out + ((size_t)b * heads + h) * DH * ldo, N, ldo, q0 + 64 * wg,
+                               ltid, 1 + wg);
 }
 
 // Launches attn_stream_kernel; returns a cudaError_t code.
 template <int DH, int NWG, int STAGES>
-int launch_stream(const void* qkv, void* out, int B, int N, int heads, float scale,
+int launch_stream(const void* qkv, void* out, int B, int N, int ldo, int heads, float scale,
                   cudaStream_t s) {
   constexpr size_t smem = stream_smem<DH, NWG, STAGES>();
   static_assert(smem <= 227 * 1024, "shared memory of one block");
@@ -365,7 +370,7 @@ int launch_stream(const void* qkv, void* out, int B, int N, int heads, float sca
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((N + NWG * 64 - 1) / (NWG * 64), heads, B);
   attn_stream_kernel<DH, NWG, STAGES><<<grid, NWG * 128 + 32, smem, s>>>(
-      map, static_cast<bf16*>(out), N, heads, scale);
+      map, static_cast<bf16*>(out), N, ldo, heads, scale);
   return (int)cudaGetLastError();
 }
 

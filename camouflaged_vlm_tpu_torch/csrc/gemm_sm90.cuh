@@ -1,13 +1,15 @@
 // gemm_sm90: the Hopper building blocks of the TMA + wgmma kernels
-// (linear.cu, ln_linear.cu, ln_mlp_residual.cu, qkv_packed_global.cu, and
-// the attention kernels on attn_sm90.cuh), written as raw PTX so that a
-// source that includes this header compiles in seconds, and the persistent
-// GEMM those kernels share (gemm_tma_kernel, at the end).
+// (qkv_packed_global.cu, #17, and the attention kernels on attn_sm90.cuh:
+// qkv_packed_plain.cu, #16, and qkv_packed_windows_s.cu, #13 and #15),
+// written as raw PTX so that a source that includes this header compiles in
+// seconds, and the persistent GEMM (gemm_tma_kernel, at the end) of
+// linear.cu (#1), ln_linear.cu (#2, #3), ln_mlp_residual.cu (#4/#5) and
+// proj_rows.cu (#7).
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count,
 //     and a parity wait (a barrier's phase p "has completed" once it flips;
 //     a wait on the parity of the phase before the first passes at once);
-//   * TMA: 2-D and 4-D tiled loads global -> shared that signal an mbarrier
+//   * TMA: 2-D, 3-D and 4-D tiled loads global -> shared that signal an mbarrier
 //     (cp.async.bulk.tensor ... mbarrier::complete_tx::bytes), and the host
 //     side's tensor-map encoder, cuTensorMapEncodeTiled, reached through
 //     cudaGetDriverEntryPointByVersion (cudaGetDriverEntryPoint before CUDA
@@ -22,6 +24,11 @@
 //     written by a TMA load with CU_TENSOR_MAP_SWIZZLE_128B into a
 //     1024-byte-aligned tile; SBO = 1024 B (8 rows), LBO unused; a k16 step
 //     advances the start address by 32 B.
+//   * MN-major, 128-byte swizzle (a transposed A, imm-trans-a = 1): lines of
+//     64 bf16 of M (128 B), one per k, written by the same kind of TMA load
+//     from a matrix whose M is contiguous; SBO = 1024 B (8 k lines), LBO =
+//     between 64-element blocks of M (one block per m64 product, so unused);
+//     a k16 step advances the start address by 16 lines, 2048 B.
 //   * no swizzle ("interleave", layout type 0): 8 x 16-byte core matrices,
 //     each 128 contiguous bytes. K-major: LBO = the distance between the
 //     two core matrices of a k16 step along K, SBO = between 8-row groups.
@@ -98,6 +105,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -180,14 +196,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Wgmma<N>::ss: d (64 x N) += A (64 x 16) . B (N x 16)^T, A and B K-major in
-// shared memory. Wgmma<N>::rs: d (64 x N) += A (64 x 16, registers: the
-// mma.sync m16n8k16 A fragment of each warp's 16 rows) . B (16 x N), B
-// N-major in shared memory (imm-trans-b = 1). scale_d = 0 overwrites d.
-// The accumulator fragment: d[4j + r] is row 16*warp + lane/4 + 8*(r/2),
-// column 8j + 2*(lane%4) + r%2. ss is written out for the widths the
-// kernels use (64, 128; 208 and 256: a whole window's keys, qkv_packed_windows_s.cu),
-// rs for every head dimension (16, 32, 64, 80, 128).
+// Wgmma<N>::ss: d (64 x N) += A (64 x 16) . B (N x 16)^T, B K-major in
+// shared memory, A K-major or, with TA = 1 (imm-trans-a), MN-major (the
+// GEMM's transposed A, widths 128 and 256). Wgmma<N>::rs: d (64 x N) += A
+// (64 x 16, registers: the mma.sync m16n8k16 A fragment of each warp's 16
+// rows) . B (16 x N), B N-major in shared memory (imm-trans-b = 1). scale_d
+// = 0 overwrites d. The accumulator fragment: d[4j + r] is row 16*warp +
+// lane/4 + 8*(r/2), column 8j + 2*(lane%4) + r%2. ss is written out for the
+// widths the kernels use (64, 128; 112, 208 and 256: a whole window's keys,
+// qkv_packed_windows_s.cu), rs for every head dimension (16, 32, 64, 80,
+// 128).
 template <int N>
 struct Wgmma;
 
@@ -281,7 +299,34 @@ struct Wgmma<80> {
 };
 
 template <>
+struct Wgmma<112> {
+  static __device__ __forceinline__ void ss(float (&d)[56], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55}, "
+        "%56, %57, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
 struct Wgmma<128> {
+  template <int TA = 0>
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db,
                                             int scale_d) {
     asm volatile(
@@ -291,7 +336,7 @@ struct Wgmma<128> {
         " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
         " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
         " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        "%64, %65, p, 1, 1, %67, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -303,7 +348,7 @@ struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
   }
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -369,6 +414,7 @@ struct Wgmma<208> {
 
 template <>
 struct Wgmma<256> {
+  template <int TA = 0>
   static __device__ __forceinline__ void ss(float (&d)[128], uint64_t da, uint64_t db,
                                             int scale_d) {
     asm volatile(
@@ -383,7 +429,7 @@ struct Wgmma<256> {
         " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
         " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
         " %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, p, 1, 1, 0, 0;\n}\n"
+        "%128, %129, p, 1, 1, %131, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -406,16 +452,23 @@ struct Wgmma<256> {
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
   }
 };
 
 // -------------------------------------------------- the persistent GEMM
 //
-// out (M, N) = epilogue(A (M, K) . W (N, K)^T), bf16 in and out, fp32
-// accumulation: the mainloop of linear.cu (PR 6) made a template, shared by
-// the plain product (#1), the LN-prologue products (#2, #3: A is the LN row
-// pass's bf16 output) and the two products of the fused MLP (#4/#5):
+// out = epilogue(A . W (N, K)^T), bf16 in and out, fp32 accumulation: one
+// mainloop shared by the plain product (#1), the LN-prologue products (#2,
+// #3: A is the LN row pass's bf16 output), the two products of the fused
+// MLP (#4/#5) and the attention out-projection (#7). A comes in two layouts:
+//   * K-major (AMN = false): rows (M, K), one group: G = 1, S = M;
+//   * MN-major (AMN = true): G groups of a (K, S) matrix whose s is
+//     contiguous (row stride ldk, group stride ldg, multiples of 8), the
+//     attention kernels' d-major output (proj_rows.cu); row s of group g is
+//     output row g * S + s. A row tile holds rows of one group only, so a
+//     group takes ceil(S / BM) row tiles, the last masked at S.
+// The rest:
 //   * BM x BN output tiles, BM = 128, BN = 128 or 256 (the wrapper picks
 //     per problem, ops/linear.py gemm_tile_n), walked by one persistent block
 //     per SM (tile = blockIdx.x + i * gridDim.x, N fastest: a round of
@@ -423,21 +476,24 @@ struct Wgmma<256> {
 //     memory about once and W stays in L2); 288 threads: two consumer
 //     warpgroups of 64 rows each and one producer warp;
 //   * the producer keeps a ring of STAGES k-steps in flight across tiles
-//     (the next tile's loads overlap this tile's epilogue): per stage one
-//     TMA load of the A tile (128 x 64) and one of the W tile (BN x 64),
-//     K-major with the 128-byte swizzle, on a "full" mbarrier per stage;
-//     the consumers free a stage on its "empty" mbarrier;
+//     (the next tile's loads overlap this tile's epilogue): per stage the A
+//     tile (128 x 64: one K-major box, or two MN-major boxes of 64 s x 64 k,
+//     the second left out where its rows are all past S) and the W tile
+//     (BN x 64, K-major), all with the 128-byte swizzle, on a "full"
+//     mbarrier per stage; the consumers free a stage on its "empty" mbarrier;
 //   * each consumer warpgroup issues 4 wgmma m64nBNk16 per stage (BN/2 fp32
-//     accumulators a thread) and keeps one stage's products in flight while
-//     it waits for the next stage;
+//     accumulators a thread; an MN-major A through imm-trans-a) and keeps one
+//     stage's products in flight while it waits for the next stage;
 //   * epilogue, chosen at compile time, in fp32 on the registers and
-//     rounded once: EPI_BIAS_ACT act(acc + b) (#1, #2, #3, fc1);
-//     EPI_BIAS_RESIDUAL acc + b + res, res (M, N) bf16 read at the
-//     accumulator fragment's own rows and columns (fc2: res is the block's
-//     input x). Then bf16 through shared memory and 16-byte stores per row
-//     (scalar ones at a ragged N or an N that is not a multiple of 8).
-// Ragged M, N and K: TMA fills the out-of-bounds part of a box with zeros.
-// TMA row strides are multiples of 16 bytes: K % 8 == 0.
+//     rounded once: EPI_BIAS_ACT act(acc + b) (#1, #2, #3, fc1, #7 without
+//     a residual); EPI_BIAS_RESIDUAL acc + b + res, res (G*S, N) bf16 read
+//     at the accumulator fragment's own rows and columns (fc2: res is the
+//     block's input x; #7: the attention block's input). Then bf16 through
+//     shared memory and 16-byte stores per row (scalar ones at a ragged N or
+//     an N that is not a multiple of 8).
+// Ragged S, N and K: TMA fills the out-of-bounds part of a box with zeros.
+// TMA strides are multiples of 16 bytes: K % 8 == 0 (W's rows, a K-major
+// A's rows), and an MN-major A's ldk and ldg % 8 == 0.
 enum GemmEpilogue { EPI_BIAS_ACT = 0, EPI_BIAS_RESIDUAL = 1 };
 
 // the activation over a whole accumulator fragment: one branch, then a
@@ -474,16 +530,16 @@ struct GemmTile {
                                  sizeof(uint64_t) * 2 * STAGES;
 };
 
-template <int BN, int EPI>
+template <int BN, int EPI, bool AMN>
 __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
     const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
-    const bf16* __restrict__ bias, const bf16* __restrict__ res, bf16* __restrict__ out, int M,
-    int N, int K, int act) {
+    const bf16* __restrict__ bias, const bf16* __restrict__ res, bf16* __restrict__ out, int G,
+    int S, int N, int K, int act) {
   using T = GemmTile<BN>;
   constexpr int BM = T::BM, BK = T::BK, STAGES = T::STAGES, LDC = T::LDC;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  bf16* sA = reinterpret_cast<bf16*>(smem);  // [stage][128 rows][64], swizzled
+  bf16* sA = reinterpret_cast<bf16*>(smem);  // [stage][128 rows][64] or [stage][2][64 k][64 s]
   bf16* sB = sA + STAGES * BM * BK;          // [stage][BN rows][64], swizzled
   bf16* sC = sB + STAGES * BN * BK;          // [128][LDC]
   uint64_t* full = reinterpret_cast<uint64_t*>(sC + BM * LDC);
@@ -491,8 +547,8 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
 
   const int tid = threadIdx.x, wg = tid / 128;
   const int k_tiles = (K + BK - 1) / BK;
-  const int n_blocks = (N + BN - 1) / BN;
-  const int n_tiles = n_blocks * ((M + BM - 1) / BM);
+  const int n_blocks = (N + BN - 1) / BN, m_blocks = (S + BM - 1) / BM;
+  const int n_tiles = n_blocks * m_blocks * G;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -506,12 +562,21 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
     if (tid == 256) {
       int it = 0;  // k steps over all of this block's tiles: the ring's position
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int m0 = (tile / n_blocks) * BM, n0 = (tile % n_blocks) * BN;
+        const int n0 = (tile % n_blocks) * BN, rt = tile / n_blocks;
+        const int s0 = (AMN ? rt % m_blocks : rt) * BM, g = AMN ? rt / m_blocks : 0;
+        const bool two = !AMN || s0 + 64 < S;  // MN-major: the second box holds a row
+        const uint32_t bytes = ((two ? BM : 64) + BN) * BK * sizeof(bf16);
         for (int kt = 0; kt < k_tiles; ++kt, ++it) {
           const int s = it % STAGES;
+          bf16* a = sA + s * BM * BK;
           mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-          mbar_expect_tx(&full[s], T::STAGE_ELEMS * sizeof(bf16));
-          tma_load_2d(sA + s * BM * BK, &amap, &full[s], kt * BK, m0);
+          mbar_expect_tx(&full[s], bytes);
+          if constexpr (AMN) {
+            tma_load_3d(a, &amap, &full[s], s0, kt * BK, g);
+            if (two) tma_load_3d(a + 64 * BK, &amap, &full[s], s0 + 64, kt * BK, g);
+          } else {
+            tma_load_2d(a, &amap, &full[s], kt * BK, s0);
+          }
           tma_load_2d(sB + s * BN * BK, &wmap, &full[s], kt * BK, n0);
         }
       }
@@ -525,7 +590,10 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
   float acc[BN / 2];
   int it = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int m0 = (tile / n_blocks) * BM, n0 = (tile % n_blocks) * BN;
+    const int n0 = (tile % n_blocks) * BN, rt = tile / n_blocks;
+    // a K-major A is one group: no division by the row tiles a group
+    const int s0 = (AMN ? rt % m_blocks : rt) * BM;
+    const size_t row0 = AMN ? (size_t)(rt / m_blocks) * S : 0;  // the group's first output row
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     for (int kt = 0; kt < k_tiles; ++kt, ++it) {
@@ -536,9 +604,15 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
       wgmma_fence();
       fence_regs(acc);
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        Wgmma<BN>::ss(acc, wgmma_desc(a + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B),
-                      wgmma_desc(b + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B), 1);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = wgmma_desc(b + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B);
+        if constexpr (AMN)  // 16 k lines of 64 s a step
+          Wgmma<BN>::template ss<1>(
+              acc, wgmma_desc(a + kk * 16 * 64, 64 * BK * sizeof(bf16), 1024, LAYOUT_SWIZZLE_128B),
+              db, 1);
+        else
+          Wgmma<BN>::ss(acc, wgmma_desc(a + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B), db, 1);
+      }
       wgmma_commit();
       fence_regs(acc);
       // the previous stage's products are done: give its buffers back
@@ -562,10 +636,10 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
         acc[4 * j + 2 * hf] += b0;
         acc[4 * j + 2 * hf + 1] += b1;
         if (EPI == EPI_BIAS_RESIDUAL) {  // N % 8 == 0: gc even, the pair 4-byte aligned
-          const int gr = m0 + wg * 64 + warp * 16 + lane / 4 + 8 * hf;
-          if (gr < M && gc < N) {
+          const int sr = s0 + wg * 64 + warp * 16 + lane / 4 + 8 * hf;
+          if (sr < S && gc < N) {
             const float2 r = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)gr * N + gc));
+                *reinterpret_cast<const __nv_bfloat162*>(res + (row0 + sr) * N + gc));
             acc[4 * j + 2 * hf] += r.x;
             acc[4 * j + 2 * hf + 1] += r.y;
           }
@@ -586,10 +660,10 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
     named_barrier(1 + wg, 128);
     for (int e = tid % 128; e < 64 * (BN / 8); e += 128) {
       const int row = e / (BN / 8), ch = e % (BN / 8);
-      const int gr = m0 + wg * 64 + row, gc = n0 + ch * 8;
-      if (gr >= M || gc >= N) continue;
+      const int sr = s0 + wg * 64 + row, gc = n0 + ch * 8;
+      if (sr >= S || gc >= N) continue;
       const bf16* src = sCw + row * LDC + ch * 8;
-      bf16* dst = out + (size_t)gr * N + gc;
+      bf16* dst = out + (row0 + sr) * N + gc;
       if (vec && gc + 8 <= N) {
         *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
       } else {
@@ -599,45 +673,60 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
   }
 }
 
-// The host's launch setup, cached: a TMA map of a row-major (rows, cols)
-// bf16 matrix with (box_rows, 64) boxes and the 128-byte swizzle is a pure
-// function of those arguments, so it is encoded once per distinct key (the
-// weights' maps at every call, the scratch buffers' whenever the allocator
-// hands back the same block), in a small direct-mapped table.
-inline int gemm_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+// The host's launch setup, cached: a TMA map with the 128-byte swizzle and
+// (64, box1[, 1]) boxes over a rank-2 or rank-3 bf16 matrix (dims innermost
+// first, strides of dims 1 and 2 in elements) is a pure function of those
+// arguments, so it is encoded once per distinct key (the weights' maps at
+// every call, the scratch buffers' and the attention outputs' whenever the
+// allocator hands back the same block), in a small direct-mapped table.
+inline int gemm_map(CUtensorMap* map, const void* base, int rank, int d0, int d1, int d2,
+                    long long ld1, long long ld2, int box1) {
   struct Entry {
     const void* base;
-    int rows, cols, box_rows;
+    int rank, d0, d1, d2, box1;
+    long long ld1, ld2;
     CUtensorMap map;
   };
   constexpr int SLOTS = 256;
   static Entry table[SLOTS] = {};
   static std::mutex mu;
   const uintptr_t key = reinterpret_cast<uintptr_t>(base);
-  Entry& e = table[((key >> 8) ^ (key >> 20) ^ ((uintptr_t)rows * 0x9E37u) ^
-                    ((uintptr_t)cols << 3) ^ (uintptr_t)box_rows) % SLOTS];
+  Entry& e = table[((key >> 8) ^ (key >> 20) ^ ((uintptr_t)d1 * 0x9E37u) ^ ((uintptr_t)d0 << 3) ^
+                    ((uintptr_t)d2 << 7) ^ (uintptr_t)box1) %
+                   SLOTS];
   std::lock_guard<std::mutex> lock(mu);
-  if (e.base != base || e.rows != rows || e.cols != cols || e.box_rows != box_rows) {
-    const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-    const cuuint64_t stride[1] = {(cuuint64_t)cols * sizeof(bf16)};
-    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const int err = encode_bf16_map(&e.map, base, 2, dims, stride, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e.base != base || e.rank != rank || e.d0 != d0 || e.d1 != d1 || e.d2 != d2 ||
+      e.ld1 != ld1 || e.ld2 != ld2 || e.box1 != box1) {
+    const cuuint32_t box[3] = {64, (cuuint32_t)box1, 1};
+    const cuuint64_t stride[2] = {(cuuint64_t)ld1 * sizeof(bf16), (cuuint64_t)ld2 * sizeof(bf16)};
+    const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+    const int err = encode_bf16_map(&e.map, base, rank, dims, stride, box,
+                                    CU_TENSOR_MAP_SWIZZLE_128B);
     if (err) {
       e.base = nullptr;
       return err;
     }
     e.base = base;
-    e.rows = rows;
-    e.cols = cols;
-    e.box_rows = box_rows;
+    e.rank = rank;
+    e.d0 = d0;
+    e.d1 = d1;
+    e.d2 = d2;
+    e.ld1 = ld1;
+    e.ld2 = ld2;
+    e.box1 = box1;
   }
   *map = e.map;
   return 0;
 }
 
+// a row-major (rows, cols) matrix in (box_rows, 64) boxes
+inline int gemm_map_rows(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  return gemm_map(map, base, 2, cols, rows, 1, cols, 0, box_rows);
+}
+
 // the device's SM count, and this kernel instance's shared-memory opt-in,
 // once per device (devices 0..63)
-template <int BN, int EPI>
+template <int BN, int EPI, bool AMN>
 inline int gemm_setup(int* n_sm) {
   static int sms[64] = {};
   static bool opted[64] = {};
@@ -646,7 +735,7 @@ inline int gemm_setup(int* n_sm) {
   if (e != cudaSuccess) return (int)e;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!opted[dev]) {
-    e = cudaFuncSetAttribute(gemm_tma_kernel<BN, EPI>,
+    e = cudaFuncSetAttribute(gemm_tma_kernel<BN, EPI, AMN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)GemmTile<BN>::SMEM);
     if (e == cudaSuccess)
@@ -658,22 +747,34 @@ inline int gemm_setup(int* n_sm) {
   return 0;
 }
 
-template <int BN, int EPI>
-inline int launch_gemm_tiles(const void* a, const void* w, const void* bias, const void* res,
-                             void* out, int M, int N, int K, int act, cudaStream_t stream) {
+template <int BN, int EPI, bool AMN>
+inline int launch_gemm_tiles(const CUtensorMap& amap, const void* w, const void* bias,
+                             const void* res, void* out, int G, int S, int N, int K, int act,
+                             cudaStream_t stream) {
   using T = GemmTile<BN>;
-  CUtensorMap amap, wmap;
-  int err = gemm_map(&amap, a, M, K, T::BM);
-  if (!err) err = gemm_map(&wmap, w, N, K, BN);
+  CUtensorMap wmap;
+  int err = gemm_map_rows(&wmap, w, N, K, BN);
   int n_sm = 0;
-  if (!err) err = gemm_setup<BN, EPI>(&n_sm);
+  if (!err) err = gemm_setup<BN, EPI, AMN>(&n_sm);
   if (err) return err;
-  const int n_tiles = ((N + BN - 1) / BN) * ((M + T::BM - 1) / T::BM);
-  const int grid = n_tiles < n_sm ? n_tiles : n_sm;
-  gemm_tma_kernel<BN, EPI><<<grid, T::THREADS, T::SMEM, stream>>>(
+  const long long n_tiles =
+      (long long)G * ((S + T::BM - 1) / T::BM) * ((N + BN - 1) / BN);
+  const int grid = n_tiles < n_sm ? (int)n_tiles : n_sm;
+  gemm_tma_kernel<BN, EPI, AMN><<<grid, T::THREADS, T::SMEM, stream>>>(
       amap, wmap, static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
-      static_cast<bf16*>(out), M, N, K, act);
+      static_cast<bf16*>(out), G, S, N, K, act);
   return (int)cudaGetLastError();
+}
+
+template <int EPI, bool AMN>
+inline int launch_gemm_width(const CUtensorMap& amap, const void* w, const void* bias,
+                             const void* res, void* out, int G, int S, int N, int K, int act,
+                             int bn, cudaStream_t stream) {
+  if (bn == 256)
+    return launch_gemm_tiles<256, EPI, AMN>(amap, w, bias, res, out, G, S, N, K, act, stream);
+  if (bn == 128)
+    return launch_gemm_tiles<128, EPI, AMN>(amap, w, bias, res, out, G, S, N, K, act, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // a (M, K), w (N, K), bias (N,), res and out (M, N): bf16, bases 16-byte
@@ -685,9 +786,28 @@ inline int launch_gemm(const void* a, const void* w, const void* bias, const voi
                        void* out, int M, int N, int K, int act, int bn, cudaStream_t stream) {
   if (M < 1 || N < 1 || K < 8 || K % 8 != 0 || (EPI == EPI_BIAS_RESIDUAL && N % 8 != 0))
     return (int)cudaErrorInvalidValue;
-  if (bn == 256) return launch_gemm_tiles<256, EPI>(a, w, bias, res, out, M, N, K, act, stream);
-  if (bn == 128) return launch_gemm_tiles<128, EPI>(a, w, bias, res, out, M, N, K, act, stream);
-  return (int)cudaErrorInvalidValue;
+  CUtensorMap amap;
+  const int err = gemm_map_rows(&amap, a, M, K, GemmTile<128>::BM);
+  if (err) return err;
+  return launch_gemm_width<EPI, false>(amap, w, bias, res, out, 1, M, N, K, act, bn, stream);
+}
+
+// The MN-major A: a holds G groups of a (K, S) matrix, element (g, k, s) at
+// a[g * ldg + k * ldk + s], ldk >= S and ldk, ldg multiples of 8; w (N, K),
+// bias (N,), res and out (G * S, N): bf16, bases 16-byte aligned; K % 8 ==
+// 0 (and N % 8 == 0 with the residual); bn 128 or 256. Queues one launch;
+// returns a cudaError_t code.
+template <int EPI>
+inline int launch_gemm_mn(const void* a, long long ldk, long long ldg, const void* w,
+                          const void* bias, const void* res, void* out, int G, int S, int N,
+                          int K, int act, int bn, cudaStream_t stream) {
+  if (G < 1 || S < 1 || N < 1 || K < 8 || K % 8 != 0 || ldk < S || ldk % 8 != 0 ||
+      ldg % 8 != 0 || (G > 1 && ldg < ldk * K) || (EPI == EPI_BIAS_RESIDUAL && N % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap amap;
+  const int err = gemm_map(&amap, a, 3, S, K, G, ldk, ldg, 64);
+  if (err) return err;
+  return launch_gemm_width<EPI, true>(amap, w, bias, res, out, G, S, N, K, act, bn, stream);
 }
 
 }  // namespace cvlm

@@ -5,7 +5,7 @@
 // Replaces flash_qkv_packed_global of camouflaged_vlm_tpu/ops/flash_attention.py
 // (_qkv_packed_global_kernel): the 4 global ViT-H blocks, qkv (B, 4096, 3840),
 // rel (4096, B, 16, 128) position-major [rel_h | rel_w] (H = W = 64), out
-// (B, 1280, 4096) for proj_rows.
+// (B, 1280, 4096) for proj_rows, with the row stride the wrapper gives.
 //
 // What bounds it on the H100: the products, 4 B heads N^2 d = 171.8 GFLOP at
 // ViT-H's shapes (B = 2), 0.1737 ms at 989 TFLOP/s; the inputs are 33 MB.
@@ -70,7 +70,7 @@ __host__ __device__ constexpr size_t global_smem(int hw) {
 template <int DH, bool FAST>
 __global__ void __launch_bounds__(GA_THREADS, 1) qkv_global_kernel(
     const __grid_constant__ CUtensorMap map, const bf16* __restrict__ rel,
-    bf16* __restrict__ out, int N, int H, int W, int heads, int B, float scale) {
+    bf16* __restrict__ out, int N, int ldo, int H, int W, int heads, int B, float scale) {
   constexpr int TILE = GA_KT * DH;  // elements of one 64-row tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
@@ -283,13 +283,13 @@ __global__ void __launch_bounds__(GA_THREADS, 1) qkv_global_kernel(
       sQw[c * 64 + r_hi] = __float2bfloat16(o[4 * j + 2 + e] * inv_hi);
     }
   named_barrier(1 + wg, 128);
-  bf16* ob = out + ((size_t)b * heads + h) * DH * N;
-  const bool vec = (N % 8) == 0;
+  bf16* ob = out + ((size_t)b * heads + h) * DH * ldo;
+  const bool vec = (ldo % 8) == 0;
   for (int e = ltid; e < DH * 8; e += 128) {
     const int c = e / 8, q = qw + 8 * (e % 8);
     if (q >= N) continue;
     const bf16* src = sQw + c * 64 + 8 * (e % 8);
-    bf16* dst = ob + (size_t)c * N + q;
+    bf16* dst = ob + (size_t)c * ldo + q;
     if (vec && q + 8 <= N) {
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
     } else {
@@ -300,7 +300,7 @@ __global__ void __launch_bounds__(GA_THREADS, 1) qkv_global_kernel(
 
 template <int DH, bool FAST>
 int launch_global_kernel(const CUtensorMap& map, const void* rel, void* out, int B, int N,
-                         int H, int W, int heads, float scale, cudaStream_t s) {
+                         int ldo, int H, int W, int heads, float scale, cudaStream_t s) {
   // the rel rows of 128 queries sit in shared memory beside the q, k and v
   // tiles: H + W <= 587 at d = 80, 395 at d = 128
   const size_t smem = global_smem<DH>(H + W);
@@ -311,14 +311,15 @@ int launch_global_kernel(const CUtensorMap& map, const void* rel, void* out, int
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + GA_BQ - 1) / GA_BQ, heads, B);
   qkv_global_kernel<DH, FAST><<<grid, GA_THREADS, smem, s>>>(
-      map, static_cast<const bf16*>(rel), static_cast<bf16*>(out), N, H, W, heads, B, scale);
+      map, static_cast<const bf16*>(rel), static_cast<bf16*>(out), N, ldo, H, W, heads, B,
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
-int launch_global(const void* qkv, const void* rel, void* out, int B, int N, int H, int W,
-                  int heads, float scale, cudaStream_t s) {
-  if (H * W != N) return (int)cudaErrorInvalidValue;
+int launch_global(const void* qkv, const void* rel, void* out, int B, int N, int ldo, int H,
+                  int W, int heads, float scale, cudaStream_t s) {
+  if (H * W != N || ldo < N) return (int)cudaErrorInvalidValue;
   // the packed rows as (8-element chunk, row, chunk index, image), box
   // (8, 64 rows, d / 8 chunks, 1): one head's q, k or v tile of 64 rows
   const cuuint64_t C3 = 3ull * heads * DH;
@@ -329,26 +330,27 @@ int launch_global(const void* qkv, const void* rel, void* out, int B, int N, int
   const int err = encode_bf16_map(&map, qkv, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err) return err;
   if (W == GA_KT)
-    return launch_global_kernel<DH, true>(map, rel, out, B, N, H, W, heads, scale, s);
-  return launch_global_kernel<DH, false>(map, rel, out, B, N, H, W, heads, scale, s);
+    return launch_global_kernel<DH, true>(map, rel, out, B, N, ldo, H, W, heads, scale, s);
+  return launch_global_kernel<DH, false>(map, rel, out, B, N, ldo, H, W, heads, scale, s);
 }
 
 }  // namespace cvlm
 
-// qkv (B, N, 3*heads*d), rel (N, B, heads, H+W), out (B, heads*d, N): bf16;
+// qkv (B, N, 3*heads*d), rel (N, B, heads, H+W), out (B, heads*d, N) with
+// row stride ldo >= N: bf16;
 // N == H * W, H + W within shared memory (587 at d = 80). d in {16, 32, 64,
 // 80, 128}. Returns a cudaError_t code.
 extern "C" int cvlm_qkv_packed_global(const void* qkv, const void* rel, void* out, int B,
-                                      int N, int H, int W, int heads, int d, float scale,
-                                      void* stream) {
+                                      int N, int ldo, int H, int W, int heads, int d,
+                                      float scale, void* stream) {
   using namespace cvlm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch_global<16>(qkv, rel, out, B, N, H, W, heads, scale, s);
-    case 32: return launch_global<32>(qkv, rel, out, B, N, H, W, heads, scale, s);
-    case 64: return launch_global<64>(qkv, rel, out, B, N, H, W, heads, scale, s);
-    case 80: return launch_global<80>(qkv, rel, out, B, N, H, W, heads, scale, s);
-    case 128: return launch_global<128>(qkv, rel, out, B, N, H, W, heads, scale, s);
+    case 16: return launch_global<16>(qkv, rel, out, B, N, ldo, H, W, heads, scale, s);
+    case 32: return launch_global<32>(qkv, rel, out, B, N, ldo, H, W, heads, scale, s);
+    case 64: return launch_global<64>(qkv, rel, out, B, N, ldo, H, W, heads, scale, s);
+    case 80: return launch_global<80>(qkv, rel, out, B, N, ldo, H, W, heads, scale, s);
+    case 128: return launch_global<128>(qkv, rel, out, B, N, ldo, H, W, heads, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,8 +4,9 @@
 // Replaces flash_qkv_packed_plain of camouflaged_vlm_tpu/ops/flash_attention.py
 // (_qkv_packed_plain_kernel): CLIP vision attention. Input qkv (B, S, 3*H*d)
 // with the last axis laid out [q heads | k heads | v heads]; output
-// (B, H*d, S), the d-major layout proj_rows reads. Shapes on the main path
-// (bf16): S = 577 + 4 VPT = 581, 16 heads, d = 64, 24 layers x 2 passes.
+// (B, H*d, S) with row stride ldo, the d-major layout proj_rows reads.
+// Shapes on the main path (bf16): S = 577 + 4 VPT = 581, 16 heads, d = 64,
+// 24 layers x 2 passes.
 //
 // What bounds it on the H100: the bytes, 7.1 MB of qkv and 2.4 MB of output
 // at B = 2 (0.0028 ms at 3.35 TB/s); the products are 1.4 GFLOP (0.0014
@@ -21,9 +22,10 @@
 //   * a ring as deep as a head's keys: 10 stages of 64-key k and v tiles at
 //     d = 64 (plain_stages), so the producer issues every TMA load of
 //     CLIP's 581 keys at once and never waits for a slot;
-//   * q buffers with 8 spare rows, so that the epilogue writes each ragged
-//     d-major row (N = 581 is odd) with aligned 16-byte stores
-//     (store_o_dmajor, LDB = 72).
+//   * q buffers with 8 spare rows, so that the epilogue writes each d-major
+//     row with aligned 16-byte stores wherever it starts (store_o_dmajor,
+//     LDB = 72; the wrapper's row stride, 584 at N = 581, starts every row
+//     aligned).
 // Per key tile the consumers run wgmma for Q K^T and P V (P as the register
 // A operand) with the online softmax in registers between them; any S
 // streams, and a ragged last tile's keys past S are masked.
@@ -44,25 +46,26 @@ constexpr int plain_stages(int dh) {
 }
 
 template <int DH>
-int launch_plain(const void* qkv, void* out, int B, int S, int heads, float scale,
+int launch_plain(const void* qkv, void* out, int B, int S, int ldo, int heads, float scale,
                  cudaStream_t s) {
-  return launch_stream<DH, 3, plain_stages(DH)>(qkv, out, B, S, heads, scale, s);
+  return launch_stream<DH, 3, plain_stages(DH)>(qkv, out, B, S, ldo, heads, scale, s);
 }
 
 }  // namespace cvlm
 
-// qkv (B, S, 3*heads*d), out (B, heads*d, S): bf16. d in {16, 32, 64, 80,
-// 128}, any S. Returns a cudaError_t code.
-extern "C" int cvlm_qkv_packed_plain(const void* qkv, void* out, int B, int S, int heads,
-                                     int d, float scale, void* stream) {
+// qkv (B, S, 3*heads*d), out (B, heads*d, S) with row stride ldo >= S: bf16.
+// d in {16, 32, 64, 80, 128}, any S. Returns a cudaError_t code.
+extern "C" int cvlm_qkv_packed_plain(const void* qkv, void* out, int B, int S, int ldo,
+                                     int heads, int d, float scale, void* stream) {
   using namespace cvlm;
+  if (ldo < S) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch_plain<16>(qkv, out, B, S, heads, scale, s);
-    case 32: return launch_plain<32>(qkv, out, B, S, heads, scale, s);
-    case 64: return launch_plain<64>(qkv, out, B, S, heads, scale, s);
-    case 80: return launch_plain<80>(qkv, out, B, S, heads, scale, s);
-    case 128: return launch_plain<128>(qkv, out, B, S, heads, scale, s);
+    case 16: return launch_plain<16>(qkv, out, B, S, ldo, heads, scale, s);
+    case 32: return launch_plain<32>(qkv, out, B, S, ldo, heads, scale, s);
+    case 64: return launch_plain<64>(qkv, out, B, S, ldo, heads, scale, s);
+    case 80: return launch_plain<80>(qkv, out, B, S, ldo, heads, scale, s);
+    case 128: return launch_plain<128>(qkv, out, B, S, ldo, heads, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

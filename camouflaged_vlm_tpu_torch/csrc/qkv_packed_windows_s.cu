@@ -1,44 +1,62 @@
-// qkv_packed_windows_s: SAM's windowed attention on the compact carry's
-// interior windows, per (window, head)
-//   o = softmax((q*scale) . k^T + rel[q, k / win] + rel[q, win + k % win]) . v,
-// read straight from the packed qkv projection, written d-major.
+// qkv_packed_windows_s: SAM's windowed attention on the compact carry, per
+// (window, head), read straight from the packed qkv projection and written
+// d-major, for the interior windows and for the edge windows:
+//   interior  o = softmax((q*scale) . k^T + rel[q, k / win]
+//                          + rel[q, win + k % win]) . v
+//   edge      the same with each key's two rel lanes from its window's
+//             column of `sel`, the dummy keys' -1e30 of `kmask`, and a
+//             virtual pad key of logit rel[q, 28] and value vb.
 //
-// Replaces flash_qkv_packed_windows_s of camouflaged_vlm_tpu/ops/flash_attention.py
-// (_qkv_packed_windows_s_kernel): the 28 windowed ViT-H blocks of the
-// reference configuration (window 14), in inference and in the train
-// forward. qkv (BW, win^2, 3 heads d) with BW = B * 16 windows, rel_s
-// (win^2, BW, heads * 32) position-major with lanes [rel_h(win) | rel_w(win)
-// | 0], out (BW, heads d, win^2) for proj_rows; at ViT-H (32, 196, 3840),
-// (196, 32, 512), (32, 1280, 196).
+// Replaces two TPU kernels of camouflaged_vlm_tpu/ops/flash_attention.py:
+//   flash_qkv_packed_windows_s (_qkv_packed_windows_s_kernel, #13): the 28
+//     windowed ViT-H blocks of the reference configuration (window 14), in
+//     inference and in the train forward. qkv (BW, win^2, 3 heads d) with
+//     BW = B * 16 windows, rel_s (win^2, BW, heads * 32) position-major with
+//     lanes [rel_h(win) | rel_w(win) | 0], out (BW, heads d, win^2); at
+//     ViT-H (32, 196, 3840), (196, 32, 512), (32, 1280, 196).
+//   flash_qkv_packed_edge (_qkv_packed_edge_kernel, #15): the same blocks'
+//     9 edge windows of R = 112 uniform rows an image (4 right of 14 x 8
+//     tokens, 4 bottom of 8 x 14, the corner of 8 x 8 with 48 dummy rows and
+//     columns): qkv (B, 9, 112, 3840), rel (B, 9, 112, 16 * 32) window-major
+//     with the pad key's logit in lane 28, sel (9, 32, 112), kmask (9, 1,
+//     112) fp32, vb (16, 80), out (B, 9, 1280, 112).
+// Both outputs go to proj_rows with the row stride the wrapper gives.
 //
-// What bounds it on the H100: the bytes, 70 MB at ViT-H's shapes and B = 2
-// (qkv 48 MB, rel 6.4, out 16), 0.0211 ms at 3.35 TB/s; the products are 6.3
-// GFLOP (0.0064 ms). The design, on attn_sm90.cuh's blocks:
+// What bounds it on the H100: the bytes, 70 MB at #13's shapes and B = 2
+// (qkv 48 MB, rel 6.4, out 16), 0.0211 ms at 3.35 TB/s, and 23 MB at #15's
+// (0.0068 ms); the products are 6.3 and 1.8 GFLOP. The design, on
+// attn_sm90.cuh's blocks:
 //   * one block per (window, head), 160 threads: one consumer warpgroup and
 //     one producer warp. At win 14 and d = 80 a block takes 108.6 KB of
 //     shared memory, so two are resident per SM and one's loads overlap the
-//     other's products (512 blocks at B = 2: 1.9 waves of 264).
+//     other's products (512 blocks at B = 2: 1.9 waves of 264); an edge
+//     block at R = 112 takes 72 KB, three per SM (288 blocks, one wave).
 //   * The window's k and v are loaded once, by TMA, as NP rows: the keys
-//     padded to the wgmma width (64, 208 or 256; 208 at win 14). All of the
-//     window's query tiles run against them, where the whole-score-row
-//     kernel read them once per 32 queries. The 64-query tiles of q and
-//     their rel rows come through a 2-stage ring, the next in flight while
-//     the current one computes.
+//     padded to the wgmma width (64, 208 or 256; 208 at win 14; the edges
+//     also 112, their R at ViT-H, so no key is padding). All of the window's
+//     query tiles run against them. The 64-query tiles of q and their rel
+//     rows come through a 2-stage ring, the next in flight while the
+//     current one computes.
 //   * The bias by the tensor cores, the port's 'aug' identity
 //     (ops/aug_attention.py): q' = [bf16(q * scale) | the query's 32 rel
-//     lanes] and k' = [k | the key's two-hot lane code, ones at lanes
-//     k / win and win + k % win], so S = q' k'^T is the biased score in one
-//     chain of m64nNPk16 products of depth d + 32 (112 at d = 80). Products
-//     with 0 or 1 are exact, so S differs from (q k^T) + rel @ sel only in
-//     fp32 summation order. The lane code depends only on win: it is built
-//     once per block in shared memory, beside k's chunks, and no score
-//     takes an index computation.
+//     lanes] and k' = [k | the key's 32-lane code], so S = q' k'^T is the
+//     biased score in one chain of m64nNPk16 products of depth d + 32 (112
+//     at d = 80). The interior code is two-hot, ones at lanes k / win and
+//     win + k % win, built from win; an edge key's code is its column of
+//     the window's own 0/1 `sel`, copied in. Both are built once per block
+//     in shared memory beside k's chunks. Products with 0 or 1 are exact, so
+//     S differs from (q k^T) + rel @ sel only in fp32 summation order. sel's
+//     lane 28 is zero, so the pad-key logit in q's lane 28 adds to no score.
 //   * A whole score row in registers (NP / 2 fp32 a thread): the keys past
-//     win^2 masked to -inf, then the exact max-subtracted softmax of the JAX
-//     `ref` (flash_attention.py:546-553), normalised in fp32 before the bf16
-//     rounding: the plain version's rounding points, none moved. P is
-//     wgmma's register A operand for O = P V (NP / 16 k16 steps).
-//   * The epilogue writes d-major rows (8-byte stores at win 14: 196 % 8 = 4).
+//     the window's masked to -inf (and an edge's dummy keys given kmask's
+//     -1e30, from a per-block table in shared memory), then the exact
+//     max-subtracted softmax of the JAX `ref` (flash_attention.py:546-553,
+//     :781-807), normalised in fp32 before the bf16 rounding: the plain
+//     version's rounding points, none moved. An edge row's max and sum also
+//     take the pad key, exp(lp - m). P is wgmma's register A operand for O =
+//     P V (NP / 16 k16 steps); an edge row adds (pp / l) * vb in fp32.
+//   * The epilogue writes d-major rows, 16-byte stores on the wrapper's row
+//     stride (200 at win 14).
 // Registers: at most NP / 2 scores, then NP / 4 packed probabilities beside
 // d / 2 accumulators; one warpgroup a block leaves 255 a thread within
 // reach, so win 16 at d = 128 (128 scores, then 64 + 64) needs no split of
@@ -47,25 +65,35 @@
 
 namespace cvlm {
 
-constexpr int WS_QSTAGES = 2, WS_THREADS = 160, WS_LANES = 32;
+constexpr int WS_QSTAGES = 2, WS_THREADS = 160, WS_LANES = 32, LPAD_LANE = 28;
+
+// an edge window's key code, key mask and pad-key value (see the top)
+struct EdgeArgs {
+  const bf16* sel;     // (n, 32, R) 0/1
+  const bf16* vb;      // (heads, d): the v slice of the qkv bias
+  const float* kmask;  // (n, R): 0 real key, -1e30 dummy
+  int n;               // edge windows per image
+};
 
 // shared memory: 2 q' tiles [(d + 32) / 8][64][8], k' [(d + 32) / 8][NP][8],
-// v [d / 8][NP][8], the barriers
-template <int DH, int NP>
+// v [d / 8][NP][8], the barriers; an edge block also its keys' masks (NP fp32)
+template <int DH, int NP, bool EDGE>
 __host__ __device__ constexpr size_t windows_s_smem() {
   return 128 +
          sizeof(bf16) * ((size_t)WS_QSTAGES * 64 * (DH + WS_LANES) +
                          (size_t)NP * (DH + WS_LANES) + (size_t)NP * DH) +
-         sizeof(uint64_t) * (1 + 2 * WS_QSTAGES);
+         sizeof(uint64_t) * (1 + 2 * WS_QSTAGES) + (EDGE ? sizeof(float) * NP : 0);
 }
 
 // qmap / kvmap: the packed rows in boxes of 64 / NP rows (encode_packed_rows);
-// relmap: rel_s in boxes of 64 queries x the head's 32 lanes. Grid (heads, BW).
-template <int DH, int NP>
+// relmap: rel in boxes of 64 queries x the head's 32 lanes; Nw keys (and
+// queries) a window, win the interior windows' side; out rows of stride ldo.
+// Grid (heads, BW).
+template <int DH, int NP, bool EDGE>
 __global__ void __launch_bounds__(WS_THREADS, 1) qkv_windows_s_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kvmap,
-    const __grid_constant__ CUtensorMap relmap, bf16* __restrict__ out, int win, int heads,
-    float scale) {
+    const __grid_constant__ CUtensorMap relmap, bf16* __restrict__ out, int Nw, int ldo,
+    int win, int heads, float scale, EdgeArgs edge) {
   constexpr int DA = DH + WS_LANES;  // the augmented depth
   constexpr int QT = 64 * DA;        // elements of one q' tile
   extern __shared__ unsigned char smem_raw[];
@@ -75,9 +103,10 @@ __global__ void __launch_bounds__(WS_THREADS, 1) qkv_windows_s_kernel(
   bf16* sV = sK + NP * DA;                   // [DH/8][NP][8]
   uint64_t* kvbar = reinterpret_cast<uint64_t*>(sV + NP * DH);
   const MbarRing<WS_QSTAGES> ring{kvbar + 1, kvbar + 1 + WS_QSTAGES};
+  float* kadd = reinterpret_cast<float*>(kvbar + 1 + 2 * WS_QSTAGES);  // edge: [NP]
 
   const int tid = threadIdx.x, h = blockIdx.x, b = blockIdx.y;
-  const int Nw = win * win, n_q = (Nw + 63) / 64;
+  const int n_q = (Nw + 63) / 64;
   if (tid == 0) {
     mbar_init(kvbar, 1);
     ring.init(1);
@@ -101,27 +130,53 @@ __global__ void __launch_bounds__(WS_THREADS, 1) qkv_windows_s_kernel(
   }
 
   // ------------------------------------------------ the consumer warpgroup
-  // k's lane code: ones at lanes k / win and win + k % win, none past win^2
   bf16* code = sK + NP * DH;
-  for (int e = tid; e < (WS_LANES / 8) * NP; e += 128) {
-    const int c = e / NP, k = e - c * NP;
-    const int lo = k / win - 8 * c, hi = win + k % win - 8 * c;  // lanes within the chunk
-    uint32_t w[4];
+  if constexpr (EDGE) {
+    // k's lane code: the window's column k of sel; the keys' masks
+    const int wi = b % edge.n;
+    const uint16_t* sel = reinterpret_cast<const uint16_t*>(edge.sel) + (size_t)wi * WS_LANES * Nw;
+    for (int e = tid; e < (WS_LANES / 8) * NP; e += 128) {
+      const int c = e / NP, k = e - c * NP;
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (k < Nw) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      w[i] = pack_bf16(k < Nw && (2 * i == lo || 2 * i == hi) ? 1.f : 0.f,
-                       k < Nw && (2 * i + 1 == lo || 2 * i + 1 == hi) ? 1.f : 0.f);
-    reinterpret_cast<uint4*>(code)[e] = make_uint4(w[0], w[1], w[2], w[3]);
+        for (int i = 0; i < 4; ++i)
+          w[i] = (uint32_t)sel[(size_t)(8 * c + 2 * i) * Nw + k] |
+                 ((uint32_t)sel[(size_t)(8 * c + 2 * i + 1) * Nw + k] << 16);
+      }
+      reinterpret_cast<uint4*>(code)[e] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    for (int k = tid; k < NP; k += 128)
+      kadd[k] = k < Nw ? edge.kmask[(size_t)wi * Nw + k] : -INFINITY;
+  } else {
+    // k's lane code: ones at lanes k / win and win + k % win, none past win^2
+    for (int e = tid; e < (WS_LANES / 8) * NP; e += 128) {
+      const int c = e / NP, k = e - c * NP;
+      const int lo = k / win - 8 * c, hi = win + k % win - 8 * c;  // lanes within the chunk
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = pack_bf16(k < Nw && (2 * i == lo || 2 * i == hi) ? 1.f : 0.f,
+                         k < Nw && (2 * i + 1 == lo || 2 * i + 1 == hi) ? 1.f : 0.f);
+      reinterpret_cast<uint4*>(code)[e] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
   }
   fence_async_shared();
   named_barrier(1, 128);
   mbar_wait(kvbar, 0);
 
   const int lane = tid % 32, c0 = 2 * (lane % 4);
-  bf16* ob = out + ((size_t)b * heads + h) * DH * Nw;
+  const int r_lo = (tid / 32) * 16 + lane / 4, r_hi = r_lo + 8;  // this thread's rows
+  bf16* ob = out + ((size_t)b * heads + h) * DH * ldo;
   for (int i = 0; i < n_q; ++i) {
     const int s = ring.wait(i);
     bf16* qt = sQ + s * QT;
+    float lp_lo = 0.f, lp_hi = 0.f;  // edge: the rows' pad-key logits, rel lane 28
+    if constexpr (EDGE) {
+      const bf16* rl = qt + (DH + LPAD_LANE / 8 * 8) * 64 + LPAD_LANE % 8;
+      lp_lo = __bfloat162float(rl[r_lo * 8]);
+      lp_hi = __bfloat162float(rl[r_hi * 8]);
+    }
     scale_q_tile<DH>(qt, scale, tid);
     fence_async_shared();
     named_barrier(1, 128);
@@ -138,21 +193,32 @@ __global__ void __launch_bounds__(WS_THREADS, 1) qkv_windows_s_kernel(
     wgmma_wait<0>();
     fence_regs(sc);
 
-    // the exact softmax of each row over the win^2 real keys
+    // the exact softmax of each row over the Nw real keys (and an edge
+    // row's pad key)
     float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
     for (int j = 0; j < NP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        if (8 * j + c0 + e >= Nw) {
+        if constexpr (EDGE) {
+          const float ka = kadd[8 * j + c0 + e];
+          sc[4 * j + e] += ka;
+          sc[4 * j + 2 + e] += ka;
+        } else if (8 * j + c0 + e >= Nw) {
           sc[4 * j + e] = -INFINITY;
           sc[4 * j + 2 + e] = -INFINITY;
         }
         mx_lo = fmaxf(mx_lo, sc[4 * j + e]);
         mx_hi = fmaxf(mx_hi, sc[4 * j + 2 + e]);
       }
-    mx_lo = quad_max(mx_lo) * LOG2E;
-    mx_hi = quad_max(mx_hi) * LOG2E;
+    mx_lo = quad_max(mx_lo);
+    mx_hi = quad_max(mx_hi);
+    if constexpr (EDGE) {
+      mx_lo = fmaxf(mx_lo, lp_lo);
+      mx_hi = fmaxf(mx_hi, lp_hi);
+    }
+    mx_lo *= LOG2E;
+    mx_hi *= LOG2E;
     float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
     for (int j = 0; j < NP / 8; ++j)
@@ -163,7 +229,13 @@ __global__ void __launch_bounds__(WS_THREADS, 1) qkv_windows_s_kernel(
         sum_lo += sc[4 * j + e];
         sum_hi += sc[4 * j + 2 + e];
       }
-    const float inv_lo = 1.f / quad_sum(sum_lo), inv_hi = 1.f / quad_sum(sum_hi);
+    float pp_lo = 0.f, pp_hi = 0.f;  // edge: the pad key's exp(lp - m)
+    if constexpr (EDGE) {
+      pp_lo = exp2f(fmaf(lp_lo, LOG2E, -mx_lo));
+      pp_hi = exp2f(fmaf(lp_hi, LOG2E, -mx_hi));
+    }
+    const float inv_lo = 1.f / (quad_sum(sum_lo) + pp_lo);
+    const float inv_hi = 1.f / (quad_sum(sum_hi) + pp_hi);
 
     // P = bf16(p / l), the m16n8k16 A fragment of each warp per 16 keys; O = P V
     uint32_t pa[NP / 16][4];
@@ -184,64 +256,111 @@ __global__ void __launch_bounds__(WS_THREADS, 1) qkv_windows_s_kernel(
     wgmma_wait<0>();
     fence_regs(o);
 
+    if constexpr (EDGE) {  // + (pp / l) * vb, in fp32 before the one rounding
+      const bf16* vbh = edge.vb + h * DH;
+      const float pw_lo = pp_lo * inv_lo, pw_hi = pp_hi * inv_hi;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = __bfloat162float(vbh[8 * j + c0 + e]);
+          o[4 * j + e] += pw_lo * v;
+          o[4 * j + 2 + e] += pw_hi * v;
+        }
+    }
+
     // epilogue in the tile's q chunks; then the slot goes back to the producer
-    store_o_dmajor<DH, 64>(o, 1.f, 1.f, qt, ob, Nw, 64 * i, tid, 1);
+    store_o_dmajor<DH, 64>(o, 1.f, 1.f, qt, ob, Nw, ldo, 64 * i, tid, 1);
     fence_async_shared();
     named_barrier(1, 128);
     if (tid == 0) ring.release(s);
   }
 }
 
-template <int DH, int NP>
-int launch_windows_s(const void* qkv, const void* rel, void* out, int BW, int win, int heads,
-                     float scale, cudaStream_t s) {
-  const int Nw = win * win;
+// rel_window_major: rel (BW, Nw, lanes) (the edges), else (Nw, BW, lanes)
+template <int DH, int NP, bool EDGE>
+int launch_windows_s(const void* qkv, const void* rel, void* out, int BW, int Nw, int ldo,
+                     int win, int heads, float scale, const EdgeArgs& edge, cudaStream_t s) {
   CUtensorMap qmap, kvmap, relmap;
   int err = encode_packed_rows<DH>(&qmap, qkv, BW, Nw, heads, 64);
   if (!err) err = encode_packed_rows<DH>(&kvmap, qkv, BW, Nw, heads, NP);
-  // rel_s (Nw, BW, heads * 32) as (8-lane chunk, query, chunk index, window)
-  const cuuint64_t lanes = (cuuint64_t)heads * WS_LANES;
+  // rel as (8-lane chunk, query, chunk index, window)
+  const cuuint64_t lanes = (cuuint64_t)heads * WS_LANES, L2 = lanes * sizeof(bf16);
   const cuuint64_t dims[4] = {8, (cuuint64_t)Nw, lanes / 8, (cuuint64_t)BW};
-  const cuuint64_t strides[3] = {BW * lanes * sizeof(bf16), 16, lanes * sizeof(bf16)};
+  const cuuint64_t strides[3] = {EDGE ? L2 : BW * L2, 16, EDGE ? Nw * L2 : L2};
   const cuuint32_t box[4] = {8, 64, WS_LANES / 8, 1};
   if (!err) err = encode_bf16_map(&relmap, rel, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err) return err;
-  const size_t smem = windows_s_smem<DH, NP>();
-  cudaError_t e = cudaFuncSetAttribute(qkv_windows_s_kernel<DH, NP>,
+  const size_t smem = windows_s_smem<DH, NP, EDGE>();
+  cudaError_t e = cudaFuncSetAttribute(qkv_windows_s_kernel<DH, NP, EDGE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  qkv_windows_s_kernel<DH, NP><<<dim3(heads, BW), WS_THREADS, smem, s>>>(
-      qmap, kvmap, relmap, static_cast<bf16*>(out), win, heads, scale);
+  qkv_windows_s_kernel<DH, NP, EDGE><<<dim3(heads, BW), WS_THREADS, smem, s>>>(
+      qmap, kvmap, relmap, static_cast<bf16*>(out), Nw, ldo, win, heads, scale, edge);
   return (int)cudaGetLastError();
 }
 
-// the keys padded to the product's width: 64 up to win 8, 208 up to 14, 256
-template <int DH>
-int dispatch_windows_s(const void* qkv, const void* rel, void* out, int BW, int win, int heads,
-                       float scale, cudaStream_t s) {
-  const int n = win * win;
-  if (n <= 64) return launch_windows_s<DH, 64>(qkv, rel, out, BW, win, heads, scale, s);
-  if (n <= 208) return launch_windows_s<DH, 208>(qkv, rel, out, BW, win, heads, scale, s);
-  return launch_windows_s<DH, 256>(qkv, rel, out, BW, win, heads, scale, s);
+// the keys padded to the product's width: interior windows 64 up to win 8,
+// 208 up to 14, 256; edges 64, 112 (ViT-H's R), 208 or 256
+template <int DH, bool EDGE>
+int dispatch_windows_s(const void* qkv, const void* rel, void* out, int BW, int Nw, int ldo,
+                       int win, int heads, float scale, const EdgeArgs& edge, cudaStream_t s) {
+  if (Nw <= 64)
+    return launch_windows_s<DH, 64, EDGE>(qkv, rel, out, BW, Nw, ldo, win, heads, scale, edge, s);
+  if constexpr (EDGE)
+    if (Nw <= 112)
+      return launch_windows_s<DH, 112, true>(qkv, rel, out, BW, Nw, ldo, win, heads, scale,
+                                             edge, s);
+  if (Nw <= 208)
+    return launch_windows_s<DH, 208, EDGE>(qkv, rel, out, BW, Nw, ldo, win, heads, scale, edge,
+                                           s);
+  return launch_windows_s<DH, 256, EDGE>(qkv, rel, out, BW, Nw, ldo, win, heads, scale, edge, s);
+}
+
+template <bool EDGE>
+int dispatch_d(const void* qkv, const void* rel, void* out, int BW, int Nw, int ldo, int win,
+               int heads, int d, float scale, const EdgeArgs& edge, cudaStream_t s) {
+  if (Nw < 1 || Nw > 256 || ldo < Nw || BW > 65535) return (int)cudaErrorInvalidValue;
+  switch (d) {
+#define CVLM_WS_CASE(D) \
+  case D:               \
+    return dispatch_windows_s<D, EDGE>(qkv, rel, out, BW, Nw, ldo, win, heads, scale, edge, s);
+    CVLM_WS_CASE(16)
+    CVLM_WS_CASE(32)
+    CVLM_WS_CASE(64)
+    CVLM_WS_CASE(80)
+    CVLM_WS_CASE(128)
+#undef CVLM_WS_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace cvlm
 
 // qkv (BW, win*win, 3*heads*d), rel_s (win*win, BW, heads*32) position-major,
-// out (BW, heads*d, win*win): bf16; 2 * win <= 32, d in {16, 32, 64, 80,
-// 128}. Returns a cudaError_t code.
+// out (BW, heads*d, win*win) with row stride ldo >= win*win: bf16; 2 * win
+// <= 32, d in {16, 32, 64, 80, 128}. Returns a cudaError_t code.
 extern "C" int cvlm_qkv_packed_windows_s(const void* qkv, const void* rel, void* out, int BW,
-                                         int win, int heads, int d, float scale,
+                                         int win, int heads, int d, float scale, int ldo,
                                          void* stream) {
   using namespace cvlm;
-  if (win < 1 || 2 * win > WS_LANES || BW > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return dispatch_windows_s<16>(qkv, rel, out, BW, win, heads, scale, s);
-    case 32: return dispatch_windows_s<32>(qkv, rel, out, BW, win, heads, scale, s);
-    case 64: return dispatch_windows_s<64>(qkv, rel, out, BW, win, heads, scale, s);
-    case 80: return dispatch_windows_s<80>(qkv, rel, out, BW, win, heads, scale, s);
-    case 128: return dispatch_windows_s<128>(qkv, rel, out, BW, win, heads, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (win < 1 || 2 * win > WS_LANES) return (int)cudaErrorInvalidValue;
+  return dispatch_d<false>(qkv, rel, out, BW, win * win, ldo, win, heads, d, scale, EdgeArgs{},
+                           static_cast<cudaStream_t>(stream));
+}
+
+// qkv (B, n, R, 3*heads*d), rel (B, n, R, heads*32) window-major, sel (n,
+// 32, R), vb (heads, d), out (B, n, heads*d, R) with row stride ldo >= R:
+// bf16; kmask (n, 1, R) fp32; R <= 256, d in {16, 32, 64, 80, 128}.
+// Returns a cudaError_t code.
+extern "C" int cvlm_qkv_packed_edge(const void* qkv, const void* rel, const void* sel,
+                                    const void* vb, const void* kmask, void* out, int B,
+                                    int n, int R, int heads, int d, float scale, int ldo,
+                                    void* stream) {
+  using namespace cvlm;
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  const EdgeArgs edge{static_cast<const bf16*>(sel), static_cast<const bf16*>(vb),
+                      static_cast<const float*>(kmask), n};
+  return dispatch_d<true>(qkv, rel, out, B * n, R, ldo, 0, heads, d, scale, edge,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -105,7 +105,7 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 class CudaKernel:
@@ -132,11 +132,14 @@ class CudaKernel:
         self.launches += 1
 
 
-# One entry per wrapper (and TPU kernel replaced). The first four run on the
+# One entry per wrapper (and TPU kernel replaced). The first five run on the
 # persistent TMA + wgmma GEMM of csrc/gemm_sm90.cuh: the plain product
 # (csrc/linear.cu); the LN row pass then the GEMM (csrc/ln_linear.cu: LN, and
 # LN with a row mask); the LN row pass, fc1 and fc2 with the residual
-# (csrc/ln_mlp_residual.cu). Each entry queues all its passes and counts once.
+# (csrc/ln_mlp_residual.cu); the out-projection of a d-major attention output,
+# read MN-major (csrc/proj_rows.cu). Each entry queues all its passes and
+# counts once. The attention kernels write their d-major output with a row
+# stride (the last int) that the wrappers round up for proj_rows.
 LINEAR_ACT = CudaKernel("linear_act", "cvlm_linear", [P, P, P, P, I, I, I, I, I])
 LN_LINEAR = CudaKernel("ln_linear_act_bt", "cvlm_ln_linear",
                        [P, P, P, P, P, P, P, I, I, I, F, I, I])
@@ -147,23 +150,24 @@ LN_MLP_RESIDUAL = CudaKernel(
     "ln_mlp_residual_bt", "cvlm_ln_mlp_residual",
     [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I],
 )
-PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, I, I])
+PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, L, L, I, I, I])
 QKV_PACKED_PLAIN = CudaKernel(
-    "flash_qkv_packed_plain", "cvlm_qkv_packed_plain", [P, P, I, I, I, I, F]
+    "flash_qkv_packed_plain", "cvlm_qkv_packed_plain", [P, P, I, I, I, I, I, F]
 )
-# the windows' attention: the compact carry's (#13, rel position-major,
-# csrc/qkv_packed_windows_s.cu) and the padded carry's (#12, rel
+# the windows' attention: the compact carry's interior (#13, rel
+# position-major) and edge windows (#15, rel window-major), both in
+# csrc/qkv_packed_windows_s.cu, and the padded carry's (#12, rel
 # window-major, csrc/qkv_packed_windows.cu)
-_QKV_WINDOWS_ARGS = [P, P, P, I, I, I, I, F]
+_QKV_WINDOWS_ARGS = [P, P, P, I, I, I, I, F, I]
 QKV_WINDOWS = CudaKernel("flash_qkv_packed_windows_s", "cvlm_qkv_packed_windows_s",
                          _QKV_WINDOWS_ARGS)
 QKV_WINDOWS_PADDED = CudaKernel("flash_qkv_packed_windows", "cvlm_qkv_packed_windows",
                                 _QKV_WINDOWS_ARGS)
 QKV_EDGE = CudaKernel(
-    "flash_qkv_packed_edge", "cvlm_qkv_packed_edge", [P, P, P, P, P, P, I, I, I, I, I, F]
+    "flash_qkv_packed_edge", "cvlm_qkv_packed_edge", [P, P, P, P, P, P, I, I, I, I, I, F, I]
 )
 QKV_GLOBAL = CudaKernel(
-    "flash_qkv_packed_global", "cvlm_qkv_packed_global", [P, P, P, I, I, I, I, I, I, F]
+    "flash_qkv_packed_global", "cvlm_qkv_packed_global", [P, P, P, I, I, I, I, I, I, I, F]
 )
 # The hand-written backward kernels (training): the fused MLP's (#6), and one
 # attention backward (csrc/attn_bwd.cu) for the windows (#14) and the
@@ -210,22 +214,24 @@ def launch_counts() -> dict:
 # --------------------------------------------------------------- dispatch
 
 
-def use_kernel(name: str, *tensors: Optional[torch.Tensor]) -> bool:
+def use_kernel(name: str, *tensors: Optional[torch.Tensor], strided: int = 0) -> bool:
     """False when every tensor lies on the CPU (the caller runs the plain
     version); True when all lie on one CUDA device and the kernel can take
-    them (contiguous, 32-byte aligned). Raises on anything else — a CUDA
-    tensor never falls back to the plain version. Gradients go through the
-    wrappers' autograd Functions (`ops/autograd.py`), whose forward calls
-    the kernel under no grad."""
+    them (contiguous, 32-byte aligned). The first `strided` tensors may be
+    strided views, whose strides the wrapper checks itself. Raises on
+    anything else — a CUDA tensor never falls back to the plain version.
+    Gradients go through the wrappers' autograd Functions
+    (`ops/autograd.py`), whose forward calls the kernel under no grad."""
     ts = [t for t in tensors if t is not None]
     devices = {t.device for t in ts}
     if all(d.type == "cpu" for d in devices):
         return False
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name}: tensors on mixed or unsupported devices {devices}")
-    for t in ts:
-        if not t.is_contiguous():
+    for i, t in enumerate(tensors):
+        if t is not None and i >= strided and not t.is_contiguous():
             raise ValueError(f"{name}: CUDA kernel needs contiguous tensors")
+    for t in ts:
         if t.data_ptr() % 32 != 0:
             raise ValueError(f"{name}: CUDA kernel needs 32-byte aligned tensors")
     return True

@@ -35,10 +35,11 @@ def wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
 
 
 def forward_fn(name: str, launch: Callable, plain: Callable,
-               tensors: Sequence[Optional[torch.Tensor]]) -> Callable:
-    """The kernel for CUDA tensors (after `_cuda.use_kernel`'s checks), the
-    plain version for CPU tensors."""
-    return launch if _cuda.use_kernel(name, *tensors) else plain
+               tensors: Sequence[Optional[torch.Tensor]], strided: int = 0) -> Callable:
+    """The kernel for CUDA tensors (after `_cuda.use_kernel`'s checks; the
+    first `strided` tensors may be strided views), the plain version for CPU
+    tensors."""
+    return launch if _cuda.use_kernel(name, *tensors, strided=strided) else plain
 
 
 class PlainVJP(torch.autograd.Function):
@@ -65,10 +66,10 @@ class PlainVJP(torch.autograd.Function):
 
 
 def run(name: str, launch: Callable, plain: Callable,
-        tensors: Sequence[Optional[torch.Tensor]], static: Sequence = ()):
+        tensors: Sequence[Optional[torch.Tensor]], static: Sequence = (), strided: int = 0):
     """`launch(*tensors, *static)` on the card or `plain(...)` on the CPU;
     through `PlainVJP` when a gradient is wanted."""
-    fwd = forward_fn(name, launch, plain, tensors)
+    fwd = forward_fn(name, launch, plain, tensors, strided)
     if wants_grad(*tensors):
         return PlainVJP.apply(fwd, plain, len(tensors), *tensors, *static)
     return fwd(*tensors, *static)

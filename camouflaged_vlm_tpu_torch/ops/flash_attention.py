@@ -16,8 +16,9 @@ Counterparts of `camouflaged_vlm_tpu/ops/flash_attention.py`:
 
 The packed kernels read q, k and v as slices of the raw packed qkv
 projection ([q heads | k heads | v heads] on the last axis) and write the
-d-major (..., heads*d, S) layout `proj_rows` reads, except #11 and #19,
-which write the head-leading (B, heads, nwin, N, d) layout
+d-major (..., heads*d, S) layout `proj_rows` reads (on the card a
+`linear.dmajor_empty` view: rows of a stride rounded up to 8), except #11
+and #19, which write the head-leading (B, heads, nwin, N, d) layout
 `proj_from_heads_res` reads; #10 and #20 take split, pre-scaled q and k and
 write (BB, N, dv) rows. The layouts at these functions are the JAX
 package's (position-major rel for the compact windows and the global
@@ -47,6 +48,7 @@ import torch
 from . import _cuda, autograd
 from .compact_window import LPAD_LANE, REL_LANES
 from .layers import scaled
+from .linear import dmajor_empty
 
 _HEAD_DIMS = (16, 32, 64, 80, 128)
 
@@ -124,8 +126,9 @@ def _plain_cuda(qkv, scale, heads, d):
     if C3 != 3 * heads * d:
         raise ValueError(f"flash_qkv_packed_plain: qkv {qkv.shape} vs heads={heads} d={d}")
     _check_d("flash_qkv_packed_plain", d)
-    out = torch.empty((B, heads * d, S), dtype=qkv.dtype, device=qkv.device)
-    _cuda.QKV_PACKED_PLAIN(qkv.data_ptr(), out.data_ptr(), B, S, heads, d, float(scale))
+    out = dmajor_empty(B, heads * d, S, dtype=qkv.dtype, device=qkv.device)
+    _cuda.QKV_PACKED_PLAIN(qkv.data_ptr(), out.data_ptr(), B, S, out.stride(-2), heads, d,
+                           float(scale))
     return out
 
 
@@ -163,9 +166,9 @@ def _windows_cuda(qkv, rel_s, sel32, scale, heads, d):
     name = "flash_qkv_packed_windows_s"
     win = _check_windows(name, qkv, rel_s, sel32, heads, d)
     BW, Nw, _ = qkv.shape
-    out = torch.empty((BW, heads * d, Nw), dtype=qkv.dtype, device=qkv.device)
+    out = dmajor_empty(BW, heads * d, Nw, dtype=qkv.dtype, device=qkv.device)
     _cuda.QKV_WINDOWS(qkv.data_ptr(), rel_s.data_ptr(), out.data_ptr(), BW, win, heads, d,
-                      float(scale))
+                      float(scale), out.stride(-2))
     return out
 
 
@@ -217,9 +220,9 @@ def _padded_windows_cuda(qkv, rel, sel32, scale, heads, d):
     win = _check_windows("flash_qkv_packed_windows", qkv, rel, sel32, heads, d,
                          window_major=True)
     B, nwin, Nw, _ = qkv.shape
-    out = torch.empty((B, nwin, heads * d, Nw), dtype=qkv.dtype, device=qkv.device)
+    out = dmajor_empty(B, nwin, heads * d, Nw, dtype=qkv.dtype, device=qkv.device)
     _cuda.QKV_WINDOWS_PADDED(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B * nwin, win,
-                             heads, d, float(scale))
+                             heads, d, float(scale), out.stride(-2))
     return out
 
 
@@ -352,7 +355,11 @@ def flash_qkv_packed_edge(
     d: int,
 ) -> torch.Tensor:
     """Edge-window attention on the compact layout: softmax over [real keys |
-    one virtual pad key] -> d-major (B, n, heads*d, R)."""
+    one virtual pad key] -> d-major (B, n, heads*d, R). The kernel
+    (`csrc/qkv_packed_windows_s.cu`, #13's) adds each key's bias rel @ sel
+    on the tensor cores, as the product of [q*scale | rel] with [k | the
+    key's column of sel]: sel's lane LPAD_LANE is zero, so the pad-key
+    logit there adds to no score."""
     return autograd.run("flash_qkv_packed_edge", _edge_cuda, flash_qkv_packed_edge_ref,
                         (qkv, rel, sel, vb, kmask), (scale, heads, d))
 
@@ -367,9 +374,13 @@ def _edge_cuda(qkv, rel, sel, vb, kmask, scale, heads, d):
             or kmask.shape != (n, 1, R)):
         raise ValueError(f"{name}: qkv {qkv.shape} rel {rel.shape} sel {sel.shape}")
     _check_d(name, d)
-    out = torch.empty((B, n, heads * d, R), dtype=qkv.dtype, device=qkv.device)
+    if R > 256 or B * n > 65535:
+        raise ValueError(f"{name}: CUDA kernel takes R <= 256 and B*n <= 65535, got R={R}, "
+                         f"B*n={B * n}")
+    out = dmajor_empty(B, n, heads * d, R, dtype=qkv.dtype, device=qkv.device)
     _cuda.QKV_EDGE(qkv.data_ptr(), rel.data_ptr(), sel.data_ptr(), vb.data_ptr(),
-                   kmask.data_ptr(), out.data_ptr(), B, n, R, heads, d, float(scale))
+                   kmask.data_ptr(), out.data_ptr(), B, n, R, heads, d, float(scale),
+                   out.stride(-2))
     return out
 
 
@@ -421,9 +432,9 @@ def _check_global(name, qkv, rel, sel, heads, d, H, W):
 def _global_cuda(qkv, rel, sel, scale, heads, d, H, W):
     _check_global("flash_qkv_packed_global", qkv, rel, sel, heads, d, H, W)
     B, N, _ = qkv.shape
-    out = torch.empty((B, heads * d, N), dtype=qkv.dtype, device=qkv.device)
-    _cuda.QKV_GLOBAL(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B, N, H, W, heads, d,
-                     float(scale))
+    out = dmajor_empty(B, heads * d, N, dtype=qkv.dtype, device=qkv.device)
+    _cuda.QKV_GLOBAL(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B, N, out.stride(-2), H, W,
+                     heads, d, float(scale))
     return out
 
 

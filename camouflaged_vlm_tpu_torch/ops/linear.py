@@ -16,11 +16,13 @@ rounding at the end. Those of the LN-fused functions are written as the
 card's stages: the LN row pass (`ln_rows_ref`), then the GEMM with its
 epilogue (`linear_act_ref`; `linear_residual_ref` for the MLP's fc2).
 
-`linear_act`, `ln_linear_act_bt`, `ln_mask_linear_bt` and
-`ln_mlp_residual_bt` run on one persistent TMA + wgmma GEMM
+`linear_act`, `ln_linear_act_bt`, `ln_mask_linear_bt`,
+`ln_mlp_residual_bt` and `proj_rows` run on one persistent TMA + wgmma GEMM
 (`csrc/gemm_sm90.cuh`) with 128 x `gemm_tile_n` tiles; the LN-fused ones
 first write the bf16 LN rows to a scratch buffer (and the MLP its bf16
-hidden), allocated here.
+hidden), allocated here; `proj_rows` reads the attention kernels' d-major
+output as it lies, rows of a stride rounded up to 8 elements
+(`dmajor_empty`).
 
 Layouts: activations as in the JAX package ((M, K) rows, (B, S, K)
 sequences, the d-major (B, T, K, S) and head-leading (B, heads, T, S, d)
@@ -76,19 +78,30 @@ GEMM_BM = 128  # rows of a tile (csrc/gemm_sm90.cuh GemmTile::BM)
 # `cli/kernel_timing.py` on the H100 (PERF.md, PR 8).
 GEMM_TILE_COST = {128: 1.0, 256: 0.85}
 GEMM_TILE_COST_ACT = {128: 1.0, 256: 1.0}
+# proj_rows over groups whose rows end in a partial row tile: its A boxes,
+# partly past the group's rows, are loaded once per n-block, twice as often
+# in 128-wide tiles. In the forced-width times of `cli/kernel_timing.py` on
+# the H100 a 256-wide round took 1.5x a 128-wide one at SAM's windows (32
+# groups of 196 rows), 1.8x at its global blocks (2 of 4096) (PERF.md, PR 9).
+GEMM_TILE_COST_RAGGED = {128: 1.0, 256: 0.75}
 
 
 @functools.lru_cache(maxsize=None)
-def gemm_tile_n(M: int, N: int, n_sm: int, act: bool = False) -> int:
-    """The GEMM's tile width (128 or 256): the one whose rounds of tiles
-    over the card's `n_sm` SMs (one persistent block each) take the least
-    time, a round costing its tile width times GEMM_TILE_COST (or
-    GEMM_TILE_COST_ACT with an activation), so that the last round is not
-    mostly empty; 128 on a tie."""
-    table = GEMM_TILE_COST_ACT if act else GEMM_TILE_COST
+def gemm_tile_n(M: int, N: int, n_sm: int, act: bool = False, groups: int = 1) -> int:
+    """The GEMM's tile width (128 or 256) for `groups` groups of M rows
+    (a row tile holds rows of one group: proj_rows' (B, T) groups): the one
+    whose rounds of tiles over the card's `n_sm` SMs (one persistent block
+    each) take the least time, a round costing its tile width times
+    GEMM_TILE_COST (GEMM_TILE_COST_ACT with an activation,
+    GEMM_TILE_COST_RAGGED for groups that end in a partial row tile), so
+    that the last round is not mostly empty; 128 on a tie."""
+    if act:
+        table = GEMM_TILE_COST_ACT
+    else:
+        table = GEMM_TILE_COST_RAGGED if groups > 1 and M % GEMM_BM else GEMM_TILE_COST
 
     def cost(bn: int) -> float:
-        tiles = -(-M // GEMM_BM) * -(-N // bn)
+        tiles = groups * -(-M // GEMM_BM) * -(-N // bn)
         return -(-tiles // n_sm) * bn * table[bn]
 
     return min((128, 256), key=cost)
@@ -444,6 +457,20 @@ def ln_mlp_residual_bt(
 # --------------------------------------------------------------- proj_rows
 
 
+# TMA strides are multiples of 16 bytes: the d-major rows' stride in bf16
+DMAJOR_ALIGN = 8
+
+
+def dmajor_empty(*shape: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """An uninitialised d-major (..., K, S) tensor as `proj_rows` reads it
+    on the card: the view [..., :S] of (..., K, S8), S8 = S rounded up to a
+    multiple of DMAJOR_ALIGN. The attention kernels write their output into
+    it; no kernel reads the pad columns."""
+    *lead, S = shape
+    s8 = -(-S // DMAJOR_ALIGN) * DMAJOR_ALIGN
+    return torch.empty(*lead, s8, dtype=dtype, device=device)[..., :S]
+
+
 def proj_rows_ref(x, w, b, res=None):
     acc = _matmul_f32(x.transpose(-1, -2), w) + b.float()
     if res is not None:
@@ -458,8 +485,22 @@ def proj_rows(
     res: Optional[torch.Tensor] = None,   # (B, T, S, N)
 ) -> torch.Tensor:
     """out[b, t, s, :] = x[b, t, :, s] . w^T + b (+ res) -> (B, T, S, N).
-    Counterpart of `proj_rows` (TPU kernel #7)."""
-    return autograd.run("proj_rows", _proj_rows_cuda, proj_rows_ref, (x, w, b, res))
+    Counterpart of `proj_rows` (TPU kernel #7). On the card x is read as it
+    lies by TMA: its last stride 1, its row and (B, T) group strides
+    multiples of DMAJOR_ALIGN (the attention wrappers' `dmajor_empty`
+    output); anything else raises."""
+    return autograd.run("proj_rows", _proj_rows_cuda, proj_rows_ref, (x, w, b, res), strided=1)
+
+
+def _group_stride(x: torch.Tensor) -> Optional[int]:
+    """The stride of x's (B, T) groups flattened into one, None if they do
+    not flatten."""
+    B, T = x.shape[:2]
+    if T == 1:
+        return x.stride(0)
+    if B == 1 or x.stride(0) == T * x.stride(1):
+        return x.stride(1)
+    return None
 
 
 def _proj_rows_cuda(x, w, b, res):
@@ -468,11 +509,18 @@ def _proj_rows_cuda(x, w, b, res):
     N = w.shape[0]
     if w.shape != (N, K) or b.shape != (N,) or (res is not None and res.shape != (B, T, S, N)):
         raise ValueError(f"proj_rows: shapes x {x.shape} w {w.shape}")
+    ldk, ldg = x.stride(2), _group_stride(x)
+    if x.stride(3) != 1 or ldk % DMAJOR_ALIGN or ldg is None or ldg % DMAJOR_ALIGN:
+        raise ValueError(f"proj_rows: CUDA kernel reads x by TMA: last stride 1, row and group "
+                         f"strides multiples of {DMAJOR_ALIGN}, got strides {x.stride()}")
+    _check_tma_k("proj_rows", K)
+    if res is not None and N % 8:
+        raise ValueError(f"proj_rows: CUDA kernel takes N % 8 == 0 with the residual, got {N}")
     out = torch.empty((B, T, S, N), dtype=x.dtype, device=x.device)
     _cuda.PROJ_ROWS(
         x.data_ptr(), w.data_ptr(), b.data_ptr(),
         res.data_ptr() if res is not None else None, out.data_ptr(),
-        B * T, S, K, N,
+        B * T, S, ldk, ldg, K, N, gemm_tile_n(S, N, _cuda.sm_count(x.device), False, B * T),
     )
     return out
 

@@ -14,9 +14,10 @@ never prints its last line):
               card, after a warm-up; beside it the kernel's and the library
               call's time queued: 20 calls behind a device-side wait); the
               LN-fused GEMMs (#2, #3, #4/#5) at every shape of the main path
-              at batch 2 and 1, each beside the same products through
-              F.linear alone (gemm_library_ms), and their launches x time
-              per cascade call ([per_call], with #7's); the
+              at batch 2 and 1 and the out-projection (#7) at batch 2, each
+              beside the same products alone through F.linear (#7:
+              torch.matmul; gemm_library_ms), and their launches x time per
+              cascade call ([per_call]); the
               general bias path of #17 at ViT-H's token count, the padded carry's
               kernels (#12, #11, #8) at ViT-H's windows 16 and 17, and the
               two that no path reaches (#9, #19) at the shapes they would take
@@ -84,8 +85,8 @@ serves TPU kernels #4 and #5), each with its launches on its path, or, for
 saying so, and its times on both clocks (`ms`, `plain_ms`, `library_ms` on an
 idle card; `queued_ms`, `library_queued_ms` queued) and the host's cost of
 one launch (`host_us`: the forward kernels' enqueue time behind a
-device-side wait), and for #2, #3 and #4/#5 `gemm_library_ms`, their
-products alone through F.linear; the last line is {"ok": true, "device":
+device-side wait), and for #2, #3, #4/#5 and #7 `gemm_library_ms`, their
+products alone through F.linear or torch.matmul; the last line is {"ok": true, "device":
 {...}}. Longer logs, and every line above (smoke.log), go to OUT_DIR.
 """
 
@@ -291,21 +292,21 @@ def phase_build():
     log(f"[build] ptxas: {len(regs)} kernel instantiations, {min(regs, default=0)}-"
         f"{max(regs, default=0)} registers per thread, {len(spills)} with spills "
         f"{spills[:4]} (full log: {OUT_DIR}/nvcc.log)")
-    # the TMA + wgmma kernels and the LN row pass: registers and spills per
-    # instantiation, once each (the GEMM template is instantiated in the
-    # sources that use it); their shared memory is dynamic, sized at launch:
-    # below
+    # the TMA + wgmma kernels (the whole-window ones at ViT-H's d = 80) and
+    # the LN row pass: registers and spills per instantiation, once each (the
+    # GEMM template is instantiated in the sources that use it); their shared
+    # memory is dynamic, sized at launch: below
     lines, seen = info.splitlines(), set()
     for i, ln in enumerate(lines):
         m = re.search(r"Compiling entry function '(_ZN4cvlm(15gemm_tma_kernel|14ln_rows_kernel"
-                      r"|17qkv_global_kernel|18attn_stream_kernel|20qkv_windows_s_kernel)\S*)'",
-                      ln)
+                      r"|17qkv_global_kernel|18attn_stream_kernel|20qkv_windows_s_kernelILi80E)"
+                      r"\S*)'", ln)
         if m and m.group(1) not in seen:
             seen.add(m.group(1))
             usage = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
             log(f"[build] {m.group(1)}: {'; '.join(usage)}")
     for bn in (256, 128):
-        log(f"[build] dynamic shared memory per block: gemm_tma_kernel<{bn}, *> "
+        log(f"[build] dynamic shared memory per block: gemm_tma_kernel<{bn}, *, *> "
             f"{gemm_smem(bn)} B ({gemm_stages(bn)} stages of 128 x 64 + {bn} x 64)")
     # dynamic shared memory of the attention kernels at the main path's shapes
     # (csrc/attn_sm90.cuh stream_smem, csrc/qkv_packed_global.cu global_smem,
@@ -315,13 +316,15 @@ def phase_build():
         return 128 + 2 * (nwg * qrows * d + 2 * stages * 64 * d + nwg * 64 * lanes) + 8 * (
             1 + 2 * stages)
 
-    def windows(d, np_):
-        return 128 + 2 * (2 * 64 * (d + 32) + np_ * (d + 32) + np_ * d) + 8 * 5
+    def windows(d, np_, edge=False):
+        return 128 + 2 * (2 * 64 * (d + 32) + np_ * (d + 32) + np_ * d) + 8 * 5 + (
+            4 * np_ if edge else 0)
 
     log(f"[build] dynamic shared memory per block: #16 attn_stream_kernel<64, 3, 10> "
         f"{stream(64, 3, 72, 10, 0)} B; #17 qkv_global_kernel<80> at H + W = 128 "
-        f"{stream(80, 2, 64, 3, 128)} B; #13 qkv_windows_s_kernel<80, 208> (win 14) "
-        f"{windows(80, 208)} B, <128, 256> (win 16) {windows(128, 256)} B")
+        f"{stream(80, 2, 64, 3, 128)} B; #13 qkv_windows_s_kernel<80, 208, false> (win 14) "
+        f"{windows(80, 208)} B, <128, 256, false> (win 16) {windows(128, 256)} B; #15 "
+        f"qkv_windows_s_kernel<80, 112, true> (R 112) {windows(80, 112, True)} B")
 
 
 def gemm_stages(bn):
@@ -442,16 +445,14 @@ def phase_kernels():
     bias_win = torch.matmul(rel_win.reshape(WIN * WIN, B * nf, NH, 32).permute(1, 2, 0, 3),
                             sel32)
     bias_glob = torch.matmul(rel_glob.permute(1, 2, 0, 3), sel_glob)
+    edge_args = (rn(B, ne, R, 3 * D), edge_rel.reshape(B, ne, R, NH * 32), sel_e,
+                 rn(NH, HD, std=0.5), kmask_e)
+    edge_sdpa = sdpa_edge(*edge_args, NH, HD, sam_scale)
     cases = [
         ("linear_act", "camouflaged_vlm_tpu_torch/csrc/linear.cu",
          "camouflaged_vlm_tpu/ops/linear.py:61",
          lin.linear_act, lin.linear_act_ref, (x_pe, w_pe, b_pe),
          2.0 * B * 4096 * 768 * 1280, None, lambda: F.linear(x_pe, w_pe, b_pe)),
-        ("proj_rows", "camouflaged_vlm_tpu_torch/csrc/proj_rows.cu",
-         "camouflaged_vlm_tpu/ops/linear.py:665",
-         lin.proj_rows, lin.proj_rows_ref,
-         (rn(B, 1, W, S), rn(W, W, std=0.02), rn(W, std=0.02), rn(B, 1, S, W)),
-         2.0 * B * S * W * W, None, None),
         ("flash_qkv_packed_plain", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_plain.cu",
          "camouflaged_vlm_tpu/ops/flash_attention.py:875",
          lambda q: fa.flash_qkv_packed_plain(q, 64 ** -0.5, 16, 64),
@@ -464,13 +465,11 @@ def phase_kernels():
          lambda *a: fa.flash_qkv_packed_windows_s_ref(*a, sam_scale, NH, HD),
          (qkv_win, rel_win, sel32), 4.0 * B * nf * NH * (WIN * WIN) ** 2 * HD,
          (qkv_win, rel_win), sdpa_packed(qkv_win, NH, HD, sam_scale, bias_win)),
-        ("flash_qkv_packed_edge", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_windows.cu",
+        ("flash_qkv_packed_edge", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_windows_s.cu",
          "camouflaged_vlm_tpu/ops/flash_attention.py:755",
          lambda *a: fa.flash_qkv_packed_edge(*a, sam_scale, NH, HD),
          lambda *a: fa.flash_qkv_packed_edge_ref(*a, sam_scale, NH, HD),
-         (rn(B, ne, R, 3 * D), edge_rel.reshape(B, ne, R, NH * 32), sel_e,
-          rn(NH, HD, std=0.5), kmask_e),
-         4.0 * B * ne * NH * R * R * HD, None, None),
+         edge_args, 4.0 * B * ne * NH * R * R * HD, None, edge_sdpa),
         ("flash_qkv_packed_global", "camouflaged_vlm_tpu_torch/csrc/qkv_packed_global.cu",
          "camouflaged_vlm_tpu/ops/flash_attention.py:1083",
          lambda *a: fa.flash_qkv_packed_global(*a, sam_scale, NH, HD, G, G),
@@ -478,47 +477,108 @@ def phase_kernels():
          (qkv_glob, rel_glob, sel_glob), 4.0 * B * NH * (G * G) ** 2 * HD,
          (qkv_glob, rel_glob), sdpa_packed(qkv_glob, NH, HD, sam_scale, bias_glob)),
     ]
-    # proj_rows at SAM's shapes where the JSON line holds the CLIP one (the
-    # residual-fused function has no single library call)
-    Mw, Mg = B * nf * WIN * WIN, B * G * G  # SAM rows: interior windows, global
-    sam_cases = [
-        ("proj_rows (SAM windows 2x16x1280x196, residual)",
-         lin.proj_rows, lin.proj_rows_ref,
-         (rn(B, nf, D, WIN * WIN), rn(D, D, std=0.02), rn(D, std=0.02),
-          rn(B, nf, WIN * WIN, D)), 2.0 * Mw * D * D),
-        ("proj_rows (SAM edge 2x9x1280x112, residual)",
-         lin.proj_rows, lin.proj_rows_ref,
-         (rn(B, ne, D, R), rn(D, D, std=0.02), rn(D, std=0.02), rn(B, ne, R, D)),
-         2.0 * B * ne * R * D * D),
-        ("proj_rows (SAM global 2x1x1280x4096, residual)",
-         lin.proj_rows, lin.proj_rows_ref,
-         (rn(B, 1, D, G * G), rn(D, D, std=0.02), rn(D, std=0.02), rn(B, 1, G * G, D)),
-         2.0 * Mg * D * D),
-    ]
     # #17's general bias path (k / W, k % W per score) at ViT-H's token count,
     # heads and d: a 32 x 128 grid, which the W == 64 register path does not
     # take; its time against the 64 x 64 line above is what that path saves
     rel_gen = rn(G * G, B, NH, 32 + 128)
-    sam_cases.append((
+    sam_cases = [(
         "flash_qkv_packed_global (general bias path, grid 32x128, 2x4096x3840)",
         lambda *a: fa.flash_qkv_packed_global(*a, sam_scale, NH, HD, 32, 128),
         lambda *a: fa.flash_qkv_packed_global_ref(*a, sam_scale, NH, HD),
         (qkv_glob, rel_gen, fa.make_rel_scatter(32, 128, bf, dev)),
-        4.0 * B * NH * (G * G) ** 2 * HD))
+        4.0 * B * NH * (G * G) ** 2 * HD)]
     results, per_shape = {}, {}
     with torch.no_grad():
+        lib_out = edge_sdpa().transpose(-1, -2).reshape(B, ne, NH * HD, R)
+        lib_err = errors(lib_out, fa.flash_qkv_packed_edge_ref(*edge_args, sam_scale, NH, HD))
+        log("[kernel] flash_qkv_packed_edge: its library call, SDPA over the R keys and the "
+            "pad key (k 0, bias [rel @ sel + kmask | lp], v [v | vb]), against the plain "
+            f"version: {lib_err}")
+        del lib_out
         for name, source, replaces, kfn, pfn, args, flops, reads, library in cases:
             results[name] = dict(source=source, replaces=replaces,
                                  **_check_kernel(name, kfn, pfn, args, flops=flops,
                                                  reads=reads, library=library))
-        per_shape[("proj_rows", "CLIP", 2)] = results["proj_rows"]
-        for (name, kfn, pfn, args, flops), site in zip(sam_cases, ("windows", "edge", "global")):
-            per_shape[("proj_rows", site, 2)] = _check_kernel(name, kfn, pfn, args, flops=flops)
+        for name, kfn, pfn, args, flops in sam_cases:
+            _check_kernel(name, kfn, pfn, args, flops=flops)
+        results.update(proj_rows_kernels(rn, per_shape))
         results.update(ln_gemm_kernels(rn, per_shape))
         per_call_table(per_shape)
         results.update(split_attention_kernels(rn))
         results.update(padded_sites(rn))
     return results
+
+
+def dmajor(x):
+    """x in the layout the attention wrappers hand to proj_rows on the card
+    (`ops/linear.py dmajor_empty`: rows of a stride rounded up to 8)."""
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    return lin.dmajor_empty(*x.shape, dtype=x.dtype, device=x.device).copy_(x)
+
+
+def sdpa_edge(qkv, rel, sel, vb, kmask, heads, d, scale):
+    """The library call of #15: one SDPA over the R keys and the virtual pad
+    key appended as one more key column (k 0, bias [rel @ sel + kmask | lp],
+    v [v | vb]), the same function; its inputs are built apart, on views of
+    the packed rows flattened to 4D."""
+    import torch
+
+    from camouflaged_vlm_tpu_torch.ops.compact_window import LPAD_LANE
+
+    B, n, R, _ = qkv.shape
+    r = qkv.reshape(B * n, R, 3, heads, d)
+    q, k, v = (r[:, :, i].transpose(1, 2) for i in range(3))  # (B n, heads, R, d)
+    relh = rel.reshape(B, n, R, heads, 32).transpose(2, 3)  # (B, n, heads, R, 32)
+    bias = torch.matmul(relh, sel[:, None]) + kmask[:, None].to(rel.dtype)
+    bias = torch.cat([bias, relh[..., LPAD_LANE:LPAD_LANE + 1]], -1).flatten(0, 1)
+    k = torch.cat([k, k.new_zeros(B * n, heads, 1, d)], 2)
+    v = torch.cat([v, vb[None, :, None].expand(B * n, heads, 1, d)], 2)
+    F = torch.nn.functional
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
+
+
+def proj_rows_shapes(B=2):
+    """#7's shapes on the main path (the reference config at batch B):
+    (site, x's shape (B, T, K, S), N): CLIP vision's 581 tokens, 1024 wide;
+    SAM ViT-H's 16 interior windows of 196 tokens, its 9 edge windows of 112
+    rows and its global blocks of 4096 tokens, 1280 wide."""
+    return [("CLIP", (B, 1, 1024, 581), 1024), ("windows", (B, 16, 1280, 196), 1280),
+            ("edge", (B, 9, 1280, 112), 1280), ("global", (B, 1, 1280, 4096), 1280)]
+
+
+def proj_rows_case(rn, shape, N, padded=True):
+    """(args, FLOP, gemm-only yardstick) of #7 at one shape: x d-major as the
+    attention wrappers give it (contiguous unless `padded`), the residual,
+    and the bare product through torch.matmul (another function: no bias,
+    no residual, rows out of a transposed x)."""
+    import torch
+
+    B, T, K, S = shape
+    x, w = rn(B, T, K, S), rn(N, K, std=0.02)
+    x = dmajor(x) if padded else x
+    args = (x, w, rn(N, std=0.02), rn(B, T, S, N))
+    return args, 2.0 * B * T * S * K * N, lambda: torch.matmul(x.transpose(-1, -2), w.t())
+
+
+def proj_rows_kernels(rn, per_shape):
+    """#7 against its plain version at every main-path shape (batch 2), each
+    with its bound and the gemm-only yardstick; the kernels line holds
+    CLIP's shape, as in the earlier slices."""
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    out = {}
+    for site, shape, N in proj_rows_shapes():
+        args, flops, gemm = proj_rows_case(rn, shape, N)
+        r = _check_kernel(f"proj_rows ({site} {'x'.join(map(str, shape))} -> {N}, residual)",
+                          lin.proj_rows, lin.proj_rows_ref, args, flops=flops,
+                          gemm_library=gemm)
+        per_shape[("proj_rows", site, 2)] = r
+        if site == "CLIP":
+            out["proj_rows"] = dict(source="camouflaged_vlm_tpu_torch/csrc/proj_rows.cu",
+                                    replaces="camouflaged_vlm_tpu/ops/linear.py:665", **r)
+        del args
+    return out
 
 
 # the LN-fused GEMMs' sources and the TPU kernels they replace
@@ -1240,7 +1300,8 @@ def phase_grads():
          lambda *a: lin.ln_mask_linear_bt_ref(*a, eps=1e-6),
          (rn(B, N, D), sg, sb, torch.ones(1, N, 1, dtype=bf, device=dev), w_qkv, b_qkv), (0,)),
         ("proj_rows", lin.proj_rows, lin.proj_rows_ref,
-         (rn(B, nf, D, S), rn(D, D, std=0.02), rn(D, std=0.02), rn(B, nf, S, D)), (0, 3)),
+         (dmajor(rn(B, nf, D, S)), rn(D, D, std=0.02), rn(D, std=0.02), rn(B, nf, S, D)),
+         (0, 3)),
         ("flash_qkv_packed_edge", lambda *a: fa.flash_qkv_packed_edge(*a, scale, NH, HD),
          lambda *a: fa.flash_qkv_packed_edge_ref(*a, scale, NH, HD),
          (rn(B, ne, R, 3 * D), edge_rel.reshape(B, ne, R, NH * 32), sel_e, rn(NH, HD, std=0.5),
@@ -1255,7 +1316,9 @@ def phase_grads():
          (rn(32, N, 208, std=0.07), rn(32, N, 208), rn(32, N, 80)), (0, 1, 2)),
     ]
     for name, fn, ref, args, wrt in vjp_cases:
-        leaves = [a.detach().clone().requires_grad_(i in wrt) for i, a in enumerate(args)]
+        # a d-major x keeps its padded rows (a clone of the view would not)
+        leaves = [(a.detach().clone() if a.is_contiguous() else dmajor(a)).requires_grad_(i in wrt)
+                  for i, a in enumerate(args)]
         out = fn(*leaves)
         gy = rn(*out.shape, std=0.05)
         got = torch.autograd.grad(out, [leaves[i] for i in wrt], gy)

@@ -50,6 +50,12 @@ def rn(gen, *shape, std=1.0, dtype=torch.bfloat16):
     return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
 
 
+def dmajor(x):
+    """x in the layout the attention wrappers hand to proj_rows: the view of
+    rows whose stride is rounded up to a multiple of 8."""
+    return linear.dmajor_empty(*x.shape, dtype=x.dtype, device=x.device).copy_(x)
+
+
 def assert_close(got, want):
     assert got.shape == want.shape and got.dtype == want.dtype
     d = (got.float() - want.float()).abs()
@@ -123,11 +129,23 @@ def test_ln_mlp_residual_bt_kernel_row_panels(gen, monkeypatch, scratch):
 
 
 @pytest.mark.parametrize("with_res", [False, True])
-@pytest.mark.parametrize("B,T,K,S,N", [(2, 1, 128, 37, 128), (1, 3, 64, 70, 96)])
-def test_proj_rows_kernel(gen, with_res, B, T, K, S, N):
+@pytest.mark.parametrize("B,T,K,S,N", [(2, 1, 128, 37, 128), (1, 3, 64, 70, 96),
+                                       (2, 2, 128, 50, 136),
+                                       (1, 2, 1280, 196, 1280),   # SAM windows, 2 of 32 groups
+                                       (1, 3, 1280, 112, 1280),   # SAM edge, 3 of 18
+                                       (1, 1, 1280, 4096, 1280),  # SAM global, 1 of 2
+                                       (2, 1, 1024, 581, 1024)])  # CLIP at batch 2
+def test_proj_rows_kernel(gen, tile_n, with_res, B, T, K, S, N):
+    """The persistent GEMM with an MN-major A at the main path's shapes
+    (fewer groups) and ragged ones (S under one 64-row box, N not a multiple
+    of the tile), x as the attention wrappers give it (padded row stride);
+    each tile width."""
     res = rn(gen, B, T, S, N) if with_res else None
-    args = (rn(gen, B, T, K, S), rn(gen, N, K, std=0.05), rn(gen, N, std=0.1), res)
-    assert_close(linear.proj_rows(*args), linear.proj_rows_ref(*args))
+    args = (dmajor(rn(gen, B, T, K, S)), rn(gen, N, K, std=0.05), rn(gen, N, std=0.1), res)
+    before = _cuda.PROJ_ROWS.launches
+    got = linear.proj_rows(*args)
+    assert _cuda.PROJ_ROWS.launches == before + 1
+    assert_close(got, linear.proj_rows_ref(*args))
 
 
 @pytest.mark.parametrize("B,S,heads,d", [(2, 37, 8, 16), (1, 581, 2, 64), (2, 7, 4, 32),
@@ -141,7 +159,7 @@ def test_flash_qkv_packed_plain_kernel(gen, B, S, heads, d):
     qkv = rn(gen, B, S, 3 * heads * d)
     before = _cuda.QKV_PACKED_PLAIN.launches
     got = flash_attention.flash_qkv_packed_plain(qkv, d ** -0.5, heads, d)
-    assert _cuda.QKV_PACKED_PLAIN.launches == before + 1
+    assert _cuda.QKV_PACKED_PLAIN.launches == before + 1 and got.stride(-2) % 8 == 0
     assert_close(got, flash_attention.flash_qkv_packed_plain_ref(qkv, d ** -0.5, heads, d))
 
 
@@ -177,15 +195,18 @@ def test_flash_qkv_packed_windows_s_kernel(gen, BW, win, heads, d):
     args = (qkv, rel_s, sel32, d ** -0.5, heads, d)
     before = _cuda.QKV_WINDOWS.launches
     got = flash_attention.flash_qkv_packed_windows_s(*args)
-    assert _cuda.QKV_WINDOWS.launches == before + 1
+    assert _cuda.QKV_WINDOWS.launches == before + 1 and got.stride(-2) % 8 == 0
     assert_close(got, flash_attention.flash_qkv_packed_windows_s_ref(*args))
 
 
 @pytest.mark.parametrize("H,W,win,heads,d", [(64, 64, 14, 2, 80), (10, 10, 4, 8, 16),
-                                             (5, 5, 2, 1, 32), (9, 12, 5, 2, 64)])
+                                             (5, 5, 2, 1, 32), (9, 12, 5, 2, 64),
+                                             (20, 20, 14, 2, 80), (26, 26, 14, 1, 128)])
 def test_flash_qkv_packed_edge_kernel(gen, H, W, win, heads, d):
     """Right, bottom and corner windows (the corner ragged, with dummy rows
-    whose pad-key logit is -1e30, as the encoder gives them)."""
+    whose pad-key logit is -1e30, as the encoder gives them); R = 112 (ViT-H:
+    the 112-key product, no key padding), 84 (keys padded to 112), 168 (to
+    208) and R <= 64; sel's pad-key lane empty in every geometry."""
     geom = CompactGeometry(H, W, win)
     B, n, R = 2, geom.n_edge, geom.R_u
     qkv = rn(gen, B, n, R, 3 * heads * d)
@@ -194,9 +215,12 @@ def test_flash_qkv_packed_edge_kernel(gen, H, W, win, heads, d):
         rel[:, g_start : g_start + g.n, g.rows :, :, LPAD_LANE] = NEG
     rel = rel.reshape(B, n, R, heads * 32)
     sel, kmask = edge_consts(geom, torch.bfloat16, torch.device("cuda"))
+    assert not sel[:, LPAD_LANE].any()  # the pad-key logit's lane adds to no score
     vb = rn(gen, heads, d, std=0.5)
     args = (qkv, rel, sel, vb, kmask, d ** -0.5, heads, d)
+    before = _cuda.QKV_EDGE.launches
     got = flash_attention.flash_qkv_packed_edge(*args)
+    assert _cuda.QKV_EDGE.launches == before + 1 and got.stride(-2) % 8 == 0
     assert_close(got, flash_attention.flash_qkv_packed_edge_ref(*args))
 
 
@@ -249,6 +273,12 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         linear.linear_act(x[0].t(), rn(gen, 8, 5), rn(gen, 8))
     with pytest.raises(ValueError, match="K % 8"):  # TMA strides: 16-byte multiples
         linear.linear_act(rn(gen, 4, 100), rn(gen, 8, 100), rn(gen, 8))
+    # proj_rows reads x by TMA: a row stride that is not a multiple of 8
+    # elements, or an x whose s is not contiguous, is refused, not copied
+    with pytest.raises(ValueError, match="multiples of 8"):
+        linear.proj_rows(rn(gen, 1, 1, 64, 37), rn(gen, 64, 64), rn(gen, 64))
+    with pytest.raises(ValueError, match="last stride 1"):
+        linear.proj_rows(rn(gen, 1, 1, 40, 64).transpose(-1, -2), rn(gen, 64, 64), rn(gen, 64))
     with pytest.raises(ValueError, match="unsupported devices"):  # mixed devices
         linear.linear_act(x[0], rn(gen, 8, 128).cpu(), rn(gen, 8))
     with pytest.raises(ValueError, match="takes d in"):  # no attention kernel for d = 48

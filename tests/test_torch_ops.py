@@ -214,6 +214,23 @@ def test_gemm_tile_n_fills_the_last_round(M, N, act, want):
     assert linear.gemm_tile_n(M, N, 132, act) == want
 
 
+@pytest.mark.parametrize("S,N,G,want", [
+    (196, 1280, 32, 256),  # SAM windows: 64 row tiles, 640 in 5 rounds, 320 in 3, ragged
+    (112, 1280, 18, 256),  # SAM edge: 18 row tiles, 180 in 2 rounds, 90 in one
+    (4096, 1280, 2, 128),  # SAM global: 64 row tiles, 640 in 5 rounds, 320 in 3
+    (581, 1024, 2, 128),   # CLIP: 10 row tiles, 80 in one round, 40 in one
+])
+def test_gemm_tile_n_counts_row_tiles_per_group(S, N, G, want):
+    """proj_rows' tiles hold rows of one (B, T) group: G groups of S rows
+    are G * ceil(S / 128) row tiles (64 at SAM's windows, where the rows
+    alone make 49), and groups that end in a partial row tile make 256-wide
+    rounds cheaper. The picks are the faster width at the main-path shapes
+    at batch 2 in the forced-width times of `cli/kernel_timing.py` on the
+    H100 (PERF.md, PR 9): the windows and the global blocks have the same
+    tile counts and opposite winners."""
+    assert linear.gemm_tile_n(S, N, 132, False, G) == want
+
+
 @pytest.mark.parametrize("M,H", [(6272, 5120), (8192, 5120), (16384, 5120), (1162, 4096),
                                  (37, 512), (13100, 5120)])
 def test_mlp_panel_rows_bound_the_scratch(M, H):
@@ -232,6 +249,18 @@ def test_proj_rows_matches_jax(rng, with_res):
     want = j_lin.proj_rows(J(x), J(w), J(b[None]), None if res is None else J(res))
     got = linear.proj_rows(T(x), T(w.T.copy()), T(b), None if res is None else T(res))
     close(got, want)
+
+
+@pytest.mark.parametrize("S", [37, 196])
+def test_proj_rows_reads_a_padded_view_as_jax(rng, S):
+    """x as the attention wrappers hand it to proj_rows on the card: the
+    view [..., :S] of rows padded to a multiple of 8 (`linear.dmajor_empty`)."""
+    x, w, b = rnd(rng, 2, 3, 32, S), rnd(rng, 32, 24, scale=0.2), rnd(rng, 24)
+    res = rnd(rng, 2, 3, S, 24)
+    xv = linear.dmajor_empty(2, 3, 32, S, dtype=torch.float32, device="cpu").copy_(T(x))
+    assert not xv.is_contiguous() and xv.stride(-2) == -(-S // 8) * 8
+    want = j_lin.proj_rows(J(x), J(w), J(b[None]), J(res))
+    close(linear.proj_rows(xv, T(w.T.copy()), T(b), T(res)), want)
 
 
 @pytest.mark.parametrize("heads,d,S", [(8, 16, 37), (4, 8, 7), (2, 64, 21)])

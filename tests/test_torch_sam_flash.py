@@ -35,6 +35,7 @@ from camouflaged_vlm_tpu.models import sam_encoder as j_sam  # noqa: E402
 from camouflaged_vlm_tpu.models.clip import AlphaClipConfig as JClipConfig  # noqa: E402
 from camouflaged_vlm_tpu.ops import compact_window as j_cw  # noqa: E402
 from camouflaged_vlm_tpu.ops import flash_attention as j_fa  # noqa: E402
+from camouflaged_vlm_tpu.ops import linear as j_lin  # noqa: E402
 
 from camouflaged_vlm_tpu_torch.factory import attach_rel_cache, build_cascade  # noqa: E402
 from camouflaged_vlm_tpu_torch.io.convert import load_jax_params  # noqa: E402
@@ -43,6 +44,7 @@ from camouflaged_vlm_tpu_torch.models import sam_encoder  # noqa: E402
 from camouflaged_vlm_tpu_torch.models.clip import AlphaClipConfig  # noqa: E402
 from camouflaged_vlm_tpu_torch.ops import compact_window as cw  # noqa: E402
 from camouflaged_vlm_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from camouflaged_vlm_tpu_torch.ops import linear  # noqa: E402
 
 OP_RTOL, MODULE_RTOL = 1e-5, 1e-4
 GEOMS = [(5, 5, 2), (10, 10, 4), (9, 12, 5)]
@@ -236,6 +238,75 @@ def test_flash_qkv_packed_global_matches_jax(rng, H, W):
                                                    HD ** -0.5, HEADS, HD, H, W)
     close(fa.flash_qkv_packed_global(T(qkv), T(rel), sel, HD ** -0.5, HEADS, HD, H, W), want,
           OP_RTOL)
+
+
+@pytest.mark.parametrize("H,W,win", GEOMS + [(64, 64, 14)])
+def test_edge_sel_leaves_the_pad_key_lane_empty(H, W, win):
+    """The edge kernel adds rel @ sel on the tensor cores, as [q*scale |
+    rel] . [k | the key's column of sel]; rel's lane LPAD_LANE carries the
+    pad key's logit, so it adds to no score only while sel's row LPAD_LANE
+    is zero (the compact carry's windows of <= 14 fill lanes < 28)."""
+    sel, _ = cw.edge_consts(cw.CompactGeometry(H, W, win), torch.float32)
+    assert sel.shape[1] == cw.REL_LANES and not sel[:, cw.LPAD_LANE].any()
+
+
+@pytest.mark.parametrize("name", ["plain", "windows_s", "edge", "windows", "global"])
+def test_dmajor_outputs_as_padded_views_match_jax(rng, name):
+    """Each d-major producer's output (#16, #13, #15, #12, #17) written into
+    the layout its CUDA wrapper returns (`linear.dmajor_empty`: the view of
+    rows whose stride is rounded up to 8) equals JAX's; the consumer's
+    reshape of it (models/sam_encoder.py, models/clip/model.py) stays a view
+    of the same memory, no copy; and proj_rows reads it as JAX's proj_rows
+    reads JAX's output."""
+    scale = HD ** -0.5
+    if name == "plain":  # CLIP: (B, S, 3C) -> (B, C, S) -> (B, 1, C, S)
+        h, d, S = 8, 16, 37
+        qkv = rnd(rng, 2, S, 3 * h * d)
+        got = fa.flash_qkv_packed_plain(T(qkv), d ** -0.5, h, d)
+        want = jitted(j_fa.flash_qkv_packed_plain, 1)(J(qkv), d ** -0.5, h, d)
+        lead = lambda o: o.reshape(2, 1, h * d, S)  # noqa: E731
+    elif name == "windows_s":  # (B*nf, C, S) -> (B, nf, C, S)
+        win, BW = 5, 6
+        S = win * win
+        qkv, rel_s = rnd(rng, BW, S, 3 * HEADS * HD), rnd(rng, S, BW, HEADS * 32)
+        sel32 = fa.make_rel_scatter32(win)
+        got = fa.flash_qkv_packed_windows_s(T(qkv), T(rel_s), sel32, scale, HEADS, HD)
+        want = jitted(j_fa.flash_qkv_packed_windows_s, 3)(J(qkv), J(rel_s), J(sel32.numpy()),
+                                                          scale, HEADS, HD)
+        lead = lambda o: o.reshape(2, 3, HEADS * HD, S)  # noqa: E731
+    elif name == "edge":  # (B, n, C, R), as it is
+        _, args, _ = _edge_case(rng, 9, 12, 5)
+        got = fa.flash_qkv_packed_edge(*args)
+        jargs = [J(a.numpy()) if isinstance(a, torch.Tensor) else a for a in args]
+        want = jitted(j_fa.flash_qkv_packed_edge, 5)(*jargs)
+        lead = lambda o: o  # noqa: E731
+    elif name == "windows":  # the padded carry: (B, nwin, C, Nw), as it is
+        win, Nw = 5, 25
+        qkv, rel = rnd(rng, 2, 3, Nw, 3 * HEADS * HD), rnd(rng, 2, 3, Nw, HEADS * 32)
+        sel32 = fa.make_rel_scatter32(win)
+        got = fa.flash_qkv_packed_windows(T(qkv), T(rel), sel32, scale, HEADS, HD)
+        want = j_fa.flash_qkv_packed_windows(J(qkv), J(rel), J(sel32.numpy()), scale, HEADS, HD)
+        lead = lambda o: o  # noqa: E731
+    else:  # global: (B, C, N) -> (B, 1, C, N)
+        H, W = 5, 7
+        N = H * W
+        qkv, rel = rnd(rng, 2, N, 3 * HEADS * HD), rnd(rng, N, 2, HEADS, H + W)
+        sel = fa.make_rel_scatter(H, W)
+        got = fa.flash_qkv_packed_global(T(qkv), T(rel), sel, scale, HEADS, HD, H, W)
+        want = jitted(j_fa.flash_qkv_packed_global, 3)(J(qkv), J(rel), J(sel.numpy()), scale,
+                                                       HEADS, HD, H, W)
+        lead = lambda o: o.reshape(2, 1, HEADS * HD, N)  # noqa: E731
+    view = linear.dmajor_empty(*got.shape, dtype=got.dtype, device=got.device).copy_(got)
+    S = view.shape[-1]
+    assert S % 8 and not view.is_contiguous() and view.stride(-2) == -(-S // 8) * 8
+    close(view, want, OP_RTOL)
+    x = lead(view)
+    assert x.data_ptr() == view.data_ptr() and x.stride()[-2:] == view.stride()[-2:]
+    assert x.untyped_storage().data_ptr() == view.untyped_storage().data_ptr()
+    K = x.shape[-2]
+    w, b, res = rnd(rng, K, 24, scale=0.2), rnd(rng, 24), rnd(rng, *x.shape[:2], S, 24)
+    jwant = j_lin.proj_rows(jnp.reshape(want, x.shape), J(w), J(b[None]), J(res))
+    close(linear.proj_rows(x, T(w.T.copy()), T(b), T(res)), jwant, OP_RTOL)
 
 
 # ------------------------------------------------------ encoder and slice
