@@ -1,6 +1,7 @@
 """Time the GEMM and attention kernels of one checkout on the card.
 
   python camouflaged_vlm_tpu_torch/cli/kernel_timing.py [--root DIR] [--label NAME]
+                                                      [--padded-calls]
 
 Imports `camouflaged_vlm_tpu_torch` from the checkout at --root (default:
 this one), builds its kernels there, and times each case of `cases()`
@@ -10,7 +11,8 @@ every shape of `chip_smoke.ln_gemm_shapes`; #7 `proj_rows` at every shape
 of `chip_smoke.proj_rows_shapes` (x d-major, in the padded layout on a
 checkout that has it, `ops/linear.py dmajor_empty`, else contiguous); #16,
 #13, #15 and #17 at CLIP's, SAM's windows', edge windows' and global
-blocks'. Each case prints one JSON line:
+blocks'; last, the padded carry's #12 (window 16) and #11 (window 17) and
+#19 (the 64 x 64 grid), `padded_carry_cases`. Each case prints one JSON line:
 the error against the plain version; the idle-card median and the queued
 time (`chip_smoke.time_ms`); the host's microseconds a call
 (`chip_smoke.host_us`) through the wrapper and through its `CudaKernel`
@@ -26,6 +28,9 @@ over a batch-2 cascade call's launches at the timed shapes. The first
 line gives the card's name and power limit and the registers, spills and
 shared memory ptxas gave each kernel. Two checkouts compare on one card
 in one call when their runs alternate (parent, change, change, parent).
+With --padded-calls it times, instead of the kernels, the checkout's
+window-16 and window-17 cascade calls by stage and traces one batch-2 call
+of each (`padded_calls`): the card's busy time that #12 and #11 move.
 """
 
 from __future__ import annotations
@@ -195,13 +200,76 @@ def cases(smoke, rn, template: bool):
                         lambda pa=pa: lin.proj_rows_ref(*pa),
                         "PROJ_ROWS", gemm, "gemm_library", sites.get(site, 0),
                         {"gemm": -1} if template and padded else {}))
+    return out + padded_carry_cases(rn)
+
+
+def padded_carry_cases(rn):
+    """#12 at window 16 (16 windows of 256 tokens, rel window-major), #11
+    at window 17 (16 windows of 289 tokens, rel (.., heads, 34)) and #19 on
+    the 64 x 64 grid, batch 2, 16 heads x 80, each beside SDPA on views of
+    the packed rows with the bias rel @ sel materialised apart (as
+    `chip_smoke.padded_sites`). Drawn after every other case, so that the
+    others' inputs lie as on a checkout without these cases. None of the
+    three runs in a call of the reference configuration (window 14):
+    `per_call` 0."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+
+    B, NH, HD, dev, bf = 2, 16, 80, torch.device("cuda"), torch.bfloat16
+    sam = HD ** -0.5
+
+    def sdpa(q, k, v, bias):
+        q, k, v, bias = (t.flatten(0, -4) for t in (q, k, v, bias))  # 4D, copied here
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, scale=sam)
+
+    win, nwin = 16, 16
+    Nw = win * win
+    qkv, rel = rn(B, nwin, Nw, 3 * NH * HD), rn(B, nwin, Nw, NH * 32)
+    sel32 = fa.make_rel_scatter32(win, bf, dev)
+    r = qkv.reshape(B, nwin, Nw, 3, NH, HD)
+    q, k, v = (r[:, :, :, i].transpose(2, 3) for i in range(3))  # (B, nwin, NH, Nw, HD)
+    bias = torch.matmul(rel.reshape(B, nwin, Nw, NH, 32).transpose(2, 3), sel32)
+    out = [Case("flash_qkv_packed_windows", "padded windows 16", [B, nwin, Nw, 3 * NH * HD],
+                lambda: fa.flash_qkv_packed_windows(qkv, rel, sel32, sam, NH, HD),
+                lambda: fa.flash_qkv_packed_windows_ref(qkv, rel, sel32, sam, NH, HD),
+                "QKV_WINDOWS_PADDED", sdpa(q, k, v, bias), "library", 0)]
+    for name, kernel, site, lead, H in (
+            ("flash_qkv_relpos_windows", "QKV_RELPOS_WINDOWS", "padded windows 17", (B, 16), 17),
+            ("flash_qkv_relpos_global", "QKV_RELPOS_GLOBAL", "grid 64 (no path)", (B,), 64)):
+        N = H * H
+        qkv5, rel5 = rn(*lead, N, 3 * NH, HD), rn(*lead, N, NH, 2 * H)
+        sel = fa.make_rel_scatter(H, H, bf, dev)
+        q, k, v = (qkv5[..., i * NH:(i + 1) * NH, :].movedim(-2, 1) for i in range(3))
+        bias = torch.matmul(rel5.movedim(-2, 1), sel)  # (B, NH, [nwin,] N, N)
+        wrapper, plain = getattr(fa, name), getattr(fa, name + "_ref")
+        out.append(Case(name, site, [*lead, N, 3 * NH, HD],
+                        lambda w=wrapper, a=(qkv5, rel5, sel), H=H: w(*a, sam, H, H),
+                        lambda p=plain, a=(qkv5, rel5, sel): p(*a, sam),
+                        kernel, sdpa(q, k, v, bias), "library", 0))
     return out
+
+
+def padded_calls(smoke, label):
+    """The repo's ViT-H yaml at windows 16 (#12) and 17 (#11 + #8): the
+    cascade call cut into stages at batch 1 and 2, and the card's busy time
+    in a torch.profiler trace of one batch-2 call
+    (`chip_smoke.config_stage_times`)."""
+    from camouflaged_vlm_tpu_torch.config import cascade_config_from_yaml
+
+    work = os.path.join(HERE, "build", "kernel_timing_yaml")
+    os.makedirs(work, exist_ok=True)
+    for win in (16, 17):
+        cfg = cascade_config_from_yaml(smoke.window_yaml(win, work))[0]
+        smoke.config_stage_times(cfg, f"{label} window {win}", trace=(2,))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE, help="checkout whose package to time")
     ap.add_argument("--label", default=None)
+    ap.add_argument("--padded-calls", action="store_true",
+                    help="time the window-16 and window-17 cascade calls instead of the kernels")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -222,6 +290,9 @@ def main() -> None:
     usage = ptxas_usage(_cuda.build_info.get("log", ""))
     print(json.dumps({"label": label, "card": smi, "build_s": build_s, "ptxas": usage}),
           flush=True)
+    if args.padded_calls:
+        padded_calls(smoke, label)
+        return
 
     g = torch.Generator(device="cuda").manual_seed(0)
 

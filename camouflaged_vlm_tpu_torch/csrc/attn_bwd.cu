@@ -44,9 +44,23 @@
 // size N^2 leaves the block. Shared memory per block at d = 80 and L = 128:
 // pass A ~182 KB (q, g, k, v tiles; fp32 score, dP and drel tiles; the rel
 // rows and the lane tile), pass B ~143 KB; both under the 227 KB a block may use.
-#include "attn_rows.cuh"
+#include "common.cuh"
 
 namespace cvlm {
+
+// Copies `rows` rows of DH bf16 values (row stride lds) into shared memory
+// (pitch ldd) with 16-byte loads; rows at or past `valid` are zero-filled.
+template <int DH>
+__device__ __forceinline__ void load_rows(bf16* dst, int ldd, const bf16* src, size_t lds,
+                                          int rows, int valid) {
+  constexpr int CH = DH / 8;
+  for (int e = threadIdx.x; e < rows * CH; e += blockDim.x) {
+    const int r = e / CH, c = (e % CH) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) v = *reinterpret_cast<const uint4*>(src + (size_t)r * lds + c);
+    *reinterpret_cast<uint4*>(dst + r * ldd + c) = v;
+  }
+}
 
 constexpr int AB_BQ = 64, AB_KT = 64, AB_THREADS = 128;
 

@@ -4,10 +4,12 @@
 //
 // Users: qkv_packed_plain.cu (#16, CLIP) is attn_stream_kernel;
 // qkv_packed_windows_s.cu is a whole-window kernel on the same blocks, for
-// the compact carry's interior windows (#13) and its edge windows (#15).
-// #17 keeps its own copy of the streaming loop with its rel-pos bias: moved
-// onto this header it measured 0.4-0.9% slower on the H100 in every
-// parent-against-change run (PERF.md).
+// the compact carry's interior windows (#13) and its edge windows (#15) and
+// the padded carry's windows (#12); qkv_relpos.cu (#11, #19) is the
+// streaming loop with the rel-pos bias added in registers and a
+// head-leading epilogue. #17 keeps its own copy of the streaming loop with
+// its rel-pos bias: moved onto this header it measured 0.4-0.9% slower on
+// the H100 in every parent-against-change run (PERF.md).
 //
 // The blocks:
 //   * encode_packed_rows: one 4-D tensor map over the packed qkv projection

@@ -1,42 +1,34 @@
 // attn_split: o = softmax(q . k^T [+ rel_h[q, k / W] + rel_w[q, H + k % W]]) . v,
-// one attention problem per (b, w, h), each of N queries and N keys. Shared
-// by three sources:
+// one attention problem per leading index b, each of N queries and N keys,
+// over split, pre-scaled q, k and v. Shared by two sources:
 //
-//   attn_relpos.cu  BIAS = true:  flash_attention_relpos (TPU kernel #10),
-//                   split pre-scaled q, k, v
-//   attn_fullk.cu   BIAS = false: flash_attention_fullk  (TPU kernel #20),
-//                   split pre-scaled q, k, v
-//   qkv_relpos.cu   BIAS = true:  flash_qkv_relpos_windows (#11) and
-//                   flash_qkv_relpos_global (#19), q, k, v read in place from
-//                   the packed qkv projection, q scaled here
+//   attn_relpos.cu  BIAS = true:  flash_attention_relpos (TPU kernel #10)
+//   attn_fullk.cu   BIAS = false: flash_attention_fullk  (TPU kernel #20)
+//
+// (#11 and #19, which read the packed qkv in place, left this kernel for
+// qkv_relpos.cu's TMA + wgmma one pass.)
 //
 // Layouts: every operand is given by its base and its strides (elements)
-// per b, per w, per h and per row (SplitArgs); the row of a problem is dqk
-// (q, k), DV (v), H+W (rel) or DV (out) contiguous values. dqk is a run-time
-// multiple of 16 up to 256 (the depth of the score product; #20's augmented
-// features are 208 wide at ViT-H); DV is a template parameter (the P.V
-// accumulator fragments live in registers). q is multiplied by the scale
-// rounded to bf16 and rounded to bf16 at its tile load, as the JAX kernels
-// scale it in the input type (flash_attention.py:191, :1245); the split
-// callers pass 1, which leaves their pre-scaled q as it is.
+// per b and per row (SplitArgs); the row of a problem is dqk (q, k), DV (v),
+// H+W (rel) or DV (out) contiguous values. dqk is a run-time multiple of 16
+// up to 256 (the depth of the score product; #20's augmented features are
+// 208 wide at ViT-H); DV is a template parameter (the P.V accumulator
+// fragments live in registers).
 //
 // A query tile of 64 rows (4 warps x 16 rows) walks the keys in tiles of
-// 64, twice, as qkv_packed_global.cu does:
+// 64, twice:
 //   pass 1: scores (+ bias), running row max m and row sum l (online
 //           rescale l <- l * exp(m_old - m_new) + sum exp(s - m_new));
 //   pass 2: the scores again, p = exp(s - m) / l normalised in fp32 and
 //           rounded to bf16, O += P . V with fp32 accumulation.
-// This keeps the rounding points of the JAX kernels (`_relpos_kernel`,
-// `_qkv_relpos_windows_kernel`, `_qkv_relpos_global_kernel`, `_kernel` of
-// flash_attention.py): fp32 scores, the bias added as the fp32 sum of the
-// two bf16 rel values (the rel @ sel product with one nonzero term per lane
-// group, here an indexed gather), max-subtracted softmax normalised in fp32
-// before the bf16 rounding, one rounding of the output. An online-softmax
-// single pass would round exp(s - m_running) before the division and move
-// that rounding point. Keys and queries past N are masked (zero-filled
-// tiles, -inf scores, unwritten rows), so any N works: the 196 tokens of a
-// 14 x 14 window, the 289 of a 17 x 17 one and the 4096 of a 64 x 64 grid
-// alike.
+// This keeps the rounding points of the JAX kernels (`_relpos_kernel` and
+// `_kernel` of flash_attention.py): fp32 scores, the bias added as the fp32
+// sum of the two bf16 rel values (the rel @ sel product with one nonzero
+// term per lane group, here an indexed gather), max-subtracted softmax
+// normalised in fp32 before the bf16 rounding, one rounding of the output.
+// An online-softmax single pass would round exp(s - m_running) before the
+// division and move that rounding point. Keys and queries past N are masked
+// (zero-filled tiles, -inf scores, unwritten rows), so any N works.
 //
 // What bounds it on the H100: the tensor cores' work is 2 N^2 dqk (scores,
 // twice) + 2 N^2 DV (P.V) per problem, through WMMA 16x16x16 with K and V
@@ -74,18 +66,17 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ldd, const bf16* src, s
   }
 }
 
-// One operand's strides (elements): per b, per w, per h, per row.
+// One operand's strides (elements): per problem b, per row.
 struct SplitStrides {
-  size_t b, w, h, r;
+  size_t b, r;
 };
 
-// The problems (b, w, h), h fastest: blockIdx.y = (b * nwin + w) * heads + h.
+// The problems b = blockIdx.y.
 struct SplitArgs {
   const bf16 *q, *k, *v, *rel;
   bf16* out;
   SplitStrides qk, vs, rs, os;  // q and k, v, rel, out
-  int heads, nwin, N, H, W, dqk;
-  float scale;  // q * bf16(scale), rounded to bf16, at the tile load
+  int N, H, W, dqk;
 };
 
 template <int DV, bool BIAS>
@@ -106,23 +97,12 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const SplitArgs 
   float* row_l = row_m + AS_BQ;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * AS_BQ, p = blockIdx.y;
-  const int h = p % a.heads, w = (p / a.heads) % a.nwin, b = p / a.heads / a.nwin;
-  auto at = [&](const SplitStrides& st) {
-    return (size_t)b * st.b + (size_t)w * st.w + (size_t)h * st.h;
-  };
+  const int q0 = blockIdx.x * AS_BQ, b = blockIdx.y;
+  auto at = [&](const SplitStrides& st) { return (size_t)b * st.b; };
   const bf16* kb = a.k + at(a.qk);
   const bf16* vb = a.v + at(a.vs);
 
   load_tile(Qs, LDQ, a.q + at(a.qk) + (size_t)q0 * a.qk.r, a.qk.r, AS_BQ, N - q0, dqk);
-  if (a.scale != 1.f) {
-    __syncthreads();
-    const float sc = __bfloat162float(__float2bfloat16(a.scale));
-    for (int e = tid; e < AS_BQ * dqk; e += AS_THREADS) {
-      bf16& x = Qs[(e / dqk) * LDQ + e % dqk];
-      x = __float2bfloat16(__bfloat162float(x) * sc);
-    }
-  }
   if (BIAS) {
     const bf16* rb = a.rel + at(a.rs);
     for (int e = tid; e < AS_BQ * hw; e += AS_THREADS) {
@@ -250,7 +230,7 @@ int launch_split(const SplitArgs& a, int problems, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// `problems` = B * nwin * heads; dv in {64, 80} (SAM ViT-B, ViT-H).
+// dv in {64, 80} (SAM ViT-B, ViT-H).
 template <bool BIAS>
 int dispatch_split(const SplitArgs& a, int problems, int dv, cudaStream_t s) {
   switch (dv) {
@@ -270,17 +250,14 @@ inline SplitArgs split_layout(const void* q, const void* k, const void* v, const
   a.v = static_cast<const bf16*>(v);
   a.rel = static_cast<const bf16*>(rel);
   a.out = static_cast<bf16*>(out);
-  a.qk = {(size_t)N * dqk, 0, 0, (size_t)dqk};
-  a.vs = {(size_t)N * dv, 0, 0, (size_t)dv};
-  a.rs = {(size_t)N * (H + W), 0, 0, (size_t)(H + W)};
+  a.qk = {(size_t)N * dqk, (size_t)dqk};
+  a.vs = {(size_t)N * dv, (size_t)dv};
+  a.rs = {(size_t)N * (H + W), (size_t)(H + W)};
   a.os = a.vs;
-  a.heads = 1;
-  a.nwin = 1;
   a.N = N;
   a.H = H;
   a.W = W;
   a.dqk = dqk;
-  a.scale = 1.f;
   return a;
 }
 

@@ -154,10 +154,10 @@ PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, L, L
 QKV_PACKED_PLAIN = CudaKernel(
     "flash_qkv_packed_plain", "cvlm_qkv_packed_plain", [P, P, I, I, I, I, I, F]
 )
-# the windows' attention: the compact carry's interior (#13, rel
-# position-major) and edge windows (#15, rel window-major), both in
-# csrc/qkv_packed_windows_s.cu, and the padded carry's (#12, rel
-# window-major, csrc/qkv_packed_windows.cu)
+# the windows' attention, all on the whole-window TMA + wgmma kernel of
+# csrc/qkv_packed_windows_s.cu: the compact carry's interior (#13, rel
+# position-major) and edge windows (#15, rel window-major), and the padded
+# carry's (#12, rel window-major)
 _QKV_WINDOWS_ARGS = [P, P, P, I, I, I, I, F, I]
 QKV_WINDOWS = CudaKernel("flash_qkv_packed_windows_s", "cvlm_qkv_packed_windows_s",
                          _QKV_WINDOWS_ARGS)
@@ -184,11 +184,11 @@ QKV_GLOBAL_BWD = CudaKernel("flash_qkv_packed_global_bwd", "cvlm_attn_bwd", _ATT
 ATTN_RELPOS = CudaKernel("flash_attention_relpos", "cvlm_attn_relpos",
                          [P, P, P, P, P, I, I, I, I, I, I])
 ATTN_FULLK = CudaKernel("flash_attention_fullk", "cvlm_attn_fullk", [P, P, P, P, I, I, I, I])
-# The same two-pass kernel read in place from the packed qkv, written
-# head-leading (csrc/qkv_relpos.cu): fused 'flash' windows with H+W > 32
-# (#11) and its one-window form (#19); and the out-projection of that
-# head-leading output (csrc/proj_rows.cu) with (#8) and without (#9) the
-# residual. Each has its own count.
+# The one-pass TMA + wgmma attention read in place from the packed qkv,
+# written head-leading (csrc/qkv_relpos.cu): fused 'flash' windows with
+# H+W > 32 (#11) and its one-window form (#19); and the out-projection of
+# that head-leading output (csrc/proj_rows.cu) with (#8) and without (#9)
+# the residual. Each has its own count.
 _QKV_RELPOS_ARGS = [P, P, P, I, I, I, I, I, I, F]
 QKV_RELPOS_WINDOWS = CudaKernel("flash_qkv_relpos_windows", "cvlm_qkv_relpos",
                                 _QKV_RELPOS_ARGS)

@@ -210,8 +210,9 @@ def flash_qkv_packed_windows(
     """#13's function with the rel window-major: the fused 'flash' padded
     window carry (windows of 15 or 16) and the global blocks of at most 256
     tokens -> d-major (B, nwin, heads*d, Nw). Pad tokens are ordinary keys.
-    The kernel (`csrc/qkv_packed_windows.cu`) builds the bias by indexing
-    and does not read sel32. Gradients: the VJP of the plain version."""
+    The kernel is #13's (`csrc/qkv_packed_windows_s.cu`) with rel read
+    window-major; it builds the key code from the window side and does not
+    read sel32. Gradients: the VJP of the plain version."""
     return autograd.run("flash_qkv_packed_windows", _padded_windows_cuda,
                         flash_qkv_packed_windows_ref, (qkv, rel, sel32), (scale, heads, d))
 
@@ -569,7 +570,9 @@ def flash_qkv_relpos_windows(
     more, and the global blocks of at most 512 tokens with H+W > 32 ->
     head-leading (B, heads, nwin, Nw, d), what `proj_from_heads_res` reads.
     The kernel (`csrc/qkv_relpos.cu`) reads q, k and v in place and adds
-    the bias by indexing. Gradients: the VJP of the plain version."""
+    the bias by indexing, in one pass over the keys (P rounded to the
+    working type before its normalisation, as #16 and #17). Gradients: the
+    VJP of the plain version."""
     return autograd.run("flash_qkv_relpos_windows", _relpos_windows_cuda,
                         _relpos_windows_plain, (qkv, rel, sel), (scale, H, W))
 
@@ -587,10 +590,9 @@ def _relpos_packed_launch(kernel, qkv, rel, sel, scale, H, W):
     if (h3 != 3 * heads or H * W != N or rel.shape != (B, nwin, N, heads, H + W)
             or sel.shape != (H + W, N)):
         raise ValueError(f"{kernel.name}: qkv {qkv.shape} rel {rel.shape} H={H} W={W}")
-    if d not in _SPLIT_DV or B * nwin * heads > 65535:
+    if d not in _SPLIT_DV or B * nwin > 65535:
         raise ValueError(f"{kernel.name}: CUDA kernel takes d in {_SPLIT_DV} and at most "
-                         f"65535 (batch, window, head) problems (got d={d}, "
-                         f"{B * nwin * heads})")
+                         f"65535 (batch, window) pairs (got d={d}, {B * nwin})")
     out = torch.empty((B, heads, nwin, N, d), dtype=qkv.dtype, device=qkv.device)
     kernel(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B, nwin, H, W, heads, d,
            float(scale))

@@ -72,7 +72,8 @@ never prints its last line):
               exact launch counts, images/s and peak memory per config (a
               smoke figure: 5 images have no steady state; the rate is
               `cli/eval_throughput.py`'s over 300); then
-              each configuration's cascade call cut into stages at batch 1 and 2,
+              each configuration's cascade call cut into stages at batch 1 and 2
+              (windows 16 and 17 also traced at batch 2: the card's busy time),
               and the CLI's host metric work per image
 
 Every kernel line carries its bound (the larger of its FLOP over the bf16
@@ -299,8 +300,8 @@ def phase_build():
     lines, seen = info.splitlines(), set()
     for i, ln in enumerate(lines):
         m = re.search(r"Compiling entry function '(_ZN4cvlm(15gemm_tma_kernel|14ln_rows_kernel"
-                      r"|17qkv_global_kernel|18attn_stream_kernel|20qkv_windows_s_kernelILi80E)"
-                      r"\S*)'", ln)
+                      r"|17qkv_global_kernel|18attn_stream_kernel|20qkv_windows_s_kernelILi80E"
+                      r"|17qkv_relpos_kernelILi80E)\S*)'", ln)
         if m and m.group(1) not in seen:
             seen.add(m.group(1))
             usage = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
@@ -308,23 +309,33 @@ def phase_build():
     for bn in (256, 128):
         log(f"[build] dynamic shared memory per block: gemm_tma_kernel<{bn}, *, *> "
             f"{gemm_smem(bn)} B ({gemm_stages(bn)} stages of 128 x 64 + {bn} x 64)")
-    # dynamic shared memory of the attention kernels at the main path's shapes
+    # dynamic shared memory of the attention kernels at their paths' shapes
     # (csrc/attn_sm90.cuh stream_smem, csrc/qkv_packed_global.cu global_smem,
-    # csrc/qkv_packed_windows_s.cu windows_s_smem): 128 B of alignment, bf16
-    # buffers (q, the k/v ring, rel rows), the mbarriers
+    # csrc/qkv_packed_windows_s.cu windows_s_smem, csrc/qkv_relpos.cu
+    # relpos_smem): 128 B of alignment, bf16 buffers (q, the k/v ring, rel
+    # rows), the key code table, the mbarriers
     def stream(d, nwg, qrows, stages, lanes):
         return 128 + 2 * (nwg * qrows * d + 2 * stages * 64 * d + nwg * 64 * lanes) + 8 * (
             1 + 2 * stages)
 
-    def windows(d, np_, edge=False):
-        return 128 + 2 * (2 * 64 * (d + 32) + np_ * (d + 32) + np_ * d) + 8 * 5 + (
+    def relpos(d, nwg, lanes, kv_tiles, table, bars):  # q buffers of 64 x (d + 8)
+        return 128 + 2 * (nwg * 64 * (d + 8) + 2 * kv_tiles * 64 * d + nwg * 64 * lanes) + (
+            table + 8 * bars)
+
+    def windows(d, np_, edge=False, qst=2):
+        return 128 + 2 * (qst * 64 * (d + 32) + np_ * (d + 32) + np_ * d) + 8 * (1 + 2 * qst) + (
             4 * np_ if edge else 0)
 
     log(f"[build] dynamic shared memory per block: #16 attn_stream_kernel<64, 3, 10> "
         f"{stream(64, 3, 72, 10, 0)} B; #17 qkv_global_kernel<80> at H + W = 128 "
-        f"{stream(80, 2, 64, 3, 128)} B; #13 qkv_windows_s_kernel<80, 208, false> (win 14) "
-        f"{windows(80, 208)} B, <128, 256, false> (win 16) {windows(128, 256)} B; #15 "
-        f"qkv_windows_s_kernel<80, 112, true> (R 112) {windows(80, 112, True)} B")
+        f"{stream(80, 2, 64, 3, 128)} B; #13 qkv_windows_s_kernel<80, 208, false, 2> (win 14) "
+        f"{windows(80, 208)} B, <128, 256, false, 2> (win 16) {windows(128, 256)} B; #12 "
+        f"qkv_windows_s_kernel<80, 256, false, 1> (win 15, 16) {windows(80, 256, qst=1)} B; #15 "
+        f"qkv_windows_s_kernel<80, 112, true, 2> (R 112) {windows(80, 112, True)} B; #11 "
+        f"qkv_relpos_kernel<80, 3, REL_TC, true> (win 17: 5 resident k/v tiles, rel lanes "
+        f"padded to 48, the 320-key code table) {relpos(80, 3, 48, 5, 2 * 320 * 48, 5 + 6)} B; "
+        f"#19 qkv_relpos_kernel<80, 2, REL_REG, false> (grid 64: 3 stages) "
+        f"{relpos(80, 2, 128, 3, 0, 7)} B")
 
 
 def gemm_stages(bn):
@@ -711,12 +722,15 @@ def padded_sites(rn):
     """TPU kernels #12, #11, #8, #9 and #19 at the full-width shapes of the
     paths that reach them (batch 2, SAM ViT-H width, 16 heads x 80): #12 at
     fused 'flash' with window 16 (grid 64: 16 windows of 256 tokens, H+W =
-    32); #11 at window 17 (grid padded to 68: 16 windows of 289 tokens, H+W =
-    34 > 32); #8 / #9 the out-projection of #11's head-leading output with /
-    without the residual; #19 over the 4096-token grid. Library calls: SDPA
-    on views of the packed rows with the bias materialised (built apart)
-    for the attention; none for #8 / #9 (no single call takes the
-    head-leading input with the bias)."""
+    32), on #13's whole-window kernel with rel window-major (one q stage, two
+    blocks an SM); #11 at window 17 (grid padded to 68: 16 windows of 289
+    tokens, H+W = 34 > 32) on the one-pass streaming loop of qkv_relpos.cu
+    with each key's rel lanes from the block's code table; #8 / #9 the
+    out-projection of #11's head-leading output with / without the residual;
+    #19 over the 4096-token grid on the same loop, rel_w in registers (W =
+    64, the key tile). Library calls: SDPA on views of the packed rows with
+    the bias materialised (built apart) for the attention; none for #8 / #9
+    (no single call takes the head-leading input with the bias)."""
     import torch
     from camouflaged_vlm_tpu_torch.ops import _cuda
     from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
@@ -744,7 +758,7 @@ def padded_sites(rn):
     q, k, v = (r[:, :, :, i].transpose(2, 3) for i in range(3))  # (B, nwin, NH, Nw, HD)
     bias = torch.matmul(rel.reshape(B, nwin, Nw, NH, 32).transpose(2, 3), sel32)
     out["flash_qkv_packed_windows"] = dict(
-        source=src + "qkv_packed_windows.cu",
+        source=src + "qkv_packed_windows_s.cu",
         replaces="camouflaged_vlm_tpu/ops/flash_attention.py:337",
         **_check_kernel("flash_qkv_packed_windows (ViT-H window 16, 2x16x256x3840)",
                         lambda *a: fa.flash_qkv_packed_windows(*a, scale, NH, HD),
@@ -1715,7 +1729,9 @@ def phase_eval_slice():
         log(f"[eval_slice] {label} kernel launches {counts} expected {expected}")
         check(counts == expected, f"eval_slice {label}: launch counts {counts} != {expected}")
         runs[label] = dict(counts=counts, images_per_sec=res["images_per_sec"], peak_gib=peak)
-        config_stage_times(cfg, label)
+        # the padded carry's configurations: the card's busy time of a batch-2
+        # call, which their attention kernels (#12, #11) move
+        config_stage_times(cfg, label, trace=(2,) if cfg.encoder.window_size > 14 else ())
     shutil.rmtree(work)
     host_metric_cost()
     return runs
@@ -1757,9 +1773,10 @@ def host_metric_cost(iters=5):
         + f"; sum {sum(times.values()):.1f}")
 
 
-def config_stage_times(cfg, label):
+def config_stage_times(cfg, label, trace=()):
     """`stage_times` of a configuration's cascade at batch 1 and 2 (seeded
-    random weights, rel cache attached, the 61 classes' text features)."""
+    random weights, rel cache attached, the 61 classes' text features), with
+    a torch.profiler trace of one call at the batch sizes in `trace`."""
     import torch
     from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
     from camouflaged_vlm_tpu_torch.data.transforms import (
@@ -1779,7 +1796,7 @@ def config_stage_times(cfg, label):
             [clip_image_transform(im, cfg.clip_size) for im in images[:n]],
             [clip_ones_alpha(cfg.clip_size) for _ in images[:n]]))
 
-    stage_times(model, cfg, tf, {1: batch(1), 2: batch(2)}, label=f" {label}")
+    stage_times(model, cfg, tf, {1: batch(1), 2: batch(2)}, label=f" {label}", trace=trace)
     del model
 
 

@@ -450,10 +450,12 @@ def test_split_attention_gradients_are_the_plain_vjp(gen):
 
 
 @pytest.mark.parametrize("B,nwin,win,heads,d", [(2, 16, 16, 2, 80), (1, 25, 15, 2, 80),
-                                                (2, 3, 4, 8, 16), (1, 1, 16, 1, 64)])
+                                                (2, 3, 4, 8, 16), (1, 1, 16, 1, 64),
+                                                (2, 4, 15, 16, 80)])
 def test_flash_qkv_packed_windows_kernel(gen, B, nwin, win, heads, d):
-    """#12: window-major rel; windows of 16 (ViT-H), 15 (225 keys: ragged
-    tiles), 4, and one window of a 16 x 16 global block."""
+    """#12: window-major rel; windows of 16 (ViT-H), 15 (225 keys under the
+    256-wide product: ragged tiles, and rows of the padded stride 232; also
+    at ViT-H's 16 heads), 4, and one window of a 16 x 16 global block."""
     Nw = win * win
     sel32 = flash_attention.make_rel_scatter32(win, torch.bfloat16, torch.device("cuda"))
     args = (rn(gen, B, nwin, Nw, 3 * heads * d), rn(gen, B, nwin, Nw, heads * 32), sel32,
@@ -461,14 +463,22 @@ def test_flash_qkv_packed_windows_kernel(gen, B, nwin, win, heads, d):
     before = _cuda.QKV_WINDOWS_PADDED.launches
     got = flash_attention.flash_qkv_packed_windows(*args)
     assert _cuda.QKV_WINDOWS_PADDED.launches == before + 1
+    assert got.stride(-2) == -(-Nw // 8) * 8  # proj_rows' padded d-major rows
     assert_close(got, flash_attention.flash_qkv_packed_windows_ref(*args))
 
 
 @pytest.mark.parametrize("B,nwin,H,W,heads,d", [(2, 4, 17, 17, 2, 80), (1, 3, 5, 6, 3, 64),
-                                                (1, 1, 20, 20, 2, 80)])
+                                                (1, 1, 20, 20, 2, 80), (1, 2, 18, 18, 16, 80),
+                                                (2, 1, 22, 22, 2, 64), (1, 1, 24, 40, 2, 80)])
 def test_flash_qkv_relpos_windows_kernel(gen, B, nwin, H, W, heads, d):
-    """#11: windows of 17 (289 keys, H+W 34), a ragged non-square one, and a
-    20 x 20 global block (400 tokens, H+W 40)."""
+    """#11 on each of its kernel's arrangements: k and v resident with the
+    bias on the tensor cores at windows of 17 (289 keys, H+W 34) and 18
+    (324 keys, at ViT-H's 16 heads), on a ragged non-square window and on
+    a 22 x 22 global block at d = 64 (484 tokens, H+W 44); resident with
+    the gathered code table on a 20 x 20 global block (400 tokens, H+W 40),
+    whose tensor-core table does not fit beside k and v at d = 80; and
+    streaming with the gathered table on a 24 x 40 grid (960 keys, H+W
+    64); the last key tile ragged in each."""
     N = H * W
     qkv, rel = rn(gen, B, nwin, N, 3 * heads, d), rn(gen, B, nwin, N, heads, H + W)
     sel = flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda"))
@@ -478,8 +488,16 @@ def test_flash_qkv_relpos_windows_kernel(gen, B, nwin, H, W, heads, d):
     assert_close(got, flash_attention.flash_qkv_relpos_windows_ref(qkv, rel, sel, d ** -0.5))
 
 
-@pytest.mark.parametrize("B,H,W,heads,d", [(2, 64, 64, 1, 80), (1, 6, 10, 3, 64)])
+@pytest.mark.parametrize("B,H,W,heads,d", [(2, 64, 64, 1, 80), (1, 6, 10, 3, 64),
+                                         (2, 64, 64, 16, 80), (1, 3, 64, 2, 64),
+                                         (1, 4, 70, 2, 64)])
 def test_flash_qkv_relpos_global_kernel(gen, B, H, W, heads, d):
+    """#19: the 64 x 64 grid (W equal to the key tile: streaming, rel_w in
+    registers), also at ViT-H's 16 heads, and a 3 x 64 one on the same path
+    whose last block's second warpgroup has no query; the ragged 6 x 10
+    grid, resident with the bias on the tensor cores, its second and third
+    warpgroups idle; a 4 x 70 grid (H+W 74 > 64, 280 keys), resident with
+    the gathered code table."""
     N = H * W
     qkv, rel = rn(gen, B, N, 3 * heads, d), rn(gen, B, N, heads, H + W)
     sel = flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda"))

@@ -136,6 +136,69 @@ def test_flash_qkv_relpos_global_matches_jax_kernel(rng, interpret, H, W, block_
     close(fa.flash_qkv_relpos_global(T(qkv), T(rel), sel, d ** -0.5, H, W), want, OP_RTOL)
 
 
+def one_pass_relpos(qkv, rel, scale, H, W, tile=64):
+    """`csrc/qkv_relpos.cu`'s formulation of #11 in bf16: q * bf16(scale)
+    rounded to bf16; per 64-key tile the fp32 scores plus the fp32 sum of
+    the key's two bf16 rel lanes (k // W, H + k % W); the online softmax
+    (running max and sum in fp32); P = exp(s - m_running) rounded to bf16
+    unnormalised, O += P V in fp32; O / l rounded to bf16 at the end.
+    qkv (B, nwin, N, 3*heads, d), rel (B, nwin, N, heads, H+W) ->
+    (B, heads, nwin, N, d)."""
+    bf = torch.bfloat16
+    heads = qkv.shape[-2] // 3
+    q, k, v = (qkv[..., i * heads:(i + 1) * heads, :].movedim(-2, 2).float()
+               for i in range(3))  # (B, nwin, heads, N, d)
+    q = (q * torch.tensor(scale, dtype=bf).float()).to(bf).float()
+    key = torch.arange(H * W)
+    relh = rel.movedim(-2, 2).float()
+    bias = relh[..., key // W] + relh[..., H + key % W]  # (B, nwin, heads, N, N)
+    m = torch.full(q.shape[:-1] + (1,), -torch.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape[:-1] + (v.shape[-1],))
+    for t in range(0, H * W, tile):
+        s = q @ k[..., t:t + tile, :].transpose(-1, -2) + bias[..., t:t + tile]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + p.to(bf).float() @ v[..., t:t + tile, :]
+        m = m_new
+    return (o / l).to(bf).transpose(1, 2)
+
+
+def kernel_rel_err(got, want):
+    """max|d| / max|ref| and mean|d| / mean|ref|, the card's kernel gate."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    d = np.abs(got - want)
+    return d.max() / np.abs(want).max(), d.mean() / np.abs(want).mean()
+
+
+@pytest.mark.parametrize("H,W,nwin", [(17, 17, 2), (20, 20, 1)])
+def test_one_pass_relpos_rounding_matches_jax(rng, interpret, H, W, nwin):
+    """Moving the one rounding point (P rounded unnormalised, O divided by
+    the fp32 row sum at the end) keeps #11/#19 inside the card's gate of
+    1e-2 max and mean relative (chip_smoke.KERNEL_REL_BOUND), in bf16
+    against the JAX package: at window 17 (289 keys: four 64-key tiles and
+    a ragged one) through `flash_qkv_relpos_windows` (its XLA reference on
+    the CPU), and on a 20 x 20 grid (400 keys) through
+    `flash_qkv_relpos_global` (the TPU kernel in interpret mode)."""
+    heads, d = 2, 80
+    N = H * W
+    qkv = rnd(rng, 1, nwin, N, 3 * heads, d).astype(jnp.bfloat16)
+    rel = rnd(rng, 1, nwin, N, heads, H + W, scale=0.5).astype(jnp.bfloat16)
+    sel = fa.make_rel_scatter(H, W).numpy()
+    scale = d ** -0.5
+    got = one_pass_relpos(T(qkv.astype(np.float32)).to(torch.bfloat16),
+                          T(rel.astype(np.float32)).to(torch.bfloat16), scale, H, W)
+    if nwin > 1:
+        want = j_fa.flash_qkv_relpos_windows(J(qkv), J(rel), J(sel, jnp.bfloat16), scale)
+    else:
+        want = j_fa.flash_qkv_relpos_global(J(qkv[:, 0]), J(rel[:, 0]), J(sel, jnp.bfloat16),
+                                            scale)[:, :, None]
+    assert want.dtype == jnp.bfloat16 and got.shape == want.shape
+    max_rel, mean_rel = kernel_rel_err(got.float().numpy(), want.astype(jnp.float32))
+    assert max_rel < 1e-2 and mean_rel < 1e-2, (max_rel, mean_rel)
+
+
 @pytest.mark.parametrize("residual", [True, False])
 def test_proj_from_heads_matches_jax(rng, residual):
     """#8 (with the residual) and #9: the port's (out, heads*d) nn.Linear
