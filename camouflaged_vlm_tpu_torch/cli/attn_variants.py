@@ -9,10 +9,14 @@ the full-width bf16 shapes of `chip_smoke.padded_sites`, batch 2, 16 heads x
 80: #12 at window 16 with one or two q' stages; #11 at window 17 and #19 on
 the 64 x 64 grid, streaming or with k and v resident, with 1-3 consumer
 warpgroups and the bias gathered from a code table, held in registers or
-on the tensor cores. One JSON line each, the rounds alternating variants:
-the queued and idle-card times (`chip_smoke.time_ms`) and the error
-against the plain version; the first line gives the card's name and power
-limit and ptxas' registers, spills and barriers of every instantiation.
+on the tensor cores; and the attention backward #18 on the 64 x 64 grid
+(its training shape, g d-major) through the query pass's register path,
+the dispatcher's pick, or the general path (bias and drel through the key
+code). One JSON line each, the rounds alternating variants: the queued and
+idle-card times (`chip_smoke.time_ms`) and the error against the plain
+version (per output for the backward); the first line gives the card's
+name and power limit and ptxas' registers, spills and barriers of every
+instantiation.
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ def build():
         raise SystemExit(f"attn_variants: nvcc failed\n{proc.stdout}{proc.stderr}")
     usage = ptxas_usage(proc.stdout + proc.stderr)
     return {k: v for k, v in usage.items()
-            if "qkv_relpos_kernel" in k or "qkv_windows_s_kernelILi80ELi256ELb0" in k}
+            if "qkv_relpos_kernel" in k or "qkv_windows_s_kernelILi80ELi256ELb0" in k
+            or "attn_bwd_query_kernelILi80ELi128E" in k}
 
 
 def main() -> None:
@@ -60,7 +65,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("attn_variants: no CUDA device")
-    from camouflaged_vlm_tpu_torch.cli.kernel_timing import _smoke
+    from camouflaged_vlm_tpu_torch.cli.kernel_timing import _smoke, case_errors
     from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
     from camouflaged_vlm_tpu_torch.ops import linear as lin
 
@@ -75,6 +80,7 @@ def main() -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cvlm_variant_windows.argtypes = [I, P, P, P, I, I, I, F, I, P]
     lib.cvlm_variant_relpos.argtypes = [I, P, P, P, I, I, I, I, I, F, P]
+    lib.cvlm_variant_attn_bwd.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P]
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -91,7 +97,8 @@ def main() -> None:
             raise SystemExit(f"attn_variants: {kernel} {variant}: CUDA error {rc}")
         print(json.dumps(dict(kernel=kernel, variant=variant,
                               queued_ms=smoke.time_ms(launch, queued=True),
-                              ms=smoke.time_ms(launch), **smoke.errors(out, want))), flush=True)
+                              ms=smoke.time_ms(launch), **case_errors(smoke, out, want))),
+              flush=True)
 
     B, NH, HD, dev = 2, 16, 80, torch.device("cuda")
     scale = HD ** -0.5
@@ -123,6 +130,21 @@ def main() -> None:
                             v, qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), *lead, H, H, NH,
                             scale, stream()), out, want)
             del qkv, rel, want, out
+
+        H = 64
+        N = H * H
+        qkv, rel, gy = rn(B, N, 3 * NH * HD), rn(N, B, NH, 2 * H), rn(B, NH * HD, N) * 0.05
+        sel = fa.make_rel_scatter(H, H, torch.bfloat16, dev)
+        want = fa.flash_qkv_packed_global_bwd_ref(qkv, rel, sel, gy, scale, NH, HD)
+        _, ntp, aux, stats, code = fa.attn_bwd_scratch(qkv, B, N, H, H, 2 * H, NH, HD)
+        out = (torch.empty_like(qkv), torch.empty_like(rel))
+        for _ in range(args.rounds):
+            for reg in (1, 0):
+                run("#18 global backward", "register path" if reg else "general path",
+                    lambda reg=reg: lib.cvlm_variant_attn_bwd(
+                        reg, qkv.data_ptr(), rel.data_ptr(), gy.data_ptr(), out[0].data_ptr(),
+                        out[1].data_ptr(), aux.data_ptr(), stats.data_ptr(), code.data_ptr(), B,
+                        N, ntp, H, 2 * H, NH, scale, stream()), out, want)
 
 
 if __name__ == "__main__":

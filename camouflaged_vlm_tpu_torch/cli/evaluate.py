@@ -19,8 +19,9 @@ Usage:
 ViT-B's (`camouflaged_vlm_tpu_torch/configs/ovcos-sam-vit-b-maskdecoder-edge.yaml`).
 Without `--cascade-ckpt` the weights are random (seeded by `--seed`).
 `--device cuda` (the default) on a host without a card raises. Not ported
-(ROADMAP.md, Queue 1): `--data-parallel/--n-model` (item 11) and
-`--sam-ckpt/--clip-ckpt/--maple-ckpt/--text-bank` (their converters, item 12).
+(ROADMAP.md, Queue 1): `--data-parallel/--n-model` (multi-device) and
+`--sam-ckpt/--clip-ckpt/--maple-ckpt/--text-bank` (checkpoint interop: their
+converters).
 """
 
 from __future__ import annotations

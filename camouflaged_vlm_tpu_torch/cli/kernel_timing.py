@@ -12,7 +12,11 @@ of `chip_smoke.proj_rows_shapes` (x d-major, in the padded layout on a
 checkout that has it, `ops/linear.py dmajor_empty`, else contiguous); #16,
 #13, #15 and #17 at CLIP's, SAM's windows', edge windows' and global
 blocks'; last, the padded carry's #12 (window 16) and #11 (window 17) and
-#19 (the 64 x 64 grid), `padded_carry_cases`. Each case prints one JSON line:
+#19 (the 64 x 64 grid), `padded_carry_cases`; after them the attention
+backward at the training path's shapes, #14 at the interior windows and #18
+at the global blocks (`backward_cases`: errors per output, no library call,
+and the device time of each of the call's kernels, from torch.profiler).
+Each case prints one JSON line:
 the error against the plain version; the idle-card median and the queued
 time (`chip_smoke.time_ms`); the host's microseconds a call
 (`chip_smoke.host_us`) through the wrapper and through its `CudaKernel`
@@ -78,7 +82,7 @@ class Case:
     call: Callable       # the wrapper on its inputs
     plain: Callable      # its plain version on the same inputs
     kernel: str          # the CudaKernel's attribute in ops/_cuda.py
-    library: Callable    # one PyTorch call beside it
+    library: Optional[Callable]  # one PyTorch call beside it, or None (the backwards)
     library_key: str     # "library" (same function) or "gemm_library" (its products alone)
     per_call: int        # launches in a batch-2 cascade call at this shape
     widths: Dict[str, int] = field(default_factory=dict)  # GEMM pass -> tile-width argument
@@ -200,7 +204,63 @@ def cases(smoke, rn, template: bool):
                         lambda pa=pa: lin.proj_rows_ref(*pa),
                         "PROJ_ROWS", gemm, "gemm_library", sites.get(site, 0),
                         {"gemm": -1} if template and padded else {}))
-    return out + padded_carry_cases(rn)
+    return out + padded_carry_cases(rn) + backward_cases(rn)
+
+
+def backward_cases(rn):
+    """The attention backward at batch 2, full width (16 heads x 80), as the
+    train step runs it: #14 over the 32 interior windows of 196 keys (rel
+    position-major, 32 lanes) and #18 over the 64 x 64 global grid, g d-major.
+    No single PyTorch call computes either (drel), so no library time; they
+    run in training only: `per_call` 0. Drawn last, after every forward case."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+
+    B, NH, HD, WIN, G, nf, dev, bf = 2, 16, 80, 14, 64, 16, torch.device("cuda"), torch.bfloat16
+    sam, S, N = HD ** -0.5, WIN * WIN, G * G
+    win = (rn(B * nf, S, 3 * NH * HD), rn(S, B * nf, NH * 32), fa.make_rel_scatter32(WIN, bf, dev),
+           rn(B * nf, NH * HD, S, std=0.05), sam, NH, HD)
+    glob = (rn(B, N, 3 * NH * HD), rn(N, B, NH, 2 * G), fa.make_rel_scatter(G, G, bf, dev),
+            rn(B, NH * HD, N, std=0.05), sam, NH, HD, G, G)
+    return [Case("flash_qkv_packed_windows_s_bwd", "windows backward", [B * nf, S, 3 * NH * HD],
+                 lambda: fa.flash_qkv_packed_windows_s_bwd(*win),
+                 lambda: fa.flash_qkv_packed_windows_s_bwd_ref(*win),
+                 "QKV_WINDOWS_BWD", None, "library", 0),
+            Case("flash_qkv_packed_global_bwd", "global backward", [B, N, 3 * NH * HD],
+                 lambda: fa.flash_qkv_packed_global_bwd(*glob),
+                 lambda: fa.flash_qkv_packed_global_bwd_ref(*glob[:7]),
+                 "QKV_GLOBAL_BWD", None, "library", 0)]
+
+
+def case_errors(smoke, got, want):
+    """The errors against the plain version; a backward's (dqkv, drel) per
+    output, with the larger of each beside them."""
+    if not isinstance(got, tuple):
+        return smoke.errors(got, want)
+    per = {n: smoke.errors(a, b) for n, a, b in zip(("dqkv", "drel"), got, want)}
+    return {**{k: max(e[k] for e in per.values()) for k in ("max_abs_err", "max_rel", "mean_rel")},
+            "per_output": per}
+
+
+def kernel_device_ms(call, iters=5):
+    """Device ms a call of each kernel `call` launches (torch.profiler over
+    `iters` calls after one more), by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if t and "cvlm" in e.key:
+            name = re.sub(r"^void |<.*$|\(.*$", "", e.key).replace("cvlm::", "")
+            out[name] = out.get(name, 0.0) + t / 1e3 / iters
+    return out
 
 
 def padded_carry_cases(rn):
@@ -307,11 +367,15 @@ def main() -> None:
             torch.cuda.synchronize()
             lib = c.library_key
             rec = dict(label=label, name=c.name, site=c.site, shape=c.shape,
-                       **smoke.errors(got, c.plain()),
+                       **case_errors(smoke, got, c.plain()),
                        ms=smoke.time_ms(c.call), queued_ms=smoke.time_ms(c.call, queued=True),
-                       host_us=smoke.host_us(c.call), host_us_entry=smoke.host_us(replay()),
-                       **{f"{lib}_ms": smoke.time_ms(c.library),
-                          f"{lib}_queued_ms": smoke.time_ms(c.library, queued=True)})
+                       host_us=smoke.host_us(c.call), host_us_entry=smoke.host_us(replay()))
+            if c.library is not None:
+                rec.update({f"{lib}_ms": smoke.time_ms(c.library),
+                            f"{lib}_queued_ms": smoke.time_ms(c.library, queued=True)})
+            else:  # a backward: its kernels' device times, and the plain version's
+                rec.update(kernels_device_ms=kernel_device_ms(c.call),
+                           plain_ms=smoke.time_ms(c.plain))
             if widths and c.widths:
                 rec["queued_ms_tile_n"] = {
                     f"{p} {bn}": smoke.time_ms(replay({pos: bn}), queued=True)

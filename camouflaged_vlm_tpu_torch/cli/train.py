@@ -27,9 +27,11 @@ JAX CLI does, and its train section sets the recipe: `epochs`,
 `batch_size`, `lr`, `eta_min`, `epoch_val` and `loss` (a reference-format
 yaml's `epoch_max`, `lr_min`, ...) replace the flags where present.
 
-Not ported yet (ROADMAP.md, Queue 1): data/tensor parallelism (validation
-runs on the one device), remat, the optimizer-fusion flag and the
-checkpoint-loading flags.
+Not ported yet (ROADMAP.md, Queue 1): data/tensor parallelism (multi-device;
+validation runs on the one device), remat and the checkpoint-loading flags
+(checkpoint interop). The JAX CLI's `--fused-optimizer` is left out on
+purpose: its "auto" changes the optimizer state's layout, so a resume from an
+older checkpoint fails (ROADMAP.md, Queue 3).
 """
 
 from __future__ import annotations

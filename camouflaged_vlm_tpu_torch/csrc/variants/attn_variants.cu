@@ -7,6 +7,10 @@
 //   #11/#19 qkv_relpos_kernel<80, NWG, MODE, RES>: streaming or resident k/v,
 //       NWG consumer warpgroups, the bias gathered, in registers or on the
 //       tensor cores.
+//   #18 attn_bwd_query_kernel<80, 128, REG, 3>: the register path (the C
+//       entry's pick at W = 64) or the general path (the bias and drel
+//       through the key code on the tensor cores).
+#include "../attn_bwd.cu"
 #include "../qkv_packed_windows_s.cu"
 #include "../qkv_relpos.cu"
 
@@ -44,4 +48,19 @@ extern "C" int cvlm_variant_relpos(int variant, const void* qkv, const void* rel
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CVLM_RP
+}
+
+// #18 at d = 80 and 128 lanes on an H x 64 grid: reg 1 the register path,
+// 0 the general path; the other arguments as cvlm_attn_bwd's
+extern "C" int cvlm_variant_attn_bwd(int reg, const void* qkv, const void* rel, const void* g,
+                                     void* dqkv, void* drel, void* aux, void* stats,
+                                     const void* code, int BB, int N, int NTP, int H, int L,
+                                     int heads, float scale, void* stream) {
+  using namespace cvlm;
+  const AbArgs a{qkv, rel, g, code, dqkv, drel, aux, stats, BB, N, NTP, H, L, heads, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H < 1 || N != H * AB_T || !ab_reg(H, AB_T, L, 128) || NTP % AB_NWG != 0 ||
+      NTP * AB_T < N)
+    return (int)cudaErrorInvalidValue;
+  return reg ? launch_attn_bwd<80, 128, true>(a, s) : launch_attn_bwd<80, 128, false>(a, s);
 }

@@ -170,15 +170,17 @@ QKV_GLOBAL = CudaKernel(
     "flash_qkv_packed_global", "cvlm_qkv_packed_global", [P, P, P, I, I, I, I, I, I, I, F]
 )
 # The hand-written backward kernels (training): the fused MLP's (#6), and one
-# attention backward (csrc/attn_bwd.cu) for the windows (#14) and the
-# global blocks (#18), each with its own count.
+# attention backward (csrc/attn_bwd.cu: a prep pass, then a query-parallel
+# and a key-parallel TMA + wgmma pass, counted once a call) for the windows
+# (#14) and the global blocks (#18), each with its own count.
 LN_MLP_RESIDUAL_BWD = CudaKernel(
     "ln_mlp_residual_bt_bwd", "cvlm_ln_mlp_residual_bwd",
     [P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I],
 )
-_ATTN_BWD_ARGS = [P, P, P, P, P, P, I, I, I, I, I, I, I, F]
+_ATTN_BWD_ARGS = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F]
 QKV_WINDOWS_BWD = CudaKernel("flash_qkv_packed_windows_s_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
 QKV_GLOBAL_BWD = CudaKernel("flash_qkv_packed_global_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
+
 # Attention over split q, k, v (csrc/attn_split.cuh): SAM's unfused 'flash'
 # path (#10, rel-pos bias) and the 'aug_flash' global blocks (#20).
 ATTN_RELPOS = CudaKernel("flash_attention_relpos", "cvlm_attn_relpos",
@@ -209,6 +211,20 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+def attn_bwd_smem(d: int, H: int, W: int, L: int, lpc: int) -> dict:
+    """What `cvlm_attn_bwd` launches at these shapes, from the library
+    itself (`cvlm_attn_bwd_smem`): its bias path, and its query and key
+    passes' dynamic shared memory and ring stages."""
+    out = (ctypes.c_longlong * 5)()
+    fn = library().cvlm_attn_bwd_smem
+    fn.argtypes = [I, I, I, I, I, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    if fn(d, H, W, L, lpc, out):
+        raise ValueError(f"cvlm_attn_bwd_smem: no kernel at d={d}, lpc={lpc}")
+    return {"path": "register" if out[0] else "general", "query_smem": out[1],
+            "query_stages": out[2], "key_smem": out[3], "key_stages": out[4]}
 
 
 # --------------------------------------------------------------- dispatch

@@ -31,10 +31,15 @@ the working type before P.V, fp32 accumulation, one final rounding. For CUDA
 tensors each launches its kernel (`csrc/`) or raises.
 
 Gradients: the windows (#14) and global (#18) attention have hand-written
-backward kernels (`csrc/attn_bwd.cu`) and plain backwards (`*_bwd_ref`)
-for the CPU; the plain, edge, #10, #11, #12, #19 and #20 attention take
-the VJP of their plain version (`ops/autograd.py`), as the JAX package's
-do.
+backward kernels and plain backwards (`*_bwd_ref`) for the CPU. The kernels
+(`csrc/attn_bwd.cu`) are one wgmma design for both: a prep pass into a
+scratch of [q*scale | rel lanes | g | q | k | v] rows in 64-row tiles
+(`row_tiles`' layout, read by bulk copies), a query-parallel pass (row
+statistics, then dq and drel) and a key-parallel pass (dk, dv); the
+wrapper picks the lane width (`attn_bwd_lanes`) and hands in the scratch
+and the key code (`attn_bwd_scratch`), the C entry picks the bias path.
+The plain, edge, #10, #11, #12, #19 and #20 attention take the VJP of
+their plain version (`ops/autograd.py`), as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -272,12 +277,80 @@ def flash_qkv_packed_windows_s_bwd_ref(qkv, rel_s, sel32, g, scale, heads, d):
     return _unsplit(dq, dk, dv, qkv.dtype), drel.to(rel_s.dtype)
 
 
+# rows of a query or key tile of the backward kernels (csrc/attn_bwd.cu AB_T)
+ATTN_BWD_TILE = 64
+
+
+def attn_bwd_lanes(L: int) -> int:
+    """`cvlm_attn_bwd`'s lpc for L rel lanes: the lanes padded to the width
+    of the drel product and of the bias chain, 32 up to 32 lanes, else 128.
+    (The C entry picks the bias path itself: the register path where W = 64
+    and L = H + 64, `drel_w64_ref`.)"""
+    return 32 if L <= 32 else 128
+
+
+def rel_code(H: int, W: int, lpc: int, device="cpu"):
+    """(H*W, lpc) bf16: key k's code, ones at lanes k // W and H + k % W and
+    zeros to lpc (`make_rel_scatter`'s transpose, padded): the keys' side of
+    the backward kernels' bias chain [q*scale | rel] . [k | code]^T and the
+    B of drel = dS . code; the wrapper hands it in as `row_tiles`, built once
+    per shape and device."""
+    sel = make_rel_scatter(H, W, torch.bfloat16, device)
+    return torch.nn.functional.pad(sel.t(), (0, lpc - H - W)).contiguous()
+
+
+def drel_w64_ref(dS: torch.Tensor, H: int) -> torch.Tensor:
+    """drel = dS . sel^T on an H x 64 grid, as the register path of the
+    backward kernels (csrc/attn_bwd.cu ab_reg) forms it: a 64-key tile is
+    grid row kh, so rel_h lane kh gets the tile's row sum of dS and the 64
+    rel_w lanes get the tiles themselves, summed. dS (..., Nq, H*64) ->
+    (..., Nq, H + 64)."""
+    t = dS.reshape(dS.shape[:-1] + (H, ATTN_BWD_TILE))
+    return torch.cat([t.sum(-1), t.sum(-2)], dim=-1)
+
+
+def row_tiles(x: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """(rows, C) -> (n_tiles, C / 8, 64, 8): the backward kernels' tile layout
+    (16-byte columns of 64-row tiles, what wgmma reads), rows past the end
+    zero."""
+    rows, C = x.shape
+    t = ATTN_BWD_TILE
+    x = torch.nn.functional.pad(x, (0, 0, 0, n_tiles * t - rows))
+    return x.reshape(n_tiles, t, C // 8, 8).transpose(1, 2).contiguous()
+
+
+def attn_bwd_tiles(N: int) -> int:
+    """64-row tiles the backward kernels lay N rows out in: rounded up to
+    the two tiles of a block."""
+    n = -(-N // ATTN_BWD_TILE)
+    return n + n % 2
+
+
+@functools.lru_cache(maxsize=None)
+def _rel_code_tiles(H: int, W: int, lpc: int, device):
+    return row_tiles(rel_code(H, W, lpc, device), attn_bwd_tiles(H * W))
+
+
+def attn_bwd_scratch(qkv, BB, N, H, W, L, heads, d):
+    """`cvlm_attn_bwd`'s lane width and tile count and its scratch: (lpc,
+    ntp, aux, stats, code). aux holds per (image, head) the rows' [q*scale |
+    rel lanes to lpc | g | q | k | v] in 64-row tiles (the prep pass), stats
+    the rows' (max, 1/sum, t, 0) from the query pass for the key pass, code
+    the keys' code tiles (cached per shape and device)."""
+    lpc, ntp = attn_bwd_lanes(L), attn_bwd_tiles(N)
+    aux = torch.empty((BB, heads, ntp, (5 * d + lpc) // 8, ATTN_BWD_TILE, 8), dtype=qkv.dtype,
+                      device=qkv.device)
+    stats = torch.empty((BB * heads, ntp * ATTN_BWD_TILE, 4), dtype=torch.float32,
+                        device=qkv.device)
+    return lpc, ntp, aux, stats, _rel_code_tiles(H, W, lpc, qkv.device)
+
+
 def _attn_bwd_launch(kernel, qkv, rel, g, BB, N, H, W, L, heads, d, scale):
+    lpc, ntp, aux, stats, code = attn_bwd_scratch(qkv, BB, N, H, W, L, heads, d)
     dqkv, drel = torch.empty_like(qkv), torch.empty_like(rel)
-    # row statistics (max, sum, t) of the query pass, read by the key pass
-    stats = torch.empty((3, BB * heads * N), dtype=torch.float32, device=qkv.device)
     kernel(qkv.data_ptr(), rel.data_ptr(), g.data_ptr(), dqkv.data_ptr(), drel.data_ptr(),
-           stats.data_ptr(), BB, N, H, W, L, heads, d, float(scale))
+           aux.data_ptr(), stats.data_ptr(), code.data_ptr(), BB, N, ntp, H, W, L, lpc, heads,
+           d, float(scale))
     return dqkv, drel
 
 
@@ -448,7 +521,7 @@ def flash_qkv_packed_global_bwd_ref(qkv, rel, sel, g, scale, heads, d):
     return _unsplit(dq, dk, dv, qkv.dtype), drel.permute(2, 0, 1, 3).to(rel.dtype)
 
 
-# the key pass keeps the rel rows of 64 queries in fp32 shared memory
+# the backward kernels pad the rel lanes to at most 128 (`attn_bwd_lanes`)
 GLOBAL_BWD_MAX_LANES = 128
 
 

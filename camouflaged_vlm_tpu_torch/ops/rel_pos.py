@@ -4,7 +4,8 @@ Counterpart of `camouflaged_vlm_tpu/ops/rel_pos.py`: the bias
 ``attn[q, k] += rel_h[qh, qw, kh] + rel_w[qh, qw, kw]`` is computed from the
 *unscaled* query and added to logits computed from the scaled one. This is
 SAM's 'reference' attention, which materialises the (seq x seq) bias; the
-kernels of the 'flash' path are still to be ported (ROADMAP.md).
+'flash' path's kernels (`ops/flash_attention.py`, `csrc/`) rebuild the bias
+inside the kernel from its rank-2 factors instead.
 """
 
 from __future__ import annotations

@@ -277,6 +277,7 @@ def phase_device():
 
 def phase_build():
     from camouflaged_vlm_tpu_torch.ops import _cuda
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
     path = _cuda.build()
@@ -301,7 +302,8 @@ def phase_build():
     for i, ln in enumerate(lines):
         m = re.search(r"Compiling entry function '(_ZN4cvlm(15gemm_tma_kernel|14ln_rows_kernel"
                       r"|17qkv_global_kernel|18attn_stream_kernel|20qkv_windows_s_kernelILi80E"
-                      r"|17qkv_relpos_kernelILi80E)\S*)'", ln)
+                      r"|17qkv_relpos_kernelILi80E|21attn_bwd_query_kernelILi80E"
+                      r"|19attn_bwd_key_kernelILi80E|20attn_bwd_prep_kernel)\S*)'", ln)
         if m and m.group(1) not in seen:
             seen.add(m.group(1))
             usage = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
@@ -336,7 +338,14 @@ def phase_build():
         f"padded to 48, the 320-key code table) {relpos(80, 3, 48, 5, 2 * 320 * 48, 5 + 6)} B; "
         f"#19 qkv_relpos_kernel<80, 2, REL_REG, false> (grid 64: 3 stages) "
         f"{relpos(80, 2, 128, 3, 0, 7)} B")
-
+    # the attention backward at d = 80, as the library sizes it
+    # (`_cuda.attn_bwd_smem`): the path, each pass's dynamic shared memory and
+    # ring stages
+    for site, hw, lanes in (("#14 windows", 14, 32), ("#18 global", 64, 128)):
+        plan = _cuda.attn_bwd_smem(80, hw, hw, lanes, fa.attn_bwd_lanes(lanes))
+        log(f"[build] dynamic shared memory per block: {site} ({plan['path']} path): "
+            f"attn_bwd_query_kernel {plan['query_smem']} B, {plan['query_stages']} stages; "
+            f"attn_bwd_key_kernel {plan['key_smem']} B, {plan['key_stages']} stages")
 
 def gemm_stages(bn):
     """The ring depth of csrc/gemm_sm90.cuh's GemmTile<bn>."""

@@ -364,6 +364,61 @@ def test_flash_qkv_packed_global_bwd_kernel(gen, B, H, W, heads, d):
     _grad_close(got, flash_attention.flash_qkv_packed_global_bwd_ref(*args[:7]))
 
 
+def _windows_bwd_args(gen, BW, win, heads, d):
+    S = win * win
+    return (rn(gen, BW, S, 3 * heads * d), rn(gen, S, BW, heads * 32),
+            flash_attention.make_rel_scatter32(win, torch.bfloat16, torch.device("cuda")),
+            rn(gen, BW, heads * d, S, std=0.05), d ** -0.5, heads, d)
+
+
+def _global_bwd_args(gen, B, H, W, heads, d):
+    N = H * W
+    return (rn(gen, B, N, 3 * heads * d), rn(gen, N, B, heads, H + W),
+            flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda")),
+            rn(gen, B, heads * d, N, std=0.05), d ** -0.5, heads, d, H, W)
+
+
+def test_attention_bwd_kernels_at_vit_h_width(gen):
+    """ViT-H's full width at a reduced batch: the interior windows of one
+    image (16 windows of 196 keys) and one image's global block (the 64 x 64
+    grid, the register path), 16 heads x 80."""
+    args = _windows_bwd_args(gen, 16, 14, 16, 80)
+    _grad_close(flash_attention.flash_qkv_packed_windows_s_bwd(*args),
+                flash_attention.flash_qkv_packed_windows_s_bwd_ref(*args))
+    args = _global_bwd_args(gen, 1, 64, 64, 16, 80)
+    assert _cuda.attn_bwd_smem(80, 64, 64, 128, 128)["path"] == "register"
+    _grad_close(flash_attention.flash_qkv_packed_global_bwd(*args),
+                flash_attention.flash_qkv_packed_global_bwd_ref(*args[:7]))
+
+
+def test_attention_bwd_kernels_are_deterministic(gen):
+    """No atomics: two calls on the same inputs give bit-equal dqkv and drel."""
+    for fn, args in ((flash_attention.flash_qkv_packed_windows_s_bwd,
+                      _windows_bwd_args(gen, 8, 14, 4, 80)),
+                     (flash_attention.flash_qkv_packed_global_bwd,
+                      _global_bwd_args(gen, 2, 8, 64, 4, 80))):
+        first = fn(*args)
+        second = fn(*args)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("H,W,heads,d,path", [
+    (4, 64, 2, 80, "register"), (3, 64, 3, 64, "register"), (2, 64, 1, 128, "register"),
+    (4, 60, 2, 80, "general"), (3, 63, 3, 64, "general"), (2, 62, 1, 128, "general")])
+def test_flash_qkv_packed_global_bwd_paths(gen, H, W, heads, d, path):
+    """Both paths the C entry picks at 128 lanes: on an H x 64 grid the
+    register path (bias in registers, drel as row sums and the dS tiles
+    themselves), on other widths the general path (bias and drel through
+    the key code on the tensor cores)."""
+    assert _cuda.attn_bwd_smem(d, H, W, H + W, 128)["path"] == path
+    args = _global_bwd_args(gen, 2, H, W, heads, d)
+    before = _cuda.QKV_GLOBAL_BWD.launches
+    got = flash_attention.flash_qkv_packed_global_bwd(*args)
+    assert _cuda.QKV_GLOBAL_BWD.launches == before + 1
+    _grad_close(got, flash_attention.flash_qkv_packed_global_bwd_ref(*args[:7]))
+
+
 def test_attention_functions_launch_the_backward_kernels(gen):
     """A gradient through the wrappers runs the backward kernel once and
     equals the plain backward's."""
