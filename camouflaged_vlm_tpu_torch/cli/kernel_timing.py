@@ -15,7 +15,9 @@ blocks'; last, the padded carry's #12 (window 16) and #11 (window 17) and
 #19 (the 64 x 64 grid), `padded_carry_cases`; after them the attention
 backward at the training path's shapes, #14 at the interior windows and #18
 at the global blocks (`backward_cases`: errors per output, no library call,
-and the device time of each of the call's kernels, from torch.profiler).
+and the device time of each of the call's kernels, from torch.profiler);
+last the MLP backward #6 at SAM's three sites and with the weight
+gradients, and the 'aug_flash' global attention #20 (`mlp_aug_cases`).
 Each case prints one JSON line:
 the error against the plain version; the idle-card median and the queued
 time (`chip_smoke.time_ms`); the host's microseconds a call
@@ -87,6 +89,7 @@ class Case:
     per_call: int        # launches in a batch-2 cascade call at this shape
     widths: Dict[str, int] = field(default_factory=dict)  # GEMM pass -> tile-width argument
     passes: Dict[str, Callable] = field(default_factory=dict)  # template passes alone
+    outputs: tuple = ("dqkv", "drel")  # a backward's outputs, by name
 
 
 def entry_replay(kernel, call):
@@ -204,7 +207,7 @@ def cases(smoke, rn, template: bool):
                         lambda pa=pa: lin.proj_rows_ref(*pa),
                         "PROJ_ROWS", gemm, "gemm_library", sites.get(site, 0),
                         {"gemm": -1} if template and padded else {}))
-    return out + padded_carry_cases(rn) + backward_cases(rn)
+    return out + padded_carry_cases(rn) + backward_cases(rn) + mlp_aug_cases(rn)
 
 
 def backward_cases(rn):
@@ -232,12 +235,54 @@ def backward_cases(rn):
                  "QKV_GLOBAL_BWD", None, "library", 0)]
 
 
-def case_errors(smoke, got, want):
-    """The errors against the plain version; a backward's (dqkv, drel) per
-    output, with the larger of each beside them."""
+def mlp_aug_cases(rn):
+    """The MLP backward #6 at SAM ViT-H's training sites, batch 2 (global
+    blocks 2 x 4096, interior windows 32 x 196, edge windows 2 x 1008 rows of
+    1280, H 5120, gelu_tanh, no weight gradients, as the frozen encoder runs
+    it; and the windows with the weight gradients, whose two products are
+    torch.matmul), and the 'aug_flash' global attention #20 (q_aug, k_aug
+    (32, 4096, 208), v (32, 4096, 80)) beside SDPA at scale 1 on the same
+    features. Drawn after every other case; neither runs in a call of the
+    reference configuration: `per_call` 0."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    D, H = 1280, 5120
+    sg, sb = 1 + rn(D, std=0.1, dtype=torch.float32), rn(D, std=0.1, dtype=torch.float32)
+    w1, b1, w2, b2 = rn(H, D, std=0.02), rn(H, std=0.02), rn(D, H, std=0.02), rn(D, std=0.02)
+    names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    # dxn's tile width, the C entry's last argument, on a checkout whose #6
+    # runs on the GEMM template
+    dxn_width = {"dxn": -1} if hasattr(lin, "MLP_BWD_DB1_ROWS") else {}
+    out = []
+    for site, lead, weights in (("global backward", (2, 4096), False),
+                                ("windows backward", (32, 196), False),
+                                ("edge backward", (2, 1008), False),
+                                ("windows backward, weight grads", (32, 196), True)):
+        a = (rn(*lead, D), sg, sb, w1, b1, w2, b2, rn(*lead, D, std=0.05))
+        out.append(Case("ln_mlp_residual_bt_bwd", site, [*lead, D, H],
+                        lambda a=a, w=weights: lin.ln_mlp_residual_bt_bwd(*a, weights=w),
+                        lambda a=a, w=weights: lin.ln_mlp_residual_bt_bwd_ref(*a, weights=w),
+                        "LN_MLP_RESIDUAL_BWD", None, "library", 0, widths=dxn_width,
+                        outputs=names))
+    BB, N, dqk, dv = 32, 4096, 208, 80
+    q, k, v = rn(BB, N, dqk, std=dqk ** -0.5), rn(BB, N, dqk), rn(BB, N, dv)
+    out.append(Case("flash_attention_fullk", "aug_flash global", [BB, N, dqk, dv],
+                    lambda: fa.flash_attention_fullk(q, k, v),
+                    lambda: fa.flash_attention_fullk_ref(q, k, v), "ATTN_FULLK",
+                    lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0),
+                    "library", 0))
+    return out
+
+
+def case_errors(smoke, got, want, names=("dqkv", "drel")):
+    """The errors against the plain version; a backward's per output (by
+    `names`; those the call does not compute left out), with the larger of
+    each beside them."""
     if not isinstance(got, tuple):
         return smoke.errors(got, want)
-    per = {n: smoke.errors(a, b) for n, a, b in zip(("dqkv", "drel"), got, want)}
+    per = {n: smoke.errors(a, b) for n, a, b in zip(names, got, want) if b is not None}
     return {**{k: max(e[k] for e in per.values()) for k in ("max_abs_err", "max_rel", "mean_rel")},
             "per_output": per}
 
@@ -367,7 +412,7 @@ def main() -> None:
             torch.cuda.synchronize()
             lib = c.library_key
             rec = dict(label=label, name=c.name, site=c.site, shape=c.shape,
-                       **case_errors(smoke, got, c.plain()),
+                       **case_errors(smoke, got, c.plain(), c.outputs),
                        ms=smoke.time_ms(c.call), queued_ms=smoke.time_ms(c.call, queued=True),
                        host_us=smoke.host_us(c.call), host_us_entry=smoke.host_us(replay()))
             if c.library is not None:

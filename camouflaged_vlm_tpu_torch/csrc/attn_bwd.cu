@@ -175,19 +175,8 @@ __device__ __forceinline__ void to_a_frags(const float (&v)[32], uint32_t (&a)[4
   }
 }
 
-// Registers: a block of three warpgroups gets at most 168 a thread at
-// launch. The producer warpgroup (one thread of it issues the loads) gives
-// its share back and the two consumer warpgroups take 232 each (40 x 128 +
-// 232 x 256 = 168 x 384), FlashAttention-3's split; both branches run to the
-// end of the kernel, as setmaxnreg needs. (With a lone producer warp, 288
-// threads, the block holds 168 x 288 registers and the consumers' 232 can
-// never be granted.)
-__device__ __forceinline__ void producer_regs() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-}
-__device__ __forceinline__ void consumer_regs() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-}
+// Registers: FlashAttention-3's split of a block of three warpgroups,
+// producer_regs / consumer_regs (gemm_sm90.cuh).
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));

@@ -23,6 +23,6 @@
 extern "C" int cvlm_attn_relpos(const void* q, const void* k, const void* v, const void* rel,
                                 void* out, int BB, int N, int H, int W, int d, int dv,
                                 void* stream) {
-  return cvlm::dispatch_split<true>(cvlm::split_layout(q, k, v, rel, out, N, H, W, d, dv), BB,
-                                    dv, static_cast<cudaStream_t>(stream));
+  return cvlm::dispatch_split(cvlm::split_layout(q, k, v, rel, out, N, H, W, d, dv), BB, dv,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -3,6 +3,8 @@
 // streaming kernel of CLIP's attention.
 //
 // Users: qkv_packed_plain.cu (#16, CLIP) is attn_stream_kernel;
+// attn_fullk.cu (#20, SAM's 'aug_flash' global blocks) is its loop
+// (stream_softmax_pv) over split q, k and v without a scale;
 // qkv_packed_windows_s.cu is a whole-window kernel on the same blocks, for
 // the compact carry's interior windows (#13) and its edge windows (#15) and
 // the padded carry's windows (#12); qkv_relpos.cu (#11, #19) is the
@@ -42,8 +44,9 @@
 //     packed rows (row stride 3 heads d, column offset h d, (heads + h) d,
 //     (2 heads + h) d);
 //   * each consumer warpgroup scales its q rows (scale_q_tile), then per key
-//     tile: S = Q K^T by wgmma m64n64k16 into registers; the keys past N of
-//     a ragged last tile masked to -inf; the online softmax in registers
+//     tile: S = Q K^T by wgmma m64n64k16 into registers; then
+//     stream_softmax_pv: the keys past N of a ragged last tile masked to
+//     -inf; the online softmax in registers
 //     (running max and sum per row, exp2 of log2e-scaled scores); O rescaled
 //     by exp(m_old - m_new); P rounded to bf16 in registers and fed to wgmma
 //     as its register A operand for O += P V (m64 n=d k16), so S and P never
@@ -205,6 +208,81 @@ __device__ __forceinline__ void store_o_dmajor(const float (&o)[DH / 2], float f
 
 constexpr int ST_KT = 64, ST_QROWS = 72;  // key tile; rows of a q buffer (8 spare)
 
+// One key tile of the one-pass loop, after S = Q K^T (sc: a warpgroup's 64 x
+// 64 accumulator, fp32): in log2 units, the keys at or past kv (a ragged last
+// tile's) at -inf; the online softmax (row max m and sum l over the quad,
+// rescaled by exp2(m_old - m_new)), O rescaled; P rounded to bf16 in
+// registers (the m16n8k16 A fragment of each warp) and O += P V by wgmma,
+// V the tile's [DV/8][64][8] no-swizzle core matrices (an N-major B).
+template <int DV>
+__device__ __forceinline__ void stream_softmax_pv(float (&sc)[32], float (&o)[DV / 2],
+                                                  float& m_lo, float& m_hi, float& l_lo,
+                                                  float& l_hi, int kv, int c0, const bf16* vb) {
+  if (kv >= ST_KT) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] *= LOG2E;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = 8 * j + c0 + e < kv;
+        sc[4 * j + e] = in ? sc[4 * j + e] * LOG2E : -INFINITY;
+        sc[4 * j + 2 + e] = in ? sc[4 * j + 2 + e] * LOG2E : -INFINITY;
+      }
+  }
+
+  // online softmax: row max over the quad, rescale, exponentiate
+  float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  const float mn_lo = fmaxf(m_lo, quad_max(mx_lo)), mn_hi = fmaxf(m_hi, quad_max(mx_hi));
+  const float corr_lo = exp2f(m_lo - mn_lo), corr_hi = exp2f(m_hi - mn_hi);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    sc[4 * j] = exp2f(sc[4 * j] - mn_lo);
+    sc[4 * j + 1] = exp2f(sc[4 * j + 1] - mn_lo);
+    sc[4 * j + 2] = exp2f(sc[4 * j + 2] - mn_hi);
+    sc[4 * j + 3] = exp2f(sc[4 * j + 3] - mn_hi);
+    sum_lo += sc[4 * j] + sc[4 * j + 1];
+    sum_hi += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  l_lo = l_lo * corr_lo + sum_lo;
+  l_hi = l_hi * corr_hi + sum_hi;
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j) {
+    o[4 * j] *= corr_lo;
+    o[4 * j + 1] *= corr_lo;
+    o[4 * j + 2] *= corr_hi;
+    o[4 * j + 3] *= corr_hi;
+  }
+
+  // P (bf16, the m16n8k16 A fragment of each warp) . V
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    pa[ks][0] = pack_bf16(sc[8 * ks], sc[8 * ks + 1]);
+    pa[ks][1] = pack_bf16(sc[8 * ks + 2], sc[8 * ks + 3]);
+    pa[ks][2] = pack_bf16(sc[8 * ks + 4], sc[8 * ks + 5]);
+    pa[ks][3] = pack_bf16(sc[8 * ks + 6], sc[8 * ks + 7]);
+  }
+  wgmma_fence();
+  fence_regs(o);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    Wgmma<DV>::rs(o, pa[ks], wgmma_desc(vb + ks * 16 * 8, 128, ST_KT * 16, LAYOUT_INTERLEAVE),
+                  1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+}
+
 template <int DH, int NWG, int STAGES>
 __host__ __device__ constexpr size_t stream_smem() {
   return 128 + sizeof(bf16) * ((size_t)NWG * ST_QROWS * DH + 2 * STAGES * ST_KT * DH) +
@@ -284,71 +362,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) attn_stream_kernel(
     wgmma_wait<0>();
     fence_regs(sc);
 
-    // in log2 units; the keys past N of a ragged last tile out
-    const int kv = N - t * ST_KT;  // the tile's real keys
-    if (kv >= ST_KT) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] *= LOG2E;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool in = 8 * j + c0 + e < kv;
-          sc[4 * j + e] = in ? sc[4 * j + e] * LOG2E : -INFINITY;
-          sc[4 * j + 2 + e] = in ? sc[4 * j + 2 + e] * LOG2E : -INFINITY;
-        }
-    }
-
-    // online softmax: row max over the quad, rescale, exponentiate
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * j], sc[4 * j + 1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-    }
-    const float mn_lo = fmaxf(m_lo, quad_max(mx_lo)), mn_hi = fmaxf(m_hi, quad_max(mx_hi));
-    const float corr_lo = exp2f(m_lo - mn_lo), corr_hi = exp2f(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      sc[4 * j] = exp2f(sc[4 * j] - mn_lo);
-      sc[4 * j + 1] = exp2f(sc[4 * j + 1] - mn_lo);
-      sc[4 * j + 2] = exp2f(sc[4 * j + 2] - mn_hi);
-      sc[4 * j + 3] = exp2f(sc[4 * j + 3] - mn_hi);
-      sum_lo += sc[4 * j] + sc[4 * j + 1];
-      sum_hi += sc[4 * j + 2] + sc[4 * j + 3];
-    }
-    l_lo = l_lo * corr_lo + sum_lo;
-    l_hi = l_hi * corr_hi + sum_hi;
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
-      o[4 * j] *= corr_lo;
-      o[4 * j + 1] *= corr_lo;
-      o[4 * j + 2] *= corr_hi;
-      o[4 * j + 3] *= corr_hi;
-    }
-
-    // P (bf16, the m16n8k16 A fragment of each warp) . V
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      pa[ks][0] = pack_bf16(sc[8 * ks], sc[8 * ks + 1]);
-      pa[ks][1] = pack_bf16(sc[8 * ks + 2], sc[8 * ks + 3]);
-      pa[ks][2] = pack_bf16(sc[8 * ks + 4], sc[8 * ks + 5]);
-      pa[ks][3] = pack_bf16(sc[8 * ks + 6], sc[8 * ks + 7]);
-    }
-    wgmma_fence();
-    fence_regs(o);
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      Wgmma<DH>::rs(o, pa[ks], wgmma_desc(vb + ks * 16 * 8, 128, ST_KT * 16, LAYOUT_INTERLEAVE),
-                    1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
+    stream_softmax_pv<DH>(sc, o, m_lo, m_hi, l_lo, l_hi, N - t * ST_KT, c0, vb);
     if (ltid == 0) ring.release(s);
   }
 

@@ -1,28 +1,24 @@
-// attn_split: o = softmax(q . k^T [+ rel_h[q, k / W] + rel_w[q, H + k % W]]) . v,
+// attn_split: o = softmax(q . k^T + rel_h[q, k / W] + rel_w[q, H + k % W]) . v,
 // one attention problem per leading index b, each of N queries and N keys,
-// over split, pre-scaled q, k and v. Shared by two sources:
-//
-//   attn_relpos.cu  BIAS = true:  flash_attention_relpos (TPU kernel #10)
-//   attn_fullk.cu   BIAS = false: flash_attention_fullk  (TPU kernel #20)
-//
-// (#11 and #19, which read the packed qkv in place, left this kernel for
-// qkv_relpos.cu's TMA + wgmma one pass.)
+// over split, pre-scaled q, k and v: flash_attention_relpos (TPU kernel #10,
+// attn_relpos.cu). (#11 and #19, which read the packed qkv in place, left
+// this kernel for qkv_relpos.cu's TMA + wgmma one pass, and #20, the same
+// attention without a bias, for attn_fullk.cu's.)
 //
 // Layouts: every operand is given by its base and its strides (elements)
 // per b and per row (SplitArgs); the row of a problem is dqk (q, k), DV (v),
 // H+W (rel) or DV (out) contiguous values. dqk is a run-time multiple of 16
-// up to 256 (the depth of the score product; #20's augmented features are
-// 208 wide at ViT-H); DV is a template parameter (the P.V accumulator
-// fragments live in registers).
+// up to 256 (the depth of the score product); DV is a template parameter
+// (the P.V accumulator fragments live in registers).
 //
 // A query tile of 64 rows (4 warps x 16 rows) walks the keys in tiles of
 // 64, twice:
-//   pass 1: scores (+ bias), running row max m and row sum l (online
+//   pass 1: scores + bias, running row max m and row sum l (online
 //           rescale l <- l * exp(m_old - m_new) + sum exp(s - m_new));
 //   pass 2: the scores again, p = exp(s - m) / l normalised in fp32 and
 //           rounded to bf16, O += P . V with fp32 accumulation.
-// This keeps the rounding points of the JAX kernels (`_relpos_kernel` and
-// `_kernel` of flash_attention.py): fp32 scores, the bias added as the fp32
+// This keeps the rounding points of the JAX kernel (`_relpos_kernel` of
+// flash_attention.py): fp32 scores, the bias added as the fp32
 // sum of the two bf16 rel values (the rel @ sel product with one nonzero
 // term per lane group, here an indexed gather), max-subtracted softmax
 // normalised in fp32 before the bf16 rounding, one rounding of the output.
@@ -79,12 +75,12 @@ struct SplitArgs {
   int N, H, W, dqk;
 };
 
-template <int DV, bool BIAS>
+template <int DV>
 __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const SplitArgs a) {
   constexpr int LDV = DV + 8, LDS = AS_KT + 4, LDP = AS_KT + 8, LDO = DV + 4;
   const int N = a.N, H = a.H, W = a.W, dqk = a.dqk;
   const int LDQ = dqk + 8;
-  const int hw = BIAS ? H + W : 0, LDR = hw + 1;
+  const int hw = H + W, LDR = hw + 1;
   extern __shared__ __align__(128) unsigned char smem[];
   // score tile (BQ x LDS), at the end reused for the O tile (BQ x LDO)
   float* Ss = reinterpret_cast<float*>(smem);
@@ -103,12 +99,10 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const SplitArgs 
   const bf16* vb = a.v + at(a.vs);
 
   load_tile(Qs, LDQ, a.q + at(a.qk) + (size_t)q0 * a.qk.r, a.qk.r, AS_BQ, N - q0, dqk);
-  if (BIAS) {
-    const bf16* rb = a.rel + at(a.rs);
-    for (int e = tid; e < AS_BQ * hw; e += AS_THREADS) {
-      const int r = e / hw, j = e % hw, qi = q0 + r;
-      Rs[r * LDR + j] = qi < N ? __bfloat162float(rb[(size_t)qi * a.rs.r + j]) : 0.f;
-    }
+  const bf16* rb = a.rel + at(a.rs);
+  for (int e = tid; e < AS_BQ * hw; e += AS_THREADS) {
+    const int r = e / hw, j = e % hw, qi = q0 + r;
+    Rs[r * LDR + j] = qi < N ? __bfloat162float(rb[(size_t)qi * a.rs.r + j]) : 0.f;
   }
   for (int r = tid; r < AS_BQ; r += AS_THREADS) {
     row_m[r] = -INFINITY;
@@ -137,16 +131,12 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const SplitArgs 
       wmma::store_matrix_sync(Sw + 16 * j, sfr[j], LDS, wmma::mem_row_major);
     __syncwarp();
   };
-  // score (+ bias) of block row r (warp row rr), key column c of the tile at kt
+  // score + bias of block row r (warp row rr), key column c of the tile at kt
   auto biased = [&](int r, int rr, int kt, int c) {
     const int key = kt + c;
     if (key >= N) return -INFINITY;
-    float s = Sw[rr * LDS + c];
-    if (BIAS) {
-      const float* rrow = Rs + r * LDR;
-      s = s + (rrow[key / W] + rrow[H + key % W]);
-    }
-    return s;
+    const float* rrow = Rs + r * LDR;
+    return Sw[rr * LDS + c] + (rrow[key / W] + rrow[H + key % W]);
   };
 
   // pass 1: row max and row sum
@@ -215,27 +205,26 @@ __global__ void __launch_bounds__(AS_THREADS) attn_split_kernel(const SplitArgs 
   }
 }
 
-template <int DV, bool BIAS>
+template <int DV>
 int launch_split(const SplitArgs& a, int problems, cudaStream_t s) {
   if (a.dqk <= 0 || a.dqk % 16 != 0 || a.dqk > 256 || problems <= 0 || problems > 65535 ||
       a.N <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = split_smem(a.dqk, DV, BIAS ? a.H + a.W : 0);
-  cudaError_t err = cudaFuncSetAttribute(attn_split_kernel<DV, BIAS>,
+  const size_t smem = split_smem(a.dqk, DV, a.H + a.W);
+  cudaError_t err = cudaFuncSetAttribute(attn_split_kernel<DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.N + AS_BQ - 1) / AS_BQ, problems);
-  attn_split_kernel<DV, BIAS><<<grid, AS_THREADS, smem, s>>>(a);
+  attn_split_kernel<DV><<<grid, AS_THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 // dv in {64, 80} (SAM ViT-B, ViT-H).
-template <bool BIAS>
-int dispatch_split(const SplitArgs& a, int problems, int dv, cudaStream_t s) {
+inline int dispatch_split(const SplitArgs& a, int problems, int dv, cudaStream_t s) {
   switch (dv) {
-    case 64: return launch_split<64, BIAS>(a, problems, s);
-    case 80: return launch_split<80, BIAS>(a, problems, s);
+    case 64: return launch_split<64>(a, problems, s);
+    case 80: return launch_split<80>(a, problems, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

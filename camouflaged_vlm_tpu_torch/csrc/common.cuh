@@ -34,6 +34,38 @@ __device__ __forceinline__ float apply_act(float v, int act) {
   }
 }
 
+// act'(v) of the activations above (the closed forms of the derivatives
+// JAX's autodiff takes)
+__device__ __forceinline__ float act_grad(float v, int act) {
+  switch (act) {
+    case ACT_GELU:
+      return 0.5f * (1.0f + erff(v * 0.70710678118654752f)) +
+             v * expf(-0.5f * v * v) * 0.39894228040143268f;
+    case ACT_GELU_TANH: {
+      const float c = 0.79788456080286536f;
+      const float t = tanhf(c * (v + 0.044715f * v * v * v));
+      return 0.5f * (1.0f + t) + 0.5f * v * (1.0f - t * t) * c * (1.0f + 3.0f * 0.044715f * v * v);
+    }
+    case ACT_QUICK_GELU: {
+      const float s = 1.0f / (1.0f + expf(-1.702f * v));
+      return s + 1.702f * v * s * (1.0f - s);
+    }
+    default:
+      return 1.0f;
+  }
+}
+
+// 8 bf16 values (one 16-byte load) to fp32
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

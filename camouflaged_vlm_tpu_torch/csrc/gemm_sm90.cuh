@@ -1,10 +1,11 @@
 // gemm_sm90: the Hopper building blocks of the TMA + wgmma kernels
-// (qkv_packed_global.cu, #17, and the attention kernels on attn_sm90.cuh:
-// qkv_packed_plain.cu, #16, and qkv_packed_windows_s.cu, #13 and #15),
-// written as raw PTX so that a source that includes this header compiles in
-// seconds, and the persistent GEMM (gemm_tma_kernel, at the end) of
-// linear.cu (#1), ln_linear.cu (#2, #3), ln_mlp_residual.cu (#4/#5) and
-// proj_rows.cu (#7).
+// (qkv_packed_global.cu, #17; the attention kernels on attn_sm90.cuh; the
+// attention backward attn_bwd.cu, #14/#18; the MLP backward's dual GEMM in
+// ln_mlp_residual_bwd.cu, #6), written as raw PTX so that a source that
+// includes this header compiles in seconds, and the persistent GEMM
+// (gemm_tma_kernel, at the end) of linear.cu (#1), ln_linear.cu (#2, #3),
+// ln_mlp_residual.cu (#4/#5), proj_rows.cu (#7) and the MLP backward's dxn
+// (#6).
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count,
 //     and a parity wait (a barrier's phase p "has completed" once it flips;
@@ -17,18 +18,21 @@
 //   * wgmma: the shared-memory matrix descriptor and the asynchronous
 //     m64nNk16 bf16 -> fp32 products of one warpgroup (128 threads), with A
 //     from shared memory (ss) or from registers (rs), plus fence, commit and
-//     wait.
+//     wait;
+//   * setmaxnreg: the producer / consumer register split of a block of
+//     three warpgroups (producer_regs, consumer_regs).
 //
 // Descriptor layouts used here (PTX ISA, "matrix descriptor"; units of 16 B):
 //   * K-major, 128-byte swizzle (layout type 1): rows of 64 bf16 (128 B)
 //     written by a TMA load with CU_TENSOR_MAP_SWIZZLE_128B into a
 //     1024-byte-aligned tile; SBO = 1024 B (8 rows), LBO unused; a k16 step
 //     advances the start address by 32 B.
-//   * MN-major, 128-byte swizzle (a transposed A, imm-trans-a = 1): lines of
-//     64 bf16 of M (128 B), one per k, written by the same kind of TMA load
-//     from a matrix whose M is contiguous; SBO = 1024 B (8 k lines), LBO =
-//     between 64-element blocks of M (one block per m64 product, so unused);
-//     a k16 step advances the start address by 16 lines, 2048 B.
+//   * MN-major, 128-byte swizzle (a transposed A, imm-trans-a = 1, or a
+//     transposed B, imm-trans-b = 1): lines of 64 bf16 of M or N (128 B), one
+//     per k, written by the same kind of TMA load from a matrix whose M or N
+//     is contiguous; SBO = 1024 B (8 k lines), LBO = between 64-element
+//     blocks of M or N (for A one block per m64 product, so unused); a k16
+//     step advances the start address by 16 lines, 2048 B.
 //   * no swizzle ("interleave", layout type 0): 8 x 16-byte core matrices,
 //     each 128 contiguous bytes. K-major: LBO = the distance between the
 //     two core matrices of a k16 step along K, SBO = between 8-row groups.
@@ -198,14 +202,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Wgmma<N>::ss: d (64 x N) += A (64 x 16) . B (N x 16)^T, B K-major in
 // shared memory, A K-major or, with TA = 1 (imm-trans-a), MN-major (the
-// GEMM's transposed A, widths 128 and 256). Wgmma<N>::rs: d (64 x N) += A
-// (64 x 16, registers: the mma.sync m16n8k16 A fragment of each warp's 16
-// rows) . B (16 x N), B N-major in shared memory (imm-trans-b = 1). scale_d
-// = 0 overwrites d. The accumulator fragment: d[4j + r] is row 16*warp +
-// lane/4 + 8*(r/2), column 8j + 2*(lane%4) + r%2. ss is written out for the
-// widths the kernels use (64, 128; 112, 208 and 256: a whole window's keys,
-// qkv_packed_windows_s.cu), rs for every head dimension (16, 32, 64, 80,
-// 128).
+// GEMM's transposed A, widths 128 and 256); at widths 128 and 256 B may be
+// N-major too, with TB = 1 (imm-trans-b: the MLP backward's W2 and W1).
+// Wgmma<N>::rs: d (64 x N) += A (64 x 16, registers: the mma.sync m16n8k16 A
+// fragment of each warp's 16 rows) . B (16 x N), B N-major in shared memory
+// (imm-trans-b = 1). scale_d = 0 overwrites d. The accumulator fragment:
+// d[4j + r] is row 16*warp + lane/4 + 8*(r/2), column 8j + 2*(lane%4) + r%2.
+// ss is written out for the widths the kernels use (64, 128; 112, 208 and
+// 256: a whole window's keys, qkv_packed_windows_s.cu), rs for every head
+// dimension (16, 32, 64, 80, 128).
 template <int N>
 struct Wgmma;
 
@@ -326,7 +331,7 @@ struct Wgmma<112> {
 
 template <>
 struct Wgmma<128> {
-  template <int TA = 0>
+  template <int TA = 0, int TB = 0>
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db,
                                             int scale_d) {
     asm volatile(
@@ -336,7 +341,7 @@ struct Wgmma<128> {
         " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
         " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
         " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, %67, 0;\n}\n"
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -348,7 +353,7 @@ struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -414,7 +419,7 @@ struct Wgmma<208> {
 
 template <>
 struct Wgmma<256> {
-  template <int TA = 0>
+  template <int TA = 0, int TB = 0>
   static __device__ __forceinline__ void ss(float (&d)[128], uint64_t da, uint64_t db,
                                             int scale_d) {
     asm volatile(
@@ -429,7 +434,7 @@ struct Wgmma<256> {
         " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
         " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
         " %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, p, 1, 1, %131, 0;\n}\n"
+        "%128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -452,22 +457,42 @@ struct Wgmma<256> {
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
+// Registers of a block of three warpgroups, FlashAttention-3's split: at
+// launch each thread gets at most 168; the producer warpgroup (one thread of
+// it issues the loads) gives its share back and two consumer warpgroups take
+// 232 each (40 x 128 + 232 x 256 = 168 x 384); both branches run to the end
+// of the kernel, as setmaxnreg needs. (With a lone producer warp, 288
+// threads, the block holds 168 x 288 registers and the consumers' 232 can
+// never be granted: the kernel hangs.)
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+}
+
 // -------------------------------------------------- the persistent GEMM
 //
-// out = epilogue(A . W (N, K)^T), bf16 in and out, fp32 accumulation: one
-// mainloop shared by the plain product (#1), the LN-prologue products (#2,
-// #3: A is the LN row pass's bf16 output), the two products of the fused
-// MLP (#4/#5) and the attention out-projection (#7). A comes in two layouts:
+// out = epilogue(A . W (N, K)^T), bf16 in, fp32 accumulation: one mainloop
+// shared by the plain product (#1), the LN-prologue products (#2, #3: A is
+// the LN row pass's bf16 output), the two products of the fused MLP
+// (#4/#5), the attention out-projection (#7) and the MLP backward's dxn =
+// dh . W1 (#6, ln_mlp_residual_bwd.cu). A comes in two layouts:
 //   * K-major (AMN = false): rows (M, K), one group: G = 1, S = M;
 //   * MN-major (AMN = true): G groups of a (K, S) matrix whose s is
 //     contiguous (row stride ldk, group stride ldg, multiples of 8), the
 //     attention kernels' d-major output (proj_rows.cu); row s of group g is
 //     output row g * S + s. A row tile holds rows of one group only, so a
 //     group takes ceil(S / BM) row tiles, the last masked at S.
+// W comes in two: K-major, the nn.Linear (N, K) rows (BNM = false), or
+// N-major (BNM = true), a (K, N) matrix whose n is contiguous (#6 reads W1
+// (H, K) so for dxn = dh . W1): BN / 64 boxes of 64 n x 64 k, 128-byte
+// swizzled, read through imm-trans-b (SBO = 1024 B, 8 k lines; LBO = 8 KB,
+// between the boxes), the boxes wholly past N left out.
 // The rest:
 //   * BM x BN output tiles, BM = 128, BN = 128 or 256 (the wrapper picks
 //     per problem, ops/linear.py gemm_tile_n), walked by one persistent block
@@ -490,11 +515,13 @@ struct Wgmma<256> {
 //     at the accumulator fragment's own rows and columns (fc2: res is the
 //     block's input x; #7: the attention block's input). Then bf16 through
 //     shared memory and 16-byte stores per row (scalar ones at a ragged N or
-//     an N that is not a multiple of 8).
+//     an N that is not a multiple of 8). EPI_F32: the accumulator itself,
+//     fp32, no bias, stored from the registers (8 bytes a thread, a quad's
+//     32-byte sector per row; #6's dxn).
 // Ragged S, N and K: TMA fills the out-of-bounds part of a box with zeros.
 // TMA strides are multiples of 16 bytes: K % 8 == 0 (W's rows, a K-major
 // A's rows), and an MN-major A's ldk and ldg % 8 == 0.
-enum GemmEpilogue { EPI_BIAS_ACT = 0, EPI_BIAS_RESIDUAL = 1 };
+enum GemmEpilogue { EPI_BIAS_ACT = 0, EPI_BIAS_RESIDUAL = 1, EPI_F32 = 2 };
 
 // the activation over a whole accumulator fragment: one branch, then a
 // straight unrolled loop (apply_act's switch folds on a constant code)
@@ -530,17 +557,17 @@ struct GemmTile {
                                  sizeof(uint64_t) * 2 * STAGES;
 };
 
-template <int BN, int EPI, bool AMN>
+template <int BN, int EPI, bool AMN, bool BNM = false>
 __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
     const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
-    const bf16* __restrict__ bias, const bf16* __restrict__ res, bf16* __restrict__ out, int G,
+    const bf16* __restrict__ bias, const bf16* __restrict__ res, void* __restrict__ out_, int G,
     int S, int N, int K, int act) {
   using T = GemmTile<BN>;
   constexpr int BM = T::BM, BK = T::BK, STAGES = T::STAGES, LDC = T::LDC;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   bf16* sA = reinterpret_cast<bf16*>(smem);  // [stage][128 rows][64] or [stage][2][64 k][64 s]
-  bf16* sB = sA + STAGES * BM * BK;          // [stage][BN rows][64], swizzled
+  bf16* sB = sA + STAGES * BM * BK;          // [stage][BN rows][64] or [stage][BN/64][64 k][64 n]
   bf16* sC = sB + STAGES * BN * BK;          // [128][LDC]
   uint64_t* full = reinterpret_cast<uint64_t*>(sC + BM * LDC);
   uint64_t* empty = full + STAGES;
@@ -565,7 +592,9 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
         const int n0 = (tile % n_blocks) * BN, rt = tile / n_blocks;
         const int s0 = (AMN ? rt % m_blocks : rt) * BM, g = AMN ? rt / m_blocks : 0;
         const bool two = !AMN || s0 + 64 < S;  // MN-major: the second box holds a row
-        const uint32_t bytes = ((two ? BM : 64) + BN) * BK * sizeof(bf16);
+        // N-major W: the boxes that hold a column
+        const int nb = BNM ? min(BN / 64, (N - n0 + 63) / 64) : BN / 64;
+        const uint32_t bytes = ((two ? BM : 64) + 64 * nb) * BK * sizeof(bf16);
         for (int kt = 0; kt < k_tiles; ++kt, ++it) {
           const int s = it % STAGES;
           bf16* a = sA + s * BM * BK;
@@ -577,7 +606,12 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
           } else {
             tma_load_2d(a, &amap, &full[s], kt * BK, s0);
           }
-          tma_load_2d(sB + s * BN * BK, &wmap, &full[s], kt * BK, n0);
+          if constexpr (BNM) {
+            for (int j = 0; j < nb; ++j)
+              tma_load_2d(sB + s * BN * BK + j * 64 * BK, &wmap, &full[s], n0 + 64 * j, kt * BK);
+          } else {
+            tma_load_2d(sB + s * BN * BK, &wmap, &full[s], kt * BK, n0);
+          }
         }
       }
     }
@@ -605,13 +639,17 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
       fence_regs(acc);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t db = wgmma_desc(b + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B);
+        // an N-major W: 16 k lines of each 64-n box a step
+        const uint64_t db =
+            BNM ? wgmma_desc(b + kk * 16 * 64, 64 * BK * sizeof(bf16), 1024, LAYOUT_SWIZZLE_128B)
+                : wgmma_desc(b + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B);
         if constexpr (AMN)  // 16 k lines of 64 s a step
-          Wgmma<BN>::template ss<1>(
+          Wgmma<BN>::template ss<1, BNM>(
               acc, wgmma_desc(a + kk * 16 * 64, 64 * BK * sizeof(bf16), 1024, LAYOUT_SWIZZLE_128B),
               db, 1);
         else
-          Wgmma<BN>::ss(acc, wgmma_desc(a + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B), db, 1);
+          Wgmma<BN>::template ss<0, BNM>(
+              acc, wgmma_desc(a + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B), db, 1);
       }
       wgmma_commit();
       fence_regs(acc);
@@ -622,6 +660,23 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
     wgmma_wait<0>();
     fence_regs(acc);
     if (tid % 128 == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+    if constexpr (EPI == EPI_F32) {  // N % 2 == 0: gc even, the pair 8-byte aligned
+      float* out = static_cast<float*>(out_);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int gc = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int sr = s0 + wg * 64 + warp * 16 + lane / 4 + 8 * hf;
+          if (sr < S && gc < N)
+            *reinterpret_cast<float2*>(out + (row0 + sr) * N + gc) =
+                make_float2(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+        }
+      }
+      continue;
+    }
+    bf16* out = static_cast<bf16*>(out_);
 
     // epilogue in fp32 on the accumulator fragment (d[4j + r]: row
     // 16 * warp + lane / 4 + 8 * (r / 2), column 8j + 2 * (lane % 4) + r % 2),
@@ -724,20 +779,16 @@ inline int gemm_map_rows(CUtensorMap* map, const void* base, int rows, int cols,
   return gemm_map(map, base, 2, cols, rows, 1, cols, 0, box_rows);
 }
 
-// the device's SM count, and this kernel instance's shared-memory opt-in,
-// once per device (devices 0..63)
-template <int BN, int EPI, bool AMN>
-inline int gemm_setup(int* n_sm) {
+// The device's SM count, and `kernel`'s shared-memory opt-in to `smem`
+// bytes, once per device (devices 0..63): `opted` is the kernel's own flags.
+inline int sm_count_opt_in(const void* kernel, size_t smem, bool (&opted)[64], int* n_sm) {
   static int sms[64] = {};
-  static bool opted[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!opted[dev]) {
-    e = cudaFuncSetAttribute(gemm_tma_kernel<BN, EPI, AMN>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)GemmTile<BN>::SMEM);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
@@ -747,49 +798,60 @@ inline int gemm_setup(int* n_sm) {
   return 0;
 }
 
-template <int BN, int EPI, bool AMN>
+template <int BN, int EPI, bool AMN, bool BNM = false>
+inline int gemm_setup(int* n_sm) {
+  static bool opted[64] = {};
+  return sm_count_opt_in(reinterpret_cast<const void*>(gemm_tma_kernel<BN, EPI, AMN, BNM>),
+                         GemmTile<BN>::SMEM, opted, n_sm);
+}
+
+template <int BN, int EPI, bool AMN, bool BNM = false>
 inline int launch_gemm_tiles(const CUtensorMap& amap, const void* w, const void* bias,
                              const void* res, void* out, int G, int S, int N, int K, int act,
                              cudaStream_t stream) {
   using T = GemmTile<BN>;
-  CUtensorMap wmap;
-  int err = gemm_map_rows(&wmap, w, N, K, BN);
+  CUtensorMap wmap;  // K-major: (N, K) rows in (BN, 64) boxes; N-major: (K, N) rows in 64 x 64
+  int err = BNM ? gemm_map_rows(&wmap, w, K, N, 64) : gemm_map_rows(&wmap, w, N, K, BN);
   int n_sm = 0;
-  if (!err) err = gemm_setup<BN, EPI, AMN>(&n_sm);
+  if (!err) err = gemm_setup<BN, EPI, AMN, BNM>(&n_sm);
   if (err) return err;
   const long long n_tiles =
       (long long)G * ((S + T::BM - 1) / T::BM) * ((N + BN - 1) / BN);
   const int grid = n_tiles < n_sm ? (int)n_tiles : n_sm;
-  gemm_tma_kernel<BN, EPI, AMN><<<grid, T::THREADS, T::SMEM, stream>>>(
-      amap, wmap, static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
-      static_cast<bf16*>(out), G, S, N, K, act);
+  gemm_tma_kernel<BN, EPI, AMN, BNM><<<grid, T::THREADS, T::SMEM, stream>>>(
+      amap, wmap, static_cast<const bf16*>(bias), static_cast<const bf16*>(res), out, G, S, N, K,
+      act);
   return (int)cudaGetLastError();
 }
 
-template <int EPI, bool AMN>
+template <int EPI, bool AMN, bool BNM = false>
 inline int launch_gemm_width(const CUtensorMap& amap, const void* w, const void* bias,
                              const void* res, void* out, int G, int S, int N, int K, int act,
                              int bn, cudaStream_t stream) {
   if (bn == 256)
-    return launch_gemm_tiles<256, EPI, AMN>(amap, w, bias, res, out, G, S, N, K, act, stream);
+    return launch_gemm_tiles<256, EPI, AMN, BNM>(amap, w, bias, res, out, G, S, N, K, act,
+                                                 stream);
   if (bn == 128)
-    return launch_gemm_tiles<128, EPI, AMN>(amap, w, bias, res, out, G, S, N, K, act, stream);
+    return launch_gemm_tiles<128, EPI, AMN, BNM>(amap, w, bias, res, out, G, S, N, K, act,
+                                                 stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// a (M, K), w (N, K), bias (N,), res and out (M, N): bf16, bases 16-byte
-// aligned; K % 8 == 0 (and N % 8 == 0 with the residual); bn, the tile
+// a (M, K), w (N, K) [BNM: (K, N), N-major], bias (N,), res and out (M, N):
+// bf16 (out fp32 with EPI_F32), bases 16-byte aligned; K % 8 == 0 (and N % 8
+// == 0 with the residual, the fp32 epilogue or an N-major w); bn, the tile
 // width, 128 or 256. Queues one launch on `stream`; returns a cudaError_t
 // code.
-template <int EPI>
+template <int EPI, bool BNM = false>
 inline int launch_gemm(const void* a, const void* w, const void* bias, const void* res,
                        void* out, int M, int N, int K, int act, int bn, cudaStream_t stream) {
-  if (M < 1 || N < 1 || K < 8 || K % 8 != 0 || (EPI == EPI_BIAS_RESIDUAL && N % 8 != 0))
+  if (M < 1 || N < 1 || K < 8 || K % 8 != 0 || ((EPI != EPI_BIAS_ACT || BNM) && N % 8 != 0))
     return (int)cudaErrorInvalidValue;
   CUtensorMap amap;
   const int err = gemm_map_rows(&amap, a, M, K, GemmTile<128>::BM);
   if (err) return err;
-  return launch_gemm_width<EPI, false>(amap, w, bias, res, out, 1, M, N, K, act, bn, stream);
+  return launch_gemm_width<EPI, false, BNM>(amap, w, bias, res, out, 1, M, N, K, act, bn,
+                                            stream);
 }
 
 // The MN-major A: a holds G groups of a (K, S) matrix, element (g, k, s) at

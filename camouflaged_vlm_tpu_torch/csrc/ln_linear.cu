@@ -1,6 +1,7 @@
 // ln_linear: out = act(LN(x) [* mask] . W^T + b), a LayerNorm prologue
 // with an optional row mask; and the LN row pass that the fused MLP
-// (ln_mlp_residual.cu) shares.
+// (ln_mlp_residual.cu) and its backward (ln_mlp_residual_bwd.cu, which also
+// keeps each row's mean and rstd) share.
 //
 // Replaces two TPU kernels of camouflaged_vlm_tpu/ops/linear.py (the plain
 // product, linear_pallas, is linear.cu):
@@ -37,21 +38,11 @@ namespace cvlm {
 
 constexpr int LN_ROWS_THREADS = 256;  // 8 warps: 8 rows a block
 
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(p[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-template <bool MASK>
+template <bool MASK, bool STATS = false>
 __global__ void __launch_bounds__(LN_ROWS_THREADS) ln_rows_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const bf16* __restrict__ mask, bf16* __restrict__ xn,
-    int M, int K, int S, int nwin, float eps) {
+    int M, int K, int S, int nwin, float eps, float2* __restrict__ stats) {
   const int lane = threadIdx.x % 32;
   const int m = blockIdx.x * (LN_ROWS_THREADS / 32) + threadIdx.x / 32;
   if (m >= M) return;
@@ -71,6 +62,7 @@ __global__ void __launch_bounds__(LN_ROWS_THREADS) ln_rows_kernel(
     for (int i = 0; i < 8; ++i) v += (f[i] - mu) * (f[i] - mu);
   }
   const float rstd = 1.0f / sqrtf(warp_sum(v) / (float)K + eps);
+  if (STATS && lane == 0) stats[m] = make_float2(mu, rstd);
   const float mk = MASK ? __bfloat162float(mask[((m / S) % nwin) * S + m % S]) : 1.f;
   uint4* dst = reinterpret_cast<uint4*>(xn + (size_t)m * K);
   const float4* g4 = reinterpret_cast<const float4*>(gamma);
@@ -96,10 +88,13 @@ __global__ void __launch_bounds__(LN_ROWS_THREADS) ln_rows_kernel(
 }
 
 // The LN row pass: xn (M, K) bf16 = LN(x) [* mask], as above. mask may be
-// null (no mask). Returns cudaGetLastError().
+// null (no mask); without a mask, stats (M,) float2, if not null, gets each
+// row's (mean, rstd). Returns cudaGetLastError().
 int launch_ln_rows(const void* x, const void* gamma, const void* beta, const void* mask,
-                   void* xn, int M, int K, int S, int nwin, float eps, cudaStream_t stream) {
-  if (M < 1 || K < 8 || K % 8 != 0) return (int)cudaErrorInvalidValue;
+                   void* xn, int M, int K, int S, int nwin, float eps, cudaStream_t stream,
+                   float2* stats) {
+  if (M < 1 || K < 8 || K % 8 != 0 || (mask != nullptr && stats != nullptr))
+    return (int)cudaErrorInvalidValue;
   const int grid = (M + LN_ROWS_THREADS / 32 - 1) / (LN_ROWS_THREADS / 32);
   const auto* xp = static_cast<const bf16*>(x);
   const auto* gp = static_cast<const float*>(gamma);
@@ -107,10 +102,13 @@ int launch_ln_rows(const void* x, const void* gamma, const void* beta, const voi
   auto* op = static_cast<bf16*>(xn);
   if (mask != nullptr)
     ln_rows_kernel<true><<<grid, LN_ROWS_THREADS, 0, stream>>>(
-        xp, gp, bp, static_cast<const bf16*>(mask), op, M, K, S, nwin, eps);
+        xp, gp, bp, static_cast<const bf16*>(mask), op, M, K, S, nwin, eps, nullptr);
+  else if (stats != nullptr)
+    ln_rows_kernel<false, true><<<grid, LN_ROWS_THREADS, 0, stream>>>(xp, gp, bp, nullptr, op, M,
+                                                                      K, 1, 1, eps, stats);
   else
     ln_rows_kernel<false><<<grid, LN_ROWS_THREADS, 0, stream>>>(xp, gp, bp, nullptr, op, M, K,
-                                                                1, 1, eps);
+                                                                1, 1, eps, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -124,7 +122,7 @@ extern "C" int cvlm_ln_linear(const void* x, const void* gamma, const void* beta
                               int K, int N, float eps, int act, int bn, void* stream) {
   using namespace cvlm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = launch_ln_rows(x, gamma, beta, nullptr, xn, M, K, 1, 1, eps, s);
+  int err = launch_ln_rows(x, gamma, beta, nullptr, xn, M, K, 1, 1, eps, s, nullptr);
   if (err) return err;
   return launch_gemm<EPI_BIAS_ACT>(xn, w, bias, nullptr, out, M, N, K, act, bn, s);
 }
@@ -139,7 +137,7 @@ extern "C" int cvlm_ln_mask_linear(const void* x, const void* gamma, const void*
   using namespace cvlm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mask == nullptr || S < 1 || nwin < 1) return (int)cudaErrorInvalidValue;
-  int err = launch_ln_rows(x, gamma, beta, mask, xn, M, K, S, nwin, eps, s);
+  int err = launch_ln_rows(x, gamma, beta, mask, xn, M, K, S, nwin, eps, s, nullptr);
   if (err) return err;
   return launch_gemm<EPI_BIAS_ACT>(xn, w, bias, nullptr, out, M, N, K, ACT_NONE, bn, s);
 }

@@ -34,7 +34,8 @@
 namespace cvlm {
 // defined in ln_linear.cu
 int launch_ln_rows(const void* x, const void* gamma, const void* beta, const void* mask,
-                   void* xn, int M, int K, int S, int nwin, float eps, cudaStream_t stream);
+                   void* xn, int M, int K, int S, int nwin, float eps, cudaStream_t stream,
+                   float2* stats);
 }  // namespace cvlm
 
 // x/out (M, K), w1 (H, K), b1 (H,), w2 (K, H), b2 (K,): bf16; gamma/beta
@@ -54,7 +55,7 @@ extern "C" int cvlm_ln_mlp_residual(const void* x, const void* gamma, const void
   for (int r0 = 0; r0 < M; r0 += rows) {
     const int m = M - r0 < rows ? M - r0 : rows;
     const bf16* xr = xp + (size_t)r0 * K;
-    int err = launch_ln_rows(xr, gamma, beta, nullptr, xn, m, K, 1, 1, eps, s);
+    int err = launch_ln_rows(xr, gamma, beta, nullptr, xn, m, K, 1, 1, eps, s, nullptr);
     if (!err) err = launch_gemm<EPI_BIAS_ACT>(xn, w1, b1, nullptr, h, m, H, K, act, bn1, s);
     if (!err)
       err = launch_gemm<EPI_BIAS_RESIDUAL>(h, w2, b2, xr, op + (size_t)r0 * K, m, K, H,

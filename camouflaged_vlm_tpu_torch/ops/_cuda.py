@@ -169,20 +169,22 @@ QKV_EDGE = CudaKernel(
 QKV_GLOBAL = CudaKernel(
     "flash_qkv_packed_global", "cvlm_qkv_packed_global", [P, P, P, I, I, I, I, I, I, I, F]
 )
-# The hand-written backward kernels (training): the fused MLP's (#6), and one
+# The hand-written backward kernels (training): the fused MLP's (#6: the LN
+# row pass, a dual GEMM for dh, dxn = dh . W1 on the GEMM template and the
+# LN-backward rows, per row panel, counted once a call), and one
 # attention backward (csrc/attn_bwd.cu: a prep pass, then a query-parallel
 # and a key-parallel TMA + wgmma pass, counted once a call) for the windows
 # (#14) and the global blocks (#18), each with its own count.
 LN_MLP_RESIDUAL_BWD = CudaKernel(
-    "ln_mlp_residual_bt_bwd", "cvlm_ln_mlp_residual_bwd",
-    [P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I],
+    "ln_mlp_residual_bt_bwd", "cvlm_ln_mlp_residual_bwd", [P] * 16 + [I, I, I, I, F, I, I],
 )
 _ATTN_BWD_ARGS = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F]
 QKV_WINDOWS_BWD = CudaKernel("flash_qkv_packed_windows_s_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
 QKV_GLOBAL_BWD = CudaKernel("flash_qkv_packed_global_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
 
-# Attention over split q, k, v (csrc/attn_split.cuh): SAM's unfused 'flash'
-# path (#10, rel-pos bias) and the 'aug_flash' global blocks (#20).
+# Attention over split q, k, v: SAM's unfused 'flash' path (#10, rel-pos
+# bias; the two-pass WMMA kernel of csrc/attn_split.cuh) and the 'aug_flash'
+# global blocks (#20; csrc/attn_fullk.cu, the TMA + wgmma one pass).
 ATTN_RELPOS = CudaKernel("flash_attention_relpos", "cvlm_attn_relpos",
                          [P, P, P, P, P, I, I, I, I, I, I])
 ATTN_FULLK = CudaKernel("flash_attention_fullk", "cvlm_attn_fullk", [P, P, P, P, I, I, I, I])
@@ -225,6 +227,31 @@ def attn_bwd_smem(d: int, H: int, W: int, L: int, lpc: int) -> dict:
         raise ValueError(f"cvlm_attn_bwd_smem: no kernel at d={d}, lpc={lpc}")
     return {"path": "register" if out[0] else "general", "query_smem": out[1],
             "query_stages": out[2], "key_smem": out[3], "key_stages": out[4]}
+
+
+def attn_fullk_smem(d: int, dv: int) -> dict:
+    """What `cvlm_attn_fullk` launches at depth d and dv, from the library
+    itself (`cvlm_attn_fullk_smem`): the kernel's depth, its ring stages and
+    its dynamic shared memory."""
+    out = (ctypes.c_longlong * 3)()
+    fn = library().cvlm_attn_fullk_smem
+    fn.argtypes = [I, I, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    if fn(d, dv, out):
+        raise ValueError(f"cvlm_attn_fullk_smem: no kernel at d={d}, dv={dv}")
+    return {"depth": out[0], "stages": out[1], "smem": out[2]}
+
+
+def mlp_bwd_smem() -> dict:
+    """The MLP backward's dual GEMM, from the library itself
+    (`cvlm_ln_mlp_residual_bwd_smem`): its ring stages and dynamic shared
+    memory."""
+    out = (ctypes.c_longlong * 2)()
+    fn = library().cvlm_ln_mlp_residual_bwd_smem
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    fn(out)
+    return {"stages": out[0], "smem": out[1]}
 
 
 # --------------------------------------------------------------- dispatch

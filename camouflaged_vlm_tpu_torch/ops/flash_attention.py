@@ -607,8 +607,10 @@ def flash_attention_fullk(
     v: torch.Tensor,      # (BB, N, dv)
 ) -> torch.Tensor:
     """softmax(q_aug k_aug^T) v -> (BB, N, dv): the 'aug_flash' global blocks
-    (TPU kernel #20, `csrc/attn_fullk.cu`). Gradients: the VJP of the plain
-    version."""
+    (TPU kernel #20). The kernel (`csrc/attn_fullk.cu`) is the TMA + wgmma
+    one pass, which rounds P unnormalised and divides O by the fp32 row sum
+    at the end, where the plain version normalises first. Gradients: the VJP
+    of the plain version."""
     return autograd.run("flash_attention_fullk", _fullk_cuda, flash_attention_fullk_ref,
                         (q_aug, k_aug, v))
 

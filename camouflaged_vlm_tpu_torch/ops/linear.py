@@ -7,10 +7,10 @@ falls back. When a gradient is wanted, `linear_act`, `ln_linear_act_bt`,
 `ln_mask_linear_bt`, `proj_rows` and `proj_from_heads(_res)` take the VJP of
 their plain version
 (`ops/autograd.py`), as their JAX counterparts take `pallas_with_xla_vjp`;
-`ln_mlp_residual_bt` has a hand-written backward, a kernel on the card
-(`csrc/ln_mlp_residual_bwd.cu`) and `ln_mlp_residual_bt_bwd_ref` on the
-CPU. The plain versions transcribe the JAX `ref` formulations: LN
-statistics in fp32, LN output cast to the working type before the product,
+`ln_mlp_residual_bt` has a hand-written backward, the LN row pass and
+three TMA + wgmma passes on the card (`csrc/ln_mlp_residual_bwd.cu`) and
+`ln_mlp_residual_bt_bwd_ref` on the CPU. The plain versions transcribe the
+JAX `ref` formulations: LN statistics in fp32, LN output cast to the working type before the product,
 fp32 accumulation, bias and activation in fp32 on the accumulator, one
 rounding at the end. Those of the LN-fused functions are written as the
 card's stages: the LN row pass (`ln_rows_ref`), then the GEMM with its
@@ -364,14 +364,20 @@ def _ln_mlp_residual_bt_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation):
     return out
 
 
-MLP_BWD_ROWS = 16  # rows per block of csrc/ln_mlp_residual_bwd.cu (its partials' count)
+# Rows per partial sum of the backward's weight side (csrc/ln_mlp_residual_bwd.cu):
+# dgamma/dbeta per block of the LN-backward row pass, db1 per consumer
+# warpgroup of the dual GEMM (half a 128-row tile).
+MLP_BWD_LN_ROWS = 32
+MLP_BWD_DB1_ROWS = 64
 
 
 def ln_mlp_residual_bt_bwd(x, gamma, beta, w1, b1, w2, b2, g, eps=1e-6,
                            activation="gelu_tanh", weights=True):
     """The backward of `ln_mlp_residual_bt`: the kernel for CUDA tensors
-    (TPU kernel #6), `ln_mlp_residual_bt_bwd_ref` for CPU tensors. With
-    `weights` the kernel also writes dh, act(pre1), xn and per-block
+    (TPU kernel #6: per row panel of `mlp_panel_rows`, the LN row pass, the
+    dual GEMM for dh, dxn = dh . W1 and the LN-backward rows, one count),
+    `ln_mlp_residual_bt_bwd_ref` for CPU tensors. With `weights` the kernel
+    also keeps xn and dh for every row, writes act(pre1) and the
     dgamma/dbeta/db1 partials, and dw1 = dh^T.xn, dw2 = g^T.act(pre1) are
     `torch.matmul` products (the JAX wrapper leaves them to XLA)."""
     name = "ln_mlp_residual_bt_bwd"
@@ -379,30 +385,39 @@ def ln_mlp_residual_bt_bwd(x, gamma, beta, w1, b1, w2, b2, g, eps=1e-6,
         return ln_mlp_residual_bt_bwd_ref(x, gamma, beta, w1, b1, w2, b2, g, eps, activation,
                                           weights)
     K, H = _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2)
-    if K % 128 or not 1 <= K // 128 <= 10 or H % 128:
-        raise ValueError(
-            f"{name}: CUDA kernel needs K = 128*n (n <= 10) and H % 128 == 0, got K={K} H={H}"
-        )
+    _check_tma_k(name, K, H)
     _cuda.check_dtype(name, torch.bfloat16, g)
     if g.shape != x.shape:
         raise ValueError(f"{name}: gradient {g.shape} vs x {x.shape}")
     M = x.numel() // K
-    nblk = -(-M // MLP_BWD_ROWS)
+    rows = mlp_panel_rows(M, H)
+    # xn and dh hold every row when the weight products read them, else one
+    # panel's; the rows' (mean, rstd) and dxn one panel's
+    R = M if weights else rows
+
+    def e(*shape, dt=torch.float32):
+        return torch.empty(shape, dtype=dt, device=x.device)
+
+    xn, dh, stats, dxn = e(R, K, dt=x.dtype), e(R, H, dt=x.dtype), e(rows, 2), e(rows, K)
     dx = torch.empty_like(x)
-    side = [None] * 6
+    side = [None] * 4
     if weights:
-        e = lambda *shape, dt=x.dtype: torch.empty(shape, dtype=dt, device=x.device)  # noqa: E731
-        side = [e(M, H), e(M, H), e(M, K), e(nblk, K, dt=torch.float32),
-                e(nblk, K, dt=torch.float32), e(nblk, H, dt=torch.float32)]
+        # db1's partials: per warpgroup of each 128-row tile, the last one's second
+        # holding zeros when no row reaches it
+        side = [e(M, H, dt=x.dtype), e(-(-M // MLP_BWD_LN_ROWS), K),
+                e(-(-M // MLP_BWD_LN_ROWS), K),
+                e(-(-M // GEMM_BM) * (GEMM_BM // MLP_BWD_DB1_ROWS), H)]
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     _cuda.LN_MLP_RESIDUAL_BWD(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), g.data_ptr(), dx.data_ptr(), *map(ptr, side), M, K, H, float(eps),
-        _cuda.ACTIVATIONS[activation],
+        w2.data_ptr(), g.data_ptr(), dx.data_ptr(), xn.data_ptr(), dh.data_ptr(), stats.data_ptr(),
+        dxn.data_ptr(),
+        *map(ptr, side), M, K, H, rows, float(eps), _cuda.ACTIVATIONS[activation],
+        gemm_tile_n(rows, K, _cuda.sm_count(x.device)),
     )
     if not weights:
         return dx, None, None, None, None, None, None
-    dh, hact, xn, dga, dbe, db1 = side
+    hact, dga, dbe, db1 = side
     g2 = g.reshape(M, K)
     return (dx, dga.sum(0).to(gamma.dtype), dbe.sum(0).to(beta.dtype),
             torch.matmul(dh.t(), xn).to(w1.dtype), db1.sum(0).to(b1.dtype),

@@ -294,16 +294,18 @@ def phase_build():
     log(f"[build] ptxas: {len(regs)} kernel instantiations, {min(regs, default=0)}-"
         f"{max(regs, default=0)} registers per thread, {len(spills)} with spills "
         f"{spills[:4]} (full log: {OUT_DIR}/nvcc.log)")
-    # the TMA + wgmma kernels (the whole-window ones at ViT-H's d = 80) and
-    # the LN row pass: registers and spills per instantiation, once each (the
-    # GEMM template is instantiated in the sources that use it); their shared
+    # the TMA + wgmma kernels (the whole-window ones at ViT-H's d = 80; #20 at
+    # its depths; the MLP backward's dual GEMM at each activation) and the LN
+    # row passes: registers and spills per instantiation, once each (the GEMM
+    # template is instantiated in the sources that use it); their shared
     # memory is dynamic, sized at launch: below
     lines, seen = info.splitlines(), set()
     for i, ln in enumerate(lines):
         m = re.search(r"Compiling entry function '(_ZN4cvlm(15gemm_tma_kernel|14ln_rows_kernel"
                       r"|17qkv_global_kernel|18attn_stream_kernel|20qkv_windows_s_kernelILi80E"
                       r"|17qkv_relpos_kernelILi80E|21attn_bwd_query_kernelILi80E"
-                      r"|19attn_bwd_key_kernelILi80E|20attn_bwd_prep_kernel)\S*)'", ln)
+                      r"|19attn_bwd_key_kernelILi80E|20attn_bwd_prep_kernel|17attn_fullk_kernel"
+                      r"|19mlp_bwd_dual_kernel|18ln_bwd_rows_kernel)\S*)'", ln)
         if m and m.group(1) not in seen:
             seen.add(m.group(1))
             usage = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
@@ -311,6 +313,13 @@ def phase_build():
     for bn in (256, 128):
         log(f"[build] dynamic shared memory per block: gemm_tma_kernel<{bn}, *, *> "
             f"{gemm_smem(bn)} B ({gemm_stages(bn)} stages of 128 x 64 + {bn} x 64)")
+    # the MLP backward's dual GEMM and #20 at ViT-H's depth, as the library
+    # sizes them
+    dual, fk = _cuda.mlp_bwd_smem(), _cuda.attn_fullk_smem(208, 80)
+    log(f"[build] dynamic shared memory per block: #6 mlp_bwd_dual_kernel<*> {dual['smem']} B "
+        f"({dual['stages']} stages of 4 x 128 x 64); #20 attn_fullk_kernel<{fk['depth']}, 80, "
+        f"{fk['stages']}> {fk['smem']} B (two q tiles, {fk['stages']} stages of 64 keys of k "
+        f"and v)")
     # dynamic shared memory of the attention kernels at their paths' shapes
     # (csrc/attn_sm90.cuh stream_smem, csrc/qkv_packed_global.cu global_smem,
     # csrc/qkv_packed_windows_s.cu windows_s_smem, csrc/qkv_relpos.cu
@@ -1160,13 +1169,14 @@ def stage_times(m, cfg, tf, batches, label="", iters=5, trace=()):
 SYNC_EVENTS = ("cudaMemcpy", "Synchronize", "aten::_local_scalar_dense")
 
 
-def trace_call(fn, label, wall_ms):
+def trace_call(fn, label, wall_ms, kernels=False):
     """One call of `fn` under torch.profiler (CPU and CUDA): the card's busy
     time (the union of its kernels' and copies' intervals), and against
     `wall_ms`, the call's wall without the profiler, its idle share; the
     device events' count; the runtime calls and ops that can wait for the
     card (`SYNC_EVENTS`); the host ops by self CPU time, the top ones logged
-    and 25 written to chiprun_out/chip_smoke/trace<label>.txt."""
+    and 25 written to OUT_DIR/trace<label>.txt; with
+    `kernels`, also the device time of the kernels that take the most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1200,6 +1210,15 @@ def trace_call(fn, label, wall_ms):
     log(f"[trace]{label}: {dev_s}; wall {wall:.2f} ms under the profiler; host ops' self "
         f"CPU {sum(e.self_cpu_time_total for e in avg) / 1e3:.2f} ms, the most: {tops}; "
         f"calls that can wait for the card: {syncs} ({OUT_DIR}/{name})")
+    if kernels:
+        def dt(e):
+            return getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+
+        ks = sorted((e for e in avg if e.device_type == DeviceType.CUDA and dt(e) > 0),
+                    key=lambda e: -dt(e))[:8]
+        short = [re.sub(r"^void |<.*$|\(.*$", "", e.key) for e in ks]
+        log(f"[trace]{label}: kernels by device time: " + "; ".join(
+            f"{n} {dt(e) / 1e3:.2f} ms x {e.count}" for n, e in zip(short, ks)))
 
 
 def _check_grads(name, kfn, pfn, args, out_names, flops, reads):
@@ -1580,6 +1599,14 @@ def train_times(run, iters=3):
     med = np.median(np.array(rows), axis=0)
     log(f"[train_times] batch 2 (median of {iters}, ms): forward + loss {med[0]:.2f}; "
         f"backward {med[1]:.2f}; optimizer {med[2]:.2f}; sum {med.sum():.2f}")
+    # the backward alone under the profiler (its graph kept for the second
+    # pass trace_call makes): the card's busy time against the backward's wall
+    masks, edges = model.forward_with_text(batch["inp"], batch["clip_image"], batch["clip_mask"],
+                                           tf)
+    loss, _ = train.segmentation_loss(masks, edges, batch["gt"])
+    trace_call(lambda: loss.backward(retain_graph=True), " train backward batch 2", med[1],
+               kernels=True)
+    opt.zero_grad(set_to_none=True)
 
 
 def phase_unfused():

@@ -302,10 +302,15 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     (got,) = torch.autograd.grad(y, wg, gy)
     (want,) = torch.autograd.grad(linear.linear_act_ref(x[0], wg, b8), wg, gy)
     assert_close(got, want)
-    with pytest.raises(ValueError, match="K = 128"):  # the backward kernel refuses it too
-        linear.ln_mlp_residual_bt_bwd(x[..., :96].contiguous(), g32[:96], b32[:96],
-                                      w1[:, :96].contiguous(), b1, w2[:96].contiguous(),
-                                      b2[:96], x[..., :96].contiguous())
+    # the backward kernel takes any K % 8 == 0 (K = 96 is not a multiple of
+    # 128) and matches its plain version; K % 8 != 0 it refuses as the forward
+    a96 = (x[..., :96].contiguous(), g32[:96], b32[:96], w1[:, :96].contiguous(), b1,
+           w2[:96].contiguous(), b2[:96], rn(gen, 1, 5, 96))
+    _grad_close(linear.ln_mlp_residual_bt_bwd(*a96, weights=True),
+                linear.ln_mlp_residual_bt_bwd_ref(*a96, weights=True))
+    with pytest.raises(ValueError, match="K % 8"):
+        linear.ln_mlp_residual_bt_bwd(xr, g100, b100, rn(gen, 256, 100), b1, rn(gen, 100, 256),
+                                      rn(gen, 100), rn(gen, 1, 5, 100))
 
 
 # ------------------------------------------------ the backward kernels
@@ -319,19 +324,52 @@ def _grad_close(got, want):
             assert_close(gt, wt)
 
 
-@pytest.mark.parametrize("weights", [False, True])
-@pytest.mark.parametrize("activation", ["gelu_tanh", "gelu", "quick_gelu"])
-@pytest.mark.parametrize("B,S,K,H", [(2, 37, 128, 512), (3, 7, 768, 256), (1, 21, 1280, 640)])
-def test_ln_mlp_residual_bt_bwd_kernel(gen, weights, activation, B, S, K, H):
-    args = (rn(gen, B, S, K), 1 + rn(gen, K, std=0.1, dtype=torch.float32),
+def _mlp_bwd_args(gen, B, S, K, H):
+    return (rn(gen, B, S, K), 1 + rn(gen, K, std=0.1, dtype=torch.float32),
             rn(gen, K, std=0.1, dtype=torch.float32), rn(gen, H, K, std=0.05),
             rn(gen, H, std=0.1), rn(gen, K, H, std=0.05), rn(gen, K, std=0.1), rn(gen, B, S, K))
+
+
+@pytest.mark.parametrize("weights", [False, True])
+@pytest.mark.parametrize("activation", ["gelu_tanh", "gelu", "quick_gelu"])
+@pytest.mark.parametrize("B,S,K,H", [(2, 37, 128, 512), (3, 7, 768, 256), (1, 21, 1280, 640),
+                                     (2, 37, 96, 136), (1, 21, 200, 264), (2, 581, 1024, 4096)])
+def test_ln_mlp_residual_bt_bwd_kernel(gen, weights, activation, B, S, K, H):
+    """Ragged M; K and H not multiples of 128 (96 / 136, 200 / 264); CLIP's
+    vision MLP (2 x 581 rows, K 1024, H 4096), which MaPLe trains."""
+    args = _mlp_bwd_args(gen, B, S, K, H)
     before = _cuda.LN_MLP_RESIDUAL_BWD.launches
     got = linear.ln_mlp_residual_bt_bwd(*args, eps=1e-6, activation=activation, weights=weights)
     assert _cuda.LN_MLP_RESIDUAL_BWD.launches == before + 1
     want = linear.ln_mlp_residual_bt_bwd_ref(*args, eps=1e-6, activation=activation,
                                              weights=weights)
     _grad_close(got, want)
+
+
+@pytest.mark.parametrize("weights", [False, True])
+def test_ln_mlp_residual_bt_bwd_kernel_row_panels(gen, monkeypatch, weights):
+    """A hidden larger than the scratch: the backward walks M in row panels
+    (256 rows of 700, the last one ragged), one count; with the weights its
+    partial sums run on across the panels."""
+    monkeypatch.setattr(linear, "MLP_SCRATCH_ELEMS", 300 * 512)
+    B, S, K, H = 2, 350, 128, 512
+    assert linear.mlp_panel_rows(B * S, H) == 256
+    args = _mlp_bwd_args(gen, B, S, K, H)
+    before = _cuda.LN_MLP_RESIDUAL_BWD.launches
+    got = linear.ln_mlp_residual_bt_bwd(*args, eps=1e-6, activation="gelu_tanh", weights=weights)
+    assert _cuda.LN_MLP_RESIDUAL_BWD.launches == before + 1
+    _grad_close(got, linear.ln_mlp_residual_bt_bwd_ref(*args, eps=1e-6, activation="gelu_tanh",
+                                                       weights=weights))
+
+
+def test_ln_mlp_residual_bt_bwd_kernel_is_deterministic(gen):
+    """No atomics: two runs of the backward (SAM's edge windows, with the
+    weight side) are bit-equal."""
+    args = _mlp_bwd_args(gen, 2, 1008, 1280, 5120)
+    a = linear.ln_mlp_residual_bt_bwd(*args, weights=True)
+    b = linear.ln_mlp_residual_bt_bwd(*args, weights=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("BW,win,heads,d", [(3, 14, 2, 80), (5, 4, 8, 16), (2, 7, 1, 64),
@@ -466,13 +504,17 @@ def test_flash_attention_relpos_kernel(gen, BB, H, W, d):
 
 
 @pytest.mark.parametrize("BB,N,dqk,dv", [(2, 4096, 208, 80), (3, 100, 48, 64),
-                                         (1, 1024, 192, 64), (2, 77, 256, 80)])
+                                         (1, 1024, 192, 64), (2, 77, 256, 80),
+                                         (2, 130, 144, 80), (1, 64, 16, 64)])
 def test_flash_attention_fullk_kernel(gen, BB, N, dqk, dv):
     args = (rn(gen, BB, N, dqk, std=dqk ** -0.5), rn(gen, BB, N, dqk), rn(gen, BB, N, dv))
     before = _cuda.ATTN_FULLK.launches
     got = flash_attention.flash_attention_fullk(*args)
     assert _cuda.ATTN_FULLK.launches == before + 1
     assert_close(got, flash_attention.flash_attention_fullk_ref(*args))
+    # the depth the library runs dqk at, and a ring that fits one block
+    plan = _cuda.attn_fullk_smem(dqk, dv)
+    assert dqk <= plan["depth"] <= 256 and plan["stages"] >= 2 and plan["smem"] <= 227 * 1024
 
 
 def test_split_attention_gradients_are_the_plain_vjp(gen):
