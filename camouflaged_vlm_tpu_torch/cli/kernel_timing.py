@@ -17,7 +17,9 @@ backward at the training path's shapes, #14 at the interior windows and #18
 at the global blocks (`backward_cases`: errors per output, no library call,
 and the device time of each of the call's kernels, from torch.profiler);
 last the MLP backward #6 at SAM's three sites and with the weight
-gradients, and the 'aug_flash' global attention #20 (`mlp_aug_cases`).
+gradients, and the 'aug_flash' global attention #20 (`mlp_aug_cases`);
+then #10 at SAM ViT-B's windows and global blocks and #8/#9 at the padded
+carry's window 17 (`relpos_heads_cases`).
 Each case prints one JSON line:
 the error against the plain version; the idle-card median and the queued
 time (`chip_smoke.time_ms`); the host's microseconds a call
@@ -35,8 +37,9 @@ line gives the card's name and power limit and the registers, spills and
 shared memory ptxas gave each kernel. Two checkouts compare on one card
 in one call when their runs alternate (parent, change, change, parent).
 With --padded-calls it times, instead of the kernels, the checkout's
-window-16 and window-17 cascade calls by stage and traces one batch-2 call
-of each (`padded_calls`): the card's busy time that #12 and #11 move.
+window-16, window-17 and ViT-B cascade calls by stage and traces one
+batch-2 call of each (`padded_calls`): the card's busy time that #12, #11 +
+#8 and #10 move.
 """
 
 from __future__ import annotations
@@ -207,7 +210,8 @@ def cases(smoke, rn, template: bool):
                         lambda pa=pa: lin.proj_rows_ref(*pa),
                         "PROJ_ROWS", gemm, "gemm_library", sites.get(site, 0),
                         {"gemm": -1} if template and padded else {}))
-    return out + padded_carry_cases(rn) + backward_cases(rn) + mlp_aug_cases(rn)
+    return (out + padded_carry_cases(rn) + backward_cases(rn) + mlp_aug_cases(rn)
+            + relpos_heads_cases(smoke, rn))
 
 
 def backward_cases(rn):
@@ -273,6 +277,49 @@ def mlp_aug_cases(rn):
                     lambda: fa.flash_attention_fullk_ref(q, k, v), "ATTN_FULLK",
                     lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0),
                     "library", 0))
+    return out
+
+
+def relpos_heads_cases(smoke, rn):
+    """#10 at SAM ViT-B's unfused 'flash' blocks, batch 2 (the windowed
+    blocks' 600 problems of 196 tokens, 28 rel lanes; the global blocks' 24
+    of 4096), beside SDPA with the bias rel @ sel materialised apart (as
+    `chip_smoke.split_attention_kernels`); and #8/#9 at the padded carry's
+    window 17 (`chip_smoke.proj_heads_case`) beside the product alone through
+    torch.einsum, at each tile width on a checkout whose C entry takes one,
+    and the same product on the template with x as plain (B T S, heads d)
+    rows (#1's `linear_act`, bias only: pass "rows"), which tells the cost
+    of the head-by-head K walk from the template's own. Drawn after every
+    other case. Neither runs in a call of the reference
+    configuration: `per_call` 0."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    F, bf, dev = torch.nn.functional, torch.bfloat16, torch.device("cuda")
+    out = []
+    for site, BB, H in (("ViT-B windows", 2 * 25 * 12, 14), ("ViT-B global", 2 * 12, 64)):
+        N = H * H
+        a = (rn(BB, N, 64, std=0.125), rn(BB, N, 64), rn(BB, N, 64), rn(BB, N, 2 * H),
+             fa.make_rel_scatter(H, H, bf, dev))
+        bias = torch.matmul(a[3], a[4])
+        out.append(Case("flash_attention_relpos", site, [BB, N, 64, 2 * H],
+                        lambda a=a, H=H: fa.flash_attention_relpos(*a, H, H),
+                        lambda a=a: fa.xla_attention_relpos(*a), "ATTN_RELPOS",
+                        lambda a=a, bias=bias: F.scaled_dot_product_attention(
+                            a[0], a[1], a[2], attn_mask=bias, scale=1.0),
+                        "library", 0))
+    args, _, gemm = smoke.proj_heads_case(rn)
+    widths = {"gemm": -1} if len(_cuda.PROJ_HEADS.argtypes) > 12 else {}  # C entry takes bn
+    x, w, b = args[:3]
+    rows = x.permute(0, 2, 3, 1, 4).reshape(-1, w.shape[1]).contiguous()
+    for name, kernel, a in (("proj_from_heads_res", "PROJ_HEADS_RES", args),
+                            ("proj_from_heads", "PROJ_HEADS", args[:3])):
+        out.append(Case(name, "padded windows 17", [2, 16, 16, 289, 80, 1280],
+                        lambda f=getattr(lin, name), a=a: f(*a),
+                        lambda a=a: lin.proj_from_heads_ref(*a), kernel, gemm, "gemm_library", 0,
+                        widths, {"rows": lambda: lin.linear_act(rows, w, b)}))
     return out
 
 
@@ -356,10 +403,10 @@ def padded_carry_cases(rn):
 
 
 def padded_calls(smoke, label):
-    """The repo's ViT-H yaml at windows 16 (#12) and 17 (#11 + #8): the
-    cascade call cut into stages at batch 1 and 2, and the card's busy time
-    in a torch.profiler trace of one batch-2 call
-    (`chip_smoke.config_stage_times`)."""
+    """The repo's ViT-H yaml at windows 16 (#12) and 17 (#11 + #8), and the
+    port's ViT-B yaml (unfused 'flash', #10): the cascade call cut into
+    stages at batch 1 and 2, and the card's busy time in a torch.profiler
+    trace of one batch-2 call (`chip_smoke.config_stage_times`)."""
     from camouflaged_vlm_tpu_torch.config import cascade_config_from_yaml
 
     work = os.path.join(HERE, "build", "kernel_timing_yaml")
@@ -367,6 +414,8 @@ def padded_calls(smoke, label):
     for win in (16, 17):
         cfg = cascade_config_from_yaml(smoke.window_yaml(win, work))[0]
         smoke.config_stage_times(cfg, f"{label} window {win}", trace=(2,))
+    cfg = cascade_config_from_yaml(os.path.join(HERE, smoke.VIT_B_YAML))[0]
+    smoke.config_stage_times(cfg, f"{label} ViT-B", trace=(2,))
 
 
 def main() -> None:
@@ -374,7 +423,8 @@ def main() -> None:
     ap.add_argument("--root", default=HERE, help="checkout whose package to time")
     ap.add_argument("--label", default=None)
     ap.add_argument("--padded-calls", action="store_true",
-                    help="time the window-16 and window-17 cascade calls instead of the kernels")
+                    help="time the window-16, window-17 and ViT-B cascade calls instead of "
+                    "the kernels")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)

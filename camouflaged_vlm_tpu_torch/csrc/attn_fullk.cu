@@ -44,18 +44,6 @@
 
 namespace cvlm {
 
-// A split operand (BB, N, d), d % 8 == 0, as TMA boxes of 64 rows of wgmma's
-// no-swizzle core matrices: (8-element chunk, row, chunk index, problem), box
-// (8, 64, dc, 1); chunks at or past d / 8 (a depth padded to 8 dc) and rows
-// past N are zeros. Returns a cudaError_t code.
-inline int encode_split_rows(CUtensorMap* map, const void* base, int BB, int N, int d, int dc) {
-  const cuuint64_t dims[4] = {8, (cuuint64_t)N, (cuuint64_t)d / 8, (cuuint64_t)BB};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * sizeof(bf16), 16,
-                                 (cuuint64_t)N * d * sizeof(bf16)};
-  const cuuint32_t box[4] = {8, ST_KT, (cuuint32_t)dc, 1};
-  return encode_bf16_map(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
-}
-
 constexpr int FK_NWG = 2;  // consumer warpgroups: 128 queries a block
 
 // ring stages: as many 64-key k and v tiles as ~220 KB holds beside the q

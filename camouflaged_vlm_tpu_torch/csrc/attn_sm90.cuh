@@ -7,9 +7,9 @@
 // (stream_softmax_pv) over split q, k and v without a scale;
 // qkv_packed_windows_s.cu is a whole-window kernel on the same blocks, for
 // the compact carry's interior windows (#13) and its edge windows (#15) and
-// the padded carry's windows (#12); qkv_relpos.cu (#11, #19) is the
-// streaming loop with the rel-pos bias added in registers and a
-// head-leading epilogue. #17 keeps its own copy of the streaming loop with
+// the padded carry's windows (#12); qkv_relpos.cu (#11, #19, and #10 over
+// split q, k and v) is the streaming loop with the rel-pos bias added in
+// registers and a head-leading epilogue. #17 keeps its own copy of the streaming loop with
 // its rel-pos bias: moved onto this header it measured 0.4-0.9% slower on
 // the H100 in every parent-against-change run (PERF.md).
 //
@@ -24,6 +24,9 @@
 //     (LBO = one chunk column, rows * 16 B; SBO = 8 rows, 128 B) of Q K^T and
 //     the N-major B operand of P V (LBO = 8 keys, 128 B; SBO = one chunk
 //     column).
+//   * encode_split_rows: the same boxes over a split operand (BB, N, d), for
+//     the kernels that take q, k and v apart (attn_fullk.cu, #20, and the
+//     split front end of qkv_relpos.cu, #10).
 //   * MbarRing: "full" / "empty" mbarriers between one producer thread that
 //     issues TMA loads and the consumer warpgroups.
 //   * scale_q_tile: q times bf16(scale), rounded to bf16, once in shared
@@ -207,6 +210,18 @@ __device__ __forceinline__ void store_o_dmajor(const float (&o)[DH / 2], float f
 // ------------------------------------------------- the streaming kernel
 
 constexpr int ST_KT = 64, ST_QROWS = 72;  // key tile; rows of a q buffer (8 spare)
+
+// A split operand (BB, N, d), d % 8 == 0, as TMA boxes of 64 rows of wgmma's
+// no-swizzle core matrices: (8-element chunk, row, chunk index, problem), box
+// (8, 64, dc, 1); chunks at or past d / 8 (a depth padded to 8 dc) and rows
+// past N are zeros. Returns a cudaError_t code.
+inline int encode_split_rows(CUtensorMap* map, const void* base, int BB, int N, int d, int dc) {
+  const cuuint64_t dims[4] = {8, (cuuint64_t)N, (cuuint64_t)d / 8, (cuuint64_t)BB};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * sizeof(bf16), 16,
+                                 (cuuint64_t)N * d * sizeof(bf16)};
+  const cuuint32_t box[4] = {8, ST_KT, (cuuint32_t)dc, 1};
+  return encode_bf16_map(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
 
 // One key tile of the one-pass loop, after S = Q K^T (sc: a warpgroup's 64 x
 // 64 accumulator, fp32): in log2 units, the keys at or past kv (a ragged last

@@ -1,20 +1,17 @@
 // Shared device helpers for the hand-written Hopper kernels.
 //
 // Every kernel takes bfloat16 activations and weights, accumulates in fp32
-// on the tensor cores (WMMA 16x16x16 fragments, mma.sync underneath; the
-// TMA + wgmma kernels through gemm_sm90.cuh), and rounds to bfloat16 exactly
-// where the JAX package's kernels round.
+// on the tensor cores (TMA + wgmma, through gemm_sm90.cuh), and rounds to
+// bfloat16 exactly where the JAX package's kernels round.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 namespace cvlm {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 // Activation codes shared with the Python wrappers (ops/_cuda.py).
 enum Act { ACT_NONE = 0, ACT_GELU = 1, ACT_GELU_TANH = 2, ACT_QUICK_GELU = 3 };

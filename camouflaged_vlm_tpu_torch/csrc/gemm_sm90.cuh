@@ -4,8 +4,8 @@
 // ln_mlp_residual_bwd.cu, #6), written as raw PTX so that a source that
 // includes this header compiles in seconds, and the persistent GEMM
 // (gemm_tma_kernel, at the end) of linear.cu (#1), ln_linear.cu (#2, #3),
-// ln_mlp_residual.cu (#4/#5), proj_rows.cu (#7) and the MLP backward's dxn
-// (#6).
+// ln_mlp_residual.cu (#4/#5), proj_rows.cu (#7, #8/#9) and the MLP
+// backward's dxn (#6).
 //
 //   * mbarrier: init, arrive, arrive with an expected transaction count,
 //     and a parity wait (a barrier's phase p "has completed" once it flips;
@@ -27,6 +27,9 @@
 //     written by a TMA load with CU_TENSOR_MAP_SWIZZLE_128B into a
 //     1024-byte-aligned tile; SBO = 1024 B (8 rows), LBO unused; a k16 step
 //     advances the start address by 32 B.
+//   * K-major, 32-byte swizzle (layout type 3): rows of 16 bf16 (32 B, one
+//     k16 step) written with CU_TENSOR_MAP_SWIZZLE_32B into a 256-byte-
+//     aligned slice; SBO = 256 B (8 rows), LBO unused.
 //   * MN-major, 128-byte swizzle (a transposed A, imm-trans-a = 1, or a
 //     transposed B, imm-trans-b = 1): lines of 64 bf16 of M or N (128 B), one
 //     per k, written by the same kind of TMA load from a matrix whose M or N
@@ -176,7 +179,7 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
 }
-constexpr uint32_t LAYOUT_INTERLEAVE = 0, LAYOUT_SWIZZLE_128B = 1;
+constexpr uint32_t LAYOUT_INTERLEAVE = 0, LAYOUT_SWIZZLE_128B = 1, LAYOUT_SWIZZLE_32B = 3;
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -480,14 +483,32 @@ __device__ __forceinline__ void consumer_regs() {
 // out = epilogue(A . W (N, K)^T), bf16 in, fp32 accumulation: one mainloop
 // shared by the plain product (#1), the LN-prologue products (#2, #3: A is
 // the LN row pass's bf16 output), the two products of the fused MLP
-// (#4/#5), the attention out-projection (#7) and the MLP backward's dxn =
-// dh . W1 (#6, ln_mlp_residual_bwd.cu). A comes in two layouts:
-//   * K-major (AMN = false): rows (M, K), one group: G = 1, S = M;
-//   * MN-major (AMN = true): G groups of a (K, S) matrix whose s is
-//     contiguous (row stride ldk, group stride ldg, multiples of 8), the
-//     attention kernels' d-major output (proj_rows.cu); row s of group g is
-//     output row g * S + s. A row tile holds rows of one group only, so a
-//     group takes ceil(S / BM) row tiles, the last masked at S.
+// (#4/#5), the attention out-projections (#7, #8/#9) and the MLP backward's
+// dxn = dh . W1 (#6, ln_mlp_residual_bwd.cu). A comes in three layouts (AM):
+//   * A_ROWS, K-major rows (M, K), one group: G = 1, S = M;
+//   * A_MN, MN-major: G groups of a (K, S) matrix whose s is contiguous (row
+//     stride ldk, group stride ldg, multiples of 8), the attention kernels'
+//     d-major output (proj_rows.cu, #7); row s of group g is output row
+//     g * S + s;
+//   * A_HEADS, K-major by head: G groups (images) of S rows, each row's K =
+//     heads x KH values split by head, element (g, h, r, j) at ((g heads + h)
+//     S + r) KH + j: the head-leading attention output (B, heads, T, S', d)
+//     with S = T S' and KH = d (proj_rows.cu, #8/#9). The K walk, four
+//     wgmma k16 steps a k step: first heads x (KH / 64) steps of 64 columns
+//     of one head, the tile A_ROWS reads (A's box from a rank-3 map (j, r,
+//     g heads + h) with the 128-byte swizzle, W's from its (N, K) rows at
+//     column h KH + j0); then the heads' last KH % 64 columns in k16 slices,
+//     ceil((KH % 64) / 16) a head, four a step wherever their heads lie
+//     (boxes of 16 columns with the 32-byte swizzle from a second map of x
+//     and of W as (j, h, n), zeros past KH and past the last head's). At KH
+//     = 80, 16 heads: 16 steps of 64 columns, then 4 of four heads' last
+//     16, no zeros. Only the descriptors tell a slice step from a tile step:
+//     the same four wgmmas. (Walking all of K in slices, or in 64-column
+//     tiles a head whose last is one k16 step deep, ran 1.8x slower than the
+//     same product on plain rows; the latter's run-time wgmma count ptxas
+//     serialized (C7520). PERF.md §6.)
+//   In A_MN and A_HEADS a row tile holds rows of one group only, so a group
+//   takes ceil(S / BM) row tiles, the last masked at S.
 // W comes in two: K-major, the nn.Linear (N, K) rows (BNM = false), or
 // N-major (BNM = true), a (K, N) matrix whose n is contiguous (#6 reads W1
 // (H, K) so for dxn = dh . W1): BN / 64 boxes of 64 n x 64 k, 128-byte
@@ -522,6 +543,7 @@ __device__ __forceinline__ void consumer_regs() {
 // TMA strides are multiples of 16 bytes: K % 8 == 0 (W's rows, a K-major
 // A's rows), and an MN-major A's ldk and ldg % 8 == 0.
 enum GemmEpilogue { EPI_BIAS_ACT = 0, EPI_BIAS_RESIDUAL = 1, EPI_F32 = 2 };
+enum GemmA { A_ROWS = 0, A_MN = 1, A_HEADS = 2 };
 
 // the activation over a whole accumulator fragment: one branch, then a
 // straight unrolled loop (apply_act's switch folds on a constant code)
@@ -557,13 +579,17 @@ struct GemmTile {
                                  sizeof(uint64_t) * 2 * STAGES;
 };
 
-template <int BN, int EPI, bool AMN, bool BNM = false>
+// A_HEADS: amap2 and wmap2 the maps of the k16 slices of the heads' last
+// KH % 64 columns, KH the depth a head (K = heads KH); unread otherwise
+template <int BN, int EPI, int AM, bool BNM = false>
 __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
     const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap amap2, const __grid_constant__ CUtensorMap wmap2,
     const bf16* __restrict__ bias, const bf16* __restrict__ res, void* __restrict__ out_, int G,
-    int S, int N, int K, int act) {
+    int S, int N, int K, int act, int KH) {
   using T = GemmTile<BN>;
   constexpr int BM = T::BM, BK = T::BK, STAGES = T::STAGES, LDC = T::LDC;
+  constexpr bool AMN = AM == A_MN, GROUPS = AM != A_ROWS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   bf16* sA = reinterpret_cast<bf16*>(smem);  // [stage][128 rows][64] or [stage][2][64 k][64 s]
@@ -573,7 +599,11 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
   uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const int k_tiles = (K + BK - 1) / BK;
+  // A_HEADS: heads x (KH / 64) steps of one head's 64 columns, then the
+  // k16 slices of the heads' last KH % 64 columns, sph a head, four a step
+  const int heads = K / KH, m64 = KH / 64, sph = (KH % 64 + 15) / 16;
+  const int n_main = heads * m64, n_slices = heads * sph;
+  const int k_tiles = AM == A_HEADS ? n_main + (n_slices + 3) / 4 : (K + BK - 1) / BK;
   const int n_blocks = (N + BN - 1) / BN, m_blocks = (S + BM - 1) / BM;
   const int n_tiles = n_blocks * m_blocks * G;
   if (tid == 0) {
@@ -590,7 +620,7 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
       int it = 0;  // k steps over all of this block's tiles: the ring's position
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         const int n0 = (tile % n_blocks) * BN, rt = tile / n_blocks;
-        const int s0 = (AMN ? rt % m_blocks : rt) * BM, g = AMN ? rt / m_blocks : 0;
+        const int s0 = (GROUPS ? rt % m_blocks : rt) * BM, g = GROUPS ? rt / m_blocks : 0;
         const bool two = !AMN || s0 + 64 < S;  // MN-major: the second box holds a row
         // N-major W: the boxes that hold a column
         const int nb = BNM ? min(BN / 64, (N - n0 + 63) / 64) : BN / 64;
@@ -600,6 +630,21 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
           bf16* a = sA + s * BM * BK;
           mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
           mbar_expect_tx(&full[s], bytes);
+          if constexpr (AM == A_HEADS) {
+            if (kt < n_main) {  // head h's columns j0..j0 + 63
+              const int h = kt / m64, j0 = (kt - h * m64) * 64;
+              tma_load_3d(a, &amap, &full[s], j0, s0, g * heads + h);
+              tma_load_2d(sB + s * BN * BK, &wmap, &full[s], h * KH + j0, n0);
+            } else {  // four k16 slices: head h's columns j0..j0 + 15
+              for (int i = 0; i < BK / 16; ++i) {
+                const int q = (kt - n_main) * (BK / 16) + i, h = min(q / sph, heads - 1);
+                const int j0 = m64 * 64 + (q < n_slices ? q - h * sph : sph) * 16;  // past KH: 0
+                tma_load_3d(a + i * BM * 16, &amap2, &full[s], j0, s0, g * heads + h);
+                tma_load_3d(sB + s * BN * BK + i * BN * 16, &wmap2, &full[s], j0, h, n0);
+              }
+            }
+            continue;
+          }
           if constexpr (AMN) {
             tma_load_3d(a, &amap, &full[s], s0, kt * BK, g);
             if (two) tma_load_3d(a + 64 * BK, &amap, &full[s], s0 + 64, kt * BK, g);
@@ -625,9 +670,9 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
   int it = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int n0 = (tile % n_blocks) * BN, rt = tile / n_blocks;
-    // a K-major A is one group: no division by the row tiles a group
-    const int s0 = (AMN ? rt % m_blocks : rt) * BM;
-    const size_t row0 = AMN ? (size_t)(rt / m_blocks) * S : 0;  // the group's first output row
+    // A_ROWS is one group: no division by the row tiles a group
+    const int s0 = (GROUPS ? rt % m_blocks : rt) * BM;
+    const size_t row0 = GROUPS ? (size_t)(rt / m_blocks) * S : 0;  // the group's first output row
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     for (int kt = 0; kt < k_tiles; ++kt, ++it) {
@@ -635,21 +680,28 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
       mbar_wait(&full[s], (it / STAGES) & 1);
       const bf16* a = sA + s * BM * BK + wg * 64 * BK;
       const bf16* b = sB + s * BN * BK;
+      // A_HEADS' slice steps: [4][BM rows][16] and [4][BN rows][16]
+      const bool sl = AM == A_HEADS && kt >= n_main;
       wgmma_fence();
       fence_regs(acc);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         // an N-major W: 16 k lines of each 64-n box a step
         const uint64_t db =
-            BNM ? wgmma_desc(b + kk * 16 * 64, 64 * BK * sizeof(bf16), 1024, LAYOUT_SWIZZLE_128B)
-                : wgmma_desc(b + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B);
+            sl    ? wgmma_desc(b + kk * BN * 16, 16, 256, LAYOUT_SWIZZLE_32B)
+            : BNM ? wgmma_desc(b + kk * 16 * 64, 64 * BK * sizeof(bf16), 1024, LAYOUT_SWIZZLE_128B)
+                  : wgmma_desc(b + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B);
         if constexpr (AMN)  // 16 k lines of 64 s a step
           Wgmma<BN>::template ss<1, BNM>(
               acc, wgmma_desc(a + kk * 16 * 64, 64 * BK * sizeof(bf16), 1024, LAYOUT_SWIZZLE_128B),
               db, 1);
         else
           Wgmma<BN>::template ss<0, BNM>(
-              acc, wgmma_desc(a + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B), db, 1);
+              acc,
+              sl ? wgmma_desc(sA + s * BM * BK + (kk * BM + wg * 64) * 16, 16, 256,
+                              LAYOUT_SWIZZLE_32B)
+                 : wgmma_desc(a + kk * 16, 16, 1024, LAYOUT_SWIZZLE_128B),
+              db, 1);
       }
       wgmma_commit();
       fence_regs(acc);
@@ -728,17 +780,19 @@ __global__ void __launch_bounds__(GemmTile<BN>::THREADS, 1) gemm_tma_kernel(
   }
 }
 
-// The host's launch setup, cached: a TMA map with the 128-byte swizzle and
-// (64, box1[, 1]) boxes over a rank-2 or rank-3 bf16 matrix (dims innermost
-// first, strides of dims 1 and 2 in elements) is a pure function of those
-// arguments, so it is encoded once per distinct key (the weights' maps at
-// every call, the scratch buffers' and the attention outputs' whenever the
-// allocator hands back the same block), in a small direct-mapped table.
+// The host's launch setup, cached: a TMA map with (box0, box1[, box2]) boxes
+// over a rank-2 or rank-3 bf16 matrix, the 128-byte swizzle at box0 = 64
+// (the 32-byte one at box0 = 16; dims innermost first, strides of dims 1
+// and 2 in elements) is a pure
+// function of those arguments, so it is encoded once per distinct key (the
+// weights' maps at every call, the scratch buffers' and the attention
+// outputs' whenever the allocator hands back the same block), in a small
+// direct-mapped table.
 inline int gemm_map(CUtensorMap* map, const void* base, int rank, int d0, int d1, int d2,
-                    long long ld1, long long ld2, int box1) {
+                    long long ld1, long long ld2, int box1, int box2 = 1, int box0 = 64) {
   struct Entry {
     const void* base;
-    int rank, d0, d1, d2, box1;
+    int rank, d0, d1, d2, box0, box1, box2;
     long long ld1, ld2;
     CUtensorMap map;
   };
@@ -747,16 +801,18 @@ inline int gemm_map(CUtensorMap* map, const void* base, int rank, int d0, int d1
   static std::mutex mu;
   const uintptr_t key = reinterpret_cast<uintptr_t>(base);
   Entry& e = table[((key >> 8) ^ (key >> 20) ^ ((uintptr_t)d1 * 0x9E37u) ^ ((uintptr_t)d0 << 3) ^
-                    ((uintptr_t)d2 << 7) ^ (uintptr_t)box1) %
+                    ((uintptr_t)d2 << 7) ^ (uintptr_t)box1 ^ ((uintptr_t)box2 << 9) ^
+                    ((uintptr_t)box0 << 5)) %
                    SLOTS];
   std::lock_guard<std::mutex> lock(mu);
   if (e.base != base || e.rank != rank || e.d0 != d0 || e.d1 != d1 || e.d2 != d2 ||
-      e.ld1 != ld1 || e.ld2 != ld2 || e.box1 != box1) {
-    const cuuint32_t box[3] = {64, (cuuint32_t)box1, 1};
+      e.ld1 != ld1 || e.ld2 != ld2 || e.box0 != box0 || e.box1 != box1 || e.box2 != box2) {
+    const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, (cuuint32_t)box2};
     const cuuint64_t stride[2] = {(cuuint64_t)ld1 * sizeof(bf16), (cuuint64_t)ld2 * sizeof(bf16)};
     const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
     const int err = encode_bf16_map(&e.map, base, rank, dims, stride, box,
-                                    CU_TENSOR_MAP_SWIZZLE_128B);
+                                    box0 == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                               : CU_TENSOR_MAP_SWIZZLE_128B);
     if (err) {
       e.base = nullptr;
       return err;
@@ -768,7 +824,9 @@ inline int gemm_map(CUtensorMap* map, const void* base, int rank, int d0, int d1
     e.d2 = d2;
     e.ld1 = ld1;
     e.ld2 = ld2;
+    e.box0 = box0;
     e.box1 = box1;
+    e.box2 = box2;
   }
   *map = e.map;
   return 0;
@@ -798,42 +856,51 @@ inline int sm_count_opt_in(const void* kernel, size_t smem, bool (&opted)[64], i
   return 0;
 }
 
-template <int BN, int EPI, bool AMN, bool BNM = false>
+template <int BN, int EPI, int AM, bool BNM = false>
 inline int gemm_setup(int* n_sm) {
   static bool opted[64] = {};
-  return sm_count_opt_in(reinterpret_cast<const void*>(gemm_tma_kernel<BN, EPI, AMN, BNM>),
+  return sm_count_opt_in(reinterpret_cast<const void*>(gemm_tma_kernel<BN, EPI, AM, BNM>),
                          GemmTile<BN>::SMEM, opted, n_sm);
 }
 
-template <int BN, int EPI, bool AMN, bool BNM = false>
-inline int launch_gemm_tiles(const CUtensorMap& amap, const void* w, const void* bias,
-                             const void* res, void* out, int G, int S, int N, int K, int act,
-                             cudaStream_t stream) {
+// amap2: A_HEADS' map of the k16 slices of the heads' last kh % 64 columns
+// (else amap again);
+// kh: A_HEADS' depth a head (else K)
+template <int BN, int EPI, int AM, bool BNM = false>
+inline int launch_gemm_tiles(const CUtensorMap& amap, const CUtensorMap& amap2, const void* w,
+                             const void* bias, const void* res, void* out, int G, int S, int N,
+                             int K, int act, int kh, cudaStream_t stream) {
   using T = GemmTile<BN>;
-  CUtensorMap wmap;  // K-major: (N, K) rows in (BN, 64) boxes; N-major: (K, N) rows in 64 x 64
+  // K-major: (N, K) rows in (BN, 64) boxes; N-major: (K, N) rows in 64 x 64;
+  // A_HEADS' slices: (N, heads, kh) as (j, h, n) in (16, 1, BN) boxes, zeros
+  // past kh
+  CUtensorMap wmap, wmap2;
   int err = BNM ? gemm_map_rows(&wmap, w, K, N, 64) : gemm_map_rows(&wmap, w, N, K, BN);
+  wmap2 = wmap;
+  if (!err && AM == A_HEADS && kh % 64 != 0)
+    err = gemm_map(&wmap2, w, 3, kh, K / kh, N, kh, K, 1, BN, 16);
   int n_sm = 0;
-  if (!err) err = gemm_setup<BN, EPI, AMN, BNM>(&n_sm);
+  if (!err) err = gemm_setup<BN, EPI, AM, BNM>(&n_sm);
   if (err) return err;
   const long long n_tiles =
       (long long)G * ((S + T::BM - 1) / T::BM) * ((N + BN - 1) / BN);
   const int grid = n_tiles < n_sm ? (int)n_tiles : n_sm;
-  gemm_tma_kernel<BN, EPI, AMN, BNM><<<grid, T::THREADS, T::SMEM, stream>>>(
-      amap, wmap, static_cast<const bf16*>(bias), static_cast<const bf16*>(res), out, G, S, N, K,
-      act);
+  gemm_tma_kernel<BN, EPI, AM, BNM><<<grid, T::THREADS, T::SMEM, stream>>>(
+      amap, wmap, amap2, wmap2, static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
+      out, G, S, N, K, act, kh);
   return (int)cudaGetLastError();
 }
 
-template <int EPI, bool AMN, bool BNM = false>
-inline int launch_gemm_width(const CUtensorMap& amap, const void* w, const void* bias,
-                             const void* res, void* out, int G, int S, int N, int K, int act,
-                             int bn, cudaStream_t stream) {
+template <int EPI, int AM, bool BNM = false>
+inline int launch_gemm_width(const CUtensorMap& amap, const CUtensorMap& amap2, const void* w,
+                             const void* bias, const void* res, void* out, int G, int S, int N,
+                             int K, int act, int kh, int bn, cudaStream_t stream) {
   if (bn == 256)
-    return launch_gemm_tiles<256, EPI, AMN, BNM>(amap, w, bias, res, out, G, S, N, K, act,
-                                                 stream);
+    return launch_gemm_tiles<256, EPI, AM, BNM>(amap, amap2, w, bias, res, out, G, S, N, K, act,
+                                                kh, stream);
   if (bn == 128)
-    return launch_gemm_tiles<128, EPI, AMN, BNM>(amap, w, bias, res, out, G, S, N, K, act,
-                                                 stream);
+    return launch_gemm_tiles<128, EPI, AM, BNM>(amap, amap2, w, bias, res, out, G, S, N, K, act,
+                                                kh, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -850,8 +917,8 @@ inline int launch_gemm(const void* a, const void* w, const void* bias, const voi
   CUtensorMap amap;
   const int err = gemm_map_rows(&amap, a, M, K, GemmTile<128>::BM);
   if (err) return err;
-  return launch_gemm_width<EPI, false, BNM>(amap, w, bias, res, out, 1, M, N, K, act, bn,
-                                            stream);
+  return launch_gemm_width<EPI, A_ROWS, BNM>(amap, amap, w, bias, res, out, 1, M, N, K, act, K,
+                                             bn, stream);
 }
 
 // The MN-major A: a holds G groups of a (K, S) matrix, element (g, k, s) at
@@ -869,7 +936,33 @@ inline int launch_gemm_mn(const void* a, long long ldk, long long ldg, const voi
   CUtensorMap amap;
   const int err = gemm_map(&amap, a, 3, S, K, G, ldk, ldg, 64);
   if (err) return err;
-  return launch_gemm_width<EPI, true>(amap, w, bias, res, out, G, S, N, K, act, bn, stream);
+  return launch_gemm_width<EPI, A_MN>(amap, amap, w, bias, res, out, G, S, N, K, act, K, bn,
+                                      stream);
+}
+
+// The head-leading A: x (B, heads, rows, d), element (b, h, r, j) at
+// x[((b * heads + h) * rows + r) * d + j], d % 8 == 0; w (N, heads * d)
+// [nn.Linear layout], bias (N,), res and out (B * rows, N): bf16, bases
+// 16-byte aligned; N % 8 == 0 with the residual; bn 128 or 256. Queues one
+// launch; returns a cudaError_t code.
+template <int EPI>
+inline int launch_gemm_heads(const void* x, const void* w, const void* bias, const void* res,
+                             void* out, int B, int heads, int rows, int d, int N, int bn,
+                             cudaStream_t stream) {
+  if (B < 1 || heads < 1 || rows < 1 || d < 8 || d % 8 != 0 || N < 1 ||
+      (EPI == EPI_BIAS_RESIDUAL && N % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  // (j, r, b heads + h) in (64, 128, 1) boxes, and for the k16 slices of the
+  // heads' last d % 64 columns in (16, 128, 1) boxes
+  CUtensorMap amap, amap2;
+  int err = gemm_map(&amap, x, 3, d, rows, B * heads, d, (long long)rows * d, GemmTile<128>::BM);
+  amap2 = amap;
+  if (!err && d % 64 != 0)
+    err = gemm_map(&amap2, x, 3, d, rows, B * heads, d, (long long)rows * d, GemmTile<128>::BM,
+                   1, 16);
+  if (err) return err;
+  return launch_gemm_width<EPI, A_HEADS>(amap, amap2, w, bias, res, out, B, rows, N, heads * d,
+                                         ACT_NONE, d, bn, stream);
 }
 
 }  // namespace cvlm

@@ -1,9 +1,10 @@
 // qkv_relpos: SAM's windowed attention with the decomposed rel-pos bias of
 // H + W lanes a head, per (window, head)
 //   o = softmax((q*scale) . k^T + rel[q, k / W] + rel[q, H + k % W]) . v,
-// read in place from the packed qkv projection, written head-leading.
+// read in place from the packed qkv projection, written head-leading; and
+// the same function over split, pre-scaled q, k and v.
 //
-// Replaces two TPU kernels of camouflaged_vlm_tpu/ops/flash_attention.py:
+// Replaces three TPU kernels of camouflaged_vlm_tpu/ops/flash_attention.py:
 //   flash_qkv_relpos_windows (_qkv_relpos_windows_kernel, #11) -- SAM's
 //     fused 'flash' windows whose H + W exceeds the 32 rel lanes of the
 //     packed kernels (a window of 17 or more, in the padded window carry),
@@ -13,12 +14,23 @@
 //   flash_qkv_relpos_global (_qkv_relpos_global_kernel, #19) -- the same
 //     function over one window of N tokens (nwin = 1): at ViT-H's 64 x 64
 //     grid qkv (B, 4096, 48, 80), rel (B, 4096, 16, 128), out (B, 16, 4096,
-//     80). No path of either package calls it; its JAX test does.
+//     80). No path of either package calls it; its JAX test does;
+//   flash_attention_relpos (_relpos_kernel, #10) -- SAM's unfused 'flash'
+//     attention, taken when num_heads % 8 != 0 (ViT-B's 12 heads x 64): q, k,
+//     v (BB, N, d) apart, q pre-scaled, rel (BB, N, H + W), out (BB, N, d);
+//     at batch 2 the windowed blocks' BB = 600 (25 padded 14 x 14 windows x
+//     12 heads x 2 images, rel lanes 28) and the global blocks' BB = 24 over
+//     the 64 x 64 grid. Seen with heads = nwin = 1 this is the packed form:
+//     its out (B, heads, nwin, N, d) and rel (B nwin, N, heads, H + W) are
+//     #10's. The TPU kernel adds the bias as the product rel @ sel; here
+//     sel is not read (below).
 // The head-leading output is what proj_from_heads (proj_rows.cu) reads.
 //
 // What bounds it on the H100: at window 17 and B = 2 the bytes, 105 MB
 // (0.0313 ms at 3.35 TB/s; the products are 13.7 GFLOP); at the 64 x 64
-// grid the products, 171.8 GFLOP (0.1737 ms at 989 TFLOP/s). The design is
+// grid the products, 171.8 GFLOP (0.1737 ms at 989 TFLOP/s). #10 at batch 2:
+// the global blocks' products, 103 GFLOP (0.1042 ms); the windows' bytes,
+// 67 MB (0.0199 ms at 3.35 TB/s). The design is
 // FlashAttention-3's one pass, as attn_sm90.cuh's attn_stream_kernel (#16)
 // and qkv_packed_global.cu (#17) run it, in two arrangements:
 //   * streaming (RES = false): one block per (NWG x 64 queries, head,
@@ -33,22 +45,28 @@
 //     with one warpgroup a block, 0.227 with two);
 //   all loads by TMA from the packed rows (encode_packed_rows), the window
 //   axis folded into the image axis ((B nwin, N, 3 heads d) is the same
-//   memory); rows past N come as zeros;
+//   memory); or, the split front end (SPLIT, #10), from three maps over the
+//   split rows (encode_split_rows), which land in the same core-matrix
+//   layout; rows past N come as zeros;
 //   * each consumer warpgroup stages its 64 queries' rel rows (H + W bf16
-//     lanes: 68 bytes at window 17, no TMA box) by plain loads while its q
-//     lands, scales q (scale_q_tile), then per key tile: S = Q K^T by wgmma
+//     lanes: 68 bytes at window 17, 56 at #10's windows of 14: no TMA box)
+//     by plain loads while its q
+//     lands, scales q (scale_q_tile; #10's q arrives scaled and is not
+//     touched), then per key tile: S = Q K^T by wgmma
 //     m64n64k16 into registers; the bias (below); the keys past N of a
 //     ragged last tile (289 = 4 x 64 + 33) masked to -inf; the online
 //     softmax in registers; P rounded to bf16 in registers as wgmma's
 //     register A operand for O += P V;
 //   * the bias, by the first of three ways that takes the grid:
-//     REL_REG, W equal to the key tile (the 64 x 64 grid), streaming with
+//     REL_REG, W equal to the key tile (the 64 x 64 grid: #19, and #10's
+//       global blocks over 32 query-tile pairs x 24 problems), streaming with
 //       two warpgroups as #17: a tile is one grid row, so each thread keeps
 //       rel_w of its 16 key columns for its 2 rows in registers for the
 //       whole pass and reads one rel_h a row a tile, adding the fp32 sum of
 //       the two bf16 values to the fp32 score (#17's register path);
 //     REL_TC, H + W <= 64 and resident (at d = 80 #11's windows of 17 to
-//       19 and global blocks up to 19 x 19): on the tensor cores, as #13 does:
+//       19 and global blocks up to 19 x 19; at d = 64 #10's 14 x 14
+//       windows, 196 keys in four tiles): on the tensor cores, as #13 does:
 //       the rel rows staged as q's extra chunks, lanes padded to a k16 step
 //       (48 at window 17), and a two-hot code of every key (ones at lanes
 //       k / W and H + k % W) built once a block in shared memory, so the S
@@ -71,7 +89,8 @@
 // the end, where the plain version normalises before the rounding. The
 // same single point as #16 and #17; tests/test_torch_padded_flash.py holds
 // this formulation to the JAX reference in bf16 at window 17 and on a 20 x
-// 20 grid.
+// 20 grid, and #10's (no q rounding) to the JAX kernel on 14 x 14 windows,
+// an 8 x 64 grid and a ragged 5 x 6 one.
 #include "attn_sm90.cuh"
 
 namespace cvlm {
@@ -113,15 +132,19 @@ __host__ __device__ constexpr size_t relpos_smem(int hw, int n_tiles) {
          table + sizeof(uint64_t) * bars;
 }
 
-// qkv through `map` (encode_packed_rows over B nwin images, 64 rows); rel
-// (B nwin, N, heads, H + W); out (B, heads, nwin, N, DH). NWG * 128 + 32
-// threads. Grid (ceil(N / (64 NWG)), heads, B nwin): each warpgroup one
-// query tile against a stream of k/v tiles. RES: grid (heads, B nwin), the
-// window's k and v loaded once and kept, the warpgroups taking its query
-// tiles i = wg, wg + NWG, ... through a ring of NWG q slots.
-template <int DH, int NWG, int MODE, bool RES>
+// q, k and v through qmap, kmap, vmap: the packed form one map thrice
+// (encode_packed_rows over B nwin images, 64 rows), q, k and v the chunk
+// columns of head h; SPLIT (heads = nwin = 1) three maps over the split rows
+// (encode_split_rows), q pre-scaled. rel (B nwin, N, heads, H + W); out (B,
+// heads, nwin, N, DH). NWG * 128 + 32 threads. Grid (ceil(N / (64 NWG)),
+// heads, B nwin): each warpgroup one query tile against a stream of k/v
+// tiles. RES: grid (heads, B nwin), the window's k and v loaded once and
+// kept, the warpgroups taking its query tiles i = wg, wg + NWG, ... through
+// a ring of NWG q slots.
+template <int DH, int NWG, int MODE, bool RES, bool SPLIT>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1) qkv_relpos_kernel(
-    const __grid_constant__ CUtensorMap map, const bf16* __restrict__ rel,
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ rel,
     bf16* __restrict__ out, int N, int H, int W, int heads, int nwin, float scale) {
   constexpr int TILE = RP_KT * DH;      // elements of one 64-row tile
   constexpr int QB = rp_qbuf<DH>();     // elements of a warpgroup's q buffer
@@ -186,30 +209,31 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) qkv_relpos_kernel(
 
   if (wg == NWG) {  // the producer warp: one thread issues every load
     if (tid == NWG * 128) {
+      // the chunk column of q, k and v: head h's in the packed rows, 0 apart
+      const int cq = SPLIT ? 0 : h * DH / 8, ck = SPLIT ? 0 : (heads + h) * DH / 8,
+                cv = SPLIT ? 0 : (2 * heads + h) * DH / 8;
       if constexpr (RES) {
         for (int i = 0; i < NWG && i < n_tiles; ++i) {
           const int s = qring.acquire(i, TILE * sizeof(bf16));
-          tma_load_4d(sQ + s * QB, &map, &qring.full[s], 0, 64 * i, h * DH / 8, bw);
+          tma_load_4d(sQ + s * QB, &qmap, &qring.full[s], 0, 64 * i, cq, bw);
         }
         for (int t = 0; t < n_tiles; ++t) {
           mbar_expect_tx(&bars[t], 2 * TILE * sizeof(bf16));
-          tma_load_4d(sK + t * TILE, &map, &bars[t], 0, t * RP_KT, (heads + h) * DH / 8, bw);
-          tma_load_4d(sV + t * TILE, &map, &bars[t], 0, t * RP_KT, (2 * heads + h) * DH / 8, bw);
+          tma_load_4d(sK + t * TILE, &kmap, &bars[t], 0, t * RP_KT, ck, bw);
+          tma_load_4d(sV + t * TILE, &vmap, &bars[t], 0, t * RP_KT, cv, bw);
         }
         for (int i = NWG; i < n_tiles; ++i) {
           const int s = qring.acquire(i, TILE * sizeof(bf16));
-          tma_load_4d(sQ + s * QB, &map, &qring.full[s], 0, 64 * i, h * DH / 8, bw);
+          tma_load_4d(sQ + s * QB, &qmap, &qring.full[s], 0, 64 * i, cq, bw);
         }
       } else {
         mbar_expect_tx(bars, NWG * TILE * sizeof(bf16));
         for (int w = 0; w < NWG; ++w)
-          tma_load_4d(sQ + w * QB, &map, bars, 0, q0 + 64 * w, h * DH / 8, bw);
+          tma_load_4d(sQ + w * QB, &qmap, bars, 0, q0 + 64 * w, cq, bw);
         for (int t = 0; t < n_tiles; ++t) {
           const int s = ring.acquire(t, 2 * TILE * sizeof(bf16));
-          tma_load_4d(sK + s * TILE, &map, &ring.full[s], 0, t * RP_KT, (heads + h) * DH / 8,
-                      bw);
-          tma_load_4d(sV + s * TILE, &map, &ring.full[s], 0, t * RP_KT,
-                      (2 * heads + h) * DH / 8, bw);
+          tma_load_4d(sK + s * TILE, &kmap, &ring.full[s], 0, t * RP_KT, ck, bw);
+          tma_load_4d(sV + s * TILE, &vmap, &ring.full[s], 0, t * RP_KT, cv, bw);
         }
       }
     }
@@ -230,7 +254,8 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) qkv_relpos_kernel(
   float relw[MODE == REL_REG ? 32 : 1];
 
   // the query tile at qw, its q rows in qb (TMA'd): stage its rel rows
-  // ([64][hw], REL_TC as q's extra chunks [lanes/8][64][8]), scale q
+  // ([64][hw], REL_TC as q's extra chunks [lanes/8][64][8]), scale q (SPLIT:
+  // q arrives scaled)
   auto prepare = [&](bf16* qb, int qw, uint64_t* qbar, int parity) {
     for (int e = ltid; e < 64 * lanes; e += 128) {
       const int r = e / lanes, j = e - r * lanes, q = qw + r;
@@ -238,7 +263,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) qkv_relpos_kernel(
       sRelw[MODE == REL_TC ? ((j >> 3) * 64 + r) * 8 + (j & 7) : e] = v;
     }
     mbar_wait(qbar, parity);
-    scale_q_tile<DH>(qb, scale, ltid);
+    if constexpr (!SPLIT) scale_q_tile<DH>(qb, scale, ltid);
     fence_async_shared();
     named_barrier(1 + wg, 128);
     if constexpr (MODE == REL_REG) {
@@ -413,39 +438,87 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) qkv_relpos_kernel(
   }
 }
 
-template <int DH, int NWG, int MODE, bool RES>
-int launch_relpos(const void* qkv, const void* rel, void* out, int B, int nwin, int H, int W,
-                  int heads, float scale, cudaStream_t s) {
+// q, k and v's maps (the packed form: one map thrice); grid and shared
+// memory from the arrangement
+template <int DH, int NWG, int MODE, bool RES, bool SPLIT>
+int launch_relpos(const CUtensorMap (&maps)[3], const void* rel, void* out, int B, int nwin,
+                  int H, int W, int heads, float scale, cudaStream_t s) {
   const int N = H * W, BW = B * nwin, n_tiles = (N + RP_KT - 1) / RP_KT;
   const size_t smem = relpos_smem<DH, NWG, MODE, RES>(H + W, n_tiles);
   if (smem > 227 * 1024 || BW > 65535) return (int)cudaErrorInvalidValue;
-  CUtensorMap map;
-  const int err = encode_packed_rows<DH>(&map, qkv, BW, N, heads, RP_KT);
-  if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(qkv_relpos_kernel<DH, NWG, MODE, RES>,
+  cudaError_t e = cudaFuncSetAttribute(qkv_relpos_kernel<DH, NWG, MODE, RES, SPLIT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid = RES ? dim3(heads, BW) : dim3((N + NWG * 64 - 1) / (NWG * 64), heads, BW);
-  qkv_relpos_kernel<DH, NWG, MODE, RES><<<grid, NWG * 128 + 32, smem, s>>>(
-      map, static_cast<const bf16*>(rel), static_cast<bf16*>(out), N, H, W, heads, nwin, scale);
+  qkv_relpos_kernel<DH, NWG, MODE, RES, SPLIT><<<grid, NWG * 128 + 32, smem, s>>>(
+      maps[0], maps[1], maps[2], static_cast<const bf16*>(rel), static_cast<bf16*>(out), N, H,
+      W, heads, nwin, scale);
   return (int)cudaGetLastError();
 }
 
-// W equal to the key tile (the 64 x 64 grid): rel_w in registers, streaming,
-// two warpgroups a block as #17. Else, where the window's k and v fit in
-// shared memory, resident, three warpgroups, the bias on the tensor cores
-// (H + W <= 64) or else gathered; else streaming with the gathered table.
+// The arrangement at an H x W grid: W equal to the key tile (the 64 x 64
+// grid): rel_w in registers, streaming, two warpgroups a block as #17. Else,
+// where the window's k and v fit in shared memory, resident, three
+// warpgroups, the bias on the tensor cores (H + W <= 64) or else gathered;
+// else streaming with the gathered table.
+struct RelposPlan {
+  int mode, nwg;
+  bool res;
+  size_t smem;
+};
+
 template <int DH>
-int dispatch_relpos(const void* qkv, const void* rel, void* out, int B, int nwin, int H, int W,
-                    int heads, float scale, cudaStream_t s) {
-  const int n_tiles = (H * W + RP_KT - 1) / RP_KT;
+RelposPlan relpos_plan(int H, int W) {
+  const int hw = H + W, n_tiles = (H * W + RP_KT - 1) / RP_KT;
   if (W == RP_KT)
-    return launch_relpos<DH, 2, REL_REG, false>(qkv, rel, out, B, nwin, H, W, heads, scale, s);
-  if (H + W <= 64 && relpos_smem<DH, 3, REL_TC, true>(H + W, n_tiles) <= 227 * 1024)
-    return launch_relpos<DH, 3, REL_TC, true>(qkv, rel, out, B, nwin, H, W, heads, scale, s);
-  if (relpos_smem<DH, 3, REL_TABLE, true>(H + W, n_tiles) <= 227 * 1024)
-    return launch_relpos<DH, 3, REL_TABLE, true>(qkv, rel, out, B, nwin, H, W, heads, scale, s);
-  return launch_relpos<DH, 2, REL_TABLE, false>(qkv, rel, out, B, nwin, H, W, heads, scale, s);
+    return {REL_REG, 2, false, relpos_smem<DH, 2, REL_REG, false>(hw, n_tiles)};
+  const size_t tc = relpos_smem<DH, 3, REL_TC, true>(hw, n_tiles);
+  if (hw <= 64 && tc <= 227 * 1024) return {REL_TC, 3, true, tc};
+  const size_t table = relpos_smem<DH, 3, REL_TABLE, true>(hw, n_tiles);
+  if (table <= 227 * 1024) return {REL_TABLE, 3, true, table};
+  return {REL_TABLE, 2, false, relpos_smem<DH, 2, REL_TABLE, false>(hw, n_tiles)};
+}
+
+template <int DH, bool SPLIT>
+int dispatch_relpos(const CUtensorMap (&maps)[3], const void* rel, void* out, int B, int nwin,
+                    int H, int W, int heads, float scale, cudaStream_t s) {
+  const RelposPlan p = relpos_plan<DH>(H, W);
+  if (p.mode == REL_REG)
+    return launch_relpos<DH, 2, REL_REG, false, SPLIT>(maps, rel, out, B, nwin, H, W, heads,
+                                                       scale, s);
+  if (p.mode == REL_TC)
+    return launch_relpos<DH, 3, REL_TC, true, SPLIT>(maps, rel, out, B, nwin, H, W, heads,
+                                                     scale, s);
+  if (p.res)
+    return launch_relpos<DH, 3, REL_TABLE, true, SPLIT>(maps, rel, out, B, nwin, H, W, heads,
+                                                        scale, s);
+  return launch_relpos<DH, 2, REL_TABLE, false, SPLIT>(maps, rel, out, B, nwin, H, W, heads,
+                                                       scale, s);
+}
+
+// the packed form: one map over the (B nwin, N, 3 heads DH) rows
+template <int DH>
+int relpos_packed(const void* qkv, const void* rel, void* out, int B, int nwin, int H, int W,
+                  int heads, float scale, cudaStream_t s) {
+  CUtensorMap maps[3];
+  const int err = encode_packed_rows<DH>(&maps[0], qkv, B * nwin, H * W, heads, RP_KT);
+  if (err) return err;
+  maps[1] = maps[2] = maps[0];
+  return dispatch_relpos<DH, false>(maps, rel, out, B, nwin, H, W, heads, scale, s);
+}
+
+// the split form (#10): q, k and v (BB, N, DH) apart, q pre-scaled
+template <int DH>
+int relpos_split(const void* q, const void* k, const void* v, const void* rel, void* out,
+                 int BB, int H, int W, cudaStream_t s) {
+  const int N = H * W;
+  CUtensorMap maps[3];
+  const void* base[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const int err = encode_split_rows(&maps[i], base[i], BB, N, DH, DH / 8);
+    if (err) return err;
+  }
+  return dispatch_relpos<DH, true>(maps, rel, out, BB, 1, H, W, 1, 1.f, s);
 }
 
 }  // namespace cvlm
@@ -458,8 +531,40 @@ extern "C" int cvlm_qkv_relpos(const void* qkv, const void* rel, void* out, int 
   if (B < 1 || nwin < 1 || H < 1 || W < 1 || heads < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return dispatch_relpos<64>(qkv, rel, out, B, nwin, H, W, heads, scale, s);
-    case 80: return dispatch_relpos<80>(qkv, rel, out, B, nwin, H, W, heads, scale, s);
+    case 64: return relpos_packed<64>(qkv, rel, out, B, nwin, H, W, heads, scale, s);
+    case 80: return relpos_packed<80>(qkv, rel, out, B, nwin, H, W, heads, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// #10: q (pre-scaled), k (BB, N, d), v (BB, N, dv), rel (BB, N, H+W), out
+// (BB, N, dv): bf16, bases 16-byte aligned; N == H * W; d == dv in {64, 80}
+// (SAM ViT-B, ViT-H); BB <= 65535. Returns a cudaError_t code.
+extern "C" int cvlm_attn_relpos(const void* q, const void* k, const void* v, const void* rel,
+                                void* out, int BB, int N, int H, int W, int d, int dv,
+                                void* stream) {
+  using namespace cvlm;
+  if (BB < 1 || H < 1 || W < 1 || N != H * W || d != dv) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return relpos_split<64>(q, k, v, rel, out, BB, H, W, s);
+    case 80: return relpos_split<80>(q, k, v, rel, out, BB, H, W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// What cvlm_attn_relpos and cvlm_qkv_relpos launch at an H x W grid and
+// depth d: out[0] the bias mode (0 the gathered table, 1 rel_w in
+// registers, 2 on the tensor cores), out[1] 1 where k and v are resident,
+// out[2] the consumer warpgroups, out[3] the dynamic shared memory in bytes.
+// Returns a cudaError_t code.
+extern "C" int cvlm_attn_relpos_smem(int H, int W, int d, long long* out) {
+  using namespace cvlm;
+  if (H < 1 || W < 1 || (d != 64 && d != 80)) return (int)cudaErrorInvalidValue;
+  const RelposPlan p = d == 64 ? relpos_plan<64>(H, W) : relpos_plan<80>(H, W);
+  out[0] = p.mode;
+  out[1] = p.res;
+  out[2] = p.nwg;
+  out[3] = (long long)p.smem;
+  return 0;
 }

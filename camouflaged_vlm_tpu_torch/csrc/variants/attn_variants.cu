@@ -4,9 +4,9 @@
 // own library; the package never links it).
 //   #12 qkv_windows_s_kernel<80, 256, false, QST>: QST = 1 (the dispatcher's
 //       pick at 256 keys, two blocks an SM) or 2 q' stages (one block).
-//   #11/#19 qkv_relpos_kernel<80, NWG, MODE, RES>: streaming or resident k/v,
-//       NWG consumer warpgroups, the bias gathered, in registers or on the
-//       tensor cores.
+//   #11/#19 qkv_relpos_kernel<80, NWG, MODE, RES, false>: streaming or
+//       resident k/v, NWG consumer warpgroups, the bias gathered, in
+//       registers or on the tensor cores.
 //   #18 attn_bwd_query_kernel<80, 128, REG, 3>: the register path (the C
 //       entry's pick at W = 64) or the general path (the bias and drel
 //       through the key code on the tensor cores).
@@ -33,8 +33,12 @@ extern "C" int cvlm_variant_relpos(int variant, const void* qkv, const void* rel
                                    void* stream) {
   using namespace cvlm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap maps[3];
+  const int err = encode_packed_rows<80>(&maps[0], qkv, B * nwin, H * W, heads, RP_KT);
+  if (err) return err;
+  maps[1] = maps[2] = maps[0];
 #define CVLM_RP(NWG, MODE, RES) \
-  launch_relpos<80, NWG, MODE, RES>(qkv, rel, out, B, nwin, H, W, heads, scale, s)
+  launch_relpos<80, NWG, MODE, RES, false>(maps, rel, out, B, nwin, H, W, heads, scale, s)
   switch (variant) {
     case 0: return CVLM_RP(1, REL_TABLE, false);
     case 1: return CVLM_RP(2, REL_TABLE, false);

@@ -183,21 +183,22 @@ QKV_WINDOWS_BWD = CudaKernel("flash_qkv_packed_windows_s_bwd", "cvlm_attn_bwd", 
 QKV_GLOBAL_BWD = CudaKernel("flash_qkv_packed_global_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
 
 # Attention over split q, k, v: SAM's unfused 'flash' path (#10, rel-pos
-# bias; the two-pass WMMA kernel of csrc/attn_split.cuh) and the 'aug_flash'
-# global blocks (#20; csrc/attn_fullk.cu, the TMA + wgmma one pass).
+# bias; the split front end of csrc/qkv_relpos.cu's one pass) and the
+# 'aug_flash' global blocks (#20; csrc/attn_fullk.cu). Both TMA + wgmma.
 ATTN_RELPOS = CudaKernel("flash_attention_relpos", "cvlm_attn_relpos",
                          [P, P, P, P, P, I, I, I, I, I, I])
 ATTN_FULLK = CudaKernel("flash_attention_fullk", "cvlm_attn_fullk", [P, P, P, P, I, I, I, I])
 # The one-pass TMA + wgmma attention read in place from the packed qkv,
 # written head-leading (csrc/qkv_relpos.cu): fused 'flash' windows with
 # H+W > 32 (#11) and its one-window form (#19); and the out-projection of
-# that head-leading output (csrc/proj_rows.cu) with (#8) and without (#9)
+# that head-leading output (csrc/proj_rows.cu, the GEMM template with a
+# head-leading A; the last int is the tile width) with (#8) and without (#9)
 # the residual. Each has its own count.
 _QKV_RELPOS_ARGS = [P, P, P, I, I, I, I, I, I, F]
 QKV_RELPOS_WINDOWS = CudaKernel("flash_qkv_relpos_windows", "cvlm_qkv_relpos",
                                 _QKV_RELPOS_ARGS)
 QKV_RELPOS_GLOBAL = CudaKernel("flash_qkv_relpos_global", "cvlm_qkv_relpos", _QKV_RELPOS_ARGS)
-_PROJ_HEADS_ARGS = [P, P, P, P, P, I, I, I, I, I, I]
+_PROJ_HEADS_ARGS = [P, P, P, P, P, I, I, I, I, I, I, I]
 PROJ_HEADS_RES = CudaKernel("proj_from_heads_res", "cvlm_proj_from_heads", _PROJ_HEADS_ARGS)
 PROJ_HEADS = CudaKernel("proj_from_heads", "cvlm_proj_from_heads", _PROJ_HEADS_ARGS)
 KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MASK_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS,
@@ -240,6 +241,25 @@ def attn_fullk_smem(d: int, dv: int) -> dict:
     if fn(d, dv, out):
         raise ValueError(f"cvlm_attn_fullk_smem: no kernel at d={d}, dv={dv}")
     return {"depth": out[0], "stages": out[1], "smem": out[2]}
+
+
+RELPOS_MODES = {0: "table", 1: "register", 2: "tensor_core"}
+
+
+def attn_relpos_smem(H: int, W: int, d: int) -> dict:
+    """What `cvlm_attn_relpos` (#10) and `cvlm_qkv_relpos` (#11, #19) launch
+    on an H x W grid at depth d, from the library itself
+    (`cvlm_attn_relpos_smem`): the bias mode (rel_w in "register"s, on the
+    "tensor_core"s or gathered from the code "table"), whether k and v are
+    resident, the consumer warpgroups and the dynamic shared memory."""
+    out = (ctypes.c_longlong * 4)()
+    fn = library().cvlm_attn_relpos_smem
+    fn.argtypes = [I, I, I, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    if fn(H, W, d, out):
+        raise ValueError(f"cvlm_attn_relpos_smem: no kernel at H={H}, W={W}, d={d}")
+    return {"mode": RELPOS_MODES[out[0]], "resident": bool(out[1]), "warpgroups": out[2],
+            "smem": out[3]}
 
 
 def mlp_bwd_smem() -> dict:

@@ -571,9 +571,14 @@ def flash_attention_relpos(
     W: int,
 ) -> torch.Tensor:
     """softmax(q k^T + rel @ sel) v -> (BB, N, dv): SAM's unfused 'flash'
-    attention (TPU kernel #10). The kernel (`csrc/attn_relpos.cu`) adds the
-    bias by indexing, rel[q, k // W] + rel[q, H + k % W]. Gradients: the VJP
-    of the plain version, as the JAX package's `pallas_with_xla_vjp`."""
+    attention (TPU kernel #10). The kernel is the split front end of
+    `csrc/qkv_relpos.cu`'s one pass: it adds the bias without reading sel,
+    rel[q, k // W] + rel[q, H + k % W], rounds P unnormalised and divides O
+    by the fp32 row sum at the end, where the plain version normalises
+    first. It takes d == dv in (64, 80), the head widths of SAM ViT-B and
+    ViT-H, which every configuration of the repo has; a CUDA tensor of any
+    other depth raises ValueError. Gradients: the VJP of the plain version,
+    as the JAX package's `pallas_with_xla_vjp`."""
     return autograd.run("flash_attention_relpos", _relpos_cuda, _relpos_plain,
                         (q, k, v, rel, sel), (H, W))
 
@@ -585,6 +590,8 @@ def _relpos_plain(q, k, v, rel, sel, H, W):
 def _relpos_cuda(q, k, v, rel, sel, H, W):
     name = "flash_attention_relpos"
     BB, N, d, dv = _check_split(name, q, k, v, (rel,))
+    if d != dv:
+        raise ValueError(f"{name}: CUDA kernel takes d == dv in {_SPLIT_DV}, got d={d}, dv={dv}")
     if H * W != N or rel.shape != (BB, N, H + W) or sel.shape != (H + W, N):
         raise ValueError(f"{name}: q {q.shape} rel {rel.shape} sel {sel.shape} H={H} W={W}")
     out = torch.empty((BB, N, dv), dtype=v.dtype, device=v.device)

@@ -556,7 +556,10 @@ def proj_from_heads_res(
     res: torch.Tensor,  # (B, T, S, N) — the block's residual
 ) -> torch.Tensor:
     """out[b, t, s, :] = sum_h x[b, h, t, s, :] . w[:, h*d:(h+1)*d]^T + b + res
-    -> (B, T, S, N). Counterpart of `proj_from_heads_res` (TPU kernel #8)."""
+    -> (B, T, S, N). Counterpart of `proj_from_heads_res` (TPU kernel #8).
+    The kernel (`csrc/proj_rows.cu`) is the persistent GEMM with x as a
+    K-major A split by head; it takes d % 8 == 0 and N % 8 == 0 (the
+    residual's epilogue), else a CUDA tensor raises ValueError."""
     return autograd.run("proj_from_heads_res", _proj_heads_res_cuda, proj_from_heads_ref,
                         (x, w, b, res))
 
@@ -579,9 +582,13 @@ def _proj_heads_launch(kernel, x, w, b, res):
     if (w.shape != (N, heads * d) or b.shape != (N,) or d % 8
             or (res is not None and res.shape != (B, T, S, N))):
         raise ValueError(f"{kernel.name}: shapes x {x.shape} w {w.shape} (d a multiple of 8)")
+    if res is not None and N % 8:
+        raise ValueError(f"{kernel.name}: CUDA kernel takes N % 8 == 0 with the residual, "
+                         f"got {N}")
     out = torch.empty((B, T, S, N), dtype=x.dtype, device=x.device)
     kernel(x.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr() if res is not None else None,
-           out.data_ptr(), B, heads, T, S, d, N)
+           out.data_ptr(), B, heads, T, S, d, N,
+           gemm_tile_n(T * S, N, _cuda.sm_count(x.device), False, B))
     return out
 
 

@@ -73,7 +73,8 @@ never prints its last line):
               smoke figure: 5 images have no steady state; the rate is
               `cli/eval_throughput.py`'s over 300); then
               each configuration's cascade call cut into stages at batch 1 and 2
-              (windows 16 and 17 also traced at batch 2: the card's busy time),
+              (windows 16 and 17 and ViT-B also traced at batch 2: the card's
+              busy time),
               and the CLI's host metric work per image
 
 Every kernel line carries its bound (the larger of its FLOP over the bf16
@@ -303,7 +304,8 @@ def phase_build():
     for i, ln in enumerate(lines):
         m = re.search(r"Compiling entry function '(_ZN4cvlm(15gemm_tma_kernel|14ln_rows_kernel"
                       r"|17qkv_global_kernel|18attn_stream_kernel|20qkv_windows_s_kernelILi80E"
-                      r"|17qkv_relpos_kernelILi80E|21attn_bwd_query_kernelILi80E"
+                      r"|17qkv_relpos_kernelILi80E|17qkv_relpos_kernelILi64ELi\dELi\dELb\dELb1E"
+                      r"|21attn_bwd_query_kernelILi80E"
                       r"|19attn_bwd_key_kernelILi80E|20attn_bwd_prep_kernel|17attn_fullk_kernel"
                       r"|19mlp_bwd_dual_kernel|18ln_bwd_rows_kernel)\S*)'", ln)
         if m and m.group(1) not in seen:
@@ -322,16 +324,11 @@ def phase_build():
         f"and v)")
     # dynamic shared memory of the attention kernels at their paths' shapes
     # (csrc/attn_sm90.cuh stream_smem, csrc/qkv_packed_global.cu global_smem,
-    # csrc/qkv_packed_windows_s.cu windows_s_smem, csrc/qkv_relpos.cu
-    # relpos_smem): 128 B of alignment, bf16 buffers (q, the k/v ring, rel
-    # rows), the key code table, the mbarriers
+    # csrc/qkv_packed_windows_s.cu windows_s_smem): 128 B of alignment, bf16
+    # buffers (q, the k/v ring, rel rows), the key code table, the mbarriers
     def stream(d, nwg, qrows, stages, lanes):
         return 128 + 2 * (nwg * qrows * d + 2 * stages * 64 * d + nwg * 64 * lanes) + 8 * (
             1 + 2 * stages)
-
-    def relpos(d, nwg, lanes, kv_tiles, table, bars):  # q buffers of 64 x (d + 8)
-        return 128 + 2 * (nwg * 64 * (d + 8) + 2 * kv_tiles * 64 * d + nwg * 64 * lanes) + (
-            table + 8 * bars)
 
     def windows(d, np_, edge=False, qst=2):
         return 128 + 2 * (qst * 64 * (d + 32) + np_ * (d + 32) + np_ * d) + 8 * (1 + 2 * qst) + (
@@ -342,11 +339,16 @@ def phase_build():
         f"{stream(80, 2, 64, 3, 128)} B; #13 qkv_windows_s_kernel<80, 208, false, 2> (win 14) "
         f"{windows(80, 208)} B, <128, 256, false, 2> (win 16) {windows(128, 256)} B; #12 "
         f"qkv_windows_s_kernel<80, 256, false, 1> (win 15, 16) {windows(80, 256, qst=1)} B; #15 "
-        f"qkv_windows_s_kernel<80, 112, true, 2> (R 112) {windows(80, 112, True)} B; #11 "
-        f"qkv_relpos_kernel<80, 3, REL_TC, true> (win 17: 5 resident k/v tiles, rel lanes "
-        f"padded to 48, the 320-key code table) {relpos(80, 3, 48, 5, 2 * 320 * 48, 5 + 6)} B; "
-        f"#19 qkv_relpos_kernel<80, 2, REL_REG, false> (grid 64: 3 stages) "
-        f"{relpos(80, 2, 128, 3, 0, 7)} B")
+        f"qkv_windows_s_kernel<80, 112, true, 2> (R 112) {windows(80, 112, True)} B")
+    # the one pass of qkv_relpos.cu at its paths' grids, as the library
+    # arranges it (`_cuda.attn_relpos_smem`): #10 over split q, k, v at ViT-B's
+    # windows and global grid, #11 and #19 over the packed rows at ViT-H's
+    for site, H, d, split in (("#10 windows 14", 14, 64, True), ("#10 grid 64", 64, 64, True),
+                              ("#11 window 17", 17, 80, False), ("#19 grid 64", 64, 80, False)):
+        p = _cuda.attn_relpos_smem(H, H, d)
+        log(f"[build] dynamic shared memory per block: {site} qkv_relpos_kernel<{d}, "
+            f"{p['warpgroups']}, {p['mode']}, {'resident' if p['resident'] else 'streaming'}, "
+            f"{'split' if split else 'packed'}> {p['smem']} B")
     # the attention backward at d = 80, as the library sizes it
     # (`_cuda.attn_bwd_smem`): the path, each pass's dynamic shared memory and
     # ring stages
@@ -376,10 +378,10 @@ def _check_kernel(name, kfn, pfn, args, flops=None, reads=None, library=None,
     zero-argument PyTorch call computing the same function, or None) in ms;
     the bound from `flops` and the bytes of the tensors the kernel reads
     (`reads`, default every tensor argument) plus its output. For the
-    LN-fused GEMMs, `gemm_library` is a yardstick of their products alone:
-    the same products through F.linear, without LN, mask, activation or
-    residual (`gemm_library_ms`, not `library_ms`: it computes another
-    function, and the port never calls it)."""
+    GEMMs, `gemm_library` is a yardstick of their products alone: the same
+    products through F.linear, torch.matmul or torch.einsum, without LN,
+    mask, activation, bias or residual (`gemm_library_ms`, not `library_ms`:
+    it computes another function, and the port never calls it)."""
     import torch
 
     got = kfn(*args)
@@ -408,7 +410,7 @@ def _check_kernel(name, kfn, pfn, args, flops=None, reads=None, library=None,
                  f"{'' if lib_q is None else f' (queued {lib_q:.4f} ms)'} bound "
                  f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     if gemm:
-        extra += (f" gemm_library (F.linear products alone) {gemm['gemm_library_ms']:.4f} ms "
+        extra += (f" gemm_library (the products alone) {gemm['gemm_library_ms']:.4f} ms "
                   f"(queued {gemm['gemm_library_queued_ms']:.4f} ms)")
     log(f"[kernel] {name:40s} max_abs {e['max_abs_err']:.3e} max_rel {e['max_rel']:.3e} "
         f"mean_rel {e['mean_rel']:.3e} (bound {KERNEL_REL_BOUND}) kernel {k_ms:.4f} ms "
@@ -590,6 +592,22 @@ def proj_rows_case(rn, shape, N, padded=True):
     return args, 2.0 * B * T * S * K * N, lambda: torch.matmul(x.transpose(-1, -2), w.t())
 
 
+def proj_heads_case(rn, B=2):
+    """(args, FLOP, gemm-only yardstick) of #8 at the padded carry's window-17
+    shape (batch B, SAM ViT-H width): x (B, 16, 16, 289, 80) head-leading, W
+    (1280, 1280), the bias, the residual (B, 16, 289, 1280) (#9 takes the
+    first three); the bare product as one torch.einsum over heads and d
+    (another function: no bias, no residual; W's (heads, d, N) view made
+    apart)."""
+    import torch
+
+    NH, T, S, HD, D = 16, 16, 289, 80, 1280
+    x, w = rn(B, NH, T, S, HD), rn(D, D, std=0.02)
+    args = (x, w, rn(D, std=0.02), rn(B, T, S, D))
+    xr, wh = x.view(B, NH, T * S, HD), w.view(D, NH, HD).permute(1, 2, 0).contiguous()
+    return args, 2.0 * B * T * S * D * D, lambda: torch.einsum("bhrd,hdn->brn", xr, wh)
+
+
 def proj_rows_kernels(rn, per_shape):
     """#7 against its plain version at every main-path shape (batch 2), each
     with its bound and the gemm-only yardstick; the kernels line holds
@@ -748,7 +766,8 @@ def padded_sites(rn):
     #19 over the 4096-token grid on the same loop, rel_w in registers (W =
     64, the key tile). Library calls: SDPA on views of the packed rows with
     the bias materialised (built apart) for the attention; none for #8 / #9
-    (no single call takes the head-leading input with the bias)."""
+    (no single call takes the head-leading input with the bias), beside
+    them the product alone through torch.einsum (`proj_heads_case`)."""
     import torch
     from camouflaged_vlm_tpu_torch.ops import _cuda
     from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
@@ -805,15 +824,14 @@ def padded_sites(rn):
                             reads=(qkv, rel), library=sdpa(q, k, v, bias)))
         del qkv, rel, q, k, v, bias
     # #8 / #9: x (2, 16, 16, 289, 80) head-leading -> (2, 16, 289, 1280)
-    x, w, b = rn(B, NH, 16, 289, HD), rn(D, D, std=0.02), rn(D, std=0.02)
-    res = rn(B, 16, 289, D)
-    for name, site, args in (("proj_from_heads_res", ":756", (x, w, b, res)),
-                             ("proj_from_heads", ":810", (x, w, b))):
+    args, flops, gemm = proj_heads_case(rn, B)
+    for name, site, a in (("proj_from_heads_res", ":756", args),
+                          ("proj_from_heads", ":810", args[:3])):
         out[name] = dict(
             source=src + "proj_rows.cu", replaces="camouflaged_vlm_tpu/ops/linear.py" + site,
             **_check_kernel(f"{name} (ViT-H window 17, 2x16x16x289x80 -> 1280)",
-                            getattr(lin, name), lin.proj_from_heads_ref, args,
-                            flops=2.0 * B * 16 * 289 * D * D))
+                            getattr(lin, name), lin.proj_from_heads_ref, a, flops=flops,
+                            gemm_library=gemm))
     for name, path in NO_PATH.items():
         kernel = _cuda.PROJ_HEADS if name == "proj_from_heads" else _cuda.QKV_RELPOS_GLOBAL
         out[name].update(launches=kernel.launches, path=path)
@@ -851,7 +869,7 @@ def split_attention_kernels(rn):
         del bias
         if label == "ViT-B global":  # the JSON line holds the global blocks' shape
             out["flash_attention_relpos"] = dict(
-                source="camouflaged_vlm_tpu_torch/csrc/attn_relpos.cu",
+                source="camouflaged_vlm_tpu_torch/csrc/qkv_relpos.cu",
                 replaces="camouflaged_vlm_tpu/ops/flash_attention.py:134", **r)
     BB, N, dqk, dv = B * 16, 4096, 208, 80
     q, k, v = rn(BB, N, dqk, std=dqk ** -0.5), rn(BB, N, dqk), rn(BB, N, dv)
@@ -1765,9 +1783,11 @@ def phase_eval_slice():
         log(f"[eval_slice] {label} kernel launches {counts} expected {expected}")
         check(counts == expected, f"eval_slice {label}: launch counts {counts} != {expected}")
         runs[label] = dict(counts=counts, images_per_sec=res["images_per_sec"], peak_gib=peak)
-        # the padded carry's configurations: the card's busy time of a batch-2
-        # call, which their attention kernels (#12, #11) move
-        config_stage_times(cfg, label, trace=(2,) if cfg.encoder.window_size > 14 else ())
+        # the padded carry's configurations and the unfused ViT-B: the card's
+        # busy time of a batch-2 call, which their kernels (#12, #11 + #8; #10)
+        # move
+        traced = cfg.encoder.window_size > 14 or cfg.encoder.num_heads % 8 != 0
+        config_stage_times(cfg, label, trace=(2,) if traced else ())
     shutil.rmtree(work)
     host_metric_cost()
     return runs

@@ -279,6 +279,14 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         linear.proj_rows(rn(gen, 1, 1, 64, 37), rn(gen, 64, 64), rn(gen, 64))
     with pytest.raises(ValueError, match="last stride 1"):
         linear.proj_rows(rn(gen, 1, 1, 40, 64).transpose(-1, -2), rn(gen, 64, 64), rn(gen, 64))
+    # #10 takes d == dv in (64, 80); #8's residual epilogue N % 8 == 0
+    sel = flash_attention.make_rel_scatter(5, 6, torch.bfloat16, torch.device("cuda"))
+    with pytest.raises(ValueError, match="d == dv"):
+        flash_attention.flash_attention_relpos(rn(gen, 2, 30, 48), rn(gen, 2, 30, 48),
+                                               rn(gen, 2, 30, 64), rn(gen, 2, 30, 11), sel, 5, 6)
+    with pytest.raises(ValueError, match="N % 8"):
+        linear.proj_from_heads_res(rn(gen, 1, 2, 5, 70, 64), rn(gen, 130, 128), rn(gen, 130),
+                                   rn(gen, 1, 5, 70, 130))
     with pytest.raises(ValueError, match="unsupported devices"):  # mixed devices
         linear.linear_act(x[0], rn(gen, 8, 128).cpu(), rn(gen, 8))
     with pytest.raises(ValueError, match="takes d in"):  # no attention kernel for d = 48
@@ -487,12 +495,20 @@ def test_attention_functions_launch_the_backward_kernels(gen):
 # ------------------------------------- split q, k, v attention (#10, #20)
 
 
-@pytest.mark.parametrize("BB,H,W,d", [(3, 14, 14, 64), (2, 64, 64, 64), (5, 5, 6, 64),
-                                      (2, 10, 10, 80), (1, 9, 7, 80)])
-def test_flash_attention_relpos_kernel(gen, BB, H, W, d):
+@pytest.mark.parametrize("BB,H,W,d,mode", [(3, 14, 14, 64, "tensor_core"),
+                                           (2, 64, 64, 64, "register"),
+                                           (5, 5, 6, 64, "tensor_core"),
+                                           (2, 10, 10, 80, "tensor_core"),
+                                           (1, 9, 7, 80, "tensor_core")])
+def test_flash_attention_relpos_kernel(gen, BB, H, W, d, mode):
     """Windowed (196) and global (4096) token counts at SAM ViT-B's d 64,
     ViT-H's d 80, ragged ones, odd problem counts; q pre-scaled as the
-    encoder gives it."""
+    encoder gives it. The library runs the 64 x 64 grid streaming with rel_w
+    in registers, and the windows resident with the bias on the tensor cores
+    in one block of shared memory."""
+    plan = _cuda.attn_relpos_smem(H, W, d)
+    assert plan["mode"] == mode and plan["resident"] == (mode == "tensor_core")
+    assert plan["smem"] <= 227 * 1024
     N = H * W
     q = rn(gen, BB, N, d, std=d ** -0.5)
     args = (q, rn(gen, BB, N, d), rn(gen, BB, N, d), rn(gen, BB, N, H + W),
@@ -541,6 +557,21 @@ def test_split_attention_gradients_are_the_plain_vjp(gen):
         want = torch.autograd.grad(ref(*leaves), leaves, g)
         for a, b in zip(got, want):  # the same plain backward: fp32 summation order only
             assert ((a.float() - b.float()).abs().max() / b.float().abs().max()).item() < 1e-5
+
+
+def test_relpos_and_proj_from_heads_kernels_are_deterministic(gen):
+    """No atomics: two calls of #10 (the windows' and the grid's
+    arrangements) and of #8 on the same inputs are bit-equal."""
+    for H, W in ((14, 14), (8, 64)):
+        N = H * W
+        args = (rn(gen, 6, N, 64, std=0.125), rn(gen, 6, N, 64), rn(gen, 6, N, 64),
+                rn(gen, 6, N, H + W),
+                flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda")))
+        assert torch.equal(flash_attention.flash_attention_relpos(*args, H, W),
+                           flash_attention.flash_attention_relpos(*args, H, W))
+    args = (rn(gen, 2, 4, 3, 37, 80), rn(gen, 96, 320, std=0.05), rn(gen, 96),
+            rn(gen, 2, 3, 37, 96))
+    assert torch.equal(linear.proj_from_heads_res(*args), linear.proj_from_heads_res(*args))
 
 
 # ----------- the padded carry and the head-leading attention (#12, #11, #19, #8, #9)
@@ -604,10 +635,19 @@ def test_flash_qkv_relpos_global_kernel(gen, B, H, W, heads, d):
     assert_close(got, flash_attention.flash_qkv_relpos_global_ref(qkv, rel, sel, d ** -0.5))
 
 
-@pytest.mark.parametrize("with_res", [False, True])
-@pytest.mark.parametrize("B,heads,T,S,d,N", [(2, 4, 3, 37, 80, 96), (1, 2, 5, 70, 64, 130)])
+@pytest.mark.parametrize("with_res,B,heads,T,S,d,N", [
+    (False, 2, 4, 3, 37, 80, 96), (True, 2, 4, 3, 37, 80, 96), (False, 1, 2, 5, 70, 64, 130),
+    (True, 1, 2, 5, 70, 64, 136), (True, 2, 16, 16, 289, 80, 1280), (False, 2, 3, 2, 50, 8, 40),
+    (True, 1, 5, 1, 9, 8, 64), (False, 1, 3, 2, 40, 96, 64), (True, 1, 3, 1, 33, 48, 72)])
 def test_proj_from_heads_kernel(gen, with_res, B, heads, T, S, d, N):
-    """#8 (with the residual) and #9 (without), each with its own count."""
+    """#8 (with the residual) and #9 (without), each with its own count: the
+    window-17 shape of the main path (2, 16, 16, 289, 80) -> 1280; d = 80
+    (a 64-column step a head, then the heads' last 16 columns as k16
+    slices, four a step: 4 heads fill one), 64 (no slices), 8 (one slice a
+    head, half TMA's zero fill; 3 and 5 heads leave the last step part
+    zeros), 96 (two slices a head) and 48 (three, so steps straddle heads);
+    N ragged against both tile widths. #8's residual epilogue takes N % 8 ==
+    0 (136, not #9's 130)."""
     x, w, b = rn(gen, B, heads, T, S, d), rn(gen, N, heads * d, std=0.05), rn(gen, N, std=0.1)
     kernel = _cuda.PROJ_HEADS_RES if with_res else _cuda.PROJ_HEADS
     before = kernel.launches

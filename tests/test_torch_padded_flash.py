@@ -110,7 +110,8 @@ def test_flash_qkv_relpos_windows_matches_jax(rng, B, nwin, H, W):
 
 @pytest.fixture
 def interpret(monkeypatch):
-    """Run the JAX package's Pallas kernels in interpret mode on the CPU."""
+    """Run the JAX package's Pallas kernels (attention and linear) in
+    interpret mode on the CPU."""
     orig = j_fa.pl.pallas_call
 
     def interp(*args, **kw):
@@ -120,6 +121,7 @@ def interpret(monkeypatch):
 
     monkeypatch.setattr(j_fa.pl, "pallas_call", interp)
     monkeypatch.setattr(j_fa, "_on_cpu", lambda: False)
+    monkeypatch.setattr(j_lin, "_on_cpu", lambda: False)
 
 
 @pytest.mark.parametrize("H,W,block_q", [(8, 8, 32), (6, 10, 32)])
@@ -138,7 +140,8 @@ def test_flash_qkv_relpos_global_matches_jax_kernel(rng, interpret, H, W, block_
 
 def one_pass_relpos(qkv, rel, scale, H, W, tile=64):
     """`csrc/qkv_relpos.cu`'s formulation of #11 in bf16: q * bf16(scale)
-    rounded to bf16; per 64-key tile the fp32 scores plus the fp32 sum of
+    rounded to bf16 (scale None: q as given, #10's split front end, whose q
+    arrives scaled); per 64-key tile the fp32 scores plus the fp32 sum of
     the key's two bf16 rel lanes (k // W, H + k % W); the online softmax
     (running max and sum in fp32); P = exp(s - m_running) rounded to bf16
     unnormalised, O += P V in fp32; O / l rounded to bf16 at the end.
@@ -148,7 +151,8 @@ def one_pass_relpos(qkv, rel, scale, H, W, tile=64):
     heads = qkv.shape[-2] // 3
     q, k, v = (qkv[..., i * heads:(i + 1) * heads, :].movedim(-2, 2).float()
                for i in range(3))  # (B, nwin, heads, N, d)
-    q = (q * torch.tensor(scale, dtype=bf).float()).to(bf).float()
+    if scale is not None:
+        q = (q * torch.tensor(scale, dtype=bf).float()).to(bf).float()
     key = torch.arange(H * W)
     relh = rel.movedim(-2, 2).float()
     bias = relh[..., key // W] + relh[..., H + key % W]  # (B, nwin, heads, N, N)
@@ -194,6 +198,87 @@ def test_one_pass_relpos_rounding_matches_jax(rng, interpret, H, W, nwin):
     else:
         want = j_fa.flash_qkv_relpos_global(J(qkv[:, 0]), J(rel[:, 0]), J(sel, jnp.bfloat16),
                                             scale)[:, :, None]
+    assert want.dtype == jnp.bfloat16 and got.shape == want.shape
+    max_rel, mean_rel = kernel_rel_err(got.float().numpy(), want.astype(jnp.float32))
+    assert max_rel < 1e-2 and mean_rel < 1e-2, (max_rel, mean_rel)
+
+
+@pytest.mark.parametrize("H,W", [(14, 14), (8, 64), (5, 6)])
+def test_one_pass_relpos_split_matches_jax_kernel(rng, interpret, H, W):
+    """#10 on the split front end of the same one pass: q, k, v (BB, N, 64)
+    apart and q pre-scaled (no q rounding), seen as the packed form with
+    heads = nwin = 1, in bf16 against the TPU kernel `flash_attention_relpos`
+    in interpret mode, inside the card's gate of 1e-2 max and mean relative:
+    ViT-B's 14 x 14 windows (the bias on the tensor cores, 196 keys: three
+    64-key tiles and a ragged one), an 8 x 64 grid (W the key tile: rel_w in
+    registers) and a ragged 5 x 6 grid. (`one_pass_relpos`, extended with
+    scale None.)"""
+    BB, d, N = 3, 64, H * W
+    bf = torch.bfloat16
+    q = rnd(rng, BB, N, d, scale=d ** -0.5).astype(jnp.bfloat16)
+    k, v = (rnd(rng, BB, N, d).astype(jnp.bfloat16) for _ in range(2))
+    rel = rnd(rng, BB, N, H + W, scale=0.5).astype(jnp.bfloat16)
+    sel = fa.make_rel_scatter(H, W).numpy()
+    tq, tk, tv, trel = (T(a.astype(np.float32)).to(bf) for a in (q, k, v, rel))
+    got = one_pass_relpos(torch.stack((tq, tk, tv), dim=-2)[:, None], trel[:, None, :, None],
+                          None, H, W).reshape(BB, N, d)
+    want = j_fa.flash_attention_relpos(J(q), J(k), J(v), J(rel), J(sel, jnp.bfloat16))
+    assert want.dtype == jnp.bfloat16 and got.shape == want.shape
+    max_rel, mean_rel = kernel_rel_err(got.float().numpy(), want.astype(jnp.float32))
+    assert max_rel < 1e-2 and mean_rel < 1e-2, (max_rel, mean_rel)
+
+
+def head_split_k_walk(x, w, b, res=None):
+    """`csrc/gemm_sm90.cuh`'s K walk of #8/#9 (the head-leading A) in torch,
+    k steps of 64 columns: each head's first d // 64 steps of 64 columns,
+    then the k16 slices of the heads' last d % 64 columns (zero-filled past
+    d), four a step wherever their heads lie; products summed in fp32 from
+    the bf16 operands, step by step; bias (and residual) added to the fp32
+    sum, one rounding. x (B, heads, T, S, d), w (N, heads*d) -> (B, T, S, N)."""
+    B, heads, T_, S, d = x.shape
+    N = w.shape[0]
+    rows = x.reshape(B, heads, T_ * S, d).float()
+    wh = w.float().reshape(N, heads, d)
+    acc = torch.zeros(B, T_ * S, N)
+    for h in range(heads):
+        for j0 in range(0, d // 64 * 64, 64):
+            acc += rows[:, h, :, j0:j0 + 64] @ wh[:, h, j0:j0 + 64].T
+    slices = [(h, j0) for h in range(heads) for j0 in range(d // 64 * 64, d, 16)]
+    for q0 in range(0, len(slices), 4):
+        a, wt = torch.zeros(B, T_ * S, 4, 16), torch.zeros(N, 4, 16)
+        for i, (h, j0) in enumerate(slices[q0:q0 + 4]):
+            n = min(16, d - j0)
+            a[:, :, i, :n] = rows[:, h, :, j0:j0 + n]
+            wt[:, i, :n] = wh[:, h, j0:j0 + n]
+        acc += a.reshape(B, T_ * S, 64) @ wt.reshape(N, 64).T
+    acc += b.float()
+    if res is not None:
+        acc += res.float().reshape(B, T_ * S, N)
+    return acc.to(x.dtype).reshape(B, T_, S, N)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("d", [80, 64, 8])
+def test_head_split_k_walk_matches_jax_kernel(rng, interpret, d, residual):
+    """The kernel's walk of #8 (with the residual) and #9 in bf16 against the
+    TPU kernels `proj_from_heads_res` / `proj_from_heads` in interpret mode,
+    inside the card's gate of 1e-2 max and mean relative: d = 80 (a step of
+    64 columns a head, then the three heads' last 16 as k16 slices in one
+    step, a quarter of it zeros), 64 (one step a head) and 8 (one slice a
+    head, half of it zero fill)."""
+    B, heads, T_, S, N = 2, 3, 2, 37, 24
+    bf = torch.bfloat16
+    x = rnd(rng, B, heads, T_, S, d).astype(jnp.bfloat16)
+    kernel = rnd(rng, heads * d, N, scale=0.1).astype(jnp.bfloat16)
+    b = rnd(rng, N, scale=0.1).astype(jnp.bfloat16)
+    res = rnd(rng, B, T_, S, N).astype(jnp.bfloat16) if residual else None
+    t = lambda a: T(a.astype(np.float32)).to(bf)  # noqa: E731
+    w_j = J(kernel).reshape(heads, d, N)
+    got = head_split_k_walk(t(x), t(kernel).T, t(b), None if res is None else t(res))
+    if residual:
+        want = j_lin.proj_from_heads_res(J(x), w_j, J(b)[None], J(res))
+    else:
+        want = j_lin.proj_from_heads(J(x), w_j, J(b)[None])
     assert want.dtype == jnp.bfloat16 and got.shape == want.shape
     max_rel, mean_rel = kernel_rel_err(got.float().numpy(), want.astype(jnp.float32))
     assert max_rel < 1e-2 and mean_rel < 1e-2, (max_rel, mean_rel)
