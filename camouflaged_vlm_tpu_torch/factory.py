@@ -22,10 +22,20 @@ from .models.sam_encoder import precompute_rel_tables
 from .ops.norms import LayerNormFP32
 
 
+def _normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """t ~ normal(0, std), drawn in fp32 whatever t's type (the same draws
+    as on an fp32 tensor of t's shape), then rounded to t's type."""
+    if t.dtype == torch.float32:
+        t.normal_(0.0, std, generator=generator)
+    else:
+        t.copy_(torch.empty(t.shape, device=t.device).normal_(0.0, std, generator=generator))
+
+
 def init_random_(model: nn.Module, generator: torch.Generator, scale: float = 0.02) -> None:
     """Seeded random weights: LayerNorms at (1, 0), the decoder's Gaussian PE
     matrix at unit normals, the CLIP logit scale at log(1/0.07), every other
-    tensor normal(0, scale)."""
+    tensor normal(0, scale). A tensor in a narrower type gets the fp32 draws
+    rounded, so that casting after the fill gives the same weights."""
     with torch.no_grad():
         for mod in model.modules():
             own = list(mod.named_parameters(recurse=False)) + list(
@@ -35,11 +45,11 @@ def init_random_(model: nn.Module, generator: torch.Generator, scale: float = 0.
                 if isinstance(mod, LayerNormFP32):
                     t.fill_(1.0 if name == "weight" else 0.0)
                 elif isinstance(mod, PositionEmbeddingRandom):
-                    t.normal_(0.0, 1.0, generator=generator)
+                    _normal_(t, 1.0, generator)
                 elif name == "logit_scale":
                     t.fill_(math.log(1.0 / 0.07))
                 else:
-                    t.normal_(0.0, scale, generator=generator)
+                    _normal_(t, scale, generator)
 
 
 def cast_weights_(model: nn.Module, dtype: torch.dtype) -> None:
@@ -57,16 +67,19 @@ def build_cascade(
 ) -> OVCOSCascade:
     """The cascade on `device` with seeded random weights, weights of rank
     >= 2 in cfg's compute type, no parameter requiring grad (training sets
-    its trainable ones, `train.trainable_parameters`)."""
+    its trainable ones, `train.trainable_parameters`). The weights are
+    allocated in their final types and filled one tensor at a time (each
+    drawn in fp32, then rounded), so that the build's memory peak is the
+    model's own; the weights equal an fp32 fill cast afterwards."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is available")
     with torch.device("meta"):
         model = OVCOSCascade(cfg)
+    cast_weights_(model, cfg.encoder.dtype)
     model = model.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     init_random_(model, gen)
-    cast_weights_(model, cfg.encoder.dtype)
     return model.eval().requires_grad_(False)
 
 

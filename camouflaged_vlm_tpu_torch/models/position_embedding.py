@@ -14,13 +14,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.constants import device_constant
 
-@functools.lru_cache(maxsize=8)
+
+@functools.lru_cache(maxsize=None)
 def _coords(size: int, device: torch.device) -> torch.Tensor:
     """The grid's cell centres on `device`, copied there once (a copy from
     pageable host memory at every call would make the host wait for the
     card)."""
-    return torch.from_numpy((np.arange(size, dtype=np.float32) + 0.5) / size).to(device)
+    return device_constant((np.arange(size, dtype=np.float32) + 0.5) / size, device)
 
 
 def random_position_embedding(gaussian_matrix: torch.Tensor, size: int) -> torch.Tensor:

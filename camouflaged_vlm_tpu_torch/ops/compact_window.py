@@ -37,6 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .constants import device_constant
+
 # Per head, rel lanes [0, win) hold rel_h over kh, [win, 2*win) rel_w over
 # kw; edge windows carry the virtual-pad-key logit in lane LPAD_LANE.
 REL_LANES = 32
@@ -208,8 +210,7 @@ def edge_consts(geom: CompactGeometry, dtype: torch.dtype, device="cpu"):
     """(sel (n_edge, 32, R_u) in `dtype`, kmask (n_edge, 1, R_u) fp32) on
     `device`, built once per geometry, type and device."""
     sel, km = _edge_consts_np(geom)
-    return (torch.from_numpy(sel).to(device=device, dtype=dtype),
-            torch.from_numpy(km[:, None, :].copy()).to(device))
+    return device_constant(sel, device, dtype), device_constant(km[:, None, :], device)
 
 
 def edge_rel_lpad(

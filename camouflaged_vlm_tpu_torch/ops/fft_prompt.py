@@ -14,6 +14,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .constants import device_constant
+
 
 def _line(H: int, W: int, rate: float) -> int:
     return int((H * W * rate) ** 0.5 // 2)
@@ -33,12 +35,12 @@ def _lowpass_circulant(N: int, line: int):
     return A.real.astype(np.float32), A.imag.astype(np.float32)
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=None)
 def _lowpass_circulant_on(N: int, line: int, device: torch.device):
     """`_lowpass_circulant` on `device`, copied there once (a copy from
     pageable host memory at every call would make the host wait for the
     card)."""
-    return tuple(torch.from_numpy(a).to(device) for a in _lowpass_circulant(N, line))
+    return tuple(device_constant(a, device) for a in _lowpass_circulant(N, line))
 
 
 def fft_highpass(x: torch.Tensor, rate: float) -> torch.Tensor:

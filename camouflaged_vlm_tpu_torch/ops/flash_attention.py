@@ -52,6 +52,7 @@ import torch
 
 from . import _cuda, autograd
 from .compact_window import LPAD_LANE, REL_LANES
+from .constants import device_constant
 from .layers import scaled
 from .linear import dmajor_empty
 
@@ -83,7 +84,7 @@ def make_rel_scatter(H: int, W: int, dtype: torch.dtype = torch.float32, device=
     kh, kw = np.arange(n) // W, np.arange(n) % W
     sel = np.concatenate([kh[None] == np.arange(H)[:, None],
                           kw[None] == np.arange(W)[:, None]], axis=0)
-    return torch.from_numpy(sel.astype(np.float32)).to(device=device, dtype=dtype)
+    return device_constant(sel.astype(np.float32), device, dtype)
 
 
 @functools.lru_cache(maxsize=None)

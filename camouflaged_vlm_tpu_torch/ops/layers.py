@@ -8,6 +8,8 @@ on the port's NHWC / (B, S, D) layouts, with weights in PyTorch's layouts.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -35,7 +37,16 @@ def conv_transpose_nhwc(x: torch.Tensor, conv: nn.ConvTranspose2d,
     return y.permute(0, 2, 3, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(scale: float, dtype: torch.dtype) -> float:
+    return torch.tensor(scale, dtype=dtype).item()
+
+
 def scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
     """x * scale with the scale rounded to x's type first (JAX's weak-typed
-    scalar multiply)."""
-    return x * torch.tensor(scale, dtype=x.dtype, device=x.device)
+    scalar multiply). The rounded scale goes in as a Python float: the
+    multiply computes in fp32 (bf16, fp16) or in x's type, where the
+    rounded scale is exact, so the product is rounded once, as by a tensor
+    of x's type, and no host-to-device copy is made (a CUDA graph capture
+    forbids one)."""
+    return x * _rounded(scale, x.dtype)

@@ -13,6 +13,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .constants import device_constant
+
 
 @lru_cache(maxsize=64)
 def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -33,11 +35,11 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
-@lru_cache(maxsize=64)
+@lru_cache(maxsize=None)
 def _interp_matrix_on(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     """`_interp_matrix` on `device`, copied there once: a copy from pageable
     host memory at every call would make the host wait for the card."""
-    return torch.from_numpy(_interp_matrix(in_size, out_size)).to(device)
+    return device_constant(_interp_matrix(in_size, out_size), device)
 
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .constants import device_constant
+
 
 def window_partition(x: torch.Tensor, window: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
     """(B, H, W, C) -> (B * nWin, window, window, C), plus padded (Hp, Wp)."""
@@ -58,7 +60,7 @@ def window_unpartition_seq(
     )
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def window_valid_mask(H: int, W: int, window: int, device=None) -> torch.Tensor:
     """(nWin, window*window, 1) fp32 0/1 mask of the tokens inside (H, W),
     built once per shape and device (a copy from pageable host memory at
@@ -69,4 +71,4 @@ def window_valid_mask(H: int, W: int, window: int, device=None) -> torch.Tensor:
     m = ((np.arange(Hp)[:, None] < H) & (np.arange(Wp)[None, :] < W)).astype(np.float32)
     m = m.reshape(Hp // window, window, Wp // window, window)
     m = m.transpose(0, 2, 1, 3).reshape(-1, window * window, 1)
-    return torch.from_numpy(np.ascontiguousarray(m)).to(device)
+    return device_constant(m, device)

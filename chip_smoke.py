@@ -41,6 +41,25 @@ never prints its last line):
               checked, and every kernel's launch count must match the path.
               Then the cascade call's stage times (CUDA events) and the
               calls' own device memory peak at batch 1, 2 and 4.
+  6b. graph   the same call captured as one CUDA graph (`graphs.GraphedCall`)
+              at batch 1, 2 and 4: replays bit-equal to the eager call, the
+              launches recorded at capture equal one call's expected
+              launches, a replay launches nothing from the host, a
+              torch.profiler trace of one replay holds the eager trace's
+              kernels with the same count per name; eager and graphed walls,
+              the card's busy time and idle share of each
+  6c. serve   the serve CLI's engine (`cli/serve.build_engine`: full width,
+              bf16, the 61 classes, buckets 1, 4, 16, 32 each captured by
+              warmup()): the build's peak memory, the memory reserved with
+              the four graphs, exact launches of the engine's run, requests
+              that ride each bucket equal to a direct graphed call of it on
+              the same padded batch, one HTTP round trip on localhost,
+              `serve.bench_engine`, then `cli/serve_throughput.py`'s
+              engine-only line (bucket 32, classification only)
+  6d. bench   `cli/bench.py` in this process (eager and graphed at batch 8, 1,
+              32, 2, 4; its per-batch lines and its headline: images/s, the
+              batch-1 latency, TFLOP/s, MFU, peak and reserved memory, the
+              card)
   7. grads    each hand-written backward kernel (the fused MLP's, the
               windowed and the global attention's) against its plain
               backward at the training path's full-width bf16 shapes, per
@@ -99,7 +118,6 @@ import json
 import os
 import re
 import shutil
-import subprocess
 import time
 
 import numpy as np
@@ -260,11 +278,10 @@ def phase_device():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available (this script needs an H100)")
+    from camouflaged_vlm_tpu_torch.cli.bench import card_name_and_power
+
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    smi = card_name_and_power()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; {name}; "
         "name and power limit (nvidia-smi):")
     log(smi)
@@ -1123,7 +1140,7 @@ def phase_slice():
     check(counts == expected, f"launch counts {counts} != expected {expected}")
     stage_times(session.model, session.cfg, session.text_features,
                 {bs: session.preprocess(images[:bs]) for bs in (1, 2, 4)}, trace=(1, 2))
-    return counts
+    return counts, session, images
 
 
 def stage_times(m, cfg, tf, batches, label="", iters=5, trace=()):
@@ -1183,6 +1200,15 @@ def stage_times(m, cfg, tf, batches, label="", iters=5, trace=()):
                 trace_call(lambda: call(*inputs), f"{label} batch {bs}", med[-2])
 
 
+def busy_ms(events):
+    """The union of the device events' intervals, ms: the card's busy time."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
+
+
 # runtime calls and ops that can make the host wait for the card
 SYNC_EVENTS = ("cudaMemcpy", "Synchronize", "aten::_local_scalar_dense")
 
@@ -1206,13 +1232,8 @@ def trace_call(fn, label, wall_ms, kernels=False):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1000
-    dev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in dev:  # the union of the device intervals, us
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    busy /= 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_ms(dev)
     avg = prof.key_averages()
     name = "trace" + re.sub(r"\W+", "_", label) + ".txt"
     with open(os.path.join(OUT_DIR, name), "w") as f:
@@ -1696,10 +1717,11 @@ def sam_expected(enc):
     return out
 
 
-def expected_launches(cfg, calls, clip_passes=2, backward=False):
-    """Launch counts of `calls` cascade calls (text tower once, `clip_passes`
-    CLIP vision passes per call), with SAM's backward kernels when
-    `backward` (one per fused MLP, windows and global attention)."""
+def expected_launches(cfg, calls, clip_passes=2, backward=False, text=True):
+    """Launch counts of `calls` cascade calls (`clip_passes` CLIP vision
+    passes per call), the text tower once when `text`, with SAM's backward
+    kernels when `backward` (one per fused MLP, windows and global
+    attention)."""
     from camouflaged_vlm_tpu_torch.ops import _cuda
 
     out = {k.name: 0 for k in _cuda.KERNELS}
@@ -1708,7 +1730,7 @@ def expected_launches(cfg, calls, clip_passes=2, backward=False):
         out[k] += n * calls
     for k in ("ln_linear_act_bt", "flash_qkv_packed_plain", "proj_rows", "ln_mlp_residual_bt"):
         out[k] += clip_passes * cfg.clip.vision_layers * calls
-    out["ln_mlp_residual_bt"] += cfg.clip.transformer_layers
+    out["ln_mlp_residual_bt"] += cfg.clip.transformer_layers if text else 0
     if backward:
         for fwd in ("ln_mlp_residual_bt", "flash_qkv_packed_windows_s", "flash_qkv_packed_global"):
             out[fwd + "_bwd"] = sam.get(fwd, 0) * calls
@@ -1856,22 +1878,351 @@ def config_stage_times(cfg, label, trace=()):
     del model
 
 
+# bounds of the graph phases: a replay runs the eager call's kernels on the
+# same inputs, so its outputs are bit-equal; where a library op were not,
+# its max_rel must stay within this (and the op is named)
+GRAPH_REL_BOUND = 1e-2
+GRAPH_BATCHES = (1, 2, 4)
+TRACE_ATTEMPTS = 5
+
+
+def _device_kernels(prof):
+    """Kernel names and counts of a torch.profiler trace (copies and fills
+    of the runtime left out), the card's busy ms, and the kernels' device
+    ms by name."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    ms = Counter()
+    for e in kernels:
+        ms[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    return Counter(e.name for e in kernels), busy_ms(dev), ms
+
+
+def _walls_ms(fn, iters=7):
+    """Median wall (ms) of `iters` synchronised calls after one more."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(walls))
+
+
+def phase_graph(session, images):
+    """The demo configuration's cascade call captured as one CUDA graph at
+    batch 1, 2 and 4 (`graphs.GraphedCall`, one shared pool): the replay's
+    outputs against the eager call's on the same inputs, the launches
+    recorded at capture against one call's expected launches (the text
+    tower left out: it is encoded once, outside), a replay adds no host
+    launch, a torch.profiler trace of one replay shows the eager trace's
+    kernels with the same count per name, and the walls side by side."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from camouflaged_vlm_tpu_torch.graphs import GraphedCall
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    model, cfg, tf = session.model, session.cfg, session.text_features
+    expected = expected_launches(cfg, 1, text=False)
+    pool = torch.cuda.graph_pool_handle()
+    graphs = []
+
+    def fn(inp, cimg, cmask):
+        return model.infer_cascade_with_text(inp, cimg, cmask, tf)
+
+    for bs in GRAPH_BATCHES:
+        inputs = session.preprocess(images[:bs])
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        eager = [t.clone() for t in fn(*inputs)]
+        eager_counts = _cuda.launch_counts()
+        t0 = time.perf_counter()
+        g = GraphedCall(fn, *inputs, pool=pool)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        graphs.append(g)
+        check(eager_counts == expected, f"graph b{bs}: eager launches {eager_counts}")
+        check(g.launches == expected,
+              f"graph b{bs}: launches at capture {g.launches} != expected {expected}")
+        before = _cuda.launch_counts()
+        out = g(*inputs)
+        torch.cuda.synchronize()
+        check(_cuda.launch_counts() == before, f"graph b{bs}: a replay launched from the host")
+        diffs = {}
+        for name, a, b in zip(("probs", "pred", "logits"), out, eager):
+            check(a.shape == b.shape and a.dtype == b.dtype, f"graph b{bs}: {name} shape/type")
+            if not torch.equal(a, b):
+                diffs[name] = errors(a, b)["max_rel"]
+        if diffs:  # name the stage that differs, then hold it to the bound
+            log(f"[graph] batch {bs}: replay not bit-equal to eager: max_rel {diffs}; "
+                f"stages: {graph_stage_diffs(model, cfg, tf, inputs)}")
+            check(max(diffs.values()) <= GRAPH_REL_BOUND, f"graph b{bs}: max_rel {diffs}")
+        # the kernels of one eager call and of one replay (no input copy); a
+        # trace can lose device records (seen once in ~3.5% of a replay's),
+        # so a pair that differs is traced again, up to TRACE_ATTEMPTS times
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            traces = {}
+            for label, call in (("eager", lambda: fn(*inputs)),
+                                ("graph", lambda: g(*g.static_inputs))):
+                call()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    call()
+                    torch.cuda.synchronize()
+                traces[label] = _device_kernels(prof)
+            (k_eager, busy_eager, _), (k_graph, busy_graph, ms_graph) = (traces["eager"],
+                                                                         traces["graph"])
+            delta = {k[:80]: (k_eager.get(k, 0), k_graph.get(k, 0))
+                     for k in set(k_eager) | set(k_graph) if k_eager.get(k) != k_graph.get(k)}
+            if not delta:
+                break
+            log(f"[graph] batch {bs}: trace pair {attempt} differs: "
+                f"{sum(k_eager.values())} kernels eager, {sum(k_graph.values())} replay; "
+                f"(eager, replay) by name: {delta}")
+        eager_ms = _walls_ms(lambda: fn(*inputs))
+        graph_ms = _walls_ms(lambda: g(*inputs))
+        log(f"[graph] batch {bs}: capture {capture_s:.2f} s; launches at capture "
+            f"{sum(g.launches.values())} = expected; replay outputs "
+            f"{'bit-equal to eager' if not diffs else diffs}; trace: {sum(k_graph.values())} "
+            f"kernels of {len(k_graph)} names in the replay, {sum(k_eager.values())} of "
+            f"{len(k_eager)} eager; card busy {busy_graph:.2f} ms replay, {busy_eager:.2f} ms "
+            f"eager; wall (median of 7, ms): eager {eager_ms:.2f}, graph {graph_ms:.2f} "
+            f"(x{eager_ms / graph_ms:.2f}); idle share {1 - busy_graph / graph_ms:.3f} graph, "
+            f"{1 - busy_eager / eager_ms:.3f} eager; trace pair {attempt}")
+        check(sum(k_graph.values()) > 0, f"graph b{bs}: the replay's trace holds no kernel")
+        check(not delta, f"graph b{bs}: kernels (eager, replay) differ: {delta}")
+        # where a replay's card time goes: the port's kernels against the
+        # library's and aten's
+        ours = sum(t for k, t in ms_graph.items() if "cvlm::" in k)
+        n_ours = sum(n for k, n in k_graph.items() if "cvlm::" in k)
+        top = "; ".join(f"{re.sub(r'^void |<.*$|[(].*$', '', k)} {t:.2f} ms x {k_graph[k]}"
+                        for k, t in ms_graph.most_common(8))
+        log(f"[graph] batch {bs}: the replay's kernels {sum(ms_graph.values()):.2f} ms: the "
+            f"port's csrc kernels {ours:.2f} ms in {n_ours} launches, the rest (aten, cuBLAS, "
+            f"cuDNN) {sum(ms_graph.values()) - ours:.2f} ms; the most: {top}")
+    log(f"[graph] memory reserved with the {len(graphs)} graphs alive (one pool): "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB; allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    del graphs
+    torch.cuda.empty_cache()
+
+
+def graph_stage_diffs(model, cfg, tf, inputs):
+    """max_rel of each stage's output between a graphed and an eager run
+    of that stage alone, on the same inputs: where a replay differs."""
+    import torch
+
+    from camouflaged_vlm_tpu_torch.graphs import GraphedCall
+    from camouflaged_vlm_tpu_torch.ops.resize import resize_bilinear
+
+    inp, cimg, cmask = inputs
+    feats, _ = model.image_encoder(inp)
+    ifeat, tfeat, _, _ = model.clip_model.classify(cimg, cmask, tf)
+    masks, _, _ = model._decode(feats, model._sparse_embeddings(ifeat, tfeat))
+    alpha = resize_bilinear(torch.sigmoid(masks.float()), cfg.clip_size, cfg.clip_size)
+    stages = {
+        "SAM encoder": (lambda x: model.image_encoder(x)[0], (inp,)),
+        "CLIP pass 1": (lambda c, m: model.clip_model.classify(c, m, tf)[3], (cimg, cmask)),
+        "decoder + upsample": (lambda f, a, b: model._decode(
+            f, model._sparse_embeddings(a, b))[0], (feats, ifeat, tfeat)),
+        "CLIP pass 2": (lambda c, m: model.clip_model.classify(c, m, tf)[3], (cimg, alpha)),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (f, args) in stages.items():
+            want = f(*args).clone()
+            got = GraphedCall(f, *args)(*args)
+            out[name] = 0.0 if torch.equal(got, want) else errors(got, want)["max_rel"]
+    return out
+
+
+def phase_serve(images):
+    """The serving engine at full width on the default buckets (1, 4, 16,
+    32), built by the serve CLI (`cli/serve.build_engine`: bf16, seeded
+    weights, the 61 test classes, uint8 masks; the build's own peak
+    memory), `warmup()` capturing every bucket; exact launches of the
+    engine's run (the text encode, then per bucket two eager warm-up calls
+    and the captured one); memory reserved with the four graphs; requests
+    of 1, 3, 10 and 20 images (buckets 1, 4, 16, 32, padded), each
+    request's mask, pred and logits equal to a direct graphed call of its
+    bucket on the same padded batch; one HTTP round trip on localhost;
+    `bench_engine` (masked, inputs staged) and `cli/serve_throughput.py`'s
+    engine-only line."""
+    import http.client
+    import io
+
+    import torch
+
+    from camouflaged_vlm_tpu_torch.cli import serve as serve_cli
+    from camouflaged_vlm_tpu_torch.cli import serve_throughput
+    from camouflaged_vlm_tpu_torch.data.transforms import (
+        clip_image_resized_u8, sam_image_resized_u8,
+    )
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+    from camouflaged_vlm_tpu_torch.serve import bench_engine
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base, base_alloc = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    # a long coalescing window, so that each burst below rides one batch
+    engine = serve_cli.build_engine(serve_cli.parse_args(["--max-delay-ms", "300"]))
+    torch.cuda.synchronize()
+    log(f"[serve] the serve CLI's build (model, weights, 61-class text encode): peak "
+        f"{(torch.cuda.max_memory_allocated() - base_alloc) / 2 ** 30:.3f} GiB above the "
+        f"{base_alloc / 2 ** 30:.3f} GiB allocated before it (torch.cuda.max_memory_allocated)")
+    cfg, names, buckets = engine.cfg, engine.classnames, engine.serve_cfg.buckets
+    try:
+        t0 = time.perf_counter()
+        engine.warmup()
+        warm_s = time.perf_counter() - t0
+        check(engine.ready(), "serve: not ready after warmup")
+        reserved = torch.cuda.memory_reserved() / 2 ** 30
+        log(f"[serve] warmup: {len(buckets)} buckets {buckets} captured in {warm_s:.1f} s; "
+            f"memory reserved {reserved:.2f} GiB ({(reserved - base / 2 ** 30):.2f} GiB more "
+            f"than before the engine; one pool for the buckets), allocated "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+        for b, g in engine._graphs.items():
+            check(g.launches == expected_launches(cfg, 1, text=False),
+                  f"serve: bucket {b} launches at capture {g.launches}")
+        rng = np.random.default_rng(3)
+        pool = [(sam_image_resized_u8(im, cfg.inp_size), clip_image_resized_u8(im, cfg.clip_size))
+                for im in images]
+        pool += [(rng.integers(0, 256, a.shape, dtype=np.uint8),
+                  rng.integers(0, 256, c.shape, dtype=np.uint8)) for a, c in pool[:3]]
+        for n, bucket in zip((1, 3, 10, 20), buckets):
+            reqs = [pool[i % len(pool)] for i in range(n)]
+            t0 = time.perf_counter()
+            futs = [engine.submit(a, c) for a, c in reqs]
+            got = [f.result(timeout=600) for f in futs]
+            wall = 1e3 * (time.perf_counter() - t0)
+            pad = reqs + [reqs[-1]] * (bucket - n)
+            with engine._graph_lock:
+                want = [t.cpu() for t in engine._graphs[bucket](
+                    *(torch.from_numpy(np.stack([r[j] for r in pad])).cuda() for j in (0, 1)))]
+            for i, (m, p, s) in enumerate(got):
+                check(np.array_equal(m, want[0][i].numpy()) and p == int(want[1][i])
+                      and np.array_equal(s, want[2][i].float().numpy()),
+                      f"serve: request {i} of {n} differs from bucket {bucket}'s direct call")
+            log(f"[serve] {n} request(s) -> bucket {bucket}: each mask, pred and logits equal "
+                f"to a direct graphed call of bucket {bucket} on the padded batch; wall from "
+                f"the first submit to the last result {wall:.1f} ms; preds "
+                f"{sorted({names[g[1]] for g in got})[:4]}")
+        s = engine.stats()
+        check(s["errors"] == 0 and s["requests"] == 34 and s["batches"] == 4,
+              f"serve: stats {s}")
+        # the engine's launches: the text tower once, three calls a bucket
+        # (two eager warm-ups and the capture); the replays add none
+        counts = _cuda.launch_counts()
+        want = expected_launches(cfg, 3 * len(buckets))
+        log(f"[serve] kernel launches of the engine's run {counts} expected {want}")
+        check(counts == want, f"serve: launch counts {counts} != {want}")
+        server, thread = serve_cli.serve_forever(engine, "127.0.0.1", 0, quiet=True)
+        try:
+            buf = io.BytesIO()
+            images[1].save(buf, format="PNG")
+            conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
+            t0 = time.perf_counter()
+            conn.request("POST", "/predict", body=buf.getvalue())
+            r = conn.getresponse()
+            body = r.read()
+            rt = 1e3 * (time.perf_counter() - t0)
+            resp = json.loads(body)
+            check(r.status == 200 and resp["class"] in names and "mask_png_b64" in resp,
+                  f"serve: HTTP {r.status} {body[:200]}")
+            conn.request("GET", "/metrics")
+            metrics = conn.getresponse().read().decode()
+            conn.close()
+            log(f"[serve] HTTP POST /predict on localhost ({images[1].size[0]}x"
+                f"{images[1].size[1]} PNG): 200, class {resp['class']!r}, round trip "
+                f"{rt:.1f} ms (the server's latency_ms {resp['latency_ms']}); /metrics "
+                f"{metrics.splitlines()[0]}")
+        finally:
+            server.shutdown()
+            server.server_close()
+        rep = bench_engine(engine, n_images=128, stage_inputs=True)
+        log(f"[serve] bench_engine, masked, staged: {rep['images_per_sec']:.2f} images/s over "
+            f"128 requests ({rep['elapsed_s']:.2f} s); batches {rep['batch_size_hist']}; "
+            f"per-bucket latency ms {json.dumps(rep['bucket_latency_ms'])}")
+    finally:
+        engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    # the engine-only mode: its own model, bucket 32, classification only
+    rep = serve_throughput.main(["--requests", "192", "--buckets", "32", "--max-delay-ms", "5"])
+    log(f"[serve] cli/serve_throughput.py engine-only: {rep['images_per_sec']:.2f} images/s "
+        f"over 192 requests at bucket 32 (classification only, inputs staged); program-only "
+        f"{rep['program_only_images_per_sec']:.2f} images/s; capture {rep['warmup_s']:.1f} s; "
+        f"{rep['card']}")
+    torch.cuda.empty_cache()
+
+
+def phase_bench():
+    """`cli/bench.py` in this process: the full cascade in bf16, eager and
+    one CUDA graph per batch at 8, 1, 32, 2, 4 (5 timed calls each), its
+    per-batch lines and its headline."""
+    import torch
+
+    from camouflaged_vlm_tpu_torch.cli import bench
+
+    out = bench.main(["--iters", "5", "--warmup", "2"])
+    for b, r in out["per_batch"].items():
+        check(r["graph_vs_eager_max_abs"]["pred"] == 0.0, f"bench b{b}: graph pred differs")
+        log(f"[bench] batch {b}: graph {r['graph_images_per_sec']:.2f} images/s "
+            f"({r['graph_ms_per_call']:.2f} ms a call, latency {r['graph_latency_ms']:.2f}), "
+            f"eager {r['eager_images_per_sec']:.2f} ({r['eager_ms_per_call']:.2f} ms, latency "
+            f"{r['eager_latency_ms']:.2f}); x{r['graph_images_per_sec'] / r['eager_images_per_sec']:.2f}; "
+            f"capture {r['capture_s']:.2f} s, {r['launches_at_capture']} launches; peak "
+            f"{r['peak_memory_gib']:.3f} GiB; graph vs eager max_abs {r['graph_vs_eager_max_abs']}")
+    h = out["headline"]
+    log(f"[bench] headline: {json.dumps(h)}")
+    check(h["value"] > 0 and h["mfu"] is not None, f"bench headline {h}")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if os.path.exists(LOG_FILE):
         os.remove(LOG_FILE)
-    name, smi = phase_device()
-    phase_build()
-    results = phase_kernels()
-    phase_small()
-    phase_vit_h()
-    phase_padded()
-    counts = phase_slice()
-    grads = phase_grads()
-    phase_train_small()
-    train_counts = phase_train_slice()
-    phase_train_val()
-    phase_unfused()
-    evals = phase_eval_slice()
+    t_start = time.perf_counter()
+
+    def timed(phase, *args):
+        import torch
+
+        t0 = time.perf_counter()
+        out = phase(*args)
+        log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s (script at "
+            f"{time.perf_counter() - t_start:.1f} s); device memory allocated after it "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, reserved "
+            f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+        return out
+
+    name, smi = timed(phase_device)
+    timed(phase_build)
+    results = timed(phase_kernels)
+    timed(phase_small)
+    timed(phase_vit_h)
+    timed(phase_padded)
+    counts, session, images = timed(phase_slice)
+    timed(phase_graph, session, images)
+    timed(phase_serve, images)
+    del session
+    timed(phase_bench)
+    grads = timed(phase_grads)
+    timed(phase_train_small)
+    train_counts = timed(phase_train_slice)
+    timed(phase_train_val)
+    timed(phase_unfused)
+    evals = timed(phase_eval_slice)
     import torch
 
     # launches: each kernel's count in the run of its own main path (the

@@ -412,11 +412,17 @@ def test_port_imports_nothing_of_the_jax_package():
         "    importlib.import_module(n)\n"
         "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
         "print('IMPORTED', len(names))\n"
+        "print('NAMES', ' '.join(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split("IMPORTED")[1]) > 40
+    assert int(proc.stdout.split("IMPORTED")[1].split()[0]) > 40
+    # the serving engine, the graph helper and the bench among them
+    imported = set(proc.stdout.split("NAMES")[1].split())
+    for m in ("serve", "graphs", "ops.constants", "cli.serve", "cli.bench",
+              "cli.serve_throughput"):
+        assert f"camouflaged_vlm_tpu_torch.{m}" in imported, m
 
     import ast
 
