@@ -47,9 +47,9 @@ import torch
 from ..config import DTYPES
 from ..data.ovcamo import TEST_CLASS_NAMES
 from ..data.transforms import ONES_ALPHA_VALUE
-from ..factory import attach_rel_cache, build_full_cascade, build_tiny_cascade, make_bank_inputs
+from ..factory import attach_rel_cache, build_cascade, make_bank_inputs
 from ..graphs import GraphedCall
-from .common import device_or_raise
+from .common import cascade_config, device_or_raise, refuse_fp32_on_card
 
 SWEEP = (8, 1, 32, 2, 4)
 # NVIDIA's data sheet, H100 SXM, dense bf16 at 700 W
@@ -235,9 +235,10 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
 
 def main(argv: Sequence[str] = None) -> Dict:
     args = parse_args(argv)
+    cfg = cascade_config(None, args.tiny, args.dtype)
+    refuse_fp32_on_card(args.device, cfg)
     device = device_or_raise(args.device)
-    build = build_tiny_cascade if args.tiny else build_full_cascade
-    model, cfg = build(DTYPES[args.dtype], device, args.seed)
+    model = build_cascade(cfg, device, args.seed)
     attach_rel_cache(model)
     bank = make_bank_inputs(cfg, TEST_CLASS_NAMES, seed=args.seed, device=device)
     text_features = model.encode_class_text_features(

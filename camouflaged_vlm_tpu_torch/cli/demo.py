@@ -7,10 +7,14 @@ green overlay named `[<predicted class>]<input name>` and the mask as
 
 Usage:
   python -m camouflaged_vlm_tpu_torch.cli.demo --image scorpionfish.jpg \
-      --out-dir ./demo_out [--cascade-ckpt model_epoch_best.pth]
+      --out-dir ./demo_out --cascade-ckpt model_epoch_best.pth \
+      [--clip-ckpt ViT-L-14-336px.pt --text-bank TestCamoPromptsTextFeatures.pth]
 
-Without `--cascade-ckpt` the weights are random (seeded by `--seed`), so the
-class is arbitrary. `--device cuda` on a machine without a GPU raises; the
+The checkpoint flags (`cli/common.py`: `--sam-ckpt`, `--clip-ckpt`,
+`--maple-ckpt`, `--cascade-ckpt`, `--text-bank`) take the reference's
+files; the weights no file sets are random (seeded by `--seed`), so without
+them the class is arbitrary. `--device cuda` on a machine without a GPU
+raises, and so does float32 on the card (`common.refuse_fp32_on_card`); the
 demo never carries on on the CPU unless `--device cpu` asks for it.
 """
 
@@ -27,14 +31,15 @@ from PIL import Image
 from ..config import DTYPES
 from ..data.ovcamo import TEST_CLASS_NAMES
 from ..data.transforms import clip_image_transform, clip_ones_alpha, sam_image_transform
-from ..factory import (
-    attach_rel_cache,
-    build_full_cascade,
-    build_tiny_cascade,
-    make_bank_inputs,
-)
+from ..factory import attach_rel_cache, build_full_cascade, build_tiny_cascade
 from ..utils.image import bilinear_resize_f32
-from .common import device_or_raise, load_cascade_ckpt
+from .common import (
+    add_checkpoint_flags,
+    cascade_config,
+    device_or_raise,
+    load_checkpoints,
+    refuse_fp32_on_card,
+)
 
 
 def overlay_mask(image: np.ndarray, mask01: np.ndarray, alpha: float = 0.5) -> np.ndarray:
@@ -55,8 +60,7 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
     p.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
-    p.add_argument("--cascade-ckpt", default=None,
-                   help="reference-layout cascade state dict (.pth), loaded strict")
+    add_checkpoint_flags(p)
     args = p.parse_args(argv)
     if not os.path.exists(args.image):
         p.error(f"--image {args.image!r} does not exist")
@@ -64,9 +68,11 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
 
 
 class DemoSession:
-    """The model, its class split and the split's encoded text features."""
+    """The model, its class split, the split's class bank and its encoded
+    text features."""
 
     def __init__(self, args: argparse.Namespace):
+        refuse_fp32_on_card(args.device, cascade_config(None, args.tiny, args.dtype))
         device = device_or_raise(args.device)
         build = build_tiny_cascade if args.tiny else build_full_cascade
         self.model, cfg = build(DTYPES[args.dtype], device, args.seed)
@@ -74,13 +80,14 @@ class DemoSession:
             args.classnames.split(",") if args.classnames else list(TEST_CLASS_NAMES)
         )
         self.cfg, self.device = cfg, device
-        if args.cascade_ckpt:
-            load_cascade_ckpt(self.model, args.cascade_ckpt, device)
+        make_bank = load_checkpoints(
+            self.model, cfg, clip_ckpt=args.clip_ckpt, maple_ckpt=args.maple_ckpt,
+            sam_ckpt=args.sam_ckpt, cascade_ckpt=args.cascade_ckpt, seed=args.seed)
         attach_rel_cache(self.model)  # after the weights are final
-        bank = make_bank_inputs(cfg, self.classnames, seed=args.seed, device=device)
+        self.bank = make_bank(self.classnames, args.text_bank)
         self.text_features = self.model.encode_class_text_features(
-            bank["prefix"], bank["suffix"], bank["eot_indices"], bank["bank_features"]
-        )
+            self.bank["prefix"], self.bank["suffix"], self.bank["eot_indices"],
+            self.bank["bank_features"])
 
     def preprocess(self, images: Sequence[Image.Image]):
         cfg, dev = self.cfg, self.device

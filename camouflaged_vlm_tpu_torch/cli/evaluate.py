@@ -17,11 +17,12 @@ Usage:
 
 `--config` takes a native or a reference-format yaml; the port ships SAM
 ViT-B's (`camouflaged_vlm_tpu_torch/configs/ovcos-sam-vit-b-maskdecoder-edge.yaml`).
-Without `--cascade-ckpt` the weights are random (seeded by `--seed`).
-`--device cuda` (the default) on a host without a card raises. Not ported
-(ROADMAP.md, Queue 1): `--data-parallel/--n-model` (multi-device) and
-`--sam-ckpt/--clip-ckpt/--maple-ckpt/--text-bank` (checkpoint interop: their
-converters).
+The checkpoint flags (`--sam-ckpt`, `--clip-ckpt`, `--maple-ckpt`,
+`--cascade-ckpt`, `--text-bank`: the reference's files, `cli/common.py`)
+set the weights and the test split's bank; what no file sets is random
+(seeded by `--seed`). `--device cuda` (the default) on a host without a
+card raises, and so does float32 on the card. Not ported (ROADMAP.md, Queue
+1): `--data-parallel/--n-model` (multi-device).
 """
 
 from __future__ import annotations
@@ -49,10 +50,17 @@ from ..data.transforms import (
     OPENAI_CLIP_MEAN,
     OPENAI_CLIP_STD,
 )
-from ..factory import attach_rel_cache, build_cascade, make_bank_inputs
+from ..factory import attach_rel_cache, build_cascade
 from ..metrics import ClassificationEvaluator, CODMetrics, OVCOSMetricer
 from ..utils.image import bilinear_resize_f32
-from .common import Logger, cascade_config, device_or_raise, load_cascade_ckpt
+from .common import (
+    Logger,
+    add_checkpoint_flags,
+    cascade_config,
+    device_or_raise,
+    load_checkpoints,
+    refuse_fp32_on_card,
+)
 
 # batches dispatched before the oldest is drained
 IN_FLIGHT = 3
@@ -187,8 +195,7 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--output-dir", default="./eval_results")
     p.add_argument("--save-images", action="store_true")
-    p.add_argument("--cascade-ckpt", default=None,
-                   help="reference-layout cascade state dict (.pth), loaded strict")
+    add_checkpoint_flags(p)
     p.add_argument("--dtype", default=None, choices=sorted(DTYPES),
                    help="compute type; default the config's (bfloat16 without --config)")
     p.add_argument("--mask-dtype", default="float16", choices=["float16", "float32"],
@@ -204,8 +211,9 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
 def main(argv: Sequence[str] = None) -> dict:
     """Evaluate and write <output-dir>/results.json; return the results."""
     args = parse_args(argv)
-    device = device_or_raise(args.device)
     cfg = cascade_config(args.config, args.tiny, args.dtype)
+    refuse_fp32_on_card(args.device, cfg)
+    device = device_or_raise(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     log = Logger(args.output_dir)
 
@@ -216,9 +224,10 @@ def main(argv: Sequence[str] = None) -> dict:
         f"{cfg.encoder.embed_dim} wide x {cfg.encoder.depth} blocks, "
         f"{cfg.encoder.num_heads} heads, attn_impl={cfg.encoder.attn_impl!r}")
     model = build_cascade(cfg, device, args.seed)
-    if args.cascade_ckpt:
-        load_cascade_ckpt(model, args.cascade_ckpt, device)
-    bank = make_bank_inputs(cfg, index.classes, seed=args.seed, device=device)
+    make_bank = load_checkpoints(model, cfg, clip_ckpt=args.clip_ckpt,
+                                 maple_ckpt=args.maple_ckpt, sam_ckpt=args.sam_ckpt,
+                                 cascade_ckpt=args.cascade_ckpt, seed=args.seed, log=log)
+    bank = make_bank(index.classes, args.text_bank)
     save_path = os.path.join(args.output_dir, "result_image") if args.save_images else None
     results = evaluate(model, cfg, bank, index, batch_size=args.batch_size,
                        save_img_path=save_path, oracle_cls=args.oracle_cls,

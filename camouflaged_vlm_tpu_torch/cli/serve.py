@@ -21,13 +21,14 @@ requests still run, then the process exits.
 
 Usage:
   python -m camouflaged_vlm_tpu_torch.cli.serve --port 8000 \
-      [--cascade-ckpt model_epoch_best.pth] [--config configs/<yaml>]
+      [--cascade-ckpt model_epoch_best.pth --clip-ckpt ViT-L-14-336px.pt \
+       --text-bank TestCamoPromptsTextFeatures.pth] [--config configs/<yaml>]
 
-Without `--cascade-ckpt` the weights are random (seeded by `--seed`).
-`--device cuda` (the default) on a machine without a GPU raises. Not
-ported: the JAX server's checkpoint converters (`--sam-ckpt`,
-`--clip-ckpt`, `--maple-ckpt`, `--text-bank`) and its multi-device
-serving (`--data-parallel`, `--n-model`).
+The checkpoint flags (`cli/common.py`) take the reference's files; what no
+file sets is random (seeded by `--seed`). `--device cuda` (the default) on
+a machine without a GPU raises, and so does float32 on the card. Not
+ported: the JAX server's multi-device serving (`--data-parallel`,
+`--n-model`).
 """
 
 from __future__ import annotations
@@ -48,9 +49,15 @@ from PIL import Image
 
 from ..config import DTYPES
 from ..data.ovcamo import TEST_CLASS_NAMES
-from ..factory import build_cascade, make_bank_inputs
+from ..factory import build_cascade
 from ..serve import InferenceEngine, ServeConfig
-from .common import cascade_config, device_or_raise, load_cascade_ckpt
+from .common import (
+    add_checkpoint_flags,
+    cascade_config,
+    device_or_raise,
+    load_checkpoints,
+    refuse_fp32_on_card,
+)
 
 
 def log(msg: str) -> None:
@@ -175,8 +182,7 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
-    p.add_argument("--cascade-ckpt", default=None,
-                   help="reference-layout cascade state dict (.pth), loaded strict")
+    add_checkpoint_flags(p)
     p.add_argument("--config", default=None, help="a model yaml (instead of --tiny)")
     p.add_argument("--classnames", default=None,
                    help="comma-separated; default the OVCamo test split (61 classes)")
@@ -196,13 +202,15 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
 
 def build_engine(args: argparse.Namespace) -> InferenceEngine:
     """The engine the flags describe (the model built, its weights loaded)."""
-    device = device_or_raise(args.device)
     cfg = cascade_config(args.config, args.tiny, args.dtype)
+    refuse_fp32_on_card(args.device, cfg)
+    device = device_or_raise(args.device)
     classnames = args.classnames.split(",") if args.classnames else list(TEST_CLASS_NAMES)
     model = build_cascade(cfg, device, args.seed)
-    if args.cascade_ckpt:
-        load_cascade_ckpt(model, args.cascade_ckpt, device)
-    bank = make_bank_inputs(cfg, classnames, seed=args.seed, device=device)
+    make_bank = load_checkpoints(model, cfg, clip_ckpt=args.clip_ckpt,
+                                 maple_ckpt=args.maple_ckpt, sam_ckpt=args.sam_ckpt,
+                                 cascade_ckpt=args.cascade_ckpt, seed=args.seed, log=log)
+    bank = make_bank(classnames, args.text_bank)
     return InferenceEngine(model, cfg, bank, classnames, ServeConfig(
         buckets=tuple(int(b) for b in args.buckets.split(",")),
         max_delay_ms=args.max_delay_ms, mask_dtype=args.mask_dtype))

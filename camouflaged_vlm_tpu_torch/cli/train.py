@@ -19,8 +19,14 @@ As in the JAX package, the training forward is conditioned on the TEST
 split's class-text features (the reference passes `self.training` into
 CustomCLIP's `label` slot, so its test-branch prompts run at every step);
 the text tower is frozen, so those features are encoded once per run.
-Without checkpoints the weights are random (seeded by `--seed`). `--device
-cuda` on a machine without a GPU raises.
+The checkpoint flags (`cli/common.py`: `--sam-ckpt`, `--clip-ckpt`,
+`--maple-ckpt`) set the starting weights, and the banks come as in the JAX
+CLI (`cli/train.py:184-196`): `--text-bank`, the test split's, conditions
+validation and the training forward; the train split's bank is built from
+`--train-text-bank`, else `--text-bank`, and conditions nothing (the JAX
+CLI hands it only to the parameter init). What no file sets is random
+(seeded by `--seed`). `--device cuda` on a machine without a GPU raises,
+and so does float32 on the card.
 
 `--config` takes a model yaml (native or the reference's format), as the
 JAX CLI does, and its train section sets the recipe: `epochs`,
@@ -28,8 +34,7 @@ JAX CLI does, and its train section sets the recipe: `epochs`,
 yaml's `epoch_max`, `lr_min`, ...) replace the flags where present.
 
 Not ported yet (ROADMAP.md, Queue 1): data/tensor parallelism (multi-device;
-validation runs on the one device), remat and the checkpoint-loading flags
-(checkpoint interop). The JAX CLI's `--fused-optimizer` is left out on
+validation runs on the one device) and remat. The JAX CLI's `--fused-optimizer` is left out on
 purpose: its "auto" changes the optimizer state's layout, so a resume from an
 older checkpoint fails (ROADMAP.md, Queue 3).
 """
@@ -49,7 +54,7 @@ import yaml
 from ..config import DTYPES, cascade_config_from_yaml
 from ..data.loader import iter_train_batches
 from ..data.ovcamo import OVCamoIndex
-from ..factory import attach_rel_cache, build_cascade, make_bank_inputs
+from ..factory import attach_rel_cache, build_cascade
 from ..io.checkpoint import restore_checkpoint, save_checkpoint
 from ..train import (
     SCANNED_BATCH_KEYS,
@@ -58,7 +63,13 @@ from ..train import (
     make_train_step,
     trainable_parameters,
 )
-from .common import Logger, cascade_config, device_or_raise
+from .common import (
+    Logger,
+    cascade_config,
+    device_or_raise,
+    load_checkpoints,
+    refuse_fp32_on_card,
+)
 from .evaluate import evaluate
 
 # the train-section keys of a yaml that replace the flags (JAX's CLI)
@@ -88,6 +99,15 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
                    help="model config yaml (native or the reference's format)")
     p.add_argument("--tiny", action="store_true", help="tiny config (smoke test)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--sam-ckpt", default=None, help="SAM backbone (sam_vit_h_4b8939.pth)")
+    p.add_argument("--clip-ckpt", default=None,
+                   help="OpenAI CLIP TorchScript archive (ViT-L-14-336px.pt)")
+    p.add_argument("--maple-ckpt", default=None,
+                   help="dassl MaPLe prompt learner (model-best.pth.tar)")
+    p.add_argument("--text-bank", default=None,
+                   help="the TEST split's bank: conditions validation and the training forward")
+    p.add_argument("--train-text-bank", default=None,
+                   help="the train split's bank (default --text-bank)")
     p.add_argument("--resume", action="store_true",
                    help="continue from <save-dir>/ckpt_last.pt: weights, optimizer state "
                    "and step")
@@ -122,10 +142,12 @@ def main(argv: Sequence[str] = None) -> dict:
     """Train; return {"model", "optimizer", "step", "epochs": [per-epoch
     mean metrics], "step_seconds": [wall seconds of every step],
     "validations": [{"epoch", **evaluate() results} per validation],
-    "best_mae", "text_features": the test split's, which condition training}."""
+    "best_mae", "text_features": the test split's, which condition training,
+    "bank" and "train_bank": the test and the train split's class banks}."""
     args = parse_args(argv)
-    device = device_or_raise(args.device)
     cfg = cascade_config(args.config, args.tiny, args.dtype)
+    refuse_fp32_on_card(args.device, cfg)
+    device = device_or_raise(args.device)
     os.makedirs(args.save_dir, exist_ok=True)
     log = Logger(args.save_dir)
 
@@ -136,6 +158,10 @@ def main(argv: Sequence[str] = None) -> dict:
     log(f"[train] {len(train_index)} samples / {len(train_index.classes)} classes")
 
     model = build_cascade(cfg, device, args.seed)
+    make_bank = load_checkpoints(model, cfg, clip_ckpt=args.clip_ckpt,
+                                 maple_ckpt=args.maple_ckpt, sam_ckpt=args.sam_ckpt,
+                                 seed=args.seed, log=log)
+    train_bank = make_bank(train_index.classes, args.train_text_bank or args.text_bank)
     params = trainable_parameters(model)
     steps_per_epoch = max(1, len(train_index) // args.batch_size)
     schedule = cosine_epoch_schedule(args.lr, args.epochs, steps_per_epoch, args.eta_min)
@@ -162,7 +188,7 @@ def main(argv: Sequence[str] = None) -> dict:
 
     # the reference's quirk: the training forward sees the TEST split's
     # class-text features, encoded once (the text tower is frozen)
-    bank = make_bank_inputs(cfg, val_index.classes, seed=args.seed, device=device)
+    bank = make_bank(val_index.classes, args.text_bank)
     text_features = model.encode_class_text_features(
         bank["prefix"], bank["suffix"], bank["eot_indices"], bank["bank_features"])
     train_step = make_train_step(model, optimizer, schedule, args.loss, args.accum_steps)
@@ -211,7 +237,8 @@ def main(argv: Sequence[str] = None) -> dict:
         log("training done")
     return {"model": model, "optimizer": optimizer, "step": step, "epochs": epochs,
             "step_seconds": step_seconds, "validations": validations,
-            "best_mae": best_mae, "text_features": text_features}
+            "best_mae": best_mae, "text_features": text_features, "bank": bank,
+            "train_bank": train_bank}
 
 
 if __name__ == "__main__":

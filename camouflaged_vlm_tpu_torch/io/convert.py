@@ -1,10 +1,21 @@
-"""JAX parameter tree -> the port's `state_dict`, without JAX.
+"""The reference's checkpoints and JAX parameter trees -> the port's
+`state_dict`, without JAX.
 
-Counterpart of the export half of `camouflaged_vlm_tpu/io/convert.py`
-(`export_state_dict`, `cascade_key_map`). The port's modules use the
-reference's state-dict key names, so the reference layout *is* the port's
-layout: a JAX/flax param tree, given as a nested dict of numpy arrays,
-becomes a state dict by the same key map and the same inverse transforms:
+Counterpart of `camouflaged_vlm_tpu/io/convert.py`. The port's modules use
+the reference's state-dict key names, so the reference layout *is* the
+port's layout.
+
+The reference's own files (`io/torch_loader.py` reads them) become the
+port's keys by renames and key filters, no transposes: `convert_sam_backbone`
+(the SAM `.pth`), `convert_openai_clip` (the OpenAI archive) and
+`convert_maple_prompt_learner` (the dassl prompt learner) each return the
+entries of the model they set, which `merge_into_state` copies into the
+model with its shapes checked. Like the JAX converters they are not strict:
+a key the file lacks leaves the model's weight as it is.
+
+A JAX/flax param tree, given as a nested dict of numpy arrays, becomes a
+state dict by the same key map as `export_cascade_checkpoint` and the same
+inverse transforms:
 
   linear_w  kernel (in, out)           -> weight (out, in)
   conv_w    kernel (kh, kw, in, out)   -> weight (out, in, kh, kw)
@@ -204,3 +215,137 @@ def state_dict_from_jax_params(params: Mapping, cfg: CascadeConfig) -> Dict[str,
 def load_jax_params(model: nn.Module, params: Mapping, cfg: CascadeConfig) -> None:
     """Load flax cascade params into the port's model (strict)."""
     model.load_state_dict(state_dict_from_jax_params(params, cfg), strict=True)
+
+
+# ------------------------------------------- the reference's files -> the port
+
+
+# (the port's key, the file's key) of each entry a converter reads
+KeyPair = Tuple[str, str]
+
+CLIP_VISION = "clip_model.image_encoder."
+CLIP_TEXT = "clip_model.text_encoder."
+PROMPT_LEARNER = "clip_model.prompt_learner."
+
+
+def sam_backbone_keys(cfg: CascadeConfig) -> List[str]:
+    """The keys `sam_vit_h_4b8939.pth` can set, which the reference loads
+    with strict=False (`train_ovcos_maskdecoder_edge.py:296-299`): the whole
+    encoder map, and the stock decoder's entries that the edge decoder shares
+    by name (no `cond`, `edge` or `embedding_` entries)."""
+    stock = [e for e in _mask_decoder_map(cfg)
+             if "cond" not in e[0] and "edge" not in e[0] and "embedding_" not in e[0]]
+    return [tk for tk, _, _ in _sam_encoder_map(cfg) + stock]
+
+
+def openai_clip_pairs(clip: AlphaClipConfig, in_proj_renamed: bool) -> List[KeyPair]:
+    """The port's CLIP tower keys and their names in an OpenAI state dict:
+    `visual.*` for the vision tower (its fused attention weights named
+    `in_proj_weight`, or `in_proj.weight` in the form the reference renames
+    them to, `alpha_clip_rw/model.py:864-874`), the text tower's keys bare,
+    and `logit_scale`. Not the prompt learner."""
+    out: List[KeyPair] = []
+    for tk, _, _ in _clip_map(clip):
+        if tk.startswith(CLIP_VISION):
+            fk = "visual." + tk[len(CLIP_VISION):]
+            if not in_proj_renamed:
+                fk = fk.replace("attn.in_proj.weight", "attn.in_proj_weight").replace(
+                    "attn.in_proj.bias", "attn.in_proj_bias")
+            out.append((tk, fk))
+        elif tk.startswith(CLIP_TEXT):
+            out.append((tk, tk[len(CLIP_TEXT):]))
+        elif tk == "clip_model.logit_scale":
+            out.append((tk, "logit_scale"))
+    return out
+
+
+def maple_pairs(clip: AlphaClipConfig, prefix: str) -> List[KeyPair]:
+    """The prompt learner's keys and their names in a dassl state dict,
+    `prompt_learner.ctx` (prefix 'prompt_learner') or bare `ctx` ('')."""
+    head = f"{prefix}." if prefix else ""
+    return [(tk, head + tk[len(PROMPT_LEARNER):]) for tk, _, _ in _clip_map(clip)
+            if tk.startswith(PROMPT_LEARNER)]
+
+
+def _rename(sd: Mapping[str, torch.Tensor], pairs) -> Tuple[Dict[str, torch.Tensor],
+                                                            List[str]]:
+    """The file's entries under the port's keys, and the file keys absent."""
+    out, missing = {}, []
+    for tk, fk in pairs:
+        if fk in sd:
+            out[tk] = sd[fk]
+        else:
+            missing.append(fk)
+    return out, missing
+
+
+def convert_sam_backbone(sd: Mapping[str, torch.Tensor], cfg: CascadeConfig):
+    """A SAM backbone state dict -> (the port's entries it sets, missing
+    keys). Its other keys (`prompt_encoder.*`, ...) are ignored."""
+    return _rename(sd, [(k, k) for k in sam_backbone_keys(cfg)])
+
+
+def convert_openai_clip(sd: Mapping[str, torch.Tensor], clip: AlphaClipConfig):
+    """An OpenAI (or Alpha-CLIP) state dict -> (the port's CLIP tower
+    entries, `token_embedding.weight` as fp32 numpy or None, missing keys),
+    with the reference's surgeries (`alpha_clip_rw/model.py:864-881`):
+    either in-proj naming; `conv1_alpha` made of zeros when absent."""
+    sd = dict(sd)
+    if "visual.conv1_alpha.weight" not in sd and "visual.conv1.weight" in sd:
+        sd["visual.conv1_alpha.weight"] = torch.zeros_like(sd["visual.conv1.weight"][:, 0:1])
+    renamed = any("in_proj.weight" in k for k in sd)
+    out, missing = _rename(sd, openai_clip_pairs(clip, renamed))
+    tok = sd.get("token_embedding.weight")
+    return out, (tok.detach().float().numpy() if tok is not None else None), missing
+
+
+def convert_maple_prompt_learner(sd: Mapping[str, torch.Tensor], clip: AlphaClipConfig):
+    """A dassl MaPLe state dict, wrapped (`prompt_learner.*`) or bare ->
+    (the port's prompt-learner entries, missing keys), without the
+    token_prefix/suffix buffers (`models/sam_maskdecoder_edge.py:192-201`).
+    Raises ValueError when no key matches: the model would run on random
+    prompts."""
+    sd = {k: v for k, v in sd.items() if not k.endswith(
+        ("token_prefix", "token_suffix", "token_prefix_test", "token_suffix_test"))}
+    prefix = "prompt_learner" if any(k.startswith("prompt_learner") for k in sd) else ""
+    out, missing = _rename(sd, maple_pairs(clip, prefix))
+    if not out:
+        raise ValueError("MaPLe checkpoint matched no prompt-learner keys: the model would "
+                         f"run with random prompts. Checkpoint keys: {sorted(sd)[:6]}...")
+    return out, missing
+
+
+def merge_into_state(model: nn.Module, entries: Mapping[str, torch.Tensor]) -> int:
+    """Copy converted entries into the model's parameters and buffers, one
+    tensor at a time, each cast to the type the model holds it in. Raises
+    KeyError for a key the model lacks and ValueError for a shape that
+    differs, before anything is copied. Returns the number copied."""
+    own = model.state_dict(keep_vars=True)
+    for k, v in entries.items():
+        if k not in own:
+            raise KeyError(f"converted entry {k} not in the model")
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"shape mismatch at {k}: checkpoint {tuple(v.shape)} vs model "
+                             f"{tuple(own[k].shape)}")
+    with torch.no_grad():
+        for k, v in entries.items():
+            own[k].copy_(v)
+    return len(entries)
+
+
+def reference_state_dict(model_sd: Mapping[str, torch.Tensor], cfg: CascadeConfig,
+                         strict: bool = False) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """The port's state dict -> the reference's `model.state_dict()` layout
+    in fp32 (`cascade_key_map`'s entries, in its order), and the keys
+    absent; `strict` raises on the first. The counterpart of
+    `export_cascade_checkpoint`."""
+    out: Dict[str, torch.Tensor] = {}
+    missing: List[str] = []
+    for tk, _, _ in cascade_key_map(cfg):
+        if tk in model_sd:
+            out[tk] = model_sd[tk].detach().to("cpu", torch.float32).contiguous()
+        elif strict:
+            raise KeyError(f"state dict missing {tk}")
+        else:
+            missing.append(tk)
+    return out, missing

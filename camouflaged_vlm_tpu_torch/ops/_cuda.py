@@ -150,6 +150,13 @@ LN_MLP_RESIDUAL = CudaKernel(
     "ln_mlp_residual_bt", "cvlm_ln_mlp_residual",
     [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I],
 )
+# The same function in float32 (csrc/ln_mlp_residual_f32.cu: the LN row pass,
+# fc1 and fc2 as tiled FFMA products on the CUDA cores), for the CLIP text
+# tower of the bank precompute; its own count.
+LN_MLP_RESIDUAL_F32 = CudaKernel(
+    "ln_mlp_residual_bt_f32", "cvlm_ln_mlp_residual_f32",
+    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I],
+)
 PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, L, L, I, I, I])
 QKV_PACKED_PLAIN = CudaKernel(
     "flash_qkv_packed_plain", "cvlm_qkv_packed_plain", [P, P, I, I, I, I, I, F]
@@ -204,7 +211,8 @@ PROJ_HEADS = CudaKernel("proj_from_heads", "cvlm_proj_from_heads", _PROJ_HEADS_A
 KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MASK_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS,
            QKV_PACKED_PLAIN, QKV_WINDOWS, QKV_EDGE, QKV_GLOBAL,
            LN_MLP_RESIDUAL_BWD, QKV_WINDOWS_BWD, QKV_GLOBAL_BWD, ATTN_RELPOS, ATTN_FULLK,
-           QKV_WINDOWS_PADDED, QKV_RELPOS_WINDOWS, QKV_RELPOS_GLOBAL, PROJ_HEADS_RES, PROJ_HEADS)
+           QKV_WINDOWS_PADDED, QKV_RELPOS_WINDOWS, QKV_RELPOS_GLOBAL, PROJ_HEADS_RES, PROJ_HEADS,
+           LN_MLP_RESIDUAL_F32)
 
 
 def reset_launches() -> None:

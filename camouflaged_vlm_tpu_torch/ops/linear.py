@@ -333,8 +333,8 @@ def ln_mlp_residual_bt_bwd_ref(x, gamma, beta, w1, b1, w2, b2, g, eps=1e-6,
             sum_rows(dh).to(b1.dtype), dw2, sum_rows(g.float()).to(b2.dtype))
 
 
-def _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2):
-    _cuda.check_dtype(name, torch.bfloat16, x, w1, b1, w2, b2)
+def _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2, dtype=torch.bfloat16):
+    _cuda.check_dtype(name, dtype, x, w1, b1, w2, b2)
     _cuda.check_dtype(name, torch.float32, gamma, beta)
     K, H = x.shape[-1], w1.shape[0]
     if (w1.shape != (H, K) or w2.shape != (K, H) or b1.shape != (H,)
@@ -343,7 +343,38 @@ def _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2):
     return K, H
 
 
+def f32_tile(M: int, N: int, n_sm: int) -> int:
+    """The fp32 instance's GEMM tile (csrc/ln_mlp_residual_f32.cu): 128 x 128,
+    or 64 x 64 where the 128-wide tiles would not give every SM one."""
+    return 128 if -(-M // 128) * -(-N // 128) >= n_sm else 64
+
+
+def _ln_mlp_residual_f32_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation):
+    """The fp32 instance (the CLIP text tower of the bank precompute): the
+    LN rows and the hidden in fp32 scratch, products on the CUDA cores in
+    full fp32, per row panel of `mlp_panel_rows`."""
+    name = "ln_mlp_residual_bt (float32)"
+    K, H = _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2, torch.float32)
+    if K % 4 or H % 4:  # 16-byte rows
+        raise ValueError(f"{name}: CUDA kernel takes K % 4 == 0 and H % 4 == 0, got {K}, {H}")
+    M = x.numel() // K
+    rows = mlp_panel_rows(M, H)
+    n_sm = _cuda.sm_count(x.device)
+    out = torch.empty_like(x)
+    scratch = torch.empty(rows * (K + H), dtype=x.dtype, device=x.device)
+    xn = scratch.data_ptr()
+    _cuda.LN_MLP_RESIDUAL_F32(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), xn, xn + 4 * rows * K, M, K, H, rows,
+        float(eps), _cuda.ACTIVATIONS[activation], f32_tile(rows, H, n_sm),
+        f32_tile(rows, K, n_sm),
+    )
+    return out
+
+
 def _ln_mlp_residual_bt_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation):
+    if x.dtype == torch.float32:
+        return _ln_mlp_residual_f32_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation)
     name = "ln_mlp_residual_bt"
     K, H = _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2)
     _check_tma_k(name, K, H)
@@ -456,15 +487,21 @@ def ln_mlp_residual_bt(
     activation: str = "gelu_tanh",
 ) -> torch.Tensor:
     """x + act(LN(x) . w1^T + b1) . w2^T + b2: on the card the LN row pass,
-    fc1 and fc2 with the residual, one entry point, the bf16 hidden in a
-    scratch of at most MLP_SCRATCH_ELEMS (row panels beyond). Counterpart of
+    fc1 and fc2 with the residual, one entry point, the hidden in a scratch
+    of at most MLP_SCRATCH_ELEMS elements (row panels beyond). Counterpart of
     `ln_mlp_residual_bt` (TPU kernels #4 and #5; `hidden_grid` is a TPU
     tiling knob and has no counterpart), with the backward of #6 when a
-    gradient is wanted."""
+    gradient is wanted. x in bfloat16 runs the TMA + wgmma kernel, x in
+    float32 its fp32 instance (`_ln_mlp_residual_f32_cuda`), which has no
+    backward on the card yet."""
     tensors = (x, gamma, beta, w1, b1, w2, b2)
     fwd = autograd.forward_fn("ln_mlp_residual_bt", _ln_mlp_residual_bt_cuda,
                               ln_mlp_residual_bt_ref, tensors)
     if autograd.wants_grad(*tensors):
+        if fwd is _ln_mlp_residual_bt_cuda and x.dtype == torch.float32:
+            raise NotImplementedError(
+                "ln_mlp_residual_bt: no float32 backward on the card (#6 takes bfloat16); "
+                "it comes with MaPLe training, ROADMAP.md Queue 1 item 5")
         return LnMlpResidual.apply(fwd, *tensors, eps, activation)
     return fwd(*tensors, eps, activation)
 

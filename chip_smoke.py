@@ -20,7 +20,11 @@ never prints its last line):
               cascade call ([per_call]); the
               general bias path of #17 at ViT-H's token count, the padded carry's
               kernels (#12, #11, #8) at ViT-H's windows 16 and 17, and the
-              two that no path reaches (#9, #19) at the shapes they would take
+              two that no path reaches (#9, #19) at the shapes they would take;
+              the fp32 instance of #4/#5 at the bank precompute's shapes (462
+              and 6160 rows, K 768, H 3072) against its plain version in fp32
+              with TF32 off, within 1e-4, its bound against the fp32 CUDA-core
+              peak (67 TFLOP/s)
   4. small    a small cascade in bf16 on the card against the same weights
               in fp32 on the CPU (the plain versions, which the CPU tests tie
               to the JAX package); its SAM runs 'flash' with 8 heads on a
@@ -56,7 +60,21 @@ never prints its last line):
               the same padded batch, one HTTP round trip on localhost,
               `serve.bench_engine`, then `cli/serve_throughput.py`'s
               engine-only line (bucket 32, classification only)
-  6d. bench   `cli/bench.py` in this process (eager and graphed at batch 8, 1,
+  6d. ckpt    seeded full-width files in the reference's formats (the SAM
+              ViT-H `.pth` in fp32, the OpenAI ViT-L/14@336 TorchScript
+              archive in fp16, the dassl MaPLe `.pth.tar`, a `.npy` bank of
+              the 61 test classes) under build/, read by the demo CLI's
+              session (--sam-ckpt, --clip-ckpt, --maple-ckpt, --text-bank)
+              through [slice]'s requests: every loaded weight equal to the
+              file's value cast to its type, conv1_alpha zeros, [slice]'s
+              launch counts exactly, outputs bit-equal to a model with that
+              state dict loaded directly; the build's seconds and device peak
+  6e. bank    `cli/precompute_text_bank.py` from that archive (fp32 tower):
+              the 61 test classes with camoprompts, the first 4 with
+              imagenet80, each within 1e-4 of the same CLI with the tower's
+              MLP on its plain fp32 version, 12 launches of the fp32 #4/#5
+              an encode call; then the files are deleted
+  6f. bench   `cli/bench.py` in this process (eager and graphed at batch 8, 1,
               32, 2, 4; its per-batch lines and its headline: images/s, the
               batch-1 latency, TFLOP/s, MFU, peak and reserved memory, the
               card)
@@ -97,11 +115,13 @@ never prints its last line):
               and the CLI's host metric work per image
 
 Every kernel line carries its bound (the larger of its FLOP over the bf16
-tensor-core peak and its bytes over the HBM rate, at this run's shapes) and
+tensor-core peak, the fp32 one's over the fp32 CUDA-core peak, and its bytes
+over the HBM rate, at this run's shapes) and
 the time of one PyTorch library call computing the same function where
 there is one. Before its last line the script prints one JSON object
-{"kernels": [...]} of 19 kernels (one per wrapper; `ln_mlp_residual_bt`
-serves TPU kernels #4 and #5), each with its launches on its path, or, for
+{"kernels": [...]} of 20 kernels (one per wrapper; `ln_mlp_residual_bt`
+serves TPU kernels #4 and #5, and `ln_mlp_residual_bt_f32` is their fp32
+instance, with its launches from [bank]), each with its launches on its path, or, for
 #9 and #19, which no path reaches, in their check with a "path" field
 saying so, and its times on both clocks (`ms`, `plain_ms`, `library_ms` on an
 idle card; `queued_ms`, `library_queued_ms` queued) and the host's cost of
@@ -170,6 +190,18 @@ TRAIN_SMALL_LOSS_REL_BOUND = 1e-2
 # (each input it reads once, each output written once) over the second.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
+# ... and its float32 rate on the CUDA cores (no tensor cores), the peak of
+# the fp32 instance of #4/#5, which computes in full fp32 (FFMA)
+PEAK_F32_FLOPS = 67e12
+# fp32 #4/#5 against its plain version (cuBLAS fp32 with TF32 off), max|d| /
+# max|ref| and mean|d| / mean|ref|: the same function with no rounding
+# point, differing in the order of fp32 sums over K = 768 and H = 3072
+# (~1e-6); 1e-4 leaves ~100x
+F32_REL_BOUND = 1e-4
+# the text bank from the fp32 kernel against the same from the plain fp32
+# version on the card: the per-prompt features above through 12 layers,
+# then means and norms
+BANK_REL_BOUND = 1e-4
 # the repo's configurations the eval slice runs
 VIT_H_YAML = os.path.join("configs", "ovcos-sam-vit-h-maskdecoder-edge.yaml")
 VIT_B_YAML = os.path.join("camouflaged_vlm_tpu_torch", "configs",
@@ -265,10 +297,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(flops: float, n_bytes: int) -> dict:
-    """The least time the card could take: FLOP over the bf16 peak or bytes
-    over the HBM rate, whichever is larger, and which one it is."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, n_bytes / PEAK_HBM_BYTES_PER_S
+def bound(flops: float, n_bytes: int, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    """The least time the card could take: FLOP over the peak of their type
+    (bf16 tensor cores unless given) or bytes over the HBM rate, whichever
+    is larger, and which one it is."""
+    t_ops, t_bytes = flops / peak_flops, n_bytes / PEAK_HBM_BYTES_PER_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -389,7 +422,7 @@ def gemm_smem(bn):
 
 
 def _check_kernel(name, kfn, pfn, args, flops=None, reads=None, library=None,
-                  gemm_library=None):
+                  gemm_library=None, rel_bound=KERNEL_REL_BOUND, peak_flops=PEAK_BF16_FLOPS):
     """Kernel against its plain version on the same inputs: shape, type,
     finite, within KERNEL_REL_BOUND; times (kernel, plain, and `library`, a
     zero-argument PyTorch call computing the same function, or None) in ms;
@@ -398,7 +431,8 @@ def _check_kernel(name, kfn, pfn, args, flops=None, reads=None, library=None,
     GEMMs, `gemm_library` is a yardstick of their products alone: the same
     products through F.linear, torch.matmul or torch.einsum, without LN,
     mask, activation, bias or residual (`gemm_library_ms`, not `library_ms`:
-    it computes another function, and the port never calls it)."""
+    it computes another function, and the port never calls it). The fp32
+    kernel passes its own `rel_bound` and `peak_flops`."""
     import torch
 
     got = kfn(*args)
@@ -409,7 +443,7 @@ def _check_kernel(name, kfn, pfn, args, flops=None, reads=None, library=None,
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
     e = errors(got, want)
     tensors = [a for a in (args if reads is None else reads) if isinstance(a, torch.Tensor)]
-    b = bound(flops, nbytes(*tensors, got)) if flops is not None else {}
+    b = bound(flops, nbytes(*tensors, got), peak_flops) if flops is not None else {}
     del got, want
     k_ms = time_ms(lambda: kfn(*args))
     k_q = time_ms(lambda: kfn(*args), queued=True)
@@ -430,9 +464,9 @@ def _check_kernel(name, kfn, pfn, args, flops=None, reads=None, library=None,
         extra += (f" gemm_library (the products alone) {gemm['gemm_library_ms']:.4f} ms "
                   f"(queued {gemm['gemm_library_queued_ms']:.4f} ms)")
     log(f"[kernel] {name:40s} max_abs {e['max_abs_err']:.3e} max_rel {e['max_rel']:.3e} "
-        f"mean_rel {e['mean_rel']:.3e} (bound {KERNEL_REL_BOUND}) kernel {k_ms:.4f} ms "
+        f"mean_rel {e['mean_rel']:.3e} (bound {rel_bound}) kernel {k_ms:.4f} ms "
         f"(queued {k_q:.4f} ms, host {k_host:.1f} us a launch) plain {p_ms:.4f} ms{extra}")
-    check(e["max_rel"] < KERNEL_REL_BOUND and e["mean_rel"] < KERNEL_REL_BOUND,
+    check(e["max_rel"] < rel_bound and e["mean_rel"] < rel_bound,
           f"{name} disagrees with its plain version: {e}")
     return dict(max_abs_err=e["max_abs_err"], ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                 queued_ms=k_q, library_queued_ms=lib_q, host_us=k_host, **b, **gemm)
@@ -554,7 +588,51 @@ def phase_kernels():
         per_call_table(per_shape)
         results.update(split_attention_kernels(rn))
         results.update(padded_sites(rn))
+        results.update(f32_mlp_kernels(rn))
     return results
+
+
+# the text tower's MLP shapes in the bank precompute: one class's prompts x
+# 77 tokens a call (camoprompts 6, imagenet80 80), 768 wide, H 3072
+F32_MLP_ROWS = {"camoprompts": 6 * 77, "imagenet80": 80 * 77}
+
+
+def f32_mlp_kernels(rn):
+    """The fp32 instance of #4/#5 (csrc/ln_mlp_residual_f32.cu) against its
+    plain version in fp32 at the bank precompute's shapes, TF32 off (set in
+    [device]); its bound against the fp32 CUDA-core peak; the library time
+    of the same function through F.layer_norm, F.linear, the activation, F.linear
+    and the residual. The kernels line holds the camoprompts shape."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    F = torch.nn.functional
+    f32, K, H, eps = torch.float32, 768, 3072, 1e-5
+    check(not torch.backends.cuda.matmul.allow_tf32, "fp32 kernel check needs TF32 off")
+    out = {}
+    for site, M in F32_MLP_ROWS.items():
+        x = rn(M // 77, 77, K, dtype=f32)
+        args = (x, 1 + rn(K, std=0.1, dtype=f32), rn(K, std=0.1, dtype=f32),
+                rn(H, K, std=0.02, dtype=f32), rn(H, std=0.02, dtype=f32),
+                rn(K, H, std=0.02, dtype=f32), rn(K, std=0.02, dtype=f32))
+        g, bt, w1, b1, w2, b2 = args[1:]
+
+        def library():
+            h = F.linear(F.layer_norm(x, (K,), g, bt, eps), w1, b1)
+            return x + F.linear(h * torch.sigmoid(1.702 * h), w2, b2)
+
+        r = _check_kernel(
+            f"ln_mlp_residual_bt_f32 ({site} {M}x{K}, H {H}, fp32, TF32 off)",
+            lambda *a: lin.ln_mlp_residual_bt(*a, eps=eps, activation="quick_gelu"),
+            lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=eps, activation="quick_gelu"),
+            args, flops=4.0 * M * K * H, library=library, rel_bound=F32_REL_BOUND,
+            peak_flops=PEAK_F32_FLOPS)
+        if not out:
+            out["ln_mlp_residual_bt_f32"] = dict(
+                source="camouflaged_vlm_tpu_torch/csrc/ln_mlp_residual_f32.cu",
+                replaces="camouflaged_vlm_tpu/ops/linear.py:416", **r)
+        del args, x
+    return out
 
 
 def dmajor(x):
@@ -1105,7 +1183,7 @@ def phase_slice():
     cfg, n_classes = session.cfg, len(session.classnames)
     check(session.text_features.shape == (n_classes, cfg.clip.embed_dim)
           and bool(torch.isfinite(session.text_features).all()), "bad text features")
-    requests = [[0], [1], [2], [3, 4]]
+    requests = SLICE_REQUESTS
     for idx in requests:
         batch = [images[i] for i in idx]
         torch.cuda.synchronize()
@@ -1141,6 +1219,202 @@ def phase_slice():
     stage_times(session.model, session.cfg, session.text_features,
                 {bs: session.preprocess(images[:bs]) for bs in (1, 2, 4)}, trace=(1, 2))
     return counts, session, images
+
+
+# the demo requests of [slice] and [ckpt]: images of _synthetic_images(5)
+SLICE_REQUESTS = [[0], [1], [2], [3, 4]]
+# [ckpt]'s files, deleted at the end of [bank]
+CKPT_WORK = os.path.join("build", "chip_smoke_ckpt")
+
+
+def write_reference_files(work):
+    """Seeded random files in the reference's formats at full width under
+    `work`: the SAM ViT-H backbone `.pth` (fp32, the stock SAM keys without
+    the EVP prompt generator, plus `prompt_encoder.*` entries the port
+    ignores), the OpenAI ViT-L/14@336 TorchScript archive (fp16, no
+    conv1_alpha), the dassl MaPLe `.pth.tar` and a `.npy` bank of the 61 test
+    classes. The weights are numpy draws (`io/synthetic.random_state_dict`)."""
+    import torch
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.io import synthetic
+    from camouflaged_vlm_tpu_torch.models import CascadeConfig, OVCOSCascade
+
+    cfg = CascadeConfig.full(dtype=torch.float32)
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in OVCOSCascade(cfg).state_dict().items()}
+    t0 = time.perf_counter()
+    src = synthetic.random_state_dict(shapes, seed=1)
+    rng = np.random.default_rng(2)
+    tok = torch.from_numpy(rng.standard_normal(
+        (cfg.clip.vocab_size, cfg.clip.transformer_width), dtype=np.float32) * np.float32(0.02))
+    paths = {k: os.path.join(work, f) for k, f in (
+        ("sam", "sam_vit_h.pth"), ("clip", "ViT-L-14-336px.pt"), ("maple", "model-best.pth.tar"),
+        ("bank", "TestCamoPromptsTextFeatures.npy"))}
+    torch.save(synthetic.sam_file_state_dict(src, cfg), paths["sam"])
+    synthetic.save_torchscript(synthetic.openai_clip_file_state_dict(src, cfg.clip, tok),
+                               paths["clip"])
+    torch.save({"state_dict": synthetic.maple_file_state_dict(src, cfg.clip), "epoch": 5},
+               paths["maple"])
+    bank = rng.standard_normal((len(TEST_CLASS_NAMES), cfg.clip.embed_dim)).astype(np.float32)
+    np.save(paths["bank"], bank / np.linalg.norm(bank, axis=-1, keepdims=True))
+    del src
+    sizes = ", ".join(f"{os.path.basename(p)} {os.path.getsize(p) / 2 ** 30:.3f} GiB"
+                      for p in paths.values())
+    log(f"[ckpt] wrote {sizes} in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def phase_ckpt(slice_counts):
+    """The demo CLI's session at full width (bf16) from the reference's four
+    files (`write_reference_files`: --sam-ckpt, --clip-ckpt, --maple-ckpt,
+    --text-bank), through [slice]'s requests: every weight the files set
+    equals the file's tensor cast to its type, conv1_alpha is zeros, the
+    launch counts are exactly [slice]'s, and the masks, classes and text
+    features are bit-equal to a second model with the first one's state dict
+    loaded directly. The build's time (files read, weights copied, text
+    encoded) and its device peak over what was allocated before it."""
+    import torch
+    from camouflaged_vlm_tpu_torch.cli import demo
+    from camouflaged_vlm_tpu_torch.factory import attach_rel_cache, build_cascade, make_bank_inputs
+    from camouflaged_vlm_tpu_torch.io import convert, torch_loader
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    os.makedirs(CKPT_WORK, exist_ok=True)
+    paths = write_reference_files(CKPT_WORK)
+    demo_dir = os.path.join(OUT_DIR, "demo_ckpt")
+    os.makedirs(demo_dir, exist_ok=True)
+    images = _synthetic_images(5)
+    img_paths = []
+    for i, img in enumerate(images):
+        img_paths.append(os.path.join(demo_dir, f"synthetic_{i}.png"))
+        img.save(img_paths[-1])
+    args = demo.parse_args(["--image", img_paths[0], "--out-dir", demo_dir, "--device", "cuda",
+                            "--dtype", "bfloat16", "--seed", "0",
+                            "--sam-ckpt", paths["sam"], "--clip-ckpt", paths["clip"],
+                            "--maple-ckpt", paths["maple"], "--text-bank", paths["bank"]])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    session = demo.DemoSession(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f"[ckpt] demo session from the four files (read, converted, copied; text encoded): "
+        f"{build_s:.3f} s; device peak of the build {peak:.3f} GiB over the "
+        f"{base / 2 ** 30:.3f} GiB allocated before it")
+    outs = []
+    for idx in SLICE_REQUESTS:
+        batch = [images[i] for i in idx]
+        outs.append(session.predict(batch))
+        for j, i in enumerate(idx):
+            cls = session.classnames[int(outs[-1][1][j])]
+            demo.write_outputs(img_paths[i], np.asarray(images[i]), outs[-1][0][j], cls,
+                               demo_dir)
+    counts = _cuda.launch_counts()
+    log(f"[ckpt] kernel launches {counts}")
+    check(counts == slice_counts, f"[ckpt] launch counts {counts} != [slice]'s {slice_counts}")
+
+    cfg, sd = session.cfg, session.model.state_dict()
+    t0 = time.perf_counter()
+    entries, tok, _ = convert.convert_openai_clip(
+        torch_loader.load_openai_clip_state_dict(paths["clip"]), cfg.clip)
+    n = {"clip": len(entries)}
+    maple, _ = convert.convert_maple_prompt_learner(
+        torch_loader.load_dassl_checkpoint(paths["maple"])[0], cfg.clip)
+    sam, _ = convert.convert_sam_backbone(torch_loader.load_torch_state_dict(paths["sam"]), cfg)
+    n.update(maple=len(maple), sam=len(sam))
+    entries.update(maple)
+    entries.update(sam)
+    read_s = time.perf_counter() - t0
+    bad = [k for k, v in entries.items() if not torch.equal(sd[k], v.to("cuda", sd[k].dtype))]
+    alpha = sd["clip_model.image_encoder.conv1_alpha.weight"]
+    bank = np.load(paths["bank"])
+    log(f"[ckpt] {sum(n.values())} weights from the files ({n}; read and converted again on "
+        f"the CPU in {read_s:.3f} s): {len(bad)} differ from the file's value cast to the "
+        f"model's type {bad[:3]}; conv1_alpha max |w| {alpha.abs().max().item()}")
+    check(not bad, f"[ckpt] loaded weights differ from the files: {bad[:5]}")
+    check(alpha.abs().max().item() == 0, "[ckpt] conv1_alpha is not zeros")
+    want = make_bank_inputs(cfg, session.classnames, token_embedding=tok, bank_features=bank)
+    check(all(torch.equal(session.bank[k].cpu(), v) for k, v in want.items()),
+          "[ckpt] the bank is not the file's features and the archive's token embedding")
+    del entries, maple, sam
+
+    direct = build_cascade(cfg, "cuda", seed=1)
+    direct.load_state_dict(sd, strict=True)
+    attach_rel_cache(direct)
+    b = session.bank
+    with torch.no_grad():
+        tf = direct.encode_class_text_features(b["prefix"], b["suffix"], b["eot_indices"],
+                                               b["bank_features"])
+        same = [torch.equal(tf, session.text_features)]
+        for idx, (probs, pred, logits) in zip(SLICE_REQUESTS, outs):
+            p2, c2, l2 = direct.infer_cascade_with_text(
+                *session.preprocess([images[i] for i in idx]), tf)
+            same += [np.array_equal(p2[..., 0].cpu().numpy(), probs),
+                     np.array_equal(c2.cpu().numpy(), pred),
+                     np.array_equal(l2.float().cpu().numpy(), logits)]
+    log(f"[ckpt] against the state dict loaded directly: text features, masks, classes and "
+        f"logits bit-equal {all(same)} ({same}); classes "
+        f"{[[session.classnames[int(c)] for c in o[1]] for o in outs]}")
+    check(all(same), f"[ckpt] not bit-equal to the directly loaded session: {same}")
+    del session, direct, sd
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_bank(paths):
+    """`cli/precompute_text_bank.py` on the card from [ckpt]'s archive: the
+    61 test classes with camoprompts, and imagenet80 for the first 4 (fp32
+    tower: its MLPs on the fp32 #4/#5, 12 launches an encode call, one call
+    a class), each against the same CLI with the tower's MLP on its plain
+    fp32 version (TF32 off). Returns the fp32 kernel's launches."""
+    import torch
+    from camouflaged_vlm_tpu_torch.cli import precompute_text_bank as pb
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.models.clip import AlphaClipConfig
+    from camouflaged_vlm_tpu_torch.models.clip import model as clip_model
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    layers = AlphaClipConfig.vit_l_14_336().transformer_layers
+    total = 0
+    for mode, names, flags in (("camoprompts", TEST_CLASS_NAMES, ["--split", "test"]),
+                               ("imagenet80", TEST_CLASS_NAMES[:4],
+                                ["--classnames", ",".join(TEST_CLASS_NAMES[:4])])):
+        argv = ["--clip-ckpt", paths["clip"], "--templates", mode, "--device", "cuda", *flags]
+        runs = {}
+        for kind in ("kernel", "plain"):
+            out = os.path.join(CKPT_WORK, f"bank_{mode}_{kind}.npy")
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            if kind == "plain":  # the reference: the tower's MLP on its plain fp32 version
+                clip_model.ln_mlp_residual_bt = lin.ln_mlp_residual_bt_ref
+            try:
+                bank = pb.main(argv + ["--out", out])
+            finally:
+                clip_model.ln_mlp_residual_bt = lin.ln_mlp_residual_bt
+            torch.cuda.synchronize()
+            runs[kind] = (bank, time.perf_counter() - t0, _cuda.launch_counts())
+        (bank, secs, counts), (ref, ref_s, ref_counts) = runs["kernel"], runs["plain"]
+        want = {k: 0 for k in counts}
+        want["ln_mlp_residual_bt_f32"] = layers * len(names)
+        err = float(np.abs(bank - ref).max() / np.abs(ref).max())
+        norms = np.linalg.norm(bank, axis=-1)
+        log(f"[bank] {mode}, {len(names)} classes: {secs:.3f} s (plain fp32 MLP {ref_s:.3f} s); "
+            f"shape {bank.shape}; max|d|/max|ref| against the plain version {err:.3e} (bound "
+            f"{BANK_REL_BOUND}); row norms {norms.min():.6f}-{norms.max():.6f}; fp32 #4/#5 "
+            f"launches {counts['ln_mlp_residual_bt_f32']} (expected {layers} x {len(names)})")
+        check(bank.shape == (len(names), 768) and bool(np.isfinite(bank).all()),
+              f"[bank] {mode}: bad bank {bank.shape}")
+        check(counts == want, f"[bank] {mode}: launches {counts} != {want}")
+        check(not any(ref_counts.values()), f"[bank] {mode}: plain run launched {ref_counts}")
+        check(err <= BANK_REL_BOUND, f"[bank] {mode}: {err} from the plain version")
+        total += counts["ln_mlp_residual_bt_f32"]
+    return total
 
 
 def stage_times(m, cfg, tf, batches, label="", iters=5, trace=()):
@@ -2216,6 +2490,11 @@ def main() -> None:
     timed(phase_graph, session, images)
     timed(phase_serve, images)
     del session
+    try:
+        ckpt_paths = timed(phase_ckpt, counts)
+        f32_launches = timed(phase_bank, ckpt_paths)
+    finally:
+        shutil.rmtree(CKPT_WORK, ignore_errors=True)
     timed(phase_bench)
     grads = timed(phase_grads)
     timed(phase_train_small)
@@ -2235,7 +2514,8 @@ def main() -> None:
                 "flash_attention_fullk": ev["vit_h_aug_flash"]["flash_attention_fullk"],
                 "flash_qkv_packed_windows": ev["vit_h_flash_win16"]["flash_qkv_packed_windows"],
                 "flash_qkv_relpos_windows": ev["vit_h_flash_win17"]["flash_qkv_relpos_windows"],
-                "proj_from_heads_res": ev["vit_h_flash_win17"]["proj_from_heads_res"]}
+                "proj_from_heads_res": ev["vit_h_flash_win17"]["proj_from_heads_res"],
+                "ln_mlp_residual_bt_f32": f32_launches}
     kernels = [
         {"name": k, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": r["launches"] if k in NO_PATH else launches[k],
@@ -2247,7 +2527,7 @@ def main() -> None:
          **({"path": r["path"]} if k in NO_PATH else {})}
         for res in (results, grads) for k, r in res.items()
     ]
-    check(len(kernels) == 19 and all(e["launches"] > 0 for e in kernels)
+    check(len(kernels) == 20 and all(e["launches"] > 0 for e in kernels)
           and all(launches[e["name"]] == 0 for e in kernels if e["name"] in NO_PATH),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     log("[device] name and power limit (nvidia-smi) of the card all numbers above ran on:")

@@ -395,6 +395,46 @@ def test_eval_throughput_reports_each_run(tmp_path):
     assert not work.exists()
 
 
+def test_evaluate_cli_checkpoint_flags_assemble_as_jax_cli(synthetic, tmp_path, monkeypatch):
+    """The CLI with the reference's four files (--sam-ckpt, --clip-ckpt,
+    --maple-ckpt, --text-bank; tiny, fp32) builds the model and the test
+    split's bank that JAX's CLI assembles from the same flags, bit for bit
+    (both run up to the evaluation; JAX's init is the port's seeded random
+    weights, `tests/_torch_ckpt_files.py`); a missing file raises before the
+    evaluation."""
+    from _torch_ckpt_files import (
+        Stop,
+        assert_bank_equal,
+        assert_state_equal,
+        jax_state_dict,
+        run_jax_cli,
+        write_reference_files,
+    )
+
+    classes = ovcamo.OVCamoIndex.from_dataset_info(yaml.safe_load(open(synthetic)),
+                                                   "test").classes
+    files = write_reference_files(tmp_path, classes)
+    flags = ["--dataset-info", synthetic, "--tiny", "--dtype", "float32",
+             "--sam-ckpt", files["sam.pth"], "--clip-ckpt", files["clip.pt"],
+             "--maple-ckpt", files["maple.pth.tar"], "--text-bank", files["bank.npy"]]
+    _, _, params, jbank = run_jax_cli(j_evaluate, flags + ["--output-dir", str(tmp_path / "j")],
+                                      monkeypatch)["assembled"]
+    seen = {}
+
+    def stop(model, cfg, bank, index, **kw):
+        seen.update(model=model, bank=bank)
+        raise Stop
+
+    monkeypatch.setattr(evaluate, "evaluate", stop)
+    with pytest.raises(Stop):
+        evaluate.main(flags + ["--device", "cpu", "--output-dir", str(tmp_path / "p")])
+    assert_state_equal(seen["model"].state_dict(), jax_state_dict(params))
+    assert_bank_equal(seen["bank"], jbank)
+    with pytest.raises(FileNotFoundError, match="--sam-ckpt"):
+        evaluate.main(flags[:5] + ["--sam-ckpt", str(tmp_path / "none.pth"), "--device", "cpu",
+                                   "--output-dir", str(tmp_path / "p2")])
+
+
 # -------------------------------------------------------------- isolation
 
 
@@ -418,10 +458,12 @@ def test_port_imports_nothing_of_the_jax_package():
                           timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split("IMPORTED")[1].split()[0]) > 40
-    # the serving engine, the graph helper and the bench among them
+    # the serving engine, the graph helper, the bench and the checkpoint
+    # interop and bank precompute modules among them
     imported = set(proc.stdout.split("NAMES")[1].split())
     for m in ("serve", "graphs", "ops.constants", "cli.serve", "cli.bench",
-              "cli.serve_throughput"):
+              "cli.serve_throughput", "io.torch_loader", "io.synthetic",
+              "cli.precompute_text_bank", "cli.export_checkpoint", "data.templates"):
         assert f"camouflaged_vlm_tpu_torch.{m}" in imported, m
 
     import ast

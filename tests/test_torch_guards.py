@@ -145,3 +145,32 @@ def test_demo_session_predicts_a_batch_on_cpu(image_path):
     assert probs.shape == (2, 64, 64) and logits.shape == (2, 61)
     assert np.isfinite(probs).all() and probs.min() >= 0 and probs.max() <= 1
     assert ((pred >= 0) & (pred < 61)).all()
+
+
+@pytest.mark.parametrize("cli", ["demo", "evaluate", "serve", "train", "bench",
+                                 "serve_throughput"])
+def test_float32_on_the_card_refuses_before_the_build(cli, image_path, tmp_path, no_cuda):
+    """--device cuda --dtype float32 refuses at once, naming the kernels with
+    no fp32 instance yet (before the card is even looked for, so this runs
+    on any host), rather than a TypeError inside a kernel wrapper; bfloat16
+    goes on to the card check."""
+    import importlib
+
+    from camouflaged_vlm_tpu_torch.cli.common import NO_FP32_KERNEL
+
+    mod = importlib.import_module(f"camouflaged_vlm_tpu_torch.cli.{cli}")
+    info = tmp_path / "dataset_info.yaml"
+    info.write_text("{}")
+    extra = {"demo": ["--image", image_path, "--out-dir", str(tmp_path / "out")],
+             "evaluate": ["--dataset-info", str(info), "--output-dir", str(tmp_path / "out")],
+             "train": ["--dataset-info", str(info), "--save-dir", str(tmp_path / "out")]}
+    argv = ["--tiny", "--device", "cuda", *extra.get(cli, [])]
+    run = (lambda a: mod.build_engine(mod.parse_args(a))) if cli == "serve" else mod.main
+    with pytest.raises(NotImplementedError) as err:
+        run(argv + ["--dtype", "float32"])
+    msg = str(err.value)
+    assert msg.startswith("--device cuda with float32") and "ROADMAP.md Queue 2" in msg
+    assert all(k in msg for k in NO_FP32_KERNEL) and "#4" not in msg
+    assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(argv + ["--dtype", "bfloat16"])

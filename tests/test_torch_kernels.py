@@ -128,6 +128,41 @@ def test_ln_mlp_residual_bt_kernel_row_panels(gen, monkeypatch, scratch):
     assert_close(got, linear.ln_mlp_residual_bt_ref(*args, eps=1e-6, activation="gelu_tanh"))
 
 
+# the fp32 instance against its plain version (cuBLAS in full fp32, TF32
+# off): the same function with no rounding point, differing in the order of
+# fp32 sums only (~1e-6 relative over K = 3072)
+F32_BOUND = 1e-4
+
+
+@pytest.mark.parametrize("activation", ACTS)
+@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("B,S,K,H", [(6, 77, 768, 3072), (3, 50, 200, 264), (1, 7, 96, 136)])
+def test_ln_mlp_residual_bt_kernel_float32(gen, monkeypatch, activation, tile, B, S, K, H):
+    """The text tower's shape at camoprompts (6 prompts x 77 tokens) and
+    ragged ones (M, K and H not multiples of the tiles or the 16-deep k
+    step); each tile size; row panels (a scratch of 128 x 512 elements); a
+    gradient refused."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    f32 = torch.float32
+    args = (rn(gen, B, S, K, dtype=f32), 1 + rn(gen, K, std=0.1, dtype=f32),
+            rn(gen, K, std=0.1, dtype=f32), rn(gen, H, K, std=0.05, dtype=f32),
+            rn(gen, H, std=0.1, dtype=f32), rn(gen, K, H, std=0.05, dtype=f32),
+            rn(gen, K, std=0.1, dtype=f32))
+    want = linear.ln_mlp_residual_bt_ref(*args, eps=1e-5, activation=activation)
+    for scratch in (linear.MLP_SCRATCH_ELEMS, 128 * 512):
+        monkeypatch.setattr(linear, "MLP_SCRATCH_ELEMS", scratch)
+        before = (_cuda.LN_MLP_RESIDUAL_F32.launches, _cuda.LN_MLP_RESIDUAL.launches)
+        got = linear.ln_mlp_residual_bt(*args, eps=1e-5, activation=activation)
+        assert (_cuda.LN_MLP_RESIDUAL_F32.launches, _cuda.LN_MLP_RESIDUAL.launches) == (
+            before[0] + 1, before[1])
+        assert got.dtype == f32 and torch.isfinite(got).all()
+        assert ((got - want).abs().max() / want.abs().max()).item() < F32_BOUND
+    x = args[0].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        linear.ln_mlp_residual_bt(x, *args[1:], eps=1e-5, activation=activation)
+
+
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("B,T,K,S,N", [(2, 1, 128, 37, 128), (1, 3, 64, 70, 96),
                                        (2, 2, 128, 50, 136),

@@ -451,3 +451,39 @@ def test_serve_cli_builds_on_the_cpu_and_refuses_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.build_engine(serve_cli.parse_args(["--tiny"]))
+
+
+def test_serve_cli_checkpoint_flags_assemble_as_jax_cli(tmp_path, monkeypatch):
+    """The CLI with the reference's four files builds the engine's model and
+    class bank that JAX's serve CLI assembles from the same flags, bit for
+    bit (both run up to the engine; JAX's init is the port's seeded random
+    weights, `tests/_torch_ckpt_files.py`)."""
+    from _torch_ckpt_files import (
+        Stop,
+        assert_bank_equal,
+        assert_state_equal,
+        jax_state_dict,
+        run_jax_cli,
+        write_reference_files,
+    )
+
+    from camouflaged_vlm_tpu.cli import serve as j_serve_cli
+
+    classes = ["cat", "owl", "bat"]
+    files = write_reference_files(tmp_path, classes)
+    flags = ["--tiny", "--dtype", "float32", "--classnames", ",".join(classes),
+             "--sam-ckpt", files["sam.pth"], "--clip-ckpt", files["clip_renamed.pt"],
+             "--maple-ckpt", files["maple_bare.pth.tar"], "--text-bank", files["bank.pth"]]
+    _, _, params, jbank = run_jax_cli(j_serve_cli, flags, monkeypatch)["assembled"]
+    seen = {}
+
+    def stop(model, cfg, bank, classnames, serve_cfg):
+        seen.update(model=model, bank=bank, classnames=classnames)
+        raise Stop
+
+    monkeypatch.setattr(serve_cli, "InferenceEngine", stop)
+    with pytest.raises(Stop):
+        serve_cli.build_engine(serve_cli.parse_args(flags + ["--device", "cpu"]))
+    assert seen["classnames"] == classes
+    assert_state_equal(seen["model"].state_dict(), jax_state_dict(params))
+    assert_bank_equal(seen["bank"], jbank)

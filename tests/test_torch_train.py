@@ -520,3 +520,46 @@ def test_train_cli_text_features_are_jax_val_bank_features(synthetic_dataset, tm
     run = _cli(synthetic_dataset, tmp_path / "tf", "--epochs", "1")
     assert set(val_index.classes) != set(train_index.classes)
     close(run["text_features"], np.asarray(jtf), 1e-5)
+
+
+def test_train_cli_checkpoint_flags_assemble_as_jax_cli(synthetic_dataset, tmp_path,
+                                                       monkeypatch):
+    """The CLI with --sam-ckpt, --clip-ckpt, --maple-ckpt and both banks
+    starts from the weights JAX's train CLI assembles from the same flags
+    (no epoch run: the whole state dict bit for bit), and takes its banks as
+    JAX's does (cli/train.py:184-196): the test split's from --text-bank,
+    which conditions validation and the training forward, and the train
+    split's from --train-text-bank, else --text-bank. JAX's CLI runs up to
+    its mesh; its init is the port's seeded random weights."""
+    import yaml
+
+    from _torch_ckpt_files import (
+        assert_bank_equal,
+        assert_state_equal,
+        jax_state_dict,
+        run_jax_cli,
+        write_reference_files,
+    )
+
+    from camouflaged_vlm_tpu.cli import train as jcli
+    from camouflaged_vlm_tpu.data.ovcamo import OVCamoIndex as JIndex
+
+    with open(synthetic_dataset) as f:
+        info = yaml.safe_load(f)
+    train_classes = JIndex.from_dataset_info(info, "train").classes
+    test_classes = JIndex.from_dataset_info(info, "test").classes
+    files = write_reference_files(tmp_path, train_classes, test_classes)
+    flags = ["--dataset-info", synthetic_dataset, "--tiny", "--dtype", "float32",
+             "--sam-ckpt", files["sam.pth"], "--clip-ckpt", files["clip.pt"],
+             "--maple-ckpt", files["maple.pth.tar"], "--text-bank", files["test_bank.npy"]]
+    for extra in (["--train-text-bank", files["bank.npy"]], []):
+        seen = run_jax_cli(jcli, flags + extra + ["--save-dir", str(tmp_path / "jax")],
+                           monkeypatch, stop_at="make_mesh")
+        _, _, params, jtrain_bank, _ = seen["assembled"]
+        run = _cli(synthetic_dataset, tmp_path / "port", *flags[2:], *extra, "--epochs", "0")
+        assert run["step"] == 0
+        assert_state_equal(run["model"].state_dict(), jax_state_dict(params))
+        assert_bank_equal(run["bank"], seen["banks"][0])
+        assert_bank_equal(run["train_bank"], jtrain_bank)
+    np.testing.assert_array_equal(run["train_bank"]["bank_features"].numpy(),
+                                  np.load(files["test_bank.npy"]))
