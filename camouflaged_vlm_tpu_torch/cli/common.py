@@ -51,10 +51,10 @@ from ..io.torch_loader import (
 from ..models import CascadeConfig, OVCOSCascade
 
 # The kernels with no fp32 instance yet (ROADMAP Queue 2), in the order to
-# port them: MaPLe training's first, then SAM's, then the other paths'.
-# The LN+MLP+residual kernel (#4/#5) has one.
-NO_FP32_KERNEL = ("#2 ln_linear_act_bt", "#7 proj_rows", "#16 flash_qkv_packed_plain",
-                  "#6 ln_mlp_residual_bt_bwd", "#1 linear_act", "#3 ln_mask_linear_bt",
+# port them: SAM's, then the other paths'. The CLIP vision blocks' (#2, #16,
+# #7), the LN+MLP+residual kernel (#4/#5) and its backward (#6) have one:
+# MaPLe training runs on them (`cli/train_maple.py`).
+NO_FP32_KERNEL = ("#1 linear_act", "#3 ln_mask_linear_bt",
                   "#13 flash_qkv_packed_windows_s", "#15 flash_qkv_packed_edge",
                   "#17 flash_qkv_packed_global", "#8 proj_from_heads_res",
                   "#10 flash_attention_relpos", "#11 flash_qkv_relpos_windows",
@@ -63,9 +63,9 @@ NO_FP32_KERNEL = ("#2 ln_linear_act_bt", "#7 proj_rows", "#16 flash_qkv_packed_p
 
 
 def refuse_fp32_on_card(device: str, cfg: CascadeConfig) -> None:
-    """Raise at once when the cascade would run in fp32 on a card: its
-    kernels take bfloat16 (but #4/#5), and no path falls back to the plain
-    versions."""
+    """Raise at once when the cascade would run in fp32 on a card: its SAM
+    kernels take bfloat16 (only CLIP's have fp32 instances), and no path
+    falls back to the plain versions."""
     dtypes = (cfg.encoder.dtype, cfg.decoder.dtype, cfg.clip.dtype)
     if torch.device(device).type == "cuda" and torch.float32 in dtypes:
         raise NotImplementedError(

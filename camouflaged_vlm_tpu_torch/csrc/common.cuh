@@ -1,9 +1,9 @@
 // Shared device helpers for the hand-written Hopper kernels.
 //
-// Every kernel but ln_mlp_residual_f32.cu (all float32) takes bfloat16
-// activations and weights, accumulates in fp32 on the tensor cores (TMA +
-// wgmma, through gemm_sm90.cuh), and rounds to bfloat16 exactly where the
-// JAX package's kernels round.
+// Every kernel but the float32 instances (the *_f32.cu sources, on
+// sgemm_f32.cuh) takes bfloat16 activations and weights, accumulates in
+// fp32 on the tensor cores (TMA + wgmma, through gemm_sm90.cuh), and rounds
+// to bfloat16 exactly where the JAX package's kernels round.
 #pragma once
 
 #include <cuda_bf16.h>

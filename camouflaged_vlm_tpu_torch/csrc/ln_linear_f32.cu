@@ -1,0 +1,39 @@
+// ln_linear_f32: out = act(LN(x) . W^T + b), all in float32.
+//
+// Replaces ln_linear_act_bt of camouflaged_vlm_tpu/ops/linear.py (TPU
+// kernel #2) where the JAX package runs it in float32: LN1 + qkv of the
+// Alpha-CLIP ViT-L/14@336 vision blocks in MaPLe prompt training, whose
+// default type is float32 (cli/train_maple.py). At float32 the TPU kernel
+// has no rounding point: its LN rows are float32, so they are here.
+//
+// Shapes on that path: x (8, 581, 1024) at batch 8 (577 tokens + 4 MaPLe
+// prompts), W (3072, 1024), no activation, eps 1e-5; 24 calls a step. What
+// bounds it on the H100 is the float32 rate of the CUDA cores (the tensor
+// cores have no float32 mode): 2 M K N = 29.2 GFLOP, 0.44 ms at 67 TFLOP/s,
+// against 19 + 12.6 + 57 MB of x, W and out (0.026 ms at 3.35 TB/s).
+//
+// Design: two launches on the caller's stream, sgemm_f32.cuh's pieces:
+//   1. ln_rows_f32_kernel: xn = LN(x) * gamma + beta into an fp32 scratch
+//      (M, K) that the wrapper allocates;
+//   2. sgemm_kernel<K_MAJOR, K_MAJOR, EPI_ACT>: out = act(xn . W^T + b),
+//      128 x 128 or 64 x 64 tiles (the wrapper's ops/linear.py f32_tile).
+// K % 4 == 0 and N % 4 == 0 (16-byte loads and stores; the wrapper checks).
+#include "sgemm_f32.cuh"
+
+// x (M, K), w (N, K), b (N,), out (M, N), xn (M, K) scratch, gamma/beta
+// (K,): fp32. Returns a cudaError_t code.
+extern "C" int cvlm_ln_linear_f32(const void* x, const void* gamma, const void* beta,
+                                  const void* w, const void* b, void* out, void* xn, int M, int K,
+                                  int N, float eps, int act, int tile, void* stream) {
+  using namespace cvlm::f32;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M < 1 || K < 4 || K % 4 != 0 || N % 4 != 0) return (int)cudaErrorInvalidValue;
+  auto* xnp = static_cast<float*>(xn);
+  int err = launch_ln_rows(static_cast<const float*>(x), static_cast<const float*>(gamma),
+                           static_cast<const float*>(beta), xnp, nullptr, M, K, eps, s);
+  if (err) return err;
+  return launch_sgemm<K_MAJOR, K_MAJOR, EPI_ACT>(xnp, K, 0, static_cast<const float*>(w), K,
+                                                 static_cast<const float*>(b), nullptr,
+                                                 static_cast<float*>(out), nullptr, M, N, K, act,
+                                                 tile, 1, s);
+}

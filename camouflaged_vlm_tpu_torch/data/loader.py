@@ -1,7 +1,8 @@
 """Host input pipeline: decode and preprocess in a thread pool, prefetch batches.
 
 The port's copy of the PIL path of `camouflaged_vlm_tpu/data/loader.py`
-(`iter_eval_batches`, `iter_train_batches`), kept so that the port imports
+(`iter_eval_batches`, `iter_train_batches`, `iter_maple_train_batches`),
+kept so that the port imports
 nothing of the JAX package; the CPU tests hold the two to the same arrays.
 The JAX package's native decoder (`csrc/preproc`, `data/native_pipeline.py`)
 is not ported: every sample here goes through PIL, which gives the same
@@ -20,6 +21,7 @@ from PIL import Image
 
 from .ovcamo import OVCamoIndex, OVCamoSample
 from .transforms import (
+    clip_alpha_transform,
     clip_image_resized_u8,
     clip_image_transform,
     clip_ones_alpha,
@@ -165,5 +167,52 @@ def iter_train_batches(
             "clip_mask": np.broadcast_to(
                 clip_ones_alpha(clip_size), (batch_size, clip_size, clip_size, 1)
             ).copy(),
+            "label_id": np.asarray(label, np.int32),
+        }
+
+
+def iter_maple_train_batches(
+    index: OVCamoIndex,
+    batch_size: int,
+    rng: np.random.Generator,
+    clip_size: int = 336,
+    num_workers: int = 8,
+) -> Iterator[dict]:
+    """One epoch of (clip_image, GT-mask alpha, label) batches for MaPLe
+    prompt training (the reference's dassl `MaPLeAlphaCLIP` trainer, which
+    conditions Alpha-CLIP on the ground-truth mask): shuffled, the flips
+    drawn on the calling thread, the rot90 fix, the flip applied to image
+    and mask BEFORE both CLIP transforms (unlike `iter_train_batches`), the
+    last partial batch dropped."""
+    order = rng.permutation(len(index.samples))
+    flips = rng.random(len(order)) < 0.5
+
+    def load(args):
+        i, flip = args
+        s = index.samples[int(i)]
+        img = Image.open(s.image_path).convert("RGB")
+        mask = Image.open(s.mask_path).convert("L")
+        img = maybe_rot90_to_match(img, mask)
+        if flip:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+            mask = mask.transpose(Image.FLIP_LEFT_RIGHT)
+        return (
+            clip_image_transform(img, clip_size),
+            clip_alpha_transform(mask, clip_size),
+            s.class_id,
+        )
+
+    n_full = (len(order) // batch_size) * batch_size
+    items = list(zip(order[:n_full], flips[:n_full]))
+    chunk = []
+    for item in _map_bounded(load, items, num_workers, num_workers + 2 * batch_size):
+        chunk.append(item)
+        if len(chunk) < batch_size:
+            continue
+        cimg, alpha, label = zip(*chunk)
+        chunk = []
+        yield {
+            "clip_image": np.stack(cimg),
+            "clip_alpha": np.stack(alpha),
             "label_id": np.asarray(label, np.int32),
         }

@@ -52,13 +52,20 @@ def init_random_(model: nn.Module, generator: torch.Generator, scale: float = 0.
                     _normal_(t, scale, generator)
 
 
+# Parameters of rank >= 2 that stay fp32: JAX's counterpart is a vector, which
+# its cast rule leaves in fp32 (`no_mask_embed`: a (C,) param in the JAX
+# package, an (1, C) embedding here, the reference's layout). It is
+# trainable, and rounded to the compute type only where it is used.
+FP32_WEIGHTS = ("no_mask_embed.weight",)
+
+
 def cast_weights_(model: nn.Module, dtype: torch.dtype) -> None:
-    """Cast every parameter of rank >= 2 to the compute type; biases,
-    LayerNorm parameters and other vectors stay fp32 (the JAX CLI's rule,
-    `cli/common.py` of the JAX package)."""
+    """Cast every parameter of rank >= 2 but FP32_WEIGHTS to the compute
+    type; biases, LayerNorm parameters and other vectors stay fp32 (the JAX
+    CLI's rule, `cli/common.py` of the JAX package)."""
     with torch.no_grad():
-        for p in model.parameters():
-            if p.ndim >= 2:
+        for name, p in model.named_parameters():
+            if p.ndim >= 2 and name not in FP32_WEIGHTS:
                 p.data = p.data.to(dtype)
 
 

@@ -55,3 +55,20 @@ class CustomClip(nn.Module):
         logits = (torch.exp(self.logit_scale.float()) * imf) @ text_features.T
         pred = logits.argmax(dim=-1)
         return imf[:, None, :], text_features[pred][:, None, :], pred, logits
+
+    def forward(
+        self,
+        image: torch.Tensor,          # (B, H, W, 3)
+        alpha: torch.Tensor,          # (B, H, W, 1)
+        prefix: torch.Tensor,         # (N, 1, W) class-split prompt prefix
+        suffix: torch.Tensor,         # (N, L-1-n_ctx, W)
+        eot_indices: torch.Tensor,    # (N,)
+        bank_features: torch.Tensor,  # (N, embed_dim)
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The whole call, JAX's `CustomClip.__call__`: the class split's text
+        features, encoded in this call (so that a gradient reaches the prompt
+        learner through the text tower, as MaPLe training needs), then
+        `classify`."""
+        text_features = self.encode_class_text_features(prefix, suffix, eot_indices,
+                                                        bank_features)
+        return self.classify(image, alpha, text_features)

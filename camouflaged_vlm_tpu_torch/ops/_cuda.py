@@ -158,6 +158,20 @@ LN_MLP_RESIDUAL_F32 = CudaKernel(
     [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I],
 )
 PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, L, L, I, I, I])
+# The fp32 instances of MaPLe training's path (the CLIP vision blocks' LN1 +
+# qkv, attention and out-projection, and the MLP backward at both towers'
+# widths), tiled FFMA products and a flash loop on the CUDA cores
+# (csrc/sgemm_f32.cuh; csrc/ln_linear_f32.cu, csrc/qkv_packed_plain_f32.cu,
+# csrc/proj_rows_f32.cu, csrc/ln_mlp_residual_bwd_f32.cu), each with its
+# own count.
+LN_LINEAR_F32 = CudaKernel("ln_linear_act_bt_f32", "cvlm_ln_linear_f32",
+                           [P, P, P, P, P, P, P, I, I, I, F, I, I])
+QKV_PACKED_PLAIN_F32 = CudaKernel("flash_qkv_packed_plain_f32", "cvlm_qkv_packed_plain_f32",
+                                  [P, P, I, I, I, I, I, F])
+PROJ_ROWS_F32 = CudaKernel("proj_rows_f32", "cvlm_proj_rows_f32",
+                           [P, P, P, P, P, I, I, L, L, I, I, I])
+LN_MLP_RESIDUAL_BWD_F32 = CudaKernel("ln_mlp_residual_bt_bwd_f32", "cvlm_ln_mlp_residual_bwd_f32",
+                                     [P] * 13 + [I, I, I, I, F, I, I, I])
 QKV_PACKED_PLAIN = CudaKernel(
     "flash_qkv_packed_plain", "cvlm_qkv_packed_plain", [P, P, I, I, I, I, I, F]
 )
@@ -212,7 +226,8 @@ KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MASK_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS,
            QKV_PACKED_PLAIN, QKV_WINDOWS, QKV_EDGE, QKV_GLOBAL,
            LN_MLP_RESIDUAL_BWD, QKV_WINDOWS_BWD, QKV_GLOBAL_BWD, ATTN_RELPOS, ATTN_FULLK,
            QKV_WINDOWS_PADDED, QKV_RELPOS_WINDOWS, QKV_RELPOS_GLOBAL, PROJ_HEADS_RES, PROJ_HEADS,
-           LN_MLP_RESIDUAL_F32)
+           LN_MLP_RESIDUAL_F32, LN_LINEAR_F32, QKV_PACKED_PLAIN_F32, PROJ_ROWS_F32,
+           LN_MLP_RESIDUAL_BWD_F32)
 
 
 def reset_launches() -> None:

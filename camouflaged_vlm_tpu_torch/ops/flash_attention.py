@@ -121,12 +121,37 @@ def flash_qkv_packed_plain(
     heads: int,
     d: int,
 ) -> torch.Tensor:
-    """softmax((q*scale) . k^T) . v per head, no bias -> d-major (B, heads*d, S)."""
+    """softmax((q*scale) . k^T) . v per head, no bias -> d-major (B, heads*d, S).
+    qkv in bfloat16 runs the TMA + wgmma kernel, in float32 its fp32
+    instance."""
     return autograd.run("flash_qkv_packed_plain", _plain_cuda, flash_qkv_packed_plain_ref,
                         (qkv,), (scale, heads, d))
 
 
+# the head dim of the fp32 instance (csrc/qkv_packed_plain_f32.cu): CLIP
+# ViT-L/14's, the only one MaPLe training runs
+_F32_HEAD_DIM = 64
+
+
+def _plain_f32_cuda(qkv, scale, heads, d):
+    """The fp32 instance (MaPLe training's vision attention,
+    csrc/qkv_packed_plain_f32.cu): the flash loop on the CUDA cores, the
+    same d-major output."""
+    name = "flash_qkv_packed_plain (float32)"
+    B, S, C3 = qkv.shape
+    if C3 != 3 * heads * d:
+        raise ValueError(f"{name}: qkv {qkv.shape} vs heads={heads} d={d}")
+    if d != _F32_HEAD_DIM:
+        raise ValueError(f"{name}: CUDA kernel takes d = {_F32_HEAD_DIM}, got {d}")
+    out = dmajor_empty(B, heads * d, S, dtype=qkv.dtype, device=qkv.device)
+    _cuda.QKV_PACKED_PLAIN_F32(qkv.data_ptr(), out.data_ptr(), B, S, out.stride(-2), heads, d,
+                               float(scale))
+    return out
+
+
 def _plain_cuda(qkv, scale, heads, d):
+    if qkv.dtype == torch.float32:
+        return _plain_f32_cuda(qkv, scale, heads, d)
     _cuda.check_dtype("flash_qkv_packed_plain", torch.bfloat16, qkv)
     B, S, C3 = qkv.shape
     if C3 != 3 * heads * d:

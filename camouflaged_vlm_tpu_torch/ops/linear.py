@@ -9,7 +9,11 @@ their plain version
 (`ops/autograd.py`), as their JAX counterparts take `pallas_with_xla_vjp`;
 `ln_mlp_residual_bt` has a hand-written backward, the LN row pass and
 three TMA + wgmma passes on the card (`csrc/ln_mlp_residual_bwd.cu`) and
-`ln_mlp_residual_bt_bwd_ref` on the CPU. The plain versions transcribe the
+`ln_mlp_residual_bt_bwd_ref` on the CPU. `ln_linear_act_bt`,
+`ln_mlp_residual_bt` (and its backward) and `proj_rows` also have float32
+instances, which CUDA tensors in float32 reach (tiled FFMA products on the
+CUDA cores, `csrc/sgemm_f32.cuh`: MaPLe training's path and the bank
+precompute's text tower). The plain versions transcribe the
 JAX `ref` formulations: LN statistics in fp32, LN output cast to the working type before the product,
 fp32 accumulation, bias and activation in fp32 on the accumulator, one
 rounding at the end. Those of the LN-fused functions are written as the
@@ -129,6 +133,19 @@ def _check_tma_k(name: str, *widths: int) -> None:
             raise ValueError(f"{name}: CUDA kernel takes K % 8 == 0, got K = {k}")
 
 
+def f32_tile(M: int, N: int, n_sm: int, groups: int = 1) -> int:
+    """The fp32 instances' GEMM tile (csrc/sgemm_f32.cuh) for `groups` groups
+    of M rows: 128 x 128, or 64 x 64 where the 128-wide tiles would not give
+    every SM one."""
+    return 128 if groups * -(-M // 128) * -(-N // 128) >= n_sm else 64
+
+
+def _check_f32_widths(name: str, *widths: int) -> None:
+    for k in widths:
+        if k % 4:  # the fp32 kernels load and store 16 bytes a thread
+            raise ValueError(f"{name}: CUDA kernel takes widths % 4 == 0, got {k}")
+
+
 # ------------------------------------------------------------ linear_act
 
 
@@ -200,12 +217,38 @@ def ln_linear_act_bt(
     eps: float = 1e-5,
     activation: Optional[str] = "quick_gelu",
 ) -> torch.Tensor:
-    """act(LN(x) . w^T + b). Counterpart of `ln_linear_act_bt` (TPU kernel #2)."""
+    """act(LN(x) . w^T + b). Counterpart of `ln_linear_act_bt` (TPU kernel #2);
+    x in bfloat16 runs the TMA + wgmma kernel, x in float32 its fp32
+    instance."""
     return autograd.run("ln_linear_act_bt", _ln_linear_act_bt_cuda, ln_linear_act_bt_ref,
                         (x, gamma, beta, w, b), (eps, activation))
 
 
+def _ln_linear_act_f32_cuda(x, gamma, beta, w, b, eps, activation):
+    """The fp32 instance (MaPLe training's vision LN1 + qkv,
+    csrc/ln_linear_f32.cu): the LN rows in an fp32 scratch, the product on
+    the CUDA cores in full fp32."""
+    name = "ln_linear_act_bt (float32)"
+    _cuda.check_dtype(name, torch.float32, x, gamma, beta, w, b)
+    B, S, K = x.shape
+    N = w.shape[0]
+    if w.shape != (N, K) or b.shape != (N,) or gamma.shape != (K,) or beta.shape != (K,):
+        raise ValueError(f"{name}: shapes x {x.shape} w {w.shape}")
+    _check_f32_widths(name, K, N)
+    M = B * S
+    out = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
+    xn = torch.empty((M, K), dtype=x.dtype, device=x.device)  # the LN rows' scratch
+    _cuda.LN_LINEAR_F32(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), b.data_ptr(),
+        out.data_ptr(), xn.data_ptr(), M, K, N, float(eps), _cuda.ACTIVATIONS[activation],
+        f32_tile(M, N, _cuda.sm_count(x.device)),
+    )
+    return out
+
+
 def _ln_linear_act_bt_cuda(x, gamma, beta, w, b, eps, activation):
+    if x.dtype == torch.float32:
+        return _ln_linear_act_f32_cuda(x, gamma, beta, w, b, eps, activation)
     _cuda.check_dtype("ln_linear_act_bt", torch.bfloat16, x, w, b)
     _cuda.check_dtype("ln_linear_act_bt", torch.float32, gamma, beta)
     B, S, K = x.shape
@@ -343,20 +386,14 @@ def _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2, dtype=torch.bfloat16
     return K, H
 
 
-def f32_tile(M: int, N: int, n_sm: int) -> int:
-    """The fp32 instance's GEMM tile (csrc/ln_mlp_residual_f32.cu): 128 x 128,
-    or 64 x 64 where the 128-wide tiles would not give every SM one."""
-    return 128 if -(-M // 128) * -(-N // 128) >= n_sm else 64
-
-
 def _ln_mlp_residual_f32_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation):
-    """The fp32 instance (the CLIP text tower of the bank precompute): the
-    LN rows and the hidden in fp32 scratch, products on the CUDA cores in
-    full fp32, per row panel of `mlp_panel_rows`."""
+    """The fp32 instance (the CLIP towers in MaPLe training and the bank
+    precompute's text tower): the LN rows and the hidden in fp32 scratch,
+    products on the CUDA cores in full fp32, per row panel of
+    `mlp_panel_rows`."""
     name = "ln_mlp_residual_bt (float32)"
     K, H = _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2, torch.float32)
-    if K % 4 or H % 4:  # 16-byte rows
-        raise ValueError(f"{name}: CUDA kernel takes K % 4 == 0 and H % 4 == 0, got {K}, {H}")
+    _check_f32_widths(name, K, H)
     M = x.numel() // K
     rows = mlp_panel_rows(M, H)
     n_sm = _cuda.sm_count(x.device)
@@ -410,11 +447,15 @@ def ln_mlp_residual_bt_bwd(x, gamma, beta, w1, b1, w2, b2, g, eps=1e-6,
     `ln_mlp_residual_bt_bwd_ref` for CPU tensors. With `weights` the kernel
     also keeps xn and dh for every row, writes act(pre1) and the
     dgamma/dbeta/db1 partials, and dw1 = dh^T.xn, dw2 = g^T.act(pre1) are
-    `torch.matmul` products (the JAX wrapper leaves them to XLA)."""
+    `torch.matmul` products (the JAX wrapper leaves them to XLA). x in
+    float32 runs the fp32 instance (`_ln_mlp_residual_bwd_f32_cuda`)."""
     name = "ln_mlp_residual_bt_bwd"
     if not _cuda.use_kernel(name, x, gamma, beta, w1, b1, w2, b2, g):
         return ln_mlp_residual_bt_bwd_ref(x, gamma, beta, w1, b1, w2, b2, g, eps, activation,
                                           weights)
+    if x.dtype == torch.float32:
+        return _ln_mlp_residual_bwd_f32_cuda(x, gamma, beta, w1, b1, w2, b2, g, eps, activation,
+                                             weights)
     K, H = _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2)
     _check_tma_k(name, K, H)
     _cuda.check_dtype(name, torch.bfloat16, g)
@@ -455,6 +496,46 @@ def ln_mlp_residual_bt_bwd(x, gamma, beta, w1, b1, w2, b2, g, eps=1e-6,
             torch.matmul(g2.t(), hact).to(w2.dtype), g2.float().sum(0).to(b2.dtype))
 
 
+def _ln_mlp_residual_bwd_f32_cuda(x, gamma, beta, w1, b1, w2, b2, g, eps, activation, weights):
+    """The fp32 instance of #6 (MaPLe training's CLIP MLPs,
+    csrc/ln_mlp_residual_bwd_f32.cu): per row panel of `mlp_panel_rows` the
+    LN row pass, dh_pre = g . W2, dh = act'(xn . W1^T + b1) * dh_pre and
+    dxn = dh . W1 on the CUDA cores, then the LN-backward rows; one count.
+    With `weights` the kernel keeps xn, dh, dxn and the rows' statistics for
+    every row and writes act(pre1), and the weight side is formed here with
+    torch."""
+    name = "ln_mlp_residual_bt_bwd (float32)"
+    K, H = _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2, torch.float32)
+    _check_f32_widths(name, K, H)
+    _cuda.check_dtype(name, torch.float32, g)
+    if g.shape != x.shape:
+        raise ValueError(f"{name}: gradient {g.shape} vs x {x.shape}")
+    M = x.numel() // K
+    rows = mlp_panel_rows(M, H)
+    R = M if weights else rows  # the scratch holds every row when the weight side reads it
+
+    def e(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+    xn, dh, stats, dxn = e(R, K), e(R, H), e(R, 2), e(R, K)
+    hact = e(M, H) if weights else None
+    dx = torch.empty_like(x)
+    n_sm = _cuda.sm_count(x.device)
+    _cuda.LN_MLP_RESIDUAL_BWD_F32(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), g.data_ptr(), dx.data_ptr(), xn.data_ptr(), dh.data_ptr(),
+        stats.data_ptr(), dxn.data_ptr(), hact.data_ptr() if weights else None, M, K, H, rows,
+        float(eps), _cuda.ACTIVATIONS[activation], f32_tile(rows, H, n_sm),
+        f32_tile(rows, K, n_sm),
+    )
+    if not weights:
+        return dx, None, None, None, None, None, None
+    xhat = (x.reshape(M, K) - stats[:, :1]) * stats[:, 1:]
+    g2 = g.reshape(M, K)
+    return (dx, (dxn * xhat).sum(0), dxn.sum(0), torch.matmul(dh.t(), xn), dh.sum(0),
+            torch.matmul(g2.t(), hact), g2.sum(0))
+
+
 class LnMlpResidual(torch.autograd.Function):
     """`ln_mlp_residual_bt` with its hand-written backward; keeps only its
     inputs, as the JAX custom_vjp does."""
@@ -491,17 +572,13 @@ def ln_mlp_residual_bt(
     of at most MLP_SCRATCH_ELEMS elements (row panels beyond). Counterpart of
     `ln_mlp_residual_bt` (TPU kernels #4 and #5; `hidden_grid` is a TPU
     tiling knob and has no counterpart), with the backward of #6 when a
-    gradient is wanted. x in bfloat16 runs the TMA + wgmma kernel, x in
-    float32 its fp32 instance (`_ln_mlp_residual_f32_cuda`), which has no
-    backward on the card yet."""
+    gradient is wanted. x in bfloat16 runs the TMA + wgmma kernels, x in
+    float32 their fp32 instances (`_ln_mlp_residual_f32_cuda`,
+    `_ln_mlp_residual_bwd_f32_cuda`)."""
     tensors = (x, gamma, beta, w1, b1, w2, b2)
     fwd = autograd.forward_fn("ln_mlp_residual_bt", _ln_mlp_residual_bt_cuda,
                               ln_mlp_residual_bt_ref, tensors)
     if autograd.wants_grad(*tensors):
-        if fwd is _ln_mlp_residual_bt_cuda and x.dtype == torch.float32:
-            raise NotImplementedError(
-                "ln_mlp_residual_bt: no float32 backward on the card (#6 takes bfloat16); "
-                "it comes with MaPLe training, ROADMAP.md Queue 1 item 5")
         return LnMlpResidual.apply(fwd, *tensors, eps, activation)
     return fwd(*tensors, eps, activation)
 
@@ -538,9 +615,10 @@ def proj_rows(
 ) -> torch.Tensor:
     """out[b, t, s, :] = x[b, t, :, s] . w^T + b (+ res) -> (B, T, S, N).
     Counterpart of `proj_rows` (TPU kernel #7). On the card x is read as it
-    lies by TMA: its last stride 1, its row and (B, T) group strides
-    multiples of DMAJOR_ALIGN (the attention wrappers' `dmajor_empty`
-    output); anything else raises."""
+    lies (by TMA in bfloat16; in 16-byte loads by the fp32 instance): its
+    last stride 1, its row and (B, T) group strides multiples of
+    DMAJOR_ALIGN (the attention wrappers' `dmajor_empty` output); anything
+    else raises."""
     return autograd.run("proj_rows", _proj_rows_cuda, proj_rows_ref, (x, w, b, res), strided=1)
 
 
@@ -555,16 +633,44 @@ def _group_stride(x: torch.Tensor) -> Optional[int]:
     return None
 
 
+def _dmajor_strides(name, x):
+    """x's row and (B, T) group strides, which the kernels read as they lie."""
+    ldk, ldg = x.stride(2), _group_stride(x)
+    if x.stride(3) != 1 or ldk % DMAJOR_ALIGN or ldg is None or ldg % DMAJOR_ALIGN:
+        raise ValueError(f"{name}: CUDA kernel reads x by TMA: last stride 1, row and group "
+                         f"strides multiples of {DMAJOR_ALIGN}, got strides {x.stride()}")
+    return ldk, ldg
+
+
+def _proj_rows_f32_cuda(x, w, b, res):
+    """The fp32 instance (MaPLe training's vision out-projection,
+    csrc/proj_rows_f32.cu): x read as it lies in 16-byte loads along s."""
+    name = "proj_rows (float32)"
+    _cuda.check_dtype(name, torch.float32, x, w, b, *([res] if res is not None else []))
+    B, T, K, S = x.shape
+    N = w.shape[0]
+    if w.shape != (N, K) or b.shape != (N,) or (res is not None and res.shape != (B, T, S, N)):
+        raise ValueError(f"{name}: shapes x {x.shape} w {w.shape}")
+    ldk, ldg = _dmajor_strides(name, x)
+    _check_f32_widths(name, K, N)
+    out = torch.empty((B, T, S, N), dtype=x.dtype, device=x.device)
+    _cuda.PROJ_ROWS_F32(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        res.data_ptr() if res is not None else None, out.data_ptr(),
+        B * T, S, ldk, ldg, K, N, f32_tile(S, N, _cuda.sm_count(x.device), B * T),
+    )
+    return out
+
+
 def _proj_rows_cuda(x, w, b, res):
+    if x.dtype == torch.float32:
+        return _proj_rows_f32_cuda(x, w, b, res)
     _cuda.check_dtype("proj_rows", torch.bfloat16, x, w, b, *([res] if res is not None else []))
     B, T, K, S = x.shape
     N = w.shape[0]
     if w.shape != (N, K) or b.shape != (N,) or (res is not None and res.shape != (B, T, S, N)):
         raise ValueError(f"proj_rows: shapes x {x.shape} w {w.shape}")
-    ldk, ldg = x.stride(2), _group_stride(x)
-    if x.stride(3) != 1 or ldk % DMAJOR_ALIGN or ldg is None or ldg % DMAJOR_ALIGN:
-        raise ValueError(f"proj_rows: CUDA kernel reads x by TMA: last stride 1, row and group "
-                         f"strides multiples of {DMAJOR_ALIGN}, got strides {x.stride()}")
+    ldk, ldg = _dmajor_strides("proj_rows", x)
     _check_tma_k("proj_rows", K)
     if res is not None and N % 8:
         raise ValueError(f"proj_rows: CUDA kernel takes N % 8 == 0 with the residual, got {N}")

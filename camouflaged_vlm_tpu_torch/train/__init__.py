@@ -6,6 +6,13 @@ from .losses import (
     soft_dice_loss,
     soft_iou_loss,
 )
+from .maple import (
+    MAPLE_TRAINABLE_PREFIXES,
+    maple_loss,
+    maple_schedule,
+    make_maple_optimizer,
+    make_maple_train_step,
+)
 from .optim import (
     TRAINABLE_PREFIXES,
     cosine_epoch_schedule,

@@ -35,16 +35,18 @@ TRAINABLE_PREFIXES: Tuple[str, ...] = (
 )
 
 
-def is_trainable(name: str) -> bool:
-    return name.startswith(TRAINABLE_PREFIXES)
+def is_trainable(name: str, prefixes: Tuple[str, ...] = TRAINABLE_PREFIXES) -> bool:
+    return name.startswith(prefixes)
 
 
-def trainable_parameters(model: nn.Module) -> List[nn.Parameter]:
-    """Set `requires_grad` on exactly the trainable parameters (and clear it
-    on every other one); return them in `named_parameters` order."""
+def trainable_parameters(model: nn.Module,
+                         prefixes: Tuple[str, ...] = TRAINABLE_PREFIXES) -> List[nn.Parameter]:
+    """Set `requires_grad` on exactly the parameters under `prefixes` (the
+    cascade's trainable ones by default; MaPLe training passes its own) and
+    clear it on every other one; return them in `named_parameters` order."""
     out = []
     for name, p in model.named_parameters():
-        p.requires_grad_(is_trainable(name))
+        p.requires_grad_(is_trainable(name, prefixes))
         if p.requires_grad:
             out.append(p)
     return out

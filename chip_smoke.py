@@ -113,15 +113,38 @@ never prints its last line):
               (windows 16 and 17 and ViT-B also traced at batch 2: the card's
               busy time),
               and the CLI's host metric work per image
+ 12. f32_kernels  the fp32 instances on MaPLe training's path against their
+              plain fp32 versions (TF32 off) within 1e-4 at its full-width
+              shapes (batch 8 x 581 tokens, 1024 wide, 16 heads x 64): #2
+              (LN1 + qkv), #16, #7 (out-projection + residual from the
+              d-major attention output), #6 at the vision (H 4096) and text
+              (14 classes x 77 tokens, 768, H 3072) sites, dx only, and the
+              fp32 #4/#5 at the vision width; bounds against the fp32
+              CUDA-core peak (67 TFLOP/s)
+ 13. maple_small  one MaPLe step of a small fp32 CustomClip (128 wide, 2
+              heads x 64) on the card against the same step on the CPU: the
+              loss, every prompt-learner gradient within 1e-4, the prompts
+              after SGD within 1e-5, exact launch counts
+ 14. maple_slice  `cli/train_maple.py` at full width (MaPLe Alpha-CLIP
+              ViT-L/14@336, n_ctx 4, prompt depth 9) in fp32 on the card,
+              batch 8, one epoch of 24 synthetic images of 14 train classes (3
+              steps): exact launch counts (24 each of #2, #16, #7 and 36 each
+              of the fp32 #4/#5 and #6 a step), only the prompt learner
+              changed, finite losses, step walls, the CLI's peak memory; then
+              one step cut into forward + loss, backward and SGD (CUDA
+              events, `[maple_times]`); its model-best.pth.tar read back by
+              the demo session's --maple-ckpt (the trained prompts, text
+              features moved)
 
 Every kernel line carries its bound (the larger of its FLOP over the bf16
 tensor-core peak, the fp32 one's over the fp32 CUDA-core peak, and its bytes
 over the HBM rate, at this run's shapes) and
 the time of one PyTorch library call computing the same function where
 there is one. Before its last line the script prints one JSON object
-{"kernels": [...]} of 20 kernels (one per wrapper; `ln_mlp_residual_bt`
+{"kernels": [...]} of 24 kernels (one per wrapper; `ln_mlp_residual_bt`
 serves TPU kernels #4 and #5, and `ln_mlp_residual_bt_f32` is their fp32
-instance, with its launches from [bank]), each with its launches on its path, or, for
+instance, with its launches from [bank]; the fp32 #2, #16, #7 and #6 with
+theirs from [maple_slice]), each with its launches on its path, or, for
 #9 and #19, which no path reaches, in their check with a "path" field
 saying so, and its times on both clocks (`ms`, `plain_ms`, `library_ms` on an
 idle card; `queued_ms`, `library_queued_ms` queued) and the host's cost of
@@ -2464,6 +2487,336 @@ def phase_bench():
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ MaPLe training
+
+# MaPLe's full-width shapes: the ViT-L/14@336 vision blocks at the JAX CLI's
+# batch 8 (577 tokens + 4 prompts, 1024 wide, 16 heads x 64, H 4096) and the
+# text tower over 14 train classes x 77 tokens (768 wide, H 3072)
+MAPLE_B, MAPLE_S, MAPLE_CLASSES = 8, 581, 14
+# the fp32 step on the card against the same step on the CPU: both fp32
+# with TF32 off, apart in summation order only; per prompt-learner tensor
+# max|d| / max|g|, the loss relative
+MAPLE_SMALL_REL_BOUND = 1e-4
+
+
+def phase_f32_kernels():
+    """The fp32 instances on MaPLe's path against their plain fp32 versions
+    (TF32 off, set in [device]) at its full-width shapes, within 1e-4, their
+    bound against the fp32 CUDA-core peak (67 TFLOP/s) and the HBM rate, and
+    one PyTorch call for the same function (F.layer_norm + F.linear; fp32
+    SDPA; torch.baddbmm with the bias folded into the residual beforehand;
+    #6 none); and the fp32 #4/#5 at the vision width."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    F = torch.nn.functional
+    check(not torch.backends.cuda.matmul.allow_tf32, "fp32 kernel checks need TF32 off")
+    g = torch.Generator(device="cuda").manual_seed(16)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    B, S, W, NH, HD, H = MAPLE_B, MAPLE_S, 1024, 16, 64, 4096
+    M, eps = B * S, 1e-5
+    src = "camouflaged_vlm_tpu_torch/csrc/"
+    out = {}
+
+    def run(key, label, source, replaces, kfn, pfn, args, flops, library):
+        r = _check_kernel(f"{key} ({label}, fp32, TF32 off)", kfn, pfn, args, flops=flops,
+                          library=library, rel_bound=F32_REL_BOUND, peak_flops=PEAK_F32_FLOPS)
+        out[key] = dict(source=src + source, replaces="camouflaged_vlm_tpu/ops/" + replaces, **r)
+
+    with torch.no_grad():
+        x, gam, bet = rn(B, S, W), 1 + rn(W, std=0.1), rn(W, std=0.1)
+        wq, bq = rn(3 * W, W, std=0.02), rn(3 * W, std=0.02)
+        run("ln_linear_act_bt_f32", f"LN1 + qkv {B}x{S}x{W} -> {3 * W}", "ln_linear_f32.cu",
+            "linear.py:143",
+            lambda *a: lin.ln_linear_act_bt(*a, eps=eps, activation=None),
+            lambda *a: lin.ln_linear_act_bt_ref(*a, eps=eps, activation=None),
+            (x, gam, bet, wq, bq), 2.0 * M * W * 3 * W,
+            lambda: F.linear(F.layer_norm(x, (W,), gam, bet, eps), wq, bq))
+        qkv = rn(B, S, 3 * W)
+        r = qkv.reshape(B, S, 3, NH, HD)
+        q, k, v = (r[:, :, i].transpose(1, 2) for i in range(3))
+        run("flash_qkv_packed_plain_f32", f"{B}x{S}, {NH} heads x {HD}",
+            "qkv_packed_plain_f32.cu", "flash_attention.py:875",
+            lambda a: fa.flash_qkv_packed_plain(a, HD ** -0.5, NH, HD),
+            lambda a: fa.flash_qkv_packed_plain_ref(a, HD ** -0.5, NH, HD),
+            (qkv,), 4.0 * B * NH * S * S * HD,
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=HD ** -0.5))
+        del qkv, r, q, k, v
+        xd, res = dmajor(rn(B, 1, W, S)), rn(B, 1, S, W)
+        wo, bo = rn(W, W, std=0.02), rn(W, std=0.02)
+        # the library call's operands: x as it lies, W^T for every image, and
+        # the bias folded into the residual outside the timed call
+        resb, xt, wt = (res + bo).reshape(B, S, W), xd[:, 0].transpose(1, 2), wo.t().expand(B, W, W)
+        run("proj_rows_f32", f"out-proj + residual {B}x{S}, K {W} -> {W}", "proj_rows_f32.cu",
+            "linear.py:665", lin.proj_rows, lin.proj_rows_ref, (xd, wo, bo, res),
+            2.0 * M * W * W, lambda: torch.baddbmm(resb, xt, wt))
+        del xd, res, resb, xt, wt
+        for site, (bb, ss, kk, hh) in (("vision", (B, S, W, H)),
+                                       ("text", (MAPLE_CLASSES, 77, 768, 3072))):
+            rows = bb * ss
+            xm = rn(bb, ss, kk)
+            args = (xm, 1 + rn(kk, std=0.1), rn(kk, std=0.1), rn(hh, kk, std=0.02),
+                    rn(hh, std=0.02), rn(kk, hh, std=0.02), rn(kk, std=0.02))
+            ga, be, w1, b1, w2, b2 = args[1:]
+            gy = rn(bb, ss, kk)
+            if site == "vision":
+                def library():
+                    h = F.linear(F.layer_norm(xm, (kk,), ga, be, eps), w1, b1)
+                    return xm + F.linear(h * torch.sigmoid(1.702 * h), w2, b2)
+
+                _check_kernel(
+                    f"ln_mlp_residual_bt_f32 (vision {rows}x{kk}, H {hh}, fp32, TF32 off)",
+                    lambda *a: lin.ln_mlp_residual_bt(*a, eps=eps, activation="quick_gelu"),
+                    lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=eps, activation="quick_gelu"),
+                    args, flops=4.0 * rows * kk * hh, library=library, rel_bound=F32_REL_BOUND,
+                    peak_flops=PEAK_F32_FLOPS)
+            # #6 reads x, g, gamma, beta, W1, b1 and W2 (b2 is not read); the
+            # kernels line holds the vision site
+            r = _check_kernel(
+                f"ln_mlp_residual_bt_bwd_f32 ({site} {rows}x{kk}, H {hh}, dx only, fp32, "
+                "TF32 off)",
+                lambda *a: lin.ln_mlp_residual_bt_bwd(*a, eps=eps, activation="quick_gelu",
+                                                      weights=False)[0],
+                lambda *a: lin.ln_mlp_residual_bt_bwd_ref(*a, eps=eps, activation="quick_gelu",
+                                                          weights=False)[0],
+                args + (gy,), flops=6.0 * rows * kk * hh, reads=args[:6] + (gy,),
+                rel_bound=F32_REL_BOUND, peak_flops=PEAK_F32_FLOPS)
+            if site == "vision":
+                out["ln_mlp_residual_bt_bwd_f32"] = dict(
+                    source=src + "ln_mlp_residual_bwd_f32.cu",
+                    replaces="camouflaged_vlm_tpu/ops/linear.py:564", **r)
+            del xm, args, gy, ga, be, w1, b1, w2, b2
+    torch.cuda.empty_cache()
+    return out
+
+
+def _maple_small_config(dtype):
+    import dataclasses
+
+    from camouflaged_vlm_tpu_torch.models import CascadeConfig
+    from camouflaged_vlm_tpu_torch.models.clip import AlphaClipConfig
+
+    # the fp32 attention takes d in (64, 128): CLIP 128 wide (2 heads x 64),
+    # 3 vision and 3 text layers, prompt depth 3
+    clip = AlphaClipConfig.tiny(dtype=dtype, vision_width=128, vision_heads=2, prompt_depth=3)
+    return dataclasses.replace(CascadeConfig.tiny(dtype=dtype), clip=clip)
+
+
+def maple_expected(clip, steps):
+    """Launch counts of `steps` MaPLe steps in fp32: per step the vision
+    tower's LN1 + qkv, attention and out-projection in each of its blocks,
+    the fused MLP in each block of both towers (the text tower's attention
+    is masked and plain), and the MLP's backward in each of them (the
+    prompts enter both towers' first layer, so every block is on the
+    gradient's path; the plain backwards of the others launch nothing)."""
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    out = {k.name: 0 for k in _cuda.KERNELS}
+    for k in ("ln_linear_act_bt_f32", "flash_qkv_packed_plain_f32", "proj_rows_f32"):
+        out[k] = clip.vision_layers * steps
+    for k in ("ln_mlp_residual_bt_f32", "ln_mlp_residual_bt_bwd_f32"):
+        out[k] = (clip.vision_layers + clip.transformer_layers) * steps
+    return out
+
+
+def phase_maple_small():
+    """One MaPLe step of a small fp32 CustomClip on the card against the same
+    step on the CPU, same weights, bank and batch: the loss, every
+    prompt-learner gradient and the prompts after the SGD update; exact
+    launch counts on the card."""
+    import torch
+    from camouflaged_vlm_tpu_torch import train
+    from camouflaged_vlm_tpu_torch.factory import build_cascade, make_bank_inputs
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    cfg = _maple_small_config(torch.float32)
+    names = ["cat", "owl", "bat", "moth", "slug"]
+    rng = np.random.default_rng(3)
+    C = cfg.clip_size
+    batch = {"clip_image": rng.standard_normal((4, C, C, 3)).astype(np.float32),
+             "clip_alpha": rng.standard_normal((4, C, C, 1)).astype(np.float32),
+             "label_id": np.array([0, 3, 1, 4], np.int32)}
+    ref = build_cascade(cfg, "cpu", seed=4)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = build_cascade(cfg, dev, seed=4)
+        model.load_state_dict(ref.state_dict(), strict=True)
+        params = train.trainable_parameters(model, train.MAPLE_TRAINABLE_PREFIXES)
+        pnames = {id(p): n for n, p in model.named_parameters()}
+        grads = {}
+        for p in params:
+            p.register_post_accumulate_grad_hook(
+                lambda q, grads=grads, pnames=pnames: grads.__setitem__(pnames[id(q)],
+                                                                         q.grad.float().cpu()))
+        opt = train.make_maple_optimizer(params, 0.01)
+        step = train.make_maple_train_step(model.clip_model, opt,
+                                           train.maple_schedule(0.01, 5, 1, warmup_epochs=0))
+        bank = make_bank_inputs(cfg, names, seed=4, device=dev)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        _cuda.reset_launches()
+        m = step({**tb, **bank}, 0)
+        counts = _cuda.launch_counts()
+        after = {n: p.detach().cpu() for n, p in model.named_parameters()
+                 if n.startswith(train.MAPLE_TRAINABLE_PREFIXES)}
+        runs[dev] = (float(m["loss"]), float(m["acc"]), grads, after, counts)
+    l_ref, a_ref, g_ref, p_ref, c_ref = runs["cpu"]
+    l_gpu, a_gpu, g_gpu, p_gpu, c_gpu = runs["cuda"]
+    want = maple_expected(cfg.clip, 1)
+    dl = abs(l_gpu - l_ref) / abs(l_ref)
+    rel = {n: float((g_gpu[n] - g).abs().max() / g.abs().max()) for n, g in g_ref.items()}
+    upd = max(float((p_gpu[n] - v).abs().max()) for n, v in p_ref.items())
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[maple_small] CLIP {cfg.clip.vision_width} wide ({cfg.clip.vision_heads} heads x 64), "
+        f"{cfg.clip.vision_layers} + {cfg.clip.transformer_layers} layers, fp32 card vs fp32 CPU: "
+        f"loss {l_gpu:.7f} vs {l_ref:.7f} (rel {dl:.3e}), acc {a_gpu} vs {a_ref}; {len(rel)} "
+        f"prompt-learner gradients, max|d|/max|g| worst {[(n, f'{v:.3e}') for n, v in worst]} "
+        f"(bound {MAPLE_SMALL_REL_BOUND}); prompts after the update max|d| {upd:.3e}; "
+        f"launches {({k: v for k, v in c_gpu.items() if v})}")
+    check(not any(c_ref.values()), f"[maple_small] the CPU run launched {c_ref}")
+    check(c_gpu == want, f"[maple_small] launches {c_gpu} != {want}")
+    check(dl < MAPLE_SMALL_REL_BOUND and a_gpu == a_ref, f"[maple_small] loss {dl}, acc")
+    check(set(rel) == set(g_ref) == set(g_gpu) and max(rel.values()) < MAPLE_SMALL_REL_BOUND,
+          f"[maple_small] gradients {worst}")
+    check(upd < 1e-5, f"[maple_small] updated prompts differ by {upd}")
+
+
+def phase_maple_slice():
+    """`cli/train_maple.py` at full width (the cascade's MaPLe Alpha-CLIP
+    ViT-L/14@336: n_ctx 4, prompt depth 9) in fp32 on the card, batch 8, one
+    epoch of a seeded synthetic OVCamo tree with 14 train classes (24
+    images: 3 steps): exact launch counts per step, only the prompt learner
+    changed, finite losses, the step times, the peak memory; then one step
+    cut into forward + loss, backward and SGD (CUDA events); then its
+    model-best.pth.tar read by the demo session's --maple-ckpt."""
+    import torch
+    from camouflaged_vlm_tpu_torch import train
+    from camouflaged_vlm_tpu_torch.cli import demo
+    from camouflaged_vlm_tpu_torch.cli import train_maple as maple_cli
+    from camouflaged_vlm_tpu_torch.data.synthetic import write_synthetic_ovcamo
+    from camouflaged_vlm_tpu_torch.factory import build_full_cascade
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    work = os.path.join("build", "chip_smoke_maple")
+    shutil.rmtree(work, ignore_errors=True)
+    classes = tuple(f"class_{i}" for i in range(MAPLE_CLASSES))
+    info = write_synthetic_ovcamo(os.path.join(work, "ovcamo_synthetic"), n_train=24,
+                                  n_test=2, seed=0, train_classes=classes,
+                                  test_classes=("bat", "slug"))
+    save_dir = os.path.join(work, "save")
+    before, _ = build_full_cascade(torch.float32, "cuda", seed=0)
+    start = {k: v.clone() for k, v in before.state_dict().items()}
+    del before
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    run = maple_cli.main(["--dataset-info", info, "--save-dir", save_dir, "--device", "cuda",
+                          "--epochs", "1", "--batch-size", str(MAPLE_B), "--seed", "0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    model, steps = run["model"], run["step"]
+    clip = model.cfg.clip
+    check(model.cfg.clip.dtype == torch.float32 and (clip.vision_width, clip.vision_layers,
+                                                     clip.n_ctx, clip.prompt_depth)
+          == (1024, 24, 4, 9), f"[maple_slice] not the full-width fp32 CLIP: {clip}")
+    check(steps == 3, f"[maple_slice] {steps} steps, expected 3")
+    check(all(np.isfinite(e["loss"]) for e in run["epochs"]), f"[maple_slice] {run['epochs']}")
+    after = model.state_dict()
+    moved = [k for k, v in start.items() if not torch.equal(v, after[k])]
+    pl = [k for k in start if k.startswith(train.MAPLE_TRAINABLE_PREFIXES)]
+    # the trained and the seeded prompts (the timed steps below move them again)
+    trained = {k: after[k].clone() for k in pl}
+    seeded = {k[len("clip_model."):]: start[k] for k in pl}
+    expected = maple_expected(clip, steps)
+    st = run["step_seconds"]
+    log(f"[maple_slice] {steps} steps at batch {MAPLE_B} (fp32), epoch {run['epochs']}; tensors "
+        f"changed {len(moved)} (prompt learner {len(set(moved) & set(pl))}/{len(pl)}; others "
+        f"{len(set(moved) - set(pl))}); step wall times (s) {[round(x, 4) for x in st]}; CLI wall "
+        f"{wall:.1f} s; the CLI's peak device memory {peak:.2f} GiB (over the "
+        f"{base / 2 ** 30:.2f} GiB allocated before it)")
+    log(f"[maple_slice] kernel launches {({k: v for k, v in counts.items() if v})} expected "
+        f"{({k: v for k, v in expected.items() if v})}")
+    check(counts == expected, f"[maple_slice] launches {counts} != {expected}")
+    check(set(moved) == set(pl), f"[maple_slice] changed {sorted(set(moved) ^ set(pl))[:5]}")
+    for name in ("maple_last.pt", "maple_best.pt", "prompt_learner_best.npz",
+                 "model-best.pth.tar", "log.txt"):
+        check(os.path.exists(os.path.join(save_dir, name)), f"[maple_slice] no {name}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    shutil.copy(os.path.join(save_dir, "log.txt"), os.path.join(OUT_DIR, "maple_log.txt"))
+
+    # one step cut into forward + loss, backward and SGD, median of 3 after a
+    # warm-up, on a seeded batch of 8 (the trained model, its optimizer)
+    opt, bank = run["optimizer"], run["bank"]
+    rng = np.random.default_rng(5)
+    C = model.cfg.clip_size
+    batch = {"clip_image": torch.from_numpy(rng.standard_normal((MAPLE_B, C, C, 3))
+                                            .astype(np.float32)).cuda(),
+             "clip_alpha": torch.from_numpy(rng.standard_normal((MAPLE_B, C, C, 1))
+                                            .astype(np.float32)).cuda(),
+             "label_id": torch.from_numpy(rng.integers(0, MAPLE_CLASSES, MAPLE_B)).cuda()}
+    rows = []
+    for it in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        logits = model.clip_model(batch["clip_image"], batch["clip_alpha"], bank["prefix"],
+                                  bank["suffix"], bank["eot_indices"], bank["bank_features"])[3]
+        loss = train.maple_loss(logits, batch["label_id"])
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        ev[3].record()
+        torch.cuda.synchronize()
+        if it:
+            rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    med = np.median(np.array(rows), axis=0)
+    log(f"[maple_times] batch {MAPLE_B}, {MAPLE_CLASSES} classes, fp32 (median of 3, ms): "
+        f"forward + loss {med[0]:.2f}; backward {med[1]:.2f}; SGD {med[2]:.2f}; sum "
+        f"{med.sum():.2f}")
+    del run, model, opt, bank, after, start, logits, loss
+    torch.cuda.empty_cache()
+
+    # the trainer's file read back by the demo session (bf16, the 61 test
+    # classes): its prompt learner is the trained one rounded to bf16 where
+    # the session holds bf16, and the text features move with it
+    image = os.path.join(work, "image.png")
+    _synthetic_images(1)[0].save(image)
+    args = demo.parse_args(["--image", image, "--out-dir", os.path.join(work, "demo"),
+                            "--device", "cuda", "--dtype", "bfloat16", "--seed", "0",
+                            "--maple-ckpt", os.path.join(save_dir, "model-best.pth.tar")])
+    session = demo.DemoSession(args)
+    sd = session.model.state_dict()
+    bad = [k for k, v in trained.items() if not torch.equal(sd[k], v.to(sd[k].dtype))]
+    tf = session.text_features
+    # the seeded prompts (the fp32 draws, cast on load as the bf16 build casts them)
+    missing, unexpected = session.model.clip_model.load_state_dict(seeded, strict=False)
+    check(not unexpected and len(missing) + len(seeded) == len(
+        session.model.clip_model.state_dict()), "[maple_slice] seeded prompts not loaded")
+    b = session.bank
+    with torch.no_grad():
+        tf0 = session.model.encode_class_text_features(b["prefix"], b["suffix"],
+                                                       b["eot_indices"], b["bank_features"])
+    d = float((tf.float() - tf0.float()).abs().max())
+    log(f"[maple_slice] model-best.pth.tar through the demo session's --maple-ckpt: "
+        f"{len(trained) - len(bad)}/{len(trained)} prompt-learner tensors equal the trained ones "
+        f"in the session's types; text features against the seeded prompts' max|d| {d:.4e}")
+    check(not bad, f"[maple_slice] --maple-ckpt loaded other prompts: {bad[:5]}")
+    check(d > 0, "[maple_slice] the trained prompts did not change the text features")
+    del session, tf, tf0, seeded, trained
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     if os.path.exists(LOG_FILE):
         os.remove(LOG_FILE)
@@ -2502,6 +2855,9 @@ def main() -> None:
     timed(phase_train_val)
     timed(phase_unfused)
     evals = timed(phase_eval_slice)
+    f32 = timed(phase_f32_kernels)
+    timed(phase_maple_small)
+    maple_counts = timed(phase_maple_slice)
     import torch
 
     # launches: each kernel's count in the run of its own main path (the
@@ -2515,7 +2871,8 @@ def main() -> None:
                 "flash_qkv_packed_windows": ev["vit_h_flash_win16"]["flash_qkv_packed_windows"],
                 "flash_qkv_relpos_windows": ev["vit_h_flash_win17"]["flash_qkv_relpos_windows"],
                 "proj_from_heads_res": ev["vit_h_flash_win17"]["proj_from_heads_res"],
-                "ln_mlp_residual_bt_f32": f32_launches}
+                "ln_mlp_residual_bt_f32": f32_launches,
+                **{k: maple_counts[k] for k in f32}}
     kernels = [
         {"name": k, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": r["launches"] if k in NO_PATH else launches[k],
@@ -2525,9 +2882,9 @@ def main() -> None:
          "host_us": r.get("host_us"),
          **({"gemm_library_ms": r["gemm_library_ms"]} if "gemm_library_ms" in r else {}),
          **({"path": r["path"]} if k in NO_PATH else {})}
-        for res in (results, grads) for k, r in res.items()
+        for res in (results, grads, f32) for k, r in res.items()
     ]
-    check(len(kernels) == 20 and all(e["launches"] > 0 for e in kernels)
+    check(len(kernels) == 24 and all(e["launches"] > 0 for e in kernels)
           and all(launches[e["name"]] == 0 for e in kernels if e["name"] in NO_PATH),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     log("[device] name and power limit (nvidia-smi) of the card all numbers above ran on:")

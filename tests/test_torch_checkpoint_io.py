@@ -9,12 +9,12 @@ fp16 (either in-proj naming, no conv1_alpha), dassl `.pth.tar` files
 the same files from the same starting weights (JAX's init replaced by the
 port's seeded random weights); the port's whole state dict must equal
 `state_dict_from_jax_params` of JAX's params bit for bit, and so must the
-class bank's inputs. In bfloat16 the parameters must be equal too: each
-file's value rounded once, as JAX casts after the last merge. Two entries no
-file sets are left out there, where the two packages' cast rules (rank >= 2)
-see other ranks: `no_mask_embed.weight`, (1, D) in the port and cast, (D,) in
-JAX and not; the decoder's Gaussian PE matrix, a buffer the port does not
-cast.
+class bank's inputs. In bfloat16 every parameter must be equal too: each
+file's value rounded once, as JAX casts after the last merge, and
+`no_mask_embed.weight` ((1, D) in the port, (D,) in JAX) kept in fp32 by
+both. The decoder's Gaussian PE matrix, a buffer that no file sets and the
+port never casts (JAX rounds it: a JAX fault, ROADMAP.md), is not a
+parameter and not compared there.
 Also pinned: what raises (a MaPLe file with no matching key, a shape
 mismatch, a missing path, a model-zoo name or a URL), and the export of a
 train checkpoint against JAX's exporter, bit for bit.
@@ -110,11 +110,13 @@ def test_files_load_as_jax_assembles_them(files, case, monkeypatch):
 
 def test_files_load_as_jax_assembles_them_in_bfloat16(files, monkeypatch):
     """In bfloat16 every parameter equals JAX's cast after the last merge
-    (fp16 and fp32 file values rounded once to bfloat16)."""
+    (fp16 and fp32 file values rounded once to bfloat16; no_mask_embed in
+    fp32 in both)."""
     want, jbank, model, bank = _both(files, "all_four", monkeypatch, torch.bfloat16)
     got = dict(model.named_parameters())
     assert got["image_encoder.blocks.0.attn.qkv.weight"].dtype == torch.bfloat16
-    assert_state_equal(got, want, keys=[k for k in got if k != "no_mask_embed.weight"])
+    assert got["no_mask_embed.weight"].dtype == torch.float32
+    assert_state_equal(got, want, keys=list(got))
     assert_bank_equal(bank, jbank)
 
 

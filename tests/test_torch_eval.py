@@ -458,12 +458,13 @@ def test_port_imports_nothing_of_the_jax_package():
                           timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split("IMPORTED")[1].split()[0]) > 40
-    # the serving engine, the graph helper, the bench and the checkpoint
-    # interop and bank precompute modules among them
+    # the serving engine, the graph helper, the bench, the checkpoint
+    # interop and bank precompute modules and MaPLe training among them
     imported = set(proc.stdout.split("NAMES")[1].split())
     for m in ("serve", "graphs", "ops.constants", "cli.serve", "cli.bench",
               "cli.serve_throughput", "io.torch_loader", "io.synthetic",
-              "cli.precompute_text_bank", "cli.export_checkpoint", "data.templates"):
+              "cli.precompute_text_bank", "cli.export_checkpoint", "data.templates",
+              "train.maple", "cli.train_maple"):
         assert f"camouflaged_vlm_tpu_torch.{m}" in imported, m
 
     import ast

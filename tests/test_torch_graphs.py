@@ -150,7 +150,8 @@ def test_build_in_compute_type_is_bit_equal_tiny(dtype):
 
 def test_build_in_compute_type_full_width():
     """The full width on `meta` (every tensor's type and shape as the cast
-    build's: rank >= 2 parameters in bf16, the rest fp32), then one
+    build's: rank >= 2 parameters in bf16 but `factory.FP32_WEIGHTS`, the
+    rest fp32), then one
     full-width SAM ViT-H block and one CLIP ViT-L block filled both ways on
     the CPU, bit for bit."""
     cfg = CascadeConfig.full(dtype=torch.bfloat16)
@@ -158,7 +159,9 @@ def test_build_in_compute_type_full_width():
         model = OVCOSCascade(cfg)
     factory.cast_weights_(model, torch.bfloat16)
     for name, p in model.named_parameters():
-        assert p.dtype == (torch.bfloat16 if p.ndim >= 2 else torch.float32), name
+        cast = p.ndim >= 2 and name not in factory.FP32_WEIGHTS
+        assert p.dtype == (torch.bfloat16 if cast else torch.float32), name
+    assert model.no_mask_embed.weight.dtype == torch.float32
     assert all(b.dtype == torch.float32 for b in model.buffers())
 
     def blocks(order):

@@ -158,9 +158,140 @@ def test_ln_mlp_residual_bt_kernel_float32(gen, monkeypatch, activation, tile, B
             before[0] + 1, before[1])
         assert got.dtype == f32 and torch.isfinite(got).all()
         assert ((got - want).abs().max() / want.abs().max()).item() < F32_BOUND
+    # a gradient goes through the fp32 instance of #6 (one launch each way)
     x = args[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        linear.ln_mlp_residual_bt(x, *args[1:], eps=1e-5, activation=activation)
+    before = (_cuda.LN_MLP_RESIDUAL_F32.launches, _cuda.LN_MLP_RESIDUAL_BWD_F32.launches)
+    y = linear.ln_mlp_residual_bt(x, *args[1:], eps=1e-5, activation=activation)
+    gy = rn(gen, *y.shape, dtype=f32)
+    (gx,) = torch.autograd.grad(y, x, gy)
+    assert (_cuda.LN_MLP_RESIDUAL_F32.launches, _cuda.LN_MLP_RESIDUAL_BWD_F32.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_dx = linear.ln_mlp_residual_bt_bwd_ref(*args, gy, eps=1e-5, activation=activation,
+                                                weights=False)[0]
+    assert ((gx - want_dx).abs().max() / want_dx.abs().max()).item() < F32_BOUND
+
+
+def assert_close_f32(got, want):
+    """fp32 kernel against its plain fp32 version (TF32 off): the same
+    function with no rounding point, apart in fp32 summation order."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    d = (got - want).abs()
+    assert (d.max() / want.abs().max()).item() < F32_BOUND
+    assert (d.mean() / want.abs().mean()).item() < F32_BOUND
+
+
+@pytest.fixture
+def no_tf32(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("activation", [None, "quick_gelu"])
+@pytest.mark.parametrize("B,S,K,N", [(8, 581, 1024, 3072), (2, 37, 200, 264), (1, 7, 96, 12)])
+def test_ln_linear_act_bt_kernel_float32(gen, monkeypatch, no_tf32, tile, activation, B, S, K, N):
+    """#2's fp32 instance at MaPLe's vision shape (batch 8, 581 tokens, K
+    1024, N 3072) and ragged ones; each tile."""
+    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    f32 = torch.float32
+    args = (rn(gen, B, S, K, dtype=f32) + 0.5, 1 + rn(gen, K, std=0.1, dtype=f32),
+            rn(gen, K, std=0.1, dtype=f32), rn(gen, N, K, std=0.05, dtype=f32),
+            rn(gen, N, std=0.1, dtype=f32))
+    before = (_cuda.LN_LINEAR_F32.launches, _cuda.LN_LINEAR.launches)
+    got = linear.ln_linear_act_bt(*args, eps=1e-5, activation=activation)
+    assert (_cuda.LN_LINEAR_F32.launches, _cuda.LN_LINEAR.launches) == (before[0] + 1, before[1])
+    assert_close_f32(got, linear.ln_linear_act_bt_ref(*args, eps=1e-5, activation=activation))
+
+
+@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("B,T,K,S,N", [(8, 1, 1024, 581, 1024), (1, 3, 64, 70, 96),
+                                       (2, 2, 200, 37, 136)])
+def test_proj_rows_kernel_float32(gen, monkeypatch, no_tf32, tile, with_res, B, T, K, S, N):
+    """#7's fp32 instance at MaPLe's vision shape and ragged ones, x as the
+    fp32 attention gives it (rows of a stride rounded up to 8)."""
+    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    f32 = torch.float32
+    res = rn(gen, B, T, S, N, dtype=f32) if with_res else None
+    args = (dmajor(rn(gen, B, T, K, S, dtype=f32)), rn(gen, N, K, std=0.05, dtype=f32),
+            rn(gen, N, std=0.1, dtype=f32), res)
+    before = (_cuda.PROJ_ROWS_F32.launches, _cuda.PROJ_ROWS.launches)
+    got = linear.proj_rows(*args)
+    assert (_cuda.PROJ_ROWS_F32.launches, _cuda.PROJ_ROWS.launches) == (before[0] + 1, before[1])
+    assert_close_f32(got, linear.proj_rows_ref(*args))
+
+
+@pytest.mark.parametrize("B,S,heads,d", [(8, 581, 16, 64), (1, 7, 2, 64), (2, 64, 1, 64),
+                                         (1, 129, 2, 64), (2, 1200, 1, 64)])
+def test_flash_qkv_packed_plain_kernel_float32(gen, no_tf32, B, S, heads, d):
+    """#16's fp32 instance at MaPLe's vision shape (batch 8, 581 tokens, 16
+    heads x 64); sequences under one 64-key tile, exactly one, ragged and
+    long; d = 64 (CLIP ViT-L/14's) only. Its output feeds the fp32
+    proj_rows as it lies."""
+    qkv = rn(gen, B, S, 3 * heads * d, dtype=torch.float32)
+    before = (_cuda.QKV_PACKED_PLAIN_F32.launches, _cuda.QKV_PACKED_PLAIN.launches)
+    got = flash_attention.flash_qkv_packed_plain(qkv, d ** -0.5, heads, d)
+    assert (_cuda.QKV_PACKED_PLAIN_F32.launches, _cuda.QKV_PACKED_PLAIN.launches) == (
+        before[0] + 1, before[1])
+    assert got.stride(-2) % 8 == 0
+    assert_close_f32(got, flash_attention.flash_qkv_packed_plain_ref(qkv, d ** -0.5, heads, d))
+    with pytest.raises(ValueError, match="takes d = 64"):
+        flash_attention.flash_qkv_packed_plain(rn(gen, 1, 5, 3 * 32, dtype=torch.float32),
+                                               0.1, 1, 32)
+
+
+@pytest.mark.parametrize("weights", [False, True])
+@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("B,S,K,H", [(8, 581, 1024, 4096), (14, 77, 768, 3072), (2, 37, 200, 264),
+                                     (1, 7, 96, 136)])
+def test_ln_mlp_residual_bt_bwd_kernel_float32(gen, monkeypatch, no_tf32, weights, tile, B, S, K,
+                                                H):
+    """#6's fp32 instance at MaPLe's two sites (vision: batch 8 x 581 rows,
+    K 1024, H 4096; text: 14 classes x 77 tokens, K 768, H 3072) and ragged
+    ones; each tile; with and without the weight side."""
+    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    f32 = torch.float32
+    args = (rn(gen, B, S, K, dtype=f32), 1 + rn(gen, K, std=0.1, dtype=f32),
+            rn(gen, K, std=0.1, dtype=f32), rn(gen, H, K, std=0.05, dtype=f32),
+            rn(gen, H, std=0.1, dtype=f32), rn(gen, K, H, std=0.05, dtype=f32),
+            rn(gen, K, std=0.1, dtype=f32), rn(gen, B, S, K, dtype=f32))
+    before = (_cuda.LN_MLP_RESIDUAL_BWD_F32.launches, _cuda.LN_MLP_RESIDUAL_BWD.launches)
+    got = linear.ln_mlp_residual_bt_bwd(*args, eps=1e-5, activation="quick_gelu",
+                                        weights=weights)
+    assert (_cuda.LN_MLP_RESIDUAL_BWD_F32.launches, _cuda.LN_MLP_RESIDUAL_BWD.launches) == (
+        before[0] + 1, before[1])
+    want = linear.ln_mlp_residual_bt_bwd_ref(*args, eps=1e-5, activation="quick_gelu",
+                                             weights=weights)
+    for gt, wt in zip(got, want):
+        if wt is None:
+            assert gt is None
+        else:
+            assert_close_f32(gt, wt)
+
+
+def test_ln_mlp_residual_bt_bwd_kernel_float32_row_panels(gen, monkeypatch, no_tf32):
+    """A hidden larger than the scratch: the fp32 backward walks M in row
+    panels (256 rows of 700, the last one ragged), one count, with and
+    without the weight side."""
+    monkeypatch.setattr(linear, "MLP_SCRATCH_ELEMS", 300 * 512)
+    B, S, K, H = 2, 350, 128, 512
+    assert linear.mlp_panel_rows(B * S, H) == 256
+    f32 = torch.float32
+    args = (rn(gen, B, S, K, dtype=f32), 1 + rn(gen, K, std=0.1, dtype=f32),
+            rn(gen, K, std=0.1, dtype=f32), rn(gen, H, K, std=0.05, dtype=f32),
+            rn(gen, H, std=0.1, dtype=f32), rn(gen, K, H, std=0.05, dtype=f32),
+            rn(gen, K, std=0.1, dtype=f32), rn(gen, B, S, K, dtype=f32))
+    for weights in (False, True):
+        before = _cuda.LN_MLP_RESIDUAL_BWD_F32.launches
+        got = linear.ln_mlp_residual_bt_bwd(*args, eps=1e-6, activation="gelu_tanh",
+                                            weights=weights)
+        assert _cuda.LN_MLP_RESIDUAL_BWD_F32.launches == before + 1
+        want = linear.ln_mlp_residual_bt_bwd_ref(*args, eps=1e-6, activation="gelu_tanh",
+                                                 weights=weights)
+        for gt, wt in zip(got, want):
+            assert (gt is None) == (wt is None)
+            if wt is not None:
+                assert_close_f32(gt, wt)
 
 
 @pytest.mark.parametrize("with_res", [False, True])

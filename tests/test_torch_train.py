@@ -46,6 +46,7 @@ from camouflaged_vlm_tpu_torch.io.convert import (  # noqa: E402
     _inverse_transform,
     cascade_key_map,
     load_jax_params,
+    state_dict_from_jax_params,
 )
 from camouflaged_vlm_tpu_torch.models import CascadeConfig, SamEncoderConfig  # noqa: E402
 from camouflaged_vlm_tpu_torch.models.clip import AlphaClipConfig  # noqa: E402
@@ -563,3 +564,66 @@ def test_train_cli_checkpoint_flags_assemble_as_jax_cli(synthetic_dataset, tmp_p
         assert_bank_equal(run["train_bank"], jtrain_bank)
     np.testing.assert_array_equal(run["train_bank"]["bank_features"].numpy(),
                                   np.load(files["test_bank.npy"]))
+
+
+def test_no_mask_embed_trains_in_fp32_in_bfloat16_as_in_jax():
+    """In a bf16 build `no_mask_embed` stays fp32, as JAX's (C,) param does
+    under its cast rule (rank >= 2 only): two bf16 AdamW steps at lr 2e-5 of
+    a small cascade (the tiny one cut to 1 SAM block and 1 + 1 CLIP layers)
+    in both packages from the same weights and batch move it as JAX moves
+    it, within a quarter of JAX's largest move. AdamW's early updates are
+    ~lr * sign(g), and the two bf16 forwards round at other places, so the
+    gradients, and the moves where two of them differ, differ by a few
+    per cent. A bf16 copy of the weight (normal(0, 0.02)) would not move
+    where it is above 0.008: bf16's spacing there (6.1e-5 and up) is more
+    than twice the update."""
+    from camouflaged_vlm_tpu.io.convert import convert_cascade_checkpoint as j_convert
+    from camouflaged_vlm_tpu.train.train_step import create_train_state
+
+    bf, small = torch.bfloat16, dict(depth=1, global_attn_indexes=(0,))
+    clip = dict(vision_layers=1, transformer_layers=1)
+
+    def config(cls, enc, cc, dtype):
+        base = cls.tiny(dtype=dtype)
+        return dataclasses.replace(base, encoder=enc.tiny(dtype=dtype, **small),
+                                   clip=cc.tiny(dtype=dtype, **clip))
+
+    cfg = config(CascadeConfig, SamEncoderConfig, AlphaClipConfig, bf)
+    jcfg = config(JCascadeConfig, j_sam.SamEncoderConfig, JClipConfig, jnp.bfloat16)
+    cfg32 = config(CascadeConfig, SamEncoderConfig, AlphaClipConfig, torch.float32)
+    model = build_cascade(cfg, "cpu", 3)
+    w0 = model.no_mask_embed.weight.detach().clone()
+    assert w0.dtype == torch.float32 and model.mask_decoder.iou_token.weight.dtype == bf
+    fp32 = build_cascade(cfg32, "cpu", 3).state_dict()
+    assert torch.equal(w0, fp32["no_mask_embed.weight"])
+    tree, _, _ = j_convert({k: v.numpy() for k, v in fp32.items()}, jcfg)
+    # JAX's CLI cast (`cli/common.py`): rank >= 2 to the compute type
+    params = jax.tree.map(lambda p: J(p, jnp.bfloat16) if np.ndim(p) >= 2 else J(p),
+                          {"params": tree})
+    assert params["params"]["no_mask_embed"].dtype == jnp.float32
+    bank = make_bank_inputs(cfg, CLASSES, seed=3)
+    rng = np.random.default_rng(4)
+    B, S, C = 1, cfg.inp_size, cfg.clip_size
+    batch = {"inp": rng.standard_normal((B, S, S, 3)).astype(np.float32),
+             "gt": (rng.random((B, S, S, 1)) > 0.6).astype(np.float32),
+             "clip_image": rng.standard_normal((B, C, C, 3)).astype(np.float32),
+             "clip_mask": np.full((B, C, C, 1), 1.923, np.float32)}
+    steps, lr = 2, 2e-5
+    tx = jtrain.make_optimizer(base_lr=lr, total_epochs=steps)
+    state = create_train_state(params, tx)
+    jstep = jax.jit(jtrain.make_train_step(JCascade(jcfg), tx))
+    jbatch = {**{k: J(v) for k, v in batch.items()},
+              **{k: J(v.numpy()) for k, v in bank.items()}}
+    opt = train.make_optimizer(train.trainable_parameters(model), lr)
+    step = train.make_train_step(model, opt, train.cosine_epoch_schedule(lr, steps))
+    tbatch = {**{k: T(v).to(bf) for k, v in batch.items()}, **bank}
+    for i in range(steps):
+        state, _ = jstep(state, jbatch)
+        step(tbatch, i)
+    want = state_dict_from_jax_params(jax.tree.map(np.asarray, state.params),
+                                      cfg32)["no_mask_embed.weight"]
+    got = model.no_mask_embed.weight.detach()
+    assert got.dtype == torch.float32
+    moved = (want - w0).abs().max()
+    assert moved > lr  # two steps: lr, then lr x the cosine's 0.5
+    assert (got - want).abs().max() < 0.25 * moved
