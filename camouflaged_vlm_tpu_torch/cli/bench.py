@@ -5,9 +5,9 @@ Counterpart of the repository's root `bench.py` (the JAX bench, which times
 one jitted `infer_cascade_with_text` per batch on a TPU). Measures images/s
 through the whole cascade at 1024 px (SAM ViT-H encoder + CLIP pass 1 with
 the all-ones alpha + edge mask decoder + mask upsample + alpha handoff +
-CLIP pass 2), built in bf16 from seeded random weights, the rel-pos tables
-attached and the 61 class-text features encoded once outside the timed
-call. Each batch size is timed twice in the same process: the eager call,
+CLIP pass 2), built in `--dtype` (bf16 by default) from seeded random
+weights, the rel-pos tables attached and the 61 class-text features encoded
+once outside the timed call. Each batch size is timed twice in the same process: the eager call,
 and the same call captured as one CUDA graph (`graphs.GraphedCall`),
 inputs copied into its static buffers at every replay.
 
@@ -22,7 +22,9 @@ Prints JSON lines: one {"per_batch_update": {B: {...}}} the moment each
 batch finishes (sweep order 8, 1, 32, then 2, 4), then the headline last:
 the best graphed images/s and its batch, the eager rate there, the batch-1
 latency, achieved TFLOP/s (`cascade_flops_per_image`) and MFU against the
-H100 SXM's 989 TFLOP/s dense bf16 peak, the peak and reserved device memory
+H100 SXM's 989 TFLOP/s dense bf16 peak (at --dtype float32, the reference
+configuration's fp32 kernels, its 67 TFLOP/s float32 peak on the CUDA
+cores), the peak and reserved device memory
 (reserved with every batch's graph alive in one shared memory pool, the
 eager calls' cached blocks released), and the card's name and power limit
 from `nvidia-smi`.
@@ -49,11 +51,13 @@ from ..data.ovcamo import TEST_CLASS_NAMES
 from ..data.transforms import ONES_ALPHA_VALUE
 from ..factory import attach_rel_cache, build_cascade, make_bank_inputs
 from ..graphs import GraphedCall
-from .common import cascade_config, device_or_raise, refuse_fp32_on_card
+from .common import cascade_config, device_or_raise, exact_fp32_on_card, refuse_fp32_on_card
 
 SWEEP = (8, 1, 32, 2, 4)
-# NVIDIA's data sheet, H100 SXM, dense bf16 at 700 W
+# NVIDIA's data sheet, H100 SXM, dense bf16 on the tensor cores and float32
+# on the CUDA cores (--dtype float32: the fp32 kernels), at 700 W
 H100_BF16_PEAK_TFLOPS = 989.0
+H100_F32_PEAK_TFLOPS = 67.0
 
 clock = time.perf_counter
 
@@ -203,6 +207,7 @@ def headline(per_batch: Dict[int, Dict], dtype: str, device_info: Dict,
     b1 = per_batch.get(1)
     peaks = [r["peak_memory_gib"] for r in per_batch.values() if r["peak_memory_gib"] is not None]
     how = "eager on the CPU" if device_info["device"] == "cpu" else "one CUDA graph per batch"
+    peak = H100_F32_PEAK_TFLOPS if dtype == "float32" else H100_BF16_PEAK_TFLOPS
     return {
         "metric": "cascade_images_per_sec",
         "value": ips,
@@ -212,7 +217,7 @@ def headline(per_batch: Dict[int, Dict], dtype: str, device_info: Dict,
         "latency_ms_batch1": b1["graph_latency_ms"] if b1 else None,
         "eager_latency_ms_batch1": b1["eager_latency_ms"] if b1 else None,
         "achieved_tflops": tflops,
-        "mfu": tflops / H100_BF16_PEAK_TFLOPS if tflops is not None else None,
+        "mfu": tflops / peak if tflops is not None else None,
         "peak_memory_gib": max(peaks) if peaks else None,
         "memory_reserved_gib": reserved_gib,
         "device": device_info["device"],
@@ -238,6 +243,7 @@ def main(argv: Sequence[str] = None) -> Dict:
     cfg = cascade_config(None, args.tiny, args.dtype)
     refuse_fp32_on_card(args.device, cfg)
     device = device_or_raise(args.device)
+    exact_fp32_on_card(args.device, cfg)
     model = build_cascade(cfg, device, args.seed)
     attach_rel_cache(model)
     bank = make_bank_inputs(cfg, TEST_CLASS_NAMES, seed=args.seed, device=device)

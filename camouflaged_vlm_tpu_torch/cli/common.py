@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,29 +49,109 @@ from ..io.torch_loader import (
     load_torch_state_dict,
 )
 from ..models import CascadeConfig, OVCOSCascade
+from ..models.sam_encoder import fused_attention_enabled
+from ..ops import _cuda
+from ..ops.compact_window import REL_LANES, CompactGeometry
 
-# The kernels with no fp32 instance yet (ROADMAP Queue 2), in the order to
-# port them: SAM's, then the other paths'. The CLIP vision blocks' (#2, #16,
-# #7), the LN+MLP+residual kernel (#4/#5) and its backward (#6) have one:
-# MaPLe training runs on them (`cli/train_maple.py`).
-NO_FP32_KERNEL = ("#1 linear_act", "#3 ln_mask_linear_bt",
-                  "#13 flash_qkv_packed_windows_s", "#15 flash_qkv_packed_edge",
-                  "#17 flash_qkv_packed_global", "#8 proj_from_heads_res",
-                  "#10 flash_attention_relpos", "#11 flash_qkv_relpos_windows",
-                  "#12 flash_qkv_packed_windows", "#14 and #18 (the attention backward)",
-                  "#20 flash_attention_fullk")
+# The TPU kernel number of each kernel wrapper, by the name its launch count
+# carries (PERF.md section 6)
+TPU_KERNEL = {
+    "linear_act": "#1", "ln_linear_act_bt": "#2", "ln_mask_linear_bt": "#3",
+    "ln_mlp_residual_bt": "#4/#5", "ln_mlp_residual_bt_bwd": "#6", "proj_rows": "#7",
+    "proj_from_heads_res": "#8", "flash_attention_relpos": "#10",
+    "flash_qkv_relpos_windows": "#11", "flash_qkv_packed_windows": "#12",
+    "flash_qkv_packed_windows_s": "#13", "flash_qkv_packed_windows_s_bwd": "#14",
+    "flash_qkv_packed_edge": "#15", "flash_qkv_packed_plain": "#16",
+    "flash_qkv_packed_global": "#17", "flash_qkv_packed_global_bwd": "#18",
+    "flash_attention_fullk": "#20",
+}
 
 
-def refuse_fp32_on_card(device: str, cfg: CascadeConfig) -> None:
-    """Raise at once when the cascade would run in fp32 on a card: its SAM
-    kernels take bfloat16 (only CLIP's have fp32 instances), and no path
-    falls back to the plain versions."""
+def cascade_kernels(cfg: CascadeConfig, training: bool = False) -> List[str]:
+    """The kernels (by wrapper name) the cascade's routes launch on the card
+    for this configuration, in TPU-kernel order; with `training`, the
+    backward kernels of the train CLI too. SAM's blocks follow the
+    encoder's routes (`sam_encoder.Attention.fused_route`, as in the JAX
+    package): the fused 'flash' windows on the compact carry (#2, #13, #15
+    where the grid leaves edge windows, #7), off it (LN1 + mask + qkv #3,
+    then #12 at H+W <= 32, #11 + #8 beyond, or #17 for a global block of >
+    512 tokens); unfused 'flash' on #10; 'aug_flash' (and 'flash' without
+    rel-pos) on #20 for blocks of >= 1024 tokens. The patch embed (#1), the
+    MLPs (#4/#5) and CLIP's vision blocks (#2, #16, #7) run in every
+    configuration."""
+    enc = cfg.encoder
+    out = {"linear_act", "ln_linear_act_bt", "flash_qkv_packed_plain", "proj_rows",
+           "ln_mlp_residual_bt"}
+    g, win = enc.grid, enc.window_size
+    glob = set(enc.global_attn_indexes)
+    kinds = {win > 0 and i not in glob for i in range(enc.depth)}  # windowed or global
+    fused = fused_attention_enabled(enc.attn_impl, enc.use_rel_pos, enc.num_heads)
+    for windowed in kinds:
+        if windowed and fused and CompactGeometry(g, g, win).supported():
+            out.add("flash_qkv_packed_windows_s")
+            if CompactGeometry(g, g, win).has_edge:
+                out.add("flash_qkv_packed_edge")
+            continue
+        nwin, side = ((-(-g // win)) ** 2, win) if windowed else (1, g)
+        if fused:
+            out.add("ln_mask_linear_bt")
+            if nwin > 1 or side * side <= 512:
+                out.update(("flash_qkv_packed_windows",) if 2 * side <= REL_LANES
+                           else ("flash_qkv_relpos_windows", "proj_from_heads_res"))
+            else:
+                out.add("flash_qkv_packed_global")
+        elif enc.attn_impl == "flash" and enc.use_rel_pos:
+            out.add("flash_attention_relpos")
+        elif enc.attn_impl in ("aug_flash", "flash") and side * side >= 1024:
+            out.add("flash_attention_fullk")
+    if training:  # the hand-written backwards; the others take plain VJPs
+        out.add("ln_mlp_residual_bt_bwd")
+        for fwd in ("flash_qkv_packed_windows_s", "flash_qkv_packed_global"):
+            if fwd in out:
+                out.add(fwd + "_bwd")
+    order = list(TPU_KERNEL)
+    return sorted(out, key=order.index)
+
+
+def fp32_missing_kernels(cfg: CascadeConfig, training: bool = False) -> List[str]:
+    """The kernels this configuration's routes launch (`cascade_kernels`)
+    that have no fp32 instance yet (ROADMAP.md Queue 2), as "#N name"."""
+    return [f"{TPU_KERNEL[k]} {k}" for k in cascade_kernels(cfg, training)
+            if not _cuda.has_f32_instance(k)]
+
+
+def _fp32_on_card(device: str, cfg: CascadeConfig) -> bool:
     dtypes = (cfg.encoder.dtype, cfg.decoder.dtype, cfg.clip.dtype)
-    if torch.device(device).type == "cuda" and torch.float32 in dtypes:
+    return torch.device(device).type == "cuda" and torch.float32 in dtypes
+
+
+def refuse_fp32_on_card(device: str, cfg: CascadeConfig, training: bool = False) -> None:
+    """Raise at once, before the build, when the cascade would run in fp32
+    on a card through a kernel with no fp32 instance (`fp32_missing_kernels`
+    of this configuration, with the backward kernels for the train CLI),
+    naming those kernels; no path falls back to the plain versions. The
+    reference configuration has every fp32 instance its inference routes
+    launch (#1, #2, #3, #4/#5, #7, #13, #15, #16, #17), so demo, evaluate,
+    serve, serve_throughput and bench run it at fp32 on the card; training
+    it waits for #14 and #18."""
+    if not _fp32_on_card(device, cfg):
+        return
+    missing = fp32_missing_kernels(cfg, training)
+    if missing:
         raise NotImplementedError(
-            f"--device {device} with float32: the cascade's kernels take bfloat16; no fp32 "
-            f"instance yet of {', '.join(NO_FP32_KERNEL)} (ROADMAP.md Queue 2). Run "
-            "--dtype bfloat16 on the card, or float32 with --device cpu.")
+            f"--device {device} with float32: this configuration's path launches kernels with "
+            f"no fp32 instance yet: {', '.join(missing)} (ROADMAP.md Queue 2). Run --dtype "
+            "bfloat16 on the card, or float32 with --device cpu.")
+
+
+def exact_fp32_on_card(device: str, cfg: CascadeConfig) -> None:
+    """Turn TF32 off where the cascade runs float32 on a card, in matmuls
+    and in cuDNN (on by default for convolutions: SAM's neck, CLIP's conv1,
+    the decoder's transposed convolutions), so that fp32 is full fp32 there,
+    as the JAX package's and the reference's fp32 are."""
+    if _fp32_on_card(device, cfg):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
 
 def device_or_raise(name: str) -> torch.device:

@@ -14,8 +14,11 @@ The checkpoint flags (`cli/common.py`: `--sam-ckpt`, `--clip-ckpt`,
 `--maple-ckpt`, `--cascade-ckpt`, `--text-bank`) take the reference's
 files; the weights no file sets are random (seeded by `--seed`), so without
 them the class is arbitrary. `--device cuda` on a machine without a GPU
-raises, and so does float32 on the card (`common.refuse_fp32_on_card`); the
-demo never carries on on the CPU unless `--device cpu` asks for it.
+raises, and so does float32 on the card where the configuration's path has a
+kernel with no fp32 instance (`common.refuse_fp32_on_card`: the tiny
+configuration's unfused SAM blocks, #10; the full one runs fp32 on the card,
+TF32 off); the demo never carries on on the CPU unless `--device cpu` asks
+for it.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from .common import (
     add_checkpoint_flags,
     cascade_config,
     device_or_raise,
+    exact_fp32_on_card,
     load_checkpoints,
     refuse_fp32_on_card,
 )
@@ -72,8 +76,10 @@ class DemoSession:
     text features."""
 
     def __init__(self, args: argparse.Namespace):
-        refuse_fp32_on_card(args.device, cascade_config(None, args.tiny, args.dtype))
+        cfg = cascade_config(None, args.tiny, args.dtype)
+        refuse_fp32_on_card(args.device, cfg)
         device = device_or_raise(args.device)
+        exact_fp32_on_card(args.device, cfg)
         build = build_tiny_cascade if args.tiny else build_full_cascade
         self.model, cfg = build(DTYPES[args.dtype], device, args.seed)
         self.classnames: List[str] = (

@@ -58,6 +58,7 @@ from .common import (
     add_checkpoint_flags,
     cascade_config,
     device_or_raise,
+    exact_fp32_on_card,
     load_checkpoints,
     refuse_fp32_on_card,
 )
@@ -214,6 +215,7 @@ def main(argv: Sequence[str] = None) -> dict:
     cfg = cascade_config(args.config, args.tiny, args.dtype)
     refuse_fp32_on_card(args.device, cfg)
     device = device_or_raise(args.device)
+    exact_fp32_on_card(args.device, cfg)
     os.makedirs(args.output_dir, exist_ok=True)
     log = Logger(args.output_dir)
 

@@ -55,6 +55,7 @@ from .common import (
     add_checkpoint_flags,
     cascade_config,
     device_or_raise,
+    exact_fp32_on_card,
     load_checkpoints,
     refuse_fp32_on_card,
 )
@@ -205,6 +206,7 @@ def build_engine(args: argparse.Namespace) -> InferenceEngine:
     cfg = cascade_config(args.config, args.tiny, args.dtype)
     refuse_fp32_on_card(args.device, cfg)
     device = device_or_raise(args.device)
+    exact_fp32_on_card(args.device, cfg)
     classnames = args.classnames.split(",") if args.classnames else list(TEST_CLASS_NAMES)
     model = build_cascade(cfg, device, args.seed)
     make_bank = load_checkpoints(model, cfg, clip_ckpt=args.clip_ckpt,

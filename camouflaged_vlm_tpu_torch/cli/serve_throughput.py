@@ -32,7 +32,7 @@ from ..data.ovcamo import TEST_CLASS_NAMES
 from ..factory import build_cascade, make_bank_inputs
 from ..serve import InferenceEngine, ServeConfig, bench_engine
 from .bench import card_name_and_power
-from .common import cascade_config, device_or_raise, refuse_fp32_on_card
+from .common import cascade_config, device_or_raise, exact_fp32_on_card, refuse_fp32_on_card
 
 
 def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
@@ -75,6 +75,7 @@ def main(argv: Sequence[str] = None) -> Dict:
     cfg = cascade_config(None, args.tiny, args.dtype)
     refuse_fp32_on_card(args.device, cfg)
     device = device_or_raise(args.device)
+    exact_fp32_on_card(args.device, cfg)
     model = build_cascade(cfg, device, args.seed)
     bank = make_bank_inputs(cfg, TEST_CLASS_NAMES, seed=args.seed, device=device)
     buckets = tuple(int(b) for b in args.buckets.split(","))

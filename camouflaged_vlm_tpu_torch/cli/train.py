@@ -146,7 +146,7 @@ def main(argv: Sequence[str] = None) -> dict:
     "bank" and "train_bank": the test and the train split's class banks}."""
     args = parse_args(argv)
     cfg = cascade_config(args.config, args.tiny, args.dtype)
-    refuse_fp32_on_card(args.device, cfg)
+    refuse_fp32_on_card(args.device, cfg, training=True)
     device = device_or_raise(args.device)
     os.makedirs(args.save_dir, exist_ok=True)
     log = Logger(args.save_dir)

@@ -67,7 +67,14 @@ from ..train import (
     maple_schedule,
     trainable_parameters,
 )
-from .common import Logger, add_checkpoint_flags, cascade_config, device_or_raise, load_checkpoints
+from .common import (
+    Logger,
+    add_checkpoint_flags,
+    cascade_config,
+    device_or_raise,
+    exact_fp32_on_card,
+    load_checkpoints,
+)
 
 
 def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
@@ -111,9 +118,7 @@ def main(argv: Sequence[str] = None) -> dict:
     args = parse_args(argv)
     cfg = cascade_config(None, args.tiny, args.dtype)
     device = device_or_raise(args.device)
-    if cfg.clip.dtype == torch.float32:  # full fp32 outside the kernels too
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    exact_fp32_on_card(args.device, cfg)  # full fp32 outside the kernels too
     os.makedirs(args.save_dir, exist_ok=True)
     log = Logger(args.save_dir)
     try:

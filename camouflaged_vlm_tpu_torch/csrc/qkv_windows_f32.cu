@@ -1,0 +1,91 @@
+// qkv_windows_f32: SAM's windowed attention of the compact carry in float32,
+// per (window, head), read straight from the packed qkv projection and
+// written d-major:
+//   interior  o = softmax((q*scale) . k^T + rel[q, k / win]
+//                          + rel[q, win + k % win]) . v
+//   edge      the same with each key's bias rel @ sel from its window's 0/1
+//             column of `sel`, the dummy keys' -1e30 of `kmask`, and a
+//             virtual pad key of logit rel[q, 28] and value vb.
+//
+// Replaces two TPU kernels of camouflaged_vlm_tpu/ops/flash_attention.py
+// where the JAX package runs them in float32 (--dtype float32, the
+// reference's own numerics):
+//   flash_qkv_packed_windows_s (_qkv_packed_windows_s_kernel, #13): the 28
+//     windowed ViT-H blocks' 16 interior 14 x 14 windows an image: qkv
+//     (BW, 196, 3840) with BW = 16 B, rel_s (196, BW, 16 * 32)
+//     position-major, lanes [rel_h(14) | rel_w(14) | 0], out (BW, 1280,
+//     196).
+//   flash_qkv_packed_edge (_qkv_packed_edge_kernel, #15): the same blocks'
+//     9 edge windows of R = 112 uniform rows an image: qkv (B, 9, 112,
+//     3840), rel (B, 9, 112, 16 * 32) window-major with the pad key's logit
+//     in lane 28, sel (9, 32, 112), kmask (9, 1, 112), vb (16, 80), out (B,
+//     9, 1280, 112).
+// Both outputs go to proj_rows_f32 with the row stride the wrapper gives.
+//
+// What bounds it on the H100: the float32 rate of the CUDA cores (the
+// tensor cores have no float32 mode). #13: 4 BW heads 196^2 80 = 3.1 GFLOP
+// an image, 0.047 ms at 67 TFLOP/s, against 70 MB of qkv, rel and output
+// (0.021 ms at 3.35 TB/s); #15: 4 B 9 heads 112^2 80 = 0.58 GFLOP an image,
+// and 0.12 more for its bias, the depth-32 product rel @ sel.
+//
+// Design: attn_f32.cuh's flash loop, 64 x 64 tiles (win 14: 4 query and 4
+// key tiles over 196, the last ragged). #13 takes the separable bias
+// (BIAS_SEP, H = W = win): each query tile's 2 win rel lanes in shared
+// memory, each score's two lanes gathered from there. #15 (BIAS_EDGE)
+// extends the score product by the 32 rel lanes of the query against the
+// key's column of sel (so S = q k^T + rel @ sel in one fp32 chain), adds
+// kmask, and starts each row's running max, sum and output at the pad key
+// (m = its logit, l = 1, o = vb), as the JAX ref takes it into the max
+// before any exp. Dynamic shared memory at d = 80: 88,576 B (#13 at win 14)
+// and 98,816 B (#15).
+#include "attn_f32.cuh"
+
+// qkv (BW, win^2, 3*heads*d), rel (win^2, BW, heads*32) position-major, out
+// (BW, heads*d, win^2) with row stride ldo: fp32; 2 win <= 32, d in {64,
+// 80}. Returns a cudaError_t code.
+extern "C" int cvlm_qkv_packed_windows_s_f32(const void* qkv, const void* rel, void* out, int BW,
+                                             int win, int heads, int d, float scale, int ldo,
+                                             void* stream) {
+  using namespace cvlm::f32attn;
+  if (win < 1 || 2 * win > EDGE_LANES) return (int)cudaErrorInvalidValue;
+  AttnArgs a{};
+  a.qkv = static_cast<const float*>(qkv);
+  a.out = static_cast<float*>(out);
+  a.S = win * win;
+  a.ldo = ldo;
+  a.heads = heads;
+  a.scale = scale;
+  a.rel = static_cast<const float*>(rel);
+  a.lph = EDGE_LANES;
+  a.rp = (long long)heads * EDGE_LANES;
+  a.rq = (long long)BW * a.rp;
+  a.H = a.W = win;
+  return dispatch_attn<BIAS_SEP>(a, d, BW, static_cast<cudaStream_t>(stream));
+}
+
+// qkv (B, n, R, 3*heads*d), rel (B, n, R, heads*32) window-major, sel (n,
+// 32, R), vb (heads, d), kmask (n, 1, R), out (B, n, heads*d, R) with row
+// stride ldo >= R: fp32; d in {64, 80}, any R. Returns a cudaError_t code.
+extern "C" int cvlm_qkv_packed_edge_f32(const void* qkv, const void* rel, const void* sel,
+                                        const void* vb, const void* kmask, void* out, int B,
+                                        int n, int R, int heads, int d, float scale, int ldo,
+                                        void* stream) {
+  using namespace cvlm::f32attn;
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  AttnArgs a{};
+  a.qkv = static_cast<const float*>(qkv);
+  a.out = static_cast<float*>(out);
+  a.S = R;
+  a.ldo = ldo;
+  a.heads = heads;
+  a.scale = scale;
+  a.rel = static_cast<const float*>(rel);
+  a.lph = EDGE_LANES;
+  a.rq = (long long)heads * EDGE_LANES;
+  a.rp = (long long)R * a.rq;
+  a.sel = static_cast<const float*>(sel);
+  a.kmask = static_cast<const float*>(kmask);
+  a.vb = static_cast<const float*>(vb);
+  a.n = n;
+  return dispatch_attn<BIAS_EDGE>(a, d, B * n, static_cast<cudaStream_t>(stream));
+}

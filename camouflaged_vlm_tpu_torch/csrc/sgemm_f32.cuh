@@ -1,5 +1,5 @@
 // The float32 building blocks of the fp32 kernel instances
-// (ln_mlp_residual_f32.cu, ln_linear_f32.cu, proj_rows_f32.cu,
+// (linear_f32.cu, ln_mlp_residual_f32.cu, ln_linear_f32.cu, proj_rows_f32.cu,
 // ln_mlp_residual_bwd_f32.cu): the LayerNorm row pass, its backward, and the
 // tiled FFMA product with its epilogues. All on the CUDA cores: the H100's
 // tensor cores have no float32 mode (TF32 keeps ~3 digits), so these
@@ -44,12 +44,13 @@ enum Epi { EPI_ACT = 0, EPI_RES = 1, EPI_DACT = 2 };
 
 // LN of each row, one warp a row, 16-byte loads (K % 4 == 0): two-pass
 // statistics (the mean, then the mean of squared deviations, the JAX
-// formulation), xn = (x - mu) * rstd * gamma + beta; the rows' (mu, rstd)
-// into `stats` when given (the backward's).
+// formulation), xn = (x - mu) * rstd * gamma + beta, times the row mask
+// when given (#3: row m of sequence b' = m / S reads mask[b' % nwin][m % S]);
+// the rows' (mu, rstd) into `stats` when given (the backward's).
 __global__ void __launch_bounds__(THREADS) ln_rows_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, float* __restrict__ xn, float2* __restrict__ stats, int M,
-    int K, float eps) {
+    int K, float eps, const float* __restrict__ mask, int S, int nwin) {
   const int lane = threadIdx.x % 32;
   const int m = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
   if (m >= M) return;
@@ -72,18 +73,22 @@ __global__ void __launch_bounds__(THREADS) ln_rows_f32_kernel(
   const float4* g4 = reinterpret_cast<const float4*>(gamma);
   const float4* b4 = reinterpret_cast<const float4*>(beta);
   float4* dst = reinterpret_cast<float4*>(xn + (size_t)m * K);
+  const float mv = mask != nullptr ? mask[(size_t)(m / S % nwin) * S + m % S] : 1.f;
   for (int c = lane; c < nv; c += 32) {
     const float4 v = row[c], g = g4[c], b = b4[c];
-    dst[c] = make_float4((v.x - mu) * rstd * g.x + b.x, (v.y - mu) * rstd * g.y + b.y,
-                         (v.z - mu) * rstd * g.z + b.z, (v.w - mu) * rstd * g.w + b.w);
+    float4 y = make_float4((v.x - mu) * rstd * g.x + b.x, (v.y - mu) * rstd * g.y + b.y,
+                           (v.z - mu) * rstd * g.z + b.z, (v.w - mu) * rstd * g.w + b.w);
+    if (mask != nullptr) y = make_float4(y.x * mv, y.y * mv, y.z * mv, y.w * mv);
+    dst[c] = y;
   }
 }
 
 inline int launch_ln_rows(const float* x, const float* gamma, const float* beta, float* xn,
-                          float2* stats, int M, int K, float eps, cudaStream_t s) {
+                          float2* stats, int M, int K, float eps, cudaStream_t s,
+                          const float* mask = nullptr, int S = 1, int nwin = 1) {
   constexpr int rows = THREADS / 32;
   ln_rows_f32_kernel<<<(M + rows - 1) / rows, THREADS, 0, s>>>(x, gamma, beta, xn, stats, M, K,
-                                                               eps);
+                                                               eps, mask, S, nwin);
   return (int)cudaGetLastError();
 }
 

@@ -172,6 +172,21 @@ PROJ_ROWS_F32 = CudaKernel("proj_rows_f32", "cvlm_proj_rows_f32",
                            [P, P, P, P, P, I, I, L, L, I, I, I])
 LN_MLP_RESIDUAL_BWD_F32 = CudaKernel("ln_mlp_residual_bt_bwd_f32", "cvlm_ln_mlp_residual_bwd_f32",
                                      [P] * 13 + [I, I, I, I, F, I, I, I])
+# The fp32 instances of SAM's kernels on the cascade's path at --dtype
+# float32 (the reference configuration): the patch embed (csrc/linear_f32.cu),
+# LN1 + row mask + qkv of the global blocks (csrc/ln_linear_f32.cu), and the
+# interior windows, edge windows and global attention on the fp32 flash loop
+# of csrc/attn_f32.cuh (csrc/qkv_windows_f32.cu, csrc/qkv_packed_global_f32.cu);
+# their arguments are the bf16 entries', each with its own count.
+LINEAR_ACT_F32 = CudaKernel("linear_act_f32", "cvlm_linear_f32", [P, P, P, P, I, I, I, I, I])
+LN_MASK_LINEAR_F32 = CudaKernel("ln_mask_linear_bt_f32", "cvlm_ln_mask_linear_f32",
+                                [P, P, P, P, P, P, P, P, I, I, I, I, I, F, I])
+QKV_WINDOWS_F32 = CudaKernel("flash_qkv_packed_windows_s_f32", "cvlm_qkv_packed_windows_s_f32",
+                             [P, P, P, I, I, I, I, F, I])
+QKV_EDGE_F32 = CudaKernel("flash_qkv_packed_edge_f32", "cvlm_qkv_packed_edge_f32",
+                          [P, P, P, P, P, P, I, I, I, I, I, F, I])
+QKV_GLOBAL_F32 = CudaKernel("flash_qkv_packed_global_f32", "cvlm_qkv_packed_global_f32",
+                            [P, P, P, I, I, I, I, I, I, I, F])
 QKV_PACKED_PLAIN = CudaKernel(
     "flash_qkv_packed_plain", "cvlm_qkv_packed_plain", [P, P, I, I, I, I, I, F]
 )
@@ -227,7 +242,15 @@ KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MASK_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS,
            LN_MLP_RESIDUAL_BWD, QKV_WINDOWS_BWD, QKV_GLOBAL_BWD, ATTN_RELPOS, ATTN_FULLK,
            QKV_WINDOWS_PADDED, QKV_RELPOS_WINDOWS, QKV_RELPOS_GLOBAL, PROJ_HEADS_RES, PROJ_HEADS,
            LN_MLP_RESIDUAL_F32, LN_LINEAR_F32, QKV_PACKED_PLAIN_F32, PROJ_ROWS_F32,
-           LN_MLP_RESIDUAL_BWD_F32)
+           LN_MLP_RESIDUAL_BWD_F32, LINEAR_ACT_F32, LN_MASK_LINEAR_F32, QKV_WINDOWS_F32,
+           QKV_EDGE_F32, QKV_GLOBAL_F32)
+
+
+def has_f32_instance(name: str) -> bool:
+    """Whether the kernel a wrapper launches under `name` (the name its
+    launch count carries, as `use_kernel` receives it) has an fp32 instance,
+    named `<name>_f32`."""
+    return any(k.name == name + "_f32" for k in KERNELS)
 
 
 def reset_launches() -> None:

@@ -28,7 +28,10 @@ with like. For CPU tensors each runs its plain version, the JAX `ref`
 formulation: q*scale rounded to the working type, the bias rel @ sel added
 to the fp32 scores, max-subtracted fp32 softmax, probabilities rounded to
 the working type before P.V, fp32 accumulation, one final rounding. For CUDA
-tensors each launches its kernel (`csrc/`) or raises.
+tensors each launches its kernel (`csrc/`) or raises. #16, #13, #15 and #17
+also have float32 instances, which CUDA tensors in float32 reach: one fp32
+flash loop on the CUDA cores (`csrc/attn_f32.cuh`) at d = 64 and 80, with no
+rounding point, for MaPLe training and the cascade at --dtype float32.
 
 Gradients: the windows (#14) and global (#18) attention have hand-written
 backward kernels and plain backwards (`*_bwd_ref`) for the CPU. The kernels
@@ -128,21 +131,30 @@ def flash_qkv_packed_plain(
                         (qkv,), (scale, heads, d))
 
 
-# the head dim of the fp32 instance (csrc/qkv_packed_plain_f32.cu): CLIP
-# ViT-L/14's, the only one MaPLe training runs
-_F32_HEAD_DIM = 64
+# the head dims of the fp32 attention instances (csrc/attn_f32.cuh): CLIP
+# ViT-L/14's and SAM ViT-H's
+_F32_HEAD_DIMS = (64, 80)
+
+
+def _check_f32_attention(name: str, d: int, problems: int, heads: int) -> None:
+    """What the fp32 flash loop takes: d in _F32_HEAD_DIMS, and one block
+    row per (problem, head) of its grid."""
+    if d not in _F32_HEAD_DIMS:
+        raise ValueError(f"{name}: CUDA kernel takes d in {_F32_HEAD_DIMS}, got {d}")
+    if problems * heads > 65535:
+        raise ValueError(f"{name}: CUDA kernel takes at most 65535 (problem, head) pairs, got "
+                         f"{problems * heads}")
 
 
 def _plain_f32_cuda(qkv, scale, heads, d):
-    """The fp32 instance (MaPLe training's vision attention,
-    csrc/qkv_packed_plain_f32.cu): the flash loop on the CUDA cores, the
-    same d-major output."""
+    """The fp32 instance (MaPLe training's vision attention, and CLIP's in
+    the cascade at --dtype float32; csrc/qkv_packed_plain_f32.cu): the flash
+    loop on the CUDA cores, the same d-major output."""
     name = "flash_qkv_packed_plain (float32)"
     B, S, C3 = qkv.shape
     if C3 != 3 * heads * d:
         raise ValueError(f"{name}: qkv {qkv.shape} vs heads={heads} d={d}")
-    if d != _F32_HEAD_DIM:
-        raise ValueError(f"{name}: CUDA kernel takes d = {_F32_HEAD_DIM}, got {d}")
+    _check_f32_attention(name, d, B, heads)
     out = dmajor_empty(B, heads * d, S, dtype=qkv.dtype, device=qkv.device)
     _cuda.QKV_PACKED_PLAIN_F32(qkv.data_ptr(), out.data_ptr(), B, S, out.stride(-2), heads, d,
                                float(scale))
@@ -195,19 +207,27 @@ def flash_qkv_packed_windows_s(
 
 def _windows_cuda(qkv, rel_s, sel32, scale, heads, d):
     name = "flash_qkv_packed_windows_s"
-    win = _check_windows(name, qkv, rel_s, sel32, heads, d)
     BW, Nw, _ = qkv.shape
+    if qkv.dtype == torch.float32:  # the fp32 instance (csrc/qkv_windows_f32.cu)
+        name += " (float32)"
+        win = _check_windows(name, qkv, rel_s, sel32, heads, d, dtype=torch.float32)
+        _check_f32_attention(name, d, BW, heads)
+        kernel = _cuda.QKV_WINDOWS_F32
+    else:
+        win = _check_windows(name, qkv, rel_s, sel32, heads, d)
+        kernel = _cuda.QKV_WINDOWS
     out = dmajor_empty(BW, heads * d, Nw, dtype=qkv.dtype, device=qkv.device)
-    _cuda.QKV_WINDOWS(qkv.data_ptr(), rel_s.data_ptr(), out.data_ptr(), BW, win, heads, d,
-                      float(scale), out.stride(-2))
+    kernel(qkv.data_ptr(), rel_s.data_ptr(), out.data_ptr(), BW, win, heads, d, float(scale),
+           out.stride(-2))
     return out
 
 
-def _check_windows(name, qkv, rel, sel32, heads, d, window_major=False) -> int:
+def _check_windows(name, qkv, rel, sel32, heads, d, window_major=False,
+                   dtype=torch.bfloat16) -> int:
     """qkv (..., Nw, 3*heads*d); rel (..., Nw, heads*32) window-major, else
     (Nw, BW, heads*32) position-major with BW the product of qkv's leading
-    dims. Returns the window side."""
-    _cuda.check_dtype(name, torch.bfloat16, qkv, rel)
+    dims; both in `dtype`. Returns the window side."""
+    _cuda.check_dtype(name, dtype, qkv, rel)
     *lead, Nw, C3 = qkv.shape
     win = math.isqrt(Nw)
     lanes = heads * REL_LANES
@@ -215,7 +235,8 @@ def _check_windows(name, qkv, rel, sel32, heads, d, window_major=False) -> int:
     if (C3 != 3 * heads * d or win * win != Nw or 2 * win > REL_LANES
             or rel.shape != want or sel32.shape != (REL_LANES, Nw)):
         raise ValueError(f"{name}: qkv {qkv.shape} rel {rel.shape} sel32 {sel32.shape}")
-    _check_d(name, d)
+    if dtype == torch.bfloat16:
+        _check_d(name, d)
     return win
 
 
@@ -466,21 +487,27 @@ def flash_qkv_packed_edge(
 
 def _edge_cuda(qkv, rel, sel, vb, kmask, scale, heads, d):
     name = "flash_qkv_packed_edge"
-    _cuda.check_dtype(name, torch.bfloat16, qkv, rel, sel, vb)
+    f32 = qkv.dtype == torch.float32  # the fp32 instance (csrc/qkv_windows_f32.cu)
+    if f32:
+        name += " (float32)"
+    _cuda.check_dtype(name, torch.float32 if f32 else torch.bfloat16, qkv, rel, sel, vb)
     _cuda.check_dtype(name, torch.float32, kmask)
     B, n, R, C3 = qkv.shape
     if (C3 != 3 * heads * d or rel.shape != (B, n, R, heads * REL_LANES)
             or sel.shape != (n, REL_LANES, R) or vb.shape != (heads, d)
             or kmask.shape != (n, 1, R)):
         raise ValueError(f"{name}: qkv {qkv.shape} rel {rel.shape} sel {sel.shape}")
-    _check_d(name, d)
-    if R > 256 or B * n > 65535:
-        raise ValueError(f"{name}: CUDA kernel takes R <= 256 and B*n <= 65535, got R={R}, "
-                         f"B*n={B * n}")
+    if f32:  # keys streamed in tiles: any R
+        _check_f32_attention(name, d, B * n, heads)
+    else:
+        _check_d(name, d)
+        if R > 256 or B * n > 65535:
+            raise ValueError(f"{name}: CUDA kernel takes R <= 256 and B*n <= 65535, got "
+                             f"R={R}, B*n={B * n}")
     out = dmajor_empty(B, n, heads * d, R, dtype=qkv.dtype, device=qkv.device)
-    _cuda.QKV_EDGE(qkv.data_ptr(), rel.data_ptr(), sel.data_ptr(), vb.data_ptr(),
-                   kmask.data_ptr(), out.data_ptr(), B, n, R, heads, d, float(scale),
-                   out.stride(-2))
+    kernel = _cuda.QKV_EDGE_F32 if f32 else _cuda.QKV_EDGE
+    kernel(qkv.data_ptr(), rel.data_ptr(), sel.data_ptr(), vb.data_ptr(), kmask.data_ptr(),
+           out.data_ptr(), B, n, R, heads, d, float(scale), out.stride(-2))
     return out
 
 
@@ -508,7 +535,8 @@ def flash_qkv_packed_global(
     rel_w[q, k % W] -> d-major (B, heads*d, N). The kernel streams keys in
     one pass (online softmax); it holds 128 queries' rel rows in shared
     memory, so it refuses H + W > 587 at d = 80 (square images of 4704 px
-    and up).
+    and up); in float32 its fp32 instance holds 64 queries' and refuses H +
+    W > F32_GLOBAL_MAX_LANES (512: square images of 4096 px and up).
     Backward: `flash_qkv_packed_global_bwd` (TPU kernel
     #18)."""
     return _with_attn_bwd("flash_qkv_packed_global", _global_cuda,
@@ -520,21 +548,38 @@ def _global_plain(qkv, rel, sel, scale, heads, d, H, W):
     return flash_qkv_packed_global_ref(qkv, rel, sel, scale, heads, d)
 
 
-def _check_global(name, qkv, rel, sel, heads, d, H, W):
-    _cuda.check_dtype(name, torch.bfloat16, qkv, rel)
+def _check_global(name, qkv, rel, sel, heads, d, H, W, dtype=torch.bfloat16):
+    _cuda.check_dtype(name, dtype, qkv, rel)
     B, N, C3 = qkv.shape
     if (C3 != 3 * heads * d or H * W != N or rel.shape != (N, B, heads, H + W)
             or sel.shape != (H + W, N)):
         raise ValueError(f"{name}: qkv {qkv.shape} rel {rel.shape} H={H} W={W}")
-    _check_d(name, d)
+    if dtype == torch.bfloat16:
+        _check_d(name, d)
+
+
+# the fp32 global attention (csrc/qkv_packed_global_f32.cu) holds a query
+# tile's H + W rel lanes in shared memory: at most this many
+F32_GLOBAL_MAX_LANES = 512
 
 
 def _global_cuda(qkv, rel, sel, scale, heads, d, H, W):
-    _check_global("flash_qkv_packed_global", qkv, rel, sel, heads, d, H, W)
+    name = "flash_qkv_packed_global"
     B, N, _ = qkv.shape
+    if qkv.dtype == torch.float32:  # the fp32 instance
+        name += " (float32)"
+        _check_global(name, qkv, rel, sel, heads, d, H, W, dtype=torch.float32)
+        _check_f32_attention(name, d, B, heads)
+        if H + W > F32_GLOBAL_MAX_LANES:
+            raise ValueError(f"{name}: CUDA kernel takes H+W <= {F32_GLOBAL_MAX_LANES} (the "
+                             f"rel lanes it holds in shared memory), got {H + W}")
+        kernel = _cuda.QKV_GLOBAL_F32
+    else:
+        _check_global(name, qkv, rel, sel, heads, d, H, W)
+        kernel = _cuda.QKV_GLOBAL
     out = dmajor_empty(B, heads * d, N, dtype=qkv.dtype, device=qkv.device)
-    _cuda.QKV_GLOBAL(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B, N, out.stride(-2), H, W,
-                     heads, d, float(scale))
+    kernel(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B, N, out.stride(-2), H, W, heads, d,
+           float(scale))
     return out
 
 

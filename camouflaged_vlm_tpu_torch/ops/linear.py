@@ -13,7 +13,8 @@ three TMA + wgmma passes on the card (`csrc/ln_mlp_residual_bwd.cu`) and
 `ln_mlp_residual_bt` (and its backward) and `proj_rows` also have float32
 instances, which CUDA tensors in float32 reach (tiled FFMA products on the
 CUDA cores, `csrc/sgemm_f32.cuh`: MaPLe training's path and the bank
-precompute's text tower). The plain versions transcribe the
+precompute's text tower), and so do `linear_act` and `ln_mask_linear_bt`
+(SAM's patch embed and global blocks in the cascade at --dtype float32). The plain versions transcribe the
 JAX `ref` formulations: LN statistics in fp32, LN output cast to the working type before the product,
 fp32 accumulation, bias and activation in fp32 on the accumulator, one
 rounding at the end. Those of the LN-fused functions are written as the
@@ -160,12 +161,33 @@ def linear_act(
     b: torch.Tensor,  # (N,)
     activation: Optional[str] = None,
 ) -> torch.Tensor:
-    """act(x . w^T + b). Counterpart of `linear_pallas` (TPU kernel #1)."""
+    """act(x . w^T + b). Counterpart of `linear_pallas` (TPU kernel #1); x
+    in bfloat16 runs the TMA + wgmma kernel, x in float32 its fp32
+    instance."""
     return autograd.run("linear_act", _linear_act_cuda, linear_act_ref, (x, w, b),
                         (activation,))
 
 
+def _linear_act_f32_cuda(x, w, b, activation):
+    """The fp32 instance (SAM's patch embed at --dtype float32,
+    csrc/linear_f32.cu): the tiled FFMA product with the bias and
+    activation in its epilogue."""
+    name = "linear_act (float32)"
+    _cuda.check_dtype(name, torch.float32, x, w, b)
+    M, K = x.shape
+    N = w.shape[0]
+    if w.shape != (N, K) or b.shape != (N,):
+        raise ValueError(f"{name}: shapes x {x.shape} w {w.shape} b {b.shape}")
+    _check_f32_widths(name, K, N)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _cuda.LINEAR_ACT_F32(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
+                         _cuda.ACTIVATIONS[activation], f32_tile(M, N, _cuda.sm_count(x.device)))
+    return out
+
+
 def _linear_act_cuda(x, w, b, activation):
+    if x.dtype == torch.float32:
+        return _linear_act_f32_cuda(x, w, b, activation)
     _cuda.check_dtype("linear_act", torch.bfloat16, x, w, b)
     M, K = x.shape
     N = w.shape[0]
@@ -285,19 +307,46 @@ def ln_mask_linear_bt(
 ) -> torch.Tensor:
     """(LN(x) * mask) . w^T + b: LN1, the pad-row re-zeroing and the qkv
     projection in one kernel. Counterpart of `ln_mask_linear_bt` (TPU
-    kernel #3)."""
+    kernel #3); x in bfloat16 runs the TMA + wgmma kernel, x in float32 its
+    fp32 instance."""
     return autograd.run("ln_mask_linear_bt", _ln_mask_linear_bt_cuda, ln_mask_linear_bt_ref,
                         (x, gamma, beta, mask, w, b), (eps,))
 
 
-def _ln_mask_linear_bt_cuda(x, gamma, beta, mask, w, b, eps):
-    _cuda.check_dtype("ln_mask_linear_bt", torch.bfloat16, x, mask, w, b)
-    _cuda.check_dtype("ln_mask_linear_bt", torch.float32, gamma, beta)
+def _check_mask_shapes(name, x, gamma, beta, mask, w, b, dtype):
+    _cuda.check_dtype(name, dtype, x, mask, w, b)
+    _cuda.check_dtype(name, torch.float32, gamma, beta)
     Bp, S, K = x.shape
     N, nwin = w.shape[0], mask.shape[0]
     if (w.shape != (N, K) or b.shape != (N,) or gamma.shape != (K,) or beta.shape != (K,)
             or mask.shape != (nwin, S, 1) or Bp % nwin):
-        raise ValueError(f"ln_mask_linear_bt: shapes x {x.shape} mask {mask.shape} w {w.shape}")
+        raise ValueError(f"{name}: shapes x {x.shape} mask {mask.shape} w {w.shape}")
+    return Bp, S, K, N, nwin
+
+
+def _ln_mask_linear_f32_cuda(x, gamma, beta, mask, w, b, eps):
+    """The fp32 instance (SAM's global blocks at --dtype float32,
+    csrc/ln_linear_f32.cu): the masked LN rows in an fp32 scratch, the
+    product on the CUDA cores in full fp32."""
+    name = "ln_mask_linear_bt (float32)"
+    Bp, S, K, N, nwin = _check_mask_shapes(name, x, gamma, beta, mask, w, b, torch.float32)
+    _check_f32_widths(name, K, N)
+    M = Bp * S
+    out = torch.empty((Bp, S, N), dtype=x.dtype, device=x.device)
+    xn = torch.empty((M, K), dtype=x.dtype, device=x.device)  # the LN rows' scratch
+    _cuda.LN_MASK_LINEAR_F32(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mask.data_ptr(), w.data_ptr(),
+        b.data_ptr(), out.data_ptr(), xn.data_ptr(), M, K, N, S, nwin, float(eps),
+        f32_tile(M, N, _cuda.sm_count(x.device)),
+    )
+    return out
+
+
+def _ln_mask_linear_bt_cuda(x, gamma, beta, mask, w, b, eps):
+    if x.dtype == torch.float32:
+        return _ln_mask_linear_f32_cuda(x, gamma, beta, mask, w, b, eps)
+    Bp, S, K, N, nwin = _check_mask_shapes("ln_mask_linear_bt", x, gamma, beta, mask, w, b,
+                                           torch.bfloat16)
     _check_tma_k("ln_mask_linear_bt", K)
     M = Bp * S
     out = torch.empty((Bp, S, N), dtype=x.dtype, device=x.device)

@@ -119,8 +119,11 @@ never prints its last line):
               (LN1 + qkv), #16, #7 (out-projection + residual from the
               d-major attention output), #6 at the vision (H 4096) and text
               (14 classes x 77 tokens, 768, H 3072) sites, dx only, and the
-              fp32 #4/#5 at the vision width; bounds against the fp32
-              CUDA-core peak (67 TFLOP/s)
+              fp32 #4/#5 at the vision width; then those on the cascade's
+              path at --dtype float32 at SAM ViT-H's shapes, batch 1 and 2:
+              #1 (patch embed), #3 (a global block's LN1 + mask + qkv), #13,
+              #15 and #17 (16 heads x 80); bounds against the fp32 CUDA-core
+              peak (67 TFLOP/s)
  13. maple_small  one MaPLe step of a small fp32 CustomClip (128 wide, 2
               heads x 64) on the card against the same step on the CPU: the
               loss, every prompt-learner gradient within 1e-4, the prompts
@@ -135,16 +138,27 @@ never prints its last line):
               events, `[maple_times]`); its model-best.pth.tar read back by
               the demo session's --maple-ckpt (the trained prompts, text
               features moved)
+ 15. f32_slice  the demo CLI at --dtype float32 on the card, full width (the
+              reference configuration): TF32 turned off by the CLI, [slice]'s
+              requests with exact launches of the fp32 instances (#1, #2, #3,
+              #4/#5, #7, #13, #15, #16, #17) and none of a bf16 kernel; the
+              fp32 cascade at batch 1 and full depth against the same state
+              dict on the host's CPU (SAM embedding and mask logits within
+              1e-3 mean relative, the same class, the CPU's seconds); the
+              bf16 cascade's gap to it on the same weights (no gate); the
+              graphed and eager calls at batch 1 and 2 with the card's busy
+              time and idle share
 
 Every kernel line carries its bound (the larger of its FLOP over the bf16
 tensor-core peak, the fp32 one's over the fp32 CUDA-core peak, and its bytes
 over the HBM rate, at this run's shapes) and
 the time of one PyTorch library call computing the same function where
 there is one. Before its last line the script prints one JSON object
-{"kernels": [...]} of 24 kernels (one per wrapper; `ln_mlp_residual_bt`
+{"kernels": [...]} of 29 kernels (one per wrapper; `ln_mlp_residual_bt`
 serves TPU kernels #4 and #5, and `ln_mlp_residual_bt_f32` is their fp32
 instance, with its launches from [bank]; the fp32 #2, #16, #7 and #6 with
-theirs from [maple_slice]), each with its launches on its path, or, for
+theirs from [maple_slice]; the fp32 #1, #3, #13, #15 and #17 with theirs
+from [f32_slice], their batch-2 times in `batch2_*` keys), each with its launches on its path, or, for
 #9 and #19, which no path reaches, in their check with a "path" field
 saying so, and its times on both clocks (`ms`, `plain_ms`, `library_ms` on an
 idle card; `queued_ms`, `library_queued_ms` queued) and the host's cost of
@@ -1552,7 +1566,8 @@ def trace_call(fn, label, wall_ms, kernels=False):
 
         ks = sorted((e for e in avg if e.device_type == DeviceType.CUDA and dt(e) > 0),
                     key=lambda e: -dt(e))[:8]
-        short = [re.sub(r"^void |<.*$|\(.*$", "", e.key) for e in ks]
+        short = [re.sub(r"^void |<.*$|\(.*$", "", e.key.replace("(anonymous namespace)::", ""))
+                 for e in ks]
         log(f"[trace]{label}: kernels by device time: " + "; ".join(
             f"{n} {dt(e) / 1e3:.2f} ms x {e.count}" for n, e in zip(short, ks)))
 
@@ -2590,7 +2605,113 @@ def phase_f32_kernels():
                     source=src + "ln_mlp_residual_bwd_f32.cu",
                     replaces="camouflaged_vlm_tpu/ops/linear.py:564", **r)
             del xm, args, gy, ga, be, w1, b1, w2, b2
+        torch.cuda.empty_cache()
+        out.update(sam_f32_kernels(rn))
     torch.cuda.empty_cache()
+    return out
+
+
+# the fp32 instances of SAM's kernels, whose launches the kernels line takes
+# from [f32_slice] (the other fp32 instances' from [bank] and [maple_slice])
+SAM_F32 = ("linear_act_f32", "ln_mask_linear_bt_f32", "flash_qkv_packed_windows_s_f32",
+           "flash_qkv_packed_edge_f32", "flash_qkv_packed_global_f32")
+
+
+def sam_f32_kernels(rn):
+    """The fp32 instances on the cascade's path at --dtype float32 (SAM
+    ViT-H at 1024 px: #1, #3, #13, #15, #17; `rn` draws fp32) against their plain fp32
+    versions within 1e-4, at batch 1 and 2, each with its bound against the
+    fp32 CUDA-core peak and one PyTorch call for the same function (#1
+    F.linear; #3 none, its product alone through F.linear as
+    `gemm_library`; #13 and #17 fp32 SDPA with the bias rel @ sel built
+    outside the timed call; #15 SDPA with the pad key as one more key). The
+    kernels line holds batch 1 and the batch-2 times beside it."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+    from camouflaged_vlm_tpu_torch.ops.compact_window import (
+        LPAD_LANE, NEG, CompactGeometry, edge_consts,
+    )
+
+    F = torch.nn.functional
+    f32, dev = torch.float32, torch.device("cuda")
+    D, HD, NH, G, WIN, eps = 1280, 80, 16, 64, 14, 1e-6
+    scale = HD ** -0.5
+    geom = CompactGeometry(G, G, WIN)
+    nf, ne, R = geom.n_full, geom.n_edge, geom.R_u
+    sel32, sel_g = fa.make_rel_scatter32(WIN, f32, dev), fa.make_rel_scatter(G, G, f32, dev)
+    sel_e, kmask_e = edge_consts(geom, f32, dev)
+    src, rep = "camouflaged_vlm_tpu_torch/csrc/", "camouflaged_vlm_tpu/ops/"
+
+    def heads_view(qkv):
+        r = qkv.reshape(qkv.shape[:-1] + (3, NH, HD))
+        return [r[..., i, :, :].transpose(-3, -2) for i in range(3)]
+
+    def sdpa(qkv, bias):
+        q, k, v = heads_view(qkv)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
+
+    def cases(B):
+        """(name, source, replaces, kernel fn, plain fn, args, FLOP, tensors
+        read, library call, products alone) at batch B."""
+        x_pe, w_pe, b_pe = rn(B * 4096, 768), rn(1280, 768, std=0.02), rn(1280, std=0.02)
+        yield ("linear_act_f32", "linear_f32.cu", "linear.py:61", lin.linear_act,
+               lin.linear_act_ref, (x_pe, w_pe, b_pe), 2.0 * B * 4096 * 768 * 1280, None,
+               lambda: F.linear(x_pe, w_pe, b_pe), None)
+        del x_pe, w_pe, b_pe
+        x = rn(B, G * G, D)
+        w, b = rn(3 * D, D, std=0.02), rn(3 * D, std=0.02)
+        args = (x, 1 + rn(D, std=0.1), rn(D, std=0.1),
+                x.new_ones(1, G * G, 1), w, b)  # the global blocks' mask, as the encoder gives it
+        yield ("ln_mask_linear_bt_f32", "ln_linear_f32.cu", "linear.py:228",
+               lambda *a: lin.ln_mask_linear_bt(*a, eps=eps),
+               lambda *a: lin.ln_mask_linear_bt_ref(*a, eps=eps), args,
+               2.0 * B * G * G * D * 3 * D, None, None, lambda: F.linear(x, w))
+        del x, w, b, args
+        qkv, rel = rn(B * nf, WIN * WIN, 3 * D), rn(WIN * WIN, B * nf, NH * 32)
+        bias = torch.matmul(rel.reshape(WIN * WIN, B * nf, NH, 32).permute(1, 2, 0, 3), sel32)
+        yield ("flash_qkv_packed_windows_s_f32", "qkv_windows_f32.cu", "flash_attention.py:519",
+               lambda *a: fa.flash_qkv_packed_windows_s(*a, scale, NH, HD),
+               lambda *a: fa.flash_qkv_packed_windows_s_ref(*a, scale, NH, HD),
+               (qkv, rel, sel32), 4.0 * B * nf * NH * (WIN * WIN) ** 2 * HD, (qkv, rel),
+               sdpa(qkv, bias), None)
+        del qkv, rel, bias
+        rel = rn(B, ne, R, NH, 32)
+        off = 0
+        for grp in geom.edge_groups:  # dummy rows' pad-key logit, as the encoder clamps it
+            rel[:, off : off + grp.n, grp.rows :, :, LPAD_LANE] = NEG
+            off += grp.n
+        args = (rn(B, ne, R, 3 * D), rel.reshape(B, ne, R, NH * 32), sel_e,
+                rn(NH, HD, std=0.5), kmask_e)
+        # the bias product rel @ sel (depth 32) beside q k^T
+        yield ("flash_qkv_packed_edge_f32", "qkv_windows_f32.cu", "flash_attention.py:755",
+               lambda *a: fa.flash_qkv_packed_edge(*a, scale, NH, HD),
+               lambda *a: fa.flash_qkv_packed_edge_ref(*a, scale, NH, HD), args,
+               2.0 * B * ne * NH * R * R * (2 * HD + 32), None, sdpa_edge(*args, NH, HD, scale),
+               None)
+        del rel, args
+        qkv, rel = rn(B, G * G, 3 * D), rn(G * G, B, NH, 2 * G)
+        bias = torch.matmul(rel.permute(1, 2, 0, 3), sel_g)
+        yield ("flash_qkv_packed_global_f32", "qkv_packed_global_f32.cu",
+               "flash_attention.py:1083",
+               lambda *a: fa.flash_qkv_packed_global(*a, scale, NH, HD, G, G),
+               lambda *a: fa.flash_qkv_packed_global_ref(*a, scale, NH, HD),
+               (qkv, rel, sel_g), 4.0 * B * NH * (G * G) ** 2 * HD, (qkv, rel),
+               sdpa(qkv, bias), None)
+
+    out = {}
+    for B in (1, 2):
+        for name, source, replaces, kfn, pfn, args, flops, reads, library, gemm in cases(B):
+            r = _check_kernel(f"{name} (SAM ViT-H at batch {B}, fp32, TF32 off)", kfn, pfn, args,
+                              flops=flops, reads=reads, library=library, gemm_library=gemm,
+                              rel_bound=F32_REL_BOUND, peak_flops=PEAK_F32_FLOPS)
+            if B == 1:
+                out[name] = dict(source=src + source, replaces=rep + replaces, **r)
+            else:
+                out[name].update({f"batch2_{k}": r[k] for k in (
+                    "ms", "queued_ms", "plain_ms", "library_ms", "bound_ms")})
+            torch.cuda.empty_cache()
+    check(tuple(out) == SAM_F32, f"sam_f32_kernels: {tuple(out)}")
     return out
 
 
@@ -2817,6 +2938,196 @@ def phase_maple_slice():
     return counts
 
 
+# The fp32 cascade on the card against the same state dict on the card host's
+# CPU (the plain versions, which the CPU tests tie to the JAX package), at
+# batch 1 and full depth: mean|d| / mean|ref| of the SAM embedding and of
+# the mask logits. Both sides compute in fp32 with no rounding point (TF32
+# off); they differ in the order of fp32 sums (the kernels' tiles, the CPU's
+# BLAS), ~1e-7 relative per product, which 32 blocks, the decoder and CLIP
+# grow by well under 100x; 1e-3 leaves room for that growth while a wrong
+# kernel (a dropped bias, a wrong window or pad key) moves the embedding by
+# 1e-2 and more.
+F32_SLICE_MEAN_REL_BOUND = 1e-3
+
+
+def f32_expected(expected):
+    """`expected_launches` of a fp32 run: each kernel's launches on its fp32
+    instance (`<name>_f32`), none on a bf16 kernel."""
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    out = {k.name: 0 for k in _cuda.KERNELS}
+    for k, n in expected.items():
+        if n:
+            check(k + "_f32" in out, f"{k} has no fp32 instance")
+            out[k + "_f32"] += n
+    return out
+
+
+def cascade_outputs(m, cfg, tf, inp, cimg, cmask):
+    """`infer_cascade_with_text` with its stages' outputs kept: the SAM
+    embedding (the neck's), the mask logits, the class logits and the
+    predicted class."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops.resize import resize_bilinear
+
+    with torch.no_grad():
+        feats, _ = m.image_encoder(inp)
+        ifeat, tfeat, _, _ = m.clip_model.classify(cimg, cmask, tf)
+        masks, _, _ = m._decode(feats, m._sparse_embeddings(ifeat, tfeat))
+        alpha = resize_bilinear(torch.sigmoid(masks.float()), cfg.clip_size, cfg.clip_size)
+        _, _, pred, score = m.clip_model.classify(cimg, alpha, tf)
+    return {"embedding": feats, "mask_logits": masks, "class_logits": score, "pred": pred}
+
+
+def phase_f32_slice():
+    """The demo CLI at --dtype float32 on the card at full width (the
+    reference configuration, the rel cache, the 61 test classes): TF32 turned
+    off by the CLI, [slice]'s requests with exact launch counts on the fp32
+    instances and none on a bf16 kernel; then the fp32 cascade at batch 1
+    against the same state dict on the CPU (SAM embedding and mask logits
+    within F32_SLICE_MEAN_REL_BOUND, the same class); the bf16 cascade on
+    the same weights against the fp32 one (a measurement, no gate); the
+    graphed and eager calls at batch 1 and 2 with the card's busy time."""
+    import torch
+    from camouflaged_vlm_tpu_torch.cli import demo
+    from camouflaged_vlm_tpu_torch.factory import attach_rel_cache, build_cascade
+    from camouflaged_vlm_tpu_torch.graphs import GraphedCall
+    from camouflaged_vlm_tpu_torch.models import CascadeConfig
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    demo_dir = os.path.join(OUT_DIR, "demo_f32")
+    os.makedirs(demo_dir, exist_ok=True)
+    images = _synthetic_images(5)
+    paths = []
+    for i, img in enumerate(images):
+        paths.append(os.path.join(demo_dir, f"synthetic_{i}.png"))
+        img.save(paths[-1])
+    args = demo.parse_args(["--image", paths[0], "--out-dir", demo_dir,
+                            "--device", "cuda", "--dtype", "float32", "--seed", "0"])
+    torch.backends.cuda.matmul.allow_tf32 = True  # the CLI must turn both off
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    session = demo.DemoSession(args)
+    torch.cuda.synchronize()
+    cfg, n_classes = session.cfg, len(session.classnames)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    log(f"[f32_slice] demo session at --dtype float32: build + text encode ({n_classes} "
+        f"classes) {time.perf_counter() - t0:.3f} s; TF32 (matmul, cuDNN) after it {tf32}")
+    check(tf32 == (False, False), f"[f32_slice] the demo CLI left TF32 on: {tf32}")
+    check(cfg.encoder.dtype == cfg.decoder.dtype == cfg.clip.dtype == torch.float32
+          and cfg.encoder.attn_impl == "flash" and cfg.encoder.embed_dim == 1280,
+          f"[f32_slice] not the reference configuration in fp32: {cfg.encoder}")
+    for idx in SLICE_REQUESTS:
+        t0 = time.perf_counter()
+        probs, pred, logits = session.predict([images[i] for i in idx])
+        dt = time.perf_counter() - t0
+        check(probs.shape == (len(idx), cfg.inp_size, cfg.inp_size)
+              and bool(np.isfinite(probs).all()) and probs.min() >= 0 and probs.max() <= 1,
+              "[f32_slice] mask probabilities not finite in [0, 1]")
+        check(logits.shape == (len(idx), n_classes) and bool(np.isfinite(logits).all()),
+              f"[f32_slice] logits {logits.shape} or non-finite")
+        for j, i in enumerate(idx):
+            demo.write_outputs(paths[i], np.asarray(images[i]), probs[j],
+                               session.classnames[int(pred[j])], demo_dir)
+        log(f"[f32_slice] request batch {len(idx)}: {dt * 1000:.1f} ms wall; pred "
+            f"{[session.classnames[int(c)] for c in pred]}; mask mean {probs.mean():.4f}")
+    counts = _cuda.launch_counts()
+    expected = f32_expected(expected_launches(cfg, len(SLICE_REQUESTS)))
+    log(f"[f32_slice] peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"kernel launches {({k: v for k, v in counts.items() if v})} expected "
+        f"{({k: v for k, v in expected.items() if v})}")
+    check(counts == expected, f"[f32_slice] launches {counts} != {expected}")
+
+    # batch 1, full depth: the card against the CPU on the same state dict
+    model, tf = session.model, session.text_features
+    inputs = session.preprocess(images[:1])
+    gpu = cascade_outputs(model, cfg, tf, *inputs)
+    t0 = time.perf_counter()
+    cpu_model = build_cascade(cfg, "cpu", seed=1)
+    cpu_model.load_state_dict(model.state_dict(), strict=True)
+    attach_rel_cache(cpu_model)
+    t_build = time.perf_counter() - t0
+    b = {k: v.cpu() for k, v in session.bank.items()}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        tf_cpu = cpu_model.encode_class_text_features(b["prefix"], b["suffix"],
+                                                      b["eot_indices"], b["bank_features"])
+        cpu = cascade_outputs(cpu_model, cfg, tf_cpu, *(t.cpu() for t in inputs))
+    t_cpu = time.perf_counter() - t0
+    del cpu_model
+    e = {k: errors(gpu[k].cpu(), cpu[k]) for k in ("embedding", "mask_logits", "class_logits")}
+    e["text_features"] = errors(tf.cpu(), tf_cpu)
+    same = bool(torch.equal(gpu["pred"].cpu(), cpu["pred"]))
+    log(f"[f32_slice] fp32 cascade at batch 1, full depth (32 blocks), card vs the card host's "
+        f"CPU ({torch.get_num_threads()} threads; plain versions) on the same state dict: "
+        + "; ".join(f"{k} mean_rel {v['mean_rel']:.3e} max_rel {v['max_rel']:.3e} max_abs "
+                    f"{v['max_abs_err']:.3e}" for k, v in e.items())
+        + f" (bound mean_rel {F32_SLICE_MEAN_REL_BOUND} on the embedding and the mask logits); "
+        f"class {session.classnames[int(gpu['pred'][0])]} vs "
+        f"{session.classnames[int(cpu['pred'][0])]}; the CPU's seconds: build {t_build:.1f}, "
+        f"text encode + cascade call {t_cpu:.1f}")
+    check(e["embedding"]["mean_rel"] < F32_SLICE_MEAN_REL_BOUND
+          and e["mask_logits"]["mean_rel"] < F32_SLICE_MEAN_REL_BOUND,
+          f"[f32_slice] the fp32 cascade on the card disagrees with the CPU: {e}")
+    check(same, "[f32_slice] the card and the CPU predict different classes")
+    del cpu, tf_cpu
+
+    # the bf16 cascade on the same weights against the fp32 one: how far the
+    # bf16 roundings carry through 32 blocks (a measurement, no gate)
+    bcfg = CascadeConfig.full(dtype=torch.bfloat16)
+    bmodel = build_cascade(bcfg, "cuda", seed=1)
+    bmodel.load_state_dict(model.state_dict(), strict=True)
+    attach_rel_cache(bmodel)
+    with torch.no_grad():
+        btf = bmodel.encode_class_text_features(session.bank["prefix"], session.bank["suffix"],
+                                                session.bank["eot_indices"],
+                                                session.bank["bank_features"])
+    bf = cascade_outputs(bmodel, bcfg, btf, *inputs)
+    del bmodel
+    gap = {k: errors(bf[k], gpu[k]) for k in ("embedding", "mask_logits", "class_logits")}
+    pm = [(torch.sigmoid(o["mask_logits"].float()) > 0.5) for o in (bf, gpu)]
+    agree = float((pm[0] == pm[1]).float().mean())
+    log("[f32_slice] bf16 cascade against the fp32 one on the card, same weights, batch 1: "
+        + "; ".join(f"{k} mean_rel {v['mean_rel']:.3e} max_rel {v['max_rel']:.3e}"
+                    for k, v in gap.items())
+        + f"; mask pixels (p > 0.5) that agree {agree:.4f}; class "
+        f"{session.classnames[int(bf['pred'][0])]} vs {session.classnames[int(gpu['pred'][0])]}")
+    del bf, btf, gpu
+    torch.cuda.empty_cache()
+
+    # graphed and eager calls at batch 1 and 2, and the card's busy time
+    pool = torch.cuda.graph_pool_handle()
+    want = f32_expected(expected_launches(cfg, 1, text=False))
+
+    def fn(inp, cimg, cmask):
+        return model.infer_cascade_with_text(inp, cimg, cmask, tf)
+
+    graphs = []  # alive until the end: a pool whose graphs are freed takes no capture
+    for bs in (1, 2):
+        inputs = session.preprocess(images[:bs])
+        eager = [t.clone() for t in fn(*inputs)]
+        g = GraphedCall(fn, *inputs, pool=pool)
+        graphs.append(g)
+        check(g.launches == want, f"[f32_slice] graph b{bs}: launches {g.launches} != {want}")
+        out = g(*inputs)
+        torch.cuda.synchronize()
+        d = max(errors(out[i], eager[i])["max_rel"] for i in (0, 2))  # probs, class logits
+        eager_ms = _walls_ms(lambda: fn(*inputs))
+        graph_ms = _walls_ms(lambda: g(*inputs))
+        log(f"[f32_slice] batch {bs}, fp32: wall (median of 7, ms) eager {eager_ms:.2f}, graph "
+            f"{graph_ms:.2f} ({1e3 * bs / graph_ms:.3f} images/s graphed); replay against eager "
+            f"max_rel {d:.3e} (probabilities and class logits)")
+        with torch.no_grad():
+            trace_call(lambda: fn(*inputs), f"_f32 eager batch {bs}", eager_ms, kernels=True)
+            trace_call(lambda: g(*g.static_inputs), f"_f32 graph batch {bs}", graph_ms)
+        del g, eager, out
+    del graphs, session, model, tf
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     if os.path.exists(LOG_FILE):
         os.remove(LOG_FILE)
@@ -2858,6 +3169,7 @@ def main() -> None:
     f32 = timed(phase_f32_kernels)
     timed(phase_maple_small)
     maple_counts = timed(phase_maple_slice)
+    f32_counts = timed(phase_f32_slice)
     import torch
 
     # launches: each kernel's count in the run of its own main path (the
@@ -2872,7 +3184,7 @@ def main() -> None:
                 "flash_qkv_relpos_windows": ev["vit_h_flash_win17"]["flash_qkv_relpos_windows"],
                 "proj_from_heads_res": ev["vit_h_flash_win17"]["proj_from_heads_res"],
                 "ln_mlp_residual_bt_f32": f32_launches,
-                **{k: maple_counts[k] for k in f32}}
+                **{k: (f32_counts if k in SAM_F32 else maple_counts)[k] for k in f32}}
     kernels = [
         {"name": k, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": r["launches"] if k in NO_PATH else launches[k],
@@ -2881,10 +3193,11 @@ def main() -> None:
          "queued_ms": r["queued_ms"], "library_queued_ms": r["library_queued_ms"],
          "host_us": r.get("host_us"),
          **({"gemm_library_ms": r["gemm_library_ms"]} if "gemm_library_ms" in r else {}),
+         **{k2: v for k2, v in r.items() if k2.startswith("batch2_")},
          **({"path": r["path"]} if k in NO_PATH else {})}
         for res in (results, grads, f32) for k, r in res.items()
     ]
-    check(len(kernels) == 24 and all(e["launches"] > 0 for e in kernels)
+    check(len(kernels) == 29 and all(e["launches"] > 0 for e in kernels)
           and all(launches[e["name"]] == 0 for e in kernels if e["name"] in NO_PATH),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     log("[device] name and power limit (nvidia-smi) of the card all numbers above ran on:")

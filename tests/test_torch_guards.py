@@ -147,18 +147,69 @@ def test_demo_session_predicts_a_batch_on_cpu(image_path):
     assert ((pred >= 0) & (pred < 61)).all()
 
 
-@pytest.mark.parametrize("cli", ["demo", "evaluate", "serve", "train", "bench",
-                                 "serve_throughput"])
-def test_float32_on_the_card_refuses_before_the_build(cli, image_path, tmp_path, no_cuda):
-    """--device cuda --dtype float32 refuses at once, naming the kernels with
-    no fp32 instance yet (before the card is even looked for, so this runs
-    on any host), rather than a TypeError inside a kernel wrapper, and not
-    the CLIP kernels that have one (#2, #16, #7, #4/#5 and #6: MaPLe
-    training's, whose CLI runs fp32 on the card); bfloat16 goes on to the
-    card check."""
-    import importlib
+# (CLI, configuration, the kernels the guard names at --dtype float32 on the
+# card): the reference configuration (CascadeConfig.full, no --config or
+# --tiny) has every fp32 instance its inference routes launch; training it
+# needs the attention backwards; the other routes' kernels have none yet
+REF = "reference"
+GUARD_CASES = [
+    pytest.param("demo", REF, [], id="demo"),
+    pytest.param("evaluate", REF, [], id="evaluate"),
+    pytest.param("serve", REF, [], id="serve"),
+    pytest.param("bench", REF, [], id="bench"),
+    pytest.param("serve_throughput", REF, [], id="serve_throughput"),
+    pytest.param("train", REF, ["#14 flash_qkv_packed_windows_s_bwd",
+                                "#18 flash_qkv_packed_global_bwd"], id="train"),
+    pytest.param("demo", "tiny", ["#10 flash_attention_relpos"], id="demo-tiny"),
+    pytest.param("bench", "tiny", ["#10 flash_attention_relpos"], id="bench-tiny"),
+    pytest.param("serve_throughput", "tiny", ["#10 flash_attention_relpos"],
+                 id="serve_throughput-tiny"),
+    pytest.param("evaluate", "vit_b", ["#10 flash_attention_relpos"], id="evaluate-vit_b"),
+    pytest.param("serve", "vit_b", ["#10 flash_attention_relpos"], id="serve-vit_b"),
+    pytest.param("evaluate", "aug_flash", ["#20 flash_attention_fullk"], id="evaluate-aug_flash"),
+    pytest.param("evaluate", "win16", ["#12 flash_qkv_packed_windows"], id="evaluate-win16"),
+    pytest.param("evaluate", "win17", ["#8 proj_from_heads_res", "#11 flash_qkv_relpos_windows"],
+                 id="evaluate-win17"),
+    pytest.param("train", "win16", ["#12 flash_qkv_packed_windows",
+                                    "#18 flash_qkv_packed_global_bwd"], id="train-win16"),
+]
+VIT_H_YAML = "configs/ovcos-sam-vit-h-maskdecoder-edge.yaml"
+VIT_B_YAML = "camouflaged_vlm_tpu_torch/configs/ovcos-sam-vit-b-maskdecoder-edge.yaml"
 
-    from camouflaged_vlm_tpu_torch.cli.common import NO_FP32_KERNEL
+
+def _config_flags(config, tmp_path):
+    """The flags that select `config`: nothing for the reference one,
+    --tiny, the port's ViT-B yaml, or the repo's ViT-H yaml with one
+    encoder field changed, written under tmp_path."""
+    import yaml
+
+    if config == REF:
+        return []
+    if config == "tiny":
+        return ["--tiny"]
+    if config == "vit_b":
+        return ["--config", VIT_B_YAML]
+    raw = yaml.safe_load(open(VIT_H_YAML))
+    if config == "aug_flash":
+        raw["model"]["encoder"]["attn_impl"] = "aug_flash"
+    else:
+        raw["model"]["encoder"]["window_size"] = int(config[3:])
+    path = tmp_path / f"{config}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return ["--config", str(path)]
+
+
+@pytest.mark.parametrize("cli,config,missing", GUARD_CASES)
+def test_float32_on_the_card_refuses_before_the_build(cli, config, missing, image_path, tmp_path,
+                                                      no_cuda):
+    """--device cuda --dtype float32 refuses at once where the configuration's
+    routes launch a kernel with no fp32 instance yet, naming exactly those
+    kernels (before the card is even looked for, so this runs on any host),
+    rather than a TypeError inside a kernel wrapper; where none is missing
+    (the reference configuration's inference) it goes on to the card check,
+    as bfloat16 always does."""
+    import importlib
+    import re
 
     mod = importlib.import_module(f"camouflaged_vlm_tpu_torch.cli.{cli}")
     info = tmp_path / "dataset_info.yaml"
@@ -166,14 +217,97 @@ def test_float32_on_the_card_refuses_before_the_build(cli, image_path, tmp_path,
     extra = {"demo": ["--image", image_path, "--out-dir", str(tmp_path / "out")],
              "evaluate": ["--dataset-info", str(info), "--output-dir", str(tmp_path / "out")],
              "train": ["--dataset-info", str(info), "--save-dir", str(tmp_path / "out")]}
-    argv = ["--tiny", "--device", "cuda", *extra.get(cli, [])]
+    argv = [*_config_flags(config, tmp_path), "--device", "cuda", *extra.get(cli, [])]
     run = (lambda a: mod.build_engine(mod.parse_args(a))) if cli == "serve" else mod.main
-    with pytest.raises(NotImplementedError) as err:
-        run(argv + ["--dtype", "float32"])
-    msg = str(err.value)
-    assert msg.startswith("--device cuda with float32") and "ROADMAP.md Queue 2" in msg
-    assert all(k in msg for k in NO_FP32_KERNEL)
-    assert not any(k in msg for k in ("#2 ", "#4", "#6 ", "#7 ", "#16 "))
+    if missing:
+        with pytest.raises(NotImplementedError) as err:
+            run(argv + ["--dtype", "float32"])
+        msg = str(err.value)
+        assert msg.startswith("--device cuda with float32") and "ROADMAP.md Queue 2" in msg
+        assert re.findall(r"#\d+ \w+", msg) == missing
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(argv + ["--dtype", "float32"])
     assert not (tmp_path / "out").exists()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run(argv + ["--dtype", "bfloat16"])
+
+
+@pytest.fixture
+def kernel_names(monkeypatch):
+    """The names `_cuda.use_kernel` receives (on the CPU too, where each
+    wrapper then takes its plain version)."""
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    names = set()
+    use = _cuda.use_kernel
+
+    def record(name, *tensors, **kw):
+        names.add(name)
+        return use(name, *tensors, **kw)
+
+    monkeypatch.setattr(_cuda, "use_kernel", record)
+    return names
+
+
+def _tiny_fp32(**enc):
+    import dataclasses
+
+    cfg = SamEncoderConfig.tiny(**{"attn_impl": "flash", "num_heads": 8, **enc})
+    return dataclasses.replace(CascadeConfig.tiny(dtype=torch.float32), inp_size=cfg.img_size,
+                               encoder=cfg)
+
+
+def test_fp32_guard_holds_to_the_routes(kernel_names):
+    """The guard's model of the routes (`common.cascade_kernels`) against
+    the kernels the model calls: the tiny fused compact cascade (8 heads,
+    grid 24 with window 5: interior and edge windows, global blocks of 576
+    tokens on #17) in fp32 on the CPU calls exactly the guard's kernels,
+    each with an fp32 instance, so the guard passes it; with a backward it
+    adds #6, #14 and #18, and the guard for the train CLI names #14 and
+    #18."""
+    from camouflaged_vlm_tpu_torch.cli.common import cascade_kernels, fp32_missing_kernels
+    from camouflaged_vlm_tpu_torch.factory import make_bank_inputs
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    cfg = _tiny_fp32(img_size=384, window_size=5)
+    model = build_cascade(cfg, "cpu", seed=0)
+    rng = np.random.default_rng(0)
+    bank = make_bank_inputs(cfg, ["cat", "owl"], seed=0, device="cpu")
+    C = cfg.clip_size
+    with torch.no_grad():
+        model.infer_cascade(torch.from_numpy(rng.standard_normal((1, 384, 384, 3),
+                                                                 dtype=np.float32)),
+                            torch.from_numpy(rng.standard_normal((1, C, C, 3), dtype=np.float32)),
+                            torch.ones(1, C, C, 1), bank["prefix"], bank["suffix"],
+                            bank["eot_indices"], bank["bank_features"])
+    assert kernel_names == set(cascade_kernels(cfg))
+    assert all(_cuda.has_f32_instance(k) for k in kernel_names)
+    assert fp32_missing_kernels(cfg) == []
+    kernel_names.clear()
+    model.image_encoder.requires_grad_(True)
+    y, interm = model.image_encoder(torch.from_numpy(rng.standard_normal((1, 384, 384, 3),
+                                                                        dtype=np.float32)))
+    (y.sum() + sum(t.sum() for t in interm)).backward()
+    missing = fp32_missing_kernels(cfg, training=True)
+    assert missing == ["#14 flash_qkv_packed_windows_s_bwd", "#18 flash_qkv_packed_global_bwd"]
+    assert {m.split()[1] for m in missing} | {"ln_mlp_residual_bt_bwd"} <= kernel_names
+
+
+@pytest.mark.parametrize("enc,missing", [
+    (dict(num_heads=4), ["#10"]),                                   # unfused 'flash'
+    (dict(attn_impl="aug_flash", img_size=512), ["#20"]),           # global blocks of 1024
+    (dict(img_size=320, window_size=16), ["#8", "#11", "#12"]),     # padded carry, grid 20
+    (dict(img_size=320, window_size=17), ["#8", "#11"]),
+])
+def test_fp32_guard_names_what_the_refused_routes_call(kernel_names, enc, missing):
+    """For each refused configuration (tiny widths, fp32 on the CPU) the
+    kernels the guard names are among those the SAM encoder calls."""
+    from camouflaged_vlm_tpu_torch.cli.common import fp32_missing_kernels
+
+    cfg = _tiny_fp32(**enc)
+    named = fp32_missing_kernels(cfg)
+    assert [m.split()[0] for m in named] == missing
+    with torch.no_grad():
+        ImageEncoderViT(cfg.encoder)(torch.randn(1, cfg.inp_size, cfg.inp_size, 3))
+    assert {m.split()[1] for m in named} <= kernel_names

@@ -226,8 +226,8 @@ def test_proj_rows_kernel_float32(gen, monkeypatch, no_tf32, tile, with_res, B, 
 def test_flash_qkv_packed_plain_kernel_float32(gen, no_tf32, B, S, heads, d):
     """#16's fp32 instance at MaPLe's vision shape (batch 8, 581 tokens, 16
     heads x 64); sequences under one 64-key tile, exactly one, ragged and
-    long; d = 64 (CLIP ViT-L/14's) only. Its output feeds the fp32
-    proj_rows as it lies."""
+    long; d = 64 (CLIP ViT-L/14's) and 80, no other. Its output feeds the
+    fp32 proj_rows as it lies."""
     qkv = rn(gen, B, S, 3 * heads * d, dtype=torch.float32)
     before = (_cuda.QKV_PACKED_PLAIN_F32.launches, _cuda.QKV_PACKED_PLAIN.launches)
     got = flash_attention.flash_qkv_packed_plain(qkv, d ** -0.5, heads, d)
@@ -235,9 +235,116 @@ def test_flash_qkv_packed_plain_kernel_float32(gen, no_tf32, B, S, heads, d):
         before[0] + 1, before[1])
     assert got.stride(-2) % 8 == 0
     assert_close_f32(got, flash_attention.flash_qkv_packed_plain_ref(qkv, d ** -0.5, heads, d))
-    with pytest.raises(ValueError, match="takes d = 64"):
+    with pytest.raises(ValueError, match="takes d in"):
         flash_attention.flash_qkv_packed_plain(rn(gen, 1, 5, 3 * 32, dtype=torch.float32),
                                                0.1, 1, 32)
+
+
+@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("activation", [None, "gelu"])
+@pytest.mark.parametrize("M,K,N", [(8192, 768, 1280), (4096, 768, 40), (67, 96, 132),
+                                   (130, 200, 12)])
+def test_linear_act_kernel_float32(gen, monkeypatch, no_tf32, tile, activation, M, K, N):
+    """#1's fp32 instance at the patch embed's shape at batch 2 and the EVP
+    embed's (N 40), and ragged ones; each tile."""
+    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    f32 = torch.float32
+    args = (rn(gen, M, K, dtype=f32), rn(gen, N, K, std=0.05, dtype=f32),
+            rn(gen, N, std=0.1, dtype=f32))
+    before = (_cuda.LINEAR_ACT_F32.launches, _cuda.LINEAR_ACT.launches)
+    got = linear.linear_act(*args, activation=activation)
+    assert (_cuda.LINEAR_ACT_F32.launches, _cuda.LINEAR_ACT.launches) == (before[0] + 1, before[1])
+    assert_close_f32(got, linear.linear_act_ref(*args, activation=activation))
+
+
+@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("Bp,S,K,N,nwin", [(1, 4096, 1280, 3840, 1), (6, 50, 200, 96, 3),
+                                          (4, 37, 128, 384, 1), (3, 7, 96, 12, 3)])
+def test_ln_mask_linear_bt_kernel_float32(gen, monkeypatch, no_tf32, tile, Bp, S, K, N, nwin):
+    """#3's fp32 instance at a ViT-H global block's shape at batch 1 (the
+    mask of ones the encoder gives it) and ragged ones with nwin 1 and 3
+    (row b' reads mask[b' % nwin]); each tile."""
+    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    f32 = torch.float32
+    mask = (torch.rand(nwin, S, 1, generator=gen, device="cuda") > 0.3).to(f32)
+    if S == 4096:
+        mask = torch.ones_like(mask)
+    args = (rn(gen, Bp, S, K, dtype=f32) + 0.5, 1 + rn(gen, K, std=0.1, dtype=f32),
+            rn(gen, K, std=0.1, dtype=f32), mask, rn(gen, N, K, std=0.05, dtype=f32),
+            rn(gen, N, std=0.1, dtype=f32))
+    before = (_cuda.LN_MASK_LINEAR_F32.launches, _cuda.LN_MASK_LINEAR.launches)
+    got = linear.ln_mask_linear_bt(*args, eps=1e-6)
+    assert (_cuda.LN_MASK_LINEAR_F32.launches, _cuda.LN_MASK_LINEAR.launches) == (
+        before[0] + 1, before[1])
+    assert_close_f32(got, linear.ln_mask_linear_bt_ref(*args, eps=1e-6))
+
+
+@pytest.mark.parametrize("BW,win,heads,d", [(32, 14, 16, 80), (3, 14, 2, 80), (5, 4, 8, 64),
+                                            (2, 7, 1, 64), (2, 9, 2, 80), (1, 16, 2, 64),
+                                            (2, 8, 2, 80)])
+def test_flash_qkv_packed_windows_s_kernel_float32(gen, no_tf32, BW, win, heads, d):
+    """#13's fp32 instance at ViT-H's shape (32 windows of 14, 16 heads x
+    80) and others: windows under, at and over one 64-key tile (4, 8, 9,
+    14, 16), d 64 and 80."""
+    f32 = torch.float32
+    S = win * win
+    qkv = rn(gen, BW, S, 3 * heads * d, dtype=f32)
+    rel_s = rn(gen, S, BW, heads * 32, dtype=f32)
+    sel32 = flash_attention.make_rel_scatter32(win, f32, torch.device("cuda"))
+    args = (qkv, rel_s, sel32, d ** -0.5, heads, d)
+    before = (_cuda.QKV_WINDOWS_F32.launches, _cuda.QKV_WINDOWS.launches)
+    got = flash_attention.flash_qkv_packed_windows_s(*args)
+    assert (_cuda.QKV_WINDOWS_F32.launches, _cuda.QKV_WINDOWS.launches) == (before[0] + 1,
+                                                                            before[1])
+    assert got.stride(-2) % 8 == 0
+    assert_close_f32(got, flash_attention.flash_qkv_packed_windows_s_ref(*args))
+
+
+@pytest.mark.parametrize("H,W,win,heads,d", [(64, 64, 14, 2, 80), (10, 10, 4, 2, 64),
+                                             (9, 12, 5, 2, 64), (20, 20, 14, 2, 80),
+                                             (26, 26, 14, 1, 80), (5, 5, 2, 1, 64)])
+def test_flash_qkv_packed_edge_kernel_float32(gen, no_tf32, H, W, win, heads, d):
+    """#15's fp32 instance: right, bottom and corner windows with ragged
+    R_u (112 at ViT-H, 84, 168, and under one 64-key tile), the corner's
+    dummy rows with a pad-key logit of -1e30 and dummy keys of kmask's
+    -1e30, as the encoder gives them; d 64 and 80."""
+    f32 = torch.float32
+    geom = CompactGeometry(H, W, win)
+    B, n, R = 2, geom.n_edge, geom.R_u
+    qkv = rn(gen, B, n, R, 3 * heads * d, dtype=f32)
+    rel = rn(gen, B, n, R, heads, 32, dtype=f32)
+    for g_start, g in zip(np.cumsum([0] + [g.n for g in geom.edge_groups]), geom.edge_groups):
+        rel[:, g_start : g_start + g.n, g.rows :, :, LPAD_LANE] = NEG
+    rel = rel.reshape(B, n, R, heads * 32)
+    sel, kmask = edge_consts(geom, f32, torch.device("cuda"))
+    vb = rn(gen, heads, d, std=0.5, dtype=f32)
+    args = (qkv, rel, sel, vb, kmask, d ** -0.5, heads, d)
+    before = (_cuda.QKV_EDGE_F32.launches, _cuda.QKV_EDGE.launches)
+    got = flash_attention.flash_qkv_packed_edge(*args)
+    assert (_cuda.QKV_EDGE_F32.launches, _cuda.QKV_EDGE.launches) == (before[0] + 1, before[1])
+    assert got.stride(-2) % 8 == 0
+    assert_close_f32(got, flash_attention.flash_qkv_packed_edge_ref(*args))
+
+
+@pytest.mark.parametrize("B,H,W,heads,d", [(1, 64, 64, 2, 80), (2, 64, 64, 1, 80),
+                                           (1, 5, 5, 2, 64), (2, 6, 10, 2, 80),
+                                           (1, 7, 9, 1, 64), (1, 5, 20, 1, 80),
+                                           (1, 33, 40, 1, 80), (1, 2, 128, 1, 64)])
+def test_flash_qkv_packed_global_kernel_float32(gen, no_tf32, B, H, W, heads, d):
+    """#17's fp32 instance on grids from 5 x 5 to ViT-H's 64 x 64, H != W
+    and ragged N; d 64 and 80."""
+    f32 = torch.float32
+    N = H * W
+    qkv = rn(gen, B, N, 3 * heads * d, dtype=f32)
+    rel = rn(gen, N, B, heads, H + W, dtype=f32)
+    sel = flash_attention.make_rel_scatter(H, W, f32, torch.device("cuda"))
+    args = (qkv, rel, sel, d ** -0.5, heads, d, H, W)
+    before = (_cuda.QKV_GLOBAL_F32.launches, _cuda.QKV_GLOBAL.launches)
+    got = flash_attention.flash_qkv_packed_global(*args)
+    assert (_cuda.QKV_GLOBAL_F32.launches, _cuda.QKV_GLOBAL.launches) == (before[0] + 1,
+                                                                          before[1])
+    assert got.stride(-2) % 8 == 0
+    assert_close_f32(got, flash_attention.flash_qkv_packed_global_ref(*args[:6]))
 
 
 @pytest.mark.parametrize("weights", [False, True])
@@ -465,6 +572,32 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         flash_attention.flash_qkv_packed_global(rn(gen, 1, H * W, 3 * 128),
                                                 rn(gen, H * W, 1, 1, H + W), sel,
                                                 128 ** -0.5, 1, 128, H, W)
+    # the fp32 attention takes d in (64, 80) only, and its global instance
+    # holds a query tile's H + W rel lanes: at most 512
+    f32 = torch.float32
+    sel4 = flash_attention.make_rel_scatter32(4, f32, torch.device("cuda"))
+    with pytest.raises(ValueError, match="takes d in"):
+        flash_attention.flash_qkv_packed_windows_s(rn(gen, 2, 16, 3 * 32, dtype=f32),
+                                                   rn(gen, 16, 2, 32, dtype=f32), sel4,
+                                                   0.1, 1, 32)
+    sel5 = flash_attention.make_rel_scatter(5, 5, f32, torch.device("cuda"))
+    with pytest.raises(ValueError, match="takes d in"):
+        flash_attention.flash_qkv_packed_global(rn(gen, 1, 25, 3 * 128, dtype=f32),
+                                                rn(gen, 25, 1, 1, 10, dtype=f32), sel5,
+                                                0.1, 1, 128, 5, 5)
+    H, W = 1, 512
+    sel = flash_attention.make_rel_scatter(H, W, f32, torch.device("cuda"))
+    with pytest.raises(ValueError, match="H\\+W <= 512"):
+        flash_attention.flash_qkv_packed_global(rn(gen, 1, H * W, 3 * 64, dtype=f32),
+                                                rn(gen, H * W, 1, 1, H + W, dtype=f32), sel,
+                                                0.125, 1, 64, H, W)
+    geom = CompactGeometry(10, 10, 4)
+    sel_e, km = edge_consts(geom, f32, torch.device("cuda"))
+    n, R = geom.n_edge, geom.R_u
+    with pytest.raises(ValueError, match="takes d in"):
+        flash_attention.flash_qkv_packed_edge(rn(gen, 1, n, R, 3 * 16, dtype=f32),
+                                              rn(gen, 1, n, R, 32, dtype=f32), sel_e,
+                                              rn(gen, 1, 16, dtype=f32), km, 0.25, 1, 16)
     # a weight that needs its gradient goes through the plain-VJP Function:
     # the kernel forward, the plain version's gradient
     wg = rn(gen, 8, 128).requires_grad_(True)

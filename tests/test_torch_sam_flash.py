@@ -107,8 +107,8 @@ def test_vit_h_geometry():
     assert 16 * 196 + g.E == 4144
 
 
-def _rel_params(rng, win):
-    return rnd(rng, 2 * win - 1, HD, scale=0.5), rnd(rng, 2 * win - 1, HD, scale=0.5)
+def _rel_params(rng, win, hd=HD):
+    return rnd(rng, 2 * win - 1, hd, scale=0.5), rnd(rng, 2 * win - 1, hd, scale=0.5)
 
 
 @pytest.mark.parametrize("H,W,win", GEOMS)
@@ -183,22 +183,22 @@ def test_flash_qkv_packed_windows_s_matches_jax(rng):
           want, OP_RTOL)
 
 
-def _edge_case(rng, H, W, win):
+def _edge_case(rng, H, W, win, heads=HEADS, hd=HD):
     """Inputs of the edge attention as the encoder builds them: rel from
     `edge_rel_lpad` (real pad-key logits), the qkv bias as pad value."""
     geom = cw.CompactGeometry(H, W, win)
-    rh, rw = _rel_params(rng, win)
-    qkv = rnd(rng, 2, geom.E, 3 * HEADS * HD)
-    bias = rnd(rng, 3 * HEADS * HD)
-    dim = HEADS * HD
-    q = T(qkv[:, :, :dim].reshape(2, geom.E, HEADS, HD))
+    rh, rw = _rel_params(rng, win, hd)
+    qkv = rnd(rng, 2, geom.E, 3 * heads * hd)
+    bias = rnd(rng, 3 * heads * hd)
+    dim = heads * hd
+    q = T(qkv[:, :, :dim].reshape(2, geom.E, heads, hd))
     rcomb = sam_encoder.make_rcomb(win, win, T(rh), T(rw), torch.float32)
-    rel = cw.edge_rel_lpad(q, rcomb, T(bias[dim : 2 * dim].reshape(HEADS, HD)), HD ** -0.5,
+    rel = cw.edge_rel_lpad(q, rcomb, T(bias[dim : 2 * dim].reshape(heads, hd)), hd ** -0.5,
                            geom)
     sel, kmask = cw.edge_consts(geom, torch.float32)
     n, R = geom.n_edge, geom.R_u
-    args = (T(qkv.reshape(2, n, R, -1)), rel.reshape(2, n, R, HEADS * 32), sel,
-            T(bias[2 * dim :].reshape(HEADS, HD)), kmask, HD ** -0.5, HEADS, HD)
+    args = (T(qkv.reshape(2, n, R, -1)), rel.reshape(2, n, R, heads * 32), sel,
+            T(bias[2 * dim :].reshape(heads, hd)), kmask, hd ** -0.5, heads, hd)
     return geom, args, (qkv, bias, rh, rw)
 
 
@@ -237,6 +237,49 @@ def test_flash_qkv_packed_global_matches_jax(rng, H, W):
     want = jitted(j_fa.flash_qkv_packed_global, 3)(J(qkv), J(rel), J(sel.numpy()),
                                                    HD ** -0.5, HEADS, HD, H, W)
     close(fa.flash_qkv_packed_global(T(qkv), T(rel), sel, HD ** -0.5, HEADS, HD, H, W), want,
+          OP_RTOL)
+
+
+# the head dims of the fp32 kernels (csrc/attn_f32.cuh): CLIP ViT-L/14's
+# and SAM ViT-H's, at 2 heads
+KERNEL_HDS = (64, 80)
+
+
+@pytest.mark.parametrize("hd", KERNEL_HDS)
+def test_flash_qkv_packed_windows_s_matches_jax_at_kernel_head_dims(rng, hd):
+    """#13's plain version, the fp32 kernel's rounding reference, against
+    JAX at the head dims the fp32 kernel takes (window 4 and 7)."""
+    for win, BW in ((4, 3), (7, 2)):
+        S = win * win
+        qkv, rel_s = rnd(rng, BW, S, 3 * 2 * hd), rnd(rng, S, BW, 2 * 32)
+        sel32 = fa.make_rel_scatter32(win)
+        want = jitted(j_fa.flash_qkv_packed_windows_s, 3)(J(qkv), J(rel_s), J(sel32.numpy()),
+                                                          hd ** -0.5, 2, hd)
+        close(fa.flash_qkv_packed_windows_s(T(qkv), T(rel_s), sel32, hd ** -0.5, 2, hd), want,
+              OP_RTOL)
+
+
+@pytest.mark.parametrize("hd", KERNEL_HDS)
+@pytest.mark.parametrize("H,W,win", [(10, 10, 4), (9, 12, 5)])
+def test_flash_qkv_packed_edge_matches_jax_at_kernel_head_dims(rng, H, W, win, hd):
+    """#15's plain version against JAX at the fp32 kernel's head dims, the
+    encoder's real pad-key logits and the corner's dummy keys."""
+    _, args, _ = _edge_case(rng, H, W, win, heads=2, hd=hd)
+    jargs = [J(a.numpy()) if isinstance(a, torch.Tensor) else a for a in args]
+    close(fa.flash_qkv_packed_edge(*args), jitted(j_fa.flash_qkv_packed_edge, 5)(*jargs),
+          OP_RTOL)
+
+
+@pytest.mark.parametrize("hd", KERNEL_HDS)
+@pytest.mark.parametrize("H,W", [(5, 5), (6, 10)])
+def test_flash_qkv_packed_global_matches_jax_at_kernel_head_dims(rng, H, W, hd):
+    """#17's plain version against JAX at the fp32 kernel's head dims."""
+    N = H * W
+    qkv, rel = rnd(rng, 2, N, 3 * 2 * hd), rnd(rng, N, 2, 2, H + W)
+    sel = fa.make_rel_scatter(H, W)
+    want = jitted(j_fa.flash_qkv_packed_global, 3)(J(qkv), J(rel), J(sel.numpy()),
+                                                   hd ** -0.5, 2, hd, H, W)
+    close(fa.flash_qkv_packed_global(T(qkv), T(rel), sel, hd ** -0.5, 2, hd, H, W), want,
           OP_RTOL)
 
 
