@@ -130,10 +130,10 @@ def refuse_fp32_on_card(device: str, cfg: CascadeConfig, training: bool = False)
     on a card through a kernel with no fp32 instance (`fp32_missing_kernels`
     of this configuration, with the backward kernels for the train CLI),
     naming those kernels; no path falls back to the plain versions. The
-    reference configuration has every fp32 instance its inference routes
-    launch (#1, #2, #3, #4/#5, #7, #13, #15, #16, #17), so demo, evaluate,
-    serve, serve_throughput and bench run it at fp32 on the card; training
-    it waits for #14 and #18."""
+    reference configuration has every fp32 instance its routes launch (#1,
+    #2, #3, #4/#5, #7, #13, #15, #16, #17, and the backwards #6, #14 and
+    #18), so demo, evaluate, serve, serve_throughput, bench and train run it
+    at fp32 on the card."""
     if not _fp32_on_card(device, cfg):
         return
     missing = fp32_missing_kernels(cfg, training)

@@ -25,8 +25,12 @@ CLI (`cli/train.py:184-196`): `--text-bank`, the test split's, conditions
 validation and the training forward; the train split's bank is built from
 `--train-text-bank`, else `--text-bank`, and conditions nothing (the JAX
 CLI hands it only to the parameter init). What no file sets is random
-(seeded by `--seed`). `--device cuda` on a machine without a GPU raises,
-and so does float32 on the card.
+(seeded by `--seed`). `--device cuda` on a machine without a GPU raises.
+`--dtype float32 --device cuda` trains the reference configuration in
+full fp32 on the card (TF32 off, `common.exact_fp32_on_card`): every
+kernel on the path on its fp32 instance, the backwards #6, #14 and #18
+included; a configuration whose routes launch a kernel with no fp32
+instance yet is refused before the build (`common.refuse_fp32_on_card`).
 
 `--config` takes a model yaml (native or the reference's format), as the
 JAX CLI does, and its train section sets the recipe: `epochs`,
@@ -67,6 +71,7 @@ from .common import (
     Logger,
     cascade_config,
     device_or_raise,
+    exact_fp32_on_card,
     load_checkpoints,
     refuse_fp32_on_card,
 )
@@ -148,6 +153,7 @@ def main(argv: Sequence[str] = None) -> dict:
     cfg = cascade_config(args.config, args.tiny, args.dtype)
     refuse_fp32_on_card(args.device, cfg, training=True)
     device = device_or_raise(args.device)
+    exact_fp32_on_card(args.device, cfg)  # full fp32 outside the kernels too
     os.makedirs(args.save_dir, exist_ok=True)
     log = Logger(args.save_dir)
 

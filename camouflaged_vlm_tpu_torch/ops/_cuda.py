@@ -217,6 +217,15 @@ LN_MLP_RESIDUAL_BWD = CudaKernel(
 _ATTN_BWD_ARGS = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F]
 QKV_WINDOWS_BWD = CudaKernel("flash_qkv_packed_windows_s_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
 QKV_GLOBAL_BWD = CudaKernel("flash_qkv_packed_global_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
+# Their fp32 instances (csrc/attn_bwd_f32.cu: a query-parallel and a
+# key-parallel pass on attn_f32.cuh's tiles, FFMA on the CUDA cores, counted
+# once a call), the train CLI's backward at --dtype float32
+QKV_WINDOWS_BWD_F32 = CudaKernel("flash_qkv_packed_windows_s_bwd_f32",
+                                 "cvlm_qkv_packed_windows_s_bwd_f32",
+                                 [P, P, P, P, P, P, I, I, I, I, F])
+QKV_GLOBAL_BWD_F32 = CudaKernel("flash_qkv_packed_global_bwd_f32",
+                                "cvlm_qkv_packed_global_bwd_f32",
+                                [P, P, P, P, P, P, I, I, I, I, I, I, F])
 
 # Attention over split q, k, v: SAM's unfused 'flash' path (#10, rel-pos
 # bias; the split front end of csrc/qkv_relpos.cu's one pass) and the
@@ -243,7 +252,7 @@ KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MASK_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS,
            QKV_WINDOWS_PADDED, QKV_RELPOS_WINDOWS, QKV_RELPOS_GLOBAL, PROJ_HEADS_RES, PROJ_HEADS,
            LN_MLP_RESIDUAL_F32, LN_LINEAR_F32, QKV_PACKED_PLAIN_F32, PROJ_ROWS_F32,
            LN_MLP_RESIDUAL_BWD_F32, LINEAR_ACT_F32, LN_MASK_LINEAR_F32, QKV_WINDOWS_F32,
-           QKV_EDGE_F32, QKV_GLOBAL_F32)
+           QKV_EDGE_F32, QKV_GLOBAL_F32, QKV_WINDOWS_BWD_F32, QKV_GLOBAL_BWD_F32)
 
 
 def has_f32_instance(name: str) -> bool:

@@ -34,15 +34,21 @@ flash loop on the CUDA cores (`csrc/attn_f32.cuh`) at d = 64 and 80, with no
 rounding point, for MaPLe training and the cascade at --dtype float32.
 
 Gradients: the windows (#14) and global (#18) attention have hand-written
-backward kernels and plain backwards (`*_bwd_ref`) for the CPU. The kernels
-(`csrc/attn_bwd.cu`) are one wgmma design for both: a prep pass into a
-scratch of [q*scale | rel lanes | g | q | k | v] rows in 64-row tiles
-(`row_tiles`' layout, read by bulk copies), a query-parallel pass (row
-statistics, then dq and drel) and a key-parallel pass (dk, dv); the
+backward kernels and plain backwards (`*_bwd_ref`) for the CPU. The bf16
+kernels (`csrc/attn_bwd.cu`) are one wgmma design for both: a prep pass
+into a scratch of [q*scale | rel lanes | g | q | k | v] rows in 64-row
+tiles (`row_tiles`' layout, read by bulk copies), a query-parallel pass
+(row statistics, then dq and drel) and a key-parallel pass (dk, dv); the
 wrapper picks the lane width (`attn_bwd_lanes`) and hands in the scratch
 and the key code (`attn_bwd_scratch`), the C entry picks the bias path.
-The plain, edge, #10, #11, #12, #19 and #20 attention take the VJP of
-their plain version (`ops/autograd.py`), as the JAX package's do.
+Their fp32 instances (`csrc/attn_bwd_f32.cu`, train --dtype float32 on the
+card) run the same two passes on the fp32 flash loop's 64 x 64 tiles on
+the CUDA cores, with no rounding point: the query pass keeps each row's
+(max, 1/sum, t) in an fp32 scratch for the key pass, and drel is summed in
+shared memory in a fixed order (no atomics); #18's holds H + W <=
+F32_GLOBAL_BWD_MAX_LANES lanes. The plain, edge, #10, #11, #12, #19 and #20
+attention take the VJP of their plain version (`ops/autograd.py`), as the
+JAX package's do.
 """
 
 from __future__ import annotations
@@ -401,18 +407,40 @@ def _attn_bwd_launch(kernel, qkv, rel, g, BB, N, H, W, L, heads, d, scale):
     return dqkv, drel
 
 
+def _check_bwd_grad(name, g, dtype, shape):
+    _cuda.check_dtype(name, dtype, g)
+    if g.shape != shape:
+        raise ValueError(f"{name}: gradient {g.shape}, expected {shape}")
+
+
+def _attn_bwd_f32_launch(kernel, qkv, rel, g, BB, heads, *shape):
+    """The fp32 backward's outputs and its statistics scratch (each query
+    row's max, 1/sum and t, written by the query pass for the key pass)."""
+    dqkv, drel = torch.empty_like(qkv), torch.empty_like(rel)
+    stats = torch.empty((BB * heads, qkv.shape[1], 4), dtype=torch.float32, device=qkv.device)
+    kernel(qkv.data_ptr(), rel.data_ptr(), g.data_ptr(), dqkv.data_ptr(), drel.data_ptr(),
+           stats.data_ptr(), BB, *shape)
+    return dqkv, drel
+
+
 def flash_qkv_packed_windows_s_bwd(qkv, rel_s, sel32, g, scale, heads, d):
     """Backward of `flash_qkv_packed_windows_s`: the kernel for CUDA tensors
-    (TPU kernel #14), the plain backward for CPU tensors. dqkv is written in
-    qkv's packed rows, drel in rel_s's position-major layout."""
+    (TPU kernel #14; in float32 its fp32 instance), the plain backward for
+    CPU tensors. dqkv is written in qkv's packed rows, drel in rel_s's
+    position-major layout."""
     name = "flash_qkv_packed_windows_s_bwd"
     if not _cuda.use_kernel(name, qkv, rel_s, sel32, g):
         return flash_qkv_packed_windows_s_bwd_ref(qkv, rel_s, sel32, g, scale, heads, d)
-    win = _check_windows(name, qkv, rel_s, sel32, heads, d)
     BW, Nw, _ = qkv.shape
-    _cuda.check_dtype(name, torch.bfloat16, g)
-    if g.shape != (BW, heads * d, Nw):
-        raise ValueError(f"{name}: gradient {g.shape}, expected {(BW, heads * d, Nw)}")
+    if qkv.dtype == torch.float32:  # the fp32 instance (csrc/attn_bwd_f32.cu)
+        name += " (float32)"
+        win = _check_windows(name, qkv, rel_s, sel32, heads, d, dtype=torch.float32)
+        _check_f32_attention(name, d, BW, heads)
+        _check_bwd_grad(name, g, torch.float32, (BW, heads * d, Nw))
+        return _attn_bwd_f32_launch(_cuda.QKV_WINDOWS_BWD_F32, qkv, rel_s, g, BW, heads, win,
+                                    heads, d, float(scale))
+    win = _check_windows(name, qkv, rel_s, sel32, heads, d)
+    _check_bwd_grad(name, g, torch.bfloat16, (BW, heads * d, Nw))
     return _attn_bwd_launch(_cuda.QKV_WINDOWS_BWD, qkv, rel_s, g, BW, Nw, win, win, REL_LANES,
                             heads, d, scale)
 
@@ -594,20 +622,32 @@ def flash_qkv_packed_global_bwd_ref(qkv, rel, sel, g, scale, heads, d):
 
 # the backward kernels pad the rel lanes to at most 128 (`attn_bwd_lanes`)
 GLOBAL_BWD_MAX_LANES = 128
+# the fp32 backward (csrc/attn_bwd_f32.cu) holds a query tile's H + W rel
+# lanes and their drel sums in shared memory: at most this many
+F32_GLOBAL_BWD_MAX_LANES = 192
 
 
 def flash_qkv_packed_global_bwd(qkv, rel, sel, g, scale, heads, d, H, W):
     """Backward of `flash_qkv_packed_global`: the kernel for CUDA tensors
-    (TPU kernel #18), the plain backward for CPU tensors. dqkv is written in
-    qkv's packed rows, drel in rel's position-major layout."""
+    (TPU kernel #18; in float32 its fp32 instance, H + W <=
+    F32_GLOBAL_BWD_MAX_LANES), the plain backward for CPU tensors. dqkv is
+    written in qkv's packed rows, drel in rel's position-major layout."""
     name = "flash_qkv_packed_global_bwd"
     if not _cuda.use_kernel(name, qkv, rel, sel, g):
         return flash_qkv_packed_global_bwd_ref(qkv, rel, sel, g, scale, heads, d)
-    _check_global(name, qkv, rel, sel, heads, d, H, W)
     B, N, _ = qkv.shape
-    _cuda.check_dtype(name, torch.bfloat16, g)
-    if g.shape != (B, heads * d, N):
-        raise ValueError(f"{name}: gradient {g.shape}, expected {(B, heads * d, N)}")
+    if qkv.dtype == torch.float32:  # the fp32 instance (csrc/attn_bwd_f32.cu)
+        name += " (float32)"
+        _check_global(name, qkv, rel, sel, heads, d, H, W, dtype=torch.float32)
+        _check_f32_attention(name, d, B, heads)
+        _check_bwd_grad(name, g, torch.float32, (B, heads * d, N))
+        if H + W > F32_GLOBAL_BWD_MAX_LANES:
+            raise ValueError(f"{name}: CUDA kernel takes H+W <= {F32_GLOBAL_BWD_MAX_LANES} (the "
+                             f"rel lanes and drel sums it holds in shared memory), got {H + W}")
+        return _attn_bwd_f32_launch(_cuda.QKV_GLOBAL_BWD_F32, qkv, rel, g, B, heads, N, H, W,
+                                    heads, d, float(scale))
+    _check_global(name, qkv, rel, sel, heads, d, H, W)
+    _check_bwd_grad(name, g, torch.bfloat16, (B, heads * d, N))
     if H + W > GLOBAL_BWD_MAX_LANES:
         raise ValueError(f"{name}: CUDA kernel takes H+W <= {GLOBAL_BWD_MAX_LANES}, got {H + W}")
     return _attn_bwd_launch(_cuda.QKV_GLOBAL_BWD, qkv, rel, g, B, N, H, W, H + W, heads, d,

@@ -122,8 +122,12 @@ never prints its last line):
               fp32 #4/#5 at the vision width; then those on the cascade's
               path at --dtype float32 at SAM ViT-H's shapes, batch 1 and 2:
               #1 (patch embed), #3 (a global block's LN1 + mask + qkv), #13,
-              #15 and #17 (16 heads x 80); bounds against the fp32 CUDA-core
-              peak (67 TFLOP/s)
+              #15 and #17 (16 heads x 80); and the backwards of the train CLI
+              at --dtype float32: #14 and #18 at batch 2 and 1 (dqkv and
+              drel; the library time a composite: autograd.grad through fp32
+              SDPA with the bias built apart, drel from its gradient by one
+              product) and #6 at SAM's three row sets (dx only, H 5120);
+              bounds against the fp32 CUDA-core peak (67 TFLOP/s)
  13. maple_small  one MaPLe step of a small fp32 CustomClip (128 wide, 2
               heads x 64) on the card against the same step on the CPU: the
               loss, every prompt-learner gradient within 1e-4, the prompts
@@ -148,17 +152,32 @@ never prints its last line):
               bf16 cascade's gap to it on the same weights (no gate); the
               graphed and eager calls at batch 1 and 2 with the card's busy
               time and idle share
+ 16. f32_train_small  one fp32 train step of a small fused cascade (SAM 512
+              wide, 8 heads x 64, grid 24 with window 5: #13, #15, #17 and the
+              backwards #14, #18) on the card against the same step on the
+              CPU: the loss within 1e-5, every trainable gradient within
+              1e-4, exact launches of the fp32 instances, none of a bf16 one
+ 17. f32_train_slice  the train CLI at --dtype float32 --device cuda at full
+              width (batch 2, 3 steps of a synthetic split, --epoch-val 1):
+              exact launches (84 / 12 / 180 of the fp32 #14 / #18 / #6), none
+              of a bf16 kernel, TF32 off after the CLI, frozen weights
+              unchanged, step walls, `train_times`' cut, peak memory; one
+              step at depth 8 (global block 7), batch 1, card against the
+              host's CPU (loss 1e-5, gradients 1e-3); the full-depth step in
+              bf16 against fp32 on the card (no gate)
 
 Every kernel line carries its bound (the larger of its FLOP over the bf16
 tensor-core peak, the fp32 one's over the fp32 CUDA-core peak, and its bytes
 over the HBM rate, at this run's shapes) and
 the time of one PyTorch library call computing the same function where
 there is one. Before its last line the script prints one JSON object
-{"kernels": [...]} of 29 kernels (one per wrapper; `ln_mlp_residual_bt`
+{"kernels": [...]} of 31 kernels (one per wrapper; `ln_mlp_residual_bt`
 serves TPU kernels #4 and #5, and `ln_mlp_residual_bt_f32` is their fp32
 instance, with its launches from [bank]; the fp32 #2, #16, #7 and #6 with
 theirs from [maple_slice]; the fp32 #1, #3, #13, #15 and #17 with theirs
-from [f32_slice], their batch-2 times in `batch2_*` keys), each with its launches on its path, or, for
+from [f32_slice], their batch-2 times in `batch2_*` keys; the fp32 #14 and
+#18 with theirs from [f32_train_slice], at batch 2 with the batch-1 times
+in `batch1_*` keys), each with its launches on its path, or, for
 #9 and #19, which no path reaches, in their check with a "path" field
 saying so, and its times on both clocks (`ms`, `plain_ms`, `library_ms` on an
 idle card; `queued_ms`, `library_queued_ms` queued) and the host's cost of
@@ -394,7 +413,8 @@ def phase_build():
                       r"|17qkv_relpos_kernelILi80E|17qkv_relpos_kernelILi64ELi\dELi\dELb\dELb1E"
                       r"|21attn_bwd_query_kernelILi80E"
                       r"|19attn_bwd_key_kernelILi80E|20attn_bwd_prep_kernel|17attn_fullk_kernel"
-                      r"|19mlp_bwd_dual_kernel|18ln_bwd_rows_kernel)\S*)'", ln)
+                      r"|19mlp_bwd_dual_kernel|18ln_bwd_rows_kernel"
+                      r"|6f32bwd\S*?attn_bwd_f32_\w+?_kernelILi80E)\S*)'", ln)
         if m and m.group(1) not in seen:
             seen.add(m.group(1))
             usage = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
@@ -1037,11 +1057,13 @@ SAM_ATTENTION = ("ln_mask_linear_bt", "flash_qkv_packed_windows_s", "flash_qkv_p
                  "flash_qkv_packed_global")
 
 
-def check_sam_attention(counts, enc, label, backward=False):
+def check_sam_attention(counts, enc, label, backward=False, suffix=""):
     """The SAM attention kernels (and their backward kernels) of one
-    encoder pass launched exactly as the configuration's path says; the
-    small cascade's global blocks (grid 10: 100 tokens, H+W 20) take #12,
-    whose gradient is its plain version's VJP, so #17 and #18 stay idle."""
+    encoder pass launched exactly as the configuration's path says, on
+    their `suffix` instances ("_f32": the fp32 ones, 0 where there is none);
+    the small cascade's global blocks (grid 10: 100 tokens, H+W 20) take
+    #12, whose gradient is its plain version's VJP, so #17 and #18 stay
+    idle."""
     want = sam_expected(enc)
     expected = {k: want.get(k, 0) for k in SAM_ATTENTION}
     names = list(SAM_ATTENTION)
@@ -1049,8 +1071,9 @@ def check_sam_attention(counts, enc, label, backward=False):
         for k in ("flash_qkv_packed_windows_s", "flash_qkv_packed_global"):
             expected[k + "_bwd"] = want.get(k, 0)
             names.append(k + "_bwd")
-    got = {k: counts[k] for k in names}
-    log(f"[{label}] SAM attention launches {got} expected {expected}")
+    got = {k: counts.get(k + suffix, 0) for k in names}
+    log(f"[{label}] SAM attention launches{f' ({suffix} instances)' if suffix else ''} {got} "
+        f"expected {expected}")
     check(got == expected, f"{label}: SAM attention launches {got} != {expected}")
 
 
@@ -1572,14 +1595,16 @@ def trace_call(fn, label, wall_ms, kernels=False):
             f"{n} {dt(e) / 1e3:.2f} ms x {e.count}" for n, e in zip(short, ks)))
 
 
-def _check_grads(name, kfn, pfn, args, out_names, flops, reads):
+def _check_grads(name, kfn, pfn, args, out_names, flops, reads, rel_bound=KERNEL_REL_BOUND,
+                 peak_flops=PEAK_BF16_FLOPS, library=None, library_label="", tag="grads"):
     """A backward kernel against its plain backward on the same inputs:
-    per output shape, type, finite, max_rel and mean_rel within
-    KERNEL_REL_BOUND; times (kernel, plain) in ms; the bound from `flops`
+    per output shape, type, finite, max_rel and mean_rel within `rel_bound`;
+    times (kernel, plain) in ms; the bound from `flops` (over `peak_flops`)
     and the bytes of `reads` and of the outputs. No single PyTorch call
     computes these backwards (the fused MLP's dx; the attention's drel, a
-    reduction of the bias gradient over the keys of each rel lane), so
-    there is no library time."""
+    reduction of the bias gradient over the keys of each rel lane): the
+    library time is none, or that of `library`, a composite of PyTorch calls
+    for the same outputs (`library_label` says which)."""
     import torch
 
     got = kfn(*args)
@@ -1593,20 +1618,24 @@ def _check_grads(name, kfn, pfn, args, out_names, flops, reads):
               f"{name} {o}: {g.shape}/{g.dtype} vs plain {w.shape}/{w.dtype}")
         check(bool(torch.isfinite(g).all()), f"{name} {o}: non-finite")
         errs[o] = errors(g, w)
-    b = bound(flops, nbytes(*reads, *got))
+    b = bound(flops, nbytes(*reads, *got), peak_flops)
     del got, want
     k_ms, p_ms = time_ms(lambda: kfn(*args)), time_ms(lambda: pfn(*args))
     k_q = time_ms(lambda: kfn(*args), queued=True)
+    lib_ms = time_ms(library) if library is not None else None
+    lib_q = time_ms(library, queued=True) if library is not None else None
+    lib = "none" if lib_ms is None else (f"{lib_ms:.4f} ms (queued {lib_q:.4f} ms; "
+                                         f"{library_label})")
     parts = "; ".join(f"{o} max_rel {e['max_rel']:.3e} mean_rel {e['mean_rel']:.3e}"
                       for o, e in errs.items())
-    log(f"[grads] {name}: {parts} (bound {KERNEL_REL_BOUND}); kernel {k_ms:.4f} ms "
-        f"(queued {k_q:.4f} ms) plain {p_ms:.4f} ms library none bound {b['bound_ms']:.4f} ms "
+    log(f"[{tag}] {name}: {parts} (bound {rel_bound}); kernel {k_ms:.4f} ms "
+        f"(queued {k_q:.4f} ms) plain {p_ms:.4f} ms library {lib} bound {b['bound_ms']:.4f} ms "
         f"({b['bound_by']})")
     for o, e in errs.items():
-        check(e["max_rel"] < KERNEL_REL_BOUND and e["mean_rel"] < KERNEL_REL_BOUND,
+        check(e["max_rel"] < rel_bound and e["mean_rel"] < rel_bound,
               f"{name} {o} disagrees with the plain backward: {e}")
     return dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), ms=k_ms,
-                plain_ms=p_ms, library_ms=None, queued_ms=k_q, library_queued_ms=None, **b)
+                plain_ms=p_ms, library_ms=lib_ms, queued_ms=k_q, library_queued_ms=lib_q, **b)
 
 
 def phase_grads():
@@ -1737,12 +1766,60 @@ def _small_batch(cfg, B=2, seed=7):
     }
 
 
+def step_grads(m, cfg, batch, names, dev, seed=5):
+    """One train step's loss and trainable gradients (as fp32 CPU tensors)
+    of model `m` on `batch` (numpy), conditioned on the text features of
+    `names`' bank: (loss, {name: grad}, trainable params, text features,
+    the batch on `dev`). Leaves the gradients in p.grad."""
+    import torch
+    from camouflaged_vlm_tpu_torch import train
+    from camouflaged_vlm_tpu_torch.factory import make_bank_inputs
+
+    params = train.trainable_parameters(m)
+    bank = make_bank_inputs(cfg, names, seed=seed, device=dev)
+    with torch.no_grad():
+        tf = m.encode_class_text_features(bank["prefix"], bank["suffix"], bank["eot_indices"],
+                                          bank["bank_features"])
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    for p in m.parameters():
+        p.grad = None
+    masks, edges = m.forward_with_text(tb["inp"], tb["clip_image"], tb["clip_mask"], tf)
+    loss, _ = train.segmentation_loss(masks, edges, tb["gt"])
+    loss.backward()
+    grads = {n: (p.grad.float().cpu() if p.grad is not None else torch.zeros(p.shape))
+             for n, p in m.named_parameters() if p.requires_grad}
+    return loss.item(), grads, params, tf, tb
+
+
+def grad_gaps(label, g_ref, g_other, floor_share=TRAIN_SMALL_GRAD_FLOOR):
+    """Per trainable leaf |g_other - g_ref| / max(|g_ref|, floor_share * the
+    largest leaf's |g_ref|) (L2 norms); a leaf whose reference gradient is
+    exactly zero must be zero in g_other. Returns ({leaf: gap}, floor)."""
+    floor = floor_share * max(float(w.norm()) for w in g_ref.values())
+    rels = {}
+    for n, w in g_ref.items():
+        nw = float(w.norm())
+        d = float((g_other[n] - w).norm())
+        if nw == 0.0:
+            check(d == 0.0, f"{label}: {n} has a gradient on one side only")
+            continue
+        rels[n] = d / max(nw, floor)
+    return rels, floor
+
+
+def describe_gaps(rels, floor, floor_share=TRAIN_SMALL_GRAD_FLOOR):
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+    return (f"{len(rels)} trainable gradients, |d|/|g| median {np.median(list(rels.values())):.3e}, "
+            f"worst {[(n, float(f'{v:.4g}')) for n, v in worst]} (floor {floor_share} of the "
+            f"largest leaf norm {floor / floor_share:.3e})")
+
+
 def phase_train_small():
     """One train step of the small 'flash' cascade, bf16 on the card vs fp32
     on the CPU, same weights and batch; then the loss over 4 steps."""
     import torch
     from camouflaged_vlm_tpu_torch import train
-    from camouflaged_vlm_tpu_torch.factory import build_cascade, make_bank_inputs
+    from camouflaged_vlm_tpu_torch.factory import build_cascade
     from camouflaged_vlm_tpu_torch.ops import _cuda
 
     cpu_cfg, gpu_cfg = _small_config(torch.float32), _small_config(torch.bfloat16)
@@ -1751,41 +1828,18 @@ def phase_train_small():
     model.load_state_dict(ref.state_dict(), strict=True)
     batch = _small_batch(cpu_cfg)
     names = ["cat", "owl", "bat", "moth", "slug"]
-    out = []
     _cuda.reset_launches()  # the CPU pass launches nothing
-    for m, cfg, dev in ((ref, cpu_cfg, "cpu"), (model, gpu_cfg, "cuda")):
-        params = train.trainable_parameters(m)
-        bank = make_bank_inputs(cfg, names, seed=5, device=dev)
-        tf = m.encode_class_text_features(bank["prefix"], bank["suffix"], bank["eot_indices"],
-                                          bank["bank_features"])
-        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        masks, edges = m.forward_with_text(tb["inp"], tb["clip_image"], tb["clip_mask"], tf)
-        loss, _ = train.segmentation_loss(masks, edges, tb["gt"])
-        loss.backward()
-        grads = {n: (p.grad.float().cpu() if p.grad is not None else torch.zeros(p.shape))
-                 for n, p in m.named_parameters() if p.requires_grad}
-        out.append((loss.item(), grads, params, tf, tb))
+    l_ref, g_ref, _, _, _ = step_grads(ref, cpu_cfg, batch, names, "cpu")
+    l_gpu, g_gpu, params, tf, tb = step_grads(model, gpu_cfg, batch, names, "cuda")
     check_sam_attention(_cuda.launch_counts(), gpu_cfg.encoder, "train_small", backward=True)
-    (l_ref, g_ref, _, _, _), (l_gpu, g_gpu, params, tf, tb) = out
     dl = abs(l_gpu - l_ref) / abs(l_ref)
-    rels = {}
-    floor = TRAIN_SMALL_GRAD_FLOOR * max(float(w.norm()) for w in g_ref.values())
-    for n, w in g_ref.items():
-        nw = float(w.norm())
-        d = float((g_gpu[n] - w).norm())
-        if nw == 0.0:
-            check(d == 0.0, f"train_small: {n} has a gradient on the card only")
-            continue
-        rels[n] = d / max(nw, floor)
-    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+    rels, floor = grad_gaps("train_small", g_ref, g_gpu)
     log(f"[train_small] SAM 'flash' {gpu_cfg.encoder.num_heads} heads, grid "
         f"{gpu_cfg.encoder.grid}, window {gpu_cfg.encoder.window_size}; bf16 card vs fp32 CPU: "
         f"loss {l_gpu:.6f} vs {l_ref:.6f} (rel {dl:.3e}, bound {TRAIN_SMALL_LOSS_REL_BOUND}); "
-        f"{len(rels)} trainable gradients, |d|/|g| median {np.median(list(rels.values())):.3e}, "
-        f"worst {[(n, round(v, 4)) for n, v in worst]} (bound {TRAIN_SMALL_GRAD_REL_BOUND}, "
-        f"floor {TRAIN_SMALL_GRAD_FLOOR} of the largest leaf norm {floor / TRAIN_SMALL_GRAD_FLOOR:.3e})")
+        f"{describe_gaps(rels, floor)} (bound {TRAIN_SMALL_GRAD_REL_BOUND})")
     check(dl < TRAIN_SMALL_LOSS_REL_BOUND, f"train_small: loss differs by {dl}")
-    check(max(rels.values()) < TRAIN_SMALL_GRAD_REL_BOUND, f"train_small: gradients {worst}")
+    check(max(rels.values()) < TRAIN_SMALL_GRAD_REL_BOUND, f"train_small: gradients {rels}")
 
     opt = train.make_optimizer(params)
     step = train.make_train_step(model, opt, train.cosine_epoch_schedule(2e-4, 20, 1))
@@ -1916,9 +1970,10 @@ def phase_train_val():
     torch.cuda.empty_cache()
 
 
-def train_times(run, iters=3):
+def train_times(run, iters=3, label="train_times"):
     """One train step at batch 2 cut into forward+loss, backward and the
-    AdamW update (CUDA events), median of `iters` after a warm-up."""
+    AdamW update (CUDA events), median of `iters` after a warm-up; returns
+    the three medians (ms)."""
     import torch
     from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES  # the 61 test classes
     from camouflaged_vlm_tpu_torch import train
@@ -1948,16 +2003,17 @@ def train_times(run, iters=3):
         if it:  # the first step warms up
             rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
     med = np.median(np.array(rows), axis=0)
-    log(f"[train_times] batch 2 (median of {iters}, ms): forward + loss {med[0]:.2f}; "
+    log(f"[{label}] batch 2 (median of {iters}, ms): forward + loss {med[0]:.2f}; "
         f"backward {med[1]:.2f}; optimizer {med[2]:.2f}; sum {med.sum():.2f}")
     # the backward alone under the profiler (its graph kept for the second
     # pass trace_call makes): the card's busy time against the backward's wall
     masks, edges = model.forward_with_text(batch["inp"], batch["clip_image"], batch["clip_mask"],
                                            tf)
     loss, _ = train.segmentation_loss(masks, edges, batch["gt"])
-    trace_call(lambda: loss.backward(retain_graph=True), " train backward batch 2", med[1],
-               kernels=True)
+    trace_call(lambda: loss.backward(retain_graph=True),
+               " " + label.replace("_times", "") + " backward batch 2", med[1], kernels=True)
     opt.zero_grad(set_to_none=True)
+    return med
 
 
 def phase_unfused():
@@ -2607,14 +2663,17 @@ def phase_f32_kernels():
             del xm, args, gy, ga, be, w1, b1, w2, b2
         torch.cuda.empty_cache()
         out.update(sam_f32_kernels(rn))
+    out.update(sam_f32_grads(rn))
     torch.cuda.empty_cache()
     return out
 
 
 # the fp32 instances of SAM's kernels, whose launches the kernels line takes
-# from [f32_slice] (the other fp32 instances' from [bank] and [maple_slice])
+# from [f32_slice], and of its attention backwards, from [f32_train_slice]
+# (the other fp32 instances' from [bank] and [maple_slice])
 SAM_F32 = ("linear_act_f32", "ln_mask_linear_bt_f32", "flash_qkv_packed_windows_s_f32",
            "flash_qkv_packed_edge_f32", "flash_qkv_packed_global_f32")
+SAM_F32_BWD = ("flash_qkv_packed_windows_s_bwd_f32", "flash_qkv_packed_global_bwd_f32")
 
 
 def sam_f32_kernels(rn):
@@ -2712,6 +2771,107 @@ def sam_f32_kernels(rn):
                     "ms", "queued_ms", "plain_ms", "library_ms", "bound_ms")})
             torch.cuda.empty_cache()
     check(tuple(out) == SAM_F32, f"sam_f32_kernels: {tuple(out)}")
+    return out
+
+
+def sdpa_bwd_composite(qkv, relh, sel, g, scale, heads, d):
+    """A library yardstick for the attention backward in fp32: a zero-argument
+    call of torch.autograd.grad through fp32 SDPA (its forward graph kept,
+    built outside the timed call) with respect to q, k, v and the bias, built
+    apart as a (..., N, N) tensor that requires grad (rel @ sel), then drel
+    from the bias gradient by one product against sel. A composite of
+    PyTorch calls, not one call: its bias gradient alone is N / (H + W) times
+    drel's size."""
+    import torch
+
+    BB, N, _ = qkv.shape
+    r = qkv.reshape(BB, N, 3, heads, d)
+    q, k, v = (r[:, :, i].transpose(1, 2).contiguous().requires_grad_(True) for i in range(3))
+    bias = torch.matmul(relh, sel).requires_grad_(True)
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
+    go = g.reshape(BB, heads, d, N).transpose(-1, -2)
+
+    def run():
+        grads = torch.autograd.grad(out, (q, k, v, bias), go, retain_graph=True)
+        return torch.matmul(grads[3], sel.t())
+
+    return run
+
+
+def sam_f32_grads(rn):
+    """The fp32 backwards on the train CLI's path at --dtype float32 (SAM
+    ViT-H at 1024 px; `rn` draws fp32) against their plain fp32 backwards
+    within 1e-4, TF32 off: #14 and #18 at batch 2 and 1 (dqkv and drel),
+    each with its bound against the fp32 CUDA-core peak and
+    `sdpa_bwd_composite` as the library time (the kernels line holds batch
+    2, the train slice's, with the batch-1 times beside it); then #6 at
+    SAM's three row sets at batch 2 (dx only, K 1280, H 5120)."""
+    import torch
+    from camouflaged_vlm_tpu_torch.models import CascadeConfig
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+    from camouflaged_vlm_tpu_torch.ops.compact_window import CompactGeometry
+
+    f32, dev = torch.float32, torch.device("cuda")
+    D, HD, NH, G, WIN = 1280, 80, 16, 64, 14
+    S, N, scale = WIN * WIN, G * G, HD ** -0.5
+    geom = CompactGeometry(G, G, WIN)
+    sel32, sel_g = fa.make_rel_scatter32(WIN, f32, dev), fa.make_rel_scatter(G, G, f32, dev)
+    src, rep = "camouflaged_vlm_tpu_torch/csrc/attn_bwd_f32.cu", "camouflaged_vlm_tpu/ops/"
+    label = "composite: autograd.grad through fp32 SDPA, bias built apart, drel = dbias . sel^T"
+
+    def cases(B):
+        """(name, replaces, shape, kernel fn, plain fn, args, FLOP, the
+        rel lanes per (problem, head, query), sel) at batch B"""
+        BW = B * geom.n_full
+        args = (rn(BW, S, 3 * D), rn(S, BW, NH * 32), sel32, rn(BW, D, S, std=0.05), scale, NH,
+                HD)
+        yield ("flash_qkv_packed_windows_s_bwd_f32", "flash_attention.py:617",
+               f"qkv {BW}x{S}x{3 * D}", fa.flash_qkv_packed_windows_s_bwd,
+               fa.flash_qkv_packed_windows_s_bwd_ref, args, 10.0 * BW * NH * S * S * HD,
+               args[1].reshape(S, BW, NH, 32).permute(1, 2, 0, 3), sel32)
+        args = (rn(B, N, 3 * D), rn(N, B, NH, 2 * G), sel_g, rn(B, D, N, std=0.05), scale, NH,
+                HD, G, G)
+        yield ("flash_qkv_packed_global_bwd_f32", "flash_attention.py:1173",
+               f"qkv {B}x{N}x{3 * D}", fa.flash_qkv_packed_global_bwd,
+               lambda *a: fa.flash_qkv_packed_global_bwd_ref(*a[:7]), args,
+               10.0 * B * NH * N * N * HD, args[1].permute(1, 2, 0, 3), sel_g)
+
+    out = {}
+    for B in (2, 1):
+        for name, replaces, shape, kfn, pfn, args, flops, relh, sel in cases(B):
+            # five N^2 d products a (problem, head): the scores, dP, dv, dq, dk
+            r = _check_grads(f"{name} (SAM ViT-H {shape}, batch {B}, fp32, TF32 off)", kfn, pfn,
+                             args, ["dqkv", "drel"], flops, reads=(args[0], args[1], args[3]),
+                             rel_bound=F32_REL_BOUND, peak_flops=PEAK_F32_FLOPS,
+                             library=sdpa_bwd_composite(args[0], relh, sel, args[3], scale, NH,
+                                                        HD),
+                             library_label=label, tag="kernel")
+            if B == 2:
+                out[name] = dict(source=src, replaces=rep + replaces, **r)
+            else:
+                out[name].update({f"batch1_{k}": r[k] for k in (
+                    "ms", "queued_ms", "plain_ms", "library_ms", "bound_ms")})
+            del args, relh
+            torch.cuda.empty_cache()
+    enc = CascadeConfig.full().encoder
+    act = "gelu_tanh" if enc.gelu_approximate else "gelu"
+    for site, rows in (("global", (2, N)), ("windows", (2 * geom.n_full, S)),
+                       ("edge", (2, geom.E))):
+        M = rows[0] * rows[1]
+        args = (rn(*rows, D), 1 + rn(D, std=0.1), rn(D, std=0.1), rn(4 * D, D, std=0.02),
+                rn(4 * D, std=0.02), rn(D, 4 * D, std=0.02), rn(D, std=0.02), rn(*rows, D))
+        # dx needs the hidden again (x . W1^T), dh = g . W2 and dx = dpre . W1
+        _check_kernel(
+            f"ln_mlp_residual_bt_bwd_f32 (SAM {site} {rows[0]}x{rows[1]}x{D}, H {4 * D}, dx "
+            "only, fp32, TF32 off)",
+            lambda *a: lin.ln_mlp_residual_bt_bwd(*a, eps=1e-6, activation=act, weights=False)[0],
+            lambda *a: lin.ln_mlp_residual_bt_bwd_ref(*a, eps=1e-6, activation=act,
+                                                      weights=False)[0],
+            args, flops=6.0 * M * D * 4 * D, reads=args[:6] + (args[7],),
+            rel_bound=F32_REL_BOUND, peak_flops=PEAK_F32_FLOPS)
+        del args
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3128,6 +3288,235 @@ def phase_f32_slice():
     return counts
 
 
+# fp32 train steps, card against CPU on the same weights and batch: both
+# fp32 with TF32 off, apart only in the order of fp32 sums (~1e-7 relative a
+# product). The small cascade: the loss within 1e-5 and each trainable leaf's
+# gradient within 1e-4 (grad_gaps' floor rule), as the MaPLe step's; the
+# full-width one at depth 8 (8 blocks of 1280, the decoder, CLIP's 24 layers
+# in the forward), where the sums grow longer: gradients within 1e-3. A
+# wrong backward (a dropped bias or drel lane, a wrong statistic) moves a
+# gradient by 1e-2 and more.
+F32_TRAIN_LOSS_REL_BOUND = 1e-5
+F32_TRAIN_SMALL_GRAD_REL_BOUND = 1e-4
+F32_TRAIN_FULL_GRAD_REL_BOUND = 1e-3
+
+
+def _small_f32_config():
+    """A small fused cascade whose every kernel has an fp32 instance
+    (`_small_config`'s SAM, 8 heads x 16 on a grid of 10, runs its global
+    blocks on #12 and heads of 16: no fp32 route on the card): SAM 'flash'
+    512 wide (8 heads x 64) at 384 px, grid 24 with window 5: interior and
+    edge windows on the compact carry (#13, #15; backward #14), global
+    blocks of 576 tokens (#17; backward #18, H + W = 48); CLIP 128 wide (2
+    heads x 64), fp32 throughout."""
+    import dataclasses
+
+    import torch
+    from camouflaged_vlm_tpu_torch.models import CascadeConfig, SamEncoderConfig
+    from camouflaged_vlm_tpu_torch.models.clip import AlphaClipConfig
+
+    f32 = torch.float32
+    clip = AlphaClipConfig.tiny(dtype=f32, vision_width=128, vision_heads=2,
+                                transformer_width=128)
+    enc = SamEncoderConfig.tiny(dtype=f32, attn_impl="flash", img_size=384, embed_dim=512,
+                                num_heads=8, window_size=5, prompt_scale_factor=32)
+    return dataclasses.replace(CascadeConfig.tiny(dtype=f32), inp_size=enc.img_size,
+                               encoder=enc, clip=clip)
+
+
+def check_no_bf16_kernel(counts, label):
+    bf16 = {k: n for k, n in counts.items() if n and not k.endswith("_f32")}
+    check(not bf16, f"{label}: bf16 kernels launched in an fp32 run: {bf16}")
+
+
+def phase_f32_train_small():
+    """One fp32 train step of a small fused cascade on the card against the
+    same step on the CPU (same weights, bank and batch): the loss and every
+    trainable gradient; the SAM attention and its backward on their fp32
+    instances (#13, #15, #17; #14, #18), exact launches, no bf16 kernel."""
+    import torch
+    from camouflaged_vlm_tpu_torch.factory import build_cascade
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    cfg = _small_f32_config()
+    ref = build_cascade(cfg, "cpu", seed=5)
+    model = build_cascade(cfg, "cuda", seed=5)
+    model.load_state_dict(ref.state_dict(), strict=True)
+    batch = _small_batch(cfg)
+    names = ["cat", "owl", "bat", "moth", "slug"]
+    _cuda.reset_launches()  # the CPU step launches nothing
+    l_ref, g_ref, _, _, _ = step_grads(ref, cfg, batch, names, "cpu")
+    l_gpu, g_gpu, _, _, _ = step_grads(model, cfg, batch, names, "cuda")
+    counts = _cuda.launch_counts()
+    check_sam_attention(counts, cfg.encoder, "f32_train_small", backward=True, suffix="_f32")
+    expected = f32_expected(expected_launches(cfg, 1, clip_passes=1, backward=True))
+    check(counts == expected, f"f32_train_small: launches {counts} != {expected}")
+    check_no_bf16_kernel(counts, "f32_train_small")
+    dl = abs(l_gpu - l_ref) / abs(l_ref)
+    rels, floor = grad_gaps("f32_train_small", g_ref, g_gpu)
+    log(f"[f32_train_small] SAM 'flash' {cfg.encoder.embed_dim} wide, "
+        f"{cfg.encoder.num_heads} heads x {cfg.encoder.embed_dim // cfg.encoder.num_heads}, grid "
+        f"{cfg.encoder.grid}, window {cfg.encoder.window_size}; fp32 card vs fp32 CPU: loss "
+        f"{l_gpu:.8f} vs {l_ref:.8f} (rel {dl:.3e}, bound {F32_TRAIN_LOSS_REL_BOUND}); "
+        f"{describe_gaps(rels, floor)} (bound {F32_TRAIN_SMALL_GRAD_REL_BOUND}); launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    check(dl < F32_TRAIN_LOSS_REL_BOUND, f"f32_train_small: loss differs by {dl}")
+    check(max(rels.values()) < F32_TRAIN_SMALL_GRAD_REL_BOUND,
+          f"f32_train_small: gradients {rels}")
+    del ref, model
+    torch.cuda.empty_cache()
+
+
+def phase_f32_train_slice():
+    """The train CLI at --dtype float32 --device cuda at full width (the
+    reference configuration): one epoch of 6 synthetic images at batch 2 (3
+    steps) with --epoch-val 1, so that validation runs at fp32 too; exact
+    launches of the fp32 instances and none of a bf16 kernel, TF32 off after
+    the CLI, frozen weights unchanged and trainable ones moved, step walls,
+    the step cut by `train_times`, peak memory. Then one fp32 step of a
+    full-width model at depth 8 (global block 7) on the card against the
+    same step on the CPU, and the full-depth step in bf16 against fp32 on
+    the card (a measurement, no gate). Returns the CLI run's launch counts."""
+    import dataclasses
+
+    import torch
+    from camouflaged_vlm_tpu_torch.cli import train as train_cli
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.data.synthetic import write_synthetic_ovcamo
+    from camouflaged_vlm_tpu_torch.factory import build_cascade, build_full_cascade
+    from camouflaged_vlm_tpu_torch.models import CascadeConfig
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+    from camouflaged_vlm_tpu_torch.train.optim import is_trainable
+
+    work = os.path.join("build", "chip_smoke_train_f32")
+    shutil.rmtree(work, ignore_errors=True)
+    # train classes that are not test classes, so that validation reads only
+    # the test split's images
+    info = write_synthetic_ovcamo(os.path.join(work, "ovcamo_synthetic"), n_train=6,
+                                  n_test=2, seed=0, train_classes=("owl", "frog", "gecko"),
+                                  test_classes=tuple(TEST_CLASS_NAMES))
+    save_dir = os.path.join(work, "save")
+    before, _ = build_full_cascade(torch.float32, "cuda", seed=0)
+    start = {k: v.cpu() for k, v in before.state_dict().items()}  # off the card's peak
+    del before
+    torch.backends.cuda.matmul.allow_tf32 = True  # the CLI must turn both off
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        run = train_cli.main(["--dataset-info", info, "--save-dir", save_dir, "--device",
+                              "cuda", "--dtype", "float32", "--epochs", "1", "--batch-size", "2",
+                              "--epoch-val", "1", "--seed", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        counts = _cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(tf32 == (False, False), f"f32_train_slice: the train CLI left TF32 on: {tf32}")
+        model, steps, vals = run["model"], run["step"], run["validations"]
+        cfg = model.cfg
+        check(cfg.encoder.dtype == cfg.decoder.dtype == cfg.clip.dtype == torch.float32
+              and cfg.encoder.embed_dim == 1280 and cfg.encoder.depth == 32,
+              f"f32_train_slice: not the reference configuration in fp32: {cfg.encoder}")
+        check(steps == 3, f"f32_train_slice: {steps} steps, expected 3")
+        metrics = run["epochs"][0]
+        check(all(np.isfinite(v) for v in metrics.values()), f"f32_train_slice: loss {metrics}")
+        check([v["epoch"] for v in vals] == [1] and vals[0]["images"] == 2
+              and all(np.isfinite(v) for v in vals[0].values()),
+              f"f32_train_slice: validations {vals}")
+        check(os.path.exists(os.path.join(save_dir, "ckpt_best.pt")),
+              "f32_train_slice: no ckpt_best.pt")
+        os.makedirs(OUT_DIR, exist_ok=True)
+        shutil.copy(os.path.join(save_dir, "log.txt"), os.path.join(OUT_DIR, "train_f32_log.txt"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    after = model.state_dict()
+    frozen_moved = [k for k, v in start.items() if not is_trainable(k)
+                    and not torch.equal(v, after[k].cpu())]
+    trainable_keys = [k for k in start if is_trainable(k)]
+    moved = [k for k in trainable_keys if not torch.equal(start[k], after[k].cpu())]
+    del start, after
+    log(f"[f32_train_slice] train CLI --dtype float32 --device cuda: {steps} steps at batch 2, "
+        f"losses {metrics}; [val epoch 1] mae {vals[0]['mae']}; TF32 (matmul, cuDNN) after it "
+        f"{tf32}; trainable tensors moved {len(moved)}/{len(trainable_keys)}; frozen tensors "
+        f"changed {len(frozen_moved)}")
+    check(not frozen_moved, f"f32_train_slice: frozen weights changed: {frozen_moved[:5]}")
+    check(len(moved) >= 0.9 * len(trainable_keys), "f32_train_slice: trainable weights did not move")
+    # 3 steps (the text tower once, one CLIP pass, SAM's backward), then
+    # evaluate(): the text tower again, a warm-up call and 2 calls at batch 1
+    expected = expected_launches(cfg, steps, clip_passes=1, backward=True)
+    for k, n in expected_launches(cfg, 3).items():
+        expected[k] += n
+    expected = f32_expected(expected)
+    log(f"[f32_train_slice] kernel launches {({k: v for k, v in counts.items() if v})} expected "
+        f"{({k: v for k, v in expected.items() if v})}")
+    check(counts == expected, f"f32_train_slice: launches {counts} != {expected}")
+    check_no_bf16_kernel(counts, "f32_train_slice")
+    st = run["step_seconds"]
+    log(f"[f32_train_slice] step wall times (s) {[round(x, 4) for x in st]}; median after the "
+        f"first {np.median(st[1:]) * 1000:.1f} ms; CLI wall {wall:.1f} s (the build, the text "
+        f"tower, 3 steps, 2 checkpoints, validation); peak device memory {peak:.2f} GiB "
+        "(torch.cuda.max_memory_allocated)")
+    train_times(run, label="f32_train_times")
+    run["optimizer"].zero_grad(set_to_none=True)
+    del run
+    torch.cuda.empty_cache()
+
+    # depth 8 (the 7 windowed blocks and global block 7: #14 and #18 both on
+    # the path), full width, batch 1: the card against the card host's CPU
+    cfg8 = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, depth=8,
+                                                                global_attn_indexes=(7,)))
+    batch = _small_batch(cfg8, B=1)
+    cpu8 = build_cascade(cfg8, "cpu", seed=3)
+    gpu8 = build_cascade(cfg8, "cuda", seed=3)
+    gpu8.load_state_dict(cpu8.state_dict(), strict=True)
+    _cuda.reset_launches()
+    l_gpu, g_gpu, _, _, _ = step_grads(gpu8, cfg8, batch, TEST_CLASS_NAMES, "cuda")
+    torch.cuda.synchronize()
+    counts8 = _cuda.launch_counts()
+    t0 = time.perf_counter()
+    l_cpu, g_cpu, _, _, _ = step_grads(cpu8, cfg8, batch, TEST_CLASS_NAMES, "cpu")
+    t_cpu = time.perf_counter() - t0
+    del cpu8, gpu8
+    want8 = f32_expected(expected_launches(cfg8, 1, clip_passes=1, backward=True))
+    check(counts8 == want8, f"f32_train_slice depth 8: launches {counts8} != {want8}")
+    dl = abs(l_gpu - l_cpu) / abs(l_cpu)
+    rels, floor = grad_gaps("f32_train_slice depth 8", g_cpu, g_gpu)
+    log(f"[f32_train_slice] one fp32 step at full width, depth 8 (global block 7), batch 1, card "
+        f"vs the card host's CPU ({torch.get_num_threads()} threads; plain versions) on the same "
+        f"weights: loss {l_gpu:.8f} vs {l_cpu:.8f} (rel {dl:.3e}, bound "
+        f"{F32_TRAIN_LOSS_REL_BOUND}); {describe_gaps(rels, floor)} (bound "
+        f"{F32_TRAIN_FULL_GRAD_REL_BOUND}); the CPU's step {t_cpu:.1f} s")
+    check(dl < F32_TRAIN_LOSS_REL_BOUND, f"f32_train_slice depth 8: loss differs by {dl}")
+    check(max(rels.values()) < F32_TRAIN_FULL_GRAD_REL_BOUND,
+          f"f32_train_slice depth 8: gradients {rels}")
+    del g_gpu, g_cpu
+    torch.cuda.empty_cache()
+
+    # full depth, batch 1: the bf16 step against the fp32 one on the card,
+    # the same weights (how far bf16's roundings carry into the gradients)
+    batch = _small_batch(cfg, B=1)
+    model32 = build_cascade(cfg, "cuda", seed=4)
+    l32, g32, _, _, _ = step_grads(model32, cfg, batch, TEST_CLASS_NAMES, "cuda")
+    bcfg = CascadeConfig.full(dtype=torch.bfloat16)
+    model16 = build_cascade(bcfg, "cuda", seed=4)
+    model16.load_state_dict(model32.state_dict(), strict=True)
+    del model32
+    l16, g16, _, _, _ = step_grads(model16, bcfg, batch, TEST_CLASS_NAMES, "cuda")
+    del model16
+    check(np.isfinite(l16) and all(bool(torch.isfinite(g).all()) for g in g16.values()),
+          "f32_train_slice: the bf16 step is not finite")
+    rels, floor = grad_gaps("f32_train_slice bf16 vs fp32", g32, g16)
+    log(f"[f32_train_slice] one step at full width and depth, batch 1, bf16 against fp32 on the "
+        f"card, the same weights (no gate): loss {l16:.6f} vs {l32:.6f} (rel "
+        f"{abs(l16 - l32) / abs(l32):.3e}); {describe_gaps(rels, floor)}")
+    del g32, g16
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     if os.path.exists(LOG_FILE):
         os.remove(LOG_FILE)
@@ -3170,6 +3559,8 @@ def main() -> None:
     timed(phase_maple_small)
     maple_counts = timed(phase_maple_slice)
     f32_counts = timed(phase_f32_slice)
+    timed(phase_f32_train_small)
+    f32_train_counts = timed(phase_f32_train_slice)
     import torch
 
     # launches: each kernel's count in the run of its own main path (the
@@ -3184,7 +3575,8 @@ def main() -> None:
                 "flash_qkv_relpos_windows": ev["vit_h_flash_win17"]["flash_qkv_relpos_windows"],
                 "proj_from_heads_res": ev["vit_h_flash_win17"]["proj_from_heads_res"],
                 "ln_mlp_residual_bt_f32": f32_launches,
-                **{k: (f32_counts if k in SAM_F32 else maple_counts)[k] for k in f32}}
+                **{k: (f32_counts if k in SAM_F32 else f32_train_counts if k in SAM_F32_BWD
+                       else maple_counts)[k] for k in f32}}
     kernels = [
         {"name": k, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": r["launches"] if k in NO_PATH else launches[k],
@@ -3193,11 +3585,11 @@ def main() -> None:
          "queued_ms": r["queued_ms"], "library_queued_ms": r["library_queued_ms"],
          "host_us": r.get("host_us"),
          **({"gemm_library_ms": r["gemm_library_ms"]} if "gemm_library_ms" in r else {}),
-         **{k2: v for k2, v in r.items() if k2.startswith("batch2_")},
+         **{k2: v for k2, v in r.items() if k2.startswith(("batch2_", "batch1_"))},
          **({"path": r["path"]} if k in NO_PATH else {})}
         for res in (results, grads, f32) for k, r in res.items()
     ]
-    check(len(kernels) == 29 and all(e["launches"] > 0 for e in kernels)
+    check(len(kernels) == 31 and all(e["launches"] > 0 for e in kernels)
           and all(launches[e["name"]] == 0 for e in kernels if e["name"] in NO_PATH),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     log("[device] name and power limit (nvidia-smi) of the card all numbers above ran on:")

@@ -1,5 +1,6 @@
 """The attention backward kernels' algorithm (`csrc/attn_bwd.cu`, TPU kernels
-#14 and #18) and the host-side planning around them, on the CPU.
+#14 and #18, and their fp32 instances, `csrc/attn_bwd_f32.cu`) and the
+host-side planning around them, on the CPU.
 
 The kernels run only on the card; here their algorithm is emulated in torch,
 in the working types: the query pass's online row statistics over 64-key
@@ -14,6 +15,12 @@ differ), and to the port's plain backward, which the card holds the kernels
 to. No rounding point moves against the plain backward: the emulation
 rounds where it rounds. The W = 64 drel rule is held equal to dS . sel^T.
 The wrapper's scratch (lane width, tiles, sizes) is checked here too.
+
+In float32 the fp32 instances' algorithm is emulated the same way (online
+row statistics over 64-key tiles in natural units, P and dS rebuilt from
+them, drel summed tile by tile) with no rounding point, and held to the JAX
+package's fp32 VJP and to the port's plain fp32 backward within 1e-5: only
+the order of fp32 sums differs.
 """
 
 import numpy as np
@@ -31,6 +38,7 @@ from camouflaged_vlm_tpu_torch.ops.compact_window import REL_LANES  # noqa: E402
 
 LOG2E = 1.4426950408889634
 GATE = 1e-2  # the card's kernel gate (chip_smoke.KERNEL_REL_BOUND)
+F32_GATE = 1e-5  # fp32 against fp32: summation order alone
 BF = torch.bfloat16
 
 
@@ -96,60 +104,135 @@ def kernel_bwd_emulation(qkv, rel, g, scale, heads, d, H, W):
     return dqkv, drel.permute(2, 0, 1, 3).to(BF)
 
 
+def kernel_bwd_emulation_f32(qkv, rel, g, scale, heads, d, H, W):
+    """csrc/attn_bwd_f32.cu's backward in torch, all fp32: qkv (BB, N, 3
+    heads d), rel (N, BB, heads, L), g (BB, heads d, N) -> (dqkv, drel). The
+    query pass's sweep 1 keeps each row's max, sum and t = sum exp(s - m) dP
+    online over 64-key tiles (natural units, keys past N absent), t /= sum;
+    P = exp(s - m) / sum and dS = P (dP - t) are rebuilt per tile for dq,
+    drel (the tile's sums per lane, added tile after tile, lanes past H + W
+    zero) and the key pass's dk and dv."""
+    BB, N, _ = qkv.shape
+    L = rel.shape[-1]
+    r = qkv.reshape(BB, N, 3, heads, d)
+    q, k, v = (r[:, :, i].transpose(1, 2) for i in range(3))  # (BB, heads, N, d)
+    qs = q * scale
+    relh = rel.permute(1, 2, 0, 3)  # (BB, heads, N, L)
+    gr = g.reshape(BB, heads, d, N).transpose(-1, -2)
+    code = fa.make_rel_scatter(H, W).T  # (N, H + W): key k's lanes k // W and H + k % W
+    tiles = [slice(t, min(t + fa.ATTN_BWD_TILE, N)) for t in range(0, N, fa.ATTN_BWD_TILE)]
+
+    def scores(ks):  # biased scores against key slice ks, and dP
+        s = qs @ k[..., ks, :].transpose(-1, -2) + relh[..., :H + W] @ code[ks].T
+        return s, gr @ v[..., ks, :].transpose(-1, -2)
+
+    m = torch.full((BB, heads, N), -float("inf"))
+    l, t = torch.zeros(BB, heads, N), torch.zeros(BB, heads, N)
+    for ks in tiles:
+        s, dp = scores(ks)
+        mn = torch.maximum(m, s.amax(-1))
+        corr, p = torch.exp(m - mn), torch.exp(s - mn[..., None])
+        l, t, m = l * corr + p.sum(-1), t * corr + (p * dp).sum(-1), mn
+    inv = 1.0 / l
+    t = t * inv
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(q), torch.zeros_like(q)
+    drel = torch.zeros(BB, heads, N, L)
+    for ks in tiles:
+        s, dp = scores(ks)
+        p = torch.exp(s - m[..., None]) * inv[..., None]
+        ds = p * (dp - t[..., None])
+        dq += ds @ k[..., ks, :]
+        drel[..., :H + W] += ds @ code[ks]
+        dv[..., ks, :] = p.transpose(-1, -2) @ gr
+        dk[..., ks, :] = ds.transpose(-1, -2) @ q
+
+    def rows(a):
+        return a.transpose(1, 2).reshape(BB, N, heads * d)
+
+    dqkv = torch.cat([rows(dq * scale), rows(dk * scale), rows(dv)], -1)
+    return dqkv, drel.permute(2, 0, 1, 3)
+
+
+def _draw(rng, dtype, *shape, scale=1.0):
+    a = (scale * rng.standard_normal(shape)).astype(np.float32)
+    return a.astype(jnp.bfloat16) if dtype == BF else a
+
+
 def _bf16(rng, *shape, scale=1.0):
-    return (scale * rng.standard_normal(shape)).astype(np.float32).astype(jnp.bfloat16)
+    return _draw(rng, BF, *shape, scale=scale)
 
 
-def _t(a):
-    return torch.from_numpy(np.asarray(a, np.float32)).to(BF)
+def _t(a, dtype=BF):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
 
 
-def _check(got, want, port):
+def _check(got, want, port, gate=GATE):
     for gt, wt, pt in zip(got, want, port):
         assert gt.shape == tuple(wt.shape) == pt.shape
         for ref in (np.asarray(wt, np.float32), pt.float().numpy()):
             max_rel, mean_rel = rel_err(gt.float().numpy(), ref)
-            assert max_rel < GATE and mean_rel < GATE, (max_rel, mean_rel)
+            assert max_rel < gate and mean_rel < gate, (max_rel, mean_rel)
 
 
-@pytest.mark.parametrize("win", [9, 14])
-def test_windows_bwd_emulation_matches_jax_vjp(rng, win):
-    """#14's shapes at 81 keys (a ragged second tile) and ViT-H's 196 (four
-    tiles), narrow: 2 windows, 2 heads x 16."""
+F32 = torch.float32
+JNP = {BF: jnp.bfloat16, F32: jnp.float32}
+
+
+def _emulate(dtype, *args):
+    """The kernel's algorithm in `dtype`: csrc/attn_bwd.cu's in bf16, its fp32
+    instance's in float32."""
+    return (kernel_bwd_emulation if dtype == BF else kernel_bwd_emulation_f32)(*args)
+
+
+@pytest.mark.parametrize("win,dtype", [pytest.param(9, BF, id="9"), pytest.param(14, BF, id="14"),
+                                       pytest.param(9, F32, id="9-float32"),
+                                       pytest.param(14, F32, id="14-float32")])
+def test_windows_bwd_emulation_matches_jax_vjp(rng, win, dtype):
+    """#14's shapes at 81 keys (a ragged second tile; in fp32 18 live lanes of
+    32, the others' drel exactly zero) and ViT-H's 196 (four tiles, the last
+    of 4 keys), narrow: 2 windows, 2 heads x 16."""
     BW, heads, d = 2, 2, 16
     S = win * win
-    qkv, rel = _bf16(rng, BW, S, 3 * heads * d), _bf16(rng, S, BW, heads * REL_LANES, scale=0.5)
-    gy = _bf16(rng, BW, heads * d, S)
+    qkv = _draw(rng, dtype, BW, S, 3 * heads * d)
+    rel = _draw(rng, dtype, S, BW, heads * REL_LANES, scale=0.5)
+    gy = _draw(rng, dtype, BW, heads * d, S)
     sel32 = fa.make_rel_scatter32(win)
     scale = d ** -0.5
     _, pull = jax.vjp(lambda a, b: j_fa.flash_qkv_packed_windows_s(
-        a, b, jnp.asarray(sel32.numpy(), jnp.bfloat16), scale, heads, d), qkv, rel)
+        a, b, jnp.asarray(sel32.numpy(), JNP[dtype]), scale, heads, d), qkv, rel)
     want = pull(jnp.asarray(gy))
-    args = (_t(qkv), _t(rel))
-    got = kernel_bwd_emulation(args[0], args[1].reshape(S, BW, heads, REL_LANES), _t(gy),
-                               scale, heads, d, win, win)
+    args = (_t(qkv, dtype), _t(rel, dtype))
+    got = _emulate(dtype, args[0], args[1].reshape(S, BW, heads, REL_LANES), _t(gy, dtype),
+                   scale, heads, d, win, win)
     got = (got[0], got[1].reshape(S, BW, heads * REL_LANES))
-    port = fa.flash_qkv_packed_windows_s_bwd_ref(*args, sel32.to(BF), _t(gy), scale, heads, d)
-    _check(got, want, port)
+    port = fa.flash_qkv_packed_windows_s_bwd_ref(*args, sel32.to(dtype), _t(gy, dtype), scale,
+                                                 heads, d)
+    if dtype == F32:
+        assert not got[1].reshape(S, BW, heads, REL_LANES)[..., 2 * win:].any()
+    _check(got, want, port, GATE if dtype == BF else F32_GATE)
 
 
-@pytest.mark.parametrize("H,W", [(2, 64), (10, 10)])
-def test_global_bwd_emulation_matches_jax_vjp(rng, H, W):
+@pytest.mark.parametrize("H,W,dtype", [pytest.param(2, 64, BF, id="2-64"),
+                                       pytest.param(10, 10, BF, id="10-10"),
+                                       pytest.param(2, 64, F32, id="2-64-float32"),
+                                       pytest.param(10, 10, F32, id="10-10-float32")])
+def test_global_bwd_emulation_matches_jax_vjp(rng, H, W, dtype):
     """#18 on a 2 x 64 grid (the register path's rule: a 64-key tile is a grid
     row) and on 10 x 10 (the general path, 20 lanes, a ragged tile)."""
     B, heads, d = 1, 2, 16
     N = H * W
-    qkv, rel = _bf16(rng, B, N, 3 * heads * d), _bf16(rng, N, B, heads, H + W, scale=0.5)
-    gy = _bf16(rng, B, heads * d, N)
+    qkv = _draw(rng, dtype, B, N, 3 * heads * d)
+    rel = _draw(rng, dtype, N, B, heads, H + W, scale=0.5)
+    gy = _draw(rng, dtype, B, heads * d, N)
     sel = fa.make_rel_scatter(H, W)
     scale = d ** -0.5
     _, pull = jax.vjp(lambda a, b: j_fa.flash_qkv_packed_global(
-        a, b, jnp.asarray(sel.numpy(), jnp.bfloat16), scale, heads, d, H, W), qkv, rel)
+        a, b, jnp.asarray(sel.numpy(), JNP[dtype]), scale, heads, d, H, W), qkv, rel)
     want = pull(jnp.asarray(gy))
-    got = kernel_bwd_emulation(_t(qkv), _t(rel), _t(gy), scale, heads, d, H, W)
-    port = fa.flash_qkv_packed_global_bwd_ref(_t(qkv), _t(rel), sel.to(BF), _t(gy), scale,
-                                              heads, d)
-    _check(got, want, port)
+    got = _emulate(dtype, _t(qkv, dtype), _t(rel, dtype), _t(gy, dtype), scale, heads, d, H, W)
+    port = fa.flash_qkv_packed_global_bwd_ref(_t(qkv, dtype), _t(rel, dtype), sel.to(dtype),
+                                              _t(gy, dtype), scale, heads, d)
+    _check(got, want, port, GATE if dtype == BF else F32_GATE)
 
 
 @pytest.mark.parametrize("H", [1, 3, 64])

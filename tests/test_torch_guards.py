@@ -149,8 +149,8 @@ def test_demo_session_predicts_a_batch_on_cpu(image_path):
 
 # (CLI, configuration, the kernels the guard names at --dtype float32 on the
 # card): the reference configuration (CascadeConfig.full, no --config or
-# --tiny) has every fp32 instance its inference routes launch; training it
-# needs the attention backwards; the other routes' kernels have none yet
+# --tiny) has every fp32 instance its routes launch, the train CLI's
+# backwards (#6, #14, #18) included; the other routes' kernels have none yet
 REF = "reference"
 GUARD_CASES = [
     pytest.param("demo", REF, [], id="demo"),
@@ -158,8 +158,7 @@ GUARD_CASES = [
     pytest.param("serve", REF, [], id="serve"),
     pytest.param("bench", REF, [], id="bench"),
     pytest.param("serve_throughput", REF, [], id="serve_throughput"),
-    pytest.param("train", REF, ["#14 flash_qkv_packed_windows_s_bwd",
-                                "#18 flash_qkv_packed_global_bwd"], id="train"),
+    pytest.param("train", REF, [], id="train"),
     pytest.param("demo", "tiny", ["#10 flash_attention_relpos"], id="demo-tiny"),
     pytest.param("bench", "tiny", ["#10 flash_attention_relpos"], id="bench-tiny"),
     pytest.param("serve_throughput", "tiny", ["#10 flash_attention_relpos"],
@@ -170,8 +169,7 @@ GUARD_CASES = [
     pytest.param("evaluate", "win16", ["#12 flash_qkv_packed_windows"], id="evaluate-win16"),
     pytest.param("evaluate", "win17", ["#8 proj_from_heads_res", "#11 flash_qkv_relpos_windows"],
                  id="evaluate-win17"),
-    pytest.param("train", "win16", ["#12 flash_qkv_packed_windows",
-                                    "#18 flash_qkv_packed_global_bwd"], id="train-win16"),
+    pytest.param("train", "win16", ["#12 flash_qkv_packed_windows"], id="train-win16"),
 ]
 VIT_H_YAML = "configs/ovcos-sam-vit-h-maskdecoder-edge.yaml"
 VIT_B_YAML = "camouflaged_vlm_tpu_torch/configs/ovcos-sam-vit-b-maskdecoder-edge.yaml"
@@ -264,8 +262,8 @@ def test_fp32_guard_holds_to_the_routes(kernel_names):
     grid 24 with window 5: interior and edge windows, global blocks of 576
     tokens on #17) in fp32 on the CPU calls exactly the guard's kernels,
     each with an fp32 instance, so the guard passes it; with a backward it
-    adds #6, #14 and #18, and the guard for the train CLI names #14 and
-    #18."""
+    adds #6, #14 and #18, each with an fp32 instance too, so the guard
+    passes the train CLI as well."""
     from camouflaged_vlm_tpu_torch.cli.common import cascade_kernels, fp32_missing_kernels
     from camouflaged_vlm_tpu_torch.factory import make_bank_inputs
     from camouflaged_vlm_tpu_torch.ops import _cuda
@@ -289,9 +287,43 @@ def test_fp32_guard_holds_to_the_routes(kernel_names):
     y, interm = model.image_encoder(torch.from_numpy(rng.standard_normal((1, 384, 384, 3),
                                                                         dtype=np.float32)))
     (y.sum() + sum(t.sum() for t in interm)).backward()
-    missing = fp32_missing_kernels(cfg, training=True)
-    assert missing == ["#14 flash_qkv_packed_windows_s_bwd", "#18 flash_qkv_packed_global_bwd"]
-    assert {m.split()[1] for m in missing} | {"ln_mlp_residual_bt_bwd"} <= kernel_names
+    assert fp32_missing_kernels(cfg, training=True) == []
+    backward = {"ln_mlp_residual_bt_bwd", "flash_qkv_packed_windows_s_bwd",
+                "flash_qkv_packed_global_bwd"}
+    assert set(cascade_kernels(cfg, training=True)) - set(cascade_kernels(cfg)) == backward
+    assert backward <= kernel_names
+    assert all(_cuda.has_f32_instance(k) for k in backward)
+
+
+def test_train_cli_turns_tf32_off_in_float32_on_the_card(monkeypatch, tmp_path):
+    """The train CLI at --dtype float32 on the card turns TF32 off
+    (`common.exact_fp32_on_card`) right after its device check, before it
+    builds or reads anything, so the plain-VJP backwards' matmuls, the
+    decoder and the neck's convolutions run full fp32 as the kernels do."""
+    from camouflaged_vlm_tpu_torch.cli import common, train
+
+    class Stop(Exception):
+        pass
+
+    calls = []
+
+    def record(device, cfg):
+        common.exact_fp32_on_card(device, cfg)
+        calls.append((device, cfg.encoder.dtype, cfg.decoder.dtype, cfg.clip.dtype))
+        raise Stop
+
+    monkeypatch.setattr(train, "exact_fp32_on_card", record)
+    monkeypatch.setattr(train, "device_or_raise", torch.device)  # a host without a card too
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    info = tmp_path / "dataset_info.yaml"
+    info.write_text("{}")
+    with pytest.raises(Stop):
+        train.main(["--dataset-info", str(info), "--save-dir", str(tmp_path / "out"),
+                    "--device", "cuda", "--dtype", "float32"])
+    assert calls == [("cuda", torch.float32, torch.float32, torch.float32)]
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    assert not (tmp_path / "out").exists()
 
 
 @pytest.mark.parametrize("enc,missing", [

@@ -350,12 +350,15 @@ def test_flash_qkv_packed_global_kernel_float32(gen, no_tf32, B, H, W, heads, d)
 @pytest.mark.parametrize("weights", [False, True])
 @pytest.mark.parametrize("tile", [128, 64])
 @pytest.mark.parametrize("B,S,K,H", [(8, 581, 1024, 4096), (14, 77, 768, 3072), (2, 37, 200, 264),
-                                     (1, 7, 96, 136)])
+                                     (1, 7, 96, 136), (2, 1008, 1280, 5120),
+                                     (2, 4096, 1280, 5120)])
 def test_ln_mlp_residual_bt_bwd_kernel_float32(gen, monkeypatch, no_tf32, weights, tile, B, S, K,
                                                 H):
     """#6's fp32 instance at MaPLe's two sites (vision: batch 8 x 581 rows,
-    K 1024, H 4096; text: 14 classes x 77 tokens, K 768, H 3072) and ragged
-    ones; each tile; with and without the weight side."""
+    K 1024, H 4096; text: 14 classes x 77 tokens, K 768, H 3072), at SAM
+    ViT-H's (K 1280, H 5120: the edge windows' 2 x 1008 rows, and the global
+    blocks' 2 x 4096, whose hidden walks row panels) and ragged ones; each
+    tile; with and without the weight side."""
     monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
     f32 = torch.float32
     args = (rn(gen, B, S, K, dtype=f32), 1 + rn(gen, K, std=0.1, dtype=f32),
@@ -709,18 +712,69 @@ def test_flash_qkv_packed_global_bwd_kernel(gen, B, H, W, heads, d):
     _grad_close(got, flash_attention.flash_qkv_packed_global_bwd_ref(*args[:7]))
 
 
-def _windows_bwd_args(gen, BW, win, heads, d):
+def _windows_bwd_args(gen, BW, win, heads, d, dtype=torch.bfloat16):
     S = win * win
-    return (rn(gen, BW, S, 3 * heads * d), rn(gen, S, BW, heads * 32),
-            flash_attention.make_rel_scatter32(win, torch.bfloat16, torch.device("cuda")),
-            rn(gen, BW, heads * d, S, std=0.05), d ** -0.5, heads, d)
+    return (rn(gen, BW, S, 3 * heads * d, dtype=dtype), rn(gen, S, BW, heads * 32, dtype=dtype),
+            flash_attention.make_rel_scatter32(win, dtype, torch.device("cuda")),
+            rn(gen, BW, heads * d, S, std=0.05, dtype=dtype), d ** -0.5, heads, d)
 
 
-def _global_bwd_args(gen, B, H, W, heads, d):
+def _global_bwd_args(gen, B, H, W, heads, d, dtype=torch.bfloat16):
     N = H * W
-    return (rn(gen, B, N, 3 * heads * d), rn(gen, N, B, heads, H + W),
-            flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda")),
-            rn(gen, B, heads * d, N, std=0.05), d ** -0.5, heads, d, H, W)
+    return (rn(gen, B, N, 3 * heads * d, dtype=dtype), rn(gen, N, B, heads, H + W, dtype=dtype),
+            flash_attention.make_rel_scatter(H, W, dtype, torch.device("cuda")),
+            rn(gen, B, heads * d, N, std=0.05, dtype=dtype), d ** -0.5, heads, d, H, W)
+
+
+@pytest.mark.parametrize("BW,win,heads,d", [(32, 14, 16, 80), (16, 14, 16, 80), (3, 4, 2, 64),
+                                            (2, 9, 2, 80), (2, 14, 2, 64), (1, 16, 2, 80),
+                                            (2, 16, 1, 64)])
+def test_flash_qkv_packed_windows_s_bwd_kernel_float32(gen, no_tf32, BW, win, heads, d):
+    """#14's fp32 instance at ViT-H's shapes (32 and 16 windows of 14, 16
+    heads x 80) and ragged ones: windows of 4 (16 keys, one short tile), 9
+    (81: a ragged second tile, 18 live lanes), 14 (196: a last tile of 4)
+    and 16, d 64 and 80; dqkv and drel within 1e-4 of the plain fp32
+    backward, the dead lanes exactly 0; one launch of the fp32 instance,
+    none of the bf16 kernel."""
+    args = _windows_bwd_args(gen, BW, win, heads, d, dtype=torch.float32)
+    before = (_cuda.QKV_WINDOWS_BWD_F32.launches, _cuda.QKV_WINDOWS_BWD.launches)
+    got = flash_attention.flash_qkv_packed_windows_s_bwd(*args)
+    assert (_cuda.QKV_WINDOWS_BWD_F32.launches, _cuda.QKV_WINDOWS_BWD.launches) == (
+        before[0] + 1, before[1])
+    for gt, wt in zip(got, flash_attention.flash_qkv_packed_windows_s_bwd_ref(*args)):
+        assert_close_f32(gt, wt)
+    assert not got[1].reshape(win * win, BW, heads, 32)[..., 2 * win:].any()
+
+
+@pytest.mark.parametrize("B,H,W,heads,d", [(1, 64, 64, 16, 80), (2, 64, 64, 2, 80),
+                                           (2, 64, 64, 1, 64), (1, 10, 10, 2, 64),
+                                           (2, 10, 10, 2, 80), (2, 8, 64, 2, 80),
+                                           (1, 8, 64, 1, 64), (1, 5, 20, 2, 80)])
+def test_flash_qkv_packed_global_bwd_kernel_float32(gen, no_tf32, B, H, W, heads, d):
+    """#18's fp32 instance on ViT-H's 64 x 64 grid (batch 1 at full width,
+    16 heads x 80) and on 10 x 10 (a ragged tile), 8 x 64 and 5 x 20, d 64
+    and 80; within 1e-4 of the plain fp32 backward, the fp32 count up by
+    one and the bf16 count unchanged."""
+    args = _global_bwd_args(gen, B, H, W, heads, d, dtype=torch.float32)
+    before = (_cuda.QKV_GLOBAL_BWD_F32.launches, _cuda.QKV_GLOBAL_BWD.launches)
+    got = flash_attention.flash_qkv_packed_global_bwd(*args)
+    assert (_cuda.QKV_GLOBAL_BWD_F32.launches, _cuda.QKV_GLOBAL_BWD.launches) == (
+        before[0] + 1, before[1])
+    for gt, wt in zip(got, flash_attention.flash_qkv_packed_global_bwd_ref(*args[:7])):
+        assert_close_f32(gt, wt)
+
+
+def test_flash_qkv_packed_global_bwd_float32_lane_limit(gen, no_tf32):
+    """The fp32 #18 holds H + W <= F32_GLOBAL_BWD_MAX_LANES lanes: at the
+    limit it runs, one past it it refuses, naming the limit."""
+    limit = flash_attention.F32_GLOBAL_BWD_MAX_LANES
+    args = _global_bwd_args(gen, 1, 2, limit - 2, 1, 64, dtype=torch.float32)
+    for gt, wt in zip(flash_attention.flash_qkv_packed_global_bwd(*args),
+                      flash_attention.flash_qkv_packed_global_bwd_ref(*args[:7])):
+        assert_close_f32(gt, wt)
+    args = _global_bwd_args(gen, 1, 2, limit - 1, 1, 64, dtype=torch.float32)
+    with pytest.raises(ValueError, match=f"H\\+W <= {limit}"):
+        flash_attention.flash_qkv_packed_global_bwd(*args)
 
 
 def test_attention_bwd_kernels_at_vit_h_width(gen):
@@ -748,6 +802,20 @@ def test_attention_bwd_kernels_are_deterministic(gen):
             assert torch.equal(a, b)
 
 
+def test_attention_bwd_kernels_float32_are_deterministic(gen):
+    """The fp32 instances have no atomics either: drel's sums in a fixed
+    order, so two calls give bit-equal dqkv and drel."""
+    f32 = torch.float32
+    for fn, args in ((flash_attention.flash_qkv_packed_windows_s_bwd,
+                      _windows_bwd_args(gen, 8, 14, 4, 80, dtype=f32)),
+                     (flash_attention.flash_qkv_packed_global_bwd,
+                      _global_bwd_args(gen, 2, 64, 64, 2, 80, dtype=f32))):
+        first = fn(*args)
+        second = fn(*args)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("H,W,heads,d,path", [
     (4, 64, 2, 80, "register"), (3, 64, 3, 64, "register"), (2, 64, 1, 128, "register"),
     (4, 60, 2, 80, "general"), (3, 63, 3, 64, "general"), (2, 62, 1, 128, "general")])
@@ -764,31 +832,49 @@ def test_flash_qkv_packed_global_bwd_paths(gen, H, W, heads, d, path):
     _grad_close(got, flash_attention.flash_qkv_packed_global_bwd_ref(*args[:7]))
 
 
-def test_attention_functions_launch_the_backward_kernels(gen):
-    """A gradient through the wrappers runs the backward kernel once and
-    equals the plain backward's."""
-    heads, d, win, H, W = 2, 32, 5, 6, 10
+def _grads_through_the_wrappers(gen, dtype, heads, d, kernels, close):
+    """A gradient through the windows and the global attention wrappers in
+    `dtype`: each runs its backward kernel (`kernels`) once and equals the
+    plain backward's (`close`)."""
+    win, H, W, cuda = 5, 6, 10, torch.device("cuda")
     cases = [
         (flash_attention.flash_qkv_packed_windows_s,
-         flash_attention.flash_qkv_packed_windows_s_bwd_ref, _cuda.QKV_WINDOWS_BWD,
-         (rn(gen, 3, win * win, 3 * heads * d), rn(gen, win * win, 3, heads * 32),
-          flash_attention.make_rel_scatter32(win, torch.bfloat16, torch.device("cuda"))),
-         (d ** -0.5, heads, d), ()),
+         flash_attention.flash_qkv_packed_windows_s_bwd_ref, kernels[0],
+         (rn(gen, 3, win * win, 3 * heads * d, dtype=dtype),
+          rn(gen, win * win, 3, heads * 32, dtype=dtype),
+          flash_attention.make_rel_scatter32(win, dtype, cuda)), (d ** -0.5, heads, d), ()),
         (flash_attention.flash_qkv_packed_global,
-         flash_attention.flash_qkv_packed_global_bwd_ref, _cuda.QKV_GLOBAL_BWD,
-         (rn(gen, 1, H * W, 3 * heads * d), rn(gen, H * W, 1, heads, H + W),
-          flash_attention.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda"))),
-         (d ** -0.5, heads, d), (H, W)),
+         flash_attention.flash_qkv_packed_global_bwd_ref, kernels[1],
+         (rn(gen, 1, H * W, 3 * heads * d, dtype=dtype), rn(gen, H * W, 1, heads, H + W,
+                                                             dtype=dtype),
+          flash_attention.make_rel_scatter(H, W, dtype, cuda)), (d ** -0.5, heads, d), (H, W)),
     ]
     for fn, bwd_ref, kernel, (qkv, rel, sel), static, hw in cases:
         qkv.requires_grad_(True)
         rel.requires_grad_(True)
         before = kernel.launches
         out = fn(qkv, rel, sel, *static, *hw)
-        g = rn(gen, *out.shape)
+        g = rn(gen, *out.shape, dtype=dtype)
         got = torch.autograd.grad(out, (qkv, rel), g)
         assert kernel.launches == before + 1
-        _grad_close(got, bwd_ref(qkv.detach(), rel.detach(), sel, g, *static))
+        for gt, wt in zip(got, bwd_ref(qkv.detach(), rel.detach(), sel, g.contiguous(),
+                                       *static)):
+            close(gt, wt)
+
+
+def test_attention_functions_launch_the_backward_kernels(gen):
+    """A gradient through the wrappers runs the backward kernel once and
+    equals the plain backward's."""
+    _grads_through_the_wrappers(gen, torch.bfloat16, 2, 32,
+                                (_cuda.QKV_WINDOWS_BWD, _cuda.QKV_GLOBAL_BWD), assert_close)
+
+
+def test_attention_functions_launch_the_float32_backward_kernels(gen, no_tf32):
+    """In float32 (train --dtype float32) the same gradients run the fp32
+    instances once each, within 1e-4 of the plain fp32 backward."""
+    _grads_through_the_wrappers(gen, torch.float32, 2, 64,
+                                (_cuda.QKV_WINDOWS_BWD_F32, _cuda.QKV_GLOBAL_BWD_F32),
+                                assert_close_f32)
 
 
 # ------------------------------------- split q, k, v attention (#10, #20)
