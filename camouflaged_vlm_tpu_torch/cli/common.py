@@ -115,7 +115,9 @@ def cascade_kernels(cfg: CascadeConfig, training: bool = False) -> List[str]:
 
 def fp32_missing_kernels(cfg: CascadeConfig, training: bool = False) -> List[str]:
     """The kernels this configuration's routes launch (`cascade_kernels`)
-    that have no fp32 instance yet (ROADMAP.md Queue 2), as "#N name"."""
+    that have no fp32 instance, as "#N name". Every kernel of every route
+    has one (#1-#20), so this is [] for every configuration of the repo; it
+    stays the net for a kernel added without one."""
     return [f"{TPU_KERNEL[k]} {k}" for k in cascade_kernels(cfg, training)
             if not _cuda.has_f32_instance(k)]
 
@@ -129,11 +131,13 @@ def refuse_fp32_on_card(device: str, cfg: CascadeConfig, training: bool = False)
     """Raise at once, before the build, when the cascade would run in fp32
     on a card through a kernel with no fp32 instance (`fp32_missing_kernels`
     of this configuration, with the backward kernels for the train CLI),
-    naming those kernels; no path falls back to the plain versions. The
-    reference configuration has every fp32 instance its routes launch (#1,
-    #2, #3, #4/#5, #7, #13, #15, #16, #17, and the backwards #6, #14 and
-    #18), so demo, evaluate, serve, serve_throughput, bench and train run it
-    at fp32 on the card."""
+    naming those kernels; no path falls back to the plain versions. Every
+    route of the repo's configurations has its fp32 instances (the
+    reference's #1, #2, #3, #4/#5, #7, #13, #15, #16, #17; SAM ViT-B's
+    unfused #10; 'aug_flash' #20; the padded carry's #12, and #11 + #8 at
+    windows of 17 and more; the backwards #6, #14 and #18), so demo,
+    evaluate, serve, serve_throughput, bench and train run each at fp32 on
+    the card; this stays the net for a kernel added without one."""
     if not _fp32_on_card(device, cfg):
         return
     missing = fp32_missing_kernels(cfg, training)

@@ -2,6 +2,7 @@
 
   python camouflaged_vlm_tpu_torch/cli/kernel_timing.py [--root DIR] [--label NAME]
                                                       [--padded-calls]
+                                                      [--f32-attention [--against FILE]]
 
 Imports `camouflaged_vlm_tpu_torch` from the checkout at --root (default:
 this one), builds its kernels there, and times each case of `cases()`
@@ -39,7 +40,13 @@ in one call when their runs alternate (parent, change, change, parent).
 With --padded-calls it times, instead of the kernels, the checkout's
 window-16, window-17 and ViT-B cascade calls by stage and traces one
 batch-2 call of each (`padded_calls`): the card's busy time that #12, #11 +
-#8 and #10 move.
+#8 and #10 move. With --f32-attention it runs, instead, the checkout's fp32
+instances on csrc/attn_f32.cuh's loop at chip_smoke.py [f32_kernels]'
+shapes (`f32_attention_cases`: #16 at MaPLe's, #13, #15 and #17 at SAM
+ViT-H's at batch 1 and 2, the backwards #14 and #18 at batch 2) on seeded
+inputs, one JSON line each with the SHA-256 of its output bytes and its
+idle-card time; --against FILE (another checkout's lines) adds whether each
+output is bit-equal to that checkout's.
 """
 
 from __future__ import annotations
@@ -402,6 +409,90 @@ def padded_carry_cases(rn):
     return out
 
 
+def f32_attention_cases(rn):
+    """(name, site, zero-argument call) of the fp32 instances on
+    csrc/attn_f32.cuh's loop, inputs drawn in a fixed order from `rn`
+    (fp32)."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+    from camouflaged_vlm_tpu_torch.ops.compact_window import (
+        LPAD_LANE, NEG, CompactGeometry, edge_consts,
+    )
+
+    f32, dev = torch.float32, torch.device("cuda")
+    NH, HD, G, WIN = 16, 80, 64, 14
+    sc = HD ** -0.5
+    geom = CompactGeometry(G, G, WIN)
+    nf, ne, R = geom.n_full, geom.n_edge, geom.R_u
+    sel32, sel_g = fa.make_rel_scatter32(WIN, f32, dev), fa.make_rel_scatter(G, G, f32, dev)
+    sel_e, kmask_e = edge_consts(geom, f32, dev)
+    qkv = rn(8, 581, 3 * 1024)
+    out = [("flash_qkv_packed_plain_f32", "MaPLe 8x581, 16 heads x 64",
+            lambda: fa.flash_qkv_packed_plain(qkv, 64 ** -0.5, 16, 64))]
+    for B in (1, 2):
+        qw, rw = rn(B * nf, WIN * WIN, 3 * NH * HD), rn(WIN * WIN, B * nf, NH * 32)
+        out.append(("flash_qkv_packed_windows_s_f32", f"SAM ViT-H batch {B}",
+                    lambda a=(qw, rw): fa.flash_qkv_packed_windows_s(*a, sel32, sc, NH, HD)))
+        rel = rn(B, ne, R, NH, 32)
+        off = 0
+        for grp in geom.edge_groups:  # dummy rows' pad-key logit, as the encoder clamps it
+            rel[:, off:off + grp.n, grp.rows:, :, LPAD_LANE] = NEG
+            off += grp.n
+        ea = (rn(B, ne, R, 3 * NH * HD), rel.reshape(B, ne, R, NH * 32), sel_e,
+              rn(NH, HD, std=0.5), kmask_e)
+        out.append(("flash_qkv_packed_edge_f32", f"SAM ViT-H batch {B}",
+                    lambda a=ea: fa.flash_qkv_packed_edge(*a, sc, NH, HD)))
+        qg, rg = rn(B, G * G, 3 * NH * HD), rn(G * G, B, NH, 2 * G)
+        out.append(("flash_qkv_packed_global_f32", f"SAM ViT-H batch {B}",
+                    lambda a=(qg, rg): fa.flash_qkv_packed_global(*a, sel_g, sc, NH, HD, G, G)))
+    B = 2
+    qw, rw, gw = rn(B * nf, WIN * WIN, 3 * NH * HD), rn(WIN * WIN, B * nf, NH * 32), \
+        rn(B * nf, NH * HD, WIN * WIN)
+    out.append(("flash_qkv_packed_windows_s_bwd_f32", "SAM ViT-H batch 2",
+                lambda: fa.flash_qkv_packed_windows_s_bwd(qw, rw, sel32, gw, sc, NH, HD)))
+    qg, rg, gg = rn(B, G * G, 3 * NH * HD), rn(G * G, B, NH, 2 * G), rn(B, NH * HD, G * G)
+    out.append(("flash_qkv_packed_global_bwd_f32", "SAM ViT-H batch 2",
+                lambda: fa.flash_qkv_packed_global_bwd(qg, rg, sel_g, gg, sc, NH, HD, G, G)))
+    return out
+
+
+def f32_attention(smoke, label, against):
+    """One JSON line per `f32_attention_cases` case: the SHA-256 of its
+    outputs' bytes and its idle-card median time (`chip_smoke.time_ms`);
+    with `against` (a JSONL file of another checkout's lines), whether the
+    outputs are bit-equal to that checkout's."""
+    import hashlib
+
+    import torch
+
+    other = {}
+    if against:
+        with open(against) as f:
+            for ln in f:
+                rec = json.loads(ln)
+                if "sha256" in rec:
+                    other[(rec["name"], rec["site"])] = rec["sha256"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        for name, site, call in f32_attention_cases(rn):
+            got = call()
+            torch.cuda.synchronize()
+            h = hashlib.sha256()
+            for t in (got if isinstance(got, tuple) else (got,)):
+                h.update(t.contiguous().cpu().numpy().tobytes())
+            rec = dict(label=label, name=name, site=site, sha256=h.hexdigest(),
+                       ms=smoke.time_ms(call))
+            if against:
+                rec["bit_equal_to"] = {against: other.get((name, site)) == rec["sha256"]}
+            print(json.dumps(rec), flush=True)
+            del got
+
+
 def padded_calls(smoke, label):
     """The repo's ViT-H yaml at windows 16 (#12) and 17 (#11 + #8), and the
     port's ViT-B yaml (unfused 'flash', #10): the cascade call cut into
@@ -425,6 +516,10 @@ def main() -> None:
     ap.add_argument("--padded-calls", action="store_true",
                     help="time the window-16, window-17 and ViT-B cascade calls instead of "
                     "the kernels")
+    ap.add_argument("--f32-attention", action="store_true",
+                    help="hash and time the fp32 instances on csrc/attn_f32.cuh instead")
+    ap.add_argument("--against", default=None,
+                    help="with --f32-attention: another checkout's JSON lines to compare with")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -447,6 +542,9 @@ def main() -> None:
           flush=True)
     if args.padded_calls:
         padded_calls(smoke, label)
+        return
+    if args.f32_attention:
+        f32_attention(smoke, label, args.against)
         return
 
     g = torch.Generator(device="cuda").manual_seed(0)

@@ -36,11 +36,10 @@ extern "C" int cvlm_qkv_packed_global_f32(const void* qkv, const void* rel, void
   using namespace cvlm::f32attn;
   if (H < 1 || W < 1 || H * W != N || H + W > MAX_LANES) return (int)cudaErrorInvalidValue;
   AttnArgs a{};
-  a.qkv = static_cast<const float*>(qkv);
-  a.out = static_cast<float*>(out);
   a.S = N;
-  a.ldo = ldo;
   a.heads = heads;
+  set_packed(a, static_cast<const float*>(qkv), a.S, heads, d);
+  set_dmajor(a, static_cast<float*>(out), heads, d, ldo);
   a.scale = scale;
   a.rel = static_cast<const float*>(rel);
   a.lph = H + W;

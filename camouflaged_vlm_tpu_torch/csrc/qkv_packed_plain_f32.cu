@@ -27,11 +27,10 @@ extern "C" int cvlm_qkv_packed_plain_f32(const void* qkv, void* out, int B, int 
                                          int heads, int d, float scale, void* stream) {
   using namespace cvlm::f32attn;
   AttnArgs a{};
-  a.qkv = static_cast<const float*>(qkv);
-  a.out = static_cast<float*>(out);
   a.S = S;
-  a.ldo = ldo;
   a.heads = heads;
+  set_packed(a, static_cast<const float*>(qkv), a.S, heads, d);
+  set_dmajor(a, static_cast<float*>(out), heads, d, ldo);
   a.scale = scale;
   return dispatch_attn<BIAS_NONE>(a, d, B, static_cast<cudaStream_t>(stream));
 }

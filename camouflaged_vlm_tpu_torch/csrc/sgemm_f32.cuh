@@ -35,7 +35,7 @@ constexpr int THREADS = 256;
 constexpr int BK = 16;
 constexpr int PAD = 4;  // keeps the transposed stores at 2-way bank conflicts, rows 16-byte aligned
 
-enum Layout { K_MAJOR = 0, MN_MAJOR = 1 };
+enum Layout { K_MAJOR = 0, MN_MAJOR = 1, K_HEADS = 2 };
 // EPI_ACT: act(acc + bias), bias optional; EPI_RES: acc + bias + res;
 // EPI_DACT (the MLP backward's dh): pre = acc + bias, C = act'(pre) * res
 // (res may be C itself: each element is read, then written, by one
@@ -160,7 +160,7 @@ struct TileLoader {
     for (int i = 0; i < H; ++i) {
       const int idx = threadIdx.x + i * THREADS;
       int r, k;
-      if (LAYOUT == K_MAJOR) {  // 4 float4s along k a row
+      if (LAYOUT != MN_MAJOR) {  // 4 float4s along k a row
         r = idx / 4;
         k = k0 + (idx % 4) * 4;
       } else {  // 16 H float4s along r a k row
@@ -168,7 +168,10 @@ struct TileLoader {
         r = (idx % (16 * H)) * 4;
       }
       const bool in = r0 + r < R && k < K;
-      const size_t off = LAYOUT == K_MAJOR ? (size_t)(r0 + r) * ld + k : (size_t)k * ld + r0 + r;
+      const size_t off = LAYOUT == K_MAJOR    ? (size_t)(r0 + r) * ld + k
+                         : LAYOUT == MN_MAJOR ? (size_t)k * ld + r0 + r
+                                              : (size_t)(k / ld) * R * ld + (size_t)(r0 + r) * ld +
+                                                    k % ld;
       v[i] = in ? *reinterpret_cast<const float4*>(P + off) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
@@ -177,7 +180,7 @@ struct TileLoader {
 #pragma unroll
     for (int i = 0; i < H; ++i) {
       const int idx = threadIdx.x + i * THREADS;
-      if (LAYOUT == K_MAJOR) {
+      if (LAYOUT != MN_MAJOR) {
         const int r = idx / 4, k = (idx % 4) * 4;
         T[k][r] = v[i].x;
         T[k + 1][r] = v[i].y;

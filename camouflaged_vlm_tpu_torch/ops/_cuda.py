@@ -246,13 +246,48 @@ QKV_RELPOS_GLOBAL = CudaKernel("flash_qkv_relpos_global", "cvlm_qkv_relpos", _QK
 _PROJ_HEADS_ARGS = [P, P, P, P, P, I, I, I, I, I, I, I]
 PROJ_HEADS_RES = CudaKernel("proj_from_heads_res", "cvlm_proj_from_heads", _PROJ_HEADS_ARGS)
 PROJ_HEADS = CudaKernel("proj_from_heads", "cvlm_proj_from_heads", _PROJ_HEADS_ARGS)
+# Their fp32 instances, the routes of the other configurations at --dtype
+# float32 (SAM ViT-B's unfused 'flash', 'aug_flash', the padded carry at
+# windows 15-16 and >= 17): the fp32 flash loop of csrc/attn_f32.cuh with the
+# loop's strides handed in (the P argument after the output: a `layouts`
+# array, ops/flash_attention.py f32_split_layout / f32_packed_layout) for
+# #10, #11 and #19 (csrc/qkv_relpos_f32.cu, one C entry over split or packed
+# rows), #12 (csrc/qkv_windows_f32.cu) and #20 (csrc/attn_fullk_f32.cu); and
+# the tiled FFMA product with a head-leading A for #8 and #9
+# (csrc/proj_rows_f32.cu, arguments from ops/linear.py
+# proj_heads_f32_layout). Each has its own count.
+_RELPOS_F32_ARGS = [P, P, P, P, P, P, I, I, I, I, I, F]
+ATTN_RELPOS_F32 = CudaKernel("flash_attention_relpos_f32", "cvlm_attn_relpos_f32",
+                             _RELPOS_F32_ARGS)
+QKV_RELPOS_WINDOWS_F32 = CudaKernel("flash_qkv_relpos_windows_f32", "cvlm_attn_relpos_f32",
+                                    _RELPOS_F32_ARGS)
+QKV_RELPOS_GLOBAL_F32 = CudaKernel("flash_qkv_relpos_global_f32", "cvlm_attn_relpos_f32",
+                                   _RELPOS_F32_ARGS)
+QKV_WINDOWS_PADDED_F32 = CudaKernel("flash_qkv_packed_windows_f32", "cvlm_qkv_packed_windows_f32",
+                                    [P, P, P, P, P, P, I, I, I, I, F])
+ATTN_FULLK_F32 = CudaKernel("flash_attention_fullk_f32", "cvlm_attn_fullk_f32",
+                            [P, P, P, P, P, I, I, I, I])
+_PROJ_HEADS_F32_ARGS = [P, P, P, P, P, I, I, I, L, I, I, I]
+PROJ_HEADS_RES_F32 = CudaKernel("proj_from_heads_res_f32", "cvlm_proj_from_heads_f32",
+                                _PROJ_HEADS_F32_ARGS)
+PROJ_HEADS_F32 = CudaKernel("proj_from_heads_f32", "cvlm_proj_from_heads_f32",
+                            _PROJ_HEADS_F32_ARGS)
 KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MASK_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS,
            QKV_PACKED_PLAIN, QKV_WINDOWS, QKV_EDGE, QKV_GLOBAL,
            LN_MLP_RESIDUAL_BWD, QKV_WINDOWS_BWD, QKV_GLOBAL_BWD, ATTN_RELPOS, ATTN_FULLK,
            QKV_WINDOWS_PADDED, QKV_RELPOS_WINDOWS, QKV_RELPOS_GLOBAL, PROJ_HEADS_RES, PROJ_HEADS,
            LN_MLP_RESIDUAL_F32, LN_LINEAR_F32, QKV_PACKED_PLAIN_F32, PROJ_ROWS_F32,
            LN_MLP_RESIDUAL_BWD_F32, LINEAR_ACT_F32, LN_MASK_LINEAR_F32, QKV_WINDOWS_F32,
-           QKV_EDGE_F32, QKV_GLOBAL_F32, QKV_WINDOWS_BWD_F32, QKV_GLOBAL_BWD_F32)
+           QKV_EDGE_F32, QKV_GLOBAL_F32, QKV_WINDOWS_BWD_F32, QKV_GLOBAL_BWD_F32,
+           ATTN_RELPOS_F32, QKV_RELPOS_WINDOWS_F32, QKV_RELPOS_GLOBAL_F32, QKV_WINDOWS_PADDED_F32,
+           ATTN_FULLK_F32, PROJ_HEADS_RES_F32, PROJ_HEADS_F32)
+
+
+def layouts(values) -> ctypes.Array:
+    """A strided entry's layout argument: the element strides as a C array
+    of long long (read by the C entry at launch, so a captured graph keeps
+    the values, not the array)."""
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 def has_f32_instance(name: str) -> bool:
@@ -315,6 +350,18 @@ def attn_relpos_smem(H: int, W: int, d: int) -> dict:
         raise ValueError(f"cvlm_attn_relpos_smem: no kernel at H={H}, W={W}, d={d}")
     return {"mode": RELPOS_MODES[out[0]], "resident": bool(out[1]), "warpgroups": out[2],
             "smem": out[3]}
+
+
+def attn_fullk_f32_smem(dqk: int, dv: int) -> int:
+    """The dynamic shared memory (bytes) a block of the fp32 #20
+    (`cvlm_attn_fullk_f32`) takes at (dqk, dv), from the library itself."""
+    fn = library().cvlm_attn_fullk_f32_smem
+    fn.argtypes = [I, I]
+    fn.restype = ctypes.c_longlong
+    smem = fn(dqk, dv)
+    if smem < 0:
+        raise ValueError(f"cvlm_attn_fullk_f32_smem: no instance at d_qk={dqk}, dv={dv}")
+    return smem
 
 
 def mlp_bwd_smem() -> dict:

@@ -28,10 +28,13 @@ with like. For CPU tensors each runs its plain version, the JAX `ref`
 formulation: q*scale rounded to the working type, the bias rel @ sel added
 to the fp32 scores, max-subtracted fp32 softmax, probabilities rounded to
 the working type before P.V, fp32 accumulation, one final rounding. For CUDA
-tensors each launches its kernel (`csrc/`) or raises. #16, #13, #15 and #17
-also have float32 instances, which CUDA tensors in float32 reach: one fp32
-flash loop on the CUDA cores (`csrc/attn_f32.cuh`) at d = 64 and 80, with no
-rounding point, for MaPLe training and the cascade at --dtype float32.
+tensors each launches its kernel (`csrc/`) or raises. Each also has a
+float32 instance, which CUDA tensors in float32 reach: one fp32 flash loop
+on the CUDA cores (`csrc/attn_f32.cuh`) at d = 64 and 80 (#20: d_qk 208 or
+128 with dv 80 or 64), with no rounding point, for MaPLe training and the
+cascade at --dtype float32. It reads q, k and v through strides of their
+own, so the packed rows and split tensors share it; #10, #11, #12, #19 and
+#20 take those strides from `f32_split_layout` / `f32_packed_layout`.
 
 Gradients: the windows (#14) and global (#18) attention have hand-written
 backward kernels and plain backwards (`*_bwd_ref`) for the CPU. The bf16
@@ -152,6 +155,46 @@ def _check_f32_attention(name: str, d: int, problems: int, heads: int) -> None:
                          f"{problems * heads}")
 
 
+# The fp32 flash loop's layout (csrc/attn_f32.cuh AttnArgs), in elements, for
+# the entries that take it as an argument (#10, #11, #12, #19, #20): q, k
+# and v's (problem, head, token) strides; rel's (problem, query, head); the
+# output's problems a group, its group, problem-in-group and head strides,
+# and its row stride (d-major: between columns; rows: between queries).
+# Problem p's output starts at (p // opn) * og + (p % opn) * ow.
+F32_LAYOUT_FIELDS = ("qp", "qh", "qt", "kp", "kh", "kt", "vp", "vh", "vt",
+                     "rp", "rq", "lph", "opn", "og", "ow", "oh", "ldo")
+
+
+def f32_split_layout(BB: int, N: int, dqk: int, dv: int, lanes: int = 0) -> tuple:
+    """The loop's strides over split q, k (BB, N, dqk) and v (BB, N, dv), one
+    head a problem, rel (BB, N, lanes), and an output (BB, N, dv) in rows
+    (#10, #20)."""
+    qk = (N * dqk, 0, dqk)
+    return (*qk, *qk, N * dv, 0, dv, N * lanes, lanes, 0, 1, N * dv, 0, 0, dv)
+
+
+def f32_packed_layout(B: int, nwin: int, N: int, heads: int, d: int, lanes: int,
+                      ldo: int = 0):
+    """(element offsets of q, k, v from the packed rows' start, the loop's
+    strides) over the packed qkv rows (B, nwin, N, 3*heads*d) with the (B,
+    nwin) pairs as problems, rel (B, nwin, N, heads, lanes), and the output
+    head-leading (B, heads, nwin, N, d) (#11, #19: nwin 1), or, given its
+    row stride `ldo`, d-major (B, nwin, heads*d, N) (#12)."""
+    c3 = 3 * heads * d
+    rows = (N * c3, d, c3)
+    if ldo:
+        out = (1, heads * d * ldo, 0, d * ldo, ldo)
+    else:
+        out = (nwin, heads * nwin * N * d, N * d, nwin * N * d, d)
+    return (0, heads * d, 2 * heads * d), (*rows, *rows, *rows, N * heads * lanes,
+                                           heads * lanes, lanes, *out)
+
+
+def _packed_ptrs(qkv: torch.Tensor, offsets) -> list:
+    """The addresses of q, k and v inside the packed rows."""
+    return [qkv.data_ptr() + o * qkv.element_size() for o in offsets]
+
+
 def _plain_f32_cuda(qkv, scale, heads, d):
     """The fp32 instance (MaPLe training's vision attention, and CLIP's in
     the cascade at --dtype float32; csrc/qkv_packed_plain_f32.cu): the flash
@@ -270,12 +313,29 @@ def flash_qkv_packed_windows(
     tokens -> d-major (B, nwin, heads*d, Nw). Pad tokens are ordinary keys.
     The kernel is #13's (`csrc/qkv_packed_windows_s.cu`) with rel read
     window-major; it builds the key code from the window side and does not
-    read sel32. Gradients: the VJP of the plain version."""
+    read sel32. In float32 its fp32 instance (`csrc/qkv_windows_f32.cu`).
+    Gradients: the VJP of the plain version."""
     return autograd.run("flash_qkv_packed_windows", _padded_windows_cuda,
                         flash_qkv_packed_windows_ref, (qkv, rel, sel32), (scale, heads, d))
 
 
+def _padded_windows_f32_cuda(qkv, rel, sel32, scale, heads, d):
+    """The fp32 instance (csrc/qkv_windows_f32.cu): #13's flash loop with
+    rel's window-major strides, the loop's layout from `f32_packed_layout`."""
+    name = "flash_qkv_packed_windows (float32)"
+    win = _check_windows(name, qkv, rel, sel32, heads, d, window_major=True, dtype=torch.float32)
+    B, nwin, Nw, _ = qkv.shape
+    _check_f32_attention(name, d, B * nwin, heads)
+    out = dmajor_empty(B, nwin, heads * d, Nw, dtype=qkv.dtype, device=qkv.device)
+    offsets, layout = f32_packed_layout(B, nwin, Nw, heads, d, REL_LANES, ldo=out.stride(-2))
+    _cuda.QKV_WINDOWS_PADDED_F32(*_packed_ptrs(qkv, offsets), rel.data_ptr(), out.data_ptr(),
+                                 _cuda.layouts(layout), B * nwin, heads, win, d, float(scale))
+    return out
+
+
 def _padded_windows_cuda(qkv, rel, sel32, scale, heads, d):
+    if qkv.dtype == torch.float32:
+        return _padded_windows_f32_cuda(qkv, rel, sel32, scale, heads, d)
     win = _check_windows("flash_qkv_packed_windows", qkv, rel, sel32, heads, d,
                          window_major=True)
     B, nwin, Nw, _ = qkv.shape
@@ -688,8 +748,10 @@ def flash_attention_relpos(
     by the fp32 row sum at the end, where the plain version normalises
     first. It takes d == dv in (64, 80), the head widths of SAM ViT-B and
     ViT-H, which every configuration of the repo has; a CUDA tensor of any
-    other depth raises ValueError. Gradients: the VJP of the plain version,
-    as the JAX package's `pallas_with_xla_vjp`."""
+    other depth raises ValueError. In float32 its fp32 instance
+    (`csrc/qkv_relpos_f32.cu`, the same d, H + W <= F32_GLOBAL_MAX_LANES).
+    Gradients: the VJP of the plain version, as the JAX package's
+    `pallas_with_xla_vjp`."""
     return autograd.run("flash_attention_relpos", _relpos_cuda, _relpos_plain,
                         (q, k, v, rel, sel), (H, W))
 
@@ -698,7 +760,34 @@ def _relpos_plain(q, k, v, rel, sel, H, W):
     return xla_attention_relpos(q, k, v, rel, sel)
 
 
+def _check_relpos_lanes(name, H, W):
+    if H + W > F32_GLOBAL_MAX_LANES:
+        raise ValueError(f"{name}: CUDA kernel takes H+W <= {F32_GLOBAL_MAX_LANES} (the rel "
+                         f"lanes it holds in shared memory), got {H + W}")
+
+
+def _relpos_f32_cuda(q, k, v, rel, sel, H, W):
+    """The fp32 instance (csrc/qkv_relpos_f32.cu) over split rows, one head a
+    problem, q pre-scaled (scale 1)."""
+    name = "flash_attention_relpos (float32)"
+    _cuda.check_dtype(name, torch.float32, q, k, v, rel)
+    BB, N, d = q.shape
+    if (k.shape != q.shape or v.shape != q.shape or H * W != N or rel.shape != (BB, N, H + W)
+            or sel.shape != (H + W, N)):
+        raise ValueError(f"{name}: q {q.shape} k {k.shape} v {v.shape} rel {rel.shape} H={H} "
+                         f"W={W} (d == dv)")
+    _check_f32_attention(name, d, BB, 1)
+    _check_relpos_lanes(name, H, W)
+    out = torch.empty_like(v)
+    _cuda.ATTN_RELPOS_F32(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(),
+                          out.data_ptr(), _cuda.layouts(f32_split_layout(BB, N, d, d, H + W)),
+                          BB, 1, H, W, d, 1.0)
+    return out
+
+
 def _relpos_cuda(q, k, v, rel, sel, H, W):
+    if q.dtype == torch.float32:
+        return _relpos_f32_cuda(q, k, v, rel, sel, H, W)
     name = "flash_attention_relpos"
     BB, N, d, dv = _check_split(name, q, k, v, (rel,))
     if d != dv:
@@ -727,13 +816,40 @@ def flash_attention_fullk(
     """softmax(q_aug k_aug^T) v -> (BB, N, dv): the 'aug_flash' global blocks
     (TPU kernel #20). The kernel (`csrc/attn_fullk.cu`) is the TMA + wgmma
     one pass, which rounds P unnormalised and divides O by the fp32 row sum
-    at the end, where the plain version normalises first. Gradients: the VJP
-    of the plain version."""
+    at the end, where the plain version normalises first. In float32 its
+    fp32 instance (`csrc/attn_fullk_f32.cu`) at (d_qk, dv) in
+    F32_FULLK_DEPTHS. Gradients: the VJP of the plain version."""
     return autograd.run("flash_attention_fullk", _fullk_cuda, flash_attention_fullk_ref,
                         (q_aug, k_aug, v))
 
 
+# the (d_qk, dv) of the fp32 #20's instances: SAM ViT-H's 'aug_flash' at 1024
+# px (80 + 64 + 64 = 208, 80) and the small 'aug_flash' cascade of
+# chip_smoke.py's [f32_train_small] (64 + 32 + 32 = 128, 64)
+F32_FULLK_DEPTHS = ((208, 80), (128, 64))
+
+
+def _fullk_f32_cuda(q_aug, k_aug, v):
+    """The fp32 instance (csrc/attn_fullk_f32.cu): the flash loop, q' . k'^T
+    over d_qk, P . V over dv."""
+    name = "flash_attention_fullk (float32)"
+    _cuda.check_dtype(name, torch.float32, q_aug, k_aug, v)
+    BB, N, dqk = q_aug.shape
+    dv = v.shape[-1]
+    if k_aug.shape != q_aug.shape or v.shape != (BB, N, dv):
+        raise ValueError(f"{name}: q {q_aug.shape} k {k_aug.shape} v {v.shape}")
+    if (dqk, dv) not in F32_FULLK_DEPTHS or BB > 65535:
+        raise ValueError(f"{name}: CUDA kernel takes (d_qk, dv) in {F32_FULLK_DEPTHS} and at "
+                         f"most 65535 problems (got ({dqk}, {dv}), BB={BB})")
+    out = torch.empty((BB, N, dv), dtype=v.dtype, device=v.device)
+    _cuda.ATTN_FULLK_F32(q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(), out.data_ptr(),
+                         _cuda.layouts(f32_split_layout(BB, N, dqk, dv)), BB, N, dqk, dv)
+    return out
+
+
 def _fullk_cuda(q_aug, k_aug, v):
+    if q_aug.dtype == torch.float32:
+        return _fullk_f32_cuda(q_aug, k_aug, v)
     BB, N, d, dv = _check_split("flash_attention_fullk", q_aug, k_aug, v)
     out = torch.empty((BB, N, dv), dtype=v.dtype, device=v.device)
     _cuda.ATTN_FULLK(q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(), out.data_ptr(), BB, N,
@@ -764,8 +880,9 @@ def flash_qkv_relpos_windows(
     head-leading (B, heads, nwin, Nw, d), what `proj_from_heads_res` reads.
     The kernel (`csrc/qkv_relpos.cu`) reads q, k and v in place and adds
     the bias by indexing, in one pass over the keys (P rounded to the
-    working type before its normalisation, as #16 and #17). Gradients: the
-    VJP of the plain version."""
+    working type before its normalisation, as #16 and #17). In float32 its
+    fp32 instance (`csrc/qkv_relpos_f32.cu`). Gradients: the VJP of the plain
+    version."""
     return autograd.run("flash_qkv_relpos_windows", _relpos_windows_cuda,
                         _relpos_windows_plain, (qkv, rel, sel), (scale, H, W))
 
@@ -774,15 +891,26 @@ def _relpos_windows_plain(qkv, rel, sel, scale, H, W):
     return flash_qkv_relpos_windows_ref(qkv, rel, sel, scale)
 
 
-def _relpos_packed_launch(kernel, qkv, rel, sel, scale, H, W):
+def _relpos_packed_launch(kernel, f32_kernel, qkv, rel, sel, scale, H, W):
     """qkv (B, nwin, N, 3*heads, d), rel (B, nwin, N, heads, H+W) ->
-    (B, heads, nwin, N, d) through `cvlm_qkv_relpos`."""
-    _cuda.check_dtype(kernel.name, torch.bfloat16, qkv, rel)
+    (B, heads, nwin, N, d) through `cvlm_qkv_relpos` (`kernel`), or in
+    float32 through its fp32 instance `cvlm_attn_relpos_f32` (`f32_kernel`)."""
+    f32 = qkv.dtype == torch.float32
+    name = kernel.name + (" (float32)" if f32 else "")
+    _cuda.check_dtype(name, torch.float32 if f32 else torch.bfloat16, qkv, rel)
     B, nwin, N, h3, d = qkv.shape
     heads = h3 // 3
     if (h3 != 3 * heads or H * W != N or rel.shape != (B, nwin, N, heads, H + W)
             or sel.shape != (H + W, N)):
-        raise ValueError(f"{kernel.name}: qkv {qkv.shape} rel {rel.shape} H={H} W={W}")
+        raise ValueError(f"{name}: qkv {qkv.shape} rel {rel.shape} H={H} W={W}")
+    if f32:
+        _check_f32_attention(name, d, B * nwin, heads)
+        _check_relpos_lanes(name, H, W)
+        out = torch.empty((B, heads, nwin, N, d), dtype=qkv.dtype, device=qkv.device)
+        offsets, layout = f32_packed_layout(B, nwin, N, heads, d, H + W)
+        f32_kernel(*_packed_ptrs(qkv, offsets), rel.data_ptr(), out.data_ptr(),
+                   _cuda.layouts(layout), B * nwin, heads, H, W, d, float(scale))
+        return out
     if d not in _SPLIT_DV or B * nwin > 65535:
         raise ValueError(f"{kernel.name}: CUDA kernel takes d in {_SPLIT_DV} and at most "
                          f"65535 (batch, window) pairs (got d={d}, {B * nwin})")
@@ -793,7 +921,8 @@ def _relpos_packed_launch(kernel, qkv, rel, sel, scale, H, W):
 
 
 def _relpos_windows_cuda(qkv, rel, sel, scale, H, W):
-    return _relpos_packed_launch(_cuda.QKV_RELPOS_WINDOWS, qkv, rel, sel, scale, H, W)
+    return _relpos_packed_launch(_cuda.QKV_RELPOS_WINDOWS, _cuda.QKV_RELPOS_WINDOWS_F32, qkv, rel,
+                                 sel, scale, H, W)
 
 
 def flash_qkv_relpos_global_ref(qkv, rel, sel, scale):
@@ -811,7 +940,8 @@ def flash_qkv_relpos_global(
     """`flash_qkv_relpos_windows` over one window of N = H*W tokens ->
     (B, heads, N, d). The JAX package calls it from no path (an ablation
     kernel); so does the port. The kernel is #11's, with its own launch
-    count. Gradients: the VJP of the plain version."""
+    count, in float32 #11's fp32 instance with its own. Gradients: the VJP
+    of the plain version."""
     return autograd.run("flash_qkv_relpos_global", _relpos_global_cuda, _relpos_global_plain,
                         (qkv, rel, sel), (scale, H, W))
 
@@ -821,6 +951,6 @@ def _relpos_global_plain(qkv, rel, sel, scale, H, W):
 
 
 def _relpos_global_cuda(qkv, rel, sel, scale, H, W):
-    out = _relpos_packed_launch(_cuda.QKV_RELPOS_GLOBAL, qkv[:, None], rel[:, None], sel,
-                                scale, H, W)
+    out = _relpos_packed_launch(_cuda.QKV_RELPOS_GLOBAL, _cuda.QKV_RELPOS_GLOBAL_F32,
+                                qkv[:, None], rel[:, None], sel, scale, H, W)
     return out[:, :, 0]

@@ -751,7 +751,9 @@ def proj_from_heads_res(
     -> (B, T, S, N). Counterpart of `proj_from_heads_res` (TPU kernel #8).
     The kernel (`csrc/proj_rows.cu`) is the persistent GEMM with x as a
     K-major A split by head; it takes d % 8 == 0 and N % 8 == 0 (the
-    residual's epilogue), else a CUDA tensor raises ValueError."""
+    residual's epilogue), else a CUDA tensor raises ValueError. In float32
+    its fp32 instance (`csrc/proj_rows_f32.cu`, the tiled FFMA product with a
+    head-leading A, `proj_heads_f32_layout`; d % 4 == 0, N % 4 == 0)."""
     return autograd.run("proj_from_heads_res", _proj_heads_res_cuda, proj_from_heads_ref,
                         (x, w, b, res))
 
@@ -767,7 +769,44 @@ def proj_from_heads(
     return autograd.run("proj_from_heads", _proj_heads_cuda, proj_from_heads_ref, (x, w, b))
 
 
-def _proj_heads_launch(kernel, x, w, b, res):
+def proj_heads_f32_layout(B: int, heads: int, T: int, S: int, d: int) -> dict:
+    """The arguments the fp32 #8/#9 (`cvlm_proj_from_heads_f32`) read the
+    head-leading x (B, heads, T, S, d) by: one group an image (G = B, group
+    stride `sa`), its M = T*S rows, K = heads*d columns of the A the product
+    takes, A[m, h*d + j] = x[b, h, t, s, j] at `heads_a_offset`."""
+    return dict(G=B, M=T * S, d=d, sa=heads * T * S * d, K=heads * d)
+
+
+def heads_a_offset(g: int, m: int, k: int, M: int, d: int, sa: int) -> int:
+    """The element of x that row m, column k of group g of the head-leading A
+    reads (csrc/sgemm_f32.cuh K_HEADS): (k // d) M d + m d + k % d past the
+    group's start."""
+    return g * sa + (k // d) * M * d + m * d + k % d
+
+
+def _proj_heads_f32_launch(kernel, x, w, b, res):
+    name = kernel.name
+    _cuda.check_dtype(name, torch.float32, x, w, b, *([res] if res is not None else []))
+    B, heads, T, S, d = x.shape
+    N = w.shape[0]
+    if (w.shape != (N, heads * d) or b.shape != (N,)
+            or (res is not None and res.shape != (B, T, S, N))):
+        raise ValueError(f"{name}: shapes x {x.shape} w {w.shape}")
+    if d % 4 or N % 4:
+        raise ValueError(f"{name}: CUDA kernel takes d % 4 == 0 and N % 4 == 0 (16-byte loads "
+                         f"and epilogue rows), got d={d}, N={N}")
+    lay = proj_heads_f32_layout(B, heads, T, S, d)
+    out = torch.empty((B, T, S, N), dtype=x.dtype, device=x.device)
+    kernel(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr() if res is not None else None,
+        out.data_ptr(), lay["G"], lay["M"], lay["d"], lay["sa"], lay["K"], N,
+        f32_tile(lay["M"], N, _cuda.sm_count(x.device), lay["G"]))
+    return out
+
+
+def _proj_heads_launch(kernel, f32_kernel, x, w, b, res):
+    if x.dtype == torch.float32:
+        return _proj_heads_f32_launch(f32_kernel, x, w, b, res)
     _cuda.check_dtype(kernel.name, torch.bfloat16, x, w, b, *([res] if res is not None else []))
     B, heads, T, S, d = x.shape
     N = w.shape[0]
@@ -785,8 +824,8 @@ def _proj_heads_launch(kernel, x, w, b, res):
 
 
 def _proj_heads_res_cuda(x, w, b, res):
-    return _proj_heads_launch(_cuda.PROJ_HEADS_RES, x, w, b, res)
+    return _proj_heads_launch(_cuda.PROJ_HEADS_RES, _cuda.PROJ_HEADS_RES_F32, x, w, b, res)
 
 
 def _proj_heads_cuda(x, w, b):
-    return _proj_heads_launch(_cuda.PROJ_HEADS, x, w, b, None)
+    return _proj_heads_launch(_cuda.PROJ_HEADS, _cuda.PROJ_HEADS_F32, x, w, b, None)

@@ -414,7 +414,9 @@ def phase_build():
                       r"|21attn_bwd_query_kernelILi80E"
                       r"|19attn_bwd_key_kernelILi80E|20attn_bwd_prep_kernel|17attn_fullk_kernel"
                       r"|19mlp_bwd_dual_kernel|18ln_bwd_rows_kernel"
-                      r"|6f32bwd\S*?attn_bwd_f32_\w+?_kernelILi80E)\S*)'", ln)
+                      r"|6f32bwd\S*?attn_bwd_f32_\w+?_kernelILi80E"
+                      r"|7f32attn\S*?attn_f32_kernelILi\d+ELi\d+ELi\dELi\dE"
+                      r"|3f32\S*?12sgemm_kernelILi\dELi\dELi2E)\S*)'", ln)
         if m and m.group(1) not in seen:
             seen.add(m.group(1))
             usage = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
@@ -429,6 +431,11 @@ def phase_build():
         f"({dual['stages']} stages of 4 x 128 x 64); #20 attn_fullk_kernel<{fk['depth']}, 80, "
         f"{fk['stages']}> {fk['smem']} B (two q tiles, {fk['stages']} stages of 64 keys of k "
         f"and v)")
+    # the fp32 #20 at its two depths, as the library sizes it (one block of
+    # csrc/attn_f32.cuh's loop: q' and k' tiles of d_qk rows, v's of dv)
+    log("[build] dynamic shared memory per block: fp32 #20 attn_f32_kernel<208, 80, NONE, ROWS> "
+        f"{_cuda.attn_fullk_f32_smem(208, 80)} B, <128, 64, NONE, ROWS> "
+        f"{_cuda.attn_fullk_f32_smem(128, 64)} B")
     # dynamic shared memory of the attention kernels at their paths' shapes
     # (csrc/attn_sm90.cuh stream_smem, csrc/qkv_packed_global.cu global_smem,
     # csrc/qkv_packed_windows_s.cu windows_s_smem): 128 B of alignment, bf16
@@ -1054,7 +1061,7 @@ def _small_config(dtype):
 
 SAM_ATTENTION = ("ln_mask_linear_bt", "flash_qkv_packed_windows_s", "flash_qkv_packed_edge",
                  "flash_qkv_packed_windows", "flash_qkv_relpos_windows", "proj_from_heads_res",
-                 "flash_qkv_packed_global")
+                 "flash_qkv_packed_global", "flash_attention_relpos", "flash_attention_fullk")
 
 
 def check_sam_attention(counts, enc, label, backward=False, suffix=""):
@@ -2665,6 +2672,9 @@ def phase_f32_kernels():
         out.update(sam_f32_kernels(rn))
     out.update(sam_f32_grads(rn))
     torch.cuda.empty_cache()
+    with torch.no_grad():
+        out.update(route_f32_kernels(rn))
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2771,6 +2781,122 @@ def sam_f32_kernels(rn):
                     "ms", "queued_ms", "plain_ms", "library_ms", "bound_ms")})
             torch.cuda.empty_cache()
     check(tuple(out) == SAM_F32, f"sam_f32_kernels: {tuple(out)}")
+    return out
+
+
+# the fp32 instances of the other configurations' routes, by the eval
+# configuration of [f32_routes] whose run gives their launches; the two no
+# path reaches (NO_PATH_F32) carry their check's
+ROUTE_F32 = {"flash_attention_relpos_f32": "vit_b_flash",
+             "flash_attention_fullk_f32": "vit_h_aug_flash",
+             "flash_qkv_packed_windows_f32": "vit_h_flash_win16",
+             "flash_qkv_relpos_windows_f32": "vit_h_flash_win17",
+             "proj_from_heads_res_f32": "vit_h_flash_win17"}
+NO_PATH_F32 = {k + "_f32": v for k, v in NO_PATH.items()}
+
+
+def route_f32_kernels(rn):
+    """The fp32 instances of #10, #20, #12, #11, #19, #8 and #9 (`rn` draws
+    fp32) against their plain fp32 versions within 1e-4 (TF32 off) at the
+    bf16 rows' full-width shapes, batch 2 (`split_attention_kernels`,
+    `padded_sites`, `proj_heads_case`): #10 at SAM ViT-B's windows and
+    global blocks (the kernels line holds the global ones), #20 at ViT-H's
+    'aug_flash' global blocks, #12 at window 16, #11 at window 17, #19 on the
+    64 x 64 grid, #8 / #9 at window 17; bounds against the fp32 CUDA-core
+    peak. Library calls: fp32 SDPA with the bias rel @ sel built outside the
+    timed call (#10, #11, #12, #19), fp32 SDPA at scale 1 on the augmented
+    features (#20); none for #8 / #9, their product alone through
+    torch.einsum beside them (`gemm_library_ms`)."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    F = torch.nn.functional
+    f32, dev = torch.float32, torch.device("cuda")
+    B, D, NH, HD = 2, 1280, 16, 80
+    scale = HD ** -0.5
+    src, rep = "camouflaged_vlm_tpu_torch/csrc/", "camouflaged_vlm_tpu/ops/"
+    out = {}
+    for k in (_cuda.PROJ_HEADS_F32, _cuda.QKV_RELPOS_GLOBAL_F32):
+        k.launches = 0
+
+    def run(key, label, source, replaces, kfn, pfn, args, flops, reads=None, library=None,
+            gemm=None):
+        r = _check_kernel(f"{key} ({label}, fp32, TF32 off)", kfn, pfn, args, flops=flops,
+                          reads=reads, library=library, gemm_library=gemm,
+                          rel_bound=F32_REL_BOUND, peak_flops=PEAK_F32_FLOPS)
+        out[key] = dict(source=src + source, replaces=rep + replaces, **r)
+
+    def sdpa(q, k, v, bias, sc=scale):
+        q, k, v, bias = (t.flatten(0, -4) for t in (q, k, v, bias))  # 4D, copied here
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=sc)
+
+    # #10 at SAM ViT-B's windows and global blocks (12 heads x 64)
+    for label, BB, H in (("ViT-B windows", B * 25 * 12, 14), ("ViT-B global", B * 12, 64)):
+        N, dh = H * H, 64
+        q, k, v = rn(BB, N, dh, std=dh ** -0.5), rn(BB, N, dh), rn(BB, N, dh)
+        rel, sel = rn(BB, N, 2 * H), fa.make_rel_scatter(H, H, f32, dev)
+        bias = torch.matmul(rel, sel)
+        run("flash_attention_relpos_f32", f"{label} {BB}x{N}x{dh}", "qkv_relpos_f32.cu",
+            "flash_attention.py:134", lambda *a, H=H: fa.flash_attention_relpos(*a, H, H),
+            fa.xla_attention_relpos, (q, k, v, rel, sel), 4.0 * BB * N * N * dh,
+            reads=(q, k, v, rel),
+            library=lambda q=q, k=k, v=v, b=bias: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=b, scale=1.0))
+        del q, k, v, rel, bias
+    # #20 at ViT-H's 'aug_flash' global blocks
+    BB, N, dqk, dv = B * NH, 4096, 208, 80
+    q, k, v = rn(BB, N, dqk, std=dqk ** -0.5), rn(BB, N, dqk), rn(BB, N, dv)
+    run("flash_attention_fullk_f32", f"ViT-H aug_flash global {BB}x{N}x{dqk}/{dv}",
+        "attn_fullk_f32.cu", "flash_attention.py:1352", fa.flash_attention_fullk,
+        fa.flash_attention_fullk_ref, (q, k, v), 2.0 * BB * N * N * (dqk + dv),
+        library=lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+    del q, k, v
+    torch.cuda.empty_cache()
+    # #12 at window 16: qkv (2, 16, 256, 3840), rel window-major (2, 16, 256, 512)
+    nwin, win = 16, 16
+    Nw = win * win
+    qkv, rel = rn(B, nwin, Nw, 3 * D), rn(B, nwin, Nw, NH * 32)
+    sel32 = fa.make_rel_scatter32(win, f32, dev)
+    r = qkv.reshape(B, nwin, Nw, 3, NH, HD)
+    q, k, v = (r[:, :, :, i].transpose(2, 3) for i in range(3))
+    bias = torch.matmul(rel.reshape(B, nwin, Nw, NH, 32).transpose(2, 3), sel32)
+    run("flash_qkv_packed_windows_f32", "ViT-H window 16, 2x16x256x3840", "qkv_windows_f32.cu",
+        "flash_attention.py:337", lambda *a: fa.flash_qkv_packed_windows(*a, scale, NH, HD),
+        lambda *a: fa.flash_qkv_packed_windows_ref(*a, scale, NH, HD), (qkv, rel, sel32),
+        4.0 * B * nwin * NH * Nw * Nw * HD, reads=(qkv, rel), library=sdpa(q, k, v, bias))
+    del qkv, rel, q, k, v, bias, r
+    # #11 at window 17 and #19 on the 64 x 64 grid: the 5D / 4D views of the
+    # packed qkv, rel per head
+    for name, site, shape, H in (("flash_qkv_relpos_windows", ":213", (B, 16), 17),
+                                 ("flash_qkv_relpos_global", ":1262", (B,), 64)):
+        N = H * H
+        qkv, rel = rn(*shape, N, 3 * NH, HD), rn(*shape, N, NH, 2 * H)
+        sel = fa.make_rel_scatter(H, H, f32, dev)
+        q, k, v = (qkv[..., i * NH:(i + 1) * NH, :].movedim(-2, 1) for i in range(3))
+        bias = torch.matmul(rel.movedim(-2, 1), sel)
+        wrapper, plain = getattr(fa, name), getattr(fa, name + "_ref")
+        label = ("ViT-H window 17, 2x16x289x48x80" if len(shape) == 2
+                 else "ViT-H grid 64, 2x4096x48x80")
+        run(name + "_f32", label, "qkv_relpos_f32.cu", "flash_attention.py" + site,
+            lambda *a, w=wrapper, H=H: w(*a, scale, H, H), lambda *a, p=plain: p(*a, scale),
+            (qkv, rel, sel), 4.0 * qkv.shape[:-3].numel() * NH * N * N * HD, reads=(qkv, rel),
+            library=sdpa(q, k, v, bias))
+        del qkv, rel, q, k, v, bias
+        torch.cuda.empty_cache()
+    # #8 / #9 at window 17: x (2, 16, 16, 289, 80) head-leading -> (2, 16, 289, 1280)
+    args, flops, gemm = proj_heads_case(rn, B)
+    for name, site, a in (("proj_from_heads_res", ":756", args),
+                          ("proj_from_heads", ":810", args[:3])):
+        run(name + "_f32", "ViT-H window 17, 2x16x16x289x80 -> 1280", "proj_rows_f32.cu",
+            "linear.py" + site, getattr(lin, name), lin.proj_from_heads_ref, a, flops, gemm=gemm)
+    del args
+    for name, path in NO_PATH_F32.items():
+        kernel = _cuda.PROJ_HEADS_F32 if name == "proj_from_heads_f32" else \
+            _cuda.QKV_RELPOS_GLOBAL_F32
+        out[name].update(launches=kernel.launches, path=path)
+    check(set(out) == set(ROUTE_F32) | set(NO_PATH_F32), f"route_f32_kernels: {tuple(out)}")
     return out
 
 
@@ -3324,47 +3450,88 @@ def _small_f32_config():
                                encoder=enc, clip=clip)
 
 
+def _small_f32_route_configs():
+    """Small fp32 cascades on each route off the compact carry, `_small_f32_config`'s
+    CLIP and widths the fp32 instances take (heads of 64), tiny depth 4
+    (global blocks 1 and 3):
+      vit_b_flash       unfused 'flash' (4 heads: #10), 256 wide at 256 px,
+                        grid 16, window 5 (padded to 20: windows of 25)
+                        and global blocks of 256 tokens;
+      vit_h_aug_flash   'aug_flash', 256 wide at 512 px, grid 32, window 8:
+                        global blocks of 1024 tokens on #20 (d_qk 64 + 32 +
+                        32 = 128, dv 64), the windows plain;
+      vit_h_flash_win16 fused 'flash' (8 heads), 512 wide at 320 px, grid 20,
+                        window 16 (padded carry: 4 windows of 256 on #12)
+                        and global blocks of 400 tokens (H + W 40: #11 + #8);
+      vit_h_flash_win17 the same at window 17 (4 windows of 289: #11 + #8)."""
+    import dataclasses
+
+    from camouflaged_vlm_tpu_torch.models import SamEncoderConfig
+
+    base = _small_f32_config()
+
+    def cfg(**enc):
+        e = SamEncoderConfig.tiny(dtype=base.encoder.dtype, **enc)
+        return dataclasses.replace(base, inp_size=e.img_size, encoder=e)
+
+    return {
+        "vit_b_flash": cfg(attn_impl="flash", img_size=256, embed_dim=256, num_heads=4,
+                           window_size=5, prompt_scale_factor=16),
+        "vit_h_aug_flash": cfg(attn_impl="aug_flash", img_size=512, embed_dim=256, num_heads=4,
+                               window_size=8, prompt_scale_factor=16),
+        "vit_h_flash_win16": cfg(attn_impl="flash", img_size=320, embed_dim=512, num_heads=8,
+                                 window_size=16, prompt_scale_factor=32),
+        "vit_h_flash_win17": cfg(attn_impl="flash", img_size=320, embed_dim=512, num_heads=8,
+                                 window_size=17, prompt_scale_factor=32),
+    }
+
+
 def check_no_bf16_kernel(counts, label):
     bf16 = {k: n for k, n in counts.items() if n and not k.endswith("_f32")}
     check(not bf16, f"{label}: bf16 kernels launched in an fp32 run: {bf16}")
 
 
 def phase_f32_train_small():
-    """One fp32 train step of a small fused cascade on the card against the
-    same step on the CPU (same weights, bank and batch): the loss and every
-    trainable gradient; the SAM attention and its backward on their fp32
-    instances (#13, #15, #17; #14, #18), exact launches, no bf16 kernel."""
+    """One fp32 train step of a small cascade on the card against the same
+    step on the CPU (same weights, bank and batch), on each route: the
+    compact carry (`_small_f32_config`: the SAM attention and its backward
+    on their fp32 instances #13, #15, #17; #14, #18) and the four routes of
+    `_small_f32_route_configs` (#10; #20; #12, #11 + #8; #11 + #8, whose
+    gradients are their plain versions' VJPs): the loss and every
+    trainable gradient, exact launches, no bf16 kernel."""
     import torch
     from camouflaged_vlm_tpu_torch.factory import build_cascade
     from camouflaged_vlm_tpu_torch.ops import _cuda
 
-    cfg = _small_f32_config()
-    ref = build_cascade(cfg, "cpu", seed=5)
-    model = build_cascade(cfg, "cuda", seed=5)
-    model.load_state_dict(ref.state_dict(), strict=True)
-    batch = _small_batch(cfg)
     names = ["cat", "owl", "bat", "moth", "slug"]
-    _cuda.reset_launches()  # the CPU step launches nothing
-    l_ref, g_ref, _, _, _ = step_grads(ref, cfg, batch, names, "cpu")
-    l_gpu, g_gpu, _, _, _ = step_grads(model, cfg, batch, names, "cuda")
-    counts = _cuda.launch_counts()
-    check_sam_attention(counts, cfg.encoder, "f32_train_small", backward=True, suffix="_f32")
-    expected = f32_expected(expected_launches(cfg, 1, clip_passes=1, backward=True))
-    check(counts == expected, f"f32_train_small: launches {counts} != {expected}")
-    check_no_bf16_kernel(counts, "f32_train_small")
-    dl = abs(l_gpu - l_ref) / abs(l_ref)
-    rels, floor = grad_gaps("f32_train_small", g_ref, g_gpu)
-    log(f"[f32_train_small] SAM 'flash' {cfg.encoder.embed_dim} wide, "
-        f"{cfg.encoder.num_heads} heads x {cfg.encoder.embed_dim // cfg.encoder.num_heads}, grid "
-        f"{cfg.encoder.grid}, window {cfg.encoder.window_size}; fp32 card vs fp32 CPU: loss "
-        f"{l_gpu:.8f} vs {l_ref:.8f} (rel {dl:.3e}, bound {F32_TRAIN_LOSS_REL_BOUND}); "
-        f"{describe_gaps(rels, floor)} (bound {F32_TRAIN_SMALL_GRAD_REL_BOUND}); launches "
-        f"{({k: v for k, v in counts.items() if v})}")
-    check(dl < F32_TRAIN_LOSS_REL_BOUND, f"f32_train_small: loss differs by {dl}")
-    check(max(rels.values()) < F32_TRAIN_SMALL_GRAD_REL_BOUND,
-          f"f32_train_small: gradients {rels}")
-    del ref, model
-    torch.cuda.empty_cache()
+    configs = {"compact": _small_f32_config(), **_small_f32_route_configs()}
+    for route, cfg in configs.items():
+        label = f"f32_train_small {route}"
+        ref = build_cascade(cfg, "cpu", seed=5)
+        model = build_cascade(cfg, "cuda", seed=5)
+        model.load_state_dict(ref.state_dict(), strict=True)
+        batch = _small_batch(cfg)
+        _cuda.reset_launches()  # the CPU step launches nothing
+        l_ref, g_ref, _, _, _ = step_grads(ref, cfg, batch, names, "cpu")
+        l_gpu, g_gpu, _, _, _ = step_grads(model, cfg, batch, names, "cuda")
+        counts = _cuda.launch_counts()
+        check_sam_attention(counts, cfg.encoder, label, backward=True, suffix="_f32")
+        expected = f32_expected(expected_launches(cfg, 1, clip_passes=1, backward=True))
+        check(counts == expected, f"{label}: launches {counts} != {expected}")
+        check_no_bf16_kernel(counts, label)
+        dl = abs(l_gpu - l_ref) / abs(l_ref)
+        rels, floor = grad_gaps(label, g_ref, g_gpu)
+        enc = cfg.encoder
+        log(f"[f32_train_small] {route}: SAM {enc.attn_impl!r} {enc.embed_dim} wide, "
+            f"{enc.num_heads} heads x {enc.embed_dim // enc.num_heads}, grid {enc.grid}, window "
+            f"{enc.window_size}; fp32 card vs fp32 CPU: loss {l_gpu:.8f} vs {l_ref:.8f} (rel "
+            f"{dl:.3e}, bound {F32_TRAIN_LOSS_REL_BOUND}); {describe_gaps(rels, floor)} (bound "
+            f"{F32_TRAIN_SMALL_GRAD_REL_BOUND}); launches "
+            f"{({k: v for k, v in counts.items() if v})}")
+        check(dl < F32_TRAIN_LOSS_REL_BOUND, f"{label}: loss differs by {dl}")
+        check(max(rels.values()) < F32_TRAIN_SMALL_GRAD_REL_BOUND, f"{label}: gradients {rels}")
+        del ref, model
+        torch.cuda.empty_cache()
 
 
 def phase_f32_train_slice():
@@ -3517,6 +3684,210 @@ def phase_f32_train_slice():
     return counts
 
 
+# the configurations of [f32_routes]: those of [eval_slice] off the
+# reference one, whose routes launch the fp32 #10, #20, #12 and #11 + #8
+F32_ROUTES = ("vit_b_flash", "vit_h_aug_flash", "vit_h_flash_win16", "vit_h_flash_win17")
+
+
+def _route_config(label, work):
+    """The fp32 configuration and yaml of an [eval_slice] label: the ViT-H
+    yaml at another window, or `eval_throughput.config_args`' yaml."""
+    import torch
+    from camouflaged_vlm_tpu_torch.cli.eval_throughput import config_args
+    from camouflaged_vlm_tpu_torch.config import cascade_config_from_yaml, with_dtype
+
+    if label.startswith("vit_h_flash_win"):
+        path = window_yaml(int(label[-2:]), work)
+    else:
+        path = config_args(label, work)[1]
+    return with_dtype(cascade_config_from_yaml(path)[0], torch.float32), path
+
+
+def _route_inputs(cfg, images):
+    """The cascade's inputs for `images` on the card, as the CLIs build them."""
+    import torch
+    from camouflaged_vlm_tpu_torch.data.transforms import (
+        clip_image_transform, clip_ones_alpha, sam_image_transform,
+    )
+
+    return tuple(torch.from_numpy(np.stack(a)).cuda() for a in (
+        [sam_image_transform(im, cfg.inp_size) for im in images],
+        [clip_image_transform(im, cfg.clip_size) for im in images],
+        [clip_ones_alpha(cfg.clip_size) for _ in images]))
+
+
+def _route_vs_cpu(cfg, label, image):
+    """The fp32 cascade at batch 1 on the card against the same state dict
+    on the host's CPU (plain versions): ViT-H at depth 8 with global block 7
+    kept, ViT-B at full depth; the SAM embedding and the mask logits within
+    F32_SLICE_MEAN_REL_BOUND, the same class."""
+    import dataclasses
+
+    import torch
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.factory import attach_rel_cache, build_cascade, make_bank_inputs
+
+    enc = cfg.encoder
+    if enc.embed_dim == 1280:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(enc, depth=8,
+                                                                   global_attn_indexes=(7,)))
+    outs, secs = {}, {}
+    inputs = _route_inputs(cfg, [image])
+    gpu = attach_rel_cache(build_cascade(cfg, "cuda", seed=2))
+    state = {k: v.cpu() for k, v in gpu.state_dict().items()}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            m = gpu
+        else:
+            m = build_cascade(cfg, "cpu", seed=3)
+            m.load_state_dict(state, strict=True)
+            attach_rel_cache(m)
+        bank = make_bank_inputs(cfg, TEST_CLASS_NAMES, seed=0, device=dev)
+        with torch.no_grad():
+            tf = m.encode_class_text_features(bank["prefix"], bank["suffix"], bank["eot_indices"],
+                                              bank["bank_features"])
+        outs[dev] = {k: v.cpu() for k, v in
+                     cascade_outputs(m, cfg, tf, *(t.to(dev) for t in inputs)).items()}
+        secs[dev] = time.perf_counter() - t0
+        del m, tf
+    del gpu, state
+    torch.cuda.empty_cache()
+    e = {k: errors(outs["cuda"][k], outs["cpu"][k])
+         for k in ("embedding", "mask_logits", "class_logits")}
+    same = bool(torch.equal(outs["cuda"]["pred"], outs["cpu"]["pred"]))
+    log(f"[f32_routes] {label}: fp32 cascade at batch 1, depth {cfg.encoder.depth} (global "
+        f"blocks {cfg.encoder.global_attn_indexes}), card vs the card host's CPU "
+        f"({torch.get_num_threads()} threads; plain versions) on the same state dict: "
+        + "; ".join(f"{k} mean_rel {v['mean_rel']:.3e} max_rel {v['max_rel']:.3e} max_abs "
+                    f"{v['max_abs_err']:.3e}" for k, v in e.items())
+        + f" (bound mean_rel {F32_SLICE_MEAN_REL_BOUND} on the embedding and the mask logits); "
+        f"class {TEST_CLASS_NAMES[int(outs['cuda']['pred'][0])]} vs "
+        f"{TEST_CLASS_NAMES[int(outs['cpu']['pred'][0])]}; seconds (build, text encode, call): "
+        f"card {secs['cuda']:.1f}, CPU {secs['cpu']:.1f}")
+    check(e["embedding"]["mean_rel"] < F32_SLICE_MEAN_REL_BOUND
+          and e["mask_logits"]["mean_rel"] < F32_SLICE_MEAN_REL_BOUND,
+          f"[f32_routes] {label}: the fp32 cascade on the card disagrees with the CPU: {e}")
+    check(same, f"[f32_routes] {label}: the card and the CPU predict different classes")
+
+
+def _route_walls(cfg, label, images, gap=False):
+    """The configuration's fp32 cascade call at full width and depth (seeded
+    weights, the rel cache, the 61 classes' text features): its wall at
+    batch 1 and 2 (`_walls_ms`, median of 5); with `gap`, the bf16 cascade
+    on the same weights against it at batch 1 (a measurement, no gate): how
+    far bf16's roundings carry through the configuration's blocks."""
+    import torch
+    from camouflaged_vlm_tpu_torch.config import with_dtype
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.factory import attach_rel_cache, build_cascade, make_bank_inputs
+
+    def text(m, c):
+        bank = make_bank_inputs(c, TEST_CLASS_NAMES, seed=0, device="cuda")
+        with torch.no_grad():
+            return m.encode_class_text_features(bank["prefix"], bank["suffix"],
+                                                bank["eot_indices"], bank["bank_features"])
+
+    m32 = attach_rel_cache(build_cascade(cfg, "cuda", seed=4))
+    tf = text(m32, cfg)
+    walls = {}
+    with torch.no_grad():
+        for bs in (1, 2):
+            inputs = _route_inputs(cfg, images[:bs])
+            walls[bs] = _walls_ms(lambda: m32.infer_cascade_with_text(*inputs, tf), iters=5)
+    log(f"[f32_routes] {label}: fp32 cascade call at full width and depth, wall (median of 5, "
+        f"ms) batch 1 {walls[1]:.2f}, batch 2 {walls[2]:.2f} "
+        f"({2e3 / walls[2]:.3f} images/s)")
+    if gap:
+        inputs = _route_inputs(cfg, images[:1])
+        o32 = cascade_outputs(m32, cfg, tf, *inputs)
+        c16 = with_dtype(cfg, torch.bfloat16)
+        m16 = build_cascade(c16, "cuda", seed=4)
+        m16.load_state_dict(m32.state_dict(), strict=True)
+        del m32, tf
+        attach_rel_cache(m16)
+        o16 = cascade_outputs(m16, c16, text(m16, c16), *inputs)
+        del m16
+        g = {k: errors(o16[k], o32[k]) for k in ("embedding", "mask_logits", "class_logits")}
+        pm = [(torch.sigmoid(o["mask_logits"].float()) > 0.5) for o in (o16, o32)]
+        agree = float((pm[0] == pm[1]).float().mean())
+        log(f"[f32_routes] {label}: bf16 cascade against the fp32 one on the card, full depth "
+            f"({cfg.encoder.depth} blocks), same weights, batch 1 (no gate): "
+            + "; ".join(f"{k} mean_rel {v['mean_rel']:.3e} max_rel {v['max_rel']:.3e}"
+                        for k, v in g.items())
+            + f"; mask pixels (p > 0.5) that agree {agree:.4f}; class "
+            f"{TEST_CLASS_NAMES[int(o16['pred'][0])]} vs "
+            f"{TEST_CLASS_NAMES[int(o32['pred'][0])]}")
+    torch.cuda.empty_cache()
+    return walls
+
+
+def phase_f32_routes():
+    """The evaluate CLI at --dtype float32 --device cuda on the four
+    configurations of [eval_slice] off the reference one (`F32_ROUTES`: SAM
+    ViT-B's unfused 'flash' on #10, ViT-H on 'aug_flash' with #20, ViT-H at
+    window 16 on #12 and #11 + #8, at window 17 on #11 + #8), 5 synthetic
+    test images, batch 2: exact launches of the fp32 instances and none of
+    a bf16 kernel, TF32 off after the CLI; each configuration's cascade at
+    batch 1 on the card against the host's CPU (`_route_vs_cpu`), and its
+    full-depth call's wall at batch 1 and 2 (`_route_walls`; on window 17
+    with the bf16 cascade's gap to fp32). Returns each configuration's
+    launch counts."""
+    import torch
+    from camouflaged_vlm_tpu_torch.cli import evaluate
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.data.synthetic import write_synthetic_ovcamo
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    work = os.path.join("build", "chip_smoke_eval_f32")
+    shutil.rmtree(work, ignore_errors=True)
+    info = write_synthetic_ovcamo(os.path.join(work, "ovcamo_synthetic"), n_train=0, n_test=5,
+                                  seed=1, test_classes=tuple(TEST_CLASS_NAMES))
+    n_images, batch = 5, 2
+    calls = 1 + -(-n_images // batch)  # the warm-up call and 3 batches
+    images = _synthetic_images(2, seed=3)
+    runs = {}
+    try:
+        for label in F32_ROUTES:
+            cfg, path = _route_config(label, work)
+            out_dir = os.path.join(OUT_DIR, f"eval_f32_{label}")
+            torch.backends.cuda.matmul.allow_tf32 = True  # the CLI must turn both off
+            torch.backends.cudnn.allow_tf32 = True
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            res = evaluate.main(["--dataset-info", info, "--config", path, "--device", "cuda",
+                                 "--dtype", "float32", "--batch-size", str(batch),
+                                 "--output-dir", out_dir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _cuda.launch_counts()
+            tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            check(tf32 == (False, False), f"[f32_routes] {label}: the CLI left TF32 on: {tf32}")
+            check(res["images"] == n_images, f"[f32_routes] {label}: {res['images']} images")
+            check(all(np.isfinite(v) for v in res.values()), f"[f32_routes] {label}: {res}")
+            expected = f32_expected(expected_launches(cfg, calls))
+            enc = cfg.encoder
+            log(f"[f32_routes] {label}: evaluate CLI --dtype float32, SAM {enc.embed_dim} wide x "
+                f"{enc.depth}, {enc.num_heads} heads, {enc.attn_impl!r}, window "
+                f"{enc.window_size}; images_per_sec {res['images_per_sec']} (a smoke figure); CLI "
+                f"wall {wall:.1f} s; peak device memory {peak:.2f} GiB; TF32 after it {tf32}; sm "
+                f"{res['sm']} accuracy {res['accuracy']}")
+            log(f"[f32_routes] {label} kernel launches "
+                f"{({k: v for k, v in counts.items() if v})} expected "
+                f"{({k: v for k, v in expected.items() if v})}")
+            check(counts == expected, f"[f32_routes] {label}: launches {counts} != {expected}")
+            check_no_bf16_kernel(counts, f"[f32_routes] {label}")
+            runs[label] = counts
+            _route_vs_cpu(cfg, label, images[0])
+            _route_walls(cfg, label, images, gap=label == "vit_h_flash_win17")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return runs
+
+
 def main() -> None:
     if os.path.exists(LOG_FILE):
         os.remove(LOG_FILE)
@@ -3561,12 +3932,15 @@ def main() -> None:
     f32_counts = timed(phase_f32_slice)
     timed(phase_f32_train_small)
     f32_train_counts = timed(phase_f32_train_slice)
+    route_counts = timed(phase_f32_routes)
     import torch
+    from camouflaged_vlm_tpu_torch.ops import _cuda
 
     # launches: each kernel's count in the run of its own main path (the
     # split-q/k/v and padded-carry kernels' from their eval-slice
-    # configuration); the two kernels no path reaches carry their check's
-    # count and say so (`NO_PATH`)
+    # configuration, their fp32 instances' from [f32_routes]); the kernels
+    # no path reaches (#9, #19 and their fp32 instances) carry their check's
+    # count and say so (`NO_PATH`, `NO_PATH_F32`)
     ev = {label: r["counts"] for label, r in evals.items()}
     launches = {**counts, **{k: train_counts[k] for k in grads},
                 "flash_attention_relpos": ev["vit_b_flash"]["flash_attention_relpos"],
@@ -3576,21 +3950,23 @@ def main() -> None:
                 "proj_from_heads_res": ev["vit_h_flash_win17"]["proj_from_heads_res"],
                 "ln_mlp_residual_bt_f32": f32_launches,
                 **{k: (f32_counts if k in SAM_F32 else f32_train_counts if k in SAM_F32_BWD
-                       else maple_counts)[k] for k in f32}}
+                       else route_counts[ROUTE_F32[k]] if k in ROUTE_F32
+                       else f32_counts if k in NO_PATH_F32 else maple_counts)[k] for k in f32}}
+    no_path = {**NO_PATH, **NO_PATH_F32}
     kernels = [
         {"name": k, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
-         "launches": r["launches"] if k in NO_PATH else launches[k],
+         "launches": r["launches"] if k in no_path else launches[k],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "queued_ms": r["queued_ms"], "library_queued_ms": r["library_queued_ms"],
          "host_us": r.get("host_us"),
          **({"gemm_library_ms": r["gemm_library_ms"]} if "gemm_library_ms" in r else {}),
          **{k2: v for k2, v in r.items() if k2.startswith(("batch2_", "batch1_"))},
-         **({"path": r["path"]} if k in NO_PATH else {})}
+         **({"path": r["path"]} if k in no_path else {})}
         for res in (results, grads, f32) for k, r in res.items()
     ]
-    check(len(kernels) == 31 and all(e["launches"] > 0 for e in kernels)
-          and all(launches[e["name"]] == 0 for e in kernels if e["name"] in NO_PATH),
+    check(len(kernels) == len(_cuda.KERNELS) == 38 and all(e["launches"] > 0 for e in kernels)
+          and all(launches[e["name"]] == 0 for e in kernels if e["name"] in no_path),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     log("[device] name and power limit (nvidia-smi) of the card all numbers above ran on:")
     log(smi)

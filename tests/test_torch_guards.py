@@ -147,29 +147,28 @@ def test_demo_session_predicts_a_batch_on_cpu(image_path):
     assert ((pred >= 0) & (pred < 61)).all()
 
 
-# (CLI, configuration, the kernels the guard names at --dtype float32 on the
-# card): the reference configuration (CascadeConfig.full, no --config or
-# --tiny) has every fp32 instance its routes launch, the train CLI's
-# backwards (#6, #14, #18) included; the other routes' kernels have none yet
+# (CLI, configuration) at --dtype float32 on the card: every configuration of
+# the repo (the reference one, CascadeConfig.full with no --config or --tiny;
+# --tiny; the ViT-B yaml; ViT-H on 'aug_flash' and at windows 16 and 17) has
+# every fp32 instance its routes launch, the train CLI's backwards (#6, #14,
+# #18) included, so none is refused
 REF = "reference"
 GUARD_CASES = [
-    pytest.param("demo", REF, [], id="demo"),
-    pytest.param("evaluate", REF, [], id="evaluate"),
-    pytest.param("serve", REF, [], id="serve"),
-    pytest.param("bench", REF, [], id="bench"),
-    pytest.param("serve_throughput", REF, [], id="serve_throughput"),
-    pytest.param("train", REF, [], id="train"),
-    pytest.param("demo", "tiny", ["#10 flash_attention_relpos"], id="demo-tiny"),
-    pytest.param("bench", "tiny", ["#10 flash_attention_relpos"], id="bench-tiny"),
-    pytest.param("serve_throughput", "tiny", ["#10 flash_attention_relpos"],
-                 id="serve_throughput-tiny"),
-    pytest.param("evaluate", "vit_b", ["#10 flash_attention_relpos"], id="evaluate-vit_b"),
-    pytest.param("serve", "vit_b", ["#10 flash_attention_relpos"], id="serve-vit_b"),
-    pytest.param("evaluate", "aug_flash", ["#20 flash_attention_fullk"], id="evaluate-aug_flash"),
-    pytest.param("evaluate", "win16", ["#12 flash_qkv_packed_windows"], id="evaluate-win16"),
-    pytest.param("evaluate", "win17", ["#8 proj_from_heads_res", "#11 flash_qkv_relpos_windows"],
-                 id="evaluate-win17"),
-    pytest.param("train", "win16", ["#12 flash_qkv_packed_windows"], id="train-win16"),
+    pytest.param("demo", REF, id="demo"),
+    pytest.param("evaluate", REF, id="evaluate"),
+    pytest.param("serve", REF, id="serve"),
+    pytest.param("bench", REF, id="bench"),
+    pytest.param("serve_throughput", REF, id="serve_throughput"),
+    pytest.param("train", REF, id="train"),
+    pytest.param("demo", "tiny", id="demo-tiny"),
+    pytest.param("bench", "tiny", id="bench-tiny"),
+    pytest.param("serve_throughput", "tiny", id="serve_throughput-tiny"),
+    pytest.param("evaluate", "vit_b", id="evaluate-vit_b"),
+    pytest.param("serve", "vit_b", id="serve-vit_b"),
+    pytest.param("evaluate", "aug_flash", id="evaluate-aug_flash"),
+    pytest.param("evaluate", "win16", id="evaluate-win16"),
+    pytest.param("evaluate", "win17", id="evaluate-win17"),
+    pytest.param("train", "win16", id="train-win16"),
 ]
 VIT_H_YAML = "configs/ovcos-sam-vit-h-maskdecoder-edge.yaml"
 VIT_B_YAML = "camouflaged_vlm_tpu_torch/configs/ovcos-sam-vit-b-maskdecoder-edge.yaml"
@@ -197,17 +196,10 @@ def _config_flags(config, tmp_path):
     return ["--config", str(path)]
 
 
-@pytest.mark.parametrize("cli,config,missing", GUARD_CASES)
-def test_float32_on_the_card_refuses_before_the_build(cli, config, missing, image_path, tmp_path,
-                                                      no_cuda):
-    """--device cuda --dtype float32 refuses at once where the configuration's
-    routes launch a kernel with no fp32 instance yet, naming exactly those
-    kernels (before the card is even looked for, so this runs on any host),
-    rather than a TypeError inside a kernel wrapper; where none is missing
-    (the reference configuration's inference) it goes on to the card check,
-    as bfloat16 always does."""
+def _cli_run(cli, config, image_path, tmp_path):
+    """The CLI's entry (the serve CLI's engine build) and its argv at
+    --device cuda for `config`, the dtype left to add."""
     import importlib
-    import re
 
     mod = importlib.import_module(f"camouflaged_vlm_tpu_torch.cli.{cli}")
     info = tmp_path / "dataset_info.yaml"
@@ -217,15 +209,49 @@ def test_float32_on_the_card_refuses_before_the_build(cli, config, missing, imag
              "train": ["--dataset-info", str(info), "--save-dir", str(tmp_path / "out")]}
     argv = [*_config_flags(config, tmp_path), "--device", "cuda", *extra.get(cli, [])]
     run = (lambda a: mod.build_engine(mod.parse_args(a))) if cli == "serve" else mod.main
-    if missing:
-        with pytest.raises(NotImplementedError) as err:
-            run(argv + ["--dtype", "float32"])
-        msg = str(err.value)
-        assert msg.startswith("--device cuda with float32") and "ROADMAP.md Queue 2" in msg
-        assert re.findall(r"#\d+ \w+", msg) == missing
-    else:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            run(argv + ["--dtype", "float32"])
+    return run, argv
+
+
+@pytest.mark.parametrize("cli,config", GUARD_CASES)
+def test_float32_on_the_card_refuses_before_the_build(cli, config, image_path, tmp_path,
+                                                      no_cuda):
+    """--device cuda --dtype float32 goes on to the card check, as bfloat16
+    always does, for every CLI on every configuration of the repo: no route
+    launches a kernel without an fp32 instance, so the guard refuses none
+    (`test_float32_guard_names_a_hidden_instance` holds its refusal); on a
+    host without a card both stop there, before anything is built or
+    written."""
+    run, argv = _cli_run(cli, config, image_path, tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(argv + ["--dtype", "float32"])
+    assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(argv + ["--dtype", "bfloat16"])
+
+
+@pytest.mark.parametrize("cli,config,hidden", [
+    ("evaluate", "vit_b", "flash_attention_relpos"),
+    ("train", "win17", "proj_from_heads_res"),
+])
+def test_float32_guard_names_a_hidden_instance(cli, config, hidden, image_path, tmp_path,
+                                               monkeypatch, no_cuda):
+    """With one route's fp32 instance hidden (`_cuda.has_f32_instance` false
+    for it), --device cuda --dtype float32 refuses at once, before the card
+    is looked for, naming exactly that kernel in the guard's message, rather
+    than a TypeError inside a kernel wrapper; bfloat16 goes on to the card
+    check."""
+    from camouflaged_vlm_tpu_torch.cli.common import TPU_KERNEL
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    has = _cuda.has_f32_instance
+    monkeypatch.setattr(_cuda, "has_f32_instance", lambda name: name != hidden and has(name))
+    run, argv = _cli_run(cli, config, image_path, tmp_path)
+    with pytest.raises(NotImplementedError) as err:
+        run(argv + ["--dtype", "float32"])
+    assert str(err.value) == (
+        "--device cuda with float32: this configuration's path launches kernels with no fp32 "
+        f"instance yet: {TPU_KERNEL[hidden]} {hidden} (ROADMAP.md Queue 2). Run --dtype "
+        "bfloat16 on the card, or float32 with --device cpu.")
     assert not (tmp_path / "out").exists()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run(argv + ["--dtype", "bfloat16"])
@@ -332,14 +358,35 @@ def test_train_cli_turns_tf32_off_in_float32_on_the_card(monkeypatch, tmp_path):
     (dict(img_size=320, window_size=16), ["#8", "#11", "#12"]),     # padded carry, grid 20
     (dict(img_size=320, window_size=17), ["#8", "#11"]),
 ])
-def test_fp32_guard_names_what_the_refused_routes_call(kernel_names, enc, missing):
-    """For each refused configuration (tiny widths, fp32 on the CPU) the
-    kernels the guard names are among those the SAM encoder calls."""
-    from camouflaged_vlm_tpu_torch.cli.common import fp32_missing_kernels
+def test_fp32_guard_names_what_the_refused_routes_call(kernel_names, monkeypatch, enc, missing):
+    """The four routes off the reference configuration's (tiny widths, fp32
+    on the CPU): the kernels the whole cascade calls are exactly the guard's
+    (`cascade_kernels`), each with an fp32 instance, so the guard passes
+    them; with the instances of the route's own kernels (`missing`: #10;
+    #20; #12, #11 + #8 of the padded carry and its global blocks of 400
+    tokens, H + W = 40; #11 + #8) hidden, it names exactly those."""
+    from camouflaged_vlm_tpu_torch.cli.common import (
+        TPU_KERNEL,
+        cascade_kernels,
+        fp32_missing_kernels,
+    )
+    from camouflaged_vlm_tpu_torch.factory import make_bank_inputs
+    from camouflaged_vlm_tpu_torch.ops import _cuda
 
     cfg = _tiny_fp32(**enc)
-    named = fp32_missing_kernels(cfg)
-    assert [m.split()[0] for m in named] == missing
+    model = build_cascade(cfg, "cpu", seed=0)
+    rng = np.random.default_rng(0)
+    bank = make_bank_inputs(cfg, ["cat", "owl"], seed=0, device="cpu")
+    C, S = cfg.clip_size, cfg.inp_size
     with torch.no_grad():
-        ImageEncoderViT(cfg.encoder)(torch.randn(1, cfg.inp_size, cfg.inp_size, 3))
-    assert {m.split()[1] for m in named} <= kernel_names
+        model.infer_cascade(torch.from_numpy(rng.standard_normal((1, S, S, 3), dtype=np.float32)),
+                            torch.from_numpy(rng.standard_normal((1, C, C, 3), dtype=np.float32)),
+                            torch.ones(1, C, C, 1), bank["prefix"], bank["suffix"],
+                            bank["eot_indices"], bank["bank_features"])
+    assert kernel_names == set(cascade_kernels(cfg))
+    assert all(_cuda.has_f32_instance(k) for k in kernel_names)
+    assert fp32_missing_kernels(cfg) == [] and fp32_missing_kernels(cfg, training=True) == []
+    own = {k for k in kernel_names if TPU_KERNEL[k] in missing}
+    has = _cuda.has_f32_instance
+    monkeypatch.setattr(_cuda, "has_f32_instance", lambda name: name not in own and has(name))
+    assert [m.split()[0] for m in fp32_missing_kernels(cfg)] == missing

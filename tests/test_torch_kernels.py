@@ -1077,3 +1077,154 @@ def test_padded_carry_gradients_are_the_plain_vjp(gen):
         want = torch.autograd.grad(ref(*leaves), leaves, g)
         for a, b in zip(got, want):  # the same plain backward: fp32 summation order only
             assert ((a.float() - b.float()).abs().max() / b.float().abs().max()).item() < 1e-5
+
+
+# ---------------- the fp32 instances of #10, #20, #12, #11, #19, #8 and #9
+
+
+@pytest.mark.parametrize("BB,H,W,d", [(6, 14, 14, 64), (2, 64, 64, 64), (3, 17, 17, 80),
+                                      (2, 5, 6, 64), (1, 9, 7, 80)])
+def test_flash_attention_relpos_kernel_float32(gen, no_tf32, BB, H, W, d):
+    """#10's fp32 instance (csrc/qkv_relpos_f32.cu over split rows): SAM
+    ViT-B's windows (196 tokens: the last key tile ragged) and global grid
+    (4096, 128 lanes), 289 tokens at d 80, ragged ones; q pre-scaled as the
+    encoder gives it. Any other d raises."""
+    f32, N = torch.float32, H * W
+    args = (rn(gen, BB, N, d, std=d ** -0.5, dtype=f32), rn(gen, BB, N, d, dtype=f32),
+            rn(gen, BB, N, d, dtype=f32), rn(gen, BB, N, H + W, dtype=f32),
+            flash_attention.make_rel_scatter(H, W, f32, torch.device("cuda")))
+    before = (_cuda.ATTN_RELPOS_F32.launches, _cuda.ATTN_RELPOS.launches)
+    got = flash_attention.flash_attention_relpos(*args, H, W)
+    assert (_cuda.ATTN_RELPOS_F32.launches, _cuda.ATTN_RELPOS.launches) == (before[0] + 1,
+                                                                            before[1])
+    assert_close_f32(got, flash_attention.xla_attention_relpos(*args))
+    small = [t[..., :32] if i < 3 else t for i, t in enumerate(args)]
+    with pytest.raises(ValueError, match="takes d in"):
+        flash_attention.flash_attention_relpos(*(t.contiguous() for t in small), H, W)
+
+
+@pytest.mark.parametrize("BB,N,dqk,dv", [(2, 4096, 208, 80), (3, 1024, 128, 64),
+                                         (2, 196, 208, 80), (1, 289, 128, 64), (2, 7, 208, 80)])
+def test_flash_attention_fullk_kernel_float32(gen, no_tf32, BB, N, dqk, dv):
+    """#20's fp32 instance (csrc/attn_fullk_f32.cu) at ViT-H's 'aug_flash'
+    global blocks (4096 tokens, d_qk 208, dv 80), the small 'aug_flash'
+    cascade's (1024, 128, 64), and ragged token counts; its shared memory
+    one block's; any other depth raises."""
+    f32 = torch.float32
+    args = (rn(gen, BB, N, dqk, std=dqk ** -0.5, dtype=f32), rn(gen, BB, N, dqk, dtype=f32),
+            rn(gen, BB, N, dv, dtype=f32))
+    before = (_cuda.ATTN_FULLK_F32.launches, _cuda.ATTN_FULLK.launches)
+    got = flash_attention.flash_attention_fullk(*args)
+    assert (_cuda.ATTN_FULLK_F32.launches, _cuda.ATTN_FULLK.launches) == (before[0] + 1,
+                                                                          before[1])
+    assert_close_f32(got, flash_attention.flash_attention_fullk_ref(*args))
+    assert _cuda.attn_fullk_f32_smem(dqk, dv) <= 227 * 1024
+    with pytest.raises(ValueError, match="takes \\(d_qk, dv\\)"):
+        flash_attention.flash_attention_fullk(args[0][..., :96].contiguous(),
+                                              args[1][..., :96].contiguous(), args[2])
+
+
+@pytest.mark.parametrize("B,nwin,win,heads,d", [(2, 16, 16, 2, 80), (1, 25, 15, 2, 80),
+                                                (2, 3, 4, 8, 64), (1, 1, 16, 1, 64),
+                                                (2, 4, 15, 16, 80)])
+def test_flash_qkv_packed_windows_kernel_float32(gen, no_tf32, B, nwin, win, heads, d):
+    """#12's fp32 instance (csrc/qkv_windows_f32.cu): window-major rel;
+    windows of 16 (ViT-H; 256 keys, 4 tiles), 15 (225: ragged, rows of the
+    padded stride 232; also at ViT-H's 16 heads), 4, and a 16 x 16 global
+    block."""
+    f32, Nw = torch.float32, win * win
+    sel32 = flash_attention.make_rel_scatter32(win, f32, torch.device("cuda"))
+    args = (rn(gen, B, nwin, Nw, 3 * heads * d, dtype=f32),
+            rn(gen, B, nwin, Nw, heads * 32, dtype=f32), sel32, d ** -0.5, heads, d)
+    before = (_cuda.QKV_WINDOWS_PADDED_F32.launches, _cuda.QKV_WINDOWS_PADDED.launches)
+    got = flash_attention.flash_qkv_packed_windows(*args)
+    assert (_cuda.QKV_WINDOWS_PADDED_F32.launches, _cuda.QKV_WINDOWS_PADDED.launches) == (
+        before[0] + 1, before[1])
+    assert got.stride(-2) == -(-Nw // 8) * 8  # proj_rows' padded d-major rows
+    assert_close_f32(got, flash_attention.flash_qkv_packed_windows_ref(*args))
+
+
+@pytest.mark.parametrize("B,nwin,H,W,heads,d", [(2, 4, 17, 17, 2, 80), (1, 3, 14, 14, 2, 64),
+                                                (1, 1, 20, 20, 2, 80), (1, 2, 18, 18, 16, 80),
+                                                (1, 3, 5, 6, 3, 64)])
+def test_flash_qkv_relpos_windows_kernel_float32(gen, no_tf32, B, nwin, H, W, heads, d):
+    """#11's fp32 instance (csrc/qkv_relpos_f32.cu over the packed rows):
+    windows of 17 (289 keys, 34 lanes: head h's rel 8 bytes off a 16-byte
+    boundary) and 14 (196), a 20 x 20 global block (H + W 40), 18 at ViT-H's
+    16 heads, a ragged non-square one; head-leading out."""
+    f32, N = torch.float32, H * W
+    qkv = rn(gen, B, nwin, N, 3 * heads, d, dtype=f32)
+    rel = rn(gen, B, nwin, N, heads, H + W, dtype=f32)
+    sel = flash_attention.make_rel_scatter(H, W, f32, torch.device("cuda"))
+    before = (_cuda.QKV_RELPOS_WINDOWS_F32.launches, _cuda.QKV_RELPOS_WINDOWS.launches)
+    got = flash_attention.flash_qkv_relpos_windows(qkv, rel, sel, d ** -0.5, H, W)
+    assert (_cuda.QKV_RELPOS_WINDOWS_F32.launches, _cuda.QKV_RELPOS_WINDOWS.launches) == (
+        before[0] + 1, before[1])
+    assert_close_f32(got, flash_attention.flash_qkv_relpos_windows_ref(qkv, rel, sel, d ** -0.5))
+
+
+@pytest.mark.parametrize("B,H,W,heads,d", [(2, 64, 64, 2, 80), (1, 6, 10, 3, 64),
+                                           (1, 4, 70, 2, 64)])
+def test_flash_qkv_relpos_global_kernel_float32(gen, no_tf32, B, H, W, heads, d):
+    """#19's fp32 instance (#11's over one window, its own count): the 64 x
+    64 grid (128 lanes), a ragged 6 x 10 one and 4 x 70 (74 lanes)."""
+    f32, N = torch.float32, H * W
+    qkv, rel = rn(gen, B, N, 3 * heads, d, dtype=f32), rn(gen, B, N, heads, H + W, dtype=f32)
+    sel = flash_attention.make_rel_scatter(H, W, f32, torch.device("cuda"))
+    before = (_cuda.QKV_RELPOS_GLOBAL_F32.launches, _cuda.QKV_RELPOS_GLOBAL.launches,
+              _cuda.QKV_RELPOS_WINDOWS_F32.launches)
+    got = flash_attention.flash_qkv_relpos_global(qkv, rel, sel, d ** -0.5, H, W)
+    assert (_cuda.QKV_RELPOS_GLOBAL_F32.launches, _cuda.QKV_RELPOS_GLOBAL.launches,
+            _cuda.QKV_RELPOS_WINDOWS_F32.launches) == (before[0] + 1, before[1], before[2])
+    assert_close_f32(got, flash_attention.flash_qkv_relpos_global_ref(qkv, rel, sel, d ** -0.5))
+
+
+@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("with_res,B,heads,T,S,d,N", [
+    (True, 2, 16, 16, 289, 80, 1280), (False, 2, 16, 16, 289, 80, 1280),
+    (True, 2, 4, 3, 37, 80, 96), (False, 1, 2, 5, 70, 64, 132), (True, 1, 3, 2, 33, 8, 68)])
+def test_proj_from_heads_kernel_float32(gen, monkeypatch, no_tf32, tile, with_res, B, heads, T,
+                                        S, d, N):
+    """#8's (with the residual) and #9's (without) fp32 instances, each with
+    its own count: the window-17 shape of the main path (2, 16, 16, 289, 80)
+    -> 1280, and ragged rows and widths (d 80, 64 and 8: 16-column k tiles
+    that span two heads at d 8); each tile."""
+    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    f32 = torch.float32
+    x = rn(gen, B, heads, T, S, d, dtype=f32)
+    w, b = rn(gen, N, heads * d, std=0.05, dtype=f32), rn(gen, N, std=0.1, dtype=f32)
+    kernels = ((_cuda.PROJ_HEADS_RES_F32, _cuda.PROJ_HEADS_RES) if with_res
+               else (_cuda.PROJ_HEADS_F32, _cuda.PROJ_HEADS))
+    before = tuple(k.launches for k in kernels)
+    res = rn(gen, B, T, S, N, dtype=f32) if with_res else None
+    got = (linear.proj_from_heads_res(x, w, b, res) if with_res
+           else linear.proj_from_heads(x, w, b))
+    assert tuple(k.launches for k in kernels) == (before[0] + 1, before[1])
+    assert_close_f32(got, linear.proj_from_heads_ref(x, w, b, res))
+
+
+def test_fp32_route_kernels_are_deterministic_and_take_the_plain_vjp(gen, no_tf32):
+    """No atomics: two calls of the fp32 #11 and #8 on the same inputs are
+    bit-equal; a gradient through the fp32 #10 launches it once and is
+    autograd's gradient of the plain version."""
+    f32, H, heads, d = torch.float32, 17, 2, 80
+    sel = flash_attention.make_rel_scatter(H, H, f32, torch.device("cuda"))
+    qkv, rel = rn(gen, 1, 2, H * H, 3 * heads, d, dtype=f32), rn(gen, 1, 2, H * H, heads, 2 * H,
+                                                               dtype=f32)
+    assert torch.equal(flash_attention.flash_qkv_relpos_windows(qkv, rel, sel, 0.1, H, H),
+                       flash_attention.flash_qkv_relpos_windows(qkv, rel, sel, 0.1, H, H))
+    args = (rn(gen, 2, 4, 3, 37, 80, dtype=f32), rn(gen, 96, 320, std=0.05, dtype=f32),
+            rn(gen, 96, dtype=f32), rn(gen, 2, 3, 37, 96, dtype=f32))
+    assert torch.equal(linear.proj_from_heads_res(*args), linear.proj_from_heads_res(*args))
+    N = H * H
+    leaves = [rn(gen, 3, N, 64, std=0.2, dtype=f32), rn(gen, 3, N, 64, dtype=f32),
+              rn(gen, 3, N, 64, dtype=f32), rn(gen, 3, N, 2 * H, dtype=f32)]
+    leaves = [t.requires_grad_(True) for t in leaves]
+    before = _cuda.ATTN_RELPOS_F32.launches
+    out = flash_attention.flash_attention_relpos(*leaves, sel, H, H)
+    assert _cuda.ATTN_RELPOS_F32.launches == before + 1
+    g = rn(gen, *out.shape, dtype=f32)
+    got = torch.autograd.grad(out, leaves, g)
+    want = torch.autograd.grad(flash_attention.xla_attention_relpos(*leaves, sel), leaves, g)
+    for a, b in zip(got, want):
+        assert ((a - b).abs().max() / b.abs().max()).item() < 1e-5
