@@ -45,14 +45,16 @@ instances on csrc/attn_f32.cuh's loop at chip_smoke.py [f32_kernels]'
 shapes (`f32_attention_cases`: #16 at MaPLe's, #13, #15 and #17 at SAM
 ViT-H's at batch 1 and 2, the backwards #14 and #18 at batch 2) on seeded
 inputs, one JSON line each with the SHA-256 of its output bytes and its
-idle-card time; --against FILE (another checkout's lines) adds whether each
-output is bit-equal to that checkout's.
+idle-card time (the backwards' also by kernel, from torch.profiler);
+--against FILE (another checkout's lines) adds whether each output is
+bit-equal to that checkout's.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -357,7 +359,8 @@ def kernel_device_ms(call, iters=5):
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
         if t and "cvlm" in e.key:
-            name = re.sub(r"^void |<.*$|\(.*$", "", e.key).replace("cvlm::", "")
+            name = re.sub(r"\(anonymous namespace\)::", "", e.key)
+            name = re.sub(r"^void |<.*$|\(.*$", "", name).replace("cvlm::", "")
             out[name] = out.get(name, 0.0) + t / 1e3 / iters
     return out
 
@@ -448,17 +451,24 @@ def f32_attention_cases(rn):
     B = 2
     qw, rw, gw = rn(B * nf, WIN * WIN, 3 * NH * HD), rn(WIN * WIN, B * nf, NH * 32), \
         rn(B * nf, NH * HD, WIN * WIN)
+    # a checkout whose fp32 backward forms t = sum g o takes the forward's
+    # output o: the fp32 forward kernel's, made outside the timed call
+    bwd_o = "o" in inspect.signature(fa.flash_qkv_packed_global_bwd).parameters
+    kw = {"o": fa.flash_qkv_packed_windows_s(qw, rw, sel32, sc, NH, HD)} if bwd_o else {}
     out.append(("flash_qkv_packed_windows_s_bwd_f32", "SAM ViT-H batch 2",
-                lambda: fa.flash_qkv_packed_windows_s_bwd(qw, rw, sel32, gw, sc, NH, HD)))
+                lambda: fa.flash_qkv_packed_windows_s_bwd(qw, rw, sel32, gw, sc, NH, HD, **kw)))
     qg, rg, gg = rn(B, G * G, 3 * NH * HD), rn(G * G, B, NH, 2 * G), rn(B, NH * HD, G * G)
+    kg = {"o": fa.flash_qkv_packed_global(qg, rg, sel_g, sc, NH, HD, G, G)} if bwd_o else {}
     out.append(("flash_qkv_packed_global_bwd_f32", "SAM ViT-H batch 2",
-                lambda: fa.flash_qkv_packed_global_bwd(qg, rg, sel_g, gg, sc, NH, HD, G, G)))
+                lambda: fa.flash_qkv_packed_global_bwd(qg, rg, sel_g, gg, sc, NH, HD, G, G, **kg)))
     return out
 
 
 def f32_attention(smoke, label, against):
     """One JSON line per `f32_attention_cases` case: the SHA-256 of its
-    outputs' bytes and its idle-card median time (`chip_smoke.time_ms`);
+    outputs' bytes and its idle-card median time (`chip_smoke.time_ms`),
+    for the backwards also each of their kernels' device ms a call
+    (`kernel_device_ms`);
     with `against` (a JSONL file of another checkout's lines), whether the
     outputs are bit-equal to that checkout's."""
     import hashlib
@@ -487,6 +497,8 @@ def f32_attention(smoke, label, against):
                 h.update(t.contiguous().cpu().numpy().tobytes())
             rec = dict(label=label, name=name, site=site, sha256=h.hexdigest(),
                        ms=smoke.time_ms(call))
+            if name.endswith("_bwd_f32"):  # the backward's launches, each kernel's device ms
+                rec["device_ms"] = kernel_device_ms(call)
             if against:
                 rec["bit_equal_to"] = {against: other.get((name, site)) == rec["sha256"]}
             print(json.dumps(rec), flush=True)

@@ -1,11 +1,12 @@
 // attn_bwd_f32: the backward of SAM's rel-pos attention in float32, per
 // (image or window, head)
 //   o = softmax((q*scale) . k^T + rel[q, k / W] + rel[q, H + k % W]) . v,
-// given g = dL/do (d-major), writing dq, dk, dv into the packed qkv rows and
-// drel into rel's own position-major layout. All in float32, no rounding
-// point: the formulas of `attention_bwd_ref` at fp32,
-//   P = softmax(s),  dP = g . v^T,  t = sum_k dP * P,  dS = P * (dP - t),
-//   dv = P^T . g,  dq = scale * dS . k,  dk = scale * dS^T . q (q unscaled),
+// given g = dL/do (d-major) and the forward's output o, writing dq, dk, dv
+// into the packed qkv rows and drel into rel's own position-major layout.
+// All in float32, no rounding point: the formulas of `attention_bwd_ref`,
+//   P = softmax(s),  dP = g . v^T,  t = sum_k dP * P = sum_c g * o,
+//   dS = P * (dP - t),  dv = P^T . g,  dq = scale * dS . k,
+//   dk = scale * dS^T . q (q unscaled),
 //   drel[q, a] = sum of dS[q, k] over the keys k of rel lane a.
 //
 // Replaces two TPU backward kernels of camouflaged_vlm_tpu/ops/flash_attention.py
@@ -24,500 +25,636 @@
 // 2 N^2 d a (problem, head): the scores, dP, dv, dq and dk; #14 15.7 GFLOP
 // and #18 429.5 GFLOP at batch 2, 0.235 and 6.41 ms at 67 TFLOP/s.
 //
-// Design: attn_f32.cuh's tiles (64 x 64, 256 threads, each thread a 4 x 4
-// block of scores, fp32 FFMA chains), two launches and no atomics, so that
-// two calls on the same inputs are bit-equal:
-//   the query pass, one block per (64-query tile, problem * heads + h): q
-//     (scaled on load), g (read from its d-major rows, coalesced along the
-//     queries) and the tile's H + W rel lanes stay in shared memory. Sweep 1
-//     over the key tiles computes S and dP and keeps each row's running max,
-//     sum and t = sum exp(s - m) dP online, rescaled with the max as the sum
-//     is (the Function keeps only its inputs, as the JAX custom_vjp does, so
-//     no forward output is at hand for t); t /= sum at the end. Sweep 2
-//     computes S and dP again (the same chains, so the same values), P =
-//     exp(s - m) / sum and dS = P (dP - t), stages dS in shared memory, adds
-//     dS . k into dq and the tile's drel: each (row, lane) sum over the
-//     tile's keys of that lane is formed by one thread in key order and
-//     added to the row's fp32 lane accumulator in shared memory, tile after
-//     tile. It writes dq, drel (every lane of rel's layout, 0 past H + W)
-//     and the rows' (max, 1/sum, t) for the key pass.
-//   the key pass, one block per (64-key tile, problem * heads + h): k^T and
-//     v^T stay in shared memory; per query tile it stages q (scaled, and as
-//     rows unscaled), g (transposed and as rows), the rel rows and the
-//     statistics, computes S^T and dP^T by the same chains, rebuilds P^T and
-//     dS^T from the statistics, and adds P^T . g into dv and dS^T . q into
-//     dk. It writes dk and dv.
-// 64-key tiles over N leave a ragged last one (196 = 3 * 64 + 4): keys past
-// N score -inf in the query pass and are neither read for their bias nor
-// stored in the key pass; queries past N are zero rows with zero statistics
-// (1/sum = 0), so they add nothing to dk and dv, and are not stored.
-//
-// Dynamic shared memory at d = 80: the query pass 4 (4 * 80 * 68 + 64 * 80 +
-// 64 * 68 + 64 L + 65 L) bytes (190,976 B at the global blocks' L = 128,
-// 139,376 B at the windows' 28 lanes), the key pass 4 (4 * 80 * 68 + 2 * 64
-// * 80 + 2 * 64 * 68 + 64 L) + 1,024 (196,608 B at L = 128): one block an
-// SM, so each thread may hold up to 255 registers (launch bounds (256, 1)).
-// The lanes bound it: L <= MAX_LANES (ops/flash_attention.py
+// Design: six products and one round trip of dS through device memory,
+// three kernels of 256 threads, no atomics (two calls on the same inputs
+// are bit-equal), every score s = scale * (q . k) + bias by one FFMA chain
+// over c ascending in both kernels that form it (so P <= 1 holds exactly):
+//   stats, one block per (128-query tile, problem * heads + h): S alone
+//     over 128-key tiles (k double-buffered by cp.async), each thread 8 x 8
+//     scores, each row's max and sum online; t = sum_c g o from the forward's
+//     output instead of a dP sweep, and g's d-major rows turned into rows
+//     (gt) for the key kernel. Writes each row's (max, 1/sum, t).
+//   key, one block per (128-key tile, problem * heads + h), its k and v
+//     rows resident; steps of 32 queries, whose q and g rows, rel slots and
+//     statistics cp.async brings a step ahead (double-buffered). The two
+//     warpgroups split the four products, each thread 8 keys x 4 queries of
+//     the scores beside 8 keys x d / 8 columns of dv or dk: the first forms
+//     S^T and P from the statistics (into shared memory), then dv += P^T .
+//     g; the second forms dP^T, waits on a named barrier for P, writes dS =
+//     P (dP - t) into shared memory and, key-major, into a scratch dS^T,
+//     then dk += dS^T . q.
+//   query, one block per (128-query tile, problem * heads + h): dS^T and k
+//     streamed in 64-key steps (cp.async, double-buffered); dq = scale * dS
+//     . k, each thread 4 rows x d / 8 columns. drel of each step after it,
+//     every sum in key order: on the W = 64 grid (a step is one grid row kh)
+//     in registers, a thread's rel_w lanes 8 m + tc of its 4 rows summed
+//     step after step and rel_h lane kh the step's row sum, a fixed-order
+//     shuffle over the 8 threads of a row; on other grids each (row, lane)
+//     by one thread, added to the steps before: rel_h lanes in drel's rows,
+//     rel_w lanes in shared memory where W <= 128, else in drel's rows too
+//     (the block owns them).
+// The bias of a key tile: the rel lanes it touches (all W rel_w lanes where
+// W <= 128, else one a key, then its rel_h lanes) are slots of a table of
+// the query rows' values, at most 130 whatever H + W is, so the lanes are
+// bounded only by the forward's H + W <= 512 (ops/flash_attention.py
 // F32_GLOBAL_BWD_MAX_LANES).
-#include "attn_f32.cuh"
+// Ragged tiles: keys past N score -inf (stats) or get P = 0 (key), queries
+// past N are zero rows with zero statistics, so they add nothing and are
+// not stored. The scratch holds a chunk of (problem, head) pairs at a time
+// (the wrapper sizes it; NP = N rounded up to 128): the host queues key and
+// query kernels chunk by chunk.
+//
+// Dynamic shared memory at d = 80 (`cvlm_attn_bwd_f32_smem`): stats 197,120
+// B, key 198,416 B, query 178,176 B; one block of 8 warps an SM, each thread
+// up to 255 registers (launch bounds (256, 1)).
+#include <stdint.h>
+
+#include "common.cuh"
 
 namespace cvlm {
 namespace f32bwd {
 namespace {
 
-using f32attn::AK;
-using f32attn::AL;
-using f32attn::AQ;
-using f32attn::AT;
-using f32attn::out_col;
+constexpr int T = 256;           // threads a block, all three kernels
+constexpr int BQ = 128;          // query rows of a stats and of a query block
+constexpr int BK = 128;          // keys of a stats tile and of a key block
+constexpr int KQ = 32;           // query rows of a key-kernel step
+constexpr int QK = 64;           // keys of a query-kernel step (one grid row at W = 64)
+constexpr int NSLOT = 130;       // rel lanes a key tile touches, at most
+constexpr int LDR = NSLOT + 1;   // row stride of the slot tables (odd: rows spread over banks)
+constexpr int LDP = BK + 4;      // row stride of P, dS and the dS^T steps
+constexpr int WS = 128;          // rel_w lanes the query kernel sums in shared memory
+constexpr int LDW = BQ + 4;
+constexpr int MAX_LANES = 512;   // ops/flash_attention.py F32_GLOBAL_BWD_MAX_LANES
+constexpr int WIN_LANES = 32;    // #14's rel lanes a head
+constexpr size_t SMEM_MAX = 232448;
 
-constexpr int MAX_LANES = 192;         // ops/flash_attention.py F32_GLOBAL_BWD_MAX_LANES
-constexpr size_t SMEM_MAX = 232448;    // dynamic shared memory a block may have (227 KB)
-constexpr int DRS = AQ + 1;            // the drel accumulators' row stride
+// where the query kernel sums drel's rel_w lanes
+enum Wsum { W_REG = 0, W_SHARED = 1, W_DREL = 2 };
+
+// the row stride of q, k, v and g rows in shared memory: 16-byte aligned,
+// 8 rows apart or 4 rows in a row land on distinct banks
+template <int D>
+__host__ __device__ constexpr int ldq() {
+  return D + 4;
+}
+
+template <int D>
+constexpr size_t stats_smem() {
+  return sizeof(float) * (3 * (size_t)BQ * ldq<D>() + (size_t)BQ * LDR + BQ) + sizeof(int) * BK;
+}
+
+template <int D>
+constexpr size_t key_smem() {
+  return sizeof(float) * (2 * (size_t)BK * ldq<D>() + 4 * (size_t)KQ * ldq<D>() +
+                          2 * (size_t)KQ * LDP + 2 * (size_t)KQ * LDR) +
+         sizeof(float4) * 2 * KQ + sizeof(int) * (BK + NSLOT + 2);
+}
+
+template <int D>
+constexpr size_t query_smem() {
+  return sizeof(float) * (2 * ((size_t)QK * LDP + (size_t)QK * ldq<D>()) + (size_t)WS * LDW);
+}
 
 struct BwdArgs {
   const float* qkv;  // (P, N, 3 * heads * D)
   const float* rel;  // (query n, problem p, head h, lane l) at n * rq + p * rp + h * lph + l
   const float* g;    // (P, heads * D, N)
+  const float* o;    // the forward's output, (P, heads * D, N) with row stride ldo
   float* dqkv;       // like qkv
   float* drel;       // like rel
   float4* stats;     // (P * heads, N): each query row's (max, 1/sum, t, 0)
-  int N, heads, H, W, lph;
-  long long rq, rp;
+  float* gt;         // (P * heads, N, D): g as rows
+  float* dst;        // (chunk, NP, NP): the chunk's dS^T, key-major
+  int N, NP, heads, H, W, lph;
+  long long rq, rp, ldo;
   float scale;
 };
 
-template <int D>
-size_t query_smem(int L) {
-  return sizeof(float) * (4 * (size_t)D * AL + (size_t)AK * D + (size_t)AK * AL + (size_t)AQ * L +
-                          (size_t)L * DRS);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int D>
-size_t key_smem(int L) {
-  return sizeof(float) * (4 * (size_t)D * AL + 2 * (size_t)AQ * D + 2 * (size_t)AQ * AL +
-                          (size_t)AQ * L) +
-         sizeof(float4) * AQ;
+// 16 or 4 bytes global -> shared, zero-filled where `valid` is false
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
 }
 
-// the rel lanes (H + W) of rows r0 .. r0 + 63 into Rs[r][lane], rows past N zero
-__device__ __forceinline__ void load_rel_rows(float* Rs, const BwdArgs& a, const float* rel,
-                                              int r0, int L) {
-  for (int idx = threadIdx.x; idx < AQ * L; idx += AT) {
-    const int r = idx / L, l = idx % L;
-    Rs[idx] = r0 + r < a.N ? rel[(size_t)(r0 + r) * a.rq + l] : 0.f;
-  }
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 
-// g's d-major rows D x 64 from column r0 into Gt[c][r] (and, where Gr is
-// given, Gr[r][c]), columns past N zero; coalesced along the queries
-template <int D>
-__device__ __forceinline__ void load_g(float (*Gt)[AL], float (*Gr)[D], const float* gbase,
-                                       int r0, int N) {
-  for (int idx = threadIdx.x; idx < D * AQ; idx += AT) {
-    const int c = idx / AQ, r = idx % AQ;
-    const float v = r0 + r < N ? gbase[(size_t)c * N + r0 + r] : 0.f;
-    Gt[c][r] = v;
-    if (Gr != nullptr) Gr[r][c] = v;
-  }
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// the bias of a query row (its rel lanes at rr) for key `key` < N
-__device__ __forceinline__ float bias(const float* rr, int key, int H, int W) {
-  return rr[key / W] + rr[H + key % W];
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// S (scores with their bias, keys past N at -inf) and dP of rows 4 ty + i
-// against keys 4 tx + j: the chains both passes run, in the same order
-template <int D>
-__device__ __forceinline__ void scores_q(float (&s)[4][4], float (&dp)[4][4],
-                                         const float (*Qs)[AL], const float (*Gs)[AL],
-                                         const float (*Kt)[AL], const float (*Vt)[AL],
-                                         const float* Rs, int L, int j0, int tx, int ty,
-                                         const BwdArgs& a) {
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// The rel lanes of key tile [k0, kend): nw rel_w slots first (lane H + s
+// where W <= BK, else H + (k0 + s) % W, one a key), then nh rel_h slots
+// (lanes k0 / W ..). Key j's two slots pack as w | h << 16.
+struct Slots {
+  int nw, nh;
+};
+
+__device__ __forceinline__ Slots tile_slots(int k0, int kend, int W) {
+  return Slots{W <= BK ? W : kend - k0, (kend - 1) / W - k0 / W + 1};
+}
+
+__device__ __forceinline__ int slot_lane(int s, const Slots& sl, int k0, int H, int W) {
+  return s < sl.nw ? H + (W <= BK ? s : (k0 + s) % W) : k0 / W + s - sl.nw;
+}
+
+__device__ __forceinline__ int key_slots(int key, const Slots& sl, int k0, int W) {
+  const int w = W <= BK ? key % W : key - k0;
+  return w | ((sl.nw + key / W - k0 / W) << 16);
+}
+
+// acc[a][b] = sum over c of X[xa + sa a][c] * Y[yb + 16 b][c], c ascending:
+// the one FFMA chain of every score (stats and key kernels) and of dP
+template <int D, int NA>
+__device__ __forceinline__ void dot(float (&acc)[NA][8], const float* X, int xa, int sa,
+                                    const float* Y, int yb) {
+  constexpr int LQ = ldq<D>();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int a = 0; a < NA; ++a)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D; ++c) {
-    const float4 qa = *reinterpret_cast<const float4*>(&Qs[c][4 * ty]);
-    const float4 ga = *reinterpret_cast<const float4*>(&Gs[c][4 * ty]);
-    const float4 kb = *reinterpret_cast<const float4*>(&Kt[c][4 * tx]);
-    const float4 vb = *reinterpret_cast<const float4*>(&Vt[c][4 * tx]);
-    const float q[4] = {qa.x, qa.y, qa.z, qa.w}, gg[4] = {ga.x, ga.y, ga.z, ga.w};
-    const float k[4] = {kb.x, kb.y, kb.z, kb.w}, v[4] = {vb.x, vb.y, vb.z, vb.w};
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < D; c += 4) {
+    float4 x[NA];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int a = 0; a < NA; ++a) x[a] = *reinterpret_cast<const float4*>(X + (xa + sa * a) * LQ + c);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(q[i], k[j], s[i][j]);
-        dp[i][j] = fmaf(gg[i], v[j], dp[i][j]);
+    for (int b = 0; b < 8; ++b) {
+      const float4 y = *reinterpret_cast<const float4*>(Y + (yb + 16 * b) * LQ + c);
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        acc[a][b] = fmaf(x[a].x, y.x, acc[a][b]);
+        acc[a][b] = fmaf(x[a].y, y.y, acc[a][b]);
+        acc[a][b] = fmaf(x[a].z, y.z, acc[a][b]);
+        acc[a][b] = fmaf(x[a].w, y.w, acc[a][b]);
       }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int key = j0 + 4 * tx + j;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      s[i][j] = key < a.N ? s[i][j] + bias(Rs + (4 * ty + i) * L, key, a.H, a.W) : -INFINITY;
-  }
-}
-
-// the key tile j0 .. j0 + 63 of k and v into Kt[c][j], Vt[c][j] (and k as
-// rows, Kr[j][c]), keys past N zero
-template <int D>
-__device__ __forceinline__ void load_kv(float (*Kt)[AL], float (*Vt)[AL], float (*Kr)[D],
-                                        const float* kbase, const float* vbase, size_t C3,
-                                        int j0, int N) {
-  constexpr int V4 = D / 4;
-  for (int idx = threadIdx.x; idx < AK * V4; idx += AT) {
-    const int r = idx / V4, c = (idx % V4) * 4;
-    float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-    if (j0 + r < N) {
-      kv = *reinterpret_cast<const float4*>(kbase + (j0 + r) * C3 + c);
-      vv = *reinterpret_cast<const float4*>(vbase + (j0 + r) * C3 + c);
     }
-    Kt[c][r] = kv.x;
-    Kt[c + 1][r] = kv.y;
-    Kt[c + 2][r] = kv.z;
-    Kt[c + 3][r] = kv.w;
-    Vt[c][r] = vv.x;
-    Vt[c + 1][r] = vv.y;
-    Vt[c + 2][r] = vv.z;
-    Vt[c + 3][r] = vv.w;
-    if (Kr != nullptr) *reinterpret_cast<float4*>(&Kr[r][c]) = kv;
   }
 }
 
-// the query tile r0 .. r0 + 63 of q, scaled, into Qt[c][i] (and unscaled as
-// rows, Qr[i][c]), rows past N zero
+// a thread's d / 8 columns of a row: 4 tc .. +3, 32 + 4 tc .. +3 and, at
+// d = 80, 64 + 2 tc, +1 (8 threads cover a row)
 template <int D>
-__device__ __forceinline__ void load_q(float (*Qt)[AL], float (*Qr)[D], const float* base,
-                                       size_t C3, int r0, int N, float scale) {
-  constexpr int V4 = D / 4;
-  for (int idx = threadIdx.x; idx < AQ * V4; idx += AT) {
-    const int r = idx / V4, c = (idx % V4) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < N) v = *reinterpret_cast<const float4*>(base + (r0 + r) * C3 + c);
-    Qt[c][r] = v.x * scale;
-    Qt[c + 1][r] = v.y * scale;
-    Qt[c + 2][r] = v.z * scale;
-    Qt[c + 3][r] = v.w * scale;
-    if (Qr != nullptr) *reinterpret_cast<float4*>(&Qr[r][c]) = v;
+__device__ __forceinline__ void load_cols(float (&v)[D / 8], const float* row, int tc) {
+  const float4 x = *reinterpret_cast<const float4*>(row + 4 * tc);
+  const float4 y = *reinterpret_cast<const float4*>(row + 32 + 4 * tc);
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  v[4] = y.x, v[5] = y.y, v[6] = y.z, v[7] = y.w;
+  if constexpr (D == 80) {
+    const float2 z = *reinterpret_cast<const float2*>(row + 64 + 2 * tc);
+    v[8] = z.x, v[9] = z.y;
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(AT, 1) attn_bwd_f32_query_kernel(const BwdArgs a) {
-  static_assert(D % 16 == 0, "each thread holds d / 16 columns");
-  constexpr int NG = D / 64, NC = D / 16;
+__device__ __forceinline__ void store_cols(float* row, const float (&v)[D / 8], int tc, float sc) {
+  *reinterpret_cast<float4*>(row + 4 * tc) = make_float4(sc * v[0], sc * v[1], sc * v[2], sc * v[3]);
+  *reinterpret_cast<float4*>(row + 32 + 4 * tc) =
+      make_float4(sc * v[4], sc * v[5], sc * v[6], sc * v[7]);
+  if constexpr (D == 80)
+    *reinterpret_cast<float2*>(row + 64 + 2 * tc) = make_float2(sc * v[8], sc * v[9]);
+}
+
+// acc[jj][cc] += sum over the step's KQ rows i (ascending) of A[i][8 tj +
+// jj] * B[i][column cc of tc]: dv (A = P, B = g) and dk (A = dS, B = q)
+template <int D>
+__device__ __forceinline__ void acc_rows(float (&acc)[8][D / 8], const float* A, const float* B,
+                                         int tj, int tc) {
+  constexpr int LQ = ldq<D>();
+#pragma unroll 2
+  for (int i = 0; i < KQ; ++i) {
+    const float4 a0 = *reinterpret_cast<const float4*>(A + i * LDP + 8 * tj);
+    const float4 a1 = *reinterpret_cast<const float4*>(A + i * LDP + 8 * tj + 4);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float bv[D / 8];
+    load_cols<D>(bv, B + i * LQ, tc);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int cc = 0; cc < D / 8; ++cc) acc[jj][cc] = fmaf(av[jj], bv[cc], acc[jj][cc]);
+  }
+}
+
+// Each query row's (max, 1/sum, t): S over 128-key tiles, online; g's rows.
+template <int D>
+__global__ void __launch_bounds__(T, 1) attn_bwd_f32_stats_kernel(const BwdArgs a) {
+  constexpr int LQ = ldq<D>(), C4 = D / 4;
   extern __shared__ __align__(16) float smem[];
-  float(*Qs)[AL] = reinterpret_cast<float(*)[AL]>(smem);
-  float(*Gs)[AL] = reinterpret_cast<float(*)[AL]>(smem + D * AL);
-  float(*Kt)[AL] = reinterpret_cast<float(*)[AL]>(smem + 2 * D * AL);
-  float(*Vt)[AL] = reinterpret_cast<float(*)[AL]>(smem + 3 * D * AL);
-  float(*Kr)[D] = reinterpret_cast<float(*)[D]>(smem + 4 * D * AL);
-  float(*Ps)[AL] = reinterpret_cast<float(*)[AL]>(smem + 4 * D * AL + AK * D);
-  const int L = a.H + a.W;
-  float* Rs = smem + 4 * D * AL + AK * D + AK * AL;  // [AQ][L]
-  float* Dr = Rs + AQ * L;                          // [L][DRS]
+  float* Qs = smem;                // [BQ][LQ] q
+  float* Ks = Qs + BQ * LQ;        // [2][BK][LQ]
+  float* Rt = Ks + 2 * BK * LQ;    // [BQ][LDR] the tile's rel slots of each row
+  float* Ts = Rt + BQ * LDR;       // [BQ] t
+  int* kslot = reinterpret_cast<int*>(Ts + BQ);  // [BK]
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int N = a.N, heads = a.heads;
-  const int q0 = blockIdx.x * AQ, ph = blockIdx.y, p = ph / heads, h = ph % heads;
-  const size_t C3 = (size_t)3 * heads * D;
-  const float* base = a.qkv + (size_t)p * N * C3 + (size_t)h * D;
-  const float* kbase = base + (size_t)heads * D;
-  const float* vbase = base + (size_t)2 * heads * D;
+  const int tid = threadIdx.x, tk = tid % 16, tq = tid / 16;  // rows tq + 16 ii, keys tk + 16 jj
+  const int N = a.N, H = a.H, W = a.W;
+  const int q0 = blockIdx.x * BQ, ph = blockIdx.y, p = ph / a.heads, h = ph % a.heads;
+  const size_t C3 = (size_t)3 * a.heads * D;
+  const float* qb = a.qkv + (size_t)p * N * C3 + (size_t)h * D;
+  const float* kb = qb + (size_t)a.heads * D;
   const float* rel = a.rel + (size_t)p * a.rp + (size_t)h * a.lph;
+  const int nkt = (N + BK - 1) / BK;
 
-  load_q<D>(Qs, nullptr, base, C3, q0, N, a.scale);
-  load_g<D>(Gs, nullptr, a.g + (size_t)ph * D * N, q0, N);
-  load_rel_rows(Rs, a, rel, q0, L);
-  for (int idx = tid; idx < L * DRS; idx += AT) Dr[idx] = 0.f;
-
-  // sweep 1: each row's max, sum and t, online over the key tiles
-  float mrow[4], lrow[4], trow[4];
+  auto fetch_k = [&](int kt) {  // key tile kt's rows into Ks[kt % 2], zero past N
+    float* dst = Ks + (kt & 1) * BK * LQ;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mrow[i] = -INFINITY;
-    lrow[i] = trow[i] = 0.f;
+    for (int it = 0; it < BK * C4 / T; ++it) {
+      const int idx = tid + it * T, r = idx / C4, c = (idx % C4) * 4, key = kt * BK + r;
+      cp16(dst + r * LQ + c, kb + (size_t)min(key, N - 1) * C3 + c, key < N);
+    }
+    cp_commit();
+  };
+  fetch_k(0);
+#pragma unroll
+  for (int it = 0; it < BQ * C4 / T; ++it) {
+    const int idx = tid + it * T, r = idx / C4, c = (idx % C4) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < N) v = *reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * C3 + c);
+    *reinterpret_cast<float4*>(Qs + r * LQ + c) = v;
   }
-  const int nkt = (N + AK - 1) / AK;
-  float s[4][4], dp[4][4];
-  for (int kt = 0; kt < nkt; ++kt) {
-    __syncthreads();  // the previous tile's k and v are no longer read
-    load_kv<D>(Kt, Vt, nullptr, kbase, vbase, C3, kt * AK, N);
-    __syncthreads();
-    scores_q<D>(s, dp, Qs, Gs, Kt, Vt, Rs, L, kt * AK, tx, ty, a);
+  if (tid < BQ) {  // t = sum_c g o of row tid, c ascending; g's row into gt
+    float t = 0.f;
+    const int row = q0 + tid;
+    if (row < N) {
+      const float* gr = a.g + (size_t)ph * D * N + row;
+      const float* orow = a.o + (size_t)ph * D * a.ldo + row;
+      float* gt = a.gt + ((size_t)ph * N + row) * D;
+#pragma unroll 4
+      for (int c = 0; c < D; c += 4) {
+        float gv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+        for (int u = 0; u < 4; ++u) {
+          gv[u] = gr[(size_t)(c + u) * N];
+          t = fmaf(gv[u], orow[(size_t)(c + u) * a.ldo], t);
+        }
+        *reinterpret_cast<float4*>(gt + c) = make_float4(gv[0], gv[1], gv[2], gv[3]);
+      }
+    }
+    Ts[tid] = t;
+  }
+
+  float m[8], l[8];
+#pragma unroll
+  for (int ii = 0; ii < 8; ++ii) m[ii] = -INFINITY, l[ii] = 0.f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * BK, kend = min(k0 + BK, N);
+    if (kt + 1 < nkt) fetch_k(kt + 1);
+    // the tile's rel slots; the rel_w slots stay from tile 0 where W <= BK
+    const Slots sl = tile_slots(k0, kend, W);
+    if (tid < BK) kslot[tid] = k0 + tid < N ? key_slots(k0 + tid, sl, k0, W) : 0;
+    const int s_lo = kt == 0 || W > BK ? 0 : sl.nw, span = sl.nw + sl.nh - s_lo;
+#pragma unroll 8
+    for (int idx = tid; idx < BQ * span; idx += T) {
+      const int r = idx / span, s = s_lo + idx % span;
+      Rt[r * LDR + s] =
+          q0 + r < N ? rel[(size_t)(q0 + r) * a.rq + slot_lane(s, sl, k0, H, W)] : 0.f;
+    }
+    if (kt + 1 < nkt)
+      cp_wait<1>();
+    else
+      cp_wait<0>();
+    __syncthreads();
+
+    float s[8][8];
+    dot<D, 8>(s, Qs, tq, 16, Ks + (kt & 1) * BK * LQ, tk);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = tk + 16 * jj, ks = kslot[j];
+      const bool valid = k0 + j < N;
+#pragma unroll
+      for (int ii = 0; ii < 8; ++ii) {
+        const float* rr = Rt + (tq + 16 * ii) * LDR;
+        s[ii][jj] = valid ? a.scale * s[ii][jj] + rr[ks >> 16] + rr[ks & 0xffff] : -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int ii = 0; ii < 8; ++ii) {
+      float mx = s[ii][0];
+#pragma unroll
+      for (int jj = 1; jj < 8; ++jj) mx = fmaxf(mx, s[ii][jj]);
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mnew = fmaxf(mrow[i], mx);
-      const float msafe = mnew == -INFINITY ? 0.f : mnew;  // a row with no key seen yet
-      const float alpha = expf(mrow[i] - msafe);
-      float sum = 0.f, tsum = 0.f;
+      const float mn = fmaxf(m[ii], mx);  // finite: key k0 < N is in every tile
+      float e = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(s[i][j] - msafe);
-        sum += e;
-        tsum = fmaf(e, dp[i][j], tsum);
-      }
+      for (int jj = 0; jj < 8; ++jj) e += expf(s[ii][jj] - mn);
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        tsum += __shfl_xor_sync(0xffffffffu, tsum, off);
-      }
-      lrow[i] = lrow[i] * alpha + sum;
-      trow[i] = trow[i] * alpha + tsum;
-      mrow[i] = mnew;
+      for (int off = 8; off > 0; off >>= 1) e += __shfl_xor_sync(0xffffffffu, e, off);
+      l[ii] = l[ii] * expf(m[ii] - mn) + e;
+      m[ii] = mn;
     }
+    __syncthreads();  // Ks[kt % 2], Rt and kslot are no longer read
   }
-  float inv[4];
+  if (tk == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    inv[i] = lrow[i] > 0.f ? 1.0f / lrow[i] : 0.f;
-    trow[i] *= inv[i];
-    if (mrow[i] == -INFINITY) mrow[i] = 0.f;
-    const int row = q0 + 4 * ty + i;
-    if (tx == 0 && row < N) a.stats[(size_t)ph * N + row] = make_float4(mrow[i], inv[i], trow[i], 0.f);
-  }
-
-  // sweep 2: dS, then dq += dS . k and the tile's drel
-  float dq[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dq[i][c] = 0.f;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int j0 = kt * AK, jend = min(j0 + AK, N);
-    __syncthreads();  // the previous tile's k, v and dS are no longer read
-    load_kv<D>(Kt, Vt, Kr, kbase, vbase, C3, j0, N);
-    __syncthreads();
-    scores_q<D>(s, dp, Qs, Gs, Kt, Vt, Rs, L, j0, tx, ty, a);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pr = expf(s[i][j] - mrow[i]) * inv[i];
-        ds[i] = pr * (dp[i][j] - trow[i]);
-      }
-      *reinterpret_cast<float4*>(&Ps[4 * tx + j][4 * ty]) = make_float4(ds[0], ds[1], ds[2], ds[3]);
+    for (int ii = 0; ii < 8; ++ii) {
+      const int r = tq + 16 * ii;
+      if (q0 + r < N) a.stats[(size_t)ph * N + q0 + r] = make_float4(m[ii], 1.f / l[ii], Ts[r], 0.f);
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < AK; ++j) {
-      const float4 pa = *reinterpret_cast<const float4*>(&Ps[j][4 * ty]);
-      const float pr[4] = {pa.x, pa.y, pa.z, pa.w};
-      float k[NC];
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float4 kb = *reinterpret_cast<const float4*>(&Kr[j][64 * g + 4 * tx]);
-        k[4 * g] = kb.x;
-        k[4 * g + 1] = kb.y;
-        k[4 * g + 2] = kb.z;
-        k[4 * g + 3] = kb.w;
-      }
-#pragma unroll
-      for (int c = 4 * NG; c < NC; ++c) k[c] = Kr[j][out_col<D>(c, tx)];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) dq[i][c] = fmaf(pr[i], k[c], dq[i][c]);
-    }
-    // drel: (row r, lane l) by one thread, the tile's keys of lane l in order
-    const int jm = j0 % a.W;
-    for (int idx = tid; idx < AQ * L; idx += AT) {
-      const int r = idx % AQ, l = idx / AQ;
-      int lo, hi, step;
-      if (l < a.H) {  // rel_h lane l: keys l W .. (l + 1) W - 1
-        lo = max(j0, l * a.W);
-        hi = min(jend, (l + 1) * a.W);
-        step = 1;
-      } else {  // rel_w lane H + b: keys with k % W == b
-        const int b = l - a.H;
-        lo = j0 + (b - jm + a.W) % a.W;
-        hi = jend;
-        step = a.W;
-      }
-      if (lo >= hi) continue;
-      float acc = 0.f;
-      for (int j = lo; j < hi; j += step) acc += Ps[j - j0][r];
-      Dr[l * DRS + r] += acc;
-    }
-  }
-
-  // dq (scale * dS . k) into the q columns of dqkv's rows
-  float* dbase = a.dqkv + (size_t)p * N * C3 + (size_t)h * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= N) continue;
-    float* dst = dbase + (size_t)row * C3;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-      *reinterpret_cast<float4*>(dst + 64 * g + 4 * tx) =
-          make_float4(a.scale * dq[i][4 * g], a.scale * dq[i][4 * g + 1],
-                      a.scale * dq[i][4 * g + 2], a.scale * dq[i][4 * g + 3]);
-#pragma unroll
-    for (int c = 4 * NG; c < NC; ++c) dst[out_col<D>(c, tx)] = a.scale * dq[i][c];
-  }
-  __syncthreads();  // the last tile's drel sums are in
-  float* drel = a.drel + (size_t)p * a.rp + (size_t)h * a.lph;
-  for (int idx = tid; idx < AQ * a.lph; idx += AT) {
-    const int r = idx / a.lph, l = idx % a.lph;
-    if (q0 + r < N) drel[(size_t)(q0 + r) * a.rq + l] = l < L ? Dr[l * DRS + r] : 0.f;
   }
 }
 
+// dk and dv of one 128-key tile; dS^T of the tile into the scratch.
 template <int D>
-__global__ void __launch_bounds__(AT, 1) attn_bwd_f32_key_kernel(const BwdArgs a) {
-  constexpr int NG = D / 64, NC = D / 16;
+__global__ void __launch_bounds__(T, 1) attn_bwd_f32_key_kernel(const BwdArgs a, int ph0) {
+  constexpr int LQ = ldq<D>(), C4 = D / 4, NC = D / 8;
   extern __shared__ __align__(16) float smem[];
-  float(*Kt)[AL] = reinterpret_cast<float(*)[AL]>(smem);
-  float(*Vt)[AL] = reinterpret_cast<float(*)[AL]>(smem + D * AL);
-  float(*Qt)[AL] = reinterpret_cast<float(*)[AL]>(smem + 2 * D * AL);
-  float(*Gt)[AL] = reinterpret_cast<float(*)[AL]>(smem + 3 * D * AL);
-  float(*Qr)[D] = reinterpret_cast<float(*)[D]>(smem + 4 * D * AL);
-  float(*Gr)[D] = reinterpret_cast<float(*)[D]>(smem + 4 * D * AL + AQ * D);
-  float(*Pt)[AL] = reinterpret_cast<float(*)[AL]>(smem + 4 * D * AL + 2 * AQ * D);
-  float(*Dt)[AL] = reinterpret_cast<float(*)[AL]>(smem + 4 * D * AL + 2 * AQ * D + AQ * AL);
-  const int L = a.H + a.W;
-  float* Rs = smem + 4 * D * AL + 2 * AQ * D + 2 * AQ * AL;  // [AQ][L]
-  float4* St = reinterpret_cast<float4*>(Rs + AQ * L);       // [AQ]
+  float* Kr = smem;               // [BK][LQ]
+  float* Vr = Kr + BK * LQ;       // [BK][LQ]
+  float* Qr = Vr + BK * LQ;       // [2][KQ][LQ] q
+  float* Gr = Qr + 2 * KQ * LQ;   // [2][KQ][LQ] g
+  float* Ps = Gr + 2 * KQ * LQ;   // [KQ][LDP] P
+  float* Ds = Ps + KQ * LDP;      // [KQ][LDP] dS
+  float* Rt = Ds + KQ * LDP;      // [2][KQ][LDR] the rows' rel slots
+  float4* St = reinterpret_cast<float4*>(Rt + 2 * KQ * LDR);  // [2][KQ]
+  int* kslot = reinterpret_cast<int*>(St + 2 * KQ);           // [BK]
+  int* lane = kslot + BK;                                     // [NSLOT]
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int N = a.N, heads = a.heads;
-  const int k0 = blockIdx.x * AK, ph = blockIdx.y, p = ph / heads, h = ph % heads;
-  const size_t C3 = (size_t)3 * heads * D;
-  const float* base = a.qkv + (size_t)p * N * C3 + (size_t)h * D;
+  const int tid = threadIdx.x, wg = tid / 128, u = tid % 128;
+  const int tq = u % 8, tk = u / 8;  // scores: queries tq + 8 ii, keys tk + 16 jj
+  const int tc = u % 8, tj = u / 8;  // dv / dk: keys 8 tj + jj, columns of tc
+  const int N = a.N, H = a.H, W = a.W;
+  const int k0 = blockIdx.x * BK, ph = ph0 + blockIdx.y, p = ph / a.heads, h = ph % a.heads;
+  const size_t C3 = (size_t)3 * a.heads * D;
+  const float* qb = a.qkv + (size_t)p * N * C3 + (size_t)h * D;
+  const float* kb = qb + (size_t)a.heads * D;
+  const float* vb = qb + (size_t)2 * a.heads * D;
+  const float* gtb = a.gt + (size_t)ph * N * D;
   const float* rel = a.rel + (size_t)p * a.rp + (size_t)h * a.lph;
-  const float* gbase = a.g + (size_t)ph * D * N;
-  load_kv<D>(Kt, Vt, nullptr, base + (size_t)heads * D, base + (size_t)2 * heads * D, C3, k0, N);
+  float* dst = a.dst + (size_t)blockIdx.y * a.NP * a.NP;
 
-  float dk[4][NC], dv[4][NC];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int it = 0; it < BK * C4 / T; ++it) {
+    const int idx = tid + it * T, r = idx / C4, c = (idx % C4) * 4;
+    float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+    if (k0 + r < N) {
+      kv = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + r) * C3 + c);
+      vv = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + r) * C3 + c);
+    }
+    *reinterpret_cast<float4*>(Kr + r * LQ + c) = kv;
+    *reinterpret_cast<float4*>(Vr + r * LQ + c) = vv;
+  }
+  const Slots sl = tile_slots(k0, min(k0 + BK, N), W);
+  const int ns = sl.nw + sl.nh;
+  if (tid < BK) kslot[tid] = k0 + tid < N ? key_slots(k0 + tid, sl, k0, W) : 0;
+  for (int s = tid; s < ns; s += T) lane[s] = slot_lane(s, sl, k0, H, W);
+  __syncthreads();  // the slot lanes are in for the copies
+
+  // step qt's q and g rows, rel slots and statistics into buffer qt % 2,
+  // zero past N
+  auto fetch = [&](int qt) {
+    const int i0 = qt * KQ, b = qt & 1;
+    float* qr = Qr + b * KQ * LQ;
+    float* gr = Gr + b * KQ * LQ;
+    float* rt = Rt + b * KQ * LDR;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk[j][c] = dv[j][c] = 0.f;
-  const int nqt = (N + AQ - 1) / AQ;
+    for (int it = 0; it < 2 * KQ * C4 / T; ++it) {
+      const int idx = tid + it * T, w = idx / (KQ * C4), r = idx % (KQ * C4) / C4,
+                c = (idx % C4) * 4, row = min(i0 + r, N - 1);
+      if (w == 0)
+        cp16(qr + r * LQ + c, qb + (size_t)row * C3 + c, i0 + r < N);
+      else
+        cp16(gr + r * LQ + c, gtb + (size_t)row * D + c, i0 + r < N);
+    }
+#pragma unroll
+    for (int it = 0; it < (KQ * NSLOT + T - 1) / T; ++it) {
+      const int idx = tid + it * T, r = idx / NSLOT, s = idx % NSLOT;
+      if (r < KQ && s < ns)
+        cp4(rt + r * LDR + s, rel + (size_t)min(i0 + r, N - 1) * a.rq + lane[s], i0 + r < N);
+    }
+    if (tid < KQ)
+      cp16(St + b * KQ + tid, a.stats + (size_t)ph * N + min(i0 + tid, N - 1), i0 + tid < N);
+    cp_commit();
+  };
+
+  float acc[8][NC];  // dv (warpgroup 0) or dk (warpgroup 1) of keys 8 tj + jj
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) acc[jj][cc] = 0.f;
+  const int nqt = (N + KQ - 1) / KQ;
+  fetch(0);
   for (int qt = 0; qt < nqt; ++qt) {
-    const int i0 = qt * AQ;
-    __syncthreads();  // the previous tile's q, g, P and dS are no longer read
-    load_q<D>(Qt, Qr, base, C3, i0, N, a.scale);
-    load_g<D>(Gt, Gr, gbase, i0, N);
-    load_rel_rows(Rs, a, rel, i0, L);
-    for (int r = tid; r < AQ; r += AT)
-      St[r] = i0 + r < N ? a.stats[(size_t)ph * N + i0 + r] : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int i0 = qt * KQ, b = qt & 1;
+    cp_wait<0>();
+    // step qt's copies are in, and step qt - 1 is done with buffer (qt + 1)
+    // % 2, P and dS: the copies of step qt + 1 run beside step qt
     __syncthreads();
+    if (qt + 1 < nqt) fetch(qt + 1);
+    const float* qr = Qr + b * KQ * LQ;
+    const float* gr = Gr + b * KQ * LQ;
+    const float* rt = Rt + b * KQ * LDR;
+    const float4* st = St + b * KQ;
 
-    // S^T and dP^T of keys 4 ty + j against queries 4 tx + i, by the query
-    // pass's chains (q . k and g . v in the same order)
-    float s[4][4], dp[4][4];
+    float s[4][8];  // queries tq + 8 ii, keys tk + 16 jj
+    if (wg == 0) {
+      dot<D, 4>(s, qr, tq, 8, Kr, tk);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int ii = 0; ii < 4; ++ii) {
+        const int i = tq + 8 * ii;
+        const float4 sv = st[i];  // (max, 1/sum, t): zero past N
+        const float* rr = rt + i * LDR;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float4 ka = *reinterpret_cast<const float4*>(&Kt[c][4 * ty]);
-      const float4 va = *reinterpret_cast<const float4*>(&Vt[c][4 * ty]);
-      const float4 qb = *reinterpret_cast<const float4*>(&Qt[c][4 * tx]);
-      const float4 gb = *reinterpret_cast<const float4*>(&Gt[c][4 * tx]);
-      const float k[4] = {ka.x, ka.y, ka.z, ka.w}, v[4] = {va.x, va.y, va.z, va.w};
-      const float q[4] = {qb.x, qb.y, qb.z, qb.w}, gg[4] = {gb.x, gb.y, gb.z, gb.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[j][i] = fmaf(q[i], k[j], s[j][i]);
-          dp[j][i] = fmaf(gg[i], v[j], dp[j][i]);
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = tk + 16 * jj, ks = kslot[j];
+          Ps[i * LDP + j] = k0 + j < N ? expf(a.scale * s[ii][jj] + rr[ks >> 16] +
+                                              rr[ks & 0xffff] - sv.x) * sv.y
+                                       : 0.f;
         }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + 4 * ty + j;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 st = St[4 * tx + i];  // (max, 1/sum, t): zero for queries past N
-        float pr = 0.f, ds = 0.f;
-        if (key < N) {
-          pr = expf(s[j][i] + bias(Rs + (4 * tx + i) * L, key, a.H, a.W) - st.x) * st.y;
-          ds = pr * (dp[j][i] - st.z);
-        }
-        s[j][i] = pr;
-        dp[j][i] = ds;
       }
-    }
+      bar_arrive(1, T);  // P is in for warpgroup 1
+      bar_sync(2, 128);  // and for the rest of warpgroup 0
+      acc_rows<D>(acc, Ps, gr, tj, tc);
+    } else {
+      dot<D, 4>(s, gr, tq, 8, Vr, tk);  // dP
+      bar_sync(1, T);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      *reinterpret_cast<float4*>(&Pt[4 * tx + i][4 * ty]) =
-          make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
-      *reinterpret_cast<float4*>(&Dt[4 * tx + i][4 * ty]) =
-          make_float4(dp[0][i], dp[1][i], dp[2][i], dp[3][i]);
+      for (int ii = 0; ii < 4; ++ii) {
+        const int i = tq + 8 * ii;
+        const float t = st[i].z;
+        float* drow = dst + (size_t)(k0 + tk) * a.NP + i0 + i;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = tk + 16 * jj;
+          const float ds = Ps[i * LDP + j] * (s[ii][jj] - t);
+          Ds[i * LDP + j] = ds;
+          drow[(size_t)16 * jj * a.NP] = ds;
+        }
+      }
+      bar_sync(3, 128);
+      acc_rows<D>(acc, Ds, qr, tj, tc);
     }
-    __syncthreads();
+  }
+  // dv into the v columns, dk (scale * dS^T . q) into the k columns
+  float* db = a.dqkv + (size_t)p * N * C3 + (size_t)(2 - wg) * a.heads * D + (size_t)h * D;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int key = k0 + 8 * tj + jj;
+    if (key < N) store_cols<D>(db + (size_t)key * C3, acc[jj], tc, wg == 0 ? 1.f : a.scale);
+  }
+}
 
-    // dv += P^T . g, dk += dS^T . q over the tile's queries
-#pragma unroll 4
-    for (int i = 0; i < AQ; ++i) {
-      const float4 pa = *reinterpret_cast<const float4*>(&Pt[i][4 * ty]);
-      const float4 da = *reinterpret_cast<const float4*>(&Dt[i][4 * ty]);
-      const float pr[4] = {pa.x, pa.y, pa.z, pa.w}, dr[4] = {da.x, da.y, da.z, da.w};
-      float gq[NC], qq[NC];
+// dq and drel of one 128-query tile from the scratch's dS^T; WSUM: where
+// the rel_w lanes are summed (W_REG only at W == QK).
+template <int D, int WSUM>
+__global__ void __launch_bounds__(T, 1) attn_bwd_f32_query_kernel(const BwdArgs a, int ph0) {
+  constexpr int LQ = ldq<D>(), C4 = D / 4, NC = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Dt = smem;                // [2][QK][LDP] dS^T: key j, the tile's queries
+  float* Kb = Dt + 2 * QK * LDP;   // [2][QK][LQ] k rows
+  float* Dw = Kb + 2 * QK * LQ;    // [WS][LDW] the rows' rel_w sums (W_SHARED)
+
+  const int tid = threadIdx.x, tc = tid % 8, tr = tid / 8;  // rows 4 tr + r, columns of tc
+  const int N = a.N, H = a.H, W = a.W;
+  const int q0 = blockIdx.x * BQ, ph = ph0 + blockIdx.y, p = ph / a.heads, h = ph % a.heads;
+  const int nrow = min(BQ, N - q0);
+  const size_t C3 = (size_t)3 * a.heads * D;
+  const float* qb = a.qkv + (size_t)p * N * C3 + (size_t)h * D;
+  const float* kb = qb + (size_t)a.heads * D;
+  const float* src = a.dst + (size_t)blockIdx.y * a.NP * a.NP + q0;
+  float* drel = a.drel + (size_t)p * a.rp + (size_t)h * a.lph + (size_t)q0 * a.rq;  // row i at i rq
+  const int nkt = (N + QK - 1) / QK;
+
+  auto fetch = [&](int kt) {  // dS^T rows j0 .. j0 + 63 and k rows (zero past N)
+    const int j0 = kt * QK;
+    float* dt = Dt + (kt & 1) * QK * LDP;
+    float* kr = Kb + (kt & 1) * QK * LQ;
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float4 gb = *reinterpret_cast<const float4*>(&Gr[i][64 * g + 4 * tx]);
-        const float4 qb = *reinterpret_cast<const float4*>(&Qr[i][64 * g + 4 * tx]);
-        gq[4 * g] = gb.x;
-        gq[4 * g + 1] = gb.y;
-        gq[4 * g + 2] = gb.z;
-        gq[4 * g + 3] = gb.w;
-        qq[4 * g] = qb.x;
-        qq[4 * g + 1] = qb.y;
-        qq[4 * g + 2] = qb.z;
-        qq[4 * g + 3] = qb.w;
-      }
+    for (int it = 0; it < QK * (BQ / 4) / T; ++it) {
+      const int idx = tid + it * T, r = idx / (BQ / 4), c = (idx % (BQ / 4)) * 4;
+      cp16(dt + r * LDP + c, src + (size_t)(j0 + r) * a.NP + c, true);
+    }
 #pragma unroll
-      for (int c = 4 * NG; c < NC; ++c) {
-        gq[c] = Gr[i][out_col<D>(c, tx)];
-        qq[c] = Qr[i][out_col<D>(c, tx)];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dv[j][c] = fmaf(pr[j], gq[c], dv[j][c]);
-          dk[j][c] = fmaf(dr[j], qq[c], dk[j][c]);
-        }
+    for (int it = 0; it < QK * C4 / T; ++it) {
+      const int idx = tid + it * T, r = idx / C4, c = (idx % C4) * 4, key = j0 + r;
+      cp16(kr + r * LQ + c, kb + (size_t)min(key, N - 1) * C3 + c, key < N);
+    }
+    cp_commit();
+  };
+  fetch(0);
+  if (WSUM != W_REG) {
+    for (int idx = tid; idx < W * BQ; idx += T) {  // the rel_w sums start at 0
+      const int kw = idx / BQ, i = idx % BQ;
+      if (WSUM == W_SHARED)
+        Dw[kw * LDW + i] = 0.f;
+      else if (i < nrow)
+        drel[(size_t)i * a.rq + H + kw] = 0.f;
     }
   }
 
-  // dk (scale * dS^T . q) and dv into the k and v columns of dqkv's rows
-  float* dbase = a.dqkv + (size_t)p * N * C3 + (size_t)h * D;
+  float dq[4][NC], wacc[8][4];  // W_REG: rel_w lanes 8 m + tc of rows 4 tr + r
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int key = k0 + 4 * ty + j;
-    if (key >= N) continue;
-    float* dkr = dbase + (size_t)key * C3 + (size_t)heads * D;
-    float* dvr = dkr + (size_t)heads * D;
+  for (int r = 0; r < 4; ++r) {
 #pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      *reinterpret_cast<float4*>(dkr + 64 * g + 4 * tx) =
-          make_float4(a.scale * dk[j][4 * g], a.scale * dk[j][4 * g + 1],
-                      a.scale * dk[j][4 * g + 2], a.scale * dk[j][4 * g + 3]);
-      *reinterpret_cast<float4*>(dvr + 64 * g + 4 * tx) =
-          make_float4(dv[j][4 * g], dv[j][4 * g + 1], dv[j][4 * g + 2], dv[j][4 * g + 3]);
+    for (int cc = 0; cc < NC; ++cc) dq[r][cc] = 0.f;
+#pragma unroll
+    for (int m = 0; m < 8; ++m) wacc[m][r] = 0.f;
+  }
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_wait<0>();
+    // step kt's copies are in, and step kt - 1 is done with buffer (kt + 1)
+    // % 2 and has its drel sums in: the copies of step kt + 1 run beside it
+    __syncthreads();
+    if (kt + 1 < nkt) fetch(kt + 1);
+    const float* dt = Dt + (kt & 1) * QK * LDP;
+    const float* kr = Kb + (kt & 1) * QK * LQ;
+#pragma unroll 4
+    for (int j = 0; j < QK; ++j) {
+      const float4 d4 = *reinterpret_cast<const float4*>(dt + j * LDP + 4 * tr);
+      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+      float kv[NC];
+      load_cols<D>(kv, kr + j * LQ, tc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) dq[r][cc] = fmaf(dv[r], kv[cc], dq[r][cc]);
     }
+    const int j0 = kt * QK, jend = min(j0 + QK, N);
+    if (WSUM == W_REG) {
+      // the step is grid row kh = kt: rel_w lane 8 m + tc of each row gets
+      // its key, rel_h lane kh the step's row sum (the thread's 8 keys in
+      // order, then a butterfly over the row's 8 threads)
+      float hs[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int c = 4 * NG; c < NC; ++c) {
-      dkr[out_col<D>(c, tx)] = a.scale * dk[j][c];
-      dvr[out_col<D>(c, tx)] = dv[j][c];
+      for (int m = 0; m < 8; ++m) {
+        const float4 v = *reinterpret_cast<const float4*>(dt + (8 * m + tc) * LDP + 4 * tr);
+        const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          wacc[m][r] += vv[r];
+          hs[r] += vv[r];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1) hs[r] += __shfl_xor_sync(0xffffffffu, hs[r], off);
+        if (tc == 0 && 4 * tr + r < nrow) drel[(size_t)(4 * tr + r) * a.rq + kt] = hs[r];
+      }
+    } else {
+      // rel_w: lane slot kl holds the step's keys of lane (j0 + kl') % W
+      // (W <= QK: kl' the first such key's offset), or key j0 + kl (W > QK)
+      const int nl = min(W, QK);
+      for (int idx = tid; idx < nl * BQ; idx += T) {
+        const int kl = idx / BQ, i = idx % BQ;
+        const int jf = W <= QK ? j0 + (kl - j0 % W + W) % W : j0 + kl;
+        if (i >= nrow || jf >= jend) continue;
+        float* w = WSUM == W_SHARED ? Dw + (jf % W) * LDW + i : drel + (size_t)i * a.rq + H + jf % W;
+        float acc = *w;
+        for (int j = jf; j < jend; j += W) acc += dt[(j - j0) * LDP + i];
+        *w = acc;
+      }
+      // rel_h: grid row kh's keys in the step, added to its lane (set where
+      // the step holds the row's first key)
+      const int khl = j0 / W, nkh = (jend - 1) / W - khl + 1;
+      for (int idx = tid; idx < nkh * BQ; idx += T) {
+        const int kh = khl + idx / BQ, i = idx % BQ;
+        if (i >= nrow) continue;
+        const int ja = max(j0, kh * W), jb = min(jend, (kh + 1) * W);
+        float acc = ja == kh * W ? 0.f : drel[(size_t)i * a.rq + kh];
+        for (int j = ja; j < jb; ++j) acc += dt[(j - j0) * LDP + i];
+        drel[(size_t)i * a.rq + kh] = acc;
+      }
     }
+  }
+  __syncthreads();  // the last step's rel_w sums are in
+  float* db = a.dqkv + (size_t)p * N * C3 + (size_t)h * D;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = 4 * tr + r;
+    if (row < nrow) {
+      store_cols<D>(db + (size_t)(q0 + row) * C3, dq[r], tc, a.scale);
+      if (WSUM == W_REG)
+#pragma unroll
+        for (int m = 0; m < 8; ++m) drel[(size_t)row * a.rq + H + 8 * m + tc] = wacc[m][r];
+    }
+  }
+  // the rel_w sums (W_SHARED) and the lanes past H + W (0) into drel's rows
+  const int nw = a.lph - H;
+  for (int idx = tid; idx < nrow * nw; idx += T) {
+    const int i = idx / nw, l = H + idx % nw;
+    if (l >= H + W)
+      drel[(size_t)i * a.rq + l] = 0.f;
+    else if (WSUM == W_SHARED)
+      drel[(size_t)i * a.rq + l] = Dw[(l - H) * LDW + i];
   }
 }
 
@@ -531,48 +668,75 @@ cudaError_t allow_smem(K kernel, size_t smem, size_t& allowed) {
   return e;
 }
 
-// Queues both passes over P problems; returns a cudaError_t code.
-template <int D>
-int launch_bwd(const BwdArgs& a, int P, cudaStream_t s) {
-  const int L = a.H + a.W;
-  const size_t qs = query_smem<D>(L), ks = key_smem<D>(L);
-  if (P < 1 || a.N < 1 || a.heads < 1 || (long long)P * a.heads > 65535 || L > MAX_LANES ||
-      qs > SMEM_MAX || ks > SMEM_MAX)
-    return (int)cudaErrorInvalidValue;
-  static size_t q_allowed = 0, k_allowed = 0;
-  cudaError_t e = allow_smem(attn_bwd_f32_query_kernel<D>, qs, q_allowed);
-  if (e == cudaSuccess) e = allow_smem(attn_bwd_f32_key_kernel<D>, ks, k_allowed);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.N + AQ - 1) / AQ, P * a.heads);
-  attn_bwd_f32_query_kernel<D><<<grid, AT, qs, s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  attn_bwd_f32_key_kernel<D><<<grid, AT, ks, s>>>(a);
-  return (int)cudaGetLastError();
+template <int D, int WSUM>
+cudaError_t launch_query(const BwdArgs& a, dim3 grid, int ph0, cudaStream_t s) {
+  static size_t allowed = 0;
+  const cudaError_t e = allow_smem(attn_bwd_f32_query_kernel<D, WSUM>, query_smem<D>(), allowed);
+  if (e != cudaSuccess) return e;
+  attn_bwd_f32_query_kernel<D, WSUM><<<grid, T, query_smem<D>(), s>>>(a, ph0);
+  return cudaGetLastError();
 }
 
-int dispatch_bwd(const BwdArgs& a, int d, int P, cudaStream_t s) {
-  if (d == 64) return launch_bwd<64>(a, P, s);
-  if (d == 80) return launch_bwd<80>(a, P, s);
+// Queues the stats kernel over all P * heads pairs, then the key and the
+// query kernels a chunk of pairs at a time; returns a cudaError_t code.
+template <int D>
+int launch_bwd(const BwdArgs& a, int P, int chunk, cudaStream_t s) {
+  static_assert(stats_smem<D>() <= SMEM_MAX && key_smem<D>() <= SMEM_MAX &&
+                    query_smem<D>() <= SMEM_MAX,
+                "shared memory");
+  const int PH = P * a.heads;
+  if (P < 1 || a.N < 1 || a.heads < 1 || PH > 65535 || chunk < 1 || a.H + a.W > MAX_LANES)
+    return (int)cudaErrorInvalidValue;
+  static size_t s_allowed = 0, k_allowed = 0;
+  cudaError_t e = allow_smem(attn_bwd_f32_stats_kernel<D>, stats_smem<D>(), s_allowed);
+  if (e == cudaSuccess) e = allow_smem(attn_bwd_f32_key_kernel<D>, key_smem<D>(), k_allowed);
+  if (e != cudaSuccess) return (int)e;
+  const int nt = (a.N + BQ - 1) / BQ;
+  attn_bwd_f32_stats_kernel<D><<<dim3(nt, PH), T, stats_smem<D>(), s>>>(a);
+  e = cudaGetLastError();
+  for (int ph0 = 0; ph0 < PH && e == cudaSuccess; ph0 += chunk) {
+    const dim3 grid(nt, chunk < PH - ph0 ? chunk : PH - ph0);
+    attn_bwd_f32_key_kernel<D><<<grid, T, key_smem<D>(), s>>>(a, ph0);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) break;
+    if (a.W == QK)
+      e = launch_query<D, W_REG>(a, grid, ph0, s);
+    else if (a.W <= WS)
+      e = launch_query<D, W_SHARED>(a, grid, ph0, s);
+    else
+      e = launch_query<D, W_DREL>(a, grid, ph0, s);
+  }
+  return (int)e;
+}
+
+int dispatch_bwd(const BwdArgs& a, int d, int P, int chunk, cudaStream_t s) {
+  if (d == 64) return launch_bwd<64>(a, P, chunk, s);
+  if (d == 80) return launch_bwd<80>(a, P, chunk, s);
   return (int)cudaErrorInvalidValue;
 }
 
-BwdArgs make_args(const void* qkv, const void* rel, const void* g, void* dqkv, void* drel,
-                  void* stats, int N, int heads, int H, int W, int lph, int P, float scale) {
+BwdArgs make_args(const void* qkv, const void* rel, const void* g, const void* o, void* dqkv,
+                  void* drel, void* stats, void* gt, void* scratch, int N, int heads, int H,
+                  int W, int lph, int P, int ldo, float scale) {
   BwdArgs a{};
   a.qkv = static_cast<const float*>(qkv);
   a.rel = static_cast<const float*>(rel);
   a.g = static_cast<const float*>(g);
+  a.o = static_cast<const float*>(o);
   a.dqkv = static_cast<float*>(dqkv);
   a.drel = static_cast<float*>(drel);
   a.stats = static_cast<float4*>(stats);
+  a.gt = static_cast<float*>(gt);
+  a.dst = static_cast<float*>(scratch);
   a.N = N;
+  a.NP = (N + BK - 1) / BK * BK;
   a.heads = heads;
   a.H = H;
   a.W = W;
   a.lph = lph;
   a.rp = (long long)heads * lph;
   a.rq = (long long)P * a.rp;
+  a.ldo = ldo;
   a.scale = scale;
   return a;
 }
@@ -582,29 +746,49 @@ BwdArgs make_args(const void* qkv, const void* rel, const void* g, void* dqkv, v
 }  // namespace cvlm
 
 // #14: qkv (BW, win^2, 3*heads*d), rel (win^2, BW, heads*32) position-major,
-// g (BW, heads*d, win^2), dqkv like qkv, drel like rel (lanes 2 win .. 31
-// zero), stats (BW*heads, win^2, 4) scratch: fp32; 2 win <= 32, d in {64,
-// 80}. Returns a cudaError_t code.
+// g (BW, heads*d, win^2), o (BW, heads*d, win^2) with row stride ldo, dqkv
+// like qkv, drel like rel (lanes 2 win .. 31 zero); scratch: stats (BW*heads,
+// win^2, 4), gt (BW*heads, win^2, d) and dst (chunk, NP, NP), NP = win^2
+// rounded up to 128: fp32; 2 win <= 32, d in {64, 80}. Returns a
+// cudaError_t code.
 extern "C" int cvlm_qkv_packed_windows_s_bwd_f32(const void* qkv, const void* rel, const void* g,
-                                                 void* dqkv, void* drel, void* stats, int BW,
-                                                 int win, int heads, int d, float scale,
-                                                 void* stream) {
+                                                 const void* o, void* dqkv, void* drel,
+                                                 void* stats, void* gt, void* dst, int BW,
+                                                 int win, int heads, int d, int ldo, int chunk,
+                                                 float scale, void* stream) {
   using namespace cvlm::f32bwd;
-  if (win < 1 || 2 * win > cvlm::f32attn::EDGE_LANES) return (int)cudaErrorInvalidValue;
-  const BwdArgs a = make_args(qkv, rel, g, dqkv, drel, stats, win * win, heads, win, win,
-                              cvlm::f32attn::EDGE_LANES, BW, scale);
-  return dispatch_bwd(a, d, BW, static_cast<cudaStream_t>(stream));
+  if (win < 1 || 2 * win > WIN_LANES || ldo < win * win) return (int)cudaErrorInvalidValue;
+  const BwdArgs a = make_args(qkv, rel, g, o, dqkv, drel, stats, gt, dst, win * win, heads, win,
+                              win, WIN_LANES, BW, ldo, scale);
+  return dispatch_bwd(a, d, BW, chunk, static_cast<cudaStream_t>(stream));
 }
 
-// #18: qkv (B, N, 3*heads*d), rel (N, B, heads, H+W), g (B, heads*d, N),
-// dqkv like qkv, drel like rel, stats (B*heads, N, 4) scratch: fp32; N = H *
-// W, H + W <= 192, d in {64, 80}. Returns a cudaError_t code.
+// #18: qkv (B, N, 3*heads*d), rel (N, B, heads, H+W), g (B, heads*d, N), o
+// (B, heads*d, N) with row stride ldo, dqkv like qkv, drel like rel; scratch
+// as #14's: fp32; N = H * W, H + W <= 512, d in {64, 80}. Returns a
+// cudaError_t code.
 extern "C" int cvlm_qkv_packed_global_bwd_f32(const void* qkv, const void* rel, const void* g,
-                                              void* dqkv, void* drel, void* stats, int B, int N,
-                                              int H, int W, int heads, int d, float scale,
+                                              const void* o, void* dqkv, void* drel, void* stats,
+                                              void* gt, void* dst, int B, int N, int H, int W,
+                                              int heads, int d, int ldo, int chunk, float scale,
                                               void* stream) {
   using namespace cvlm::f32bwd;
-  if (H < 1 || W < 1 || H * W != N) return (int)cudaErrorInvalidValue;
-  const BwdArgs a = make_args(qkv, rel, g, dqkv, drel, stats, N, heads, H, W, H + W, B, scale);
-  return dispatch_bwd(a, d, B, static_cast<cudaStream_t>(stream));
+  if (H < 1 || W < 1 || H * W != N || ldo < N) return (int)cudaErrorInvalidValue;
+  const BwdArgs a = make_args(qkv, rel, g, o, dqkv, drel, stats, gt, dst, N, heads, H, W, H + W,
+                              B, ldo, scale);
+  return dispatch_bwd(a, d, B, chunk, static_cast<cudaStream_t>(stream));
+}
+
+// The three kernels' dynamic shared memory at d (bytes): out = {stats, key,
+// query}; the same at every H and W
+extern "C" int cvlm_attn_bwd_f32_smem(int d, long long* out) {
+  using namespace cvlm::f32bwd;
+  if (d == 64) {
+    out[0] = stats_smem<64>(), out[1] = key_smem<64>(), out[2] = query_smem<64>();
+  } else if (d == 80) {
+    out[0] = stats_smem<80>(), out[1] = key_smem<80>(), out[2] = query_smem<80>();
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }

@@ -217,15 +217,16 @@ LN_MLP_RESIDUAL_BWD = CudaKernel(
 _ATTN_BWD_ARGS = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F]
 QKV_WINDOWS_BWD = CudaKernel("flash_qkv_packed_windows_s_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
 QKV_GLOBAL_BWD = CudaKernel("flash_qkv_packed_global_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
-# Their fp32 instances (csrc/attn_bwd_f32.cu: a query-parallel and a
-# key-parallel pass on attn_f32.cuh's tiles, FFMA on the CUDA cores, counted
-# once a call), the train CLI's backward at --dtype float32
+# Their fp32 instances (csrc/attn_bwd_f32.cu: the rows' statistics, then a
+# key-parallel and a query-parallel kernel a chunk of (problem, head) pairs
+# at a time, FFMA on the CUDA cores, counted once a call), the train CLI's
+# backward at --dtype float32
 QKV_WINDOWS_BWD_F32 = CudaKernel("flash_qkv_packed_windows_s_bwd_f32",
                                  "cvlm_qkv_packed_windows_s_bwd_f32",
-                                 [P, P, P, P, P, P, I, I, I, I, F])
+                                 [P] * 9 + [I, I, I, I, I, I, F])
 QKV_GLOBAL_BWD_F32 = CudaKernel("flash_qkv_packed_global_bwd_f32",
                                 "cvlm_qkv_packed_global_bwd_f32",
-                                [P, P, P, P, P, P, I, I, I, I, I, I, F])
+                                [P] * 9 + [I, I, I, I, I, I, I, I, F])
 
 # Attention over split q, k, v: SAM's unfused 'flash' path (#10, rel-pos
 # bias; the split front end of csrc/qkv_relpos.cu's one pass) and the
@@ -318,6 +319,45 @@ def attn_bwd_smem(d: int, H: int, W: int, L: int, lpc: int) -> dict:
         raise ValueError(f"cvlm_attn_bwd_smem: no kernel at d={d}, lpc={lpc}")
     return {"path": "register" if out[0] else "general", "query_smem": out[1],
             "query_stages": out[2], "key_smem": out[3], "key_stages": out[4]}
+
+
+# csrc/attn_bwd_f32.cu's tiles: 128 query rows (stats and query kernels) or
+# keys (key kernel); key-kernel steps of 32 queries, query-kernel steps of
+# 64 keys; at most 130 rel slots a key tile; rel_w sums in shared memory up
+# to 128 lanes (in registers at W = 64)
+ATTN_BWD_F32_TILE, ATTN_BWD_F32_SLOTS, ATTN_BWD_F32_WS = 128, 130, 128
+ATTN_BWD_F32_KEY_STEP, ATTN_BWD_F32_QUERY_STEP = 32, 64
+SMEM_MAX = 232448  # dynamic shared memory a block may have on the H100
+
+
+def attn_bwd_f32_smem(d: int, W: int) -> dict:
+    """What `csrc/attn_bwd_f32.cu` launches at head dim d on a grid W keys
+    wide: each kernel's dynamic shared memory in bytes (the same at every H
+    and W; `cvlm_attn_bwd_f32_smem` gives the library's own) and where the
+    query kernel sums the rel_w lanes ("registers" at W = 64, where a
+    query-kernel step is one grid row; "shared" up to ATTN_BWD_F32_WS lanes;
+    else "drel", the output rows the block owns)."""
+    if d not in (64, 80):
+        raise ValueError(f"attn_bwd_f32_smem: no kernel at d={d}")
+    t, ldq, ldr = ATTN_BWD_F32_TILE, d + 4, ATTN_BWD_F32_SLOTS + 1
+    ks, qs, ldp = ATTN_BWD_F32_KEY_STEP, ATTN_BWD_F32_QUERY_STEP, t + 4
+    return {"stats": 4 * (3 * t * ldq + t * ldr + t) + 4 * t,
+            "key": 4 * (2 * t * ldq + 4 * ks * ldq + 2 * ks * ldp + 2 * ks * ldr) + 16 * 2 * ks
+            + 4 * (t + ATTN_BWD_F32_SLOTS + 2),
+            "query": 4 * (2 * (qs * ldp + qs * ldq) + ATTN_BWD_F32_WS * ldp),
+            "rel_w": ("registers" if W == qs else "shared" if W <= ATTN_BWD_F32_WS
+                      else "drel")}
+
+
+def attn_bwd_f32_smem_library(d: int) -> dict:
+    """The library's own sizes of `attn_bwd_f32_smem` (`cvlm_attn_bwd_f32_smem`)."""
+    out = (ctypes.c_longlong * 3)()
+    fn = library().cvlm_attn_bwd_f32_smem
+    fn.argtypes = [I, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    if fn(d, out):
+        raise ValueError(f"cvlm_attn_bwd_f32_smem: no kernel at d={d}")
+    return {"stats": out[0], "key": out[1], "query": out[2]}
 
 
 def attn_fullk_smem(d: int, dv: int) -> dict:

@@ -45,11 +45,13 @@ tiles (`row_tiles`' layout, read by bulk copies), a query-parallel pass
 wrapper picks the lane width (`attn_bwd_lanes`) and hands in the scratch
 and the key code (`attn_bwd_scratch`), the C entry picks the bias path.
 Their fp32 instances (`csrc/attn_bwd_f32.cu`, train --dtype float32 on the
-card) run the same two passes on the fp32 flash loop's 64 x 64 tiles on
-the CUDA cores, with no rounding point: the query pass keeps each row's
-(max, 1/sum, t) in an fp32 scratch for the key pass, and drel is summed in
-shared memory in a fixed order (no atomics); #18's holds H + W <=
-F32_GLOBAL_BWD_MAX_LANES lanes. The plain, edge, #10, #11, #12, #19 and #20
+card) run on the CUDA cores with no rounding point, in three kernels: the
+rows' (max, 1/sum) from S alone and t = sum g o from the forward's output
+`o` (which `AttnWithBwd` keeps in float32), then per chunk of (problem,
+head) pairs a key-parallel kernel (dk, dv, and dS^T into a scratch) and a
+query-parallel one (dq from that dS^T, and drel summed in a fixed order:
+no atomics); `attn_bwd_f32_scratch` sizes the scratch. #18's takes H + W
+<= F32_GLOBAL_BWD_MAX_LANES lanes, as its forward. The plain, edge, #10, #11, #12, #19 and #20
 attention take the VJP of their plain version (`ops/autograd.py`), as the
 JAX package's do.
 """
@@ -473,21 +475,58 @@ def _check_bwd_grad(name, g, dtype, shape):
         raise ValueError(f"{name}: gradient {g.shape}, expected {shape}")
 
 
-def _attn_bwd_f32_launch(kernel, qkv, rel, g, BB, heads, *shape):
-    """The fp32 backward's outputs and its statistics scratch (each query
-    row's max, 1/sum and t, written by the query pass for the key pass)."""
+# the fp32 backward's dS^T scratch holds as many (problem, head) pairs as
+# fit in this many bytes (at least one); the C entry runs its key and query
+# kernels a chunk of pairs at a time
+F32_BWD_SCRATCH_BYTES = 512 << 20
+
+
+def attn_bwd_f32_scratch(BB: int, heads: int, N: int, d: int, device="cpu"):
+    """`csrc/attn_bwd_f32.cu`'s scratch: (stats, gt, dst, chunk). stats
+    holds each query row's (max, 1/sum, t, 0), gt g as rows (BB * heads, N,
+    d), dst a chunk of pairs' dS^T, (chunk, NP, NP) with NP = N rounded up
+    to the kernels' 128-row tile, key-major."""
+    t = _cuda.ATTN_BWD_F32_TILE
+    NP = -(-N // t) * t
+    chunk = min(BB * heads, max(1, F32_BWD_SCRATCH_BYTES // (4 * NP * NP)))
+    stats = torch.empty((BB * heads, N, 4), dtype=torch.float32, device=device)
+    gt = torch.empty((BB * heads, N, d), dtype=torch.float32, device=device)
+    dst = torch.empty((chunk, NP, NP), dtype=torch.float32, device=device)
+    return stats, gt, dst, chunk
+
+
+def _check_bwd_out(name, o, qkv, shape):
+    """The forward's output the fp32 backward reads t = sum g o from: fp32,
+    d-major (P, heads * d, N) on qkv's device, rows of any stride
+    (`dmajor_empty`'s)."""
+    if o is None:
+        raise ValueError(f"{name}: the CUDA kernel needs the forward's output o")
+    _cuda.check_dtype(name, torch.float32, o)
+    P, C, N = shape
+    if (o.shape != shape or o.device != qkv.device or o.stride(-1) != 1
+            or o.stride(0) != C * o.stride(1) or o.stride(1) < N):
+        raise ValueError(f"{name}: o {tuple(o.shape)} strides {o.stride()}, expected d-major "
+                         f"{shape}")
+
+
+def _attn_bwd_f32_launch(kernel, qkv, rel, g, o, BB, heads, *shape):
+    """The fp32 backward's outputs, its scratch (`attn_bwd_f32_scratch`) and
+    one launch of its C entry (`shape`: the entry's ints before ldo)."""
     dqkv, drel = torch.empty_like(qkv), torch.empty_like(rel)
-    stats = torch.empty((BB * heads, qkv.shape[1], 4), dtype=torch.float32, device=qkv.device)
-    kernel(qkv.data_ptr(), rel.data_ptr(), g.data_ptr(), dqkv.data_ptr(), drel.data_ptr(),
-           stats.data_ptr(), BB, *shape)
+    _, N, C3 = qkv.shape
+    stats, gt, dst, chunk = attn_bwd_f32_scratch(BB, heads, N, C3 // (3 * heads), qkv.device)
+    *ints, scale = shape
+    kernel(qkv.data_ptr(), rel.data_ptr(), g.data_ptr(), o.data_ptr(), dqkv.data_ptr(),
+           drel.data_ptr(), stats.data_ptr(), gt.data_ptr(), dst.data_ptr(), BB, *ints,
+           o.stride(1), chunk, scale)
     return dqkv, drel
 
 
-def flash_qkv_packed_windows_s_bwd(qkv, rel_s, sel32, g, scale, heads, d):
+def flash_qkv_packed_windows_s_bwd(qkv, rel_s, sel32, g, scale, heads, d, o=None):
     """Backward of `flash_qkv_packed_windows_s`: the kernel for CUDA tensors
-    (TPU kernel #14; in float32 its fp32 instance), the plain backward for
-    CPU tensors. dqkv is written in qkv's packed rows, drel in rel_s's
-    position-major layout."""
+    (TPU kernel #14; in float32 its fp32 instance, which also reads the
+    forward's output `o`), the plain backward for CPU tensors. dqkv is
+    written in qkv's packed rows, drel in rel_s's position-major layout."""
     name = "flash_qkv_packed_windows_s_bwd"
     if not _cuda.use_kernel(name, qkv, rel_s, sel32, g):
         return flash_qkv_packed_windows_s_bwd_ref(qkv, rel_s, sel32, g, scale, heads, d)
@@ -497,7 +536,8 @@ def flash_qkv_packed_windows_s_bwd(qkv, rel_s, sel32, g, scale, heads, d):
         win = _check_windows(name, qkv, rel_s, sel32, heads, d, dtype=torch.float32)
         _check_f32_attention(name, d, BW, heads)
         _check_bwd_grad(name, g, torch.float32, (BW, heads * d, Nw))
-        return _attn_bwd_f32_launch(_cuda.QKV_WINDOWS_BWD_F32, qkv, rel_s, g, BW, heads, win,
+        _check_bwd_out(name, o, qkv, (BW, heads * d, Nw))
+        return _attn_bwd_f32_launch(_cuda.QKV_WINDOWS_BWD_F32, qkv, rel_s, g, o, BW, heads, win,
                                     heads, d, float(scale))
     win = _check_windows(name, qkv, rel_s, sel32, heads, d)
     _check_bwd_grad(name, g, torch.bfloat16, (BW, heads * d, Nw))
@@ -507,20 +547,22 @@ def flash_qkv_packed_windows_s_bwd(qkv, rel_s, sel32, g, scale, heads, d):
 
 class AttnWithBwd(torch.autograd.Function):
     """An attention kernel with its hand-written backward `bwd(qkv, rel,
-    sel, g, *static) -> (dqkv, drel)`; sel gets no gradient. Keeps only its
-    inputs."""
+    sel, g, *static, o=...) -> (dqkv, drel)`; sel gets no gradient. Keeps
+    its inputs and, in float32, its output o (the fp32 backward's t = sum g
+    o; the out-projection after it keeps o anyway)."""
 
     @staticmethod
     def forward(ctx, fwd, bwd, qkv, rel, sel, *static):
-        ctx.save_for_backward(qkv, rel, sel)
+        out = fwd(qkv, rel, sel, *static)
+        ctx.save_for_backward(qkv, rel, sel, out if qkv.dtype == torch.float32 else None)
         ctx.bwd, ctx.static = bwd, static
-        return fwd(qkv, rel, sel, *static)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        qkv, rel, sel = ctx.saved_tensors
+        qkv, rel, sel, o = ctx.saved_tensors
         # the kernels read g in its d-major rows: a non-contiguous gradient is copied here
-        dqkv, drel = ctx.bwd(qkv, rel, sel, g.contiguous(), *ctx.static)
+        dqkv, drel = ctx.bwd(qkv, rel, sel, g.contiguous(), *ctx.static, o=o)
         needs = ctx.needs_input_grad
         return (None, None, dqkv if needs[2] else None, drel if needs[3] else None, None,
                 *([None] * len(ctx.static)))
@@ -682,16 +724,17 @@ def flash_qkv_packed_global_bwd_ref(qkv, rel, sel, g, scale, heads, d):
 
 # the backward kernels pad the rel lanes to at most 128 (`attn_bwd_lanes`)
 GLOBAL_BWD_MAX_LANES = 128
-# the fp32 backward (csrc/attn_bwd_f32.cu) holds a query tile's H + W rel
-# lanes and their drel sums in shared memory: at most this many
-F32_GLOBAL_BWD_MAX_LANES = 192
+# the fp32 backward (csrc/attn_bwd_f32.cu) holds at most 130 rel slots of a
+# key tile whatever H + W is: it takes what its forward takes
+F32_GLOBAL_BWD_MAX_LANES = F32_GLOBAL_MAX_LANES
 
 
-def flash_qkv_packed_global_bwd(qkv, rel, sel, g, scale, heads, d, H, W):
+def flash_qkv_packed_global_bwd(qkv, rel, sel, g, scale, heads, d, H, W, o=None):
     """Backward of `flash_qkv_packed_global`: the kernel for CUDA tensors
     (TPU kernel #18; in float32 its fp32 instance, H + W <=
-    F32_GLOBAL_BWD_MAX_LANES), the plain backward for CPU tensors. dqkv is
-    written in qkv's packed rows, drel in rel's position-major layout."""
+    F32_GLOBAL_BWD_MAX_LANES, which also reads the forward's output `o`),
+    the plain backward for CPU tensors. dqkv is written in qkv's packed
+    rows, drel in rel's position-major layout."""
     name = "flash_qkv_packed_global_bwd"
     if not _cuda.use_kernel(name, qkv, rel, sel, g):
         return flash_qkv_packed_global_bwd_ref(qkv, rel, sel, g, scale, heads, d)
@@ -702,9 +745,10 @@ def flash_qkv_packed_global_bwd(qkv, rel, sel, g, scale, heads, d, H, W):
         _check_f32_attention(name, d, B, heads)
         _check_bwd_grad(name, g, torch.float32, (B, heads * d, N))
         if H + W > F32_GLOBAL_BWD_MAX_LANES:
-            raise ValueError(f"{name}: CUDA kernel takes H+W <= {F32_GLOBAL_BWD_MAX_LANES} (the "
-                             f"rel lanes and drel sums it holds in shared memory), got {H + W}")
-        return _attn_bwd_f32_launch(_cuda.QKV_GLOBAL_BWD_F32, qkv, rel, g, B, heads, N, H, W,
+            raise ValueError(f"{name}: CUDA kernel takes H+W <= {F32_GLOBAL_BWD_MAX_LANES} (as "
+                             f"its forward), got {H + W}")
+        _check_bwd_out(name, o, qkv, (B, heads * d, N))
+        return _attn_bwd_f32_launch(_cuda.QKV_GLOBAL_BWD_F32, qkv, rel, g, o, B, heads, N, H, W,
                                     heads, d, float(scale))
     _check_global(name, qkv, rel, sel, heads, d, H, W)
     _check_bwd_grad(name, g, torch.bfloat16, (B, heads * d, N))

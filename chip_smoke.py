@@ -471,6 +471,15 @@ def phase_build():
         log(f"[build] dynamic shared memory per block: {site} ({plan['path']} path): "
             f"attn_bwd_query_kernel {plan['query_smem']} B, {plan['query_stages']} stages; "
             f"attn_bwd_key_kernel {plan['key_smem']} B, {plan['key_stages']} stages")
+    # its fp32 instance's three kernels (csrc/attn_bwd_f32.cu), the library's
+    # sizes against the wrapper's `_cuda.attn_bwd_f32_smem`
+    for d in (64, 80):
+        lib, py = _cuda.attn_bwd_f32_smem_library(d), _cuda.attn_bwd_f32_smem(d, 64)
+        log(f"[build] dynamic shared memory per block: fp32 #14/#18 at d = {d}: "
+            f"attn_bwd_f32_stats_kernel {lib['stats']} B, attn_bwd_f32_key_kernel {lib['key']} "
+            f"B, attn_bwd_f32_query_kernel {lib['query']} B")
+        check(all(lib[k] == py[k] <= _cuda.SMEM_MAX for k in lib),
+              f"attn_bwd_f32 shared memory: library {lib}, wrapper {py}")
 
 def gemm_stages(bn):
     """The ring depth of csrc/gemm_sm90.cuh's GemmTile<bn>."""
@@ -2927,11 +2936,13 @@ def sdpa_bwd_composite(qkv, relh, sel, g, scale, heads, d):
 def sam_f32_grads(rn):
     """The fp32 backwards on the train CLI's path at --dtype float32 (SAM
     ViT-H at 1024 px; `rn` draws fp32) against their plain fp32 backwards
-    within 1e-4, TF32 off: #14 and #18 at batch 2 and 1 (dqkv and drel),
-    each with its bound against the fp32 CUDA-core peak and
+    within 1e-4, TF32 off: #14 and #18 at batch 2 and 1 (dqkv and drel;
+    the kernel reads the fp32 forward kernel's output o, as the train step
+    hands it), each with its bound against the fp32 CUDA-core peak and
     `sdpa_bwd_composite` as the library time (the kernels line holds batch
-    2, the train slice's, with the batch-1 times beside it); then #6 at
-    SAM's three row sets at batch 2 (dx only, K 1280, H 5120)."""
+    2, the train slice's, with the batch-1 times beside it), and two calls
+    bit-equal; then #6 at SAM's three row sets at batch 2 (dx only, K 1280,
+    H 5120)."""
     import torch
     from camouflaged_vlm_tpu_torch.models import CascadeConfig
     from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
@@ -2952,33 +2963,42 @@ def sam_f32_grads(rn):
         BW = B * geom.n_full
         args = (rn(BW, S, 3 * D), rn(S, BW, NH * 32), sel32, rn(BW, D, S, std=0.05), scale, NH,
                 HD)
+        o = fa.flash_qkv_packed_windows_s(*args[:3], scale, NH, HD)
         yield ("flash_qkv_packed_windows_s_bwd_f32", "flash_attention.py:617",
-               f"qkv {BW}x{S}x{3 * D}", fa.flash_qkv_packed_windows_s_bwd,
-               fa.flash_qkv_packed_windows_s_bwd_ref, args, 10.0 * BW * NH * S * S * HD,
+               f"qkv {BW}x{S}x{3 * D}",
+               lambda *a, o=o: fa.flash_qkv_packed_windows_s_bwd(*a, o=o),
+               fa.flash_qkv_packed_windows_s_bwd_ref, args, o, 10.0 * BW * NH * S * S * HD,
                args[1].reshape(S, BW, NH, 32).permute(1, 2, 0, 3), sel32)
         args = (rn(B, N, 3 * D), rn(N, B, NH, 2 * G), sel_g, rn(B, D, N, std=0.05), scale, NH,
                 HD, G, G)
+        o = fa.flash_qkv_packed_global(*args[:3], scale, NH, HD, G, G)
         yield ("flash_qkv_packed_global_bwd_f32", "flash_attention.py:1173",
-               f"qkv {B}x{N}x{3 * D}", fa.flash_qkv_packed_global_bwd,
-               lambda *a: fa.flash_qkv_packed_global_bwd_ref(*a[:7]), args,
+               f"qkv {B}x{N}x{3 * D}", lambda *a, o=o: fa.flash_qkv_packed_global_bwd(*a, o=o),
+               lambda *a: fa.flash_qkv_packed_global_bwd_ref(*a[:7]), args, o,
                10.0 * B * NH * N * N * HD, args[1].permute(1, 2, 0, 3), sel_g)
 
     out = {}
     for B in (2, 1):
-        for name, replaces, shape, kfn, pfn, args, flops, relh, sel in cases(B):
+        for name, replaces, shape, kfn, pfn, args, o, flops, relh, sel in cases(B):
             # five N^2 d products a (problem, head): the scores, dP, dv, dq, dk
             r = _check_grads(f"{name} (SAM ViT-H {shape}, batch {B}, fp32, TF32 off)", kfn, pfn,
-                             args, ["dqkv", "drel"], flops, reads=(args[0], args[1], args[3]),
+                             args, ["dqkv", "drel"], flops, reads=(args[0], args[1], args[3], o),
                              rel_bound=F32_REL_BOUND, peak_flops=PEAK_F32_FLOPS,
                              library=sdpa_bwd_composite(args[0], relh, sel, args[3], scale, NH,
                                                         HD),
                              library_label=label, tag="kernel")
+            # no atomics: two calls on the same inputs give the same bits
+            first, second = kfn(*args), kfn(*args)
+            same = all(torch.equal(x, y) for x, y in zip(first, second))
+            log(f"[kernel] {name} batch {B}: two calls bit-equal (dqkv, drel): {same}")
+            check(same, f"{name}: two calls on the same inputs differ")
+            del first, second
             if B == 2:
                 out[name] = dict(source=src, replaces=rep + replaces, **r)
             else:
                 out[name].update({f"batch1_{k}": r[k] for k in (
                     "ms", "queued_ms", "plain_ms", "library_ms", "bound_ms")})
-            del args, relh
+            del args, relh, o
             torch.cuda.empty_cache()
     enc = CascadeConfig.full().encoder
     act = "gelu_tanh" if enc.gelu_approximate else "gelu"
@@ -3425,6 +3445,10 @@ def phase_f32_slice():
 F32_TRAIN_LOSS_REL_BOUND = 1e-5
 F32_TRAIN_SMALL_GRAD_REL_BOUND = 1e-4
 F32_TRAIN_FULL_GRAD_REL_BOUND = 1e-3
+# the train CLI's device peak at --dtype float32, full width, batch 2 (GiB):
+# 14.03 measured before the fp32 attention backward took its dS^T scratch
+# (512 MiB, `flash_attention.F32_BWD_SCRATCH_BYTES`), plus 1 GiB
+F32_TRAIN_PEAK_GIB = 15.03
 
 
 def _small_f32_config():
@@ -3582,6 +3606,8 @@ def phase_f32_train_slice():
         counts = _cuda.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         check(tf32 == (False, False), f"f32_train_slice: the train CLI left TF32 on: {tf32}")
+        check(peak <= F32_TRAIN_PEAK_GIB,
+              f"f32_train_slice: peak {peak:.2f} GiB above {F32_TRAIN_PEAK_GIB} GiB")
         model, steps, vals = run["model"], run["step"], run["validations"]
         cfg = model.cfg
         check(cfg.encoder.dtype == cfg.decoder.dtype == cfg.clip.dtype == torch.float32

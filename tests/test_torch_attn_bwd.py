@@ -16,11 +16,14 @@ to. No rounding point moves against the plain backward: the emulation
 rounds where it rounds. The W = 64 drel rule is held equal to dS . sel^T.
 The wrapper's scratch (lane width, tiles, sizes) is checked here too.
 
-In float32 the fp32 instances' algorithm is emulated the same way (online
-row statistics over 64-key tiles in natural units, P and dS rebuilt from
-them, drel summed tile by tile) with no rounding point, and held to the JAX
-package's fp32 VJP and to the port's plain fp32 backward within 1e-5: only
-the order of fp32 sums differs.
+In float32 the fp32 instances' algorithm is emulated too (each row's max
+and sum online over 128-key tiles from S alone, t = sum g o from the
+forward's output, P and dS per 128-key tile and 32-query step, dS^T kept
+for dq over 64-key steps, drel walked in key order) with no rounding point,
+and held to the JAX package's fp32 VJP and to the port's plain fp32
+backward within 1e-5: only the order of fp32 sums differs. The kernels'
+shared memory (`_cuda.attn_bwd_f32_smem`) is checked against the H100's
+limit here too.
 """
 
 import numpy as np
@@ -33,6 +36,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from camouflaged_vlm_tpu.ops import flash_attention as j_fa  # noqa: E402
 
+from camouflaged_vlm_tpu_torch.ops import _cuda  # noqa: E402
 from camouflaged_vlm_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from camouflaged_vlm_tpu_torch.ops.compact_window import REL_LANES  # noqa: E402
 
@@ -106,50 +110,59 @@ def kernel_bwd_emulation(qkv, rel, g, scale, heads, d, H, W):
 
 def kernel_bwd_emulation_f32(qkv, rel, g, scale, heads, d, H, W):
     """csrc/attn_bwd_f32.cu's backward in torch, all fp32: qkv (BB, N, 3
-    heads d), rel (N, BB, heads, L), g (BB, heads d, N) -> (dqkv, drel). The
-    query pass's sweep 1 keeps each row's max, sum and t = sum exp(s - m) dP
-    online over 64-key tiles (natural units, keys past N absent), t /= sum;
-    P = exp(s - m) / sum and dS = P (dP - t) are rebuilt per tile for dq,
-    drel (the tile's sums per lane, added tile after tile, lanes past H + W
-    zero) and the key pass's dk and dv."""
+    heads d), rel (N, BB, heads, L), g (BB, heads d, N) -> (dqkv, drel).
+    Scores s = scale * (q . k) + bias. The stats kernel: each row's max and
+    sum online over 128-key tiles of S alone (natural units, keys past N
+    absent), t = sum_c g o from the forward's output (here the plain fp32
+    forward's). The key kernel: per 128-key tile and 32-query step, P =
+    exp(s - m) / sum and dS = P (dP - t); dv = P^T g and dk = scale * dS^T q
+    summed step after step; dS kept.
+    The query kernel: dq = scale * dS k over 64-key steps; drel walked in key
+    order, rel_h lane kh the sum of grid row kh, rel_w lane kw summed over
+    the grid rows in order, lanes past H + W zero."""
     BB, N, _ = qkv.shape
     L = rel.shape[-1]
+    tile, kstep, qstep = (_cuda.ATTN_BWD_F32_TILE, _cuda.ATTN_BWD_F32_KEY_STEP,
+                          _cuda.ATTN_BWD_F32_QUERY_STEP)
     r = qkv.reshape(BB, N, 3, heads, d)
     q, k, v = (r[:, :, i].transpose(1, 2) for i in range(3))  # (BB, heads, N, d)
-    qs = q * scale
     relh = rel.permute(1, 2, 0, 3)  # (BB, heads, N, L)
     gr = g.reshape(BB, heads, d, N).transpose(-1, -2)
     code = fa.make_rel_scatter(H, W).T  # (N, H + W): key k's lanes k // W and H + k % W
-    tiles = [slice(t, min(t + fa.ATTN_BWD_TILE, N)) for t in range(0, N, fa.ATTN_BWD_TILE)]
+    s = scale * (q @ k.transpose(-1, -2)) + relh[..., :H + W] @ code.T  # biased scores
+    o = torch.softmax(s, -1) @ v  # the forward's output
+    t = (gr * o).sum(-1)
 
-    def scores(ks):  # biased scores against key slice ks, and dP
-        s = qs @ k[..., ks, :].transpose(-1, -2) + relh[..., :H + W] @ code[ks].T
-        return s, gr @ v[..., ks, :].transpose(-1, -2)
+    def tiles(n):
+        return [slice(a, min(a + n, N)) for a in range(0, N, n)]
 
     m = torch.full((BB, heads, N), -float("inf"))
-    l, t = torch.zeros(BB, heads, N), torch.zeros(BB, heads, N)
-    for ks in tiles:
-        s, dp = scores(ks)
-        mn = torch.maximum(m, s.amax(-1))
-        corr, p = torch.exp(m - mn), torch.exp(s - mn[..., None])
-        l, t, m = l * corr + p.sum(-1), t * corr + (p * dp).sum(-1), mn
+    l = torch.zeros(BB, heads, N)
+    for ks in tiles(tile):
+        mn = torch.maximum(m, s[..., ks].amax(-1))
+        l, m = l * torch.exp(m - mn) + torch.exp(s[..., ks] - mn[..., None]).sum(-1), mn
     inv = 1.0 / l
-    t = t * inv
-    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(q), torch.zeros_like(q)
+    dk, dv, dS = torch.zeros_like(q), torch.zeros_like(q), torch.zeros_like(s)
+    for ks in tiles(tile):
+        for qr in tiles(kstep):
+            p = torch.exp(s[..., qr, ks] - m[..., qr, None]) * inv[..., qr, None]
+            ds = p * (gr[..., qr, :] @ v[..., ks, :].transpose(-1, -2) - t[..., qr, None])
+            dv[..., ks, :] += p.transpose(-1, -2) @ gr[..., qr, :]
+            dk[..., ks, :] += ds.transpose(-1, -2) @ q[..., qr, :]
+            dS[..., qr, ks] = ds
+    dq = torch.zeros_like(q)
+    for ks in tiles(qstep):
+        dq += dS[..., ks] @ k[..., ks, :]
+    rows = dS.reshape(BB, heads, N, H, W)
     drel = torch.zeros(BB, heads, N, L)
-    for ks in tiles:
-        s, dp = scores(ks)
-        p = torch.exp(s - m[..., None]) * inv[..., None]
-        ds = p * (dp - t[..., None])
-        dq += ds @ k[..., ks, :]
-        drel[..., :H + W] += ds @ code[ks]
-        dv[..., ks, :] = p.transpose(-1, -2) @ gr
-        dk[..., ks, :] = ds.transpose(-1, -2) @ q
+    drel[..., :H] = rows.sum(-1)
+    for kh in range(H):
+        drel[..., H:H + W] += rows[..., kh, :]
 
-    def rows(a):
+    def cat_rows(a):
         return a.transpose(1, 2).reshape(BB, N, heads * d)
 
-    dqkv = torch.cat([rows(dq * scale), rows(dk * scale), rows(dv)], -1)
+    dqkv = torch.cat([cat_rows(dq * scale), cat_rows(dk * scale), cat_rows(dv)], -1)
     return dqkv, drel.permute(2, 0, 1, 3)
 
 
@@ -215,10 +228,15 @@ def test_windows_bwd_emulation_matches_jax_vjp(rng, win, dtype):
 @pytest.mark.parametrize("H,W,dtype", [pytest.param(2, 64, BF, id="2-64"),
                                        pytest.param(10, 10, BF, id="10-10"),
                                        pytest.param(2, 64, F32, id="2-64-float32"),
-                                       pytest.param(10, 10, F32, id="10-10-float32")])
+                                       pytest.param(10, 10, F32, id="10-10-float32"),
+                                       pytest.param(3, 50, F32, id="3-50-float32"),
+                                       pytest.param(2, 130, F32, id="2-130-float32")])
 def test_global_bwd_emulation_matches_jax_vjp(rng, H, W, dtype):
-    """#18 on a 2 x 64 grid (the register path's rule: a 64-key tile is a grid
-    row) and on 10 x 10 (the general path, 20 lanes, a ragged tile)."""
+    """#18 on a 2 x 64 grid (the bf16 register path's rule: a 64-key tile is
+    a grid row) and on 10 x 10 (the general path, 20 lanes, a ragged tile);
+    in fp32 also on 3 x 50 (two 128-key tiles, grid row 2 across their
+    boundary and across the query kernel's 64-key steps) and 2 x 130 (W >
+    128: a rel_w slot a key, the rel_w sums in drel itself)."""
     B, heads, d = 1, 2, 16
     N = H * W
     qkv = _draw(rng, dtype, B, N, 3 * heads * d)
@@ -233,6 +251,40 @@ def test_global_bwd_emulation_matches_jax_vjp(rng, H, W, dtype):
     port = fa.flash_qkv_packed_global_bwd_ref(_t(qkv, dtype), _t(rel, dtype), sel.to(dtype),
                                               _t(gy, dtype), scale, heads, d)
     _check(got, want, port, GATE if dtype == BF else F32_GATE)
+
+
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("H,W", [(14, 14), (64, 64), (2, fa.F32_GLOBAL_BWD_MAX_LANES - 2),
+                                 (fa.F32_GLOBAL_BWD_MAX_LANES - 128, 128)])
+def test_attn_bwd_f32_smem_within_the_h100_limit(d, H, W):
+    """Each of csrc/attn_bwd_f32.cu's three kernels stays within the 232,448
+    B of dynamic shared memory a block may have, at the windows' 14 + 14
+    lanes, the grid's 64 + 64 and at the lane limit (W > 128 and W = 128):
+    the sizes do not grow with the lanes, the rel slots of a key tile are
+    at most 130, and the query kernel sums rel_w in registers at W = 64 and
+    in shared memory only up to 128 lanes."""
+    assert H + W <= fa.F32_GLOBAL_BWD_MAX_LANES == fa.F32_GLOBAL_MAX_LANES
+    got = _cuda.attn_bwd_f32_smem(d, W)
+    assert got == {**_cuda.attn_bwd_f32_smem(d, 1), "rel_w": got["rel_w"]}
+    assert got["rel_w"] == ("registers" if W == 64 else "shared" if W <= 128 else "drel")
+    for kernel in ("stats", "key", "query"):
+        assert 0 < got[kernel] <= _cuda.SMEM_MAX
+    if d == 80:  # the sizes the source's header states
+        assert (got["stats"], got["key"], got["query"]) == (197120, 198416, 178176)
+
+
+@pytest.mark.parametrize("BB,heads,N,chunk", [(32, 16, 196, 512), (2, 16, 4096, 8),
+                                              (1, 16, 4096, 8), (1, 2, 100, 2)])
+def test_attn_bwd_f32_scratch(BB, heads, N, chunk):
+    """The fp32 backward's scratch: four statistics a row, g as rows, and
+    dS^T of as many (problem, head) pairs as fit in F32_BWD_SCRATCH_BYTES
+    (512 MiB: 8 of the global blocks' 4096 x 4096, every window pair at
+    batch 2), NP = N rounded up to 128."""
+    stats, gt, dst, got = fa.attn_bwd_f32_scratch(BB, heads, N, 80, device="meta")
+    NP = -(-N // 128) * 128
+    assert got == chunk and stats.shape == (BB * heads, N, 4) and dst.shape == (chunk, NP, NP)
+    assert gt.shape == (BB * heads, N, 80)
+    assert dst.numel() * 4 <= max(fa.F32_BWD_SCRATCH_BYTES, NP * NP * 4)
 
 
 @pytest.mark.parametrize("H", [1, 3, 64])

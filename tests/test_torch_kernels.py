@@ -726,6 +726,16 @@ def _global_bwd_args(gen, B, H, W, heads, d, dtype=torch.bfloat16):
             rn(gen, B, heads * d, N, std=0.05, dtype=dtype), d ** -0.5, heads, d, H, W)
 
 
+def _bwd_out(args):
+    """The forward's output the fp32 backward reads (t = sum g o): the plain
+    fp32 forward's on the backward's arguments, in the rows of a stride
+    rounded up to 8 that the forward kernels write."""
+    qkv, rel, sel, _, scale, heads, d = args[:7]
+    ref = flash_attention.flash_qkv_packed_windows_s_ref if len(args) == 7 else \
+        flash_attention.flash_qkv_packed_global_ref
+    return dmajor(ref(qkv, rel, sel, scale, heads, d))
+
+
 @pytest.mark.parametrize("BW,win,heads,d", [(32, 14, 16, 80), (16, 14, 16, 80), (3, 4, 2, 64),
                                             (2, 9, 2, 80), (2, 14, 2, 64), (1, 16, 2, 80),
                                             (2, 16, 1, 64)])
@@ -738,7 +748,7 @@ def test_flash_qkv_packed_windows_s_bwd_kernel_float32(gen, no_tf32, BW, win, he
     none of the bf16 kernel."""
     args = _windows_bwd_args(gen, BW, win, heads, d, dtype=torch.float32)
     before = (_cuda.QKV_WINDOWS_BWD_F32.launches, _cuda.QKV_WINDOWS_BWD.launches)
-    got = flash_attention.flash_qkv_packed_windows_s_bwd(*args)
+    got = flash_attention.flash_qkv_packed_windows_s_bwd(*args, o=_bwd_out(args))
     assert (_cuda.QKV_WINDOWS_BWD_F32.launches, _cuda.QKV_WINDOWS_BWD.launches) == (
         before[0] + 1, before[1])
     for gt, wt in zip(got, flash_attention.flash_qkv_packed_windows_s_bwd_ref(*args)):
@@ -749,15 +759,18 @@ def test_flash_qkv_packed_windows_s_bwd_kernel_float32(gen, no_tf32, BW, win, he
 @pytest.mark.parametrize("B,H,W,heads,d", [(1, 64, 64, 16, 80), (2, 64, 64, 2, 80),
                                            (2, 64, 64, 1, 64), (1, 10, 10, 2, 64),
                                            (2, 10, 10, 2, 80), (2, 8, 64, 2, 80),
-                                           (1, 8, 64, 1, 64), (1, 5, 20, 2, 80)])
+                                           (1, 8, 64, 1, 64), (1, 5, 20, 2, 80),
+                                           (2, 3, 50, 2, 80), (1, 2, 130, 2, 64)])
 def test_flash_qkv_packed_global_bwd_kernel_float32(gen, no_tf32, B, H, W, heads, d):
     """#18's fp32 instance on ViT-H's 64 x 64 grid (batch 1 at full width,
-    16 heads x 80) and on 10 x 10 (a ragged tile), 8 x 64 and 5 x 20, d 64
-    and 80; within 1e-4 of the plain fp32 backward, the fp32 count up by
-    one and the bf16 count unchanged."""
+    16 heads x 80) and on 10 x 10 (a ragged tile), 8 x 64, 5 x 20, 3 x 50
+    (a grid row across two key tiles) and 2 x 130 (W > 128: a rel slot a
+    key, the rel_w sums in drel itself), d 64 and 80; within 1e-4 of the
+    plain fp32 backward, the fp32 count up by one and the bf16 count
+    unchanged."""
     args = _global_bwd_args(gen, B, H, W, heads, d, dtype=torch.float32)
     before = (_cuda.QKV_GLOBAL_BWD_F32.launches, _cuda.QKV_GLOBAL_BWD.launches)
-    got = flash_attention.flash_qkv_packed_global_bwd(*args)
+    got = flash_attention.flash_qkv_packed_global_bwd(*args, o=_bwd_out(args))
     assert (_cuda.QKV_GLOBAL_BWD_F32.launches, _cuda.QKV_GLOBAL_BWD.launches) == (
         before[0] + 1, before[1])
     for gt, wt in zip(got, flash_attention.flash_qkv_packed_global_bwd_ref(*args[:7])):
@@ -765,16 +778,20 @@ def test_flash_qkv_packed_global_bwd_kernel_float32(gen, no_tf32, B, H, W, heads
 
 
 def test_flash_qkv_packed_global_bwd_float32_lane_limit(gen, no_tf32):
-    """The fp32 #18 holds H + W <= F32_GLOBAL_BWD_MAX_LANES lanes: at the
-    limit it runs, one past it it refuses, naming the limit."""
+    """The fp32 #18 takes H + W <= F32_GLOBAL_BWD_MAX_LANES lanes, its
+    forward's 512: at the limit it runs, one past it it refuses, naming
+    the limit; without the forward's output it refuses too."""
     limit = flash_attention.F32_GLOBAL_BWD_MAX_LANES
+    assert limit == flash_attention.F32_GLOBAL_MAX_LANES == 512
     args = _global_bwd_args(gen, 1, 2, limit - 2, 1, 64, dtype=torch.float32)
-    for gt, wt in zip(flash_attention.flash_qkv_packed_global_bwd(*args),
+    for gt, wt in zip(flash_attention.flash_qkv_packed_global_bwd(*args, o=_bwd_out(args)),
                       flash_attention.flash_qkv_packed_global_bwd_ref(*args[:7])):
         assert_close_f32(gt, wt)
+    with pytest.raises(ValueError, match="forward's output"):
+        flash_attention.flash_qkv_packed_global_bwd(*args)
     args = _global_bwd_args(gen, 1, 2, limit - 1, 1, 64, dtype=torch.float32)
     with pytest.raises(ValueError, match=f"H\\+W <= {limit}"):
-        flash_attention.flash_qkv_packed_global_bwd(*args)
+        flash_attention.flash_qkv_packed_global_bwd(*args, o=_bwd_out(args))
 
 
 def test_attention_bwd_kernels_at_vit_h_width(gen):
@@ -810,8 +827,9 @@ def test_attention_bwd_kernels_float32_are_deterministic(gen):
                       _windows_bwd_args(gen, 8, 14, 4, 80, dtype=f32)),
                      (flash_attention.flash_qkv_packed_global_bwd,
                       _global_bwd_args(gen, 2, 64, 64, 2, 80, dtype=f32))):
-        first = fn(*args)
-        second = fn(*args)
+        o = _bwd_out(args)
+        first = fn(*args, o=o)
+        second = fn(*args, o=o)
         for a, b in zip(first, second):
             assert torch.equal(a, b)
 
