@@ -3,6 +3,7 @@
   python camouflaged_vlm_tpu_torch/cli/kernel_timing.py [--root DIR] [--label NAME]
                                                       [--padded-calls]
                                                       [--f32-attention [--against FILE]]
+                                                      [--f32-gemm [--tiles] [--against FILE]]
 
 Imports `camouflaged_vlm_tpu_torch` from the checkout at --root (default:
 this one), builds its kernels there, and times each case of `cases()`
@@ -47,7 +48,11 @@ ViT-H's at batch 1 and 2, the backwards #14 and #18 at batch 2) on seeded
 inputs, one JSON line each with the SHA-256 of its output bytes and its
 idle-card time (the backwards' also by kernel, from torch.profiler);
 --against FILE (another checkout's lines) adds whether each output is
-bit-equal to that checkout's.
+bit-equal to that checkout's. With --f32-gemm it does the same for every
+user of csrc/sgemm_f32.cuh (#1, #2, #3, #4/#5, #6, #7, #8/#9) at every shape
+of its paths (`f32_gemm_cases`), each line with its error against the plain
+version, both clocks and, on a checkout with the fp32 tile plan, the plans
+the call took (--tiles: the queued time at each tile, forced).
 """
 
 from __future__ import annotations
@@ -505,6 +510,123 @@ def f32_attention(smoke, label, against):
             del got
 
 
+def f32_gemm_cases(smoke, rn):
+    """(name, site, zero-argument call, plain call) of every user of
+    csrc/sgemm_f32.cuh at every shape of its paths, inputs drawn in a fixed
+    order from `rn` (fp32): the fp32 cascade's (`chip_smoke.f32_gemm_cases`:
+    #1, #2, #4/#5, #7 at batch 2 and 1, the text tower's #4/#5), #3 at the
+    global blocks at batch 2 and 1, MaPLe's (batch 8: #2, #7, #4/#5 and the
+    backward #6 at the vision and text widths), #6 at SAM ViT-H's three row
+    sets (batch 2, dx), #8 and #9 at window 17."""
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    def named(kernel):
+        return kernel + "_f32"
+
+    out = []
+    for kernel, site, b, kfn, pfn, args, *_ in smoke.f32_gemm_cases(rn):
+        out.append((named(kernel), f"{site} batch {b}", lambda f=kfn, a=args: f(*a),
+                    lambda f=pfn, a=args: f(*a)))
+    for b in (2, 1):
+        kfn, pfn, args, *_ = smoke.ln_gemm_case(rn, "ln_mask_linear_bt", (b, 4096), 1280, 3840,
+                                                1e-6, None)
+        out.append((named("ln_mask_linear_bt"), f"global batch {b}",
+                    lambda f=kfn, a=args: f(*a), lambda f=pfn, a=args: f(*a)))
+    B, S = smoke.MAPLE_B, smoke.MAPLE_S
+    for kernel, lead, K, N in (("ln_linear_act_bt", (B, S), 1024, 3072),
+                               ("ln_mlp_residual_bt", (B, S), 1024, 4096)):
+        act = None if kernel == "ln_linear_act_bt" else "quick_gelu"
+        kfn, pfn, args, *_ = smoke.ln_gemm_case(rn, kernel, lead, K, N, 1e-5, act)
+        out.append((named(kernel), f"MaPLe {B}x{S}", lambda f=kfn, a=args: f(*a),
+                    lambda f=pfn, a=args: f(*a)))
+    args, *_ = smoke.proj_rows_case(rn, (B, 1, 1024, S), 1024)
+    out.append((named("proj_rows"), f"MaPLe {B}x{S}", lambda a=args: lin.proj_rows(*a),
+                lambda a=args: lin.proj_rows_ref(*a)))
+    for site, lead, K, H, eps, act in (
+            (f"MaPLe vision {B}x{S}", (B, S), 1024, 4096, 1e-5, "quick_gelu"),
+            (f"MaPLe text {smoke.MAPLE_CLASSES}x77", (smoke.MAPLE_CLASSES, 77), 768, 3072, 1e-5,
+             "quick_gelu"),
+            ("SAM global batch 2", (2, 4096), 1280, 5120, 1e-6, "gelu_tanh"),
+            ("SAM windows batch 2", (32, 196), 1280, 5120, 1e-6, "gelu_tanh"),
+            ("SAM edge batch 2", (2, 1008), 1280, 5120, 1e-6, "gelu_tanh")):
+        _, _, args, *_ = smoke.ln_gemm_case(rn, "ln_mlp_residual_bt", lead, K, H, eps, act)
+        a = args + (rn(*lead, K),)
+        out.append((named("ln_mlp_residual_bt_bwd"), site,
+                    lambda a=a, e=eps, c=act: lin.ln_mlp_residual_bt_bwd(
+                        *a, eps=e, activation=c, weights=False)[0],
+                    lambda a=a, e=eps, c=act: lin.ln_mlp_residual_bt_bwd_ref(
+                        *a, eps=e, activation=c, weights=False)[0]))
+    args, *_ = smoke.proj_heads_case(rn, 2)
+    for name, a in (("proj_from_heads_res", args), ("proj_from_heads", args[:3])):
+        out.append((named(name), "window 17 batch 2", lambda f=getattr(lin, name), a=a: f(*a),
+                    lambda a=a: lin.proj_from_heads_ref(*a)))
+    return out
+
+
+def f32_gemm(smoke, label, against, tiles):
+    """One JSON line per `f32_gemm_cases` case: the SHA-256 of its output's
+    bytes, its error against the plain version, its idle-card median and
+    queued times (`chip_smoke.time_ms`); on a checkout with the fp32 tile
+    plan (`ops/linear.py f32_gemm_plan`) the plans the call took and, with
+    `tiles`, the queued time at each of F32_TILES forced and, at the plans'
+    tile, with every tile's K cut into 1 to 4 slices; with `against` (a
+    JSONL file of another checkout's lines), whether the output is bit-equal
+    to that checkout's."""
+    import hashlib
+
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    other = {}
+    if against:
+        with open(against) as f:
+            for ln in f:
+                rec = json.loads(ln)
+                if "sha256" in rec:
+                    other[(rec["name"], rec["site"])] = rec["sha256"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, std=1.0, dtype=None):  # fp32 whatever dtype the case functions ask
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    planned = hasattr(lin, "f32_gemm_plan")
+    picks = []
+    if planned:
+        plan = lin.f32_gemm_plan
+        lin.f32_gemm_plan = lambda *a, **k: picks.append(plan(*a, **k)) or picks[-1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        for name, site, call, plain in f32_gemm_cases(smoke, rn):
+            picks.clear()
+            got = call()
+            torch.cuda.synchronize()
+            rec = dict(label=label, name=name, site=site, shape=list(got.shape),
+                       sha256=hashlib.sha256(got.contiguous().cpu().numpy().tobytes()).hexdigest(),
+                       **smoke.errors(got, plain()))
+            rec["plans"] = [dict(tile=[p.bm, p.bn], tiles=p.tiles, splits=p.splits,
+                                 tail=p.tail, flat=p.flat) for p in picks]
+            rec.update(ms=smoke.time_ms(call), queued_ms=smoke.time_ms(call, queued=True))
+            if planned and tiles:
+                rec["tiles_queued_ms"] = {}
+                for t in lin.F32_TILES:
+                    lin.F32_TILE_FORCE = t
+                    rec["tiles_queued_ms"][f"{t[0]}x{t[1]}"] = smoke.time_ms(call, queued=True)
+                lin.F32_TILE_FORCE = None
+                # the plans' tiles with every tile's K cut into 1 (none) to 4 slices
+                if len({tuple(p["tile"]) for p in rec["plans"]}) == 1:
+                    lin.F32_TILE_FORCE = tuple(rec["plans"][0]["tile"])
+                    rec["splits_queued_ms"] = {}
+                    for n in (1, 2, 3, 4):
+                        lin.F32_SPLIT_FORCE = n
+                        rec["splits_queued_ms"][n] = smoke.time_ms(call, queued=True)
+                    lin.F32_TILE_FORCE = lin.F32_SPLIT_FORCE = None
+            if against:
+                rec["bit_equal_to"] = {against: other.get((name, site)) == rec["sha256"]}
+            print(json.dumps(rec), flush=True)
+            del got
+            torch.cuda.empty_cache()
+
+
 def padded_calls(smoke, label):
     """The repo's ViT-H yaml at windows 16 (#12) and 17 (#11 + #8), and the
     port's ViT-B yaml (unfused 'flash', #10): the cascade call cut into
@@ -530,8 +652,13 @@ def main() -> None:
                     "the kernels")
     ap.add_argument("--f32-attention", action="store_true",
                     help="hash and time the fp32 instances on csrc/attn_f32.cuh instead")
+    ap.add_argument("--f32-gemm", action="store_true",
+                    help="hash and time the users of csrc/sgemm_f32.cuh instead")
+    ap.add_argument("--tiles", action="store_true",
+                    help="with --f32-gemm: also time each fp32 GEMM tile, forced")
     ap.add_argument("--against", default=None,
-                    help="with --f32-attention: another checkout's JSON lines to compare with")
+                    help="with --f32-attention or --f32-gemm: another checkout's JSON lines to "
+                    "compare with")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -557,6 +684,9 @@ def main() -> None:
         return
     if args.f32_attention:
         f32_attention(smoke, label, args.against)
+        return
+    if args.f32_gemm:
+        f32_gemm(smoke, label, args.against, args.tiles)
         return
 
     g = torch.Generator(device="cuda").manual_seed(0)

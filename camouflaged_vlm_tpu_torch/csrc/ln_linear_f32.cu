@@ -24,15 +24,19 @@
 //      row b' reads mask[b' % nwin]) into an fp32 scratch (M, K) that the
 //      wrapper allocates;
 //   2. sgemm_kernel<K_MAJOR, K_MAJOR, EPI_ACT>: out = act(xn . W^T + b),
-//      128 x 128 or 64 x 64 tiles (the wrapper's ops/linear.py f32_tile).
+//      sgemm_f32.cuh's cp.async ring of 32-deep k tiles, the tile from the
+//      wrapper's ops/linear.py f32_gemm_plan.
 // K % 4 == 0 and N % 4 == 0 (16-byte loads and stores; the wrapper checks).
 #include "sgemm_f32.cuh"
 
 // x (M, K), w (N, K), b (N,), out (M, N), xn (M, K) scratch, gamma/beta
-// (K,): fp32. Returns a cudaError_t code.
+// (K,): fp32; tile, splits, tail and ws the product's plan (sgemm_f32.cuh
+// Plan).
+// Returns a cudaError_t code.
 extern "C" int cvlm_ln_linear_f32(const void* x, const void* gamma, const void* beta,
-                                  const void* w, const void* b, void* out, void* xn, int M, int K,
-                                  int N, float eps, int act, int tile, void* stream) {
+                                  const void* w, const void* b, void* out, void* xn, void* ws,
+                                  int M, int K, int N, float eps, int act, int tile, int splits,
+                                  int tail, void* stream) {
   using namespace cvlm::f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 1 || K < 4 || K % 4 != 0 || N % 4 != 0) return (int)cudaErrorInvalidValue;
@@ -43,16 +47,18 @@ extern "C" int cvlm_ln_linear_f32(const void* x, const void* gamma, const void* 
   return launch_sgemm<K_MAJOR, K_MAJOR, EPI_ACT>(xnp, K, 0, static_cast<const float*>(w), K,
                                                  static_cast<const float*>(b), nullptr,
                                                  static_cast<float*>(out), nullptr, M, N, K, act,
-                                                 tile, 1, s);
+                                                 Plan{tile, splits, tail, static_cast<float*>(ws)},
+                                                 1, s);
 }
 
 // x (M, K) as nwin-cycling sequences of S rows, mask (nwin, S, 1), w (N, K),
-// b (N,), out (M, N), xn (M, K) scratch, gamma/beta (K,): fp32. Returns a
-// cudaError_t code.
+// b (N,), out (M, N), xn (M, K) scratch, gamma/beta (K,): fp32; tile,
+// splits, tail and ws the product's plan. Returns a cudaError_t code.
 extern "C" int cvlm_ln_mask_linear_f32(const void* x, const void* gamma, const void* beta,
                                        const void* mask, const void* w, const void* b, void* out,
-                                       void* xn, int M, int K, int N, int S, int nwin, float eps,
-                                       int tile, void* stream) {
+                                       void* xn, void* ws, int M, int K, int N, int S, int nwin,
+                                       float eps, int tile, int splits, int tail,
+                                       void* stream) {
   using namespace cvlm::f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 1 || K < 4 || K % 4 != 0 || N % 4 != 0 || S < 1 || nwin < 1 || M % S != 0)
@@ -65,5 +71,7 @@ extern "C" int cvlm_ln_mask_linear_f32(const void* x, const void* gamma, const v
   return launch_sgemm<K_MAJOR, K_MAJOR, EPI_ACT>(xnp, K, 0, static_cast<const float*>(w), K,
                                                  static_cast<const float*>(b), nullptr,
                                                  static_cast<float*>(out), nullptr, M, N, K,
-                                                 cvlm::ACT_NONE, tile, 1, s);
+                                                 cvlm::ACT_NONE,
+                                                 Plan{tile, splits, tail, static_cast<float*>(ws)},
+                                                 1, s);
 }

@@ -21,8 +21,9 @@
 // fp32 dh reaches device memory (76 MB at the vision site, written twice
 // and read twice: ~0.09 ms at 3.35 TB/s), per row panel of ops/linear.py
 // mlp_panel_rows as in the forward. Per panel, five launches on
-// sgemm_f32.cuh's pieces, with 128 x 128 or 64 x 64 tiles (ops/linear.py
-// f32_tile):
+// sgemm_f32.cuh's pieces (its cp.async ring of 32-deep k tiles; W1 and W2
+// read MN-major as they lie), each product's tile from ops/linear.py
+// f32_gemm_plan:
 //   1. ln_rows_f32_kernel: xn (fp32) and each row's (mean, rstd);
 //   2. dh_pre = g . W2 (sgemm_kernel<K_MAJOR, MN_MAJOR, EPI_ACT>, W2 (K, H)
 //      read as it lies) into the dh scratch;
@@ -46,13 +47,17 @@
 // x/g/dx (M, K), w1 (H, K), b1 (H,), w2 (K, H), gamma/beta (K,): fp32.
 // Scratch: xn (R, K), dh (R, H), stats (R,) float2, dxn (R, K), with R = M
 // when hact (M, H) is given (the weight side) and R = rows (the panel) when
-// not; t1 the tile of the H-wide products (2, 3), t2 of the K-wide one (4).
-// Queues five launches per panel; returns a cudaError_t code.
+// not; t1, s1, n1 the tile, k slices and split tail of the H-wide products
+// (2, 3), t2, s2, n2 of the K-wide one (4), ws their split-K scratch (the
+// larger's) or null.
+// Queues five launches per panel (and a split product's second pass);
+// returns a cudaError_t code.
 extern "C" int cvlm_ln_mlp_residual_bwd_f32(const void* x, const void* gamma, const void* beta,
                                             const void* w1, const void* b1, const void* w2,
                                             const void* g, void* dx, void* xn, void* dh,
-                                            void* stats, void* dxn, void* hact, int M, int K,
-                                            int H, int rows, float eps, int act, int t1, int t2,
+                                            void* stats, void* dxn, void* hact, void* ws, int M,
+                                            int K, int H, int rows, float eps, int act, int t1,
+                                            int s1, int n1, int t2, int s2, int n2,
                                             void* stream) {
   using namespace cvlm::f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -65,6 +70,8 @@ extern "C" int cvlm_ln_mlp_residual_bwd_f32(const void* x, const void* gamma, co
   const auto* ga = static_cast<const float*>(gamma);
   const auto* w1p = static_cast<const float*>(w1);
   const auto* w2p = static_cast<const float*>(w2);
+  auto* wsp = static_cast<float*>(ws);
+  const Plan p1{t1, s1, n1, wsp}, p2{t2, s2, n2, wsp};
   for (int r0 = 0; r0 < M; r0 += rows) {
     const int m = M - r0 < rows ? M - r0 : rows;
     const size_t rw = weights ? r0 : 0;  // the scratch row that holds the panel's first
@@ -78,14 +85,16 @@ extern "C" int cvlm_ln_mlp_residual_bwd_f32(const void* x, const void* gamma, co
     int err = launch_ln_rows(xr, ga, static_cast<const float*>(beta), xnp, st, m, K, eps, s);
     if (!err)  // dh_pre = g . W2
       err = launch_sgemm<K_MAJOR, MN_MAJOR, EPI_ACT>(gr, K, 0, w2p, H, nullptr, nullptr, dhp,
-                                                     nullptr, m, H, K, cvlm::ACT_NONE, t1, 1, s);
+                                                     nullptr, m, H, K, cvlm::ACT_NONE, p1, 1,
+                                                     s);
     if (!err)  // dh = act'(xn . W1^T + b1) * dh_pre, in place
       err = launch_sgemm<K_MAJOR, K_MAJOR, EPI_DACT>(xnp, K, 0, w1p, K,
                                                      static_cast<const float*>(b1), dhp, dhp, hp,
-                                                     m, H, K, act, t1, 1, s);
+                                                     m, H, K, act, p1, 1, s);
     if (!err)  // dxn = dh . W1
       err = launch_sgemm<K_MAJOR, MN_MAJOR, EPI_ACT>(dhp, H, 0, w1p, K, nullptr, nullptr, dxnp,
-                                                     nullptr, m, K, H, cvlm::ACT_NONE, t2, 1, s);
+                                                     nullptr, m, K, H, cvlm::ACT_NONE, p2, 1,
+                                                     s);
     if (!err)
       err = launch_ln_bwd_rows(xr, gr, ga, st, dxnp, static_cast<float*>(dx) + (size_t)r0 * K, m,
                                K, s);

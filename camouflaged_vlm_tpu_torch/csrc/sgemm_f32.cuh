@@ -5,24 +5,42 @@
 // tensor cores have no float32 mode (TF32 keeps ~3 digits), so these
 // compute in full fp32 and are bounded by the 67 TFLOP/s FFMA rate.
 //
-// The GEMM is the classic tiled product C (M, N) = epilogue(A . B): 256
-// threads a block, each an (4 HM) x (4 HN) block of outputs in registers
-// (groups of 4 x 4, 64 rows / columns apart), so a block tile is (64 HM) x
-// (64 HN); 16-deep k tiles staged in shared memory as [k][row] (double
-// buffered: the next tile's global loads wait in registers during the
-// current tile's products). Each operand is read in one of two layouts:
-//   K_MAJOR   P[r * ld + k]: rows contiguous along k (activation rows, the
-//             nn.Linear weight (N, K)); staged transposed;
-//   MN_MAJOR  P[k * ld + r]: contiguous along the output's rows or columns
-//             (the d-major attention output (K, S), W2 (K, H) and W1 (H, K)
-//             as the backward reads them); staged as it lies.
-// Both load 16 bytes a thread: K_MAJOR needs K % 4 == 0, MN_MAJOR ld % 4 ==
-// 0, and a 16-byte aligned base; the wrappers check. Ragged M, N and K are
-// masked (an MN_MAJOR row tile may read up to 3 elements past the last row,
-// inside the padded row the wrappers hand in; no output depends on them).
-// blockIdx.z walks groups of rows (proj_rows' (B, T) groups): A moves by
-// `sa` elements a group, C and the residual by M * N. Everything here has
-// internal linkage: each source that includes it keeps its own copy.
+// The GEMM, C (M, N) = epilogue(A . B), is bounded by the FFMA rate: 2 M N K
+// FLOP against (M + N) K + M N floats, 100-1000 FLOP a byte at the paths'
+// shapes. What the design does about it:
+//   - 8 x 8 outputs a thread in registers (two 4 x 4 groups, BM / 2 rows and
+//     BN / 2 columns apart): 64 FFMA a k step for 16 floats read from shared
+//     memory; 8 warps an SM (one 128 x 128 block of 256 threads, two of
+//     64 x 128 or 128 x 64, four of 64 x 64), up to 255 registers a thread
+//     and no spills (capped at 128 for two 128 x 128 blocks an SM, the
+//     product spilled and ran slower);
+//   - 32-deep k tiles in a 3-stage ring of cp.async copies into dynamic
+//     shared memory (one barrier a k tile, no registers spent on staging);
+//     each operand is copied as it lies, 16 bytes a copy:
+//       K_MAJOR   P[r * ld + k]: rows contiguous along k (activation rows, the
+//                 nn.Linear weight (N, K)); a stage [row][32] with its 16-byte
+//                 chunks XOR-swizzled (no bank conflicts), read along k: one
+//                 16-byte read gives a row's 4 k steps;
+//       K_HEADS   the head-leading attention output (#8/#9): row m, column
+//                 k = h d + j at h M d + m d + j, each chunk its own address;
+//                 stored as K_MAJOR;
+//       MN_MAJOR  P[k * ld + r]: contiguous along the output's rows or columns
+//                 (the d-major attention output (K, S), W2 (K, H) and W1 (H, K)
+//                 as the backward reads them); a stage [32][rows];
+//   - a per-shape plan (ops/linear.py f32_gemm_plan): the tile, and split K
+//     where a grid leaves SMs idle (short grids cut whole, or the last row
+//     tiles of a longer one; the slices summed in order by a second pass,
+//     no atomics); proj_rows' (B, T) groups of S % 4 == 0 rows tiled as one
+//     M, so that windows of 196 or 112 rows are not padded to whole row
+//     tiles.
+// Loads are 16 bytes: K_MAJOR needs K % 4 == 0, MN_MAJOR ld % 4 == 0, and a
+// 16-byte aligned base; the wrappers check. Ragged M, N and K are zero-filled
+// by the copies' source size: nothing past the operand's last row or column
+// is read. blockIdx.z walks groups of rows (proj_rows' groups of S % 4 != 0
+// rows, #8/#9's images): A moves by `sa` elements a group, C and the
+// residual by M * N. Each output is one fp32 sum in k order: no atomics, two
+// calls are bit-equal. Everything here has internal linkage: each source
+// that includes it keeps its own copy.
 #pragma once
 
 #include "common.cuh"
@@ -31,9 +49,8 @@ namespace cvlm {
 namespace f32 {
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BK = 16;
-constexpr int PAD = 4;  // keeps the transposed stores at 2-way bank conflicts, rows 16-byte aligned
+constexpr int THREADS = 256;  // the LN row passes' block: one warp a row
+constexpr int BK = 32;        // the GEMM's k tile
 
 enum Layout { K_MAJOR = 0, MN_MAJOR = 1, K_HEADS = 2 };
 // EPI_ACT: act(acc + bias), bias optional; EPI_RES: acc + bias + res;
@@ -147,178 +164,385 @@ inline int launch_ln_bwd_rows(const float* x, const float* g, const float* gamma
   return (int)cudaGetLastError();
 }
 
-// One operand's share of a (64 H) x BK tile: H float4s a thread, read from
-// device memory into registers (zeros outside the R x K operand), then
-// stored into the [k][r] tile in shared memory.
-template <int H, int LAYOUT>
-struct TileLoader {
-  float4 v[H];
+// ---------------------------------------------------------------- the GEMM
+//
+// One stage of an operand in shared memory: ROWS x BK floats.
+//   K_MAJOR and K_HEADS: [row][BK], the 8 16-byte chunks of a row at
+//     positions c ^ ((row >> 2) & 7) (an XOR swizzle: the 8 threads of a
+//     128-bit load phase read 8 different rows at 8 different bank groups);
+//   MN_MAJOR: [k][ROWS], as the operand lies.
+// Each 16-byte chunk is copied by its own cp.async (its own address: a
+// K_HEADS tile straddles heads, d = 80 being 2.5 k tiles), the bytes past the
+// operand's last row or column zero-filled by the copy's source size.
 
-  __device__ __forceinline__ void load(const float* __restrict__ P, int ld, int r0, int R,
-                                       int k0, int K) {
+__device__ __forceinline__ void cp16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Queue the copies of one operand's k tile [k0, k0 + BK) of rows [r0, r0 +
+// ROWS) into stage S, by the block's T threads. R rows in the operand (per
+// blockIdx.z group); MN_MAJOR row m lies at (m / gs) gst + m % gs when gs > 0
+// (proj_rows' groups of gs rows tiled as one M, gs % 4 == 0), else at m.
+template <int LAYOUT, int ROWS, int T>
+__device__ __forceinline__ void load_tile(float* S, const float* __restrict__ P, int ld, int r0,
+                                          int R, int k0, int K, int gs, long long gst) {
+  const int tid = threadIdx.x;
+  if (LAYOUT == MN_MAJOR) {
+    constexpr int CPR = ROWS / 4;  // chunks along a k row
+    const int r = (tid % CPR) * 4, m = r0 + r;
+    const int nv = R - m < 4 ? R - m : 4;  // rows of the chunk inside the operand
+    const long long ro = gs > 0 ? (long long)(m / gs) * gst + m % gs : m;
 #pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const int idx = threadIdx.x + i * THREADS;
-      int r, k;
-      if (LAYOUT != MN_MAJOR) {  // 4 float4s along k a row
-        r = idx / 4;
-        k = k0 + (idx % 4) * 4;
-      } else {  // 16 H float4s along r a k row
-        k = k0 + idx / (16 * H);
-        r = (idx % (16 * H)) * 4;
-      }
-      const bool in = r0 + r < R && k < K;
-      const size_t off = LAYOUT == K_MAJOR    ? (size_t)(r0 + r) * ld + k
-                         : LAYOUT == MN_MAJOR ? (size_t)k * ld + r0 + r
-                                              : (size_t)(k / ld) * R * ld + (size_t)(r0 + r) * ld +
-                                                    k % ld;
-      v[i] = in ? *reinterpret_cast<const float4*>(P + off) : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = 0; i < BK * CPR / T; ++i) {
+      const int k = tid / CPR + i * (T / CPR), kk = k0 + k;
+      const bool in = nv > 0 && kk < K;
+      cp16(S + k * ROWS + r, in ? P + (size_t)kk * ld + ro : P, in ? 4 * nv : 0);
     }
-  }
-
-  __device__ __forceinline__ void store(float (*T)[64 * H + PAD]) const {
+  } else {
+    constexpr int KC = BK / 4;  // chunks along a row
+    const int c = tid % KC, kk = k0 + 4 * c;
+    // the column's offset: K_HEADS column kk = h d + j lies at h R d + j
+    const long long co = LAYOUT == K_MAJOR ? kk : (long long)(kk / ld) * R * ld + kk % ld;
 #pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const int idx = threadIdx.x + i * THREADS;
-      if (LAYOUT != MN_MAJOR) {
-        const int r = idx / 4, k = (idx % 4) * 4;
-        T[k][r] = v[i].x;
-        T[k + 1][r] = v[i].y;
-        T[k + 2][r] = v[i].z;
-        T[k + 3][r] = v[i].w;
-      } else {
-        const int k = idx / (16 * H), r = (idx % (16 * H)) * 4;
-        *reinterpret_cast<float4*>(&T[k][r]) = v[i];
-      }
-    }
-  }
-};
-
-// C (M, N) = epilogue(A . B) for A (M, K) and B (N, K) in the layouts LA,
-// LB (leading dimensions lda, ldb); C, res and aux (M, N) with row stride
-// N. N % 4 == 0 (16-byte epilogue rows).
-template <int HM, int HN, int LA, int LB, int EPI>
-__global__ void __launch_bounds__(THREADS) sgemm_kernel(
-    const float* __restrict__ A, int lda, long long sa, const float* __restrict__ B, int ldb,
-    const float* __restrict__ bias, const float* res, float* C, float* __restrict__ aux, int M,
-    int N, int K, int act) {
-  constexpr int BM = 64 * HM, BN = 64 * HN;
-  __shared__ __align__(16) float As[2][BK][BM + PAD];
-  __shared__ __align__(16) float Bs[2][BK][BN + PAD];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  A += (size_t)blockIdx.z * sa;
-  const size_t co = (size_t)blockIdx.z * M * N;
-
-  TileLoader<HM, LA> la;
-  TileLoader<HN, LB> lb;
-  float acc[4 * HM][4 * HN];
-#pragma unroll
-  for (int i = 0; i < 4 * HM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * HN; ++j) acc[i][j] = 0.f;
-
-  const int nk = (K + BK - 1) / BK;
-  la.load(A, lda, m0, M, 0, K);
-  lb.load(B, ldb, n0, N, 0, K);
-  la.store(As[0]);
-  lb.store(Bs[0]);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      la.load(A, lda, m0, M, (kt + 1) * BK, K);
-      lb.load(B, ldb, n0, N, (kt + 1) * BK, K);
-    }
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[4 * HM], b[4 * HN];
-#pragma unroll
-      for (int h = 0; h < HM; ++h) {
-        const float4 v = *reinterpret_cast<const float4*>(&As[cur][k][64 * h + 4 * ty]);
-        a[4 * h] = v.x;
-        a[4 * h + 1] = v.y;
-        a[4 * h + 2] = v.z;
-        a[4 * h + 3] = v.w;
-      }
-#pragma unroll
-      for (int h = 0; h < HN; ++h) {
-        const float4 v = *reinterpret_cast<const float4*>(&Bs[cur][k][64 * h + 4 * tx]);
-        b[4 * h] = v.x;
-        b[4 * h + 1] = v.y;
-        b[4 * h + 2] = v.z;
-        b[4 * h + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 4 * HM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4 * HN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    // the other buffer was last read before the previous iteration's barrier
-    if (kt + 1 < nk) {
-      la.store(As[cur ^ 1]);
-      lb.store(Bs[cur ^ 1]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4 * HM; ++i) {
-    const int m = m0 + 64 * (i / 4) + 4 * ty + i % 4;
-    if (m >= M) continue;
-#pragma unroll
-    for (int h = 0; h < HN; ++h) {
-      const int n = n0 + 64 * h + 4 * tx;
-      if (n >= N) continue;
-      float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
-      if (bias != nullptr) {
-        const float4 bv = *reinterpret_cast<const float4*>(bias + n);
-        v[0] += bv.x;
-        v[1] += bv.y;
-        v[2] += bv.z;
-        v[3] += bv.w;
-      }
-      const size_t o = co + (size_t)m * N + n;
-      if (EPI == EPI_RES || EPI == EPI_DACT) {
-        const float4 r = *reinterpret_cast<const float4*>(res + o);
-        const float rv[4] = {r.x, r.y, r.z, r.w};
-        if (EPI == EPI_DACT && aux != nullptr)
-          *reinterpret_cast<float4*>(aux + o) =
-              make_float4(apply_act(v[0], act), apply_act(v[1], act), apply_act(v[2], act),
-                          apply_act(v[3], act));
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          v[c] = EPI == EPI_RES ? v[c] + rv[c] : act_grad(v[c], act) * rv[c];
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = apply_act(v[c], act);
-      }
-      *reinterpret_cast<float4*>(C + o) = make_float4(v[0], v[1], v[2], v[3]);
+    for (int i = 0; i < ROWS * KC / T; ++i) {
+      const int r = tid / KC + i * (T / KC), m = r0 + r;
+      const bool in = m < R && kk < K;
+      cp16(S + r * BK + ((c ^ ((r >> 2) & 7)) << 2), in ? P + (size_t)m * ld + co : P,
+           in ? 16 : 0);
     }
   }
 }
 
-// Queues one product; `tile` is the block tile's width, 128 (128 x 128) or
-// 64 (64 x 64); `groups` the row groups (blockIdx.z). Returns a cudaError_t
-// code.
+// A thread's rows of one operand at chunk c (k = 4 c .. 4 c + 3) of a stage:
+// f[4 h + i][kk] = row (ROWS / 2) h + 4 t + i at k = 4 c + kk. Eight 16-byte
+// reads in either layout (along k in the K layout, along rows in MN).
+template <int LAYOUT, int ROWS>
+__device__ __forceinline__ void load_frag(float (&f)[8][4], const float* S, int t, int c) {
+  if (LAYOUT == MN_MAJOR) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(S + (4 * c + kk) * ROWS + (ROWS / 2) * h + 4 * t);
+        f[4 * h][kk] = v.x;
+        f[4 * h + 1][kk] = v.y;
+        f[4 * h + 2][kk] = v.z;
+        f[4 * h + 3][kk] = v.w;
+      }
+  } else {
+    // (row >> 2) & 7 == t & 7 for every row of the thread (ROWS / 8 is 8 or 16)
+    const int pos = (c ^ (t & 7)) << 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(S + ((ROWS / 2) * h + 4 * t + i) * BK + pos);
+        f[4 * h + i][0] = v.x;
+        f[4 * h + i][1] = v.y;
+        f[4 * h + i][2] = v.z;
+        f[4 * h + i][3] = v.w;
+      }
+  }
+}
+
+// The block tiles: BM x BN outputs, 8 x 8 a thread (two 4 x 4 groups BM / 2
+// rows and BN / 2 columns apart), BM BN / 64 threads, a warp 8 x 4 threads
+// (its 16-byte reads touch 8 and 4 distinct chunks); STAGES k tiles in
+// flight; MIN_BLOCKS co-resident blocks an SM (a register cap of 65536 /
+// (MIN_BLOCKS THREADS), 255 at most: none of the four spills). `tile`
+// argument t of launch_sgemm runs case t below, the order of ops/linear.py
+// F32_TILES.
+template <int BM_, int BN_, int STAGES_, int MIN_BLOCKS_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, STAGES = STAGES_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int THREADS = BM * BN / 64;
+  static constexpr int SMEM = STAGES * (BM + BN) * BK * 4;
+  static_assert((BM == 64 || BM == 128) && (BN == 64 || BN == 128), "tile rows");
+};
+
+// The epilogue of 4 outputs of one row, v = the sum over k, at columns n..n+3
+// and element o of C: + bias; EPI_ACT act(.); EPI_RES + res; EPI_DACT
+// act'(.) * res (res may be C: read before written) and act(.) into aux
+// when given.
+template <int EPI>
+__device__ __forceinline__ void epilogue4(float (&v)[4], int n, size_t o,
+                                          const float* __restrict__ bias, const float* res,
+                                          float* C, float* __restrict__ aux, int act) {
+  if (bias != nullptr) {
+    const float4 bv = *reinterpret_cast<const float4*>(bias + n);
+    v[0] += bv.x;
+    v[1] += bv.y;
+    v[2] += bv.z;
+    v[3] += bv.w;
+  }
+  if (EPI == EPI_RES || EPI == EPI_DACT) {
+    const float4 r = *reinterpret_cast<const float4*>(res + o);
+    const float rv[4] = {r.x, r.y, r.z, r.w};
+    if (EPI == EPI_DACT && aux != nullptr)
+      *reinterpret_cast<float4*>(aux + o) = make_float4(
+          apply_act(v[0], act), apply_act(v[1], act), apply_act(v[2], act), apply_act(v[3], act));
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = EPI == EPI_RES ? v[c] + rv[c] : act_grad(v[c], act) * rv[c];
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = apply_act(v[c], act);
+  }
+  *reinterpret_cast<float4*>(C + o) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// C (M, N) = epilogue(A . B) for A (M, K) and B (N, K) in the layouts LA,
+// LB (leading dimensions lda, ldb; K_HEADS: lda = d); C, res and aux (M, N)
+// with row stride N. N % 4 == 0 (16-byte epilogue rows). The tiles, gx
+// along N, gy along M, then groups (A moves by sa elements a group, C, res
+// and aux by M N). Without SPLIT, block (x, y, z) computes the tile of
+// column x, row y of group z over all of K. With SPLIT, a second launch for
+// the last `tr` row tiles of each group (of gy), block (x, y, z) computes
+// slice z % splits (kspan deep) of the tail tile q = (z / splits tr + y) gx
+// + x (column x, row gy - tr + y, group z / splits), its sums into ws + (q
+// splits + z % splits) BM BN (a tile's BM x BN, row-major) for
+// splitk_finish_kernel, which adds the slices in order and applies the
+// epilogue. (Two kernels, the tiles from blockIdx: a slice's k bounds, an
+// early exit or a tile index's quotients held in registers cost the
+// mainloop up to 25% at 254 registers, PERF.md §6.)
+template <class TL, int LA, int LB, int EPI, bool SPLIT>
+__global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS) sgemm_kernel(
+    const float* __restrict__ A, int lda, long long sa, int gs, long long gst,
+    const float* __restrict__ B, int ldb, const float* __restrict__ bias, const float* res,
+    float* C, float* __restrict__ aux, int M, int N, int K, int act, int gx, int gy, int tr,
+    int splits, int kspan, float* __restrict__ ws) {
+  constexpr int BM = TL::BM, BN = TL::BN, T = TL::THREADS, ST = TL::STAGES;
+  constexpr int SA = BM * BK, SB = BN * BK;  // floats a stage
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;
+  float* Bs = smem + ST * SA;
+  // thread (tx, ty) of the (BN / 8) x (BM / 8) grid; a warp 8 x 4 of them
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int tx = warp % (BN / 64) * 8 + lane % 8, ty = warp / (BN / 64) * 4 + lane / 8;
+  const int g = SPLIT ? blockIdx.z / splits : blockIdx.z;
+  const int kb = SPLIT ? (blockIdx.z - g * splits) * kspan : 0;
+  const int ke = !SPLIT || K - kb < kspan ? K : kb + kspan;
+  const int m0 = (SPLIT ? gy - tr + blockIdx.y : blockIdx.y) * BM, n0 = blockIdx.x * BN;
+  A += (size_t)g * sa;
+  const size_t co = (size_t)g * M * N;
+  const int nk = (ke - kb + BK - 1) / BK;
+
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < nk) {
+      load_tile<LA, BM, T>(As + s * SA, A, lda, m0, M, kb + s * BK, ke, gs, gst);
+      load_tile<LB, BN, T>(Bs + s * SB, B, ldb, n0, N, kb + s * BK, ke, 0, 0);
+    }
+    cp_commit();
+  }
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  int cur = 0, nxt = ST - 1;  // the stages of k tiles kt and kt + ST - 1
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<ST - 2>();  // this thread's copies of k tile kt have landed
+    __syncthreads();    // everyone's; and k tile kt - 1's stage is read
+    if (kt + ST - 1 < nk) {
+      const int k0 = kb + (kt + ST - 1) * BK;
+      load_tile<LA, BM, T>(As + nxt * SA, A, lda, m0, M, k0, ke, gs, gst);
+      load_tile<LB, BN, T>(Bs + nxt * SB, B, ldb, n0, N, k0, ke, 0, 0);
+    }
+    cp_commit();
+    const float* as = As + cur * SA;
+    const float* bs = Bs + cur * SB;
+#pragma unroll
+    for (int c = 0; c < BK / 4; ++c) {
+      float a[8][4];
+      load_frag<LA, BM>(a, as, ty, c);
+      if (LB == MN_MAJOR) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float b[8];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 v = *reinterpret_cast<const float4*>(bs + (4 * c + kk) * BN +
+                                                              (BN / 2) * h + 4 * tx);
+            b[4 * h] = v.x;
+            b[4 * h + 1] = v.y;
+            b[4 * h + 2] = v.z;
+            b[4 * h + 3] = v.w;
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+        }
+      } else {  // B's rows one at a time, along k
+        const int pos = (c ^ (tx & 7)) << 2;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              bs + ((BN / 2) * (j / 4) + 4 * tx + j % 4) * BK + pos);
+          const float b[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(a[i][kk], b[kk], acc[i][j]);
+        }
+      }
+    }
+    cur = cur == ST - 1 ? 0 : cur + 1;
+    nxt = nxt == ST - 1 ? 0 : nxt + 1;
+  }
+
+  if (SPLIT) {  // a slice's sums, the whole tile (zeros past the edges)
+    const int q = (g * tr + blockIdx.y) * gx + blockIdx.x;
+    float* part = ws + ((size_t)q * splits + blockIdx.z - g * splits) * BM * BN;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float4*>(part + ((BM / 2) * (i / 4) + 4 * ty + i % 4) * BN +
+                                   (BN / 2) * h + 4 * tx) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (BM / 2) * (i / 4) + 4 * ty + i % 4;
+    if (m >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + (BN / 2) * h + 4 * tx;
+      if (n >= N) continue;
+      float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
+      epilogue4<EPI>(v, n, co + (size_t)m * N + n, bias, res, C, aux, act);
+    }
+  }
+}
+
+// Split K's second pass, one block a tail tile (q = blockIdx.x, numbered as
+// sgemm_kernel<..., true> numbers them): each 4 outputs the sum of its
+// `splits` slices in slice order, then the epilogue.
+template <class TL, int EPI>
+__global__ void __launch_bounds__(256) splitk_finish_kernel(
+    const float* __restrict__ ws, int splits, int M, int N, int gx, int gy, int tr,
+    const float* __restrict__ bias, const float* res, float* C, float* __restrict__ aux,
+    int act) {
+  constexpr int BM = TL::BM, BN = TL::BN;
+  const int q = blockIdx.x;
+  const int m0 = (gy - tr + q / gx % tr) * BM, n0 = q % gx * BN;
+  const size_t co = (size_t)(q / (gx * tr)) * M * N;
+  const float* part = ws + (size_t)blockIdx.x * splits * BM * BN;
+  for (int q = threadIdx.x; q < BM * BN / 4; q += 256) {
+    const int r = q / (BN / 4), c = q % (BN / 4) * 4, m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    float4 s = *reinterpret_cast<const float4*>(part + r * BN + c);
+    for (int i = 1; i < splits; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(part + (size_t)i * BM * BN + r * BN + c);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    float v[4] = {s.x, s.y, s.z, s.w};
+    epilogue4<EPI>(v, n, co + (size_t)m * N + n, bias, res, C, aux, act);
+  }
+}
+
+// How a product is cut (ops/linear.py F32Plan): the block tile (F32_TILES),
+// and the k range of each group's last `tail_rows` row tiles in `splits`
+// slices (splits 1: none), their sums in ws (groups tail_rows gx splits BM
+// BN floats).
+struct Plan {
+  int tile, splits, tail_rows;
+  float* ws;
+};
+
+template <class TL, int LA, int LB, int EPI>
+int run_sgemm(const float* A, int lda, long long sa, int gs, long long gst, const float* B,
+              int ldb, const float* bias, const float* res, float* C, float* aux, int M, int N,
+              int K, int act, int groups, Plan plan, cudaStream_t s) {
+  static bool opted[64] = {};  // the shared-memory opt-ins, once per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    e = cudaFuncSetAttribute(sgemm_kernel<TL, LA, LB, EPI, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(sgemm_kernel<TL, LA, LB, EPI, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    opted[dev] = true;
+  }
+  // whole k tiles a slice, every slice non-empty (the wrapper's splits); the
+  // tail at most every row tile (a ragged last row panel has fewer)
+  const int nk = (K + BK - 1) / BK, splits = plan.splits;
+  if (splits < 1 || splits > nk) return (int)cudaErrorInvalidValue;
+  const int per = (nk + splits - 1) / splits;
+  const int gx = (N + TL::BN - 1) / TL::BN, gy = (M + TL::BM - 1) / TL::BM;
+  if ((nk + per - 1) / per != splits || plan.tail_rows < 0 ||
+      (splits > 1 && plan.ws == nullptr) || gy > 65535 || (long long)groups * splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int tr = splits == 1 ? 0 : (plan.tail_rows < gy ? plan.tail_rows : gy);
+  if (tr < gy) {  // the row tiles computed whole
+    const dim3 grid(gx, gy - tr, groups);
+    sgemm_kernel<TL, LA, LB, EPI, false><<<grid, TL::THREADS, TL::SMEM, s>>>(
+        A, lda, sa, gs, gst, B, ldb, bias, res, C, aux, M, N, K, act, gx, gy, 0, 1, K,
+        nullptr);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || tr == 0) return (int)e;
+  }
+  const int tail = gx * tr * groups;
+  const dim3 grid(gx, tr, groups * splits);
+  sgemm_kernel<TL, LA, LB, EPI, true><<<grid, TL::THREADS, TL::SMEM, s>>>(
+      A, lda, sa, gs, gst, B, ldb, bias, res, C, aux, M, N, K, act, gx, gy, tr, splits,
+      per * BK, plan.ws);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  splitk_finish_kernel<TL, EPI><<<tail, 256, 0, s>>>(plan.ws, splits, M, N, gx, gy, tr, bias,
+                                                      res, C, aux, act);
+  return (int)cudaGetLastError();
+}
+
+// Queues one product as `plan` cuts it; `groups` the row groups (C, res and
+// aux move by M N a group, A by sa); gs, gst MN_MAJOR A's row groups tiled
+// as one M (load_tile). Returns a cudaError_t code.
 template <int LA, int LB, int EPI>
 int launch_sgemm(const float* A, int lda, long long sa, const float* B, int ldb,
                  const float* bias, const float* res, float* C, float* aux, int M, int N, int K,
-                 int act, int tile, int groups, cudaStream_t s) {
-  if (M < 1 || N < 1 || K < 1 || groups < 1 || N % 4 != 0) return (int)cudaErrorInvalidValue;
-  const dim3 block(THREADS);
-  if (tile == 128) {
-    const dim3 grid((N + 127) / 128, (M + 127) / 128, groups);
-    sgemm_kernel<2, 2, LA, LB, EPI><<<grid, block, 0, s>>>(A, lda, sa, B, ldb, bias, res, C, aux,
-                                                           M, N, K, act);
-  } else if (tile == 64) {
-    const dim3 grid((N + 63) / 64, (M + 63) / 64, groups);
-    sgemm_kernel<1, 1, LA, LB, EPI><<<grid, block, 0, s>>>(A, lda, sa, B, ldb, bias, res, C, aux,
-                                                           M, N, K, act);
-  } else {
+                 int act, Plan plan, int groups, cudaStream_t s, int gs = 0, long long gst = 0) {
+  if (M < 1 || N < 1 || K < 1 || groups < 1 || N % 4 != 0 || gs < 0 || gs % 4 != 0)
     return (int)cudaErrorInvalidValue;
+  switch (plan.tile) {
+    case 0:
+      return run_sgemm<Tile<128, 128, 3, 1>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias, res,
+                                                           C, aux, M, N, K, act, groups, plan, s);
+    case 1:
+      return run_sgemm<Tile<64, 128, 3, 2>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias, res,
+                                                          C, aux, M, N, K, act, groups, plan, s);
+    case 2:
+      return run_sgemm<Tile<128, 64, 3, 2>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias, res,
+                                                          C, aux, M, N, K, act, groups, plan, s);
+    case 3:
+      return run_sgemm<Tile<64, 64, 3, 4>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias, res, C,
+                                                         aux, M, N, K, act, groups, plan, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

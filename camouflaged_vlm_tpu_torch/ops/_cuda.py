@@ -152,10 +152,12 @@ LN_MLP_RESIDUAL = CudaKernel(
 )
 # The same function in float32 (csrc/ln_mlp_residual_f32.cu: the LN row pass,
 # fc1 and fc2 as tiled FFMA products on the CUDA cores), for the CLIP text
-# tower of the bank precompute; its own count.
+# tower of the bank precompute; its own count. The fp32 instances on
+# csrc/sgemm_f32.cuh take each product's plan (ops/linear.py f32_gemm_plan:
+# tile, k slices, split tail) and a split-K scratch pointer (or None).
 LN_MLP_RESIDUAL_F32 = CudaKernel(
     "ln_mlp_residual_bt_f32", "cvlm_ln_mlp_residual_f32",
-    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I],
+    [P] * 11 + [I, I, I, I, F] + [I] * 7,
 )
 PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, L, L, I, I, I])
 # The fp32 instances of MaPLe training's path (the CLIP vision blocks' LN1 +
@@ -165,22 +167,22 @@ PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, L, L
 # csrc/proj_rows_f32.cu, csrc/ln_mlp_residual_bwd_f32.cu), each with its
 # own count.
 LN_LINEAR_F32 = CudaKernel("ln_linear_act_bt_f32", "cvlm_ln_linear_f32",
-                           [P, P, P, P, P, P, P, I, I, I, F, I, I])
+                           [P] * 8 + [I, I, I, F, I, I, I, I])
 QKV_PACKED_PLAIN_F32 = CudaKernel("flash_qkv_packed_plain_f32", "cvlm_qkv_packed_plain_f32",
                                   [P, P, I, I, I, I, I, F])
 PROJ_ROWS_F32 = CudaKernel("proj_rows_f32", "cvlm_proj_rows_f32",
-                           [P, P, P, P, P, I, I, L, L, I, I, I])
+                           [P] * 6 + [I, I, L, L] + [I] * 6)
 LN_MLP_RESIDUAL_BWD_F32 = CudaKernel("ln_mlp_residual_bt_bwd_f32", "cvlm_ln_mlp_residual_bwd_f32",
-                                     [P] * 13 + [I, I, I, I, F, I, I, I])
+                                     [P] * 14 + [I, I, I, I, F] + [I] * 7)
 # The fp32 instances of SAM's kernels on the cascade's path at --dtype
 # float32 (the reference configuration): the patch embed (csrc/linear_f32.cu),
 # LN1 + row mask + qkv of the global blocks (csrc/ln_linear_f32.cu), and the
 # interior windows, edge windows and global attention on the fp32 flash loop
 # of csrc/attn_f32.cuh (csrc/qkv_windows_f32.cu, csrc/qkv_packed_global_f32.cu);
-# their arguments are the bf16 entries', each with its own count.
-LINEAR_ACT_F32 = CudaKernel("linear_act_f32", "cvlm_linear_f32", [P, P, P, P, I, I, I, I, I])
+# each with its own count.
+LINEAR_ACT_F32 = CudaKernel("linear_act_f32", "cvlm_linear_f32", [P] * 5 + [I] * 7)
 LN_MASK_LINEAR_F32 = CudaKernel("ln_mask_linear_bt_f32", "cvlm_ln_mask_linear_f32",
-                                [P, P, P, P, P, P, P, P, I, I, I, I, I, F, I])
+                                [P] * 9 + [I, I, I, I, I, F, I, I, I])
 QKV_WINDOWS_F32 = CudaKernel("flash_qkv_packed_windows_s_f32", "cvlm_qkv_packed_windows_s_f32",
                              [P, P, P, I, I, I, I, F, I])
 QKV_EDGE_F32 = CudaKernel("flash_qkv_packed_edge_f32", "cvlm_qkv_packed_edge_f32",
@@ -268,7 +270,7 @@ QKV_WINDOWS_PADDED_F32 = CudaKernel("flash_qkv_packed_windows_f32", "cvlm_qkv_pa
                                     [P, P, P, P, P, P, I, I, I, I, F])
 ATTN_FULLK_F32 = CudaKernel("flash_attention_fullk_f32", "cvlm_attn_fullk_f32",
                             [P, P, P, P, P, I, I, I, I])
-_PROJ_HEADS_F32_ARGS = [P, P, P, P, P, I, I, I, L, I, I, I]
+_PROJ_HEADS_F32_ARGS = [P] * 6 + [I, I, I, L, I, I, I, I, I]
 PROJ_HEADS_RES_F32 = CudaKernel("proj_from_heads_res_f32", "cvlm_proj_from_heads_f32",
                                 _PROJ_HEADS_F32_ARGS)
 PROJ_HEADS_F32 = CudaKernel("proj_from_heads_f32", "cvlm_proj_from_heads_f32",

@@ -37,6 +37,7 @@ attention outputs); weights in the
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -134,11 +135,229 @@ def _check_tma_k(name: str, *widths: int) -> None:
             raise ValueError(f"{name}: CUDA kernel takes K % 8 == 0, got K = {k}")
 
 
-def f32_tile(M: int, N: int, n_sm: int, groups: int = 1) -> int:
-    """The fp32 instances' GEMM tile (csrc/sgemm_f32.cuh) for `groups` groups
-    of M rows: 128 x 128, or 64 x 64 where the 128-wide tiles would not give
-    every SM one."""
-    return 128 if groups * -(-M // 128) * -(-N // 128) >= n_sm else 64
+# --------------------------------------------------- the fp32 GEMM's plan
+
+# The block tiles (BM, BN) of csrc/sgemm_f32.cuh, in the order of its
+# launch_sgemm `tile` argument: 8 x 8 outputs a thread, BM BN / 64 threads.
+F32_TILES = ((128, 128), (64, 128), (128, 64), (64, 64))
+# the blocks of each tile an SM holds at once (its Tile MIN_BLOCKS): 16384
+# outputs an SM whatever the tile
+F32_TILE_BLOCKS = {(128, 128): 1, (64, 128): 2, (128, 64): 2, (64, 64): 4}
+# An SM's FFMA rate when it is full of each tile's blocks, relative to
+# 128 x 128, and one SM's rate at 128 x 128: 64% of the H100's 67 TFLOP/s
+# over 132 SMs, the in-wave share of the products at the cascade's widest
+# shapes (cli/kernel_timing.py --f32-gemm --tiles; PERF.md §6). An SM
+# holding fewer than F32_FULL_WARPS warps runs at that share of its rate.
+F32_TILE_RATE = {(128, 128): 1.0, (64, 128): 1.03, (128, 64): 1.0, (64, 64): 0.97}
+F32_SM_FLOPS = 67e12 / 132 * 0.64
+F32_FULL_WARPS = 8
+# split K's second pass: a launch, and each split tile's slices read, its
+# outputs read (a residual) and written at the HBM rate
+F32_FINISH_S, F32_HBM_BYTES_S = 4e-6, 3.35e12
+# the k depth of a stage (csrc/sgemm_f32.cuh BK); split K cuts K into at
+# most F32_MAX_SPLITS slices of at least F32_MIN_SLICE k tiles each
+F32_BK, F32_MAX_SPLITS, F32_MIN_SLICE = 32, 4, 4
+# tests: one of F32_TILES to take at every shape instead of the plan's
+# pick; a number of k slices to cut every tile's K into
+F32_TILE_FORCE: Optional[tuple] = None
+F32_SPLIT_FORCE: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """How csrc/sgemm_f32.cuh's product covers a C of `groups` groups of
+    `rows` x `n` outputs over depth `k`: blocks of F32_TILES[tile], a grid of
+    (n, rows, groups) tiles (`grid`); each group's last `tail_rows` row
+    tiles have their k range cut into `splits` slices (`slices`), each
+    slice's sums into a scratch of `ws_elems` floats, added in slice order by
+    a second pass; `flat`: an MN-major A's row groups tiled as one M (the
+    kernel's gs, gst)."""
+
+    tile: int
+    groups: int
+    rows: int
+    n: int
+    k: int
+    flat: bool = False
+    splits: int = 1
+    tail_rows: int = 0
+
+    @property
+    def bm(self) -> int:
+        return F32_TILES[self.tile][0]
+
+    @property
+    def bn(self) -> int:
+        return F32_TILES[self.tile][1]
+
+    @property
+    def grid(self) -> tuple:
+        """(tiles along n, along rows, groups)"""
+        return (-(-self.n // self.bn), -(-self.rows // self.bm), self.groups)
+
+    @property
+    def tiles(self) -> int:
+        gx, gy, gz = self.grid
+        return gx * gy * gz
+
+    @property
+    def tail(self) -> int:
+        """the tiles whose k range is split"""
+        gx, _, gz = self.grid
+        return gx * self.tail_rows * gz if self.splits > 1 else 0
+
+    @property
+    def ws_elems(self) -> int:
+        return self.tail * self.splits * self.bm * self.bn
+
+    def slices(self) -> list:
+        """(k begin, k end) of each k slice of a split tile, in order."""
+        per = _slice_tiles(self.k, self.splits)
+        return [(k0, min(self.k, k0 + per * F32_BK))
+                for k0 in range(0, self.k, per * F32_BK)]
+
+
+def _slice_tiles(K: int, splits: int) -> int:
+    """k tiles a slice when K is cut into `splits` (csrc/sgemm_f32.cuh
+    run_sgemm: whole k tiles, every slice non-empty)."""
+    nk = -(-K // F32_BK)
+    return -(-nk // splits)
+
+
+def _valid_splits(K: int, splits: int) -> bool:
+    """Whether `splits` slices of `_slice_tiles` k tiles each are all
+    non-empty (csrc/sgemm_f32.cuh run_sgemm refuses others)."""
+    nk = -(-K // F32_BK)
+    return -(-nk // _slice_tiles(K, splits)) == splits
+
+
+def f32_gemm_plan(M: int, N: int, K: int, n_sm: int, groups: int = 1,
+                  mn_groups: bool = False) -> F32Plan:
+    """The plan of one fp32 product of `groups` groups of M x N outputs over
+    depth K on a card of `n_sm` SMs. With `mn_groups` (an MN-major A whose
+    groups lie at a fixed stride, proj_rows) and M % 4 == 0 the groups' rows
+    are tiled as one M: a 16-byte chunk of 4 rows never crosses a group.
+    The tile and its split are those of the least modelled time
+    (`_launch_s` for each launch, plus a split's second pass): no split;
+    every tile's K cut into 2 to F32_MAX_SPLITS slices; or, for a K-major A,
+    the last row tiles of each group, as few as hold the last round's
+    tiles, cut into the slices that fit one round. An MN-major A's grids of
+    more than one round are not split (their splits measured slower than
+    modelled, PERF.md §6). The first on a tie.
+    F32_TILE_FORCE and F32_SPLIT_FORCE (every tile split) override the
+    pick."""
+    force = tuple(F32_TILE_FORCE) if F32_TILE_FORCE else None
+    return _f32_gemm_plan(M, N, K, n_sm, groups, mn_groups, force, F32_SPLIT_FORCE)
+
+
+def _launch_s(blocks: int, bm: int, bn: int, depth: int, n_sm: int) -> float:
+    """The modelled seconds of a launch of `blocks` blocks of one tile over
+    `depth` of K: each SM's ceil(blocks / n_sm) blocks in rounds of
+    F32_TILE_BLOCKS co-resident ones, a round's rate scaled down while its
+    warps are fewer than F32_FULL_WARPS."""
+    occ, warps = F32_TILE_BLOCKS[(bm, bn)], bm * bn // 2048
+    block_s = 2.0 * bm * bn * depth / (F32_SM_FLOPS * F32_TILE_RATE[(bm, bn)])
+    full, rem = divmod(-(-blocks // n_sm), occ)
+
+    def rnd(n: int) -> float:
+        return n * block_s / min(1.0, n * warps / F32_FULL_WARPS)
+
+    return full * rnd(occ) + (rnd(rem) if rem else 0.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_gemm_plan(M, N, K, n_sm, groups, mn_groups, force_tile, force_split) -> F32Plan:
+    flat = mn_groups and groups > 1 and M % 4 == 0
+    if flat:
+        M, groups = M * groups, 1
+    tiles = [F32_TILES.index(force_tile)] if force_tile else range(len(F32_TILES))
+    best = None
+    for t in tiles:
+        bm, bn = F32_TILES[t]
+        plan = F32Plan(t, groups, M, N, K, flat)
+        gx, gy, _ = plan.grid
+        slots = n_sm * F32_TILE_BLOCKS[(bm, bn)]
+        rem = plan.tiles % slots
+
+        def finish(tail: int, s: int) -> float:
+            return F32_FINISH_S + (s + 2) * tail * bm * bn * 4 / F32_HBM_BYTES_S
+
+        if force_split:  # every tile's K in at most that many slices
+            s = min(force_split, -(-K // F32_BK))
+            while not _valid_splits(K, s):
+                s -= 1
+            options = [(0.0, s, gy if s > 1 else 0)]
+        else:
+            options = [(_launch_s(plan.tiles, bm, bn, K, n_sm), 1, 0)]
+        tr = -(-rem // (gx * groups))  # the row tiles a group that hold the last round's
+        tail = gx * tr * groups
+        for s in range(2, F32_MAX_SPLITS + 1):
+            depth = _slice_tiles(K, s) * F32_BK
+            if (force_split or depth < F32_MIN_SLICE * F32_BK or not _valid_splits(K, s)
+                    or (mn_groups and plan.tiles > slots)):
+                continue
+            options.append((_launch_s(plan.tiles * s, bm, bn, depth, n_sm)
+                            + finish(plan.tiles, s), s, gy))
+            if rem and not mn_groups and tail < plan.tiles and tail * s <= slots:
+                options.append((_launch_s(plan.tiles - tail, bm, bn, K, n_sm)
+                                + _launch_s(tail * s, bm, bn, depth, n_sm) + finish(tail, s),
+                                s, tr))
+        for cost, s, rows in options:
+            if best is None or cost < best[0]:
+                best = (cost, dataclasses.replace(plan, splits=s, tail_rows=rows))
+    return best[1]
+
+
+def f32_blocks(plan: F32Plan) -> list:
+    """(group, first row, first column, k begin, k end) of each block of the
+    product's launches, in order (csrc/sgemm_f32.cuh run_sgemm): the grid of
+    whole row tiles (column fastest, then row, then group), then the split
+    tail's grid (column, tail row, then group and slice: z = group splits +
+    slice)."""
+    gx, gy, gz = plan.grid
+    tr = min(plan.tail_rows, gy) if plan.splits > 1 else 0
+    out = [(g, y * plan.bm, x * plan.bn, 0, plan.k)
+           for g in range(gz) for y in range(gy - tr) for x in range(gx)]
+    span = _slice_tiles(plan.k, plan.splits) * F32_BK
+    for z in range(gz * plan.splits if tr else 0):
+        g, kb = z // plan.splits, z % plan.splits * span
+        out += [(g, (gy - tr + y) * plan.bm, x * plan.bn, kb, min(plan.k, kb + span))
+                for y in range(tr) for x in range(gx)]
+    return out
+
+
+def f32_workspace(device, *plans: F32Plan) -> Optional[torch.Tensor]:
+    """The split-K scratch the plans of one entry point share (products
+    queued one after another on the stream), None when none splits."""
+    n = max(p.ws_elems for p in plans)
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def f32_thread_outputs(bm: int, bn: int) -> torch.Tensor:
+    """(threads, 64, 2): the (row, column) in its block tile of each of a
+    thread's 8 x 8 outputs (csrc/sgemm_f32.cuh sgemm_kernel: thread t, lane
+    t % 32 of warp t // 32, is (tx, ty) = (warp % (bn / 64) 8 + lane % 8,
+    warp // (bn / 64) 4 + lane // 8) and holds rows (bm / 2) h + 4 ty + i
+    and columns (bn / 2) h' + 4 tx + j)."""
+    t = torch.arange(bm * bn // 64)
+    lane, warp = t % 32, t // 32
+    tx, ty = warp % (bn // 64) * 8 + lane % 8, warp // (bn // 64) * 4 + lane // 8
+    i = torch.arange(8)
+    rows = (bm // 2) * (i // 4) + 4 * ty[:, None] + i % 4  # (threads, 8)
+    cols = (bn // 2) * (i // 4) + 4 * tx[:, None] + i % 4
+    return torch.stack(torch.broadcast_tensors(rows[:, :, None], cols[:, None, :]), -1).reshape(
+        -1, 64, 2)
+
+
+def mn_row_offset(m: int, gs: int, gst: int) -> int:
+    """Where row m of an MN-major A lies along its rows (csrc/sgemm_f32.cuh
+    load_tile): (m // gs) gst + m % gs with row groups of gs rows at stride
+    gst (a flat plan), else m."""
+    return (m // gs) * gst + m % gs if gs > 0 else m
 
 
 def _check_f32_widths(name: str, *widths: int) -> None:
@@ -180,8 +399,10 @@ def _linear_act_f32_cuda(x, w, b, activation):
         raise ValueError(f"{name}: shapes x {x.shape} w {w.shape} b {b.shape}")
     _check_f32_widths(name, K, N)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    _cuda.LINEAR_ACT_F32(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
-                         _cuda.ACTIVATIONS[activation], f32_tile(M, N, _cuda.sm_count(x.device)))
+    plan = f32_gemm_plan(M, N, K, _cuda.sm_count(x.device))
+    ws = f32_workspace(x.device, plan)
+    _cuda.LINEAR_ACT_F32(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), _ptr(ws), M, K,
+                         N, _cuda.ACTIVATIONS[activation], plan.tile, plan.splits, plan.tail_rows)
     return out
 
 
@@ -260,10 +481,12 @@ def _ln_linear_act_f32_cuda(x, gamma, beta, w, b, eps, activation):
     M = B * S
     out = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
     xn = torch.empty((M, K), dtype=x.dtype, device=x.device)  # the LN rows' scratch
+    plan = f32_gemm_plan(M, N, K, _cuda.sm_count(x.device))
+    ws = f32_workspace(x.device, plan)
     _cuda.LN_LINEAR_F32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), xn.data_ptr(), M, K, N, float(eps), _cuda.ACTIVATIONS[activation],
-        f32_tile(M, N, _cuda.sm_count(x.device)),
+        out.data_ptr(), xn.data_ptr(), _ptr(ws), M, K, N, float(eps),
+        _cuda.ACTIVATIONS[activation], plan.tile, plan.splits, plan.tail_rows,
     )
     return out
 
@@ -334,10 +557,12 @@ def _ln_mask_linear_f32_cuda(x, gamma, beta, mask, w, b, eps):
     M = Bp * S
     out = torch.empty((Bp, S, N), dtype=x.dtype, device=x.device)
     xn = torch.empty((M, K), dtype=x.dtype, device=x.device)  # the LN rows' scratch
+    plan = f32_gemm_plan(M, N, K, _cuda.sm_count(x.device))
+    ws = f32_workspace(x.device, plan)
     _cuda.LN_MASK_LINEAR_F32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mask.data_ptr(), w.data_ptr(),
-        b.data_ptr(), out.data_ptr(), xn.data_ptr(), M, K, N, S, nwin, float(eps),
-        f32_tile(M, N, _cuda.sm_count(x.device)),
+        b.data_ptr(), out.data_ptr(), xn.data_ptr(), _ptr(ws), M, K, N, S, nwin, float(eps),
+        plan.tile, plan.splits, plan.tail_rows,
     )
     return out
 
@@ -449,11 +674,13 @@ def _ln_mlp_residual_f32_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation):
     out = torch.empty_like(x)
     scratch = torch.empty(rows * (K + H), dtype=x.dtype, device=x.device)
     xn = scratch.data_ptr()
+    p1, p2 = f32_gemm_plan(rows, H, K, n_sm), f32_gemm_plan(rows, K, H, n_sm)
+    ws = f32_workspace(x.device, p1, p2)
     _cuda.LN_MLP_RESIDUAL_F32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), xn, xn + 4 * rows * K, M, K, H, rows,
-        float(eps), _cuda.ACTIVATIONS[activation], f32_tile(rows, H, n_sm),
-        f32_tile(rows, K, n_sm),
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), xn, xn + 4 * rows * K, _ptr(ws), M, K, H,
+        rows, float(eps), _cuda.ACTIVATIONS[activation], p1.tile, p1.splits, p1.tail_rows,
+        p2.tile, p2.splits, p2.tail_rows,
     )
     return out
 
@@ -570,12 +797,15 @@ def _ln_mlp_residual_bwd_f32_cuda(x, gamma, beta, w1, b1, w2, b2, g, eps, activa
     hact = e(M, H) if weights else None
     dx = torch.empty_like(x)
     n_sm = _cuda.sm_count(x.device)
+    # the H-wide products g . W2 and xn . W1^T (depth K), the K-wide dh . W1 (depth H)
+    p1, p2 = f32_gemm_plan(rows, H, K, n_sm), f32_gemm_plan(rows, K, H, n_sm)
+    ws = f32_workspace(x.device, p1, p2)
     _cuda.LN_MLP_RESIDUAL_BWD_F32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), g.data_ptr(), dx.data_ptr(), xn.data_ptr(), dh.data_ptr(),
-        stats.data_ptr(), dxn.data_ptr(), hact.data_ptr() if weights else None, M, K, H, rows,
-        float(eps), _cuda.ACTIVATIONS[activation], f32_tile(rows, H, n_sm),
-        f32_tile(rows, K, n_sm),
+        stats.data_ptr(), dxn.data_ptr(), _ptr(hact), _ptr(ws), M, K, H, rows, float(eps),
+        _cuda.ACTIVATIONS[activation], p1.tile, p1.splits, p1.tail_rows, p2.tile, p2.splits,
+        p2.tail_rows,
     )
     if not weights:
         return dx, None, None, None, None, None, None
@@ -703,10 +933,11 @@ def _proj_rows_f32_cuda(x, w, b, res):
     ldk, ldg = _dmajor_strides(name, x)
     _check_f32_widths(name, K, N)
     out = torch.empty((B, T, S, N), dtype=x.dtype, device=x.device)
+    plan = f32_gemm_plan(S, N, K, _cuda.sm_count(x.device), B * T, mn_groups=True)
+    ws = f32_workspace(x.device, plan)
     _cuda.PROJ_ROWS_F32(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(),
-        res.data_ptr() if res is not None else None, out.data_ptr(),
-        B * T, S, ldk, ldg, K, N, f32_tile(S, N, _cuda.sm_count(x.device), B * T),
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), _ptr(res), out.data_ptr(), _ptr(ws), B * T, S,
+        ldk, ldg, K, N, plan.tile, plan.splits, plan.tail_rows, int(plan.flat),
     )
     return out
 
@@ -797,10 +1028,11 @@ def _proj_heads_f32_launch(kernel, x, w, b, res):
                          f"and epilogue rows), got d={d}, N={N}")
     lay = proj_heads_f32_layout(B, heads, T, S, d)
     out = torch.empty((B, T, S, N), dtype=x.dtype, device=x.device)
-    kernel(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr() if res is not None else None,
-        out.data_ptr(), lay["G"], lay["M"], lay["d"], lay["sa"], lay["K"], N,
-        f32_tile(lay["M"], N, _cuda.sm_count(x.device), lay["G"]))
+    plan = f32_gemm_plan(lay["M"], N, lay["K"], _cuda.sm_count(x.device), lay["G"])
+    ws = f32_workspace(x.device, plan)
+    kernel(x.data_ptr(), w.data_ptr(), b.data_ptr(), _ptr(res), out.data_ptr(), _ptr(ws),
+           lay["G"], lay["M"], lay["d"], lay["sa"], lay["K"], N, plan.tile, plan.splits,
+           plan.tail_rows)
     return out
 
 

@@ -415,12 +415,33 @@ def phase_build():
                       r"|19attn_bwd_key_kernelILi80E|20attn_bwd_prep_kernel|17attn_fullk_kernel"
                       r"|19mlp_bwd_dual_kernel|18ln_bwd_rows_kernel"
                       r"|6f32bwd\S*?attn_bwd_f32_\w+?_kernelILi80E"
-                      r"|7f32attn\S*?attn_f32_kernelILi\d+ELi\d+ELi\dELi\dE"
-                      r"|3f32\S*?12sgemm_kernelILi\dELi\dELi2E)\S*)'", ln)
+                      r"|7f32attn\S*?attn_f32_kernelILi\d+ELi\d+ELi\dELi\dE)\S*)'", ln)
         if m and m.group(1) not in seen:
             seen.add(m.group(1))
             usage = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
             log(f"[build] {m.group(1)}: {'; '.join(usage)}")
+    # csrc/sgemm_f32.cuh's instantiations (each source's own: four tiles, with
+    # and without split K, per operand layout and epilogue), in one line
+    sg = []
+    for i, ln in enumerate(lines):
+        m = re.search(r"Compiling entry function '_ZN4cvlm3f32\S*?12sgemm_kernelINS\S*?TileILi(\d+)"
+                      r"ELi(\d+)E", ln)
+        if m:
+            used = " ".join(lines[i + 1:i + 4])
+            r = re.search(r"Used (\d+) registers", used)
+            sp = re.search(r"(\d+) bytes spill stores", used)
+            sg.append((m.group(1) + "x" + m.group(2), int(r.group(1)) if r else -1,
+                       int(sp.group(1)) if sp else 0))
+    by_tile = {}
+    for t, r, _ in sg:
+        by_tile.setdefault(t, []).append(r)
+    regs = {t: f"{min(r)}-{max(r)}" for t, r in by_tile.items()}
+    smem = {f"{bm}x{bn}": 3 * (bm + bn) * 32 * 4
+            for bm, bn in ((128, 128), (64, 128), (128, 64), (64, 64))}
+    log(f"[build] sgemm_kernel (csrc/sgemm_f32.cuh): {len(sg)} instantiations, registers by "
+        f"tile {regs}, {sum(1 for *_, sp in sg if sp)} with spills; dynamic shared memory per "
+        f"block {smem} B (3 stages of 32-deep k tiles)")
+    check(sg and not any(sp for *_, sp in sg), f"[build] sgemm_kernel spills: {sg}")
     for bn in (256, 128):
         log(f"[build] dynamic shared memory per block: gemm_tma_kernel<{bn}, *, *> "
             f"{gemm_smem(bn)} B ({gemm_stages(bn)} stages of 128 x 64 + {bn} x 64)")
@@ -914,6 +935,114 @@ def per_call_table(per_shape):
             log(f"[per_call] {kernel} batch {b}: {sum(n for _, n, _ in rows)} launches a "
                 f"cascade call: {parts} = {tot['ms']:.3f} ms (queued {tot['queued_ms']:.3f} "
                 f"ms), bound {tot['bound_ms']:.3f} ms")
+
+
+# the fp32 rows of sgemm_f32.cuh's users at the cascade's shapes, by kernel
+# name: the kernels line adds them to those kernels' entries ("cascade")
+F32_CASCADE_ROWS = {}
+
+
+def f32_library(kernel, args, eps, act):
+    """One PyTorch call for the same function as an fp32 GEMM user on `args`
+    (fp32, TF32 off), None where none computes it: #2 F.layer_norm +
+    F.linear; #4/#5 F.layer_norm, F.linear, the activation, F.linear and the
+    residual; #7 torch.baddbmm over the (B, T) groups with the bias folded
+    into the residual outside the timed call (x as it lies, W^T for every
+    group); #1 F.linear; #3 none (the row mask)."""
+    import torch
+
+    F = torch.nn.functional
+    if kernel == "ln_linear_act_bt":
+        x, g, b, w, bias = args
+        return lambda: F.linear(F.layer_norm(x, (x.shape[-1],), g, b, eps), w, bias)
+    if kernel == "ln_mlp_residual_bt":
+        x, g, b, w1, b1, w2, b2 = args
+        f = ((lambda h: h * torch.sigmoid(1.702 * h)) if act == "quick_gelu"
+             else (lambda h: F.gelu(h, approximate="tanh")))
+        return lambda: x + F.linear(f(F.linear(F.layer_norm(x, (x.shape[-1],), g, b, eps), w1,
+                                               b1)), w2, b2)
+    if kernel == "proj_rows":
+        x, w, bias, res = args
+        B, T, K, S = x.shape
+        resb = (res + bias).reshape(B * T, S, -1)
+        xt, wt = x.reshape(B * T, K, S).transpose(1, 2), w.t().expand(B * T, K, w.shape[0])
+        return lambda: torch.baddbmm(resb, xt, wt)
+    if kernel == "linear_act":
+        return lambda: F.linear(*args)
+    return None
+
+
+def f32_gemm_cases(rn, batches=(2, 1)):
+    """(kernel, site, batch, kernel fn, plain fn, args, FLOP, library call,
+    products alone) of sgemm_f32.cuh's users at every shape of the fp32
+    cascade but #3's (`sam_f32_kernels` times it): #1's patch embed and EVP
+    embed (N 40), #2 and #4/#5 at every SAM and CLIP shape of
+    `ln_gemm_shapes` (and the text tower's), #7 at every `proj_rows_shapes`
+    site; `rn` draws fp32; inputs are drawn case by case, in this order."""
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    for b in batches:
+        for site, N in (("patch embed", 1280), ("EVP embed", 40)):
+            x, w, bias = rn(b * 4096, 768), rn(N, 768, std=0.02), rn(N, std=0.02)
+            yield ("linear_act", site, b, lin.linear_act, lin.linear_act_ref, (x, w, bias),
+                   2.0 * b * 4096 * 768 * N, f32_library("linear_act", (x, w, bias), 0, None),
+                   None)
+    for kernel, site, b, lead, K, N, eps, act in ln_gemm_shapes(batches):
+        if kernel == "ln_mask_linear_bt":
+            continue
+        kfn, pfn, args, flops, gemm = ln_gemm_case(rn, kernel, lead, K, N, eps, act)
+        yield (kernel, site, b, kfn, pfn, args, flops, f32_library(kernel, args, eps, act), gemm)
+    for b in batches:
+        for site, shape, N in proj_rows_shapes(b):
+            args, flops, gemm = proj_rows_case(rn, shape, N)
+            yield ("proj_rows", site, b, lin.proj_rows, lin.proj_rows_ref, args, flops,
+                   f32_library("proj_rows", args, 0, None), gemm)
+
+
+def f32_cascade_gemms(rn, per_shape):
+    """`f32_gemm_cases` against their plain fp32 versions within 1e-4 (TF32
+    off), each timed with its bound against 67 TFLOP/s, its library call and
+    its products alone; rows into `per_shape` and F32_CASCADE_ROWS."""
+    import torch
+
+    for kernel, site, b, kfn, pfn, args, flops, library, gemm in f32_gemm_cases(rn):
+        shape = "x".join(map(str, args[0].shape))
+        r = _check_kernel(f"{kernel}_f32 ({site} {shape}, batch {b}, fp32, TF32 off)", kfn, pfn,
+                          args, flops=flops, library=library, gemm_library=gemm,
+                          rel_bound=F32_REL_BOUND, peak_flops=PEAK_F32_FLOPS)
+        per_shape[(kernel, site, b)] = r
+        F32_CASCADE_ROWS.setdefault(kernel + "_f32", []).append(
+            dict(site=site, batch=b, **{k: r.get(k) for k in (
+                "ms", "queued_ms", "plain_ms", "library_ms", "gemm_library_ms", "bound_ms",
+                "max_abs_err")}))
+        del args, library, gemm
+        torch.cuda.empty_cache()
+
+
+def f32_per_call_table(per_shape):
+    """Launches x time per fp32 cascade call of the reference config (#1,
+    #2, #3, #4/#5, #7 at batch 1 and 2): `per_call_sites`' launches, #1 once
+    for the patch embed and once for the EVP embed, summed over the shapes a
+    call runs, on both clocks, beside the summed bound; and their sum."""
+    per_call = {**per_call_sites(), "patch embed": 1, "EVP embed": 1}
+    kernels = ("linear_act", "ln_linear_act_bt", "ln_mask_linear_bt", "ln_mlp_residual_bt",
+               "proj_rows")
+    for b in (1, 2):
+        total = {"ms": 0.0, "queued_ms": 0.0, "bound_ms": 0.0}
+        for kernel in kernels:
+            rows = [(site, n, per_shape[(kernel, site, b)]) for site, n in per_call.items()
+                    if (kernel, site, b) in per_shape]
+            tot = {k: sum(n * r[k] for _, n, r in rows) for k in total}
+            for k in total:
+                total[k] += tot[k]
+            parts = " + ".join(f"{n} x {site} {r['ms']:.4f} (queued {r['queued_ms']:.4f})"
+                               for site, n, r in rows)
+            log(f"[per_call] {kernel}_f32 batch {b}: {sum(n for _, n, _ in rows)} launches an "
+                f"fp32 cascade call: {parts} = {tot['ms']:.3f} ms (queued "
+                f"{tot['queued_ms']:.3f} ms), bound {tot['bound_ms']:.3f} ms")
+        log(f"[per_call] sgemm_f32.cuh's users batch {b}, an fp32 cascade call: "
+            f"{total['ms']:.3f} ms (queued {total['queued_ms']:.3f} ms), bound "
+            f"{total['bound_ms']:.3f} ms")
 
 
 # the two kernels no path of either package reaches (the JAX package's own
@@ -2592,7 +2721,10 @@ def phase_f32_kernels():
     bound against the fp32 CUDA-core peak (67 TFLOP/s) and the HBM rate, and
     one PyTorch call for the same function (F.layer_norm + F.linear; fp32
     SDPA; torch.baddbmm with the bias folded into the residual beforehand;
-    #6 none); and the fp32 #4/#5 at the vision width."""
+    #6 none); and the fp32 #4/#5 at the vision width; then the cascade's
+    (`sam_f32_kernels`, the users of csrc/sgemm_f32.cuh at every shape of
+    the fp32 cascade, `f32_cascade_gemms`, and their fp32 [per_call]
+    lines), its backwards and the other routes'."""
     import torch
     from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
     from camouflaged_vlm_tpu_torch.ops import linear as lin
@@ -2601,7 +2733,7 @@ def phase_f32_kernels():
     check(not torch.backends.cuda.matmul.allow_tf32, "fp32 kernel checks need TF32 off")
     g = torch.Generator(device="cuda").manual_seed(16)
 
-    def rn(*shape, std=1.0):
+    def rn(*shape, std=1.0, dtype=None):  # fp32 whatever dtype the shared case functions ask
         return torch.randn(*shape, generator=g, device="cuda") * std
 
     B, S, W, NH, HD, H = MAPLE_B, MAPLE_S, 1024, 16, 64, 4096
@@ -2678,7 +2810,10 @@ def phase_f32_kernels():
                     replaces="camouflaged_vlm_tpu/ops/linear.py:564", **r)
             del xm, args, gy, ga, be, w1, b1, w2, b2
         torch.cuda.empty_cache()
-        out.update(sam_f32_kernels(rn))
+        per_shape = {}
+        out.update(sam_f32_kernels(rn, per_shape))
+        f32_cascade_gemms(rn, per_shape)
+        f32_per_call_table(per_shape)
     out.update(sam_f32_grads(rn))
     torch.cuda.empty_cache()
     with torch.no_grad():
@@ -2695,7 +2830,7 @@ SAM_F32 = ("linear_act_f32", "ln_mask_linear_bt_f32", "flash_qkv_packed_windows_
 SAM_F32_BWD = ("flash_qkv_packed_windows_s_bwd_f32", "flash_qkv_packed_global_bwd_f32")
 
 
-def sam_f32_kernels(rn):
+def sam_f32_kernels(rn, per_shape):
     """The fp32 instances on the cascade's path at --dtype float32 (SAM
     ViT-H at 1024 px: #1, #3, #13, #15, #17; `rn` draws fp32) against their plain fp32
     versions within 1e-4, at batch 1 and 2, each with its bound against the
@@ -2703,7 +2838,8 @@ def sam_f32_kernels(rn):
     F.linear; #3 none, its product alone through F.linear as
     `gemm_library`; #13 and #17 fp32 SDPA with the bias rel @ sel built
     outside the timed call; #15 SDPA with the pad key as one more key). The
-    kernels line holds batch 1 and the batch-2 times beside it."""
+    kernels line holds batch 1 and the batch-2 times beside it; #1's and
+    #3's rows also go into `per_shape` for the fp32 [per_call] lines."""
     import torch
     from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
     from camouflaged_vlm_tpu_torch.ops import linear as lin
@@ -2783,6 +2919,8 @@ def sam_f32_kernels(rn):
             r = _check_kernel(f"{name} (SAM ViT-H at batch {B}, fp32, TF32 off)", kfn, pfn, args,
                               flops=flops, reads=reads, library=library, gemm_library=gemm,
                               rel_bound=F32_REL_BOUND, peak_flops=PEAK_F32_FLOPS)
+            if name == "ln_mask_linear_bt_f32":
+                per_shape[("ln_mask_linear_bt", "global", B)] = r
             if B == 1:
                 out[name] = dict(source=src + source, replaces=rep + replaces, **r)
             else:
@@ -3987,6 +4125,7 @@ def main() -> None:
          "queued_ms": r["queued_ms"], "library_queued_ms": r["library_queued_ms"],
          "host_us": r.get("host_us"),
          **({"gemm_library_ms": r["gemm_library_ms"]} if "gemm_library_ms" in r else {}),
+         **({"cascade": F32_CASCADE_ROWS[k]} if k in F32_CASCADE_ROWS else {}),
          **{k2: v for k2, v in r.items() if k2.startswith(("batch2_", "batch1_"))},
          **({"path": r["path"]} if k in no_path else {})}
         for res in (results, grads, f32) for k, r in res.items()

@@ -135,15 +135,15 @@ F32_BOUND = 1e-4
 
 
 @pytest.mark.parametrize("activation", ACTS)
-@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("tile", linear.F32_TILES)
 @pytest.mark.parametrize("B,S,K,H", [(6, 77, 768, 3072), (3, 50, 200, 264), (1, 7, 96, 136)])
 def test_ln_mlp_residual_bt_kernel_float32(gen, monkeypatch, activation, tile, B, S, K, H):
     """The text tower's shape at camoprompts (6 prompts x 77 tokens) and
-    ragged ones (M, K and H not multiples of the tiles or the 16-deep k
-    step); each tile size; row panels (a scratch of 128 x 512 elements); a
+    ragged ones (M, K and H not multiples of the tiles or the 32-deep k
+    step); each tile of the plan; row panels (a scratch of 128 x 512 elements); a
     gradient refused."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    monkeypatch.setattr(linear, "F32_TILE_FORCE", tile)
     f32 = torch.float32
     args = (rn(gen, B, S, K, dtype=f32), 1 + rn(gen, K, std=0.1, dtype=f32),
             rn(gen, K, std=0.1, dtype=f32), rn(gen, H, K, std=0.05, dtype=f32),
@@ -186,13 +186,13 @@ def no_tf32(monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
 
 
-@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("tile", linear.F32_TILES)
 @pytest.mark.parametrize("activation", [None, "quick_gelu"])
 @pytest.mark.parametrize("B,S,K,N", [(8, 581, 1024, 3072), (2, 37, 200, 264), (1, 7, 96, 12)])
 def test_ln_linear_act_bt_kernel_float32(gen, monkeypatch, no_tf32, tile, activation, B, S, K, N):
     """#2's fp32 instance at MaPLe's vision shape (batch 8, 581 tokens, K
     1024, N 3072) and ragged ones; each tile."""
-    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    monkeypatch.setattr(linear, "F32_TILE_FORCE", tile)
     f32 = torch.float32
     args = (rn(gen, B, S, K, dtype=f32) + 0.5, 1 + rn(gen, K, std=0.1, dtype=f32),
             rn(gen, K, std=0.1, dtype=f32), rn(gen, N, K, std=0.05, dtype=f32),
@@ -203,14 +203,14 @@ def test_ln_linear_act_bt_kernel_float32(gen, monkeypatch, no_tf32, tile, activa
     assert_close_f32(got, linear.ln_linear_act_bt_ref(*args, eps=1e-5, activation=activation))
 
 
-@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("tile", linear.F32_TILES)
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("B,T,K,S,N", [(8, 1, 1024, 581, 1024), (1, 3, 64, 70, 96),
                                        (2, 2, 200, 37, 136)])
 def test_proj_rows_kernel_float32(gen, monkeypatch, no_tf32, tile, with_res, B, T, K, S, N):
     """#7's fp32 instance at MaPLe's vision shape and ragged ones, x as the
     fp32 attention gives it (rows of a stride rounded up to 8)."""
-    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    monkeypatch.setattr(linear, "F32_TILE_FORCE", tile)
     f32 = torch.float32
     res = rn(gen, B, T, S, N, dtype=f32) if with_res else None
     args = (dmajor(rn(gen, B, T, K, S, dtype=f32)), rn(gen, N, K, std=0.05, dtype=f32),
@@ -219,6 +219,113 @@ def test_proj_rows_kernel_float32(gen, monkeypatch, no_tf32, tile, with_res, B, 
     got = linear.proj_rows(*args)
     assert (_cuda.PROJ_ROWS_F32.launches, _cuda.PROJ_ROWS.launches) == (before[0] + 1, before[1])
     assert_close_f32(got, linear.proj_rows_ref(*args))
+
+
+@pytest.mark.parametrize("tile", linear.F32_TILES)
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("B,T,K,S,N", [(2, 16, 200, 196, 136), (1, 9, 96, 112, 1280),
+                                       (2, 1, 72, 36, 40), (3, 5, 24, 4, 68)])
+def test_proj_rows_kernel_float32_flat_rows(gen, monkeypatch, no_tf32, tile, with_res, B, T, K, S,
+                                            N):
+    """#7's fp32 instance with its (B, T) groups' rows tiled as one M (S % 4
+    == 0, `linear.f32_gemm_plan`'s flat plan): SAM's windows (196 rows a
+    group) and edge windows (112) at ragged widths, N = 40, groups of 4 rows,
+    K not a multiple of the 32-deep k tile; each tile."""
+    monkeypatch.setattr(linear, "F32_TILE_FORCE", tile)
+    assert linear.f32_gemm_plan(S, N, K, 132, B * T, mn_groups=True).flat
+    f32 = torch.float32
+    res = rn(gen, B, T, S, N, dtype=f32) if with_res else None
+    args = (dmajor(rn(gen, B, T, K, S, dtype=f32)), rn(gen, N, K, std=0.05, dtype=f32),
+            rn(gen, N, std=0.1, dtype=f32), res)
+    before = _cuda.PROJ_ROWS_F32.launches
+    got = linear.proj_rows(*args)
+    assert _cuda.PROJ_ROWS_F32.launches == before + 1
+    assert_close_f32(got, linear.proj_rows_ref(*args))
+
+
+@pytest.mark.parametrize("splits", [2, 3])
+def test_f32_gemm_users_split_k(gen, monkeypatch, no_tf32, splits):
+    """Split K forced on every tile (`linear.F32_SPLIT_FORCE`: each slice's
+    sums into the scratch, the second pass adding them in order and applying
+    the epilogue): each user of csrc/sgemm_f32.cuh at ragged shapes (K 200,
+    not a multiple of the 32-deep k tile; N 40; 8 groups of 581 rows; flat
+    rows; K_HEADS at d 80; #6's in-place EPI_DACT with and without aux)
+    against its plain version; two calls bit-equal."""
+    monkeypatch.setattr(linear, "F32_SPLIT_FORCE", splits)
+    f32 = torch.float32
+
+    def r(*shape, std=1.0):
+        return rn(gen, *shape, std=std, dtype=f32)
+
+    x, g, b = r(3, 50, 200), 1 + r(200, std=0.1), r(200, std=0.1)
+    w1, b1, w2, b2 = r(264, 200, std=0.05), r(264, std=0.1), r(200, 264, std=0.05), r(200)
+    mask = (torch.rand(3, 50, 1, generator=gen, device="cuda") > 0.3).to(f32)
+    xg, xf = dmajor(r(8, 1, 256, 581)), dmajor(r(2, 3, 200, 36))
+    wg, resf = r(136, 256, std=0.05), r(2, 3, 36, 96)
+    xh, wh, resh = r(2, 4, 3, 37, 80), r(96, 320, std=0.05), r(2, 3, 37, 96)
+    cases = [
+        (linear.linear_act, linear.linear_act_ref, (x[0], w1[:40], b1[:40], "gelu"), {}),
+        (linear.ln_linear_act_bt, linear.ln_linear_act_bt_ref, (x, g, b, w1, b1),
+         dict(eps=1e-5, activation=None)),
+        (linear.ln_mask_linear_bt, linear.ln_mask_linear_bt_ref, (x, g, b, mask, w1, b1), {}),
+        (linear.ln_mlp_residual_bt, linear.ln_mlp_residual_bt_ref, (x, g, b, w1, b1, w2, b2),
+         dict(eps=1e-5, activation="quick_gelu")),
+        (linear.proj_rows, linear.proj_rows_ref, (xg, wg, b1[:136], None), {}),
+        (linear.proj_rows, linear.proj_rows_ref, (xf, w1[:96], b1[:96], resf), {}),
+        (linear.proj_from_heads_res, linear.proj_from_heads_ref, (xh, wh, b1[:96], resh), {}),
+    ]
+    cases = [(lambda f=f, a=a, k=k: f(*a, **k), lambda f=p, a=a, k=k: f(*a, **k))
+             for f, p, a, k in cases]
+    for weights in (False, True):
+        args = (x, g, b, w1, b1, w2, b2, x * 0.5)
+        cases.append((lambda a=args, w=weights: torch.cat([t.flatten() for t in (
+                          linear.ln_mlp_residual_bt_bwd(*a, eps=1e-5, activation="quick_gelu",
+                                                        weights=w)) if t is not None]),
+                      lambda a=args, w=weights: torch.cat([t.flatten() for t in (
+                          linear.ln_mlp_residual_bt_bwd_ref(*a, eps=1e-5, activation="quick_gelu",
+                                                            weights=w)) if t is not None])))
+    for call, plain in cases:
+        got = call()
+        assert torch.equal(got, call())
+        want = plain()
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        assert ((got - want).abs().max() / want.abs().max()).item() < F32_BOUND
+
+
+def test_f32_gemm_users_are_deterministic(gen, no_tf32):
+    """No atomics: two calls of each user of csrc/sgemm_f32.cuh (#1, #2, #3,
+    #4/#5, #6 with the weight side, #7 flat and grouped, #8) on the same
+    inputs are bit-equal. (#6's dh is written in place by its EPI_DACT
+    epilogue, res == C, with act(pre) into aux when the weight side is
+    wanted: test_ln_mlp_residual_bt_bwd_kernel_float32.)"""
+    f32 = torch.float32
+
+    def r(*shape, std=1.0):
+        return rn(gen, *shape, std=std, dtype=f32)
+
+    x, g, b = r(3, 50, 200), 1 + r(200, std=0.1), r(200, std=0.1)
+    w1, b1, w2, b2 = r(264, 200, std=0.05), r(264, std=0.1), r(200, 264, std=0.05), r(200)
+    calls = [
+        lambda: linear.linear_act(x[0], w1, b1, "gelu"),
+        lambda: linear.ln_linear_act_bt(x, g, b, w1, b1, eps=1e-5, activation=None),
+        lambda: linear.ln_mask_linear_bt(x, g, b, torch.ones(3, 50, 1, device="cuda"), w1, b1),
+        lambda: linear.ln_mlp_residual_bt(x, g, b, w1, b1, w2, b2, eps=1e-5,
+                                          activation="quick_gelu"),
+        lambda: torch.cat([t.flatten() for t in linear.ln_mlp_residual_bt_bwd(
+            x, g, b, w1, b1, w2, b2, x * 0.5, eps=1e-5, activation="quick_gelu")]),
+    ]
+    for S in (36, 37):  # flat, grouped
+        xd = dmajor(r(2, 3, 200, S))
+        calls.append(lambda xd=xd, S=S: linear.proj_rows(xd, w1, b1, r(2, 3, S, 264) * 0 + 1))
+    xh = r(2, 4, 3, 37, 80)
+    calls.append(lambda: linear.proj_from_heads_res(xh, r(96, 320, std=0.05), b1[:96],
+                                                    r(2, 3, 37, 96) * 0))
+    for call in calls:
+        torch.manual_seed(0)
+        gen.manual_seed(1)
+        first = call()
+        gen.manual_seed(1)
+        assert torch.equal(first, call())
 
 
 @pytest.mark.parametrize("B,S,heads,d", [(8, 581, 16, 64), (1, 7, 2, 64), (2, 64, 1, 64),
@@ -240,14 +347,14 @@ def test_flash_qkv_packed_plain_kernel_float32(gen, no_tf32, B, S, heads, d):
                                                0.1, 1, 32)
 
 
-@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("tile", linear.F32_TILES)
 @pytest.mark.parametrize("activation", [None, "gelu"])
 @pytest.mark.parametrize("M,K,N", [(8192, 768, 1280), (4096, 768, 40), (67, 96, 132),
                                    (130, 200, 12)])
 def test_linear_act_kernel_float32(gen, monkeypatch, no_tf32, tile, activation, M, K, N):
     """#1's fp32 instance at the patch embed's shape at batch 2 and the EVP
     embed's (N 40), and ragged ones; each tile."""
-    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    monkeypatch.setattr(linear, "F32_TILE_FORCE", tile)
     f32 = torch.float32
     args = (rn(gen, M, K, dtype=f32), rn(gen, N, K, std=0.05, dtype=f32),
             rn(gen, N, std=0.1, dtype=f32))
@@ -257,14 +364,14 @@ def test_linear_act_kernel_float32(gen, monkeypatch, no_tf32, tile, activation, 
     assert_close_f32(got, linear.linear_act_ref(*args, activation=activation))
 
 
-@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("tile", linear.F32_TILES)
 @pytest.mark.parametrize("Bp,S,K,N,nwin", [(1, 4096, 1280, 3840, 1), (6, 50, 200, 96, 3),
                                           (4, 37, 128, 384, 1), (3, 7, 96, 12, 3)])
 def test_ln_mask_linear_bt_kernel_float32(gen, monkeypatch, no_tf32, tile, Bp, S, K, N, nwin):
     """#3's fp32 instance at a ViT-H global block's shape at batch 1 (the
     mask of ones the encoder gives it) and ragged ones with nwin 1 and 3
     (row b' reads mask[b' % nwin]); each tile."""
-    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    monkeypatch.setattr(linear, "F32_TILE_FORCE", tile)
     f32 = torch.float32
     mask = (torch.rand(nwin, S, 1, generator=gen, device="cuda") > 0.3).to(f32)
     if S == 4096:
@@ -348,7 +455,7 @@ def test_flash_qkv_packed_global_kernel_float32(gen, no_tf32, B, H, W, heads, d)
 
 
 @pytest.mark.parametrize("weights", [False, True])
-@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("tile", linear.F32_TILES)
 @pytest.mark.parametrize("B,S,K,H", [(8, 581, 1024, 4096), (14, 77, 768, 3072), (2, 37, 200, 264),
                                      (1, 7, 96, 136), (2, 1008, 1280, 5120),
                                      (2, 4096, 1280, 5120)])
@@ -359,7 +466,7 @@ def test_ln_mlp_residual_bt_bwd_kernel_float32(gen, monkeypatch, no_tf32, weight
     ViT-H's (K 1280, H 5120: the edge windows' 2 x 1008 rows, and the global
     blocks' 2 x 4096, whose hidden walks row panels) and ragged ones; each
     tile; with and without the weight side."""
-    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    monkeypatch.setattr(linear, "F32_TILE_FORCE", tile)
     f32 = torch.float32
     args = (rn(gen, B, S, K, dtype=f32), 1 + rn(gen, K, std=0.1, dtype=f32),
             rn(gen, K, std=0.1, dtype=f32), rn(gen, H, K, std=0.05, dtype=f32),
@@ -1197,7 +1304,7 @@ def test_flash_qkv_relpos_global_kernel_float32(gen, no_tf32, B, H, W, heads, d)
     assert_close_f32(got, flash_attention.flash_qkv_relpos_global_ref(qkv, rel, sel, d ** -0.5))
 
 
-@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("tile", linear.F32_TILES)
 @pytest.mark.parametrize("with_res,B,heads,T,S,d,N", [
     (True, 2, 16, 16, 289, 80, 1280), (False, 2, 16, 16, 289, 80, 1280),
     (True, 2, 4, 3, 37, 80, 96), (False, 1, 2, 5, 70, 64, 132), (True, 1, 3, 2, 33, 8, 68)])
@@ -1207,7 +1314,7 @@ def test_proj_from_heads_kernel_float32(gen, monkeypatch, no_tf32, tile, with_re
     its own count: the window-17 shape of the main path (2, 16, 16, 289, 80)
     -> 1280, and ragged rows and widths (d 80, 64 and 8: 16-column k tiles
     that span two heads at d 8); each tile."""
-    monkeypatch.setattr(linear, "f32_tile", lambda *_: tile)
+    monkeypatch.setattr(linear, "F32_TILE_FORCE", tile)
     f32 = torch.float32
     x = rn(gen, B, heads, T, S, d, dtype=f32)
     w, b = rn(gen, N, heads * d, std=0.05, dtype=f32), rn(gen, N, std=0.1, dtype=f32)
