@@ -41,14 +41,20 @@ in one call when their runs alternate (parent, change, change, parent).
 With --padded-calls it times, instead of the kernels, the checkout's
 window-16, window-17 and ViT-B cascade calls by stage and traces one
 batch-2 call of each (`padded_calls`): the card's busy time that #12, #11 +
-#8 and #10 move. With --f32-attention it runs, instead, the checkout's fp32
-instances on csrc/attn_f32.cuh's loop at chip_smoke.py [f32_kernels]'
-shapes (`f32_attention_cases`: #16 at MaPLe's, #13, #15 and #17 at SAM
-ViT-H's at batch 1 and 2, the backwards #14 and #18 at batch 2) on seeded
-inputs, one JSON line each with the SHA-256 of its output bytes and its
-idle-card time (the backwards' also by kernel, from torch.profiler);
---against FILE (another checkout's lines) adds whether each output is
-bit-equal to that checkout's. With --f32-gemm it does the same for every
+#8 and #10 move. With --f32-attention it runs, instead, every user of
+csrc/attn_f32.cuh's fp32 loop at every shape of its paths
+(`f32_attention_cases`: #16 at MaPLe's 8 x 581 and the cascade's 1 and 2 x
+581; #13, #15, #17 at SAM ViT-H batch 1 and 2; #20 at 'aug_flash' batch 1
+and 2; #12 at window 16, #11 at window 17 and #10 at ViT-B's windows and
+global blocks, batch 1 and 2; #19 on the 64 x 64 grid; then the backwards
+#14 and #18 at batch 2) on seeded inputs, one JSON line each with the
+SHA-256 of its output bytes, its error against the plain version, both
+clocks, the host's microseconds a call through the wrapper and through its
+CudaKernel alone, the library call's times (chip_smoke.py's), its bound
+and, on a checkout with the loop's tile plan, the tile it took (--tiles:
+the queued time at each tile, forced); the backwards' device ms by kernel,
+from torch.profiler; --against FILE (another checkout's lines) adds
+whether each output is bit-equal to that checkout's. With --f32-gemm it does the same for every
 user of csrc/sgemm_f32.cuh (#1, #2, #3, #4/#5, #6, #7, #8/#9) at every shape
 of its paths (`f32_gemm_cases`), each line with its error against the plain
 version, both clocks and, on a checkout with the fp32 tile plan, the plans
@@ -417,16 +423,39 @@ def padded_carry_cases(rn):
     return out
 
 
+@dataclass
+class F32Case:
+    name: str            # the fp32 instance's kernel name (its CudaKernel's)
+    site: str
+    call: Callable       # the wrapper on its inputs
+    plain: Callable      # its plain version on the same inputs
+    kernel: str = ""     # the CudaKernel's attribute in ops/_cuda.py ("": a backward)
+    library: Optional[Callable] = None  # one PyTorch call for the same function
+    flops: float = 0.0   # the products the function needs
+    reads: tuple = ()    # the tensors it reads (the bound's bytes, with its output)
+
+
 def f32_attention_cases(rn):
-    """(name, site, zero-argument call) of the fp32 instances on
-    csrc/attn_f32.cuh's loop, inputs drawn in a fixed order from `rn`
-    (fp32)."""
+    """`F32Case`s of every user of csrc/attn_f32.cuh's loop at every shape of
+    its paths, inputs drawn in a fixed order from `rn` (fp32; generated one
+    case at a time, so that one case's tensors are freed before the next):
+    #16 at MaPLe's 8 x 581 and the cascade's CLIP passes (1 and 2 x 581, 16
+    heads x 64); #13, #15, #17 at SAM ViT-H batch 1 and 2; #20 at 'aug_flash'
+    batch 1 and 2 (BB 16 and 32 x 4096, d_qk 208, dv 80); #12 at window 16,
+    #11 at window 17 and #10 at SAM ViT-B's windows and global blocks, batch
+    1 and 2; #19 at its check's shape (the 64 x 64 grid, batch 2); last the
+    backwards #14 and #18 at batch 2. Library calls as chip_smoke.py's
+    `sam_f32_kernels` and `route_f32_kernels` take them: fp32 SDPA, the bias
+    rel @ sel built outside the timed call; #15's with the pad key as one
+    more key; #20's at scale 1."""
     import torch
     from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
     from camouflaged_vlm_tpu_torch.ops.compact_window import (
         LPAD_LANE, NEG, CompactGeometry, edge_consts,
     )
 
+    smoke = _smoke()
+    F = torch.nn.functional
     f32, dev = torch.float32, torch.device("cuda")
     NH, HD, G, WIN = 16, 80, 64, 14
     sc = HD ** -0.5
@@ -434,13 +463,34 @@ def f32_attention_cases(rn):
     nf, ne, R = geom.n_full, geom.n_edge, geom.R_u
     sel32, sel_g = fa.make_rel_scatter32(WIN, f32, dev), fa.make_rel_scatter(G, G, f32, dev)
     sel_e, kmask_e = edge_consts(geom, f32, dev)
-    qkv = rn(8, 581, 3 * 1024)
-    out = [("flash_qkv_packed_plain_f32", "MaPLe 8x581, 16 heads x 64",
-            lambda: fa.flash_qkv_packed_plain(qkv, 64 ** -0.5, 16, 64))]
+
+    def sdpa(q, k, v, bias=None, scale=sc):
+        q, k, v = (t.flatten(0, -4) for t in (q, k, v))  # 4D, copied here
+        bias = bias.flatten(0, -4) if bias is not None else None
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
+
+    def packed_heads(qkv, heads, d):
+        r = qkv.reshape(qkv.shape[:-1] + (3, heads, d))
+        return [r[..., i, :, :].transpose(-3, -2) for i in range(3)]
+
+    # MaPLe's #16 draws first, as it did before the cascade's rows were added
+    for B, site in ((8, "MaPLe 8x581, 16 heads x 64"), (1, "cascade CLIP 1x581"),
+                    (2, "cascade CLIP 2x581")):
+        qkv = rn(B, 581, 3 * 1024)
+        yield F32Case("flash_qkv_packed_plain_f32", site,
+                      lambda a=qkv: fa.flash_qkv_packed_plain(a, 64 ** -0.5, 16, 64),
+                      lambda a=qkv: fa.flash_qkv_packed_plain_ref(a, 64 ** -0.5, 16, 64),
+                      "QKV_PACKED_PLAIN_F32", sdpa(*packed_heads(qkv, 16, 64), scale=0.125),
+                      4.0 * B * 16 * 581 * 581 * 64, (qkv,))
     for B in (1, 2):
         qw, rw = rn(B * nf, WIN * WIN, 3 * NH * HD), rn(WIN * WIN, B * nf, NH * 32)
-        out.append(("flash_qkv_packed_windows_s_f32", f"SAM ViT-H batch {B}",
-                    lambda a=(qw, rw): fa.flash_qkv_packed_windows_s(*a, sel32, sc, NH, HD)))
+        bias = torch.matmul(rw.reshape(WIN * WIN, B * nf, NH, 32).permute(1, 2, 0, 3), sel32)
+        yield F32Case("flash_qkv_packed_windows_s_f32", f"SAM ViT-H batch {B}",
+                      lambda a=(qw, rw): fa.flash_qkv_packed_windows_s(*a, sel32, sc, NH, HD),
+                      lambda a=(qw, rw): fa.flash_qkv_packed_windows_s_ref(*a, sel32, sc, NH, HD),
+                      "QKV_WINDOWS_F32", sdpa(*packed_heads(qw, NH, HD), bias),
+                      4.0 * B * nf * NH * (WIN * WIN) ** 2 * HD, (qw, rw))
+        del qw, rw, bias
         rel = rn(B, ne, R, NH, 32)
         off = 0
         for grp in geom.edge_groups:  # dummy rows' pad-key logit, as the encoder clamps it
@@ -448,11 +498,76 @@ def f32_attention_cases(rn):
             off += grp.n
         ea = (rn(B, ne, R, 3 * NH * HD), rel.reshape(B, ne, R, NH * 32), sel_e,
               rn(NH, HD, std=0.5), kmask_e)
-        out.append(("flash_qkv_packed_edge_f32", f"SAM ViT-H batch {B}",
-                    lambda a=ea: fa.flash_qkv_packed_edge(*a, sc, NH, HD)))
+        yield F32Case("flash_qkv_packed_edge_f32", f"SAM ViT-H batch {B}",
+                      lambda a=ea: fa.flash_qkv_packed_edge(*a, sc, NH, HD),
+                      lambda a=ea: fa.flash_qkv_packed_edge_ref(*a, sc, NH, HD),
+                      "QKV_EDGE_F32", smoke.sdpa_edge(*ea, NH, HD, sc),
+                      2.0 * B * ne * NH * R * R * (2 * HD + 32), ea[:2])
+        del rel, ea
         qg, rg = rn(B, G * G, 3 * NH * HD), rn(G * G, B, NH, 2 * G)
-        out.append(("flash_qkv_packed_global_f32", f"SAM ViT-H batch {B}",
-                    lambda a=(qg, rg): fa.flash_qkv_packed_global(*a, sel_g, sc, NH, HD, G, G)))
+        bias = torch.matmul(rg.permute(1, 2, 0, 3), sel_g)
+        yield F32Case("flash_qkv_packed_global_f32", f"SAM ViT-H batch {B}",
+                      lambda a=(qg, rg): fa.flash_qkv_packed_global(*a, sel_g, sc, NH, HD, G, G),
+                      lambda a=(qg, rg): fa.flash_qkv_packed_global_ref(*a, sel_g, sc, NH, HD),
+                      "QKV_GLOBAL_F32", sdpa(*packed_heads(qg, NH, HD), bias),
+                      4.0 * B * NH * (G * G) ** 2 * HD, (qg, rg))
+        del qg, rg, bias
+    for B in (1, 2):  # #20 at 'aug_flash'
+        BB, N, dqk, dv = B * NH, G * G, 208, 80
+        q, k, v = rn(BB, N, dqk, std=dqk ** -0.5), rn(BB, N, dqk), rn(BB, N, dv)
+        yield F32Case("flash_attention_fullk_f32", f"ViT-H aug_flash batch {B}, {BB}x{N}x208/80",
+                      lambda a=(q, k, v): fa.flash_attention_fullk(*a),
+                      lambda a=(q, k, v): fa.flash_attention_fullk_ref(*a), "ATTN_FULLK_F32",
+                      lambda a=(q, k, v): F.scaled_dot_product_attention(*a, scale=1.0),
+                      2.0 * BB * N * N * (dqk + dv), (q, k, v))
+        del q, k, v
+    for B in (1, 2):  # #12 at window 16: 16 windows of 256 tokens, rel window-major
+        nwin, win = 16, 16
+        Nw = win * win
+        qkv, rel = rn(B, nwin, Nw, 3 * NH * HD), rn(B, nwin, Nw, NH * 32)
+        s32 = fa.make_rel_scatter32(win, f32, dev)
+        q, k, v = packed_heads(qkv, NH, HD)  # (B, nwin, NH, Nw, HD)
+        bias = torch.matmul(rel.reshape(B, nwin, Nw, NH, 32).transpose(2, 3), s32)
+        yield F32Case("flash_qkv_packed_windows_f32", f"ViT-H window 16 batch {B}",
+                      lambda a=(qkv, rel, s32): fa.flash_qkv_packed_windows(*a, sc, NH, HD),
+                      lambda a=(qkv, rel, s32): fa.flash_qkv_packed_windows_ref(*a, sc, NH, HD),
+                      "QKV_WINDOWS_PADDED_F32", sdpa(q, k, v, bias),
+                      4.0 * B * nwin * NH * Nw * Nw * HD, (qkv, rel))
+        del qkv, rel, q, k, v, bias
+    # #11 at window 17 (batch 1 and 2), #19 on the 64 x 64 grid (its check's, batch 2)
+    for name, kernel, site, lead, H in (
+            ("flash_qkv_relpos_windows", "QKV_RELPOS_WINDOWS_F32", "ViT-H window 17 batch 1",
+             (1, 16), 17),
+            ("flash_qkv_relpos_windows", "QKV_RELPOS_WINDOWS_F32", "ViT-H window 17 batch 2",
+             (2, 16), 17),
+            ("flash_qkv_relpos_global", "QKV_RELPOS_GLOBAL_F32", "grid 64 batch 2 (no path)",
+             (2,), 64)):
+        N = H * H
+        qkv5, rel5 = rn(*lead, N, 3 * NH, HD), rn(*lead, N, NH, 2 * H)
+        sel = fa.make_rel_scatter(H, H, f32, dev)
+        q, k, v = (qkv5[..., i * NH:(i + 1) * NH, :].movedim(-2, 1) for i in range(3))
+        bias = torch.matmul(rel5.movedim(-2, 1), sel)  # (B, NH, [nwin,] N, N)
+        wrapper, plain = getattr(fa, name), getattr(fa, name + "_ref")
+        yield F32Case(name + "_f32", site,
+                      lambda w=wrapper, a=(qkv5, rel5, sel), H=H: w(*a, sc, H, H),
+                      lambda p=plain, a=(qkv5, rel5, sel): p(*a, sc), kernel,
+                      sdpa(q, k, v, bias), 4.0 * qkv5.shape[:-3].numel() * NH * N * N * HD,
+                      (qkv5, rel5))
+        del qkv5, rel5, q, k, v, bias
+    for B in (1, 2):  # #10 at SAM ViT-B's windows and global blocks (12 heads x 64)
+        for label, BB, H in (("ViT-B windows", B * 25 * 12, 14), ("ViT-B global", B * 12, 64)):
+            N, dh = H * H, 64
+            q, k, v = rn(BB, N, dh, std=dh ** -0.5), rn(BB, N, dh), rn(BB, N, dh)
+            rel, sel = rn(BB, N, 2 * H), fa.make_rel_scatter(H, H, f32, dev)
+            bias = torch.matmul(rel, sel)
+            a = (q, k, v, rel, sel)
+            yield F32Case("flash_attention_relpos_f32", f"{label} batch {B}, {BB}x{N}x{dh}",
+                          lambda a=a, H=H: fa.flash_attention_relpos(*a, H, H),
+                          lambda a=a: fa.xla_attention_relpos(*a), "ATTN_RELPOS_F32",
+                          lambda a=a, b=bias: F.scaled_dot_product_attention(
+                              *a[:3], attn_mask=b, scale=1.0),
+                          4.0 * BB * N * N * dh, (q, k, v, rel))
+            del q, k, v, rel, bias, a
     B = 2
     qw, rw, gw = rn(B * nf, WIN * WIN, 3 * NH * HD), rn(WIN * WIN, B * nf, NH * 32), \
         rn(B * nf, NH * HD, WIN * WIN)
@@ -460,25 +575,35 @@ def f32_attention_cases(rn):
     # output o: the fp32 forward kernel's, made outside the timed call
     bwd_o = "o" in inspect.signature(fa.flash_qkv_packed_global_bwd).parameters
     kw = {"o": fa.flash_qkv_packed_windows_s(qw, rw, sel32, sc, NH, HD)} if bwd_o else {}
-    out.append(("flash_qkv_packed_windows_s_bwd_f32", "SAM ViT-H batch 2",
-                lambda: fa.flash_qkv_packed_windows_s_bwd(qw, rw, sel32, gw, sc, NH, HD, **kw)))
+    yield F32Case("flash_qkv_packed_windows_s_bwd_f32", "SAM ViT-H batch 2",
+                  lambda: fa.flash_qkv_packed_windows_s_bwd(qw, rw, sel32, gw, sc, NH, HD, **kw),
+                  None)
+    del qw, rw, gw, kw
     qg, rg, gg = rn(B, G * G, 3 * NH * HD), rn(G * G, B, NH, 2 * G), rn(B, NH * HD, G * G)
     kg = {"o": fa.flash_qkv_packed_global(qg, rg, sel_g, sc, NH, HD, G, G)} if bwd_o else {}
-    out.append(("flash_qkv_packed_global_bwd_f32", "SAM ViT-H batch 2",
-                lambda: fa.flash_qkv_packed_global_bwd(qg, rg, sel_g, gg, sc, NH, HD, G, G, **kg)))
-    return out
+    yield F32Case("flash_qkv_packed_global_bwd_f32", "SAM ViT-H batch 2",
+                  lambda: fa.flash_qkv_packed_global_bwd(qg, rg, sel_g, gg, sc, NH, HD, G, G,
+                                                         **kg), None)
 
 
-def f32_attention(smoke, label, against):
+def f32_attention(smoke, label, against, tiles):
     """One JSON line per `f32_attention_cases` case: the SHA-256 of its
-    outputs' bytes and its idle-card median time (`chip_smoke.time_ms`),
-    for the backwards also each of their kernels' device ms a call
-    (`kernel_device_ms`);
-    with `against` (a JSONL file of another checkout's lines), whether the
-    outputs are bit-equal to that checkout's."""
+    outputs' bytes, its idle-card median and queued times
+    (`chip_smoke.time_ms`); for a forward also its error against the plain
+    version, the host's microseconds a call through the wrapper and through
+    its CudaKernel alone (`entry_replay`), the library call's times, its
+    bound against the fp32 CUDA-core peak and, on a checkout with the loop's
+    tile plan (`ops/flash_attention.py f32_attn_plan`), the tile the call
+    took, with `tiles` the queued time at each tile of F32_ATTN_TILES forced
+    (those the instance cannot take: null); for the backwards each of their
+    kernels' device ms a call (`kernel_device_ms`); with `against` (a JSONL
+    file of another checkout's lines), whether the outputs are bit-equal to
+    that checkout's."""
     import hashlib
 
     import torch
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
 
     other = {}
     if against:
@@ -492,22 +617,50 @@ def f32_attention(smoke, label, against):
     def rn(*shape, std=1.0):
         return torch.randn(*shape, generator=g, device="cuda") * std
 
+    planned = hasattr(fa, "f32_attn_plan")
+    picks = []
+    if planned:
+        plan = fa.f32_attn_plan
+        fa.f32_attn_plan = lambda *a, **k: picks.append(plan(*a, **k)) or picks[-1]
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.no_grad():
-        for name, site, call in f32_attention_cases(rn):
-            got = call()
+        for c in f32_attention_cases(rn):
+            picks.clear()
+            got = c.call()
             torch.cuda.synchronize()
             h = hashlib.sha256()
             for t in (got if isinstance(got, tuple) else (got,)):
                 h.update(t.contiguous().cpu().numpy().tobytes())
-            rec = dict(label=label, name=name, site=site, sha256=h.hexdigest(),
-                       ms=smoke.time_ms(call))
-            if name.endswith("_bwd_f32"):  # the backward's launches, each kernel's device ms
-                rec["device_ms"] = kernel_device_ms(call)
+            rec = dict(label=label, name=c.name, site=c.site, sha256=h.hexdigest())
+            if c.kernel:
+                rec.update(shape=list(got.shape), **smoke.errors(got, c.plain()),
+                           **smoke.bound(c.flops, smoke.nbytes(*c.reads, got),
+                                         smoke.PEAK_F32_FLOPS))
+                if planned:
+                    rec["tile"] = [list(fa.F32_ATTN_TILES[t]) for t in picks]
+            rec.update(ms=smoke.time_ms(c.call), queued_ms=smoke.time_ms(c.call, queued=True))
+            if c.kernel:
+                _, replay = entry_replay(getattr(_cuda, c.kernel), c.call)
+                rec.update(host_us=smoke.host_us(c.call), host_us_entry=smoke.host_us(replay()),
+                           library_ms=smoke.time_ms(c.library),
+                           library_queued_ms=smoke.time_ms(c.library, queued=True))
+                if planned and tiles:
+                    rec["tiles_queued_ms"] = {}
+                    for t in fa.F32_ATTN_TILES:
+                        fa.F32_ATTN_TILE_FORCE = t
+                        try:
+                            ms = smoke.time_ms(c.call, queued=True)
+                        except ValueError:  # a tile this instance does not take
+                            ms = None
+                        rec["tiles_queued_ms"][f"{t[0]}x{t[1]}"] = ms
+                    fa.F32_ATTN_TILE_FORCE = None
+            else:  # the backward's launches, each kernel's device ms
+                rec["device_ms"] = kernel_device_ms(c.call)
             if against:
-                rec["bit_equal_to"] = {against: other.get((name, site)) == rec["sha256"]}
+                rec["bit_equal_to"] = {against: other.get((c.name, c.site)) == rec["sha256"]}
             print(json.dumps(rec), flush=True)
-            del got
+            del got, c
+            torch.cuda.empty_cache()
 
 
 def f32_gemm_cases(smoke, rn):
@@ -655,7 +808,7 @@ def main() -> None:
     ap.add_argument("--f32-gemm", action="store_true",
                     help="hash and time the users of csrc/sgemm_f32.cuh instead")
     ap.add_argument("--tiles", action="store_true",
-                    help="with --f32-gemm: also time each fp32 GEMM tile, forced")
+                    help="with --f32-gemm or --f32-attention: also time each fp32 tile, forced")
     ap.add_argument("--against", default=None,
                     help="with --f32-attention or --f32-gemm: another checkout's JSON lines to "
                     "compare with")
@@ -683,7 +836,7 @@ def main() -> None:
         padded_calls(smoke, label)
         return
     if args.f32_attention:
-        f32_attention(smoke, label, args.against)
+        f32_attention(smoke, label, args.against, args.tiles)
         return
     if args.f32_gemm:
         f32_gemm(smoke, label, args.against, args.tiles)

@@ -17,22 +17,22 @@
 // (0.090 ms at 3.35 TB/s).
 //
 // Design: attn_f32.cuh's flash loop with no bias (BIAS_NONE), the score
-// product over DQK = d_qk columns and P . V over DV = dv: the 64-query q'
-// tile and each 64-key k' tile transposed in shared memory (DQK rows each),
-// v's tile as rows of DV; the output staged in shared memory and stored
-// along dv. Dynamic shared memory at 208 / 80: 2 x 208 x 68 + 64 x 80 + 64 x
-// 68 floats = 151,040 B, one block an SM (cvlm_attn_fullk_f32_smem reports
-// it).
+// product over DQK = d_qk columns and P . V over DV = dv, rows out. At 208
+// the plan's tile is 128 q' rows (8 warps) with k' streamed through a
+// 3-stage ring of 32-deep stages (7 steps a key tile, the last 16 deep):
+// 128 x 208 + 3 x 64 x 32 + 2 x 64 x 80 + 128 x 64 floats = 204,800 B, one
+// block an SM (cvlm_attn_f32_smem reports every instance's).
 #include "attn_f32.cuh"
 
 using namespace cvlm::f32attn;
 
 // q', k' (P, S, dqk), v (P, S, dv), out (P, S, dv) at the element strides of
 // `layout` (attn_f32.cuh AttnArgs; ops/flash_attention.py f32_split_layout):
-// fp32; (dqk, dv) = (208, 80) or (128, 64). Returns a cudaError_t code.
+// fp32; (dqk, dv) = (208, 80) or (128, 64); `tile` the loop's. Returns a
+// cudaError_t code.
 extern "C" int cvlm_attn_fullk_f32(const void* q, const void* k, const void* v, void* out,
                                    const long long* layout, int P, int S, int dqk, int dv,
-                                   void* stream) {
+                                   int tile, void* stream) {
   AttnArgs a{};
   set_layout(a, layout);
   a.q = static_cast<const float*>(q);
@@ -43,15 +43,14 @@ extern "C" int cvlm_attn_fullk_f32(const void* q, const void* k, const void* v, 
   a.heads = 1;
   a.scale = 1.0f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dqk == 208 && dv == 80) return launch_attn<208, 80, BIAS_NONE, OUT_ROWS>(a, P, st);
-  if (dqk == 128 && dv == 64) return launch_attn<128, 64, BIAS_NONE, OUT_ROWS>(a, P, st);
+  if (dqk == 208 && dv == 80) return launch_attn<208, 80, BIAS_NONE, OUT_ROWS>(a, P, tile, st);
+  if (dqk == 128 && dv == 64) return launch_attn<128, 64, BIAS_NONE, OUT_ROWS>(a, P, tile, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The dynamic shared memory (bytes) of a block at (dqk, dv), -1 where no
-// instance takes them.
-extern "C" long long cvlm_attn_fullk_f32_smem(int dqk, int dv) {
-  if (dqk == 208 && dv == 80) return (long long)attn_smem<208, 80, BIAS_NONE>(0);
-  if (dqk == 128 && dv == 64) return (long long)attn_smem<128, 64, BIAS_NONE>(0);
-  return -1;
+// The dynamic shared memory (bytes) of a block of attn_f32.cuh's loop at
+// (dqk, dv), bias mode (0 none, 1 separable, 2 edge), tile and rel lanes,
+// as the launches size it; -1 where no tile or depth takes them.
+extern "C" long long cvlm_attn_f32_smem(int dqk, int dv, int bias, int tile, int lanes) {
+  return smem_bytes(dqk, dv, bias, tile, lanes);
 }

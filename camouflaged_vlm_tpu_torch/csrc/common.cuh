@@ -76,6 +76,53 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// ---------------------------------------- cp.async and the chunk swizzle
+// (the float32 products of sgemm_f32.cuh and the flash loop of attn_f32.cuh)
+
+// one 16-byte copy global -> shared, `bytes` (0 or 16; a partial chunk 4, 8
+// or 12) read from src and the rest zero-filled
+__device__ __forceinline__ void cp16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// one 4-byte copy (bytes 0: a zero)
+__device__ __forceinline__ void cp4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's newest copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The place of 16-byte chunk c in row r of a row-major shared tile of CPR
+// chunks a row (rows copied as they lie, read along the row, 16 bytes a
+// read): an XOR swizzle within each aligned group of chunks, so that the 8
+// rows a phase of 8 lanes reads, rows 1 << SHIFT apart, fall on 8 different
+// bank groups. CPR % 8 == 0: a row starts on the same bank group as the
+// last, c ^ ((r >> SHIFT) & 7); CPR % 8 == 4: on the other half, the low two
+// bits of c ^ ((r >> (SHIFT + 1)) & 3) (groups of 4 chunks, so a row of 20
+// or 52 chunks keeps its chunks).
+template <int CPR, int SHIFT = 0>
+__device__ __forceinline__ int swizzle_chunk(int c, int r) {
+  static_assert(CPR % 4 == 0, "rows of whole groups of 4 chunks");
+  if constexpr (CPR % 8 == 0)
+    return c ^ ((r >> SHIFT) & 7);
+  else
+    return c ^ ((r >> (SHIFT + 1)) & 3);
+}
+
 // Two-pass LayerNorm statistics of one row, computed by a whole warp:
 // mean, then the mean of squared deviations (the JAX formulation).
 __device__ __forceinline__ void row_stats(const bf16* __restrict__ row, int K,

@@ -16,11 +16,12 @@
 // (0.035 ms at 3.35 TB/s).
 //
 // Design: attn_f32.cuh's flash loop with the separable bias (BIAS_SEP): keys
-// streamed in 64-key tiles with the online softmax, the 64-query tile's H +
-// W rel lanes held in shared memory (64 (H + W) floats: 32 KB at H + W =
-// 128) and each score's two lanes gathered from there. The shared memory
-// bounds H + W: at most MAX_LANES, so that the largest block (d = 80: 80 KB
-// of tiles beside the rel rows) stays within the 227 KB a block can have.
+// streamed in 64-key tiles with the online softmax, the query tile's H + W
+// rel lanes held in shared memory (128 (H + W) floats at 128 rows: 64 KB at
+// H + W = 128, 221,184 B a block) and each score's two lanes gathered from
+// there. The shared memory bounds H + W: at most MAX_LANES, which the
+// smallest tile (64 rows, 32-deep k stages: 92 KB beside the rel rows at d
+// = 80) holds within the 227 KB a block can have.
 #include "attn_f32.cuh"
 
 namespace {
@@ -29,10 +30,10 @@ constexpr int MAX_LANES = 512;  // ops/flash_attention.py F32_GLOBAL_MAX_LANES
 
 // qkv (B, N, 3*heads*d), rel (N, B, heads, H+W), out (B, heads*d, N) with
 // row stride ldo >= N: fp32; N = H * W, H + W <= 512, d in {64, 80}.
-// Returns a cudaError_t code.
+// `tile` the loop's. Returns a cudaError_t code.
 extern "C" int cvlm_qkv_packed_global_f32(const void* qkv, const void* rel, void* out, int B,
                                           int N, int ldo, int H, int W, int heads, int d,
-                                          float scale, void* stream) {
+                                          float scale, int tile, void* stream) {
   using namespace cvlm::f32attn;
   if (H < 1 || W < 1 || H * W != N || H + W > MAX_LANES) return (int)cudaErrorInvalidValue;
   AttnArgs a{};
@@ -47,5 +48,5 @@ extern "C" int cvlm_qkv_packed_global_f32(const void* qkv, const void* rel, void
   a.rq = (long long)B * a.rp;
   a.H = H;
   a.W = W;
-  return dispatch_attn<BIAS_SEP>(a, d, B, static_cast<cudaStream_t>(stream));
+  return dispatch_attn<BIAS_SEP>(a, d, B, tile, static_cast<cudaStream_t>(stream));
 }

@@ -30,17 +30,17 @@
 // 3.35 TB/s.
 //
 // Design: attn_f32.cuh's flash loop with the separable bias (BIAS_SEP), the
-// 64-query tile's H + W rel lanes (34 at window 17: head h 8 bytes off a
+// query tile's H + W rel lanes (34 at window 17: head h 8 bytes off a
 // 16-byte boundary, so read one float at a time) in shared memory, each
 // score's two lanes gathered from there; 64-key tiles with the online
 // softmax (289 = 4 x 64 + 33 and 196 = 3 x 64 + 4: the ragged last tile's
 // keys masked to -inf). The three front ends differ only in the strides the
 // wrapper hands in (`layout`, ops/flash_attention.py f32_split_layout and
 // f32_packed_layout): split rows with one head a problem, or the packed
-// qkv rows with the (batch, window) pairs as problems; the output is staged
-// in shared memory and stored along d. Dynamic shared memory at d = 80: 80
-// KB of tiles, plus 64 (H + W) floats of rel rows (8.5 KB at window 17, 32
-// KB at H + W = 128).
+// qkv rows with the (batch, window) pairs as problems; the output is stored
+// from the registers in rows. Dynamic shared memory at d = 80, 128 query
+// rows: 152 KB of tiles, plus 128 (H + W) floats of rel rows (17 KB at
+// window 17, 64 KB at H + W = 128).
 #include "attn_f32.cuh"
 
 namespace {
@@ -49,11 +49,12 @@ constexpr int MAX_LANES = 512;  // ops/flash_attention.py F32_GLOBAL_MAX_LANES
 
 // q, k, v (P problems of heads heads, S = H * W tokens, d), rel (P, S,
 // heads, H + W) or its strides, out in rows, at the element strides of
-// `layout` (attn_f32.cuh AttnArgs): fp32; H + W <= 512, d in {64, 80}.
-// Returns a cudaError_t code.
+// `layout` (attn_f32.cuh AttnArgs): fp32; H + W <= 512, d in {64, 80};
+// `tile` the loop's. Returns a cudaError_t code.
 extern "C" int cvlm_attn_relpos_f32(const void* q, const void* k, const void* v,
                                     const void* rel, void* out, const long long* layout, int P,
-                                    int heads, int H, int W, int d, float scale, void* stream) {
+                                    int heads, int H, int W, int d, float scale, int tile,
+                                    void* stream) {
   using namespace cvlm::f32attn;
   if (H < 1 || W < 1 || H + W > MAX_LANES) return (int)cudaErrorInvalidValue;
   AttnArgs a{};
@@ -68,5 +69,5 @@ extern "C" int cvlm_attn_relpos_f32(const void* q, const void* k, const void* v,
   a.rel = static_cast<const float*>(rel);
   a.H = H;
   a.W = W;
-  return dispatch_attn<BIAS_SEP, OUT_ROWS>(a, d, P, static_cast<cudaStream_t>(stream));
+  return dispatch_attn<BIAS_SEP, OUT_ROWS>(a, d, P, tile, static_cast<cudaStream_t>(stream));
 }

@@ -35,8 +35,9 @@
 // and 0.12 more for its bias, the depth-32 product rel @ sel; #12 at window
 // 16: 4 B nwin heads 256^2 80 = 5.4 GFLOP an image, 0.080 ms.
 //
-// Design: attn_f32.cuh's flash loop, 64 x 64 tiles (win 14: 4 query and 4
-// key tiles over 196, the last ragged). #13 takes the separable bias
+// Design: attn_f32.cuh's flash loop at the plan's tile, 64-key tiles (win
+// 14: 196 = 3 x 64 + 4 keys, the last tile ragged; 128 or 64 query rows a
+// block). #13 takes the separable bias
 // (BIAS_SEP, H = W = win): each query tile's 2 win rel lanes in shared
 // memory, each score's two lanes gathered from there. #15 (BIAS_EDGE)
 // extends the score product by the 32 rel lanes of the query against the
@@ -45,16 +46,16 @@
 // (m = its logit, l = 1, o = vb), as the JAX ref takes it into the max
 // before any exp. #12 is #13's instance with rel's window-major strides and
 // the loop's strides handed in by the wrapper (`layout`). Dynamic shared
-// memory at d = 80: 88,576 B (#13 at win 14), 89,600 B (#12 at win 16) and
-// 98,816 B (#15).
+// memory at d = 80 (attn_f32.cuh's table): 169,984 B (#13 at win 14, 128 rows)
+// and 188,416 B (#15, 128 rows), less at 64 rows.
 #include "attn_f32.cuh"
 
 // qkv (BW, win^2, 3*heads*d), rel (win^2, BW, heads*32) position-major, out
 // (BW, heads*d, win^2) with row stride ldo: fp32; 2 win <= 32, d in {64,
-// 80}. Returns a cudaError_t code.
+// 80}; `tile` the loop's. Returns a cudaError_t code.
 extern "C" int cvlm_qkv_packed_windows_s_f32(const void* qkv, const void* rel, void* out, int BW,
                                              int win, int heads, int d, float scale, int ldo,
-                                             void* stream) {
+                                             int tile, void* stream) {
   using namespace cvlm::f32attn;
   if (win < 1 || 2 * win > EDGE_LANES) return (int)cudaErrorInvalidValue;
   AttnArgs a{};
@@ -68,16 +69,17 @@ extern "C" int cvlm_qkv_packed_windows_s_f32(const void* qkv, const void* rel, v
   a.rp = (long long)heads * EDGE_LANES;
   a.rq = (long long)BW * a.rp;
   a.H = a.W = win;
-  return dispatch_attn<BIAS_SEP>(a, d, BW, static_cast<cudaStream_t>(stream));
+  return dispatch_attn<BIAS_SEP>(a, d, BW, tile, static_cast<cudaStream_t>(stream));
 }
 
 // qkv (B, n, R, 3*heads*d), rel (B, n, R, heads*32) window-major, sel (n,
 // 32, R), vb (heads, d), kmask (n, 1, R), out (B, n, heads*d, R) with row
-// stride ldo >= R: fp32; d in {64, 80}, any R. Returns a cudaError_t code.
+// stride ldo >= R: fp32; d in {64, 80}, any R; `tile` the loop's. Returns a
+// cudaError_t code.
 extern "C" int cvlm_qkv_packed_edge_f32(const void* qkv, const void* rel, const void* sel,
                                         const void* vb, const void* kmask, void* out, int B,
                                         int n, int R, int heads, int d, float scale, int ldo,
-                                        void* stream) {
+                                        int tile, void* stream) {
   using namespace cvlm::f32attn;
   if (n < 1) return (int)cudaErrorInvalidValue;
   AttnArgs a{};
@@ -94,17 +96,17 @@ extern "C" int cvlm_qkv_packed_edge_f32(const void* qkv, const void* rel, const 
   a.kmask = static_cast<const float*>(kmask);
   a.vb = static_cast<const float*>(vb);
   a.n = n;
-  return dispatch_attn<BIAS_EDGE>(a, d, B * n, static_cast<cudaStream_t>(stream));
+  return dispatch_attn<BIAS_EDGE>(a, d, B * n, tile, static_cast<cudaStream_t>(stream));
 }
 
 // q, k, v (P problems of heads heads, win^2 tokens, d), rel (win^2 lanes of
 // 32 a head, window-major), out d-major, at the element strides of `layout`
 // (attn_f32.cuh AttnArgs; ops/flash_attention.py f32_packed_layout): fp32;
-// 2 win <= 32, d in {64, 80}. Returns a cudaError_t code.
+// 2 win <= 32, d in {64, 80}; `tile` the loop's. Returns a cudaError_t code.
 extern "C" int cvlm_qkv_packed_windows_f32(const void* q, const void* k, const void* v,
                                            const void* rel, void* out, const long long* layout,
                                            int P, int heads, int win, int d, float scale,
-                                           void* stream) {
+                                           int tile, void* stream) {
   using namespace cvlm::f32attn;
   if (win < 1 || 2 * win > EDGE_LANES) return (int)cudaErrorInvalidValue;
   AttnArgs a{};
@@ -118,5 +120,5 @@ extern "C" int cvlm_qkv_packed_windows_f32(const void* q, const void* k, const v
   a.scale = scale;
   a.rel = static_cast<const float*>(rel);
   a.H = a.W = win;
-  return dispatch_attn<BIAS_SEP>(a, d, P, static_cast<cudaStream_t>(stream));
+  return dispatch_attn<BIAS_SEP>(a, d, P, tile, static_cast<cudaStream_t>(stream));
 }

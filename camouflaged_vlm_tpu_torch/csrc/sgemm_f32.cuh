@@ -173,23 +173,9 @@ inline int launch_ln_bwd_rows(const float* x, const float* g, const float* gamma
 //   MN_MAJOR: [k][ROWS], as the operand lies.
 // Each 16-byte chunk is copied by its own cp.async (its own address: a
 // K_HEADS tile straddles heads, d = 80 being 2.5 k tiles), the bytes past the
-// operand's last row or column zero-filled by the copy's source size.
-
-__device__ __forceinline__ void cp16(float* dst, const float* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// operand's last row or column zero-filled by the copy's source size
+// (common.cuh cp16; swizzle_chunk<BK / 4, 2>: rows 4 apart on different bank
+// groups).
 
 // Queue the copies of one operand's k tile [k0, k0 + BK) of rows [r0, r0 +
 // ROWS) into stage S, by the block's T threads. R rows in the operand (per
@@ -219,7 +205,7 @@ __device__ __forceinline__ void load_tile(float* S, const float* __restrict__ P,
     for (int i = 0; i < ROWS * KC / T; ++i) {
       const int r = tid / KC + i * (T / KC), m = r0 + r;
       const bool in = m < R && kk < K;
-      cp16(S + r * BK + ((c ^ ((r >> 2) & 7)) << 2), in ? P + (size_t)m * ld + co : P,
+      cp16(S + r * BK + 4 * swizzle_chunk<BK / 4, 2>(c, r), in ? P + (size_t)m * ld + co : P,
            in ? 16 : 0);
     }
   }
@@ -244,7 +230,7 @@ __device__ __forceinline__ void load_frag(float (&f)[8][4], const float* S, int 
       }
   } else {
     // (row >> 2) & 7 == t & 7 for every row of the thread (ROWS / 8 is 8 or 16)
-    const int pos = (c ^ (t & 7)) << 2;
+    const int pos = 4 * swizzle_chunk<BK / 4, 2>(c, 4 * t);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -389,7 +375,7 @@ __global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS) sgemm_kernel(
             for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
         }
       } else {  // B's rows one at a time, along k
-        const int pos = (c ^ (tx & 7)) << 2;
+        const int pos = 4 * swizzle_chunk<BK / 4, 2>(c, 4 * tx);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float4 v = *reinterpret_cast<const float4*>(

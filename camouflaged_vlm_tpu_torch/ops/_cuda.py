@@ -15,6 +15,7 @@ main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -169,7 +170,7 @@ PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, L, L
 LN_LINEAR_F32 = CudaKernel("ln_linear_act_bt_f32", "cvlm_ln_linear_f32",
                            [P] * 8 + [I, I, I, F, I, I, I, I])
 QKV_PACKED_PLAIN_F32 = CudaKernel("flash_qkv_packed_plain_f32", "cvlm_qkv_packed_plain_f32",
-                                  [P, P, I, I, I, I, I, F])
+                                  [P, P, I, I, I, I, I, F, I])
 PROJ_ROWS_F32 = CudaKernel("proj_rows_f32", "cvlm_proj_rows_f32",
                            [P] * 6 + [I, I, L, L] + [I] * 6)
 LN_MLP_RESIDUAL_BWD_F32 = CudaKernel("ln_mlp_residual_bt_bwd_f32", "cvlm_ln_mlp_residual_bwd_f32",
@@ -179,16 +180,17 @@ LN_MLP_RESIDUAL_BWD_F32 = CudaKernel("ln_mlp_residual_bt_bwd_f32", "cvlm_ln_mlp_
 # LN1 + row mask + qkv of the global blocks (csrc/ln_linear_f32.cu), and the
 # interior windows, edge windows and global attention on the fp32 flash loop
 # of csrc/attn_f32.cuh (csrc/qkv_windows_f32.cu, csrc/qkv_packed_global_f32.cu);
-# each with its own count.
+# each with its own count. The loop's entries take the tile of
+# ops/flash_attention.py f32_attn_plan as their last int.
 LINEAR_ACT_F32 = CudaKernel("linear_act_f32", "cvlm_linear_f32", [P] * 5 + [I] * 7)
 LN_MASK_LINEAR_F32 = CudaKernel("ln_mask_linear_bt_f32", "cvlm_ln_mask_linear_f32",
                                 [P] * 9 + [I, I, I, I, I, F, I, I, I])
 QKV_WINDOWS_F32 = CudaKernel("flash_qkv_packed_windows_s_f32", "cvlm_qkv_packed_windows_s_f32",
-                             [P, P, P, I, I, I, I, F, I])
+                             [P, P, P, I, I, I, I, F, I, I])
 QKV_EDGE_F32 = CudaKernel("flash_qkv_packed_edge_f32", "cvlm_qkv_packed_edge_f32",
-                          [P, P, P, P, P, P, I, I, I, I, I, F, I])
+                          [P, P, P, P, P, P, I, I, I, I, I, F, I, I])
 QKV_GLOBAL_F32 = CudaKernel("flash_qkv_packed_global_f32", "cvlm_qkv_packed_global_f32",
-                            [P, P, P, I, I, I, I, I, I, I, F])
+                            [P, P, P, I, I, I, I, I, I, I, F, I])
 QKV_PACKED_PLAIN = CudaKernel(
     "flash_qkv_packed_plain", "cvlm_qkv_packed_plain", [P, P, I, I, I, I, I, F]
 )
@@ -259,7 +261,7 @@ PROJ_HEADS = CudaKernel("proj_from_heads", "cvlm_proj_from_heads", _PROJ_HEADS_A
 # the tiled FFMA product with a head-leading A for #8 and #9
 # (csrc/proj_rows_f32.cu, arguments from ops/linear.py
 # proj_heads_f32_layout). Each has its own count.
-_RELPOS_F32_ARGS = [P, P, P, P, P, P, I, I, I, I, I, F]
+_RELPOS_F32_ARGS = [P, P, P, P, P, P, I, I, I, I, I, F, I]
 ATTN_RELPOS_F32 = CudaKernel("flash_attention_relpos_f32", "cvlm_attn_relpos_f32",
                              _RELPOS_F32_ARGS)
 QKV_RELPOS_WINDOWS_F32 = CudaKernel("flash_qkv_relpos_windows_f32", "cvlm_attn_relpos_f32",
@@ -267,9 +269,9 @@ QKV_RELPOS_WINDOWS_F32 = CudaKernel("flash_qkv_relpos_windows_f32", "cvlm_attn_r
 QKV_RELPOS_GLOBAL_F32 = CudaKernel("flash_qkv_relpos_global_f32", "cvlm_attn_relpos_f32",
                                    _RELPOS_F32_ARGS)
 QKV_WINDOWS_PADDED_F32 = CudaKernel("flash_qkv_packed_windows_f32", "cvlm_qkv_packed_windows_f32",
-                                    [P, P, P, P, P, P, I, I, I, I, F])
+                                    [P, P, P, P, P, P, I, I, I, I, F, I])
 ATTN_FULLK_F32 = CudaKernel("flash_attention_fullk_f32", "cvlm_attn_fullk_f32",
-                            [P, P, P, P, P, I, I, I, I])
+                            [P, P, P, P, P, I, I, I, I, I])
 _PROJ_HEADS_F32_ARGS = [P] * 6 + [I, I, I, L, I, I, I, I, I]
 PROJ_HEADS_RES_F32 = CudaKernel("proj_from_heads_res_f32", "cvlm_proj_from_heads_f32",
                                 _PROJ_HEADS_F32_ARGS)
@@ -286,10 +288,12 @@ KERNELS = (LINEAR_ACT, LN_LINEAR, LN_MASK_LINEAR, LN_MLP_RESIDUAL, PROJ_ROWS,
            ATTN_FULLK_F32, PROJ_HEADS_RES_F32, PROJ_HEADS_F32)
 
 
-def layouts(values) -> ctypes.Array:
+@functools.lru_cache(maxsize=256)
+def layouts(values: tuple) -> ctypes.Array:
     """A strided entry's layout argument: the element strides as a C array
     of long long (read by the C entry at launch, so a captured graph keeps
-    the values, not the array)."""
+    the values, not the array), one array per distinct layout (the C side
+    only reads it)."""
     return (ctypes.c_longlong * len(values))(*values)
 
 
@@ -394,15 +398,18 @@ def attn_relpos_smem(H: int, W: int, d: int) -> dict:
             "smem": out[3]}
 
 
-def attn_fullk_f32_smem(dqk: int, dv: int) -> int:
-    """The dynamic shared memory (bytes) a block of the fp32 #20
-    (`cvlm_attn_fullk_f32`) takes at (dqk, dv), from the library itself."""
-    fn = library().cvlm_attn_fullk_f32_smem
-    fn.argtypes = [I, I]
+def attn_f32_smem(dqk: int, dv: int, bias: str, tile: int, lanes: int = 0) -> int:
+    """The dynamic shared memory (bytes) a block of csrc/attn_f32.cuh's loop
+    takes at (dqk, dv), bias ("none", "sep", "edge"), tile (an index into
+    ops/flash_attention.py F32_ATTN_TILES) and rel lanes, from the library
+    itself (`cvlm_attn_f32_smem`, as the launches size it)."""
+    fn = library().cvlm_attn_f32_smem
+    fn.argtypes = [I, I, I, I, I]
     fn.restype = ctypes.c_longlong
-    smem = fn(dqk, dv)
+    smem = fn(dqk, dv, {"none": 0, "sep": 1, "edge": 2}[bias], tile, lanes)
     if smem < 0:
-        raise ValueError(f"cvlm_attn_fullk_f32_smem: no instance at d_qk={dqk}, dv={dv}")
+        raise ValueError(f"cvlm_attn_f32_smem: no instance at d_qk={dqk}, dv={dv}, {bias}, "
+                         f"tile {tile}")
     return smem
 
 

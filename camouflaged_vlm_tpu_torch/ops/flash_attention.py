@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -157,6 +158,127 @@ def _check_f32_attention(name: str, d: int, problems: int, heads: int) -> None:
                          f"{problems * heads}")
 
 
+# The block tiles of the fp32 flash loop (csrc/attn_f32.cuh ATile), in the
+# order of its C entries' `tile` argument: (query rows a block, 16 a warp;
+# columns of a k stage, 0 the whole depth), and each one's k stages in the
+# cp.async ring. 64-key tiles, two v buffers.
+F32_ATTN_TILES = ((128, 0), (128, 32), (64, 32))
+F32_ATTN_STAGES = (2, 3, 2)
+F32_ATTN_KEYS, F32_ATTN_VBUF, F32_ATTN_EDGE_LANES = 64, 2, 32
+# the H100's shared memory: 227 KB a block, 228 KB an SM with 1 KB of it
+# reserved a block; its 65536 registers an SM and the registers a thread of
+# the loop takes (ptxas: the most of any instance, of 158-254), which
+# bound the blocks an SM holds
+F32_ATTN_MAX_SMEM, F32_ATTN_SM_SMEM, F32_ATTN_SM_REGS = 232448, 233472, 65536
+F32_ATTN_REGS = 254
+# An SM's rate at each tile relative to tile 0 when full, and the warps an
+# SM needs for its full rate (fewer run at that share)
+F32_ATTN_TILE_RATE = (1.0, 0.95, 0.95)
+F32_ATTN_FULL_WARPS = 8
+# tests: one of F32_ATTN_TILES to take at every shape instead of the plan's
+F32_ATTN_TILE_FORCE: Optional[tuple] = None
+
+
+def f32_attn_smem(dqk: int, dv: int, bias: str, tile: int, lanes: int = 0) -> int:
+    """The dynamic shared memory (bytes) of a block of the fp32 loop at tile
+    `tile` (csrc/attn_f32.cuh attn_smem): the q tile (QT rows of the depth
+    DA: dqk, + 32 rel lanes for the edge bias), the ring's k stages, two v
+    buffers, each warp's P and, for the separable bias, the tile's rel rows;
+    -1 where the instance takes no such tile (the whole-depth stages beside
+    a 128-row tile only up to DA = 128)."""
+    qt, dc = F32_ATTN_TILES[tile]
+    da = dqk + (F32_ATTN_EDGE_LANES if bias == "edge" else 0)
+    if tile == 0 and da > 128:
+        return -1
+    kd = dc or da
+    return 4 * (qt * da + F32_ATTN_STAGES[tile] * F32_ATTN_KEYS * kd
+                + F32_ATTN_VBUF * F32_ATTN_KEYS * dv + qt * F32_ATTN_KEYS
+                + (qt * lanes if bias == "sep" else 0))
+
+
+def f32_attn_blocks_per_sm(dqk: int, dv: int, bias: str, tile: int, lanes: int = 0) -> int:
+    """Blocks of the tile an SM holds at once (0: it does not fit): its
+    shared memory and F32_ATTN_REGS registers a thread."""
+    smem = f32_attn_smem(dqk, dv, bias, tile, lanes)
+    if smem < 0 or smem > F32_ATTN_MAX_SMEM:
+        return 0
+    threads = 2 * F32_ATTN_TILES[tile][0]
+    return min(F32_ATTN_SM_SMEM // (smem + 1024), F32_ATTN_SM_REGS // (threads * F32_ATTN_REGS))
+
+
+def f32_attn_plan(dqk: int, dv: int, bias: str, S: int, pairs: int, lanes: int,
+                  n_sm: int) -> int:
+    """The tile (index into F32_ATTN_TILES) of one launch of the fp32 loop
+    over `pairs` (problem, head) pairs of S tokens on a card of `n_sm` SMs:
+    of the tiles that fit, the one of the least modelled time. A block's
+    work is its QT rows against S's 64-key tiles over dqk (+ 32) + dv
+    columns; each SM runs rounds of `f32_attn_blocks_per_sm` blocks, at
+    F32_ATTN_TILE_RATE, slower while it holds fewer than F32_ATTN_FULL_WARPS
+    warps (a last round of few blocks; a 64-row tile one block an SM), so
+    that wave quantisation and the ragged last q tile count. The first on a
+    tie. F32_ATTN_TILE_FORCE overrides the pick (ValueError where that tile
+    does not fit)."""
+    force = tuple(F32_ATTN_TILE_FORCE) if F32_ATTN_TILE_FORCE else None
+    return _f32_attn_plan(dqk, dv, bias, S, pairs, lanes, n_sm, force)
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_attn_plan(dqk, dv, bias, S, pairs, lanes, n_sm, force) -> int:
+    da = dqk + (F32_ATTN_EDGE_LANES if bias == "edge" else 0)
+    keys = -(-S // F32_ATTN_KEYS) * F32_ATTN_KEYS
+    best = None
+    for t in ([F32_ATTN_TILES.index(force)] if force else range(len(F32_ATTN_TILES))):
+        bps = f32_attn_blocks_per_sm(dqk, dv, bias, t, lanes)
+        if not bps:
+            continue
+        qt = F32_ATTN_TILES[t][0]
+        warps, blocks = qt // 16, -(-S // qt) * pairs
+        block_s = qt * keys * (da + dv) / F32_ATTN_TILE_RATE[t]
+        full, rem = divmod(-(-blocks // n_sm), bps)
+
+        def rnd(n: int) -> float:
+            return n * block_s / min(1.0, n * warps / F32_ATTN_FULL_WARPS)
+
+        cost = full * rnd(bps) + (rnd(rem) if rem else 0.0)
+        if best is None or cost < best[0]:
+            best = (cost, t)
+    if best is None:
+        raise ValueError(f"fp32 attention: no tile of the loop fits d_qk={dqk}, dv={dv}, "
+                         f"bias={bias}, {lanes} rel lanes (tile {force})")
+    return best[1]
+
+
+def f32_attn_blocks(S: int, pairs: int, tile: int) -> list:
+    """(pair, first query, end query, warps that compute) of each block of a
+    launch at `tile`, in launch order (csrc/attn_f32.cuh: grid (query tiles,
+    pairs), x fastest): QT rows a block, the last cut at S; a warp's 16 rows
+    run the arithmetic only where its first row lies before S."""
+    qt = F32_ATTN_TILES[tile][0]
+    return [(p, q0, min(q0 + qt, S), sum(1 for w in range(qt // 16) if q0 + 16 * w < S))
+            for p in range(pairs) for q0 in range(0, S, qt)]
+
+
+def f32_attn_steps(S: int, dqk: int, bias: str, tile: int) -> list:
+    """The ring's steps of one block, in order (csrc/attn_f32.cuh `issue`):
+    (the key tile's first key, its end cut at S, the step's k columns [c0,
+    c1) of the depth DA, its k stage, the key tile's v buffer). A key tile
+    takes one step (whole-depth stages) or one per 32 columns, the last
+    ragged."""
+    dc, kst = F32_ATTN_TILES[tile][1], F32_ATTN_STAGES[tile]
+    da = dqk + (F32_ATTN_EDGE_LANES if bias == "edge" else 0)
+    kd = dc or da
+    nch = -(-da // kd)
+    return [(j0, min(j0 + F32_ATTN_KEYS, S), ch * kd, min(da, ch * kd + kd),
+             (j0 // F32_ATTN_KEYS * nch + ch) % kst, j0 // F32_ATTN_KEYS % F32_ATTN_VBUF)
+            for j0 in range(0, S, F32_ATTN_KEYS) for ch in range(nch)]
+
+
+def f32_attn_tile(qkv_or_q: torch.Tensor, dqk: int, dv: int, bias: str, S: int, pairs: int,
+                  lanes: int = 0) -> int:
+    """`f32_attn_plan` on the tensor's card."""
+    return f32_attn_plan(dqk, dv, bias, S, pairs, lanes, _cuda.sm_count(qkv_or_q.device))
+
+
 # The fp32 flash loop's layout (csrc/attn_f32.cuh AttnArgs), in elements, for
 # the entries that take it as an argument (#10, #11, #12, #19, #20): q, k
 # and v's (problem, head, token) strides; rel's (problem, query, head); the
@@ -208,7 +330,7 @@ def _plain_f32_cuda(qkv, scale, heads, d):
     _check_f32_attention(name, d, B, heads)
     out = dmajor_empty(B, heads * d, S, dtype=qkv.dtype, device=qkv.device)
     _cuda.QKV_PACKED_PLAIN_F32(qkv.data_ptr(), out.data_ptr(), B, S, out.stride(-2), heads, d,
-                               float(scale))
+                               float(scale), f32_attn_tile(qkv, d, d, "none", S, B * heads))
     return out
 
 
@@ -263,13 +385,15 @@ def _windows_cuda(qkv, rel_s, sel32, scale, heads, d):
         name += " (float32)"
         win = _check_windows(name, qkv, rel_s, sel32, heads, d, dtype=torch.float32)
         _check_f32_attention(name, d, BW, heads)
-        kernel = _cuda.QKV_WINDOWS_F32
-    else:
-        win = _check_windows(name, qkv, rel_s, sel32, heads, d)
-        kernel = _cuda.QKV_WINDOWS
+        out = dmajor_empty(BW, heads * d, Nw, dtype=qkv.dtype, device=qkv.device)
+        _cuda.QKV_WINDOWS_F32(qkv.data_ptr(), rel_s.data_ptr(), out.data_ptr(), BW, win, heads,
+                              d, float(scale), out.stride(-2),
+                              f32_attn_tile(qkv, d, d, "sep", Nw, BW * heads, 2 * win))
+        return out
+    win = _check_windows(name, qkv, rel_s, sel32, heads, d)
     out = dmajor_empty(BW, heads * d, Nw, dtype=qkv.dtype, device=qkv.device)
-    kernel(qkv.data_ptr(), rel_s.data_ptr(), out.data_ptr(), BW, win, heads, d, float(scale),
-           out.stride(-2))
+    _cuda.QKV_WINDOWS(qkv.data_ptr(), rel_s.data_ptr(), out.data_ptr(), BW, win, heads, d,
+                      float(scale), out.stride(-2))
     return out
 
 
@@ -331,7 +455,8 @@ def _padded_windows_f32_cuda(qkv, rel, sel32, scale, heads, d):
     out = dmajor_empty(B, nwin, heads * d, Nw, dtype=qkv.dtype, device=qkv.device)
     offsets, layout = f32_packed_layout(B, nwin, Nw, heads, d, REL_LANES, ldo=out.stride(-2))
     _cuda.QKV_WINDOWS_PADDED_F32(*_packed_ptrs(qkv, offsets), rel.data_ptr(), out.data_ptr(),
-                                 _cuda.layouts(layout), B * nwin, heads, win, d, float(scale))
+                                 _cuda.layouts(layout), B * nwin, heads, win, d, float(scale),
+                                 f32_attn_tile(qkv, d, d, "sep", Nw, B * nwin * heads, 2 * win))
     return out
 
 
@@ -635,9 +760,12 @@ def _edge_cuda(qkv, rel, sel, vb, kmask, scale, heads, d):
             raise ValueError(f"{name}: CUDA kernel takes R <= 256 and B*n <= 65535, got "
                              f"R={R}, B*n={B * n}")
     out = dmajor_empty(B, n, heads * d, R, dtype=qkv.dtype, device=qkv.device)
-    kernel = _cuda.QKV_EDGE_F32 if f32 else _cuda.QKV_EDGE
-    kernel(qkv.data_ptr(), rel.data_ptr(), sel.data_ptr(), vb.data_ptr(), kmask.data_ptr(),
-           out.data_ptr(), B, n, R, heads, d, float(scale), out.stride(-2))
+    args = (qkv.data_ptr(), rel.data_ptr(), sel.data_ptr(), vb.data_ptr(), kmask.data_ptr(),
+            out.data_ptr(), B, n, R, heads, d, float(scale), out.stride(-2))
+    if f32:
+        _cuda.QKV_EDGE_F32(*args, f32_attn_tile(qkv, d, d, "edge", R, B * n * heads))
+    else:
+        _cuda.QKV_EDGE(*args)
     return out
 
 
@@ -703,13 +831,15 @@ def _global_cuda(qkv, rel, sel, scale, heads, d, H, W):
         if H + W > F32_GLOBAL_MAX_LANES:
             raise ValueError(f"{name}: CUDA kernel takes H+W <= {F32_GLOBAL_MAX_LANES} (the "
                              f"rel lanes it holds in shared memory), got {H + W}")
-        kernel = _cuda.QKV_GLOBAL_F32
-    else:
-        _check_global(name, qkv, rel, sel, heads, d, H, W)
-        kernel = _cuda.QKV_GLOBAL
+        out = dmajor_empty(B, heads * d, N, dtype=qkv.dtype, device=qkv.device)
+        _cuda.QKV_GLOBAL_F32(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B, N,
+                             out.stride(-2), H, W, heads, d, float(scale),
+                             f32_attn_tile(qkv, d, d, "sep", N, B * heads, H + W))
+        return out
+    _check_global(name, qkv, rel, sel, heads, d, H, W)
     out = dmajor_empty(B, heads * d, N, dtype=qkv.dtype, device=qkv.device)
-    kernel(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B, N, out.stride(-2), H, W, heads, d,
-           float(scale))
+    _cuda.QKV_GLOBAL(qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), B, N, out.stride(-2), H, W,
+                     heads, d, float(scale))
     return out
 
 
@@ -825,7 +955,7 @@ def _relpos_f32_cuda(q, k, v, rel, sel, H, W):
     out = torch.empty_like(v)
     _cuda.ATTN_RELPOS_F32(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(),
                           out.data_ptr(), _cuda.layouts(f32_split_layout(BB, N, d, d, H + W)),
-                          BB, 1, H, W, d, 1.0)
+                          BB, 1, H, W, d, 1.0, f32_attn_tile(q, d, d, "sep", N, BB, H + W))
     return out
 
 
@@ -887,7 +1017,8 @@ def _fullk_f32_cuda(q_aug, k_aug, v):
                          f"most 65535 problems (got ({dqk}, {dv}), BB={BB})")
     out = torch.empty((BB, N, dv), dtype=v.dtype, device=v.device)
     _cuda.ATTN_FULLK_F32(q_aug.data_ptr(), k_aug.data_ptr(), v.data_ptr(), out.data_ptr(),
-                         _cuda.layouts(f32_split_layout(BB, N, dqk, dv)), BB, N, dqk, dv)
+                         _cuda.layouts(f32_split_layout(BB, N, dqk, dv)), BB, N, dqk, dv,
+                         f32_attn_tile(q_aug, dqk, dv, "none", N, BB))
     return out
 
 
@@ -953,7 +1084,8 @@ def _relpos_packed_launch(kernel, f32_kernel, qkv, rel, sel, scale, H, W):
         out = torch.empty((B, heads, nwin, N, d), dtype=qkv.dtype, device=qkv.device)
         offsets, layout = f32_packed_layout(B, nwin, N, heads, d, H + W)
         f32_kernel(*_packed_ptrs(qkv, offsets), rel.data_ptr(), out.data_ptr(),
-                   _cuda.layouts(layout), B * nwin, heads, H, W, d, float(scale))
+                   _cuda.layouts(layout), B * nwin, heads, H, W, d, float(scale),
+                   f32_attn_tile(qkv, d, d, "sep", N, B * nwin * heads, H + W))
         return out
     if d not in _SPLIT_DV or B * nwin > 65535:
         raise ValueError(f"{kernel.name}: CUDA kernel takes d in {_SPLIT_DV} and at most "

@@ -382,6 +382,14 @@ def phase_device():
     return name, smi
 
 
+# the fp32 loop's users at their paths' rel lanes, for [build]'s shared memory
+F32_ATTN_SMEM_SITES = (("#16", 64, 64, "none", 0), ("#13", 80, 80, "sep", 28),
+                       ("#15", 80, 80, "edge", 0), ("#17", 80, 80, "sep", 128),
+                       ("#12", 80, 80, "sep", 32), ("#11", 80, 80, "sep", 34),
+                       ("#10 windows", 64, 64, "sep", 28), ("#10 global", 64, 64, "sep", 128),
+                       ("#20", 208, 80, "none", 0), ("#20 small", 128, 64, "none", 0))
+
+
 def phase_build():
     from camouflaged_vlm_tpu_torch.ops import _cuda
     from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
@@ -414,8 +422,7 @@ def phase_build():
                       r"|21attn_bwd_query_kernelILi80E"
                       r"|19attn_bwd_key_kernelILi80E|20attn_bwd_prep_kernel|17attn_fullk_kernel"
                       r"|19mlp_bwd_dual_kernel|18ln_bwd_rows_kernel"
-                      r"|6f32bwd\S*?attn_bwd_f32_\w+?_kernelILi80E"
-                      r"|7f32attn\S*?attn_f32_kernelILi\d+ELi\d+ELi\dELi\dE)\S*)'", ln)
+                      r"|6f32bwd\S*?attn_bwd_f32_\w+?_kernelILi80E)\S*)'", ln)
         if m and m.group(1) not in seen:
             seen.add(m.group(1))
             usage = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "spill" in x]
@@ -442,6 +449,34 @@ def phase_build():
         f"tile {regs}, {sum(1 for *_, sp in sg if sp)} with spills; dynamic shared memory per "
         f"block {smem} B (3 stages of 32-deep k tiles)")
     check(sg and not any(sp for *_, sp in sg), f"[build] sgemm_kernel spills: {sg}")
+    # csrc/attn_f32.cuh's loop: every instantiation (each source's own, per
+    # depth, bias, output layout and tile) with its registers and spills,
+    # and the shared memory of each fp32 user at its path's lanes, tiles 0-3
+    # as the library sizes them
+    at = []
+    for i, ln in enumerate(lines):
+        m = re.search(r"Compiling entry function '_ZN4cvlm7f32attn\S*?attn_f32_kernelILi(\d+)ELi(\d+)"
+                      r"ELi(\d)ELi(\d)E\S*?ATileILi(\d+)ELi(\d+)ELi(\d)E", ln)
+        if m:
+            used = " ".join(lines[i + 1:i + 4])
+            r = re.search(r"Used (\d+) registers", used)
+            sp = re.search(r"(\d+) bytes spill stores", used)
+            at.append(("<{},{},{},{},{}x{}x{}>".format(*m.groups()), int(r.group(1)) if r else -1,
+                       int(sp.group(1)) if sp else 0))
+    log(f"[build] attn_f32_kernel (csrc/attn_f32.cuh): {len(at)} instantiations "
+        f"<dqk,dv,bias,out,rows x stage depth x stages>: registers "
+        f"{sorted({(k, r) for k, r, _ in at})}, {sum(1 for *_, sp in at if sp)} with spills")
+    check(at and not any(sp for *_, sp in at), f"[build] attn_f32_kernel spills: {at}")
+    smem_at = {label: [(_cuda.attn_f32_smem(dqk, dv, bias, t, lanes)
+                        if fa.f32_attn_smem(dqk, dv, bias, t, lanes) > 0 else None)
+                       for t in range(len(fa.F32_ATTN_TILES))]
+               for label, dqk, dv, bias, lanes in F32_ATTN_SMEM_SITES}
+    log(f"[build] dynamic shared memory per block of the fp32 loop, tiles {fa.F32_ATTN_TILES}: "
+        f"{smem_at} B")
+    check(all(b is None or b == fa.f32_attn_smem(dqk, dv, bias, t, lanes) <= 232448
+              for (label, dqk, dv, bias, lanes) in F32_ATTN_SMEM_SITES
+              for t, b in enumerate(smem_at[label])),
+          f"[build] the fp32 loop's shared memory disagrees with f32_attn_smem: {smem_at}")
     for bn in (256, 128):
         log(f"[build] dynamic shared memory per block: gemm_tma_kernel<{bn}, *, *> "
             f"{gemm_smem(bn)} B ({gemm_stages(bn)} stages of 128 x 64 + {bn} x 64)")
@@ -452,11 +487,6 @@ def phase_build():
         f"({dual['stages']} stages of 4 x 128 x 64); #20 attn_fullk_kernel<{fk['depth']}, 80, "
         f"{fk['stages']}> {fk['smem']} B (two q tiles, {fk['stages']} stages of 64 keys of k "
         f"and v)")
-    # the fp32 #20 at its two depths, as the library sizes it (one block of
-    # csrc/attn_f32.cuh's loop: q' and k' tiles of d_qk rows, v's of dv)
-    log("[build] dynamic shared memory per block: fp32 #20 attn_f32_kernel<208, 80, NONE, ROWS> "
-        f"{_cuda.attn_fullk_f32_smem(208, 80)} B, <128, 64, NONE, ROWS> "
-        f"{_cuda.attn_fullk_f32_smem(128, 64)} B")
     # dynamic shared memory of the attention kernels at their paths' shapes
     # (csrc/attn_sm90.cuh stream_smem, csrc/qkv_packed_global.cu global_smem,
     # csrc/qkv_packed_windows_s.cu windows_s_smem): 128 B of alignment, bf16

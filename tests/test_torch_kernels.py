@@ -1243,7 +1243,10 @@ def test_flash_attention_fullk_kernel_float32(gen, no_tf32, BB, N, dqk, dv):
     assert (_cuda.ATTN_FULLK_F32.launches, _cuda.ATTN_FULLK.launches) == (before[0] + 1,
                                                                           before[1])
     assert_close_f32(got, flash_attention.flash_attention_fullk_ref(*args))
-    assert _cuda.attn_fullk_f32_smem(dqk, dv) <= 227 * 1024
+    for t in range(len(flash_attention.F32_ATTN_TILES)):  # each tile the instance takes
+        want = flash_attention.f32_attn_smem(dqk, dv, "none", t)
+        if 0 < want <= 227 * 1024:
+            assert _cuda.attn_f32_smem(dqk, dv, "none", t) == want
     with pytest.raises(ValueError, match="takes \\(d_qk, dv\\)"):
         flash_attention.flash_attention_fullk(args[0][..., :96].contiguous(),
                                               args[1][..., :96].contiguous(), args[2])
@@ -1302,6 +1305,113 @@ def test_flash_qkv_relpos_global_kernel_float32(gen, no_tf32, B, H, W, heads, d)
     assert (_cuda.QKV_RELPOS_GLOBAL_F32.launches, _cuda.QKV_RELPOS_GLOBAL.launches,
             _cuda.QKV_RELPOS_WINDOWS_F32.launches) == (before[0] + 1, before[1], before[2])
     assert_close_f32(got, flash_attention.flash_qkv_relpos_global_ref(qkv, rel, sel, d ** -0.5))
+
+
+# ------------- csrc/attn_f32.cuh's loop at each tile the plan can pick
+
+# S tokens as (H, W) grids for the users with a separable bias
+_F32_LOOP_GRIDS = {127: (1, 127), 128: (8, 16), 129: (3, 43), 581: (7, 83)}
+
+
+def _f32_loop_users(gen, S):
+    """(name, kernel, call, plain) of every user of the fp32 loop at S
+    tokens, 2 heads (the windows' users, #13 and #12, at the window whose
+    win^2 is nearest S within 2 win <= 32: 11, 11, 11 and 16)."""
+    f32, dev = torch.float32, torch.device("cuda")
+    fa = flash_attention
+    H, W = _F32_LOOP_GRIDS[S]
+    heads, d = 2, 80
+
+    def r(*shape, std=1.0):
+        return rn(gen, *shape, std=std, dtype=f32)
+
+    out = []
+    qkv = r(2, S, 3 * heads * 64)
+    out.append(("#16", _cuda.QKV_PACKED_PLAIN_F32,
+                lambda: fa.flash_qkv_packed_plain(qkv, 0.125, heads, 64),
+                lambda: fa.flash_qkv_packed_plain_ref(qkv, 0.125, heads, 64)))
+    win = 11 if S < 200 else 16
+    qw, rw = r(3, win * win, 3 * heads * d), r(win * win, 3, heads * 32)
+    s32 = fa.make_rel_scatter32(win, f32, dev)
+    out.append(("#13", _cuda.QKV_WINDOWS_F32,
+                lambda: fa.flash_qkv_packed_windows_s(qw, rw, s32, d ** -0.5, heads, d),
+                lambda: fa.flash_qkv_packed_windows_s_ref(qw, rw, s32, d ** -0.5, heads, d)))
+    qp, rp = r(1, 2, win * win, 3 * heads * d), r(1, 2, win * win, heads * 32)
+    out.append(("#12", _cuda.QKV_WINDOWS_PADDED_F32,
+                lambda: fa.flash_qkv_packed_windows(qp, rp, s32, d ** -0.5, heads, d),
+                lambda: fa.flash_qkv_packed_windows_ref(qp, rp, s32, d ** -0.5, heads, d)))
+    n = 2
+    sel = (torch.rand(n, 32, S, generator=gen, device="cuda") > 0.8).to(f32)
+    kmask = torch.where(torch.rand(n, 1, S, generator=gen, device="cuda") > 0.1,
+                        torch.zeros((), device="cuda"), torch.full((), NEG, device="cuda"))
+    kmask[..., 0] = 0.0  # a real key in every window
+    ea = (r(2, n, S, 3 * heads * d), r(2, n, S, heads * 32), sel, r(heads, d, std=0.5), kmask)
+    out.append(("#15", _cuda.QKV_EDGE_F32,
+                lambda: fa.flash_qkv_packed_edge(*ea, d ** -0.5, heads, d),
+                lambda: fa.flash_qkv_packed_edge_ref(*ea, d ** -0.5, heads, d)))
+    sel_g = fa.make_rel_scatter(H, W, f32, dev)
+    ga = (r(2, S, 3 * heads * d), r(S, 2, heads, H + W), sel_g)
+    out.append(("#17", _cuda.QKV_GLOBAL_F32,
+                lambda: fa.flash_qkv_packed_global(*ga, d ** -0.5, heads, d, H, W),
+                lambda: fa.flash_qkv_packed_global_ref(*ga, d ** -0.5, heads, d)))
+    ra = (r(3, S, 64, std=0.125), r(3, S, 64), r(3, S, 64), r(3, S, H + W), sel_g)
+    out.append(("#10", _cuda.ATTN_RELPOS_F32,
+                lambda: fa.flash_attention_relpos(*ra, H, W),
+                lambda: fa.xla_attention_relpos(*ra)))
+    q5, r5 = r(1, 2, S, 3 * heads, d), r(1, 2, S, heads, H + W)
+    out.append(("#11", _cuda.QKV_RELPOS_WINDOWS_F32,
+                lambda: fa.flash_qkv_relpos_windows(q5, r5, sel_g, d ** -0.5, H, W),
+                lambda: fa.flash_qkv_relpos_windows_ref(q5, r5, sel_g, d ** -0.5)))
+    out.append(("#19", _cuda.QKV_RELPOS_GLOBAL_F32,
+                lambda: fa.flash_qkv_relpos_global(q5[:, 0], r5[:, 0], sel_g, d ** -0.5, H, W),
+                lambda: fa.flash_qkv_relpos_global_ref(q5[:, 0], r5[:, 0], sel_g, d ** -0.5)))
+    for dqk, dv in fa.F32_FULLK_DEPTHS:
+        fk = (r(2, S, dqk, std=dqk ** -0.5), r(2, S, dqk), r(2, S, dv))
+        out.append((f"#20 {dqk}/{dv}", _cuda.ATTN_FULLK_F32,
+                    lambda fk=fk: fa.flash_attention_fullk(*fk),
+                    lambda fk=fk: fa.flash_attention_fullk_ref(*fk)))
+    return out
+
+
+@pytest.mark.parametrize("tile", flash_attention.F32_ATTN_TILES)
+@pytest.mark.parametrize("S", sorted(_F32_LOOP_GRIDS))
+def test_f32_loop_users_at_each_tile(gen, monkeypatch, no_tf32, tile, S):
+    """Every user of csrc/attn_f32.cuh's loop (#16, #13, #12, #15, #17,
+    #10, #11, #19, #20 at both depths) at the tiles' boundaries (S 127, 128,
+    129: one, exactly one and just over one 128-row tile, 2 x 64 keys; 581,
+    MaPLe's) under each tile the plan can pick, forced (the ones an instance
+    does not take raise ValueError): within 1e-4 of the plain version, and
+    two calls bit-equal (no atomics)."""
+    monkeypatch.setattr(flash_attention, "F32_ATTN_TILE_FORCE", tile)
+    t = flash_attention.F32_ATTN_TILES.index(tile)
+    for name, kernel, call, plain in _f32_loop_users(gen, S):
+        if name == "#20 208/80" and t == 0:  # whole-depth stages beside 128 q' rows: > 227 KB
+            with pytest.raises(ValueError, match="no tile"):
+                call()
+            continue
+        before = kernel.launches
+        got = call()
+        assert kernel.launches == before + 1, name
+        assert_close_f32(got, plain())
+        assert torch.equal(got, call()), name
+
+
+@pytest.mark.parametrize("S", [129, 581])
+def test_f32_loop_tiles_are_bit_equal(gen, monkeypatch, no_tf32, S):
+    """The tile changes neither the order of a score's FFMA chain (the depth
+    in order, whatever its steps) nor P . V's (the keys in order): every
+    tile an instance takes gives the same bits."""
+    outs = {}
+    for tile in flash_attention.F32_ATTN_TILES:
+        monkeypatch.setattr(flash_attention, "F32_ATTN_TILE_FORCE", tile)
+        gen.manual_seed(3)
+        for name, _, call, _ in _f32_loop_users(gen, S):
+            try:
+                outs.setdefault(name, []).append(call())
+            except ValueError:  # #20 at 208 deep takes no tile 0
+                assert name == "#20 208/80" and tile == flash_attention.F32_ATTN_TILES[0]
+    for name, got in outs.items():
+        assert all(torch.equal(got[0], g) for g in got[1:]), name
 
 
 @pytest.mark.parametrize("tile", linear.F32_TILES)
