@@ -664,8 +664,8 @@ def f32_attention(smoke, label, against, tiles):
 
 
 def f32_gemm_cases(smoke, rn):
-    """(name, site, zero-argument call, plain call) of every user of
-    csrc/sgemm_f32.cuh at every shape of its paths, inputs drawn in a fixed
+    """(name, site, zero-argument call, plain call, library call or None)
+    of every user of csrc/sgemm_f32.cuh at every shape of its paths, inputs drawn in a fixed
     order from `rn` (fp32): the fp32 cascade's (`chip_smoke.f32_gemm_cases`:
     #1, #2, #4/#5, #7 at batch 2 and 1, the text tower's #4/#5), #3 at the
     global blocks at batch 2 and 1, MaPLe's (batch 8: #2, #7, #4/#5 and the
@@ -677,24 +677,26 @@ def f32_gemm_cases(smoke, rn):
         return kernel + "_f32"
 
     out = []
-    for kernel, site, b, kfn, pfn, args, *_ in smoke.f32_gemm_cases(rn):
+    for kernel, site, b, kfn, pfn, args, _, library, _ in smoke.f32_gemm_cases(rn):
         out.append((named(kernel), f"{site} batch {b}", lambda f=kfn, a=args: f(*a),
-                    lambda f=pfn, a=args: f(*a)))
+                    lambda f=pfn, a=args: f(*a), library))
     for b in (2, 1):
         kfn, pfn, args, *_ = smoke.ln_gemm_case(rn, "ln_mask_linear_bt", (b, 4096), 1280, 3840,
                                                 1e-6, None)
         out.append((named("ln_mask_linear_bt"), f"global batch {b}",
-                    lambda f=kfn, a=args: f(*a), lambda f=pfn, a=args: f(*a)))
+                    lambda f=kfn, a=args: f(*a), lambda f=pfn, a=args: f(*a),
+                    smoke.f32_library("ln_mask_linear_bt", args, 1e-6, None)))
     B, S = smoke.MAPLE_B, smoke.MAPLE_S
     for kernel, lead, K, N in (("ln_linear_act_bt", (B, S), 1024, 3072),
                                ("ln_mlp_residual_bt", (B, S), 1024, 4096)):
         act = None if kernel == "ln_linear_act_bt" else "quick_gelu"
         kfn, pfn, args, *_ = smoke.ln_gemm_case(rn, kernel, lead, K, N, 1e-5, act)
         out.append((named(kernel), f"MaPLe {B}x{S}", lambda f=kfn, a=args: f(*a),
-                    lambda f=pfn, a=args: f(*a)))
+                    lambda f=pfn, a=args: f(*a), smoke.f32_library(kernel, args, 1e-5, act)))
     args, *_ = smoke.proj_rows_case(rn, (B, 1, 1024, S), 1024)
     out.append((named("proj_rows"), f"MaPLe {B}x{S}", lambda a=args: lin.proj_rows(*a),
-                lambda a=args: lin.proj_rows_ref(*a)))
+                lambda a=args: lin.proj_rows_ref(*a),
+                smoke.f32_library("proj_rows", args, 0, None)))
     for site, lead, K, H, eps, act in (
             (f"MaPLe vision {B}x{S}", (B, S), 1024, 4096, 1e-5, "quick_gelu"),
             (f"MaPLe text {smoke.MAPLE_CLASSES}x77", (smoke.MAPLE_CLASSES, 77), 768, 3072, 1e-5,
@@ -708,11 +710,11 @@ def f32_gemm_cases(smoke, rn):
                     lambda a=a, e=eps, c=act: lin.ln_mlp_residual_bt_bwd(
                         *a, eps=e, activation=c, weights=False)[0],
                     lambda a=a, e=eps, c=act: lin.ln_mlp_residual_bt_bwd_ref(
-                        *a, eps=e, activation=c, weights=False)[0]))
+                        *a, eps=e, activation=c, weights=False)[0], None))
     args, *_ = smoke.proj_heads_case(rn, 2)
     for name, a in (("proj_from_heads_res", args), ("proj_from_heads", args[:3])):
         out.append((named(name), "window 17 batch 2", lambda f=getattr(lin, name), a=a: f(*a),
-                    lambda a=a: lin.proj_from_heads_ref(*a)))
+                    lambda a=a: lin.proj_from_heads_ref(*a), None))
     return out
 
 
@@ -722,12 +724,17 @@ def f32_gemm(smoke, label, against, tiles):
     queued times (`chip_smoke.time_ms`); on a checkout with the fp32 tile
     plan (`ops/linear.py f32_gemm_plan`) the plans the call took and, with
     `tiles`, the queued time at each of F32_TILES forced and, at the plans'
-    tile, with every tile's K cut into 1 to 4 slices; with `against` (a
-    JSONL file of another checkout's lines), whether the output is bit-equal
-    to that checkout's."""
+    tile, with every tile's K cut into 1 to 4 slices; the host's us a call
+    through the wrapper and through its CudaKernel alone, and the library
+    call's times (`chip_smoke.f32_library`); where the caller offers more
+    than one path (F32_PATHS), each path forced: both clocks, each kernel's
+    device ms and, with `tiles`, the queued time at each tile the path takes;
+    with `against` (a JSONL file of another checkout's lines), whether the
+    output is bit-equal to that checkout's."""
     import hashlib
 
     import torch
+    from camouflaged_vlm_tpu_torch.ops import _cuda
     from camouflaged_vlm_tpu_torch.ops import linear as lin
 
     other = {}
@@ -743,31 +750,74 @@ def f32_gemm(smoke, label, against, tiles):
         return torch.randn(*shape, generator=g, device="cuda") * std
 
     planned = hasattr(lin, "f32_gemm_plan")
-    picks = []
+    picks, offered = [], set()
     if planned:
         plan = lin.f32_gemm_plan
-        lin.f32_gemm_plan = lambda *a, **k: picks.append(plan(*a, **k)) or picks[-1]
+
+        def record(*a, **k):
+            offered.update(k.get("paths", (0,)))
+            picks.append(plan(*a, **k))
+            return picks[-1]
+
+        lin.f32_gemm_plan = record
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.no_grad():
-        for name, site, call, plain in f32_gemm_cases(smoke, rn):
+        for name, site, call, plain, library in f32_gemm_cases(smoke, rn):
             picks.clear()
+            offered.clear()
+            for spec in ("_ln_linear_f32_spec", "_ln_mlp_f32_spec"):  # plans cached per shape
+                if hasattr(lin, spec):
+                    getattr(lin, spec).cache_clear()
             got = call()
             torch.cuda.synchronize()
             rec = dict(label=label, name=name, site=site, shape=list(got.shape),
                        sha256=hashlib.sha256(got.contiguous().cpu().numpy().tobytes()).hexdigest(),
                        **smoke.errors(got, plain()))
-            rec["plans"] = [dict(tile=[p.bm, p.bn], tiles=p.tiles, splits=p.splits,
-                                 tail=p.tail, flat=p.flat) for p in picks]
-            rec.update(ms=smoke.time_ms(call), queued_ms=smoke.time_ms(call, queued=True))
+            rec["plans"] = [dict(tile=[p.bm, p.bn], tile_no=p.tile, tiles=p.tiles,
+                                 splits=p.splits, tail=p.tail, flat=p.flat,
+                                 path=getattr(p, "path", 0)) for p in picks]
+            rec.update(ms=smoke.time_ms(call), queued_ms=smoke.time_ms(call, queued=True),
+                       host_us=smoke.host_us(call))
+            kernel = next((k for k in _cuda.KERNELS if k.name == name), None)
+            if kernel is not None:  # the host's us through the CudaKernel alone
+                _, replay = entry_replay(kernel, call)
+                rec["host_us_entry"] = smoke.host_us(replay())
+            if library is not None:
+                rec.update(library_ms=smoke.time_ms(library),
+                           library_queued_ms=smoke.time_ms(library, queued=True))
+            if len(offered) > 1:  # each path the caller offers, forced: both clocks,
+                # each kernel's device ms, whether its output is bit-equal to the
+                # plan's, and with `tiles` the queued time at each tile number it takes
+                rec["paths_ms"], rec["paths_bit_equal"], rec["paths_device_ms"] = {}, {}, {}
+                for p in sorted(offered):
+                    lin.F32_PATH_FORCE = p
+                    out = call()
+                    rec["paths_bit_equal"][p] = bool(torch.equal(out, got))
+                    rec["paths_ms"][p] = [smoke.time_ms(call), smoke.time_ms(call, queued=True)]
+                    rec["paths_device_ms"][p] = kernel_device_ms(call)
+                    if tiles:
+                        for pp, t in lin.F32_PATH_RATE:
+                            if pp != p:
+                                continue
+                            lin.F32_TILE_FORCE = t
+                            bm, bn, occ = lin.f32_tile(t)[:3]
+                            rec.setdefault("path_tiles_queued_ms", {})[
+                                f"{p} {bm}x{bn}/{occ}"] = smoke.time_ms(call, queued=True)
+                        lin.F32_TILE_FORCE = None
+                    del out
+                lin.F32_PATH_FORCE = None
             if planned and tiles:
                 rec["tiles_queued_ms"] = {}
                 for t in lin.F32_TILES:
                     lin.F32_TILE_FORCE = t
-                    rec["tiles_queued_ms"][f"{t[0]}x{t[1]}"] = smoke.time_ms(call, queued=True)
+                    rec["tiles_queued_ms"]["x".join(map(str, t))] = smoke.time_ms(call,
+                                                                                   queued=True)
                 lin.F32_TILE_FORCE = None
                 # the plans' tiles with every tile's K cut into 1 (none) to 4 slices
-                if len({tuple(p["tile"]) for p in rec["plans"]}) == 1:
-                    lin.F32_TILE_FORCE = tuple(rec["plans"][0]["tile"])
+                t = {p["tile_no"] for p in rec["plans"]}
+                if len(t) == 1:
+                    t = t.pop()
+                    lin.F32_TILE_FORCE = tuple(lin.F32_TILES[t]) if t < len(lin.F32_TILES) else t
                     rec["splits_queued_ms"] = {}
                     for n in (1, 2, 3, 4):
                         lin.F32_SPLIT_FORCE = n
@@ -778,6 +828,135 @@ def f32_gemm(smoke, label, against, tiles):
             print(json.dumps(rec), flush=True)
             del got
             torch.cuda.empty_cache()
+
+
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+SASS_REG = re.compile(r"\bR(\d+)\b")
+SASS_LDS_REGS = {"LDS.128": 4, "LDS.U.128": 4, "LDS.64": 2, "LDS.U.64": 2}
+
+
+def sass_functions(text: str) -> dict:
+    """{mangled name: [(address, instruction), ...]} of a `cuobjdump -sass`
+    listing, branch targets as addresses (labels resolved)."""
+    funcs, cur, labels, pending = {}, None, {}, []
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            labels, pending = {}, []
+            continue
+        if cur is None:
+            continue
+        m = SASS_LABEL.match(ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = SASS_LINE.search(ln)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            cur.append([addr, m.group(2).strip(), labels])
+    out = {}
+    for name, ins in funcs.items():
+        res = []
+        for addr, txt, labels in ins:
+            t = re.search(r"`\((\.L_x_\d+)\)", txt)
+            if t and t.group(1) in labels:
+                txt = txt.replace(t.group(0), hex(labels[t.group(1)]))
+            res.append((addr, txt))
+        out[name] = res
+    return out
+
+
+def _opcode(txt: str) -> str:
+    return re.sub(r"^@!?U?P\w+\s+", "", txt).split()[0]
+
+
+def _operands(txt: str) -> list:
+    body = re.sub(r"^@!?U?P\w+\s+", "", txt).split(None, 1)
+    return [o.strip() for o in body[1].split(",")] if len(body) > 1 else []
+
+
+def sass_loop_counts(ins: list) -> dict:
+    """Counts over a function's main loop: the backward branch whose range
+    holds the most FFMAs (the k-tile loop of the GEMM). The FFMAs, the
+    shared-memory loads by width and every other instruction by opcode, per
+    pass of the loop, and for each LDS the instructions between it and the
+    first instruction that reads one of its registers (wrapping round the
+    loop: a load for the next pass is consumed there)."""
+    best = None
+    for i, (addr, txt) in enumerate(ins):
+        if _opcode(txt) != "BRA":
+            continue
+        t = re.search(r"0x([0-9a-f]+)\s*$", txt)
+        if not t or int(t.group(1), 16) > addr:
+            continue
+        start = next(j for j, (a, _) in enumerate(ins) if a >= int(t.group(1), 16))
+        body = ins[start:i + 1]
+        n = sum(1 for _, x in body if _opcode(x) == "FFMA")
+        if best is None or n > best[0] or (n == best[0] and len(body) < len(best[1])):
+            best = (n, body)
+    if best is None:
+        return {}
+    body = [txt for _, txt in best[1]]
+    ops = [_opcode(x) for x in body]
+    counts = {}
+    for op in ops:
+        counts[op] = counts.get(op, 0) + 1
+    dists = []
+    for i, op in enumerate(ops):
+        if not op.startswith("LDS"):
+            continue
+        dst = SASS_REG.search((_operands(body[i]) or [""])[0])
+        if dst is None:
+            continue
+        r0 = int(dst.group(1))
+        regs = {f"R{r0 + k}" for k in range(SASS_LDS_REGS.get(op, 1))}
+        for d in range(1, len(body) + 1):
+            j = (i + d) % len(body)
+            reads = _operands(body[j]) if ops[j].startswith(("ST", "RED", "ATOM")) else \
+                _operands(body[j])[1:]
+            if regs & {f"R{r}" for o in reads for r in SASS_REG.findall(o)}:
+                dists.append(d - 1)
+                break
+    dists.sort()
+    lds = {op: n for op, n in counts.items() if op.startswith("LDS")}
+    other = {op: n for op, n in counts.items() if op != "FFMA" and not op.startswith("LDS")}
+    return dict(instructions=len(body), ffma=counts.get("FFMA", 0), lds=lds,
+                other=sum(other.values()),
+                other_by_opcode=dict(sorted(other.items(), key=lambda kv: -kv[1])),
+                lds_to_use=dict(min=dists[0], median=dists[len(dists) // 2],
+                                mean=sum(dists) / len(dists), max=dists[-1],
+                                under_8=sum(1 for d in dists if d < 8)) if dists else None)
+
+
+def sass(label: str, patterns: list) -> None:
+    """`cuobjdump -sass` of the built library: one JSON line per pattern
+    (a regex on the mangled name; the first function that matches) with
+    its main loop's counts (`sass_loop_counts`); the functions' listings
+    into chiprun_out/kernel_timing/sass_<label>.txt."""
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    lib = _cuda.build()
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs = sass_functions(text)
+    out_dir = os.path.join("chiprun_out", "kernel_timing")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"sass_{label}.txt"), "w") as f:
+        for pat in patterns:
+            name = next((n for n in funcs if re.search(pat, n)), None)
+            rec = dict(label=label, pattern=pat, function=name)
+            if name is not None:
+                f.write(f"Function : {name}\n" + "".join(
+                    f"/*{a:04x}*/ {t} ;\n" for a, t in funcs[name]))
+                f.flush()
+                rec.update(sass_loop_counts(funcs[name]))
+            print(json.dumps(rec), flush=True)
 
 
 def padded_calls(smoke, label):
@@ -812,6 +991,9 @@ def main() -> None:
     ap.add_argument("--against", default=None,
                     help="with --f32-attention or --f32-gemm: another checkout's JSON lines to "
                     "compare with")
+    ap.add_argument("--sass", nargs="+", default=None, metavar="REGEX",
+                    help="count the main loop's instructions of the functions whose mangled "
+                    "names match, from cuobjdump -sass of the built library, instead")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -832,6 +1014,9 @@ def main() -> None:
     usage = ptxas_usage(_cuda.build_info.get("log", ""))
     print(json.dumps({"label": label, "card": smi, "build_s": build_s, "ptxas": usage}),
           flush=True)
+    if args.sass:
+        sass(args.label or "sass", args.sass)
+        return
     if args.padded_calls:
         padded_calls(smoke, label)
         return

@@ -27,19 +27,27 @@
 //       MN_MAJOR  P[k * ld + r]: contiguous along the output's rows or columns
 //                 (the d-major attention output (K, S), W2 (K, H) and W1 (H, K)
 //                 as the backward reads them); a stage [32][rows];
-//   - a per-shape plan (ops/linear.py f32_gemm_plan): the tile, and split K
-//     where a grid leaves SMs idle (short grids cut whole, or the last row
-//     tiles of a longer one; the slices summed in order by a second pass,
-//     no atomics); proj_rows' (B, T) groups of S % 4 == 0 rows tiled as one
-//     M, so that windows of 196 or 112 rows are not padded to whole row
-//     tiles.
+//   - the MN path, where both operands are MN_MAJOR (the LN-fed users #2,
+//     #3, #4/#5: their LN rows and hidden written MN-major, each weight
+//     transposed into a scratch, transpose_f32_kernel): each thread reads
+//     the 8 + 8 values of one k (two 16-byte reads each) while the previous
+//     k's 64 FFMAs run, the next k tile's first ones across the one barrier
+//     a k tile; it needs 128 registers, so its own tile runs 16 warps an
+//     SM (two 128 x 128 blocks);
+//   - a per-shape plan (ops/linear.py f32_gemm_plan): the path, the tile,
+//     and split K where a grid leaves SMs idle (short grids cut whole, or
+//     the last row tiles of a longer one; the slices summed in order by a
+//     second pass, no atomics); proj_rows' (B, T) groups of S % 4 == 0 rows
+//     tiled as one M, so that windows of 196 or 112 rows are not padded to
+//     whole row tiles.
 // Loads are 16 bytes: K_MAJOR needs K % 4 == 0, MN_MAJOR ld % 4 == 0, and a
 // 16-byte aligned base; the wrappers check. Ragged M, N and K are zero-filled
 // by the copies' source size: nothing past the operand's last row or column
 // is read. blockIdx.z walks groups of rows (proj_rows' groups of S % 4 != 0
 // rows, #8/#9's images): A moves by `sa` elements a group, C and the
 // residual by M * N. Each output is one fp32 sum in k order: no atomics, two
-// calls are bit-equal. Everything here has internal linkage: each source
+// calls, and the paths and tiles at one split, are bit-equal. Everything
+// here has internal linkage: each source
 // that includes it keeps its own copy.
 #pragma once
 
@@ -56,8 +64,9 @@ enum Layout { K_MAJOR = 0, MN_MAJOR = 1, K_HEADS = 2 };
 // EPI_ACT: act(acc + bias), bias optional; EPI_RES: acc + bias + res;
 // EPI_DACT (the MLP backward's dh): pre = acc + bias, C = act'(pre) * res
 // (res may be C itself: each element is read, then written, by one
-// thread), and act(pre) into `aux` when given
-enum Epi { EPI_ACT = 0, EPI_RES = 1, EPI_DACT = 2 };
+// thread), and act(pre) into `aux` when given; EPI_ACT_T: act(acc + bias)
+// written MN-major, C^T (N, ldt), for the next product's MN-major A
+enum Epi { EPI_ACT = 0, EPI_RES = 1, EPI_DACT = 2, EPI_ACT_T = 3 };
 
 // LN of each row, one warp a row, 16-byte loads (K % 4 == 0): two-pass
 // statistics (the mean, then the mean of squared deviations, the JAX
@@ -106,6 +115,124 @@ inline int launch_ln_rows(const float* x, const float* gamma, const float* beta,
   constexpr int rows = THREADS / 32;
   ln_rows_f32_kernel<<<(M + rows - 1) / rows, THREADS, 0, s>>>(x, gamma, beta, xn, stats, M, K,
                                                                eps, mask, S, nwin);
+  return (int)cudaGetLastError();
+}
+
+// The same LN rows written MN-major, xt[k * ld + m] (ld % 4 == 0, ld >= M;
+// rows M..ld-1 zero): a block takes 32 rows, one warp a row for the
+// statistics (ln_rows_f32_kernel's sums in its order: the same values), then
+// LNT_TILES 32 x 32 tiles at a time (each thread's loads in flight
+// together) transposed through shared memory, 128-byte rows out.
+constexpr int LNT_ROWS = 32, LNT_TILES = 4;
+
+__global__ void __launch_bounds__(THREADS) ln_rows_t_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, float* __restrict__ xt, int M, int K, int ld, float eps,
+    const float* __restrict__ mask, int S, int nwin) {
+  __shared__ float st[LNT_ROWS][3];                             // mu, rstd, mask
+  __shared__ float tile[LNT_TILES][LNT_ROWS][LNT_ROWS + 1];     // [k][m]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int m0 = blockIdx.x * LNT_ROWS, nv = K / 4;
+  for (int r = warp; r < LNT_ROWS; r += THREADS / 32) {
+    const int m = m0 + r;
+    if (m >= M) continue;
+    const float4* row = reinterpret_cast<const float4*>(x + (size_t)m * K);
+    float s = 0.f;
+    for (int c = lane; c < nv; c += 32) {
+      const float4 v = row[c];
+      s += v.x + v.y + v.z + v.w;
+    }
+    const float mu = warp_sum(s) / (float)K;
+    float q = 0.f;
+    for (int c = lane; c < nv; c += 32) {
+      const float4 v = row[c];
+      q += (v.x - mu) * (v.x - mu) + (v.y - mu) * (v.y - mu) + (v.z - mu) * (v.z - mu) +
+           (v.w - mu) * (v.w - mu);
+    }
+    const float rstd = 1.0f / sqrtf(warp_sum(q) / (float)K + eps);
+    if (lane == 0) {
+      st[r][0] = mu;
+      st[r][1] = rstd;
+      st[r][2] = mask != nullptr ? mask[(size_t)(m / S % nwin) * S + m % S] : 1.f;
+    }
+  }
+  __syncthreads();
+  const int r = threadIdx.x / 8, c = threadIdx.x % 8;  // in: row r, 16-byte chunk c
+  const int m = m0 + r, mo = m0 + 4 * c;               // out: k row r, rows mo..mo+3
+  const float mu = st[r][0], rstd = st[r][1], mv = st[r][2];
+  for (int k0 = 0; k0 < K; k0 += LNT_TILES * LNT_ROWS) {
+    float4 v[LNT_TILES];
+#pragma unroll
+    for (int q = 0; q < LNT_TILES; ++q) {
+      const int kk = k0 + q * LNT_ROWS + 4 * c;
+      v[q] = m < M && kk < K ? *reinterpret_cast<const float4*>(x + (size_t)m * K + kk)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int q = 0; q < LNT_TILES; ++q) {
+      const int kk = k0 + q * LNT_ROWS + 4 * c;
+      float y[4] = {0.f, 0.f, 0.f, 0.f};
+      if (m < M && kk < K) {
+        const float4 g = *reinterpret_cast<const float4*>(gamma + kk);
+        const float4 b = *reinterpret_cast<const float4*>(beta + kk);
+        y[0] = (v[q].x - mu) * rstd * g.x + b.x;
+        y[1] = (v[q].y - mu) * rstd * g.y + b.y;
+        y[2] = (v[q].z - mu) * rstd * g.z + b.z;
+        y[3] = (v[q].w - mu) * rstd * g.w + b.w;
+        if (mask != nullptr)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) y[i] *= mv;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tile[q][4 * c + i][r] = y[i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < LNT_TILES; ++q) {
+      const int k = k0 + q * LNT_ROWS + r;
+      if (k < K && mo < ld)
+        *reinterpret_cast<float4*>(xt + (size_t)k * ld + mo) = make_float4(
+            tile[q][r][4 * c], tile[q][r][4 * c + 1], tile[q][r][4 * c + 2], tile[q][r][4 * c + 3]);
+    }
+    __syncthreads();
+  }
+}
+
+// The rows' leading dimension of an MN-major scratch of M rows: whole
+// 16-byte chunks
+inline int mn_ld(int M) { return (M + 3) / 4 * 4; }
+
+// xt (K, ld): ld % 4 == 0 and ld >= M (a row panel's scratch: the full
+// panel's ld)
+inline int launch_ln_rows_t(const float* x, const float* gamma, const float* beta, float* xt,
+                            int M, int K, int ld, float eps, cudaStream_t s,
+                            const float* mask = nullptr, int S = 1, int nwin = 1) {
+  if (ld < M || ld % 4 != 0) return (int)cudaErrorInvalidValue;
+  ln_rows_t_f32_kernel<<<(M + LNT_ROWS - 1) / LNT_ROWS, THREADS, 0, s>>>(
+      x, gamma, beta, xt, M, K, ld, eps, mask, S, nwin);
+  return (int)cudaGetLastError();
+}
+
+// wt (C, R) = w (R, C)^T: the MN path's copy of a weight, 32 x 32 tiles
+// through shared memory, 128-byte rows in and out (R % 4 == 0 and C % 4 ==
+// 0 are the callers'; ragged tiles are cut).
+__global__ void __launch_bounds__(THREADS) transpose_f32_kernel(const float* __restrict__ w,
+                                                                float* __restrict__ wt, int R,
+                                                                int C) {
+  __shared__ float tile[32][33];
+  const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int i = ty; i < 32; i += THREADS / 32)
+    if (r0 + i < R && c0 + tx < C) tile[i][tx] = w[(size_t)(r0 + i) * C + c0 + tx];
+  __syncthreads();
+#pragma unroll
+  for (int i = ty; i < 32; i += THREADS / 32)
+    if (c0 + i < C && r0 + tx < R) wt[(size_t)(c0 + i) * R + r0 + tx] = tile[tx][i];
+}
+
+inline int launch_transpose(const float* w, float* wt, int R, int C, cudaStream_t s) {
+  transpose_f32_kernel<<<dim3((C + 31) / 32, (R + 31) / 32), THREADS, 0, s>>>(w, wt, R, C);
   return (int)cudaGetLastError();
 }
 
@@ -249,9 +376,10 @@ __device__ __forceinline__ void load_frag(float (&f)[8][4], const float* S, int 
 // rows and BN / 2 columns apart), BM BN / 64 threads, a warp 8 x 4 threads
 // (its 16-byte reads touch 8 and 4 distinct chunks); STAGES k tiles in
 // flight; MIN_BLOCKS co-resident blocks an SM (a register cap of 65536 /
-// (MIN_BLOCKS THREADS), 255 at most: none of the four spills). `tile`
-// argument t of launch_sgemm runs case t below, the order of ops/linear.py
-// F32_TILES.
+// (MIN_BLOCKS THREADS), 255 at most: none spills). `tile` argument t of
+// launch_sgemm runs case t below, the order of ops/linear.py F32_TILES; case
+// 4, 128 x 128 at two blocks (16 warps) an SM, only where both operands are
+// MN-major (the MN path fits 128 registers; the K-major fragments take 255).
 template <int BM_, int BN_, int STAGES_, int MIN_BLOCKS_>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, STAGES = STAGES_, MIN_BLOCKS = MIN_BLOCKS_;
@@ -259,6 +387,20 @@ struct Tile {
   static constexpr int SMEM = STAGES * (BM + BN) * BK * 4;
   static_assert((BM == 64 || BM == 128) && (BN == 64 || BN == 128), "tile rows");
 };
+
+// One k of a thread's outputs from an MN-major stage: f[4 h + i] = row or
+// column (ROWS / 2) h + 4 t + i at k.
+template <int ROWS>
+__device__ __forceinline__ void load_frag_k(float (&f)[8], const float* S, int t, int k) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 v = *reinterpret_cast<const float4*>(S + k * ROWS + (ROWS / 2) * h + 4 * t);
+    f[4 * h] = v.x;
+    f[4 * h + 1] = v.y;
+    f[4 * h + 2] = v.z;
+    f[4 * h + 3] = v.w;
+  }
+}
 
 // The epilogue of 4 outputs of one row, v = the sum over k, at columns n..n+3
 // and element o of C: + bias; EPI_ACT act(.); EPI_RES + res; EPI_DACT
@@ -309,9 +451,12 @@ __global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS) sgemm_kernel(
     const float* __restrict__ A, int lda, long long sa, int gs, long long gst,
     const float* __restrict__ B, int ldb, const float* __restrict__ bias, const float* res,
     float* C, float* __restrict__ aux, int M, int N, int K, int act, int gx, int gy, int tr,
-    int splits, int kspan, float* __restrict__ ws) {
+    int splits, int kspan, float* __restrict__ ws, int ldt) {
   constexpr int BM = TL::BM, BN = TL::BN, T = TL::THREADS, ST = TL::STAGES;
   constexpr int SA = BM * BK, SB = BN * BK;  // floats a stage
+  // the MN path: both operands MN-major, fragments along M and N one k at a
+  // time, the next k's read while this one's FFMAs run
+  constexpr bool MN = LA == MN_MAJOR && LB == MN_MAJOR;
   extern __shared__ __align__(16) float smem[];
   float* As = smem;
   float* Bs = smem + ST * SA;
@@ -340,56 +485,97 @@ __global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS) sgemm_kernel(
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  int cur = 0, nxt = ST - 1;  // the stages of k tiles kt and kt + ST - 1
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_wait<ST - 2>();  // this thread's copies of k tile kt have landed
-    __syncthreads();    // everyone's; and k tile kt - 1's stage is read
-    if (kt + ST - 1 < nk) {
-      const int k0 = kb + (kt + ST - 1) * BK;
-      load_tile<LA, BM, T>(As + nxt * SA, A, lda, m0, M, k0, ke, gs, gst);
-      load_tile<LB, BN, T>(Bs + nxt * SB, B, ldb, n0, N, k0, ke, 0, 0);
-    }
-    cp_commit();
-    const float* as = As + cur * SA;
-    const float* bs = Bs + cur * SB;
+  if constexpr (MN) {
+    // One barrier a k tile, at its last k: everyone has read the tile's
+    // last fragments, so the stage of k tile kt - 1 (freed at the last
+    // barrier) takes k tile kt + ST - 1, and k tile kt + 1 has landed; its
+    // first fragments are read before the last k's FFMAs.
+    float af[2][8], bf[2][8];
+    cp_wait<ST - 2>();
+    __syncthreads();
+    load_frag_k<BM>(af[0], As, ty, 0);
+    load_frag_k<BN>(bf[0], Bs, tx, 0);
+    int cur = 0, nxt = ST - 1;
+    for (int kt = 0; kt < nk; ++kt) {
+      const float* as = As + cur * SA;
+      const float* bs = Bs + cur * SB;
 #pragma unroll
-    for (int c = 0; c < BK / 4; ++c) {
-      float a[8][4];
-      load_frag<LA, BM>(a, as, ty, c);
-      if (LB == MN_MAJOR) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          float b[8];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float4 v = *reinterpret_cast<const float4*>(bs + (4 * c + kk) * BN +
-                                                              (BN / 2) * h + 4 * tx);
-            b[4 * h] = v.x;
-            b[4 * h + 1] = v.y;
-            b[4 * h + 2] = v.z;
-            b[4 * h + 3] = v.w;
+      for (int k = 0; k < BK; ++k) {
+        if (k == BK - 1) {
+          if (kt + ST - 1 < nk) {
+            const int k0 = kb + (kt + ST - 1) * BK;
+            load_tile<LA, BM, T>(As + nxt * SA, A, lda, m0, M, k0, ke, gs, gst);
+            load_tile<LB, BN, T>(Bs + nxt * SB, B, ldb, n0, N, k0, ke, 0, 0);
           }
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+          cp_commit();
+          cp_wait<ST - 2>();
+          __syncthreads();
+          cur = cur == ST - 1 ? 0 : cur + 1;
+          nxt = nxt == ST - 1 ? 0 : nxt + 1;
+          load_frag_k<BM>(af[(k + 1) % 2], As + cur * SA, ty, 0);
+          load_frag_k<BN>(bf[(k + 1) % 2], Bs + cur * SB, tx, 0);
+        } else {
+          load_frag_k<BM>(af[(k + 1) % 2], as, ty, k + 1);
+          load_frag_k<BN>(bf[(k + 1) % 2], bs, tx, k + 1);
         }
-      } else {  // B's rows one at a time, along k
-        const int pos = 4 * swizzle_chunk<BK / 4, 2>(c, 4 * tx);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              bs + ((BN / 2) * (j / 4) + 4 * tx + j % 4) * BK + pos);
-          const float b[4] = {v.x, v.y, v.z, v.w};
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-            for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(a[i][kk], b[kk], acc[i][j]);
-        }
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(af[k % 2][i], bf[k % 2][j], acc[i][j]);
       }
     }
-    cur = cur == ST - 1 ? 0 : cur + 1;
-    nxt = nxt == ST - 1 ? 0 : nxt + 1;
+  } else {
+    int cur = 0, nxt = ST - 1;  // the stages of k tiles kt and kt + ST - 1
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_wait<ST - 2>();  // this thread's copies of k tile kt have landed
+      __syncthreads();    // everyone's; and k tile kt - 1's stage is read
+      if (kt + ST - 1 < nk) {
+        const int k0 = kb + (kt + ST - 1) * BK;
+        load_tile<LA, BM, T>(As + nxt * SA, A, lda, m0, M, k0, ke, gs, gst);
+        load_tile<LB, BN, T>(Bs + nxt * SB, B, ldb, n0, N, k0, ke, 0, 0);
+      }
+      cp_commit();
+      const float* as = As + cur * SA;
+      const float* bs = Bs + cur * SB;
+#pragma unroll
+      for (int c = 0; c < BK / 4; ++c) {
+        float a[8][4];
+        load_frag<LA, BM>(a, as, ty, c);
+        if (LB == MN_MAJOR) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            float b[8];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float4 v = *reinterpret_cast<const float4*>(bs + (4 * c + kk) * BN +
+                                                                (BN / 2) * h + 4 * tx);
+              b[4 * h] = v.x;
+              b[4 * h + 1] = v.y;
+              b[4 * h + 2] = v.z;
+              b[4 * h + 3] = v.w;
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+          }
+        } else {  // B's rows one at a time, along k
+          const int pos = 4 * swizzle_chunk<BK / 4, 2>(c, 4 * tx);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                bs + ((BN / 2) * (j / 4) + 4 * tx + j % 4) * BK + pos);
+            const float b[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+              for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(a[i][kk], b[kk], acc[i][j]);
+          }
+        }
+      }
+      cur = cur == ST - 1 ? 0 : cur + 1;
+      nxt = nxt == ST - 1 ? 0 : nxt + 1;
+    }
   }
 
   if (SPLIT) {  // a slice's sums, the whole tile (zeros past the edges)
@@ -404,36 +590,59 @@ __global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS) sgemm_kernel(
             make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
     return;
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (BM / 2) * (i / 4) + 4 * ty + i % 4;
-    if (m >= M) continue;
+  if constexpr (EPI == EPI_ACT_T) {  // C^T (N, ldt): rows m..m+3 of column n, 16 bytes
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int n = n0 + (BN / 2) * h + 4 * tx;
-      if (n >= N) continue;
-      float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
-      epilogue4<EPI>(v, n, co + (size_t)m * N + n, bias, res, C, aux, act);
+      const int m = m0 + (BM / 2) * h + 4 * ty;
+      if (m >= ldt) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + (BN / 2) * (j / 4) + 4 * tx + j % 4;
+        if (n >= N) continue;
+        const float bv = bias != nullptr ? bias[n] : 0.f;
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[i] = acc[4 * h + i][j];
+          if (bias != nullptr) v[i] += bv;
+          v[i] = apply_act(v[i], act);
+        }
+        *reinterpret_cast<float4*>(C + co + (size_t)n * ldt + m) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (BM / 2) * (i / 4) + 4 * ty + i % 4;
+      if (m >= M) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + (BN / 2) * h + 4 * tx;
+        if (n >= N) continue;
+        float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
+        epilogue4<EPI>(v, n, co + (size_t)m * N + n, bias, res, C, aux, act);
+      }
     }
   }
 }
 
 // Split K's second pass, one block a tail tile (q = blockIdx.x, numbered as
 // sgemm_kernel<..., true> numbers them): each 4 outputs the sum of its
-// `splits` slices in slice order, then the epilogue.
+// `splits` slices in slice order, then the epilogue. EPI_ACT_T takes 4 x 4
+// blocks, rows fastest, and writes 4 rows of a column of C^T in one 16-byte
+// store (ldt % 4 == 0: a chunk that starts below M ends below ldt).
 template <class TL, int EPI>
 __global__ void __launch_bounds__(256) splitk_finish_kernel(
     const float* __restrict__ ws, int splits, int M, int N, int gx, int gy, int tr,
     const float* __restrict__ bias, const float* res, float* C, float* __restrict__ aux,
-    int act) {
+    int act, int ldt) {
   constexpr int BM = TL::BM, BN = TL::BN;
   const int q = blockIdx.x;
   const int m0 = (gy - tr + q / gx % tr) * BM, n0 = q % gx * BN;
   const size_t co = (size_t)(q / (gx * tr)) * M * N;
   const float* part = ws + (size_t)blockIdx.x * splits * BM * BN;
-  for (int q = threadIdx.x; q < BM * BN / 4; q += 256) {
-    const int r = q / (BN / 4), c = q % (BN / 4) * 4, m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
+  auto sum4 = [&](int r, int c) {  // row r, columns c..c+3 of the tile, over the slices
     float4 s = *reinterpret_cast<const float4*>(part + r * BN + c);
     for (int i = 1; i < splits; ++i) {
       const float4 v = *reinterpret_cast<const float4*>(part + (size_t)i * BM * BN + r * BN + c);
@@ -442,8 +651,40 @@ __global__ void __launch_bounds__(256) splitk_finish_kernel(
       s.z += v.z;
       s.w += v.w;
     }
-    float v[4] = {s.x, s.y, s.z, s.w};
-    epilogue4<EPI>(v, n, co + (size_t)m * N + n, bias, res, C, aux, act);
+    return s;
+  };
+  if constexpr (EPI == EPI_ACT_T) {
+    for (int q = threadIdx.x; q < BM * BN / 16; q += 256) {
+      const int r = q % (BM / 4) * 4, c = q / (BM / 4) * 4, m = m0 + r, n = n0 + c;
+      if (m >= M || n >= N) continue;
+      float v[4][4];  // [column][row]
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 s = sum4(r + i, c);
+        v[0][i] = s.x;
+        v[1][i] = s.y;
+        v[2][i] = s.z;
+        v[3][i] = s.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (bias != nullptr) v[j][i] += bias[n + j];
+          v[j][i] = apply_act(v[j][i], act);
+        }
+        *reinterpret_cast<float4*>(C + co + (size_t)(n + j) * ldt + m) =
+            make_float4(v[j][0], v[j][1], v[j][2], v[j][3]);
+      }
+    }
+  } else {
+    for (int q = threadIdx.x; q < BM * BN / 4; q += 256) {
+      const int r = q / (BN / 4), c = q % (BN / 4) * 4, m = m0 + r, n = n0 + c;
+      if (m >= M || n >= N) continue;
+      const float4 s = sum4(r, c);
+      float v[4] = {s.x, s.y, s.z, s.w};
+      epilogue4<EPI>(v, n, co + (size_t)m * N + n, bias, res, C, aux, act);
+    }
   }
 }
 
@@ -459,7 +700,7 @@ struct Plan {
 template <class TL, int LA, int LB, int EPI>
 int run_sgemm(const float* A, int lda, long long sa, int gs, long long gst, const float* B,
               int ldb, const float* bias, const float* res, float* C, float* aux, int M, int N,
-              int K, int act, int groups, Plan plan, cudaStream_t s) {
+              int K, int act, int groups, Plan plan, cudaStream_t s, int ldt) {
   static bool opted[64] = {};  // the shared-memory opt-ins, once per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -488,7 +729,7 @@ int run_sgemm(const float* A, int lda, long long sa, int gs, long long gst, cons
     const dim3 grid(gx, gy - tr, groups);
     sgemm_kernel<TL, LA, LB, EPI, false><<<grid, TL::THREADS, TL::SMEM, s>>>(
         A, lda, sa, gs, gst, B, ldb, bias, res, C, aux, M, N, K, act, gx, gy, 0, 1, K,
-        nullptr);
+        nullptr, ldt);
     e = cudaGetLastError();
     if (e != cudaSuccess || tr == 0) return (int)e;
   }
@@ -496,38 +737,66 @@ int run_sgemm(const float* A, int lda, long long sa, int gs, long long gst, cons
   const dim3 grid(gx, tr, groups * splits);
   sgemm_kernel<TL, LA, LB, EPI, true><<<grid, TL::THREADS, TL::SMEM, s>>>(
       A, lda, sa, gs, gst, B, ldb, bias, res, C, aux, M, N, K, act, gx, gy, tr, splits,
-      per * BK, plan.ws);
+      per * BK, plan.ws, ldt);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   splitk_finish_kernel<TL, EPI><<<tail, 256, 0, s>>>(plan.ws, splits, M, N, gx, gy, tr, bias,
-                                                      res, C, aux, act);
+                                                      res, C, aux, act, ldt);
   return (int)cudaGetLastError();
+}
+
+// The MN path's launches (both operands MN-major), on its own tiles.
+template <class TL, int LA, int LB, int EPI>
+int run_sgemm_mn(const float* A, int lda, long long sa, int gs, long long gst, const float* B,
+                 int ldb, const float* bias, const float* res, float* C, float* aux, int M,
+                 int N, int K, int act, int groups, Plan plan, cudaStream_t s, int ldt) {
+  static_assert(LA == MN_MAJOR && LB == MN_MAJOR, "the MN path");
+  return run_sgemm<TL, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias, res, C, aux, M, N, K, act,
+                                    groups, plan, s, ldt);
 }
 
 // Queues one product as `plan` cuts it; `groups` the row groups (C, res and
 // aux move by M N a group, A by sa); gs, gst MN_MAJOR A's row groups tiled
-// as one M (load_tile). Returns a cudaError_t code.
+// as one M (load_tile); ldt EPI_ACT_T's C^T leading dimension (% 4 == 0, >=
+// M). Returns a cudaError_t code.
 template <int LA, int LB, int EPI>
 int launch_sgemm(const float* A, int lda, long long sa, const float* B, int ldb,
                  const float* bias, const float* res, float* C, float* aux, int M, int N, int K,
-                 int act, Plan plan, int groups, cudaStream_t s, int gs = 0, long long gst = 0) {
-  if (M < 1 || N < 1 || K < 1 || groups < 1 || N % 4 != 0 || gs < 0 || gs % 4 != 0)
+                 int act, Plan plan, int groups, cudaStream_t s, int gs = 0, long long gst = 0,
+                 int ldt = 0) {
+  if (M < 1 || N < 1 || K < 1 || groups < 1 || N % 4 != 0 || gs < 0 || gs % 4 != 0 ||
+      (EPI == EPI_ACT_T && (groups != 1 || ldt < M || ldt % 4 != 0)))
     return (int)cudaErrorInvalidValue;
-  switch (plan.tile) {
-    case 0:
-      return run_sgemm<Tile<128, 128, 3, 1>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias, res,
-                                                           C, aux, M, N, K, act, groups, plan, s);
-    case 1:
-      return run_sgemm<Tile<64, 128, 3, 2>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias, res,
-                                                          C, aux, M, N, K, act, groups, plan, s);
-    case 2:
-      return run_sgemm<Tile<128, 64, 3, 2>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias, res,
-                                                          C, aux, M, N, K, act, groups, plan, s);
-    case 3:
-      return run_sgemm<Tile<64, 64, 3, 4>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias, res, C,
-                                                         aux, M, N, K, act, groups, plan, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if constexpr (LA == MN_MAJOR && LB == MN_MAJOR) {
+    switch (plan.tile) {  // the MN path: its own tile only
+      case 4:
+        return run_sgemm_mn<Tile<128, 128, 3, 2>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias,
+                                                                res, C, aux, M, N, K, act, groups,
+                                                                plan, s, ldt);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (plan.tile) {
+      case 0:
+        return run_sgemm<Tile<128, 128, 3, 1>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias,
+                                                             res, C, aux, M, N, K, act, groups,
+                                                             plan, s, ldt);
+      case 1:
+        return run_sgemm<Tile<64, 128, 3, 2>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias,
+                                                            res, C, aux, M, N, K, act, groups,
+                                                            plan, s, ldt);
+      case 2:
+        return run_sgemm<Tile<128, 64, 3, 2>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias,
+                                                            res, C, aux, M, N, K, act, groups,
+                                                            plan, s, ldt);
+      case 3:
+        return run_sgemm<Tile<64, 64, 3, 4>, LA, LB, EPI>(A, lda, sa, gs, gst, B, ldb, bias, res,
+                                                           C, aux, M, N, K, act, groups, plan, s,
+                                                           ldt);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -158,7 +158,7 @@ LN_MLP_RESIDUAL = CudaKernel(
 # tile, k slices, split tail) and a split-K scratch pointer (or None).
 LN_MLP_RESIDUAL_F32 = CudaKernel(
     "ln_mlp_residual_bt_f32", "cvlm_ln_mlp_residual_f32",
-    [P] * 11 + [I, I, I, I, F] + [I] * 7,
+    [P] * 12 + [I, I, I, I, F] + [I] * 8,
 )
 PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, L, L, I, I, I])
 # The fp32 instances of MaPLe training's path (the CLIP vision blocks' LN1 +
@@ -168,7 +168,7 @@ PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, L, L
 # csrc/proj_rows_f32.cu, csrc/ln_mlp_residual_bwd_f32.cu), each with its
 # own count.
 LN_LINEAR_F32 = CudaKernel("ln_linear_act_bt_f32", "cvlm_ln_linear_f32",
-                           [P] * 8 + [I, I, I, F, I, I, I, I])
+                           [P] * 9 + [I, I, I, F, I, I, I, I, I])
 QKV_PACKED_PLAIN_F32 = CudaKernel("flash_qkv_packed_plain_f32", "cvlm_qkv_packed_plain_f32",
                                   [P, P, I, I, I, I, I, F, I])
 PROJ_ROWS_F32 = CudaKernel("proj_rows_f32", "cvlm_proj_rows_f32",
@@ -184,7 +184,7 @@ LN_MLP_RESIDUAL_BWD_F32 = CudaKernel("ln_mlp_residual_bt_bwd_f32", "cvlm_ln_mlp_
 # ops/flash_attention.py f32_attn_plan as their last int.
 LINEAR_ACT_F32 = CudaKernel("linear_act_f32", "cvlm_linear_f32", [P] * 5 + [I] * 7)
 LN_MASK_LINEAR_F32 = CudaKernel("ln_mask_linear_bt_f32", "cvlm_ln_mask_linear_f32",
-                                [P] * 9 + [I, I, I, I, I, F, I, I, I])
+                                [P] * 10 + [I, I, I, I, I, F, I, I, I, I])
 QKV_WINDOWS_F32 = CudaKernel("flash_qkv_packed_windows_s_f32", "cvlm_qkv_packed_windows_s_f32",
                              [P, P, P, I, I, I, I, F, I, I])
 QKV_EDGE_F32 = CudaKernel("flash_qkv_packed_edge_f32", "cvlm_qkv_packed_edge_f32",

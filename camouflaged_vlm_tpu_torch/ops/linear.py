@@ -151,16 +151,40 @@ F32_TILE_BLOCKS = {(128, 128): 1, (64, 128): 2, (128, 64): 2, (64, 64): 4}
 F32_TILE_RATE = {(128, 128): 1.0, (64, 128): 1.03, (128, 64): 1.0, (64, 64): 0.97}
 F32_SM_FLOPS = 67e12 / 132 * 0.64
 F32_FULL_WARPS = 8
+# The products' paths (csrc/sgemm_f32.cuh): 0, both operands as they lie
+# (K-major fragments, 4 k of 8 rows a thread), on F32_TILES; 1, the
+# LN-fed users' MN path (the weight transposed into a scratch each call,
+# the LN rows and the MLP's hidden written MN-major, 8 + 8 fragment values
+# of one k read while the last k's FFMAs run), on its own tile, numbered on
+# from F32_TILES: 128 x 128 at two blocks (16 warps) an SM, which its 128
+# registers allow.
+F32_PATHS = (0, 1)
+F32_MN_TILES = ((128, 128),)
+F32_MN_TILE_BLOCKS = {(128, 128): 2}
+# each (path, tile number)'s rate relative to F32_TILE_RATE of its (BM, BN):
+# the MN tile's products run 3-12% faster than path 0's (each kernel's
+# device ms, cli/kernel_timing.py --f32-gemm; PERF.md §6), and 1.09 picks
+# the faster path at every LN-fed site of the cascade but three near-ties
+# (within 1.3%), where it keeps path 0
+F32_PATH_RATE = {(0, 0): 1.0, (0, 1): 1.0, (0, 2): 1.0, (0, 3): 1.0, (1, 4): 1.09}
+# the passes around the products, at their measured rates (bytes read and
+# written over seconds, the same runs): the row-major LN pass, the MN-major
+# one, and the weights' transposes
+F32_LN_BYTES_S = {0: 2.4e12, 1: 1.5e12}
+F32_TRANSPOSE_BYTES_S = 2.1e12
 # split K's second pass: a launch, and each split tile's slices read, its
 # outputs read (a residual) and written at the HBM rate
 F32_FINISH_S, F32_HBM_BYTES_S = 4e-6, 3.35e12
 # the k depth of a stage (csrc/sgemm_f32.cuh BK); split K cuts K into at
 # most F32_MAX_SPLITS slices of at least F32_MIN_SLICE k tiles each
 F32_BK, F32_MAX_SPLITS, F32_MIN_SLICE = 32, 4, 4
-# tests: one of F32_TILES to take at every shape instead of the plan's
-# pick; a number of k slices to cut every tile's K into
-F32_TILE_FORCE: Optional[tuple] = None
+# tests: a tile to take at every shape instead of the plan's pick (one of
+# F32_TILES, or a tile number, which may name an MN tile); a number of k
+# slices to cut every tile's K into; a path to take wherever the caller
+# offers it
+F32_TILE_FORCE = None
 F32_SPLIT_FORCE: Optional[int] = None
+F32_PATH_FORCE: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,7 +195,9 @@ class F32Plan:
     tiles have their k range cut into `splits` slices (`slices`), each
     slice's sums into a scratch of `ws_elems` floats, added in slice order by
     a second pass; `flat`: an MN-major A's row groups tiled as one M (the
-    kernel's gs, gst)."""
+    kernel's gs, gst); `path`: the operands' layouts (F32_PATHS), `tile` a
+    number in F32_TILES + F32_MN_TILES; `cost`: the modelled seconds the
+    plan was picked by."""
 
     tile: int
     groups: int
@@ -181,14 +207,16 @@ class F32Plan:
     flat: bool = False
     splits: int = 1
     tail_rows: int = 0
+    path: int = 0
+    cost: float = dataclasses.field(default=0.0, compare=False)
 
     @property
     def bm(self) -> int:
-        return F32_TILES[self.tile][0]
+        return f32_tile(self.tile)[0]
 
     @property
     def bn(self) -> int:
-        return F32_TILES[self.tile][1]
+        return f32_tile(self.tile)[1]
 
     @property
     def grid(self) -> tuple:
@@ -232,31 +260,97 @@ def _valid_splits(K: int, splits: int) -> bool:
 
 
 def f32_gemm_plan(M: int, N: int, K: int, n_sm: int, groups: int = 1,
-                  mn_groups: bool = False) -> F32Plan:
+                  mn_groups: bool = False, paths: tuple = (0,)) -> F32Plan:
     """The plan of one fp32 product of `groups` groups of M x N outputs over
-    depth K on a card of `n_sm` SMs. With `mn_groups` (an MN-major A whose
-    groups lie at a fixed stride, proj_rows) and M % 4 == 0 the groups' rows
-    are tiled as one M: a 16-byte chunk of 4 rows never crosses a group.
-    The tile and its split are those of the least modelled time
-    (`_launch_s` for each launch, plus a split's second pass): no split;
-    every tile's K cut into 2 to F32_MAX_SPLITS slices; or, for a K-major A,
-    the last row tiles of each group, as few as hold the last round's
-    tiles, cut into the slices that fit one round. An MN-major A's grids of
-    more than one round are not split (their splits measured slower than
-    modelled, PERF.md §6). The first on a tie.
-    F32_TILE_FORCE and F32_SPLIT_FORCE (every tile split) override the
-    pick."""
-    force = tuple(F32_TILE_FORCE) if F32_TILE_FORCE else None
-    return _f32_gemm_plan(M, N, K, n_sm, groups, mn_groups, force, F32_SPLIT_FORCE)
+    depth K on a card of `n_sm` SMs, on one of the `paths` the caller can
+    lay its operands out for (F32_PATHS). With `mn_groups` (an MN-major A
+    whose groups lie at a fixed stride, proj_rows) and M % 4 == 0 the
+    groups' rows are tiled as one M: a 16-byte chunk of 4 rows never crosses
+    a group. The path, tile and split are those of the least modelled time
+    (`_launch_s` for each launch at the path's rate, plus a split's second
+    pass): no split; every tile's K cut into 2 to F32_MAX_SPLITS slices; or,
+    for a K-major A, the last row tiles of each group, as few as hold the
+    last round's tiles, cut into the slices that fit one round. An MN-major
+    A's grids of more than one round are not split (their splits measured
+    slower than modelled, PERF.md §6). The first on a tie.
+    F32_TILE_FORCE, F32_SPLIT_FORCE (every tile split) and F32_PATH_FORCE
+    (where `paths` holds it) override the pick."""
+    return _f32_gemm_plan(M, N, K, n_sm, groups, mn_groups, _forced_tile(), F32_SPLIT_FORCE,
+                          _offered_paths(paths))
 
 
-def _launch_s(blocks: int, bm: int, bn: int, depth: int, n_sm: int) -> float:
-    """The modelled seconds of a launch of `blocks` blocks of one tile over
-    `depth` of K: each SM's ceil(blocks / n_sm) blocks in rounds of
-    F32_TILE_BLOCKS co-resident ones, a round's rate scaled down while its
+def _forced_tile() -> Optional[int]:
+    """F32_TILE_FORCE as a tile number."""
+    t = F32_TILE_FORCE
+    return F32_TILES.index(tuple(t)) if t is not None and not isinstance(t, int) else t
+
+
+def _offered_paths(paths: tuple) -> tuple:
+    """The paths of `paths` that F32_PATH_FORCE and F32_TILE_FORCE leave:
+    the forced path where offered, and those that take the forced tile."""
+    if F32_PATH_FORCE is not None and F32_PATH_FORCE in paths:
+        paths = (F32_PATH_FORCE,)
+    t = _forced_tile()
+    return tuple(p for p in paths if t is None or (p, t) in F32_PATH_RATE)
+
+
+def f32_path_overhead_s(path: int, M: int, K: int, weights: int) -> float:
+    """The modelled seconds of an LN-fed call's passes besides its products
+    on `path`: the LN rows over M x K (x read, the rows written), and on
+    path 1 the transposes of `weights` weight elements, one launch more."""
+    s = 8.0 * M * K / F32_LN_BYTES_S[path]
+    return s + (8.0 * weights / F32_TRANSPOSE_BYTES_S + F32_FINISH_S if path == 1 else 0.0)
+
+
+def f32_mlp_plans(M: int, rows: int, K: int, H: int, n_sm: int) -> tuple:
+    """The plans of #4/#5's two products over a row panel of `rows` of its
+    M rows, fc1 (rows x H over K) and fc2 (rows x K over H), on one path
+    (the hidden's layout joins them): the path of the least modelled time
+    of a call, its panels' products and `f32_path_overhead_s`."""
+    panels = -(-M // rows)
+    plans = [(f32_gemm_plan(rows, H, K, n_sm, paths=(p,)),
+              f32_gemm_plan(rows, K, H, n_sm, paths=(p,))) for p in _offered_paths(F32_PATHS)]
+    return min(plans, key=lambda pp: panels * (pp[0].cost + pp[1].cost)
+               + f32_path_overhead_s(pp[0].path, M, K, 2 * H * K))
+
+
+def mn_ld(m: int) -> int:
+    """The leading dimension of an MN-major scratch over m rows
+    (csrc/sgemm_f32.cuh mn_ld): m rounded up to whole 16-byte chunks."""
+    return -(-m // 4) * 4
+
+
+def f32_scratch(device, *elems: int) -> list:
+    """One fp32 allocation cut into buffers of `elems` floats each (each a
+    multiple of 4: 16-byte aligned): the tensor, which the caller holds
+    until the launch is queued, and the buffers' data pointers (None for 0
+    elements)."""
+    buf = torch.empty(sum(elems), dtype=torch.float32, device=device)
+    ptr, out = buf.data_ptr(), []
+    for n in elems:
+        out.append(ptr if n else None)
+        ptr += 4 * n
+    return buf, out
+
+
+def f32_tile(t: int) -> tuple:
+    """Tile number t's (BM, BN, blocks an SM, rate on path 0): F32_TILES,
+    then F32_MN_TILES (which only path 1 takes, at its own rates)."""
+    if t < len(F32_TILES):
+        tl = F32_TILES[t]
+        return (*tl, F32_TILE_BLOCKS[tl], F32_TILE_RATE[tl])
+    tl = F32_MN_TILES[t - len(F32_TILES)]
+    return (*tl, F32_MN_TILE_BLOCKS[tl], F32_TILE_RATE[tl])
+
+
+def _launch_s(blocks: int, t: int, depth: int, n_sm: int, path: int = 0) -> float:
+    """The modelled seconds of a launch of `blocks` blocks of tile number t
+    over `depth` of K on `path`: each SM's ceil(blocks / n_sm) blocks in
+    rounds of its co-resident ones, a round's rate scaled down while its
     warps are fewer than F32_FULL_WARPS."""
-    occ, warps = F32_TILE_BLOCKS[(bm, bn)], bm * bn // 2048
-    block_s = 2.0 * bm * bn * depth / (F32_SM_FLOPS * F32_TILE_RATE[(bm, bn)])
+    bm, bn, occ, rate = f32_tile(t)
+    warps = bm * bn // 2048
+    block_s = 2.0 * bm * bn * depth / (F32_SM_FLOPS * rate * F32_PATH_RATE[(path, t)])
     full, rem = divmod(-(-blocks // n_sm), occ)
 
     def rnd(n: int) -> float:
@@ -266,21 +360,26 @@ def _launch_s(blocks: int, bm: int, bn: int, depth: int, n_sm: int) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def _f32_gemm_plan(M, N, K, n_sm, groups, mn_groups, force_tile, force_split) -> F32Plan:
+def _f32_gemm_plan(M, N, K, n_sm, groups, mn_groups, force_tile, force_split,
+                   paths=(0,)) -> F32Plan:
     flat = mn_groups and groups > 1 and M % 4 == 0
     if flat:
         M, groups = M * groups, 1
-    tiles = [F32_TILES.index(force_tile)] if force_tile else range(len(F32_TILES))
     best = None
-    for t in tiles:
-        bm, bn = F32_TILES[t]
-        plan = F32Plan(t, groups, M, N, K, flat)
+    for path, t in F32_PATH_RATE:
+        if path not in paths or force_tile not in (None, t):
+            continue
+        bm, bn, occ, _ = f32_tile(t)
+        plan = F32Plan(t, groups, M, N, K, flat, path=path)
         gx, gy, _ = plan.grid
-        slots = n_sm * F32_TILE_BLOCKS[(bm, bn)]
+        slots = n_sm * occ
         rem = plan.tiles % slots
 
         def finish(tail: int, s: int) -> float:
             return F32_FINISH_S + (s + 2) * tail * bm * bn * 4 / F32_HBM_BYTES_S
+
+        def launch(blocks: int, depth: int, t=t, path=path) -> float:
+            return _launch_s(blocks, t, depth, n_sm, path)
 
         if force_split:  # every tile's K in at most that many slices
             s = min(force_split, -(-K // F32_BK))
@@ -288,7 +387,7 @@ def _f32_gemm_plan(M, N, K, n_sm, groups, mn_groups, force_tile, force_split) ->
                 s -= 1
             options = [(0.0, s, gy if s > 1 else 0)]
         else:
-            options = [(_launch_s(plan.tiles, bm, bn, K, n_sm), 1, 0)]
+            options = [(launch(plan.tiles, K), 1, 0)]
         tr = -(-rem // (gx * groups))  # the row tiles a group that hold the last round's
         tail = gx * tr * groups
         for s in range(2, F32_MAX_SPLITS + 1):
@@ -296,15 +395,15 @@ def _f32_gemm_plan(M, N, K, n_sm, groups, mn_groups, force_tile, force_split) ->
             if (force_split or depth < F32_MIN_SLICE * F32_BK or not _valid_splits(K, s)
                     or (mn_groups and plan.tiles > slots)):
                 continue
-            options.append((_launch_s(plan.tiles * s, bm, bn, depth, n_sm)
-                            + finish(plan.tiles, s), s, gy))
+            options.append((launch(plan.tiles * s, depth) + finish(plan.tiles, s), s, gy))
             if rem and not mn_groups and tail < plan.tiles and tail * s <= slots:
-                options.append((_launch_s(plan.tiles - tail, bm, bn, K, n_sm)
-                                + _launch_s(tail * s, bm, bn, depth, n_sm) + finish(tail, s),
-                                s, tr))
+                options.append((launch(plan.tiles - tail, K) + launch(tail * s, depth)
+                                + finish(tail, s), s, tr))
         for cost, s, rows in options:
             if best is None or cost < best[0]:
-                best = (cost, dataclasses.replace(plan, splits=s, tail_rows=rows))
+                best = (cost, dataclasses.replace(plan, splits=s, tail_rows=rows, cost=cost))
+    if best is None:
+        raise ValueError(f"fp32 GEMM: tile {force_tile} is on none of the paths {paths}")
     return best[1]
 
 
@@ -467,26 +566,66 @@ def ln_linear_act_bt(
                         (x, gamma, beta, w, b), (eps, activation))
 
 
-def _ln_linear_act_f32_cuda(x, gamma, beta, w, b, eps, activation):
-    """The fp32 instance (MaPLe training's vision LN1 + qkv,
-    csrc/ln_linear_f32.cu): the LN rows in an fp32 scratch, the product on
-    the CUDA cores in full fp32."""
-    name = "ln_linear_act_bt (float32)"
+@functools.lru_cache(maxsize=None)
+def _ln_linear_f32_spec(M: int, K: int, N: int, n_sm: int, *forced) -> tuple:
+    """#2's and #3's plan at one shape, on the path of the least modelled
+    time (its product's and `f32_path_overhead_s`), and their scratch:
+    the LN rows' floats (M K, or K mn_ld(M) MN-major), the split-K
+    workspace's and W^T's (path 1). `forced`: the F32_*_FORCE settings, part
+    of the cache's key."""
+    plan = min((f32_gemm_plan(M, N, K, n_sm, paths=(p,)) for p in _offered_paths(F32_PATHS)),
+               key=lambda p: p.cost + f32_path_overhead_s(p.path, M, K, N * K))
+    if plan.path == 0:
+        return plan, (M * K, plan.ws_elems, 0)
+    return plan, (K * mn_ld(M), plan.ws_elems, N * K)
+
+
+_CHECKED: dict = {}
+
+
+def _checked(check, name, *tensors):
+    """`check(name, *tensors)` run once per signature of the tensors'
+    shapes and dtypes, which are all the fp32 wrappers' checks read: its
+    result, kept."""
+    key = (check, *[(t.shape, t.dtype) for t in tensors])
+    out = _CHECKED.get(key)
+    if out is None:
+        out = _CHECKED[key] = check(name, *tensors)
+    return out
+
+
+def _check_ln_linear_f32(name, x, gamma, beta, w, b):
     _cuda.check_dtype(name, torch.float32, x, gamma, beta, w, b)
     B, S, K = x.shape
     N = w.shape[0]
     if w.shape != (N, K) or b.shape != (N,) or gamma.shape != (K,) or beta.shape != (K,):
         raise ValueError(f"{name}: shapes x {x.shape} w {w.shape}")
     _check_f32_widths(name, K, N)
-    M = B * S
+    return B, S, K, N
+
+
+def _ln_linear_f32_launch(x, M, K, N):
+    """The plan and the scratch pointers (LN rows, workspace, W^T) of one
+    call, the plan cached per shape and forced settings."""
+    plan, elems = _ln_linear_f32_spec(M, K, N, _cuda.sm_count(x.device), F32_TILE_FORCE,
+                                      F32_SPLIT_FORCE, F32_PATH_FORCE)
+    buf, (xn, ws, wt) = f32_scratch(x.device, *elems)
+    return plan, buf, xn, ws, wt
+
+
+def _ln_linear_act_f32_cuda(x, gamma, beta, w, b, eps, activation):
+    """The fp32 instance (MaPLe training's vision LN1 + qkv, the cascade's
+    SAM and CLIP qkv at --dtype float32, csrc/ln_linear_f32.cu): the LN rows
+    in an fp32 scratch, the product on the CUDA cores in full fp32, on the
+    plan's path."""
+    B, S, K, N = _checked(_check_ln_linear_f32, "ln_linear_act_bt (float32)", x, gamma, beta,
+                          w, b)
+    plan, buf, xn, ws, wt = _ln_linear_f32_launch(x, B * S, K, N)
     out = torch.empty((B, S, N), dtype=x.dtype, device=x.device)
-    xn = torch.empty((M, K), dtype=x.dtype, device=x.device)  # the LN rows' scratch
-    plan = f32_gemm_plan(M, N, K, _cuda.sm_count(x.device))
-    ws = f32_workspace(x.device, plan)
     _cuda.LN_LINEAR_F32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), xn.data_ptr(), _ptr(ws), M, K, N, float(eps),
-        _cuda.ACTIVATIONS[activation], plan.tile, plan.splits, plan.tail_rows,
+        out.data_ptr(), xn, ws, wt, B * S, K, N, float(eps), _cuda.ACTIVATIONS[activation],
+        plan.tile, plan.splits, plan.tail_rows, plan.path,
     )
     return out
 
@@ -547,22 +686,24 @@ def _check_mask_shapes(name, x, gamma, beta, mask, w, b, dtype):
     return Bp, S, K, N, nwin
 
 
+def _check_mask_f32(name, *tensors):
+    out = _check_mask_shapes(name, *tensors, torch.float32)
+    _check_f32_widths(name, out[2], out[3])
+    return out
+
+
 def _ln_mask_linear_f32_cuda(x, gamma, beta, mask, w, b, eps):
     """The fp32 instance (SAM's global blocks at --dtype float32,
     csrc/ln_linear_f32.cu): the masked LN rows in an fp32 scratch, the
-    product on the CUDA cores in full fp32."""
-    name = "ln_mask_linear_bt (float32)"
-    Bp, S, K, N, nwin = _check_mask_shapes(name, x, gamma, beta, mask, w, b, torch.float32)
-    _check_f32_widths(name, K, N)
-    M = Bp * S
+    product on the CUDA cores in full fp32, on the plan's path."""
+    Bp, S, K, N, nwin = _checked(_check_mask_f32, "ln_mask_linear_bt (float32)", x, gamma, beta,
+                                 mask, w, b)
+    plan, buf, xn, ws, wt = _ln_linear_f32_launch(x, Bp * S, K, N)
     out = torch.empty((Bp, S, N), dtype=x.dtype, device=x.device)
-    xn = torch.empty((M, K), dtype=x.dtype, device=x.device)  # the LN rows' scratch
-    plan = f32_gemm_plan(M, N, K, _cuda.sm_count(x.device))
-    ws = f32_workspace(x.device, plan)
     _cuda.LN_MASK_LINEAR_F32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mask.data_ptr(), w.data_ptr(),
-        b.data_ptr(), out.data_ptr(), xn.data_ptr(), _ptr(ws), M, K, N, S, nwin, float(eps),
-        plan.tile, plan.splits, plan.tail_rows,
+        b.data_ptr(), out.data_ptr(), xn, ws, wt, Bp * S, K, N, S, nwin, float(eps),
+        plan.tile, plan.splits, plan.tail_rows, plan.path,
     )
     return out
 
@@ -660,27 +801,45 @@ def _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2, dtype=torch.bfloat16
     return K, H
 
 
+@functools.lru_cache(maxsize=None)
+def _ln_mlp_f32_spec(M: int, K: int, H: int, n_sm: int, *forced) -> tuple:
+    """#4/#5's row panel, its two plans on one path (`f32_mlp_plans`) and
+    its scratch: the LN rows', the hidden's, the split-K workspace's and
+    W1^T and W2^T's floats (rows K, rows H, ..., 0; or MN-major K
+    mn_ld(rows), H mn_ld(rows), ..., 2 H K).
+    `forced`: the F32_*_FORCE settings and MLP_SCRATCH_ELEMS, part of the
+    cache's key."""
+    rows = mlp_panel_rows(M, H)
+    p1, p2 = f32_mlp_plans(M, rows, K, H, n_sm)
+    ld = rows if p1.path == 0 else mn_ld(rows)
+    return rows, p1, p2, (K * ld, H * ld, max(p1.ws_elems, p2.ws_elems),
+                          2 * H * K if p1.path == 1 else 0)
+
+
+def _check_mlp_f32(name, *tensors):
+    K, H = _check_mlp_shapes(name, *tensors, torch.float32)
+    _check_f32_widths(name, K, H)
+    return K, H
+
+
 def _ln_mlp_residual_f32_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation):
     """The fp32 instance (the CLIP towers in MaPLe training and the bank
-    precompute's text tower): the LN rows and the hidden in fp32 scratch,
-    products on the CUDA cores in full fp32, per row panel of
-    `mlp_panel_rows`."""
-    name = "ln_mlp_residual_bt (float32)"
-    K, H = _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2, torch.float32)
-    _check_f32_widths(name, K, H)
+    precompute's text tower; SAM's and CLIP's MLPs in the cascade at --dtype
+    float32): the LN rows and the hidden in fp32 scratch, products on the
+    CUDA cores in full fp32, per row panel of `mlp_panel_rows`, on the
+    plans' path."""
+    K, H = _checked(_check_mlp_f32, "ln_mlp_residual_bt (float32)", x, gamma, beta, w1, b1, w2,
+                    b2)
     M = x.numel() // K
-    rows = mlp_panel_rows(M, H)
-    n_sm = _cuda.sm_count(x.device)
+    rows, p1, p2, elems = _ln_mlp_f32_spec(M, K, H, _cuda.sm_count(x.device), F32_TILE_FORCE,
+                                           F32_SPLIT_FORCE, F32_PATH_FORCE, MLP_SCRATCH_ELEMS)
+    buf, (xn, h, ws, wt) = f32_scratch(x.device, *elems)
     out = torch.empty_like(x)
-    scratch = torch.empty(rows * (K + H), dtype=x.dtype, device=x.device)
-    xn = scratch.data_ptr()
-    p1, p2 = f32_gemm_plan(rows, H, K, n_sm), f32_gemm_plan(rows, K, H, n_sm)
-    ws = f32_workspace(x.device, p1, p2)
     _cuda.LN_MLP_RESIDUAL_F32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), xn, xn + 4 * rows * K, _ptr(ws), M, K, H,
-        rows, float(eps), _cuda.ACTIVATIONS[activation], p1.tile, p1.splits, p1.tail_rows,
-        p2.tile, p2.splits, p2.tail_rows,
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), xn, h, ws, wt, M, K, H, rows, float(eps),
+        _cuda.ACTIVATIONS[activation], p1.tile, p1.splits, p1.tail_rows, p2.tile, p2.splits,
+        p2.tail_rows, p1.path,
     )
     return out
 

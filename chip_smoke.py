@@ -429,11 +429,12 @@ def phase_build():
             log(f"[build] {m.group(1)}: {'; '.join(usage)}")
     # csrc/sgemm_f32.cuh's instantiations (each source's own: four tiles, with
     # and without split K, per operand layout and epilogue), in one line
-    sg = []
+    sg, sg_names = [], []
     for i, ln in enumerate(lines):
         m = re.search(r"Compiling entry function '_ZN4cvlm3f32\S*?12sgemm_kernelINS\S*?TileILi(\d+)"
-                      r"ELi(\d+)E", ln)
+                      r"ELi(\d+)ELi\d+ELi(\d+)E", ln)
         if m:
+            sg_names.append((ln, m.group(3)))
             used = " ".join(lines[i + 1:i + 4])
             r = re.search(r"Used (\d+) registers", used)
             sp = re.search(r"(\d+) bytes spill stores", used)
@@ -445,9 +446,13 @@ def phase_build():
     regs = {t: f"{min(r)}-{max(r)}" for t, r in by_tile.items()}
     smem = {f"{bm}x{bn}": 3 * (bm + bn) * 32 * 4
             for bm, bn in ((128, 128), (64, 128), (128, 64), (64, 64))}
+    # the MN path's (both operands MN-major; its own tiles at 3 and 2 blocks an SM)
+    mn = sorted({(f"{t}/{b}", r) for (t, r, _), (ln, b) in zip(sg, sg_names)
+                 if "EEELi1ELi1E" in ln})
     log(f"[build] sgemm_kernel (csrc/sgemm_f32.cuh): {len(sg)} instantiations, registers by "
         f"tile {regs}, {sum(1 for *_, sp in sg if sp)} with spills; dynamic shared memory per "
-        f"block {smem} B (3 stages of 32-deep k tiles)")
+        f"block {smem} B (3 stages of 32-deep k tiles); the MN path's instances (tile/blocks "
+        f"an SM, registers): {mn}")
     check(sg and not any(sp for *_, sp in sg), f"[build] sgemm_kernel spills: {sg}")
     # csrc/attn_f32.cuh's loop: every instantiation (each source's own, per
     # depth, bias, output layout and tile) with its registers and spills,
@@ -978,13 +983,18 @@ def f32_library(kernel, args, eps, act):
     F.linear; #4/#5 F.layer_norm, F.linear, the activation, F.linear and the
     residual; #7 torch.baddbmm over the (B, T) groups with the bias folded
     into the residual outside the timed call (x as it lies, W^T for every
-    group); #1 F.linear; #3 none (the row mask)."""
+    group); #1 F.linear; #3 F.layer_norm, the row mask and F.linear."""
     import torch
 
     F = torch.nn.functional
     if kernel == "ln_linear_act_bt":
         x, g, b, w, bias = args
         return lambda: F.linear(F.layer_norm(x, (x.shape[-1],), g, b, eps), w, bias)
+    if kernel == "ln_mask_linear_bt":
+        x, g, b, mask, w, bias = args
+        Bp, S, K = x.shape
+        return lambda: F.linear((F.layer_norm(x, (K,), g, b, eps).view(-1, mask.shape[0], S, K)
+                                 * mask).view(Bp, S, K), w, bias)
     if kernel == "ln_mlp_residual_bt":
         x, g, b, w1, b1, w2, b2 = args
         f = ((lambda h: h * torch.sigmoid(1.702 * h)) if act == "quick_gelu"
@@ -2865,8 +2875,8 @@ def sam_f32_kernels(rn, per_shape):
     ViT-H at 1024 px: #1, #3, #13, #15, #17; `rn` draws fp32) against their plain fp32
     versions within 1e-4, at batch 1 and 2, each with its bound against the
     fp32 CUDA-core peak and one PyTorch call for the same function (#1
-    F.linear; #3 none, its product alone through F.linear as
-    `gemm_library`; #13 and #17 fp32 SDPA with the bias rel @ sel built
+    F.linear; #3 F.layer_norm, the row mask and F.linear, its product alone
+    through F.linear as `gemm_library`; #13 and #17 fp32 SDPA with the bias rel @ sel built
     outside the timed call; #15 SDPA with the pad key as one more key). The
     kernels line holds batch 1 and the batch-2 times beside it; #1's and
     #3's rows also go into `per_shape` for the fp32 [per_call] lines."""
@@ -2910,7 +2920,8 @@ def sam_f32_kernels(rn, per_shape):
         yield ("ln_mask_linear_bt_f32", "ln_linear_f32.cu", "linear.py:228",
                lambda *a: lin.ln_mask_linear_bt(*a, eps=eps),
                lambda *a: lin.ln_mask_linear_bt_ref(*a, eps=eps), args,
-               2.0 * B * G * G * D * 3 * D, None, None, lambda: F.linear(x, w))
+               2.0 * B * G * G * D * 3 * D, None, f32_library("ln_mask_linear_bt", args, eps, None),
+               lambda: F.linear(x, w))
         del x, w, b, args
         qkv, rel = rn(B * nf, WIN * WIN, 3 * D), rn(WIN * WIN, B * nf, NH * 32)
         bias = torch.matmul(rel.reshape(WIN * WIN, B * nf, NH, 32).permute(1, 2, 0, 3), sel32)

@@ -69,7 +69,9 @@ def _partition(tiles, size, extent):
 
 def _check_plan(plan, M, N, K, groups, mn):
     gx, gy, gz = plan.grid
-    assert (plan.bm, plan.bn) in lin.F32_TILES and 0 <= plan.tile < len(lin.F32_TILES)
+    assert 0 <= plan.tile < len(lin.F32_TILES) + len(lin.F32_MN_TILES)
+    assert lin.f32_tile(plan.tile)[:2] == (plan.bm, plan.bn)
+    assert plan.tile < len(lin.F32_TILES) or plan.path == 1  # the MN tiles: path 1 only
     # the C rows the tiles cover: groups of `rows` rows (C row g rows + m),
     # or one flat M of all groups' rows
     assert plan.rows * plan.groups == M * groups and (plan.n, plan.k) == (N, K)
@@ -194,3 +196,246 @@ def test_proj_rows_flattens_only_rows_in_whole_chunks():
     # one group, or an A that is not MN-major: never
     assert not lin.f32_gemm_plan(4096, 1280, 1280, N_SM, 1, mn_groups=True).flat
     assert not lin.f32_gemm_plan(196, 1280, 1280, N_SM, 8).flat
+
+
+# ------------------------------------------------- the LN-fed users' MN path
+#
+# #2, #3 and #4/#5 on path 1 (csrc/ln_linear_f32.cu, ln_mlp_residual_f32.cu):
+# the LN rows written MN-major by ln_rows_t_f32_kernel, the MLP's hidden by
+# fc1's EPI_ACT_T epilogue, both (K or H, mn_ld(rows)); the weights
+# transposed into a scratch (transpose_f32_kernel); every output one sum
+# over k in order.
+
+LN_T_ROWS, LN_T_THREADS = 32, 256  # sgemm_f32.cuh LNT_ROWS, THREADS
+CSRC = SGEMM.parent
+
+
+def _ln_rows_t_writes(M, K, ld):
+    """(flat index into xt, source row, source column) of every element
+    ln_rows_t_f32_kernel writes: block b takes rows 32 b.., thread t loads
+    row r = t / 8, columns k0 + 4 (t % 8) + i into tile[4 (t % 8) + i][r],
+    then writes tile[r][4 (t % 8) + i] to xt[(k0 + r) ld + 32 b + 4 (t % 8)
+    + i] where k0 + r < K and the chunk's first row < ld; rows >= M read
+    as zero (source row -1)."""
+    nb = -(-M // LN_T_ROWS)
+    t = torch.arange(LN_T_THREADS)
+    r, c = t // 8, t % 8
+    b = torch.arange(nb)[:, None]
+    idx, src_m, src_k = [], [], []
+    for k0 in range(0, K, LN_T_ROWS):
+        # the tile each block holds: tile[k][m] = (row, column) it was loaded from
+        tm = torch.full((nb, LN_T_ROWS, LN_T_ROWS), -1)
+        tk = torch.full((nb, LN_T_ROWS, LN_T_ROWS), -1)
+        for i in range(4):
+            m, kk = b * LN_T_ROWS + r, k0 + 4 * c + i
+            ok = (m < M) & (kk < K)
+            tm[:, 4 * c + i, r] = torch.where(ok, m, -1)
+            tk[:, 4 * c + i, r] = torch.where(ok, kk.expand_as(m), -1)
+        mo = b * LN_T_ROWS + 4 * c
+        for i in range(4):
+            ok = ((k0 + r < K) & (mo < ld)).expand(nb, -1)
+            idx.append(((k0 + r) * ld + mo + i)[ok])
+            src_m.append(tm[:, r, 4 * c + i][ok])
+            src_k.append(tk[:, r, 4 * c + i][ok])
+    return torch.cat(idx), torch.cat(src_m), torch.cat(src_k)
+
+
+@pytest.mark.parametrize("K", [768, 1024, 1280])
+@pytest.mark.parametrize("M", [1, 127, 128, 129, 581, 2016, 6272])
+def test_mn_ln_scratch_covers_every_element_once(M, K):
+    """The MN-major LN rows: every element of the (K, mn_ld(M)) scratch
+    written once, element (k, m) from x's row m, column k (rows M.. of the
+    last chunk zero)."""
+    ld = lin.mn_ld(M)
+    assert ld % 4 == 0 and M <= ld < M + 4
+    idx, src_m, src_k = _ln_rows_t_writes(M, K, ld)
+    assert torch.equal(torch.sort(idx).values, torch.arange(K * ld))
+    k, m = idx // ld, idx % ld
+    inside = m < M
+    assert torch.equal(src_m[inside], m[inside]) and torch.equal(src_k[inside], k[inside])
+    assert bool((src_m[~inside] == -1).all())
+
+
+def _hidden_t_writes(plan, ldt):
+    """(n, m) of every element fc1's EPI_ACT_T writes to the hidden (H, ldt)
+    in the first column tile of each row tile (the columns' partition is
+    `_check_plan`'s): a whole tile's threads their 8 x 8 outputs, a 4-row
+    chunk of a column when its first row < ldt; a split tile's second pass
+    each 4-row chunk of a column that starts below M (splitk_finish_kernel)."""
+    thr = lin.f32_thread_outputs(plan.bm, plan.bn).reshape(-1, 2)
+    blocks = [(m0, (k0, k1) != (0, plan.k)) for g, m0, n0, k0, k1 in lin.f32_blocks(plan)
+              if n0 == 0]
+    m0 = torch.tensor(sorted({m0 for m0, _ in blocks}))
+    split = torch.tensor([any(s for b, s in blocks if b == int(m)) for m in m0])
+    m, n = m0[:, None] + thr[None, :, 0], thr[None, :, 1].expand(len(m0), -1)
+    ok = (n < plan.n) & torch.where(split[:, None], m - m % 4 < plan.rows, m - m % 4 < ldt)
+    return torch.stack([n[ok], m[ok]], 1)
+
+
+@pytest.mark.parametrize("K", [768, 1024, 1280])
+@pytest.mark.parametrize("M", [1, 127, 128, 129, 581, 2016, 6272])
+def test_mn_hidden_covers_every_element_once(M, K):
+    """fc1 of #4/#5 on the MN path at H = 4 K, at its plan and with its K
+    cut in two: every hidden element (n, m < rows) of the row panel written
+    once, nothing outside (H, mn_ld(rows))."""
+    H, rows = 4 * K, lin.mlp_panel_rows(M, 4 * K)
+    ldt = lin.mn_ld(rows)
+    for splits in (None, 2):
+        plan = lin._f32_gemm_plan(rows, H, K, N_SM, 1, False, None, splits, (1,))
+        assert plan.path == 1
+        w = _hidden_t_writes(plan, ldt)
+        assert bool(((w[:, 0] < H) & (w[:, 1] < ldt)).all())
+        inside = w[w[:, 1] < rows]
+        flat = inside[:, 0] * rows + inside[:, 1]
+        assert torch.equal(torch.sort(flat).values, torch.arange(min(H, plan.bn) * rows))
+
+
+def test_plan_paths_match_the_kernel_source():
+    """The plan offers only the paths the C entries of #2, #3 and #4/#5 take
+    (`path == 0` the K-major layouts, path 1 the MN ones; any other
+    refused): path 0 on F32_TILES, path 1 on the MN tiles, numbered on from
+    F32_TILES, launch_sgemm's `run_sgemm_mn` cases with their MIN_BLOCKS;
+    at every LN-fed site the plans pick a path and a tile the sources
+    instantiate."""
+    for name in ("ln_linear_f32.cu", "ln_mlp_residual_f32.cu"):
+        src = (CSRC / name).read_text()
+        assert "path == 0" in src and re.search(r"path != 1|path > 1", src)
+        assert "launch_sgemm<MN_MAJOR, MN_MAJOR," in src and "launch_transpose(" in src
+    assert lin.F32_PATHS == (0, 1)
+    n_all = len(lin.F32_TILES) + len(lin.F32_MN_TILES)
+    assert set(lin.F32_PATH_RATE) == {(0, t) for t in range(len(lin.F32_TILES))} | {
+        (1, t) for t in range(len(lin.F32_TILES), n_all)}
+    mn = re.findall(r"case (\d+):\s*return run_sgemm_mn<Tile<(\d+), (\d+), \d+, (\d+)>",
+                    SGEMM.read_text())
+    assert [int(c) for c, *_ in mn] == list(range(len(lin.F32_TILES), n_all))
+    assert [(int(b), int(n)) for _, b, n, _ in mn] == list(lin.F32_MN_TILES)
+    assert {(int(b), int(n)): int(k) for _, b, n, k in mn} == lin.F32_MN_TILE_BLOCKS
+    for label, M, N, K, groups, mn_ in SITES:
+        if label.startswith(("#2", "#3")):
+            plan = lin._ln_linear_f32_spec(M, K, N, N_SM)[0]
+            assert (plan.path, plan.tile) in lin.F32_PATH_RATE
+            _check_plan(plan, M, N, K, groups, mn_)
+    for M, K, H in ((3136, 1280, 5120), (6272, 1280, 5120), (8192, 1280, 5120),
+                    (1162, 1024, 4096), (4697, 768, 3072)):
+        rows, p1, p2, _ = lin._ln_mlp_f32_spec(M, K, H, N_SM)
+        assert p1.path == p2.path in lin.F32_PATHS
+        assert (p1.rows, p1.n, p1.k, p2.rows, p2.n, p2.k) == (rows, H, K, rows, K, H)
+        assert all((p.path, p.tile) in lin.F32_PATH_RATE for p in (p1, p2))
+
+
+def _fma_sum(a, b, k0, k1, acc=None):
+    """sum over k in [k0, k1) of a[:, k] b[:, k]^T, in order, each step one
+    fmaf (the float64 product of two floats is exact; one rounding to
+    float32 a step)."""
+    acc = torch.zeros(a.shape[0], b.shape[0], dtype=torch.float32) if acc is None else acc
+    a64, b64 = a.double(), b.double()
+    for k in range(k0, k1):
+        acc = (acc.double() + a64[:, k, None] * b64[None, :, k]).float()
+    return acc
+
+
+def _mn_path_product(a, w, plan):
+    """The kernel's sums for plan `plan`: each output over its k range in
+    order, a split tile's slices added in slice order by the second pass."""
+    if plan.splits == 1:
+        return _fma_sum(a, w, 0, a.shape[1])
+    parts = [_fma_sum(a, w, k0, k1) for k0, k1 in plan.slices()]
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+@pytest.mark.parametrize("splits", [None, 2])
+@pytest.mark.parametrize("rows", [127, 129])
+def test_mn_path_order_of_sums_matches_plain(rows, splits):
+    """The MN path's order of sums (LN rows as ln_rows_t writes them, each
+    output one fmaf chain over k, split slices added in order; the MLP's
+    hidden rounded to fp32 then fc2 with bias and residual) within 1e-6 of
+    the plain versions of #2 and #4/#5."""
+    g = torch.Generator().manual_seed(0)
+    K, N = 200, 40
+
+    def r(*shape, std=1.0):
+        return torch.randn(*shape, generator=g) * std
+
+    x, gam, bet = r(1, rows, K) + 0.5, 1 + r(K, std=0.1), r(K, std=0.1)
+    w, b, w2, b2 = r(N, K, std=0.05), r(N, std=0.1), r(K, N, std=0.05), r(K, std=0.1)
+    xn = lin.ln_rows_ref(x, gam, bet, 1e-5).reshape(rows, K)
+    p1 = lin._f32_gemm_plan(rows, N, K, N_SM, 1, False, None, splits, (1,))
+    p2 = lin._f32_gemm_plan(rows, K, N, N_SM, 1, False, None, splits, (1,))
+    y = lin.apply_act(_mn_path_product(xn, w, p1) + b, "quick_gelu")
+    want = lin.ln_linear_act_bt_ref(x, gam, bet, w, b, eps=1e-5, activation="quick_gelu")
+    assert ((y - want.reshape(rows, N)).abs().max() / want.abs().max()).item() < 1e-6
+    h = lin.apply_act(_mn_path_product(xn, w, p1) + b, "gelu_tanh")
+    out = _mn_path_product(h, w2, p2) + b2 + x.reshape(rows, K)
+    want = lin.ln_mlp_residual_bt_ref(x, gam, bet, w, b, w2, b2, eps=1e-5,
+                                      activation="gelu_tanh")
+    assert ((out - want.reshape(rows, K)).abs().max() / want.abs().max()).item() < 1e-6
+
+
+@pytest.mark.parametrize("rows", [127, 128, 129])
+def test_ln_fed_users_match_jax_at_the_path_rows(rows):
+    """On the CPU the port's #2, #3 and #4/#5 (their plain versions, which
+    both paths are held to on the card) against the JAX functions, run as
+    the JAX package's tests run them, at the row counts around a 128-row
+    tile: within 1e-5 of the largest output."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    import numpy as np
+
+    from camouflaged_vlm_tpu.ops import linear as j_lin
+
+    rng = np.random.default_rng(rows)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    def close(got, want):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+
+    T, J = torch.from_numpy, jnp.asarray
+    K, N = 32, 48
+    x, g, be = rnd(2, rows, K, scale=2.0) + 0.5, 1 + rnd(K, scale=0.1), rnd(K, scale=0.1)
+    w, b, w2, b2 = rnd(K, N, scale=0.2), rnd(N), rnd(N, K, scale=0.1), rnd(K, scale=0.1)
+    mask = (rng.random((2, rows, 1)) > 0.3).astype(np.float32)
+    close(lin.ln_linear_act_bt(T(x), T(g), T(be), T(w.T.copy()), T(b), 1e-5, "quick_gelu"),
+          j_lin.ln_linear_act_bt(J(x), J(g[None]), J(be[None]), J(w), J(b[None]), eps=1e-5,
+                                 activation="quick_gelu"))
+    close(lin.ln_mask_linear_bt(T(x), T(g), T(be), T(mask), T(w.T.copy()), T(b), eps=1e-6),
+          j_lin.ln_mask_linear_bt(J(x), J(g[None]), J(be[None]), J(mask), J(w), J(b[None]),
+                                  eps=1e-6))
+    close(lin.ln_mlp_residual_bt(T(x), T(g), T(be), T(w.T.copy()), T(b), T(w2.T.copy()),
+                                 T(b2), eps=1e-5, activation="gelu_tanh"),
+          j_lin.ln_mlp_residual_bt(J(x), J(g[None]), J(be[None]), J(w), J(b[None]), J(w2),
+                                   J(b2[None]), eps=1e-5, activation="gelu_tanh"))
+
+
+def test_f32_wrapper_checks_run_once_per_signature():
+    """The fp32 LN-fed wrappers' shape and type checks (`linear._checked`)
+    run once per signature of shapes and dtypes, their result kept; a
+    signature that fails raises every time."""
+    calls = []
+
+    def check(name, *ts):
+        calls.append(name)
+        return ts[0].shape[-1]
+
+    x = torch.zeros(2, 3, 8)
+    assert lin._checked(check, "a", x) == lin._checked(check, "a", torch.ones(2, 3, 8)) == 8
+    lin._checked(check, "a", torch.zeros(2, 3, 4))
+    lin._checked(check, "a", torch.zeros(2, 3, 4, dtype=torch.float64))
+    assert len(calls) == 3
+    K, H = 8, 16
+    args = [torch.zeros(2, 3, K), torch.ones(K), torch.zeros(K), torch.zeros(H, K), torch.zeros(H),
+            torch.zeros(K, H), torch.zeros(K)]
+    assert lin._checked(lin._check_mlp_f32, "mlp", *args) == (K, H)
+    bad = args[:5] + [torch.zeros(H, K)] + args[6:]
+    for _ in range(2):
+        with pytest.raises(ValueError):
+            lin._checked(lin._check_mlp_f32, "mlp", *bad)
+    with pytest.raises(TypeError):
+        lin._checked(lin._check_ln_linear_f32, "ln", args[0].double(), *args[1:3], args[3],
+                     args[4])

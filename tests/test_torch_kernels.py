@@ -203,6 +203,66 @@ def test_ln_linear_act_bt_kernel_float32(gen, monkeypatch, no_tf32, tile, activa
     assert_close_f32(got, linear.ln_linear_act_bt_ref(*args, eps=1e-5, activation=activation))
 
 
+def _ln_fed_f32_calls(gen, rows):
+    """#2, #3 (two sequences of `rows` rows, a 0/1 row mask of two windows)
+    and #4/#5 in fp32 at `rows` rows, K 200 (not a multiple of the 32-deep
+    k tile), N and H 264: (name, CudaKernel, call, plain call)."""
+    f32 = torch.float32
+
+    def r(*shape, std=1.0):
+        return rn(gen, *shape, std=std, dtype=f32)
+
+    K, N = 200, 264
+    x, x3 = r(1, rows, K) + 0.5, r(2, rows, K)
+    g, be = 1 + r(K, std=0.1), r(K, std=0.1)
+    w, b, w2, b2 = r(N, K, std=0.05), r(N, std=0.1), r(K, N, std=0.05), r(K, std=0.1)
+    mask = (torch.rand(2, rows, 1, generator=gen, device="cuda") > 0.3).to(f32)
+    lin = linear
+    return [
+        ("#2", _cuda.LN_LINEAR_F32,
+         lambda: lin.ln_linear_act_bt(x, g, be, w, b, eps=1e-5, activation="quick_gelu"),
+         lambda: lin.ln_linear_act_bt_ref(x, g, be, w, b, eps=1e-5, activation="quick_gelu")),
+        ("#3", _cuda.LN_MASK_LINEAR_F32,
+         lambda: lin.ln_mask_linear_bt(x3, g, be, mask, w, b, eps=1e-6),
+         lambda: lin.ln_mask_linear_bt_ref(x3, g, be, mask, w, b, eps=1e-6)),
+        ("#4/#5", _cuda.LN_MLP_RESIDUAL_F32,
+         lambda: lin.ln_mlp_residual_bt(x, g, be, w, b, w2, b2, eps=1e-5, activation="gelu_tanh"),
+         lambda: lin.ln_mlp_residual_bt_ref(x, g, be, w, b, w2, b2, eps=1e-5,
+                                            activation="gelu_tanh")),
+    ]
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("tile", range(len(linear.F32_TILES) + len(linear.F32_MN_TILES)))
+@pytest.mark.parametrize("rows", [127, 128, 129, 581])
+def test_ln_fed_f32_users_on_each_path(gen, monkeypatch, no_tf32, splits, tile, rows):
+    """#2, #3 and #4/#5 in fp32 at each tile number on the path that takes
+    it (`linear.F32_PATH_RATE`: path 0 on F32_TILES, the MN path 1 on its
+    own), K whole (splits 1) and cut in 2 slices (the MN path's transposed
+    hidden through the second pass): within 1e-4 of plain (max and mean
+    relative, TF32 off), one launch of the fp32 instance a call, two calls
+    bit-equal, and bit-equal to path 0 at 64 x 128 with the same slices
+    (each output one sum over k in order, whatever the path and tile);
+    #4/#5 also in row panels of 128 rows, the last one ragged."""
+    monkeypatch.setattr(linear, "F32_SPLIT_FORCE", splits)
+    (path,) = [p for p in linear.F32_PATHS if (p, tile) in linear.F32_PATH_RATE]
+    for name, kernel, call, plain in _ln_fed_f32_calls(gen, rows):
+        want = plain()
+        for scratch in ((linear.MLP_SCRATCH_ELEMS, 128 * 264) if name == "#4/#5"
+                        else (linear.MLP_SCRATCH_ELEMS,)):
+            monkeypatch.setattr(linear, "MLP_SCRATCH_ELEMS", scratch)
+            monkeypatch.setattr(linear, "F32_TILE_FORCE", 1)
+            monkeypatch.setattr(linear, "F32_PATH_FORCE", 0)
+            ref = call()
+            monkeypatch.setattr(linear, "F32_TILE_FORCE", tile)
+            monkeypatch.setattr(linear, "F32_PATH_FORCE", path)
+            before = kernel.launches
+            got = call()
+            assert kernel.launches == before + 1, name
+            assert_close_f32(got, want)
+            assert torch.equal(got, call()) and torch.equal(got, ref), name
+
+
 @pytest.mark.parametrize("tile", linear.F32_TILES)
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("B,T,K,S,N", [(8, 1, 1024, 581, 1024), (1, 3, 64, 70, 96),
