@@ -57,8 +57,9 @@ from torch.profiler; --against FILE (another checkout's lines) adds
 whether each output is bit-equal to that checkout's. With --f32-gemm it does the same for every
 user of csrc/sgemm_f32.cuh (#1, #2, #3, #4/#5, #6, #7, #8/#9) at every shape
 of its paths (`f32_gemm_cases`), each line with its error against the plain
-version, both clocks and, on a checkout with the fp32 tile plan, the plans
-the call took (--tiles: the queued time at each tile, forced).
+version, both clocks, each launch's device ms (`kernel_launches_ms`) and,
+on a checkout with the fp32 tile plan, the plans the call took (--tiles:
+the queued time at each tile, forced).
 """
 
 from __future__ import annotations
@@ -354,25 +355,43 @@ def case_errors(smoke, got, want, names=("dqkv", "drel")):
             "per_output": per}
 
 
-def kernel_device_ms(call, iters=5):
-    """Device ms a call of each kernel `call` launches (torch.profiler over
-    `iters` calls after one more), by kernel name."""
+def kernel_launches_ms(call, iters=5):
+    """Device ms of each launch of one `call`, in launch order: each of
+    `iters` calls (after one more) traced on its own by torch.profiler, and
+    each launch's time averaged over the traces that hold the most common
+    number of launches: [kernel name with its template arguments, ms]; []
+    where no trace holds device time."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    traces = []
+    for _ in range(iters):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             call()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and "cvlm" in e.name),
+                     key=lambda e: e.time_range.start)
+        traces.append([(re.sub(r"\(.*$", "", re.sub(
+            r"\(anonymous namespace\)::|cvlm::|f32::|^void ", "", e.name)),
+            e.time_range.elapsed_us() / 1e3) for e in evs])
+    n = collections.Counter(len(t) for t in traces).most_common(1)[0][0]
+    traces = [t for t in traces if len(t) == n]
+    return [[traces[0][i][0], sum(t[i][1] for t in traces) / len(traces)] for i in range(n)]
+
+
+def kernel_device_ms(call, iters=5):
+    """Device ms a call of each kernel `call` launches, by kernel name
+    (`kernel_launches_ms` summed over the launches of each name, template
+    arguments dropped)."""
     out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-        if t and "cvlm" in e.key:
-            name = re.sub(r"\(anonymous namespace\)::", "", e.key)
-            name = re.sub(r"^void |<.*$|\(.*$", "", name).replace("cvlm::", "")
-            out[name] = out.get(name, 0.0) + t / 1e3 / iters
+    for name, ms in kernel_launches_ms(call, iters):
+        name = re.sub(r"<.*$", "", name)
+        out[name] = out.get(name, 0.0) + ms
     return out
 
 
@@ -664,57 +683,64 @@ def f32_attention(smoke, label, against, tiles):
 
 
 def f32_gemm_cases(smoke, rn):
-    """(name, site, zero-argument call, plain call, library call or None)
-    of every user of csrc/sgemm_f32.cuh at every shape of its paths, inputs drawn in a fixed
-    order from `rn` (fp32): the fp32 cascade's (`chip_smoke.f32_gemm_cases`:
-    #1, #2, #4/#5, #7 at batch 2 and 1, the text tower's #4/#5), #3 at the
-    global blocks at batch 2 and 1, MaPLe's (batch 8: #2, #7, #4/#5 and the
-    backward #6 at the vision and text widths), #6 at SAM ViT-H's three row
-    sets (batch 2, dx), #8 and #9 at window 17."""
+    """(name, site, zero-argument call, plain call, library call or None,
+    the products alone or None) of every user of csrc/sgemm_f32.cuh at
+    every shape of its paths, inputs drawn in a fixed order from `rn`
+    (fp32): the fp32 cascade's (`chip_smoke.f32_gemm_cases`: #1, #2, #4/#5,
+    #7 at batch 2 and 1, the text tower's #4/#5), #3 at the global blocks
+    at batch 2 and 1, MaPLe's (batch 8: #2, #7, #4/#5 and the backward #6 at
+    the vision and text widths), #6 at SAM ViT-H's three row sets (batch 2
+    and 1, dx; its library the composite of `chip_smoke.mlp_bwd_library`),
+    #8 and #9 at window 17."""
     from camouflaged_vlm_tpu_torch.ops import linear as lin
 
     def named(kernel):
         return kernel + "_f32"
 
     out = []
-    for kernel, site, b, kfn, pfn, args, _, library, _ in smoke.f32_gemm_cases(rn):
+    for kernel, site, b, kfn, pfn, args, _, library, gemm in smoke.f32_gemm_cases(rn):
         out.append((named(kernel), f"{site} batch {b}", lambda f=kfn, a=args: f(*a),
-                    lambda f=pfn, a=args: f(*a), library))
+                    lambda f=pfn, a=args: f(*a), library, gemm))
     for b in (2, 1):
-        kfn, pfn, args, *_ = smoke.ln_gemm_case(rn, "ln_mask_linear_bt", (b, 4096), 1280, 3840,
-                                                1e-6, None)
+        kfn, pfn, args, _, gemm = smoke.ln_gemm_case(rn, "ln_mask_linear_bt", (b, 4096), 1280,
+                                                     3840, 1e-6, None)
         out.append((named("ln_mask_linear_bt"), f"global batch {b}",
                     lambda f=kfn, a=args: f(*a), lambda f=pfn, a=args: f(*a),
-                    smoke.f32_library("ln_mask_linear_bt", args, 1e-6, None)))
+                    smoke.f32_library("ln_mask_linear_bt", args, 1e-6, None), gemm))
     B, S = smoke.MAPLE_B, smoke.MAPLE_S
     for kernel, lead, K, N in (("ln_linear_act_bt", (B, S), 1024, 3072),
                                ("ln_mlp_residual_bt", (B, S), 1024, 4096)):
         act = None if kernel == "ln_linear_act_bt" else "quick_gelu"
-        kfn, pfn, args, *_ = smoke.ln_gemm_case(rn, kernel, lead, K, N, 1e-5, act)
+        kfn, pfn, args, _, gemm = smoke.ln_gemm_case(rn, kernel, lead, K, N, 1e-5, act)
         out.append((named(kernel), f"MaPLe {B}x{S}", lambda f=kfn, a=args: f(*a),
-                    lambda f=pfn, a=args: f(*a), smoke.f32_library(kernel, args, 1e-5, act)))
-    args, *_ = smoke.proj_rows_case(rn, (B, 1, 1024, S), 1024)
+                    lambda f=pfn, a=args: f(*a), smoke.f32_library(kernel, args, 1e-5, act),
+                    gemm))
+    args, _, gemm = smoke.proj_rows_case(rn, (B, 1, 1024, S), 1024)
     out.append((named("proj_rows"), f"MaPLe {B}x{S}", lambda a=args: lin.proj_rows(*a),
                 lambda a=args: lin.proj_rows_ref(*a),
-                smoke.f32_library("proj_rows", args, 0, None)))
+                smoke.f32_library("proj_rows", args, 0, None), gemm))
     for site, lead, K, H, eps, act in (
             (f"MaPLe vision {B}x{S}", (B, S), 1024, 4096, 1e-5, "quick_gelu"),
             (f"MaPLe text {smoke.MAPLE_CLASSES}x77", (smoke.MAPLE_CLASSES, 77), 768, 3072, 1e-5,
              "quick_gelu"),
             ("SAM global batch 2", (2, 4096), 1280, 5120, 1e-6, "gelu_tanh"),
             ("SAM windows batch 2", (32, 196), 1280, 5120, 1e-6, "gelu_tanh"),
-            ("SAM edge batch 2", (2, 1008), 1280, 5120, 1e-6, "gelu_tanh")):
+            ("SAM edge batch 2", (2, 1008), 1280, 5120, 1e-6, "gelu_tanh"),
+            ("SAM global batch 1", (1, 4096), 1280, 5120, 1e-6, "gelu_tanh"),
+            ("SAM windows batch 1", (16, 196), 1280, 5120, 1e-6, "gelu_tanh"),
+            ("SAM edge batch 1", (1, 1008), 1280, 5120, 1e-6, "gelu_tanh")):
         _, _, args, *_ = smoke.ln_gemm_case(rn, "ln_mlp_residual_bt", lead, K, H, eps, act)
         a = args + (rn(*lead, K),)
         out.append((named("ln_mlp_residual_bt_bwd"), site,
                     lambda a=a, e=eps, c=act: lin.ln_mlp_residual_bt_bwd(
                         *a, eps=e, activation=c, weights=False)[0],
                     lambda a=a, e=eps, c=act: lin.ln_mlp_residual_bt_bwd_ref(
-                        *a, eps=e, activation=c, weights=False)[0], None))
+                        *a, eps=e, activation=c, weights=False)[0],
+                    *smoke.mlp_bwd_library(a, eps, act)))
     args, *_ = smoke.proj_heads_case(rn, 2)
     for name, a in (("proj_from_heads_res", args), ("proj_from_heads", args[:3])):
         out.append((named(name), "window 17 batch 2", lambda f=getattr(lin, name), a=a: f(*a),
-                    lambda a=a: lin.proj_from_heads_ref(*a), None))
+                    lambda a=a: lin.proj_from_heads_ref(*a), None, None))
     return out
 
 
@@ -726,9 +752,10 @@ def f32_gemm(smoke, label, against, tiles):
     `tiles`, the queued time at each of F32_TILES forced and, at the plans'
     tile, with every tile's K cut into 1 to 4 slices; the host's us a call
     through the wrapper and through its CudaKernel alone, and the library
-    call's times (`chip_smoke.f32_library`); where the caller offers more
-    than one path (F32_PATHS), each path forced: both clocks, each kernel's
-    device ms and, with `tiles`, the queued time at each tile the path takes;
+    call's times (`chip_smoke.f32_library`) and of the products alone, each
+    launch's device ms; where the caller offers more than one path
+    (F32_PATHS), each path forced: both clocks, each launch's device ms and,
+    with `tiles`, the queued time at each tile the path takes;
     with `against` (a JSONL file of another checkout's lines), whether the
     output is bit-equal to that checkout's."""
     import hashlib
@@ -762,10 +789,11 @@ def f32_gemm(smoke, label, against, tiles):
         lin.f32_gemm_plan = record
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.no_grad():
-        for name, site, call, plain, library in f32_gemm_cases(smoke, rn):
+        for name, site, call, plain, library, gemm in f32_gemm_cases(smoke, rn):
             picks.clear()
             offered.clear()
-            for spec in ("_ln_linear_f32_spec", "_ln_mlp_f32_spec"):  # plans cached per shape
+            # the plans are cached per shape: cleared, so that `record` sees them
+            for spec in ("_ln_linear_f32_spec", "_ln_mlp_f32_spec", "_ln_mlp_bwd_f32_spec"):
                 if hasattr(lin, spec):
                     getattr(lin, spec).cache_clear()
             got = call()
@@ -785,8 +813,12 @@ def f32_gemm(smoke, label, against, tiles):
             if library is not None:
                 rec.update(library_ms=smoke.time_ms(library),
                            library_queued_ms=smoke.time_ms(library, queued=True))
+            if gemm is not None:
+                rec.update(gemm_ms=smoke.time_ms(gemm),
+                           gemm_queued_ms=smoke.time_ms(gemm, queued=True))
+            rec["launches_device_ms"] = kernel_launches_ms(call)
             if len(offered) > 1:  # each path the caller offers, forced: both clocks,
-                # each kernel's device ms, whether its output is bit-equal to the
+                # each launch's device ms, whether its output is bit-equal to the
                 # plan's, and with `tiles` the queued time at each tile number it takes
                 rec["paths_ms"], rec["paths_bit_equal"], rec["paths_device_ms"] = {}, {}, {}
                 for p in sorted(offered):
@@ -794,7 +826,7 @@ def f32_gemm(smoke, label, against, tiles):
                     out = call()
                     rec["paths_bit_equal"][p] = bool(torch.equal(out, got))
                     rec["paths_ms"][p] = [smoke.time_ms(call), smoke.time_ms(call, queued=True)]
-                    rec["paths_device_ms"][p] = kernel_device_ms(call)
+                    rec["paths_device_ms"][p] = kernel_launches_ms(call)
                     if tiles:
                         for pp, t in lin.F32_PATH_RATE:
                             if pp != p:

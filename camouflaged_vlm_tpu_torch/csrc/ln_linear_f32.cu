@@ -51,7 +51,8 @@ int ln_linear(const float* x, const float* gamma, const float* beta, const float
   }
   if (path != 1 || wt == nullptr) return (int)cudaErrorInvalidValue;
   int err = launch_transpose(w, wt, N, K, s);
-  if (!err) err = launch_ln_rows_t(x, gamma, beta, xn, M, K, mn_ld(M), eps, s, mask, S, nwin);
+  if (!err)
+    err = launch_ln_rows_t(x, gamma, beta, xn, nullptr, M, K, mn_ld(M), eps, s, mask, S, nwin);
   if (err) return err;
   return launch_sgemm<MN_MAJOR, MN_MAJOR, EPI_ACT>(xn, mn_ld(M), 0, wt, N, b, nullptr, out,
                                                    nullptr, M, N, K, act, plan, 1, s);

@@ -88,7 +88,7 @@ extern "C" int cvlm_ln_mlp_residual_f32(const void* x, const void* gamma, const 
         err = launch_sgemm<K_MAJOR, K_MAJOR, EPI_RES>(hp, H, 0, w2p, H, b2p, xr, orow, nullptr,
                                                       m, K, H, cvlm::ACT_NONE, p2, 1, s);
     } else {  // the panel's scratches at the full panel's ld
-      err = launch_ln_rows_t(xr, g, be, xnp, m, K, ld, eps, s);
+      err = launch_ln_rows_t(xr, g, be, xnp, nullptr, m, K, ld, eps, s);
       if (!err)
         err = launch_sgemm<MN_MAJOR, MN_MAJOR, EPI_ACT_T>(xnp, ld, 0, w1t, H, b1p, nullptr, hp,
                                                           nullptr, m, H, K, act, p1, 1, s, 0, 0,

@@ -28,8 +28,9 @@
 //                 (the d-major attention output (K, S), W2 (K, H) and W1 (H, K)
 //                 as the backward reads them); a stage [32][rows];
 //   - the MN path, where both operands are MN_MAJOR (the LN-fed users #2,
-//     #3, #4/#5: their LN rows and hidden written MN-major, each weight
-//     transposed into a scratch, transpose_f32_kernel): each thread reads
+//     #3, #4/#5 and the MLP backward #6: their LN rows, hidden, upstream
+//     gradient and dh written MN-major, each weight that is K-major as it
+//     lies transposed into a scratch, transpose_f32_kernel): each thread reads
 //     the 8 + 8 values of one k (two 16-byte reads each) while the previous
 //     k's 64 FFMAs run, the next k tile's first ones across the one barrier
 //     a k tile; it needs 128 registers, so its own tile runs 16 warps an
@@ -65,8 +66,10 @@ enum Layout { K_MAJOR = 0, MN_MAJOR = 1, K_HEADS = 2 };
 // EPI_DACT (the MLP backward's dh): pre = acc + bias, C = act'(pre) * res
 // (res may be C itself: each element is read, then written, by one
 // thread), and act(pre) into `aux` when given; EPI_ACT_T: act(acc + bias)
-// written MN-major, C^T (N, ldt), for the next product's MN-major A
-enum Epi { EPI_ACT = 0, EPI_RES = 1, EPI_DACT = 2, EPI_ACT_T = 3 };
+// written MN-major, C^T (N, ldt), for the next product's MN-major A;
+// EPI_DACT_T: EPI_DACT's C = act'(pre) * res with C and res MN-major (N,
+// ldt), no aux (the MLP backward's dh on the MN path)
+enum Epi { EPI_ACT = 0, EPI_RES = 1, EPI_DACT = 2, EPI_ACT_T = 3, EPI_DACT_T = 4 };
 
 // LN of each row, one warp a row, 16-byte loads (K % 4 == 0): two-pass
 // statistics (the mean, then the mean of squared deviations, the JAX
@@ -119,16 +122,17 @@ inline int launch_ln_rows(const float* x, const float* gamma, const float* beta,
 }
 
 // The same LN rows written MN-major, xt[k * ld + m] (ld % 4 == 0, ld >= M;
-// rows M..ld-1 zero): a block takes 32 rows, one warp a row for the
-// statistics (ln_rows_f32_kernel's sums in its order: the same values), then
+// rows M..ld-1 zero), the rows' (mu, rstd) into `stats` when given: a block
+// takes 32 rows, one warp a row for the statistics (ln_rows_f32_kernel's
+// sums in its order: the same values), then
 // LNT_TILES 32 x 32 tiles at a time (each thread's loads in flight
 // together) transposed through shared memory, 128-byte rows out.
 constexpr int LNT_ROWS = 32, LNT_TILES = 4;
 
 __global__ void __launch_bounds__(THREADS) ln_rows_t_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ gamma,
-    const float* __restrict__ beta, float* __restrict__ xt, int M, int K, int ld, float eps,
-    const float* __restrict__ mask, int S, int nwin) {
+    const float* __restrict__ beta, float* __restrict__ xt, float2* __restrict__ stats, int M,
+    int K, int ld, float eps, const float* __restrict__ mask, int S, int nwin) {
   __shared__ float st[LNT_ROWS][3];                             // mu, rstd, mask
   __shared__ float tile[LNT_TILES][LNT_ROWS][LNT_ROWS + 1];     // [k][m]
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -151,6 +155,7 @@ __global__ void __launch_bounds__(THREADS) ln_rows_t_f32_kernel(
     }
     const float rstd = 1.0f / sqrtf(warp_sum(q) / (float)K + eps);
     if (lane == 0) {
+      if (stats != nullptr) stats[m] = make_float2(mu, rstd);
       st[r][0] = mu;
       st[r][1] = rstd;
       st[r][2] = mask != nullptr ? mask[(size_t)(m / S % nwin) * S + m % S] : 1.f;
@@ -205,20 +210,21 @@ inline int mn_ld(int M) { return (M + 3) / 4 * 4; }
 // xt (K, ld): ld % 4 == 0 and ld >= M (a row panel's scratch: the full
 // panel's ld)
 inline int launch_ln_rows_t(const float* x, const float* gamma, const float* beta, float* xt,
-                            int M, int K, int ld, float eps, cudaStream_t s,
+                            float2* stats, int M, int K, int ld, float eps, cudaStream_t s,
                             const float* mask = nullptr, int S = 1, int nwin = 1) {
   if (ld < M || ld % 4 != 0) return (int)cudaErrorInvalidValue;
   ln_rows_t_f32_kernel<<<(M + LNT_ROWS - 1) / LNT_ROWS, THREADS, 0, s>>>(
-      x, gamma, beta, xt, M, K, ld, eps, mask, S, nwin);
+      x, gamma, beta, xt, stats, M, K, ld, eps, mask, S, nwin);
   return (int)cudaGetLastError();
 }
 
-// wt (C, R) = w (R, C)^T: the MN path's copy of a weight, 32 x 32 tiles
-// through shared memory, 128-byte rows in and out (R % 4 == 0 and C % 4 ==
-// 0 are the callers'; ragged tiles are cut).
+// wt (C, ldt) = w (R, C)^T (ldt >= R): the MN path's copy of a weight, or of
+// #6's upstream gradient (a row panel's, ldt its scratch's mn_ld; rows R..
+// ldt-1 not written), 32 x 32 tiles through shared memory, 128-byte rows in
+// and out (ragged tiles are cut).
 __global__ void __launch_bounds__(THREADS) transpose_f32_kernel(const float* __restrict__ w,
                                                                 float* __restrict__ wt, int R,
-                                                                int C) {
+                                                                int C, int ldt) {
   __shared__ float tile[32][33];
   const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
@@ -228,11 +234,15 @@ __global__ void __launch_bounds__(THREADS) transpose_f32_kernel(const float* __r
   __syncthreads();
 #pragma unroll
   for (int i = ty; i < 32; i += THREADS / 32)
-    if (c0 + i < C && r0 + tx < R) wt[(size_t)(c0 + i) * R + r0 + tx] = tile[tx][i];
+    if (c0 + i < C && r0 + tx < R) wt[(size_t)(c0 + i) * ldt + r0 + tx] = tile[tx][i];
 }
 
-inline int launch_transpose(const float* w, float* wt, int R, int C, cudaStream_t s) {
-  transpose_f32_kernel<<<dim3((C + 31) / 32, (R + 31) / 32), THREADS, 0, s>>>(w, wt, R, C);
+// ldt 0: R
+inline int launch_transpose(const float* w, float* wt, int R, int C, cudaStream_t s,
+                            int ldt = 0) {
+  if (ldt == 0) ldt = R;
+  if (ldt < R || (R + 31) / 32 > 65535) return (int)cudaErrorInvalidValue;
+  transpose_f32_kernel<<<dim3((C + 31) / 32, (R + 31) / 32), THREADS, 0, s>>>(w, wt, R, C, ldt);
   return (int)cudaGetLastError();
 }
 
@@ -432,6 +442,24 @@ __device__ __forceinline__ void epilogue4(float (&v)[4], int n, size_t o,
   *reinterpret_cast<float4*>(C + o) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
+// The transposed epilogues of rows m..m+3 of one column at element o of C^T,
+// v = the sums + bias: EPI_ACT_T act(.); EPI_DACT_T act'(.) * res (res may
+// be C: read before written). One 16-byte store.
+template <int EPI>
+__device__ __forceinline__ void epilogue4_t(float (&v)[4], size_t o, const float* res, float* C,
+                                            int act) {
+  if (EPI == EPI_DACT_T) {
+    const float4 r = *reinterpret_cast<const float4*>(res + o);
+    const float rv[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = act_grad(v[i], act) * rv[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = apply_act(v[i], act);
+  }
+  *reinterpret_cast<float4*>(C + o) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
 // C (M, N) = epilogue(A . B) for A (M, K) and B (N, K) in the layouts LA,
 // LB (leading dimensions lda, ldb; K_HEADS: lda = d); C, res and aux (M, N)
 // with row stride N. N % 4 == 0 (16-byte epilogue rows). The tiles, gx
@@ -590,11 +618,14 @@ __global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS) sgemm_kernel(
             make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
     return;
   }
-  if constexpr (EPI == EPI_ACT_T) {  // C^T (N, ldt): rows m..m+3 of column n, 16 bytes
+  if constexpr (EPI == EPI_ACT_T || EPI == EPI_DACT_T) {
+    // C^T (N, ldt): rows m..m+3 of column n, 16 bytes; EPI_DACT_T only the
+    // chunks that start below M (its res is written there)
+    const int lim = EPI == EPI_DACT_T ? M : ldt;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = m0 + (BM / 2) * h + 4 * ty;
-      if (m >= ldt) continue;
+      if (m >= lim) continue;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int n = n0 + (BN / 2) * (j / 4) + 4 * tx + j % 4;
@@ -605,10 +636,8 @@ __global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS) sgemm_kernel(
         for (int i = 0; i < 4; ++i) {
           v[i] = acc[4 * h + i][j];
           if (bias != nullptr) v[i] += bv;
-          v[i] = apply_act(v[i], act);
         }
-        *reinterpret_cast<float4*>(C + co + (size_t)n * ldt + m) =
-            make_float4(v[0], v[1], v[2], v[3]);
+        epilogue4_t<EPI>(v, co + (size_t)n * ldt + m, res, C, act);
       }
     }
   } else {
@@ -629,9 +658,10 @@ __global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS) sgemm_kernel(
 
 // Split K's second pass, one block a tail tile (q = blockIdx.x, numbered as
 // sgemm_kernel<..., true> numbers them): each 4 outputs the sum of its
-// `splits` slices in slice order, then the epilogue. EPI_ACT_T takes 4 x 4
-// blocks, rows fastest, and writes 4 rows of a column of C^T in one 16-byte
-// store (ldt % 4 == 0: a chunk that starts below M ends below ldt).
+// `splits` slices in slice order, then the epilogue. EPI_ACT_T and
+// EPI_DACT_T take 4 x 4 blocks, rows fastest, and write 4 rows of a column
+// of C^T in one 16-byte store (ldt % 4 == 0: a chunk that starts below M
+// ends below ldt).
 template <class TL, int EPI>
 __global__ void __launch_bounds__(256) splitk_finish_kernel(
     const float* __restrict__ ws, int splits, int M, int N, int gx, int gy, int tr,
@@ -653,7 +683,7 @@ __global__ void __launch_bounds__(256) splitk_finish_kernel(
     }
     return s;
   };
-  if constexpr (EPI == EPI_ACT_T) {
+  if constexpr (EPI == EPI_ACT_T || EPI == EPI_DACT_T) {
     for (int q = threadIdx.x; q < BM * BN / 16; q += 256) {
       const int r = q % (BM / 4) * 4, c = q / (BM / 4) * 4, m = m0 + r, n = n0 + c;
       if (m >= M || n >= N) continue;
@@ -668,13 +698,10 @@ __global__ void __launch_bounds__(256) splitk_finish_kernel(
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
+        if (bias != nullptr)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (bias != nullptr) v[j][i] += bias[n + j];
-          v[j][i] = apply_act(v[j][i], act);
-        }
-        *reinterpret_cast<float4*>(C + co + (size_t)(n + j) * ldt + m) =
-            make_float4(v[j][0], v[j][1], v[j][2], v[j][3]);
+          for (int i = 0; i < 4; ++i) v[j][i] += bias[n + j];
+        epilogue4_t<EPI>(v[j], co + (size_t)(n + j) * ldt + m, res, C, act);
       }
     }
   } else {
@@ -757,15 +784,15 @@ int run_sgemm_mn(const float* A, int lda, long long sa, int gs, long long gst, c
 
 // Queues one product as `plan` cuts it; `groups` the row groups (C, res and
 // aux move by M N a group, A by sa); gs, gst MN_MAJOR A's row groups tiled
-// as one M (load_tile); ldt EPI_ACT_T's C^T leading dimension (% 4 == 0, >=
-// M). Returns a cudaError_t code.
+// as one M (load_tile); ldt EPI_ACT_T's and EPI_DACT_T's C^T leading
+// dimension (% 4 == 0, >= M). Returns a cudaError_t code.
 template <int LA, int LB, int EPI>
 int launch_sgemm(const float* A, int lda, long long sa, const float* B, int ldb,
                  const float* bias, const float* res, float* C, float* aux, int M, int N, int K,
                  int act, Plan plan, int groups, cudaStream_t s, int gs = 0, long long gst = 0,
                  int ldt = 0) {
   if (M < 1 || N < 1 || K < 1 || groups < 1 || N % 4 != 0 || gs < 0 || gs % 4 != 0 ||
-      (EPI == EPI_ACT_T && (groups != 1 || ldt < M || ldt % 4 != 0)))
+      ((EPI == EPI_ACT_T || EPI == EPI_DACT_T) && (groups != 1 || ldt < M || ldt % 4 != 0)))
     return (int)cudaErrorInvalidValue;
   if constexpr (LA == MN_MAJOR && LB == MN_MAJOR) {
     switch (plan.tile) {  // the MN path: its own tile only

@@ -174,7 +174,7 @@ QKV_PACKED_PLAIN_F32 = CudaKernel("flash_qkv_packed_plain_f32", "cvlm_qkv_packed
 PROJ_ROWS_F32 = CudaKernel("proj_rows_f32", "cvlm_proj_rows_f32",
                            [P] * 6 + [I, I, L, L] + [I] * 6)
 LN_MLP_RESIDUAL_BWD_F32 = CudaKernel("ln_mlp_residual_bt_bwd_f32", "cvlm_ln_mlp_residual_bwd_f32",
-                                     [P] * 14 + [I, I, I, I, F] + [I] * 7)
+                                     [P] * 16 + [I, I, I, I, F] + [I] * 8)
 # The fp32 instances of SAM's kernels on the cascade's path at --dtype
 # float32 (the reference configuration): the patch embed (csrc/linear_f32.cu),
 # LN1 + row mask + qkv of the global blocks (csrc/ln_linear_f32.cu), and the

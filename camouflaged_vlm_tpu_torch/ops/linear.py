@@ -167,6 +167,11 @@ F32_MN_TILE_BLOCKS = {(128, 128): 2}
 # the faster path at every LN-fed site of the cascade but three near-ties
 # (within 1.3%), where it keeps path 0
 F32_PATH_RATE = {(0, 0): 1.0, (0, 1): 1.0, (0, 2): 1.0, (0, 3): 1.0, (1, 4): 1.09}
+# #6's in-place epilogue dh = act'(pre1) * dh_pre (EPI_DACT, EPI_DACT_T),
+# which reads dh_pre back: its product's rate relative to the others' on
+# each path (H100, SAM windows b2: 2.45 against 2.05 ms on path 0, 1.83
+# against 1.74 on path 1; cli/kernel_timing.py --f32-gemm, PERF.md §6)
+F32_DACT_RATE = {0: 0.84, 1: 0.95}
 # the passes around the products, at their measured rates (bytes read and
 # written over seconds, the same runs): the row-major LN pass, the MN-major
 # one, and the weights' transposes
@@ -294,12 +299,14 @@ def _offered_paths(paths: tuple) -> tuple:
     return tuple(p for p in paths if t is None or (p, t) in F32_PATH_RATE)
 
 
-def f32_path_overhead_s(path: int, M: int, K: int, weights: int) -> float:
+def f32_path_overhead_s(path: int, M: int, K: int, weights: int, launches: int = 1) -> float:
     """The modelled seconds of an LN-fed call's passes besides its products
     on `path`: the LN rows over M x K (x read, the rows written), and on
-    path 1 the transposes of `weights` weight elements, one launch more."""
+    path 1 the transposes of `weights` elements in `launches` launches more."""
     s = 8.0 * M * K / F32_LN_BYTES_S[path]
-    return s + (8.0 * weights / F32_TRANSPOSE_BYTES_S + F32_FINISH_S if path == 1 else 0.0)
+    if path == 1:
+        s += 8.0 * weights / F32_TRANSPOSE_BYTES_S + launches * F32_FINISH_S
+    return s
 
 
 def f32_mlp_plans(M: int, rows: int, K: int, H: int, n_sm: int) -> tuple:
@@ -312,6 +319,29 @@ def f32_mlp_plans(M: int, rows: int, K: int, H: int, n_sm: int) -> tuple:
               f32_gemm_plan(rows, K, H, n_sm, paths=(p,))) for p in _offered_paths(F32_PATHS)]
     return min(plans, key=lambda pp: panels * (pp[0].cost + pp[1].cost)
                + f32_path_overhead_s(pp[0].path, M, K, 2 * H * K))
+
+
+def f32_mlp_bwd_plans(M: int, rows: int, K: int, H: int, n_sm: int,
+                      weights: bool = False) -> tuple:
+    """The plans of #6's three products over a row panel of `rows` of its M
+    rows, the H-wide g . W2 and xn . W1^T (one plan: rows x H over K) and
+    the K-wide dh . W1 (rows x K over H), on one path (dh's layout joins
+    them): the path of the least modelled time of a call, its panels'
+    products (xn . W1^T's at F32_DACT_RATE) and `f32_path_overhead_s` with,
+    on path 1, the transposes of W1 and of g (one launch a panel). With
+    `weights`, path 0: the weight side reads the row-major scratches
+    (csrc/ln_mlp_residual_bwd_f32.cu)."""
+    panels = -(-M // rows)
+    paths = (0,) if weights else _offered_paths(F32_PATHS)
+    plans = [(f32_gemm_plan(rows, H, K, n_sm, paths=(p,)),
+              f32_gemm_plan(rows, K, H, n_sm, paths=(p,))) for p in paths]
+
+    def cost(pp):
+        p = pp[0].path
+        return (panels * ((1 + 1 / F32_DACT_RATE[p]) * pp[0].cost + pp[1].cost)
+                + f32_path_overhead_s(p, M, K, H * K + M * K, 1 + panels))
+
+    return min(plans, key=cost)
 
 
 def mn_ld(m: int) -> int:
@@ -931,14 +961,29 @@ def ln_mlp_residual_bt_bwd(x, gamma, beta, w1, b1, w2, b2, g, eps=1e-6,
             torch.matmul(g2.t(), hact).to(w2.dtype), g2.float().sum(0).to(b2.dtype))
 
 
+@functools.lru_cache(maxsize=None)
+def _ln_mlp_bwd_f32_spec(M: int, K: int, H: int, n_sm: int, weights: bool, *forced) -> tuple:
+    """#6's row panel, its plans on one path (`f32_mlp_bwd_plans`) and its
+    scratch's floats: xn, dh, dxn, g^T and W1^T (path 1), the split-K
+    workspace and the rows' statistics, over R rows (M with the weight
+    side, else the panel's); on path 1 xn, dh and g^T MN-major, (K, H and
+    K) x mn_ld(rows). `forced`: the F32_*_FORCE settings and
+    MLP_SCRATCH_ELEMS, part of the cache's key."""
+    rows = mlp_panel_rows(M, H)
+    p1, p2 = f32_mlp_bwd_plans(M, rows, K, H, n_sm, weights)
+    R = M if weights else rows
+    ld, gt, wt = (R, 0, 0) if p1.path == 0 else (mn_ld(rows), K * mn_ld(rows), H * K)
+    return rows, p1, p2, (K * ld, H * ld, R * K, gt, wt, max(p1.ws_elems, p2.ws_elems), 2 * R)
+
+
 def _ln_mlp_residual_bwd_f32_cuda(x, gamma, beta, w1, b1, w2, b2, g, eps, activation, weights):
-    """The fp32 instance of #6 (MaPLe training's CLIP MLPs,
-    csrc/ln_mlp_residual_bwd_f32.cu): per row panel of `mlp_panel_rows` the
-    LN row pass, dh_pre = g . W2, dh = act'(xn . W1^T + b1) * dh_pre and
-    dxn = dh . W1 on the CUDA cores, then the LN-backward rows; one count.
-    With `weights` the kernel keeps xn, dh, dxn and the rows' statistics for
-    every row and writes act(pre1), and the weight side is formed here with
-    torch."""
+    """The fp32 instance of #6 (MaPLe training's CLIP MLPs, SAM's MLPs in
+    the fp32 train step; csrc/ln_mlp_residual_bwd_f32.cu): per row panel of
+    `mlp_panel_rows` the LN row pass, dh_pre = g . W2, dh = act'(xn . W1^T +
+    b1) * dh_pre and dxn = dh . W1 on the CUDA cores, then the LN-backward
+    rows, on the plans' path; one count. With `weights` (path 0) the kernel
+    keeps xn, dh, dxn and the rows' statistics for every row and writes
+    act(pre1), and the weight side is formed here with torch."""
     name = "ln_mlp_residual_bt_bwd (float32)"
     K, H = _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2, torch.float32)
     _check_f32_widths(name, K, H)
@@ -946,28 +991,22 @@ def _ln_mlp_residual_bwd_f32_cuda(x, gamma, beta, w1, b1, w2, b2, g, eps, activa
     if g.shape != x.shape:
         raise ValueError(f"{name}: gradient {g.shape} vs x {x.shape}")
     M = x.numel() // K
-    rows = mlp_panel_rows(M, H)
-    R = M if weights else rows  # the scratch holds every row when the weight side reads it
-
-    def e(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=x.device)
-
-    xn, dh, stats, dxn = e(R, K), e(R, H), e(R, 2), e(R, K)
-    hact = e(M, H) if weights else None
+    rows, p1, p2, elems = _ln_mlp_bwd_f32_spec(M, K, H, _cuda.sm_count(x.device), weights,
+                                               F32_TILE_FORCE, F32_SPLIT_FORCE, F32_PATH_FORCE,
+                                               MLP_SCRATCH_ELEMS)
+    buf, (xn, dh, dxn, gt, wt, ws, stats) = f32_scratch(x.device, *elems)
+    hact = torch.empty((M, H), dtype=torch.float32, device=x.device) if weights else None
     dx = torch.empty_like(x)
-    n_sm = _cuda.sm_count(x.device)
-    # the H-wide products g . W2 and xn . W1^T (depth K), the K-wide dh . W1 (depth H)
-    p1, p2 = f32_gemm_plan(rows, H, K, n_sm), f32_gemm_plan(rows, K, H, n_sm)
-    ws = f32_workspace(x.device, p1, p2)
     _cuda.LN_MLP_RESIDUAL_BWD_F32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), g.data_ptr(), dx.data_ptr(), xn.data_ptr(), dh.data_ptr(),
-        stats.data_ptr(), dxn.data_ptr(), _ptr(hact), _ptr(ws), M, K, H, rows, float(eps),
-        _cuda.ACTIVATIONS[activation], p1.tile, p1.splits, p1.tail_rows, p2.tile, p2.splits,
-        p2.tail_rows,
+        w2.data_ptr(), g.data_ptr(), dx.data_ptr(), xn, dh, stats, dxn, _ptr(hact), ws, gt, wt,
+        M, K, H, rows, float(eps), _cuda.ACTIVATIONS[activation], p1.tile, p1.splits,
+        p1.tail_rows, p2.tile, p2.splits, p2.tail_rows, p1.path,
     )
     if not weights:
         return dx, None, None, None, None, None, None
+    part = buf.split(elems)
+    xn, dh, dxn, stats = (part[i].view(M, -1) for i in (0, 1, 2, 6))
     xhat = (x.reshape(M, K) - stats[:, :1]) * stats[:, 1:]
     g2 = g.reshape(M, K)
     return (dx, (dxn * xhat).sum(0), dxn.sum(0), torch.matmul(dh.t(), xn), dh.sum(0),

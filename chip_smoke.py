@@ -118,15 +118,19 @@ never prints its last line):
               shapes (batch 8 x 581 tokens, 1024 wide, 16 heads x 64): #2
               (LN1 + qkv), #16, #7 (out-projection + residual from the
               d-major attention output), #6 at the vision (H 4096) and text
-              (14 classes x 77 tokens, 768, H 3072) sites, dx only, and the
-              fp32 #4/#5 at the vision width; then those on the cascade's
+              (14 classes x 77 tokens, 768, H 3072) sites, dx only, on each
+              path its plan can choose, the paths bit-equal with K whole
+              (`check_mlp_bwd`), and the fp32 #4/#5 at the vision width;
+              then those on the cascade's
               path at --dtype float32 at SAM ViT-H's shapes, batch 1 and 2:
               #1 (patch embed), #3 (a global block's LN1 + mask + qkv), #13,
               #15 and #17 (16 heads x 80); and the backwards of the train CLI
               at --dtype float32: #14 and #18 at batch 2 and 1 (dqkv and
               drel; the library time a composite: autograd.grad through fp32
               SDPA with the bias built apart, drel from its gradient by one
-              product) and #6 at SAM's three row sets (dx only, H 5120);
+              product) and #6 at SAM's three row sets (dx only, H 5120, each
+              path; library a composite: autograd.grad through F.layer_norm,
+              F.linear, the activation and F.linear);
               bounds against the fp32 CUDA-core peak (67 TFLOP/s)
  13. maple_small  one MaPLe step of a small fp32 CustomClip (128 wide, 2
               heads x 64) on the card against the same step on the CPU: the
@@ -1010,6 +1014,78 @@ def f32_library(kernel, args, eps, act):
     if kernel == "linear_act":
         return lambda: F.linear(*args)
     return None
+
+
+def mlp_bwd_library(args, eps, act):
+    """#6's yardsticks on its arguments (x, gamma, beta, W1, b1, W2, b2, g;
+    fp32, TF32 off), the fused MLP's dx: (composite, products). No one
+    PyTorch call computes it; the composite, as #14's and #18's, is
+    torch.autograd.grad through F.layer_norm, F.linear, the activation and
+    F.linear with respect to x alone (its forward graph kept, built outside
+    the timed call); the products alone are #6's three through cuBLAS,
+    g . W2, x . W1^T and their (M, H) result . W1 (another function: no LN,
+    activation or LN backward)."""
+    import torch
+
+    F = torch.nn.functional
+    x, g, b, w1, b1, w2, b2, gy = args
+    K = x.shape[-1]
+    f = ((lambda h: h * torch.sigmoid(1.702 * h)) if act == "quick_gelu"
+         else (lambda h: F.gelu(h, approximate="tanh" if act == "gelu_tanh" else "none")))
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        y = xg + F.linear(f(F.linear(F.layer_norm(xg, (K,), g, b, eps), w1, b1)), w2, b2)
+    x2, g2 = x.reshape(-1, K), gy.reshape(-1, K)
+
+    def products():
+        torch.matmul(x2, w1.t())
+        return torch.matmul(torch.matmul(g2, w2), w1)
+
+    return (lambda: torch.autograd.grad(y, xg, gy, retain_graph=True)[0]), products
+
+
+def check_mlp_bwd(label, args, eps, act, flops):
+    """#6 fp32 (dx only) at one site: `_check_kernel` at the plan's path,
+    its bound against the fp32 peak (x, g, gamma, beta, W1, b1, W2 read;
+    b2 is not), the composite and the products alone of `mlp_bwd_library`
+    as its yardsticks; then each path its plan can choose
+    (`linear.F32_PATH_FORCE`) against the plain dx within F32_REL_BOUND, and
+    the paths bit-equal to each other with K whole (`F32_SPLIT_FORCE` 1:
+    the plans' splits may differ by path). Returns `_check_kernel`'s dict
+    with the paths' max_rel."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+
+    def kfn(*a):
+        return lin.ln_mlp_residual_bt_bwd(*a, eps=eps, activation=act, weights=False)[0]
+
+    def pfn(*a):
+        return lin.ln_mlp_residual_bt_bwd_ref(*a, eps=eps, activation=act, weights=False)[0]
+
+    composite, products = mlp_bwd_library(args, eps, act)
+    r = _check_kernel(f"ln_mlp_residual_bt_bwd_f32 ({label}, dx only, fp32, TF32 off)", kfn, pfn,
+                      args, flops=flops, reads=args[:6] + (args[7],), library=composite,
+                      gemm_library=products, rel_bound=F32_REL_BOUND, peak_flops=PEAK_F32_FLOPS)
+    want, paths, whole = pfn(*args), {}, {}
+    try:
+        for p in lin.F32_PATHS:
+            lin.F32_PATH_FORCE = p
+            got = kfn(*args)
+            e = errors(got, want)
+            check(bool(torch.isfinite(got).all()) and e["max_rel"] < F32_REL_BOUND
+                  and e["mean_rel"] < F32_REL_BOUND,
+                  f"ln_mlp_residual_bt_bwd_f32 ({label}) on path {p} disagrees with plain: {e}")
+            paths[p] = e["max_rel"]
+            lin.F32_SPLIT_FORCE = 1
+            whole[p] = kfn(*args)
+            lin.F32_SPLIT_FORCE = None
+    finally:
+        lin.F32_PATH_FORCE = lin.F32_SPLIT_FORCE = None
+    same = all(torch.equal(whole[lin.F32_PATHS[0]], w) for w in whole.values())
+    log(f"[kernel] ln_mlp_residual_bt_bwd_f32 ({label}) each path: max_rel "
+        f"{ {p: f'{v:.3e}' for p, v in paths.items()} }, bit-equal with K whole: {same}")
+    check(same, f"ln_mlp_residual_bt_bwd_f32 ({label}): the paths differ with K whole")
+    return dict(r, paths_max_rel=paths)
 
 
 def f32_gemm_cases(rn, batches=(2, 1)):
@@ -2761,7 +2837,8 @@ def phase_f32_kernels():
     bound against the fp32 CUDA-core peak (67 TFLOP/s) and the HBM rate, and
     one PyTorch call for the same function (F.layer_norm + F.linear; fp32
     SDPA; torch.baddbmm with the bias folded into the residual beforehand;
-    #6 none); and the fp32 #4/#5 at the vision width; then the cascade's
+    #6 a composite, `mlp_bwd_library`, and on each path, `check_mlp_bwd`);
+    and the fp32 #4/#5 at the vision width; then the cascade's
     (`sam_f32_kernels`, the users of csrc/sgemm_f32.cuh at every shape of
     the fp32 cascade, `f32_cascade_gemms`, and their fp32 [per_call]
     lines), its backwards and the other routes'."""
@@ -2833,17 +2910,9 @@ def phase_f32_kernels():
                     lambda *a: lin.ln_mlp_residual_bt_ref(*a, eps=eps, activation="quick_gelu"),
                     args, flops=4.0 * rows * kk * hh, library=library, rel_bound=F32_REL_BOUND,
                     peak_flops=PEAK_F32_FLOPS)
-            # #6 reads x, g, gamma, beta, W1, b1 and W2 (b2 is not read); the
-            # kernels line holds the vision site
-            r = _check_kernel(
-                f"ln_mlp_residual_bt_bwd_f32 ({site} {rows}x{kk}, H {hh}, dx only, fp32, "
-                "TF32 off)",
-                lambda *a: lin.ln_mlp_residual_bt_bwd(*a, eps=eps, activation="quick_gelu",
-                                                      weights=False)[0],
-                lambda *a: lin.ln_mlp_residual_bt_bwd_ref(*a, eps=eps, activation="quick_gelu",
-                                                          weights=False)[0],
-                args + (gy,), flops=6.0 * rows * kk * hh, reads=args[:6] + (gy,),
-                rel_bound=F32_REL_BOUND, peak_flops=PEAK_F32_FLOPS)
+            # the kernels line holds the vision site
+            r = check_mlp_bwd(f"{site} {rows}x{kk}, H {hh}", args + (gy,), eps, "quick_gelu",
+                              6.0 * rows * kk * hh)
             if site == "vision":
                 out["ln_mlp_residual_bt_bwd_f32"] = dict(
                     source=src + "ln_mlp_residual_bwd_f32.cu",
@@ -3121,11 +3190,10 @@ def sam_f32_grads(rn):
     `sdpa_bwd_composite` as the library time (the kernels line holds batch
     2, the train slice's, with the batch-1 times beside it), and two calls
     bit-equal; then #6 at SAM's three row sets at batch 2 (dx only, K 1280,
-    H 5120)."""
+    H 5120, `check_mlp_bwd`)."""
     import torch
     from camouflaged_vlm_tpu_torch.models import CascadeConfig
     from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
-    from camouflaged_vlm_tpu_torch.ops import linear as lin
     from camouflaged_vlm_tpu_torch.ops.compact_window import CompactGeometry
 
     f32, dev = torch.float32, torch.device("cuda")
@@ -3187,14 +3255,8 @@ def sam_f32_grads(rn):
         args = (rn(*rows, D), 1 + rn(D, std=0.1), rn(D, std=0.1), rn(4 * D, D, std=0.02),
                 rn(4 * D, std=0.02), rn(D, 4 * D, std=0.02), rn(D, std=0.02), rn(*rows, D))
         # dx needs the hidden again (x . W1^T), dh = g . W2 and dx = dpre . W1
-        _check_kernel(
-            f"ln_mlp_residual_bt_bwd_f32 (SAM {site} {rows[0]}x{rows[1]}x{D}, H {4 * D}, dx "
-            "only, fp32, TF32 off)",
-            lambda *a: lin.ln_mlp_residual_bt_bwd(*a, eps=1e-6, activation=act, weights=False)[0],
-            lambda *a: lin.ln_mlp_residual_bt_bwd_ref(*a, eps=1e-6, activation=act,
-                                                      weights=False)[0],
-            args, flops=6.0 * M * D * 4 * D, reads=args[:6] + (args[7],),
-            rel_bound=F32_REL_BOUND, peak_flops=PEAK_F32_FLOPS)
+        check_mlp_bwd(f"SAM {site} {rows[0]}x{rows[1]}x{D}, H {4 * D}", args, 1e-6, act,
+                      6.0 * M * D * 4 * D)
         del args
         torch.cuda.empty_cache()
     return out

@@ -6,6 +6,7 @@ of an MN-major A (proj_rows' groups tiled as one M) land on the element that
 indexing of x gives. The kernels themselves run only on the card
 (tests/test_torch_kernels.py)."""
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -13,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from camouflaged_vlm_tpu_torch.ops import _cuda  # noqa: E402
 from camouflaged_vlm_tpu_torch.ops import linear as lin  # noqa: E402
 
 N_SM = 132  # the H100's SMs
@@ -256,19 +258,21 @@ def test_mn_ln_scratch_covers_every_element_once(M, K):
     assert bool((src_m[~inside] == -1).all())
 
 
-def _hidden_t_writes(plan, ldt):
+def _hidden_t_writes(plan, ldt, lim=None):
     """(n, m) of every element fc1's EPI_ACT_T writes to the hidden (H, ldt)
     in the first column tile of each row tile (the columns' partition is
     `_check_plan`'s): a whole tile's threads their 8 x 8 outputs, a 4-row
-    chunk of a column when its first row < ldt; a split tile's second pass
-    each 4-row chunk of a column that starts below M (splitk_finish_kernel)."""
+    chunk of a column when its first row < `lim` (ldt; #6's EPI_DACT_T
+    M); a split tile's second pass each 4-row chunk of a column that starts
+    below M (splitk_finish_kernel)."""
+    lim = ldt if lim is None else lim
     thr = lin.f32_thread_outputs(plan.bm, plan.bn).reshape(-1, 2)
     blocks = [(m0, (k0, k1) != (0, plan.k)) for g, m0, n0, k0, k1 in lin.f32_blocks(plan)
               if n0 == 0]
     m0 = torch.tensor(sorted({m0 for m0, _ in blocks}))
     split = torch.tensor([any(s for b, s in blocks if b == int(m)) for m in m0])
     m, n = m0[:, None] + thr[None, :, 0], thr[None, :, 1].expand(len(m0), -1)
-    ok = (n < plan.n) & torch.where(split[:, None], m - m % 4 < plan.rows, m - m % 4 < ldt)
+    ok = (n < plan.n) & torch.where(split[:, None], m - m % 4 < plan.rows, m - m % 4 < lim)
     return torch.stack([n[ok], m[ok]], 1)
 
 
@@ -290,6 +294,53 @@ def test_mn_hidden_covers_every_element_once(M, K):
         assert torch.equal(torch.sort(flat).values, torch.arange(min(H, plan.bn) * rows))
 
 
+def _transpose_writes(R, C, ldt):
+    """(flat index into wt, source row, source column) of every element
+    transpose_f32_kernel writes: block (x, y) loads w[32 y + i][32 x + t %
+    32] into tile[i][t % 32] (i = t / 32, + 8, ...), then writes tile[t %
+    32][i], w's element (32 y + t % 32, 32 x + i), to wt[(32 x + i) ldt +
+    32 y + t % 32], where both lie inside R x C."""
+    y = torch.arange(-(-R // 32))[:, None, None, None]
+    x = torch.arange(-(-C // 32))[None, :, None, None]
+    i, t = torch.arange(32)[None, None, :, None], torch.arange(32)[None, None, None, :]
+    r, c = torch.broadcast_tensors(32 * y + t, 32 * x + i)
+    ok = (r < R) & (c < C)
+    return (c * ldt + r)[ok], r[ok], c[ok]
+
+
+@pytest.mark.parametrize("splits", [None, 2])
+@pytest.mark.parametrize("M,K,H,scratch", [(127, 200, 264, None), (129, 200, 264, None),
+                                           (581, 1024, 4096, None), (2016, 1280, 5120, None),
+                                           (700, 128, 512, 300 * 512)])
+def test_mn_bwd_scratches_cover_every_element_once(monkeypatch, splits, M, K, H, scratch):
+    """#6 on the MN path, per row panel of `mlp_panel_rows` (the last one
+    ragged, its scratches at the full panel's ld): g^T (K, ld) from
+    transpose_f32_kernel and dh^T (H, ld), first dh_pre^T through EPI_ACT_T,
+    then dh^T in its place through EPI_DACT_T at the same plan: each element
+    of the panel's rows written once by each, nothing outside (K or H, ld),
+    and EPI_DACT_T reads (res = C) only elements EPI_ACT_T wrote."""
+    if scratch is not None:
+        monkeypatch.setattr(lin, "MLP_SCRATCH_ELEMS", scratch)
+    rows = lin.mlp_panel_rows(M, H)
+    ld = lin.mn_ld(rows)
+    plan = lin._f32_gemm_plan(rows, H, K, N_SM, 1, False, None, splits, (1,))
+    assert plan.path == 1 and (scratch is None or rows < M)
+    for m in sorted({rows, M - (-(-M // rows) - 1) * rows}):  # a full panel, the last
+        idx, src_r, src_c = _transpose_writes(m, K, ld)
+        assert bool((idx < K * ld).all())
+        k, r = idx // ld, idx % ld
+        assert torch.equal(torch.sort(k * m + r).values, torch.arange(K * m))
+        assert torch.equal(src_r, r) and torch.equal(src_c, k)
+        p = dataclasses.replace(plan, rows=m)  # the C entry runs every panel at one plan
+        first, dact = _hidden_t_writes(p, ld), _hidden_t_writes(p, ld, lim=m)
+        assert bool(((dact[:, 0] < H) & (dact[:, 1] < ld)).all())
+        inside = dact[dact[:, 1] < m]
+        flat = inside[:, 0] * m + inside[:, 1]
+        assert torch.equal(torch.sort(flat).values, torch.arange(min(H, p.bn) * m))
+        wrote = set(map(tuple, first.tolist()))
+        assert all(tuple(e) in wrote for e in dact.tolist())
+
+
 def test_plan_paths_match_the_kernel_source():
     """The plan offers only the paths the C entries of #2, #3 and #4/#5 take
     (`path == 0` the K-major layouts, path 1 the MN ones; any other
@@ -297,7 +348,7 @@ def test_plan_paths_match_the_kernel_source():
     F32_TILES, launch_sgemm's `run_sgemm_mn` cases with their MIN_BLOCKS;
     at every LN-fed site the plans pick a path and a tile the sources
     instantiate."""
-    for name in ("ln_linear_f32.cu", "ln_mlp_residual_f32.cu"):
+    for name in ("ln_linear_f32.cu", "ln_mlp_residual_f32.cu", "ln_mlp_residual_bwd_f32.cu"):
         src = (CSRC / name).read_text()
         assert "path == 0" in src and re.search(r"path != 1|path > 1", src)
         assert "launch_sgemm<MN_MAJOR, MN_MAJOR," in src and "launch_transpose(" in src
@@ -321,6 +372,50 @@ def test_plan_paths_match_the_kernel_source():
         assert p1.path == p2.path in lin.F32_PATHS
         assert (p1.rows, p1.n, p1.k, p2.rows, p2.n, p2.k) == (rows, H, K, rows, K, H)
         assert all((p.path, p.tile) in lin.F32_PATH_RATE for p in (p1, p2))
+
+
+def _c_arg_kinds(src, entry):
+    """The ctypes type of each parameter of C entry `entry` in `src`."""
+    params = re.search(rf'extern "C" int {entry}\((.*?)\)\s*{{', src, re.S).group(1)
+    return [P if "*" in a else (F if a.split()[0] == "float" else I) for a in params.split(",")]
+
+
+P, I, F = _cuda.P, _cuda.I, _cuda.F
+
+
+@pytest.mark.parametrize("forced", [None, 0, 1])
+def test_mlp_bwd_plans_match_the_kernel_source(monkeypatch, forced):
+    """#6's plans (`linear.f32_mlp_bwd_plans`) at its sites (SAM ViT-H's
+    windows, edge and global rows at batch 1 and 2, MaPLe's vision and text
+    towers): the three products on one path, which the C entry takes (its
+    EPI_DACT_T product on path 1, refused with the weight side); with the
+    weight side always path 0, F32_PATH_FORCE or not; the scratch the entry
+    reads for that path; the entry's arguments as the wrapper binds them."""
+    monkeypatch.setattr(lin, "F32_PATH_FORCE", forced)
+    src = (CSRC / "ln_mlp_residual_bwd_f32.cu").read_text()
+    assert "launch_sgemm<MN_MAJOR, MN_MAJOR, EPI_DACT_T>" in src
+    assert "path == 1 && (gt == nullptr || wt == nullptr || hact != nullptr)" in src
+    kinds = _c_arg_kinds(src, "cvlm_ln_mlp_residual_bwd_f32")
+    assert _cuda.LN_MLP_RESIDUAL_BWD_F32.argtypes == kinds  # the stream the last of both
+    for M, K, H in ((6272, 1280, 5120), (3136, 1280, 5120), (2016, 1280, 5120),
+                    (1008, 1280, 5120), (8192, 1280, 5120), (4096, 1280, 5120),
+                    (4648, 1024, 4096), (1078, 768, 3072)):
+        for weights in (False, True):
+            rows, p1, p2, elems = lin._ln_mlp_bwd_f32_spec(M, K, H, N_SM, weights, None, None,
+                                                           forced, lin.MLP_SCRATCH_ELEMS)
+            assert rows == lin.mlp_panel_rows(M, H)
+            assert p1.path == p2.path == (0 if weights else forced if forced is not None
+                                          else p1.path)
+            assert (p1.rows, p1.n, p1.k, p2.rows, p2.n, p2.k) == (rows, H, K, rows, K, H)
+            assert all((p.path, p.tile) in lin.F32_PATH_RATE for p in (p1, p2))
+            if forced is None:  # the plans' blocks cover C (path 1 at these shapes)
+                _check_plan(p1, rows, H, K, 1, False)
+                _check_plan(p2, rows, K, H, 1, False)
+            R, ld = (M if weights else rows), (lin.mn_ld(rows) if p1.path else M if weights
+                                               else rows)
+            assert elems == (K * ld, H * ld, R * K, K * ld * p1.path, H * K * p1.path,
+                             max(p1.ws_elems, p2.ws_elems), 2 * R)
+            assert all(e % 4 == 0 for e in elems[:-1])  # each buffer 16-byte aligned
 
 
 def _fma_sum(a, b, k0, k1, acc=None):
@@ -352,7 +447,10 @@ def test_mn_path_order_of_sums_matches_plain(rows, splits):
     """The MN path's order of sums (LN rows as ln_rows_t writes them, each
     output one fmaf chain over k, split slices added in order; the MLP's
     hidden rounded to fp32 then fc2 with bias and residual) within 1e-6 of
-    the plain versions of #2 and #4/#5."""
+    the plain versions of #2 and #4/#5; and #6's (g^T and xn^T the A of the
+    H-wide products at one plan, dh_pre^T through EPI_ACT_T, dh^T = act'(pre1)
+    dh_pre through EPI_DACT_T, dxn = dh . W1, the LN backward from the
+    same statistics) within 1e-6 of its plain dx."""
     g = torch.Generator().manual_seed(0)
     K, N = 200, 40
 
@@ -372,6 +470,19 @@ def test_mn_path_order_of_sums_matches_plain(rows, splits):
     want = lin.ln_mlp_residual_bt_ref(x, gam, bet, w, b, w2, b2, eps=1e-5,
                                       activation="gelu_tanh")
     assert ((out - want.reshape(rows, K)).abs().max() / want.abs().max()).item() < 1e-6
+    gy = r(1, rows, K)
+    dh_pre = _mn_path_product(gy.reshape(rows, K), w2.t(), p1)  # B: W2 (K, H) as it lies
+    dh = lin.act_and_grad(_mn_path_product(xn, w, p1) + b, "gelu_tanh")[1] * dh_pre
+    dxn = _mn_path_product(dh, w.t(), p2)  # B: W1 (H, K) as it lies
+    x2 = x.reshape(rows, K)
+    mu = x2.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x2 - mu).square().mean(-1, keepdim=True) + 1e-5)
+    xhat, dxhat = (x2 - mu) * rstd, dxn * gam
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True)) + gy.reshape(rows, K)
+    want = lin.ln_mlp_residual_bt_bwd_ref(x, gam, bet, w, b, w2, b2, gy, eps=1e-5,
+                                          activation="gelu_tanh", weights=False)[0]
+    assert ((dx - want.reshape(rows, K)).abs().max() / want.abs().max()).item() < 1e-6
 
 
 @pytest.mark.parametrize("rows", [127, 128, 129])
@@ -411,6 +522,60 @@ def test_ln_fed_users_match_jax_at_the_path_rows(rows):
                                  T(b2), eps=1e-5, activation="gelu_tanh"),
           j_lin.ln_mlp_residual_bt(J(x), J(g[None]), J(be[None]), J(w), J(b[None]), J(w2),
                                    J(b2[None]), eps=1e-5, activation="gelu_tanh"))
+
+
+@pytest.mark.parametrize("rows", [127, 128, 129])
+def test_mlp_bwd_matches_jax_vjp_at_the_path_rows(monkeypatch, rows):
+    """#6's plain version in fp32 (which both paths are held to on the
+    card) against the VJP of the JAX package's `ln_mlp_residual_bt` through
+    its own backward kernel, run in Pallas interpret mode as the JAX tests
+    run it, at the row counts around a 128-row tile, with and without the
+    weight side: every gradient within 1e-5 of its largest element."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from camouflaged_vlm_tpu.ops import linear as j_lin
+
+    ran, orig = [], j_lin.pl.pallas_call
+
+    def interp(kernel, *args, **kw):
+        ran.append(getattr(kernel, "func", kernel).__name__)
+        kw["interpret"] = True
+        kw.pop("compiler_params", None)
+        return orig(kernel, *args, **kw)
+
+    monkeypatch.setattr(j_lin.pl, "pallas_call", interp)
+    monkeypatch.setattr(j_lin, "_on_cpu", lambda: False)
+    rng = np.random.default_rng(rows)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    K, H = 32, 48
+    a = dict(x=rnd(1, rows, K, scale=2.0), gamma=1 + rnd(K, scale=0.1), beta=rnd(K, scale=0.1),
+             w1=rnd(H, K, scale=0.1), b1=rnd(H, scale=0.1), w2=rnd(K, H, scale=0.05),
+             b2=rnd(K, scale=0.1), g=rnd(1, rows, K))
+    J = jnp.asarray
+    jargs = (J(a["x"]), J(a["gamma"])[None], J(a["beta"])[None], J(a["w1"]).T,
+             J(a["b1"])[None], J(a["w2"]).T, J(a["b2"])[None])
+    _, pull = jax.vjp(lambda *p: j_lin.ln_mlp_residual_bt(*p, eps=1e-5, activation="quick_gelu"),
+                      *jargs)
+    want = pull(J(a["g"]))
+    assert "_ln_mlp_residual_bwd_kernel" in ran  # the TPU kernel #6 itself ran
+    to_port = [lambda v: v, lambda v: v[0], lambda v: v[0], lambda v: v.T, lambda v: v[0],
+               lambda v: v.T, lambda v: v[0]]
+    args = [torch.from_numpy(a[k]) for k in ("x", "gamma", "beta", "w1", "b1", "w2", "b2", "g")]
+    for weights in (False, True):
+        got = lin.ln_mlp_residual_bt_bwd_ref(*args, eps=1e-5, activation="quick_gelu",
+                                             weights=weights)
+        for gt, f, wt in zip(got, to_port, want):
+            if gt is None:
+                assert not weights
+                continue
+            ref = np.asarray(f(wt))
+            np.testing.assert_allclose(gt.numpy(), ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
 
 
 def test_f32_wrapper_checks_run_once_per_signature():

@@ -571,6 +571,78 @@ def test_ln_mlp_residual_bt_bwd_kernel_float32_row_panels(gen, monkeypatch, no_t
                 assert_close_f32(gt, wt)
 
 
+def _mlp_bwd_f32_args(gen, B, S, K, H):
+    f32 = torch.float32
+    return (rn(gen, B, S, K, dtype=f32), 1 + rn(gen, K, std=0.1, dtype=f32),
+            rn(gen, K, std=0.1, dtype=f32), rn(gen, H, K, std=0.05, dtype=f32),
+            rn(gen, H, std=0.1, dtype=f32), rn(gen, K, H, std=0.05, dtype=f32),
+            rn(gen, K, std=0.1, dtype=f32), rn(gen, B, S, K, dtype=f32))
+
+
+@pytest.mark.parametrize("weights", [False, True])
+@pytest.mark.parametrize("path", linear.F32_PATHS)
+@pytest.mark.parametrize("B,S,K,H", [(8, 581, 1024, 4096), (14, 77, 768, 3072), (1, 127, 200, 264),
+                                     (1, 129, 200, 264), (2, 1008, 1280, 5120),
+                                     (2, 4096, 1280, 5120)])
+def test_ln_mlp_residual_bt_bwd_kernel_float32_on_each_path(gen, monkeypatch, no_tf32, path,
+                                                             weights, B, S, K, H):
+    """#6's fp32 instance with each path forced (`linear.F32_PATH_FORCE`;
+    the weight side takes path 0 whatever is forced) at MaPLe's and SAM's
+    sites and ragged ones: every output within 1e-4 of plain (TF32 off), one
+    launch a call, two calls bit-equal."""
+    monkeypatch.setattr(linear, "F32_PATH_FORCE", path)
+    M = B * S
+    plans = linear.f32_mlp_bwd_plans(M, linear.mlp_panel_rows(M, H), K, H,
+                                     _cuda.sm_count(torch.device("cuda")), weights)
+    assert plans[0].path == plans[1].path == (0 if weights else path)
+    args = _mlp_bwd_f32_args(gen, B, S, K, H)
+    before = _cuda.LN_MLP_RESIDUAL_BWD_F32.launches
+    got = linear.ln_mlp_residual_bt_bwd(*args, eps=1e-6, activation="gelu_tanh", weights=weights)
+    assert _cuda.LN_MLP_RESIDUAL_BWD_F32.launches == before + 1
+    want = linear.ln_mlp_residual_bt_bwd_ref(*args, eps=1e-6, activation="gelu_tanh",
+                                             weights=weights)
+    again = linear.ln_mlp_residual_bt_bwd(*args, eps=1e-6, activation="gelu_tanh",
+                                          weights=weights)
+    for gt, wt, g2 in zip(got, want, again):
+        assert (gt is None) == (wt is None) == (g2 is None)
+        if wt is not None:
+            assert_close_f32(gt, wt)
+            assert torch.equal(gt, g2)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("tile", range(len(linear.F32_TILES) + len(linear.F32_MN_TILES)))
+@pytest.mark.parametrize("rows", [127, 128, 129, 581])
+def test_ln_mlp_residual_bt_bwd_float32_paths_bit_equal(gen, monkeypatch, no_tf32, splits, tile,
+                                                        rows):
+    """#6's dx at each tile number on the path that takes it (path 0 on
+    F32_TILES, the MN path on its own), K and H cut into `splits` slices
+    (the MN path's EPI_ACT_T and EPI_DACT_T through the second pass): within
+    1e-4 of plain and bit-equal to path 0 at 64 x 128 with the same slices
+    (each output one sum over k in order, the LN statistics the same sums),
+    also in row panels of 128 rows (the last one ragged)."""
+    monkeypatch.setattr(linear, "F32_SPLIT_FORCE", splits)
+    (path,) = [p for p in linear.F32_PATHS if (p, tile) in linear.F32_PATH_RATE]
+    args = _mlp_bwd_f32_args(gen, 1, rows, 200, 264)
+    want = linear.ln_mlp_residual_bt_bwd_ref(*args, eps=1e-5, activation="quick_gelu",
+                                             weights=False)[0]
+
+    def dx():
+        return linear.ln_mlp_residual_bt_bwd(*args, eps=1e-5, activation="quick_gelu",
+                                             weights=False)[0]
+
+    for scratch in (linear.MLP_SCRATCH_ELEMS, 128 * 264):
+        monkeypatch.setattr(linear, "MLP_SCRATCH_ELEMS", scratch)
+        monkeypatch.setattr(linear, "F32_TILE_FORCE", 1)
+        monkeypatch.setattr(linear, "F32_PATH_FORCE", 0)
+        ref = dx()
+        monkeypatch.setattr(linear, "F32_TILE_FORCE", tile)
+        monkeypatch.setattr(linear, "F32_PATH_FORCE", path)
+        got = dx()
+        assert_close_f32(got, want)
+        assert torch.equal(got, ref), (scratch, path, tile)
+
+
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("B,T,K,S,N", [(2, 1, 128, 37, 128), (1, 3, 64, 70, 96),
                                        (2, 2, 128, 50, 136),
