@@ -180,6 +180,16 @@ def cascade_config(config: Optional[str], tiny: bool, dtype: Optional[str]) -> C
     return CascadeConfig.tiny(dtype=dt) if tiny else CascadeConfig.full(dtype=dt)
 
 
+def tensorboard_writer(logdir: str):
+    """A SummaryWriter under `logdir` when torch.utils.tensorboard imports
+    (it needs the tensorboard package), else None, as in the JAX CLIs."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(logdir)
+
+
 def add_checkpoint_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--cascade-ckpt", default=None,
                    help="reference-layout cascade state dict (.pth), loaded strict, last")

@@ -21,8 +21,16 @@ The checkpoint flags (`--sam-ckpt`, `--clip-ckpt`, `--maple-ckpt`,
 `--cascade-ckpt`, `--text-bank`: the reference's files, `cli/common.py`)
 set the weights and the test split's bank; what no file sets is random
 (seeded by `--seed`). `--device cuda` (the default) on a host without a
-card raises, and so does float32 on the card. Not ported (ROADMAP.md, Queue
-1): `--data-parallel/--n-model` (multi-device).
+card raises, and so does float32 on the card where the configuration's path
+has a kernel with no fp32 instance (`common.refuse_fp32_on_card`).
+
+On the card each `evaluate()` call captures the batch's whole program (the
+uint8 upload, the normalisation, both cascade stages, the mask cast) once
+as one CUDA graph and replays it per batch, the counterpart of the JAX
+CLI's one jitted program (its `run`); a short last batch is padded by
+repeating its last sample, and the pad rows are dropped. Not ported yet
+(ROADMAP.md, Queue 1: the multi-device slice): `--data-parallel` and
+`--n-model`.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from ..data.transforms import (
     OPENAI_CLIP_STD,
 )
 from ..factory import attach_rel_cache, build_cascade
+from ..graphs import GraphedCall
 from ..metrics import ClassificationEvaluator, CODMetrics, OVCOSMetricer
 from ..utils.image import bilinear_resize_f32
 from .common import (
@@ -88,13 +97,24 @@ def score_image(cod: CODMetrics, metricer: OVCOSMetricer, prob: np.ndarray, s,
 @torch.no_grad()
 def evaluate(model, cfg, bank, index: OVCamoIndex, batch_size: int = 4,
              save_img_path: Optional[str] = None, num_workers: int = 8,
-             oracle_cls: bool = False, mask_dtype: str = "float16") -> dict:
+             oracle_cls: bool = False, mask_dtype: str = "float16",
+             graph: bool = True) -> dict:
     """Run the full OVCOS evaluation of `model` (on its device) over
     `index`; `bank` is the split's class bank (`factory.make_bank_inputs`).
     `oracle_cls=True` scores the class-aware metrics with the ground-truth
     class (segmentation quality alone). Returns the JAX package's results
     dict: the OVCOS metrics, ori_sm/em/wfm/mae, accuracy/error_rate/top5/
-    macro_f1, images and images_per_sec (metric drain included)."""
+    macro_f1, images and images_per_sec (metric drain included).
+
+    Every batch runs at `batch_size`: a short last batch is padded by
+    repeating its last sample (as the server pads its buckets) and the pad
+    rows are dropped before anything reads them. On a card the call (the
+    uint8 upload through the graph's static inputs, the normalisation, the
+    cascade and the cast to `mask_dtype`) is captured once as one CUDA graph
+    (`graphs.GraphedCall`, its warm-up calls replacing the eager warm-up),
+    which lives until this function returns: the rel tables attached here
+    are new tensors every call. `graph=False` runs each batch eagerly (the
+    same rows; on the CPU the call is eager either way)."""
     device = next(model.parameters()).device
     classnames = index.classes
     # the weights are fixed for the whole run: the rel tables once, from the
@@ -108,13 +128,11 @@ def evaluate(model, cfg, bank, index: OVCamoIndex, batch_size: int = 4,
         ("cmean", OPENAI_CLIP_MEAN), ("cstd", OPENAI_CLIP_STD))}
     out_dt = torch.float16 if mask_dtype == "float16" else torch.float32
 
-    def run(inp_u8: np.ndarray, cimg_u8: np.ndarray):
-        # uint8 to the device (a quarter of the fp32 bytes), then /255 and the
+    def body(inp_u8: torch.Tensor, cimg_u8: torch.Tensor):
+        # uint8 on the device (a quarter of the fp32 bytes), then /255 and the
         # normalisation there, in the host transforms' fp32 op order
-        inp = torch.from_numpy(inp_u8).to(device, non_blocking=True).float()
-        cimg = torch.from_numpy(cimg_u8).to(device, non_blocking=True).float()
-        inp = (inp / 255.0 - consts["mean"]) / consts["std"]
-        cimg = (cimg / 255.0 - consts["cmean"]) / consts["cstd"]
+        inp = (inp_u8.float() / 255.0 - consts["mean"]) / consts["std"]
+        cimg = (cimg_u8.float() / 255.0 - consts["cmean"]) / consts["cstd"]
         cmask = torch.full((inp.shape[0], cfg.clip_size, cfg.clip_size, 1),
                            ONES_ALPHA_VALUE, device=device)
         probs, pred, score = model.infer_cascade_with_text(inp, cimg, cmask, text_features)
@@ -128,10 +146,29 @@ def evaluate(model, cfg, bank, index: OVCamoIndex, batch_size: int = 4,
     if save_img_path:
         os.makedirs(save_img_path, exist_ok=True)
 
-    # one call before the clock: the kernels' build and load, allocator warm-up
-    warm = run(np.zeros((batch_size, cfg.inp_size, cfg.inp_size, 3), np.uint8),
-               np.zeros((batch_size, cfg.clip_size, cfg.clip_size, 3), np.uint8))
-    [t.cpu() for t in warm]
+    shapes = ((batch_size, cfg.inp_size, cfg.inp_size, 3),
+              (batch_size, cfg.clip_size, cfg.clip_size, 3))
+    if graph:
+        # the capture before the clock: its eager warm-ups build and load the
+        # kernels and warm the allocator; the uint8 host batches are copied
+        # into its static inputs at every replay
+        graphed = GraphedCall(body, *(torch.zeros(s, dtype=torch.uint8, device=device)
+                                      for s in shapes))
+
+        def run(inp_u8: np.ndarray, cimg_u8: np.ndarray):
+            outs = graphed(torch.from_numpy(inp_u8), torch.from_numpy(cimg_u8))
+            # the next replay overwrites the static outputs (and a float32
+            # probs.to() is probs itself): copies, queued before it
+            return tuple(t.clone() for t in outs)
+    else:
+        def run(inp_u8: np.ndarray, cimg_u8: np.ndarray):
+            return body(*(torch.from_numpy(a).to(device, non_blocking=True)
+                          for a in (inp_u8, cimg_u8)))
+
+        # one call before the clock: the kernels' build and load, allocator warm-up
+        [t.cpu() for t in run(*(np.zeros(s, np.uint8) for s in shapes))]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
     n_done = 0
     t0 = time.time()
@@ -143,16 +180,17 @@ def evaluate(model, cfg, bank, index: OVCamoIndex, batch_size: int = 4,
 
     def consume(outs, batch):
         nonlocal n_done
-        probs = outs[0].float().cpu().numpy()[:, :, :, 0]
-        pred = outs[1].cpu().numpy()
-        clf.process(outs[2].float().cpu().numpy(), np.asarray([s.label_id for s in batch]))
+        n = len(batch)  # the rows past it are padding
+        probs = outs[0][:n].float().cpu().numpy()[:, :, :, 0]
+        pred = outs[1][:n].cpu().numpy()
+        clf.process(outs[2][:n].float().cpu().numpy(), np.asarray([s.label_id for s in batch]))
         for i, s in enumerate(batch):
             pre_cls = s.label_name if oracle_cls else classnames[int(pred[i])]
             metric_futures.append(metric_pool.submit(score_image, cod, metricer, probs[i], s,
                                                      pre_cls, save_img_path))
             if len(metric_futures) > max_metric_queue:
                 metric_futures.popleft().result()
-        n_done += len(batch)
+        n_done += n
 
     # pipelined: up to IN_FLIGHT batches are queued on the device before the
     # oldest is drained, so its copy back and metric fan-out overlap the
@@ -160,8 +198,9 @@ def evaluate(model, cfg, bank, index: OVCamoIndex, batch_size: int = 4,
     pending: deque = deque()
     for batch in iter_eval_batches(index, batch_size, cfg.inp_size, cfg.clip_size,
                                    num_workers, raw_uint8=True):
-        inp = np.stack([s.inp for s in batch])
-        cimg = np.stack([s.clip_image for s in batch])
+        rows = batch + [batch[-1]] * (batch_size - len(batch))
+        inp = np.stack([s.inp for s in rows])
+        cimg = np.stack([s.clip_image for s in rows])
         pending.append((run(inp, cimg), batch))
         if len(pending) > IN_FLIGHT - 1:
             consume(*pending.popleft())
@@ -170,6 +209,7 @@ def evaluate(model, cfg, bank, index: OVCamoIndex, batch_size: int = 4,
     while metric_futures:
         metric_futures.popleft().result()  # surfaces worker exceptions
     metric_pool.shutdown(wait=True)
+    graphed = None  # the graph and its memory pool go before the caller continues
 
     ovcos = metricer.show()
     ori_sm, ori_em, ori_wfm, ori_mae = cod.results()
@@ -209,9 +249,9 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def main(argv: Sequence[str] = None) -> dict:
-    """Evaluate and write <output-dir>/results.json; return the results."""
-    args = parse_args(argv)
+def load(args: argparse.Namespace):
+    """The CLI's model, configuration, test-split bank, index and logger,
+    from parsed arguments: (model, cfg, bank, index, log)."""
     cfg = cascade_config(args.config, args.tiny, args.dtype)
     refuse_fp32_on_card(args.device, cfg)
     device = device_or_raise(args.device)
@@ -230,6 +270,13 @@ def main(argv: Sequence[str] = None) -> dict:
                                  maple_ckpt=args.maple_ckpt, sam_ckpt=args.sam_ckpt,
                                  cascade_ckpt=args.cascade_ckpt, seed=args.seed, log=log)
     bank = make_bank(index.classes, args.text_bank)
+    return model, cfg, bank, index, log
+
+
+def main(argv: Sequence[str] = None) -> dict:
+    """Evaluate and write <output-dir>/results.json; return the results."""
+    args = parse_args(argv)
+    model, cfg, bank, index, log = load(args)
     save_path = os.path.join(args.output_dir, "result_image") if args.save_images else None
     results = evaluate(model, cfg, bank, index, batch_size=args.batch_size,
                        save_img_path=save_path, oracle_cls=args.oracle_cls,

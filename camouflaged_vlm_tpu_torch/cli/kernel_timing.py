@@ -609,7 +609,7 @@ def f32_attention(smoke, label, against, tiles):
     """One JSON line per `f32_attention_cases` case: the SHA-256 of its
     outputs' bytes, its idle-card median and queued times
     (`chip_smoke.time_ms`); for a forward also its error against the plain
-    version, the host's microseconds a call through the wrapper and through
+    version and the plain version's idle-card median, the host's microseconds a call through the wrapper and through
     its CudaKernel alone (`entry_replay`), the library call's times, its
     bound against the fp32 CUDA-core peak and, on a checkout with the loop's
     tile plan (`ops/flash_attention.py f32_attn_plan`), the tile the call
@@ -661,6 +661,7 @@ def f32_attention(smoke, label, against, tiles):
             if c.kernel:
                 _, replay = entry_replay(getattr(_cuda, c.kernel), c.call)
                 rec.update(host_us=smoke.host_us(c.call), host_us_entry=smoke.host_us(replay()),
+                           plain_ms=smoke.time_ms(c.plain),
                            library_ms=smoke.time_ms(c.library),
                            library_queued_ms=smoke.time_ms(c.library, queued=True))
                 if planned and tiles:
@@ -1008,6 +1009,11 @@ def padded_calls(smoke, label):
 
 
 def main() -> None:
+    # run as a script, this file's directory comes first on sys.path, where
+    # cli/profile.py would shadow the standard library's profile module
+    # (torch imports cProfile, which imports it)
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != here]
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE, help="checkout whose package to time")
     ap.add_argument("--label", default=None)

@@ -37,8 +37,16 @@ JAX CLI does, and its train section sets the recipe: `epochs`,
 `batch_size`, `lr`, `eta_min`, `epoch_val` and `loss` (a reference-format
 yaml's `epoch_max`, `lr_min`, ...) replace the flags where present.
 
+`--remat` (or a yaml's `encoder.remat: true`) recomputes each SAM block's
+forward in the backward pass (`torch.utils.checkpoint`, JAX's `nn.remat`):
+the step keeps only the blocks' inputs, trading memory for one more encoder
+forward; the gradients are those of the step without it. Each epoch's mean
+losses go to TensorBoard under `<save-dir>/tensorboard` when
+`torch.utils.tensorboard` imports, under JAX's names (the metric keys, step
+= the epoch).
+
 Not ported yet (ROADMAP.md, Queue 1): data/tensor parallelism (multi-device;
-validation runs on the one device) and remat. The JAX CLI's `--fused-optimizer` is left out on
+validation runs on the one device). The JAX CLI's `--fused-optimizer` is left out on
 purpose: its "auto" changes the optimizer state's layout, so a resume from an
 older checkpoint fails (ROADMAP.md, Queue 3).
 """
@@ -46,6 +54,7 @@ older checkpoint fails (ROADMAP.md, Queue 3).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -74,6 +83,7 @@ from .common import (
     exact_fp32_on_card,
     load_checkpoints,
     refuse_fp32_on_card,
+    tensorboard_writer,
 )
 from .evaluate import evaluate
 
@@ -103,6 +113,13 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
     p.add_argument("--config", default=None,
                    help="model config yaml (native or the reference's format)")
     p.add_argument("--tiny", action="store_true", help="tiny config (smoke test)")
+    p.add_argument(
+        "--remat", action="store_true",
+        help="rematerialise encoder blocks in the backward pass: each block keeps only its "
+        "input and its forward runs again in the backward, so the step's activation memory "
+        "drops to the blocks' inputs and one block's activations, for about one more SAM "
+        "forward a step. Use for larger per-card batches.",
+    )
     p.add_argument("--device", default="cuda")
     p.add_argument("--sam-ckpt", default=None, help="SAM backbone (sam_vit_h_4b8939.pth)")
     p.add_argument("--clip-ckpt", default=None,
@@ -151,11 +168,14 @@ def main(argv: Sequence[str] = None) -> dict:
     "bank" and "train_bank": the test and the train split's class banks}."""
     args = parse_args(argv)
     cfg = cascade_config(args.config, args.tiny, args.dtype)
+    if args.remat:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, remat=True))
     refuse_fp32_on_card(args.device, cfg, training=True)
     device = device_or_raise(args.device)
     exact_fp32_on_card(args.device, cfg)  # full fp32 outside the kernels too
     os.makedirs(args.save_dir, exist_ok=True)
     log = Logger(args.save_dir)
+    writer = tensorboard_writer(os.path.join(args.save_dir, "tensorboard"))
 
     with open(args.dataset_info) as f:
         dataset_info = yaml.safe_load(f)
@@ -218,6 +238,9 @@ def main(argv: Sequence[str] = None) -> dict:
         log(f"epoch {epoch}/{args.epochs} "
             + " ".join(f"{k}={v:.4f}" for k, v in means.items())
             + f" ({time.perf_counter() - t_epoch:.1f}s)")
+        if writer:
+            for k, v in means.items():
+                writer.add_scalar(k, v, epoch)
         save_checkpoint(ckpt_last, model, optimizer, step)
         with open(meta_path, "w") as f:
             json.dump({"epoch": epoch, "step": step, "best_mae": best_mae}, f)
@@ -241,6 +264,8 @@ def main(argv: Sequence[str] = None) -> dict:
             break
     else:
         log("training done")
+    if writer:
+        writer.close()
     return {"model": model, "optimizer": optimizer, "step": step, "epochs": epochs,
             "step_seconds": step_seconds, "validations": validations,
             "best_mae": best_mae, "text_features": text_features, "bank": bank,

@@ -74,6 +74,7 @@ from .common import (
     device_or_raise,
     exact_fp32_on_card,
     load_checkpoints,
+    tensorboard_writer,
 )
 
 
@@ -121,12 +122,7 @@ def main(argv: Sequence[str] = None) -> dict:
     exact_fp32_on_card(args.device, cfg)  # full fp32 outside the kernels too
     os.makedirs(args.save_dir, exist_ok=True)
     log = Logger(args.save_dir)
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-
-        writer = SummaryWriter(os.path.join(args.save_dir, "tensorboard"))
-    except ImportError:
-        writer = None
+    writer = tensorboard_writer(os.path.join(args.save_dir, "tensorboard"))
 
     with open(args.dataset_info) as f:
         dataset_info = yaml.safe_load(f)

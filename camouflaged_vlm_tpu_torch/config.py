@@ -9,10 +9,9 @@ the same configuration with torch dtypes.
 Keys of the JAX configs that the port has no field for load only where they
 change nothing here, and raise otherwise; nothing is dropped silently:
 
-  encoder.remat  false loads; true (rematerialised blocks) raises
-                 NotImplementedError, the port has no remat yet;
   clip.fused     true loads (the port's CLIP always runs its kernels on the
-                 card); false (the JAX package's pure-XLA CLIP) raises.
+                 card); false (the JAX package's pure-XLA CLIP) raises
+                 NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,7 +30,6 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 # JAX-only keys, each with the one value the port takes
 _JAX_ONLY = {
-    SamEncoderConfig: {"remat": (False, "remat: true (rematerialised blocks) is not ported")},
     AlphaClipConfig: {"fused": (True, "fused: false (the JAX package's pure-XLA CLIP) has no "
                                       "counterpart in the port")},
 }

@@ -33,6 +33,10 @@ import torch
 
 from .ops import _cuda
 
+# eager calls before the capture: with the captured call, a GraphedCall's
+# host launches are WARMUP + 1 calls' (`launches` holds the captured one's)
+WARMUP = 2
+
 
 class GraphedCall:
     """`fn` captured at the shapes, types and device of `example_inputs`.
@@ -45,7 +49,7 @@ class GraphedCall:
     """
 
     def __init__(self, fn: Callable, *example_inputs: torch.Tensor, pool=None,
-                 warmup: int = 2):
+                 warmup: int = WARMUP):
         self.fn = fn
         self.device = example_inputs[0].device
         self.graph: Optional[torch.cuda.CUDAGraph] = None

@@ -43,11 +43,13 @@ the reference's state-dict keys.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.compact_window import (
     REL_LANES,
@@ -103,6 +105,10 @@ class SamEncoderConfig:
     # 'flash' | 'aug_flash' | 'aug_xla' | 'reference'; see the module docstring
     attn_impl: str = "flash"
     gelu_approximate: bool = True
+    # recompute each block's forward in the backward pass instead of keeping
+    # its activations (torch.utils.checkpoint, JAX's nn.remat): training
+    # keeps only the blocks' inputs; no effect on inference
+    remat: bool = False
 
     @property
     def grid(self) -> int:
@@ -605,7 +611,12 @@ class ImageEncoderViT(nn.Module):
         interm = []
         x_w = None  # padded window carry
         xc = None   # compact carry (x_full, x_edge) ('flash')
+        # JAX's nn.remat(Block): only the block is recomputed; the prompts,
+        # the partitions and interm stay outside
+        remat = cfg.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
+            if remat:
+                blk = functools.partial(checkpoint, blk, use_reentrant=False)
             if self._windowed(i) and geom is not None:
                 if xc is None:
                     xc = compact_partition(x, geom)

@@ -31,6 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
 
+# a launch's torch.profiler range while a profiler is on: this + its name
+PROFILE_RANGE = "cvlm::"
 # activation codes of csrc/common.cuh
 ACTIVATIONS = {None: 0, "gelu": 1, "gelu_tanh": 2, "quick_gelu": 3}
 
@@ -126,7 +128,11 @@ class CudaKernel:
             fn.restype = ctypes.c_int
             self._fn = fn
         stream = torch.cuda.current_stream().cuda_stream
-        err = self._fn(*args, stream)
+        if torch.autograd._profiler_enabled():  # its launch under its name in a trace
+            with torch.profiler.record_function(PROFILE_RANGE + self.name):
+                err = self._fn(*args, stream)
+        else:
+            err = self._fn(*args, stream)
         if err != 0:
             msg = library().cvlm_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")

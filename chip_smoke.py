@@ -78,6 +78,15 @@ never prints its last line):
               32, 2, 4; its per-batch lines and its headline: images/s, the
               batch-1 latency, TFLOP/s, MFU, peak and reserved memory, the
               card)
+  6g. profile `cli/profile.py` in this process: bf16 at batch 8 with --stages
+              --trace, fp32 at batch 1 with --trace; JAX's timing lines, the
+              card's busy time and idle share, the replay's device time by
+              family (the port's kernels by name, cuBLAS, cuDNN, aten by
+              launching op, copies and fills, other) and the eager call's
+              library kernels by aten op; a replay's summed kernel time
+              within 2% of its busy time, the families summing to the total,
+              >= 99% of the replay's kernels paired with the eager launches;
+              traces under build/chip_smoke_profile/ (removed after)
   7. grads    each hand-written backward kernel (the fused MLP's, the
               windowed and the global attention's) against its plain
               backward at the training path's full-width bf16 shapes, per
@@ -94,7 +103,8 @@ never prints its last line):
               bit-identical, step times and peak memory; then one step cut
               into forward, backward and optimizer (CUDA events)
   9b. train_val  the train CLI validating on the card: one bf16 step on 2
-              images, then --epoch-val 1's evaluate() of the test split;
+              images with --remat (the SAM blocks' forward kernels twice),
+              then --epoch-val 1's graphed evaluate() of the test split;
               finite MAE, ckpt_best.pt and best_mae, exact launch counts
  10. unfused  as vit_h, depth 2 at full width, for SAM ViT-B on 'flash' (12
               heads: the unfused path, TPU kernel #10 in both blocks) and
@@ -106,9 +116,13 @@ never prints its last line):
               ViT-B yaml, the ViT-H yaml on 'aug_flash' and at windows 16 and
               17 (fused 'flash' on the padded carry: #12; #11 + #8), all at
               full width and depth: finite results,
-              exact launch counts, images/s and peak memory per config (a
+              exact launch counts (each evaluate() one CUDA graph: its
+              warm-ups and capture, replays launch nothing), images/s and peak
+              memory per config (a
               smoke figure: 5 images have no steady state; the rate is
-              `cli/eval_throughput.py`'s over 300); then
+              `cli/eval_throughput.py`'s over 300); for ViT-H the graphed
+              results dict equal to the eager one exactly at --mask-dtype
+              float16 and float32 (the short last batch padded alike); then
               each configuration's cascade call cut into stages at batch 1 and 2
               (windows 16 and 17 and ViT-B also traced at batch 2: the card's
               busy time),
@@ -169,6 +183,12 @@ never prints its last line):
               step at depth 8 (global block 7), batch 1, card against the
               host's CPU (loss 1e-5, gradients 1e-3); the full-depth step in
               bf16 against fp32 on the card (no gate)
+ 17b. f32_train_remat  one fp32 step of the reference configuration at full
+              width and depth, batch 2, without and with remat (the train
+              CLI's --remat): loss within 1e-5, gradients within 1e-4 (bit
+              equality expected, the largest difference logged), a lower peak
+              with remat, both step walls, exact launches (the blocks'
+              forward kernels twice)
 
 Every kernel line carries its bound (the larger of its FLOP over the bf16
 tensor-core peak, the fp32 one's over the fp32 CUDA-core peak, and its bytes
@@ -201,6 +221,10 @@ import shutil
 import time
 
 import numpy as np
+
+# the trace readers the profile CLI shares (torch only, no card needed to import)
+from camouflaged_vlm_tpu_torch.utils.profiling import (busy_ms, device_events, device_kernels,
+                                                       trace_call)
 
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 
@@ -1792,68 +1816,7 @@ def stage_times(m, cfg, tf, batches, label="", iters=5, trace=()):
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
         if bs in trace:
             with torch.no_grad():
-                trace_call(lambda: call(*inputs), f"{label} batch {bs}", med[-2])
-
-
-def busy_ms(events):
-    """The union of the device events' intervals, ms: the card's busy time."""
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    return busy / 1e3
-
-
-# runtime calls and ops that can make the host wait for the card
-SYNC_EVENTS = ("cudaMemcpy", "Synchronize", "aten::_local_scalar_dense")
-
-
-def trace_call(fn, label, wall_ms, kernels=False):
-    """One call of `fn` under torch.profiler (CPU and CUDA): the card's busy
-    time (the union of its kernels' and copies' intervals), and against
-    `wall_ms`, the call's wall without the profiler, its idle share; the
-    device events' count; the runtime calls and ops that can wait for the
-    card (`SYNC_EVENTS`); the host ops by self CPU time, the top ones logged
-    and 25 written to OUT_DIR/trace<label>.txt; with
-    `kernels`, also the device time of the kernels that take the most."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1000
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = busy_ms(dev)
-    avg = prof.key_averages()
-    name = "trace" + re.sub(r"\W+", "_", label) + ".txt"
-    with open(os.path.join(OUT_DIR, name), "w") as f:
-        f.write(avg.table(sort_by="self_cpu_time_total", row_limit=25))
-    top = sorted((e for e in avg if e.self_cpu_time_total > 0),
-                 key=lambda e: -e.self_cpu_time_total)[:6]
-    tops = "; ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.2f} ms x {e.count}" for e in top)
-    syncs = "; ".join(f"{e.key} x {e.count}" for e in avg
-                      if any(s in e.key for s in SYNC_EVENTS)) or "none"
-    dev_s = (f"device busy {busy:.2f} ms in {len(dev)} device events, idle share "
-             f"{1 - busy / wall_ms:.3f} of the call's {wall_ms:.2f}-ms wall" if dev
-             else "device busy not measured (the trace holds no device events)")
-    log(f"[trace]{label}: {dev_s}; wall {wall:.2f} ms under the profiler; host ops' self "
-        f"CPU {sum(e.self_cpu_time_total for e in avg) / 1e3:.2f} ms, the most: {tops}; "
-        f"calls that can wait for the card: {syncs} ({OUT_DIR}/{name})")
-    if kernels:
-        def dt(e):
-            return getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-
-        ks = sorted((e for e in avg if e.device_type == DeviceType.CUDA and dt(e) > 0),
-                    key=lambda e: -dt(e))[:8]
-        short = [re.sub(r"^void |<.*$|\(.*$", "", e.key.replace("(anonymous namespace)::", ""))
-                 for e in ks]
-        log(f"[trace]{label}: kernels by device time: " + "; ".join(
-            f"{n} {dt(e) / 1e3:.2f} ms x {e.count}" for n, e in zip(short, ks)))
+                trace_call(lambda: call(*inputs), f"{label} batch {bs}", med[-2], OUT_DIR, log)
 
 
 def _check_grads(name, kfn, pfn, args, out_names, flops, reads, rel_bound=KERNEL_REL_BOUND,
@@ -2181,9 +2144,10 @@ def phase_train_slice():
 
 def phase_train_val():
     """The train CLI's validation on the card: one epoch of 2 synthetic
-    images at batch 2 (one step) with --epoch-val 1, so evaluate() runs on
-    the model that has just taken a bf16 step (the 2-image test split at
-    batch 1); its [val epoch 1] result, ckpt_best.pt and best_mae. Launches
+    images at batch 2 (one step, with --remat: the SAM blocks recomputed in
+    the backward) with --epoch-val 1, so evaluate() runs on the model that
+    has just taken a bf16 step (the 2-image test split at batch 1, one
+    graph); its [val epoch 1] result, ckpt_best.pt and best_mae. Launches
     counted apart from train_slice's."""
     import torch
     from camouflaged_vlm_tpu_torch.cli import train as train_cli
@@ -2201,11 +2165,12 @@ def phase_train_val():
     _cuda.reset_launches()
     run = train_cli.main(["--dataset-info", info, "--save-dir", save_dir, "--device", "cuda",
                           "--dtype", "bfloat16", "--epochs", "1", "--batch-size", "2",
-                          "--epoch-val", "1", "--seed", "0"])
+                          "--epoch-val", "1", "--seed", "0", "--remat"])
     torch.cuda.synchronize()
     counts = _cuda.launch_counts()
     cfg = run["model"].cfg
     vals = run["validations"]
+    check(cfg.encoder.remat, "train_val: --remat did not reach the encoder's configuration")
     check(run["step"] == 1 and [v["epoch"] for v in vals] == [1],
           f"train_val: {run['step']} steps, validations {vals}")
     mae = vals[0]["mae"]
@@ -2218,10 +2183,11 @@ def phase_train_val():
     check(os.path.exists(os.path.join(save_dir, "ckpt_best.pt")), "train_val: no ckpt_best.pt")
     check(meta.get("best_mae") == mae == run["best_mae"], f"train_val: meta {meta}, mae {mae}")
     check("[val epoch 1]" in logtext, "train_val: no [val epoch 1] line in the train log")
-    # one train step (text tower once, one CLIP pass, SAM backward), then
-    # evaluate(): the text tower again, a warm-up call and 2 calls at batch 1
-    expected = expected_launches(cfg, 1, clip_passes=1, backward=True)
-    for k, n in expected_launches(cfg, 3).items():
+    # one train step with --remat (text tower once, one CLIP pass, SAM's
+    # backward and its blocks' forward again), then evaluate(): the text
+    # tower again and the graph's warm-up and captured calls at batch 1
+    expected = expected_launches(cfg, 1, clip_passes=1, backward=True, remat=True)
+    for k, n in expected_launches(cfg, eval_calls()).items():
         expected[k] += n
     log(f"[train_val] 1 step, [val epoch 1] mae {mae} sm {vals[0]['sm']}; ckpt_best.pt and "
         f"best_mae {meta['best_mae']} written; kernel launches {counts} expected {expected}")
@@ -2272,7 +2238,8 @@ def train_times(run, iters=3, label="train_times"):
                                            tf)
     loss, _ = train.segmentation_loss(masks, edges, batch["gt"])
     trace_call(lambda: loss.backward(retain_graph=True),
-               " " + label.replace("_times", "") + " backward batch 2", med[1], kernels=True)
+               " " + label.replace("_times", "") + " backward batch 2", med[1], OUT_DIR, log,
+               kernels=True)
     opt.zero_grad(set_to_none=True)
     return med
 
@@ -2346,11 +2313,12 @@ def sam_expected(enc):
     return out
 
 
-def expected_launches(cfg, calls, clip_passes=2, backward=False, text=True):
+def expected_launches(cfg, calls, clip_passes=2, backward=False, text=True, remat=False):
     """Launch counts of `calls` cascade calls (`clip_passes` CLIP vision
     passes per call), the text tower once when `text`, with SAM's backward
     kernels when `backward` (one per fused MLP, windows and global
-    attention)."""
+    attention), and with `remat` every SAM block's forward kernels once more
+    (the backward's recompute; the patch embeds run once)."""
     from camouflaged_vlm_tpu_torch.ops import _cuda
 
     out = {k.name: 0 for k in _cuda.KERNELS}
@@ -2363,7 +2331,18 @@ def expected_launches(cfg, calls, clip_passes=2, backward=False, text=True):
     if backward:
         for fwd in ("ln_mlp_residual_bt", "flash_qkv_packed_windows_s", "flash_qkv_packed_global"):
             out[fwd + "_bwd"] = sam.get(fwd, 0) * calls
+    if remat:
+        for k, n in sam.items():
+            out[k] += n * calls if k != "linear_act" else 0
     return out
+
+
+# the host calls of one evaluate() on the card: the graph's eager warm-ups
+# and its captured call (`graphs.GraphedCall`); its replays launch nothing
+def eval_calls():
+    from camouflaged_vlm_tpu_torch.graphs import WARMUP
+
+    return WARMUP + 1
 
 
 def window_yaml(win, work):
@@ -2398,7 +2377,7 @@ def phase_eval_slice():
     info = write_synthetic_ovcamo(os.path.join(work, "ovcamo_synthetic"), n_train=0, n_test=5,
                                   seed=1, test_classes=tuple(TEST_CLASS_NAMES))
     n_images, batch = 5, 2
-    calls = 1 + -(-n_images // batch)  # the warm-up call and 3 batches
+    calls = eval_calls()  # 3 batches, the last short, replay the one graph
     runs = {}
     for label in ("vit_h_flash", "vit_b_flash", "vit_h_aug_flash", "vit_h_flash_win16",
                   "vit_h_flash_win17"):
@@ -2434,6 +2413,8 @@ def phase_eval_slice():
         log(f"[eval_slice] {label} kernel launches {counts} expected {expected}")
         check(counts == expected, f"eval_slice {label}: launch counts {counts} != {expected}")
         runs[label] = dict(counts=counts, images_per_sec=res["images_per_sec"], peak_gib=peak)
+        if label == "vit_h_flash":
+            eval_graph_vs_eager(info, path, res, batch)
         # the padded carry's configurations and the unfused ViT-B: the card's
         # busy time of a batch-2 call, which their kernels (#12, #11 + #8; #10)
         # move
@@ -2442,6 +2423,45 @@ def phase_eval_slice():
     shutil.rmtree(work)
     host_metric_cost()
     return runs
+
+
+def eval_graph_vs_eager(info, path, graphed_f16, batch):
+    """evaluate() of the ViT-H configuration (the CLI's model and bank, the
+    same seed) on the 5 images at batch 2, the last batch short, graphed and
+    eager at both mask types: each results dict (images_per_sec aside)
+    equals the other path's exactly, at the same padding; exact launches
+    (graphed: the capture's calls whatever the batches, eager: its warm-up
+    call and one call a batch). `graphed_f16`: the CLI's own graphed run."""
+    import torch
+    from camouflaged_vlm_tpu_torch.cli import evaluate
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    args = evaluate.parse_args(["--dataset-info", info, "--config", path, "--device", "cuda",
+                                "--dtype", "bfloat16", "--batch-size", str(batch),
+                                "--output-dir", os.path.join(OUT_DIR, "eval_graph_vs_eager")])
+    model, cfg, bank, index, _ = evaluate.load(args)
+    n_batches = -(-len(index) // batch)
+    for mask in ("float16", "float32"):
+        res = {}
+        for graph in (True, False):
+            if graph and mask == "float16":
+                res[graph] = graphed_f16
+                continue
+            _cuda.reset_launches()
+            res[graph] = evaluate.evaluate(model, cfg, bank, index, batch_size=batch,
+                                           mask_dtype=mask, graph=graph)
+            torch.cuda.synchronize()
+            counts = _cuda.launch_counts()
+            want = expected_launches(cfg, eval_calls() if graph else 1 + n_batches)
+            check(counts == want, f"eval_slice graph={graph} {mask}: launches {counts} != {want}")
+        g, e = ({k: v for k, v in r.items() if k != "images_per_sec"} for r in res.values())
+        log(f"[eval_slice] vit_h_flash --mask-dtype {mask}, 5 images at batch 2 (the last batch "
+            f"padded): graphed images_per_sec {res[True]['images_per_sec']}, eager "
+            f"{res[False]['images_per_sec']} (a smoke figure, metric drain included); results "
+            f"equal exactly: {g == e}")
+        check(g == e, f"eval_slice {mask}: graphed {g} != eager {e}")
+    del model
+    torch.cuda.empty_cache()
 
 
 def host_metric_cost(iters=5):
@@ -2513,22 +2533,6 @@ def config_stage_times(cfg, label, trace=()):
 GRAPH_REL_BOUND = 1e-2
 GRAPH_BATCHES = (1, 2, 4)
 TRACE_ATTEMPTS = 5
-
-
-def _device_kernels(prof):
-    """Kernel names and counts of a torch.profiler trace (copies and fills
-    of the runtime left out), the card's busy ms, and the kernels' device
-    ms by name."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
-
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-    ms = Counter()
-    for e in kernels:
-        ms[e.name] += (e.time_range.end - e.time_range.start) / 1e3
-    return Counter(e.name for e in kernels), busy_ms(dev), ms
 
 
 def _walls_ms(fn, iters=7):
@@ -2607,7 +2611,7 @@ def phase_graph(session, images):
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     call()
                     torch.cuda.synchronize()
-                traces[label] = _device_kernels(prof)
+                traces[label] = device_kernels(prof)
             (k_eager, busy_eager, _), (k_graph, busy_graph, ms_graph) = (traces["eager"],
                                                                          traces["graph"])
             delta = {k[:80]: (k_eager.get(k, 0), k_graph.get(k, 0))
@@ -2816,6 +2820,72 @@ def phase_bench():
     h = out["headline"]
     log(f"[bench] headline: {json.dumps(h)}")
     check(h["value"] > 0 and h["mfu"] is not None, f"bench headline {h}")
+    torch.cuda.empty_cache()
+
+
+# a replay runs its kernels one after another on one stream: their summed
+# device time lies within this share of the card's busy time
+PROFILE_SUM_BUSY_BOUND = 0.02
+# the share of a replay's kernels that must pair with the eager call's
+# launches (`profiling.align`: cuBLAS may pick other kernels under capture)
+PROFILE_MATCH_BOUND = 0.99
+PROFILE_WORK = os.path.join("build", "chip_smoke_profile")
+PROFILE_LINES = ("sam encoder", "clip classify (1 pass)", "FULL fused cascade", "throughput:")
+
+
+def phase_profile():
+    """`cli/profile.py` in this process at full width: bf16 at batch 8 with
+    --stages --trace, fp32 at batch 1 with --trace (TF32 off, as the CLI
+    leaves it). Its lines go to the log: JAX's timing lines, the card's busy
+    time and idle share, the replay's device time by family and by kernel,
+    the eager call's library kernels by aten op. Checks: JAX's line names
+    printed; a replay's summed device time within 2% of its busy time (one
+    stream, no overlap); the families summing to the total; the replay's
+    kernels paired (>= 99%) with the eager call's launches, the port's
+    kernels among them; both traces written under --trace-dir (under
+    build/, not OUT_DIR: they run to tens of MB; removed after)."""
+    import contextlib
+    import io
+
+    from camouflaged_vlm_tpu_torch.cli import profile
+
+    for dtype, argv in (("bfloat16", ["--batch", "8", "--stages"]),
+                        ("float32", ["--batch", "1"])):
+        trace_dir = os.path.join(PROFILE_WORK, dtype)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = profile.main([*argv, "--trace", "--dtype", dtype, "--trace-dir", trace_dir])
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            log(f"[profile] {dtype}: {line}")
+        want = PROFILE_LINES if "--stages" in argv else PROFILE_LINES[2:]
+        check(all(any(ln.startswith(n) for ln in lines) for n in want),
+              f"[profile] {dtype}: JAX's lines {want} not all printed")
+        rep = out["replay"]
+        dev = device_events(out["profilers"]["replay"])
+        summed = sum(e.time_range.end - e.time_range.start for e in dev) / 1e3
+        busy = busy_ms(dev)
+        gap = abs(summed - busy) / busy
+        fams = sum(rep["families"].values())
+        log(f"[profile] {dtype}: replay device time summed {summed:.3f} ms, busy {busy:.3f} ms "
+            f"over {len(dev)} device events (gap {gap:.4f}, bound {PROFILE_SUM_BUSY_BOUND}); "
+            f"families sum {fams:.3f} ms of the breakdown's total {rep['total_ms']:.3f}; "
+            f"share of the kernels paired with the eager launches {rep['matched']:.4f} (bound "
+            f"{PROFILE_MATCH_BOUND})")
+        check(gap <= PROFILE_SUM_BUSY_BOUND, f"[profile] {dtype}: summed {summed} vs busy {busy}")
+        check(abs(fams - rep["total_ms"]) <= 1e-9 * rep["total_ms"]
+              and abs(rep["total_ms"] - summed) <= 1e-9 * summed,
+              f"[profile] {dtype}: families {rep['families']} vs total {rep['total_ms']}")
+        check(rep["matched"] >= PROFILE_MATCH_BOUND and rep["families"]["port kernels"] > 0,
+              f"[profile] {dtype}: replay paired {rep['matched']} with the eager launches, or "
+              "no port kernel")
+        sizes = {os.path.basename(t): os.path.getsize(t) for t in out["traces"]}
+        log(f"[profile] {dtype}: traces under {trace_dir}, bytes {sizes}")
+        check(all(sizes.values()), f"[profile] {dtype}: empty traces {sizes}")
+        del out
+    shutil.rmtree(PROFILE_WORK, ignore_errors=True)
+    import torch
+
     torch.cuda.empty_cache()
 
 
@@ -3667,8 +3737,10 @@ def phase_f32_slice():
             f"{graph_ms:.2f} ({1e3 * bs / graph_ms:.3f} images/s graphed); replay against eager "
             f"max_rel {d:.3e} (probabilities and class logits)")
         with torch.no_grad():
-            trace_call(lambda: fn(*inputs), f"_f32 eager batch {bs}", eager_ms, kernels=True)
-            trace_call(lambda: g(*g.static_inputs), f"_f32 graph batch {bs}", graph_ms)
+            trace_call(lambda: fn(*inputs), f"_f32 eager batch {bs}", eager_ms, OUT_DIR, log,
+                       kernels=True)
+            trace_call(lambda: g(*g.static_inputs), f"_f32 graph batch {bs}", graph_ms, OUT_DIR,
+                       log)
         del g, eager, out
     del graphs, session, model, tf
     torch.cuda.empty_cache()
@@ -3879,9 +3951,10 @@ def phase_f32_train_slice():
     check(not frozen_moved, f"f32_train_slice: frozen weights changed: {frozen_moved[:5]}")
     check(len(moved) >= 0.9 * len(trainable_keys), "f32_train_slice: trainable weights did not move")
     # 3 steps (the text tower once, one CLIP pass, SAM's backward), then
-    # evaluate(): the text tower again, a warm-up call and 2 calls at batch 1
+    # evaluate(): the text tower again and the graph's warm-up and captured
+    # calls at batch 1
     expected = expected_launches(cfg, steps, clip_passes=1, backward=True)
-    for k, n in expected_launches(cfg, 3).items():
+    for k, n in expected_launches(cfg, eval_calls()).items():
         expected[k] += n
     expected = f32_expected(expected)
     log(f"[f32_train_slice] kernel launches {({k: v for k, v in counts.items() if v})} expected "
@@ -3949,6 +4022,97 @@ def phase_f32_train_slice():
     del g32, g16
     torch.cuda.empty_cache()
     return counts
+
+
+# timed steps of [f32_train_remat] after its warm-up step (the median kept)
+REMAT_STEPS = 3
+
+
+def phase_f32_train_remat():
+    """fp32 train steps (forward, loss, backward; the text features encoded
+    before them, a warm-up step first, the median of REMAT_STEPS) of the reference
+    configuration at full width and depth, batch 2, without and with remat
+    (`encoder.remat`, what the train CLI's --remat sets), each from the
+    same seeded weights and batch: the loss within 1e-5 and every trainable
+    gradient within 1e-4 of the step without remat (bit-equality expected:
+    the recompute runs the same deterministic kernels on the same inputs;
+    the largest difference logged), remat's peak device memory below the
+    step's without, the steps' walls, exact launches (remat: every SAM
+    block's forward kernels twice)."""
+    import dataclasses
+
+    import torch
+    from camouflaged_vlm_tpu_torch import train
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.factory import (attach_rel_cache, build_cascade,
+                                                   make_bank_inputs)
+    from camouflaged_vlm_tpu_torch.models import CascadeConfig
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    base = CascadeConfig.full(dtype=torch.float32)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in _small_batch(base, B=2).items()}
+    runs = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base, encoder=dataclasses.replace(base.encoder, remat=remat))
+        model = build_cascade(cfg, "cuda", seed=6)
+        attach_rel_cache(model)
+        params = train.trainable_parameters(model)
+        bank = make_bank_inputs(cfg, TEST_CLASS_NAMES, seed=5, device="cuda")
+        with torch.no_grad():
+            tf = model.encode_class_text_features(bank["prefix"], bank["suffix"],
+                                                  bank["eot_indices"], bank["bank_features"])
+
+        def step():
+            for p in params:
+                p.grad = None
+            masks, edges = model.forward_with_text(batch["inp"], batch["clip_image"],
+                                                   batch["clip_mask"], tf)
+            loss, _ = train.segmentation_loss(masks, edges, batch["gt"])
+            loss.backward()
+            return loss.detach()
+
+        step()  # the warm-up step; its memory stays cached for the timed ones
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _cuda.reset_launches()
+        walls = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            loss = float(step())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = float(np.median(walls))
+        counts = _cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        grads = {n: p.grad.float().cpu() if p.grad is not None else torch.zeros(p.shape)
+                 for n, p in model.named_parameters() if p.requires_grad}
+        want = f32_expected(expected_launches(cfg, REMAT_STEPS, clip_passes=1, backward=True,
+                                              text=False, remat=remat))
+        check(counts == want, f"f32_train_remat remat={remat}: launches {counts} != {want}")
+        check_no_bf16_kernel(counts, f"f32_train_remat remat={remat}")
+        runs[remat] = dict(loss=loss, grads=grads, wall=wall, peak=peak / 2 ** 30,
+                           above=(peak - held) / 2 ** 30, counts=counts)
+        del model, params, tf, step
+        torch.cuda.empty_cache()
+    a, b = runs[False], runs[True]
+    dl = abs(b["loss"] - a["loss"]) / abs(a["loss"])
+    rels, floor = grad_gaps("f32_train_remat", a["grads"], b["grads"])
+    diff = max(float((b["grads"][k] - g).abs().max()) for k, g in a["grads"].items())
+    same = sum(torch.equal(b["grads"][k], g) for k, g in a["grads"].items())
+    twice = {k: (a["counts"][k], b["counts"][k]) for k in a["counts"]
+             if b["counts"][k] != a["counts"][k]}
+    log(f"[f32_train_remat] fp32 steps (forward, loss, backward) at full width and depth, "
+        f"batch 2, median of {REMAT_STEPS} after a warm-up step: without remat {a['wall'] * 1e3:.1f} ms, peak "
+        f"{a['peak']:.3f} GiB ({a['above']:.3f} above the weights and state held before it); "
+        f"with remat {b['wall'] * 1e3:.1f} ms, peak {b['peak']:.3f} GiB ({b['above']:.3f} "
+        f"above); loss {a['loss']:.8f} vs {b['loss']:.8f} (rel {dl:.3e}, bound "
+        f"{F32_TRAIN_LOSS_REL_BOUND}); {same}/{len(a['grads'])} trainable gradients bit-equal, "
+        f"largest |d| {diff:.3e}; {describe_gaps(rels, floor)} (bound "
+        f"{F32_TRAIN_SMALL_GRAD_REL_BOUND}); launches that remat adds (without, with): {twice}")
+    check(dl < F32_TRAIN_LOSS_REL_BOUND, f"f32_train_remat: loss differs by {dl}")
+    check(max(rels.values()) < F32_TRAIN_SMALL_GRAD_REL_BOUND, f"f32_train_remat: {rels}")
+    check(b["peak"] < a["peak"], f"f32_train_remat: remat's peak {b['peak']} >= {a['peak']}")
 
 
 # the configurations of [f32_routes]: those of [eval_slice] off the
@@ -4111,7 +4275,7 @@ def phase_f32_routes():
     info = write_synthetic_ovcamo(os.path.join(work, "ovcamo_synthetic"), n_train=0, n_test=5,
                                   seed=1, test_classes=tuple(TEST_CLASS_NAMES))
     n_images, batch = 5, 2
-    calls = 1 + -(-n_images // batch)  # the warm-up call and 3 batches
+    calls = eval_calls()  # 3 batches, the last short, replay the one graph
     images = _synthetic_images(2, seed=3)
     runs = {}
     try:
@@ -4187,6 +4351,7 @@ def main() -> None:
     finally:
         shutil.rmtree(CKPT_WORK, ignore_errors=True)
     timed(phase_bench)
+    timed(phase_profile)
     grads = timed(phase_grads)
     timed(phase_train_small)
     train_counts = timed(phase_train_slice)
@@ -4199,6 +4364,7 @@ def main() -> None:
     f32_counts = timed(phase_f32_slice)
     timed(phase_f32_train_small)
     f32_train_counts = timed(phase_f32_train_slice)
+    timed(phase_f32_train_remat)
     route_counts = timed(phase_f32_routes)
     import torch
     from camouflaged_vlm_tpu_torch.ops import _cuda

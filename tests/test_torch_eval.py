@@ -66,7 +66,7 @@ VIT_B_YAML = os.path.join(REPO, "camouflaged_vlm_tpu_torch", "configs",
                           "ovcos-sam-vit-b-maskdecoder-edge.yaml")
 DTYPE_NAMES = {jnp.bfloat16: "bfloat16", jnp.float32: "float32",
                torch.bfloat16: "bfloat16", torch.float32: "float32"}
-JAX_ONLY = {"remat": False, "fused": True}  # the harmless value of each
+JAX_ONLY = {"fused": True}  # the harmless value of each
 
 
 def as_plain(cfg):
@@ -136,8 +136,7 @@ def test_config_loader_matches_jax(which, reference_yaml):
 def test_config_loader_refuses_what_it_cannot_run(tmp_path):
     raw = yaml.safe_load(open(VIT_B_YAML))
     path = tmp_path / "c.yaml"
-    for section, key, value, err in (("encoder", "remat", True, NotImplementedError),
-                                     ("clip", "fused", False, NotImplementedError),
+    for section, key, value, err in (("clip", "fused", False, NotImplementedError),
                                      ("encoder", "no_such_key", 1, KeyError)):
         bad = yaml.safe_load(yaml.safe_dump(raw))
         bad["model"][section][key] = value
@@ -149,6 +148,18 @@ def test_config_loader_refuses_what_it_cannot_run(tmp_path):
         ref["model"]["args"]["encoder_mode"]["tuning_stage"] = 12
         path.write_text(yaml.safe_dump(ref))
         config.cascade_config_from_yaml(str(path))
+
+
+def test_config_loader_loads_remat_as_jax(tmp_path):
+    """`encoder.remat: true` loads into the port's field, as into JAX's."""
+    raw = yaml.safe_load(open(VIT_B_YAML))
+    raw["model"]["encoder"]["remat"] = True
+    path = tmp_path / "remat.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    cfg, _ = config.cascade_config_from_yaml(str(path))
+    jcfg, _ = j_config.cascade_config_from_yaml(str(path))
+    assert cfg.encoder.remat is True and jcfg.encoder.remat is True
+    assert as_plain(cfg) == as_plain(jcfg)
 
 
 # ------------------------------------------- the copies of the JAX modules
@@ -326,7 +337,73 @@ def test_evaluate_matches_jax(synthetic):
     assert 0 < want["ori_sm"] < 1 and want["maxfm"] > 0  # not degenerate
 
 
-def test_evaluate_cli_on_cpu_writes_results(synthetic, tmp_path, capsys):
+@pytest.fixture(scope="module")
+def tiny_eval(synthetic):
+    """The tiny cascade in fp32 on the CPU, its test split and bank."""
+    info = yaml.safe_load(open(synthetic))
+    idx = ovcamo.OVCamoIndex.from_dataset_info(info, "test")
+    cfg = CascadeConfig.tiny()
+    model = build_cascade(cfg, "cpu", seed=4)
+    return model, cfg, make_bank_inputs(cfg, idx.classes, seed=0), idx
+
+
+def _same_results(got, want, exact=False):
+    assert set(got) == set(want) and got["images"] == want["images"] == 5
+    for k in set(want) - {"images_per_sec"}:
+        if exact:
+            assert got[k] == want[k], k
+        else:  # the results carry 4 decimals (classification 2)
+            assert abs(got[k] - want[k]) <= 1e-4, (k, got[k], want[k])
+
+
+def test_evaluate_pads_a_short_last_batch(tiny_eval):
+    """5 images at batch 2 (the last batch of 1 padded by repeating its
+    sample, the pad row dropped) give batch 1's results."""
+    model, cfg, bank, idx = tiny_eval
+    got = evaluate.evaluate(model, cfg, bank, idx, batch_size=2, num_workers=2,
+                            mask_dtype="float32")
+    want = evaluate.evaluate(model, cfg, bank, idx, batch_size=1, num_workers=2,
+                             mask_dtype="float32")
+    _same_results(got, want)
+    assert 0 < want["ori_sm"] < 1
+
+
+class _ReplayStandIn:
+    """`graphs.GraphedCall` as a replay behaves on the card: the function
+    runs, and every call hands back the same output buffers, which the next
+    call overwrites."""
+
+    def __init__(self, fn, *example_inputs, **kw):
+        self.fn, self.static_outputs, self.calls = fn, None, 0
+
+    def __call__(self, *inputs):
+        outs = self.fn(*inputs)
+        if self.static_outputs is None:
+            self.static_outputs = tuple(torch.empty_like(t) for t in outs)
+        for s, o in zip(self.static_outputs, outs):
+            s.copy_(o)
+        self.calls += 1
+        return self.static_outputs
+
+
+def test_evaluate_keeps_no_replay_output(tiny_eval, monkeypatch):
+    """With static output buffers reused by every replay (at float32
+    masks, where probs.to() is probs itself) and IN_FLIGHT batches queued
+    before the oldest is read, evaluate() returns the eager run's results
+    exactly: it copies what it reads before the next replay."""
+    model, cfg, bank, idx = tiny_eval
+    want = evaluate.evaluate(model, cfg, bank, idx, batch_size=2, num_workers=2,
+                             mask_dtype="float32", graph=False)
+    made = []
+    monkeypatch.setattr(evaluate, "GraphedCall",
+                        lambda *a, **k: made.append(_ReplayStandIn(*a, **k)) or made[-1])
+    got = evaluate.evaluate(model, cfg, bank, idx, batch_size=2, num_workers=2,
+                            mask_dtype="float32")
+    assert len(made) == 1 and made[0].calls == 3 > evaluate.IN_FLIGHT - 1
+    _same_results(got, want, exact=True)
+
+
+def test_evaluate_cli_on_cpu_writes_results(synthetic, tmp_path, capsys, monkeypatch):
     """The CLI with `--config` (a native tiny yaml) on the CPU; the train CLI
     trains from the same yaml, whose train section sets its recipe (one
     epoch at batch 2, validated after it). `--device cuda` without a card
@@ -354,6 +431,9 @@ def test_evaluate_cli_on_cpu_writes_results(synthetic, tmp_path, capsys):
 
     from camouflaged_vlm_tpu_torch.cli import train as train_cli
 
+    # no tensorboard here (its import takes seconds): the scalars are
+    # test_torch_train.py's
+    monkeypatch.setattr(train_cli, "tensorboard_writer", lambda logdir: None)
     run = train_cli.main(["--dataset-info", synthetic, "--config", str(path), "--device", "cpu",
                           "--epochs", "5", "--batch-size", "4", "--epoch-val", "3",
                           "--save-dir", str(tmp_path / "train")])

@@ -230,10 +230,10 @@ def _torch_loss_and_grads(model, batch, text_features, bank=None):
     return total.detach(), grads
 
 
-def test_train_slice_loss_and_grads_match_jax(slice_pair):
+def _check_step_against_jax(jmodel, params, bank, cfg, model, batch):
     """Loss and every trainable gradient of forward_with_text + the loss:
-    the port (its kernels' plain backwards on the CPU) against JAX."""
-    _, jmodel, params, cfg, model, bank, batch = slice_pair
+    the port's `model` against `jmodel`'s value_and_grad on the same
+    parameters (loss 1e-5, gradients 1e-4 with the floor)."""
     jtf = jmodel.apply(params, *bank, method=jmodel.encode_class_text_features)
     trainable, frozen = partition_params(jax.tree.map(jnp.asarray, params))
 
@@ -259,6 +259,14 @@ def test_train_slice_loss_and_grads_match_jax(slice_pair):
             close(grads[tk], want, 1e-4, floor=1e-8)
             seen += 1
     assert seen == len(grads) > 40
+    return grads
+
+
+def test_train_slice_loss_and_grads_match_jax(slice_pair):
+    """Loss and every trainable gradient of forward_with_text + the loss:
+    the port (its kernels' plain backwards on the CPU) against JAX."""
+    _, jmodel, params, cfg, model, bank, batch = slice_pair
+    grads = _check_step_against_jax(jmodel, params, bank, cfg, model, batch)
     # the gradient reaches the encoder's prompt generator through every block
     pg = grads["image_encoder.prompt_generator.lightweight_mlp_0.0.weight"]
     assert float(pg.abs().max()) > 1e-6
