@@ -51,6 +51,7 @@ from ..io.torch_loader import (
 from ..models import CascadeConfig, OVCOSCascade
 from ..models.sam_encoder import fused_attention_enabled
 from ..ops import _cuda
+from ..parallel import init_distributed, make_mesh
 from ..ops.compact_window import REL_LANES, CompactGeometry
 
 # The TPU kernel number of each kernel wrapper, by the name its launch count
@@ -258,12 +259,35 @@ def load_checkpoints(model: OVCOSCascade, cfg: CascadeConfig, *,
 
 
 class Logger:
-    """Lines to stdout and to <out_dir>/log.txt."""
+    """Lines to stdout and to <out_dir>/log.txt; `quiet` drops them (every
+    rank of a mesh but rank 0, the JAX CLI's `set_quiet`)."""
 
-    def __init__(self, out_dir: str):
+    def __init__(self, out_dir: str, quiet: bool = False):
         self.path = os.path.join(out_dir, "log.txt")
+        self.quiet = quiet
 
     def __call__(self, msg: str) -> None:
+        if self.quiet:
+            return
         print(msg, flush=True)
         with open(self.path, "a") as f:
             f.write(msg + "\n")
+
+
+def add_mesh_flags(p: argparse.ArgumentParser) -> None:
+    """evaluate's and serve's multi-device flags (the JAX CLIs')."""
+    p.add_argument("--data-parallel", action="store_true",
+                   help="run under torchrun, one process a rank: each batch's rows split "
+                   "over the data ranks")
+    p.add_argument("--n-model", type=int, default=1,
+                   help="tensor-parallel group size (Megatron rules, parallel/sharding.py); "
+                   "ranks are arranged data x model, so 8 ranks with --n-model 2 give a 4 x 2 "
+                   "mesh")
+
+
+def mesh_from_args(args: argparse.Namespace):
+    """The data x model mesh of `--data-parallel` / `--n-model` (the process
+    group started from torchrun's environment), None on one device."""
+    if not (args.data_parallel or args.n_model > 1):
+        return None
+    return make_mesh(n_model=args.n_model, device=init_distributed(device=args.device))

@@ -26,9 +26,18 @@ Usage:
 
 The checkpoint flags (`cli/common.py`) take the reference's files; what no
 file sets is random (seeded by `--seed`). `--device cuda` (the default) on
-a machine without a GPU raises, and so does float32 on the card. Not
-ported: the JAX server's multi-device serving (`--data-parallel`,
-`--n-model`).
+a machine without a GPU raises, and so does float32 on the card.
+
+Several cards: run under torchrun, one process a rank, with
+`--data-parallel` and `--n-model N` (`serve.py`'s mesh), e.g.
+
+  torchrun --nproc-per-node 4 -m camouflaged_vlm_tpu_torch.cli.serve --port 8000 \
+      --data-parallel --n-model 2 --buckets 2,8,32
+
+Rank 0 listens and batches; each flush's bucket is broadcast to every rank,
+which runs its rows of it on its model shard, and rank 0 gathers the
+outputs. The other ranks follow until rank 0 shuts down. Every bucket must
+divide over the data ranks.
 """
 
 from __future__ import annotations
@@ -50,13 +59,16 @@ from PIL import Image
 from ..config import DTYPES
 from ..data.ovcamo import TEST_CLASS_NAMES
 from ..factory import build_cascade
+from ..parallel import check_tp_config, shard_model_
 from ..serve import InferenceEngine, ServeConfig
 from .common import (
     add_checkpoint_flags,
+    add_mesh_flags,
     cascade_config,
     device_or_raise,
     exact_fp32_on_card,
     load_checkpoints,
+    mesh_from_args,
     refuse_fp32_on_card,
 )
 
@@ -198,14 +210,17 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
                    "and is lossless for the 8-bit PNG response")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    add_mesh_flags(p)
     return p.parse_args(argv)
 
 
-def build_engine(args: argparse.Namespace) -> InferenceEngine:
-    """The engine the flags describe (the model built, its weights loaded)."""
+def build_engine(args: argparse.Namespace, mesh=None) -> InferenceEngine:
+    """The engine the flags describe (the model built, its weights loaded,
+    sharded over `mesh`'s model group)."""
     cfg = cascade_config(args.config, args.tiny, args.dtype)
+    check_tp_config(cfg, mesh.n_model if mesh is not None else 1)
     refuse_fp32_on_card(args.device, cfg)
-    device = device_or_raise(args.device)
+    device = mesh.device if mesh is not None else device_or_raise(args.device)
     exact_fp32_on_card(args.device, cfg)
     classnames = args.classnames.split(",") if args.classnames else list(TEST_CLASS_NAMES)
     model = build_cascade(cfg, device, args.seed)
@@ -213,14 +228,22 @@ def build_engine(args: argparse.Namespace) -> InferenceEngine:
                                  maple_ckpt=args.maple_ckpt, sam_ckpt=args.sam_ckpt,
                                  cascade_ckpt=args.cascade_ckpt, seed=args.seed, log=log)
     bank = make_bank(classnames, args.text_bank)
-    return InferenceEngine(model, cfg, bank, classnames, ServeConfig(
-        buckets=tuple(int(b) for b in args.buckets.split(",")),
-        max_delay_ms=args.max_delay_ms, mask_dtype=args.mask_dtype))
+    serve_cfg = ServeConfig(buckets=tuple(int(b) for b in args.buckets.split(",")),
+                            max_delay_ms=args.max_delay_ms, mask_dtype=args.mask_dtype)
+    if mesh is None:
+        return InferenceEngine(model, cfg, bank, classnames, serve_cfg)
+    return InferenceEngine(shard_model_(model, mesh), cfg, bank, classnames, serve_cfg, mesh=mesh)
 
 
 def main(argv: Sequence[str] = None) -> None:
     args = parse_args(argv)
-    engine = build_engine(args)
+    mesh = mesh_from_args(args)
+    engine = build_engine(args, mesh)
+    if mesh is not None and not mesh.is_main:
+        engine.follow()  # until rank 0 shuts down
+        return
+    if mesh is not None:
+        log(f"[serve] mesh data={mesh.n_data} x model={mesh.n_model} ({mesh.backend})")
     server, _ = serve_forever(engine, args.host, args.port)
     log(f"[serve] listening on {args.host}:{args.port} (capturing buckets {args.buckets})")
     stop = threading.Event()

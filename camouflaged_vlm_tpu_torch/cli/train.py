@@ -45,8 +45,25 @@ losses go to TensorBoard under `<save-dir>/tensorboard` when
 `torch.utils.tensorboard` imports, under JAX's names (the metric keys, step
 = the epoch).
 
-Not ported yet (ROADMAP.md, Queue 1): data/tensor parallelism (multi-device;
-validation runs on the one device). The JAX CLI's `--fused-optimizer` is left out on
+Several cards, one process a rank (`parallel/`): `--distributed` starts the
+process group from torchrun's environment, or from `--coordinator host:port
+--num-processes N --process-id I` (the JAX CLI's flags), and `--n-model M`
+makes the ranks a data x model mesh (tensor parallelism over groups of M
+ranks, the Megatron rules of `parallel/sharding.py`), e.g.
+
+  torchrun --nproc-per-node 8 -m camouflaged_vlm_tpu_torch.cli.train \
+      --dataset-info dataset_info.yaml --distributed --n-model 2 --batch-size 8
+
+Every rank builds the same batches from the seed and trains on its rows (the
+microbatch, batch_size / accum_steps, must divide over the data ranks); the
+gradients are averaged over the data ranks (the JAX package's fix of the
+reference's DDP, which never synchronised them). The log, TensorBoard and
+ckpt_meta.json come from rank 0; a checkpoint is the full, unsharded state
+(rank 0 writes it), and `--resume` loads it on any mesh. Validation runs
+on the mesh, data-parallel over its data ranks. On one card shared by
+several ranks the backend is gloo (`parallel/mesh.py`).
+
+The JAX CLI's `--fused-optimizer` is left out on
 purpose: its "auto" changes the optimizer state's layout, so a resume from an
 older checkpoint fails (ROADMAP.md, Queue 3).
 """
@@ -69,6 +86,7 @@ from ..data.loader import iter_train_batches
 from ..data.ovcamo import OVCamoIndex
 from ..factory import attach_rel_cache, build_cascade
 from ..io.checkpoint import restore_checkpoint, save_checkpoint
+from ..parallel import batch_rows, check_tp_config, init_distributed, make_mesh, shard_model_
 from ..train import (
     SCANNED_BATCH_KEYS,
     cosine_epoch_schedule,
@@ -136,7 +154,18 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
     p.add_argument("--stop-after-epoch", type=int, default=None,
                    help="exit after this epoch's checkpoint and validation (for resume "
                    "tests)")
+    p.add_argument("--n-model", type=int, default=1,
+                   help="tensor-parallel group size (with --distributed)")
+    p.add_argument("--distributed", action="store_true",
+                   help="one process a rank over torch.distributed: the group from "
+                   "torchrun's environment, or from --coordinator/--num-processes/"
+                   "--process-id")
+    p.add_argument("--coordinator", default=None, help="host:port of rank 0's store")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     args = p.parse_args(argv)
+    if args.n_model > 1 and not args.distributed:
+        p.error("--n-model > 1 needs --distributed (one process a rank)")
     if args.config:  # the yaml's recipe replaces the flags, as in the JAX CLI
         _, train_hp = cascade_config_from_yaml(args.config)
         for key in RECIPE_KEYS:
@@ -150,19 +179,22 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
     return args
 
 
-def to_device_batch(batch: dict, device, accum: int) -> dict:
+def to_device_batch(batch: dict, device, accum: int, mesh=None) -> dict:
+    """The batch's tensors on `device`, (accum, B/accum, ...) with
+    accumulation; on a mesh this data rank's rows of each (microbatch)."""
     out = {}
     for k in SCANNED_BATCH_KEYS:
         x = torch.from_numpy(np.ascontiguousarray(batch[k]))
         if accum > 1:
             x = x.reshape((accum, x.shape[0] // accum) + tuple(x.shape[1:]))
+        x = batch_rows(x, mesh, axis=1 if accum > 1 else 0).contiguous()
         out[k] = x.to(device, non_blocking=True)
     return out
 
 
 def main(argv: Sequence[str] = None) -> dict:
-    """Train; return {"model", "optimizer", "step", "epochs": [per-epoch
-    mean metrics], "step_seconds": [wall seconds of every step],
+    """Train; return {"model", "optimizer", "mesh", "step", "epochs":
+    [per-epoch mean metrics], "step_seconds": [wall seconds of every step],
     "validations": [{"epoch", **evaluate() results} per validation],
     "best_mae", "text_features": the test split's, which condition training,
     "bank" and "train_bank": the test and the train split's class banks}."""
@@ -171,11 +203,24 @@ def main(argv: Sequence[str] = None) -> dict:
     if args.remat:
         cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, remat=True))
     refuse_fp32_on_card(args.device, cfg, training=True)
-    device = device_or_raise(args.device)
+    check_tp_config(cfg, args.n_model)
+    mesh = None
+    if args.distributed:
+        mesh = make_mesh(n_model=args.n_model, device=init_distributed(
+            args.coordinator, args.num_processes, args.process_id, device=args.device))
+        micro = args.batch_size // args.accum_steps
+        if micro % mesh.n_data:
+            raise ValueError(f"the microbatch, --batch-size {args.batch_size} / --accum-steps "
+                             f"{args.accum_steps} = {micro}, does not divide over "
+                             f"{mesh.n_data} data ranks")
+    main_rank = mesh is None or mesh.is_main
+    device = mesh.device if mesh is not None else device_or_raise(args.device)
     exact_fp32_on_card(args.device, cfg)  # full fp32 outside the kernels too
     os.makedirs(args.save_dir, exist_ok=True)
-    log = Logger(args.save_dir)
-    writer = tensorboard_writer(os.path.join(args.save_dir, "tensorboard"))
+    log = Logger(args.save_dir, quiet=not main_rank)
+    writer = tensorboard_writer(os.path.join(args.save_dir, "tensorboard")) if main_rank else None
+    if mesh is not None:
+        log(f"[train] mesh data={mesh.n_data} x model={mesh.n_model} ({mesh.backend})")
 
     with open(args.dataset_info) as f:
         dataset_info = yaml.safe_load(f)
@@ -188,6 +233,7 @@ def main(argv: Sequence[str] = None) -> dict:
                                  maple_ckpt=args.maple_ckpt, sam_ckpt=args.sam_ckpt,
                                  seed=args.seed, log=log)
     train_bank = make_bank(train_index.classes, args.train_text_bank or args.text_bank)
+    shard_model_(model, mesh)
     params = trainable_parameters(model)
     steps_per_epoch = max(1, len(train_index) // args.batch_size)
     schedule = cosine_epoch_schedule(args.lr, args.epochs, steps_per_epoch, args.eta_min)
@@ -200,7 +246,7 @@ def main(argv: Sequence[str] = None) -> dict:
     if args.resume:
         if not os.path.exists(ckpt_last):
             raise FileNotFoundError(f"--resume: no checkpoint at {ckpt_last}")
-        step = restore_checkpoint(ckpt_last, model, optimizer)
+        step = restore_checkpoint(ckpt_last, model, optimizer, mesh)
         # the epoch follows from the restored step, the checkpoint's own
         # record; the meta file only carries best_mae
         start_epoch = step // steps_per_epoch + 1
@@ -217,7 +263,8 @@ def main(argv: Sequence[str] = None) -> dict:
     bank = make_bank(val_index.classes, args.text_bank)
     text_features = model.encode_class_text_features(
         bank["prefix"], bank["suffix"], bank["eot_indices"], bank["bank_features"])
-    train_step = make_train_step(model, optimizer, schedule, args.loss, args.accum_steps)
+    train_step = make_train_step(model, optimizer, schedule, args.loss, args.accum_steps,
+                                 mesh=mesh)
 
     epochs, step_seconds, validations = [], [], []
     for epoch in range(start_epoch, args.epochs + 1):
@@ -228,7 +275,7 @@ def main(argv: Sequence[str] = None) -> dict:
         for batch in iter_train_batches(train_index, args.batch_size, rng, cfg.inp_size,
                                         cfg.clip_size):
             t0 = time.perf_counter()
-            m = train_step({**to_device_batch(batch, device, args.accum_steps),
+            m = train_step({**to_device_batch(batch, device, args.accum_steps, mesh),
                             "text_features": text_features}, step)
             metrics.append({k: float(v) for k, v in m.items()})  # waits for the step
             step_seconds.append(time.perf_counter() - t0)
@@ -241,21 +288,27 @@ def main(argv: Sequence[str] = None) -> dict:
         if writer:
             for k, v in means.items():
                 writer.add_scalar(k, v, epoch)
-        save_checkpoint(ckpt_last, model, optimizer, step)
-        with open(meta_path, "w") as f:
-            json.dump({"epoch": epoch, "step": step, "best_mae": best_mae}, f)
+        save_checkpoint(ckpt_last, model, optimizer, step, mesh)
+        if main_rank:
+            with open(meta_path, "w") as f:
+                json.dump({"epoch": epoch, "step": step, "best_mae": best_mae}, f)
         if epoch % args.epoch_val == 0:
             # the model as it stands (evaluate() runs under no grad and leaves
-            # the module's mode alone: the cascade has no train-mode layers)
-            results = evaluate(model, cfg, bank, val_index,
-                               batch_size=max(1, args.batch_size // 2))
+            # the module's mode alone: the cascade has no train-mode layers);
+            # on a mesh data-parallel, the batch rounded up to a multiple of
+            # the data ranks, as in the JAX CLI
+            n_data = mesh.n_data if mesh is not None else 1
+            val_bs = -(-max(1, args.batch_size // 2) // n_data) * n_data
+            results = evaluate(model, cfg, bank, val_index, batch_size=val_bs, mesh=mesh,
+                               log=log)
             validations.append({"epoch": epoch, **results})
             log(f"[val epoch {epoch}] {json.dumps(results)}")
             if results.get("mae", 1.0) < best_mae:
                 best_mae = results["mae"]
-                save_checkpoint(ckpt_best, model, optimizer, step)
-                with open(meta_path, "w") as f:
-                    json.dump({"epoch": epoch, "step": step, "best_mae": best_mae}, f)
+                save_checkpoint(ckpt_best, model, optimizer, step, mesh)
+                if main_rank:
+                    with open(meta_path, "w") as f:
+                        json.dump({"epoch": epoch, "step": step, "best_mae": best_mae}, f)
                 log(f"[val epoch {epoch}] new best mae {best_mae}")
         # after the epoch's validation, so that a resumed run validates as an
         # uninterrupted one does
@@ -266,7 +319,7 @@ def main(argv: Sequence[str] = None) -> dict:
         log("training done")
     if writer:
         writer.close()
-    return {"model": model, "optimizer": optimizer, "step": step, "epochs": epochs,
+    return {"model": model, "optimizer": optimizer, "mesh": mesh, "step": step, "epochs": epochs,
             "step_seconds": step_seconds, "validations": validations,
             "best_mae": best_mae, "text_features": text_features, "bank": bank,
             "train_bank": train_bank}

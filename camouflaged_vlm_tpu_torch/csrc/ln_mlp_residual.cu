@@ -21,6 +21,9 @@
 //      kernel's second rounding point (linear.py:323);
 //   3. fc2 on the same GEMM with the residual epilogue: acc = h . W2^T + b2
 //      + x in fp32, x read at the accumulator fragment's rows, rounded once.
+//      Without `residual` (a tensor-parallel rank's partial, summed over its
+//      model group by the caller, which adds b2 and, after the sum, the
+//      residual) fc2 writes its accumulator unrounded: h . W2^T in fp32.
 // The TPU kernel kept the hidden in VMEM; here it reaches device memory: at
 // SAM's windows, batch 2, h is 64 MB written and read again, ~0.04 ms at the
 // HBM rate against the 0.166-ms FLOP bound, and fc2's row-panel-first tile
@@ -40,13 +43,15 @@ int launch_ln_rows(const void* x, const void* gamma, const void* beta, const voi
 
 // x/out (M, K), w1 (H, K), b1 (H,), w2 (K, H), b2 (K,): bf16; gamma/beta
 // (K,) fp32; xn (rows, K) and h (rows, H) bf16 scratch; K % 8 == 0 and
-// H % 8 == 0 (the wrapper checks); bn1/bn2 the two GEMMs' tile widths (128 or
-// 256). Returns a cudaError_t code.
+// H % 8 == 0 (the wrapper checks); residual 1: out bf16 with the bias and
+// the residual x in fc2's epilogue; 0: out fp32 (M, K), fc2's product alone;
+// bn1/bn2 the two GEMMs' tile widths (128 or 256). Returns a cudaError_t
+// code.
 extern "C" int cvlm_ln_mlp_residual(const void* x, const void* gamma, const void* beta,
                                     const void* w1, const void* b1, const void* w2,
                                     const void* b2, void* out, void* xn, void* h, int M, int K,
-                                    int H, int rows, float eps, int act, int bn1, int bn2,
-                                    void* stream) {
+                                    int H, int rows, float eps, int act, int residual, int bn1,
+                                    int bn2, void* stream) {
   using namespace cvlm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 1 || rows < 1 || K % 8 != 0 || H % 8 != 0) return (int)cudaErrorInvalidValue;
@@ -57,9 +62,12 @@ extern "C" int cvlm_ln_mlp_residual(const void* x, const void* gamma, const void
     const bf16* xr = xp + (size_t)r0 * K;
     int err = launch_ln_rows(xr, gamma, beta, nullptr, xn, m, K, 1, 1, eps, s, nullptr);
     if (!err) err = launch_gemm<EPI_BIAS_ACT>(xn, w1, b1, nullptr, h, m, H, K, act, bn1, s);
-    if (!err)
+    if (!err && residual)
       err = launch_gemm<EPI_BIAS_RESIDUAL>(h, w2, b2, xr, op + (size_t)r0 * K, m, K, H,
                                            ACT_NONE, bn2, s);
+    else if (!err)
+      err = launch_gemm<EPI_F32>(h, w2, nullptr, nullptr, static_cast<float*>(out) + (size_t)r0 * K,
+                                 m, K, H, ACT_NONE, bn2, s);
     if (err) return err;
   }
   return 0;

@@ -227,6 +227,8 @@ constexpr int LB_ROWS = 32, LB_THREADS = 256;  // 8 warps, 4 rows each
 
 // dx (M, K) bf16 from dxn (M, K) fp32, x and g (M, K) bf16, gamma (K,) fp32
 // and the rows' (mean, rstd); one warp per row, 16-byte loads (K % 8 == 0).
+// g is the residual's gradient, none when null (the forward had no
+// residual).
 // WEIGHTS: also the column sums of dxn * xhat and dxn over the block's rows
 // into dga and dbe (ceil(M / 32), K) fp32.
 template <bool WEIGHTS>
@@ -257,12 +259,12 @@ __global__ void __launch_bounds__(LB_THREADS) ln_bwd_rows_kernel(
       }
     }
     const float m1 = warp_sum(s1) / (float)K, m2 = warp_sum(s2) / (float)K;
-    const uint4* gr = reinterpret_cast<const uint4*>(g + m * K);
+    const uint4* gr = g != nullptr ? reinterpret_cast<const uint4*>(g + m * K) : nullptr;
     uint4* out = reinterpret_cast<uint4*>(dx + m * K);
     for (int c = lane; c < nv; c += 32) {
-      float gu[8];
+      float gu[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       unpack8(xr[c], f);
-      unpack8(gr[c], gu);
+      if (gr != nullptr) unpack8(gr[c], gu);
       const float4 d0 = dr[2 * c], d1 = dr[2 * c + 1], ga = g4[2 * c], gb = g4[2 * c + 1];
       const float dxh[8] = {d0.x * ga.x, d0.y * ga.y, d0.z * ga.z, d0.w * ga.w,
                             d1.x * gb.x, d1.y * gb.y, d1.z * gb.z, d1.w * gb.w};
@@ -316,14 +318,15 @@ int launch_ln_bwd_rows(const void* x, const void* g, const void* gamma, const fl
 // fp32, with R = M when the weight side is given and R = rows (the panel)
 // when not. The weight side, all given or all null: hact (M, H) bf16, dga
 // and dbe (ceil(M / 32), K), db1 (2 ceil(M / 128), H) fp32. K % 8 == 0, H %
-// 8 == 0, rows a multiple of 128 or >= M; bn dxn's tile width (128 or 256).
-// Queues four launches per panel; returns a cudaError_t code.
+// 8 == 0, rows a multiple of 128 or >= M; residual 1 adds g to dx (the
+// forward's residual), 0 not; bn dxn's tile width (128 or 256). Queues four
+// launches per panel; returns a cudaError_t code.
 extern "C" int cvlm_ln_mlp_residual_bwd(const void* x, const void* gamma, const void* beta,
                                         const void* w1, const void* b1, const void* w2,
                                         const void* g, void* dx, void* xn, void* dh, void* stats,
                                         void* dxn, void* hact, void* dga, void* dbe, void* db1,
-                                        int M, int K, int H, int rows, float eps, int act, int bn,
-                                        void* stream) {
+                                        int M, int K, int H, int rows, float eps, int act,
+                                        int residual, int bn, void* stream) {
   using namespace cvlm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool weights = hact != nullptr;
@@ -363,7 +366,8 @@ extern "C" int cvlm_ln_mlp_residual_bwd(const void* x, const void* gamma, const 
     if (!err)  // pass 3: dxn = dh . W1, W1 (H, K) an N-major W, fp32 out
       err = launch_gemm<EPI_F32, true>(dhp, w1, nullptr, nullptr, dxnp, m, K, H, ACT_NONE, bn, s);
     if (!err)
-      err = launch_ln_bwd_rows(xp + (size_t)r0 * K, gp + (size_t)r0 * K, gamma, st, dxnp,
+      err = launch_ln_bwd_rows(xp + (size_t)r0 * K, residual ? gp + (size_t)r0 * K : nullptr,
+                               gamma, st, dxnp,
                                static_cast<bf16*>(dx) + (size_t)r0 * K, dgap, dbep, m, K, s);
     if (err) return err;
   }

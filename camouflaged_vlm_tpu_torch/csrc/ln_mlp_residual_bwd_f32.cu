@@ -76,8 +76,9 @@ extern "C" int cvlm_ln_mlp_residual_bwd_f32(const void* x, const void* gamma, co
                                             const void* g, void* dx, void* xn, void* dh,
                                             void* stats, void* dxn, void* hact, void* ws,
                                             void* gt, void* wt, int M, int K, int H, int rows,
-                                            float eps, int act, int t1, int s1, int n1, int t2,
-                                            int s2, int n2, int path, void* stream) {
+                                            float eps, int act, int residual, int t1, int s1,
+                                            int n1, int t2, int s2, int n2, int path,
+                                            void* stream) {
   using namespace cvlm::f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 1 || rows < 1 || K < 4 || K % 4 != 0 || H < 4 || H % 4 != 0 ||
@@ -142,7 +143,8 @@ extern "C" int cvlm_ln_mlp_residual_bwd_f32(const void* x, const void* gamma, co
                                                         p2, 1, s);
     }
     if (!err)
-      err = launch_ln_bwd_rows(xr, gr, ga, st, dxnp, static_cast<float*>(dx) + (size_t)r0 * K, m,
+      err = launch_ln_bwd_rows(xr, residual ? gr : nullptr, ga, st, dxnp,
+                               static_cast<float*>(dx) + (size_t)r0 * K, m,
                                K, s);
     if (err) return err;
   }

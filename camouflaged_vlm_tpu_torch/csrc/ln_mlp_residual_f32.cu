@@ -40,7 +40,8 @@
 // x/out (M, K), w1 (H, K), b1 (H,), w2 (K, H), b2 (K,), gamma/beta (K,): all
 // fp32; xn and h fp32 scratch of rows K and rows H floats (path 0) or K
 // mn_ld(rows) and H mn_ld(rows) (path 1); wt one of 2 H K floats (path 1,
-// W1^T then W2^T; else null); K % 4 == 0 and H % 4 == 0; t1, s1, n1 and t2,
+// W1^T then W2^T; else null); K % 4 == 0 and H % 4 == 0; residual 1 adds x
+// in fc2's epilogue, 0 not (a tensor-parallel rank's partial); t1, s1, n1 and t2,
 // s2, n2 the two GEMMs' tiles, k slices and split tails (sgemm_f32.cuh
 // Plan), ws their split-K scratch (the larger's) or null, path their
 // layouts. Returns a cudaError_t code.
@@ -48,8 +49,8 @@ extern "C" int cvlm_ln_mlp_residual_f32(const void* x, const void* gamma, const 
                                         const void* w1, const void* b1, const void* w2,
                                         const void* b2, void* out, void* xn, void* h, void* ws,
                                         void* wt, int M, int K, int H, int rows, float eps,
-                                        int act, int t1, int s1, int n1, int t2, int s2, int n2,
-                                        int path, void* stream) {
+                                        int act, int residual, int t1, int s1, int n1, int t2,
+                                        int s2, int n2, int path, void* stream) {
   using namespace cvlm::f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 1 || rows < 1 || K < 4 || K % 4 != 0 || H % 4 != 0 || path < 0 || path > 1 ||
@@ -77,6 +78,7 @@ extern "C" int cvlm_ln_mlp_residual_f32(const void* x, const void* gamma, const 
   for (int r0 = 0; r0 < M; r0 += rows) {
     const int m = M - r0 < rows ? M - r0 : rows;
     const float* xr = xp + (size_t)r0 * K;
+    const float* res = residual ? xr : nullptr;  // EPI_RES adds a null res as 0
     float* orow = op + (size_t)r0 * K;
     int err;
     if (path == 0) {
@@ -85,7 +87,7 @@ extern "C" int cvlm_ln_mlp_residual_f32(const void* x, const void* gamma, const 
         err = launch_sgemm<K_MAJOR, K_MAJOR, EPI_ACT>(xnp, K, 0, w1p, K, b1p, nullptr, hp,
                                                       nullptr, m, H, K, act, p1, 1, s);
       if (!err)
-        err = launch_sgemm<K_MAJOR, K_MAJOR, EPI_RES>(hp, H, 0, w2p, H, b2p, xr, orow, nullptr,
+        err = launch_sgemm<K_MAJOR, K_MAJOR, EPI_RES>(hp, H, 0, w2p, H, b2p, res, orow, nullptr,
                                                       m, K, H, cvlm::ACT_NONE, p2, 1, s);
     } else {  // the panel's scratches at the full panel's ld
       err = launch_ln_rows_t(xr, g, be, xnp, nullptr, m, K, ld, eps, s);
@@ -94,7 +96,7 @@ extern "C" int cvlm_ln_mlp_residual_f32(const void* x, const void* gamma, const 
                                                           nullptr, m, H, K, act, p1, 1, s, 0, 0,
                                                           ld);
       if (!err)
-        err = launch_sgemm<MN_MAJOR, MN_MAJOR, EPI_RES>(hp, ld, 0, w2t, K, b2p, xr, orow,
+        err = launch_sgemm<MN_MAJOR, MN_MAJOR, EPI_RES>(hp, ld, 0, w2t, K, b2p, res, orow,
                                                         nullptr, m, K, H, cvlm::ACT_NONE, p2, 1,
                                                         s);
     }

@@ -44,13 +44,19 @@
 // x (G, K, S) with s contiguous and row stride ldk, group stride ldg (in
 // elements, multiples of 8; ldk >= S), w (N, K) [nn.Linear layout], bias
 // (N,), res (G, S, N) or NULL, out (G, S, N): bf16, bases 16-byte aligned;
-// K % 8 == 0 and N % 8 == 0 with res; bn the tile width (128 or 256).
-// Returns a cudaError_t code.
+// K % 8 == 0 and N % 8 == 0 with res; f32out 1: out fp32, the product alone
+// (no bias, no res; N % 8 == 0), a tensor-parallel rank's partial; bn the
+// tile width (128 or 256). Returns a cudaError_t code.
 extern "C" int cvlm_proj_rows(const void* x, const void* w, const void* bias,
                               const void* res, void* out, int G, int S, long long ldk,
-                              long long ldg, int K, int N, int bn, void* stream) {
+                              long long ldg, int K, int N, int f32out, int bn, void* stream) {
   using namespace cvlm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32out)  // a tensor-parallel partial: the product alone, fp32, no bias
+    return res == nullptr && N % 8 == 0
+               ? launch_gemm_mn<EPI_F32>(x, ldk, ldg, w, nullptr, nullptr, out, G, S, N, K,
+                                         ACT_NONE, bn, s)
+               : (int)cudaErrorInvalidValue;
   if (res != nullptr)
     return launch_gemm_mn<EPI_BIAS_RESIDUAL>(x, ldk, ldg, w, bias, res, out, G, S, N, K,
                                              ACT_NONE, bn, s);
@@ -60,14 +66,20 @@ extern "C" int cvlm_proj_rows(const void* x, const void* w, const void* bias,
 
 // x (B, heads, T, S, d) head-leading, d % 8 == 0, w (N, heads*d) [nn.Linear
 // layout], bias (N,), res (B, T, S, N) or NULL, out (B, T, S, N): bf16,
-// bases 16-byte aligned; N % 8 == 0 with res; bn the tile width (128 or
+// bases 16-byte aligned; N % 8 == 0 with res; f32out as cvlm_proj_rows';
+// bn the tile width (128 or
 // 256). Returns a cudaError_t code.
 extern "C" int cvlm_proj_from_heads(const void* x, const void* w, const void* bias,
                                     const void* res, void* out, int B, int heads, int T,
-                                    int S, int d, int N, int bn, void* stream) {
+                                    int S, int d, int N, int f32out, int bn, void* stream) {
   using namespace cvlm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  if (f32out)  // a tensor-parallel partial: the product alone, fp32, no bias
+    return res == nullptr && N % 8 == 0
+               ? launch_gemm_heads<EPI_F32>(x, w, nullptr, nullptr, out, B, heads, T * S, d, N,
+                                            bn, s)
+               : (int)cudaErrorInvalidValue;
   if (res != nullptr)
     return launch_gemm_heads<EPI_BIAS_RESIDUAL>(x, w, bias, res, out, B, heads, T * S, d, N, bn,
                                                 s);

@@ -249,7 +249,7 @@ inline int launch_transpose(const float* w, float* wt, int R, int C, cudaStream_
 // The LN backward of each row, one warp a row: dx = rstd * (dxhat -
 // mean(dxhat) - xhat * mean(dxhat * xhat)) + g, dxhat = dxn * gamma, xhat =
 // (x - mu) * rstd from the forward's statistics; g is the residual's
-// gradient.
+// gradient, none when null (the forward had no residual).
 __global__ void __launch_bounds__(THREADS) ln_bwd_rows_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ gamma,
     const float2* __restrict__ stats, const float* __restrict__ dxn, float* __restrict__ dx,
@@ -276,10 +276,11 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_rows_f32_kernel(
     }
   }
   const float m1 = warp_sum(s1) / (float)K, m2 = warp_sum(s2) / (float)K;
-  const float4* gr = reinterpret_cast<const float4*>(g + o);
+  const float4* gr = g != nullptr ? reinterpret_cast<const float4*>(g + o) : nullptr;
   float4* out = reinterpret_cast<float4*>(dx + o);
   for (int c = lane; c < nv; c += 32) {
-    const float4 v = xr[c], d = dr[c], ga = g4[c], gu = gr[c];
+    const float4 v = xr[c], d = dr[c], ga = g4[c];
+    const float4 gu = gr != nullptr ? gr[c] : make_float4(0.f, 0.f, 0.f, 0.f);
     const float dh[4] = {d.x * ga.x, d.y * ga.y, d.z * ga.z, d.w * ga.w};
     const float xv[4] = {v.x, v.y, v.z, v.w}, gv[4] = {gu.x, gu.y, gu.z, gu.w};
     float r[4];
@@ -413,9 +414,9 @@ __device__ __forceinline__ void load_frag_k(float (&f)[8], const float* S, int t
 }
 
 // The epilogue of 4 outputs of one row, v = the sum over k, at columns n..n+3
-// and element o of C: + bias; EPI_ACT act(.); EPI_RES + res; EPI_DACT
-// act'(.) * res (res may be C: read before written) and act(.) into aux
-// when given.
+// and element o of C: + bias; EPI_ACT act(.); EPI_RES + res (none when res is
+// null); EPI_DACT act'(.) * res (res may be C: read before written) and
+// act(.) into aux when given.
 template <int EPI>
 __device__ __forceinline__ void epilogue4(float (&v)[4], int n, size_t o,
                                           const float* __restrict__ bias, const float* res,
@@ -427,7 +428,8 @@ __device__ __forceinline__ void epilogue4(float (&v)[4], int n, size_t o,
     v[2] += bv.z;
     v[3] += bv.w;
   }
-  if (EPI == EPI_RES || EPI == EPI_DACT) {
+  if (EPI == EPI_RES && res == nullptr) {
+  } else if (EPI == EPI_RES || EPI == EPI_DACT) {
     const float4 r = *reinterpret_cast<const float4*>(res + o);
     const float rv[4] = {r.x, r.y, r.z, r.w};
     if (EPI == EPI_DACT && aux != nullptr)

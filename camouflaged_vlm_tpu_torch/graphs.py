@@ -20,13 +20,20 @@ every intermediate lives in the graph's memory pool.
 
 The kernels' launch counts (`ops/_cuda.launch_counts`) count host calls,
 so a replay adds none: `launches` holds the counts of the captured call.
-On the CPU the function runs eagerly (the caller asked for the CPU). On a
-card a failed capture or replay raises; nothing falls back to the eager
-call.
+On the CPU the function runs eagerly (the caller asked for the CPU), and so
+it does on a card with `capture=False` (a program whose collectives no
+graph can hold: tensor parallelism over gloo), its inputs copied to the
+card. On a card a failed capture or replay raises; nothing falls back to
+the eager call.
+
+Every warm-up runs on one side stream per card, kept for the process:
+cuBLAS keeps a workspace for each stream it has run on until the process
+ends, so a new stream per capture would leave one behind at every capture.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -38,6 +45,12 @@ from .ops import _cuda
 WARMUP = 2
 
 
+@functools.lru_cache(maxsize=None)
+def warmup_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream every capture on `device` warms up on."""
+    return torch.cuda.Stream(device)
+
+
 class GraphedCall:
     """`fn` captured at the shapes, types and device of `example_inputs`.
 
@@ -46,18 +59,20 @@ class GraphedCall:
         their intermediates share memory; None gives the graph a pool of
         its own.
     warmup: eager calls before the capture.
+    capture: False runs `fn` eagerly on the card too (see the module
+        docstring).
     """
 
     def __init__(self, fn: Callable, *example_inputs: torch.Tensor, pool=None,
-                 warmup: int = WARMUP):
+                 warmup: int = WARMUP, capture: bool = True):
         self.fn = fn
         self.device = example_inputs[0].device
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Optional[Dict[str, int]] = None
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not capture:
             return
         self.static_inputs = tuple(t.detach().clone() for t in example_inputs)
-        side = torch.cuda.Stream(self.device)
+        side = warmup_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side), torch.no_grad():
             for _ in range(warmup):
@@ -77,7 +92,7 @@ class GraphedCall:
     def __call__(self, *inputs: torch.Tensor) -> Tuple:
         if self.graph is None:
             with torch.no_grad():
-                return self.fn(*inputs)
+                return self.fn(*(x.to(self.device, non_blocking=True) for x in inputs))
         if len(inputs) != len(self.static_inputs):
             raise ValueError(f"GraphedCall: {len(inputs)} inputs, captured with "
                              f"{len(self.static_inputs)}")

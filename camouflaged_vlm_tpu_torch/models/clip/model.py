@@ -12,6 +12,12 @@ runs causal attention in plain PyTorch and its MLPs through
 Layouts are batch-first (B, L, D); parameter names are the reference's
 state-dict keys (`in_proj.weight` in the vision tower, torch
 MultiheadAttention's `in_proj_weight` in the text tower).
+
+Sharded over a model group (`parallel.shard_model_`), each block runs its
+rank's heads and its slice of the MLP's hidden width into fp32 partials
+(the row-parallel biases on model rank 0 only), sums them over the group
+after each sublayer and adds the residual before the one rounding
+(`parallel/sharding.py`).
 """
 
 from __future__ import annotations
@@ -24,9 +30,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.flash_attention import flash_qkv_packed_plain
-from ...ops.layers import conv_nhwc, dense, scaled
+from ...ops.layers import conv_nhwc, scaled
 from ...ops.linear import ln_linear_act_bt, ln_mlp_residual_bt, proj_rows
 from ...ops.norms import LayerNormFP32
+from ...parallel.sharding import (
+    add_residual,
+    copy_to_model,
+    local_heads,
+    reduce_from_model,
+    replicated,
+    row_bias,
+    row_linear,
+    tp_of,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,14 +116,18 @@ class TextAttention(nn.Module):
         self.out_proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor, dtype) -> torch.Tensor:
+        """Sharded: this rank's heads and its fp32 partial out-projection."""
         B, L, D = x.shape
+        tp = tp_of(self)
         hd = D // self.num_heads
+        heads = local_heads(self.num_heads, tp)
         qkv = F.linear(x.to(dtype), self.in_proj_weight.to(dtype), self.in_proj_bias.to(dtype))
-        q, k, v = qkv.reshape(B, L, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
+        q, k, v = qkv.reshape(B, L, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
         logits = torch.matmul(scaled(q, hd ** -0.5).float(), k.float().transpose(-1, -2))
         probs = torch.softmax(logits + attn_mask, dim=-1).to(v.dtype)
         out = torch.matmul(probs.float(), v.float()).to(x.dtype)
-        return dense(out.transpose(1, 2).reshape(B, L, D), self.out_proj, dtype)
+        return row_linear(tp, out.transpose(1, 2).reshape(B, L, heads * hd), self.out_proj,
+                          dtype)
 
 
 class ResidualBlock(nn.Module):
@@ -122,29 +142,37 @@ class ResidualBlock(nn.Module):
         self.ln_2 = LayerNormFP32(dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None):
-        dt = self.dtype
+        dt, tp = self.dtype, tp_of(self)
         if attn_mask is not None:
-            x = x + self.attn(self.ln_1(x), attn_mask, dt)
+            x = x + reduce_from_model(tp, self.attn(copy_to_model(tp, self.ln_1(x)), attn_mask,
+                                                    dt)).to(x.dtype)
         else:
             B, L, D = x.shape
             hd = D // self.num_heads
+            heads = local_heads(self.num_heads, tp)
             a = self.attn
             qkv = ln_linear_act_bt(
-                x, self.ln_1.weight, self.ln_1.bias, a.in_proj.weight.to(dt),
-                a.in_proj.bias.to(dt), eps=1e-5, activation=None,
+                copy_to_model(tp, x), replicated(tp, self.ln_1.weight),
+                replicated(tp, self.ln_1.bias), a.in_proj.weight.to(dt), a.in_proj.bias.to(dt),
+                eps=1e-5, activation=None,
             )
-            out = flash_qkv_packed_plain(qkv, hd ** -0.5, self.num_heads, hd)
-            x = proj_rows(
-                out.reshape(B, 1, D, L), a.out_proj.weight.to(dt),
-                a.out_proj.bias.to(dt), x.reshape(B, 1, L, D),
-            ).reshape(B, L, D)
+            out = flash_qkv_packed_plain(qkv, hd ** -0.5, heads, hd).reshape(B, 1, heads * hd, L)
+            w, b = a.out_proj.weight.to(dt), row_bias(tp, a.out_proj.bias).to(dt)
+            if tp is None:
+                x = proj_rows(out, w, b, x.reshape(B, 1, L, D)).reshape(B, L, D)
+            else:
+                x = add_residual(reduce_from_model(tp, proj_rows(out, w, b, partial=True)),
+                                 x.reshape(B, 1, L, D), dt).reshape(B, L, D)
         m = self.mlp
-        return ln_mlp_residual_bt(
-            x, self.ln_2.weight, self.ln_2.bias,
-            m.c_fc.weight.to(dt), m.c_fc.bias.to(dt),
-            m.c_proj.weight.to(dt), m.c_proj.bias.to(dt),
-            eps=1e-5, activation="quick_gelu",
-        )
+        args = (m.c_fc.weight.to(dt), m.c_fc.bias.to(dt), m.c_proj.weight.to(dt),
+                row_bias(tp, m.c_proj.bias).to(dt))
+        if tp is None:
+            return ln_mlp_residual_bt(x, self.ln_2.weight, self.ln_2.bias, *args, eps=1e-5,
+                                      activation="quick_gelu")
+        partial = ln_mlp_residual_bt(copy_to_model(tp, x), replicated(tp, self.ln_2.weight),
+                                     replicated(tp, self.ln_2.bias), *args, eps=1e-5,
+                                     activation="quick_gelu", residual=False)
+        return add_residual(reduce_from_model(tp, partial), x, dt)
 
 
 class Transformer(nn.Module):

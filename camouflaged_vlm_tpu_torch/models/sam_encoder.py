@@ -78,12 +78,23 @@ from ..ops.linear import (
     ln_linear_act_bt,
     ln_mask_linear_bt,
     ln_mlp_residual_bt,
+    proj_from_heads,
     proj_from_heads_res,
     proj_rows,
 )
 from ..ops.norms import LayerNormFP32
 from ..ops.rel_pos import attention_with_decomposed_rel_pos, get_rel_pos_table
 from ..ops.window import window_partition_seq, window_unpartition_seq, window_valid_mask
+from ..parallel.sharding import (
+    add_residual,
+    copy_to_model,
+    local_heads,
+    reduce_from_model,
+    replicated,
+    row_bias,
+    row_linear,
+    tp_of,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,7 +278,14 @@ class Attention(nn.Module):
     blocks, the grid for the global ones). `forward` is every unfused path
     ('reference', unfused 'flash', 'aug_*'); `forward_compact` (the compact
     carry) and `forward_fused` (the padded carry's windows, B' = B *
-    `num_windows`, and the global blocks) are the fused 'flash' path."""
+    `num_windows`, and the global blocks) are the fused 'flash' path.
+
+    Sharded over a model group (`parallel.shard_model_`) each rank holds
+    the qkv rows of num_heads / n_model whole heads and the matching
+    columns of `proj`: it runs its heads through the same kernels (the
+    route is the unsharded one's) and returns its partial projection in
+    fp32, unrounded, with the bias on model rank 0 only and no residual;
+    `Block` sums the partials over the group and adds the residual."""
 
     def __init__(self, dim: int, num_heads: int, use_rel_pos: bool,
                  input_size: Tuple[int, int], dtype: torch.dtype, attn_impl: str,
@@ -310,14 +328,21 @@ class Attention(nn.Module):
             return "packed" if H + W <= REL_LANES else "relpos"
         return "global"
 
+    def rel_pos(self):
+        """(rel_pos_h, rel_pos_w) as the forward reads them: replicated
+        parameters inside the parallel region when sharded."""
+        tp = tp_of(self)
+        return replicated(tp, self.rel_pos_h), replicated(tp, self.rel_pos_w)
+
     def build_rel_tables(self):
         """The 'flash' path's param-derived rel tables in the compute type:
         Rcomb (H, W, hd, 32) for a fused block on the 'compact' or 'packed'
         route, (Rh, Rw) for the other fused blocks and every unfused one."""
         H, W = self.input_size
+        rel_pos_h, rel_pos_w = self.rel_pos()
         if self.fused_route in ("compact", "packed"):
-            return make_rcomb(H, W, self.rel_pos_h, self.rel_pos_w, self.dtype)
-        return global_rel_tables(H, W, self.rel_pos_h, self.rel_pos_w, self.dtype)
+            return make_rcomb(H, W, rel_pos_h, rel_pos_w, self.dtype)
+        return global_rel_tables(H, W, rel_pos_h, rel_pos_w, self.dtype)
 
     def set_rel_cache(self, tables) -> None:
         self.rel_cache = (tables, (self.rel_pos_h._version, self.rel_pos_w._version))
@@ -336,9 +361,11 @@ class Attention(nn.Module):
         return tables
 
     def _weights(self):
+        """The qkv and proj weights in the compute type (this rank's shard,
+        and the proj bias on model rank 0 only, when sharded)."""
         dt = self.dtype
         return (self.qkv.weight.to(dt), self.qkv.bias.to(dt),
-                self.proj.weight.to(dt), self.proj.bias.to(dt))
+                self.proj.weight.to(dt), row_bias(tp_of(self), self.proj.bias).to(dt))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The unfused paths on LN1's output x (B, N, C), the JAX package's
@@ -348,13 +375,13 @@ class Attention(nn.Module):
         'aug_flash' or 'flash' for N >= 1024 and `attention_xla` else."""
         B, N, _ = x.shape
         H, W = self.input_size
-        heads = self.num_heads
-        hd = self.dim // heads
+        tp = tp_of(self)
+        hd = self.dim // self.num_heads
+        heads = local_heads(self.num_heads, tp)
         scale = hd ** -0.5
         qkv = dense(x, self.qkv, self.dtype).reshape(B, N, 3, heads, hd)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # (B, heads, N, hd)
-        rel_pos_h = self.rel_pos_h if self.use_rel_pos else None
-        rel_pos_w = self.rel_pos_w if self.use_rel_pos else None
+        rel_pos_h, rel_pos_w = self.rel_pos() if self.use_rel_pos else (None, None)
         # (B, heads, N, c) -> the kernels' (B*heads, N, c) problems
         flat = lambda t: t.reshape(B * heads, N, t.shape[-1]).contiguous()  # noqa: E731
         if self.attn_impl == "reference":
@@ -374,8 +401,7 @@ class Attention(nn.Module):
                 out = out.reshape(B, heads, N, hd)
             else:
                 out = attention_xla(q_aug, k_aug, v)
-        out = out.transpose(1, 2).reshape(B, N, self.dim)
-        return dense(out, self.proj, self.dtype)
+        return row_linear(tp, out.transpose(1, 2).reshape(B, N, heads * hd), self.proj, self.dtype)
 
     def forward_fused(self, x: torch.Tensor, norm1: LayerNormFP32,
                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -384,36 +410,41 @@ class Attention(nn.Module):
         (nwin, H*W, 1) or a global block (nwin 1, no mask); returns
         x + proj(attention(LN1(x) * mask)) by `fused_route`. LN1 and the mask
         ride the qkv kernel's prologue, the residual the projection's
-        epilogue."""
+        epilogue. Sharded: this rank's fp32 partial of proj(...), no x."""
         Bp, N, C = x.shape
         H, W = self.input_size
-        heads, nwin = self.num_heads, self.num_windows
-        hd = C // heads
+        tp, nwin = tp_of(self), self.num_windows
+        hd = C // self.num_heads
+        heads = local_heads(self.num_heads, tp)
+        Cl = heads * hd  # this rank's heads' width
         scale = hd ** -0.5
         B = Bp // nwin
         wq, bq, wp, bp = self._weights()
         m = mask.to(x.dtype) if mask is not None else x.new_ones(1, N, 1)
-        qkv = ln_mask_linear_bt(x, norm1.weight, norm1.bias, m, wq, bq, eps=norm1.eps)
-        qh = qkv[:, :, :C].reshape(Bp, H, W, heads, hd)  # unscaled q
-        tables, res = self.rel_tables(), x.reshape(B, nwin, N, C)
+        qkv = ln_mask_linear_bt(x, replicated(tp, norm1.weight), replicated(tp, norm1.bias), m,
+                                wq, bq, eps=norm1.eps)
+        qh = qkv[:, :, :Cl].reshape(Bp, H, W, heads, hd)  # unscaled q
+        partial = tp is not None
+        tables, res = self.rel_tables(), None if partial else x.reshape(B, nwin, N, C)
+        rel_pos_h, rel_pos_w = self.rel_pos()
         route = self.fused_route
         if route == "packed":
-            rel, sel32 = rel_packed32(qh, self.rel_pos_h, self.rel_pos_w, H, W, rcomb=tables)
-            out = flash_qkv_packed_windows(qkv.reshape(B, nwin, N, 3 * C),
+            rel, sel32 = rel_packed32(qh, rel_pos_h, rel_pos_w, H, W, rcomb=tables)
+            out = flash_qkv_packed_windows(qkv.reshape(B, nwin, N, 3 * Cl),
                                            rel.reshape(B, nwin, N, heads * REL_LANES), sel32,
-                                           scale, heads, hd)  # (B, nwin, C, N)
-            y = proj_rows(out, wp, bp, res)
+                                           scale, heads, hd)  # (B, nwin, Cl, N)
+            y = proj_rows(out, wp, bp, res, partial)
         elif route == "relpos":
-            rel, sel = rel_and_scatter(qh, self.rel_pos_h, self.rel_pos_w, H, W, tables=tables)
+            rel, sel = rel_and_scatter(qh, rel_pos_h, rel_pos_w, H, W, tables=tables)
             out = flash_qkv_relpos_windows(qkv.reshape(B, nwin, N, 3 * heads, hd),
                                            rel.reshape(B, nwin, N, heads, H + W), sel, scale,
                                            H, W)  # (B, heads, nwin, N, hd)
-            y = proj_from_heads_res(out, wp, bp, res)
+            y = (proj_from_heads(out, wp, bp, partial=True) if partial
+                 else proj_from_heads_res(out, wp, bp, res))
         else:
-            rel_s, sel = rel_smajor_global(qh, self.rel_pos_h, self.rel_pos_w, H, W,
-                                           tables=tables)
+            rel_s, sel = rel_smajor_global(qh, rel_pos_h, rel_pos_w, H, W, tables=tables)
             out = flash_qkv_packed_global(qkv, rel_s, sel, scale, heads, hd, H, W)
-            y = proj_rows(out.reshape(B, 1, C, N), wp, bp, res)
+            y = proj_rows(out.reshape(B, 1, Cl, N), wp, bp, res, partial)
         return y.reshape(Bp, N, C)
 
     def forward_compact(self, xf: torch.Tensor, xe: Optional[torch.Tensor],
@@ -421,41 +452,52 @@ class Attention(nn.Module):
         """'flash' windowed block on the compact carry: x_full (B*n_full,
         win^2, C) through the interior-window kernel, x_edge (B, E, C)
         through the edge kernel with its virtual pad key. Both are raw block
-        inputs; returns (x_full + attn, x_edge + attn)."""
-        win, C, heads = geom.win, self.dim, self.num_heads
-        hd = C // heads
+        inputs; returns (x_full + attn, x_edge + attn), sharded this rank's
+        fp32 partials of (attn, attn) without x."""
+        win, C = geom.win, self.dim
+        tp = tp_of(self)
+        hd = C // self.num_heads
+        heads = local_heads(self.num_heads, tp)
+        Cl = heads * hd  # this rank's heads' width
         scale = hd ** -0.5
         S, nf = win * win, geom.n_full
         B = xf.shape[0] // nf
         wq, bq, wp, bp = self._weights()
+        g1, b1 = replicated(tp, norm1.weight), replicated(tp, norm1.bias)
         rcomb = self.rel_tables()
+        rel_pos_h, rel_pos_w = self.rel_pos()
 
-        qkv_f = ln_linear_act_bt(xf, norm1.weight, norm1.bias, wq, bq, eps=norm1.eps,
-                                 activation=None)  # (B*nf, S, 3C)
-        rel_s, sel32 = rel_smajor_windows(qkv_f, self.rel_pos_h, self.rel_pos_w, win,
-                                          heads, hd, rcomb=rcomb)
+        qkv_f = ln_linear_act_bt(xf, g1, b1, wq, bq, eps=norm1.eps,
+                                 activation=None)  # (B*nf, S, 3Cl)
+        rel_s, sel32 = rel_smajor_windows(qkv_f, rel_pos_h, rel_pos_w, win, heads, hd,
+                                          rcomb=rcomb)
         out_f = flash_qkv_packed_windows_s(qkv_f, rel_s, sel32, scale, heads, hd)
-        yf = proj_rows(out_f.reshape(B, nf, C, S), wp, bp, xf.reshape(B, nf, S, C))
+        partial = tp is not None
+        yf = proj_rows(out_f.reshape(B, nf, Cl, S), wp, bp,
+                       None if partial else xf.reshape(B, nf, S, C), partial)
         yf = yf.reshape(B * nf, S, C)
         if xe is None:
             return yf, None
 
         n, R = geom.n_edge, geom.R_u
-        qkv_e = ln_linear_act_bt(xe, norm1.weight, norm1.bias, wq, bq, eps=norm1.eps,
-                                 activation=None)  # (B, E, 3C)
-        k_bias = self.qkv.bias[C : 2 * C].reshape(heads, hd)
-        rel_e = edge_rel_lpad(qkv_e[:, :, :C].reshape(B, geom.E, heads, hd), rcomb, k_bias,
+        qkv_e = ln_linear_act_bt(xe, g1, b1, wq, bq, eps=norm1.eps,
+                                 activation=None)  # (B, E, 3Cl)
+        k_bias = self.qkv.bias[Cl : 2 * Cl].reshape(heads, hd)
+        rel_e = edge_rel_lpad(qkv_e[:, :, :Cl].reshape(B, geom.E, heads, hd), rcomb, k_bias,
                               scale, geom)  # (B, E, heads, 32), Lpad in lane 28
         sel_e, kmask_e = edge_consts(geom, qkv_e.dtype, xe.device)
-        vb = bq[2 * C :].reshape(heads, hd)  # the pad tokens' value
-        out_e = flash_qkv_packed_edge(qkv_e.reshape(B, n, R, 3 * C),
+        vb = bq[2 * Cl :].reshape(heads, hd)  # the pad tokens' value
+        out_e = flash_qkv_packed_edge(qkv_e.reshape(B, n, R, 3 * Cl),
                                       rel_e.reshape(B, n, R, heads * REL_LANES),
                                       sel_e, vb, kmask_e, scale, heads, hd)
-        ye = proj_rows(out_e, wp, bp, xe.reshape(B, n, R, C))
+        ye = proj_rows(out_e, wp, bp, None if partial else xe.reshape(B, n, R, C), partial)
         return yf, ye.reshape(B, geom.E, C)
 
 
 class MLPBlock(nn.Module):
+    """lin1 -> GELU -> lin2; sharded, this rank's slice of the hidden width
+    into an fp32 partial, lin2's bias on model rank 0 only."""
+
     def __init__(self, dim: int, hidden: int, dtype: torch.dtype, gelu_approximate: bool):
         super().__init__()
         self.lin1 = nn.Linear(dim, hidden)
@@ -465,7 +507,7 @@ class MLPBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(dense(x, self.lin1, self.dtype), approximate=self.approximate)
-        return dense(h, self.lin2, self.dtype)
+        return row_linear(tp_of(self), h, self.lin2, self.dtype)
 
 
 class Block(nn.Module):
@@ -491,28 +533,54 @@ class Block(nn.Module):
         self.act = "gelu_tanh" if cfg.gelu_approximate else "gelu"
         self.dtype = cfg.dtype
 
-    def _fused_mlp(self, x: torch.Tensor) -> torch.Tensor:
-        """x + MLP(LN2(x)) as one kernel."""
-        dt, m = self.dtype, self.mlp
-        return ln_mlp_residual_bt(
-            x, self.norm2.weight, self.norm2.bias, m.lin1.weight.to(dt), m.lin1.bias.to(dt),
-            m.lin2.weight.to(dt), m.lin2.bias.to(dt), eps=self.norm2.eps, activation=self.act,
-        )
+    def _summed(self, partials, xs):
+        """A sharded sublayer's output for each x of xs (None passes
+        through): its ranks' fp32 partials summed over the model group (one
+        all-reduce for all of them), then x added and rounded once."""
+        sums = reduce_from_model(tp_of(self), *partials)
+        sums = sums if isinstance(sums, tuple) else (sums,)
+        out = [None if x is None else add_residual(s, x, self.dtype) for s, x in zip(sums, xs)]
+        return out[0] if len(out) == 1 else tuple(out)
+
+    def _fused_mlp(self, *xs: Optional[torch.Tensor]):
+        """x + MLP(LN2(x)) as one kernel, for each x of xs (None passes
+        through). Sharded, each rank runs its slice of the hidden width into
+        an fp32 partial (lin2's bias on model rank 0 only), `_summed`."""
+        dt, m, tp = self.dtype, self.mlp, tp_of(self)
+        args = (m.lin1.weight.to(dt), m.lin1.bias.to(dt), m.lin2.weight.to(dt),
+                row_bias(tp, m.lin2.bias).to(dt))
+        kw = dict(eps=self.norm2.eps, activation=self.act)
+        if tp is None:
+            out = [None if x is None else ln_mlp_residual_bt(
+                x, self.norm2.weight, self.norm2.bias, *args, **kw) for x in xs]
+            return out[0] if len(out) == 1 else tuple(out)
+        xin = copy_to_model(tp, *xs) if len(xs) > 1 else (copy_to_model(tp, xs[0]),)
+        g2, b2 = replicated(tp, self.norm2.weight), replicated(tp, self.norm2.bias)
+        return self._summed([None if x is None else ln_mlp_residual_bt(
+            x, g2, b2, *args, residual=False, **kw) for x in xin], xs)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
                 geom: Optional[CompactGeometry] = None):
+        tp = tp_of(self)
         if geom is not None:  # 'flash' windowed block, compact carry
-            xf, xe = self.attn.forward_compact(x[0], x[1], self.norm1, geom)
-            return self._fused_mlp(xf), (self._fused_mlp(xe) if xe is not None else None)
+            if tp is None:
+                return self._fused_mlp(*self.attn.forward_compact(x[0], x[1], self.norm1, geom))
+            xf, xe = copy_to_model(tp, x[0], x[1])
+            return self._fused_mlp(*self._summed(
+                self.attn.forward_compact(xf, xe, self.norm1, geom), x))
         if self.attn.fused:  # 'flash' padded windows or global block
-            return self._fused_mlp(self.attn.forward_fused(x, self.norm1, mask))
+            if tp is None:
+                return self._fused_mlp(self.attn.forward_fused(x, self.norm1, mask))
+            y = self.attn.forward_fused(copy_to_model(tp, x), self.norm1, mask)
+            return self._fused_mlp(self._summed([y], [x]))
         shortcut = x
         x = self.norm1(x)
         if mask is not None:  # (nwin, S, 1), broadcast over B' = B * nwin
             nwin = mask.shape[0]
             x = (x.reshape(-1, nwin, *x.shape[1:]) * mask[None].to(x.dtype)).reshape(x.shape)
-        x = shortcut + self.attn(x)
-        return x + self.mlp(self.norm2(x))
+        dt = shortcut.dtype
+        x = shortcut + reduce_from_model(tp, self.attn(copy_to_model(tp, x))).to(dt)
+        return x + reduce_from_model(tp, self.mlp(copy_to_model(tp, self.norm2(x)))).to(dt)
 
 
 class PromptGenerator(nn.Module):

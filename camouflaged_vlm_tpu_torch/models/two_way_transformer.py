@@ -3,7 +3,11 @@
 Counterpart of `camouflaged_vlm_tpu/models/two_way_transformer.py`. Each
 block: token self-attention, token -> image, token -> cond (the CLIP sparse
 embeddings), token MLP, image -> cond, image -> token. Plain PyTorch:
-sequences are tiny (6 tokens, 4096 image tokens, 2 cond).
+sequences are tiny (6 tokens, 4096 image tokens, 2 cond). Sharded over a
+model group (`parallel.shard_model_`), each attention runs its rank's heads
+and each MLP its slice of the hidden width into fp32 partials (the
+out-projection's and lin2's bias on model rank 0 only), summed over the
+group and rounded once.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from torch import nn
 
 from ..ops.norms import LayerNormFP32
 from ..ops.layers import dense
+from ..parallel.sharding import copy_to_model, local_heads, reduce_from_model, row_linear, tp_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,11 +49,13 @@ class ProjectedAttention(nn.Module):
         self.out_proj = nn.Linear(internal, embedding_dim)
 
     def forward(self, q, k, v):
-        dt, hd = self.dtype, self.internal // self.num_heads
+        dt, hd, tp = self.dtype, self.internal // self.num_heads, tp_of(self)
+        heads = local_heads(self.num_heads, tp)
+        q, k, v = copy_to_model(tp, q, k, v)
 
         def split(x):
             b, n, _ = x.shape
-            return x.reshape(b, n, self.num_heads, hd).transpose(1, 2)
+            return x.reshape(b, n, heads, hd).transpose(1, 2)
 
         qh = split(dense(q, self.q_proj, dt))
         kh = split(dense(k, self.k_proj, dt))
@@ -56,8 +63,8 @@ class ProjectedAttention(nn.Module):
         logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / (hd ** 0.5)
         probs = torch.softmax(logits, dim=-1).to(vh.dtype)
         out = torch.matmul(probs.float(), vh.float()).to(q.dtype)
-        out = out.transpose(1, 2).reshape(q.shape[0], q.shape[1], self.internal)
-        return dense(out, self.out_proj, dt)
+        out = out.transpose(1, 2).reshape(q.shape[0], q.shape[1], heads * hd)
+        return reduce_from_model(tp, row_linear(tp, out, self.out_proj, dt)).to(dt)
 
 
 class MLP(nn.Module):
@@ -68,7 +75,9 @@ class MLP(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        return dense(F.relu(dense(x, self.lin1, self.dtype)), self.lin2, self.dtype)
+        dt, tp = self.dtype, tp_of(self)
+        h = F.relu(dense(copy_to_model(tp, x), self.lin1, dt))
+        return reduce_from_model(tp, row_linear(tp, h, self.lin2, dt)).to(dt)
 
 
 class TwoWayAttentionBlock(nn.Module):

@@ -155,7 +155,7 @@ LN_MASK_LINEAR = CudaKernel(
 )
 LN_MLP_RESIDUAL = CudaKernel(
     "ln_mlp_residual_bt", "cvlm_ln_mlp_residual",
-    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I],
+    [P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I],
 )
 # The same function in float32 (csrc/ln_mlp_residual_f32.cu: the LN row pass,
 # fc1 and fc2 as tiled FFMA products on the CUDA cores), for the CLIP text
@@ -164,9 +164,9 @@ LN_MLP_RESIDUAL = CudaKernel(
 # tile, k slices, split tail) and a split-K scratch pointer (or None).
 LN_MLP_RESIDUAL_F32 = CudaKernel(
     "ln_mlp_residual_bt_f32", "cvlm_ln_mlp_residual_f32",
-    [P] * 12 + [I, I, I, I, F] + [I] * 8,
+    [P] * 12 + [I, I, I, I, F] + [I] * 9,
 )
-PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, L, L, I, I, I])
+PROJ_ROWS = CudaKernel("proj_rows", "cvlm_proj_rows", [P, P, P, P, P, I, I, L, L, I, I, I, I])
 # The fp32 instances of MaPLe training's path (the CLIP vision blocks' LN1 +
 # qkv, attention and out-projection, and the MLP backward at both towers'
 # widths), tiled FFMA products and a flash loop on the CUDA cores
@@ -180,7 +180,7 @@ QKV_PACKED_PLAIN_F32 = CudaKernel("flash_qkv_packed_plain_f32", "cvlm_qkv_packed
 PROJ_ROWS_F32 = CudaKernel("proj_rows_f32", "cvlm_proj_rows_f32",
                            [P] * 6 + [I, I, L, L] + [I] * 6)
 LN_MLP_RESIDUAL_BWD_F32 = CudaKernel("ln_mlp_residual_bt_bwd_f32", "cvlm_ln_mlp_residual_bwd_f32",
-                                     [P] * 16 + [I, I, I, I, F] + [I] * 8)
+                                     [P] * 16 + [I, I, I, I, F] + [I] * 9)
 # The fp32 instances of SAM's kernels on the cascade's path at --dtype
 # float32 (the reference configuration): the patch embed (csrc/linear_f32.cu),
 # LN1 + row mask + qkv of the global blocks (csrc/ln_linear_f32.cu), and the
@@ -222,7 +222,7 @@ QKV_GLOBAL = CudaKernel(
 # and a key-parallel TMA + wgmma pass, counted once a call) for the windows
 # (#14) and the global blocks (#18), each with its own count.
 LN_MLP_RESIDUAL_BWD = CudaKernel(
-    "ln_mlp_residual_bt_bwd", "cvlm_ln_mlp_residual_bwd", [P] * 16 + [I, I, I, I, F, I, I],
+    "ln_mlp_residual_bt_bwd", "cvlm_ln_mlp_residual_bwd", [P] * 16 + [I, I, I, I, F, I, I, I],
 )
 _ATTN_BWD_ARGS = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F]
 QKV_WINDOWS_BWD = CudaKernel("flash_qkv_packed_windows_s_bwd", "cvlm_attn_bwd", _ATTN_BWD_ARGS)
@@ -254,7 +254,7 @@ _QKV_RELPOS_ARGS = [P, P, P, I, I, I, I, I, I, F]
 QKV_RELPOS_WINDOWS = CudaKernel("flash_qkv_relpos_windows", "cvlm_qkv_relpos",
                                 _QKV_RELPOS_ARGS)
 QKV_RELPOS_GLOBAL = CudaKernel("flash_qkv_relpos_global", "cvlm_qkv_relpos", _QKV_RELPOS_ARGS)
-_PROJ_HEADS_ARGS = [P, P, P, P, P, I, I, I, I, I, I, I]
+_PROJ_HEADS_ARGS = [P, P, P, P, P, I, I, I, I, I, I, I, I]
 PROJ_HEADS_RES = CudaKernel("proj_from_heads_res", "cvlm_proj_from_heads", _PROJ_HEADS_ARGS)
 PROJ_HEADS = CudaKernel("proj_from_heads", "cvlm_proj_from_heads", _PROJ_HEADS_ARGS)
 # Their fp32 instances, the routes of the other configurations at --dtype

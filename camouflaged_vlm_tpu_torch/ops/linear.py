@@ -759,11 +759,16 @@ def _ln_mask_linear_bt_cuda(x, gamma, beta, mask, w, b, eps):
 
 
 def ln_mlp_residual_bt_ref(x, gamma, beta, w1, b1, w2, b2, eps=1e-6,
-                             activation="gelu_tanh"):
+                             activation="gelu_tanh", residual=True):
     """The card's three stages: the LN row pass, fc1 with bias and
     activation (h rounded to x's type, the TPU kernel's second rounding
-    point), fc2 with bias and the residual x in fp32, rounded once."""
+    point), fc2 with bias and the residual x in fp32, rounded once; without
+    `residual`, fc2 with bias alone in fp32, unrounded (a tensor-parallel
+    rank's partial, which its caller sums over the ranks in fp32 before the
+    residual and the one rounding)."""
     h = linear_act_ref(ln_rows_ref(x, gamma, beta, eps), w1, b1, activation)
+    if not residual:
+        return _matmul_f32(h, w2) + b2.float()
     return linear_residual_ref(h, w2, b2, x)
 
 
@@ -788,14 +793,15 @@ def act_and_grad(pre: torch.Tensor, activation: Optional[str]):
 
 
 def ln_mlp_residual_bt_bwd_ref(x, gamma, beta, w1, b1, w2, b2, g, eps=1e-6,
-                               activation="gelu_tanh", weights=True):
+                               activation="gelu_tanh", weights=True, residual=True):
     """The backward of `ln_mlp_residual_bt` at upstream gradient g (like x):
     (dx, dgamma, dbeta, dw1, db1, dw2, db2), the weight side None unless
     `weights`. Transcribes the JAX backward kernel (`ops/linear.py`,
     `_ln_mlp_residual_bwd_kernel`) and its wrapper's weight products:
     LN and pre1 = xn.W1^T + b1 recomputed, dh = act'(pre1) * (g.W2),
     dxn = dh.W1 with g and dh rounded to the working type before their
-    products, the LN backward in fp32, plus the residual g."""
+    products, the LN backward in fp32, plus the residual g (without
+    `residual`, the forward's residual-free form: no g term)."""
     dt = x.dtype
     x32 = x.float()
     mu = x32.mean(-1, keepdim=True)
@@ -809,7 +815,8 @@ def ln_mlp_residual_bt_bwd_ref(x, gamma, beta, w1, b1, w2, b2, g, eps=1e-6,
     dxhat = dxn * gamma.float()
     m1 = dxhat.mean(-1, keepdim=True)
     m2 = (dxhat * xhat).mean(-1, keepdim=True)
-    dx = (rstd * (dxhat - m1 - xhat * m2) + g.float()).to(dt)
+    dx = rstd * (dxhat - m1 - xhat * m2)
+    dx = (dx + g.float() if residual else dx).to(dt)
     if not weights:
         return dx, None, None, None, None, None, None
     K, H = x.shape[-1], w1.shape[0]
@@ -852,12 +859,12 @@ def _check_mlp_f32(name, *tensors):
     return K, H
 
 
-def _ln_mlp_residual_f32_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation):
+def _ln_mlp_residual_f32_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation, residual):
     """The fp32 instance (the CLIP towers in MaPLe training and the bank
     precompute's text tower; SAM's and CLIP's MLPs in the cascade at --dtype
     float32): the LN rows and the hidden in fp32 scratch, products on the
     CUDA cores in full fp32, per row panel of `mlp_panel_rows`, on the
-    plans' path."""
+    plans' path; fc2's epilogue adds x only with `residual`."""
     K, H = _checked(_check_mlp_f32, "ln_mlp_residual_bt (float32)", x, gamma, beta, w1, b1, w2,
                     b2)
     M = x.numel() // K
@@ -868,15 +875,16 @@ def _ln_mlp_residual_f32_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation):
     _cuda.LN_MLP_RESIDUAL_F32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(), xn, h, ws, wt, M, K, H, rows, float(eps),
-        _cuda.ACTIVATIONS[activation], p1.tile, p1.splits, p1.tail_rows, p2.tile, p2.splits,
-        p2.tail_rows, p1.path,
+        _cuda.ACTIVATIONS[activation], int(residual), p1.tile, p1.splits, p1.tail_rows, p2.tile,
+        p2.splits, p2.tail_rows, p1.path,
     )
     return out
 
 
-def _ln_mlp_residual_bt_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation):
+def _ln_mlp_residual_bt_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation, residual):
     if x.dtype == torch.float32:
-        return _ln_mlp_residual_f32_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation)
+        return _ln_mlp_residual_f32_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation,
+                                         residual)
     name = "ln_mlp_residual_bt"
     K, H = _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2)
     _check_tma_k(name, K, H)
@@ -884,17 +892,18 @@ def _ln_mlp_residual_bt_cuda(x, gamma, beta, w1, b1, w2, b2, eps, activation):
     rows = mlp_panel_rows(M, H)
     n_sm = _cuda.sm_count(x.device)
     # one scratch for the LN rows (rows, K) and the hidden (rows, H): each
-    # 16-byte aligned, as TMA needs (K % 8 == 0)
-    out = torch.empty_like(x)
+    # 16-byte aligned, as TMA needs (K % 8 == 0); without the residual fc2's
+    # product in fp32, the bias added here
+    out = torch.empty_like(x) if residual else torch.empty(x.shape, device=x.device)
     scratch = torch.empty(rows * (K + H), dtype=x.dtype, device=x.device)
     xn = scratch.data_ptr()
     _cuda.LN_MLP_RESIDUAL(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(), xn, xn + 2 * rows * K, M, K, H,
-        rows, float(eps), _cuda.ACTIVATIONS[activation],
+        rows, float(eps), _cuda.ACTIVATIONS[activation], int(residual),
         gemm_tile_n(rows, H, n_sm, activation is not None), gemm_tile_n(rows, K, n_sm),
     )
-    return out
+    return out if residual else out.add_(b2.float())
 
 
 # Rows per partial sum of the backward's weight side (csrc/ln_mlp_residual_bwd.cu):
@@ -905,7 +914,7 @@ MLP_BWD_DB1_ROWS = 64
 
 
 def ln_mlp_residual_bt_bwd(x, gamma, beta, w1, b1, w2, b2, g, eps=1e-6,
-                           activation="gelu_tanh", weights=True):
+                           activation="gelu_tanh", weights=True, residual=True):
     """The backward of `ln_mlp_residual_bt`: the kernel for CUDA tensors
     (TPU kernel #6: per row panel of `mlp_panel_rows`, the LN row pass, the
     dual GEMM for dh, dxn = dh . W1 and the LN-backward rows, one count),
@@ -913,14 +922,16 @@ def ln_mlp_residual_bt_bwd(x, gamma, beta, w1, b1, w2, b2, g, eps=1e-6,
     also keeps xn and dh for every row, writes act(pre1) and the
     dgamma/dbeta/db1 partials, and dw1 = dh^T.xn, dw2 = g^T.act(pre1) are
     `torch.matmul` products (the JAX wrapper leaves them to XLA). x in
-    float32 runs the fp32 instance (`_ln_mlp_residual_bwd_f32_cuda`)."""
+    float32 runs the fp32 instance (`_ln_mlp_residual_bwd_f32_cuda`).
+    Without `residual` (the forward's residual-free form) the LN-backward
+    rows add no g term."""
     name = "ln_mlp_residual_bt_bwd"
     if not _cuda.use_kernel(name, x, gamma, beta, w1, b1, w2, b2, g):
         return ln_mlp_residual_bt_bwd_ref(x, gamma, beta, w1, b1, w2, b2, g, eps, activation,
-                                          weights)
+                                          weights, residual)
     if x.dtype == torch.float32:
         return _ln_mlp_residual_bwd_f32_cuda(x, gamma, beta, w1, b1, w2, b2, g, eps, activation,
-                                             weights)
+                                             weights, residual)
     K, H = _check_mlp_shapes(name, x, gamma, beta, w1, b1, w2, b2)
     _check_tma_k(name, K, H)
     _cuda.check_dtype(name, torch.bfloat16, g)
@@ -950,7 +961,7 @@ def ln_mlp_residual_bt_bwd(x, gamma, beta, w1, b1, w2, b2, g, eps=1e-6,
         w2.data_ptr(), g.data_ptr(), dx.data_ptr(), xn.data_ptr(), dh.data_ptr(), stats.data_ptr(),
         dxn.data_ptr(),
         *map(ptr, side), M, K, H, rows, float(eps), _cuda.ACTIVATIONS[activation],
-        gemm_tile_n(rows, K, _cuda.sm_count(x.device)),
+        int(residual), gemm_tile_n(rows, K, _cuda.sm_count(x.device)),
     )
     if not weights:
         return dx, None, None, None, None, None, None
@@ -976,7 +987,8 @@ def _ln_mlp_bwd_f32_spec(M: int, K: int, H: int, n_sm: int, weights: bool, *forc
     return rows, p1, p2, (K * ld, H * ld, R * K, gt, wt, max(p1.ws_elems, p2.ws_elems), 2 * R)
 
 
-def _ln_mlp_residual_bwd_f32_cuda(x, gamma, beta, w1, b1, w2, b2, g, eps, activation, weights):
+def _ln_mlp_residual_bwd_f32_cuda(x, gamma, beta, w1, b1, w2, b2, g, eps, activation, weights,
+                                  residual):
     """The fp32 instance of #6 (MaPLe training's CLIP MLPs, SAM's MLPs in
     the fp32 train step; csrc/ln_mlp_residual_bwd_f32.cu): per row panel of
     `mlp_panel_rows` the LN row pass, dh_pre = g . W2, dh = act'(xn . W1^T +
@@ -1000,8 +1012,8 @@ def _ln_mlp_residual_bwd_f32_cuda(x, gamma, beta, w1, b1, w2, b2, g, eps, activa
     _cuda.LN_MLP_RESIDUAL_BWD_F32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), g.data_ptr(), dx.data_ptr(), xn, dh, stats, dxn, _ptr(hact), ws, gt, wt,
-        M, K, H, rows, float(eps), _cuda.ACTIVATIONS[activation], p1.tile, p1.splits,
-        p1.tail_rows, p2.tile, p2.splits, p2.tail_rows, p1.path,
+        M, K, H, rows, float(eps), _cuda.ACTIVATIONS[activation], int(residual), p1.tile,
+        p1.splits, p1.tail_rows, p2.tile, p2.splits, p2.tail_rows, p1.path,
     )
     if not weights:
         return dx, None, None, None, None, None, None
@@ -1018,19 +1030,22 @@ class LnMlpResidual(torch.autograd.Function):
     inputs, as the JAX custom_vjp does."""
 
     @staticmethod
-    def forward(ctx, fwd, x, gamma, beta, w1, b1, w2, b2, eps, activation):
+    def forward(ctx, fwd, x, gamma, beta, w1, b1, w2, b2, eps, activation, residual):
         ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2)
-        ctx.eps, ctx.activation = eps, activation
-        return fwd(x, gamma, beta, w1, b1, w2, b2, eps, activation)
+        ctx.eps, ctx.activation, ctx.residual = eps, activation, residual
+        return fwd(x, gamma, beta, w1, b1, w2, b2, eps, activation, residual)
 
     @staticmethod
     def backward(ctx, g):
         x, gamma, beta, w1, b1, w2, b2 = ctx.saved_tensors
         needs = ctx.needs_input_grad[1:8]
-        # the kernel reads g as rows: a non-contiguous gradient is copied here
-        grads = ln_mlp_residual_bt_bwd(x, gamma, beta, w1, b1, w2, b2, g.contiguous(),
-                                       ctx.eps, ctx.activation, weights=any(needs[1:]))
-        return (None, *(d if n else None for d, n in zip(grads, needs)), None, None)
+        # the kernel reads g as rows of x's type (an fp32 partial's gradient
+        # is a cast bf16 one): a non-contiguous gradient is copied here
+        grads = ln_mlp_residual_bt_bwd(x, gamma, beta, w1, b1, w2, b2,
+                                       g.to(x.dtype).contiguous(),
+                                       ctx.eps, ctx.activation, weights=any(needs[1:]),
+                                       residual=ctx.residual)
+        return (None, *(d if n else None for d, n in zip(grads, needs)), None, None, None)
 
 
 def ln_mlp_residual_bt(
@@ -1043,6 +1058,7 @@ def ln_mlp_residual_bt(
     b2: torch.Tensor,     # (K,)
     eps: float = 1e-6,
     activation: str = "gelu_tanh",
+    residual: bool = True,
 ) -> torch.Tensor:
     """x + act(LN(x) . w1^T + b1) . w2^T + b2: on the card the LN row pass,
     fc1 and fc2 with the residual, one entry point, the hidden in a scratch
@@ -1051,13 +1067,16 @@ def ln_mlp_residual_bt(
     tiling knob and has no counterpart), with the backward of #6 when a
     gradient is wanted. x in bfloat16 runs the TMA + wgmma kernels, x in
     float32 their fp32 instances (`_ln_mlp_residual_f32_cuda`,
-    `_ln_mlp_residual_bwd_f32_cuda`)."""
+    `_ln_mlp_residual_bwd_f32_cuda`). `residual=False` returns a
+    tensor-parallel rank's partial: fc2's product with its bias, without x,
+    in fp32 and unrounded (the kernel's accumulator), and the backward has
+    no g term."""
     tensors = (x, gamma, beta, w1, b1, w2, b2)
     fwd = autograd.forward_fn("ln_mlp_residual_bt", _ln_mlp_residual_bt_cuda,
                               ln_mlp_residual_bt_ref, tensors)
     if autograd.wants_grad(*tensors):
-        return LnMlpResidual.apply(fwd, *tensors, eps, activation)
-    return fwd(*tensors, eps, activation)
+        return LnMlpResidual.apply(fwd, *tensors, eps, activation, residual)
+    return fwd(*tensors, eps, activation, residual)
 
 
 # --------------------------------------------------------------- proj_rows
@@ -1077,11 +1096,11 @@ def dmajor_empty(*shape: int, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.empty(*lead, s8, dtype=dtype, device=device)[..., :S]
 
 
-def proj_rows_ref(x, w, b, res=None):
+def proj_rows_ref(x, w, b, res=None, partial=False):
     acc = _matmul_f32(x.transpose(-1, -2), w) + b.float()
     if res is not None:
         acc = acc + res.float()
-    return acc.to(x.dtype)
+    return acc if partial else acc.to(x.dtype)
 
 
 def proj_rows(
@@ -1089,14 +1108,17 @@ def proj_rows(
     w: torch.Tensor,                      # (N, K)
     b: torch.Tensor,                      # (N,)
     res: Optional[torch.Tensor] = None,   # (B, T, S, N)
+    partial: bool = False,
 ) -> torch.Tensor:
     """out[b, t, s, :] = x[b, t, :, s] . w^T + b (+ res) -> (B, T, S, N).
     Counterpart of `proj_rows` (TPU kernel #7). On the card x is read as it
     lies (by TMA in bfloat16; in 16-byte loads by the fp32 instance): its
     last stride 1, its row and (B, T) group strides multiples of
     DMAJOR_ALIGN (the attention wrappers' `dmajor_empty` output); anything
-    else raises."""
-    return autograd.run("proj_rows", _proj_rows_cuda, proj_rows_ref, (x, w, b, res), strided=1)
+    else raises. `partial` (no `res`): the output in fp32, unrounded, a
+    tensor-parallel rank's partial that its caller sums over the ranks."""
+    return autograd.run("proj_rows", _proj_rows_cuda, proj_rows_ref, (x, w, b, res), (partial,),
+                        strided=1)
 
 
 def _group_stride(x: torch.Tensor) -> Optional[int]:
@@ -1140,8 +1162,8 @@ def _proj_rows_f32_cuda(x, w, b, res):
     return out
 
 
-def _proj_rows_cuda(x, w, b, res):
-    if x.dtype == torch.float32:
+def _proj_rows_cuda(x, w, b, res, partial=False):
+    if x.dtype == torch.float32:  # the fp32 instance's output is the partial
         return _proj_rows_f32_cuda(x, w, b, res)
     _cuda.check_dtype("proj_rows", torch.bfloat16, x, w, b, *([res] if res is not None else []))
     B, T, K, S = x.shape
@@ -1150,24 +1172,28 @@ def _proj_rows_cuda(x, w, b, res):
         raise ValueError(f"proj_rows: shapes x {x.shape} w {w.shape}")
     ldk, ldg = _dmajor_strides("proj_rows", x)
     _check_tma_k("proj_rows", K)
-    if res is not None and N % 8:
-        raise ValueError(f"proj_rows: CUDA kernel takes N % 8 == 0 with the residual, got {N}")
-    out = torch.empty((B, T, S, N), dtype=x.dtype, device=x.device)
+    if (res is not None or partial) and N % 8:
+        raise ValueError(f"proj_rows: CUDA kernel takes N % 8 == 0 with the residual or a "
+                         f"partial, got {N}")
+    if partial and res is not None:
+        raise ValueError("proj_rows: a partial takes no residual")
+    out = torch.empty((B, T, S, N), dtype=torch.float32 if partial else x.dtype, device=x.device)
     _cuda.PROJ_ROWS(
         x.data_ptr(), w.data_ptr(), b.data_ptr(),
         res.data_ptr() if res is not None else None, out.data_ptr(),
-        B * T, S, ldk, ldg, K, N, gemm_tile_n(S, N, _cuda.sm_count(x.device), False, B * T),
+        B * T, S, ldk, ldg, K, N, int(partial),
+        gemm_tile_n(S, N, _cuda.sm_count(x.device), False, B * T),
     )
-    return out
+    return out.add_(b.float()) if partial else out
 
 
 # ---------------------------------------------------------- proj_from_heads
 
 
-def proj_from_heads_ref(x, w, b, res=None):
+def proj_from_heads_ref(x, w, b, res=None, partial=False):
     B, heads, T, S, d = x.shape
     rows = x.permute(0, 2, 3, 1, 4).reshape(B, T, S, heads * d)  # k = h*d + j
-    return proj_rows_ref(rows.transpose(-1, -2), w, b, res)
+    return proj_rows_ref(rows.transpose(-1, -2), w, b, res, partial)
 
 
 def proj_from_heads_res(
@@ -1191,11 +1217,15 @@ def proj_from_heads(
     x: torch.Tensor,  # (B, heads, T, S, d)
     w: torch.Tensor,  # (N, heads*d)
     b: torch.Tensor,  # (N,)
+    partial: bool = False,
 ) -> torch.Tensor:
     """`proj_from_heads_res` without the residual. Counterpart of
-    `proj_from_heads` (TPU kernel #9), which no path of either package
-    calls; the kernel is #8's, with its own launch count."""
-    return autograd.run("proj_from_heads", _proj_heads_cuda, proj_from_heads_ref, (x, w, b))
+    `proj_from_heads` (TPU kernel #9), which no path of the JAX package
+    calls; the kernel is #8's, with its own launch count. The port's
+    tensor-parallel ranks call it with `partial` (fp32 out, unrounded, as
+    `proj_rows`')."""
+    return autograd.run("proj_from_heads", _proj_heads_cuda, proj_from_heads_ref, (x, w, b),
+                        (None, partial))
 
 
 def proj_heads_f32_layout(B: int, heads: int, T: int, S: int, d: int) -> dict:
@@ -1234,7 +1264,7 @@ def _proj_heads_f32_launch(kernel, x, w, b, res):
     return out
 
 
-def _proj_heads_launch(kernel, f32_kernel, x, w, b, res):
+def _proj_heads_launch(kernel, f32_kernel, x, w, b, res, partial=False):
     if x.dtype == torch.float32:
         return _proj_heads_f32_launch(f32_kernel, x, w, b, res)
     _cuda.check_dtype(kernel.name, torch.bfloat16, x, w, b, *([res] if res is not None else []))
@@ -1243,19 +1273,19 @@ def _proj_heads_launch(kernel, f32_kernel, x, w, b, res):
     if (w.shape != (N, heads * d) or b.shape != (N,) or d % 8
             or (res is not None and res.shape != (B, T, S, N))):
         raise ValueError(f"{kernel.name}: shapes x {x.shape} w {w.shape} (d a multiple of 8)")
-    if res is not None and N % 8:
-        raise ValueError(f"{kernel.name}: CUDA kernel takes N % 8 == 0 with the residual, "
-                         f"got {N}")
-    out = torch.empty((B, T, S, N), dtype=x.dtype, device=x.device)
+    if (res is not None or partial) and N % 8:
+        raise ValueError(f"{kernel.name}: CUDA kernel takes N % 8 == 0 with the residual or a "
+                         f"partial, got {N}")
+    out = torch.empty((B, T, S, N), dtype=torch.float32 if partial else x.dtype, device=x.device)
     kernel(x.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr() if res is not None else None,
-           out.data_ptr(), B, heads, T, S, d, N,
+           out.data_ptr(), B, heads, T, S, d, N, int(partial),
            gemm_tile_n(T * S, N, _cuda.sm_count(x.device), False, B))
-    return out
+    return out.add_(b.float()) if partial else out
 
 
 def _proj_heads_res_cuda(x, w, b, res):
     return _proj_heads_launch(_cuda.PROJ_HEADS_RES, _cuda.PROJ_HEADS_RES_F32, x, w, b, res)
 
 
-def _proj_heads_cuda(x, w, b):
-    return _proj_heads_launch(_cuda.PROJ_HEADS, _cuda.PROJ_HEADS_F32, x, w, b, None)
+def _proj_heads_cuda(x, w, b, res=None, partial=False):
+    return _proj_heads_launch(_cuda.PROJ_HEADS, _cuda.PROJ_HEADS_F32, x, w, b, None, partial)

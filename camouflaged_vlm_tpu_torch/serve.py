@@ -24,8 +24,17 @@ Counterpart of `camouflaged_vlm_tpu/serve.py`:
 
 `InferenceEngine` is transport-agnostic (futures in, results out);
 `cli/serve.py` mounts it behind a stdlib HTTP front end. Not ported: the
-JAX engine's `mesh` (data- and tensor-parallel serving) and its native
-JPEG decode path (`predict_bytes` decodes with PIL).
+JAX engine's native JPEG decode path (`predict_bytes` decodes with PIL).
+
+With a `mesh` (`parallel.make_mesh`; the model sharded over its model
+group) every rank builds an engine. Rank 0 runs the front end and the
+batcher; every other rank calls `follow()`, which runs what rank 0
+broadcasts until it broadcasts the stop. A flush broadcasts the bucket and
+its uint8 batch to every rank; each runs its data rows on its model shard
+(its own graph per bucket, eager where its collectives cannot be captured:
+tensor parallelism on gloo), and rank 0 gathers the data ranks' outputs.
+Buckets the data axis does not divide are refused at construction, as in
+the JAX engine.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from .data.transforms import (
 )
 from .factory import attach_rel_cache
 from .graphs import GraphedCall
+from .parallel.mesh import all_gather, batch_rows, broadcast_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +115,8 @@ class _Request:
 
 
 _SENTINEL = object()
+# the commands rank 0 broadcasts to the followers of a mesh
+_STOP, _RUN, _CAPTURE = 0, 1, 2
 
 
 class InferenceEngine:
@@ -114,16 +126,25 @@ class InferenceEngine:
         engine's); the engine attaches its rel cache.
     bank: the class split's prompt bank (`factory.make_bank_inputs`) on the
         model's device; classnames: the split's names.
+    mesh: a `parallel.Mesh` to serve on (see the module docstring), or None.
     """
 
     def __init__(self, model, cfg, bank: Dict[str, torch.Tensor], classnames: Sequence[str],
-                 serve_cfg: ServeConfig = ServeConfig()):
+                 serve_cfg: ServeConfig = ServeConfig(), mesh=None):
+        if mesh is not None:
+            bad = [b for b in serve_cfg.buckets if b % mesh.n_data]
+            if bad:
+                raise ValueError(f"buckets {bad} not divisible by the data axis "
+                                 f"({mesh.n_data}): every bucket's batch must split evenly")
+        self.mesh = mesh
         self.model = attach_rel_cache(model)
         self.cfg = cfg
         self.classnames = list(classnames)
         self.serve_cfg = serve_cfg
         self.device = next(model.parameters()).device
         self._cuda = self.device.type == "cuda"
+        # a tensor-parallel program on gloo holds collectives no graph can capture
+        self._capture = mesh is None or mesh.capturable
         # per-class text features are image-independent: encoded once
         self._text_features = model.encode_class_text_features(
             bank["prefix"], bank["suffix"], bank["eot_indices"], bank["bank_features"])
@@ -191,12 +212,54 @@ class InferenceEngine:
         g = self._graphs.get(bucket)
         if g is None:
             cfg = self.cfg
-            zeros = lambda s: torch.zeros((bucket, s, s, 3), dtype=torch.uint8,  # noqa: E731
+            rows = bucket // (self.mesh.n_data if self.mesh is not None else 1)
+            zeros = lambda s: torch.zeros((rows, s, s, 3), dtype=torch.uint8,  # noqa: E731
                                           device=self.device)
             g = GraphedCall(self._program, zeros(cfg.inp_size), zeros(cfg.clip_size),
-                            pool=self._pool if self._cuda else None)
+                            pool=self._pool if self._cuda else None, capture=self._capture)
             self._graphs[bucket] = g
         return g
+
+    def _command(self, cmd: int, bucket: int = 0) -> None:
+        """Rank 0: broadcast a command to the followers (call with
+        `_graph_lock` held: the commands and their collectives keep one
+        order on every rank)."""
+        if self.mesh is not None:
+            broadcast_(torch.tensor([cmd, bucket], dtype=torch.int64))
+
+    def _run_bucket(self, bucket: int, inp: torch.Tensor, cimg: torch.Tensor):
+        """The bucket's program on this rank's rows of the (broadcast) batch,
+        then, on a data-parallel mesh, the data ranks' outputs gathered in
+        rank order. Call with `_graph_lock` held."""
+        program = self._graph_for(bucket)
+        if self.mesh is None:
+            return program(inp, cimg)
+        if self.mesh.backend == "nccl":  # gloo broadcasts host memory
+            inp, cimg = inp.to(self.device), cimg.to(self.device)
+        outs = program(*(batch_rows(broadcast_(t), self.mesh) for t in (inp, cimg)))
+        if self.mesh.n_data == 1:
+            return outs
+        return tuple(torch.cat(all_gather(o, self.mesh.data_group)) for o in outs)
+
+    def follow(self) -> None:
+        """A follower rank of a mesh: run rank 0's broadcast commands (the
+        bucket captures, the batches) until it broadcasts the stop."""
+        if self._cuda:
+            torch.cuda.set_device(self.device)
+        cfg = self.cfg
+        while True:
+            cmd, bucket = (int(v) for v in broadcast_(torch.zeros(2, dtype=torch.int64)))
+            if cmd == _STOP:
+                return
+            with self._graph_lock:
+                if cmd == _CAPTURE:
+                    self._graph_for(bucket)
+                    continue
+                empty = lambda s: torch.empty((bucket, s, s, 3), dtype=torch.uint8)  # noqa: E731
+                outs = self._run_bucket(bucket, empty(cfg.inp_size), empty(cfg.clip_size))
+                if self._cuda:
+                    torch.cuda.current_stream(self.device).synchronize()
+                del outs
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         """A stacked host batch as the program's input: pinned host memory
@@ -226,7 +289,9 @@ class InferenceEngine:
             torch.cuda.set_device(self.device)
         for b in buckets if buckets is not None else self.serve_cfg.buckets:
             with self._graph_lock:
-                self._graph_for(b)
+                if b not in self._graphs:
+                    self._command(_CAPTURE, b)
+                    self._graph_for(b)
         self._ready.set()
 
     def ready(self) -> bool:
@@ -321,6 +386,7 @@ class InferenceEngine:
         self._completer.join(timeout=60)
         if not self._worker.is_alive():
             with self._graph_lock:  # the graphs and their memory pool go now
+                self._command(_STOP)  # the followers of a mesh return
                 self._graphs.clear()
 
     # ---- batching thread
@@ -367,15 +433,18 @@ class InferenceEngine:
             inp = np.stack([r.inp for r in batch + pad])
             cimg = np.stack([r.cimg for r in batch + pad])
             with self._graph_lock:
-                program = self._graph_for(bucket)
+                if bucket not in self._graphs:
+                    self._command(_CAPTURE, bucket)
+                    self._graph_for(bucket)
+                self._command(_RUN, bucket)
                 if self._cuda:
                     with torch.cuda.stream(self._stream):
-                        outs = program(self._put(inp), self._put(cimg))
+                        outs = self._run_bucket(bucket, self._put(inp), self._put(cimg))
                         host = tuple(self._to_host(o) for o in outs)
                         done = torch.cuda.Event()
                         done.record(self._stream)
                 else:
-                    host, done = program(self._put(inp), self._put(cimg)), None
+                    host, done = self._run_bucket(bucket, self._put(inp), self._put(cimg)), None
         except Exception as e:  # capture or launch failure: fail the batch, not the server
             self._fail_batch(batch, e)
             return

@@ -7,7 +7,11 @@ stack):
         + dice(edge_prob, morphological_edge(gt))
 
 All tensors are NHWC (B, H, W, 1); every reduction runs in fp32. The edge
-target is detached.
+target is detached. With a data-parallel `mesh` each rank holds its rows of
+the batch: the losses that are means of per-image terms need nothing more
+(ranks with equal rows average to the global mean in the train step), but
+the balanced BCE's class counts are the whole batch's, as GSPMD computes
+them in the JAX package, so they are summed over the data group.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.pooling import morphological_edge
+from ..parallel.mesh import all_reduce_
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -26,12 +31,17 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
     return (x.clamp(min=0) - x * t + torch.log1p(torch.exp(-x.abs()))).mean()
 
 
-def balanced_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def balanced_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                             mesh=None) -> torch.Tensor:
     """Class-balanced BCE (reference `BBCEWithLogitLoss`): pos_weight =
-    neg/pos, overall weight pos/(pos+neg)."""
+    neg/pos, overall weight pos/(pos+neg), the counts over the whole batch
+    (summed over `mesh`'s data group when its ranks hold rows of it)."""
     x, t = logits.float(), targets.float()
-    count_pos = t.sum() + 1e-10
-    count_neg = (1.0 - t).sum()
+    counts = torch.stack([t.sum(), (1.0 - t).sum()]).detach()
+    if mesh is not None and mesh.n_data > 1:
+        all_reduce_(counts, mesh.data_group)
+    count_pos = counts[0] + 1e-10
+    count_neg = counts[1]
     ratio = count_neg / count_pos
     w_neg = count_pos / (count_pos + count_neg)
     loss = -(ratio * t * F.logsigmoid(x) + (1.0 - t) * F.logsigmoid(-x))
@@ -66,12 +76,14 @@ def segmentation_loss(
     edge_probs: torch.Tensor,
     gt_mask: torch.Tensor,
     loss_mode: str = "iou",
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The reference loss: (total, {loss_mask, loss_edge})."""
+    """The reference loss: (total, {loss_mask, loss_edge}); `mesh` as in
+    `balanced_bce_with_logits`."""
     if loss_mode == "bce":
         loss_mask = bce_with_logits(mask_logits, gt_mask)
     elif loss_mode == "bbce":
-        loss_mask = balanced_bce_with_logits(mask_logits, gt_mask)
+        loss_mask = balanced_bce_with_logits(mask_logits, gt_mask, mesh)
     elif loss_mode == "iou":
         loss_mask = bce_with_logits(mask_logits, gt_mask) + soft_iou_loss(mask_logits, gt_mask)
     else:

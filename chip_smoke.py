@@ -189,19 +189,41 @@ never prints its last line):
               equality expected, the largest difference logged), a lower peak
               with remat, both step walls, exact launches (the blocks'
               forward kernels twice)
+ 18. tp_kernels  #2, #3, #4/#5, #6, #7, #9, #13, #15, #16 and #17 and their
+              fp32 instances at a tensor-parallel rank's widths (n_model 2
+              and 4: SAM ViT-H's and CLIP ViT-L's 16 heads as 8 and 4), #4/#5
+              and #7 also as a rank's fp32 partial, #6 without its residual
+              term: errors against the plain versions (bf16 1e-2, fp32 1e-4),
+              times on both clocks, bounds; the kernels line's `tp` rows
+ 19. tp_slice  the full-width bf16 cascade at batch 2 tensor-parallel over
+              two ranks on this card (gloo through host memory) against one
+              rank: the first SAM block within 1e-4 mean relative, the block
+              by block spread of its rounding flips, the embedding within 1.5x
+              one rank's own spread under an input change below bf16's
+              resolution (or 1e-2), the same classes, exact launches per
+              rank, each rank's all-reduces and their bytes, both walls
+ 20. dp_train  two ranks on this card: one fp32 train step at full width,
+              depth 8, batch 2 on meshes (2, 1) and (1, 2) against one rank
+              (|dloss| < 1e-5, parameters within 1e-4), then evaluate()
+              data-parallel over 5 images against one device, equal metrics
+ 21. graph_memory  evaluate() 8 times and the train CLI's 4 validations in
+              this process, memory_allocated after each: growth <= 0.05 GiB
+ 22. graft    graft_entry_torch.entry() on the card, then
+              dryrun_multichip(2, device="cuda") (meshes (2, 1) and (1, 2))
 
 Every kernel line carries its bound (the larger of its FLOP over the bf16
 tensor-core peak, the fp32 one's over the fp32 CUDA-core peak, and its bytes
 over the HBM rate, at this run's shapes) and
 the time of one PyTorch library call computing the same function where
 there is one. Before its last line the script prints one JSON object
-{"kernels": [...]} of 31 kernels (one per wrapper; `ln_mlp_residual_bt`
+{"kernels": [...]} of 38 kernels (one per wrapper; `ln_mlp_residual_bt`
 serves TPU kernels #4 and #5, and `ln_mlp_residual_bt_f32` is their fp32
 instance, with its launches from [bank]; the fp32 #2, #16, #7 and #6 with
 theirs from [maple_slice]; the fp32 #1, #3, #13, #15 and #17 with theirs
 from [f32_slice], their batch-2 times in `batch2_*` keys; the fp32 #14 and
 #18 with theirs from [f32_train_slice], at batch 2 with the batch-1 times
-in `batch1_*` keys), each with its launches on its path, or, for
+in `batch1_*` keys; the kernels of [tp_kernels] with their rows at a
+tensor-parallel rank's widths in `tp`), each with its launches on its path, or, for
 #9 and #19, which no path reaches, in their check with a "path" field
 saying so, and its times on both clocks (`ms`, `plain_ms`, `library_ms` on an
 idle card; `queued_ms`, `library_queued_ms` queued) and the host's cost of
@@ -1187,7 +1209,9 @@ def f32_per_call_table(per_shape):
 
 # the two kernels no path of either package reaches (the JAX package's own
 # tests call them): their launches are those of their check here
-NO_PATH = {"proj_from_heads": "none: PallasHeadProj is never called without the residual",
+NO_PATH = {"proj_from_heads": "none on one device: PallasHeadProj is never called without the "
+                              "residual; a tensor-parallel rank's window-17 blocks take it "
+                              "for their fp32 partial ([tp_kernels])",
            "flash_qkv_relpos_global": "none: ablation kernel, no caller"}
 
 
@@ -4319,6 +4343,511 @@ def phase_f32_routes():
     return runs
 
 
+# ------------------------------------------------------------- multi-device
+
+# n_model of the tensor-parallel widths [tp_kernels] holds the kernels at:
+# SAM ViT-H's and CLIP ViT-L's 16 heads become 8 and 4 a rank
+TP_WIDTHS = (2, 4)
+# [tp_slice]: two tensor-parallel bf16 ranks against one rank, mean|d| /
+# mean|ref|. The ranks sum fp32 partials and round once, as one rank does;
+# their products' fp32 sums run in another order, which flips a bf16
+# rounding here and there: after the first SAM block within
+# TP_BLOCK0_MEAN_REL_BOUND (a wrong shard or collective is off by O(1)).
+# The 32 random-weight blocks then spread such flips block by block (the
+# TP_TRACE_BLOCKS lines), so the embedding moves about as far as one rank's
+# own does under an input change far below bf16's resolution (x
+# TP_NOISE_SCALE): the embedding is held to TP_EMB_NOISE_FACTOR times that
+# gap, measured in the same run, or to 1e-2 where that gap is smaller
+TP_BLOCK0_MEAN_REL_BOUND = 1e-4
+TP_EMB_MEAN_REL_BOUND = 1e-2
+TP_EMB_NOISE_FACTOR = 1.5
+TP_NOISE_SCALE = 1.0 + 2.0 ** -20
+TP_TRACE_BLOCKS = (0, 1, 7, 15, 31)
+# [graph_memory]: device memory allocated after the last of 8 evaluate()
+# calls (and of 4 validations) against after the first
+MEMORY_GROWTH_BOUND_GIB = 0.05
+
+
+def _check_tp(label, kfn, pfn, args, flops, reads=None, rel_bound=KERNEL_REL_BOUND,
+              peak_flops=PEAK_BF16_FLOPS):
+    """A kernel at a tensor-parallel rank's width against its plain version
+    on the same inputs: shape, type, finite, errors within `rel_bound`; its
+    device time on both clocks and its bound (FLOP over the peak of its
+    type, bytes of `reads` (default every tensor argument) and the output
+    over the HBM rate)."""
+    import torch
+
+    got = kfn(*args)
+    torch.cuda.synchronize()
+    want = pfn(*args)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{label}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    e = errors(got, want)
+    tensors = [a for a in (args if reads is None else reads) if isinstance(a, torch.Tensor)]
+    b = bound(flops, nbytes(*tensors, got), peak_flops)
+    del got, want
+    k_ms = time_ms(lambda: kfn(*args), iters=10)
+    k_q = time_ms(lambda: kfn(*args), iters=10, queued=True)
+    log(f"[tp_kernels] {label:58s} max_abs {e['max_abs_err']:.3e} max_rel {e['max_rel']:.3e} "
+        f"mean_rel {e['mean_rel']:.3e} (bound {rel_bound}) kernel {k_ms:.4f} ms (queued "
+        f"{k_q:.4f} ms) bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    check(e["max_rel"] < rel_bound and e["mean_rel"] < rel_bound,
+          f"{label} disagrees with its plain version: {e}")
+    return dict(max_abs_err=e["max_abs_err"], max_rel=e["max_rel"], ms=k_ms, queued_ms=k_q, **b)
+
+
+def tp_kernel_cases(rn, n):
+    """The kernels of a tensor-parallel rank's sublayers at n_model = n, at
+    batch 2 of the main path (SAM ViT-H: 16 / n heads x 80, qkv N 3840 / n,
+    proj K 1280 / n, MLP H 5120 / n; CLIP ViT-L: 16 / n heads x 64, qkv N
+    3072 / n, proj K 1024 / n, MLP H 4096 / n): (kernel, label, kernel fn,
+    plain fn, args, FLOP, tensors read). `rn` draws the type under test.
+    #4/#5 and #7 come with the residual (one device) and as a rank's
+    partial (no residual, fp32 out), the backward #6 with and without its
+    residual term, and #9 (window 17's padded carry) as a rank's partial."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+    from camouflaged_vlm_tpu_torch.ops import linear as lin
+    from camouflaged_vlm_tpu_torch.ops.compact_window import (
+        LPAD_LANE, NEG, CompactGeometry, edge_consts,
+    )
+
+    dt, dev = rn(1).dtype, rn(1).device
+    B, D, HD, G, WIN, S, W = 2, 1280, 80, 64, 14, 581, 1024
+    heads, cheads = 16 // n, 16 // n
+    C, CC, H, CH = heads * HD, cheads * 64, 5120 // n, 4096 // n
+    geom = CompactGeometry(G, G, WIN)
+    nf, ne, R = geom.n_full, geom.n_edge, geom.R_u
+    scale = HD ** -0.5
+    win_rows, clip_rows = (B * nf, WIN * WIN), (B, S)
+    for kernel, site, lead, K, N, eps in (
+            ("ln_linear_act_bt", "SAM windows", win_rows, D, 3 * C, 1e-6),
+            ("ln_linear_act_bt", "CLIP", clip_rows, W, 3 * CC, 1e-5),
+            ("ln_mask_linear_bt", "SAM global", (B, G * G), D, 3 * C, 1e-6)):
+        kfn, pfn, args, flops, _ = ln_gemm_case(rn, kernel, lead, K, N, eps, None)
+        yield (kernel, f"{site} {'x'.join(map(str, lead))}x{K} -> {N}", kfn, pfn, args, flops,
+               None)
+    for site, lead, K, Hh, eps, act in (("SAM windows", win_rows, D, H, 1e-6, "gelu_tanh"),
+                                        ("CLIP", clip_rows, W, CH, 1e-5, "quick_gelu")):
+        _, _, args, flops, _ = ln_gemm_case(rn, "ln_mlp_residual_bt", lead, K, Hh, eps, act)
+        for res in (True, False):
+            yield ("ln_mlp_residual_bt",
+                   f"{site} {'x'.join(map(str, lead))}x{K}, H {Hh}, "
+                   + ("residual" if res else "partial (fp32 out)"),
+                   lambda *a, e=eps, ac=act, r=res: lin.ln_mlp_residual_bt(
+                       *a, eps=e, activation=ac, residual=r),
+                   lambda *a, e=eps, ac=act, r=res: lin.ln_mlp_residual_bt_ref(
+                       *a, eps=e, activation=ac, residual=r), args, flops, None)
+        if site == "SAM windows":  # the backward, dx only: the blocks are frozen
+            g = rn(*lead, K, std=0.05)
+            for res in (True, False):
+                yield ("ln_mlp_residual_bt_bwd",
+                       f"{site} {'x'.join(map(str, lead))}x{K}, H {Hh}, dx, residual {res}",
+                       lambda *a, e=eps, ac=act, r=res: lin.ln_mlp_residual_bt_bwd(
+                           *a, eps=e, activation=ac, weights=False, residual=r)[0],
+                       lambda *a, e=eps, ac=act, r=res: lin.ln_mlp_residual_bt_bwd_ref(
+                           *a, eps=e, activation=ac, weights=False, residual=r)[0],
+                       (*args, g), 6.0 * np.prod(lead) * K * Hh, None)
+    for site, shape, N in (("SAM windows", (B, nf, C, WIN * WIN), D), ("CLIP", (B, 1, CC, S), W)):
+        args, flops, _ = proj_rows_case(rn, shape, N)
+        yield ("proj_rows", f"{site} {'x'.join(map(str, shape))} -> {N}, residual",
+               lin.proj_rows, lin.proj_rows_ref, args, flops, None)
+        yield ("proj_rows", f"{site} {'x'.join(map(str, shape))} -> {N}, partial (fp32 out)",
+               lambda *a: lin.proj_rows(*a, partial=True),
+               lambda *a: lin.proj_rows_ref(*a, partial=True), args[:3], flops, None)
+    x = rn(B, heads, 16, 289, HD)
+    yield ("proj_from_heads", f"window 17 {B}x{heads}x16x289x{HD} -> {D}, partial (fp32 out)",
+           lambda *a: lin.proj_from_heads(*a, partial=True),
+           lambda *a: lin.proj_from_heads_ref(*a, partial=True),
+           (x, rn(D, C, std=0.02), rn(D, std=0.02)), 2.0 * B * 16 * 289 * C * D, None)
+    qkv, rel = rn(B * nf, WIN * WIN, 3 * C), rn(WIN * WIN, B * nf, heads * 32)
+    yield ("flash_qkv_packed_windows_s", f"SAM windows {B * nf}x196, {heads} heads x {HD}",
+           lambda *a: fa.flash_qkv_packed_windows_s(*a, scale, heads, HD),
+           lambda *a: fa.flash_qkv_packed_windows_s_ref(*a, scale, heads, HD),
+           (qkv, rel, fa.make_rel_scatter32(WIN, dt, dev)),
+           4.0 * B * nf * heads * (WIN * WIN) ** 2 * HD, (qkv, rel))
+    rel = rn(B, ne, R, heads, 32)
+    off = 0
+    for grp in geom.edge_groups:  # dummy rows' pad-key logit, as the encoder clamps it
+        rel[:, off : off + grp.n, grp.rows :, :, LPAD_LANE] = NEG
+        off += grp.n
+    sel_e, kmask_e = edge_consts(geom, dt, dev)
+    yield ("flash_qkv_packed_edge", f"SAM edge {B}x{ne}x{R}, {heads} heads x {HD}",
+           lambda *a: fa.flash_qkv_packed_edge(*a, scale, heads, HD),
+           lambda *a: fa.flash_qkv_packed_edge_ref(*a, scale, heads, HD),
+           (rn(B, ne, R, 3 * C), rel.reshape(B, ne, R, heads * 32), sel_e,
+            rn(heads, HD, std=0.5), kmask_e), 4.0 * B * ne * heads * R * R * HD, None)
+    qkv = rn(B, S, 3 * CC)
+    yield ("flash_qkv_packed_plain", f"CLIP {B}x{S}, {cheads} heads x 64",
+           lambda q: fa.flash_qkv_packed_plain(q, 64 ** -0.5, cheads, 64),
+           lambda q: fa.flash_qkv_packed_plain_ref(q, 64 ** -0.5, cheads, 64),
+           (qkv,), 4.0 * B * cheads * S * S * 64, None)
+    qkv, rel = rn(B, G * G, 3 * C), rn(G * G, B, heads, 2 * G)
+    yield ("flash_qkv_packed_global", f"SAM global {B}x{G * G}, {heads} heads x {HD}",
+           lambda *a: fa.flash_qkv_packed_global(*a, scale, heads, HD, G, G),
+           lambda *a: fa.flash_qkv_packed_global_ref(*a, scale, heads, HD),
+           (qkv, rel, fa.make_rel_scatter(G, G, dt, dev)),
+           4.0 * B * heads * (G * G) ** 2 * HD, (qkv, rel))
+
+
+def phase_tp_kernels():
+    """#2, #3, #4/#5 (with the residual and as a partial), #6, #7, #9, #13,
+    #15, #16 and #17 at the widths of a tensor-parallel rank (`TP_WIDTHS`, the
+    heads and widths of `tp_kernel_cases`), bf16 within KERNEL_REL_BOUND
+    and their fp32 instances within F32_REL_BOUND (TF32 off): errors, times
+    on both clocks and bounds. Returns {kernels line name: [rows]}, which
+    the kernels line adds to each kernel's entry (`tp`)."""
+    import torch
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "fp32 kernel check needs TF32 off")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for dt, suffix, rel_bound, peak in ((torch.bfloat16, "", KERNEL_REL_BOUND, PEAK_BF16_FLOPS),
+                                        (torch.float32, "_f32", F32_REL_BOUND, PEAK_F32_FLOPS)):
+        def rn(*shape, std=1.0, dtype=dt):
+            return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+        with torch.no_grad():
+            for n in TP_WIDTHS:
+                for kernel, label, kfn, pfn, args, flops, reads in tp_kernel_cases(rn, n):
+                    r = _check_tp(f"{kernel}{suffix} n_model={n} {label}", kfn, pfn, args, flops,
+                                  reads, rel_bound, peak)
+                    out.setdefault(kernel + suffix, []).append(
+                        {"n_model": n, "site": label, **r})
+                    del args
+                torch.cuda.empty_cache()
+    return out
+
+
+def _tp_inputs(cfg, dev, B=2, seed=3):
+    """A seeded batch of B normalised images for the cascade call, on dev."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    S, C = cfg.inp_size, cfg.clip_size
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (t(rng.standard_normal((B, S, S, 3)).astype(np.float32)),
+            t(rng.standard_normal((B, C, C, 3)).astype(np.float32)),
+            t(np.full((B, C, C, 1), 1.923, np.float32)))
+
+
+def _cascade_call(model, cfg, dev, iters=3, scale=1.0, collectives=None):
+    """The bf16 cascade's call at batch 2 on `model` (the 61 test classes'
+    text features encoded first; the image input times `scale`): the SAM
+    blocks' outputs at TP_TRACE_BLOCKS (the compact carry's interior rows
+    of a windowed block) and the embedding, the outputs,
+    launch counts and host-clock walls (after one warm call); with
+    `collectives` (a list the caller's all-reduce wrapper appends each
+    all-reduce's bytes to), those of the measured call."""
+    import torch
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.factory import attach_rel_cache, make_bank_inputs
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    attach_rel_cache(model)
+    bank = make_bank_inputs(cfg, TEST_CLASS_NAMES, device=dev)
+    tf = model.encode_class_text_features(bank["prefix"], bank["suffix"], bank["eot_indices"],
+                                          bank["bank_features"])
+    inputs = _tp_inputs(cfg, dev)
+    inputs = (inputs[0] * scale,) + inputs[1:]
+    seen = {}
+    hooks = [model.image_encoder.register_forward_hook(
+        lambda m, a, out: seen.__setitem__("emb", out[0].float().cpu().numpy()))]
+    for i in TP_TRACE_BLOCKS:
+        hooks.append(model.image_encoder.blocks[i].register_forward_hook(
+            lambda m, a, out, i=i: seen.__setitem__(
+                i, (out[0] if isinstance(out, tuple) else out).float().cpu().numpy())))
+    _cuda.reset_launches()
+    if collectives is not None:
+        collectives.clear()
+    probs, pred, score = model.infer_cascade_with_text(*inputs, tf)
+    torch.cuda.synchronize()
+    counts = _cuda.launch_counts()
+    reduced = list(collectives) if collectives is not None else []
+    for h in hooks:
+        h.remove()
+    walls = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        model.infer_cascade_with_text(*inputs, tf)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return dict(emb=seen["emb"], blocks={i: seen[i] for i in TP_TRACE_BLOCKS},
+                all_reduce_bytes=reduced,
+                probs=probs.float().cpu().numpy(), pred=pred.cpu().numpy(),
+                score=score.float().cpu().numpy(), counts=counts, walls_ms=walls)
+
+
+def _tp_slice_rank():
+    """One rank of [tp_slice]: the full-width bf16 cascade sharded over a
+    (1, 2) mesh of two ranks on one card."""
+    import torch
+    from camouflaged_vlm_tpu_torch.factory import build_full_cascade
+    from camouflaged_vlm_tpu_torch.parallel import make_mesh, shard_model_
+
+    from camouflaged_vlm_tpu_torch.parallel import sharding
+
+    mesh = make_mesh(1, 2)
+    model, cfg = build_full_cascade(dtype=torch.bfloat16, device=mesh.device, seed=0)
+    shard_model_(model, mesh)
+    sizes, real = [], sharding.all_reduce_
+
+    def counted(t, group, *a, **kw):  # the model group's all-reduces, by bytes
+        sizes.append(t.numel() * t.element_size())
+        return real(t, group, *a, **kw)
+
+    sharding.all_reduce_ = counted
+    return {"mesh": repr(mesh), **_cascade_call(model, cfg, mesh.device, collectives=sizes)}
+
+
+def phase_tp_slice():
+    """The full-width bf16 cascade (SAM ViT-H at 1024 px + Alpha-CLIP
+    ViT-L/14@336, the 61 test classes) tensor-parallel over two ranks on
+    this card (gloo, each all-reduce through host memory), batch 2, against
+    one rank on the card on the same seeded weights: the first SAM block's
+    output within TP_BLOCK0_MEAN_REL_BOUND, the SAM embedding within
+    max(TP_EMB_MEAN_REL_BOUND, TP_EMB_NOISE_FACTOR x one rank's own gap
+    under the input times TP_NOISE_SCALE), the same classes, each rank's
+    launches exactly one call's; the walls of both."""
+    import torch
+    import graft_entry_torch
+    from camouflaged_vlm_tpu_torch.factory import build_full_cascade
+
+    model, cfg = build_full_cascade(dtype=torch.bfloat16, device="cuda", seed=0)
+    ref = _cascade_call(model, cfg, torch.device("cuda"))
+    noisy = _cascade_call(model, cfg, torch.device("cuda"), iters=0, scale=TP_NOISE_SCALE)
+    del model
+    torch.cuda.empty_cache()
+    ranks = graft_entry_torch.spawn_ranks(2, _tp_slice_rank, device="cuda")
+    want = expected_launches(cfg, 1, text=False)
+    check(ref["counts"] == want, f"[tp_slice] one rank: launches {ref['counts']} != {want}")
+    def rel(a, b):
+        return float(np.abs(a - b).mean() / np.abs(b).mean())
+
+    def differ(a, b):
+        return float((a != b).mean())
+
+    def trace(got):
+        return "; ".join(f"block {i} mean_rel {rel(got['blocks'][i], ref['blocks'][i]):.3e}, "
+                         f"{differ(got['blocks'][i], ref['blocks'][i]):.3e} of it differing"
+                         for i in TP_TRACE_BLOCKS)
+
+    noise = rel(noisy["emb"], ref["emb"])
+    emb_bound = max(TP_EMB_MEAN_REL_BOUND, TP_EMB_NOISE_FACTOR * noise)
+    log(f"[tp_slice] one rank against itself with the input times {TP_NOISE_SCALE!r}: "
+        f"{trace(noisy)}; embedding {noise:.3e}: the embedding's bound {emb_bound:.3e}")
+    for r, got in enumerate(ranks):
+        mean_rel, block0 = rel(got["emb"], ref["emb"]), rel(got["blocks"][0], ref["blocks"][0])
+        logit_rel = float(np.abs(got["score"] - ref["score"]).max() / np.abs(ref["score"]).max())
+        log(f"[tp_slice] rank {r} of {got['mesh']} against one rank: {trace(got)}; first block "
+            f"bound {TP_BLOCK0_MEAN_REL_BOUND}; embedding mean_rel {mean_rel:.3e} (bound "
+            f"{emb_bound:.3e}), max_abs {float(np.abs(got['emb'] - ref['emb']).max()):.3e}; "
+            f"class logits max_rel {logit_rel:.3e}; classes {got['pred'].tolist()} vs one rank "
+            f"{ref['pred'].tolist()}; call walls {[round(w, 2) for w in got['walls_ms']]} ms "
+            f"against one rank's {[round(w, 2) for w in ref['walls_ms']]} ms (gloo through "
+            "host memory on one card: nothing of NVLink)")
+        sizes = got["all_reduce_bytes"]
+        log(f"[tp_slice] rank {r}: {len(sizes)} all-reduces a batch-2 cascade call (the model "
+            f"group's, fp32 partials), {sum(sizes) / 2 ** 20:.1f} MiB in all; by size (MiB x "
+            f"count): {sorted(((round(b / 2 ** 20, 2), sizes.count(b)) for b in set(sizes)), reverse=True)}")
+        check(block0 < TP_BLOCK0_MEAN_REL_BOUND, f"[tp_slice] rank {r}: first block {block0}")
+        check(mean_rel < emb_bound, f"[tp_slice] rank {r}: embedding {mean_rel}")
+        check(np.array_equal(got["pred"], ref["pred"]), f"[tp_slice] rank {r}: classes differ")
+        check(np.isfinite(got["probs"]).all(), f"[tp_slice] rank {r}: non-finite mask")
+        check(got["counts"] == want, f"[tp_slice] rank {r}: launches {got['counts']} != {want}")
+
+
+def _depth8_f32_config():
+    """The reference configuration at fp32, full width, SAM cut to depth 8
+    (the 7 windowed blocks and global block 7)."""
+    import torch
+    from camouflaged_vlm_tpu_torch.models import CascadeConfig
+
+    cfg = CascadeConfig.full(dtype=torch.float32)
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, depth=8, global_attn_indexes=(7,)))
+
+
+def _dp_train_rank(info):
+    """One rank of [dp_train]: the depth-8 fp32 step on a (2, 1) and a
+    (1, 2) mesh, then a data-parallel evaluate() on (2, 1)."""
+    import torch
+    import graft_entry_torch
+    from camouflaged_vlm_tpu_torch.parallel import make_mesh
+
+    cfg = _depth8_f32_config()
+    batch = _small_batch(cfg)
+    out = {}
+    for nd, nm in ((2, 1), (1, 2)):
+        out[(nd, nm)] = graft_entry_torch.train_step_case(cfg, batch, make_mesh(nd, nm), seed=5)
+        torch.cuda.empty_cache()
+    out["evaluate"] = _vit_h_evaluate(info, make_mesh(2, 1), batch_size=2)
+    return out
+
+
+def _vit_h_evaluate(info, mesh, batch_size):
+    """evaluate() of the repo's ViT-H configuration in bf16 (seeded weights,
+    the test split's bank) over `info`'s test split, on `mesh` or one
+    device."""
+    import torch
+    import yaml
+    from camouflaged_vlm_tpu_torch.cli.evaluate import evaluate
+    from camouflaged_vlm_tpu_torch.config import cascade_config_from_yaml, with_dtype
+    from camouflaged_vlm_tpu_torch.data.ovcamo import OVCamoIndex
+    from camouflaged_vlm_tpu_torch.factory import build_cascade, make_bank_inputs
+    from camouflaged_vlm_tpu_torch.parallel import shard_model_
+
+    cfg = with_dtype(cascade_config_from_yaml(VIT_H_YAML)[0], torch.bfloat16)
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    with open(info) as f:
+        index = OVCamoIndex.from_dataset_info(yaml.safe_load(f), "test")
+    model = shard_model_(build_cascade(cfg, dev, 0), mesh)
+    res = evaluate(model, cfg, make_bank_inputs(cfg, index.classes, device=dev), index,
+                   batch_size=batch_size, num_workers=4, mesh=mesh, log=log)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_dp_train():
+    """Two ranks on this card (gloo): one fp32 train step of the full-width
+    cascade at depth 8 (batch 2) on a (2, 1) and on a (1, 2) mesh, each
+    against the same step of one rank on the card (|dloss| < 1e-5, the
+    updated trainable parameters within 1e-4); then evaluate() of the ViT-H
+    configuration data-parallel over 5 synthetic images (batch 2, one row a
+    rank, each rank its own graph) against one device at batch 1, the same
+    rows' program: equal metrics."""
+    import torch
+    import graft_entry_torch
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.data.synthetic import write_synthetic_ovcamo
+
+    work = os.path.join("build", "chip_smoke_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        info = write_synthetic_ovcamo(os.path.join(work, "ovcamo_synthetic"), n_train=0,
+                                      n_test=5, seed=1, test_classes=tuple(TEST_CLASS_NAMES))
+        cfg = _depth8_f32_config()
+        ref = graft_entry_torch.train_step_case(cfg, _small_batch(cfg), device="cuda", seed=5)
+        torch.cuda.empty_cache()
+        single = _vit_h_evaluate(info, None, batch_size=1)
+        t0 = time.perf_counter()
+        got = graft_entry_torch.spawn_ranks(2, _dp_train_rank, info, device="cuda")[0]
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    m1 = ref["metrics"][0]
+    for mesh in ((2, 1), (1, 2)):
+        m = got[mesh]["metrics"][0]
+        dloss = abs(m["loss"] - m1["loss"])
+        dparams = max(float(np.abs(got[mesh]["params"][k] - ref["params"][k]).max())
+                      for k in ref["params"])
+        log(f"[dp_train] fp32 step, full width, depth 8, batch 2, mesh (data={mesh[0]}, model="
+            f"{mesh[1]}), two ranks on this card over gloo: loss {m['loss']:.8f} vs one rank "
+            f"{m1['loss']:.8f}: dloss {dloss:.3e} (bound {graft_entry_torch.DLOSS_BOUND}), "
+            f"dparams {dparams:.3e} (bound {graft_entry_torch.DPARAMS_BOUND})")
+        check(dloss < graft_entry_torch.DLOSS_BOUND, f"[dp_train] {mesh}: dloss {dloss}")
+        check(dparams < graft_entry_torch.DPARAMS_BOUND, f"[dp_train] {mesh}: dparams {dparams}")
+    dp = got["evaluate"]
+    keys = ("sm", "wfm", "mae", "avgiou", "ori_mae", "accuracy")
+    gaps = {k: abs(dp[k] - single[k]) for k in keys}
+    log(f"[dp_train] evaluate() data-parallel (data=2, batch 2) vs one device (batch 1) on 5 "
+        f"images: {({k: dp[k] for k in keys})} vs {({k: single[k] for k in keys})}; the "
+        f"ranks' spawn and both meshes took {wall:.1f} s")
+    check(dp["images"] == single["images"] == 5, f"[dp_train] images {dp['images']}")
+    check(max(gaps.values()) <= 1e-6, f"[dp_train] data-parallel evaluate() differs: {gaps}")
+
+
+def phase_graph_memory():
+    """Device memory across CUDA-graph captures: evaluate() of the ViT-H
+    configuration (bf16) eight times in this process (one capture each),
+    then the train CLI (bf16, full width, 4 epochs of one step, --epoch-val
+    1: four graphed validations); torch.cuda.memory_allocated() after each.
+    The allocated memory after the last may exceed that after the first by
+    MEMORY_GROWTH_BOUND_GIB at most."""
+    import torch
+    from camouflaged_vlm_tpu_torch.cli import train as train_cli
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.data.synthetic import write_synthetic_ovcamo
+
+    gib = lambda: torch.cuda.memory_allocated() / 2 ** 30  # noqa: E731
+    work = os.path.join("build", "chip_smoke_memory")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        info = write_synthetic_ovcamo(os.path.join(work, "ovcamo_synthetic"), n_train=2,
+                                      n_test=2, seed=2, train_classes=("owl", "frog"),
+                                      test_classes=tuple(TEST_CLASS_NAMES))
+        import yaml
+        from camouflaged_vlm_tpu_torch.cli.evaluate import evaluate
+        from camouflaged_vlm_tpu_torch.config import cascade_config_from_yaml, with_dtype
+        from camouflaged_vlm_tpu_torch.data.ovcamo import OVCamoIndex
+        from camouflaged_vlm_tpu_torch.factory import build_cascade, make_bank_inputs
+
+        cfg = with_dtype(cascade_config_from_yaml(VIT_H_YAML)[0], torch.bfloat16)
+        with open(info) as f:
+            index = OVCamoIndex.from_dataset_info(yaml.safe_load(f), "test")
+        model = build_cascade(cfg, "cuda", 0)
+        bank = make_bank_inputs(cfg, index.classes, device="cuda")
+        evals = []
+        for _ in range(8):
+            evaluate(model, cfg, bank, index, batch_size=2, num_workers=2)
+            torch.cuda.synchronize()
+            evals.append(gib())
+        del model, bank
+        torch.cuda.empty_cache()
+        vals = []
+        real = train_cli.evaluate
+
+        def validate(*a, **kw):
+            res = real(*a, **kw)
+            torch.cuda.synchronize()
+            vals.append(gib())
+            return res
+
+        train_cli.evaluate = validate
+        try:
+            train_cli.main(["--dataset-info", info, "--device", "cuda", "--dtype", "bfloat16",
+                            "--epochs", "4", "--batch-size", "2", "--epoch-val", "1",
+                            "--save-dir", os.path.join(work, "train")])
+        finally:
+            train_cli.evaluate = real
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for label, seq in (("evaluate() x 8", evals), ("train CLI validations x 4", vals)):
+        grow = seq[-1] - seq[0]
+        log(f"[graph_memory] {label}: memory_allocated after each "
+            f"{[round(v, 4) for v in seq]} GiB; growth first to last {grow:.4f} GiB (bound "
+            f"{MEMORY_GROWTH_BOUND_GIB})")
+        check(len(seq) == (8 if "evaluate" in label else 4), f"[graph_memory] {label}: {seq}")
+        check(grow <= MEMORY_GROWTH_BOUND_GIB, f"[graph_memory] {label}: grew {grow} GiB")
+
+
+def phase_graft():
+    """graft_entry_torch.py on this card: entry()'s bf16 cascade forward
+    once (finite outputs of the expected shapes), then dryrun_multichip(2,
+    device="cuda"): two ranks on this card over gloo, the train step and
+    the eval program of a small fp32 cascade on meshes (2, 1) and (1, 2)
+    held to one process."""
+    import torch
+    import graft_entry_torch
+
+    fwd, args = graft_entry_torch.entry()
+    probs, pred, score = fwd(*args)
+    torch.cuda.synchronize()
+    check(probs.shape == (1, 1024, 1024, 1) and bool(torch.isfinite(probs).all()),
+          f"[graft] entry(): mask {tuple(probs.shape)}")
+    check(score.shape == (1, len(graft_entry_torch.TEST_CLASSNAMES_SMALL))
+          and bool(torch.isfinite(score).all()), f"[graft] entry(): logits {tuple(score.shape)}")
+    log(f"[graft] entry(): bf16 cascade forward on the card, mask {tuple(probs.shape)}, class "
+        f"{int(pred[0])}, logits {score.float().cpu().numpy().round(4).tolist()}")
+    del fwd, args, probs, pred, score
+    torch.cuda.empty_cache()
+    for r in graft_entry_torch.dryrun_multichip(2, device="cuda"):
+        log(f"[graft] dryrun_multichip(2, cuda) mesh {r['mesh']}: loss {r['loss']:.6f} dloss "
+            f"{r['dloss']:.3e} dparams {r['dparams']:.3e} deval {r['deval']:.3e}")
+
+
 def main() -> None:
     if os.path.exists(LOG_FILE):
         os.remove(LOG_FILE)
@@ -4366,6 +4895,11 @@ def main() -> None:
     f32_train_counts = timed(phase_f32_train_slice)
     timed(phase_f32_train_remat)
     route_counts = timed(phase_f32_routes)
+    tp = timed(phase_tp_kernels)
+    timed(phase_tp_slice)
+    timed(phase_dp_train)
+    timed(phase_graph_memory)
+    timed(phase_graft)
     import torch
     from camouflaged_vlm_tpu_torch.ops import _cuda
 
@@ -4396,9 +4930,11 @@ def main() -> None:
          **({"gemm_library_ms": r["gemm_library_ms"]} if "gemm_library_ms" in r else {}),
          **({"cascade": F32_CASCADE_ROWS[k]} if k in F32_CASCADE_ROWS else {}),
          **{k2: v for k2, v in r.items() if k2.startswith(("batch2_", "batch1_"))},
-         **({"path": r["path"]} if k in no_path else {})}
+         **({"path": r["path"]} if k in no_path else {}),
+         **({"tp": tp[k]} if k in tp else {})}
         for res in (results, grads, f32) for k, r in res.items()
     ]
+    check(set(tp) <= {e["name"] for e in kernels}, f"tp rows without an entry: {set(tp)}")
     check(len(kernels) == len(_cuda.KERNELS) == 38 and all(e["launches"] > 0 for e in kernels)
           and all(launches[e["name"]] == 0 for e in kernels if e["name"] in no_path),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
