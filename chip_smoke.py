@@ -170,6 +170,17 @@ never prints its last line):
               bf16 cascade's gap to it on the same weights (no gate); the
               graphed and eager calls at batch 1 and 2 with the card's busy
               time and idle share
+ 15b. jax_golden  the reference configuration's cascade on the card from
+              `ab_fullsize_torch.py`'s numpy weight draw, image and bank,
+              against the JAX package's own outputs on the same ones
+              (tests/data/jax_fullsize_golden.npz, written on the CPU by
+              `ab_fullsize_torch.py --write-golden`): fp32 (exact launches of
+              the fp32 instances) within the A/B's inference bounds (the
+              low-resolution mask logits, 8 channels of the SAM embedding and
+              its mean and norm 1e-4 relative, the class logits 1e-3 of their
+              range, the same class); bf16 on the same weights the same class
+              (unless the golden's top-2 margin is under bf16's largest logit
+              gap), its gaps and mask-probability MAE printed
  16. f32_train_small  one fp32 train step of a small fused cascade (SAM 512
               wide, 8 heads x 64, grid 24 with window 5: #13, #15, #17 and the
               backwards #14, #18) on the card against the same step on the
@@ -3771,6 +3782,97 @@ def phase_f32_slice():
     return counts
 
 
+# the mask-probability MAE that scripts/ab_trained_numeric.py allows a bf16
+# cascade against fp32 (printed beside bf16's gap to the JAX golden, no gate)
+GOLDEN_BF16_PROB_MAE = 0.02
+
+
+def phase_jax_golden():
+    """The card against the JAX package itself, in one hop: the reference
+    configuration's fp32 cascade at batch 1 from `ab_fullsize_torch`'s
+    numpy weight draw (its weights, image and bank seeds, checked against
+    the golden's fingerprint of them) against the JAX package's outputs on
+    the same ones, `tests/data/jax_fullsize_golden.npz`
+    (its A/B's inference bounds: the low-resolution mask logits, 8 channels
+    of the SAM embedding, the embedding's mean and L2 norm within 1e-4
+    relative, the class logits within 1e-3 of their range, the same class;
+    exact launches of the fp32 instances). Then bf16 on the same weights: the
+    same class, unless the golden's top-2 margin is under bf16's largest
+    logit gap; its gaps and the mask-probability MAE (sigmoid of the
+    low-resolution logits) printed beside GOLDEN_BF16_PROB_MAE."""
+    import torch
+
+    import ab_fullsize_torch as ab
+    from camouflaged_vlm_tpu_torch.cli.common import exact_fp32_on_card
+    from camouflaged_vlm_tpu_torch.config import with_dtype
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.factory import make_bank_inputs
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    golden, meta = ab.read_golden()
+    work = os.path.join("build", "chip_smoke_golden")
+    cfg = ab.port_config(meta["route"], False, work)
+    exact_fp32_on_card("cuda", cfg)
+    t0 = time.perf_counter()
+    weights = ab.draw_weights(ab.port_shapes(cfg))
+    t_draw = time.perf_counter() - t0
+    # a golden drawn from other weights, inputs or bank is stale, not a departure
+    ab.check_golden_digest(meta, ab.draw_digest(meta["route"], weights, work))
+    inputs = [torch.from_numpy(a).cuda()
+              for a in ab.make_inputs(cfg.inp_size, cfg.clip_size, meta["batch"])]
+
+    def run(c):
+        model = ab.load_port_cascade(c, weights, "cuda")
+        bank = make_bank_inputs(c, TEST_CLASS_NAMES, seed=ab.BANK_SEED, device="cuda")
+        tf = model.encode_class_text_features(bank["prefix"], bank["suffix"],
+                                              bank["eot_indices"], bank["bank_features"])
+        _cuda.reset_launches()
+        t1 = time.perf_counter()
+        taps = ab.port_taps(model, c, *inputs, tf)
+        torch.cuda.synchronize()
+        return ab.golden_gaps(ab.golden_entries(taps), golden), taps, time.perf_counter() - t1
+
+    gaps, taps, t_call = run(cfg)
+    counts = _cuda.launch_counts()
+    expected = f32_expected(expected_launches(cfg, 1, text=False))
+    desc = "; ".join(f"{k} mean_rel {gaps[k]['mean_rel']:.3e} max_abs {gaps[k]['max_abs']:.3e}"
+                     for k in ("mask_lowres", "embedding_slice", "class_logits"))
+    log(f"[jax_golden] fp32 cascade on the card (batch 1, full depth, {len(TEST_CLASS_NAMES)} "
+        f"classes) against the JAX package's golden ({os.path.relpath(ab.GOLDEN, ab.REPO)}, "
+        f"written on the CPU by ab_fullsize_torch.py --write-golden): {desc}; embedding mean rel {gaps['embedding_mean']['rel']:.3e}, "
+        f"L2 norm rel {gaps['embedding_norm']['rel']:.3e} (bound {ab.TAP_MEAN_REL}); class logits "
+        f"max_abs bound {gaps['logit_bound']:.3e} (1e-3 of their range); class {gaps['pred'][0]} vs "
+        f"the golden's {gaps['pred'][1]} (top-2 margin {gaps['top2_margin']:.4f}); weight draw "
+        f"{t_draw:.1f} s (numpy, this host), the call {t_call * 1e3:.1f} ms with taps; launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    check(counts == expected, f"[jax_golden] launches {counts} != {expected}")
+    check(all(gaps[k]["mean_rel"] <= ab.TAP_MEAN_REL
+              for k in ("mask_lowres", "embedding_slice"))
+          and gaps["embedding_mean"]["rel"] <= ab.TAP_MEAN_REL
+          and gaps["embedding_norm"]["rel"] <= ab.TAP_MEAN_REL
+          and gaps["class_logits"]["max_abs"] <= gaps["logit_bound"]
+          and gaps["pred"][0] == gaps["pred"][1],
+          f"[jax_golden] the fp32 card departs from the JAX golden: {gaps}")
+
+    bgaps, btaps, _ = run(with_dtype(cfg, torch.bfloat16))
+    mae = float(np.abs(1.0 / (1.0 + np.exp(-btaps["mask_lowres"][0, 0].astype(np.float64)))
+                       - 1.0 / (1.0 + np.exp(-golden["mask_lowres"].astype(np.float64)))).mean())
+    log(f"[jax_golden] bf16 cascade on the card, same weights, against the golden: "
+        + "; ".join(f"{k} mean_rel {bgaps[k]['mean_rel']:.3e} max_abs {bgaps[k]['max_abs']:.3e}"
+                    for k in ("mask_lowres", "embedding_slice", "class_logits"))
+        + f"; mask-probability MAE (low resolution) {mae:.4e} beside {GOLDEN_BF16_PROB_MAE} "
+        f"(scripts/ab_trained_numeric.py, no gate); class {bgaps['pred'][0]} vs the golden's "
+        f"{bgaps['pred'][1]}, the golden's top-2 margin {bgaps['top2_margin']:.4f} against bf16's "
+        f"largest logit gap {bgaps['class_logits']['max_abs']:.4f}")
+    check(bgaps["pred"][0] == bgaps["pred"][1]
+          or bgaps["top2_margin"] < bgaps["class_logits"]["max_abs"],
+          f"[jax_golden] bf16 predicts class {bgaps['pred'][0]}, the golden "
+          f"{bgaps['pred'][1]}, with a margin over bf16's logit gap")
+    del weights, taps, btaps
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+
+
 # fp32 train steps, card against CPU on the same weights and batch: both
 # fp32 with TF32 off, apart only in the order of fp32 sums (~1e-7 relative a
 # product). The small cascade: the loss within 1e-5 and each trainable leaf's
@@ -4891,6 +4993,7 @@ def main() -> None:
     timed(phase_maple_small)
     maple_counts = timed(phase_maple_slice)
     f32_counts = timed(phase_f32_slice)
+    timed(phase_jax_golden)
     timed(phase_f32_train_small)
     f32_train_counts = timed(phase_f32_train_slice)
     timed(phase_f32_train_remat)

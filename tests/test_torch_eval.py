@@ -520,14 +520,17 @@ def test_evaluate_cli_checkpoint_flags_assemble_as_jax_cli(synthetic, tmp_path, 
 
 def test_port_imports_nothing_of_the_jax_package():
     """In a fresh process where the JAX package cannot be imported at all,
-    every module of the port and graft_entry_torch.py import and jax stays
-    unloaded; and no source file of the port, nor chip_smoke.py, nor
-    graft_entry_torch.py names the JAX package or jax in an import."""
+    every module of the port, graft_entry_torch.py and ab_fullsize_torch.py
+    import and jax stays unloaded; and no source file of the port, nor
+    chip_smoke.py, graft_entry_torch.py or ab_fullsize_torch.py (which
+    chip_smoke.py imports on the card's host) names the JAX package or jax
+    in an import."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['camouflaged_vlm_tpu'] = None\n"
         "import camouflaged_vlm_tpu_torch as pkg\n"
         "import graft_entry_torch\n"
+        "import ab_fullsize_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
@@ -550,7 +553,8 @@ def test_port_imports_nothing_of_the_jax_package():
 
     import ast
 
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "graft_entry_torch.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "graft_entry_torch.py",
+                                             "ab_fullsize_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "camouflaged_vlm_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for path in files:
