@@ -258,6 +258,27 @@ def load_checkpoints(model: OVCOSCascade, cfg: CascadeConfig, *,
     return make_bank
 
 
+def preproc_line(tag: str) -> str:
+    """The start-up line of a CLI that loads images: which host preprocessing
+    runs (the native library, built here if it is not yet, or PIL) and why
+    (`data/native.py status`); a failed build raises here."""
+    from ..data import loader, native
+
+    loader.reset_pil_fallbacks()
+    return f"[{tag}] host preprocessing: {native.status()}"
+
+
+def fallback_line(tag: str) -> str:
+    """How many samples went through PIL with the native path on: the
+    containers its decoder does not take (16-bit PNG, CMYK JPEG)."""
+    from ..data import loader, native
+
+    if not native.enabled():
+        return f"[{tag}] host preprocessing: every sample through PIL"
+    return (f"[{tag}] host preprocessing: {loader.pil_fallbacks()} sample(s) through PIL "
+            "(containers the native decoder does not take)")
+
+
 class Logger:
     """Lines to stdout and to <out_dir>/log.txt; `quiet` drops them (every
     rank of a mesh but rank 0, the JAX CLI's `set_quiet`)."""

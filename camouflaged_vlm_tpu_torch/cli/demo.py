@@ -32,6 +32,8 @@ import torch
 from PIL import Image
 
 from ..config import DTYPES
+from ..data import native
+from ..data import native_pipeline as npp
 from ..data.ovcamo import TEST_CLASS_NAMES
 from ..data.transforms import clip_image_transform, clip_ones_alpha, sam_image_transform
 from ..factory import attach_rel_cache, build_full_cascade, build_tiny_cascade
@@ -42,6 +44,7 @@ from .common import (
     device_or_raise,
     exact_fp32_on_card,
     load_checkpoints,
+    preproc_line,
     refuse_fp32_on_card,
 )
 
@@ -95,14 +98,19 @@ class DemoSession:
             self.bank["prefix"], self.bank["suffix"], self.bank["eot_indices"],
             self.bank["bank_features"])
 
-    def preprocess(self, images: Sequence[Image.Image]):
+    def preprocess(self, images: Sequence):
+        """PIL images, or RGB uint8 arrays (`load_image`'s native decode)
+        through the native transforms: the same values."""
         cfg, dev = self.cfg, self.device
-        inp = np.stack([sam_image_transform(im, cfg.inp_size) for im in images])
-        cimg = np.stack([clip_image_transform(im, cfg.clip_size) for im in images])
+        nat = [isinstance(im, np.ndarray) for im in images]
+        inp = np.stack([(npp.sam_image_transform if n else sam_image_transform)(im, cfg.inp_size)
+                        for im, n in zip(images, nat)])
+        cimg = np.stack([(npp.clip_image_transform if n else clip_image_transform)(
+            im, cfg.clip_size) for im, n in zip(images, nat)])
         cmask = np.stack([clip_ones_alpha(cfg.clip_size) for _ in images])
         return tuple(torch.from_numpy(a).to(dev) for a in (inp, cimg, cmask))
 
-    def predict(self, images: Sequence[Image.Image]):
+    def predict(self, images: Sequence):
         """-> (mask probabilities (B, H, W) fp32 numpy, class ids (B,), logits (B, N))."""
         probs, pred, logits = self.model.infer_cascade_with_text(
             *self.preprocess(images), self.text_features
@@ -127,10 +135,24 @@ def write_outputs(image_path: str, orig: np.ndarray, probs: np.ndarray, cls: str
     return out_path, mask_path
 
 
+def load_image(path: str):
+    """The image as an RGB uint8 array, decoded natively unless
+    CVLM_NATIVE_PREPROC=0 or its container is one the decoder does not take
+    (then a PIL image, as the JAX demo loads it)."""
+    if native.enabled():
+        arr = native.decode_file(path, 3)
+        if arr is not None:
+            return arr
+        print("[demo] host preprocessing: the image's container is not one the native "
+              "decoder takes: PIL decodes it", flush=True)
+    return Image.open(path).convert("RGB")
+
+
 def main(argv: Sequence[str] = None) -> None:
     args = parse_args(argv)
+    print(preproc_line("demo"), flush=True)
     session = DemoSession(args)
-    img = Image.open(args.image).convert("RGB")
+    img = load_image(args.image)
     probs, pred, _ = session.predict([img])
     cls = session.classnames[int(pred[0])]
     print(f"predicted class: {cls}", flush=True)

@@ -13,10 +13,17 @@ takes for OVCamo), then for each configuration and batch size:
     loader (decode + resize, 8 threads) feeding `evaluate.score_image` in an
     8-thread pool, with a fixed probability map in place of the model's.
 
+With `--preproc PIL native ...` each configuration and batch size runs the
+CLI and the host work alone once a word, in that order, with the host
+preprocessing that word names (CVLM_NATIVE_PREPROC set for the run); without
+it, once with whatever the environment chooses.
+
 One JSON line {"eval_throughput": {...}} per run; all of them also go to
 <out>/eval_throughput.json. The split is deleted at the end.
 
   python -m camouflaged_vlm_tpu_torch.cli.eval_throughput --images 300 --batch-sizes 2 4
+  python -m camouflaged_vlm_tpu_torch.cli.eval_throughput --images 300 --batch-sizes 2 \
+      --configs vit_h_flash --preproc PIL native native PIL
 """
 
 from __future__ import annotations
@@ -36,13 +43,14 @@ import numpy as np
 import torch
 import yaml
 
+from ..data import native
 from ..data.loader import iter_eval_batches
 from ..data.ovcamo import TEST_CLASS_NAMES, OVCamoIndex
 from ..data.synthetic import write_synthetic_ovcamo
 from ..factory import attach_rel_cache, build_cascade, make_bank_inputs
 from ..metrics import CODMetrics, OVCOSMetricer
 from . import evaluate
-from .common import cascade_config, device_or_raise
+from .common import cascade_config, device_or_raise, preproc_line
 
 _PKG = Path(__file__).resolve().parents[1]
 VIT_H_YAML = _PKG.parent / "configs" / "ovcos-sam-vit-h-maskdecoder-edge.yaml"
@@ -124,6 +132,33 @@ def host_only_rate(index: OVCamoIndex, cfg, batch: int) -> float:
     return n / (time.perf_counter() - t0)
 
 
+def one_run(args, device, info, index, cfg, cfg_args, name, batch, label,
+            host_rates) -> dict:
+    """The evaluate CLI on the split and the host work alone (cached in
+    `host_rates` by input size and batch), with the host preprocessing
+    the environment chooses."""
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = evaluate.main(["--dataset-info", info, *cfg_args, "--device", args.device,
+                         "--dtype", args.dtype, "--batch-size", str(batch),
+                         "--seed", str(args.seed), "--output-dir",
+                         os.path.join(args.out, f"{name}_b{batch}{label}")])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if device.type == "cuda" else None
+    key = (cfg.inp_size, cfg.clip_size, batch)
+    if key not in host_rates:
+        host_rates[key] = host_only_rate(index, cfg, batch)
+    return {"config": name, "attn_impl": cfg.encoder.attn_impl,
+            "sam_width": cfg.encoder.embed_dim, "sam_depth": cfg.encoder.depth,
+            "batch": batch, "images": res["images"],
+            "images_per_sec": res["images_per_sec"], "cli_wall_s": wall,
+            "peak_gib": peak, "host_only_images_per_sec": host_rates[key],
+            "host_preproc": "native" if native.enabled() else "PIL",
+            "preproc_status": native.status(), "cpus": os.cpu_count()}
+
+
 def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--images", type=int, default=300)
@@ -137,7 +172,17 @@ def parse_args(argv: Sequence[str] = None) -> argparse.Namespace:
     p.add_argument("--work", default=os.path.join("build", "eval_throughput"),
                    help="where the synthetic split is written (deleted at the end)")
     p.add_argument("--out", default=os.path.join("chiprun_out", "eval_throughput"))
+    p.add_argument("--preproc", nargs="+", choices=("native", "PIL"),
+                   help="one run a word with that host preprocessing, in this order")
     return p.parse_args(argv)
+
+
+def preproc_runs(modes):
+    """(label, CVLM_NATIVE_PREPROC value or None) a run: one run under the
+    environment as it is without `modes`, else one a word of `modes`."""
+    if not modes:
+        return [("", None)]
+    return [(f"_{m}{i}", "1" if m == "native" else "0") for i, m in enumerate(modes)]
 
 
 def main(argv: Sequence[str] = None) -> list:
@@ -147,6 +192,7 @@ def main(argv: Sequence[str] = None) -> list:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip(), flush=True)
+    print(preproc_line("eval_throughput"), flush=True)
     shutil.rmtree(args.work, ignore_errors=True)
     os.makedirs(args.out, exist_ok=True)
     rng = np.random.default_rng(args.seed)
@@ -162,31 +208,22 @@ def main(argv: Sequence[str] = None) -> list:
         cfg = cascade_config(cfg_args[1] if cfg_args[0] == "--config" else None,
                              cfg_args[0] == "--tiny", args.dtype)
         for batch in args.batch_sizes:
-            if device.type == "cuda":
-                torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            res = evaluate.main(["--dataset-info", info, *cfg_args, "--device", args.device,
-                                 "--dtype", args.dtype, "--batch-size", str(batch),
-                                 "--seed", str(args.seed), "--output-dir",
-                                 os.path.join(args.out, f"{name}_b{batch}")])
-            wall = time.perf_counter() - t0
-            peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if device.type == "cuda"
-                    else None)
             call_ms = cascade_call_ms(cfg, index.classes, batch, device, args.iters, args.seed)
-            key = (cfg.inp_size, cfg.clip_size, batch)
-            if key not in host_rates:
-                host_rates[key] = host_only_rate(index, cfg, batch)
-            row = {"config": name, "attn_impl": cfg.encoder.attn_impl,
-                   "sam_width": cfg.encoder.embed_dim, "sam_depth": cfg.encoder.depth,
-                   "batch": batch, "images": res["images"],
-                   "images_per_sec": res["images_per_sec"], "cli_wall_s": wall,
-                   "peak_gib": peak, "cascade_call_ms": call_ms,
-                   "device_only_images_per_sec": 1e3 * batch / call_ms,
-                   "host_only_images_per_sec": host_rates[key],
-                   "cpus": os.cpu_count()}
-            print(json.dumps({"eval_throughput": row}), flush=True)
-            rows.append(row)
+            for label, switch in preproc_runs(args.preproc):
+                before = os.environ.get(native.ENV_SWITCH)
+                if switch is not None:
+                    os.environ[native.ENV_SWITCH] = switch
+                try:
+                    row = one_run(args, device, info, index, cfg, cfg_args, name, batch,
+                                  label, host_rates if switch is None else {})
+                finally:
+                    os.environ.pop(native.ENV_SWITCH, None)
+                    if before is not None:
+                        os.environ[native.ENV_SWITCH] = before
+                row.update(cascade_call_ms=call_ms, device_only_images_per_sec=1e3 * batch
+                           / call_ms)
+                print(json.dumps({"eval_throughput": row}), flush=True)
+                rows.append(row)
     with open(os.path.join(args.out, "eval_throughput.json"), "w") as f:
         json.dump(rows, f, indent=2)
     shutil.rmtree(args.work)

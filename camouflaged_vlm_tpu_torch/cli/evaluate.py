@@ -86,8 +86,10 @@ from .common import (
     cascade_config,
     device_or_raise,
     exact_fp32_on_card,
+    fallback_line,
     load_checkpoints,
     mesh_from_args,
+    preproc_line,
     refuse_fp32_on_card,
 )
 
@@ -354,12 +356,14 @@ def main(argv: Sequence[str] = None) -> dict:
     args = parse_args(argv)
     mesh = mesh_from_args(args)
     model, cfg, bank, index, log = load(args, mesh)
+    log(preproc_line("eval"))
     if mesh is not None:
         log(f"[eval] mesh data={mesh.n_data} x model={mesh.n_model} ({mesh.backend})")
     save_path = os.path.join(args.output_dir, "result_image") if args.save_images else None
     results = evaluate(model, cfg, bank, index, batch_size=args.batch_size,
                        save_img_path=save_path, oracle_cls=args.oracle_cls,
                        mask_dtype=args.mask_dtype, mesh=mesh, log=log)
+    log(fallback_line("eval"))
     if mesh is None or mesh.is_main:
         log(json.dumps(results, indent=2))
         with open(os.path.join(args.output_dir, "results.json"), "w") as f:

@@ -4,6 +4,7 @@
                                                       [--padded-calls]
                                                       [--f32-attention [--against FILE]]
                                                       [--f32-gemm [--tiles] [--against FILE]]
+                                                      [--global-bwd [--against FILE]]
 
 Imports `camouflaged_vlm_tpu_torch` from the checkout at --root (default:
 this one), builds its kernels there, and times each case of `cases()`
@@ -59,7 +60,9 @@ user of csrc/sgemm_f32.cuh (#1, #2, #3, #4/#5, #6, #7, #8/#9) at every shape
 of its paths (`f32_gemm_cases`), each line with its error against the plain
 version, both clocks, each launch's device ms (`kernel_launches_ms`) and,
 on a checkout with the fp32 tile plan, the plans the call took (--tiles:
-the queued time at each tile, forced).
+the queued time at each tile, forced). With --global-bwd it hashes and times
+the bf16 #18 alone at its three paths' shapes (`global_bwd`), so that a
+parent and a change of csrc/attn_bwd.cu compare bit for bit and by time.
 """
 
 from __future__ import annotations
@@ -683,6 +686,48 @@ def f32_attention(smoke, label, against, tiles):
             torch.cuda.empty_cache()
 
 
+def global_bwd(smoke, label, against):
+    """The bf16 #18 (`flash_qkv_packed_global_bwd`) at full width (16 heads x
+    80) on chip_smoke's seeded inputs (`global_bwd_case`, numpy draws, case
+    i from seed i): batch 2 at `GLOBAL_BWD_NARROW` (the register path on
+    64 x 64, PERF.md's row 18; the general path at 128 and 32 lanes), then
+    batch 1 on `WIDE_GRIDS` (past 128 lanes; a checkout that refuses them
+    records its ValueError). One JSON line each: the SHA-256 of (dqkv,
+    drel), the toolkit, and the idle-card median and queued times; with
+    `against` (another checkout's lines), whether the outputs are bit-equal
+    to that checkout's. The old checkout's hashes at GLOBAL_BWD_NARROW are
+    chip_smoke's GLOBAL_BWD_PARENT."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+
+    other = {}
+    if against:
+        with open(against) as f:
+            other = {(r["name"], r["site"]): r.get("sha256") for r in map(json.loads, f)
+                     if "site" in r}
+    toolkit = smoke.nvcc_release()
+    grids = list(smoke.GLOBAL_BWD_NARROW) + [(1, G, G) for G in smoke.WIDE_GRIDS]
+    for i, (B, H, W) in enumerate(grids):
+        args = smoke.global_bwd_case(i, B, H, W)
+        rec = dict(label=label, name="flash_qkv_packed_global_bwd", site=f"{B}x{H}x{W}",
+                   lanes=H + W, toolkit=toolkit)
+        try:
+            got = fa.flash_qkv_packed_global_bwd(*args)
+        except ValueError as e:  # a checkout whose #18 refuses the grid
+            rec["refused"] = str(e)
+        else:
+            call = lambda: fa.flash_qkv_packed_global_bwd(*args)  # noqa: E731
+            rec.update(sha256=smoke.outputs_sha256(got), ms=smoke.time_ms(call),
+                       queued_ms=smoke.time_ms(call, queued=True))
+            if against:
+                rec["bit_equal_to"] = {against: other.get((rec["name"], rec["site"]))
+                                       == rec["sha256"]}
+            del got
+        print(json.dumps(rec), flush=True)
+        del args
+        torch.cuda.empty_cache()
+
+
 def f32_gemm_cases(smoke, rn):
     """(name, site, zero-argument call, plain call, library call or None,
     the products alone or None) of every user of csrc/sgemm_f32.cuh at
@@ -1026,9 +1071,11 @@ def main() -> None:
                     help="hash and time the users of csrc/sgemm_f32.cuh instead")
     ap.add_argument("--tiles", action="store_true",
                     help="with --f32-gemm or --f32-attention: also time each fp32 tile, forced")
+    ap.add_argument("--global-bwd", action="store_true",
+                    help="hash and time the bf16 global attention backward #18 instead")
     ap.add_argument("--against", default=None,
-                    help="with --f32-attention or --f32-gemm: another checkout's JSON lines to "
-                    "compare with")
+                    help="with --f32-attention, --f32-gemm or --global-bwd: another checkout's "
+                    "JSON lines to compare with")
     ap.add_argument("--sass", nargs="+", default=None, metavar="REGEX",
                     help="count the main loop's instructions of the functions whose mangled "
                     "names match, from cuobjdump -sass of the built library, instead")
@@ -1063,6 +1110,9 @@ def main() -> None:
         return
     if args.f32_gemm:
         f32_gemm(smoke, label, args.against, args.tiles)
+        return
+    if args.global_bwd:
+        global_bwd(smoke, label, args.against)
         return
 
     g = torch.Generator(device="cuda").manual_seed(0)

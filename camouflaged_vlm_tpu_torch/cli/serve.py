@@ -69,6 +69,7 @@ from .common import (
     exact_fp32_on_card,
     load_checkpoints,
     mesh_from_args,
+    preproc_line,
     refuse_fp32_on_card,
 )
 
@@ -244,6 +245,7 @@ def main(argv: Sequence[str] = None) -> None:
         return
     if mesh is not None:
         log(f"[serve] mesh data={mesh.n_data} x model={mesh.n_model} ({mesh.backend})")
+    log(preproc_line("serve"))
     server, _ = serve_forever(engine, args.host, args.port)
     log(f"[serve] listening on {args.host}:{args.port} (capturing buckets {args.buckets})")
     stop = threading.Event()
@@ -256,6 +258,8 @@ def main(argv: Sequence[str] = None) -> None:
     server.shutdown()
     engine.close()
     server.server_close()
+    log(f"[serve] host preprocessing: {engine.stats()['pil_fallbacks']} request(s) through PIL "
+        "(containers the native decoder does not take)")
 
 
 if __name__ == "__main__":

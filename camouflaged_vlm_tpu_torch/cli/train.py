@@ -99,7 +99,9 @@ from .common import (
     cascade_config,
     device_or_raise,
     exact_fp32_on_card,
+    fallback_line,
     load_checkpoints,
+    preproc_line,
     refuse_fp32_on_card,
     tensorboard_writer,
 )
@@ -227,6 +229,7 @@ def main(argv: Sequence[str] = None) -> dict:
     train_index = OVCamoIndex.from_dataset_info(dataset_info, "train")
     val_index = OVCamoIndex.from_dataset_info(dataset_info, "test")
     log(f"[train] {len(train_index)} samples / {len(train_index.classes)} classes")
+    log(preproc_line("train"))
 
     model = build_cascade(cfg, device, args.seed)
     make_bank = load_checkpoints(model, cfg, clip_ckpt=args.clip_ckpt,
@@ -317,6 +320,7 @@ def main(argv: Sequence[str] = None) -> dict:
             break
     else:
         log("training done")
+    log(fallback_line("train"))
     if writer:
         writer.close()
     return {"model": model, "optimizer": optimizer, "mesh": mesh, "step": step, "epochs": epochs,

@@ -73,7 +73,9 @@ from .common import (
     cascade_config,
     device_or_raise,
     exact_fp32_on_card,
+    fallback_line,
     load_checkpoints,
+    preproc_line,
     tensorboard_writer,
 )
 
@@ -128,6 +130,7 @@ def main(argv: Sequence[str] = None) -> dict:
         dataset_info = yaml.safe_load(f)
     train_index = OVCamoIndex.from_dataset_info(dataset_info, "train")
     log(f"[maple] {len(train_index)} samples / {len(train_index.classes)} classes")
+    log(preproc_line("maple"))
 
     model = build_cascade(cfg, device, args.seed)
     make_bank = load_checkpoints(model, cfg, clip_ckpt=args.clip_ckpt,
@@ -192,6 +195,7 @@ def main(argv: Sequence[str] = None) -> dict:
             break
     else:
         log(f"[maple] done; best train-acc {best_acc:.4f}")
+    log(fallback_line("maple"))
     if writer:
         writer.close()
     return {"model": model, "optimizer": optimizer, "step": step, "epochs": epochs,

@@ -1,17 +1,22 @@
 """Host input pipeline: decode and preprocess in a thread pool, prefetch batches.
 
-The port's copy of the PIL path of `camouflaged_vlm_tpu/data/loader.py`
-(`iter_eval_batches`, `iter_train_batches`, `iter_maple_train_batches`),
-kept so that the port imports
-nothing of the JAX package; the CPU tests hold the two to the same arrays.
-The JAX package's native decoder (`csrc/preproc`, `data/native_pipeline.py`)
-is not ported: every sample here goes through PIL, which gives the same
-values (the JAX package tests the two bit-identical).
+The port's copy of `camouflaged_vlm_tpu/data/loader.py` (`iter_eval_batches`,
+`iter_train_batches`, `iter_maple_train_batches`), kept so that the port
+imports nothing of the JAX package; the CPU tests hold the two to the same
+arrays. As in the JAX loader, every sample takes the native path
+(`data/native.py`, the C library `csrc/preproc` built at first use: decode,
+rot90 fix-up, flips, resample and normalisation with the GIL released) and
+gives the PIL path's bytes (tests/test_torch_native_preproc.py).
+CVLM_NATIVE_PREPROC=0 chooses PIL for every sample. A sample whose
+container the decoder does not take (16-bit PNG, CMYK JPEG) goes through
+PIL alone; such samples are counted (`pil_fallbacks`), and the CLIs print
+the count.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, List, Optional, Sequence
@@ -19,6 +24,8 @@ from typing import Callable, Iterator, List, Optional, Sequence
 import numpy as np
 from PIL import Image
 
+from . import native
+from . import native_pipeline as npp
 from .ovcamo import OVCamoIndex, OVCamoSample
 from .transforms import (
     clip_alpha_transform,
@@ -45,8 +52,62 @@ class EvalSample:
     orig_size: tuple         # (H, W) of the original mask
 
 
+_fallbacks = [0]
+_fallback_lock = threading.Lock()
+
+
+def pil_fallbacks() -> int:
+    """Samples that went through PIL with the native path on, since the last
+    `reset_pil_fallbacks`: containers the decoder reports unsupported."""
+    return _fallbacks[0]
+
+
+def reset_pil_fallbacks() -> None:
+    with _fallback_lock:
+        _fallbacks[0] = 0
+
+
+def _count_fallback() -> None:
+    with _fallback_lock:
+        _fallbacks[0] += 1
+
+
+def _native_pair(image_path: str, mask_path: str, use_native: bool):
+    """The decoded (image RGB, mask L) arrays, rot90-fixed, on the native
+    path; None where it is off, or (counted) where the decoder does not take
+    a container and the sample goes through PIL."""
+    if not use_native:
+        return None
+    pair = npp.decode_pair(image_path, mask_path)
+    if pair is None:
+        _count_fallback()
+    return pair
+
+
 def _load_eval_sample(sample: OVCamoSample, inp_size: int, clip_size: int,
-                      raw_uint8: bool = False) -> EvalSample:
+                      raw_uint8: bool = False, use_native: bool = False) -> EvalSample:
+    pair = _native_pair(sample.image_path, sample.mask_path, use_native)
+    if pair is not None:
+        img_a, mask_a = pair
+        if raw_uint8:
+            inp = npp.sam_image_resized_u8(img_a, inp_size)
+            cimg = npp.clip_image_resized_u8(img_a, clip_size)
+            cmask = None
+        else:
+            inp = npp.sam_image_transform(img_a, inp_size)
+            cimg = npp.clip_image_transform(img_a, clip_size)
+            cmask = clip_ones_alpha(clip_size)
+        return EvalSample(
+            inp=inp,
+            gt=npp.mask_to_target(mask_a, inp_size),
+            clip_image=cimg,
+            clip_mask=cmask,
+            label_id=sample.class_id,
+            label_name=sample.class_label,
+            image_path=sample.image_path,
+            mask_path=sample.mask_path,
+            orig_size=tuple(mask_a.shape[:2]),
+        )
     img = Image.open(sample.image_path).convert("RGB")
     mask = Image.open(sample.mask_path).convert("L")
     img = maybe_rot90_to_match(img, mask)
@@ -84,9 +145,10 @@ def iter_eval_batches(
     """Yield lists of EvalSamples (the last batch may be short). At most
     `num_workers + prefetch * batch_size` samples are decoded ahead, so a
     slow consumer never holds the whole decoded dataset in host memory."""
+    use_native = native.enabled()
 
     def load(s):
-        return _load_eval_sample(s, inp_size, clip_size, raw_uint8)
+        return _load_eval_sample(s, inp_size, clip_size, raw_uint8, use_native)
 
     batch: List[EvalSample] = []
     for item in _map_bounded(load, index.samples, num_workers,
@@ -132,10 +194,24 @@ def iter_train_batches(
     thread-safe)."""
     order = rng.permutation(len(index.samples))
     flips = rng.random(len(order)) < 0.5
+    use_native = native.enabled()
 
     def load(args):
         i, flip = args
         s = index.samples[int(i)]
+        pair = _native_pair(s.image_path, s.mask_path, use_native)
+        if pair is not None:
+            img_a, mask_a = pair
+            clip_img = npp.clip_image_transform(img_a, clip_size)
+            if flip:
+                img_a = npp.fliplr(img_a)
+                mask_a = npp.fliplr(mask_a)
+            return (
+                npp.sam_image_transform(img_a, inp_size),
+                npp.mask_to_target(mask_a, inp_size),
+                clip_img,
+                s.class_id,
+            )
         img = Image.open(s.image_path).convert("RGB")
         mask = Image.open(s.mask_path).convert("L")
         img = maybe_rot90_to_match(img, mask)
@@ -186,10 +262,22 @@ def iter_maple_train_batches(
     last partial batch dropped."""
     order = rng.permutation(len(index.samples))
     flips = rng.random(len(order)) < 0.5
+    use_native = native.enabled()
 
     def load(args):
         i, flip = args
         s = index.samples[int(i)]
+        pair = _native_pair(s.image_path, s.mask_path, use_native)
+        if pair is not None:
+            img_a, mask_a = pair
+            if flip:
+                img_a = npp.fliplr(img_a)
+                mask_a = npp.fliplr(mask_a)
+            return (
+                npp.clip_image_transform(img_a, clip_size),
+                npp.clip_alpha_transform(mask_a, clip_size),
+                s.class_id,
+            )
         img = Image.open(s.image_path).convert("RGB")
         mask = Image.open(s.mask_path).convert("L")
         img = maybe_rot90_to_match(img, mask)

@@ -329,7 +329,7 @@ def attn_bwd_smem(d: int, H: int, W: int, L: int, lpc: int) -> dict:
     fn.restype = ctypes.c_int
     if fn(d, H, W, L, lpc, out):
         raise ValueError(f"cvlm_attn_bwd_smem: no kernel at d={d}, lpc={lpc}")
-    return {"path": "register" if out[0] else "general", "query_smem": out[1],
+    return {"path": ("general", "register", "wide")[out[0]], "query_smem": out[1],
             "query_stages": out[2], "key_smem": out[3], "key_stages": out[4]}
 
 

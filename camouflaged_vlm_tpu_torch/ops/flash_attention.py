@@ -43,7 +43,11 @@ into a scratch of [q*scale | rel lanes | g | q | k | v] rows in 64-row
 tiles (`row_tiles`' layout, read by bulk copies), a query-parallel pass
 (row statistics, then dq and drel) and a key-parallel pass (dk, dv); the
 wrapper picks the lane width (`attn_bwd_lanes`) and hands in the scratch
-and the key code (`attn_bwd_scratch`), the C entry picks the bias path.
+and the key code (`attn_bwd_scratch`), the C entry picks the bias path. Past
+128 rel lanes (#18 on grids above 64 x 64, images above 1024 px) it takes
+a wide path that cuts the key tiles along the grid's lines
+(`attn_bwd_wide_layout`); #18 takes H + W <= GLOBAL_BWD_MAX_LANES (512,
+the fp32 instance's F32_GLOBAL_BWD_MAX_LANES) and raises past it.
 Their fp32 instances (`csrc/attn_bwd_f32.cu`, train --dtype float32 on the
 card) run on the CUDA cores with no rounding point, in three kernels: the
 rows' (max, 1/sum) from S alone and t = sum g o from the forward's output
@@ -51,13 +55,14 @@ rows' (max, 1/sum) from S alone and t = sum g o from the forward's output
 head) pairs a key-parallel kernel (dk, dv, and dS^T into a scratch) and a
 query-parallel one (dq from that dS^T, and drel summed in a fixed order:
 no atomics); `attn_bwd_f32_scratch` sizes the scratch. #18's takes H + W
-<= F32_GLOBAL_BWD_MAX_LANES lanes, as its forward. The plain, edge, #10, #11, #12, #19 and #20
-attention take the VJP of their plain version (`ops/autograd.py`), as the
-JAX package's do.
+<= F32_GLOBAL_BWD_MAX_LANES lanes, as its forward and as the bf16 kernel.
+The plain, edge, #10, #11, #12, #19 and #20 attention take the VJP of their
+plain version (`ops/autograd.py`), as the JAX package's do.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -519,14 +524,24 @@ def flash_qkv_packed_windows_s_bwd_ref(qkv, rel_s, sel32, g, scale, heads, d):
 
 # rows of a query or key tile of the backward kernels (csrc/attn_bwd.cu AB_T)
 ATTN_BWD_TILE = 64
+# the bf16 backward takes as many rel lanes as its fp32 instance
+# (F32_GLOBAL_BWD_MAX_LANES, below): H + W <= 512, square images up to 4096
+# px (the wide path keeps the shorter side's <= 256 drel lanes in shared
+# memory)
+GLOBAL_BWD_MAX_LANES = 512
 
 
 def attn_bwd_lanes(L: int) -> int:
-    """`cvlm_attn_bwd`'s lpc for L rel lanes: the lanes padded to the width
-    of the drel product and of the bias chain, 32 up to 32 lanes, else 128.
-    (The C entry picks the bias path itself: the register path where W = 64
-    and L = H + 64, `drel_w64_ref`.)"""
-    return 32 if L <= 32 else 128
+    """`cvlm_attn_bwd`'s lpc for L rel lanes: 32 up to 32 lanes, else L
+    rounded up to a multiple of 128 (at most GLOBAL_BWD_MAX_LANES). Up to 128
+    it is the width of the drel product and of the bias chain; past 128 the C
+    entry takes its wide path (`attn_bwd_wide_layout`). (The C entry picks the
+    bias path itself: the register path where W = 64 and L = H + 64,
+    `drel_w64_ref`.)"""
+    if L > GLOBAL_BWD_MAX_LANES:
+        raise ValueError(f"attn_bwd_lanes: the backward kernels take at most "
+                         f"{GLOBAL_BWD_MAX_LANES} rel lanes, got {L}")
+    return 32 if L <= 32 else -(-L // 128) * 128
 
 
 def rel_code(H: int, W: int, lpc: int, device="cpu"):
@@ -568,18 +583,108 @@ def attn_bwd_tiles(N: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _rel_code_tiles(H: int, W: int, lpc: int, device):
+    if lpc > 128:  # the wide path's 16 code tiles
+        return wide_code_tiles(device)
     return row_tiles(rel_code(H, W, lpc, device), attn_bwd_tiles(H * W))
+
+
+@dataclasses.dataclass(frozen=True)
+class WideLayout:
+    """The wide path's cut of an H x W grid (csrc/attn_bwd.cu `ab_wide`):
+    side B is the shorter (one rel_B lane a key tile), side A the longer (a
+    key tile holds 64 consecutive A positions of one B line); key = b * sB +
+    a * sA, rel_A at lanes offA.., rel_B at offB.."""
+
+    nA: int
+    nB: int
+    offA: int
+    offB: int
+    sA: int
+    sB: int
+
+    @property
+    def nc(self) -> int:  # 64-wide chunks of side A
+        return -(-self.nA // ATTN_BWD_TILE)
+
+    @property
+    def nBe(self) -> int:  # B lines rounded up to even (two key tiles a block)
+        return self.nB + self.nB % 2
+
+    @property
+    def rel_columns(self) -> int:  # 16-byte rel columns of a query row
+        return 8 * self.nc + 2 * -(-self.nB // 16)
+
+    def aux_columns(self, ntp: int, d: int) -> int:
+        """16-byte columns of 64 rows per (image, head) of the wide aux:
+        ntp query tiles [q*scale | rel_A | rel_B | g | q], then nBe * nc key
+        tiles [k | v] (csrc/attn_bwd.cu `abw_aux_chunks`)."""
+        cq = d // 8
+        return ntp * (3 * cq + self.rel_columns) + self.nBe * self.nc * 2 * cq
+
+    def key(self, b: int, a: int) -> int:
+        return b * self.sB + a * self.sA
+
+
+def attn_bwd_wide_layout(H: int, W: int) -> WideLayout:
+    if H <= W:
+        return WideLayout(nA=W, nB=H, offA=H, offB=0, sA=1, sB=W)
+    return WideLayout(nA=H, nB=W, offA=0, offB=H, sA=W, sB=1)
+
+
+def wide_code(device="cpu") -> torch.Tensor:
+    """(16, 64, 80) bf16: the wide key pass's code, tile j one-hot at lane r
+    (key row r's rel_A lane of its chunk) and at lane 64 + j (its rel_B lane
+    among the 16 the query tiles carry around it)."""
+    t = ATTN_BWD_TILE
+    code = torch.zeros((16, t, t + 16), dtype=torch.bfloat16, device=device)
+    r = torch.arange(t, device=device)
+    code[:, r, r] = 1
+    code[torch.arange(16, device=device), :, t + torch.arange(16, device=device)] = 1
+    return code
+
+
+def wide_code_tiles(device="cpu") -> torch.Tensor:
+    """`wide_code` as the C entry reads it: (16, 10, 64, 8) (`row_tiles`)."""
+    return torch.cat([row_tiles(c, 1) for c in wide_code(device)])
+
+
+def drel_wide_ref(dS: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """drel = dS . sel^T as the wide path forms it: per key tile (b, c) the
+    rel_B lane b gets the tile's row sum, added chunk c by chunk c, and the
+    rel_A lanes of chunk c the dS tiles themselves, summed over the lines b.
+    dS (..., Nq, H*W) -> (..., Nq, H + W)."""
+    lay = attn_bwd_wide_layout(H, W)
+    g = dS.reshape(dS.shape[:-1] + (H, W))
+    if lay.sB == 1:  # B is the width: lines are grid columns
+        g = g.transpose(-1, -2)
+    t = ATTN_BWD_TILE
+    g = torch.nn.functional.pad(g, (0, lay.nc * t - lay.nA))  # (..., nB, nc * 64)
+    tiles = g.reshape(g.shape[:-1] + (lay.nc, t))
+    rb = tiles.sum(-1)[..., 0]
+    for c in range(1, lay.nc):
+        rb = rb + tiles.sum(-1)[..., c]
+    ra = tiles.sum(-3).reshape(g.shape[:-2] + (lay.nc * t,))[..., :lay.nA]
+    out = dS.new_zeros(dS.shape[:-1] + (H + W,))
+    out[..., lay.offA:lay.offA + lay.nA] = ra
+    out[..., lay.offB:lay.offB + lay.nB] = rb
+    return out
 
 
 def attn_bwd_scratch(qkv, BB, N, H, W, L, heads, d):
     """`cvlm_attn_bwd`'s lane width and tile count and its scratch: (lpc,
     ntp, aux, stats, code). aux holds per (image, head) the rows' [q*scale |
-    rel lanes to lpc | g | q | k | v] in 64-row tiles (the prep pass), stats
-    the rows' (max, 1/sum, t, 0) from the query pass for the key pass, code
-    the keys' code tiles (cached per shape and device)."""
+    rel lanes to lpc | g | q | k | v] in 64-row tiles (the prep pass; on the
+    wide path, L > 128, `WideLayout.aux_columns`), stats the rows' (max,
+    1/sum, t, 0) from the query pass for the key pass, code the keys' code
+    tiles (cached per shape and device; the wide path's 16, `wide_code_tiles`)."""
     lpc, ntp = attn_bwd_lanes(L), attn_bwd_tiles(N)
-    aux = torch.empty((BB, heads, ntp, (5 * d + lpc) // 8, ATTN_BWD_TILE, 8), dtype=qkv.dtype,
-                      device=qkv.device)
+    if lpc > 128:
+        cols = attn_bwd_wide_layout(H, W).aux_columns(ntp, d)
+        aux = torch.empty((BB, heads, cols, ATTN_BWD_TILE, 8), dtype=qkv.dtype,
+                          device=qkv.device)
+    else:
+        aux = torch.empty((BB, heads, ntp, (5 * d + lpc) // 8, ATTN_BWD_TILE, 8),
+                          dtype=qkv.dtype, device=qkv.device)
     stats = torch.empty((BB * heads, ntp * ATTN_BWD_TILE, 4), dtype=torch.float32,
                         device=qkv.device)
     return lpc, ntp, aux, stats, _rel_code_tiles(H, W, lpc, qkv.device)
@@ -794,9 +899,10 @@ def flash_qkv_packed_global(
     one pass (online softmax); it holds 128 queries' rel rows in shared
     memory, so it refuses H + W > 587 at d = 80 (square images of 4704 px
     and up); in float32 its fp32 instance holds 64 queries' and refuses H +
-    W > F32_GLOBAL_MAX_LANES (512: square images of 4096 px and up).
-    Backward: `flash_qkv_packed_global_bwd` (TPU kernel
-    #18)."""
+    W > F32_GLOBAL_MAX_LANES (512: square images above 4096 px).
+    Backward: `flash_qkv_packed_global_bwd` (TPU kernel #18), which takes
+    H + W <= 512 in both precisions (GLOBAL_BWD_MAX_LANES,
+    F32_GLOBAL_BWD_MAX_LANES) and raises past it."""
     return _with_attn_bwd("flash_qkv_packed_global", _global_cuda,
                           _global_plain, flash_qkv_packed_global_bwd,
                           (qkv, rel, sel), (scale, heads, d, H, W))
@@ -852,11 +958,39 @@ def flash_qkv_packed_global_bwd_ref(qkv, rel, sel, g, scale, heads, d):
     return _unsplit(dq, dk, dv, qkv.dtype), drel.permute(2, 0, 1, 3).to(rel.dtype)
 
 
-# the backward kernels pad the rel lanes to at most 128 (`attn_bwd_lanes`)
-GLOBAL_BWD_MAX_LANES = 128
+def flash_qkv_packed_global_bwd_ref_chunked(qkv, rel, sel, g, scale, heads, d, chunk=2048):
+    """`flash_qkv_packed_global_bwd_ref` a block of `chunk` queries at a
+    time: a query's softmax runs over every key, so the rows split exactly
+    (dk and dv summed over the blocks). For grids whose (heads, N, N) fp32
+    products do not fit the card (N = 256 x 256: 16 GiB a product a head)."""
+    B, N, _ = qkv.shape
+    f = lambda a: a.float()  # noqa: E731
+    q, k, v = _heads_rows(qkv, heads, d)
+    relh = rel.permute(1, 2, 0, 3)
+    gr = g.reshape(B, heads, d, N).transpose(-1, -2)
+    kf, vf, sf, qs = f(k), f(v), f(sel), f(scaled(q, scale))
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
+    drel = torch.empty(relh.shape, dtype=torch.float32, device=q.device)
+    for i in range(0, N, chunk):
+        rows = slice(i, min(i + chunk, N))
+        P = torch.softmax(torch.matmul(qs[..., rows, :], kf.transpose(-1, -2))
+                          + torch.matmul(f(relh[..., rows, :]), sf), dim=-1)
+        dP = torch.matmul(f(gr[..., rows, :]), vf.transpose(-1, -2))
+        dS = f((P * (dP - (dP * P).sum(-1, keepdim=True))).to(q.dtype))
+        dv += torch.matmul(f(P.to(q.dtype)).transpose(-1, -2), f(gr[..., rows, :]))
+        dq[..., rows, :] = torch.matmul(dS, kf) * scale
+        dk += torch.matmul(dS.transpose(-1, -2), f(q[..., rows, :])) * scale
+        drel[..., rows, :] = torch.matmul(dS, sf.transpose(-1, -2))
+        del P, dP, dS
+    return _unsplit(dq, dk, dv, qkv.dtype), drel.permute(2, 0, 1, 3).to(rel.dtype)
+
+
 # the fp32 backward (csrc/attn_bwd_f32.cu) holds at most 130 rel slots of a
-# key tile whatever H + W is: it takes what its forward takes
+# key tile whatever H + W is: it takes what its forward takes, and the bf16
+# backward as much (GLOBAL_BWD_MAX_LANES)
 F32_GLOBAL_BWD_MAX_LANES = F32_GLOBAL_MAX_LANES
+assert GLOBAL_BWD_MAX_LANES == F32_GLOBAL_BWD_MAX_LANES
 
 
 def flash_qkv_packed_global_bwd(qkv, rel, sel, g, scale, heads, d, H, W, o=None):
@@ -883,7 +1017,8 @@ def flash_qkv_packed_global_bwd(qkv, rel, sel, g, scale, heads, d, H, W, o=None)
     _check_global(name, qkv, rel, sel, heads, d, H, W)
     _check_bwd_grad(name, g, torch.bfloat16, (B, heads * d, N))
     if H + W > GLOBAL_BWD_MAX_LANES:
-        raise ValueError(f"{name}: CUDA kernel takes H+W <= {GLOBAL_BWD_MAX_LANES}, got {H + W}")
+        raise ValueError(f"{name}: CUDA kernel takes H+W <= {GLOBAL_BWD_MAX_LANES} (as its "
+                         f"fp32 instance; square images above 4096 px), got {H + W}")
     return _attn_bwd_launch(_cuda.QKV_GLOBAL_BWD, qkv, rel, g, B, N, H, W, H + W, heads, d,
                             scale)
 

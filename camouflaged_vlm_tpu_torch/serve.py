@@ -12,7 +12,11 @@ Counterpart of `camouflaged_vlm_tpu/serve.py`:
   normalisation, the all-ones stage-1 alpha and the mask's cast inside it;
   the class-text features are encoded once at start-up and the rel-pos
   tables attached once.
-- Host preprocessing (PIL resize to uint8) runs on the caller's thread.
+- Host preprocessing (resize to uint8) runs on the caller's thread:
+  `predict_bytes` decodes and resizes natively (`data/native.py`, the C
+  library with the GIL released, so concurrent request handlers do not
+  serialise on it; the PIL path's bytes), as does the response mask's
+  bilinear resize, unless CVLM_NATIVE_PREPROC=0; `predict_pil` runs PIL.
   The batching thread stacks a batch into pinned host memory, and on its
   own stream copies it to the bucket's static inputs, replays the graph
   and queues the outputs' copies into pinned host buffers of the batch's
@@ -23,8 +27,10 @@ Counterpart of `camouflaged_vlm_tpu/serve.py`:
   (`max_inflight` bounds the batches between the two threads).
 
 `InferenceEngine` is transport-agnostic (futures in, results out);
-`cli/serve.py` mounts it behind a stdlib HTTP front end. Not ported: the
-JAX engine's native JPEG decode path (`predict_bytes` decodes with PIL).
+`cli/serve.py` mounts it behind a stdlib HTTP front end. A body whose
+container the native decoder does not take (16-bit PNG, CMYK JPEG) goes
+through PIL, as in the JAX engine, and is counted (`stats()`'s
+"pil_fallbacks").
 
 With a `mesh` (`parallel.make_mesh`; the model sharded over its model
 group) every rank builds an engine. Rank 0 runs the front end and the
@@ -51,6 +57,8 @@ import numpy as np
 import torch
 from PIL import Image
 
+from .data import native as _nat
+from .data import native_pipeline as _npp
 from .data.transforms import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -171,6 +179,8 @@ class InferenceEngine:
             "latency_ms_max": 0.0,
             # per-bucket request latency (count/sum/max)
             "bucket_latency_ms": {},
+            # predict_bytes bodies the native decoder does not take (PIL ran)
+            "pil_fallbacks": 0,
         }
         self._ready = threading.Event()
         self._stop = False
@@ -329,15 +339,28 @@ class InferenceEngine:
         w, h = img.size
         fut = self.submit(sam_image_resized_u8(img, self.cfg.inp_size),
                           clip_image_resized_u8(img, self.cfg.clip_size))
-        return self._respond(fut, w, h, timeout, want_mask)
+        return self._respond(fut, w, h, timeout, want_mask, native=False)
 
     def predict_bytes(self, data: bytes, timeout: Optional[float] = None,
                       want_mask: bool = True) -> Dict:
-        """predict_pil on raw JPEG/PNG bytes (decoded with PIL; an
-        undecodable body raises OSError or ValueError)."""
+        """predict_pil on raw JPEG/PNG bytes, decoded and resized by the
+        native library (the same bytes as PIL's; the response mask's resize
+        native too) unless CVLM_NATIVE_PREPROC=0. A container the decoder
+        does not take goes through PIL (counted); an undecodable body raises
+        OSError or ValueError."""
+        if _nat.enabled():
+            img = _nat.decode(data, 3)
+            if img is not None:
+                h, w = img.shape[:2]
+                fut = self.submit(_npp.sam_image_resized_u8(img, self.cfg.inp_size),
+                                  _npp.clip_image_resized_u8(img, self.cfg.clip_size))
+                return self._respond(fut, w, h, timeout, want_mask, native=True)
+            with self._stats_lock:
+                self._stats["pil_fallbacks"] += 1
         return self.predict_pil(Image.open(io.BytesIO(data)), timeout, want_mask)
 
-    def _respond(self, fut: Future, w: int, h: int, timeout, want_mask: bool) -> Dict:
+    def _respond(self, fut: Future, w: int, h: int, timeout, want_mask: bool,
+                 native: bool) -> Dict:
         probs, pred, score = fut.result(timeout=timeout)
         cls_id = int(pred)
         out = {
@@ -354,7 +377,10 @@ class InferenceEngine:
         # uint8 program's mask
         m8 = probs if probs.dtype == np.uint8 else np.round(
             probs.astype(np.float32) * 255).astype(np.uint8)
-        out["mask"] = np.asarray(Image.fromarray(m8).resize((w, h), Image.BILINEAR))
+        if native:
+            out["mask"] = _nat.resize(m8, (w, h), _nat.BILINEAR)  # (h, w) in, (h, w) out
+        else:
+            out["mask"] = np.asarray(Image.fromarray(m8).resize((w, h), Image.BILINEAR))
         return out
 
     def stats(self) -> Dict:

@@ -93,6 +93,14 @@ never prints its last line):
               output, with times; and the plain-VJP Functions of the
               LN+qkv, LN+mask+qkv, out-projection and edge-attention
               kernels against autograd of their plain versions
+  7b. wide_global  #18 in bf16 past 128 rel lanes (the wide path) against
+              its plain backward (a head at a time) at the grids of 1280-,
+              1536- and 2048-px images (B 1, 16 heads x 80), times and
+              bounds; at <= 128 lanes the outputs' SHA-256 equal to the
+              checkout's before the wide path (GLOBAL_BWD_PARENT); one train step of the ViT-H cascade at img_size 1280
+              (full width, depth 2, global block 1 at 160 lanes), bf16
+              against fp32 on the card within bf16's bounds (loss 1e-2,
+              gradients 0.1), exact SAM attention launches
   8. train_small  one train step of the small cascade, bf16 on the card
               against fp32 on the CPU on the same weights and batch (loss
               and every trainable gradient), then the loss over 4 steps
@@ -127,6 +135,14 @@ never prints its last line):
               (windows 16 and 17 and ViT-B also traced at batch 2: the card's
               busy time),
               and the CLI's host metric work per image
+ 11b. preproc  the native host preprocessing on the card's host: g++ builds
+              camouflaged_vlm_tpu_torch/csrc/preproc, `native.status()`;
+              byte equality with the PIL path op by op and through the three
+              iterators (a rot90 pair, a 16-bit PNG through PIL, counted);
+              the evaluate CLI (ViT-H, bf16, batch 2) with each path: equal
+              results. ([serve] posts one /predict each way, equal
+              responses.) The paths' rates: cli/preproc_timing.py and
+              cli/eval_throughput.py --preproc
  12. f32_kernels  the fp32 instances on MaPLe training's path against their
               plain fp32 versions (TF32 off) within 1e-4 at its full-width
               shapes (batch 8 x 581 tokens, 1024 wide, 16 heads x 64): #2
@@ -234,7 +250,8 @@ theirs from [maple_slice]; the fp32 #1, #3, #13, #15 and #17 with theirs
 from [f32_slice], their batch-2 times in `batch2_*` keys; the fp32 #14 and
 #18 with theirs from [f32_train_slice], at batch 2 with the batch-1 times
 in `batch1_*` keys; the kernels of [tp_kernels] with their rows at a
-tensor-parallel rank's widths in `tp`), each with its launches on its path, or, for
+tensor-parallel rank's widths in `tp`; #18 with its rows at [wide_global]'s
+grids in `wide`, their launches from its train step), each with its launches on its path, or, for
 #9 and #19, which no path reaches, in their check with a "path" field
 saying so, and its times on both clocks (`ms`, `plain_ms`, `library_ms` on an
 idle card; `queued_ms`, `library_queued_ms` queued) and the host's cost of
@@ -455,6 +472,13 @@ def phase_build():
     from camouflaged_vlm_tpu_torch.ops import _cuda
     from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
 
+    from camouflaged_vlm_tpu_torch.data import native
+
+    # the host preprocessing's C library (g++), which the CLIs load at start-up
+    t0 = time.perf_counter()
+    line = native.status()
+    log(f"[build] host preprocessing {line} in {time.perf_counter() - t0:.2f} s (g++: "
+        f"{native.build_info or 'built earlier'})")
     t0 = time.perf_counter()
     path = _cuda.build()
     _cuda.library()
@@ -482,6 +506,8 @@ def phase_build():
                       r"|17qkv_relpos_kernelILi80E|17qkv_relpos_kernelILi64ELi\dELi\dELb\dELb1E"
                       r"|21attn_bwd_query_kernelILi80E"
                       r"|19attn_bwd_key_kernelILi80E|20attn_bwd_prep_kernel|17attn_fullk_kernel"
+                      r"|26attn_bwd_wide_query_kernelILi80E|24attn_bwd_wide_key_kernelILi80E"
+                      r"|25attn_bwd_wide_prep_kernel"
                       r"|19mlp_bwd_dual_kernel|18ln_bwd_rows_kernel"
                       r"|6f32bwd\S*?attn_bwd_f32_\w+?_kernelILi80E)\S*)'", ln)
         if m and m.group(1) not in seen:
@@ -583,7 +609,8 @@ def phase_build():
     # the attention backward at d = 80, as the library sizes it
     # (`_cuda.attn_bwd_smem`): the path, each pass's dynamic shared memory and
     # ring stages
-    for site, hw, lanes in (("#14 windows", 14, 32), ("#18 global", 64, 128)):
+    for site, hw, lanes in (("#14 windows", 14, 32), ("#18 global", 64, 128),
+                            *((f"#18 global {g}x{g}", g, 2 * g) for g in WIDE_GRIDS)):
         plan = _cuda.attn_bwd_smem(80, hw, hw, lanes, fa.attn_bwd_lanes(lanes))
         log(f"[build] dynamic shared memory per block: {site} ({plan['path']} path): "
             f"attn_bwd_query_kernel {plan['query_smem']} B, {plan['query_stages']} stages; "
@@ -2011,6 +2038,193 @@ def phase_grads():
     return results
 
 
+# #18's wide path (H + W > 128 rel lanes): the square grids of 1280-, 1536-
+# and 2048-px images, at ViT-H's width (B = 1, 16 heads x 80)
+WIDE_GRIDS = (80, 96, 128)
+# the image size of [wide_global]'s train step: the smallest grid past 64 x
+# 64 that a user sets in the yaml (`encoder.img_size`)
+WIDE_TRAIN_PX = 1280
+
+
+def global_bwd_by_head(qkv, rel, sel, g, scale, heads, d, H, W):
+    """#18's plain backward one head at a time: the same function as
+    `flash_qkv_packed_global_bwd_ref`, whose (heads, N, N) fp32 products
+    would not fit the card at N = 128 x 128."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+
+    B, N, _ = qkv.shape
+    q5, g4 = qkv.view(B, N, 3, heads, d), g.view(B, heads, d, N)
+    dqkv = torch.empty_like(qkv).view(B, N, 3, heads, d)
+    drel = torch.empty_like(rel)
+    for h in range(heads):
+        dq, dr = fa.flash_qkv_packed_global_bwd_ref(
+            q5[:, :, :, h].reshape(B, N, 3 * d), rel[:, :, h:h + 1].contiguous(), sel,
+            g4[:, h].contiguous(), scale, 1, d)
+        dqkv[:, :, :, h] = dq.view(B, N, 3, d)
+        drel[:, :, h:h + 1] = dr
+    return dqkv.view(B, N, -1), drel
+
+
+# #18's narrow paths (<= 128 lanes), batch 2 at ViT-H's width: the register
+# path (64 x 64, PERF.md's row 18), the general path at 128 lanes (48 x 40)
+# and at 32 (14 x 14); `global_bwd_case(i, ...)` draws case i's inputs
+GLOBAL_BWD_NARROW = ((2, 64, 64), (2, 48, 40), (2, 14, 14))
+# the SHA-256 of (dqkv, drel) of those cases on the checkout before the wide
+# path (commit fb1dc90), from `cli/kernel_timing.py --root <that checkout>
+# --global-bwd` on an NVIDIA H100 80GB HBM3 (700.00 W) with the toolkit named
+# here: [wide_global] holds this checkout's launches to them. Another nvcc
+# may order a kernel's sums otherwise: rerun that command on the old
+# checkout and replace both.
+GLOBAL_BWD_PARENT = {
+    "toolkit": "Build cuda_12.9.r12.9/compiler.36037853_0",
+    "sha256": {
+        "2x64x64": "2ae733a0b714933da78d092296ecf429882d5f13d9a0d5b3e1e3d936b6b832f0",
+        "2x48x40": "38b0c990a0c3d61625b95aa89c19fd3960f1b5e8a33082ade2d90a4b6595ee85",
+        "2x14x14": "3d4b5de95db577d4a102b1caf727d0f3c8432938d6dedf4cad1cec479a5880d9",
+    },
+}
+
+
+def global_bwd_case(i, B, H, W, heads=16, d=80):
+    """#18's arguments at batch B on an H x W grid, drawn on the host by
+    numpy from seed i (the same draw on any torch build), bf16 on the card."""
+    import torch
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(i)
+    N = H * W
+
+    def rn(*shape, std=1.0):
+        x = rng.standard_normal(shape, dtype=np.float32)
+        return (torch.from_numpy(x).cuda() * std).to(torch.bfloat16)
+
+    return (rn(B, N, 3 * heads * d), rn(N, B, heads, H + W),
+            fa.make_rel_scatter(H, W, torch.bfloat16, torch.device("cuda")),
+            rn(B, heads * d, N, std=0.05), d ** -0.5, heads, d, H, W)
+
+
+def outputs_sha256(tensors) -> str:
+    """The SHA-256 of the tensors' bytes in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def nvcc_release() -> str:
+    """The toolkit's build line of `nvcc --version` (e.g. cuda_12.8.r12.8/...)."""
+    import subprocess
+
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+
+    out = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True, text=True).stdout
+    return out.strip().splitlines()[-1]
+
+
+def phase_wide_global():
+    """#18 in bf16 past 128 rel lanes (the wide path, csrc/attn_bwd.cu
+    `ab_wide`): against its plain backward within 1e-2 at the grids of
+    1280-, 1536- and 2048-px images (B = 1, 16 heads x 80), with times and
+    bounds; at <= 128 lanes (GLOBAL_BWD_NARROW) the SHA-256 of its outputs
+    equal to the checkout's before the wide path (GLOBAL_BWD_PARENT, where
+    this build's toolkit is the one they were taken with); then one train step
+    of the ViT-H cascade at img_size 1280 (full width, depth 2: a windowed
+    block on the compact carry and global block 1 on #17 / #18 at 160
+    lanes), bf16 against fp32 on the card on the same weights within bf16's
+    bounds (loss 1e-2, gradients 0.1), with the step's exact SAM attention
+    launches. Returns the #18 rows at the wide grids."""
+    import torch
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
+    from camouflaged_vlm_tpu_torch.factory import build_cascade
+    from camouflaged_vlm_tpu_torch.models import CascadeConfig
+    from camouflaged_vlm_tpu_torch.ops import _cuda
+    from camouflaged_vlm_tpu_torch.ops import flash_attention as fa
+
+    HD, NH = 80, 16
+    # the narrow paths at <= 128 lanes against the checkout before the wide
+    # path, by the hashes of its outputs on the same seeded inputs
+    toolkit = nvcc_release()
+    same_toolkit = toolkit == GLOBAL_BWD_PARENT["toolkit"]
+    for i, (B, H, W) in enumerate(GLOBAL_BWD_NARROW):
+        lpc = fa.attn_bwd_lanes(H + W)
+        got = outputs_sha256(fa.flash_qkv_packed_global_bwd(*global_bwd_case(i, B, H, W)))
+        want = GLOBAL_BWD_PARENT["sha256"][f"{B}x{H}x{W}"]
+        log(f"[wide_global] #18 at batch {B}, {H}x{W} ({H + W} lanes, lpc {lpc}, "
+            f"{_cuda.attn_bwd_smem(HD, H, W, H + W, lpc)['path']} path): SHA-256 of (dqkv, "
+            f"drel) {got[:12]}, the checkout before the wide path {want[:12]}: "
+            + (f"bit-equal {got == want}" if same_toolkit else
+               f"not compared: those were taken with {GLOBAL_BWD_PARENT['toolkit']}, this "
+               f"build is {toolkit}"))
+        check(got == want or not same_toolkit,
+              f"wide_global: #18 at {B}x{H}x{W} is not bit-equal to the checkout before the "
+              "wide path")
+    rows = []
+    for G in WIDE_GRIDS:
+        N, L = G * G, 2 * G
+        lpc = fa.attn_bwd_lanes(L)
+        plan = _cuda.attn_bwd_smem(HD, G, G, L, lpc)
+        check(plan["path"] == "wide", f"wide_global: {G}x{G} takes the {plan['path']} path")
+        args = global_bwd_case(len(GLOBAL_BWD_NARROW) + WIDE_GRIDS.index(G), 1, G, G, NH, HD)
+        r = _check_grads(f"flash_qkv_packed_global_bwd (wide, {G}x{G} grid, {L} lanes, lpc "
+                         f"{lpc}, qkv 1x{N}x3840; query pass {plan['query_smem']} B x "
+                         f"{plan['query_stages']} stages, key pass {plan['key_smem']} B x "
+                         f"{plan['key_stages']})", fa.flash_qkv_packed_global_bwd,
+                         global_bwd_by_head, args, ["dqkv", "drel"],
+                         flops=10.0 * NH * N * N * HD, reads=(args[0], args[1], args[3]),
+                         tag="wide_global")
+        rows.append(dict(grid=f"{G}x{G}", image_px=16 * G, lanes=L, lpc=lpc, **plan, **r))
+        del args
+        torch.cuda.empty_cache()
+
+    # the train step at 1280 px: bf16 against fp32 on the card, same weights
+    cfg32 = CascadeConfig.full(dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg32, inp_size=WIDE_TRAIN_PX, encoder=dataclasses.replace(
+        cfg32.encoder, img_size=WIDE_TRAIN_PX, depth=2, global_attn_indexes=(1,)))
+    cfg16 = CascadeConfig.full(dtype=torch.bfloat16)
+    cfg16 = dataclasses.replace(cfg16, inp_size=WIDE_TRAIN_PX, encoder=dataclasses.replace(
+        cfg16.encoder, img_size=WIDE_TRAIN_PX, depth=2, global_attn_indexes=(1,)))
+    batch = _small_batch(cfg32, B=1)
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 as the train CLI runs it
+    torch.backends.cudnn.allow_tf32 = False
+    model32 = build_cascade(cfg32, "cuda", seed=6)
+    l32, g32, _, _, _ = step_grads(model32, cfg32, batch, TEST_CLASS_NAMES, "cuda")
+    model16 = build_cascade(cfg16, "cuda", seed=6)
+    model16.load_state_dict(model32.state_dict(), strict=True)
+    del model32
+    torch.cuda.empty_cache()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    l16, g16, _, _, _ = step_grads(model16, cfg16, batch, TEST_CLASS_NAMES, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    del model16
+    enc = cfg16.encoder
+    check_sam_attention(counts, enc, "wide_global", backward=True)
+    launches = counts["flash_qkv_packed_global_bwd"]
+    check(launches == 1, f"wide_global: #18 launched {launches} times in the 1280-px step")
+    check(np.isfinite(l16) and all(bool(torch.isfinite(t).all()) for t in g16.values()),
+          "wide_global: the bf16 step at 1280 px is not finite")
+    dl = abs(l16 - l32) / abs(l32)
+    rels, floor = grad_gaps("wide_global", g32, g16)
+    log(f"[wide_global] one train step at img_size {WIDE_TRAIN_PX} (grid {enc.grid}, global "
+        f"block {enc.global_attn_indexes} at {2 * enc.grid} lanes, window {enc.window_size}), "
+        f"full width, depth {enc.depth}, batch 1: bf16 against fp32 on the card, same weights: "
+        f"loss {l16:.6f} vs {l32:.6f} (rel {dl:.3e}, bound {TRAIN_SMALL_LOSS_REL_BOUND}); "
+        f"{describe_gaps(rels, floor)} (bound {TRAIN_SMALL_GRAD_REL_BOUND}); the bf16 step's wall "
+        f"{wall * 1e3:.1f} ms (one step, text features included); #18 launches {launches}")
+    check(dl < TRAIN_SMALL_LOSS_REL_BOUND, f"wide_global: loss differs by {dl}")
+    check(max(rels.values()) < TRAIN_SMALL_GRAD_REL_BOUND, f"wide_global: gradients {rels}")
+    del g32, g16
+    torch.cuda.empty_cache()
+    return [dict(row, launches=launches) for row in rows]
+
+
 def _small_batch(cfg, B=2, seed=7):
     rng = np.random.default_rng(seed)
     S, C = cfg.inp_size, cfg.clip_size
@@ -2460,6 +2674,186 @@ def phase_eval_slice():
     return runs
 
 
+# [preproc]: seeded OVCamo-like pairs (a 700 x 500 JPEG image, a PNG mask
+# of its size: `scripts/bench_native_preproc.py`'s source size)
+PREPROC_PAIRS = 8
+
+
+def first_diff(got, want) -> str:
+    """'' where the two arrays are byte-equal, else where they first differ."""
+    got, want = np.ascontiguousarray(got), np.ascontiguousarray(want)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return f"{got.shape}/{got.dtype} vs {want.shape}/{want.dtype}"
+    a, b = got.view(np.uint8).reshape(-1), want.view(np.uint8).reshape(-1)
+    idx = np.flatnonzero(a != b)
+    if not idx.size:
+        return ""
+    i = int(idx[0])
+    return (f"{idx.size} of {a.size} bytes differ, the first at byte {i} (element "
+            f"{np.unravel_index(i // got.itemsize, got.shape)}): {a[i]} vs {b[i]}")
+
+
+def _preproc_extra_samples(work):
+    """A rot90 pair (the mask's size transposed: the fix-up) and a 16-bit
+    grey PNG image (a container the native decoder does not take: PIL)."""
+    from PIL import Image
+    from camouflaged_vlm_tpu_torch.data.ovcamo import OVCamoSample
+
+    rng = np.random.default_rng(9)
+    os.makedirs(work, exist_ok=True)
+    out = []
+    for name, img in (("rot90", rng.integers(0, 256, (500, 700, 3), np.uint8)),
+                      ("png16", rng.integers(0, 65535, (500, 700), np.int32))):
+        ip, mp = os.path.join(work, f"{name}.png"), os.path.join(work, f"{name}_mask.png")
+        Image.fromarray(img, mode="I" if img.dtype == np.int32 else "RGB").save(ip)
+        shape = (700, 500) if name == "rot90" else (500, 700)
+        Image.fromarray(((rng.random(shape) > 0.5) * 255).astype(np.uint8), "L").save(mp)
+        out.append(OVCamoSample(class_label="cat", class_id=0, image_path=ip, mask_path=mp))
+    return out
+
+
+def phase_preproc():
+    """The native host preprocessing on the card's host: the build of
+    `camouflaged_vlm_tpu_torch/csrc/preproc` (g++ at first use), its
+    `status()`; byte equality with the PIL path, op by op (decode, the
+    three resamples, luma, rot90, flip, normalise) on seeded 700 x 500
+    JPEG + PNG pairs, then sample by sample through the three iterators
+    (eval at fp32 and uint8, train, MaPLe; a rot90 pair and a 16-bit PNG
+    among them, the latter through PIL and counted); the evaluate CLI (ViT-H
+    yaml, bf16, batch 2, graphed) on the pairs with each path: equal
+    results. The paths' rates are not measured here: `cli/preproc_timing.py`
+    (samples/s at 1 and 8 threads) and `cli/eval_throughput.py --preproc`
+    (the CLI over 300 images) take them at a size that reaches a steady
+    state."""
+    import subprocess
+
+    import PIL
+    import torch
+    import yaml
+    from PIL import Image, features
+    from camouflaged_vlm_tpu_torch.cli import evaluate
+    from camouflaged_vlm_tpu_torch.data import loader, native
+    from camouflaged_vlm_tpu_torch.data import transforms as T
+    from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES, OVCamoIndex
+    from camouflaged_vlm_tpu_torch.data.synthetic import write_synthetic_ovcamo
+
+    check(native.enabled(), "preproc: CVLM_NATIVE_PREPROC turns the native path off")
+    gxx = subprocess.run([native._cxx(), "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    built = {part: round(b["seconds"], 2) for part, b in native.build_info.items()}
+    log(f"[preproc] {native.status()}; built in [build] "
+        f"({f'{built} s' if built else 'built earlier'}); "
+        f"{gxx}; Pillow "
+        f"{PIL.__version__} (libjpeg-turbo {features.check_feature('libjpeg_turbo')}, jpeg "
+        f"{features.version_codec('jpg')}, zlib {features.version_codec('zlib')}); host CPUs "
+        f"{os.cpu_count()}")
+    work = os.path.join("build", "chip_smoke_preproc")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        info = write_synthetic_ovcamo(os.path.join(work, "ovcamo"), n_train=0,
+                                      n_test=PREPROC_PAIRS, seed=4,
+                                      test_classes=tuple(TEST_CLASS_NAMES), sizes=((500, 700),))
+        with open(info) as f:
+            index = OVCamoIndex.from_dataset_info(yaml.safe_load(f), "test")
+        # op by op
+        fails = []
+        for s in index.samples:
+            pim = Image.open(s.image_path).convert("RGB")
+            img = np.asarray(pim)
+            pmask = Image.open(s.mask_path).convert("L")
+            mask = np.asarray(pmask)
+            short = (336, round(336 * img.shape[0] / img.shape[1]))
+            ops = {
+                "decode (JPEG, RGB)": (native.decode_file(s.image_path, 3), img),
+                "decode (PNG, L)": (native.decode_file(s.mask_path, 1)[:, :, 0], mask),
+                "resize bilinear 1024": (native.resize(img, (1024, 1024), native.BILINEAR),
+                                         np.asarray(pim.resize((1024, 1024), Image.BILINEAR))),
+                "resize nearest 1024": (native.resize(mask, (1024, 1024), native.NEAREST),
+                                        np.asarray(pmask.resize((1024, 1024), Image.NEAREST))),
+                "resize bicubic 336": (native.resize(img, short, native.BICUBIC),
+                                       np.asarray(pim.resize(short, Image.BICUBIC))),
+                "luma": (native.rgb2l(img), np.asarray(pim.convert("L"))),
+                "rot90": (native.rot90ccw(img), np.rot90(img)),
+                "flip": (native.fliplr(img), np.asarray(pim.transpose(Image.FLIP_LEFT_RIGHT))),
+                "normalise": (native.normalize(img, T.IMAGENET_MEAN, T.IMAGENET_STD),
+                              (img.astype(np.float32) / 255.0 - T.IMAGENET_MEAN)
+                              / T.IMAGENET_STD),
+            }
+            fails += [f"{op} on {os.path.basename(s.image_path)}: {d}"
+                      for op, (got, want) in ops.items() if (d := first_diff(got, want))]
+        log(f"[preproc] op by op on {len(index.samples)} seeded 700x500 JPEG + PNG pairs "
+            f"({len(ops)} ops each), native against PIL: "
+            f"{'byte-equal' if not fails else fails[:5]}")
+        check(not fails, f"preproc: the native ops differ from PIL: {fails[:5]}")
+        # sample by sample through the three iterators, native against PIL
+        extra = _preproc_extra_samples(os.path.join(work, "extra"))
+        full = OVCamoIndex(split="test", classes=index.classes, samples=index.samples + extra)
+        runs = {}
+        for mode in ("native", "PIL"):
+            os.environ["CVLM_NATIVE_PREPROC"] = "1" if mode == "native" else "0"
+            loader.reset_pil_fallbacks()
+            try:
+                runs[mode] = {
+                    "eval": list(loader.iter_eval_batches(full, 4, 1024, 336, num_workers=4)),
+                    "eval uint8": list(loader.iter_eval_batches(full, 4, 1024, 336,
+                                                                num_workers=4, raw_uint8=True)),
+                    "train": list(loader.iter_train_batches(full, 4, np.random.default_rng(5),
+                                                            1024, 336, num_workers=4)),
+                    "maple": list(loader.iter_maple_train_batches(
+                        full, 4, np.random.default_rng(5), 336, num_workers=4)),
+                }
+            finally:
+                os.environ.pop("CVLM_NATIVE_PREPROC", None)
+            runs[mode + " fallbacks"] = loader.pil_fallbacks()
+        fails = []
+        for it in ("eval", "eval uint8", "train", "maple"):
+            for bi, (a, b) in enumerate(zip(runs["native"][it], runs["PIL"][it])):
+                pairs = ([(f"{k}[{j}]", getattr(x, k), getattr(y, k)) for j, (x, y)
+                          in enumerate(zip(a, b)) for k in ("inp", "gt", "clip_image")]
+                         if it.startswith("eval") else [(k, a[k], b[k]) for k in a])
+                fails += [f"{it} batch {bi} {k}: {d}" for k, x, y in pairs
+                          if (d := first_diff(x, y))]
+        n_it = len(full.samples)
+        # the 16-bit PNG in each of the 4 runs, where the decoder is built
+        want = 4 if native.decoder() is not None else 0
+        log(f"[preproc] the eval (fp32, uint8), train and MaPLe iterators over {n_it} samples "
+            "(the pairs, a rot90 pair, a 16-bit PNG), native against PIL: "
+            f"{'byte-equal' if not fails else fails[:5]}; samples through PIL with the native "
+            f"path on: {runs['native fallbacks']} (expected {want})")
+        check(not fails, f"preproc: the native samples differ from PIL: {fails[:5]}")
+        check(runs["native fallbacks"] == want, f"preproc: {runs['native fallbacks']} fallbacks")
+        del runs
+
+        # the evaluate CLI on the pairs with each path
+        res = {}
+        for mode in ("native", "PIL"):
+            os.environ["CVLM_NATIVE_PREPROC"] = "1" if mode == "native" else "0"
+            try:
+                torch.cuda.empty_cache()
+                t = time.perf_counter()
+                res[mode] = evaluate.main(["--dataset-info", info, "--config", VIT_H_YAML,
+                                           "--device", "cuda", "--dtype", "bfloat16",
+                                           "--batch-size", "2", "--output-dir",
+                                           os.path.join(work, f"eval_{mode}")])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            finally:
+                os.environ.pop("CVLM_NATIVE_PREPROC", None)
+            log(f"[preproc] evaluate CLI, ViT-H yaml, bf16, batch 2, graphed, "
+                f"{PREPROC_PAIRS} images, host preprocessing {mode}: images_per_sec "
+                f"{res[mode]['images_per_sec']} (a smoke figure: {PREPROC_PAIRS} images have no "
+                f"steady state; the paths' rates are cli/eval_throughput.py --preproc's over "
+                f"300 images and cli/preproc_timing.py's), CLI wall {wall:.1f} s (build, text "
+                f"encode, capture)")
+        strip = lambda r: {k: v for k, v in r.items() if k != "images_per_sec"}  # noqa: E731
+        same = strip(res["native"]) == strip(res["PIL"])
+        log(f"[preproc] evaluate's results native and PIL equal (images_per_sec aside): {same}")
+        check(same, f"preproc: evaluate differs: {res}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(status=native.status(), build_s=built)
+
+
 def eval_graph_vs_eager(info, path, graphed_f16, batch):
     """evaluate() of the ViT-H configuration (the CLI's model and bank, the
     same seed) on the 5 images at batch 2, the last batch short, graphed and
@@ -2800,21 +3194,39 @@ def phase_serve(images):
             buf = io.BytesIO()
             images[1].save(buf, format="PNG")
             conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
-            t0 = time.perf_counter()
-            conn.request("POST", "/predict", body=buf.getvalue())
-            r = conn.getresponse()
-            body = r.read()
-            rt = 1e3 * (time.perf_counter() - t0)
-            resp = json.loads(body)
-            check(r.status == 200 and resp["class"] in names and "mask_png_b64" in resp,
-                  f"serve: HTTP {r.status} {body[:200]}")
+            # one round trip with the body decoded and resized natively, one
+            # through PIL (CVLM_NATIVE_PREPROC=0, read a request at a time):
+            # the same response
+            resps = {}
+            for mode in ("native", "PIL"):
+                if mode == "PIL":
+                    os.environ["CVLM_NATIVE_PREPROC"] = "0"
+                try:
+                    t0 = time.perf_counter()
+                    conn.request("POST", "/predict", body=buf.getvalue())
+                    r = conn.getresponse()
+                    body = r.read()
+                    rt = 1e3 * (time.perf_counter() - t0)
+                finally:
+                    os.environ.pop("CVLM_NATIVE_PREPROC", None)
+                resp = json.loads(body)
+                check(r.status == 200 and resp["class"] in names and "mask_png_b64" in resp,
+                      f"serve: HTTP {r.status} {body[:200]}")
+                resps[mode] = resp
+                log(f"[serve] HTTP POST /predict on localhost ({images[1].size[0]}x"
+                    f"{images[1].size[1]} PNG), host preprocessing {mode}: 200, class "
+                    f"{resp['class']!r}, round trip {rt:.1f} ms (the server's latency_ms "
+                    f"{resp['latency_ms']})")
             conn.request("GET", "/metrics")
             metrics = conn.getresponse().read().decode()
             conn.close()
-            log(f"[serve] HTTP POST /predict on localhost ({images[1].size[0]}x"
-                f"{images[1].size[1]} PNG): 200, class {resp['class']!r}, round trip "
-                f"{rt:.1f} ms (the server's latency_ms {resp['latency_ms']}); /metrics "
+            same = all(resps["native"][k] == resps["PIL"][k]
+                       for k in ("class", "class_id", "score", "mask_png_b64"))
+            log(f"[serve] /predict native and PIL responses equal (class, score, mask PNG): "
+                f"{same}; PIL fallbacks {engine.stats()['pil_fallbacks']}; /metrics "
                 f"{metrics.splitlines()[0]}")
+            check(same, "serve: /predict differs between the native and the PIL path")
+            check(engine.stats()["pil_fallbacks"] == 0, "serve: a PNG body went through PIL")
         finally:
             server.shutdown()
             server.server_close()
@@ -4244,6 +4656,10 @@ def phase_f32_train_remat():
 # the configurations of [f32_routes]: those of [eval_slice] off the
 # reference one, whose routes launch the fp32 #10, #20, #12 and #11 + #8
 F32_ROUTES = ("vit_b_flash", "vit_h_aug_flash", "vit_h_flash_win16", "vit_h_flash_win17")
+# the routes whose bf16 cascade [f32_routes] measures against fp32 at full
+# depth: #10's rounding point (ViT-B's unfused blocks), #20's ('aug_flash')
+# and the padded window carry at window 17
+F32_ROUTE_GAPS = ("vit_b_flash", "vit_h_aug_flash", "vit_h_flash_win17")
 
 
 def _route_config(label, work):
@@ -4387,9 +4803,9 @@ def phase_f32_routes():
     test images, batch 2: exact launches of the fp32 instances and none of
     a bf16 kernel, TF32 off after the CLI; each configuration's cascade at
     batch 1 on the card against the host's CPU (`_route_vs_cpu`), and its
-    full-depth call's wall at batch 1 and 2 (`_route_walls`; on window 17
-    with the bf16 cascade's gap to fp32). Returns each configuration's
-    launch counts."""
+    full-depth call's wall at batch 1 and 2 (`_route_walls`; on ViT-B,
+    'aug_flash' and window 17 with the bf16 cascade's gap to fp32 at full
+    depth, `F32_ROUTE_GAPS`). Returns each configuration's launch counts."""
     import torch
     from camouflaged_vlm_tpu_torch.cli import evaluate
     from camouflaged_vlm_tpu_torch.data.ovcamo import TEST_CLASS_NAMES
@@ -4439,7 +4855,7 @@ def phase_f32_routes():
             check_no_bf16_kernel(counts, f"[f32_routes] {label}")
             runs[label] = counts
             _route_vs_cpu(cfg, label, images[0])
-            _route_walls(cfg, label, images, gap=label == "vit_h_flash_win17")
+            _route_walls(cfg, label, images, gap=label in F32_ROUTE_GAPS)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return runs
@@ -4984,11 +5400,13 @@ def main() -> None:
     timed(phase_bench)
     timed(phase_profile)
     grads = timed(phase_grads)
+    grads["flash_qkv_packed_global_bwd"]["wide"] = timed(phase_wide_global)
     timed(phase_train_small)
     train_counts = timed(phase_train_slice)
     timed(phase_train_val)
     timed(phase_unfused)
     evals = timed(phase_eval_slice)
+    timed(phase_preproc)
     f32 = timed(phase_f32_kernels)
     timed(phase_maple_small)
     maple_counts = timed(phase_maple_slice)
@@ -5034,6 +5452,7 @@ def main() -> None:
          **({"cascade": F32_CASCADE_ROWS[k]} if k in F32_CASCADE_ROWS else {}),
          **{k2: v for k2, v in r.items() if k2.startswith(("batch2_", "batch1_"))},
          **({"path": r["path"]} if k in no_path else {}),
+         **({"wide": r["wide"]} if "wide" in r else {}),
          **({"tp": tp[k]} if k in tp else {})}
         for res in (results, grads, f32) for k, r in res.items()
     ]

@@ -57,7 +57,9 @@ def kernel_bwd_emulation(qkv, rel, g, scale, heads, d, H, W):
     """csrc/attn_bwd.cu's backward in torch: qkv (BB, N, 3 heads d), rel (N,
     BB, heads, L), g (BB, heads d, N), bf16 -> (dqkv, drel) in bf16. fp32
     arithmetic on the bf16 values; the biased scores [q*scale | rel] .
-    [k | code]^T (the register path adds the same two bf16 lanes in fp32)."""
+    [k | code]^T (the register path adds the same two bf16 lanes in fp32).
+    Past 128 lanes the wide path's key tiles: 64 keys of one line of the
+    grid's longer side, chunk by chunk, and its drel rule."""
     BB, N, _ = qkv.shape
     L = rel.shape[-1]
     lpc = fa.attn_bwd_lanes(L)
@@ -68,7 +70,12 @@ def kernel_bwd_emulation(qkv, rel, g, scale, heads, d, H, W):
     relh = rel.float().permute(1, 2, 0, 3)  # (BB, heads, N, L)
     gr = g.float().reshape(BB, heads, d, N).transpose(-1, -2)
     code = fa.rel_code(H, W, lpc).float()[:, :L]  # (N, L)
-    tiles = [slice(t, min(t + fa.ATTN_BWD_TILE, N)) for t in range(0, N, fa.ATTN_BWD_TILE)]
+    if lpc > 128:  # the wide path: key tiles along the grid's lines, c major
+        lay = fa.attn_bwd_wide_layout(H, W)
+        tiles = [torch.tensor([lay.key(b, a) for a in range(64 * c, min(64 * c + 64, lay.nA))])
+                 for c in range(lay.nc) for b in range(lay.nB)]
+    else:
+        tiles = [slice(t, min(t + fa.ATTN_BWD_TILE, N)) for t in range(0, N, fa.ATTN_BWD_TILE)]
 
     def scores(ks):  # biased scores against key slice ks, log2 units; and dP
         s = qs @ k[..., ks, :].transpose(-1, -2) + relh @ code[ks].T
@@ -91,15 +98,16 @@ def kernel_bwd_emulation(qkv, rel, g, scale, heads, d, H, W):
         return p, (p * (dp - t[..., None])).to(BF).float()
 
     # sweep 2: dq and drel; the key pass: dk and dv from the same statistics
-    dq, dk, dv, dS = torch.zeros_like(q), torch.zeros_like(q), torch.zeros_like(q), []
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(q), torch.zeros_like(q)
+    dS = torch.zeros(BB, heads, N, N)
     for ks in tiles:
         p, ds = p_ds(ks)
         dq += ds @ k[..., ks, :]
-        dS.append(ds)
+        dS[..., ks] = ds
         dv[..., ks, :] = p.to(BF).float().transpose(-1, -2) @ gr
         dk[..., ks, :] = ds.transpose(-1, -2) @ q
-    dS = torch.cat(dS, -1)
-    drel = fa.drel_w64_ref(dS, H) if reg else dS @ code
+    drel = (fa.drel_w64_ref(dS, H) if reg else fa.drel_wide_ref(dS, H, W) if lpc > 128
+            else dS @ code)
 
     def rows(a):
         return a.transpose(1, 2).reshape(BB, N, heads * d)
@@ -230,10 +238,15 @@ def test_windows_bwd_emulation_matches_jax_vjp(rng, win, dtype):
                                        pytest.param(2, 64, F32, id="2-64-float32"),
                                        pytest.param(10, 10, F32, id="10-10-float32"),
                                        pytest.param(3, 50, F32, id="3-50-float32"),
-                                       pytest.param(2, 130, F32, id="2-130-float32")])
+                                       pytest.param(2, 130, F32, id="2-130-float32"),
+                                       pytest.param(5, 130, BF, id="5-130"),
+                                       pytest.param(131, 3, BF, id="131-3")])
 def test_global_bwd_emulation_matches_jax_vjp(rng, H, W, dtype):
     """#18 on a 2 x 64 grid (the bf16 register path's rule: a 64-key tile is
     a grid row) and on 10 x 10 (the general path, 20 lanes, a ragged tile);
+    in bf16 past 128 lanes the wide path on 5 x 130 (rows are the lines,
+    three chunks, the last of 2 keys) and 131 x 3 (columns are the lines,
+    odd in count);
     in fp32 also on 3 x 50 (two 128-key tiles, grid row 2 across their
     boundary and across the query kernel's 64-key steps) and 2 x 130 (W >
     128: a rel_w slot a key, the rel_w sums in drel itself)."""
@@ -251,6 +264,25 @@ def test_global_bwd_emulation_matches_jax_vjp(rng, H, W, dtype):
     port = fa.flash_qkv_packed_global_bwd_ref(_t(qkv, dtype), _t(rel, dtype), sel.to(dtype),
                                               _t(gy, dtype), scale, heads, d)
     _check(got, want, port, GATE if dtype == BF else F32_GATE)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_global_bwd_ref_by_query_chunks(rng, dtype):
+    """The plain backward a block of queries at a time (the card tests' at
+    the largest grids) is the whole one's: dq and drel row by row, dk and dv
+    summed over the blocks; a chunk that leaves a short last block."""
+    B, heads, d, H, W = 2, 2, 16, 6, 11
+    N = H * W
+    qkv = _t(_draw(rng, dtype, B, N, 3 * heads * d), dtype)
+    rel = _t(_draw(rng, dtype, N, B, heads, H + W, scale=0.5), dtype)
+    gy = _t(_draw(rng, dtype, B, heads * d, N), dtype)
+    args = (qkv, rel, fa.make_rel_scatter(H, W).to(dtype), gy, d ** -0.5, heads, d)
+    for got, want in zip(fa.flash_qkv_packed_global_bwd_ref_chunked(*args, chunk=16),
+                         fa.flash_qkv_packed_global_bwd_ref(*args)):
+        if dtype == F32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        else:  # the same fp32 values, rounded once to bf16: at most one bf16 step apart
+            torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=1e-6)
 
 
 @pytest.mark.parametrize("d", [64, 80])
@@ -303,23 +335,86 @@ def test_drel_w64_rule_equals_the_scatter_product(rng, H):
     (8, 64, 72, 16, 128),
     (64, 32, 96, 64, 128),
     (10, 10, 20, 32, 32),
-    (50, 50, 100, 80, 128),   # up to GLOBAL_BWD_MAX_LANES
+    (50, 50, 100, 80, 128),   # the narrow paths' last lanes
+    (80, 80, 160, 80, 256),   # 1280-px images: the wide path
+    (96, 30, 126, 80, 128),
+    (130, 7, 137, 16, 256),
+    (256, 256, 512, 80, 512),  # up to GLOBAL_BWD_MAX_LANES
 ])
 def test_attn_bwd_scratch(H, W, L, d, lpc):
     """The scratch the wrapper hands `cvlm_attn_bwd`: the lanes padded to 32
-    or 128, an even number of 64-row tiles covering N, aux tiles of [q*scale
-    | lanes | g | q | k | v] columns, four statistics a row, the code tiles."""
+    or a multiple of 128, an even number of 64-row tiles covering N, aux
+    tiles of [q*scale | lanes | g | q | k | v] columns (the wide path: query
+    tiles of [q*scale | rel_A | rel_B | g | q], then the key tiles [k | v]),
+    four statistics a row, the code tiles (the wide path's 16)."""
     BB, heads, N = 2, 3, H * W
-    qkv = torch.zeros(BB, N, 3 * heads * d, dtype=BF)
+    qkv = torch.zeros(BB, N, 3 * heads * d, dtype=BF, device="meta")  # sizes only
     got_lpc, ntp, aux, stats, code = fa.attn_bwd_scratch(qkv, BB, N, H, W, L, heads, d)
+    assert code.is_meta
+    code = fa.attn_bwd_scratch(torch.zeros(1, 1, 3 * d, dtype=BF), 1, N, H, W, L, 1, d)[4]
     assert got_lpc == fa.attn_bwd_lanes(L) == lpc and ntp == fa.attn_bwd_tiles(N)
-    assert aux.shape == (BB, heads, ntp, (5 * d + lpc) // 8, 64, 8) and aux.dtype == BF
     assert stats.shape == (BB * heads, ntp * 64, 4) and stats.dtype == torch.float32
-    assert code.shape == (ntp, lpc // 8, 64, 8) and code.dtype == BF
-    assert torch.equal(code, fa.row_tiles(fa.rel_code(H, W, lpc), ntp))
+    assert aux.dtype == code.dtype == BF
+    if lpc <= 128:
+        assert aux.shape == (BB, heads, ntp, (5 * d + lpc) // 8, 64, 8)
+        assert code.shape == (ntp, lpc // 8, 64, 8)
+        assert torch.equal(code, fa.row_tiles(fa.rel_code(H, W, lpc), ntp))
+        return
+    lay = fa.attn_bwd_wide_layout(H, W)
+    assert (lay.nA, lay.nB) == (max(H, W), min(H, W)) and lay.nB <= 256
+    cols = ntp * (3 * d // 8 + 8 * lay.nc + 2 * -(-lay.nB // 16)) + lay.nBe * lay.nc * d // 4
+    assert aux.shape == (BB, heads, cols, 64, 8) == (BB, heads, lay.aux_columns(ntp, d), 64, 8)
+    assert code.shape == (16, 10, 64, 8)
+    assert torch.equal(code, fa.wide_code_tiles())
 
 
-@pytest.mark.parametrize("H,W,lpc", [(14, 14, 32), (9, 7, 32), (64, 64, 128), (10, 10, 128)])
+@pytest.mark.parametrize("L,lpc", [(20, 32), (32, 32), (33, 128), (128, 128), (129, 256),
+                                   (160, 256), (384, 384), (400, 512), (512, 512)])
+def test_attn_bwd_lanes(L, lpc):
+    """The lanes padded to 32, or to a multiple of 128 up to
+    GLOBAL_BWD_MAX_LANES, which is the fp32 backward's (512)."""
+    assert fa.attn_bwd_lanes(L) == lpc
+    assert fa.GLOBAL_BWD_MAX_LANES == fa.F32_GLOBAL_BWD_MAX_LANES == 512
+
+
+def test_attn_bwd_lanes_refuse_past_512():
+    with pytest.raises(ValueError, match="at most 512 rel lanes, got 513"):
+        fa.attn_bwd_lanes(513)
+
+
+@pytest.mark.parametrize("H,W", [(80, 80), (96, 96), (128, 128), (5, 130), (131, 3), (17, 300),
+                                 (256, 256)])
+def test_drel_wide_rule_equals_the_scatter_product(rng, H, W):
+    """The wide path's drel: per key tile (64 keys of one line of the longer
+    side) the shorter side's lane gets the tile's row sum and the longer
+    side's 64 lanes the tile itself, summed over the lines: dS . sel^T."""
+    dS = torch.from_numpy(rng.standard_normal((1, 3, H * W)).astype(np.float32)).to(BF).float()
+    want = dS @ fa.make_rel_scatter(H, W).T
+    torch.testing.assert_close(fa.drel_wide_ref(dS, H, W), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("H,W", [(80, 80), (5, 130), (131, 3)])
+def test_wide_code_picks_a_keys_two_lanes(rng, H, W):
+    """The wide key pass's bias chain: a key tile's [k | code j] against a
+    query's [q*scale | rel_A chunk c | the 16 rel_B lanes around line b] adds
+    exactly rel_A[64 c + r] + rel_B[b] to key r's score (j = b % 16)."""
+    lay = fa.attn_bwd_wide_layout(H, W)
+    code = fa.wide_code()
+    assert code.shape == (16, 64, 80) and torch.equal(code.float().sum(-1), torch.full((16, 64), 2.))
+    rel = torch.from_numpy(rng.standard_normal((H + W,)).astype(np.float32)).to(BF).float()
+    relA = torch.nn.functional.pad(rel[lay.offA:lay.offA + lay.nA], (0, 64 * lay.nc - lay.nA))
+    relB = torch.nn.functional.pad(rel[lay.offB:lay.offB + lay.nB], (0, 16 * -(-lay.nB // 16)))
+    for b in (0, lay.nB - 1):
+        for c in range(lay.nc):
+            lanes = torch.cat([relA[64 * c:64 * c + 64], relB[16 * (b // 16):16 * (b // 16) + 16]])
+            got = code[b % 16].float() @ lanes
+            for r in range(min(64, lay.nA - 64 * c)):
+                want = rel[lay.key(b, 64 * c + r) // W] + rel[H + lay.key(b, 64 * c + r) % W]
+                assert got[r] == want
+
+
+@pytest.mark.parametrize("H,W,lpc", [(14, 14, 32), (9, 7, 32), (64, 64, 128), (10, 10, 128),
+                                     (80, 80, 256), (256, 256, 512)])
 def test_rel_code_is_the_padded_scatter(H, W, lpc):
     code = fa.rel_code(H, W, lpc)
     assert code.shape == (H * W, lpc) and code.dtype == BF and code.is_contiguous()

@@ -475,6 +475,49 @@ def test_eval_throughput_reports_each_run(tmp_path):
     assert not work.exists()
 
 
+def test_eval_throughput_runs_each_host_preprocessing(tmp_path, monkeypatch):
+    """With --preproc each word is one run with that host preprocessing, in
+    order, on the same split: the same results, the row naming its path; the
+    switch is as it was after."""
+    from camouflaged_vlm_tpu_torch.cli import eval_throughput
+
+    monkeypatch.delenv("CVLM_NATIVE_PREPROC", raising=False)
+    out = tmp_path / "out"
+    rows = eval_throughput.main(["--configs", "tiny", "--device", "cpu", "--dtype", "float32",
+                                 "--images", "3", "--batch-sizes", "2", "--iters", "1",
+                                 "--preproc", "PIL", "native", "--work", str(tmp_path / "w"),
+                                 "--out", str(out)])
+    assert [r["host_preproc"] for r in rows] == ["PIL", "native"]
+    assert rows[0]["preproc_status"].startswith("PIL (CVLM_NATIVE_PREPROC=0)")
+    assert rows[1]["preproc_status"].startswith("native (libcvtpre: ")
+    assert rows[0]["cascade_call_ms"] == rows[1]["cascade_call_ms"]
+    results = [json.loads((out / f"tiny_b2_{m}" / "results.json").read_text())
+               for m in ("PIL0", "native1")]
+    results = [{k: v for k, v in r.items() if k != "images_per_sec"} for r in results]
+    assert results[0] == results[1]
+    assert "CVLM_NATIVE_PREPROC" not in os.environ
+
+
+def test_preproc_timing_reports_both_paths(tmp_path, monkeypatch):
+    """The samples/s script on seeded 700 x 500 pairs: one row a thread
+    count, two readings of each path, the pairs removed."""
+    from camouflaged_vlm_tpu_torch.cli import preproc_timing
+
+    monkeypatch.delenv("CVLM_NATIVE_PREPROC", raising=False)
+    work = tmp_path / "pairs"
+    rows = preproc_timing.main(["--pairs", "2", "--samples", "3", "--threads", "1", "2",
+                                "--work", str(work)])
+    assert [r["threads"] for r in rows] == [1, 2]
+    for r in rows:
+        assert r["size"] == [500, 700] and r["samples"] == 3
+        for k in ("pil_samples_per_sec", "native_samples_per_sec"):
+            assert len(r[k]) == 2 and all(np.isfinite(v) and v > 0 for v in r[k])
+    assert not work.exists()
+    monkeypatch.setenv("CVLM_NATIVE_PREPROC", "0")
+    with pytest.raises(SystemExit, match="compares both paths"):
+        preproc_timing.main(["--work", str(work)])
+
+
 def test_evaluate_cli_checkpoint_flags_assemble_as_jax_cli(synthetic, tmp_path, monkeypatch):
     """The CLI with the reference's four files (--sam-ckpt, --clip-ckpt,
     --maple-ckpt, --text-bank; tiny, fp32) builds the model and the test
@@ -524,7 +567,10 @@ def test_port_imports_nothing_of_the_jax_package():
     import and jax stays unloaded; and no source file of the port, nor
     chip_smoke.py, graft_entry_torch.py or ab_fullsize_torch.py (which
     chip_smoke.py imports on the card's host) names the JAX package or jax
-    in an import."""
+    in an import; and the port's native preprocessing builds from its own
+    sources alone: g++'s command names no file, include or library path
+    outside `camouflaged_vlm_tpu_torch/`, and its dependency list (-MM:
+    every header but the system's) holds none either."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['camouflaged_vlm_tpu'] = None\n"
@@ -569,3 +615,17 @@ def test_port_imports_nothing_of_the_jax_package():
                 top = mod.split(".")[0]
                 assert top not in ("camouflaged_vlm_tpu", "jax", "jaxlib", "flax", "optax"), \
                     (path, mod)
+
+    from camouflaged_vlm_tpu_torch.data import native
+
+    pkg = os.path.join(REPO, "camouflaged_vlm_tpu_torch") + os.sep
+    for part, (sources, _) in native.PARTS.items():
+        cmd = native.build_command(part, native.library_path(part))
+        srcs = [a for a in cmd if a.endswith(".cc")]
+        assert len(srcs) == len(sources) and all(a.startswith(pkg) for a in srcs), cmd
+        assert not any(a.startswith(("-I", "-L", "-include", "-isystem")) for a in cmd), cmd
+        deps = subprocess.run([cmd[0], *native.CXXFLAGS, "-MM", *srcs], capture_output=True,
+                              text=True, check=True, cwd=REPO).stdout
+        read = [f for f in deps.replace("\\\n", " ").split() if not f.endswith(":")]
+        assert read and all(os.path.realpath(os.path.join(REPO, f)).startswith(pkg)
+                            for f in read), read

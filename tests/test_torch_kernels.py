@@ -1033,6 +1033,38 @@ def test_flash_qkv_packed_global_bwd_float32_lane_limit(gen, no_tf32):
         flash_attention.flash_qkv_packed_global_bwd(*args, o=_bwd_out(args))
 
 
+def test_flash_qkv_packed_global_bwd_lane_limit(gen):
+    """The bf16 #18 takes H + W <= GLOBAL_BWD_MAX_LANES, its fp32
+    instance's 512: at the limit it runs, one past it it refuses, naming
+    the limit."""
+    limit = flash_attention.GLOBAL_BWD_MAX_LANES
+    assert limit == flash_attention.F32_GLOBAL_BWD_MAX_LANES == 512
+    args = _global_bwd_args(gen, 1, 2, limit - 2, 1, 64)
+    _grad_close(flash_attention.flash_qkv_packed_global_bwd(*args),
+                flash_attention.flash_qkv_packed_global_bwd_ref(*args[:7]))
+    args = _global_bwd_args(gen, 1, 2, limit - 1, 1, 64)
+    with pytest.raises(ValueError, match=f"H\\+W <= {limit}"):
+        flash_attention.flash_qkv_packed_global_bwd(*args)
+
+
+@pytest.mark.parametrize("H,W,d", [(256, 256, 80), (250, 262, 80), (200, 300, 128),
+                                   (256, 256, 128)])
+def test_flash_qkv_packed_global_bwd_largest_grids(gen, H, W, d):
+    """The wide path at the largest grids it takes (B 1, one head): a
+    shorter side of 250 or 256 at d 80, where the query pass's [64][B] fp32
+    drel_B array leaves the ring two stages, and past 192 at d 128, where it
+    leaves one; against the plain backward a block of queries at a time
+    (the whole one's (N, N) fp32 products would not fit the card)."""
+    plan = _cuda.attn_bwd_smem(d, H, W, H + W, flash_attention.attn_bwd_lanes(H + W))
+    assert plan["path"] == "wide" and plan["query_smem"] <= _cuda.SMEM_MAX
+    assert plan["query_stages"] == (2 if d == 80 else 1)
+    args = _global_bwd_args(gen, 1, H, W, 1, d)
+    before = _cuda.QKV_GLOBAL_BWD.launches
+    got = flash_attention.flash_qkv_packed_global_bwd(*args)
+    assert _cuda.QKV_GLOBAL_BWD.launches == before + 1
+    _grad_close(got, flash_attention.flash_qkv_packed_global_bwd_ref_chunked(*args[:7]))
+
+
 def test_attention_bwd_kernels_at_vit_h_width(gen):
     """ViT-H's full width at a reduced batch: the interior windows of one
     image (16 windows of 196 keys) and one image's global block (the 64 x 64
@@ -1075,13 +1107,17 @@ def test_attention_bwd_kernels_float32_are_deterministic(gen):
 
 @pytest.mark.parametrize("H,W,heads,d,path", [
     (4, 64, 2, 80, "register"), (3, 64, 3, 64, "register"), (2, 64, 1, 128, "register"),
-    (4, 60, 2, 80, "general"), (3, 63, 3, 64, "general"), (2, 62, 1, 128, "general")])
+    (4, 60, 2, 80, "general"), (3, 63, 3, 64, "general"), (2, 62, 1, 128, "general"),
+    (80, 80, 2, 80, "wide"), (5, 130, 2, 64, "wide"), (131, 3, 2, 128, "wide"),
+    (3, 200, 1, 16, "wide"), (17, 300, 1, 32, "wide")])
 def test_flash_qkv_packed_global_bwd_paths(gen, H, W, heads, d, path):
-    """Both paths the C entry picks at 128 lanes: on an H x 64 grid the
+    """The three paths the C entry picks: at 128 lanes on an H x 64 grid the
     register path (bias in registers, drel as row sums and the dS tiles
     themselves), on other widths the general path (bias and drel through
-    the key code on the tensor cores)."""
-    assert _cuda.attn_bwd_smem(d, H, W, H + W, 128)["path"] == path
+    the key code on the tensor cores); past 128 lanes the wide path (key
+    tiles along the grid's lines, the longer side's 64 lanes a tile)."""
+    assert _cuda.attn_bwd_smem(d, H, W, H + W,
+                               flash_attention.attn_bwd_lanes(H + W))["path"] == path
     args = _global_bwd_args(gen, 2, H, W, heads, d)
     before = _cuda.QKV_GLOBAL_BWD.launches
     got = flash_attention.flash_qkv_packed_global_bwd(*args)
